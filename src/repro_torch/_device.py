@@ -1,0 +1,17 @@
+"""Device resolution: the port runs on the card unless asked otherwise."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means ``"cuda"``. A CUDA device without a card raises
+    ``RuntimeError``: the CPU is used only when the caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device and none is available; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
+    return dev

@@ -1,0 +1,92 @@
+"""The six benchmark objectives, in torch, maximized (paper §6.1, Eq. 3).
+
+Each maps ``pos[..., D] -> fit[...]`` with the same operations in the same
+order as ``repro.core.fitness``; classical minimization benchmarks are
+negated. The CUDA kernels carry per-thread forms of the same arithmetic
+(``kernels/csrc/pso_step.cu``), selected by ``FITNESS_IDS``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict
+
+import torch
+
+from .problem import Problem, register_problem
+
+
+def cubic(pos: torch.Tensor) -> torch.Tensor:
+    """Paper Eq. 3, maximized: sum_i x_i^3 - 0.8 x_i^2 - 1000 x_i + 8000."""
+    x = pos
+    return torch.sum(x * x * x - 0.8 * (x * x) - 1000.0 * x + 8000.0, dim=-1)
+
+
+def sphere(pos: torch.Tensor) -> torch.Tensor:
+    """Negated sphere: max at origin, f(0) = 0."""
+    return -torch.sum(pos * pos, dim=-1)
+
+
+def rosenbrock(pos: torch.Tensor) -> torch.Tensor:
+    """Negated Rosenbrock (D >= 2; for D == 1 degenerates to -(1-x)^2)."""
+    x = pos
+    if x.shape[-1] == 1:
+        t = 1.0 - x
+        return -(t * t).squeeze(-1)
+    a, b = x[..., :-1], x[..., 1:]
+    u = b - a * a
+    t = 1.0 - a
+    return -torch.sum(100.0 * (u * u) + t * t, dim=-1)
+
+
+def griewank(pos: torch.Tensor) -> torch.Tensor:
+    x = pos
+    d = x.shape[-1]
+    idx = torch.arange(1, d + 1, dtype=x.dtype, device=x.device)
+    s = torch.sum(x * x, dim=-1) / 4000.0
+    p = torch.prod(torch.cos(x / torch.sqrt(idx)), dim=-1)
+    return -(s - p + 1.0)
+
+
+def rastrigin(pos: torch.Tensor) -> torch.Tensor:
+    x = pos
+    d = x.shape[-1]
+    return -(10.0 * d + torch.sum(x * x - 10.0 * torch.cos(2.0 * math.pi * x),
+                                  dim=-1))
+
+
+def ackley(pos: torch.Tensor) -> torch.Tensor:
+    x = pos
+    d = x.shape[-1]
+    s1 = torch.sqrt(torch.sum(x * x, dim=-1) / d)
+    s2 = torch.sum(torch.cos(2.0 * math.pi * x), dim=-1) / d
+    return -(-20.0 * torch.exp(-0.2 * s1) - torch.exp(s2) + 20.0 + math.e)
+
+
+# Declaration order fixes FITNESS_IDS (the kernels' template index), so keep
+# it the reference's.
+BUILTIN_PROBLEMS = tuple(register_problem(p) for p in (
+    Problem(name="cubic", fn=cubic, lo=-100.0, hi=100.0),
+    Problem(name="sphere", fn=sphere, lo=-100.0, hi=100.0),
+    Problem(name="rosenbrock", fn=rosenbrock, lo=-30.0, hi=30.0),
+    Problem(name="griewank", fn=griewank, lo=-600.0, hi=600.0),
+    Problem(name="rastrigin", fn=rastrigin, lo=-5.12, hi=5.12),
+    Problem(name="ackley", fn=ackley, lo=-32.0, hi=32.0),
+))
+
+FITNESS_FNS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    p.name: p.fn for p in BUILTIN_PROBLEMS}
+
+#: Stable integer ids for kernel-side selection.
+FITNESS_IDS: Dict[str, int] = {name: i for i, name in enumerate(FITNESS_FNS)}
+
+
+def builtin_id(problem: Problem) -> int:
+    """The kernel id of a built-in Problem; other objectives raise, since
+    the kernels carry only the six hand-written forms."""
+    name = problem.name
+    if name in FITNESS_IDS and problem == BUILTIN_PROBLEMS[FITNESS_IDS[name]]:
+        return FITNESS_IDS[name]
+    from .problem import _CUSTOM_ITEM
+    raise NotImplementedError(
+        f"custom objective {name!r} on the kernel backend is not ported yet "
+        f"({_CUSTOM_ITEM}); use backend='eager'")

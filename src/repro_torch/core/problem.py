@@ -1,0 +1,161 @@
+"""Optimization problems as data: the port of ``repro.core.problem``.
+
+``fn`` maps a torch tensor ``pos[..., D] -> fit[...]``. The engine always
+MAXIMIZES: ``sense="min"`` canonicalizes through ``max_fn`` (negation) and
+results convert back with ``user_value``. ``lo``/``hi`` are a scalar or a
+length-D tuple (per-dimension boxes), normalized so the Problem stays
+hashable. Constraints and hand-written kernel forms are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple, Union
+
+Bound = Union[float, Tuple[float, ...]]
+
+#: ROADMAP item that ports constraint sets and custom kernel objectives.
+_CUSTOM_ITEM = ("ROADMAP.md, port order item 3 (constraints and custom "
+                "objectives)")
+
+
+def _norm_bound(v) -> Bound:
+    """Normalize a bound to a hashable float or tuple-of-floats."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    try:
+        return tuple(float(x) for x in v)
+    except TypeError:
+        raise TypeError(f"bound must be a scalar or a sequence, got {v!r}")
+
+
+def broadcast_bounds(lo: Bound, hi: Bound) -> Tuple[Bound, Bound]:
+    """Make a (lo, hi) pair rank-consistent: if exactly one side is
+    per-dimension, broadcast the scalar side to match."""
+    if isinstance(lo, tuple) and not isinstance(hi, tuple):
+        hi = (float(hi),) * len(lo)
+    elif isinstance(hi, tuple) and not isinstance(lo, tuple):
+        lo = (float(lo),) * len(hi)
+    return lo, hi
+
+
+@dataclasses.dataclass(frozen=True)
+class Problem:
+    """A named objective with bounds and sense — frozen and hashable.
+
+    ``lo``/``hi`` may be scalars or length-D tuples; a ``bounds=(lo, hi)``
+    pair may be passed instead of the two fields. ``constraints=`` and
+    ``kernel_fn=`` raise ``NotImplementedError`` until the port carries
+    them.
+    """
+
+    name: str
+    fn: Callable
+    lo: Bound = -100.0
+    hi: Bound = 100.0
+    sense: str = "max"
+    kernel_fn: Optional[Callable] = None
+    constraints: Optional[object] = None
+    bounds: dataclasses.InitVar[Optional[Tuple[Bound, Bound]]] = None
+
+    def __post_init__(self, bounds):
+        if self.constraints is not None:
+            raise NotImplementedError(
+                f"Problem(constraints=...) is not ported yet: {_CUSTOM_ITEM}")
+        if self.kernel_fn is not None:
+            raise NotImplementedError(
+                f"Problem(kernel_fn=...) is not ported yet: {_CUSTOM_ITEM}")
+        lo, hi = bounds if bounds is not None else (self.lo, self.hi)
+        lo, hi = broadcast_bounds(_norm_bound(lo), _norm_bound(hi))
+        if isinstance(lo, tuple):
+            if len(lo) != len(hi):
+                raise ValueError(
+                    f"lo/hi lengths differ: {len(lo)} vs {len(hi)}")
+            bad = not all(l <= h for l, h in zip(lo, hi))
+        else:
+            bad = not lo <= hi
+        if bad:
+            raise ValueError(f"need lo <= hi elementwise, got {lo} / {hi}")
+        if self.sense not in ("min", "max"):
+            raise ValueError(
+                f"sense must be 'min' or 'max', got {self.sense!r}")
+        if not (isinstance(self.name, str) and self.name):
+            raise ValueError("Problem.name must be a non-empty string")
+        if not callable(self.fn):
+            raise TypeError("Problem.fn must be callable")
+        object.__setattr__(self, "lo", lo)
+        object.__setattr__(self, "hi", hi)
+
+    @property
+    def max_fn(self) -> Callable:
+        """``fn`` in the engine's canonical maximization convention, cached
+        on the instance so repeated accesses return the same object."""
+        if self.sense == "max":
+            return self.fn
+        cached = self.__dict__.get("_max_fn")
+        if cached is None:
+            fn = self.fn
+
+            def cached(pos):
+                return -fn(pos)
+
+            cached.__name__ = f"neg_{getattr(fn, '__name__', 'fn')}"
+            object.__setattr__(self, "_max_fn", cached)
+        return cached
+
+    def user_value(self, canonical_fit):
+        """Map a canonical (maximized) fitness back to the user's sense."""
+        return -canonical_fit if self.sense == "min" else canonical_fit
+
+    @property
+    def ndim(self) -> Optional[int]:
+        """Dimensionality pinned by per-dimension bounds (None if scalar)."""
+        return len(self.lo) if isinstance(self.lo, tuple) else None
+
+
+_REGISTRY: Dict[str, Problem] = {}
+
+
+def register_problem(problem: Union[Problem, str], fn: Callable = None, *,
+                     overwrite: bool = False, **kwargs) -> Problem:
+    """Register a Problem under its name: ``register_problem(Problem(...))``
+    or ``register_problem("mine", f, lo=-1.0, hi=1.0, sense="min")``.
+    Re-registering an identical Problem is a no-op; different content under
+    an existing name raises unless ``overwrite=True``."""
+    if isinstance(problem, str):
+        problem = Problem(name=problem, fn=fn, **kwargs)
+    elif fn is not None or kwargs:
+        raise TypeError("pass either a Problem or (name, fn, **fields)")
+    old = _REGISTRY.get(problem.name)
+    if old is not None and old != problem and not overwrite:
+        raise ValueError(
+            f"problem {problem.name!r} already registered with different "
+            f"content; pass overwrite=True to replace it")
+    _REGISTRY[problem.name] = problem
+    return problem
+
+
+def get_problem(name: str) -> Problem:
+    from . import fitness  # noqa: F401  (registers the six built-ins)
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown problem {name!r}; registered: "
+            f"{', '.join(sorted(_REGISTRY)) or '<none>'}") from None
+
+
+def list_problems() -> Tuple[str, ...]:
+    from . import fitness  # noqa: F401  (registers the six built-ins)
+    return tuple(sorted(_REGISTRY))
+
+
+def resolve_problem(obj: Union[str, Problem, Callable]) -> Problem:
+    """str -> registry lookup; Problem -> itself; bare callable -> an
+    anonymous max-sense Problem with the default [-100, 100] box."""
+    if isinstance(obj, Problem):
+        return obj
+    if isinstance(obj, str):
+        return get_problem(obj)
+    if callable(obj):
+        return Problem(name=getattr(obj, "__name__", "anonymous"), fn=obj)
+    raise TypeError(f"cannot resolve {obj!r} to a Problem")

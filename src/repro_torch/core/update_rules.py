@@ -1,0 +1,112 @@
+"""Per-particle update rules, the port of ``repro.core.update_rules``.
+
+A rule's ``advance`` is elementwise and broadcast-clean, so one body serves
+the eager engine's ``[N, D]`` arrays (with a ``[1, D]`` or ``[N, D]``
+attractor) and the kernels' plain versions on ``[D, N]`` arrays (with a
+``[D, 1]`` attractor). The operations run in the reference's order. Every
+rule draws two uniforms per (particle, dim) from the streams ``STREAM_R1``
+and ``STREAM_R2``; the CUDA kernels carry the same three rules, selected by
+``RULE_IDS``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateRule:
+    """Frozen spec for one per-particle update rule. ``advance`` returns
+    the new ``(pos, vel)``; ``mv``/``lo``/``hi`` are Python floats or
+    tensors broadcasting against ``pos``."""
+
+    name: str = "pso"
+
+    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def kernel_consts(self) -> Tuple[float, float, float]:
+        """The three rule constants the CUDA kernels take as floats."""
+        return (0.0, 0.0, 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class PSORule(UpdateRule):
+    """Canonical inertia-weight PSO — the default rule."""
+
+    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi):
+        vel = (w * vel + c1 * r1 * (pbp - pos) + c2 * r2 * (gp - pos))
+        vel = torch.clamp(vel, -mv, mv)
+        pos = torch.clamp(pos + vel, lo, hi)
+        return pos, vel
+
+
+@dataclasses.dataclass(frozen=True)
+class SSORule(UpdateRule):
+    """Simplified Swarm Optimization (arXiv 2110.01470): copy from gbest
+    (``r1 < cg``), pbest (``< cg+cp``), keep (``< cg+cp+cw``), or resample
+    uniformly in the box from ``r2``. Velocity passes through."""
+
+    cg: float = 0.4
+    cp: float = 0.3
+    cw: float = 0.2
+
+    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi):
+        fresh = lo + (hi - lo) * r2
+        pos = torch.where(
+            r1 < self.cg, gp,
+            torch.where(r1 < self.cg + self.cp, pbp,
+                        torch.where(r1 < self.cg + self.cp + self.cw, pos,
+                                    fresh)))
+        pos = torch.clamp(pos, lo, hi)
+        return pos, vel
+
+    def kernel_consts(self):
+        # The thresholds are summed in Python (double), as the reference's
+        # weak-typed constants are, and rounded to float32 by the caller.
+        return (self.cg, self.cg + self.cp, self.cg + self.cp + self.cw)
+
+
+@dataclasses.dataclass(frozen=True)
+class LowCostRule(UpdateRule):
+    """Low-complexity PSO (arXiv 1401.0546): Bernoulli-selected difference
+    terms, no stochastic multiplies."""
+
+    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi):
+        zero = torch.zeros_like(pos)
+        vel = (vel + torch.where(r1 < 0.5, pbp - pos, zero)
+               + torch.where(r2 < 0.5, gp - pos, zero))
+        vel = torch.clamp(vel, -mv, mv)
+        pos = torch.clamp(pos + vel, lo, hi)
+        return pos, vel
+
+
+UPDATE_RULES: Dict[str, UpdateRule] = {
+    "pso": PSORule("pso"),
+    "sso": SSORule("sso"),
+    "lowcost": LowCostRule("lowcost"),
+}
+
+#: Stable integer ids for kernel-side selection (the CUDA template index).
+RULE_IDS: Dict[str, int] = {"pso": 0, "sso": 1, "lowcost": 2}
+
+#: block-neighborhood topologies of the async variant ("gbest" is the star)
+TOPOLOGIES: Tuple[str, ...] = ("gbest", "ring", "vonneumann")
+
+
+def rule_names() -> Tuple[str, ...]:
+    return tuple(sorted(UPDATE_RULES))
+
+
+def resolve_rule(rule) -> UpdateRule:
+    """Name or instance -> :class:`UpdateRule`."""
+    if isinstance(rule, UpdateRule):
+        return rule
+    got = UPDATE_RULES.get(rule)
+    if got is None:
+        raise ValueError(
+            f"unknown update rule {rule!r}; one of {rule_names()}")
+    return got

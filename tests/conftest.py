@@ -16,6 +16,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running test, excluded from tier-1 unless --runslow")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips inside the test without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,181 @@
+"""repro_torch.api on the CPU: solve against repro.solve(backend="jnp") for
+every variant at a few iterations, Method validation, the features that
+are not ported yet, the no-card error, and the port's independence of JAX
+and of the reference package.
+
+Tolerance: three iterations from the same seed, positions within rtol=1e-4,
+atol=1e-4 and fitness within rtol=1e-5 (the per-step differences of
+tests/test_torch_core.py, compounded over three steps)."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro
+import repro_torch
+from repro_torch import api
+from repro_torch.core.problem import Problem
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+TRAJ_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.state.pos.numpy(),
+                               np.asarray(want.state.pos), **TRAJ_TOL)
+    np.testing.assert_allclose(got.best_pos, want.best_pos, **TRAJ_TOL)
+    np.testing.assert_allclose(got.best_fit, want.best_fit, rtol=1e-5)
+    assert got.state.iteration == int(want.state.iteration)
+
+
+@pytest.mark.parametrize("variant,backend", [
+    ("reduction", "eager"), ("queue", "eager"), ("queue_lock", "eager"),
+    ("async", "eager"), ("queue_lock", "kernel"), ("async", "kernel"),
+    ("queue_lock", "auto"), ("async", "auto")])
+def test_solve_cpu_matches_reference(variant, backend):
+    kw = dict(dim=3, particles=128, iters=3, seed=7, variant=variant,
+              sync_every=2)
+    want = repro.solve("rastrigin", backend="jnp", **kw)
+    got = repro_torch.solve("rastrigin", backend=backend, device="cpu", **kw)
+    _close(got, want)
+    assert float(got.state.gbest_fit) == float(got.state.pbest_fit.max())
+
+
+def test_solve_min_sense_and_per_dim_bounds():
+    def shifted(x):
+        return ((x - 1.0) ** 2).sum(-1)
+
+    prob = Problem(name="shifted", fn=shifted, lo=(-2.0, -3.0),
+                   hi=(2.0, 3.0), sense="min")
+    got = repro_torch.solve(prob, particles=64, iters=40, variant="queue",
+                            backend="eager", device="cpu")
+    assert got.config.dim == 2
+    assert 0.0 <= got.best_fit < 1e-2
+    assert got.best_fit == -got.gbest_fit
+    assert np.all(got.best_pos >= [-2.0, -3.0])
+
+
+def test_best_picks_highest_fitness():
+    rs = [repro_torch.solve("sphere", dim=2, particles=64, iters=i,
+                            device="cpu") for i in (0, 5)]
+    assert api.best(rs) is max(rs, key=lambda r: r.gbest_fit)
+    with pytest.raises(ValueError):
+        api.best([])
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(variant="nope"), "unknown variant"),
+    (dict(backend="jnp"), "unknown backend"),
+    (dict(variant="queue", backend="kernel"), "backend='kernel'"),
+    (dict(schedule="sometimes"), "unknown schedule"),
+    (dict(rule="nope"), "unknown update rule"),
+    (dict(topology="star"), "unknown topology"),
+    (dict(islands=-1), "islands"),
+    (dict(sync_every=0), "sync_every"),
+])
+def test_method_validation(kw, match):
+    with pytest.raises(ValueError, match=match):
+        api.Method(**kw)
+
+
+def test_method_auto_backend_follows_device():
+    m = api.Method(variant="async")
+    assert m.resolve_backend(torch.device("cuda")) == "kernel"
+    assert m.resolve_backend(torch.device("cpu")) == "eager"
+    assert api.Method(variant="queue").resolve_backend(
+        torch.device("cuda")) == "eager"
+
+
+def test_method_and_loose_kwargs_are_exclusive():
+    with pytest.raises(ValueError, match="either method="):
+        repro_torch.solve("cubic", method=api.Method(), variant="queue",
+                          device="cpu")
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(schedule="auto"), "item 9"),
+    (dict(islands=2), "item 7"),
+    (dict(telemetry=True), "item 5"),
+    (dict(record_history=True), "item 5"),
+    (dict(variant="async", topology="ring"), "item 4"),
+    (dict(variant="async", backend="kernel", topology="vonneumann"),
+     "item 4"),
+])
+def test_unported_method_features_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        api.Method(**kw)
+
+
+def test_unported_entry_points_and_problem_fields_raise():
+    with pytest.raises(NotImplementedError, match="item 2"):
+        api.solve_many("cubic", [0, 1])
+    with pytest.raises(NotImplementedError, match="item 6"):
+        api.solve_stream([])
+    with pytest.raises(NotImplementedError, match="item 3"):
+        Problem(name="c", fn=lambda x: x.sum(-1), constraints=object())
+    with pytest.raises(NotImplementedError, match="item 3"):
+        Problem(name="k", fn=lambda x: x.sum(-1), kernel_fn=lambda *a: 0)
+    with pytest.raises(NotImplementedError, match="custom objective"):
+        repro_torch.solve(lambda x: -(x * x).sum(-1), dim=2, particles=64,
+                          iters=1, variant="queue_lock", backend="kernel",
+                          device="cpu")
+
+
+def test_solve_without_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the no-card error cannot occur")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.solve("cubic", iters=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.solve("cubic", iters=1, device="cuda")
+
+
+def test_registry_exports():
+    assert repro_torch.list_problems()[:6] == tuple(sorted(
+        ["ackley", "cubic", "griewank", "rastrigin", "rosenbrock", "sphere"]))
+    assert repro_torch.get_problem("cubic") is repro_torch.resolve_problem(
+        "cubic")
+    cfg = repro_torch.PSOConfig(dim=2, fitness="griewank").resolved()
+    assert (cfg.min_pos, cfg.max_pos, cfg.max_v) == (-600.0, 600.0, 600.0)
+    with pytest.raises(AttributeError):
+        repro_torch.solve_stream  # noqa: B018
+
+
+def test_importing_the_port_loads_no_jax_or_reference():
+    code = ("import sys, repro_torch, repro_torch.api, "
+            "repro_torch.kernels.ops, repro_torch.kernels.pso_step\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(bad)\nassert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_import_no_jax_or_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, mod)

@@ -1,0 +1,387 @@
+"""repro_torch.kernels against repro.kernels on the CPU, plus the CUDA
+kernels against their plain versions on a card (``gpu``-marked; they skip
+inside the test when there is none).
+
+On the CPU the port's wrappers run the kernels' plain versions; the JAX
+kernels run in Pallas interpret mode or through the ``ref.py`` oracles.
+Tolerances, after each step from a shared state: positions, velocities
+and pbest positions within rtol=2e-6 and atol=max(1e-5, 1e-6 * box width),
+fitness within rtol=1e-5 and atol=1e-5 * max|fit|. XLA:CPU contracts the
+velocity chain (and the SSO rule's ``lo + (hi - lo) * r2``) into FMAs whose
+terms are of the order of the box, so a result near zero may differ by an
+ulp of the box width (1.2e-4 at griewank's 1200); an objective sums terms
+up to the swarm's largest fitness in another order, and where they cancel
+the difference is an ulp of those terms. Improvement masks and winners must
+be equal. The fused kernel's multi-block semantics are synchronous PPSO,
+so with several blocks it is held against ``ref.queue_step_oracle``
+iterated; with one block against ``ops.run_queue_lock_fused`` itself."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import pso
+from repro_torch.kernels import ops, pso_step
+
+try:
+    from repro.core import pso as jpso
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+except ModuleNotFoundError:     # a CUDA host may have no JAX installed
+    jpso = jops = jref = None
+
+torch.set_num_threads(1)
+
+FIT_TOL = dict(rtol=1e-5, atol=1e-5)
+FITNESS = ("cubic", "sphere", "rosenbrock", "griewank", "rastrigin", "ackley")
+
+
+@pytest.fixture
+def cuda():
+    """The card, decided inside the test so every worker collects alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run on the H100 with "
+                    "`python -m pytest -m gpu tests/test_torch_kernels.py`")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def reference():
+    """The JAX reference, for the parity tests on the CPU."""
+    if jpso is None:
+        pytest.skip("needs the JAX reference package `repro`, and JAX is "
+                    "not installed")
+
+
+def _cfgs(fit, rule="pso", d=3, n=128):
+    return (jpso.PSOConfig(dim=d, particle_cnt=n, fitness=fit,
+                           update_rule=rule).resolved(),
+            pso.PSOConfig(dim=d, particle_cnt=n, fitness=fit,
+                          update_rule=rule).resolved())
+
+
+def _np(s):
+    return {k: (None if getattr(s, k) is None else np.asarray(getattr(s, k)))
+            for k in s._fields}
+
+
+def _dmajor(js):
+    """A JAX state's fields as the port's D-major kernel operands."""
+    return ops.state_to_kernel(pso.state_from_numpy(_np(js), device="cpu"))
+
+
+def _pos_tol(spec):
+    width = max(np.max(np.subtract(spec.hi, spec.lo)), 1.0)
+    return dict(rtol=2e-6, atol=max(1e-5, 1e-6 * width))
+
+
+def _assert_dmajor_close(got, pos, vel, pbp, pbf, gp, gf, spec):
+    for a, b in ((got[0], pos), (got[1], vel), (got[2], pbp), (got[4], gp)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b).reshape(a.shape),
+                                   **_pos_tol(spec))
+    scale = max(1.0, float(np.max(np.abs(np.asarray(pbf)))))
+    for a, b in ((got[3], pbf), (got[5], gf)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b).reshape(a.shape),
+                                   rtol=1e-5, atol=1e-5 * scale)
+
+
+def _assert_same_improvements(got_pbf, want_pbf, old_pbf):
+    """The pbest improvement masks agree wherever the new fitness is not
+    tied with the old pbest at the fitness tolerance: a particle that lands
+    on its pbest again (SSO copies it) re-evaluates the same point, and an
+    ulp of the objective's rounding decides that tie."""
+    got, want = got_pbf > old_pbf, want_pbf > old_pbf
+    scale = 1e-5 * max(1.0, float(np.max(np.abs(old_pbf))))
+    clear = np.abs(np.maximum(got_pbf, want_pbf) - old_pbf) > scale
+    assert np.array_equal(got[clear], want[clear])
+
+
+def _oracle_kw(cfg, d):
+    kw = jops._cfg_kwargs(cfg)
+    kw["d_real"] = d
+    return kw
+
+
+_SINGLE = [(f, r, *((128, 1), (256, 3), (128, 8))[i % 3])
+           for i, (f, r) in enumerate(
+               (f, r) for f in FITNESS for r in ("pso", "sso", "lowcost"))]
+
+
+@pytest.mark.parametrize("fit,rule,n,d", _SINGLE)
+def test_fused_plain_single_block_matches_pallas_kernel(fit, rule, n, d,
+                                                        reference):
+    jc, tc = _cfgs(fit, rule, d, n)
+    spec = ops.kernel_spec(tc)
+    js = jpso.init_swarm(jc, 3)
+    for _ in range(3):                        # step by step from shared state
+        want = jops.run_queue_lock_fused(jc, js, 1, block_n=n, interpret=True)
+        s = pso.state_from_numpy(_np(js), device="cpu")
+        got = pso_step.fused_plain(*ops.state_to_kernel(s), spec,
+                                   seed=s.seed, iteration=s.iteration,
+                                   iters=1, block_n=n)
+        _assert_dmajor_close(got, want.pos.T, want.vel.T, want.pbest_pos.T,
+                             want.pbest_fit, want.gbest_pos, want.gbest_fit,
+                             spec)
+        _assert_same_improvements(got[3].numpy(), np.asarray(want.pbest_fit),
+                                  np.asarray(js.pbest_fit))
+        js = want
+
+
+@pytest.mark.parametrize("fit,rule", [("cubic", "pso"), ("rastrigin", "sso"),
+                                      ("ackley", "lowcost")])
+def test_fused_plain_multi_block_is_queue_step_iterated(fit, rule, reference):
+    d, n, bn = 3, 256, 128
+    jc, tc = _cfgs(fit, rule, d, n)
+    spec = ops.kernel_spec(tc)
+    js = jpso.init_swarm(jc, 8)
+    s = pso.state_from_numpy(_np(js), device="cpu")
+    state = ops.state_to_kernel(s)
+    kw = _oracle_kw(jc, d)
+    fitness = kw.pop("fitness")
+    for t in range(3):
+        pos, vel, pbp, pbf, gp, gf = (x.numpy() for x in state)
+        want = jref.queue_step_oracle(
+            s.seed, t, pos, vel, pbp, pbf[None, :], gp[:, None], float(gf[0]),
+            bn, fitness=fitness, **kw)
+        state = pso_step.fused_plain(*state, spec, seed=s.seed, iteration=t,
+                                     iters=1, block_n=bn)
+        _assert_dmajor_close(state, *want[:6], spec)
+        # the published winner: the oracle's cross-block argmax
+        aux_fit, aux_idx = np.asarray(want[6]), np.asarray(want[7])
+        wb = int(np.argmax(aux_fit))
+        if aux_fit[wb] > gf[0]:
+            assert np.array_equal(state[4].numpy(),
+                                  state[0].numpy()[:, aux_idx[wb]])
+
+
+@pytest.mark.parametrize("fit,rule,sync_every,iters",
+                         [("cubic", "pso", 4, 6), ("griewank", "sso", 3, 7),
+                          ("sphere", "lowcost", 1, 5)])
+def test_fused_async_plain_single_block_matches_pallas_kernel(
+        fit, rule, sync_every, iters, reference):
+    d, n = 3, 128
+    jc, tc = _cfgs(fit, rule, d, n)
+    js = jpso.init_swarm(jc, 6)
+    want = jops.run_queue_lock_fused_async(jc, js, iters,
+                                           sync_every=sync_every, block_n=n,
+                                           interpret=True)
+    state = _dmajor(js)
+    lp, lf = state[4][:, None].clone(), state[5].clone()
+    got = pso_step.fused_async_plain(
+        *state, lp, lf, ops.kernel_spec(tc), seed=int(js.seed), iteration=0,
+        iters=iters, sync_every=sync_every, block_n=n)
+    spec = ops.kernel_spec(tc)
+    _assert_dmajor_close(got, want.pos.T, want.vel.T, want.pbest_pos.T,
+                         want.pbest_fit, want.gbest_pos, want.gbest_fit, spec)
+    np.testing.assert_allclose(got[6].numpy(), np.asarray(want.lbest_pos).T,
+                               **_pos_tol(spec))
+    # one block: the async kernel equals the fused one for any sync_every
+    fused = pso_step.fused_plain(*state, ops.kernel_spec(tc),
+                                 seed=int(js.seed), iteration=0, iters=iters,
+                                 block_n=n)
+    for a, b in zip(got[:6], fused):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fit,sync_every,iters", [("cubic", 4, 10),
+                                                  ("rastrigin", 3, 8)])
+def test_fused_async_plain_two_blocks_matches_oracle(fit, sync_every, iters,
+                                                   reference):
+    d, n, bn = 2, 256, 128
+    jc, tc = _cfgs(fit, "pso", d, n)
+    js = jpso.init_swarm(jc, 12)
+    state = _dmajor(js)
+    pos, vel, pbp, pbf, gp, gf = (x.numpy() for x in state)
+    kw = _oracle_kw(jc, d)
+    fitness = kw.pop("fitness")
+    want = jref.run_fused_async_oracle(
+        int(js.seed), 0, pos, vel, pbp, pbf[None, :], gp[:, None],
+        float(gf[0]), iters, bn, sync_every, fitness=fitness, **kw)
+    lp, lf = state[4][:, None].repeat(1, 2), state[5].repeat(2)
+    got = pso_step.fused_async_plain(
+        *state, lp, lf, ops.kernel_spec(tc), seed=int(js.seed), iteration=0,
+        iters=iters, sync_every=sync_every, block_n=bn)
+    spec = ops.kernel_spec(tc)
+    _assert_dmajor_close(got, *want[:6], spec)
+    np.testing.assert_allclose(got[6].numpy(), np.asarray(want[6]),
+                               **_pos_tol(spec))
+    np.testing.assert_allclose(got[7].numpy(), np.asarray(want[7]), **FIT_TOL)
+
+
+def test_ops_async_resumes_carried_locals():
+    """Two calls that carry the block-local bests equal one call when the
+    split lands on a sync point (the reference's checkpoint contract)."""
+    tc = pso.PSOConfig(dim=2, particle_cnt=256).resolved()
+    s = pso.init_swarm(tc, 4, device="cpu")
+    one = ops.run_queue_lock_fused_async(tc, s, 8, sync_every=4, block_n=64)
+    two = ops.run_queue_lock_fused_async(tc, s, 4, sync_every=4, block_n=64)
+    two = ops.run_queue_lock_fused_async(tc, two, 4, sync_every=4,
+                                         block_n=64)
+    for f in ("pos", "vel", "pbest_pos", "pbest_fit", "gbest_pos",
+              "gbest_fit", "lbest_pos", "lbest_fit"):
+        assert torch.equal(getattr(one, f), getattr(two, f)), f
+    assert two.iteration == 8
+
+
+def test_async_spans_match_reference(reference):
+    for iters, se in [(0, 8), (53, 8), (8, 8), (5, 8), (7, 0), (16, 3)]:
+        assert ops._async_spans(iters, se) == jops._async_spans(iters, se)
+
+
+def test_pack_unpack_round_trip():
+    x = torch.arange(24, dtype=torch.float32).reshape(6, 4)
+    p = ops.pack_dmajor(x)
+    assert p.shape == (4, 6) and p.is_contiguous()
+    assert torch.equal(ops.unpack_dmajor(p), x)
+    p[0, 0] = -1.0                         # a new tensor, never a view
+    assert x[0, 0] == 0.0
+    one = torch.arange(5, dtype=torch.float32)[:, None]     # D == 1
+    q = ops.pack_dmajor(one)
+    q[0, 0] = 9.0
+    assert one[0, 0] == 0.0
+
+
+def test_resolve_block_errors():
+    assert ops._resolve_block(1024, None) == 512
+    assert ops._resolve_block(96, 32) == 32
+    for bad in (100, -4):
+        with pytest.raises(ValueError, match="divisor"):
+            ops._resolve_block(1024, bad)
+
+
+def test_kernel_path_on_cpu_tensors_raises():
+    tc = pso.PSOConfig(dim=2, particle_cnt=128).resolved()
+    s = pso.init_swarm(tc, 0, device="cpu")
+    state = ops.state_to_kernel(s)
+    spec = ops.kernel_spec(tc)
+    with pytest.raises(ValueError, match="CUDA"):
+        pso_step._fused_launch(state, spec, seed=0, iteration=0, iters=1,
+                               block_n=128)
+    lp, lf = state[4][:, None].clone(), state[5].clone()
+    with pytest.raises(ValueError, match="CUDA"):
+        pso_step._fused_async_launch(state + (lp, lf), spec, seed=0,
+                                     iteration=0, iters=1, sync_every=1,
+                                     block_n=128)
+    # the CPU wrappers ran no kernel
+    before = (pso_step.fused.launches, pso_step.fused_async.launches)
+    ops.run_queue_lock_fused(tc, s, 2)
+    ops.run_queue_lock_fused_async(tc, s, 2)
+    assert (pso_step.fused.launches, pso_step.fused_async.launches) == before
+
+
+def test_kernel_spec_rejects_custom_objective_and_dtype():
+    mine = pso.Problem(name="mine", fn=lambda x: -x.sum(-1))
+    cfg = pso.PSOConfig(dim=2, particle_cnt=64, fitness=mine)
+    with pytest.raises(NotImplementedError, match="custom objective"):
+        ops.kernel_spec(cfg)
+    with pytest.raises(ValueError, match="float32"):
+        ops.kernel_spec(pso.PSOConfig(dim=2, particle_cnt=64,
+                                      dtype="float64"))
+
+
+# --- on the card -------------------------------------------------------------
+
+def _card_state(cuda, fit, rule, d, n, seed=1):
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, fitness=fit,
+                        update_rule=rule).resolved()
+    s = pso.init_swarm(cfg, seed, device=cuda)
+    return cfg, ops.kernel_spec(cfg), ops.state_to_kernel(s), s.seed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fit,rule,d,n,bn", [
+    ("cubic", "pso", 1, 8192, 512), ("rastrigin", "sso", 5, 2048, 256),
+    ("griewank", "lowcost", 3, 1024, 1024), ("rosenbrock", "pso", 4, 1009,
+                                              1009)])
+def test_fused_kernel_matches_plain_on_card(cuda, fit, rule, d, n, bn):
+    _, spec, state, seed = _card_state(cuda, fit, rule, d, n)
+    want = pso_step.fused_plain(*state, spec, seed=seed, iteration=0,
+                                iters=1, block_n=bn)
+    got = pso_step.fused(*[x.clone() for x in state], spec, seed=seed,
+                         iteration=0, iters=1, block_n=bn)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["pso", "sso", "lowcost"])
+def test_fused_kernel_multi_iteration_matches_plain_on_card(cuda, rule):
+    """One launch of six iterations over 256 CTAs from a nonzero iteration:
+    both key and candidate slots, and each slot's reuse two iterations on,
+    held against the plain version. At D = 1 the two round alike, so no
+    comparison can flip and the trajectories must agree throughout."""
+    _, spec, state, seed = _card_state(cuda, "cubic", rule, 1, 131072)
+    kw = dict(seed=seed, iteration=37, iters=6, block_n=512)
+    want = pso_step.fused_plain(*state, spec, **kw)
+    got = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_async_kernel_single_block_matches_plain_on_card(cuda):
+    _, spec, state, seed = _card_state(cuda, "ackley", "pso", 8, 512)
+    lp, lf = state[4][:, None].clone(), state[5].clone()
+    args = (spec,)
+    kw = dict(seed=seed, iteration=0, iters=21, sync_every=8, block_n=512)
+    want = pso_step.fused_async_plain(*state, lp, lf, *args, **kw)
+    got = pso_step.fused_async(*[x.clone() for x in state + (lp, lf)],
+                               *args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _assert_async_invariants(cfg, spec, state, seed, iters, sync_every):
+    """Three launches of the multi-block async kernel, whose publication
+    order is a race: gbest monotone, gbest == max(pbest), gbest_pos bit for
+    bit the pbest position of a particle of fitness gbest (a torn copy of
+    two winners matches none), the fitness at gbest_pos equal to gbest
+    (exactly at D = 1; at D > 1 torch sums in another order, so at the
+    fitness tolerance), positions inside the bounds."""
+    d = state[0].shape[0]
+    prev = float(state[5][0])
+    for launch in range(3):
+        pso_step.fused_async(*state, spec, seed=seed,
+                             iteration=iters * launch, iters=iters,
+                             sync_every=sync_every, block_n=512)
+        torch.cuda.synchronize()
+        pos, _, pbp, pbf, gp, gf = state[:6]
+        assert float(gf[0]) >= prev
+        prev = float(gf[0])
+        assert float(gf[0]) == float(pbf.max())
+        cols = pbp[:, pbf == gf]
+        assert bool((cols == gp[:, None]).all(0).any())
+        refit = cfg.fitness_fn(gp[None, :])
+        if d == 1:
+            assert float(refit[0]) == float(gf[0])
+        else:
+            torch.testing.assert_close(refit, gf, rtol=1e-5,
+                                       atol=1e-5 * max(1.0, abs(prev)))
+        lo, hi, _ = pso_step._operands(spec, pos.device)
+        assert bool(((pos >= lo) & (pos <= hi)).all())
+
+
+def _with_locals(state, nb):
+    return state + (state[4][:, None].repeat(1, nb).contiguous(),
+                    state[5].repeat(nb))
+
+
+@pytest.mark.gpu
+def test_async_kernel_multi_block_invariants_on_card(cuda):
+    cfg, spec, state, seed = _card_state(cuda, "cubic", "pso", 1, 65536)
+    _assert_async_invariants(cfg, spec, _with_locals(state, 128), seed,
+                             iters=8, sync_every=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sync_every", [1, 8])
+def test_async_kernel_multi_block_invariants_wide_on_card(cuda, sync_every):
+    """At D > 1 the shared gbest is many floats under the lock; rastrigin
+    does not run to the bounds, so a torn gbest_pos is no corner of the
+    box and shows."""
+    cfg, spec, state, seed = _card_state(cuda, "rastrigin", "pso", 24,
+                                         16384)
+    _assert_async_invariants(cfg, spec, _with_locals(state, 32), seed,
+                             iters=8, sync_every=sync_every)
