@@ -10,20 +10,30 @@ standard library, and exits non-zero on any failure. Phases:
 1. identity: torch and CUDA versions, ``nvcc --version``, the card's name
    and power limit;
 2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for ``sm_90a`` (one
-   ``nvcc`` per source, started together) and prints ``-Xptxas -v``;
+   ``nvcc`` per source, started together) and prints each kernel's
+   registers from ``-Xptxas -v``;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with the tolerances stated below: fused launches of one
-   to six iterations, the async kernel with one block, and the async
-   kernel over many blocks held to its invariants;
-4. the main path: ``repro_torch.solve`` on the default device with
+   paths' shapes, with the tolerances stated below. Single swarm: fused
+   launches of one to six iterations, the async kernel with one block, and
+   the async kernel over many blocks held to its invariants. Batches:
+   fused launches over S swarms at per-row iteration counters (several
+   iterations where kernel and plain round alike), batch rows bit-equal to
+   the single-swarm kernel (also across the waves of a batch larger than
+   the card holds at once, and at one block a swarm in both variants),
+   heterogeneous rows equal to their problem's single-swarm kernel, and
+   multi-block async batches held to the invariants row by row;
+4. the main paths, each with every launch count set to 0 just before it and
+   read just after: ``repro_torch.solve`` on the default device with
    ``backend="auto"`` for the paper's largest swarms (Table 4: cubic d=1
-   n=131072; Table 5: cubic d=120 n=32768), both kernel variants, with the
-   kernel launch counts of each run, and the eager ``reduction`` variant
-   timed at the same shapes as the paper's baseline;
-5. one JSON line ``{"kernels": [...]}`` (launches on the main path, maximum
-   error against the plain version, kernel and plain times on the same
-   call, and the card's bound for that call), the card line, and a last
-   line ``{"ok": true, "device": {...}}``.
+   n=131072; Table 5: cubic d=120 n=32768), both kernel variants, plus the
+   eager ``reduction`` variant as the paper's baseline; then
+   ``repro_torch.solve_many`` at the shapes of ``benchmarks/run.py``'s
+   ``multi_swarm`` sweep (d=10, n=1024 and n=256) with S raised to fill the
+   card, homogeneous and over the six built-ins, both kernel variants;
+5. one JSON line ``{"kernels": [...]}`` (launches on the main paths,
+   maximum error against the plain version, kernel and plain times on the
+   same call, and the card's bound for that call), the card line, and a
+   last line ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
 import json
@@ -39,6 +49,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch  # noqa: E402
+from repro_torch.core import multi_swarm as ms  # noqa: E402
 from repro_torch.core import pso  # noqa: E402
 from repro_torch.core.fitness import FITNESS_IDS  # noqa: E402
 from repro_torch.core.update_rules import RULE_IDS  # noqa: E402
@@ -62,11 +73,23 @@ ISSUE_OPS_PER_S = FP32_OPS_PER_S
 # plus a per-stream constant (2); their shared second term (1); two mix32
 # rounds per draw, each three shift-xors and two multiplies (2 * 2 * 8);
 # the xor of the second term (2); the shift and int-to-float conversion (4).
-# Float: the 2^-24 scale (2), the pso rule (14), the cubic term and its
-# accumulation (8). Per particle-iteration: the pbest and queue compares.
+# Float: the 2^-24 scale (2), the pso rule (14), and the objective's own
+# (FP_OBJECTIVE below; the cubic term and its accumulation, 8). Per
+# particle-iteration: the pbest and queue compares.
 INT_PER_ELEMENT = 1 + 2 + 1 + 32 + 2 + 4
-FP_PER_ELEMENT = 2 + 14 + 8
+FP_DRAWS_RULE = 2 + 14
 FP_PER_PARTICLE = 2
+# The objectives' float operations per element (Objective::add), each
+# division, square root and cosine counted as one operation, so the bound
+# stays a lower bound: cubic 8 as above; sphere x*x and the sum (2);
+# rosenbrock prev*prev, x - it, 1 - prev, the two squares, 100*, the add
+# and the sum (8); griewank x*x, the sum, sqrt, the division, cos and the
+# product (6); rastrigin x*x, 2*pi*x, cos, 10*, the subtraction and the
+# sum (6); ackley x*x, the sum, 2*pi*x, cos and its sum (5).
+FP_OBJECTIVE = dict(cubic=8, sphere=2, rosenbrock=8, griewank=6, rastrigin=6,
+                    ackley=5)
+BUILTINS = ("cubic", "sphere", "rosenbrock", "griewank", "rastrigin",
+            "ackley")
 
 # Phase-3 tolerances. The kernels round like the plain versions (no FMA
 # contraction, same operation order), so positions agree to rounding; the
@@ -129,6 +152,28 @@ def compare(got, want, names, what):
     return max_err(got, want)
 
 
+# The six kernels of the port as the TPU kernels they replace, and the
+# wrapper counter that counts each one's launches.
+COUNTERS = {
+    "fused": (pso_step.fused, "launches"),
+    "fused_async": (pso_step.fused_async, "launches"),
+    "fused_batch": (pso_step.fused_batch, "launches"),
+    "hetero_fused_batch": (pso_step.fused_batch, "hetero_launches"),
+    "fused_async_batch": (pso_step.fused_async_batch, "launches"),
+    "hetero_fused_async_batch": (pso_step.fused_async_batch,
+                                 "hetero_launches"),
+}
+
+
+def zero_counts() -> None:
+    for w, attr in COUNTERS.values():
+        setattr(w, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(w, attr) for k, (w, attr) in COUNTERS.items()}
+
+
 FUSED_FIELDS = ("pos", "vel", "pbp", "pbf", "gp", "gf")
 ASYNC_FIELDS = FUSED_FIELDS + ("lp", "lf")
 
@@ -188,19 +233,28 @@ def phase_build() -> None:
     rules = {str(i): name for name, i in RULE_IDS.items()}
     for (lib, log), src in zip(builds, sources):
         print(f"  {src.name} -> {lib.name}")
-        entry = None
+        # One line a kernel: registers, and spills where there are any.
+        entry, spill, lines = None, "", []
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-                # mangled <kernel>ILi<fitness>ELi<rule>E -> kernel<f,r>
-                m = re.search(r"([a-z]+_kernel)ILi(\d+)ELi(\d+)E", entry)
+                # mangled <kernel>ILi<fitness>ELi<rule>E[Lb<grid>E] ->
+                # kernel<f,r[,grid|block]>; fitness 6 is the hetero kernel
+                m = re.search(r"([a-z]+_kernel)ILi(\d+)ELi(\d+)E(?:Lb(\d)E)?",
+                              entry)
                 if m:
-                    entry = f"{m[1]}<{fits[m[2]]},{rules[m[3]]}>"
-            elif "Used" in line and entry:
-                print(f"  {entry:34s} {line.split(':', 1)[1].strip()}")
+                    g = {"1": ",grid", "0": ",block"}.get(m[4], "")
+                    entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
+                             f"{rules[m[3]]}{g}>")
+                spill = ""
             elif "spill" in line and \
                     "0 bytes spill stores, 0 bytes spill loads" not in line:
-                print(f"  SPILL {entry}: {line.strip()}")
+                spill = " " + line.strip().replace("bytes ", "B ")
+            elif "Used" in line and entry:
+                regs = re.search(r"Used (\d+) registers", line)
+                lines.append(f"{entry}:{regs[1] if regs else '?'}r{spill}")
+        for i in range(0, len(lines), 3):
+            print("  " + " | ".join(lines[i:i + 3]))
 
 
 def fused_against_plain(fit, d, n, iters, offset, flips, errs) -> None:
@@ -294,34 +348,266 @@ def phase_compare(errs) -> None:
         async_invariants("rastrigin", 120, 32768, sync_every, 3, 8)
 
 
+def batch_state(d: int, n: int, s_cnt: int, fit="rastrigin", mixed=False,
+                its0: int = 0):
+    """A batch on the card, its kernel operands' table and fids. Row s
+    starts at iteration its0 + 3 s: serving lanes admit rows at chunk
+    boundaries, so the kernels must take a counter per row."""
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n,
+                        **({} if mixed else dict(fitness=fit))).resolved()
+    if mixed:
+        rows, table = ms.problem_rows(
+            [BUILTINS[s % 6] for s in range(s_cnt)], d, device="cuda")
+        b = ms.init_batch(cfg, range(s_cnt), rows=rows, table=table,
+                          device="cuda")
+        fids, specs = rows.fid, ops._hetero_members(cfg, table)
+    else:
+        b = ms.init_batch(cfg, range(s_cnt), device="cuda")
+        fids, specs, table = None, (ops.kernel_spec(cfg),), None
+    b = b._replace(iteration=its0 + 3 * torch.arange(s_cnt, device="cuda"))
+    return cfg, b, fids, specs, table
+
+
+def batch_operands(b, nb: int = 0):
+    """New D-major operands of a batch (plus seeded locals when nb)."""
+    out = [ops.pack_dmajor_batch(b.pos), ops.pack_dmajor_batch(b.vel),
+           ops.pack_dmajor_batch(b.pbest_pos),
+           b.pbest_fit.reshape(-1).clone(), ops.pack_dmajor(b.gbest_pos),
+           b.gbest_fit.clone()]
+    if nb:
+        out += [out[4].repeat_interleave(nb, 1), out[5].repeat_interleave(nb)]
+    return out
+
+
+def batch_disagreeing(got, want, names, s_cnt: int) -> dict:
+    """``disagreeing`` for a batch: fitness within FIT_RTOL of each swarm's
+    own largest |fitness| (a batch mixes objectives of very different
+    scale), positions within POS_TOL."""
+    bad = {}
+    for a, w, name in zip(got, want, names):
+        if name in ("pbf", "gf", "lf"):
+            ra, rw = a.reshape(s_cnt, -1), w.reshape(s_cnt, -1)
+            atol = FIT_RTOL * rw.abs().amax(1, keepdim=True).clamp_min(1.0)
+            ok = bool(((ra - rw).abs() <= atol + FIT_RTOL * rw.abs()).all())
+        else:
+            ok = torch.allclose(a, w, **POS_TOL)
+        if not ok:
+            bad[name] = float((a - w).abs().max())
+    return bad
+
+
+def row_operands(state, s: int, n: int, nb: int = 0):
+    """Swarm s's single-swarm operands, cut out of batch operands."""
+    c = slice(s * n, (s + 1) * n)
+    out = [x[:, c].contiguous() for x in state[:3]] + [
+        state[3][c].clone(), state[4][:, s].contiguous(),
+        state[5][s:s + 1].clone()]
+    if nb:
+        out += [state[6][:, s * nb:(s + 1) * nb].contiguous(),
+                state[7][s * nb:(s + 1) * nb].clone()]
+    return out
+
+
+def batch_against_plain(what, d, n, s_cnt, bn, iters, errs, key, mixed=False,
+                        fit="rastrigin", its0=0, sync_every=0) -> None:
+    """One launch of the batched kernel (fused, or async if sync_every)
+    against its plain version on the same batch."""
+    _, b, fids, specs, _ = batch_state(d, n, s_cnt, fit, mixed, its0)
+    nb = n // bn if sync_every else 0
+    state = batch_operands(b, nb)
+    kw = dict(iters=iters, block_n=bn, fids=fids)
+    if sync_every:
+        kw["sync_every"] = sync_every
+        plain, kernel = (pso_step.fused_async_batch_plain,
+                         pso_step.fused_async_batch)
+    else:
+        plain, kernel = pso_step.fused_batch_plain, pso_step.fused_batch
+    want = plain(*state, b.seed, b.iteration, specs, **kw)
+    got = kernel(*[x.clone() for x in state], b.seed, b.iteration, specs,
+                 **kw)
+    torch.cuda.synchronize()
+    names = ASYNC_FIELDS if sync_every else FUSED_FIELDS
+    bad = batch_disagreeing(got, want, names, s_cnt)
+    check(not bad, f"{what}: kernel and plain disagree, max error {bad}")
+    e = max_err(got, want)
+    errs[key] = max(errs[key], e)
+    print(f"  {what}: max |kernel - plain| = {e:.3g}")
+
+
+def rows_equal_single(what, d, n, s_cnt, bn, iters, mixed=False,
+                      sync_every=0) -> int:
+    """Every row of one batched launch bit for bit the single-swarm kernel
+    on that swarm (with the member's bounds and objective for a mixed
+    batch). Returns the batched launches (waves) made."""
+    _, b, fids, specs, _ = batch_state(d, n, s_cnt, mixed=mixed, its0=37)
+    nb = n // bn if sync_every else 0
+    orig = batch_operands(b, nb)
+    state = [x.clone() for x in orig]
+    counter = pso_step.fused_async_batch if sync_every else \
+        pso_step.fused_batch
+    before = counter.launches + counter.hetero_launches
+    kw = dict(iters=iters, block_n=bn)
+    if sync_every:
+        kw["sync_every"] = sync_every
+        pso_step.fused_async_batch(*state, b.seed, b.iteration, specs,
+                                   fids=fids, **kw)
+    else:
+        pso_step.fused_batch(*state, b.seed, b.iteration, specs, fids=fids,
+                             **kw)
+    waves = counter.launches + counter.hetero_launches - before
+    members = [0] * s_cnt if fids is None else fids.tolist()
+    seeds, its = b.seed.tolist(), b.iteration.tolist()
+    for s in range(s_cnt):
+        one = row_operands(orig, s, n, nb)
+        single = pso_step.fused_async if sync_every else pso_step.fused
+        single(*one, specs[members[s]], seed=seeds[s], iteration=its[s], **kw)
+        for a, w in zip(one, row_operands(state, s, n, nb)):
+            check(torch.equal(a, w), f"{what}: row {s} equals the "
+                  f"single-swarm kernel")
+    torch.cuda.synchronize()
+    print(f"  {what}: {s_cnt} rows in {waves} launch(es), each bit for bit "
+          f"the single-swarm kernel")
+    return waves
+
+
+def batch_gbest_fit(cfg, table, fids, gp):
+    """Each swarm's fitness at its gbest_pos (``gp`` [D, S])."""
+    if table is None:
+        return cfg.fitness_fn(gp.T)
+    out = torch.empty(gp.shape[1], device=gp.device)
+    for k in torch.unique(fids).tolist():
+        rows = (fids == k).nonzero()[:, 0]
+        out[rows] = table[k].max_fn(gp.T[rows])
+    return out
+
+
+def batch_invariants(b, state, cfg, table, fids, d, n, prev, what) -> None:
+    """Every swarm of a batch after an async launch: gbest monotone (from
+    ``prev``), gbest == max(pbest), gbest_pos bit for bit the pbest
+    position of a particle of fitness gbest (the torn-write check), the
+    fitness at gbest_pos equal to gbest within the fitness tolerance (the
+    objective is summed in another order), positions inside the swarm's
+    bounds."""
+    s_cnt = b.swarm_cnt
+    pos, pbp = state[0].view(d, s_cnt, n), state[2].view(d, s_cnt, n)
+    pbf, gp, gf = state[3].view(s_cnt, n), state[4], state[5]
+    check(bool((gf >= prev).all()), f"{what}: gbest monotone")
+    check(bool((gf == pbf.amax(1)).all()), f"{what}: gbest == max(pbest)")
+    hit = (pbf == gf[:, None]) & (pbp == gp[:, :, None]).all(0)
+    check(bool(hit.any(1).all()), f"{what}: gbest_pos is a pbest position "
+          f"of fitness gbest")
+    refit = batch_gbest_fit(cfg, table, fids, gp)
+    check(bool((refit - gf).abs().le(FIT_RTOL * gf.abs().clamp_min(1.0))
+               .all()), f"{what}: f(gbest_pos) == gbest")
+    if table is None:
+        lo = torch.full((s_cnt, d), cfg.min_pos, device=gp.device)
+        hi = torch.full((s_cnt, d), cfg.max_pos, device=gp.device)
+    else:
+        rows, _ = ms.problem_rows([table[k] for k in fids.tolist()], d,
+                                  device="cuda")
+        lo, hi = rows.lo, rows.hi
+    check(bool(((pos >= lo.T[:, :, None]) & (pos <= hi.T[:, :, None]))
+               .all()), f"{what}: positions inside each swarm's bounds")
+
+
+def async_batch_invariants(what, d, n, s_cnt, bn, sync_every, launches,
+                           iters, mixed=False) -> None:
+    cfg, b, fids, _, table = batch_state(d, n, s_cnt, mixed=mixed)
+    specs = (ops._hetero_members(cfg, table) if mixed
+             else (ops.kernel_spec(cfg),))
+    state = batch_operands(b, n // bn)
+    prev = state[5].clone()
+    its = b.iteration
+    for _ in range(launches):
+        pso_step.fused_async_batch(*state, b.seed, its, specs, iters=iters,
+                                   sync_every=sync_every, block_n=bn,
+                                   fids=fids)
+        torch.cuda.synchronize()
+        batch_invariants(b, state, cfg, table, fids, d, n, prev, what)
+        prev, its = state[5].clone(), its + iters
+    print(f"  {what}: {launches} launches of {iters}, every swarm: gbest "
+          f"monotone, == max(pbest), == a pbest column, == f(gbest_pos); "
+          f"in bounds")
+
+
+def phase_compare_batches(errs) -> None:
+    print("phase 3b: batched kernels against their plain versions and the "
+          "single-swarm kernel")
+    # Several iterations in one launch where kernel and plain round alike
+    # (d=1), from per-row iteration counters 37 + 3 s; the rows' two
+    # blocks meet at the grid sync each iteration.
+    batch_against_plain("fused batch cubic d=1 n=1024 S=128 (2 blocks), "
+                        "iterations its[s]+1..+6 in one launch", 1, 1024,
+                        128, 512, 6, errs, "fused_batch", fit="cubic",
+                        its0=37)
+    batch_against_plain("fused batch rastrigin d=10 n=1024 S=128, one "
+                        "iteration", 10, 1024, 128, 512, 1, errs,
+                        "fused_batch")
+    batch_against_plain("fused batch rastrigin d=10 n=256 S=1024 (one block,"
+                        " normal launch), one iteration", 10, 256, 1024, 256,
+                        1, errs, "fused_batch")
+    batch_against_plain("hetero fused batch six built-ins d=10 n=1024 S=96, "
+                        "one iteration", 10, 1024, 96, 512, 1, errs,
+                        "hetero_fused_batch", mixed=True)
+    batch_against_plain("async batch rastrigin d=10 n=256 S=1024 (one "
+                        "block), 6 iterations, sync_every=4", 10, 256, 1024,
+                        256, 6, errs, "fused_async_batch", sync_every=4)
+    batch_against_plain("hetero async batch six built-ins d=10 n=1024 S=96 "
+                        "(one block of 1024), 11 iterations, sync_every=4",
+                        10, 1024, 96, 1024, 11, errs,
+                        "hetero_fused_async_batch", mixed=True, sync_every=4)
+    rows_equal_single("fused batch rastrigin d=10 n=1024 S=128, 5 "
+                      "iterations", 10, 1024, 128, 512, 5)
+    waves = rows_equal_single("fused batch rastrigin d=10 n=1024 S=300, 5 "
+                              "iterations", 10, 1024, 300, 512, 5)
+    check(waves >= 2, f"S=300 of 2 blocks runs in waves ({waves})")
+    rows_equal_single("fused batch rastrigin d=10 n=256 S=1024 (one block)",
+                      10, 256, 1024, 256, 5)
+    rows_equal_single("async batch rastrigin d=10 n=256 S=1024 (one block),"
+                      " sync_every=4", 10, 256, 1024, 256, 11, sync_every=4)
+    rows_equal_single("hetero fused batch six built-ins d=10 n=1024 S=96",
+                      10, 1024, 96, 512, 5, mixed=True)
+    rows_equal_single("hetero async batch six built-ins d=10 n=1024 S=96 "
+                      "(one block of 1024)", 10, 1024, 96, 1024, 11,
+                      mixed=True, sync_every=4)
+    async_batch_invariants("async batch rastrigin d=10 n=1024 S=128 (2 "
+                           "blocks), sync_every=8", 10, 1024, 128, 512, 8, 3,
+                           16)
+    async_batch_invariants("async batch rastrigin d=10 n=1024 S=128, "
+                           "sync_every=1", 10, 1024, 128, 512, 1, 2, 8)
+    async_batch_invariants("hetero async batch six built-ins d=10 n=1024 "
+                           "S=96 (2 blocks), sync_every=8", 10, 1024, 96,
+                           512, 8, 3, 16, mixed=True)
+
+
 def phase_main_path(card: str):
     print("phase 4: main path, repro_torch.solve(backend='auto') on the "
           "default device")
-    launches = {"fused": 0, "fused_async": 0}
-    wrappers = {"fused": pso_step.fused, "fused_async": pso_step.fused_async}
+    launches = dict.fromkeys(COUNTERS, 0)
     runs = []
     for d, n, iters in ((1, 131072, 1000), (120, 32768, 200)):
         for variant in ("queue_lock", "async", "reduction"):
             kw = dict(dim=d, particles=n, seed=0, variant=variant)
             repro_torch.solve("cubic", iters=2, **kw)          # warm-up
-            for w in wrappers.values():
-                w.launches = 0
+            zero_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = repro_torch.solve("cubic", iters=iters, **kw)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            counts = {k: w.launches for k, w in wrappers.items()}
+            counts = read_counts()
             for k in counts:
                 launches[k] += counts[k]
+            counts = {k: v for k, v in counts.items() if v}
             s = res.state
             g = res.best_fit
             want = {"queue_lock": "fused", "async": "fused_async"}.get(variant)
             if want:
-                check(counts[want] > 0, f"{variant}: kernel {want} launched")
+                check(set(counts) == {want}, f"{variant}: kernel {want} "
+                      f"launched, and no other ({counts})")
             else:
-                check(not any(counts.values()), "reduction runs eager")
+                check(not counts, "reduction runs eager")
             check(s.pos.device.type == "cuda", "state on the card")
             check(math.isfinite(g), f"{variant} d={d}: finite gbest")
             check(g <= OPTIMUM_PER_DIM * d * (1 + 1e-6), "gbest <= optimum")
@@ -340,16 +626,135 @@ def phase_main_path(card: str):
     return launches, runs
 
 
-def bound(d: int, n: int, iters: int, nb: int = 0):
-    """(ms, "bytes" | "operations"): the least time for the call — each
-    input read once and each output written once (pos, vel, pbp, pbf,
-    gbest, plus the async locals) at the HBM rate, or the operations at the
-    card's rates (integer pipe, float32 pipe, issue), whichever is
-    largest."""
-    words = 3 * n * d + n + d + 1 + nb * (d + 1)
-    by_bytes = 2 * 4 * words / HBM_BYTES_PER_S
-    ints = iters * n * d * INT_PER_ELEMENT
-    fps = iters * n * (d * FP_PER_ELEMENT + FP_PER_PARTICLE)
+def phase_many_path(card: str, launches: dict):
+    """``repro_torch.solve_many`` on the default device, backend 'auto',
+    at the multi_swarm sweep's shapes with S raised to fill the card."""
+    print("phase 4b: main path, repro_torch.solve_many(backend='auto') on "
+          "the default device")
+    mixed96 = [BUILTINS[s % 6] for s in range(96)]
+    shapes = (("rastrigin d=10 n=1024 S=128", "rastrigin", None, 128, 1024),
+              ("rastrigin d=10 n=1024 S=300", "rastrigin", None, 300, 1024),
+              ("rastrigin d=10 n=256 S=1024", "rastrigin", None, 1024, 256),
+              ("six built-ins d=10 n=1024 S=96", None, mixed96, 96, 1024))
+    iters, d = 200, 10
+    runs = []
+    for label, prob, problems, s_cnt, n in shapes:
+        for variant in ("queue_lock", "async"):
+            kw = dict(seeds=range(s_cnt), dim=d, particles=n,
+                      variant=variant)
+            if problems is None:
+                kw["problem"] = prob
+            else:
+                kw["problems"] = problems
+            repro_torch.solve_many(iters=2, **kw)              # warm-up
+            zero_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = repro_torch.solve_many(iters=iters, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts().items() if v}
+            for k in counts:
+                launches[k] += counts[k]
+            mem = torch.cuda.max_memory_allocated()
+            want = ("hetero_" if problems else "") + (
+                "fused_batch" if variant == "queue_lock"
+                else "fused_async_batch")
+            check(set(counts) == {want}, f"{label} {variant}: launched "
+                  f"{want} only ({counts})")
+            check(len(res) == s_cnt, "one Result per seed")
+            check(all(r.state.pos.device.type == "cuda" for r in res[:1]),
+                  "state on the card")
+            gf = torch.stack([r.state.gbest_fit for r in res])
+            pbf = torch.stack([r.state.pbest_fit for r in res])
+            pbp = torch.stack([r.state.pbest_pos for r in res])
+            gp = torch.stack([r.state.gbest_pos for r in res])
+            check(bool(torch.isfinite(gf).all()), f"{label}: finite gbest")
+            check(bool((gf == pbf.amax(1)).all()), "gbest == max(pbest)")
+            hit = (pbf == gf[:, None]) & (pbp == gp[:, None, :]).all(2)
+            check(bool(hit.any(1).all()), "gbest_pos is a pbest")
+            refit = torch.stack([r.config.fitness_fn(r.state.gbest_pos[None])
+                                 [0] for r in res])
+            check(bool((refit - gf).abs().le(FIT_RTOL * gf.abs()
+                                             .clamp_min(1.0)).all()),
+                  "f(gbest_pos) == gbest")
+            # The built-ins are maximized: cubic's optimum is 9e5 a
+            # dimension, the others' are negated minimizations with
+            # optimum 0 (reached within rounding of terms of about 10*d).
+            best = [r.best_fit for r in res]
+            check(all(r.best_fit <= OPTIMUM_PER_DIM * d * (1 + 1e-6)
+                      if r.problem.name == "cubic"
+                      else r.best_fit <= FIT_RTOL * 10 * d for r in res),
+                  "no row beyond its optimum")
+            us = dt / iters * 1e6
+            runs.append(dict(label=label, variant=variant, us=us,
+                             swarms_per_s=s_cnt / dt))
+            print(f"  {label} x{iters} {variant:10s} {us:9.2f} us/iter for "
+                  f"the batch, {s_cnt / dt:9.1f} swarms/s, best of batch "
+                  f"{max(best):.6g}, median {sorted(best)[s_cnt // 2]:.6g}; "
+                  f"launches "
+                  f"{counts}; peak memory {mem / 2**20:.1f} MiB [{card}]")
+            many_layers(s_cnt, n, d, iters, variant, problems)
+    return runs
+
+
+def many_layers(s_cnt, n, d, iters, variant, problems) -> None:
+    """Where a solve_many call's time goes, layer by layer (the facade's
+    own steps through the public functions): init_batch on the host clock,
+    the kernel path (packing, launches, unpacking) in CUDA events, and
+    cutting the batch into one SwarmState a row (batch_rows) on the host
+    clock. The kernel path's share of the sum bounds the card's busy share
+    from above."""
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n,
+                        **({} if problems else dict(fitness="rastrigin")))
+    cfg = cfg.resolved()
+    rows, table = (ms.problem_rows(problems, d, device="cuda") if problems
+                   else (None, None))
+    fids = None if rows is None else rows.fid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = ms.init_batch(cfg, range(s_cnt), rows=rows, table=table,
+                      device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    if variant == "async":
+        b = ops.run_queue_lock_fused_async_batch(cfg, b, iters, fids=fids,
+                                                 table=table)
+    else:
+        b = ops.run_queue_lock_fused_batch(cfg, b, iters, fids=fids,
+                                           table=table)
+    end.record()
+    torch.cuda.synchronize()
+    t_run = start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    ms.batch_rows(b)
+    t_rows = time.perf_counter() - t0
+    total = t_init + t_run + t_rows
+    print(f"    layers: init_batch {t_init * 1e3:.2f} ms, kernel path "
+          f"{t_run * 1e3:.2f} ms ({t_run / iters * 1e6:.2f} us/iter), "
+          f"batch_rows {t_rows * 1e3:.2f} ms; kernel path "
+          f"{100 * t_run / total:.0f}% of the three")
+
+
+def bound(d: int, n: int, iters: int, nb: int = 0,
+          objectives=("cubic",), members: int = 1):
+    """(ms, "bytes" | "operations"): the least time for the call on a batch
+    of ``len(objectives)`` swarms (one objective each) — each input read
+    once and each output written once (pos, vel, pbp, pbf, gbest, plus the
+    async locals; seeds, iteration counters, the bounds table and fids
+    read) at the HBM rate, or the operations at the card's rates (integer
+    pipe, float32 pipe, issue), whichever is largest."""
+    s_cnt = len(objectives)
+    state = s_cnt * (3 * n * d + n + d + 1 + nb * (d + 1))
+    inputs = state + 2 * s_cnt + members * 4 * d + (s_cnt if members > 1
+                                                    else 0)
+    by_bytes = 4 * (inputs + state) / HBM_BYTES_PER_S
+    ints = iters * s_cnt * n * d * INT_PER_ELEMENT
+    fps = iters * n * sum(d * (FP_DRAWS_RULE + FP_OBJECTIVE[o])
+                          + FP_PER_PARTICLE for o in objectives)
     by_ops = max(ints / INT32_OPS_PER_S, fps / FP32_OPS_PER_S,
                  (ints + fps) / ISSUE_OPS_PER_S)
     return (1e3 * max(by_bytes, by_ops),
@@ -357,8 +762,11 @@ def bound(d: int, n: int, iters: int, nb: int = 0):
 
 
 def phase_times():
-    """Kernel and plain version on the same call: the main path's cubic
-    d=1 n=131072 swarm, 32 iterations (4 async chunks of 8)."""
+    """Kernel and plain version on the same call. Single swarm: the main
+    path's cubic d=1 n=131072 swarm, 32 iterations (4 async chunks of 8).
+    Batches: the solve_many shape, rastrigin d=10 n=1024 S=128 (the six
+    built-ins cycled over S=96 for the hetero kernels), 16 iterations (2
+    async chunks of 8), from per-row iteration counters."""
     d, n, iters, bn = 1, 131072, 32, 512
     nb = n // bn
     _, spec, state, seed = kernel_state("cubic", d, n)
@@ -376,14 +784,60 @@ def phase_times():
             lambda: pso_step.fused_async_plain(*with_locals(state, nb), spec,
                                                **akw), 1),
     }
-    shape = dict(d=d, n=n, iters=iters, nb=nb)
-    return t, shape
+    shapes = {"fused": dict(d=d, n=n, iters=iters),
+              "fused_async": dict(d=d, n=n, iters=iters, nb=nb)}
+    d, n, iters, bn = 10, 1024, 16, 512
+    for key, mixed, s_cnt, sync_every in (
+            ("fused_batch", False, 128, 0),
+            ("hetero_fused_batch", True, 96, 0),
+            ("fused_async_batch", False, 128, 8),
+            ("hetero_fused_async_batch", True, 96, 8)):
+        _, b, fids, specs, _ = batch_state(d, n, s_cnt, mixed=mixed)
+        nb = n // bn if sync_every else 0
+        state = batch_operands(b, nb)
+        run = [x.clone() for x in state]
+        kw = dict(iters=iters, block_n=bn, fids=fids)
+        if sync_every:
+            kw["sync_every"] = sync_every
+            kernel, plain = (pso_step.fused_async_batch,
+                             pso_step.fused_async_batch_plain)
+        else:
+            kernel, plain = pso_step.fused_batch, pso_step.fused_batch_plain
+        t[key] = sync_time(lambda: kernel(*run, b.seed, b.iteration, specs,
+                                          **kw), 20)
+        t[key + "_plain"] = sync_time(lambda: plain(*state, b.seed,
+                                                    b.iteration, specs,
+                                                    **kw), 1)
+        shapes[key] = dict(d=d, n=n, iters=iters, nb=nb,
+                           objectives=[BUILTINS[s % 6] if mixed
+                                       else "rastrigin"
+                                       for s in range(s_cnt)],
+                           members=len(specs))
+        # Streaming bound: the state read and written once an iteration,
+        # S*(20*N*D + 8*N) bytes, for when it does not stay in L2.
+        stream = s_cnt * (20 * n * d + 8 * n) * iters / HBM_BYTES_PER_S
+        print(f"  {key}: S={s_cnt} d={d} n={n}, {iters} iterations: "
+              f"{s_cnt * (20 * n * d + 8 * n) / 1e6:.1f} MB an iteration "
+              f"streamed, {stream * 1e3:.4f} ms at the HBM rate")
+    return t, shapes
+
+
+#: Each kernel of the port and the TPU kernel it replaces.
+REPLACES = {
+    "fused": "src/repro/kernels/pso_step.py:874",
+    "fused_async": "src/repro/kernels/pso_step.py:1349",
+    "fused_batch": "src/repro/kernels/pso_step.py:938",
+    "hetero_fused_batch": "src/repro/kernels/pso_step.py:1036",
+    "fused_async_batch": "src/repro/kernels/pso_step.py:1419",
+    "hetero_fused_async_batch": "src/repro/kernels/pso_step.py:1500",
+}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = card_line()
     nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -391,19 +845,17 @@ def main() -> int:
           f"{nvcc[-1]}; card: {card}; "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     phase_build()
-    errs = {"fused": 0.0, "fused_async": 0.0}
+    errs = dict.fromkeys(COUNTERS, 0.0)
     phase_compare(errs)
+    phase_compare_batches(errs)
     launches, _ = phase_main_path(card)
-    times, shape = phase_times()
-    print(f"phase 5: kernel and plain times on cubic d={shape['d']} "
-          f"n={shape['n']}, {shape['iters']} iterations [{card}]")
+    phase_many_path(card, launches)
+    print(f"phase 5: kernel and plain times on the same call [{card}]")
+    times, shapes = phase_times()
     src = "src/repro_torch/kernels/csrc/pso_step.cu"
     kernels = []
-    for name, replaces, nb in (
-            ("fused", "src/repro/kernels/pso_step.py:874", 0),
-            ("fused_async", "src/repro/kernels/pso_step.py:1349",
-             shape["nb"])):
-        b_ms, b_by = bound(shape["d"], shape["n"], shape["iters"], nb)
+    for name, replaces in REPLACES.items():
+        b_ms, b_by = bound(**shapes[name])
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
@@ -417,6 +869,7 @@ def main() -> int:
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}), "
               f"{k['launches']} launch(es) on the main path")
     check(all(k["launches"] > 0 for k in kernels), "every kernel launched")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ Top-level surface (lazily imported so ``import repro_torch`` stays cheap and
 works on CPU-only torch):
 
     repro_torch.solve(problem, ...) -> Result   # the unified facade
+    repro_torch.solve_many(problem, seeds, ...) # one Result per seed
     repro_torch.best(results)                   # best of several Results
     repro_torch.Method / repro_torch.Result     # method spec / result
     repro_torch.Problem / repro_torch.register_problem
@@ -22,6 +23,7 @@ import importlib
 
 _EXPORTS = {
     "solve": "repro_torch.api",
+    "solve_many": "repro_torch.api",
     "best": "repro_torch.api",
     "Method": "repro_torch.api",
     "Result": "repro_torch.api",

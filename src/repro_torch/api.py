@@ -1,11 +1,14 @@
-"""The solve facade, single swarm: ``repro_torch.solve(problem, ...) ->
-Result``, the port of ``repro.api``.
+"""The solve facade: ``repro_torch.solve(problem, ...) -> Result`` and
+``repro_torch.solve_many(problem, seeds, ...) -> [Result]``, the port of
+``repro.api``.
 
     import repro_torch
 
     res = repro_torch.solve("cubic", dim=120, particles=32768, iters=200,
                             variant="async")          # on the CUDA card
     res = repro_torch.solve("cubic", iters=10, device="cpu")
+    rows = repro_torch.solve_many("rastrigin", seeds=range(128), dim=10,
+                                  iters=200, variant="async")
 
 ``Method`` picks the aggregation variant and the backend:
 
@@ -23,15 +26,17 @@ Features of ``repro.api`` that are not ported yet raise
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import _device
+from .core.multi_swarm import (ProblemRows, SwarmBatch, batch_rows,
+                               init_batch, problem_rows, run_many)
 from .core.problem import Problem, resolve_problem
 from .core.pso import (ASYNC_SYNC_EVERY, VARIANTS, PSOConfig, SwarmState,
-                       init_swarm, run)
+                       hetero_member_config, init_swarm, run)
 from .core.update_rules import TOPOLOGIES, resolve_rule
 
 _KERNEL_VARIANTS = ("queue_lock", "async")
@@ -197,15 +202,21 @@ def _run_segmented(cfg: PSOConfig, state: SwarmState, iters: int,
     return _run_state(cfg, state, iters, m)
 
 
+def _eager_async_blocks(m: Method, n: int) -> Optional[int]:
+    """The eager engine takes a block COUNT where the kernels take a block
+    size: translate ``block_n`` for the async variant."""
+    if m.variant != "async" or not m.block_n:
+        return None
+    return max(1, n // m.block_n)
+
+
 def _run_state(cfg: PSOConfig, state: SwarmState, iters: int,
                m: Method) -> SwarmState:
     """One static-weight segment on the resolved backend."""
     if m.resolve_backend(state.pos.device) == "kernel":
         return _run_state_kernel(cfg, state, iters, m)
-    n_blocks = (max(1, state.pos.shape[0] // m.block_n)
-                if m.variant == "async" and m.block_n else None)
     return run(cfg, state, iters, m.variant, sync_every=m.sync_every,
-               n_blocks=n_blocks)
+               n_blocks=_eager_async_blocks(m, state.pos.shape[0]))
 
 
 def _run_state_kernel(cfg: PSOConfig, state: SwarmState, iters: int,
@@ -221,9 +232,113 @@ def _run_state_kernel(cfg: PSOConfig, state: SwarmState, iters: int,
     return run_queue_lock_fused(cfg, state, iters, block_n=m.block_n)
 
 
-def solve_many(*args, **kwargs):
-    """Batched solves: not ported yet."""
-    raise _not_ported("solve_many", "2 (batched and hetero kernels)")
+def solve_many(problem: Union[str, Problem, None] = None,
+               seeds: Sequence[int] = (), *,
+               problems: Optional[Sequence[Union[str, Problem]]] = None,
+               dim: Optional[int] = None, particles: int = 1024,
+               iters: int = 1000, method: Optional[Method] = None,
+               variant: Optional[str] = None, backend: Optional[str] = None,
+               sync_every: Optional[int] = None,
+               block_n: Optional[int] = None, coeffs: Optional[Tuple] = None,
+               w: Optional[float] = None, c1: Optional[float] = None,
+               c2: Optional[float] = None, dtype: str = "float32",
+               min_pos=None, max_pos=None, max_v=None,
+               record_history: Optional[bool] = None,
+               schedule: Optional[str] = None, rule: Optional[str] = None,
+               topology: Optional[str] = None,
+               telemetry: Optional[bool] = None, device=None) -> List[Result]:
+    """One independent solve per entry of ``seeds``, advanced together on
+    ``device`` (``None``: the CUDA card): the batched eager engine, or the
+    batched CUDA kernels for ``queue_lock``/``async`` on the kernel backend.
+    Row ``s`` is ``solve(problem, seed=seeds[s], ...)`` with the same
+    method when ``coeffs`` is None (on the kernel backend up to the
+    multi-block async race). Returns one ``Result`` per seed.
+
+    ``coeffs=(w, c1, c2)``, each of length S, gives every swarm its own
+    coefficients; only the eager engine takes them. ``problems=`` (instead
+    of ``problem``) makes the batch heterogeneous: row ``s`` solves
+    ``problems[s]``, a registered built-in, with its own objective and box
+    bounds, so the ``min_pos``/``max_pos``/``max_v`` overrides are
+    rejected."""
+    dev = _device.resolve(device)
+    m = _make_method(method, variant=variant, backend=backend,
+                     sync_every=sync_every, block_n=block_n,
+                     record_history=record_history, schedule=schedule,
+                     rule=rule, topology=topology, telemetry=telemetry)
+    if (problem is None) == (problems is None):
+        raise ValueError(
+            "pass exactly one of problem= (homogeneous batch) or "
+            "problems= (one problem per seed)")
+    seeds = [int(sd) for sd in seeds]
+    if problems is not None:
+        return _solve_many_hetero(problems, seeds, m, dim, particles, iters,
+                                  coeffs, w, c1, c2, dtype, min_pos,
+                                  max_pos, max_v, dev)
+    prob = resolve_problem(problem)
+    cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
+                       max_pos, max_v, m)
+    batch = _run_batch(cfg, init_batch(cfg, seeds, device=dev), iters, m,
+                       coeffs)
+    return [Result(problem=prob, config=cfg, method=m, iters=iters,
+                   state=row) for row in batch_rows(batch)]
+
+
+def _solve_many_hetero(problems, seeds, m: Method, dim, particles, iters,
+                       coeffs, w, c1, c2, dtype, min_pos, max_pos, max_v,
+                       dev) -> List[Result]:
+    """``solve_many(problems=[...])``: per-row problem dispatch."""
+    if min_pos is not None or max_pos is not None or max_v is not None:
+        raise ValueError("heterogeneous batches take bounds from each "
+                         "row's problem; drop min_pos/max_pos/max_v")
+    probs = [resolve_problem(p) for p in problems]
+    if len(probs) != len(seeds):
+        raise ValueError(f"{len(probs)} problems for {len(seeds)} seeds")
+    # cfg.fitness is a placeholder: the rows carry the real objectives.
+    kw = dict(dim=dim if dim is not None else 1, particle_cnt=particles,
+              fitness="cubic", dtype=dtype, update_rule=m.rule,
+              topology=m.topology)
+    for key, v in (("w", w), ("c1", c1), ("c2", c2)):
+        if v is not None:
+            kw[key] = v
+    cfg = PSOConfig(**kw)
+    rows, table = problem_rows(probs, cfg.dim, cfg.dtype, device=dev)
+    rcfg = cfg.resolved()
+    batch = init_batch(rcfg, seeds, rows=rows, table=table, device=dev)
+    batch = _run_batch(rcfg, batch, iters, m, coeffs, rows, table)
+    configs = {p: hetero_member_config(cfg, p) for p in set(probs)}
+    return [Result(problem=p, config=configs[p], method=m, iters=iters,
+                   state=row) for p, row in zip(probs, batch_rows(batch))]
+
+
+def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int, m: Method,
+               coeffs, rows: Optional[ProblemRows] = None,
+               table=None) -> SwarmBatch:
+    """A batched segment on the resolved backend."""
+    if m.resolve_backend(batch.pos.device) == "kernel":
+        if coeffs is not None:
+            raise ValueError("per-swarm coeffs are an eager-engine feature; "
+                             "pass backend='eager'")
+        return _run_batch_kernel(cfg, batch, iters, m, rows, table)
+    return run_many(cfg, batch, iters, m.variant, coeffs,
+                    sync_every=m.sync_every, rows=rows, table=table,
+                    n_blocks=_eager_async_blocks(m, batch.pos.shape[1]))
+
+
+def _run_batch_kernel(cfg: PSOConfig, batch: SwarmBatch, iters: int,
+                      m: Method, rows: Optional[ProblemRows] = None,
+                      table=None) -> SwarmBatch:
+    """The batched kernels: the fused queue-lock in one launch (or one a
+    wave of swarms), or the async kernel's launches. ``rows``/``table``
+    make the batch heterogeneous."""
+    from .kernels.ops import (run_queue_lock_fused_async_batch,
+                              run_queue_lock_fused_batch)
+    fids = None if rows is None else rows.fid
+    if m.variant == "async":
+        return run_queue_lock_fused_async_batch(
+            cfg, batch, iters, sync_every=m.sync_every, block_n=m.block_n,
+            fids=fids, table=table)
+    return run_queue_lock_fused_batch(cfg, batch, iters, block_n=m.block_n,
+                                      fids=fids, table=table)
 
 
 def solve_stream(*args, **kwargs):

@@ -18,11 +18,19 @@ the same result.
 ``SwarmState.iteration`` and ``.seed`` are Python ints: they are RNG
 counter components the host already knows, and kernel launches take them
 as scalars.
+
+Every function below also takes a batch of swarms (``core.multi_swarm``'s
+``SwarmBatch``): the same fields with a leading swarm axis, ``pos``
+``[S, N, D]``, and ``iteration``/``seed`` as int64 tensors ``[S]`` that
+broadcast into the RNG counters. Reductions run over the particle axis of
+each swarm, so row ``s`` of a batch takes the same operations as the
+single swarm does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, Mapping, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -185,72 +193,154 @@ def _particle_index(n: int, d: int, device, index_offset: int = 0) -> Tensor:
             .reshape(n, d) + index_offset * d)
 
 
-def init_swarm(cfg: PSOConfig, seed: int, n: Optional[int] = None,
-               index_offset: int = 0, device=None) -> SwarmState:
+def _per_row(x, trailing: int):
+    """A per-swarm operand ``[S]`` shaped to broadcast against arrays with
+    ``trailing`` more axes; scalars and 0-d tensors pass through."""
+    if isinstance(x, Tensor) and x.dim() == 1:
+        return x.reshape(x.shape + (1,) * trailing)
+    return x
+
+
+def _pick(fit: Tensor, pos: Tensor, idx: Tensor) -> Tuple[Tensor, Tensor]:
+    """``(fit[..., i], pos[..., i, :])`` for the per-row indices ``idx``
+    (``[..., 1]``, as ``argmax(..., keepdim=True)`` gives them)."""
+    bp = pos.gather(-2, idx[..., None].expand(*idx.shape, pos.shape[-1]))
+    return fit.gather(-1, idx)[..., 0], bp[..., 0, :]
+
+
+class HeteroRow(NamedTuple):
+    """Per-swarm dispatch operands of a heterogeneous batch row, as in
+    ``repro.core.pso``: ``fid`` indexes the problem table; ``lo``/``hi``/
+    ``mv`` are the row's bound columns, ``[D]`` (or ``[S, D]`` with
+    ``fid`` ``[S]`` for a whole batch), precomputed by
+    ``multi_swarm.problem_rows`` with ``PSOConfig.resolved()``'s
+    arithmetic."""
+
+    fid: Union[int, Tensor]
+    lo: Tensor
+    hi: Tensor
+    mv: Tensor
+
+
+def _hetero_fitness(table: Sequence[Problem], fid, pos: Tensor) -> Tensor:
+    """Canonical fitness of each row's problem. Each table member runs once,
+    on the rows whose ``fid`` selects it (the reference computes every
+    member under ``vmap`` and selects)."""
+    if not isinstance(fid, Tensor) or fid.dim() == 0:
+        return table[int(fid)].max_fn(pos)
+    out = pos.new_empty(pos.shape[:-1])
+    for k in torch.unique(fid).tolist():
+        rows = (fid == k).nonzero()[:, 0]
+        out[rows] = table[k].max_fn(pos[rows])
+    return out
+
+
+def hetero_member_config(cfg: PSOConfig, prob: Problem) -> PSOConfig:
+    """``cfg`` re-pointed at one dispatch-table member, bounds re-derived:
+    the config a standalone solve of ``prob`` at this dim/particle_cnt/
+    w/c1/c2/dtype resolves to."""
+    return dataclasses.replace(cfg, fitness=prob, min_pos=None,
+                               max_pos=None, max_v=None).resolved()
+
+
+def init_swarm(cfg: PSOConfig, seed, n: Optional[int] = None,
+               index_offset: int = 0, device=None,
+               hetero=None) -> SwarmState:
     """Initialize a swarm (paper Alg. 1 step 1), bit-exact with the
-    reference's draws. ``device=None`` means the card."""
+    reference's draws. ``device=None`` means the card.
+
+    ``seed`` may be an int64 tensor ``[S]``, which initializes S swarms at
+    once (``multi_swarm.init_batch``). ``hetero=(table, row)`` draws from
+    the same streams but takes the box from the row's bound columns and
+    the objective from the table (``multi_swarm``'s heterogeneous
+    batches)."""
     dev = _device.resolve(device)
     cfg = cfg.resolved()
     n = cfg.particle_cnt if n is None else n
     d = cfg.dim
     dt = cfg.torch_dtype
     idx = _particle_index(n, d, dev, index_offset)
-    u_pos = rng.uniform(seed, 0, STREAM_INIT_POS, idx, dtype=dt)
-    u_vel = rng.uniform(seed, 0, STREAM_INIT_VEL, idx, dtype=dt)
-    lo = _bound_operand(cfg.min_pos, dt, dev)
-    hi = _bound_operand(cfg.max_pos, dt, dev)
-    mv = _bound_operand(cfg.max_v, dt, dev)
+    sd = _per_row(seed, 2)
+    u_pos = rng.uniform(sd, 0, STREAM_INIT_POS, idx, dtype=dt)
+    u_vel = rng.uniform(sd, 0, STREAM_INIT_VEL, idx, dtype=dt)
+    if hetero is None:
+        lo = _bound_operand(cfg.min_pos, dt, dev)
+        hi = _bound_operand(cfg.max_pos, dt, dev)
+        mv = _bound_operand(cfg.max_v, dt, dev)
+    else:
+        lo, hi, mv = (x.unsqueeze(-2) for x in hetero[1][1:])
     pos = lo + (hi - lo) * u_pos
     vel = -mv + 2.0 * mv * u_vel
-    fit = cfg.fitness_fn(pos)
-    best = torch.argmax(fit)
+    fit = (cfg.fitness_fn(pos) if hetero is None
+           else _hetero_fitness(hetero[0], hetero[1].fid, pos))
+    gbest_fit, gbest_pos = _pick(fit, pos, torch.argmax(fit, -1, True))
+    if isinstance(seed, Tensor):
+        seed = seed.to(torch.int64) & 0xFFFFFFFF
+        iteration = torch.zeros_like(seed)
+    else:
+        seed, iteration = int(seed) & 0xFFFFFFFF, 0
     return SwarmState(
         pos=pos, vel=vel, fit=fit, pbest_pos=pos, pbest_fit=fit,
-        gbest_pos=pos[best], gbest_fit=fit[best],
-        iteration=0, seed=int(seed) & 0xFFFFFFFF)
+        gbest_pos=gbest_pos, gbest_fit=gbest_fit,
+        iteration=iteration, seed=seed)
 
 
 def _advance(cfg: PSOConfig, s: SwarmState, index_offset: int = 0,
-             gbest_pos: Optional[Tensor] = None
+             gbest_pos: Optional[Tensor] = None,
+             coeffs: Optional[Tuple] = None, hetero=None
              ) -> Tuple[Tensor, Tensor, Tensor]:
     """Alg. 1 steps 2–3: velocity/position update + fitness, vectorized.
     ``gbest_pos`` optionally overrides the social attractor (any shape
     broadcastable to [N, D]) — ``step_async`` passes each block's local
-    best. Returns (pos, vel, fit) for iteration ``s.iteration + 1``."""
-    n, d = s.pos.shape
+    best. ``coeffs=(w, c1, c2)`` overrides the config's coefficients, each
+    a float or a per-swarm tensor ``[S]``; ``hetero=(table, row)`` swaps
+    the config's bounds and objective for the row's. Returns (pos, vel,
+    fit) for iteration ``s.iteration + 1``."""
+    n, d = s.pos.shape[-2:]
     dt, dev = s.pos.dtype, s.pos.device
-    it = s.iteration + 1
-    gbp = s.gbest_pos[None, :] if gbest_pos is None else gbest_pos
+    it = _per_row(s.iteration + 1, 2)
+    sd = _per_row(s.seed, 2)
+    gbp = s.gbest_pos.unsqueeze(-2) if gbest_pos is None else gbest_pos
     idx = _particle_index(n, d, dev, index_offset)
-    r1 = rng.uniform(s.seed, it, STREAM_R1, idx, dtype=dt)
-    r2 = rng.uniform(s.seed, it, STREAM_R2, idx, dtype=dt)
+    r1 = rng.uniform(sd, it, STREAM_R1, idx, dtype=dt)
+    r2 = rng.uniform(sd, it, STREAM_R2, idx, dtype=dt)
+    w, c1, c2 = ((cfg.w, cfg.c1, cfg.c2) if coeffs is None
+                 else (_per_row(c, 2) for c in coeffs))
+    if hetero is None:
+        lo = _bound_operand(cfg.min_pos, dt, dev)
+        hi = _bound_operand(cfg.max_pos, dt, dev)
+        mv = _bound_operand(cfg.max_v, dt, dev)
+    else:
+        lo, hi, mv = (x.unsqueeze(-2) for x in hetero[1][1:])
     pos, vel = resolve_rule(cfg.update_rule).advance(
-        r1, r2, s.pos, s.vel, s.pbest_pos, gbp, w=cfg.w, c1=cfg.c1, c2=cfg.c2,
-        mv=_bound_operand(cfg.max_v, dt, dev),
-        lo=_bound_operand(cfg.min_pos, dt, dev),
-        hi=_bound_operand(cfg.max_pos, dt, dev))
-    return pos, vel, cfg.fitness_fn(pos)
+        r1, r2, s.pos, s.vel, s.pbest_pos, gbp, w=w, c1=c1, c2=c2,
+        mv=mv, lo=lo, hi=hi)
+    fit = (cfg.fitness_fn(pos) if hetero is None
+           else _hetero_fitness(hetero[0], hetero[1].fid, pos))
+    return pos, vel, fit
 
 
 def _update_pbest(s: SwarmState, pos: Tensor, fit: Tensor
                   ) -> Tuple[Tensor, Tensor]:
     improved = fit > s.pbest_fit
     pbest_fit = torch.where(improved, fit, s.pbest_fit)
-    pbest_pos = torch.where(improved[:, None], pos, s.pbest_pos)
+    pbest_pos = torch.where(improved[..., None], pos, s.pbest_pos)
     return pbest_pos, pbest_fit
 
 
 def _take_best(fit: Tensor, pos: Tensor, s: SwarmState):
-    """gbest <- (fit[b], pos[b]) for b = argmax(fit) if it beats gbest."""
-    best = torch.argmax(fit)
-    take = fit[best] > s.gbest_fit
-    return (torch.where(take, pos[best], s.gbest_pos),
-            torch.where(take, fit[best], s.gbest_fit))
+    """gbest <- (fit[b], pos[b]) for b = argmax(fit) (first on ties) if it
+    beats gbest, per swarm."""
+    bf, bp = _pick(fit, pos, torch.argmax(fit, -1, True))
+    take = bf > s.gbest_fit
+    return (torch.where(take[..., None], bp, s.gbest_pos),
+            torch.where(take, bf, s.gbest_fit))
 
 
-def step_reduction(cfg: PSOConfig, s: SwarmState) -> SwarmState:
+def step_reduction(cfg: PSOConfig, s: SwarmState, coeffs=None,
+                   hetero=None) -> SwarmState:
     """Baseline: unconditional full argmax reduction (paper §3.2)."""
-    pos, vel, fit = _advance(cfg, s)
+    pos, vel, fit = _advance(cfg, s, coeffs=coeffs, hetero=hetero)
     pbest_pos, pbest_fit = _update_pbest(s, pos, fit)
     gbest_pos, gbest_fit = _take_best(pbest_fit, pbest_pos, s)
     return s._replace(pos=pos, vel=vel, fit=fit, pbest_pos=pbest_pos,
@@ -258,25 +348,28 @@ def step_reduction(cfg: PSOConfig, s: SwarmState) -> SwarmState:
                       gbest_fit=gbest_fit, iteration=s.iteration + 1)
 
 
-def step_queue(cfg: PSOConfig, s: SwarmState) -> SwarmState:
+def step_queue(cfg: PSOConfig, s: SwarmState, coeffs=None,
+               hetero=None) -> SwarmState:
     """Queue algorithm (paper §4.1): the queue is the set of lanes whose
     fitness beats the stale gbest; its best member (first on ties) becomes
     gbest. With an empty queue nothing beats gbest and nothing is taken."""
-    pos, vel, fit = _advance(cfg, s)
+    pos, vel, fit = _advance(cfg, s, coeffs=coeffs, hetero=hetero)
     pbest_pos, pbest_fit = _update_pbest(s, pos, fit)
-    q = torch.where(fit > s.gbest_fit, fit, torch.full_like(fit, -torch.inf))
+    q = torch.where(fit > s.gbest_fit[..., None], fit,
+                    torch.full_like(fit, -torch.inf))
     gbest_pos, gbest_fit = _take_best(q, pos, s)
     return s._replace(pos=pos, vel=vel, fit=fit, pbest_pos=pbest_pos,
                       pbest_fit=pbest_fit, gbest_pos=gbest_pos,
                       gbest_fit=gbest_fit, iteration=s.iteration + 1)
 
 
-def step_queue_lock(cfg: PSOConfig, s: SwarmState) -> SwarmState:
+def step_queue_lock(cfg: PSOConfig, s: SwarmState, coeffs=None,
+                    hetero=None) -> SwarmState:
     """Queue-lock (paper §4.2), eager: gbest from the pbest argmax, taken
     only when it beats gbest (the reference predicates the argmax on any
     pbest improving; without an improvement the argmax cannot beat gbest,
     so selecting unconditionally gives the same state)."""
-    pos, vel, fit = _advance(cfg, s)
+    pos, vel, fit = _advance(cfg, s, coeffs=coeffs, hetero=hetero)
     pbest_pos, pbest_fit = _update_pbest(s, pos, fit)
     gbest_pos, gbest_fit = _take_best(pbest_fit, pbest_pos, s)
     return s._replace(pos=pos, vel=vel, fit=fit, pbest_pos=pbest_pos,
@@ -299,31 +392,34 @@ ASYNC_SYNC_EVERY = 8
 def init_async_locals(state: SwarmState, n_blocks: int
                       ) -> Tuple[Tensor, Tensor]:
     """Block-local bests seeded from the shared gbest: ([nb, D], [nb])."""
-    lbp = state.gbest_pos[None, :].expand(n_blocks, -1).clone()
-    lbf = state.gbest_fit.expand(n_blocks).clone()
-    return lbp, lbf
+    gp, gf = state.gbest_pos, state.gbest_fit
+    lbp = gp.unsqueeze(-2).expand(*gp.shape[:-1], n_blocks, gp.shape[-1])
+    lbf = gf.unsqueeze(-1).expand(*gf.shape, n_blocks)
+    return lbp.clone(), lbf.clone()
 
 
-def step_async(cfg: PSOConfig, s: SwarmState, local: Tuple[Tensor, Tensor]
+def step_async(cfg: PSOConfig, s: SwarmState, local: Tuple[Tensor, Tensor],
+               coeffs=None, hetero=None
                ) -> Tuple[SwarmState, Tuple[Tensor, Tensor]]:
     """One async iteration: every block of ``n // nb`` particles advances
     against its block-local best; the iteration's per-block winner (first
     on ties) is folded into the local best. The shared gbest is untouched
     until ``publish_async_locals``."""
     lbp, lbf = local
-    n, d = s.pos.shape
-    nb = lbf.shape[0]
+    n, d = s.pos.shape[-2:]
+    lead = s.pos.shape[:-2]
+    nb = lbf.shape[-1]
     bn = n // nb
-    gb = lbp.repeat_interleave(bn, dim=0)         # particle -> its block best
-    pos, vel, fit = _advance(cfg, s, gbest_pos=gb)
+    gb = lbp.repeat_interleave(bn, dim=-2)        # particle -> its block best
+    pos, vel, fit = _advance(cfg, s, gbest_pos=gb, coeffs=coeffs,
+                             hetero=hetero)
     pbest_pos, pbest_fit = _update_pbest(s, pos, fit)
-    fb = fit.reshape(nb, bn)
-    bi = torch.argmax(fb, dim=1)
-    bfit = fb.gather(1, bi[:, None])[:, 0]
-    bpos = pos.reshape(nb, bn, d)[torch.arange(nb, device=pos.device), bi]
+    fb = fit.reshape(*lead, nb, bn)
+    bfit, bpos = _pick(fb, pos.reshape(*lead, nb, bn, d),
+                       torch.argmax(fb, -1, True))
     take = bfit > lbf
     lbf = torch.where(take, bfit, lbf)
-    lbp = torch.where(take[:, None], bpos, lbp)
+    lbp = torch.where(take[..., None], bpos, lbp)
     s = s._replace(pos=pos, vel=vel, fit=fit, pbest_pos=pbest_pos,
                    pbest_fit=pbest_fit, iteration=s.iteration + 1)
     return s, (lbp, lbf)
@@ -334,7 +430,7 @@ def publish_async_locals(s: SwarmState, local: Tuple[Tensor, Tensor]
     """The sync point: publish the best local into gbest, then pull gbest
     back into every block's local."""
     s, (lbp, lbf) = flush_async_locals(s, local)
-    return s, init_async_locals(s, lbf.shape[0])
+    return s, init_async_locals(s, lbf.shape[-1])
 
 
 def flush_async_locals(s: SwarmState, local: Tuple[Tensor, Tensor]
@@ -343,76 +439,79 @@ def flush_async_locals(s: SwarmState, local: Tuple[Tensor, Tensor]
     max(pbest_fit)``, while the untouched locals let a resumed run continue
     each block where it left off."""
     lbp, lbf = local
-    b = torch.argmax(lbf)
-    take = lbf[b] > s.gbest_fit
-    gf = torch.where(take, lbf[b], s.gbest_fit)
-    gp = torch.where(take, lbp[b], s.gbest_pos)
+    gp, gf = _take_best(lbf, lbp, s)
     return s._replace(gbest_pos=gp, gbest_fit=gf), (lbp, lbf)
+
+
+def _sync_point(s: SwarmState, local, sync_every: int, last: bool):
+    """After an async step: publish and pull where the swarm's iteration is
+    a multiple of ``sync_every``, else flush publish-only after the last
+    step of the call. A batch decides per swarm, as its rows may stand at
+    different iterations."""
+    due = s.iteration % sync_every == 0
+    if not isinstance(due, Tensor):
+        if due:
+            return publish_async_locals(s, local)
+        return flush_async_locals(s, local) if last else (s, local)
+    pub_s, pub_l = publish_async_locals(s, local)
+    keep_s, keep_l = flush_async_locals(s, local) if last else (s, local)
+
+    def pick(a, b):
+        return torch.where(due.reshape(due.shape + (1,) * (a.dim() - 1)),
+                           a, b)
+    s = s._replace(gbest_pos=pick(pub_s.gbest_pos, keep_s.gbest_pos),
+                   gbest_fit=pick(pub_s.gbest_fit, keep_s.gbest_fit))
+    return s, (pick(pub_l[0], keep_l[0]), pick(pub_l[1], keep_l[1]))
 
 
 def run_async(cfg: PSOConfig, state: SwarmState, iters: int,
               sync_every: int = ASYNC_SYNC_EVERY,
-              n_blocks: Optional[int] = None,
-              phase: Optional[int] = None) -> SwarmState:
+              n_blocks: Optional[int] = None, coeffs=None,
+              hetero=None) -> SwarmState:
     """``iters`` iterations of relaxed-consistency async PSO (eager).
 
     Blocks run against block-local bests; the shared gbest is published
-    and pulled every ``sync_every`` iterations, aligned to absolute
-    iteration numbers: an optional head chunk completes the window the
-    resume point interrupted (``phase``, default ``iteration %
-    sync_every``), full chunks follow, and a remainder flushes publish-only.
-    The result carries the block-local bests, and its ``gbest_fit`` equals
-    ``max(pbest_fit)``.
+    and pulled at every iteration that is a multiple of ``sync_every``
+    (aligned to absolute iteration numbers, so a resumed run keeps the
+    uninterrupted schedule), and a call that ends between two such points
+    flushes publish-only. The result carries the block-local bests, and its
+    ``gbest_fit`` equals ``max(pbest_fit)``. A state that carries locals of
+    the same block count resumes them.
     """
     cfg = cfg.resolved()
-    n = state.pos.shape[0]
+    n = state.pos.shape[-2]
     nb = n_blocks or default_block_count(n)
     if n % nb:
         raise ValueError(f"n_blocks={nb} does not divide particle_cnt={n}")
     if iters <= 0:
         return state
     sync_every = max(1, sync_every)
-    phase = (state.iteration if phase is None else phase) % sync_every
-    carried = (state.lbest_fit is not None
-               and tuple(state.lbest_fit.shape) == (nb,))
+    carried = (state.lbest_fit is not None and tuple(state.lbest_fit.shape)
+               == tuple(state.gbest_fit.shape) + (nb,))
     local = ((state.lbest_pos, state.lbest_fit) if carried
              else init_async_locals(state, nb))
     s = state._replace(lbest_pos=None, lbest_fit=None)
-
-    def chunk(s, local, span, publish):
-        for _ in range(span):
-            s, local = step_async(cfg, s, local)
-        return publish(s, local)
-
-    if phase:
-        head = min(iters, sync_every - phase)
-        chunks, rem = divmod(iters - head, sync_every)
-    else:
-        head, (chunks, rem) = 0, divmod(iters, sync_every)
-    if head:
-        scheduled = head == sync_every - phase
-        s, local = chunk(s, local, head, publish_async_locals if scheduled
-                         else flush_async_locals)
-    for _ in range(chunks):
-        s, local = chunk(s, local, sync_every, publish_async_locals)
-    if rem:
-        s, local = chunk(s, local, rem, flush_async_locals)
+    for t in range(iters):
+        s, local = step_async(cfg, s, local, coeffs=coeffs, hetero=hetero)
+        s, local = _sync_point(s, local, sync_every, last=t == iters - 1)
     return s._replace(lbest_pos=local[0], lbest_fit=local[1])
 
 
 def run(cfg: PSOConfig, state: SwarmState, iters: int,
         variant: str = "queue", sync_every: int = ASYNC_SYNC_EVERY,
-        n_blocks: Optional[int] = None) -> SwarmState:
+        n_blocks: Optional[int] = None, coeffs=None,
+        hetero=None) -> SwarmState:
     """Run ``iters`` iterations with the chosen aggregation variant;
-    ``sync_every``/``n_blocks`` only affect ``variant="async"``."""
+    ``sync_every``/``n_blocks`` only affect ``variant="async"``.
+    ``coeffs``/``hetero`` are ``_advance``'s per-swarm hooks."""
     cfg = cfg.resolved()
     if variant == "async":
         return run_async(cfg, state, iters, sync_every=sync_every,
-                         n_blocks=n_blocks)
+                         n_blocks=n_blocks, coeffs=coeffs, hetero=hetero)
     step = STEP_FNS[variant]
     state = state._replace(lbest_pos=None, lbest_fit=None)
     for _ in range(iters):
-        state = step(cfg, state)
+        state = step(cfg, state, coeffs=coeffs, hetero=hetero)
     return state
 
 

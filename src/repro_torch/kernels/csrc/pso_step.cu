@@ -1,26 +1,41 @@
-// Hand-written Hopper (sm_90a) kernels for the cuPSO main path.
+// Hand-written Hopper (sm_90a) kernels for cuPSO.
 //
-// Two kernels, each a port of one Pallas TPU kernel of
-// src/repro/kernels/pso_step.py, written from what that kernel computes:
+// Two kernels, each with a swarm axis, port six Pallas TPU kernels of
+// src/repro/kernels/pso_step.py, written from what those kernels compute:
 //
-//   fused_kernel  replaces pso_step.fused_call (body _make_sync_kernel()):
-//                 `iters` iterations of the fused queue-lock (paper §4.2).
-//   async_kernel  replaces pso_step.fused_async_call (body
-//                 _make_async_kernel(), chunk loop _async_chunk_body): the
-//                 paper's enhanced asynchronous queue-lock.
+//   fused_kernel  `iters` iterations of the fused queue-lock (paper §4.2)
+//                 for S independent swarms. Replaces fused_call (S = 1),
+//                 fused_batch_call and hetero_fused_batch_call (bodies
+//                 _make_sync_kernel()).
+//   async_kernel  the paper's enhanced asynchronous queue-lock for S
+//                 swarms. Replaces fused_async_call (S = 1),
+//                 fused_async_batch_call and hetero_fused_async_batch_call
+//                 (bodies _make_async_kernel(), chunk loop _async_chunk_body).
 //
-// Layout: D-major, arrays [D, N] with the particle index fastest (§5.1
-// coalescing rule): thread l of a block works on particles base + l,
-// base + l + blockDim, ..., so neighbouring threads touch neighbouring
-// addresses of every dimension. Each thread loops over D for its particle
-// and accumulates the objective (this replaces the TPU kernel's masked
-// sublane sums). float32 only.
+// Layout: D-major, arrays [D, S*N] with the particle index fastest (§5.1
+// coalescing rule); swarm s owns columns [s*N, (s+1)*N), and its gbest is
+// column s of gp [D, S]. A CTA works on one particle block of one swarm:
+// thread l of the block works on particles base + l, base + l + blockDim,
+// ..., so neighbouring threads touch neighbouring addresses of every
+// dimension. Each thread loops over D for its particle and accumulates the
+// objective (this replaces the TPU kernel's masked sublane sums). Every
+// swarm has its own RNG seed and iteration counter (seeds[S], its[S]), and
+// RNG element indices are local to the swarm, so a swarm's row of a batch
+// draws what the swarm draws alone. float32 only.
+//
+// Heterogeneous batches: bounds are a table [members, 4, D] and fids[S]
+// picks a swarm's member (a homogeneous batch is a table of one, read at
+// member 0). The objective is a template parameter; the hetero kernels
+// (F == kHetero) switch once, at the top of the CTA, on the member's
+// objective into the same templated body. A CTA belongs to one swarm, so
+// the switch is uniform across the CTA: the CUDA form of the TPU kernel's
+// scalar lax.switch.
 //
 // What bounds them on an H100: per iteration a particle-dimension reads
 // pos, vel and pbest_pos and writes pos and vel (20 bytes), so a pass over
-// the swarm is 20*N*D + 8*N bytes: at an H100 SXM's 3.35 TB/s (data sheet)
-// 1.1 us at N=131072, D=1 (3.7 MB, inside the 50 MB L2) and 23.5 us at
-// N=32768, D=120 (78.9 MB, beyond it). Against that each element of the
+// the swarms is S*(20*N*D + 8*N) bytes: at an H100 SXM's 3.35 TB/s (data
+// sheet) 1.1 us at N=131072, D=1 (3.7 MB, inside the 50 MB L2) and 23.5 us
+// at N=32768, D=120 (78.9 MB, beyond it). Against that each element of the
 // cubic/pso path spends 42 integer operations (two counter-hash draws)
 // and 24 float ones (the rule, the objective); integers issue at a quarter
 // of the data sheet's 67 TFLOP/s, so at D=1 the operations take 0.33 us an
@@ -28,9 +43,9 @@
 // integer work and, for the fused kernel at small D, by the grid-wide
 // synchronisation of every iteration, not by bytes. The design therefore
 // keeps the whole iteration loop inside one launch (no per-iteration launch
-// latency), keeps the attractor and the
-// bounds in shared memory, and publishes one 64-bit key per CTA only when
-// the CTA has a candidate (the paper's rare-improvement predicate).
+// latency), keeps the attractor and the bounds in shared memory, and
+// publishes one 64-bit key per CTA only when the CTA has a candidate (the
+// paper's rare-improvement predicate).
 //
 // Arithmetic uses the __f*_rn intrinsics so that nvcc does not contract
 // into FMAs: the kernels then round exactly as the plain PyTorch versions
@@ -46,22 +61,53 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 constexpr int kFitnessCount = 6;   // core/fitness.py FITNESS_IDS order
+constexpr int kHetero = kFitnessCount;   // objective read per swarm
 constexpr int kRuleCount = 3;      // core/update_rules.py RULE_IDS order
 constexpr uint32_t kStreamR1 = 2u, kStreamR2 = 3u;
 constexpr int kBatch = 4;          // dimensions loaded together
 
 struct Params {
-  float* pos; float* vel; float* pbp; float* pbf;   // [D,N] x3, [N]
-  float* gp; float* gf;                              // [D], [1]
-  const float* bounds;                               // [4,D]: lo, hi, max_v, span
-  float* lp; float* lf;                              // async: [D,nb], [nb]
-  unsigned long long* keys;                          // fused: [2] winner keys
-  float* cand;                                       // fused: [2,nb,D] candidates
-  unsigned* lock;                                    // async: [mutex, sequence]
-  int n, d, bn, iters, chunk;
-  uint32_t seed, it0;
+  float* pos; float* vel; float* pbp; float* pbf;   // [D,S*N] x3, [S*N]
+  float* gp; float* gf;                              // [D,S], [S]
+  const float* bounds;       // [members,4,D]: lo, hi, max_v, span
+  const int* member_fit;     // hetero: [members] objective ids
+  const int* fids;           // hetero: [S] member of each swarm, else null
+  const unsigned* seeds;     // [S] RNG seeds, or null: seed0
+  const unsigned* its;       // [S] iteration counters before the launch,
+                             // or null: it00
+  float* lp; float* lf;                              // async: [D,S*nb], [S*nb]
+  unsigned long long* keys;                          // fused: [S,2] winner keys
+  float* cand;                                       // fused: [2,S*nb,D]
+  unsigned* lock;                                    // async: [S,2]
+  int n, d, bn, nb, s_cnt, s0, iters, chunk;
+  int ld;                    // row stride of the [D, S*N] arrays: S*N
+  uint32_t it_off;           // added to its[] (the async remainder phase)
+  uint32_t seed0, it00;      // a single swarm's counters, passed by value
   float w, c1, c2, k0, k1, k2;
 };
+
+// Where a CTA works: swarm s (of the whole batch; a wave of the fused
+// kernel starts at s0), particle block b of that swarm. Columns are 32-bit
+// (the wrapper keeps S*N below 2^31); an element's offset k*ld + column is
+// formed in 64 bits from the parameter ld, as for a single swarm, which
+// keeps the per-element index math and its registers at the single-swarm
+// kernel's.
+struct Cta {
+  int s, b, member;
+  uint32_t seed, it0;
+  int col;         // first column of the swarm in the [D, S*N] arrays
+};
+
+__device__ __forceinline__ Cta cta_of(const Params& p) {
+  Cta c;
+  c.s = p.s0 + (int)blockIdx.x / p.nb;
+  c.b = (int)blockIdx.x % p.nb;
+  c.member = p.fids ? p.fids[c.s] : 0;
+  c.seed = p.seeds ? p.seeds[c.s] : p.seed0;
+  c.it0 = (p.its ? p.its[c.s] : p.it00) + p.it_off;
+  c.col = c.s * p.n;
+  return c;
+}
 
 // ---- counter hash: repro/core/rng.py, bit for bit --------------------------
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -156,11 +202,13 @@ struct Objective {
   }
 };
 
-// One iteration of particle i against the attractor att[D] (gbest or the
-// block's local best): advance, objective, pbest fold. Returns the fitness.
+// One iteration of particle i (local to the swarm) against the attractor
+// att[D] (gbest or the block's local best): advance, objective, pbest fold.
+// Returns the fitness.
 template <int F, int R>
-__device__ __forceinline__ float step_particle(const Params& p, int i,
-                                               uint32_t it, const float* sm) {
+__device__ __forceinline__ float step_particle(const Params& p, const Cta& c,
+                                               int i, uint32_t it,
+                                               const float* sm) {
   const int D = p.d;
   const float* att = sm;
   const float* lo = sm + D;
@@ -169,10 +217,11 @@ __device__ __forceinline__ float step_particle(const Params& p, int i,
   const float* span = sm + 4 * D;
   Objective<F> obj;
   const uint32_t idx0 = (uint32_t)i * (uint32_t)D;   // index = particle*D + dim
+  const int col = c.col + i;
   auto update = [&](int k, float x, float v, float pb) {
-    const size_t o = (size_t)k * p.n + i;
-    const float r1 = uniform01(p.seed, it, kStreamR1, idx0 + (uint32_t)k);
-    const float r2 = uniform01(p.seed, it, kStreamR2, idx0 + (uint32_t)k);
+    const size_t o = (size_t)k * p.ld + col;
+    const float r1 = uniform01(c.seed, it, kStreamR1, idx0 + (uint32_t)k);
+    const float r2 = uniform01(c.seed, it, kStreamR2, idx0 + (uint32_t)k);
     advance<R>(p, r1, r2, x, v, pb, att[k], lo[k], hi[k], mv[k], span[k]);
     p.pos[o] = x;
     p.vel[o] = v;
@@ -187,7 +236,7 @@ __device__ __forceinline__ float step_particle(const Params& p, int i,
     float x[kBatch], v[kBatch], pb[kBatch];
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
-      const size_t o = (size_t)(k + j) * p.n + i;
+      const size_t o = (size_t)(k + j) * p.ld + col;
       x[j] = p.pos[o];
       v[j] = p.vel[o];
       pb[j] = p.pbp[o];
@@ -196,24 +245,25 @@ __device__ __forceinline__ float step_particle(const Params& p, int i,
     for (int j = 0; j < kBatch; ++j) update(k + j, x[j], v[j], pb[j]);
   }
   for (; k < D; ++k) {
-    const size_t o = (size_t)k * p.n + i;
+    const size_t o = (size_t)k * p.ld + col;
     update(k, p.pos[o], p.vel[o], p.pbp[o]);
   }
   const float f = obj.result(D);
-  if (f > p.pbf[i]) {           // rare at steady state: copy the column
-    p.pbf[i] = f;
-    for (int c = 0; c < D; ++c) {
-      const size_t o = (size_t)c * p.n + i;
+  if (f > p.pbf[col]) {         // rare at steady state: copy the column
+    p.pbf[col] = f;
+    for (int j = 0; j < D; ++j) {
+      const size_t o = (size_t)j * p.ld + col;
       p.pbp[o] = p.pos[o];
     }
   }
   return f;
 }
 
-// Queue keys: (order-preserving fitness bits) << 32 | (0xFFFFFFFF - index).
-// A larger key is a higher fitness, and on equal fitness the lower particle
-// index: one 64-bit atomicMax is the queue's scan with the reference's
-// first-lane tie-break (pso_step._queue_best).
+// Queue keys: (order-preserving fitness bits) << 32 | (0xFFFFFFFF - index),
+// the index local to the swarm. A larger key is a higher fitness, and on
+// equal fitness the lower particle index: one 64-bit atomicMax is the
+// queue's scan with the reference's first-lane tie-break
+// (pso_step._queue_best).
 __device__ __forceinline__ unsigned long long make_key(float f, int i) {
   uint32_t u = __float_as_uint(__fadd_rn(f, 0.0f));   // -0 -> +0
   u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
@@ -228,24 +278,26 @@ __device__ __forceinline__ int key_index(unsigned long long key) {
   return (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
 }
 
-// Shared memory: att[D] then lo, hi, max_v, span rows.
-__device__ __forceinline__ void load_bounds(const Params& p, float* sm) {
-  for (int k = threadIdx.x; k < 4 * p.d; k += blockDim.x)
-    sm[p.d + k] = p.bounds[k];
+// Shared memory: att[D] then the swarm's member's lo, hi, max_v, span rows.
+__device__ __forceinline__ void load_bounds(const Params& p, const Cta& c,
+                                            float* sm) {
+  const float* b = p.bounds + (size_t)c.member * 4 * p.d;
+  for (int k = threadIdx.x; k < 4 * p.d; k += blockDim.x) sm[p.d + k] = b[k];
 }
 
 // Each thread's particles: one pass, returning the thread's best queue key
 // (0 when none of its particles beats `best`).
 template <int F, int R>
 __device__ __forceinline__ unsigned long long step_block(const Params& p,
+                                                         const Cta& c,
                                                          uint32_t it,
                                                          const float* sm,
                                                          float best) {
   unsigned long long mine = 0ull;
-  const int base = blockIdx.x * p.bn;
+  const int base = c.b * p.bn;
   for (int l = threadIdx.x; l < p.bn; l += blockDim.x) {
     const int i = base + l;
-    const float f = step_particle<F, R>(p, i, it, sm);
+    const float f = step_particle<F, R>(p, c, i, it, sm);
     if (f > best) {
       const unsigned long long key = make_key(f, i);
       mine = key > mine ? key : mine;
@@ -255,20 +307,26 @@ __device__ __forceinline__ unsigned long long step_block(const Params& p,
 }
 
 // ---------------------------------------------------------------------------
-// Fused queue-lock: one persistent cooperative launch, one CTA per particle
-// block, the iteration loop inside, a grid-wide sync between iterations.
+// Fused queue-lock: one CTA per particle block of each swarm, the iteration
+// loop inside. With several blocks a swarm's CTAs meet at a grid-wide sync
+// between iterations, so the launch is cooperative (G = true) and every CTA
+// of the launch must be resident; the wrapper launches a large batch in
+// waves of whole swarms, which is exact because swarms are independent.
+// With one block a CTA is its whole swarm and needs no grid sync: a normal
+// launch of S CTAs (G = false), for any S.
 //
-// Semantics: synchronous PPSO. Every CTA reads the gbest of iteration t-1
-// (the TPU kernel's block b also sees what blocks 0..b-1 published in the
-// same iteration, an artifact of its sequential grid; concurrent CTAs cannot
-// give that order without running one after another). With one block both
-// agree exactly.
+// Semantics: synchronous PPSO. Every CTA reads its swarm's gbest of
+// iteration t-1 (the TPU kernel's block b also sees what blocks 0..b-1
+// published in the same iteration, an artifact of its sequential grid;
+// concurrent CTAs cannot give that order without running one after
+// another). With one block both agree exactly.
 //
 // Publication (§5.3): only the winner's index travels, inside the key. Each
-// CTA with a candidate raises keys[t&1] with one atomicMax and copies its
-// block winner's column into cand[t&1][block]. After grid.sync() every CTA
-// decodes the key and reads the winner's D floats from that candidate
-// column into its shared gbest.
+// CTA with a candidate raises its swarm's keys[s][t&1] with one atomicMax
+// and copies its block winner's column into cand[t&1][s*nb + block]. After
+// grid.sync() every CTA decodes the key (the index is local to the swarm,
+// so index / bn is the winning block) and reads the winner's D floats from
+// that candidate column into its shared gbest.
 //
 // Races, and what prevents them:
 //  * Key: a fast CTA raises the key of iteration t+1 while a slow CTA may
@@ -283,68 +341,101 @@ __device__ __forceinline__ unsigned long long step_block(const Params& p,
 //    iteration t+1, possibly before a slow CTA has gathered it. The gather
 //    therefore reads the candidate copy, which is double-buffered the same
 //    way as the key.
+//  * Within the CTA, the block's key s_key is double-buffered by parity:
+//    slot par^1 is cleared after the barrier that follows every read of it
+//    and before the barrier that precedes its next atomicMax.
 // ---------------------------------------------------------------------------
-template <int F, int R>
+template <int F, int R, bool G>
+__device__ __forceinline__ void fused_body(const Params& p, const Cta& c,
+                                           float* sm,
+                                           unsigned long long* s_key) {
+  const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
+  float gf = p.gf[c.s];
+  int par = 0;
+  for (int t = 0; t < p.iters; ++t) {
+    const uint32_t it = c.it0 + (uint32_t)t + 1u;
+    const unsigned long long mine = step_block<F, R>(p, c, it, sm, gf);
+    if (mine) atomicMax(&s_key[par], mine);      // the intra-block queue
+    __syncthreads();
+    const unsigned long long bk = s_key[par];
+    if (tid == 0) s_key[par ^ 1] = 0ull;
+    if constexpr (G) {
+      const int slot = t & 1;
+      unsigned long long* key = p.keys + 2 * (size_t)c.s + slot;
+      float* cand = p.cand + ((size_t)slot * p.s_cnt + c.s) * p.nb * D;
+      if (bk) {
+        const int wi = c.col + key_index(bk);
+        for (int k = tid; k < D; k += nt)
+          cand[(size_t)c.b * D + k] = p.pos[(size_t)k * p.ld + wi];
+        if (tid == 0) atomicMax(key, bk);
+      }
+      cg::this_grid().sync();
+      const unsigned long long gk = __ldcg(key);
+      const float kf = key_fit(gk);
+      if (gk != 0ull && kf > gf) {
+        gf = kf;
+        const float* win = cand + (size_t)(key_index(gk) / p.bn) * D;
+        for (int k = tid; k < D; k += nt) sm[k] = __ldcg(win + k);
+      }
+    } else if (bk) {  // one block: every candidate beats gf, the best wins
+      gf = key_fit(bk);
+      const int wi = c.col + key_index(bk);
+      for (int k = tid; k < D; k += nt) sm[k] = p.pos[(size_t)k * p.ld + wi];
+    }
+    __syncthreads();
+    par ^= 1;
+  }
+  if (c.b == 0) {
+    for (int k = tid; k < D; k += nt) p.gp[(size_t)k * p.s_cnt + c.s] = sm[k];
+    if (tid == 0) p.gf[c.s] = gf;
+  }
+}
+
+template <int F, int R, bool G>
 __global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
   extern __shared__ float sm[];
-  __shared__ unsigned long long s_key;
-  cg::grid_group grid = cg::this_grid();
-  const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
-  load_bounds(p, sm);
-  for (int k = tid; k < D; k += nt) sm[k] = p.gp[k];
-  if (tid == 0) s_key = 0ull;
-  float gf = *p.gf;
+  __shared__ unsigned long long s_key[2];
+  const Cta c = cta_of(p);
+  load_bounds(p, c, sm);
+  for (int k = threadIdx.x; k < p.d; k += blockDim.x)
+    sm[k] = p.gp[(size_t)k * p.s_cnt + c.s];
+  if (threadIdx.x == 0) s_key[0] = s_key[1] = 0ull;
   __syncthreads();
-  for (int t = 0; t < p.iters; ++t) {
-    const uint32_t it = p.it0 + (uint32_t)t + 1u;
-    const int slot = t & 1;
-    const unsigned long long mine = step_block<F, R>(p, it, sm, gf);
-    if (mine) atomicMax(&s_key, mine);           // the intra-block queue
-    __syncthreads();
-    const unsigned long long bk = s_key;
-    if (bk) {
-      const int wi = key_index(bk);
-      float* c = p.cand + ((size_t)slot * gridDim.x + blockIdx.x) * D;
-      for (int k = tid; k < D; k += nt) c[k] = p.pos[(size_t)k * p.n + wi];
-      if (tid == 0) atomicMax(p.keys + slot, bk);
+  if constexpr (F < kHetero) {
+    fused_body<F, R, G>(p, c, sm, s_key);
+  } else {
+    switch (p.member_fit[c.member]) {   // uniform across the CTA
+      case 0: fused_body<0, R, G>(p, c, sm, s_key); break;
+      case 1: fused_body<1, R, G>(p, c, sm, s_key); break;
+      case 2: fused_body<2, R, G>(p, c, sm, s_key); break;
+      case 3: fused_body<3, R, G>(p, c, sm, s_key); break;
+      case 4: fused_body<4, R, G>(p, c, sm, s_key); break;
+      default: fused_body<5, R, G>(p, c, sm, s_key); break;
     }
-    grid.sync();
-    const unsigned long long gk = __ldcg(p.keys + slot);
-    const float kf = key_fit(gk);
-    if (gk != 0ull && kf > gf) {
-      gf = kf;
-      const float* c =
-          p.cand + ((size_t)slot * gridDim.x + key_index(gk) / p.bn) * D;
-      for (int k = tid; k < D; k += nt) sm[k] = __ldcg(c + k);
-    }
-    if (tid == 0) s_key = 0ull;
-    __syncthreads();
-  }
-  if (blockIdx.x == 0) {
-    for (int k = tid; k < D; k += nt) p.gp[k] = sm[k];
-    if (tid == 0) *p.gf = gf;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Async queue-lock: a normal launch, one CTA per particle block, resident
-// for its whole span. Each chunk runs `chunk` iterations against the block's
-// local best in shared memory; the shared gbest (fit + D floats, which no
-// single atomic covers) is touched only at chunk boundaries.
+// Async queue-lock: a normal launch, one CTA per particle block of each
+// swarm, resident for its whole span. Each chunk runs `chunk` iterations
+// against the block's local best in shared memory; the swarm's shared
+// gbest (fit + D floats, which no single atomic covers) is touched only at
+// chunk boundaries. More CTAs than fit on the card at once is safe: a CTA
+// that holds a lock, or has a write in flight, is running.
 //
 // At a boundary a CTA publishes its local best if it beats gbest, otherwise
 // pulls gbest if it beats the local best — the TPU kernel's chunk-exit
 // publish followed by the next chunk's entry pull. The order of
-// publications across CTAs is a race by design; with one block the kernel
-// equals the fused kernel for every chunk length.
+// publications across a swarm's CTAs is a race by design; with one block
+// the kernel equals the fused kernel for every chunk length.
 //
-// The shared gbest is guarded by the paper's lock plus a sequence counter
-// (lock[0] mutex, lock[1] sequence; a seqlock). Writers take the atomicCAS
-// spin lock (thread 0), make the sequence odd, copy with the whole CTA
-// between __syncthreads, __threadfence, make it even and release. Readers
-// take no lock: they read the sequence, the fitness and the D floats, and
-// retry if the sequence was odd or moved. All reads of the shared gbest
-// bypass L1 (__ldcg), which is not coherent across SMs.
+// Each swarm's gbest is guarded by the paper's lock plus a sequence counter
+// (lock[s][0] mutex, lock[s][1] sequence; a seqlock). Writers take the
+// atomicCAS spin lock (thread 0), make the sequence odd, copy with the
+// whole CTA between __syncthreads, __threadfence, make it even and release.
+// Readers take no lock: they read the sequence, the fitness and the D
+// floats, and retry if the sequence was odd or moved. All reads of the
+// shared gbest bypass L1 (__ldcg), which is not coherent across SMs.
 //
 // Why not a lock for every boundary: all CTAs reach a boundary at about the
 // same time, so with a lock around every read 256 CTAs serialise their
@@ -358,14 +449,17 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
 // ---------------------------------------------------------------------------
 enum BoundaryAct { kNone = 0, kPublish = 1, kPull = 2 };
 
-__device__ __forceinline__ float boundary(const Params& p, float* att, float lf,
-                                          bool publish, bool pull,
-                                          float* s_g, int* s_act) {
+__device__ __forceinline__ float boundary(const Params& p, const Cta& c,
+                                          float* att, float lf, bool publish,
+                                          bool pull, float* s_g, int* s_act) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  unsigned* mutex = p.lock;
-  unsigned* seq = p.lock + 1;
+  unsigned* mutex = p.lock + 2 * (size_t)c.s;
+  unsigned* seq = mutex + 1;
+  float* gf = p.gf + c.s;
+  float* gp = p.gp + c.s;             // column s of [D, S]: stride s_cnt
+  const size_t ld = (size_t)p.s_cnt;
   if (tid == 0) {
-    const float g = __ldcg(p.gf);
+    const float g = __ldcg(gf);
     *s_act = (publish && lf > g) ? kPublish : ((pull && g > lf) ? kPull : kNone);
   }
   __syncthreads();
@@ -374,7 +468,7 @@ __device__ __forceinline__ float boundary(const Params& p, float* att, float lf,
     if (tid == 0) {
       while (atomicCAS(mutex, 0u, 1u) != 0u) __nanosleep(64);
       __threadfence();
-      const float g = __ldcg(p.gf);
+      const float g = __ldcg(gf);
       const bool win = lf > g;
       if (win) {
         atomicAdd(seq, 1u);                 // odd: a write is in flight
@@ -385,12 +479,12 @@ __device__ __forceinline__ float boundary(const Params& p, float* att, float lf,
     __syncthreads();
     act = *s_act;
     if (act == kPublish)
-      for (int k = tid; k < p.d; k += nt) __stcg(p.gp + k, att[k]);
+      for (int k = tid; k < p.d; k += nt) __stcg(gp + k * ld, att[k]);
     __threadfence();
     __syncthreads();
     if (tid == 0) {
       if (act == kPublish) {
-        __stcg(p.gf, lf);
+        __stcg(gf, lf);
         __threadfence();
         atomicAdd(seq, 1u);                 // even: the write is complete
       }
@@ -404,11 +498,11 @@ __device__ __forceinline__ float boundary(const Params& p, float* att, float lf,
         unsigned s1;
         while ((s1 = __ldcg(seq)) & 1u) __nanosleep(32);
         __threadfence();
-        *s_g = __ldcg(p.gf);
+        *s_g = __ldcg(gf);
         s_act[1] = (int)s1;
       }
       __syncthreads();
-      for (int k = tid; k < p.d; k += nt) att[k] = __ldcg(p.gp + k);
+      for (int k = tid; k < p.d; k += nt) att[k] = __ldcg(gp + k * ld);
       __threadfence();
       __syncthreads();
       if (tid == 0) s_act[2] = __ldcg(seq) != (unsigned)s_act[1];
@@ -418,6 +512,38 @@ __device__ __forceinline__ float boundary(const Params& p, float* att, float lf,
       if (!torn) break;
     }
     lf = *s_g;                      // gbest only grows: still > lf
+  }
+  return lf;
+}
+
+template <int F, int R>
+__device__ __forceinline__ float async_body(const Params& p, const Cta& c,
+                                            float* sm, float lf,
+                                            unsigned long long* s_key,
+                                            float* s_g, int* s_act) {
+  const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
+  const int chunks = p.iters / p.chunk;
+  int par = 0;
+  for (int ch = 0; ch <= chunks; ++ch) {
+    lf = boundary(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act);
+    if (ch == chunks) break;
+    for (int tl = 0; tl < p.chunk; ++tl) {
+      const uint32_t it = c.it0 + (uint32_t)(ch * p.chunk + tl) + 1u;
+      const unsigned long long mine = step_block<F, R>(p, c, it, sm, lf);
+      if (mine) atomicMax(&s_key[par], mine);
+      __syncthreads();
+      // s_key[par ^ 1] was last read before the barrier above; clearing it
+      // here keeps every clear ahead of the next iteration's atomicMax.
+      const unsigned long long bk = s_key[par];
+      if (tid == 0) s_key[par ^ 1] = 0ull;
+      if (bk) {     // every candidate beats lf, so the block's best is taken
+        lf = key_fit(bk);
+        const int wi = c.col + key_index(bk);
+        for (int k = tid; k < D; k += nt) sm[k] = p.pos[(size_t)k * p.ld + wi];
+      }
+      __syncthreads();
+      par ^= 1;
+    }
   }
   return lf;
 }
@@ -433,54 +559,55 @@ template <int F, int R>
 __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key[2];
-  __shared__ float s_gf;
+  __shared__ float s_g;
   __shared__ int s_act[3];
-  const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
-  const int b = blockIdx.x, nb = gridDim.x;
-  load_bounds(p, sm);
-  for (int k = tid; k < D; k += nt) sm[k] = p.lp[(size_t)k * nb + b];
-  if (tid == 0) s_key[0] = s_key[1] = 0ull;
-  float lf = p.lf[b];
+  const Cta c = cta_of(p);
+  const size_t slot = (size_t)c.s * p.nb + c.b;   // per-(swarm, block) local
+  const size_t lds = (size_t)p.s_cnt * p.nb;
+  load_bounds(p, c, sm);
+  for (int k = threadIdx.x; k < p.d; k += blockDim.x)
+    sm[k] = p.lp[(size_t)k * lds + slot];
+  if (threadIdx.x == 0) s_key[0] = s_key[1] = 0ull;
+  float lf = p.lf[slot];
   __syncthreads();
-  const int chunks = p.iters / p.chunk;
-  int par = 0;
-  for (int c = 0; c <= chunks; ++c) {
-    lf = boundary(p, sm, lf, c > 0, c < chunks, &s_gf, s_act);
-    if (c == chunks) break;
-    for (int tl = 0; tl < p.chunk; ++tl) {
-      const uint32_t it = p.it0 + (uint32_t)(c * p.chunk + tl) + 1u;
-      const unsigned long long mine = step_block<F, R>(p, it, sm, lf);
-      if (mine) atomicMax(&s_key[par], mine);
-      __syncthreads();
-      // s_key[par ^ 1] was last read before the barrier above; clearing it
-      // here keeps every clear ahead of the next iteration's atomicMax.
-      const unsigned long long bk = s_key[par];
-      if (tid == 0) s_key[par ^ 1] = 0ull;
-      if (bk) {     // every candidate beats lf, so the block's best is taken
-        lf = key_fit(bk);
-        const int wi = key_index(bk);
-        for (int k = tid; k < D; k += nt) sm[k] = p.pos[(size_t)k * p.n + wi];
-      }
-      __syncthreads();
-      par ^= 1;
+  if constexpr (F < kHetero) {
+    lf = async_body<F, R>(p, c, sm, lf, s_key, &s_g, s_act);
+  } else {
+    switch (p.member_fit[c.member]) {   // uniform across the CTA
+      case 0: lf = async_body<0, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
+      case 1: lf = async_body<1, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
+      case 2: lf = async_body<2, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
+      case 3: lf = async_body<3, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
+      case 4: lf = async_body<4, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
+      default: lf = async_body<5, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
     }
   }
-  for (int k = tid; k < D; k += nt) p.lp[(size_t)k * nb + b] = sm[k];
-  if (tid == 0) p.lf[b] = lf;
+  for (int k = threadIdx.x; k < p.d; k += blockDim.x)
+    p.lp[(size_t)k * lds + slot] = sm[k];
+  if (threadIdx.x == 0) p.lf[slot] = lf;
 }
 
 using Kernel = void (*)(Params);
 
-#define PSO_ROW(K, F) {K<F, 0>, K<F, 1>, K<F, 2>}
-#define PSO_TABLE(K)                                                        \
-  {PSO_ROW(K, 0), PSO_ROW(K, 1), PSO_ROW(K, 2), PSO_ROW(K, 3), PSO_ROW(K, 4), \
-   PSO_ROW(K, 5)}
+// PSO_TABLE(kernel, <empty> or <empty>, <more template arguments>): the
+// variadic tail is pasted after the rule id, so `, true` selects <F, R, true>.
+#define PSO_RULES(K, F, ...) {K<F, 0 __VA_ARGS__>, K<F, 1 __VA_ARGS__>, \
+                              K<F, 2 __VA_ARGS__>}
+#define PSO_TABLE(K, ...)                                                  \
+  {PSO_RULES(K, 0, __VA_ARGS__), PSO_RULES(K, 1, __VA_ARGS__),             \
+   PSO_RULES(K, 2, __VA_ARGS__), PSO_RULES(K, 3, __VA_ARGS__),             \
+   PSO_RULES(K, 4, __VA_ARGS__), PSO_RULES(K, 5, __VA_ARGS__),             \
+   PSO_RULES(K, 6, __VA_ARGS__)}
 
-const Kernel kFused[kFitnessCount][kRuleCount] = PSO_TABLE(fused_kernel);
-const Kernel kAsync[kFitnessCount][kRuleCount] = PSO_TABLE(async_kernel);
+// [objective or kHetero][rule]
+const Kernel kFusedGrid[kHetero + 1][kRuleCount] = PSO_TABLE(fused_kernel,
+                                                             , true);
+const Kernel kFusedBlock[kHetero + 1][kRuleCount] = PSO_TABLE(fused_kernel,
+                                                              , false);
+const Kernel kAsync[kHetero + 1][kRuleCount] = PSO_TABLE(async_kernel, );
 
 Kernel pick(const Kernel (*table)[kRuleCount], int fit, int rule) {
-  if (fit < 0 || fit >= kFitnessCount || rule < 0 || rule >= kRuleCount)
+  if (fit < 0 || fit > kHetero || rule < 0 || rule >= kRuleCount)
     return nullptr;
   return table[fit][rule];
 }
@@ -495,28 +622,39 @@ cudaError_t prepare(Kernel k, size_t smem) {
 }
 
 Params make_params(float* pos, float* vel, float* pbp, float* pbf, float* gp,
-                   float* gf, const float* bounds, int n, int d, int bn,
-                   int iters, unsigned seed, unsigned it0, float w, float c1,
-                   float c2, float k0, float k1, float k2) {
+                   float* gf, const float* bounds, const int* member_fit,
+                   const int* fids, const unsigned* seeds, const unsigned* its,
+                   unsigned seed0, unsigned it00, int n, int d, int bn,
+                   int s_cnt, int iters, float w, float c1, float c2,
+                   float k0, float k1, float k2) {
   Params p = {};
   p.pos = pos; p.vel = vel; p.pbp = pbp; p.pbf = pbf; p.gp = gp; p.gf = gf;
-  p.bounds = bounds;
-  p.n = n; p.d = d; p.bn = bn; p.iters = iters; p.chunk = iters;
-  p.seed = seed; p.it0 = it0;
+  p.bounds = bounds; p.member_fit = member_fit; p.fids = fids;
+  p.seeds = seeds; p.its = its; p.seed0 = seed0; p.it00 = it00;
+  p.n = n; p.d = d; p.bn = bn; p.nb = n / bn; p.s_cnt = s_cnt;
+  p.ld = s_cnt * n;
+  p.iters = iters; p.chunk = iters;
   p.w = w; p.c1 = c1; p.c2 = c2; p.k0 = k0; p.k1 = k1; p.k2 = k2;
   return p;
 }
 
 int threads_for(int bn) { return bn < kMaxThreads ? bn : kMaxThreads; }
 
+bool bad_shape(int n, int d, int bn, int s_cnt) {
+  return n <= 0 || d <= 0 || bn <= 0 || n % bn || s_cnt <= 0 ||
+         (long long)s_cnt * n >= (1ll << 31);
+}
+
 }  // namespace
 
 extern "C" {
 
 // How many fused-kernel CTAs of this configuration can be resident at once
-// (occupancy per SM x SM count): the cooperative launch needs all n/bn.
+// (occupancy per SM x SM count): a cooperative launch needs all of its
+// CTAs, so a wave holds that many divided by the blocks of a swarm. `fit`
+// is an objective id, or 6 for the heterogeneous kernel.
 int pso_fused_resident_ctas(int fit, int rule, int bn, int d, int* out) {
-  const Kernel k = pick(kFused, fit, rule);
+  const Kernel k = pick(kFusedGrid, fit, rule);
   if (!k) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(d);
   cudaError_t err = prepare(k, smem);
@@ -531,48 +669,74 @@ int pso_fused_resident_ctas(int fit, int rule, int bn, int d, int* out) {
   return (int)err;
 }
 
+// `iters` fused iterations of swarms s0 .. s0+count-1 of a batch of s_cnt:
+// one cooperative launch of count*(n/bn) CTAs, or, with one block a swarm,
+// a normal launch of count CTAs. Null seeds/its take seed0/it00 (one swarm).
 int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
-                     float* gf, const float* bounds, unsigned long long* keys,
-                     float* cand, int n, int d, int bn, int iters,
-                     unsigned seed, unsigned it0, int fit, int rule, float w,
-                     float c1, float c2, float k0, float k1, float k2,
-                     void* stream) {
-  const Kernel k = pick(kFused, fit, rule);
-  if (!k || bn <= 0 || n % bn) return (int)cudaErrorInvalidValue;
-  Params p = make_params(pos, vel, pbp, pbf, gp, gf, bounds, n, d, bn, iters,
-                         seed, it0, w, c1, c2, k0, k1, k2);
+                     float* gf, const float* bounds, const int* member_fit,
+                     const int* fids, const unsigned* seeds,
+                     const unsigned* its, unsigned long long* keys,
+                     float* cand, int n, int d, int bn, int s_cnt, int s0,
+                     int count, int iters, unsigned seed0, unsigned it00,
+                     int fit, int rule, float w, float c1, float c2, float k0,
+                     float k1, float k2, void* stream) {
+  if (bad_shape(n, d, bn, s_cnt) || s0 < 0 || count <= 0 ||
+      s0 + count > s_cnt || (fit == kHetero && !(member_fit && fids)) ||
+      (!(seeds && its) && s_cnt != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool grid = n / bn > 1;
+  const Kernel k = pick(grid ? kFusedGrid : kFusedBlock, fit, rule);
+  if (!k) return (int)cudaErrorInvalidValue;
+  Params p = make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids,
+                         seeds, its, seed0, it00, n, d, bn, s_cnt, iters, w,
+                         c1, c2, k0, k1, k2);
   p.keys = keys;
   p.cand = cand;
+  p.s0 = s0;
   const size_t smem = smem_bytes(d);
   cudaError_t err = prepare(k, smem);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)k, dim3(n / bn),
-                                    dim3(threads_for(bn)), args, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
+  const dim3 blocks((unsigned)count * p.nb), threads(threads_for(bn));
+  if (grid) {
+    void* args[] = {&p};
+    err = cudaLaunchCooperativeKernel((const void*)k, blocks, threads, args,
+                                      smem, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    k<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
+// `iters` async iterations of all s_cnt swarms, `chunk` iterations between
+// boundaries; `it_off` is added to every swarm's iteration counter. Null
+// seeds/its take seed0/it00 (one swarm).
 int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
-                     float* gf, const float* bounds, float* lp, float* lf,
-                     unsigned* lock, int n, int d, int bn, int iters, int chunk,
-                     unsigned seed, unsigned it0, int fit, int rule, float w,
-                     float c1, float c2, float k0, float k1, float k2,
-                     void* stream) {
+                     float* gf, const float* bounds, const int* member_fit,
+                     const int* fids, const unsigned* seeds,
+                     const unsigned* its, float* lp, float* lf,
+                     unsigned* lock, int n, int d, int bn, int s_cnt,
+                     int iters, int chunk, unsigned it_off, unsigned seed0,
+                     unsigned it00, int fit, int rule, float w, float c1,
+                     float c2, float k0, float k1, float k2, void* stream) {
   const Kernel k = pick(kAsync, fit, rule);
-  if (!k || bn <= 0 || n % bn || chunk <= 0 || iters % chunk)
+  if (!k || bad_shape(n, d, bn, s_cnt) || chunk <= 0 || iters % chunk ||
+      (fit == kHetero && !(member_fit && fids)) ||
+      (!(seeds && its) && s_cnt != 1))
     return (int)cudaErrorInvalidValue;
-  Params p = make_params(pos, vel, pbp, pbf, gp, gf, bounds, n, d, bn, iters,
-                         seed, it0, w, c1, c2, k0, k1, k2);
+  Params p = make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids,
+                         seeds, its, seed0, it00, n, d, bn, s_cnt, iters, w,
+                         c1, c2, k0, k1, k2);
   p.lp = lp;
   p.lf = lf;
   p.lock = lock;
   p.chunk = chunk;
+  p.it_off = it_off;
   const size_t smem = smem_bytes(d);
   cudaError_t err = prepare(k, smem);
   if (err != cudaSuccess) return (int)err;
-  k<<<n / bn, threads_for(bn), smem, (cudaStream_t)stream>>>(p);
+  k<<<(unsigned)s_cnt * p.nb, threads_for(bn), smem,
+      (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

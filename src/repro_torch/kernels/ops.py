@@ -1,21 +1,25 @@
-"""Swarm-level wrappers around the main-path kernels, the port of the
-``repro.kernels.ops`` single-swarm functions.
+"""Swarm-level wrappers around the kernels, the port of
+``repro.kernels.ops``'s fused and async functions, single swarm and batched.
 
-They translate between the engine's particle-major ``SwarmState`` and the
-kernels' D-major operands, pick the block size, and chain the async
-kernel's phases. Results match the eager ``repro_torch.core.pso`` variants
-(``step_queue`` iterated for the fused kernel; ``run_async`` block
-semantics for the async kernel).
+They translate between the engine's particle-major ``SwarmState`` /
+``SwarmBatch`` and the kernels' D-major operands, pick the block size, and
+chain the async kernel's phases. Results match the eager
+``repro_torch.core.pso`` variants (``step_queue`` iterated for the fused
+kernel; ``run_async`` block semantics for the async kernel), and row ``s``
+of a batch matches the single-swarm wrapper on ``batch_row(batch, s)``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from ..core.blocking import pick_block_n
 from ..core.fitness import builtin_id
-from ..core.pso import ASYNC_SYNC_EVERY, PSOConfig, SwarmState
+from ..core.multi_swarm import SwarmBatch
+from ..core.problem import Problem
+from ..core.pso import (ASYNC_SYNC_EVERY, PSOConfig, SwarmState,
+                        hetero_member_config)
 from . import pso_step
 from .pso_step import KernelSpec
 # the phase split under the reference's name (repro.kernels.ops._async_spans)
@@ -106,3 +110,105 @@ def run_queue_lock_fused_async(cfg: PSOConfig, s: SwarmState, iters: int,
                          sync_every=sync_every, block_n=bn)
     out = kernel_to_state(s, *ops, iters)
     return out._replace(lbest_pos=unpack_dmajor(lp), lbest_fit=lf)
+
+
+def pack_dmajor_batch(x: torch.Tensor) -> torch.Tensor:
+    """[S, N, D] -> a new contiguous [D, S*N] (swarm s owns columns
+    [s*N, (s+1)*N))."""
+    return pack_dmajor(x.reshape(-1, x.shape[-1]))
+
+
+def unpack_dmajor_batch(arr: torch.Tensor, s_cnt: int) -> torch.Tensor:
+    """[D, S*N] -> [S, N, D]."""
+    return unpack_dmajor(arr).reshape(s_cnt, arr.shape[1] // s_cnt, -1)
+
+
+def _hetero_members(cfg: PSOConfig, table: Sequence[Problem]):
+    """The kernels' member table for a heterogeneous batch: member ``k`` is
+    what a homogeneous kernel of ``table[k]`` at this dim/coeffs/dtype
+    takes (``hetero_member_config`` re-derives its bounds)."""
+    return tuple(kernel_spec(hetero_member_config(cfg, p)) for p in table)
+
+
+def _batch_to_kernel(cfg: PSOConfig, batch: SwarmBatch, fids, table):
+    """SwarmBatch -> new D-major operands (pos, vel, pbp, pbf, gp, gf) and
+    the member table."""
+    if fids is None:
+        specs = (kernel_spec(cfg),)
+    elif table is None:
+        raise ValueError("fids= needs the dispatch table= it indexes")
+    else:
+        specs = _hetero_members(cfg, table)
+    ops = (pack_dmajor_batch(batch.pos), pack_dmajor_batch(batch.vel),
+           pack_dmajor_batch(batch.pbest_pos),
+           batch.pbest_fit.reshape(-1).clone(), pack_dmajor(batch.gbest_pos),
+           batch.gbest_fit.clone())
+    return ops, specs
+
+
+def _kernel_to_batch(batch: SwarmBatch, pos, vel, pbp, pbf, gp, gf,
+                     iters: int) -> SwarmBatch:
+    s_cnt = batch.swarm_cnt
+    pbf = pbf.reshape(s_cnt, -1)
+    return batch._replace(
+        pos=unpack_dmajor_batch(pos, s_cnt),
+        vel=unpack_dmajor_batch(vel, s_cnt),
+        fit=pbf,  # the kernels do not keep the raw fit; pbest_fit >= fit
+        pbest_pos=unpack_dmajor_batch(pbp, s_cnt), pbest_fit=pbf,
+        gbest_pos=unpack_dmajor(gp), gbest_fit=gf,
+        iteration=batch.iteration + iters, lbest_pos=None, lbest_fit=None)
+
+
+def run_queue_lock_fused_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
+                               block_n: Optional[int] = None, fids=None,
+                               table: Optional[Sequence[Problem]] = None
+                               ) -> SwarmBatch:
+    """S independent swarms x ``iters`` fused queue-lock iterations: one
+    kernel launch, or one a wave of swarms where a batch of several-block
+    swarms does not fit on the card at once (on a CUDA batch; the plain
+    version on a CPU batch). Per-swarm seeds, iteration counters and gbest
+    slots, so row ``s`` equals ``run_queue_lock_fused`` on
+    ``batch_row(batch, s)`` with the same ``block_n``. ``fids``/``table``
+    (``multi_swarm.problem_rows``) make the batch heterogeneous: ``cfg``
+    then gives only dim, rule and coefficients."""
+    cfg = cfg.resolved()
+    bn = _resolve_block(batch.pos.shape[1], block_n)
+    ops, specs = _batch_to_kernel(cfg, batch, fids, table)
+    pso_step.fused_batch(*ops, batch.seed, batch.iteration, specs,
+                         iters=iters, block_n=bn, fids=fids)
+    return _kernel_to_batch(batch, *ops, iters)
+
+
+def run_queue_lock_fused_async_batch(cfg: PSOConfig, batch: SwarmBatch,
+                                     iters: int,
+                                     sync_every: int = ASYNC_SYNC_EVERY,
+                                     block_n: Optional[int] = None,
+                                     fids=None,
+                                     table: Optional[Sequence[Problem]] = None
+                                     ) -> SwarmBatch:
+    """S independent swarms through the async queue-lock: one launch of
+    every swarm's blocks per ``_async_spans`` phase, with per-(swarm,
+    block) local bests, so row ``s`` equals ``run_queue_lock_fused_async``
+    on ``batch_row(batch, s)`` with the same ``block_n``/``sync_every``
+    (up to the multi-block publication race). A batch that carries local
+    bests of shape ``(S, nb)`` resumes them. ``fids``/``table`` as in
+    ``run_queue_lock_fused_batch``."""
+    cfg = cfg.resolved()
+    s_cnt, n, d = batch.pos.shape
+    bn = _resolve_block(n, block_n)
+    nb = n // bn
+    ops, specs = _batch_to_kernel(cfg, batch, fids, table)
+    gp, gf = ops[4], ops[5]
+    if batch.lbest_fit is not None \
+            and tuple(batch.lbest_fit.shape) == (s_cnt, nb):
+        lp = pack_dmajor_batch(batch.lbest_pos)
+        lf = batch.lbest_fit.reshape(-1).clone()
+    else:                             # local bests seeded from each gbest
+        lp = gp.repeat_interleave(nb, dim=1)
+        lf = gf.repeat_interleave(nb)
+    pso_step.fused_async_batch(*ops, lp, lf, batch.seed, batch.iteration,
+                               specs, iters=iters, sync_every=sync_every,
+                               block_n=bn, fids=fids)
+    out = _kernel_to_batch(batch, *ops, iters)
+    return out._replace(lbest_pos=unpack_dmajor_batch(lp, s_cnt),
+                        lbest_fit=lf.reshape(s_cnt, nb))

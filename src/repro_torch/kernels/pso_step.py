@@ -1,12 +1,22 @@
-"""Launching wrappers for the two main-path CUDA kernels, their plain
-PyTorch versions, and launch counters.
+"""Launching wrappers for the CUDA kernels, their plain PyTorch versions,
+and launch counters.
 
-``fused`` replaces ``repro.kernels.pso_step.fused_call`` (the fused
-queue-lock) and ``fused_async`` replaces ``fused_async_call`` (the async
-queue-lock); the kernels are ``csrc/pso_step.cu``. Arrays are D-major:
-``pos``/``vel``/``pbp`` ``[D, N]``, ``pbf`` ``[N]``, ``gp`` ``[D]``, ``gf``
-``[1]``, and for the async kernel ``lp`` ``[D, nb]``, ``lf`` ``[nb]``; all
-float32 and contiguous.
+The kernels are ``csrc/pso_step.cu``'s ``fused_kernel`` and
+``async_kernel``, each with a swarm axis. Single swarm: ``fused`` replaces
+``repro.kernels.pso_step.fused_call`` (the fused queue-lock) and
+``fused_async`` replaces ``fused_async_call`` (the async queue-lock).
+Batches of S swarms: ``fused_batch`` replaces ``fused_batch_call`` and, with
+``fids``, ``hetero_fused_batch_call``; ``fused_async_batch`` replaces
+``fused_async_batch_call`` and ``hetero_fused_async_batch_call``.
+
+Arrays are D-major: ``pos``/``vel``/``pbp`` ``[D, N]``, ``pbf`` ``[N]``,
+``gp`` ``[D]``, ``gf`` ``[1]``, and for the async kernel ``lp`` ``[D, nb]``,
+``lf`` ``[nb]``; a batch puts swarm s in columns ``[s*N, (s+1)*N)`` of
+``[D, S*N]`` arrays, with ``gp`` ``[D, S]``, ``gf`` ``[S]``, ``lp``
+``[D, S*nb]``, ``lf`` ``[S*nb]`` and per-swarm ``seeds``/``its`` int64
+``[S]``. All float32 and contiguous. A heterogeneous batch takes a table of
+``KernelSpec`` members (same rule and coefficients, own objective and
+bounds) and ``fids[S]`` into it; a homogeneous batch is a table of one.
 
 A wrapper updates its state tensors in place and returns them. On CUDA
 tensors it launches its kernel (or raises); on CPU tensors, and only there,
@@ -20,8 +30,11 @@ their inputs alone:
 * ``fused_async_plain``: block-major, mirroring
   ``ref.run_fused_async_oracle`` including the ``async_spans`` remainder
   phase — one valid interleaving of the kernel's race.
+* ``fused_batch_plain``/``fused_async_batch_plain``: the single-swarm plain
+  version on each row, which is the batched kernels' contract.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``; the
+batch wrappers count heterogeneous launches in ``.hetero_launches``.
 """
 from __future__ import annotations
 
@@ -175,9 +188,74 @@ def fused_async_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec,
     return pos, vel, pbp, pbf, gp, gf, lp, lf
 
 
+
+
+def _members(specs, fids, s_cnt: int):
+    """Each swarm's member of the table: member 0 without ``fids``."""
+    if fids is None:
+        return [specs[0]] * s_cnt
+    return [specs[f] for f in fids.tolist()]
+
+
+def _join(rows):
+    """Per-swarm plain results -> the batch's D-major operands."""
+    cols = list(zip(*rows))
+    out = [torch.cat(cols[0], 1), torch.cat(cols[1], 1),
+           torch.cat(cols[2], 1), torch.cat(cols[3]),
+           torch.stack(cols[4], 1), torch.cat(cols[5])]
+    if len(cols) > 6:
+        out += [torch.cat(cols[6], 1), torch.cat(cols[7])]
+    return tuple(out)
+
+
+def fused_batch_plain(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
+                      iters: int, block_n: int, fids=None):
+    """``fused_plain`` on every swarm of a batch: swarm s owns columns
+    ``[s*N, (s+1)*N)`` of ``pos``/``vel``/``pbp``/``pbf`` and column s of
+    ``gp`` ``[D, S]``/``gf`` ``[S]``, starts from ``seeds[s]``/``its[s]``
+    and solves ``specs[fids[s]]`` (``specs[0]`` without ``fids``). This row
+    identity is the batched kernels' contract. Returns new tensors."""
+    s_cnt = gf.shape[0]
+    n = pos.shape[1] // s_cnt
+    rows = []
+    for s, (spec, seed, it) in enumerate(zip(
+            _members(specs, fids, s_cnt), seeds.tolist(), its.tolist())):
+        c = slice(s * n, (s + 1) * n)
+        rows.append(fused_plain(pos[:, c], vel[:, c], pbp[:, c], pbf[c],
+                                gp[:, s], gf[s:s + 1], spec, seed=seed,
+                                iteration=it, iters=iters, block_n=block_n))
+    return _join(rows)
+
+
+def fused_async_batch_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its,
+                            specs, *, iters: int, sync_every: int,
+                            block_n: int, fids=None):
+    """``fused_async_plain`` on every swarm of a batch, laid out as in
+    ``fused_batch_plain``; swarm s's block-local bests are columns
+    ``[s*nb, (s+1)*nb)`` of ``lp`` ``[D, S*nb]`` and ``lf`` ``[S*nb]``.
+    Returns new tensors."""
+    s_cnt = gf.shape[0]
+    n = pos.shape[1] // s_cnt
+    nb = n // block_n
+    rows = []
+    for s, (spec, seed, it) in enumerate(zip(
+            _members(specs, fids, s_cnt), seeds.tolist(), its.tolist())):
+        c, cl = slice(s * n, (s + 1) * n), slice(s * nb, (s + 1) * nb)
+        rows.append(fused_async_plain(
+            pos[:, c], vel[:, c], pbp[:, c], pbf[c], gp[:, s], gf[s:s + 1],
+            lp[:, cl], lf[cl], spec, seed=seed, iteration=it, iters=iters,
+            sync_every=sync_every, block_n=block_n))
+    return _join(rows)
+
+
 # ---------------------------------------------------------------------------
 # Kernel launching
 # ---------------------------------------------------------------------------
+
+#: The kernels' objective id for a heterogeneous batch: the objective is
+#: read from the member table, per swarm.
+HETERO = len(BUILTIN_PROBLEMS)
+
 
 @functools.lru_cache(maxsize=None)
 def _lib():
@@ -187,10 +265,10 @@ def _lib():
     lib = _build.load("pso_step")
     p, i, u, f = c.c_void_p, c.c_int, c.c_uint, c.c_float
     lib.pso_fused_resident_ctas.argtypes = [i, i, i, i, c.POINTER(i)]
-    lib.pso_fused_launch.argtypes = (
-        [p] * 9 + [i] * 4 + [u, u, i, i] + [f] * 6 + [p])
-    lib.pso_async_launch.argtypes = (
-        [p] * 10 + [i] * 5 + [u, u, i, i] + [f] * 6 + [p])
+    lib.pso_fused_launch.argtypes = ([p] * 13 + [i] * 7 + [u, u, i, i]
+                                     + [f] * 6 + [p])
+    lib.pso_async_launch.argtypes = ([p] * 14 + [i] * 6 + [u, u, u, i, i]
+                                     + [f] * 6 + [p])
     for fn in (lib.pso_fused_resident_ctas, lib.pso_fused_launch,
                lib.pso_async_launch):
         fn.restype = i
@@ -202,20 +280,9 @@ def _check(status: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {status}")
 
 
-def _kernel_inputs(spec: KernelSpec, tensors, n: int, d: int):
-    """Validate the state tensors for a launch and build the [4, D] bounds
-    rows (lo, hi, max_v, span) the kernels read."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or dev.type != "cuda" \
-                or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous float32 "
-                             f"tensors on one CUDA device; got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    shapes = [tuple(t.shape) for t in tensors[:6]]
-    if shapes != [(d, n)] * 3 + [(n,), (d,), (1,)]:
-        raise ValueError(f"state shapes {shapes} do not match D={d}, N={n}")
-
+def _bound_rows(spec: KernelSpec, d: int):
+    """One member's [4, D] rows (lo, hi, max_v, span) as the kernels read
+    them."""
     def row(v):
         return [float(x) for x in v] if isinstance(v, tuple) else [v] * d
     lo, hi = row(spec.lo), row(spec.hi)
@@ -224,18 +291,110 @@ def _kernel_inputs(spec: KernelSpec, tensors, n: int, d: int):
     span = ([spec.hi - spec.lo] * d if not isinstance(spec.lo, tuple)
             else (torch.tensor(hi, dtype=torch.float32)
                   - torch.tensor(lo, dtype=torch.float32)).tolist())
-    # From pinned memory the upload is asynchronous: a pageable copy would
-    # hold the host until the stream drains, idling the card between calls.
-    bounds = torch.tensor([lo, hi, row(spec.mv), span], dtype=torch.float32,
-                          pin_memory=True).to(dev, non_blocking=True)
-    k = resolve_rule(spec.rule).kernel_consts()
-    scalars = ([spec.fitness, RULE_IDS[spec.rule], spec.w, spec.c1, spec.c2]
-               + list(k))
-    return bounds, scalars
+    return [lo, hi, row(spec.mv), span]
 
 
-def _ptr(t: Tensor) -> int:
-    return t.data_ptr()
+def _upload(rows, dtype, dev):
+    """Host values -> a device tensor. From pinned memory the upload is
+    asynchronous: a pageable copy would hold the host until the stream
+    drains, idling the card between calls."""
+    return torch.tensor(rows, dtype=dtype, pin_memory=True).to(
+        dev, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(specs, d: int, dev):
+    """The members' [M, 4, D] bounds and [M] objective ids on ``dev``,
+    uploaded once per table: the kernels only read them."""
+    return (_upload([_bound_rows(m, d) for m in specs], torch.float32, dev),
+            _upload([m.fitness for m in specs], torch.int32, dev))
+
+
+def _counters(seeds, its, dev):
+    """The uint32 counters (seeds, iterations) of a launch: for a batch
+    (int64 tensors) the [2, S] int32 operand the kernels read as unsigned,
+    wrapped exactly on the card, and no scalars; for one swarm (host ints)
+    no operand and the two scalars, passed by value (no upload a call)."""
+    if isinstance(seeds, Tensor):
+        x = torch.stack((seeds.to(dev, torch.int64),
+                         its.to(dev, torch.int64)))
+        return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32), (0, 0)
+    (seed,), (it,) = seeds, its
+    return None, (int(seed) & 0xFFFFFFFF, int(it) & 0xFFFFFFFF)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(fit_id: int, rule_id: int, block_n: int, d: int,
+              device_index: int) -> int:
+    """How many fused-kernel CTAs of this configuration fit on the card at
+    once (occupancy per SM x SMs)."""
+    import ctypes
+    resident = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _check(_lib().pso_fused_resident_ctas(fit_id, rule_id, block_n, d,
+                                              ctypes.byref(resident)),
+               "occupancy query")
+    return resident.value
+
+
+def _launch_operands(state, seeds, its, specs, fids, block_n: int):
+    """Validate a batch's operands for a launch and build what the kernels
+    read besides the state. Returns (those tensors, in the launch's order,
+    None where a pointer is null; the by-value seed and iteration; objective
+    id, rule id, coefficients, n, d, s_cnt). The caller holds the tensors
+    until its launches are enqueued: freed earlier, their memory could go
+    to another tensor before the kernel reads them."""
+    pos, gf = state[0], state[5]
+    dev = pos.device
+    for t in state:
+        if t.device != dev or dev.type != "cuda" \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous float32 "
+                             f"tensors on one CUDA device; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    s_cnt = gf.shape[0]
+    d, sn = pos.shape
+    n = sn // max(s_cnt, 1)
+    nb = n // block_n if block_n > 0 else 0
+    want = [(d, sn)] * 3 + [(sn,), (d, s_cnt), (s_cnt,)]
+    if len(state) > 6:
+        want += [(d, s_cnt * nb), (s_cnt * nb,)]
+    shapes = [tuple(t.shape) for t in state]
+    if s_cnt < 1 or sn != s_cnt * n or block_n < 1 or n % block_n \
+            or shapes != want:
+        raise ValueError(f"state shapes {shapes} do not match S={s_cnt}, "
+                         f"D={d}, N={n}, block_n={block_n}")
+    if sn >= 2 ** 31:
+        raise ValueError(f"S*N = {sn} particles: the kernels index columns "
+                         f"in 32 bits, so a launch takes fewer than 2^31")
+    if len({(m.rule, m.w, m.c1, m.c2) for m in specs}) != 1:
+        raise ValueError("the members of a table share rule and "
+                         "coefficients; they differ in objective and bounds")
+    bounds, member_fit = _tables(tuple(specs), d, dev)
+    if fids is None:
+        if len(specs) != 1:
+            raise ValueError("a table of several members needs fids")
+        fit_id, member_fit = specs[0].fitness, None
+    else:
+        fids = fids.to(dev, torch.int32).contiguous()
+        if tuple(fids.shape) != (s_cnt,) or not all(
+                0 <= f < len(specs)
+                for f in torch.stack(torch.aminmax(fids)).tolist()):
+            raise ValueError(f"fids must be {s_cnt} indices into a table "
+                             f"of {len(specs)} members")
+        fit_id = HETERO
+    spec = specs[0]
+    coef = [spec.w, spec.c1, spec.c2, *resolve_rule(spec.rule)
+            .kernel_consts()]
+    counters, scalars = _counters(seeds, its, dev)
+    rows = (None, None) if counters is None else (counters[0], counters[1])
+    return ([bounds, member_fit, fids, *rows], scalars, fit_id,
+            RULE_IDS[spec.rule], coef, n, d, s_cnt)
+
+
+def _ptrs(tensors):
+    """Device pointers for a launch; None is the null pointer."""
+    return [None if t is None else t.data_ptr() for t in tensors]
 
 
 def _copy_into(state, out):
@@ -247,9 +406,9 @@ def _copy_into(state, out):
 
 def fused(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
           iteration: int, iters: int, block_n: int):
-    """``iters`` fused queue-lock iterations, in place: ONE cooperative
-    launch of ``n // block_n`` CTAs on CUDA tensors, the plain version on
-    CPU tensors."""
+    """``iters`` fused queue-lock iterations of one swarm, in place: ONE
+    launch of ``n // block_n`` CTAs on CUDA tensors (cooperative with
+    several blocks), the plain version on CPU tensors."""
     state = (pos, vel, pbp, pbf, gp, gf)
     kw = dict(seed=seed, iteration=iteration, iters=iters, block_n=block_n)
     if pos.device.type == "cpu":
@@ -260,47 +419,91 @@ def fused(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
 
 def _fused_launch(state, spec: KernelSpec, *, seed: int, iteration: int,
                   iters: int, block_n: int) -> None:
-    """The kernel path. Raises if the CTAs cannot all be resident at once
-    (the grid-wide sync needs every CTA)."""
-    pos = state[0]
-    d, n = pos.shape
-    bounds, (fit_id, rule_id, *coef) = _kernel_inputs(spec, state, n, d)
-    if iters <= 0:
-        return
-    import ctypes
-    lib = _lib()
-    resident = ctypes.c_int(0)
-    with torch.cuda.device(pos.device):
-        _check(lib.pso_fused_resident_ctas(fit_id, rule_id, block_n, d,
-                                           ctypes.byref(resident)),
-               "occupancy query")
-        nb = n // block_n
-        if nb > resident.value:
-            raise RuntimeError(
-                f"fused kernel: {nb} CTAs of {min(block_n, 512)} threads "
-                f"cannot all be resident ({resident.value} fit on this "
-                f"device); the cooperative launch needs every CTA at once — "
-                f"use a larger block_n")
-        keys = torch.zeros(2, dtype=torch.int64, device=pos.device)
-        cand = torch.empty(2 * nb * d, dtype=torch.float32, device=pos.device)
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        status = lib.pso_fused_launch(
-            *map(_ptr, state + (bounds, keys, cand)),
-            n, d, block_n, iters, seed & 0xFFFFFFFF,
-            iteration & 0xFFFFFFFF, fit_id, rule_id, *coef, stream)
-    _check(status, "fused kernel launch")
-    fused.launches += 1
+    """The kernel path of ``fused``: the batched launch with S = 1."""
+    pos, vel, pbp, pbf, gp, gf = state
+    fused.launches += _fused_batch_launch(
+        (pos, vel, pbp, pbf, gp[:, None], gf), [seed], [iteration], (spec,),
+        iters=iters, block_n=block_n)
 
 
 fused.launches = 0
 
 
+def fused_batch(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
+                iters: int, block_n: int, fids=None):
+    """``iters`` fused queue-lock iterations of S swarms, in place (layout
+    of ``fused_batch_plain``; ``seeds``/``its`` int64 ``[S]``). On CUDA
+    tensors: with one block a swarm, ONE normal launch of S CTAs; with
+    several, cooperative launches in waves of as many whole swarms as the
+    card holds at once. On CPU tensors the plain version. ``fids`` (with a
+    table ``specs`` of several members) makes the batch heterogeneous;
+    its launches count in ``fused_batch.hetero_launches``."""
+    state = (pos, vel, pbp, pbf, gp, gf)
+    kw = dict(iters=iters, block_n=block_n, fids=fids)
+    if pos.device.type == "cpu":
+        return _copy_into(state, fused_batch_plain(*state, seeds, its, specs,
+                                                   **kw))
+    launched = _fused_batch_launch(state, seeds, its, specs, **kw)
+    if fids is None:
+        fused_batch.launches += launched
+    else:
+        fused_batch.hetero_launches += launched
+    return state
+
+
+fused_batch.launches = 0
+fused_batch.hetero_launches = 0
+
+
+def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
+                        block_n: int, fids=None) -> int:
+    """The kernel path of the fused wrappers; returns the launches made.
+    The grid-wide sync needs every CTA of a cooperative launch resident,
+    so a wave holds ``resident // nb`` swarms, and a swarm whose blocks
+    alone do not fit raises."""
+    extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
+        state, seeds, its, specs, fids, block_n)
+    if iters <= 0:
+        return 0
+    pos = state[0]
+    nb = n // block_n
+    lib = _lib()
+    with torch.cuda.device(pos.device):
+        wave = s_cnt
+        if nb > 1:
+            resident = _resident(fit_id, rule_id, block_n, d,
+                                 pos.device.index
+                                 if pos.device.index is not None
+                                 else torch.cuda.current_device())
+            wave = resident // nb
+            if wave < 1:
+                raise RuntimeError(
+                    f"fused kernel: {nb} CTAs of {min(block_n, 512)} threads "
+                    f"cannot all be resident ({resident} fit on this "
+                    f"device); the cooperative launch needs every CTA at "
+                    f"once — use a larger block_n")
+        keys = torch.zeros(2 * s_cnt, dtype=torch.int64, device=pos.device)
+        cand = (torch.empty(2 * s_cnt * nb * d, dtype=torch.float32,
+                            device=pos.device) if nb > 1 else None)
+        ptrs = _ptrs(list(state) + extra + [keys, cand])
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        launches = 0
+        for s0 in range(0, s_cnt, wave):
+            _check(lib.pso_fused_launch(
+                *ptrs, n, d, block_n, s_cnt, s0, min(wave, s_cnt - s0),
+                iters, *scalars, fit_id, rule_id, *coef, stream),
+                "fused kernel launch")
+            launches += 1
+    return launches
+
+
 def fused_async(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec, *,
                 seed: int, iteration: int, iters: int, sync_every: int,
                 block_n: int):
-    """``iters`` async queue-lock iterations, in place: on CUDA tensors one
-    launch of ``n // block_n`` CTAs per ``async_spans`` phase (the
-    remainder is a second launch), the plain version on CPU tensors."""
+    """``iters`` async queue-lock iterations of one swarm, in place: on
+    CUDA tensors one launch of ``n // block_n`` CTAs per ``async_spans``
+    phase (the remainder is a second launch), the plain version on CPU
+    tensors."""
     state = (pos, vel, pbp, pbf, gp, gf, lp, lf)
     kw = dict(seed=seed, iteration=iteration, iters=iters,
               sync_every=sync_every, block_n=block_n)
@@ -313,26 +516,58 @@ def fused_async(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec, *,
 def _fused_async_launch(state, spec: KernelSpec, *, seed: int,
                         iteration: int, iters: int, sync_every: int,
                         block_n: int) -> None:
-    """The kernel path of ``fused_async``."""
-    pos, lp, lf = state[0], state[6], state[7]
-    d, n = pos.shape
-    nb = n // block_n
-    if tuple(lp.shape) != (d, nb) or tuple(lf.shape) != (nb,):
-        raise ValueError(f"local bests {tuple(lp.shape)}/{tuple(lf.shape)} "
-                         f"do not match D={d}, nb={nb}")
-    bounds, (fit_id, rule_id, *coef) = _kernel_inputs(spec, state, n, d)
-    lib = _lib()
-    with torch.cuda.device(pos.device):
-        lock = torch.zeros(2, dtype=torch.int32, device=pos.device)
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        for off, span, chunk in async_spans(iters, sync_every):
-            status = lib.pso_async_launch(
-                *map(_ptr, state[:6] + (bounds, lp, lf, lock)),
-                n, d, block_n, span, chunk, seed & 0xFFFFFFFF,
-                (iteration + off) & 0xFFFFFFFF, fit_id, rule_id, *coef,
-                stream)
-            _check(status, "async kernel launch")
-            fused_async.launches += 1
+    """The kernel path of ``fused_async``: the batched launch with S = 1."""
+    pos, vel, pbp, pbf, gp, gf, lp, lf = state
+    fused_async.launches += _fused_async_batch_launch(
+        (pos, vel, pbp, pbf, gp[:, None], gf, lp, lf), [seed], [iteration],
+        (spec,), iters=iters, sync_every=sync_every, block_n=block_n)
 
 
 fused_async.launches = 0
+
+
+def fused_async_batch(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its, specs,
+                      *, iters: int, sync_every: int, block_n: int,
+                      fids=None):
+    """``iters`` async queue-lock iterations of S swarms, in place (layout
+    of ``fused_async_batch_plain``): on CUDA tensors one launch of
+    ``S * n // block_n`` CTAs per ``async_spans`` phase, on CPU tensors the
+    plain version. ``fids`` makes the batch heterogeneous, counted in
+    ``fused_async_batch.hetero_launches``."""
+    state = (pos, vel, pbp, pbf, gp, gf, lp, lf)
+    kw = dict(iters=iters, sync_every=sync_every, block_n=block_n, fids=fids)
+    if pos.device.type == "cpu":
+        return _copy_into(state, fused_async_batch_plain(
+            *state, seeds, its, specs, **kw))
+    launched = _fused_async_batch_launch(state, seeds, its, specs, **kw)
+    if fids is None:
+        fused_async_batch.launches += launched
+    else:
+        fused_async_batch.hetero_launches += launched
+    return state
+
+
+fused_async_batch.launches = 0
+fused_async_batch.hetero_launches = 0
+
+
+def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
+                              sync_every: int, block_n: int,
+                              fids=None) -> int:
+    """The kernel path of the async wrappers; returns the launches made."""
+    extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
+        state, seeds, its, specs, fids, block_n)
+    pos = state[0]
+    lib = _lib()
+    launches = 0
+    with torch.cuda.device(pos.device):
+        lock = torch.zeros(2 * s_cnt, dtype=torch.int32, device=pos.device)
+        ptrs = _ptrs(list(state[:6]) + extra + list(state[6:]) + [lock])
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        for off, span, chunk in async_spans(iters, sync_every):
+            _check(lib.pso_async_launch(
+                *ptrs, n, d, block_n, s_cnt, span, chunk, off & 0xFFFFFFFF,
+                *scalars, fit_id, rule_id, *coef, stream),
+                "async kernel launch")
+            launches += 1
+    return launches

@@ -1,11 +1,15 @@
-"""repro_torch.api on the CPU: solve against repro.solve(backend="jnp") for
-every variant at a few iterations, Method validation, the features that
-are not ported yet, the no-card error, and the port's independence of JAX
-and of the reference package.
+"""repro_torch.api on the CPU: solve and solve_many against
+repro.solve/repro.solve_many(backend="jnp") for every variant at a few
+iterations (solve_many homogeneous and with problems=), Method validation,
+the features that are not ported yet, the no-card error, and the port's
+independence of JAX and of the reference package.
 
 Tolerance: three iterations from the same seed, positions within rtol=1e-4,
 atol=1e-4 and fitness within rtol=1e-5 (the per-step differences of
-tests/test_torch_core.py, compounded over three steps)."""
+tests/test_torch_core.py, compounded over three steps); solve_many's rows
+also allow atol=1e-5 on fitness, as tests/test_torch_core.py does, because
+a griewank row's fitness (about -0.7) cancels terms of order 1 whose cos
+rounds differently in XLA and PyTorch."""
 import ast
 import os
 import pathlib
@@ -46,6 +50,61 @@ def test_solve_cpu_matches_reference(variant, backend):
     got = repro_torch.solve("rastrigin", backend=backend, device="cpu", **kw)
     _close(got, want)
     assert float(got.state.gbest_fit) == float(got.state.pbest_fit.max())
+
+
+SEEDS = [0, 1, 7, 42, 99, 123, 100000, 2 ** 31 - 5]
+MIXED = ["cubic", "sphere", "rosenbrock", "griewank", "rastrigin", "ackley",
+         "cubic", "ackley"]
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("variant,backend", [
+    ("reduction", "eager"), ("queue", "eager"), ("queue_lock", "eager"),
+    ("async", "eager"), ("queue_lock", "kernel"), ("async", "kernel")])
+def test_solve_many_cpu_matches_reference(variant, backend, hetero):
+    kw = dict(dim=3, particles=128, iters=3, variant=variant, sync_every=2)
+    where = dict(problems=MIXED) if hetero else dict(problem="rastrigin")
+    want = repro.solve_many(seeds=SEEDS, backend="jnp", **where, **kw)
+    got = repro_torch.solve_many(seeds=SEEDS, backend=backend, device="cpu",
+                                 **where, **kw)
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.state.pos.numpy(),
+                                   np.asarray(w.state.pos), **TRAJ_TOL)
+        np.testing.assert_allclose(g.best_pos, w.best_pos, **TRAJ_TOL)
+        np.testing.assert_allclose(g.best_fit, w.best_fit, rtol=1e-5,
+                                   atol=1e-5)
+        assert g.state.iteration == int(w.state.iteration)
+        assert g.problem.name == w.problem.name
+        assert (g.config.min_pos, g.config.max_v) == (w.config.min_pos,
+                                                      w.config.max_v)
+        assert float(g.state.gbest_fit) == float(g.state.pbest_fit.max())
+
+
+def test_solve_many_rows_equal_solve_and_validate():
+    kw = dict(dim=2, particles=64, iters=4, variant="async", sync_every=3,
+              block_n=32, device="cpu")
+    rows = repro_torch.solve_many("griewank", SEEDS[:3], **kw)
+    for sd, r in zip(SEEDS[:3], rows):
+        one = repro_torch.solve("griewank", seed=sd, **kw)
+        assert torch.equal(r.state.pos, one.state.pos)
+        assert r.best_fit == one.best_fit and r.iters == 4
+    coeffs = ([0.7] * 3, [1.5] * 3, [1.5] * 3)
+    tuned = repro_torch.solve_many("sphere", SEEDS[:3], coeffs=coeffs,
+                                   **dict(kw, variant="queue"))
+    assert len(tuned) == 3
+    with pytest.raises(ValueError, match="coeffs"):
+        repro_torch.solve_many("sphere", SEEDS[:3], coeffs=coeffs,
+                               backend="kernel", **kw)
+    with pytest.raises(ValueError, match="exactly one"):
+        repro_torch.solve_many("sphere", SEEDS[:2], problems=MIXED[:2],
+                               device="cpu")
+    with pytest.raises(ValueError, match="bounds"):
+        repro_torch.solve_many(problems=MIXED[:2], seeds=SEEDS[:2],
+                               max_pos=1.0, device="cpu")
+    with pytest.raises(ValueError, match="problems for"):
+        repro_torch.solve_many(problems=MIXED[:2], seeds=SEEDS[:3],
+                               device="cpu")
 
 
 def test_solve_min_sense_and_per_dim_bounds():
@@ -114,8 +173,8 @@ def test_unported_method_features_raise(kw, item):
 
 
 def test_unported_entry_points_and_problem_fields_raise():
-    with pytest.raises(NotImplementedError, match="item 2"):
-        api.solve_many("cubic", [0, 1])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        api.solve_many("cubic", [0, 1], record_history=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         api.solve_stream([])
     with pytest.raises(NotImplementedError, match="item 3"):
@@ -135,6 +194,11 @@ def test_solve_without_device_needs_a_card():
         repro_torch.solve("cubic", iters=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.solve("cubic", iters=1, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.solve_many("cubic", [0, 1], iters=1)
+    from repro_torch.core import multi_swarm
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multi_swarm.init_batch(repro_torch.PSOConfig(), [0, 1])
 
 
 def test_registry_exports():
@@ -142,6 +206,11 @@ def test_registry_exports():
         ["ackley", "cubic", "griewank", "rastrigin", "rosenbrock", "sphere"]))
     assert repro_torch.get_problem("cubic") is repro_torch.resolve_problem(
         "cubic")
+    assert callable(repro_torch.solve_many)
+    from repro_torch import core
+    assert core.solve_many is core.multi_swarm.solve_many
+    assert {"SwarmBatch", "init_batch", "batch_row", "run_many",
+            "best_of_batch"} <= set(dir(core))
     cfg = repro_torch.PSOConfig(dim=2, fitness="griewank").resolved()
     assert (cfg.min_pos, cfg.max_pos, cfg.max_v) == (-600.0, 600.0, 600.0)
     with pytest.raises(AttributeError):
@@ -150,6 +219,7 @@ def test_registry_exports():
 
 def test_importing_the_port_loads_no_jax_or_reference():
     code = ("import sys, repro_torch, repro_torch.api, "
+            "repro_torch.core.multi_swarm, "
             "repro_torch.kernels.ops, repro_torch.kernels.pso_step\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

@@ -19,15 +19,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import multi_swarm as ms
 from repro_torch.core import pso
 from repro_torch.kernels import ops, pso_step
 
 try:
+    from repro.core import multi_swarm as jms
     from repro.core import pso as jpso
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
 except ModuleNotFoundError:     # a CUDA host may have no JAX installed
-    jpso = jops = jref = None
+    jms = jpso = jops = jref = None
 
 torch.set_num_threads(1)
 
@@ -278,6 +280,151 @@ def test_kernel_spec_rejects_custom_objective_and_dtype():
                                       dtype="float64"))
 
 
+# --- batched plain versions against the batched Pallas kernels --------------
+
+BATCH_SEEDS = [0, 1, 7, 42, 99, 123, 100000, 2 ** 31 - 5]
+MIXED = ["cubic", "sphere", "rosenbrock", "griewank", "rastrigin", "ackley",
+         "cubic", "ackley"]
+
+
+def _batches(hetero, d, n, rule="pso"):
+    """The same 8-swarm batch for the reference and the port, at per-row
+    iterations 0, 3, 6, ..., with the port's kernel table and fids."""
+    fit = None if hetero else "rastrigin"
+    jc, tc = (m.PSOConfig(dim=d, particle_cnt=n, update_rule=rule,
+                          **({} if fit is None else dict(fitness=fit)))
+              .resolved() for m in (jpso, pso))
+    if hetero:
+        jr, jt = jms.problem_rows(MIXED, d)
+        tr, tt = ms.problem_rows(MIXED, d, device="cpu")
+        jb = jms.init_batch(jc, BATCH_SEEDS, rows=jr, table=jt)
+        jkw = dict(fids=jr.fid, table=jt)
+        tkw = dict(fids=tr.fid, table=tt)
+        widths = (tr.hi - tr.lo).amax(1).tolist()
+    else:
+        jb = jms.init_batch(jc, BATCH_SEEDS)
+        jkw, tkw = {}, {}
+        widths = [tc.max_pos - tc.min_pos] * 8
+    jb = jb._replace(iteration=jb.iteration + 3 * np.arange(8, dtype=np.int32))
+    return jc, tc, jb, jkw, tkw, widths
+
+
+def _port_batch(jb):
+    out = {k: None if getattr(jb, k) is None
+           else torch.as_tensor(np.array(getattr(jb, k))) for k in jb._fields}
+    out["iteration"] = out["iteration"].to(torch.int64)
+    out["seed"] = torch.as_tensor(np.asarray(jb.seed).astype(np.int64))
+    return ms.SwarmBatch(**out)
+
+
+def _assert_rows_close(got, want, widths):
+    for f in ("pos", "vel", "pbest_pos", "gbest_pos", "lbest_pos"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        for s, wd in enumerate(widths if a is not None else ()):
+            np.testing.assert_allclose(a[s].numpy(), np.asarray(b[s]),
+                                       rtol=2e-6, atol=max(1e-5, 1e-6 * wd),
+                                       err_msg=f"{f}[{s}]")
+    scale = max(1.0, float(np.max(np.abs(np.asarray(want.pbest_fit)))))
+    for f in ("pbest_fit", "gbest_fit", "lbest_fit"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a is not None:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-5 * scale, err_msg=f)
+    assert got.iteration.tolist() == np.asarray(want.iteration).tolist()
+
+
+@pytest.mark.parametrize("hetero,rule", [(False, "pso"), (True, "sso")])
+def test_fused_batch_plain_single_block_matches_pallas_kernel(hetero, rule,
+                                                              reference):
+    """One block a swarm: the plain batch against the batched (and
+    hetero) Pallas kernel, step by step from the shared batch."""
+    jc, tc, jb, jkw, tkw, widths = _batches(hetero, 3, 128, rule)
+    for _ in range(2):
+        tb = _port_batch(jb)
+        want = jops.run_queue_lock_fused_batch(jc, jb, 1, block_n=128,
+                                               interpret=True, **jkw)
+        got = ops.run_queue_lock_fused_batch(tc, tb, 1, block_n=128, **tkw)
+        _assert_rows_close(got, want, widths)
+        _assert_same_improvements(got.pbest_fit.numpy(),
+                                  np.asarray(want.pbest_fit),
+                                  np.asarray(jb.pbest_fit))
+        jb = want
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+def test_fused_batch_plain_multi_block_rows_are_fused_plain(hetero,
+                                                           reference):
+    """Several blocks a swarm: row s of the plain batch is the port's
+    single-swarm ``fused_plain`` (synchronous PPSO) on that swarm, from its
+    own iteration, bit for bit."""
+    _, tc, jb, _, tkw, _ = _batches(hetero, 3, 256)
+    tb = _port_batch(jb)
+    out = ops.run_queue_lock_fused_batch(tc, tb, 3, block_n=64, **tkw)
+    table = tkw.get("table")
+    for s in range(8):
+        cfg = (tc if table is None else
+               pso.hetero_member_config(tc, table[int(tkw["fids"][s])]))
+        want = ops.run_queue_lock_fused(cfg, ms.batch_row(tb, s), 3,
+                                        block_n=64)
+        row = ms.batch_row(out, s)
+        for f in ("pos", "vel", "pbest_pos", "pbest_fit", "gbest_pos",
+                  "gbest_fit"):
+            assert torch.equal(getattr(row, f), getattr(want, f)), (s, f)
+        assert row.iteration == want.iteration
+
+
+@pytest.mark.parametrize("hetero,nb", [(False, 1), (False, 2), (True, 1),
+                                       (True, 2)])
+def test_fused_async_batch_plain_matches_pallas_kernel(hetero, nb,
+                                                       reference):
+    """The plain async batch against the batched (and hetero) Pallas async
+    kernel, block-major like ``ref.run_fused_async_oracle``: 5 iterations
+    at sync_every=2 (two chunks and a remainder launch), rows resuming at
+    different iterations, from locals seeded by each gbest."""
+    jc, tc, jb, jkw, tkw, widths = _batches(hetero, 2, 256)
+    tb = _port_batch(jb)
+    want = jops.run_queue_lock_fused_async_batch(
+        jc, jb, 5, sync_every=2, block_n=256 // nb, interpret=True, **jkw)
+    got = ops.run_queue_lock_fused_async_batch(tc, tb, 5, sync_every=2,
+                                               block_n=256 // nb, **tkw)
+    _assert_rows_close(got, want, widths)
+    assert got.lbest_fit.shape == (8, nb)
+
+
+def test_batch_kernel_path_on_cpu_tensors_raises():
+    tc = pso.PSOConfig(dim=2, particle_cnt=128).resolved()
+    b = ms.init_batch(tc, BATCH_SEEDS, device="cpu")
+    state = [ops.pack_dmajor_batch(b.pos), ops.pack_dmajor_batch(b.vel),
+             ops.pack_dmajor_batch(b.pbest_pos), b.pbest_fit.reshape(-1),
+             ops.pack_dmajor(b.gbest_pos), b.gbest_fit.clone()]
+    specs = (ops.kernel_spec(tc),)
+    with pytest.raises(ValueError, match="CUDA"):
+        pso_step._fused_batch_launch(state, b.seed, b.iteration, specs,
+                                     iters=1, block_n=128)
+    lp, lf = state[4].clone(), state[5].clone()
+    with pytest.raises(ValueError, match="CUDA"):
+        pso_step._fused_async_batch_launch(state + [lp, lf], b.seed,
+                                           b.iteration, specs, iters=1,
+                                           sync_every=1, block_n=128)
+    before = (pso_step.fused_batch.launches,
+              pso_step.fused_async_batch.launches)
+    ops.run_queue_lock_fused_batch(tc, b, 2)
+    ops.run_queue_lock_fused_async_batch(tc, b, 2)
+    assert (pso_step.fused_batch.launches,
+            pso_step.fused_async_batch.launches) == before
+    with pytest.raises(ValueError, match="table"):
+        ops.run_queue_lock_fused_batch(tc, b, 1, fids=torch.zeros(8))
+
+
+def test_pack_unpack_batch_round_trip():
+    x = torch.arange(2 * 3 * 4, dtype=torch.float32).reshape(2, 3, 4)
+    p = ops.pack_dmajor_batch(x)
+    assert p.shape == (4, 6) and p.is_contiguous()
+    assert torch.equal(p[:, 3:6], x[1].t())         # swarm 1's columns
+    assert torch.equal(ops.unpack_dmajor_batch(p, 2), x)
+
+
 # --- on the card -------------------------------------------------------------
 
 def _card_state(cuda, fit, rule, d, n, seed=1):
@@ -385,3 +532,125 @@ def test_async_kernel_multi_block_invariants_wide_on_card(cuda, sync_every):
                                          16384)
     _assert_async_invariants(cfg, spec, _with_locals(state, 32), seed,
                              iters=8, sync_every=sync_every)
+
+
+# --- batched kernels on the card ---------------------------------------------
+
+
+def _card_batch(cuda, fit, rule, d, n, s_cnt, problems=None):
+    """A batch on the card at per-row iterations 0, 3, 6, ... (serving
+    lanes admit rows at different iterations), with its kernel table."""
+    seeds = [BATCH_SEEDS[s % 8] + s for s in range(s_cnt)]
+    if problems is None:
+        cfg = pso.PSOConfig(dim=d, particle_cnt=n, fitness=fit,
+                            update_rule=rule).resolved()
+        b = ms.init_batch(cfg, seeds, device=cuda)
+        fids, specs = None, (ops.kernel_spec(cfg),)
+    else:
+        cfg = pso.PSOConfig(dim=d, particle_cnt=n,
+                            update_rule=rule).resolved()
+        rows, table = ms.problem_rows(problems, d, device=cuda)
+        b = ms.init_batch(cfg, seeds, rows=rows, table=table, device=cuda)
+        fids, specs = rows.fid, ops._hetero_members(cfg, table)
+    b = b._replace(iteration=3 * torch.arange(s_cnt, device=cuda))
+    return cfg, b, fids, specs
+
+
+def _batch_ops(b, nb=None):
+    out = [ops.pack_dmajor_batch(b.pos), ops.pack_dmajor_batch(b.vel),
+           ops.pack_dmajor_batch(b.pbest_pos), b.pbest_fit.reshape(-1).clone(),
+           ops.pack_dmajor(b.gbest_pos), b.gbest_fit.clone()]
+    if nb:
+        out += [out[4].repeat_interleave(nb, 1), out[5].repeat_interleave(nb)]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fit,rule,d,n,bn,s_cnt,hetero", [
+    ("cubic", "pso", 1, 1024, 512, 8, False),
+    ("rastrigin", "sso", 3, 1024, 512, 5, False),
+    ("griewank", "lowcost", 10, 256, 256, 64, False),
+    (None, "pso", 10, 1024, 512, 12, True),
+    (None, "lowcost", 3, 256, 256, 12, True)])
+def test_fused_batch_kernel_matches_plain_on_card(cuda, fit, rule, d, n, bn,
+                                                  s_cnt, hetero):
+    problems = [FITNESS[s % 6] for s in range(s_cnt)] if hetero else None
+    _, b, fids, specs = _card_batch(cuda, fit, rule, d, n, s_cnt, problems)
+    state = _batch_ops(b)
+    kw = dict(iters=2, block_n=bn, fids=fids)
+    want = pso_step.fused_batch_plain(*state, b.seed, b.iteration, specs,
+                                      **kw)
+    got = pso_step.fused_batch(*[x.clone() for x in state], b.seed,
+                               b.iteration, specs, **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_cnt", [5, 300])
+def test_fused_batch_rows_equal_single_swarm_kernel_on_card(cuda, s_cnt):
+    """Row s of a batched launch is the single-swarm kernel on swarm s, bit
+    for bit. At S=300 with two blocks a swarm the batch runs in waves (600
+    CTAs where about 264 fit at once), the last one partial."""
+    _, b, _, specs = _card_batch(cuda, "rastrigin", "pso", 10, 1024, s_cnt)
+    orig = _batch_ops(b)
+    state = [x.clone() for x in orig]
+    before = pso_step.fused_batch.launches
+    pso_step.fused_batch(*state, b.seed, b.iteration, specs, iters=5,
+                         block_n=512)
+    waves = pso_step.fused_batch.launches - before
+    assert waves == 1 if s_cnt == 5 else waves >= 2
+    seeds, its = b.seed.tolist(), b.iteration.tolist()
+    for s in range(s_cnt):
+        c = slice(s * 1024, (s + 1) * 1024)
+        one = [x[:, c].contiguous() for x in orig[:3]] + [
+            orig[3][c].clone(), orig[4][:, s].contiguous(),
+            orig[5][s:s + 1].clone()]
+        pso_step.fused(*one, specs[0], seed=seeds[s], iteration=its[s],
+                       iters=5, block_n=512)
+        for a, w in zip(one, (state[0][:, c], state[1][:, c],
+                              state[2][:, c], state[3][c], state[4][:, s],
+                              state[5][s:s + 1])):
+            assert torch.equal(a, w), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hetero", [False, True])
+def test_async_batch_kernel_single_block_matches_plain_on_card(cuda, hetero):
+    problems = [FITNESS[s % 6] for s in range(12)] if hetero else None
+    _, b, fids, specs = _card_batch(cuda, "ackley", "pso", 8, 512, 12,
+                                    problems)
+    state = _batch_ops(b, nb=1)
+    kw = dict(iters=11, sync_every=4, block_n=512, fids=fids)
+    want = pso_step.fused_async_batch_plain(*state, b.seed, b.iteration,
+                                            specs, **kw)
+    got = pso_step.fused_async_batch(*[x.clone() for x in state], b.seed,
+                                     b.iteration, specs, **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hetero", [False, True])
+def test_async_batch_kernel_multi_block_invariants_on_card(cuda, hetero):
+    """Each swarm of a multi-block async batch holds the single-swarm
+    invariants: gbest == max(pbest), gbest_pos bit for bit a pbest column,
+    positions in its bounds."""
+    problems = [FITNESS[s % 6] for s in range(12)] if hetero else None
+    cfg, b, fids, specs = _card_batch(cuda, "rastrigin", "pso", 10, 2048, 12,
+                                      problems)
+    state = _batch_ops(b, nb=4)
+    pso_step.fused_async_batch(*state, b.seed, b.iteration, specs, iters=16,
+                               sync_every=4, block_n=512, fids=fids)
+    torch.cuda.synchronize()
+    for s in range(12):
+        c = slice(s * 2048, (s + 1) * 2048)
+        pos, pbp, pbf = state[0][:, c], state[2][:, c], state[3][c]
+        gp, gf = state[4][:, s], state[5][s]
+        assert float(gf) == float(pbf.max())
+        assert bool((pbp[:, pbf == gf] == gp[:, None]).all(0).any())
+        spec = specs[0 if fids is None else int(fids[s])]
+        lo, hi, _ = pso_step._operands(spec, pos.device)
+        assert bool(((pos >= lo) & (pos <= hi)).all())
