@@ -13,15 +13,20 @@ standard library, and exits non-zero on any failure. Phases:
    ``nvcc`` per source, started together) and prints each kernel's
    registers from ``-Xptxas -v``;
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes, with the tolerances stated below. Single swarm: fused
-   launches of one to six iterations, the async kernel with one block, and
-   the async kernel over many blocks held to its invariants. Batches:
+   paths' shapes, with the tolerances stated below. Single swarm: the
+   queue kernel chained over one to six iterations (each followed by the
+   cross-block epilogue), also bit for bit against one fused launch of as
+   many iterations; fused launches of one to six iterations, the async
+   kernel with one block, and the async kernel over many blocks held to
+   its invariants. Batches:
    fused launches over S swarms at per-row iteration counters (several
    iterations where kernel and plain round alike), batch rows bit-equal to
    the single-swarm kernel (also across the waves of a batch larger than
    the card holds at once, and at one block a swarm in both variants),
    heterogeneous rows equal to their problem's single-swarm kernel, and
-   multi-block async batches held to the invariants row by row;
+   multi-block async batches held to the invariants row by row. GLA (3c):
+   the kernel at hymba-1.5B's SSD width, at the xLSTM-350M mLSTM head shape
+   and at a padded sequence length;
 4. the main paths, each with every launch count set to 0 just before it and
    read just after: ``repro_torch.solve`` on the default device with
    ``backend="auto"`` for the paper's largest swarms (Table 4: cubic d=1
@@ -30,6 +35,11 @@ standard library, and exits non-zero on any failure. Phases:
    ``repro_torch.solve_many`` at the shapes of ``benchmarks/run.py``'s
    ``multi_swarm`` sweep (d=10, n=1024 and n=256) with S raised to fill the
    card, homogeneous and over the six built-ins, both kernel variants;
+   4c: the paper's Tables 3, 4 and 5 at ``benchmarks/run.py``'s shapes,
+   the numpy serial baseline on the host against the eager ``reduction`` and
+   ``queue``, ``ops.queue_step`` iterated and the fused and async kernels
+   (us per iteration and speed-up over serial); 4d: ``gla_forward`` at
+   hymba-1.5B's SSD width;
 5. one JSON line ``{"kernels": [...]}`` (launches on the main paths,
    maximum error against the plain version, kernel and plain times on the
    same call, and the card's bound for that call), the card line, and a
@@ -44,6 +54,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -52,8 +63,9 @@ import repro_torch  # noqa: E402
 from repro_torch.core import multi_swarm as ms  # noqa: E402
 from repro_torch.core import pso  # noqa: E402
 from repro_torch.core.fitness import FITNESS_IDS  # noqa: E402
+from repro_torch.core.serial import run_serial_fast  # noqa: E402
 from repro_torch.core.update_rules import RULE_IDS  # noqa: E402
-from repro_torch.kernels import _build, ops, pso_step  # noqa: E402
+from repro_torch.kernels import _build, gla, ops, pso_step  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and 67 TFLOP/s of
 # float32 outside the tensor cores, which counts an FMA as two operations.
@@ -152,9 +164,10 @@ def compare(got, want, names, what):
     return max_err(got, want)
 
 
-# The six kernels of the port as the TPU kernels they replace, and the
+# The eight kernels of the port as the TPU kernels they replace, and the
 # wrapper counter that counts each one's launches.
 COUNTERS = {
+    "queue_step": (pso_step.queue_step, "launches"),
     "fused": (pso_step.fused, "launches"),
     "fused_async": (pso_step.fused_async, "launches"),
     "fused_batch": (pso_step.fused_batch, "launches"),
@@ -162,6 +175,7 @@ COUNTERS = {
     "fused_async_batch": (pso_step.fused_async_batch, "launches"),
     "hetero_fused_async_batch": (pso_step.fused_async_batch,
                                  "hetero_launches"),
+    "gla_forward": (gla.gla_forward, "launches"),
 }
 
 
@@ -246,6 +260,9 @@ def phase_build() -> None:
                     g = {"1": ",grid", "0": ",block"}.get(m[4], "")
                     entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
                              f"{rules[m[3]]}{g}>")
+                else:              # a kernel without template arguments
+                    m = re.search(r"([a-z]+_kernel)", entry)
+                    entry = m[1] if m else entry
                 spill = ""
             elif "spill" in line and \
                     "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -324,8 +341,60 @@ def async_invariants(fit, d, n, sync_every, launches, iters) -> None:
           f"max(pbest), == a pbest column, == f(gbest_pos); in bounds")
 
 
+def queue_iteration(step, state, spec, seed, iteration, bn):
+    """One queue-algorithm iteration on D-major operands: ``step`` (the
+    kernel's wrapper, in place, or its plain version), then the port's
+    cross-block epilogue."""
+    pos, vel, pbp, pbf, aux_fit, aux_idx = step(
+        *state, spec, seed=seed, iteration=iteration, block_n=bn)
+    gp, gf = ops.queue_epilogue(pos, state[4], state[5], aux_fit, aux_idx)
+    return pos, vel, pbp, pbf, gp, gf
+
+
+def queue_against_plain(fit, d, n, iters, offset, flips, errs) -> None:
+    """The queue kernel chained over k = 1..iters iterations from an
+    iteration offset, each followed by the epilogue: against its plain
+    version chained alike, within the phase-3 tolerances (where ``flips``,
+    up to the first comparison flip, as for the fused kernel), and bit for
+    bit against ONE fused launch of k iterations from the same state: both
+    are synchronous PPSO with the same rounding and tie-break, so any
+    difference is a fault."""
+    cfg, spec, state, seed = kernel_state(fit, d, n)
+    bn = 512
+    got, want, plain = tuple(x.clone() for x in state), state, True
+    for k in range(1, iters + 1):
+        it = offset + k - 1
+        got = queue_iteration(pso_step.queue_step, got, spec, seed, it, bn)
+        fused = pso_step.fused(*[x.clone() for x in state], spec, seed=seed,
+                               iteration=offset, iters=k, block_n=bn)
+        torch.cuda.synchronize()
+        what = (f"queue {fit} d={d} n={n} ({n // bn} CTAs), iterations "
+                f"{offset + 1}..{offset + k}")
+        for a, b, name in zip(got, fused, FUSED_FIELDS):
+            check(torch.equal(a, b), f"{what}: {name} bit for bit the fused "
+                  f"kernel's launch of {k}")
+        if not plain:
+            print(f"  {what}: == one fused launch bit for bit")
+            continue
+        prev = want
+        want = queue_iteration(pso_step.queue_plain, prev, spec, seed, it, bn)
+        if flips and disagreeing(got, want, FUSED_FIELDS) \
+                and is_flip(cfg, prev, want, got):
+            print(f"  {what}: == one fused launch bit for bit; a comparison "
+                  f"flip at a near tie against the plain version in the last "
+                  f"iteration, plain comparison stopped there")
+            plain = False
+            continue
+        e = compare(got, want, FUSED_FIELDS, what)
+        errs["queue_step"] = max(errs["queue_step"], e)
+        print(f"  {what}: max |kernel - plain| = {e:.3g}; == one fused "
+              f"launch bit for bit")
+
+
 def phase_compare(errs) -> None:
     print("phase 3: kernels against their plain versions on the card")
+    queue_against_plain("cubic", 1, 131072, 6, 37, False, errs)
+    queue_against_plain("rastrigin", 120, 32768, 6, 5, True, errs)
     fused_against_plain("cubic", 1, 131072, 6, 37, False, errs)
     fused_against_plain("rastrigin", 120, 32768, 6, 5, True, errs)
     # Async, one block: equal to the plain block-major version, including
@@ -580,6 +649,63 @@ def phase_compare_batches(errs) -> None:
                            512, 8, 3, 16, mixed=True)
 
 
+# GLA: the reference test's tolerance (tests/test_gla_kernel.py); the
+# chunk's running sums and the products are summed in other orders.
+GLA_TOL = dict(rtol=2e-4, atol=2e-4)
+# hymba-1.5B's SSD branch (src/repro/configs/hymba_1_5b.py): d_in = 2 * 1600
+# over 25 heads, so P = 128; state N = 16; the model's chunk, 128.
+HYMBA = dict(h=25, n=16, p=128)
+# xLSTM-350M's mLSTM heads (src/repro/configs/xlstm_350m.py): 4 of 256,
+# v augmented with the normalizer's ones column, so P = 257.
+XLSTM = dict(h=4, n=256, p=256)
+
+
+def gla_inputs(b, s, h, n, p, seed=0, ones=False):
+    """(q, k, v, log_decay, log_inc) on the card, made from a numpy seed as
+    tests/test_gla_kernel.py's _inputs makes them: q, k ~ 0.3 N(0,1),
+    v ~ N(0,1), log_decay = -0.1 softplus(N(0,1)), log_inc =
+    clip(0.3 N(0,1), -2, 2); ``ones`` appends mLSTM's ones column to v."""
+    r = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return r.standard_normal(shape, dtype=np.float32)
+
+    q, k, v = normal(b, s, h, n) * 0.3, normal(b, s, h, n) * 0.3, normal(
+        b, s, h, p)
+    if ones:
+        v = np.concatenate([v, np.ones((b, s, h, 1), np.float32)], -1)
+    ld = -np.logaddexp(0.0, normal(b, s, h)).astype(np.float32) * 0.1
+    li = np.clip(normal(b, s, h) * 0.3, -2, 2)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+            for a in (q, k, v, ld, li)]
+
+
+def gla_against_plain(what, b, s, shape, errs, ones=False, chunk=128):
+    x = gla_inputs(b, s, **shape, ones=ones)
+    want = gla.gla_forward_plain(*x, chunk=chunk)
+    got = gla.gla_forward(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape == x[2].shape, f"{what}: shape")
+    check(bool(torch.isfinite(got).all()), f"{what}: finite")
+    e = float((got - want).abs().max())
+    check(torch.allclose(got, want, **GLA_TOL),
+          f"{what}: kernel and plain disagree, max error {e}")
+    errs["gla_forward"] = max(errs["gla_forward"], e)
+    print(f"  {what}: max |kernel - plain| = {e:.3g} (|y| up to "
+          f"{float(want.abs().max()):.3g})")
+
+
+def phase_compare_gla(errs) -> None:
+    print("phase 3c: the GLA kernel against its plain version on the card "
+          f"(rtol = atol = {GLA_TOL['rtol']})")
+    gla_against_plain("hymba-1.5B SSD B=4 S=4096 H=25 N=16 P=128 chunk 128",
+                      4, 4096, HYMBA, errs)
+    gla_against_plain("xLSTM-350M mLSTM B=1 S=1024 H=4 N=256 P=257 (ones "
+                      "column) chunk 128", 1, 1024, XLSTM, errs, ones=True)
+    gla_against_plain("hymba-1.5B SSD B=1 S=1000 (padded to 1024) chunk 128",
+                      1, 1000, HYMBA, errs)
+
+
 def phase_main_path(card: str):
     print("phase 4: main path, repro_torch.solve(backend='auto') on the "
           "default device")
@@ -699,6 +825,220 @@ def phase_many_path(card: str, launches: dict):
     return runs
 
 
+# benchmarks/run.py's sweeps: table3 (cubic d=1, ITERS_1D iterations),
+# table4 (cubic d=1, ITERS_1D // 2) and table5 (cubic d=120, iterations per
+# swarm size).
+TABLE3 = tuple((n, 2000) for n in (32, 64, 128, 256, 512, 1024, 2048))
+TABLE4 = tuple((n, 1000) for n in (128, 512, 2048, 8192, 32768, 131072))
+TABLE5 = ((128, 200), (1024, 150), (8192, 100), (32768, 50))
+VARIANTS = ("reduction", "queue", "ops.queue_step", "queue_lock", "async")
+# The serial baseline runs at most this many particle-dimension-iterations
+# (a few seconds of numpy on one host core) and is cut to fewer iterations
+# beyond it; its time per iteration is what the tables compare.
+SERIAL_ELEMENTS = 2e7
+
+
+def host_us(fn, iters: int):
+    """(us per iteration, result) of one call of ``fn`` on the host clock,
+    synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e6, out
+
+
+def queue_loop(cfg, s, iters: int):
+    for _ in range(iters):
+        s = ops.queue_step(cfg, s)
+    return s
+
+
+def queue_kernel_time(state, spec, kw, reps: int = 20):
+    """The queue kernel alone and its wrapper, on copies of ``state``:
+    (us a launch, from a CUDA graph of ``reps`` wrapper calls replayed, so
+    no host work sits between the launches; the wrapper's host us a call,
+    enqueued back to back; pbest columns a timed launch wrote, on average,
+    counted on the same launches replayed one at a time)."""
+    def step(run):
+        pso_step.queue_step(*run, spec, **kw)
+
+    run = [x.clone() for x in state]
+    step(run)                           # warm: the build, the bounds table
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            step(run)
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    kernel_us = start.elapsed_time(end) * 1e3 / reps
+    again = [x.clone() for x in state]
+    for _ in range(1 + reps):
+        step(again)
+    improved = 0
+    for _ in range(reps):
+        before = again[3].clone()
+        step(again)
+        improved += int((again[3] > before).sum())
+    check(all(torch.equal(a, b) for a, b in zip(run, again)),
+          "the graph's replays advanced the state as the wrapper's calls do")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(again)
+    wrapper_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return kernel_us, wrapper_us, improved / reps
+
+
+def queue_layers(cfg, s) -> str:
+    """Where one ``ops.queue_step`` call's time goes: its layers in the
+    order it runs them, each on the host clock between synchronisations
+    (the launch includes the kernel's run), after one warm call."""
+    for _ in range(2):
+        marks = []
+
+        def lap():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        lap()
+        c = cfg.resolved()
+        spec = ops.kernel_spec(c)
+        bn = ops._resolve_block(c.particle_cnt, None)
+        lap()
+        state = ops.state_to_kernel(s)
+        lap()
+        pos, vel, pbp, pbf, aux_fit, aux_idx = pso_step.queue_step(
+            *state, spec, seed=s.seed, iteration=s.iteration, block_n=bn)
+        lap()
+        gp, gf = ops.queue_epilogue(pos, state[4], state[5], aux_fit,
+                                    aux_idx)
+        lap()
+        ops.kernel_to_state(s, pos, vel, pbp, pbf, gp, gf, 1)
+        lap()
+    names = ("config", "pack", "launch+kernel", "epilogue", "unpack")
+    return ", ".join(f"{name} {(b - a) * 1e6:.1f} us"
+                     for name, a, b in zip(names, marks, marks[1:]))
+
+
+def table_cell(card, launches, d, n, iters, variants) -> None:
+    """One cell of Table 3, 4 or 5: the serial CPU baseline and each GPU
+    variant from the same initial swarm, us per iteration and speed-up over
+    serial. Kernel variants run with every count set to 0 just before and
+    read just after; the queue variant's final state must equal the fused
+    kernel's bit for bit (both synchronous PPSO, same rounding)."""
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, fitness="cubic").resolved()
+    s_iters = int(min(iters, max(5, SERIAL_ELEMENTS // (n * d))))
+    run_serial_fast(cfg, 0, 1)
+
+    def serial_s(k):
+        """The faster of two runs of init and ``k`` iterations, seconds."""
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fit, _ = run_serial_fast(cfg, 0, k)
+            times.append(time.perf_counter() - t0)
+        return min(times), fit
+
+    init_s, _ = serial_s(0)
+    total_s, serial_fit = serial_s(s_iters)
+    # The GPU variants start from a built swarm, so serial's init is left
+    # out too.
+    serial = (total_s - init_s) / s_iters * 1e6
+    cut = (f", cut to {s_iters} of {iters} iterations" if s_iters < iters
+           else "")
+    print(f"  cubic d={d} n={n} x{iters}: serial (numpy, host, the faster "
+          f"of two runs, init of {init_s * 1e3:.2f} ms left out{cut}) "
+          f"{serial:.2f} us/iter, gbest {serial_fit:.7g}")
+    s0 = pso.init_swarm(cfg, 0, device="cuda")
+    runs = {
+        "reduction": (lambda k: pso.run(cfg, s0, k, "reduction"), None),
+        "queue": (lambda k: pso.run(cfg, s0, k, "queue"), None),
+        "ops.queue_step": (lambda k: queue_loop(cfg, s0, k), "queue_step"),
+        "queue_lock": (lambda k: ops.run_queue_lock_fused(cfg, s0, k),
+                       "fused"),
+        "async": (lambda k: ops.run_queue_lock_fused_async(cfg, s0, k),
+                  "fused_async"),
+    }
+    out = {}
+    for name in variants:
+        fn, kernel = runs[name]
+        fn(2)                                                # warm-up
+        zero_counts()
+        us, res = host_us(lambda: fn(iters), iters)
+        counts = {k: v for k, v in read_counts().items() if v}
+        for k in counts:
+            launches[k] += counts[k]
+        check(set(counts) == ({kernel} if kernel else set()),
+              f"{name}: launched {kernel or 'no kernel'} only ({counts})")
+        if name == "ops.queue_step":
+            check(counts.get(kernel) == iters, "one queue launch an iteration")
+        g = float(res.gbest_fit)
+        check(math.isfinite(g) and g <= OPTIMUM_PER_DIM * d * (1 + 1e-6),
+              f"{name}: finite gbest within the optimum")
+        check(g == float(res.pbest_fit.max()), f"{name}: gbest == max(pbest)")
+        out[name] = res
+        print(f"    {name:15s} {us:10.2f} us/iter  x{serial / us:9.1f} over "
+              f"serial  gbest {g:.7g}  launches {counts} [{card}]")
+    if "ops.queue_step" in out and "queue_lock" in out:
+        a, b = out["ops.queue_step"], out["queue_lock"]
+        for f in ("pos", "vel", "pbest_pos", "pbest_fit", "gbest_pos",
+                  "gbest_fit"):
+            check(torch.equal(getattr(a, f), getattr(b, f)),
+                  f"d={d} n={n}: ops.queue_step x{iters} {f} == the fused "
+                  f"kernel's bit for bit")
+        kernel_us, wrapper_us, _ = queue_kernel_time(
+            ops.state_to_kernel(s0), ops.kernel_spec(cfg),
+            dict(seed=s0.seed, iteration=0,
+                 block_n=ops._resolve_block(n, None)))
+        print(f"    ops.queue_step x{iters} == queue_lock bit for bit; "
+              f"the queue kernel alone {kernel_us:.2f} us a launch (CUDA "
+              f"graph replayed, CUDA events), pso_step.queue_step's host "
+              f"time {wrapper_us:.2f} us a call; one ops.queue_step call's "
+              f"layers (host clock, synchronised): {queue_layers(cfg, s0)}")
+
+
+def phase_tables(card: str, launches: dict) -> None:
+    print("phase 4c: the paper's Tables 3 and 4 (cubic d=1) and 5 (cubic "
+          "d=120) at benchmarks/run.py's shapes, serial CPU against the card")
+    for n, iters in TABLE3:
+        table_cell(card, launches, 1, n, iters, VARIANTS)
+    for n, iters in TABLE4:
+        table_cell(card, launches, 1, n, iters, ("queue_lock",))
+    for n, iters in TABLE5:
+        table_cell(card, launches, 120, n, iters, VARIANTS)
+
+
+def phase_gla_path(card: str, launches: dict) -> None:
+    """``gla_forward`` at hymba-1.5B's SSD width, counts set to 0 just
+    before and read just after."""
+    print("phase 4d: main path, repro_torch.kernels.gla.gla_forward at "
+          "hymba-1.5B SSD width")
+    b, s = 4, 4096
+    x = gla_inputs(b, s, **HYMBA, seed=1)
+    gla.gla_forward(*x)                                      # warm-up
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    us, y = host_us(lambda: gla.gla_forward(*x), 1)
+    counts = {k: v for k, v in read_counts().items() if v}
+    for k in counts:
+        launches[k] += counts[k]
+    check(counts == {"gla_forward": 1}, f"one GLA launch ({counts})")
+    check(tuple(y.shape) == (b, s, HYMBA["h"], HYMBA["p"]), "y shape")
+    check(bool(torch.isfinite(y).all()), "finite y")
+    print(f"  B={b} S={s} H=25 N=16 P=128 chunk 128: {us / 1e3:.3f} ms (pad, "
+          f"fold, launch, unfold), |y| up to {float(y.abs().max()):.3g}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+          f"[{card}]")
+
+
 def many_layers(s_cnt, n, d, iters, variant, problems) -> None:
     """Where a solve_many call's time goes, layer by layer (the facade's
     own steps through the public functions): init_batch on the host clock,
@@ -751,22 +1091,79 @@ def bound(d: int, n: int, iters: int, nb: int = 0,
     state = s_cnt * (3 * n * d + n + d + 1 + nb * (d + 1))
     inputs = state + 2 * s_cnt + members * 4 * d + (s_cnt if members > 1
                                                     else 0)
-    by_bytes = 4 * (inputs + state) / HBM_BYTES_PER_S
     ints = iters * s_cnt * n * d * INT_PER_ELEMENT
     fps = iters * n * sum(d * (FP_DRAWS_RULE + FP_OBJECTIVE[o])
                           + FP_PER_PARTICLE for o in objectives)
+    return roof(4 * (inputs + state), ints, fps)
+
+
+def roof(nbytes: float, ints: float, fps: float):
+    """(ms, "bytes" | "operations"): the larger of the bytes at the HBM
+    rate and the operations at the card's rates (integer pipe, float32
+    pipe, issue)."""
+    by_bytes = nbytes / HBM_BYTES_PER_S
     by_ops = max(ints / INT32_OPS_PER_S, fps / FP32_OPS_PER_S,
                  (ints + fps) / ISSUE_OPS_PER_S)
     return (1e3 * max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+def queue_bound(d: int, n: int, nb: int, improved: float):
+    """The queue kernel's one iteration of cubic/pso: pos, vel, pbp, pbf,
+    gbest and the bounds read; pos and vel written, and pbf and the pbp
+    column only for the ``improved`` particles (the kernel folds pbest in
+    place, so an unchanged column is not an output); the [nb] pair
+    written; the operations of one iteration."""
+    nbytes = 4 * (3 * n * d + n + d + 1 + 4 * d
+                  + 2 * n * d + improved * (d + 1) + 2 * nb)
+    fps = n * (d * (FP_DRAWS_RULE + FP_OBJECTIVE["cubic"]) + FP_PER_PARTICLE)
+    return roof(nbytes, n * d * INT_PER_ELEMENT, fps)
+
+
+def gla_bound(bh: int, s: int, n: int, p: int, chunk: int):
+    """The GLA forward on folded operands (S a multiple of the chunk):
+    q, k, v and both gates read, y written; the least products, counted as
+    FMAs at the float32 rate (one instruction each): per (batch.head) and
+    chunk q k^T and (q k^T o W) v on the causal half, and q H and the state
+    update where they are not zero or unused (H = 0 in the first chunk; the
+    last chunk's update is never read)."""
+    nc = s // chunk
+    tri = chunk * (chunk + 1) // 2
+    fmas = bh * (nc * tri * (n + p) + 2 * (nc - 1) * chunk * n * p)
+    return roof(4 * bh * s * (2 * n + 2 * p + 2), 0, fmas)
+
+
 def phase_times():
-    """Kernel and plain version on the same call. Single swarm: the main
-    path's cubic d=1 n=131072 swarm, 32 iterations (4 async chunks of 8).
+    """Kernel and plain version on the same call. The queue kernel: one
+    iteration at Table 5's largest swarm, cubic d=120 n=32768, timed from a
+    CUDA graph (its wrapper's host time is as long as the kernel). GLA: the
+    launch alone on folded operands at hymba-1.5B's SSD width (B=4,
+    S=4096). Single swarm: the main path's cubic d=1 n=131072 swarm, 32
+    iterations (4 async chunks of 8).
     Batches: the solve_many shape, rastrigin d=10 n=1024 S=128 (the six
     built-ins cycled over S=96 for the hetero kernels), 16 iterations (2
     async chunks of 8), from per-row iteration counters."""
+    d, n, bn = 120, 32768, 512
+    _, spec, state, seed = kernel_state("cubic", d, n)
+    qkw = dict(seed=seed, iteration=0, block_n=bn)
+    kernel_us, wrapper_us, improved = queue_kernel_time(state, spec, qkw)
+    t = {"queue_step": kernel_us / 1e6,
+         "queue_step_plain": sync_time(
+             lambda: pso_step.queue_plain(*state, spec, **qkw), 3)}
+    bounds = {"queue_step": queue_bound(d, n, n // bn, improved)}
+    print(f"  queue_step: cubic d={d} n={n}, one iteration: the kernel "
+          f"{kernel_us:.2f} us a launch (a CUDA graph of 20 replayed), the "
+          f"wrapper's host time {wrapper_us:.2f} us a call, {improved:.1f} "
+          f"pbest columns written a launch")
+    b, s, chunk = 4, 4096, 128
+    x = gla_inputs(b, s, **HYMBA)
+    folded = [a.transpose(1, 2).reshape(b * HYMBA["h"], s, *a.shape[3:])
+              .contiguous() for a in x]
+    t["gla_forward"] = sync_time(lambda: gla._launch(*folded, chunk), 5)
+    t["gla_forward_plain"] = sync_time(
+        lambda: gla.gla_folded_plain(*folded, chunk), 2)
+    bounds["gla_forward"] = gla_bound(b * HYMBA["h"], s, HYMBA["n"],
+                                      HYMBA["p"], chunk)
     d, n, iters, bn = 1, 131072, 32, 512
     nb = n // bn
     _, spec, state, seed = kernel_state("cubic", d, n)
@@ -774,7 +1171,7 @@ def phase_times():
     akw = dict(kw, sync_every=8)
     fstate = [x.clone() for x in state]
     astate = [x.clone() for x in with_locals(state, nb)]
-    t = {
+    t.update({
         "fused": sync_time(lambda: pso_step.fused(*fstate, spec, **kw), 20),
         "fused_plain": sync_time(
             lambda: pso_step.fused_plain(*state, spec, **kw), 3),
@@ -783,9 +1180,9 @@ def phase_times():
         "fused_async_plain": sync_time(
             lambda: pso_step.fused_async_plain(*with_locals(state, nb), spec,
                                                **akw), 1),
-    }
-    shapes = {"fused": dict(d=d, n=n, iters=iters),
-              "fused_async": dict(d=d, n=n, iters=iters, nb=nb)}
+    })
+    bounds["fused"] = bound(d=d, n=n, iters=iters)
+    bounds["fused_async"] = bound(d=d, n=n, iters=iters, nb=nb)
     d, n, iters, bn = 10, 1024, 16, 512
     for key, mixed, s_cnt, sync_every in (
             ("fused_batch", False, 128, 0),
@@ -808,29 +1205,35 @@ def phase_times():
         t[key + "_plain"] = sync_time(lambda: plain(*state, b.seed,
                                                     b.iteration, specs,
                                                     **kw), 1)
-        shapes[key] = dict(d=d, n=n, iters=iters, nb=nb,
-                           objectives=[BUILTINS[s % 6] if mixed
-                                       else "rastrigin"
-                                       for s in range(s_cnt)],
-                           members=len(specs))
+        bounds[key] = bound(d=d, n=n, iters=iters, nb=nb,
+                            objectives=[BUILTINS[s % 6] if mixed
+                                        else "rastrigin"
+                                        for s in range(s_cnt)],
+                            members=len(specs))
         # Streaming bound: the state read and written once an iteration,
         # S*(20*N*D + 8*N) bytes, for when it does not stay in L2.
         stream = s_cnt * (20 * n * d + 8 * n) * iters / HBM_BYTES_PER_S
         print(f"  {key}: S={s_cnt} d={d} n={n}, {iters} iterations: "
               f"{s_cnt * (20 * n * d + 8 * n) / 1e6:.1f} MB an iteration "
               f"streamed, {stream * 1e3:.4f} ms at the HBM rate")
-    return t, shapes
+    return t, bounds
 
 
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
+    "queue_step": "src/repro/kernels/pso_step.py:822",
     "fused": "src/repro/kernels/pso_step.py:874",
     "fused_async": "src/repro/kernels/pso_step.py:1349",
     "fused_batch": "src/repro/kernels/pso_step.py:938",
     "hetero_fused_batch": "src/repro/kernels/pso_step.py:1036",
     "fused_async_batch": "src/repro/kernels/pso_step.py:1419",
     "hetero_fused_async_batch": "src/repro/kernels/pso_step.py:1500",
+    "gla_forward": "src/repro/kernels/gla.py:78",
 }
+
+#: Each kernel's CUDA source.
+SOURCES = {name: "src/repro_torch/kernels/csrc/pso_step.cu" for name in REPLACES}
+SOURCES["gla_forward"] = "src/repro_torch/kernels/csrc/gla.cu"
 
 
 def main() -> int:
@@ -845,19 +1248,24 @@ def main() -> int:
           f"{nvcc[-1]}; card: {card}; "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     phase_build()
+    # Full float32 in every plain version's products (GLA's einsums).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     errs = dict.fromkeys(COUNTERS, 0.0)
     phase_compare(errs)
     phase_compare_batches(errs)
+    phase_compare_gla(errs)
     launches, _ = phase_main_path(card)
     phase_many_path(card, launches)
+    phase_tables(card, launches)
+    phase_gla_path(card, launches)
     print(f"phase 5: kernel and plain times on the same call [{card}]")
-    times, shapes = phase_times()
-    src = "src/repro_torch/kernels/csrc/pso_step.cu"
+    times, bounds = phase_times()
     kernels = []
     for name, replaces in REPLACES.items():
-        b_ms, b_by = bound(**shapes[name])
+        b_ms, b_by = bounds[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": times[name] * 1e3, "plain_ms": times[name + "_plain"] * 1e3,

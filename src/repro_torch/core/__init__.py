@@ -1,7 +1,8 @@
-"""The PSO engine in PyTorch: config, state, RNG, objectives, rules, and
-the batched multi-swarm engine."""
+"""The PSO engine in PyTorch: config, state, RNG, objectives, rules, the
+batched multi-swarm engine, and the numpy serial baseline."""
 from .multi_swarm import (SwarmBatch, batch_row, best_of_batch, init_batch,
                           run_many, solve_many)
+from .serial import SerialSwarm, run_serial_fast
 
 __all__ = ["SwarmBatch", "batch_row", "best_of_batch", "init_batch",
-           "run_many", "solve_many"]
+           "run_many", "solve_many", "SerialSwarm", "run_serial_fast"]

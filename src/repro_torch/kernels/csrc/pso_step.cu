@@ -1,8 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels for cuPSO.
 //
-// Two kernels, each with a swarm axis, port six Pallas TPU kernels of
+// Three kernels port the seven Pallas TPU kernels of
 // src/repro/kernels/pso_step.py, written from what those kernels compute:
 //
+//   queue_kernel  one iteration of the paper's queue algorithm (§4.1) for
+//                 one swarm: gbest read-only, one (fitness, index) pair per
+//                 particle block out. Replaces queue_step_call (body
+//                 _make_sync_kernel(queue=True)); the cross-block argmax is
+//                 the caller's epilogue, as in the reference.
 //   fused_kernel  `iters` iterations of the fused queue-lock (paper §4.2)
 //                 for S independent swarms. Replaces fused_call (S = 1),
 //                 fused_batch_call and hetero_fused_batch_call (bodies
@@ -45,7 +50,9 @@
 // keeps the whole iteration loop inside one launch (no per-iteration launch
 // latency), keeps the attractor and the bounds in shared memory, and
 // publishes one 64-bit key per CTA only when the CTA has a candidate (the
-// paper's rare-improvement predicate).
+// paper's rare-improvement predicate). The queue kernel is the algorithm
+// that design improves on: one iteration a launch, its work per element the
+// same, plus a launch and its caller's epilogue every iteration.
 //
 // Arithmetic uses the __f*_rn intrinsics so that nvcc does not contract
 // into FMAs: the kernels then round exactly as the plain PyTorch versions
@@ -79,6 +86,7 @@ struct Params {
   unsigned long long* keys;                          // fused: [S,2] winner keys
   float* cand;                                       // fused: [2,S*nb,D]
   unsigned* lock;                                    // async: [S,2]
+  float* aux_fit; int* aux_idx;                      // queue: [nb], [nb]
   int n, d, bn, nb, s_cnt, s0, iters, chunk;
   int ld;                    // row stride of the [D, S*N] arrays: S*N
   uint32_t it_off;           // added to its[] (the async remainder phase)
@@ -587,17 +595,51 @@ __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
   if (threadIdx.x == 0) p.lf[slot] = lf;
 }
 
+// ---------------------------------------------------------------------------
+// Queue algorithm (§4.1), kernel 1 of 2: a normal launch of one CTA per
+// particle block of one swarm, one iteration. gbest is read-only: every CTA
+// compares against the input gf (the stale gbest of the iteration before),
+// advances its block and folds pbest in place. The intra-CTA atomicMax on
+// s_key is the paper's intra-group queue; thread 0 decodes the block's key
+// into aux_fit[b] (the best fitness among lanes that beat gf, -inf when none
+// does) and aux_idx[b] (that lane's swarm-local index, first lane on ties;
+// the block base when the queue is empty, as the reference's _queue_best
+// gives). No grid sync, no candidate columns, no lock: kernel 2 of the
+// paper, the cross-block argmax and gather, is the caller's epilogue.
+// ---------------------------------------------------------------------------
+template <int F, int R>
+__global__ void __launch_bounds__(kMaxThreads, 2) queue_kernel(Params p) {
+  extern __shared__ float sm[];
+  __shared__ unsigned long long s_key;
+  const Cta c = cta_of(p);
+  load_bounds(p, c, sm);
+  for (int k = threadIdx.x; k < p.d; k += blockDim.x)
+    sm[k] = p.gp[(size_t)k * p.s_cnt + c.s];
+  if (threadIdx.x == 0) s_key = 0ull;
+  __syncthreads();
+  const unsigned long long mine =
+      step_block<F, R>(p, c, c.it0 + 1u, sm, p.gf[c.s]);
+  if (mine) atomicMax(&s_key, mine);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned long long bk = s_key;
+    p.aux_fit[c.b] = bk ? key_fit(bk) : __uint_as_float(0xff800000u);  // -inf
+    p.aux_idx[c.b] = bk ? key_index(bk) : c.b * p.bn;
+  }
+}
+
 using Kernel = void (*)(Params);
 
 // PSO_TABLE(kernel, <empty> or <empty>, <more template arguments>): the
 // variadic tail is pasted after the rule id, so `, true` selects <F, R, true>.
 #define PSO_RULES(K, F, ...) {K<F, 0 __VA_ARGS__>, K<F, 1 __VA_ARGS__>, \
                               K<F, 2 __VA_ARGS__>}
+#define PSO_BUILTINS(K, ...)                                               \
+  PSO_RULES(K, 0, __VA_ARGS__), PSO_RULES(K, 1, __VA_ARGS__),              \
+  PSO_RULES(K, 2, __VA_ARGS__), PSO_RULES(K, 3, __VA_ARGS__),              \
+  PSO_RULES(K, 4, __VA_ARGS__), PSO_RULES(K, 5, __VA_ARGS__)
 #define PSO_TABLE(K, ...)                                                  \
-  {PSO_RULES(K, 0, __VA_ARGS__), PSO_RULES(K, 1, __VA_ARGS__),             \
-   PSO_RULES(K, 2, __VA_ARGS__), PSO_RULES(K, 3, __VA_ARGS__),             \
-   PSO_RULES(K, 4, __VA_ARGS__), PSO_RULES(K, 5, __VA_ARGS__),             \
-   PSO_RULES(K, 6, __VA_ARGS__)}
+  {PSO_BUILTINS(K, __VA_ARGS__), PSO_RULES(K, 6, __VA_ARGS__)}
 
 // [objective or kHetero][rule]
 const Kernel kFusedGrid[kHetero + 1][kRuleCount] = PSO_TABLE(fused_kernel,
@@ -605,9 +647,13 @@ const Kernel kFusedGrid[kHetero + 1][kRuleCount] = PSO_TABLE(fused_kernel,
 const Kernel kFusedBlock[kHetero + 1][kRuleCount] = PSO_TABLE(fused_kernel,
                                                               , false);
 const Kernel kAsync[kHetero + 1][kRuleCount] = PSO_TABLE(async_kernel, );
+// [objective][rule]: one swarm, no heterogeneous form
+const Kernel kQueue[kFitnessCount][kRuleCount] = {PSO_BUILTINS(queue_kernel,
+                                                               )};
 
-Kernel pick(const Kernel (*table)[kRuleCount], int fit, int rule) {
-  if (fit < 0 || fit > kHetero || rule < 0 || rule >= kRuleCount)
+Kernel pick(const Kernel (*table)[kRuleCount], int fit, int rule,
+            int fits = kHetero + 1) {
+  if (fit < 0 || fit >= fits || rule < 0 || rule >= kRuleCount)
     return nullptr;
   return table[fit][rule];
 }
@@ -737,6 +783,30 @@ int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
   if (err != cudaSuccess) return (int)err;
   k<<<(unsigned)s_cnt * p.nb, threads_for(bn), smem,
       (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// One queue-algorithm iteration (it00 + 1) of one swarm: a normal launch
+// of n/bn CTAs that updates pos/vel/pbp/pbf in place and writes
+// aux_fit[n/bn], aux_idx[n/bn]; gp [D] and gf [1] are only read.
+int pso_queue_launch(float* pos, float* vel, float* pbp, float* pbf,
+                     const float* gp, const float* gf, const float* bounds,
+                     float* aux_fit, int* aux_idx, int n, int d, int bn,
+                     unsigned seed0, unsigned it00, int fit, int rule, float w,
+                     float c1, float c2, float k0, float k1, float k2,
+                     void* stream) {
+  const Kernel k = pick(kQueue, fit, rule, kFitnessCount);
+  if (!k || bad_shape(n, d, bn, 1)) return (int)cudaErrorInvalidValue;
+  Params p = make_params(pos, vel, pbp, pbf, const_cast<float*>(gp),
+                         const_cast<float*>(gf), bounds, nullptr, nullptr,
+                         nullptr, nullptr, seed0, it00, n, d, bn, 1, 1, w, c1,
+                         c2, k0, k1, k2);
+  p.aux_fit = aux_fit;
+  p.aux_idx = aux_idx;
+  const size_t smem = smem_bytes(d);
+  cudaError_t err = prepare(k, smem);
+  if (err != cudaSuccess) return (int)err;
+  k<<<(unsigned)p.nb, threads_for(bn), smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

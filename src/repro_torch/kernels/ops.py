@@ -1,5 +1,6 @@
 """Swarm-level wrappers around the kernels, the port of
-``repro.kernels.ops``'s fused and async functions, single swarm and batched.
+``repro.kernels.ops``: the queue algorithm's step, and the fused and async
+functions, single swarm and batched.
 
 They translate between the engine's particle-major ``SwarmState`` /
 ``SwarmBatch`` and the kernels' D-major operands, pick the block size, and
@@ -71,6 +72,37 @@ def kernel_to_state(s: SwarmState, pos, vel, pbp, pbf, gp, gf,
         pbest_pos=unpack_dmajor(pbp), pbest_fit=pbf,
         gbest_pos=gp, gbest_fit=gf[0], iteration=s.iteration + iters,
         lbest_pos=None, lbest_fit=None)
+
+
+def queue_step(cfg: PSOConfig, s: SwarmState,
+               block_n: Optional[int] = None) -> SwarmState:
+    """One iteration of the paper's queue algorithm (§4.1): the queue
+    kernel (on a CUDA state; its plain version on a CPU state), then
+    ``queue_epilogue``, the paper's second kernel, in plain torch as the
+    reference has it in jnp. Matches ``core.pso.step_queue`` (stale-gbest
+    comparison); iterated, it is ``run_queue_lock_fused``'s synchronous
+    PPSO."""
+    cfg = cfg.resolved()
+    n, _ = s.pos.shape
+    bn = _resolve_block(n, block_n)
+    pos, vel, pbp, pbf, gp, gf = state_to_kernel(s)
+    pos, vel, pbp, pbf, aux_fit, aux_idx = pso_step.queue_step(
+        pos, vel, pbp, pbf, gp, gf, kernel_spec(cfg), seed=s.seed,
+        iteration=s.iteration, block_n=bn)
+    gp, gf = queue_epilogue(pos, gp, gf, aux_fit, aux_idx)
+    return kernel_to_state(s, pos, vel, pbp, pbf, gp, gf, 1)
+
+
+def queue_epilogue(pos, gp, gf, aux_fit, aux_idx):
+    """The queue algorithm's cross-block stage on D-major operands: the
+    block of the best ``aux_fit`` (the first on ties) wins, and its lane's
+    column of ``pos`` replaces ``gp`` [D] if ``aux_fit`` beats ``gf`` [1].
+    Returns new (gp, gf); it stays on the device (no host round trip)."""
+    wb = torch.argmax(aux_fit)
+    cand_fit = aux_fit[wb]
+    take = cand_fit > gf
+    cand_pos = pos.index_select(1, aux_idx[wb].reshape(1).long())[:, 0]
+    return torch.where(take, cand_pos, gp), torch.where(take, cand_fit, gf)
 
 
 def run_queue_lock_fused(cfg: PSOConfig, s: SwarmState, iters: int,

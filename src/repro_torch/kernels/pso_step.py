@@ -1,8 +1,11 @@
 """Launching wrappers for the CUDA kernels, their plain PyTorch versions,
 and launch counters.
 
-The kernels are ``csrc/pso_step.cu``'s ``fused_kernel`` and
-``async_kernel``, each with a swarm axis. Single swarm: ``fused`` replaces
+The kernels are ``csrc/pso_step.cu``'s ``queue_kernel``, ``fused_kernel``
+and ``async_kernel``. ``queue_step`` replaces
+``repro.kernels.pso_step.queue_step_call`` (one iteration of the paper's
+queue algorithm, one swarm). The other two have a swarm axis. Single
+swarm: ``fused`` replaces
 ``repro.kernels.pso_step.fused_call`` (the fused queue-lock) and
 ``fused_async`` replaces ``fused_async_call`` (the async queue-lock).
 Batches of S swarms: ``fused_batch`` replaces ``fused_batch_call`` and, with
@@ -23,6 +26,9 @@ tensors it launches its kernel (or raises); on CPU tensors, and only there,
 it runs the plain version. The plain versions return new tensors and leave
 their inputs alone:
 
+* ``queue_plain``: one iteration against the read-only gbest, and each
+  block's best improving lane as ``(aux_fit, aux_idx)``; the cross-block
+  argmax is the caller's (``ops.queue_step``).
 * ``fused_plain``: synchronous PPSO, vectorized over blocks — each
   iteration's gbest is the best lane (first on ties) of those beating the
   previous gbest. That is ``repro``'s ``ref.queue_step_oracle`` iterated;
@@ -117,17 +123,49 @@ def _advance(spec, bounds, seed, it, pos, vel, pbp, att, idx):
     return pos, vel, BUILTIN_PROBLEMS[spec.fitness].fn(pos.T)
 
 
+def _fold_pbest(fit, pos, pbp, pbf):
+    """pbest fold: (pbp, pbf) where the new fitness beats pbest."""
+    imp = fit > pbf
+    return torch.where(imp[None, :], pos, pbp), torch.where(imp, fit, pbf)
+
+
+def _queue(fit, best):
+    """The queue's members: each lane's fitness where it beats ``best``,
+    else -inf."""
+    return torch.where(fit > best, fit, torch.full_like(fit, -math.inf))
+
+
 def _fold(fit, pos, pbp, pbf, best, best_pos):
     """pbest fold, then the queue: the best lane (first on ties) among
     those beating ``best`` replaces (best, best_pos)."""
-    imp = fit > pbf
-    pbf = torch.where(imp, fit, pbf)
-    pbp = torch.where(imp[None, :], pos, pbp)
-    q = torch.where(fit > best, fit, torch.full_like(fit, -math.inf))
+    pbp, pbf = _fold_pbest(fit, pos, pbp, pbf)
+    q = _queue(fit, best)
     b = torch.argmax(q)
     take = q[b] > best
     return (pbp, pbf, torch.where(take, q[b], best),
             torch.where(take, pos[:, b], best_pos))
+
+
+def queue_plain(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
+                iteration: int, block_n: int):
+    """One queue-algorithm iteration (kernel 1 of the paper's two), the
+    port of ``_make_sync_kernel(queue=True)``: every block advances
+    against the read-only gbest (``gp`` [D], ``gf`` [1]) and folds pbest;
+    block b reports the best fitness among its lanes that beat ``gf``
+    (-inf when none does) and that lane's swarm-local index (first lane on
+    ties, the block base when the queue is empty). Returns new
+    (pos, vel, pbp, pbf, aux_fit [nb], aux_idx [nb] int32)."""
+    d, n = pos.shape
+    nb = n // block_n
+    pos, vel, fit = _advance(spec, _operands(spec, pos.device), seed,
+                             iteration + 1, pos, vel, pbp, gp[:, None],
+                             _rng_index(n, d, pos.device))
+    pbp, pbf = _fold_pbest(fit, pos, pbp, pbf)
+    q = _queue(fit, gf).reshape(nb, block_n)
+    # first lane of the block's maximum; lane 0 (the base) on an empty queue
+    lane = torch.argmax(q, 1)
+    aux_idx = torch.arange(nb, device=pos.device) * block_n + lane
+    return pos, vel, pbp, pbf, q.amax(1), aux_idx.to(torch.int32)
 
 
 def fused_plain(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
@@ -269,8 +307,10 @@ def _lib():
                                      + [f] * 6 + [p])
     lib.pso_async_launch.argtypes = ([p] * 14 + [i] * 6 + [u, u, u, i, i]
                                      + [f] * 6 + [p])
+    lib.pso_queue_launch.argtypes = ([p] * 9 + [i] * 3 + [u, u, i, i]
+                                     + [f] * 6 + [p])
     for fn in (lib.pso_fused_resident_ctas, lib.pso_fused_launch,
-               lib.pso_async_launch):
+               lib.pso_async_launch, lib.pso_queue_launch):
         fn.restype = i
     return lib
 
@@ -402,6 +442,37 @@ def _copy_into(state, out):
     for dst, src in zip(state, out):
         dst.copy_(src)
     return state
+
+
+def queue_step(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
+               iteration: int, block_n: int):
+    """One queue-algorithm iteration of one swarm: ``pos``/``vel``/
+    ``pbp``/``pbf`` updated in place, ``gp``/``gf`` only read; returns
+    (pos, vel, pbp, pbf, aux_fit [nb], aux_idx [nb] int32). On CUDA
+    tensors ONE normal launch of ``n // block_n`` CTAs, on CPU tensors
+    the plain version."""
+    state = (pos, vel, pbp, pbf)
+    kw = dict(seed=seed, iteration=iteration, block_n=block_n)
+    if pos.device.type == "cpu":
+        out = queue_plain(pos, vel, pbp, pbf, gp, gf, spec, **kw)
+        return _copy_into(state, out[:4]) + out[4:]
+    extra, scalars, fit_id, rule_id, coef, n, d, _ = _launch_operands(
+        (pos, vel, pbp, pbf, gp[:, None], gf), [seed], [iteration], (spec,),
+        None, block_n)
+    nb = n // block_n
+    aux_fit = torch.empty(nb, dtype=torch.float32, device=pos.device)
+    aux_idx = torch.empty(nb, dtype=torch.int32, device=pos.device)
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        _check(_lib().pso_queue_launch(
+            *_ptrs([pos, vel, pbp, pbf, gp, gf, extra[0], aux_fit, aux_idx]),
+            n, d, block_n, *scalars, fit_id, rule_id, *coef, stream),
+            "queue kernel launch")
+    queue_step.launches += 1
+    return state + (aux_fit, aux_idx)
+
+
+queue_step.launches = 0
 
 
 def fused(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,

@@ -219,8 +219,9 @@ def test_registry_exports():
 
 def test_importing_the_port_loads_no_jax_or_reference():
     code = ("import sys, repro_torch, repro_torch.api, "
-            "repro_torch.core.multi_swarm, "
-            "repro_torch.kernels.ops, repro_torch.kernels.pso_step\n"
+            "repro_torch.core.multi_swarm, repro_torch.core.serial, "
+            "repro_torch.kernels.ops, repro_torch.kernels.pso_step, "
+            "repro_torch.kernels.gla\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
