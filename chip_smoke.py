@@ -11,19 +11,23 @@ standard library, and exits non-zero on any failure. Phases:
    and power limit;
 2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for ``sm_90a`` (one
    ``nvcc`` per source, started together) and prints each kernel's
-   registers from ``-Xptxas -v``;
+   registers and spills from ``-Xptxas -v``;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with the tolerances stated below. Single swarm: the
    queue kernel chained over one to six iterations (each followed by the
    cross-block epilogue), also bit for bit against one fused launch of as
    many iterations; fused launches of one to six iterations, the async
    kernel with one block, and the async kernel over many blocks held to
-   its invariants. Batches:
+   its invariants; then the queue and fused kernels with each particle
+   block on a cluster of CTAs, every objective with every rule at d=120
+   and an uneven d=37, one block and two (d=1 kernels must equal their
+   plain versions exactly). Batches:
    fused launches over S swarms at per-row iteration counters (several
    iterations where kernel and plain round alike), batch rows bit-equal to
    the single-swarm kernel (also across the waves of a batch larger than
    the card holds at once, and at one block a swarm in both variants),
-   heterogeneous rows equal to their problem's single-swarm kernel, and
+   heterogeneous rows equal to their problem's single-swarm kernel, the
+   same on clusters at d=120, and
    multi-block async batches held to the invariants row by row. GLA (3c):
    the kernel at hymba-1.5B's SSD width, at the xLSTM-350M mLSTM head shape
    and at a padded sequence length;
@@ -40,12 +44,17 @@ standard library, and exits non-zero on any failure. Phases:
    ``queue``, ``ops.queue_step`` iterated and the fused and async kernels
    (us per iteration and speed-up over serial); 4d: ``gla_forward`` at
    hymba-1.5B's SSD width;
-5. one JSON line ``{"kernels": [...]}`` (launches on the main paths,
+5. the fused kernel at each cluster size (5b: single swarms, the queue
+   kernel alone, and batches), each kernel's device time summed over its
+   main-path launches under ``torch.profiler`` beside its bound on the same
+   launches (5c), then one JSON line ``{"kernels": [...]}`` (launches on
+   the main paths,
    maximum error against the plain version, kernel and plain times on the
    same call, and the card's bound for that call), the card line, and a
    last line ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
+import functools
 import json
 import math
 import re
@@ -179,6 +188,16 @@ COUNTERS = {
 }
 
 
+#: The main paths' kernel calls, each registered where its phase runs it:
+#: (counter name, what the call is, its iterations, a call that runs it
+#: again, its bound (ms, by)).
+REPLAY = []
+
+
+def replay(name: str, what: str, iters: int, fn, bound_ms) -> None:
+    REPLAY.append((name, what, iters, fn, bound_ms))
+
+
 def zero_counts() -> None:
     for w, attr in COUNTERS.values():
         setattr(w, attr, 0)
@@ -225,8 +244,9 @@ def is_flip(cfg, prev, want, got) -> bool:
     return True
 
 
-def kernel_state(fit: str, d: int, n: int, seed: int = 0):
-    cfg = pso.PSOConfig(dim=d, particle_cnt=n, fitness=fit).resolved()
+def kernel_state(fit: str, d: int, n: int, seed: int = 0, rule: str = "pso"):
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, fitness=fit,
+                        update_rule=rule).resolved()
     s = pso.init_swarm(cfg, seed, device="cuda")
     return cfg, ops.kernel_spec(cfg), ops.state_to_kernel(s), s.seed
 
@@ -252,12 +272,18 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-                # mangled <kernel>ILi<fitness>ELi<rule>E[Lb<grid>E] ->
-                # kernel<f,r[,grid|block]>; fitness 6 is the hetero kernel
-                m = re.search(r"([a-z]+_kernel)ILi(\d+)ELi(\d+)E(?:Lb(\d)E)?",
+                # mangled <kernel>ILi<fitness>ELi<rule>E[Lb<flag>E...] ->
+                # kernel<f,r[,grid|block][,cluster]>: the fused kernel's
+                # flags are grid sync and cluster, the queue kernel's
+                # cluster; fitness 6 is the hetero kernel
+                m = re.search(r"([a-z]+_kernel)ILi(\d+)ELi(\d+)E((?:Lb\dE)*)",
                               entry)
                 if m:
-                    g = {"1": ",grid", "0": ",block"}.get(m[4], "")
+                    flags, g = re.findall(r"Lb(\d)E", m[4]), ""
+                    if m[1] == "fused_kernel":
+                        g = ",grid" if flags.pop(0) == "1" else ",block"
+                    if flags == ["1"]:
+                        g += ",cluster"
                     entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
                              f"{rules[m[3]]}{g}>")
                 else:              # a kernel without template arguments
@@ -274,15 +300,23 @@ def phase_build() -> None:
             print("  " + " | ".join(lines[i:i + 3]))
 
 
-def fused_against_plain(fit, d, n, iters, offset, flips, errs) -> None:
+def cluster_of(n: int, d: int) -> int:
+    """The cluster size the wrappers pick for a swarm of this shape."""
+    return pso_step._cluster(n, d, ops._resolve_block(n, None),
+                             torch.device("cuda"))
+
+
+def fused_against_plain(fit, d, n, iters, offset, flips, errs, rule="pso",
+                        say=print) -> int:
     """Launches of k = 1..iters iterations, each ONE launch from the same
     state at a nonzero iteration offset, against the plain version iterated
     k times: they run the kernel's whole iteration loop, both key and
     candidate slots, each slot's reuse two iterations on, and the grid
     sync. Where ``flips`` is set (D > 1, where the objective is summed in
     another order) the check stops at the first comparison flip; at D = 1
-    the two round alike and every launch must agree."""
-    cfg, spec, state, seed = kernel_state(fit, d, n)
+    the two round alike and every launch must agree exactly. Returns the
+    comparison flips met (0 or 1)."""
+    cfg, spec, state, seed = kernel_state(fit, d, n, rule=rule)
     bn = ops._resolve_block(n, None)
     want = state
     for k in range(1, iters + 1):
@@ -293,16 +327,20 @@ def fused_against_plain(fit, d, n, iters, offset, flips, errs) -> None:
         got = pso_step.fused(*[x.clone() for x in state], spec, seed=seed,
                              iteration=offset, iters=k, block_n=bn)
         torch.cuda.synchronize()
-        what = (f"fused {fit} d={d} n={n} ({n // bn} CTAs), iterations "
+        what = (f"fused {fit}/{rule} d={d} n={n} ({n // bn} blocks, "
+                f"clusters of {cluster_of(n, d)}), iterations "
                 f"{offset + 1}..{offset + k} in one launch")
         if flips and disagreeing(got, want, FUSED_FIELDS) \
                 and is_flip(cfg, prev, want, got):
-            print(f"  {what}: a comparison flip at a near tie in the last "
-                  f"iteration; stopped there")
-            return
+            say(f"  {what}: a comparison flip at a near tie in the last "
+                f"iteration; stopped there")
+            return 1
         e = compare(got, want, FUSED_FIELDS, what)
+        if d == 1:
+            check(e == 0.0, f"{what}: d=1 rounds as the plain version ({e})")
         errs["fused"] = max(errs["fused"], e)
-        print(f"  {what}: max |kernel - plain| = {e:.3g}")
+        say(f"  {what}: max |kernel - plain| = {e:.3g}")
+    return 0
 
 
 def async_invariants(fit, d, n, sync_every, launches, iters) -> None:
@@ -351,16 +389,18 @@ def queue_iteration(step, state, spec, seed, iteration, bn):
     return pos, vel, pbp, pbf, gp, gf
 
 
-def queue_against_plain(fit, d, n, iters, offset, flips, errs) -> None:
+def queue_against_plain(fit, d, n, iters, offset, flips, errs, rule="pso",
+                        say=print) -> int:
     """The queue kernel chained over k = 1..iters iterations from an
     iteration offset, each followed by the epilogue: against its plain
     version chained alike, within the phase-3 tolerances (where ``flips``,
     up to the first comparison flip, as for the fused kernel), and bit for
     bit against ONE fused launch of k iterations from the same state: both
     are synchronous PPSO with the same rounding and tie-break, so any
-    difference is a fault."""
-    cfg, spec, state, seed = kernel_state(fit, d, n)
-    bn = 512
+    difference is a fault. At D = 1 kernel and plain must agree exactly.
+    Returns the comparison flips met (0 or 1)."""
+    cfg, spec, state, seed = kernel_state(fit, d, n, rule=rule)
+    bn = ops._resolve_block(n, None)
     got, want, plain = tuple(x.clone() for x in state), state, True
     for k in range(1, iters + 1):
         it = offset + k - 1
@@ -368,27 +408,31 @@ def queue_against_plain(fit, d, n, iters, offset, flips, errs) -> None:
         fused = pso_step.fused(*[x.clone() for x in state], spec, seed=seed,
                                iteration=offset, iters=k, block_n=bn)
         torch.cuda.synchronize()
-        what = (f"queue {fit} d={d} n={n} ({n // bn} CTAs), iterations "
+        what = (f"queue {fit}/{rule} d={d} n={n} ({n // bn} blocks, "
+                f"clusters of {cluster_of(n, d)}), iterations "
                 f"{offset + 1}..{offset + k}")
         for a, b, name in zip(got, fused, FUSED_FIELDS):
             check(torch.equal(a, b), f"{what}: {name} bit for bit the fused "
                   f"kernel's launch of {k}")
         if not plain:
-            print(f"  {what}: == one fused launch bit for bit")
+            say(f"  {what}: == one fused launch bit for bit")
             continue
         prev = want
         want = queue_iteration(pso_step.queue_plain, prev, spec, seed, it, bn)
         if flips and disagreeing(got, want, FUSED_FIELDS) \
                 and is_flip(cfg, prev, want, got):
-            print(f"  {what}: == one fused launch bit for bit; a comparison "
-                  f"flip at a near tie against the plain version in the last "
-                  f"iteration, plain comparison stopped there")
+            say(f"  {what}: == one fused launch bit for bit; a comparison "
+                f"flip at a near tie against the plain version in the last "
+                f"iteration, plain comparison stopped there")
             plain = False
             continue
         e = compare(got, want, FUSED_FIELDS, what)
+        if d == 1:
+            check(e == 0.0, f"{what}: d=1 rounds as the plain version ({e})")
         errs["queue_step"] = max(errs["queue_step"], e)
-        print(f"  {what}: max |kernel - plain| = {e:.3g}; == one fused "
-              f"launch bit for bit")
+        say(f"  {what}: max |kernel - plain| = {e:.3g}; == one fused "
+            f"launch bit for bit")
+    return int(not plain)
 
 
 def phase_compare(errs) -> None:
@@ -415,6 +459,42 @@ def phase_compare(errs) -> None:
     for sync_every in (8, 1):
         async_invariants("cubic", 1, 131072, sync_every, 3, 16)
         async_invariants("rastrigin", 120, 32768, sync_every, 3, 8)
+    phase_compare_clusters(errs)
+
+
+# The cluster shapes of phase 3: d=120 and an uneven d=37, one block (n=128)
+# and two (n=1024).
+CLUSTER_SHAPES = ((120, 128), (120, 1024), (37, 128), (37, 1024))
+
+
+def phase_compare_clusters(errs) -> None:
+    """The queue and fused kernels with each particle block on a cluster,
+    every objective with every rule, at each cluster shape: the queue
+    kernel chained over two iterations against its plain version and bit
+    for bit against one fused launch, and fused launches of one and two
+    iterations against the plain version (up to a comparison flip, as
+    above). One line a shape."""
+    for d, n in CLUSTER_SHAPES:
+        c = cluster_of(n, d)
+        check(c > 1, f"d={d} n={n} runs on clusters ({c})")
+        before = dict(errs)
+        for k in ("queue_step", "fused"):
+            errs[k] = 0.0
+        flips = 0
+        for fit in BUILTINS:
+            for rule in RULE_IDS:
+                flips += queue_against_plain(fit, d, n, 2, 5, True, errs,
+                                             rule, say=lambda _: None)
+                flips += fused_against_plain(fit, d, n, 2, 5, True, errs,
+                                             rule, say=lambda _: None)
+        bn = ops._resolve_block(n, None)
+        print(f"  clusters of {c}: d={d} n={n} ({n // bn} block(s), slices "
+              f"of {d // c}-{-(-d // c)} dimensions), 6 objectives x 3 rules,"
+              f" iterations 6..7: queue == one fused launch bit for bit; "
+              f"max |kernel - plain| queue {errs['queue_step']:.3g}, fused "
+              f"{errs['fused']:.3g}; {flips} comparison flip(s) at near ties")
+        for k in ("queue_step", "fused"):
+            errs[k] = max(errs[k], before[k])
 
 
 def batch_state(d: int, n: int, s_cnt: int, fit="rastrigin", mixed=False,
@@ -639,6 +719,17 @@ def phase_compare_batches(errs) -> None:
     rows_equal_single("hetero async batch six built-ins d=10 n=1024 S=96 "
                       "(one block of 1024)", 10, 1024, 96, 1024, 11,
                       mixed=True, sync_every=4)
+    # Clusters: the cluster size follows the swarm's shape, not S, so rows
+    # still equal the single swarm bit for bit.
+    c = cluster_of(1024, 120)
+    check(c > 1, f"d=120 n=1024 runs on clusters ({c})")
+    batch_against_plain(f"fused batch rastrigin d=120 n=1024 S=4 (clusters "
+                        f"of {c}), one iteration", 120, 1024, 4, 512, 1,
+                        errs, "fused_batch")
+    rows_equal_single(f"fused batch rastrigin d=120 n=1024 S=4 (clusters of "
+                      f"{c}), 5 iterations", 120, 1024, 4, 512, 5)
+    rows_equal_single(f"hetero fused batch six built-ins d=120 n=1024 S=6 "
+                      f"(clusters of {c})", 120, 1024, 6, 512, 5, mixed=True)
     async_batch_invariants("async batch rastrigin d=10 n=1024 S=128 (2 "
                            "blocks), sync_every=8", 10, 1024, 128, 512, 8, 3,
                            16)
@@ -745,7 +836,15 @@ def phase_main_path(card: str):
             mem = torch.cuda.max_memory_allocated()
             us = dt / iters * 1e6
             runs.append(dict(d=d, n=n, iters=iters, variant=variant, us=us))
+            if want:
+                nb = n // ops._resolve_block(n, None)
+                replay(want, f"solve cubic d={d} n={n} {variant}", iters,
+                       functools.partial(repro_torch.solve, "cubic",
+                                         iters=iters, **kw),
+                       bound(d, n, iters, nb if variant == "async" else 0))
+            c = cluster_of(n, d) if variant == "queue_lock" else 1
             print(f"  cubic d={d} n={n} iters={iters} {variant:10s} "
+                  f"(clusters of {c}) "
                   f"gbest {g:.7g} (optimum {OPTIMUM_PER_DIM * d:.7g}) "
                   f"{us:9.2f} us/iter launches {counts} peak memory "
                   f"{mem / 2**20:.1f} MiB [{card}]")
@@ -816,7 +915,16 @@ def phase_many_path(card: str, launches: dict):
             us = dt / iters * 1e6
             runs.append(dict(label=label, variant=variant, us=us,
                              swarms_per_s=s_cnt / dt))
-            print(f"  {label} x{iters} {variant:10s} {us:9.2f} us/iter for "
+            nb = n // ops._resolve_block(n, None)
+            replay(want, f"solve_many {label} {variant}", iters,
+                   functools.partial(repro_torch.solve_many, iters=iters,
+                                     **kw),
+                   bound(d, n, iters, nb if variant == "async" else 0,
+                         objectives=problems or [prob] * s_cnt,
+                         members=len(set(problems or [prob]))))
+            c = cluster_of(n, d) if variant == "queue_lock" else 1
+            print(f"  {label} x{iters} {variant:10s} (clusters of {c}) "
+                  f"{us:9.2f} us/iter for "
                   f"the batch, {s_cnt / dt:9.1f} swarms/s, best of batch "
                   f"{max(best):.6g}, median {sorted(best)[s_cnt // 2]:.6g}; "
                   f"launches "
@@ -854,14 +962,16 @@ def queue_loop(cfg, s, iters: int):
     return s
 
 
-def queue_kernel_time(state, spec, kw, reps: int = 20):
-    """The queue kernel alone and its wrapper, on copies of ``state``:
-    (us a launch, from a CUDA graph of ``reps`` wrapper calls replayed, so
-    no host work sits between the launches; the wrapper's host us a call,
+def queue_kernel_time(state, spec, kw, reps: int = 20, cluster=None):
+    """The queue kernel alone and its wrapper's kernel path, on copies of
+    ``state``: (us a launch, from a CUDA graph of ``reps`` calls replayed,
+    so no host work sits between the launches; the host us a call,
     enqueued back to back; pbest columns a timed launch wrote, on average,
-    counted on the same launches replayed one at a time)."""
+    counted on the same launches replayed one at a time). ``cluster`` sets
+    the cluster size in place of the wrappers' rule."""
     def step(run):
-        pso_step.queue_step(*run, spec, **kw)
+        pso_step._queue_launch(run[:4], run[4], run[5], spec,
+                               cluster=cluster, **kw)
 
     run = [x.clone() for x in state]
     step(run)                           # warm: the build, the bounds table
@@ -928,6 +1038,27 @@ def queue_layers(cfg, s) -> str:
                      for name, a, b in zip(names, marks, marks[1:]))
 
 
+def table_runs(cfg, s0) -> dict:
+    """A Table cell's variants from the swarm ``s0``: name -> (a call of k
+    iterations, the counter of the kernel it launches or None)."""
+    return {
+        "reduction": (lambda k: pso.run(cfg, s0, k, "reduction"), None),
+        "queue": (lambda k: pso.run(cfg, s0, k, "queue"), None),
+        "ops.queue_step": (lambda k: queue_loop(cfg, s0, k), "queue_step"),
+        "queue_lock": (lambda k: ops.run_queue_lock_fused(cfg, s0, k),
+                       "fused"),
+        "async": (lambda k: ops.run_queue_lock_fused_async(cfg, s0, k),
+                  "fused_async"),
+    }
+
+
+def rerun_cell(cfg, name: str, iters: int):
+    """A Table cell's variant again, on its initial swarm made anew: a
+    replay then keeps no swarm on the card between phases."""
+    return table_runs(cfg, pso.init_swarm(cfg, 0, device="cuda"))[name][0](
+        iters)
+
+
 def table_cell(card, launches, d, n, iters, variants) -> None:
     """One cell of Table 3, 4 or 5: the serial CPU baseline and each GPU
     variant from the same initial swarm, us per iteration and speed-up over
@@ -954,19 +1085,12 @@ def table_cell(card, launches, d, n, iters, variants) -> None:
     serial = (total_s - init_s) / s_iters * 1e6
     cut = (f", cut to {s_iters} of {iters} iterations" if s_iters < iters
            else "")
-    print(f"  cubic d={d} n={n} x{iters}: serial (numpy, host, the faster "
+    print(f"  cubic d={d} n={n} x{iters} (queue and fused on clusters of "
+          f"{cluster_of(n, d)}): serial (numpy, host, the faster "
           f"of two runs, init of {init_s * 1e3:.2f} ms left out{cut}) "
           f"{serial:.2f} us/iter, gbest {serial_fit:.7g}")
     s0 = pso.init_swarm(cfg, 0, device="cuda")
-    runs = {
-        "reduction": (lambda k: pso.run(cfg, s0, k, "reduction"), None),
-        "queue": (lambda k: pso.run(cfg, s0, k, "queue"), None),
-        "ops.queue_step": (lambda k: queue_loop(cfg, s0, k), "queue_step"),
-        "queue_lock": (lambda k: ops.run_queue_lock_fused(cfg, s0, k),
-                       "fused"),
-        "async": (lambda k: ops.run_queue_lock_fused_async(cfg, s0, k),
-                  "fused_async"),
-    }
+    runs = table_runs(cfg, s0)
     out = {}
     for name in variants:
         fn, kernel = runs[name]
@@ -985,6 +1109,15 @@ def table_cell(card, launches, d, n, iters, variants) -> None:
               f"{name}: finite gbest within the optimum")
         check(g == float(res.pbest_fit.max()), f"{name}: gbest == max(pbest)")
         out[name] = res
+        if kernel:
+            nb = n // ops._resolve_block(n, None)
+            if name == "ops.queue_step":
+                one, by = queue_bound(d, n, nb, 0.0)
+                b = (iters * one, by)
+            else:
+                b = bound(d, n, iters, nb if name == "async" else 0)
+            replay(kernel, f"table cubic d={d} n={n} {name}", iters,
+                   functools.partial(rerun_cell, cfg, name, iters), b)
         print(f"    {name:15s} {us:10.2f} us/iter  x{serial / us:9.1f} over "
               f"serial  gbest {g:.7g}  launches {counts} [{card}]")
     if "ops.queue_step" in out and "queue_lock" in out:
@@ -1027,6 +1160,9 @@ def phase_gla_path(card: str, launches: dict) -> None:
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     us, y = host_us(lambda: gla.gla_forward(*x), 1)
+    replay("gla_forward", "gla_forward hymba B=4 S=4096", 1,
+           lambda: gla.gla_forward(*gla_inputs(b, s, **HYMBA, seed=1)),
+           gla_bound(b * HYMBA["h"], s, HYMBA["n"], HYMBA["p"], 128))
     counts = {k: v for k, v in read_counts().items() if v}
     for k in counts:
         launches[k] += counts[k]
@@ -1219,6 +1355,107 @@ def phase_times():
     return t, bounds
 
 
+# Each counter's kernel as torch.profiler names it.
+FAMILY = {"queue_step": "queue_kernel", "fused": "fused_kernel",
+          "fused_batch": "fused_kernel", "hetero_fused_batch": "fused_kernel",
+          "fused_async": "async_kernel", "fused_async_batch": "async_kernel",
+          "hetero_fused_async_batch": "async_kernel",
+          "gla_forward": "gla_kernel"}
+
+
+def phase_main_path_kernels(card: str) -> dict:
+    """Each kernel's device time summed over its main-path launches at
+    their own shapes and iteration counts, beside its bound on the same
+    launches: every main-path kernel call of phases 4-4d run once more
+    under torch.profiler (CUDA activity), its kernels' durations summed.
+    Returns {counter: (ms, bound ms)}; ms is None where the profiler saw
+    no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    print(f"phase 5c: kernel time on the main paths (torch.profiler) [{card}]")
+    out = {}
+    for name, what, iters, fn, (b_ms, _) in REPLAY:
+        for _ in range(3):     # the profiler now and then records nothing
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            us = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and FAMILY[name] in e.name)
+            if us:
+                break
+        got = f"{us / iters:.2f} us an iteration" if us else "not measured"
+        print(f"    {what} x{iters}: {FAMILY[name]} {got}, bound "
+              f"{b_ms * 1e3 / iters:.3f}")
+        ms, bms = out.get(name, (0.0, 0.0))
+        out[name] = (ms + us / 1e3, bms + b_ms)
+    for name, (ms, bms) in out.items():
+        if ms == 0.0:
+            out[name] = (None, bms)
+        print(f"  {name}: {'not measured' if ms == 0.0 else f'{ms:.3f}'} ms "
+              f"on the main paths, bound {bms:.3f} ms")
+    return out
+
+
+def phase_cluster_sweep(card: str) -> None:
+    """The fused kernel on cubic/pso at each cluster size, for the cluster
+    rule (pso_step.cluster_size): us an iteration of one launch of 20
+    iterations, CUDA events over 5 launches after one warm launch."""
+    print(f"phase 5b: fused kernel at each cluster size, us an iteration "
+          f"[{card}]")
+    iters, fit, rule = 20, FITNESS_IDS["cubic"], RULE_IDS["pso"]
+    for n in (128, 1024, 32768):
+        bn = ops._resolve_block(n, None)
+        for d in (6, 12, 24, 48, 120):
+            _, spec, state, seed = kernel_state("cubic", d, n)
+            cells = []
+            sizes = [c for c in (1, 2, 3, 4, 6, 8) if c <= d]
+            for c in sizes:
+                if n // bn > 1 and pso_step._resident(
+                        fit, rule, bn, d, c, device_index=0) < n // bn:
+                    cells.append(f"C={c} does not fit")
+                    continue
+                t = sync_time(lambda: pso_step._fused_launch(
+                    state, spec, seed=seed, iteration=0, iters=iters,
+                    block_n=bn, cluster=c), 5)
+                cells.append(f"C={c} {t / iters * 1e6:.2f}")
+            caps = ", ".join(f"{pso_step._capacity(bn, d, 0, c)}x{c}"
+                             for c in sizes[1:])
+            print(f"  cubic d={d} n={n}: {', '.join(cells)}; the rule picks "
+                  f"C={cluster_of(n, d)}; resident clusters {caps}")
+    # The queue kernel alone needs no residency; it keeps the fused
+    # kernel's cluster size so that the two agree bit for bit.
+    d, n = 120, 32768
+    _, spec, state, seed = kernel_state("cubic", d, n)
+    cells = []
+    qkw = dict(seed=seed, iteration=0, block_n=512)
+    for c in (1, 2, 3, 4, 8):
+        us = queue_kernel_time(state, spec, qkw, cluster=c)[0]
+        cells.append(f"C={c} {us:.2f}")
+    print(f"  queue kernel alone cubic d={d} n={n}, us a launch (CUDA graph): "
+          f"{', '.join(cells)}; the rule picks C={cluster_of(n, d)}")
+    # Batches fill the card without clusters; a cluster of C gives each
+    # cooperative wave C times fewer swarms.
+    for d, n, s_cnt in ((10, 1024, 128), (10, 256, 1024), (24, 1024, 128)):
+        bn = ops._resolve_block(n, None)
+        _, b, _, specs, _ = batch_state(d, n, s_cnt)
+        state = batch_operands(b)
+        cells = []
+        for c in (1, 2, 4):
+            if n // bn > 1 and pso_step._resident(
+                    FITNESS_IDS["rastrigin"], rule, bn, d, c,
+                    device_index=0) < n // bn:
+                continue
+            t = sync_time(lambda: pso_step._fused_batch_launch(
+                state, b.seed, b.iteration, specs, iters=iters, block_n=bn,
+                cluster=c), 5)
+            cells.append(f"C={c} {t / iters * 1e6:.2f}")
+        print(f"  fused batch rastrigin d={d} n={n} S={s_cnt}, us an "
+              f"iteration of the batch: {', '.join(cells)}; the rule picks "
+              f"C={cluster_of(n, d)}")
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -1261,6 +1498,8 @@ def main() -> int:
     phase_gla_path(card, launches)
     print(f"phase 5: kernel and plain times on the same call [{card}]")
     times, bounds = phase_times()
+    phase_cluster_sweep(card)
+    phase_main_path_kernels(card)
     kernels = []
     for name, replaces in REPLACES.items():
         b_ms, b_by = bounds[name]

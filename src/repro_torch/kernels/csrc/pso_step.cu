@@ -19,14 +19,22 @@
 //
 // Layout: D-major, arrays [D, S*N] with the particle index fastest (§5.1
 // coalescing rule); swarm s owns columns [s*N, (s+1)*N), and its gbest is
-// column s of gp [D, S]. A CTA works on one particle block of one swarm:
-// thread l of the block works on particles base + l, base + l + blockDim,
-// ..., so neighbouring threads touch neighbouring addresses of every
-// dimension. Each thread loops over D for its particle and accumulates the
-// objective (this replaces the TPU kernel's masked sublane sums). Every
-// swarm has its own RNG seed and iteration counter (seeds[S], its[S]), and
-// RNG element indices are local to the swarm, so a swarm's row of a batch
-// draws what the swarm draws alone. float32 only.
+// column s of gp [D, S]. A particle block of one swarm (bn <= 512 particles
+// at the main shapes; core/blocking.py) runs on a cluster of C CTAs, C at
+// most 8 and chosen by the wrapper from (N, D, bn) and the card alone
+// (kernels/pso_step.py cluster_size). CTA rank r of the cluster owns the
+// dimensions [r*D/C, (r+1)*D/C) of all bn particles (slices differ by one
+// when C does not divide D) and keeps only its slice of the attractor and
+// of the bounds in shared memory. Thread l works on particle base + l in
+// every CTA of the cluster, so neighbouring threads touch neighbouring
+// addresses of every dimension. Each thread walks its slice and keeps the
+// slice's partial objective (this replaces the TPU kernel's masked sublane
+// sums); the C partials of a particle meet in distributed shared memory
+// (below). With C = 1 the CTA is the whole block, thread l also takes
+// particles base + l + blockDim, ..., and there is no cluster code at all.
+// Every swarm has its own RNG seed and iteration counter (seeds[S],
+// its[S]), and RNG element indices are local to the swarm, so a swarm's row
+// of a batch draws what the swarm draws alone. float32 only.
 //
 // Heterogeneous batches: bounds are a table [members, 4, D] and fids[S]
 // picks a swarm's member (a homogeneous batch is a table of one, read at
@@ -44,15 +52,37 @@
 // cubic/pso path spends 42 integer operations (two counter-hash draws)
 // and 24 float ones (the rule, the objective); integers issue at a quarter
 // of the data sheet's 67 TFLOP/s, so at D=1 the operations take 0.33 us an
-// iteration (chip_smoke.py counts them). The kernels are bound by that
-// integer work and, for the fused kernel at small D, by the grid-wide
-// synchronisation of every iteration, not by bytes. The design therefore
-// keeps the whole iteration loop inside one launch (no per-iteration launch
-// latency), keeps the attractor and the bounds in shared memory, and
-// publishes one 64-bit key per CTA only when the CTA has a candidate (the
-// paper's rare-improvement predicate). The queue kernel is the algorithm
-// that design improves on: one iteration a launch, its work per element the
-// same, plus a launch and its caller's epilogue every iteration.
+// iteration (chip_smoke.py counts them). At large D neither is what a CTA
+// a block would wait on: one thread walking all D dimensions of its
+// particle is a chain of D dependent steps, and 64 CTAs of 512 threads at
+// N=32768 fill 12% of the card's thread slots, too few loads in flight to
+// stream 79 MB. A cluster of C CTAs a block cuts the chain to D/C steps
+// and puts C times the threads on the card, while the block, its queue and
+// its RNG indices stay the reference's. The fused kernel's cooperative
+// launch must hold every cluster at once: at 512 threads an H100 keeps 132
+// clusters of 2, 62 of 4 and 30 of 8 resident (chip_smoke.py phase 5b),
+// so N=32768's 64 blocks take clusters of 2. At small D the fused kernel
+// is bound by the grid-wide synchronisation of every iteration. The
+// design keeps the whole iteration loop inside one launch (no
+// per-iteration launch latency), keeps the attractor and the bounds in
+// shared memory, and publishes one 64-bit key per block only when the
+// block has a candidate (the paper's rare-improvement predicate). The
+// queue kernel is the algorithm that design improves on: one iteration a
+// launch, its work per element the same, plus a launch and its caller's
+// epilogue every iteration.
+//
+// A particle's fitness across a cluster: each rank writes its partial
+// objective state (the sum, plus griewank's product, ackley's second sum,
+// rosenbrock's first and last coordinate of the slice) to its own shared
+// memory, double-buffered by iteration parity; one cluster.sync(); then
+// every rank reads all C partials of its particles over DSMEM and combines
+// them in rank order (rosenbrock's pair across a slice boundary from the
+// neighbour's last coordinate, passed with the partials rather than read
+// back from pos). Every rank so holds the same fitness bit for bit, folds
+// pbest on its own slice of the column (rank 0 alone writes pbf), and
+// raises its own copy of the block key with atomicMax: identical keys, no
+// remote atomics, no second sync. Only the order of the objective's sum
+// differs from C = 1; positions stay bit-equal.
 //
 // Arithmetic uses the __f*_rn intrinsics so that nvcc does not contract
 // into FMAs: the kernels then round exactly as the plain PyTorch versions
@@ -88,6 +118,7 @@ struct Params {
   unsigned* lock;                                    // async: [S,2]
   float* aux_fit; int* aux_idx;                      // queue: [nb], [nb]
   int n, d, bn, nb, s_cnt, s0, iters, chunk;
+  int csize;                 // CTAs in a particle block's cluster
   int ld;                    // row stride of the [D, S*N] arrays: S*N
   uint32_t it_off;           // added to its[] (the async remainder phase)
   uint32_t seed0, it00;      // a single swarm's counters, passed by value
@@ -95,8 +126,9 @@ struct Params {
 };
 
 // Where a CTA works: swarm s (of the whole batch; a wave of the fused
-// kernel starts at s0), particle block b of that swarm. Columns are 32-bit
-// (the wrapper keeps S*N below 2^31); an element's offset k*ld + column is
+// kernel starts at s0), particle block b of that swarm, and with a cluster
+// (CL) its rank and slice of the dimensions. Columns are 32-bit (the
+// wrapper keeps S*N below 2^31); an element's offset k*ld + column is
 // formed in 64 bits from the parameter ld, as for a single swarm, which
 // keeps the per-element index math and its registers at the single-swarm
 // kernel's.
@@ -104,16 +136,31 @@ struct Cta {
   int s, b, member;
   uint32_t seed, it0;
   int col;         // first column of the swarm in the [D, S*N] arrays
+  int rank;        // in the cluster; 0 without one
+  int k0, k1, ls;  // the CTA's dimensions [k0, k1); ls: its shared row length
 };
 
+template <bool CL>
 __device__ __forceinline__ Cta cta_of(const Params& p) {
   Cta c;
-  c.s = p.s0 + (int)blockIdx.x / p.nb;
-  c.b = (int)blockIdx.x % p.nb;
+  // A 1-D cluster is C consecutive CTAs: blockIdx.x / C is the block.
+  const int blk = CL ? (int)blockIdx.x / p.csize : (int)blockIdx.x;
+  c.s = p.s0 + blk / p.nb;
+  c.b = blk % p.nb;
   c.member = p.fids ? p.fids[c.s] : 0;
   c.seed = p.seeds ? p.seeds[c.s] : p.seed0;
   c.it0 = (p.its ? p.its[c.s] : p.it00) + p.it_off;
   c.col = c.s * p.n;
+  if constexpr (CL) {
+    c.rank = (int)cg::this_cluster().block_rank();
+    c.k0 = c.rank * p.d / p.csize;
+    c.k1 = (c.rank + 1) * p.d / p.csize;
+    c.ls = (p.d + p.csize - 1) / p.csize;
+  } else {
+    c.rank = 0;
+    c.k0 = 0;
+    c.k1 = c.ls = p.d;
+  }
   return c;
 }
 
@@ -163,8 +210,10 @@ template <int F>
 struct Objective {
   float s = 0.0f, t = 0.0f, prev = 0.0f;
   float p = 1.0f;
+  float first = 0.0f;    // rosenbrock: the slice's first coordinate
 
-  __device__ __forceinline__ void add(int k, float x) {
+  // Dimension k of a walk that starts at dimension k0 (0 without a split).
+  __device__ __forceinline__ void add(int k, int k0, float x) {
     const float xx = __fmul_rn(x, x);
     if (F == 0) {          // cubic: x^3 - 0.8 x^2 - 1000 x + 8000
       const float v = __fadd_rn(__fsub_rn(__fsub_rn(__fmul_rn(xx, x),
@@ -174,14 +223,12 @@ struct Objective {
     } else if (F == 1) {   // sphere
       s = __fadd_rn(s, xx);
     } else if (F == 2) {   // rosenbrock: pairs (prev, x); D == 1 uses t
-      if (k > 0) {
-        const float u = __fsub_rn(x, __fmul_rn(prev, prev));
-        const float q = __fsub_rn(1.0f, prev);
-        s = __fadd_rn(s, __fadd_rn(__fmul_rn(100.0f, __fmul_rn(u, u)),
-                                   __fmul_rn(q, q)));
+      if (k > k0) {
+        s = __fadd_rn(s, pair(prev, x));
       } else {
         const float q = __fsub_rn(1.0f, x);
         t = __fmul_rn(q, q);
+        first = x;
       }
       prev = x;
     } else if (F == 3) {   // griewank
@@ -194,6 +241,44 @@ struct Objective {
       s = __fadd_rn(s, xx);
       t = __fadd_rn(t, cosf(__fmul_rn(kTwoPi, x)));
     }
+  }
+
+  static __device__ __forceinline__ float pair(float a, float x) {
+    const float u = __fsub_rn(x, __fmul_rn(a, a));
+    const float q = __fsub_rn(1.0f, a);
+    return __fadd_rn(__fmul_rn(100.0f, __fmul_rn(u, u)), __fmul_rn(q, q));
+  }
+
+  // Appends the partial state of the next slice (rank order): the sums add,
+  // griewank's products multiply, and rosenbrock gains the pair that
+  // crosses the boundary.
+  __device__ __forceinline__ void join(const Objective& o) {
+    if (F == 2) {
+      s = __fadd_rn(__fadd_rn(s, pair(prev, o.first)), o.s);
+      prev = o.prev;
+    } else {
+      s = __fadd_rn(s, o.s);
+    }
+    if (F == 3) p = __fmul_rn(p, o.p);
+    if (F == 5) t = __fadd_rn(t, o.t);
+  }
+
+  // The partial state of particle l in a [3][n] shared buffer: the sum,
+  // then the fields this objective carries besides it.
+  __device__ __forceinline__ void put(float* b, int l, int n) const {
+    b[l] = s;
+    if (F == 2) { b[n + l] = first; b[2 * n + l] = prev; }
+    if (F == 3) b[n + l] = p;
+    if (F == 5) b[n + l] = t;
+  }
+  static __device__ __forceinline__ Objective take(const float* b, int l,
+                                                   int n) {
+    Objective o;
+    o.s = b[l];
+    if (F == 2) { o.first = b[n + l]; o.prev = b[2 * n + l]; }
+    if (F == 3) o.p = b[n + l];
+    if (F == 5) o.t = b[n + l];
+    return o;
   }
 
   __device__ __forceinline__ float result(int d) const {
@@ -210,19 +295,23 @@ struct Objective {
   }
 };
 
-// One iteration of particle i (local to the swarm) against the attractor
-// att[D] (gbest or the block's local best): advance, objective, pbest fold.
-// Returns the fitness.
-template <int F, int R>
-__device__ __forceinline__ float step_particle(const Params& p, const Cta& c,
-                                               int i, uint32_t it,
-                                               const float* sm) {
+// Advances particle i (local to the swarm) on the CTA's dimensions
+// [k0, k1) against the attractor in shared memory (att, then the lo, hi,
+// max_v and span rows, each ls long, indexed from k0), writes pos and vel,
+// and returns the objective's state over those dimensions. Without a
+// cluster the range is all of D.
+template <int F, int R, bool CL>
+__device__ __forceinline__ Objective<F> advance_particle(const Params& p,
+                                                         const Cta& c, int i,
+                                                         uint32_t it,
+                                                         const float* sm) {
   const int D = p.d;
+  const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : D, ls = CL ? c.ls : D;
   const float* att = sm;
-  const float* lo = sm + D;
-  const float* hi = sm + 2 * D;
-  const float* mv = sm + 3 * D;
-  const float* span = sm + 4 * D;
+  const float* lo = sm + ls;
+  const float* hi = sm + 2 * ls;
+  const float* mv = sm + 3 * ls;
+  const float* span = sm + 4 * ls;
   Objective<F> obj;
   const uint32_t idx0 = (uint32_t)i * (uint32_t)D;   // index = particle*D + dim
   const int col = c.col + i;
@@ -230,17 +319,19 @@ __device__ __forceinline__ float step_particle(const Params& p, const Cta& c,
     const size_t o = (size_t)k * p.ld + col;
     const float r1 = uniform01(c.seed, it, kStreamR1, idx0 + (uint32_t)k);
     const float r2 = uniform01(c.seed, it, kStreamR2, idx0 + (uint32_t)k);
-    advance<R>(p, r1, r2, x, v, pb, att[k], lo[k], hi[k], mv[k], span[k]);
+    const int j = k - k0;
+    advance<R>(p, r1, r2, x, v, pb, att[j], lo[j], hi[j], mv[j], span[j]);
     p.pos[o] = x;
     p.vel[o] = v;
-    obj.add(k, x);
+    obj.add(k, k0, x);
   };
-  // One thread walks all D dimensions of its particle, so the loads of
+  // One thread walks its dimensions of its particle, so the loads of
   // kBatch dimensions are issued together before any of them is used;
   // otherwise every dimension waits out a memory latency in turn. The
-  // remainder (all of D when D < kBatch) takes one dimension at a time.
-  int k = 0;
-  for (; k + kBatch <= D; k += kBatch) {
+  // remainder (all of the range when it is shorter than kBatch) takes one
+  // dimension at a time.
+  int k = k0;
+  for (; k + kBatch <= k1; k += kBatch) {
     float x[kBatch], v[kBatch], pb[kBatch];
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
@@ -252,11 +343,22 @@ __device__ __forceinline__ float step_particle(const Params& p, const Cta& c,
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) update(k + j, x[j], v[j], pb[j]);
   }
-  for (; k < D; ++k) {
+  for (; k < k1; ++k) {
     const size_t o = (size_t)k * p.ld + col;
     update(k, p.pos[o], p.vel[o], p.pbp[o]);
   }
-  const float f = obj.result(D);
+  return obj;
+}
+
+// One iteration of particle i on all D dimensions (no cluster): advance,
+// objective, pbest fold. Returns the fitness.
+template <int F, int R>
+__device__ __forceinline__ float step_particle(const Params& p, const Cta& c,
+                                               int i, uint32_t it,
+                                               const float* sm) {
+  const int D = p.d;
+  const int col = c.col + i;
+  const float f = advance_particle<F, R, false>(p, c, i, it, sm).result(D);
   if (f > p.pbf[col]) {         // rare at steady state: copy the column
     p.pbf[col] = f;
     for (int j = 0; j < D; ++j) {
@@ -286,11 +388,32 @@ __device__ __forceinline__ int key_index(unsigned long long key) {
   return (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
 }
 
-// Shared memory: att[D] then the swarm's member's lo, hi, max_v, span rows.
-__device__ __forceinline__ void load_bounds(const Params& p, const Cta& c,
-                                            float* sm) {
+// Shared memory: the attractor's row, then the swarm's member's lo, hi,
+// max_v, span rows, each ls long and holding the CTA's dimensions
+// [k0, k1) (all of D without a cluster); with a cluster, the partial
+// objectives after them (partials()). `src` is the attractor: a D-major
+// array with row stride `stride`, read at column `colm`.
+template <bool CL>
+__device__ __forceinline__ void load_rows(const Params& p, const Cta& c,
+                                          float* sm, const float* src,
+                                          size_t stride, size_t colm) {
   const float* b = p.bounds + (size_t)c.member * 4 * p.d;
-  for (int k = threadIdx.x; k < 4 * p.d; k += blockDim.x) sm[p.d + k] = b[k];
+  if constexpr (!CL) {
+    for (int k = threadIdx.x; k < 4 * p.d; k += blockDim.x) sm[p.d + k] = b[k];
+  } else {
+    const int len = c.k1 - c.k0;
+    for (int e = threadIdx.x; e < 4 * len; e += blockDim.x) {
+      const int j = e / len, k = e - j * len;
+      sm[c.ls * (j + 1) + k] = b[j * p.d + c.k0 + k];
+    }
+  }
+  for (int k = c.k0 + (int)threadIdx.x; k < c.k1; k += blockDim.x)
+    sm[k - c.k0] = src[(size_t)k * stride + colm];
+}
+
+// A cluster CTA's partial-objective buffers: [2 parities][3][bn] floats.
+__device__ __forceinline__ float* partials(const Cta& c, float* sm) {
+  return sm + 5 * c.ls;
 }
 
 // Each thread's particles: one pass, returning the thread's best queue key
@@ -314,14 +437,47 @@ __device__ __forceinline__ unsigned long long step_block(const Params& p,
   return mine;
 }
 
+// The same pass on a cluster: thread l is particle base + l of the block
+// (blockDim == bn) on the CTA's dimensions. The partial objectives go to
+// `part` (this iteration's parity); after one cluster.sync() every rank
+// reads the C partials of its particle from ranks 0, 1, ..., C-1 in that
+// order, so all ranks hold the same fitness bit for bit. `pbf` is the
+// particle's pbest fitness, kept in a register by every rank (rank 0 alone
+// stores it): a rank that read it from memory could see rank 0's store of
+// this same iteration. Returns the thread's queue key (0 when its
+// particle does not beat `best`).
+template <int F, int R>
+__device__ __forceinline__ unsigned long long step_cluster(
+    const Params& p, const Cta& c, uint32_t it, const float* sm, float best,
+    float* part, float& pbf) {
+  const cg::cluster_group cl = cg::this_cluster();
+  const int l = threadIdx.x, i = c.b * p.bn + l, col = c.col + i;
+  advance_particle<F, R, true>(p, c, i, it, sm).put(part, l, p.bn);
+  cl.sync();
+  Objective<F> obj = Objective<F>::take(cl.map_shared_rank(part, 0), l, p.bn);
+  for (int q = 1; q < p.csize; ++q)
+    obj.join(Objective<F>::take(cl.map_shared_rank(part, q), l, p.bn));
+  const float f = obj.result(p.d);
+  if (f > pbf) {               // rare at steady state: copy the slice
+    pbf = f;
+    if (c.rank == 0) p.pbf[col] = f;
+    for (int k = c.k0; k < c.k1; ++k) {
+      const size_t o = (size_t)k * p.ld + col;
+      p.pbp[o] = p.pos[o];
+    }
+  }
+  return f > best ? make_key(f, i) : 0ull;
+}
+
 // ---------------------------------------------------------------------------
-// Fused queue-lock: one CTA per particle block of each swarm, the iteration
-// loop inside. With several blocks a swarm's CTAs meet at a grid-wide sync
-// between iterations, so the launch is cooperative (G = true) and every CTA
-// of the launch must be resident; the wrapper launches a large batch in
-// waves of whole swarms, which is exact because swarms are independent.
-// With one block a CTA is its whole swarm and needs no grid sync: a normal
-// launch of S CTAs (G = false), for any S.
+// Fused queue-lock: one CTA, or one cluster of C CTAs (CL), per particle
+// block of each swarm, the iteration loop inside. With several blocks a
+// swarm's CTAs meet at a grid-wide sync between iterations, so the launch
+// is cooperative (G = true; with clusters, cooperative and clustered at
+// once) and every CTA of the launch must be resident; the wrapper launches
+// a large batch in waves of whole swarms, which is exact because swarms
+// are independent. With one block a CTA or cluster is its whole swarm and
+// needs no grid sync: a normal launch for any S.
 //
 // Semantics: synchronous PPSO. Every CTA reads its swarm's gbest of
 // iteration t-1 (the TPU kernel's block b also sees what blocks 0..b-1
@@ -352,6 +508,13 @@ __device__ __forceinline__ unsigned long long step_block(const Params& p,
 //  * Within the CTA, the block's key s_key is double-buffered by parity:
 //    slot par^1 is cleared after the barrier that follows every read of it
 //    and before the barrier that precedes its next atomicMax.
+//  * Cluster: the partials of parity par are written in iteration t and
+//    read remotely after that iteration's cluster.sync(); they are written
+//    again in t+2, after the cluster.sync() of t+1, which every reader of
+//    t has passed. A CTA leaves only after a last cluster.sync(), so no
+//    rank reads the shared memory of a CTA that has exited. Each rank
+//    copies its slice of the block winner and gathers its slice of the
+//    swarm's winner; rank 0 alone raises the swarm's key.
 // ---------------------------------------------------------------------------
 template <int F, int R, bool G>
 __device__ __forceinline__ void fused_body(const Params& p, const Cta& c,
@@ -400,25 +563,84 @@ __device__ __forceinline__ void fused_body(const Params& p, const Cta& c,
 }
 
 template <int F, int R, bool G>
+__device__ __forceinline__ void fused_cluster_body(const Params& p,
+                                                   const Cta& c, float* sm,
+                                                   unsigned long long* s_key) {
+  const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
+  float* part = partials(c, sm);
+  float gf = p.gf[c.s];
+  float pbf = p.pbf[c.col + c.b * p.bn + tid];
+  int par = 0;
+  for (int t = 0; t < p.iters; ++t) {
+    const uint32_t it = c.it0 + (uint32_t)t + 1u;
+    const unsigned long long mine = step_cluster<F, R>(
+        p, c, it, sm, gf, part + par * 3 * p.bn, pbf);
+    if (mine) atomicMax(&s_key[par], mine);      // the intra-block queue
+    __syncthreads();
+    const unsigned long long bk = s_key[par];
+    if (tid == 0) s_key[par ^ 1] = 0ull;
+    if constexpr (G) {
+      const int slot = t & 1;
+      unsigned long long* key = p.keys + 2 * (size_t)c.s + slot;
+      float* cand = p.cand + ((size_t)slot * p.s_cnt + c.s) * p.nb * D;
+      if (bk) {
+        const int wi = c.col + key_index(bk);
+        for (int k = c.k0 + tid; k < c.k1; k += nt)
+          cand[(size_t)c.b * D + k] = p.pos[(size_t)k * p.ld + wi];
+        if (c.rank == 0 && tid == 0) atomicMax(key, bk);
+      }
+      cg::this_grid().sync();
+      const unsigned long long gk = __ldcg(key);
+      const float kf = key_fit(gk);
+      if (gk != 0ull && kf > gf) {
+        gf = kf;
+        const float* win = cand + (size_t)(key_index(gk) / p.bn) * D;
+        for (int k = c.k0 + tid; k < c.k1; k += nt)
+          sm[k - c.k0] = __ldcg(win + k);
+      }
+    } else if (bk) {  // one block: every candidate beats gf, the best wins
+      gf = key_fit(bk);
+      const int wi = c.col + key_index(bk);
+      for (int k = c.k0 + tid; k < c.k1; k += nt)
+        sm[k - c.k0] = p.pos[(size_t)k * p.ld + wi];
+    }
+    __syncthreads();
+    par ^= 1;
+  }
+  if (c.b == 0) {
+    for (int k = c.k0 + tid; k < c.k1; k += nt)
+      p.gp[(size_t)k * p.s_cnt + c.s] = sm[k - c.k0];
+    if (c.rank == 0 && tid == 0) p.gf[c.s] = gf;
+  }
+  cg::this_cluster().sync();
+}
+
+template <int F, int R, bool G, bool CL>
+__device__ __forceinline__ void fused_any(const Params& p, const Cta& c,
+                                          float* sm,
+                                          unsigned long long* s_key) {
+  if constexpr (CL) fused_cluster_body<F, R, G>(p, c, sm, s_key);
+  else fused_body<F, R, G>(p, c, sm, s_key);
+}
+
+template <int F, int R, bool G, bool CL>
 __global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key[2];
-  const Cta c = cta_of(p);
-  load_bounds(p, c, sm);
-  for (int k = threadIdx.x; k < p.d; k += blockDim.x)
-    sm[k] = p.gp[(size_t)k * p.s_cnt + c.s];
+  const Cta c = cta_of<CL>(p);
+  load_rows<CL>(p, c, sm, p.gp, (size_t)p.s_cnt, (size_t)c.s);
   if (threadIdx.x == 0) s_key[0] = s_key[1] = 0ull;
   __syncthreads();
   if constexpr (F < kHetero) {
-    fused_body<F, R, G>(p, c, sm, s_key);
+    fused_any<F, R, G, CL>(p, c, sm, s_key);
   } else {
     switch (p.member_fit[c.member]) {   // uniform across the CTA
-      case 0: fused_body<0, R, G>(p, c, sm, s_key); break;
-      case 1: fused_body<1, R, G>(p, c, sm, s_key); break;
-      case 2: fused_body<2, R, G>(p, c, sm, s_key); break;
-      case 3: fused_body<3, R, G>(p, c, sm, s_key); break;
-      case 4: fused_body<4, R, G>(p, c, sm, s_key); break;
-      default: fused_body<5, R, G>(p, c, sm, s_key); break;
+      case 0: fused_any<0, R, G, CL>(p, c, sm, s_key); break;
+      case 1: fused_any<1, R, G, CL>(p, c, sm, s_key); break;
+      case 2: fused_any<2, R, G, CL>(p, c, sm, s_key); break;
+      case 3: fused_any<3, R, G, CL>(p, c, sm, s_key); break;
+      case 4: fused_any<4, R, G, CL>(p, c, sm, s_key); break;
+      default: fused_any<5, R, G, CL>(p, c, sm, s_key); break;
     }
   }
 }
@@ -569,12 +791,10 @@ __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
   __shared__ unsigned long long s_key[2];
   __shared__ float s_g;
   __shared__ int s_act[3];
-  const Cta c = cta_of(p);
+  const Cta c = cta_of<false>(p);
   const size_t slot = (size_t)c.s * p.nb + c.b;   // per-(swarm, block) local
   const size_t lds = (size_t)p.s_cnt * p.nb;
-  load_bounds(p, c, sm);
-  for (int k = threadIdx.x; k < p.d; k += blockDim.x)
-    sm[k] = p.lp[(size_t)k * lds + slot];
+  load_rows<false>(p, c, sm, p.lp, lds, slot);
   if (threadIdx.x == 0) s_key[0] = s_key[1] = 0ull;
   float lf = p.lf[slot];
   __syncthreads();
@@ -596,36 +816,44 @@ __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Queue algorithm (§4.1), kernel 1 of 2: a normal launch of one CTA per
-// particle block of one swarm, one iteration. gbest is read-only: every CTA
-// compares against the input gf (the stale gbest of the iteration before),
-// advances its block and folds pbest in place. The intra-CTA atomicMax on
-// s_key is the paper's intra-group queue; thread 0 decodes the block's key
+// Queue algorithm (§4.1), kernel 1 of 2: a normal launch of one CTA, or
+// one cluster of C CTAs (CL), per particle block of one swarm, one
+// iteration; the particle step is the fused kernel's, so the two agree bit
+// for bit. gbest is read-only: every CTA compares against the input gf
+// (the stale gbest of the iteration before), advances its block and folds
+// pbest in place. The intra-CTA atomicMax on s_key is the paper's
+// intra-group queue; thread 0 (of rank 0) decodes the block's key
 // into aux_fit[b] (the best fitness among lanes that beat gf, -inf when none
 // does) and aux_idx[b] (that lane's swarm-local index, first lane on ties;
 // the block base when the queue is empty, as the reference's _queue_best
 // gives). No grid sync, no candidate columns, no lock: kernel 2 of the
 // paper, the cross-block argmax and gather, is the caller's epilogue.
 // ---------------------------------------------------------------------------
-template <int F, int R>
+template <int F, int R, bool CL>
 __global__ void __launch_bounds__(kMaxThreads, 2) queue_kernel(Params p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key;
-  const Cta c = cta_of(p);
-  load_bounds(p, c, sm);
-  for (int k = threadIdx.x; k < p.d; k += blockDim.x)
-    sm[k] = p.gp[(size_t)k * p.s_cnt + c.s];
+  const Cta c = cta_of<CL>(p);
+  load_rows<CL>(p, c, sm, p.gp, (size_t)p.s_cnt, (size_t)c.s);
   if (threadIdx.x == 0) s_key = 0ull;
-  __syncthreads();
-  const unsigned long long mine =
-      step_block<F, R>(p, c, c.it0 + 1u, sm, p.gf[c.s]);
+  unsigned long long mine;
+  if constexpr (CL) {
+    float pbf = p.pbf[c.col + c.b * p.bn + threadIdx.x];
+    __syncthreads();
+    mine = step_cluster<F, R>(p, c, c.it0 + 1u, sm, p.gf[c.s],
+                              partials(c, sm), pbf);
+  } else {
+    __syncthreads();
+    mine = step_block<F, R>(p, c, c.it0 + 1u, sm, p.gf[c.s]);
+  }
   if (mine) atomicMax(&s_key, mine);
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && c.rank == 0) {
     const unsigned long long bk = s_key;
     p.aux_fit[c.b] = bk ? key_fit(bk) : __uint_as_float(0xff800000u);  // -inf
     p.aux_idx[c.b] = bk ? key_index(bk) : c.b * p.bn;
   }
+  if constexpr (CL) cg::this_cluster().sync();   // partials read remotely
 }
 
 using Kernel = void (*)(Params);
@@ -641,15 +869,18 @@ using Kernel = void (*)(Params);
 #define PSO_TABLE(K, ...)                                                  \
   {PSO_BUILTINS(K, __VA_ARGS__), PSO_RULES(K, 6, __VA_ARGS__)}
 
-// [objective or kHetero][rule]
-const Kernel kFusedGrid[kHetero + 1][kRuleCount] = PSO_TABLE(fused_kernel,
-                                                             , true);
-const Kernel kFusedBlock[kHetero + 1][kRuleCount] = PSO_TABLE(fused_kernel,
-                                                              , false);
+// [cluster][objective or kHetero][rule]
+const Kernel kFusedGrid[2][kHetero + 1][kRuleCount] = {
+    PSO_TABLE(fused_kernel, , true, false),
+    PSO_TABLE(fused_kernel, , true, true)};
+const Kernel kFusedBlock[2][kHetero + 1][kRuleCount] = {
+    PSO_TABLE(fused_kernel, , false, false),
+    PSO_TABLE(fused_kernel, , false, true)};
 const Kernel kAsync[kHetero + 1][kRuleCount] = PSO_TABLE(async_kernel, );
-// [objective][rule]: one swarm, no heterogeneous form
-const Kernel kQueue[kFitnessCount][kRuleCount] = {PSO_BUILTINS(queue_kernel,
-                                                               )};
+// [cluster][objective][rule]: one swarm, no heterogeneous form
+const Kernel kQueue[2][kFitnessCount][kRuleCount] = {
+    {PSO_BUILTINS(queue_kernel, , false)},
+    {PSO_BUILTINS(queue_kernel, , true)}};
 
 Kernel pick(const Kernel (*table)[kRuleCount], int fit, int rule,
             int fits = kHetero + 1) {
@@ -658,7 +889,12 @@ Kernel pick(const Kernel (*table)[kRuleCount], int fit, int rule,
   return table[fit][rule];
 }
 
-size_t smem_bytes(int d) { return (size_t)5 * d * sizeof(float); }
+// att and the four bound rows of the CTA's slice; with a cluster, the
+// partial objectives of both parities ([2][3][bn]).
+size_t smem_bytes(int d, int csize, int bn) {
+  const size_t ls = (size_t)((d + csize - 1) / csize);
+  return (5 * ls + (csize > 1 ? 6 * (size_t)bn : 0)) * sizeof(float);
+}
 
 cudaError_t prepare(Kernel k, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -679,7 +915,7 @@ Params make_params(float* pos, float* vel, float* pbp, float* pbf, float* gp,
   p.seeds = seeds; p.its = its; p.seed0 = seed0; p.it00 = it00;
   p.n = n; p.d = d; p.bn = bn; p.nb = n / bn; p.s_cnt = s_cnt;
   p.ld = s_cnt * n;
-  p.iters = iters; p.chunk = iters;
+  p.iters = iters; p.chunk = iters; p.csize = 1;
   p.w = w; p.c1 = c1; p.c2 = c2; p.k0 = k0; p.k1 = k1; p.k2 = k2;
   return p;
 }
@@ -691,47 +927,134 @@ bool bad_shape(int n, int d, int bn, int s_cnt) {
          (long long)s_cnt * n >= (1ll << 31);
 }
 
-}  // namespace
+// A cluster of csize CTAs (at most 8, Hopper's portable size) takes one
+// particle a thread (bn <= 512) and at least one dimension a CTA.
+bool bad_cluster(int csize, int d, int bn) {
+  if (csize == 1) return false;
+  return csize < 1 || csize > 8 || bn > kMaxThreads || csize > d;
+}
 
-extern "C" {
+cudaLaunchConfig_t cluster_config(unsigned blocks, int threads, size_t smem,
+                                  cudaStream_t stream, int csize, bool coop,
+                                  cudaLaunchAttribute* attrs) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = (unsigned)csize;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.numAttrs = 1;
+  if (coop) {
+    attrs[1].id = cudaLaunchAttributeCooperative;
+    attrs[1].val.cooperative = 1;
+    cfg.numAttrs = 2;
+  }
+  cfg.attrs = attrs;
+  return cfg;
+}
 
-// How many fused-kernel CTAs of this configuration can be resident at once
-// (occupancy per SM x SM count): a cooperative launch needs all of its
-// CTAs, so a wave holds that many divided by the blocks of a swarm. `fit`
-// is an objective id, or 6 for the heterogeneous kernel.
-int pso_fused_resident_ctas(int fit, int rule, int bn, int d, int* out) {
-  const Kernel k = pick(kFusedGrid, fit, rule);
-  if (!k) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
+// One launch of `blocks` CTAs: with csize > 1 in clusters of csize through
+// cudaLaunchKernelEx (cooperative too when coop), else the classic way. A
+// refused launch is returned, never retried another way.
+cudaError_t launch(Kernel k, unsigned blocks, int threads, size_t smem,
+                   cudaStream_t stream, int csize, bool coop, Params* p) {
+  void* args[] = {p};
+  if (csize > 1) {
+    cudaLaunchAttribute attrs[2];
+    const cudaLaunchConfig_t cfg =
+        cluster_config(blocks, threads, smem, stream, csize, coop, attrs);
+    return cudaLaunchKernelExC(&cfg, (const void*)k, args);
+  }
+  if (coop)
+    return cudaLaunchCooperativeKernel((const void*)k, dim3(blocks),
+                                       dim3((unsigned)threads), args, smem,
+                                       stream);
+  k<<<blocks, threads, smem, stream>>>(*p);
+  return cudaSuccess;
+}
+
+// How many CTAs (csize 1) or clusters of csize CTAs of kernel k can be
+// resident at once.
+cudaError_t resident(Kernel k, int bn, int d, int csize, int* out) {
+  const size_t smem = smem_bytes(d, csize, bn);
   cudaError_t err = prepare(k, smem);
+  if (err != cudaSuccess) return err;
+  if (csize > 1) {
+    cudaLaunchAttribute attrs[2];
+    const cudaLaunchConfig_t cfg = cluster_config(
+        (unsigned)csize, threads_for(bn), smem, nullptr, csize, false, attrs);
+    return cudaOccupancyMaxActiveClusters(out, (const void*)k, &cfg);
+  }
   int per_sm = 0, dev = 0, sms = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k,
-                                                        threads_for(bn), smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k,
+                                                      threads_for(bn), smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   *out = per_sm * sms;
-  return (int)err;
+  return err;
 }
 
-// `iters` fused iterations of swarms s0 .. s0+count-1 of a batch of s_cnt:
-// one cooperative launch of count*(n/bn) CTAs, or, with one block a swarm,
-// a normal launch of count CTAs. Null seeds/its take seed0/it00 (one swarm).
+}  // namespace
+
+extern "C" {
+
+// How many fused-kernel CTAs (csize 1) or clusters of csize CTAs of this
+// configuration can be resident at once: a cooperative launch needs all of
+// them, so a wave holds that many divided by the blocks of a swarm. `fit`
+// is an objective id, or 6 for the heterogeneous kernel.
+int pso_fused_resident(int fit, int rule, int bn, int d, int csize,
+                       int* out) {
+  if (bad_cluster(csize, d, bn)) return (int)cudaErrorInvalidValue;
+  const Kernel k = pick(kFusedGrid[csize > 1], fit, rule);
+  if (!k) return (int)cudaErrorInvalidValue;
+  return (int)resident(k, bn, d, csize, out);
+}
+
+// The fewest clusters of csize CTAs that any fused kernel (every objective,
+// the heterogeneous one, every rule) keeps resident at (bn, d): the card's
+// capacity on which the wrapper chooses csize, the same for every kernel
+// so that the choice depends on the shape alone.
+int pso_cluster_capacity(int bn, int d, int csize, int* out) {
+  if (csize < 2 || bad_cluster(csize, d, bn))
+    return (int)cudaErrorInvalidValue;
+  int least = -1;
+  for (int f = 0; f <= kHetero; ++f)
+    for (int r = 0; r < kRuleCount; ++r) {
+      int got = 0;
+      const cudaError_t err =
+          resident(kFusedGrid[1][f][r], bn, d, csize, &got);
+      if (err != cudaSuccess) return (int)err;
+      least = least < 0 || got < least ? got : least;
+    }
+  *out = least;
+  return (int)cudaSuccess;
+}
+
+// `iters` fused iterations of swarms s0 .. s0+count-1 of a batch of s_cnt,
+// each particle block on a cluster of csize CTAs (1: one CTA): one
+// cooperative launch of count*(n/bn)*csize CTAs, or, with one block a
+// swarm, a normal launch of count*csize. Null seeds/its take seed0/it00
+// (one swarm).
 int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
                      float* gf, const float* bounds, const int* member_fit,
                      const int* fids, const unsigned* seeds,
                      const unsigned* its, unsigned long long* keys,
                      float* cand, int n, int d, int bn, int s_cnt, int s0,
-                     int count, int iters, unsigned seed0, unsigned it00,
-                     int fit, int rule, float w, float c1, float c2, float k0,
-                     float k1, float k2, void* stream) {
-  if (bad_shape(n, d, bn, s_cnt) || s0 < 0 || count <= 0 ||
-      s0 + count > s_cnt || (fit == kHetero && !(member_fit && fids)) ||
+                     int count, int iters, int csize, unsigned seed0,
+                     unsigned it00, int fit, int rule, float w, float c1,
+                     float c2, float k0, float k1, float k2, void* stream) {
+  if (bad_shape(n, d, bn, s_cnt) || bad_cluster(csize, d, bn) || s0 < 0 ||
+      count <= 0 || s0 + count > s_cnt ||
+      (fit == kHetero && !(member_fit && fids)) ||
       (!(seeds && its) && s_cnt != 1))
     return (int)cudaErrorInvalidValue;
   const bool grid = n / bn > 1;
-  const Kernel k = pick(grid ? kFusedGrid : kFusedBlock, fit, rule);
+  const Kernel k = pick((grid ? kFusedGrid : kFusedBlock)[csize > 1], fit,
+                        rule);
   if (!k) return (int)cudaErrorInvalidValue;
   Params p = make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids,
                          seeds, its, seed0, it00, n, d, bn, s_cnt, iters, w,
@@ -739,24 +1062,19 @@ int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
   p.keys = keys;
   p.cand = cand;
   p.s0 = s0;
-  const size_t smem = smem_bytes(d);
+  p.csize = csize;
+  const size_t smem = smem_bytes(d, csize, bn);
   cudaError_t err = prepare(k, smem);
+  if (err == cudaSuccess)
+    err = launch(k, (unsigned)(count * p.nb * csize), threads_for(bn), smem,
+                 (cudaStream_t)stream, csize, grid, &p);
   if (err != cudaSuccess) return (int)err;
-  const dim3 blocks((unsigned)count * p.nb), threads(threads_for(bn));
-  if (grid) {
-    void* args[] = {&p};
-    err = cudaLaunchCooperativeKernel((const void*)k, blocks, threads, args,
-                                      smem, (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    k<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
-  }
   return (int)cudaGetLastError();
 }
 
 // `iters` async iterations of all s_cnt swarms, `chunk` iterations between
 // boundaries; `it_off` is added to every swarm's iteration counter. Null
-// seeds/its take seed0/it00 (one swarm).
+// seeds/its take seed0/it00 (one swarm). One CTA a particle block.
 int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
                      float* gf, const float* bounds, const int* member_fit,
                      const int* fids, const unsigned* seeds,
@@ -778,7 +1096,7 @@ int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
   p.lock = lock;
   p.chunk = chunk;
   p.it_off = it_off;
-  const size_t smem = smem_bytes(d);
+  const size_t smem = smem_bytes(d, 1, bn);
   cudaError_t err = prepare(k, smem);
   if (err != cudaSuccess) return (int)err;
   k<<<(unsigned)s_cnt * p.nb, threads_for(bn), smem,
@@ -786,27 +1104,32 @@ int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
   return (int)cudaGetLastError();
 }
 
-// One queue-algorithm iteration (it00 + 1) of one swarm: a normal launch
-// of n/bn CTAs that updates pos/vel/pbp/pbf in place and writes
+// One queue-algorithm iteration (it00 + 1) of one swarm, each particle
+// block on a cluster of csize CTAs (1: one CTA): a normal launch of
+// (n/bn)*csize CTAs that updates pos/vel/pbp/pbf in place and writes
 // aux_fit[n/bn], aux_idx[n/bn]; gp [D] and gf [1] are only read.
 int pso_queue_launch(float* pos, float* vel, float* pbp, float* pbf,
                      const float* gp, const float* gf, const float* bounds,
                      float* aux_fit, int* aux_idx, int n, int d, int bn,
-                     unsigned seed0, unsigned it00, int fit, int rule, float w,
-                     float c1, float c2, float k0, float k1, float k2,
-                     void* stream) {
-  const Kernel k = pick(kQueue, fit, rule, kFitnessCount);
-  if (!k || bad_shape(n, d, bn, 1)) return (int)cudaErrorInvalidValue;
+                     int csize, unsigned seed0, unsigned it00, int fit,
+                     int rule, float w, float c1, float c2, float k0,
+                     float k1, float k2, void* stream) {
+  const Kernel k = pick(kQueue[csize > 1], fit, rule, kFitnessCount);
+  if (!k || bad_shape(n, d, bn, 1) || bad_cluster(csize, d, bn))
+    return (int)cudaErrorInvalidValue;
   Params p = make_params(pos, vel, pbp, pbf, const_cast<float*>(gp),
                          const_cast<float*>(gf), bounds, nullptr, nullptr,
                          nullptr, nullptr, seed0, it00, n, d, bn, 1, 1, w, c1,
                          c2, k0, k1, k2);
   p.aux_fit = aux_fit;
   p.aux_idx = aux_idx;
-  const size_t smem = smem_bytes(d);
+  p.csize = csize;
+  const size_t smem = smem_bytes(d, csize, bn);
   cudaError_t err = prepare(k, smem);
+  if (err == cudaSuccess)
+    err = launch(k, (unsigned)(p.nb * csize), threads_for(bn), smem,
+                 (cudaStream_t)stream, csize, false, &p);
   if (err != cudaSuccess) return (int)err;
-  k<<<(unsigned)p.nb, threads_for(bn), smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -41,6 +41,12 @@ their inputs alone:
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; the
 batch wrappers count heterogeneous launches in ``.hetero_launches``.
+
+The queue and fused kernels run each particle block on a cluster of C
+CTAs, each CTA owning a slice of the dimensions; ``cluster_size`` picks C
+from the swarm's shape alone, so a batch row and the single swarm, and the
+queue and the fused kernel, sum each objective in the same order. The
+async kernel runs one CTA a block.
 """
 from __future__ import annotations
 
@@ -302,15 +308,17 @@ def _lib():
     from . import _build
     lib = _build.load("pso_step")
     p, i, u, f = c.c_void_p, c.c_int, c.c_uint, c.c_float
-    lib.pso_fused_resident_ctas.argtypes = [i, i, i, i, c.POINTER(i)]
-    lib.pso_fused_launch.argtypes = ([p] * 13 + [i] * 7 + [u, u, i, i]
+    lib.pso_fused_resident.argtypes = [i] * 5 + [c.POINTER(i)]
+    lib.pso_cluster_capacity.argtypes = [i] * 3 + [c.POINTER(i)]
+    lib.pso_fused_launch.argtypes = ([p] * 13 + [i] * 8 + [u, u, i, i]
                                      + [f] * 6 + [p])
     lib.pso_async_launch.argtypes = ([p] * 14 + [i] * 6 + [u, u, u, i, i]
                                      + [f] * 6 + [p])
-    lib.pso_queue_launch.argtypes = ([p] * 9 + [i] * 3 + [u, u, i, i]
+    lib.pso_queue_launch.argtypes = ([p] * 9 + [i] * 4 + [u, u, i, i]
                                      + [f] * 6 + [p])
-    for fn in (lib.pso_fused_resident_ctas, lib.pso_fused_launch,
-               lib.pso_async_launch, lib.pso_queue_launch):
+    for fn in (lib.pso_fused_resident, lib.pso_cluster_capacity,
+               lib.pso_fused_launch, lib.pso_async_launch,
+               lib.pso_queue_launch):
         fn.restype = i
     return lib
 
@@ -363,18 +371,112 @@ def _counters(seeds, its, dev):
     return None, (int(seed) & 0xFFFFFFFF, int(it) & 0xFFFFFFFF)
 
 
+#: Cluster sizes the rule picks from (8 CTAs is Hopper's portable maximum;
+#: the kernels take any size up to it). Powers of two, so that a
+#: power-of-two block count spreads evenly over the SMs.
+CLUSTER_SIZES = (2, 4, 8)
+#: The fewest dimensions a CTA of a cluster owns. A single swarm gains from
+#: a split down to slices of a few dimensions, but a batch that already
+#: fills the card loses by it: a cluster barrier and C remote reads of the
+#: partials an iteration, and C times fewer swarms a cooperative wave
+#: (chip_smoke.py phase 5b: rastrigin d=10 n=1024 S=128 is slower at C=2,
+#: d=24 about even; PERF.md). C may not depend on S, so it stays 1 where a
+#: batch would lose.
+MIN_SLICE = 12
+#: A cluster takes one particle a thread, so blocks of up to 512.
+MAX_CLUSTER_BLOCK = 512
+
+
+def cluster_size(n: int, d: int, block_n: int, capacity) -> int:
+    """How many CTAs each particle block of a swarm of ``n`` particles in
+    ``d`` dimensions runs on, for the queue and the fused kernels: the
+    largest C in ``CLUSTER_SIZES`` that leaves every CTA at least
+    ``MIN_SLICE`` dimensions and, with several blocks, still lets the card
+    hold all ``n // block_n`` clusters at once (``capacity(C)``: the fewest
+    clusters of C any fused kernel keeps resident), since the fused kernel's
+    cooperative launch needs them all; 1 (one CTA a block, no cluster code)
+    otherwise, at ``d < 2 * MIN_SLICE`` and so always at d = 1, and for
+    blocks over ``MAX_CLUSTER_BLOCK``.
+
+    Why the largest: one thread walks its particle's dimensions in turn,
+    so a CTA's iteration time grows with its slice (D / C steps), and at
+    the main shapes a swarm's blocks alone put too few threads on the card
+    (64 CTAs of 512 threads at n=32768, 12% of an H100's thread slots).
+    The choice depends on the swarm's shape and the card, never on the
+    number of swarms S: a batch row then sums its objective in the single
+    swarm's order, and the queue kernel in the fused kernel's."""
+    if block_n > MAX_CLUSTER_BLOCK:
+        return 1
+    nb = n // block_n
+    best = 1
+    for c in CLUSTER_SIZES:
+        if d < c * MIN_SLICE or (nb > 1 and capacity(c) < nb):
+            break
+        best = c
+    return best
+
+
+def launch_plan(n: int, d: int, block_n: int, s_cnt: int, capacity,
+                resident, cluster=None) -> Tuple[int, int]:
+    """(cluster size, swarms a launch) of a fused call on S = ``s_cnt``
+    swarms: C from ``cluster_size`` (or ``cluster``, where the caller sets
+    it); with several blocks a swarm, the cooperative launch needs every
+    cluster resident, so a wave holds ``resident(C) // nb`` swarms
+    (``resident``: CTAs at C = 1, clusters above), and a swarm whose blocks
+    alone do not fit raises. With one block a swarm, one normal launch
+    takes all S."""
+    c = cluster_size(n, d, block_n, capacity) if cluster is None else cluster
+    nb = n // block_n
+    if nb == 1:
+        return c, s_cnt
+    held = resident(c)
+    if held < nb:
+        raise RuntimeError(
+            f"fused kernel: {nb} blocks of {min(block_n, 512)} threads on "
+            f"clusters of {c} cannot all be resident ({held} fit on this "
+            f"device); the cooperative launch needs every CTA at once — use "
+            f"a larger block_n")
+    return c, held // nb
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 @functools.lru_cache(maxsize=None)
-def _resident(fit_id: int, rule_id: int, block_n: int, d: int,
+def _resident(fit_id: int, rule_id: int, block_n: int, d: int, csize: int,
               device_index: int) -> int:
-    """How many fused-kernel CTAs of this configuration fit on the card at
-    once (occupancy per SM x SMs)."""
+    """How many fused-kernel CTAs (``csize`` 1) or clusters of ``csize``
+    CTAs of this configuration fit on the card at once."""
     import ctypes
     resident = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _check(_lib().pso_fused_resident_ctas(fit_id, rule_id, block_n, d,
-                                              ctypes.byref(resident)),
+        _check(_lib().pso_fused_resident(fit_id, rule_id, block_n, d, csize,
+                                         ctypes.byref(resident)),
                "occupancy query")
     return resident.value
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(block_n: int, d: int, device_index: int, csize: int) -> int:
+    """The fewest clusters of ``csize`` CTAs that any fused kernel keeps
+    resident at (block_n, d) on the card: ``cluster_size``'s capacity."""
+    import ctypes
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _check(_lib().pso_cluster_capacity(block_n, d, csize,
+                                           ctypes.byref(out)),
+               "cluster occupancy query")
+    return out.value
+
+
+def _cluster(n: int, d: int, block_n: int, dev, cluster=None) -> int:
+    """The cluster size of a launch on ``dev``: ``cluster`` if given,
+    else ``cluster_size`` on the card's capacity."""
+    if cluster is not None:
+        return cluster
+    return cluster_size(n, d, block_n, functools.partial(
+        _capacity, block_n, d, _device_index(dev)))
 
 
 def _launch_operands(state, seeds, its, specs, fids, block_n: int):
@@ -449,13 +551,23 @@ def queue_step(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
     """One queue-algorithm iteration of one swarm: ``pos``/``vel``/
     ``pbp``/``pbf`` updated in place, ``gp``/``gf`` only read; returns
     (pos, vel, pbp, pbf, aux_fit [nb], aux_idx [nb] int32). On CUDA
-    tensors ONE normal launch of ``n // block_n`` CTAs, on CPU tensors
-    the plain version."""
+    tensors ONE normal launch of ``n // block_n`` clusters of
+    ``cluster_size`` CTAs (the fused kernel's, so the two agree bit for
+    bit), on CPU tensors the plain version."""
     state = (pos, vel, pbp, pbf)
     kw = dict(seed=seed, iteration=iteration, block_n=block_n)
     if pos.device.type == "cpu":
         out = queue_plain(pos, vel, pbp, pbf, gp, gf, spec, **kw)
         return _copy_into(state, out[:4]) + out[4:]
+    return state + _queue_launch(state, gp, gf, spec, **kw)
+
+
+def _queue_launch(state, gp, gf, spec: KernelSpec, *, seed: int,
+                  iteration: int, block_n: int, cluster=None):
+    """The kernel path of ``queue_step``: (aux_fit, aux_idx). ``cluster``
+    sets the cluster size in place of ``cluster_size``'s (chip_smoke.py
+    times each size)."""
+    pos, vel, pbp, pbf = state
     extra, scalars, fit_id, rule_id, coef, n, d, _ = _launch_operands(
         (pos, vel, pbp, pbf, gp[:, None], gf), [seed], [iteration], (spec,),
         None, block_n)
@@ -463,13 +575,14 @@ def queue_step(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
     aux_fit = torch.empty(nb, dtype=torch.float32, device=pos.device)
     aux_idx = torch.empty(nb, dtype=torch.int32, device=pos.device)
     with torch.cuda.device(pos.device):
+        c = _cluster(n, d, block_n, pos.device, cluster)
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         _check(_lib().pso_queue_launch(
             *_ptrs([pos, vel, pbp, pbf, gp, gf, extra[0], aux_fit, aux_idx]),
-            n, d, block_n, *scalars, fit_id, rule_id, *coef, stream),
+            n, d, block_n, c, *scalars, fit_id, rule_id, *coef, stream),
             "queue kernel launch")
     queue_step.launches += 1
-    return state + (aux_fit, aux_idx)
+    return aux_fit, aux_idx
 
 
 queue_step.launches = 0
@@ -478,8 +591,9 @@ queue_step.launches = 0
 def fused(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
           iteration: int, iters: int, block_n: int):
     """``iters`` fused queue-lock iterations of one swarm, in place: ONE
-    launch of ``n // block_n`` CTAs on CUDA tensors (cooperative with
-    several blocks), the plain version on CPU tensors."""
+    launch of ``n // block_n`` clusters of ``cluster_size`` CTAs on CUDA
+    tensors (cooperative with several blocks), the plain version on CPU
+    tensors."""
     state = (pos, vel, pbp, pbf, gp, gf)
     kw = dict(seed=seed, iteration=iteration, iters=iters, block_n=block_n)
     if pos.device.type == "cpu":
@@ -489,12 +603,13 @@ def fused(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
 
 
 def _fused_launch(state, spec: KernelSpec, *, seed: int, iteration: int,
-                  iters: int, block_n: int) -> None:
-    """The kernel path of ``fused``: the batched launch with S = 1."""
+                  iters: int, block_n: int, cluster=None) -> None:
+    """The kernel path of ``fused``: the batched launch with S = 1
+    (``cluster`` as in ``_fused_batch_launch``)."""
     pos, vel, pbp, pbf, gp, gf = state
     fused.launches += _fused_batch_launch(
         (pos, vel, pbp, pbf, gp[:, None], gf), [seed], [iteration], (spec,),
-        iters=iters, block_n=block_n)
+        iters=iters, block_n=block_n, cluster=cluster)
 
 
 fused.launches = 0
@@ -504,11 +619,12 @@ def fused_batch(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
                 iters: int, block_n: int, fids=None):
     """``iters`` fused queue-lock iterations of S swarms, in place (layout
     of ``fused_batch_plain``; ``seeds``/``its`` int64 ``[S]``). On CUDA
-    tensors: with one block a swarm, ONE normal launch of S CTAs; with
-    several, cooperative launches in waves of as many whole swarms as the
-    card holds at once. On CPU tensors the plain version. ``fids`` (with a
-    table ``specs`` of several members) makes the batch heterogeneous;
-    its launches count in ``fused_batch.hetero_launches``."""
+    tensors, each block on a cluster of ``cluster_size`` CTAs: with one
+    block a swarm, ONE normal launch for all S; with several, cooperative
+    launches in waves of as many whole swarms as the card holds at once.
+    On CPU tensors the plain version. ``fids``
+    (with a table ``specs`` of several members) makes the batch
+    heterogeneous; its launches count in ``fused_batch.hetero_launches``."""
     state = (pos, vel, pbp, pbf, gp, gf)
     kw = dict(iters=iters, block_n=block_n, fids=fids)
     if pos.device.type == "cpu":
@@ -527,11 +643,10 @@ fused_batch.hetero_launches = 0
 
 
 def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
-                        block_n: int, fids=None) -> int:
-    """The kernel path of the fused wrappers; returns the launches made.
-    The grid-wide sync needs every CTA of a cooperative launch resident,
-    so a wave holds ``resident // nb`` swarms, and a swarm whose blocks
-    alone do not fit raises."""
+                        block_n: int, fids=None, cluster=None) -> int:
+    """The kernel path of the fused wrappers (``launch_plan``); returns the
+    launches made. ``cluster`` sets the cluster size in place of
+    ``cluster_size``'s (chip_smoke.py times each size)."""
     extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
         state, seeds, its, specs, fids, block_n)
     if iters <= 0:
@@ -540,19 +655,12 @@ def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
     nb = n // block_n
     lib = _lib()
     with torch.cuda.device(pos.device):
-        wave = s_cnt
-        if nb > 1:
-            resident = _resident(fit_id, rule_id, block_n, d,
-                                 pos.device.index
-                                 if pos.device.index is not None
-                                 else torch.cuda.current_device())
-            wave = resident // nb
-            if wave < 1:
-                raise RuntimeError(
-                    f"fused kernel: {nb} CTAs of {min(block_n, 512)} threads "
-                    f"cannot all be resident ({resident} fit on this "
-                    f"device); the cooperative launch needs every CTA at "
-                    f"once — use a larger block_n")
+        dev = _device_index(pos.device)
+        c, wave = launch_plan(
+            n, d, block_n, s_cnt, functools.partial(_capacity, block_n, d,
+                                                    dev),
+            functools.partial(_resident, fit_id, rule_id, block_n, d,
+                              device_index=dev), cluster)
         keys = torch.zeros(2 * s_cnt, dtype=torch.int64, device=pos.device)
         cand = (torch.empty(2 * s_cnt * nb * d, dtype=torch.float32,
                             device=pos.device) if nb > 1 else None)
@@ -562,7 +670,7 @@ def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
         for s0 in range(0, s_cnt, wave):
             _check(lib.pso_fused_launch(
                 *ptrs, n, d, block_n, s_cnt, s0, min(wave, s_cnt - s0),
-                iters, *scalars, fit_id, rule_id, *coef, stream),
+                iters, c, *scalars, fit_id, rule_id, *coef, stream),
                 "fused kernel launch")
             launches += 1
     return launches

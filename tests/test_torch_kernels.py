@@ -250,6 +250,62 @@ def test_resolve_block_errors():
             ops._resolve_block(1024, bad)
 
 
+# A card's capacity for clusters of C CTAs of 512 threads, two CTAs an SM
+# on 132 SMs (the fixture of the cluster-size tests; the wrappers query
+# the card's own), and its capacity for single CTAs.
+_CAPACITY = {2: 132, 4: 66, 8: 33}.get
+
+
+def _resident(c):
+    return 264 if c == 1 else _CAPACITY(c)
+
+
+@pytest.mark.parametrize("n,d,bn,want", [
+    (32768, 120, 512, 4),     # 64 blocks: 64 clusters of 8 do not fit
+    (8192, 120, 512, 8), (1024, 120, 512, 8), (128, 120, 128, 8),
+    (1024, 37, 512, 2),       # slices of 18 and 19 dimensions
+    (1024, 48, 512, 4), (1024, 24, 512, 2), (1024, 23, 512, 1),
+    (1024, 10, 512, 1), (131072, 120, 512, 1),   # 256 blocks: no cluster
+    (1024, 120, 1024, 1),     # a cluster takes one particle a thread
+])
+def test_cluster_size_follows_the_shape(n, d, bn, want):
+    """The rule: the largest C of 2, 4, 8 that leaves each CTA at least
+    MIN_SLICE dimensions and lets all of a swarm's clusters be resident;
+    the same answer every time it is asked."""
+    got = [pso_step.cluster_size(n, d, bn, _CAPACITY) for _ in range(3)]
+    assert got == [want] * 3
+
+
+@pytest.mark.parametrize("n,bn", [(32, 32), (131072, 512), (1024, 1024),
+                                  (128, 128), (1009, 1009)])
+def test_cluster_size_is_one_at_d1(n, bn):
+    """At d = 1 the kernels run without a cluster, so the d = 1 cells run
+    the arithmetic of one CTA a block."""
+    assert pso_step.cluster_size(n, 1, bn, _CAPACITY) == 1
+    assert pso_step.launch_plan(n, 1, bn, 7, _CAPACITY, _resident)[0] == 1
+
+
+@pytest.mark.parametrize("n,d,bn", [(1024, 120, 512), (32768, 120, 512),
+                                    (128, 120, 128), (1024, 10, 512)])
+def test_launch_plan_cluster_independent_of_swarm_count(n, d, bn):
+    """A batch of S swarms takes the single swarm's cluster size for every
+    S (its rows then sum their objectives in the single swarm's order);
+    only the swarms a cooperative wave holds depend on the card."""
+    plans = {s: pso_step.launch_plan(n, d, bn, s, _CAPACITY, _resident)
+             for s in (1, 4, 128, 300, 1024)}
+    assert {c for c, _ in plans.values()} == {
+        pso_step.cluster_size(n, d, bn, _CAPACITY)}
+    c = plans[1][0]
+    nb = n // bn
+    for s, (_, wave) in plans.items():
+        assert wave == (s if nb == 1 else _resident(c) // nb)
+
+
+def test_launch_plan_raises_when_a_swarm_cannot_be_resident():
+    with pytest.raises(RuntimeError, match="resident"):
+        pso_step.launch_plan(131072, 1, 256, 1, _CAPACITY, _resident)
+
+
 def test_kernel_path_on_cpu_tensors_raises():
     tc = pso.PSOConfig(dim=2, particle_cnt=128).resolved()
     s = pso.init_swarm(tc, 0, device="cpu")
@@ -654,3 +710,86 @@ def test_async_batch_kernel_multi_block_invariants_on_card(cuda, hetero):
         spec = specs[0 if fids is None else int(fids[s])]
         lo, hi, _ = pso_step._operands(spec, pos.device)
         assert bool(((pos >= lo) & (pos <= hi)).all())
+
+
+# --- the queue and fused kernels on clusters, on the card -------------------
+
+def _fit_close(a, b):
+    torch.testing.assert_close(a, b, rtol=1e-5,
+                               atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+# Every objective with every rule, each at one of the four cluster shapes:
+# d=120 (C=8 on an H100) and d=37 (C=2, slices of 18 and 19), one block
+# (n=128) and two (n=1024).
+_CLUSTER_SHAPES = ((120, 128, 128), (37, 1024, 512), (37, 128, 128),
+                   (120, 1024, 512))
+_CLUSTER_CASES = [(f, r) + _CLUSTER_SHAPES[i % 4] for i, (f, r) in enumerate(
+    (f, r) for f in FITNESS for r in ("pso", "sso", "lowcost"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fit,rule,d,n,bn", _CLUSTER_CASES)
+def test_cluster_fused_kernel_matches_plain_on_card(cuda, fit, rule, d, n,
+                                                    bn):
+    """The fused kernel with a particle block split over a cluster, two
+    iterations in one launch, against its plain version: positions to
+    rounding, fitness to the objective's ulps (its sum runs in rank order);
+    rosenbrock's pairs across slice boundaries included."""
+    _, spec, state, seed = _card_state(cuda, fit, rule, d, n)
+    assert pso_step._cluster(n, d, bn, cuda) > 1
+    kw = dict(seed=seed, iteration=11, iters=2, block_n=bn)
+    want = pso_step.fused_plain(*state, spec, **kw)
+    got = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("pos", "vel", "pbp", "pbf", "gp", "gf"), got,
+                          want):
+        if name in ("pbf", "gf"):
+            _fit_close(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=2e-6, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_cnt,hetero", [(4, False), (6, True)])
+def test_cluster_batch_rows_equal_single_swarm_kernel_on_card(cuda, s_cnt,
+                                                              hetero):
+    """At d=120 n=1024 (clusters of 8) every row of a batched launch is the
+    single-swarm kernel on that swarm, bit for bit: the cluster size
+    depends on the swarm's shape, not on S."""
+    problems = [FITNESS[s % 6] for s in range(s_cnt)] if hetero else None
+    _, b, fids, specs = _card_batch(cuda, "rastrigin", "pso", 120, 1024,
+                                    s_cnt, problems)
+    assert pso_step._cluster(1024, 120, 512, cuda) > 1
+    orig = _batch_ops(b)
+    state = [x.clone() for x in orig]
+    pso_step.fused_batch(*state, b.seed, b.iteration, specs, iters=4,
+                         block_n=512, fids=fids)
+    members = [0] * s_cnt if fids is None else fids.tolist()
+    seeds, its = b.seed.tolist(), b.iteration.tolist()
+    for s in range(s_cnt):
+        c = slice(s * 1024, (s + 1) * 1024)
+        one = [x[:, c].contiguous() for x in orig[:3]] + [
+            orig[3][c].clone(), orig[4][:, s].contiguous(),
+            orig[5][s:s + 1].clone()]
+        pso_step.fused(*one, specs[members[s]], seed=seeds[s],
+                       iteration=its[s], iters=4, block_n=512)
+        for a, w in zip(one, (state[0][:, c], state[1][:, c],
+                              state[2][:, c], state[3][c], state[4][:, s],
+                              state[5][s:s + 1])):
+            assert torch.equal(a, w), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["pso", "sso", "lowcost"])
+def test_fused_kernel_d1_exact_on_card(cuda, rule):
+    """At d = 1 there is no cluster and kernel and plain round alike: six
+    iterations over 256 CTAs agree with the plain version exactly."""
+    _, spec, state, seed = _card_state(cuda, "cubic", rule, 1, 131072)
+    assert pso_step._cluster(131072, 1, 512, cuda) == 1
+    kw = dict(seed=seed, iteration=37, iters=6, block_n=512)
+    want = pso_step.fused_plain(*state, spec, **kw)
+    got = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -259,3 +259,66 @@ def test_queue_step_iterated_equals_fused_kernel_on_card(cuda, fit, d, n):
     torch.cuda.synchronize()
     for f in FIELDS:
         assert torch.equal(getattr(s, f), getattr(fused, f)), f
+
+
+# Every objective with every rule on clusters: d=120 (C=8 on an H100) and
+# d=37 (C=2, uneven slices), one block (n=128) and two (n=1024).
+_CLUSTER_SHAPES = ((120, 1024, 512), (37, 128, 128), (120, 128, 128),
+                   (37, 1024, 512))
+_CLUSTER_CASES = [(f, r) + _CLUSTER_SHAPES[i % 4]
+                  for i, (f, r) in enumerate(itertools.product(FITNESS,
+                                                               RULES))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fit,rule,d,n,bn", _CLUSTER_CASES)
+def test_cluster_queue_kernel_matches_plain_on_card(cuda, fit, rule, d, n,
+                                                    bn):
+    """The queue kernel with each particle block split over a cluster
+    against its plain version: positions to rounding, fitness to the
+    objective's ulps, the blocks' winners exactly."""
+    _, spec, state, s = _card_state(cuda, fit, rule, d, n)
+    assert pso_step._cluster(n, d, bn, cuda) > 1
+    kw = dict(seed=s.seed, iteration=37, block_n=bn)
+    want = pso_step.queue_plain(*state, spec, **kw)
+    got = pso_step.queue_step(*[x.clone() for x in state], spec, **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, w, rtol=2e-6, atol=1e-5)
+    scale = max(1.0, float(want[3].abs().max()))   # aux_fit may be -inf
+    for a, w in (got[3], want[3]), (got[4], want[4]):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(got[5], want[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fit,d,n", [("rastrigin", 120, 1024),
+                                     ("rosenbrock", 37, 128),
+                                     ("cubic", 120, 32768)])
+def test_cluster_queue_step_iterated_equals_fused_kernel_on_card(cuda, fit,
+                                                                 d, n):
+    """On clusters too, k queue steps and one fused launch of k iterations
+    agree bit for bit: the same cluster size, so the same sum order."""
+    cfg, _, _, s0 = _card_state(cuda, fit, "pso", d, n)
+    bn = ops._resolve_block(n, None)
+    assert pso_step._cluster(n, d, bn, cuda) > 1
+    s = s0
+    for _ in range(4):
+        s = ops.queue_step(cfg, s)
+    fused = ops.run_queue_lock_fused(cfg, s0, 4)
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        assert torch.equal(getattr(s, f), getattr(fused, f)), f
+
+
+@pytest.mark.gpu
+def test_queue_kernel_d1_exact_on_card(cuda):
+    """At d = 1 (no cluster) the queue kernel rounds as its plain version:
+    every output equal."""
+    _, spec, state, s = _card_state(cuda, "cubic", "pso", 1, 131072)
+    kw = dict(seed=s.seed, iteration=37, block_n=512)
+    want = pso_step.queue_plain(*state, spec, **kw)
+    got = pso_step.queue_step(*[x.clone() for x in state], spec, **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
