@@ -18,17 +18,20 @@ standard library, and exits non-zero on any failure. Phases:
    cross-block epilogue), also bit for bit against one fused launch of as
    many iterations; fused launches of one to six iterations, the async
    kernel with one block, and the async kernel over many blocks held to
-   its invariants; then the queue and fused kernels with each particle
+   its invariants, also on clusters of 2 and 8 with a boundary every
+   iteration; then the queue, fused and async kernels with each particle
    block on a cluster of CTAs, every objective with every rule at d=120
-   and an uneven d=37, one block and two (d=1 kernels must equal their
-   plain versions exactly). Batches:
+   and an uneven d=37, one block (the async kernel bit for bit the fused
+   kernel) and two (the async kernel held to its invariants); d=1 kernels
+   must equal their plain versions exactly. Batches:
    fused launches over S swarms at per-row iteration counters (several
    iterations where kernel and plain round alike), batch rows bit-equal to
    the single-swarm kernel (also across the waves of a batch larger than
    the card holds at once, and at one block a swarm in both variants),
    heterogeneous rows equal to their problem's single-swarm kernel, the
-   same on clusters at d=120, and
-   multi-block async batches held to the invariants row by row. GLA (3c):
+   same on clusters at d=120 for both kernels, and
+   multi-block async batches held to the invariants row by row, also on
+   clusters. GLA (3c):
    the kernel at hymba-1.5B's SSD width, at the xLSTM-350M mLSTM head shape
    and at a padded sequence length;
 4. the main paths, each with every launch count set to 0 just before it and
@@ -45,7 +48,9 @@ standard library, and exits non-zero on any failure. Phases:
    (us per iteration and speed-up over serial); 4d: ``gla_forward`` at
    hymba-1.5B's SSD width;
 5. the fused kernel at each cluster size (5b: single swarms, the queue
-   kernel alone, and batches), each kernel's device time summed over its
+   kernel alone, and batches) and the async kernel at each cluster size
+   (single swarms at d=120, a d=24 batch), each kernel's device time
+   summed over its
    main-path launches under ``torch.profiler`` beside its bound on the same
    launches (5c), then one JSON line ``{"kernels": [...]}`` (launches on
    the main paths,
@@ -343,14 +348,16 @@ def fused_against_plain(fit, d, n, iters, offset, flips, errs, rule="pso",
     return 0
 
 
-def async_invariants(fit, d, n, sync_every, launches, iters) -> None:
-    """The async kernel over several CTAs, whose order of publications is a
-    race: held across launches to gbest monotone, gbest == max(pbest),
-    positions inside the bounds, gbest_pos bit for bit a pbest position of
-    fitness gbest (the torn-write check), and the fitness recomputed at
-    gbest_pos equal to gbest_fit (exactly at D = 1; at D > 1 torch sums the
-    objective in another order, so within the fitness tolerance)."""
-    cfg, spec, state, seed = kernel_state(fit, d, n, seed=1)
+def async_invariants(fit, d, n, sync_every, launches, iters, rule="pso",
+                     say=print) -> None:
+    """The async kernel over several CTAs (or clusters), whose order of
+    publications is a race: held across launches to gbest monotone, gbest
+    == max(pbest), positions inside the bounds, gbest_pos bit for bit a
+    pbest position of fitness gbest (the torn-write check), and the fitness
+    recomputed at gbest_pos equal to gbest_fit (exactly at D = 1; at D > 1
+    torch sums the objective in another order, so within the fitness
+    tolerance)."""
+    cfg, spec, state, seed = kernel_state(fit, d, n, seed=1, rule=rule)
     nb = n // 512
     state = with_locals(state, nb)
     prev = float(state[5][0])
@@ -374,9 +381,10 @@ def async_invariants(fit, d, n, sync_every, launches, iters) -> None:
         check(bool(((pos >= lo) & (pos <= hi)).all()),
               "async positions inside the bounds")
         prev = g
-    print(f"  async {fit} d={d} n={n} {nb} blocks sync_every={sync_every}: "
-          f"{launches} launches of {iters}, gbest {prev:.7g} monotone, == "
-          f"max(pbest), == a pbest column, == f(gbest_pos); in bounds")
+    say(f"  async {fit}/{rule} d={d} n={n} {nb} blocks (clusters of "
+        f"{cluster_of(n, d)}) sync_every={sync_every}: {launches} launches "
+        f"of {iters}, gbest {prev:.7g} monotone, == max(pbest), == a pbest "
+        f"column, == f(gbest_pos); in bounds")
 
 
 def queue_iteration(step, state, spec, seed, iteration, bn):
@@ -453,12 +461,18 @@ def phase_compare(errs) -> None:
     errs["fused_async"] = max(errs["fused_async"], e)
     print(f"  async cubic d=8 n=512 one block, 53 iterations, sync_every=8: "
           f"max |kernel - plain| = {e:.3g}")
-    # Async, several blocks, at both main-path shapes; rastrigin at d=120
-    # does not run to the bounds, so its gbest_pos is no corner of the box
-    # and a torn copy of it shows.
+    # Async, several blocks, at both main-path shapes and on clusters of 2
+    # (n=32768) and 8 (n=1024) at d=120; rastrigin at d=120 does not run to
+    # the bounds, so its gbest_pos is no corner of the box and a torn copy
+    # of it shows. sync_every=1 runs the cluster-wide seqlock every
+    # iteration.
+    for n, c in ((32768, 2), (1024, 8)):
+        check(cluster_of(n, 120) == c, f"d=120 n={n} runs on clusters of {c}")
     for sync_every in (8, 1):
         async_invariants("cubic", 1, 131072, sync_every, 3, 16)
-        async_invariants("rastrigin", 120, 32768, sync_every, 3, 8)
+        for fit in ("rastrigin", "cubic"):
+            for n in (32768, 1024):
+                async_invariants(fit, 120, n, sync_every, 3, 8)
     phase_compare_clusters(errs)
 
 
@@ -467,33 +481,88 @@ def phase_compare(errs) -> None:
 CLUSTER_SHAPES = ((120, 128), (120, 1024), (37, 128), (37, 1024))
 
 
+def async_one_block(fit, d, n, rule, errs) -> int:
+    """One block on a cluster: the async kernel bit for bit the fused
+    kernel at the same C over iterations 6..10, at sync_every=1 (a boundary
+    every iteration) and 2 (two chunks of 2, then a remainder launch of 1),
+    its local best equal to gbest; and against ``fused_async_plain`` within
+    the phase-3 tolerances (up to a comparison flip in the last iteration,
+    as for the fused kernel). Returns the comparison flips met (0 or 1)."""
+    cfg, spec, state, seed = kernel_state(fit, d, n, rule=rule)
+    kw = dict(seed=seed, iteration=5, iters=5,
+              block_n=ops._resolve_block(n, None))
+    fused = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    what = (f"async {fit}/{rule} d={d} n={n} one block on clusters of "
+            f"{cluster_of(n, d)}, iterations 6..10")
+    for sync_every in (1, 2):
+        got = pso_step.fused_async(*[x.clone() for x in with_locals(state, 1)],
+                                   spec, sync_every=sync_every, **kw)
+        torch.cuda.synchronize()
+        for a, b, name in zip(got, fused, FUSED_FIELDS):
+            check(torch.equal(a, b), f"{what}, sync_every={sync_every}: "
+                  f"{name} bit for bit the fused kernel's")
+        check(torch.equal(got[6][:, 0], got[4]) and torch.equal(got[7],
+                                                                 got[5]),
+              f"{what}, sync_every={sync_every}: local best == gbest")
+    want = pso_step.fused_async_plain(*with_locals(state, 1), spec,
+                                      sync_every=2, **kw)
+    if disagreeing(got, want, ASYNC_FIELDS):
+        prev = pso_step.fused_plain(*state, spec, **dict(kw, iters=4))
+        check(is_flip(cfg, prev, want[:6], got[:6]),
+              f"{what}: kernel and plain disagree, max error "
+              f"{disagreeing(got, want, ASYNC_FIELDS)}")
+        return 1
+    e = compare(got, want, ASYNC_FIELDS, what)
+    errs["fused_async"] = max(errs["fused_async"], e)
+    return 0
+
+
 def phase_compare_clusters(errs) -> None:
-    """The queue and fused kernels with each particle block on a cluster,
-    every objective with every rule, at each cluster shape: the queue
-    kernel chained over two iterations against its plain version and bit
-    for bit against one fused launch, and fused launches of one and two
+    """The queue, fused and async kernels with each particle block on a
+    cluster, every objective with every rule, at each cluster shape: the
+    queue kernel chained over two iterations against its plain version and
+    bit for bit against one fused launch, and fused launches of one and two
     iterations against the plain version (up to a comparison flip, as
-    above). One line a shape."""
+    above); with one block the async kernel bit for bit the fused kernel
+    and against its plain version (``async_one_block``), with two blocks
+    held to its invariants at a boundary every iteration. One line a
+    shape."""
     for d, n in CLUSTER_SHAPES:
         c = cluster_of(n, d)
         check(c > 1, f"d={d} n={n} runs on clusters ({c})")
         before = dict(errs)
-        for k in ("queue_step", "fused"):
+        for k in ("queue_step", "fused", "fused_async"):
             errs[k] = 0.0
-        flips = 0
+        flips = async_flips = 0
+        bn = ops._resolve_block(n, None)
         for fit in BUILTINS:
             for rule in RULE_IDS:
                 flips += queue_against_plain(fit, d, n, 2, 5, True, errs,
                                              rule, say=lambda _: None)
                 flips += fused_against_plain(fit, d, n, 2, 5, True, errs,
                                              rule, say=lambda _: None)
-        bn = ops._resolve_block(n, None)
+                if n == bn:
+                    async_flips += async_one_block(fit, d, n, rule, errs)
+                else:
+                    async_invariants(fit, d, n, 1, 2, 4, rule,
+                                     say=lambda _: None)
+        if n == bn:
+            async_line = (f"async == the fused kernel bit for bit at "
+                          f"sync_every 1 and 2 (iterations 6..10, a "
+                          f"remainder launch), max |kernel - plain| "
+                          f"{errs['fused_async']:.3g}, {async_flips} "
+                          f"comparison flip(s)")
+        else:
+            async_line = ("async at sync_every=1, 2 launches of 4: gbest "
+                          "monotone, == max(pbest), == a pbest column, == "
+                          "f(gbest_pos), in bounds")
         print(f"  clusters of {c}: d={d} n={n} ({n // bn} block(s), slices "
               f"of {d // c}-{-(-d // c)} dimensions), 6 objectives x 3 rules,"
               f" iterations 6..7: queue == one fused launch bit for bit; "
               f"max |kernel - plain| queue {errs['queue_step']:.3g}, fused "
-              f"{errs['fused']:.3g}; {flips} comparison flip(s) at near ties")
-        for k in ("queue_step", "fused"):
+              f"{errs['fused']:.3g}; {flips} comparison flip(s) at near "
+              f"ties; {async_line}")
+        for k in ("queue_step", "fused", "fused_async"):
             errs[k] = max(errs[k], before[k])
 
 
@@ -730,6 +799,33 @@ def phase_compare_batches(errs) -> None:
                       f"{c}), 5 iterations", 120, 1024, 4, 512, 5)
     rows_equal_single(f"hetero fused batch six built-ins d=120 n=1024 S=6 "
                       f"(clusters of {c})", 120, 1024, 6, 512, 5, mixed=True)
+    # The async kernel on clusters: one block of 512 (C=8) for the rows,
+    # two blocks (n=1024, C=8) for the invariants.
+    c = cluster_of(512, 120)
+    check(c > 1 and cluster_of(1024, 120) == c,
+          f"d=120 n=512 and n=1024 run on clusters ({c})")
+    batch_against_plain(f"async batch rastrigin d=120 n=512 S=4 (one block, "
+                        f"clusters of {c}), 6 iterations, sync_every=4", 120,
+                        512, 4, 512, 6, errs, "fused_async_batch",
+                        sync_every=4)
+    batch_against_plain(f"hetero async batch six built-ins d=120 n=512 S=6 "
+                        f"(one block, clusters of {c}), 6 iterations, "
+                        f"sync_every=4", 120, 512, 6, 512, 6, errs,
+                        "hetero_fused_async_batch", mixed=True, sync_every=4)
+    rows_equal_single(f"async batch rastrigin d=120 n=512 S=4 (one block, "
+                      f"clusters of {c}), sync_every=4", 120, 512, 4, 512,
+                      11, sync_every=4)
+    rows_equal_single(f"hetero async batch six built-ins d=120 n=512 S=6 "
+                      f"(one block, clusters of {c}), sync_every=4", 120,
+                      512, 6, 512, 11, mixed=True, sync_every=4)
+    for sync_every in (1, 8):
+        async_batch_invariants(f"async batch rastrigin d=120 n=1024 S=4 (2 "
+                               f"blocks, clusters of {c}), sync_every="
+                               f"{sync_every}", 120, 1024, 4, 512,
+                               sync_every, 3, 8)
+    async_batch_invariants(f"hetero async batch six built-ins d=120 n=1024 "
+                           f"S=6 (2 blocks, clusters of {c}), sync_every=1",
+                           120, 1024, 6, 512, 1, 3, 8, mixed=True)
     async_batch_invariants("async batch rastrigin d=10 n=1024 S=128 (2 "
                            "blocks), sync_every=8", 10, 1024, 128, 512, 8, 3,
                            16)
@@ -842,7 +938,7 @@ def phase_main_path(card: str):
                        functools.partial(repro_torch.solve, "cubic",
                                          iters=iters, **kw),
                        bound(d, n, iters, nb if variant == "async" else 0))
-            c = cluster_of(n, d) if variant == "queue_lock" else 1
+            c = cluster_of(n, d) if variant != "reduction" else 1
             print(f"  cubic d={d} n={n} iters={iters} {variant:10s} "
                   f"(clusters of {c}) "
                   f"gbest {g:.7g} (optimum {OPTIMUM_PER_DIM * d:.7g}) "
@@ -922,7 +1018,7 @@ def phase_many_path(card: str, launches: dict):
                    bound(d, n, iters, nb if variant == "async" else 0,
                          objectives=problems or [prob] * s_cnt,
                          members=len(set(problems or [prob]))))
-            c = cluster_of(n, d) if variant == "queue_lock" else 1
+            c = cluster_of(n, d)
             print(f"  {label} x{iters} {variant:10s} (clusters of {c}) "
                   f"{us:9.2f} us/iter for "
                   f"the batch, {s_cnt / dt:9.1f} swarms/s, best of batch "
@@ -1085,8 +1181,8 @@ def table_cell(card, launches, d, n, iters, variants) -> None:
     serial = (total_s - init_s) / s_iters * 1e6
     cut = (f", cut to {s_iters} of {iters} iterations" if s_iters < iters
            else "")
-    print(f"  cubic d={d} n={n} x{iters} (queue and fused on clusters of "
-          f"{cluster_of(n, d)}): serial (numpy, host, the faster "
+    print(f"  cubic d={d} n={n} x{iters} (queue, fused and async on clusters "
+          f"of {cluster_of(n, d)}): serial (numpy, host, the faster "
           f"of two runs, init of {init_s * 1e3:.2f} ms left out{cut}) "
           f"{serial:.2f} us/iter, gbest {serial_fit:.7g}")
     s0 = pso.init_swarm(cfg, 0, device="cuda")
@@ -1453,6 +1549,49 @@ def phase_cluster_sweep(card: str) -> None:
             cells.append(f"C={c} {t / iters * 1e6:.2f}")
         print(f"  fused batch rastrigin d={d} n={n} S={s_cnt}, us an "
               f"iteration of the batch: {', '.join(cells)}; the rule picks "
+              f"C={cluster_of(n, d)}")
+    async_cluster_sweep(card)
+
+
+def async_cluster_sweep(card: str) -> None:
+    """The async kernel at each C of CLUSTER_SIZES where a swarm's clusters
+    all fit at once (it takes the fused kernel's C): cubic d=120 n=32768
+    (the main path's swarm) and n=1024 (Table 5), and the smallest batch
+    shape that takes a cluster, rastrigin d=24 n=1024 S=128. us an
+    iteration of one launch of 24 iterations at sync_every=8, CUDA events
+    over 5 launches after one warm launch."""
+    print(f"phase 5b: async kernel at each cluster size, us an iteration "
+          f"[{card}]")
+    iters, sync_every = 24, 8
+    for d, n, s_cnt, fit in ((120, 32768, 1, "cubic"), (120, 1024, 1, "cubic"),
+                             (24, 1024, 128, "rastrigin")):
+        bn = ops._resolve_block(n, None)
+        nb = n // bn
+        if s_cnt == 1:
+            _, spec, state, seed = kernel_state(fit, d, n)
+            state = with_locals(state, nb)
+
+            def run(c):
+                pso_step.fused_async(*state, spec, seed=seed, iteration=0,
+                                     iters=iters, sync_every=sync_every,
+                                     block_n=bn, cluster=c)
+        else:
+            _, b, _, specs, _ = batch_state(d, n, s_cnt, fit=fit)
+            state = batch_operands(b, nb)
+
+            def run(c):
+                pso_step.fused_async_batch(
+                    *state, b.seed, b.iteration, specs, iters=iters,
+                    sync_every=sync_every, block_n=bn, cluster=c)
+        cells = []
+        for c in (1,) + pso_step.CLUSTER_SIZES:
+            if c > 1 and pso_step._capacity(bn, d, 0, c) < nb:
+                cells.append(f"C={c} does not fit")
+                continue
+            t = sync_time(functools.partial(run, c), 5)
+            cells.append(f"C={c} {t / iters * 1e6:.2f}")
+        print(f"  async {fit} d={d} n={n} S={s_cnt}, us an iteration of the "
+              f"batch: {', '.join(cells)}; the rule picks "
               f"C={cluster_of(n, d)}")
 
 

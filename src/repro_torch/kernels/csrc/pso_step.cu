@@ -61,7 +61,12 @@
 // its RNG indices stay the reference's. The fused kernel's cooperative
 // launch must hold every cluster at once: at 512 threads an H100 keeps 132
 // clusters of 2, 62 of 4 and 30 of 8 resident (chip_smoke.py phase 5b),
-// so N=32768's 64 blocks take clusters of 2. At small D the fused kernel
+// so N=32768's 64 blocks take clusters of 2. The async kernel takes the
+// same C at every shape: a cluster of its normal launch holds its SMs for
+// its whole span, so one that does not fit waits out another's span, and
+// with one block it must equal the fused kernel bit for bit, which only
+// the same C (the same order of the partial sums) gives. At small D the
+// fused kernel
 // is bound by the grid-wide synchronisation of every iteration. The
 // design keeps the whole iteration loop inside one launch (no
 // per-iteration launch latency), keeps the attractor and the bounds in
@@ -646,12 +651,13 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Async queue-lock: a normal launch, one CTA per particle block of each
-// swarm, resident for its whole span. Each chunk runs `chunk` iterations
-// against the block's local best in shared memory; the swarm's shared
-// gbest (fit + D floats, which no single atomic covers) is touched only at
-// chunk boundaries. More CTAs than fit on the card at once is safe: a CTA
-// that holds a lock, or has a write in flight, is running.
+// Async queue-lock: a normal launch, one CTA, or one cluster of C CTAs
+// (CL), per particle block of each swarm, resident for its whole span. Each
+// chunk runs `chunk` iterations against the block's local best in shared
+// memory; the swarm's shared gbest (fit + D floats, which no single atomic
+// covers) is touched only at chunk boundaries. More CTAs than fit on the
+// card at once is safe: a CTA that holds a lock, or has a write in flight,
+// is running.
 //
 // At a boundary a CTA publishes its local best if it beats gbest, otherwise
 // pulls gbest if it beats the local best — the TPU kernel's chunk-exit
@@ -676,6 +682,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
 // sees gbest >= its local best would also lose under the lock. It then
 // takes the lock, checks again, and writes. At steady state improvements
 // are rare and a boundary costs one L2 read.
+//
+// On a cluster the particle step is the fused kernel's (step_cluster) and
+// the boundary runs once a cluster (boundary_cluster): thread 0 of rank 0
+// alone reads gbest, decides, spins on the lock and moves the sequence;
+// every rank copies its slice of the D floats.
 // ---------------------------------------------------------------------------
 enum BoundaryAct { kNone = 0, kPublish = 1, kPull = 2 };
 
@@ -746,20 +757,134 @@ __device__ __forceinline__ float boundary(const Params& p, const Cta& c,
   return lf;
 }
 
-template <int F, int R>
+// The boundary on a cluster. Rank 0's thread 0 (the lead) decides for the
+// cluster and hands its decision, the fitness it read and the sequence it
+// saw to every rank through its own shared memory (s_act, s_g, read over
+// DSMEM after a cluster.sync()): ranks that read gf themselves could see
+// different values, since another cluster may publish between their reads,
+// decide differently and deadlock at the next cluster barrier. Each slot of
+// s_act is written once a boundary and read after the barrier that follows
+// the write: [0] the first decision, [1] the decision under the lock, [2]
+// the sequence a pull started from, [3] whether that pull was torn; the
+// next write to a slot comes after at least one more barrier (the chunk's
+// iterations, or a retry's first), which every reader has passed.
+//
+// Memory order: barrier.cluster orders memory only at cluster scope, while
+// readers on other SMs observe gp at gpu scope. So every rank fences at gpu
+// scope (__threadfence) after its slice's stores or loads and before the
+// cluster barrier after which the lead moves or re-reads the sequence:
+// that fence is what makes a published slice visible before the sequence
+// turns even, and a pulled slice read before the sequence is checked again.
+// The lead spins alone; the cluster's other threads wait at the barrier. A
+// cluster is co-scheduled, so a cluster that holds the lock is resident.
+__device__ __forceinline__ float boundary_cluster(const Params& p,
+                                                  const Cta& c, float* att,
+                                                  float lf, bool publish,
+                                                  bool pull, float* s_g,
+                                                  int* s_act) {
+  const cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool lead = c.rank == 0 && tid == 0;
+  unsigned* mutex = p.lock + 2 * (size_t)c.s;
+  unsigned* seq = mutex + 1;
+  float* gf = p.gf + c.s;
+  float* gp = p.gp + c.s;             // column s of [D, S]: stride s_cnt
+  const size_t ld = (size_t)p.s_cnt;
+  const int* act_of = cl.map_shared_rank(s_act, 0);   // the lead's slots
+  if (lead) {
+    const float g = __ldcg(gf);
+    s_act[0] = (publish && lf > g) ? kPublish
+                                   : ((pull && g > lf) ? kPull : kNone);
+  }
+  cl.sync();
+  int act = act_of[0];
+  if (act == kPublish) {
+    if (lead) {
+      while (atomicCAS(mutex, 0u, 1u) != 0u) __nanosleep(64);
+      __threadfence();
+      const float g = __ldcg(gf);
+      const bool win = lf > g;
+      if (win) {
+        atomicAdd(seq, 1u);                 // odd: a write is in flight
+        __threadfence();
+      }
+      s_act[1] = win ? kPublish : ((pull && g > lf) ? kPull : kNone);
+    }
+    cl.sync();
+    act = act_of[1];
+    if (act == kPublish)
+      for (int k = c.k0 + tid; k < c.k1; k += nt)
+        __stcg(gp + k * ld, att[k - c.k0]);
+    __threadfence();                        // the slice, at gpu scope
+    cl.sync();
+    if (lead) {
+      if (act == kPublish) {
+        __stcg(gf, lf);
+        __threadfence();
+        atomicAdd(seq, 1u);                 // even: the write is complete
+      }
+      __threadfence();
+      atomicExch(mutex, 0u);
+    }
+  }
+  if (act == kPull) {
+    for (;;) {
+      if (lead) {
+        unsigned s1;
+        while ((s1 = __ldcg(seq)) & 1u) __nanosleep(32);
+        __threadfence();
+        *s_g = __ldcg(gf);
+        s_act[2] = (int)s1;
+      }
+      cl.sync();
+      for (int k = c.k0 + tid; k < c.k1; k += nt)
+        att[k - c.k0] = __ldcg(gp + k * ld);
+      __threadfence();                      // the slice, before the re-read
+      cl.sync();
+      if (lead) s_act[3] = __ldcg(seq) != (unsigned)s_act[2];
+      cl.sync();
+      if (!act_of[3]) break;                // torn: every rank retries
+    }
+    lf = *cl.map_shared_rank(s_g, 0);       // gbest only grows: still > lf
+  }
+  return lf;
+}
+
+// The chunk loop. On a cluster (CL) each rank keeps its own copy of the
+// block's local best lf and of the queue key s_key, and they stay
+// identical without any communication inside a chunk: step_cluster gives
+// every rank the same fitness bits for every particle, so every rank
+// raises the same keys, takes the same block winner and copies its own
+// slice of it; the boundary hands every rank the lead's gbest. pbest
+// fitness is kept in a register by every rank, as in the fused kernel.
+// The partials alternate by iteration parity across chunks; every
+// boundary adds cluster barriers, which only separate a parity's write
+// from its next reuse further.
+template <int F, int R, bool CL>
 __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
                                             float* sm, float lf,
                                             unsigned long long* s_key,
                                             float* s_g, int* s_act) {
-  const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
   const int chunks = p.iters / p.chunk;
+  float* part = partials(c, sm);
+  float pbf = CL ? p.pbf[c.col + c.b * p.bn + tid] : 0.0f;
   int par = 0;
   for (int ch = 0; ch <= chunks; ++ch) {
-    lf = boundary(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act);
+    if constexpr (CL)
+      lf = boundary_cluster(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act);
+    else
+      lf = boundary(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act);
     if (ch == chunks) break;
     for (int tl = 0; tl < p.chunk; ++tl) {
       const uint32_t it = c.it0 + (uint32_t)(ch * p.chunk + tl) + 1u;
-      const unsigned long long mine = step_block<F, R>(p, c, it, sm, lf);
+      unsigned long long mine;
+      if constexpr (CL)
+        mine = step_cluster<F, R>(p, c, it, sm, lf, part + par * 3 * p.bn,
+                                  pbf);
+      else
+        mine = step_block<F, R>(p, c, it, sm, lf);
       if (mine) atomicMax(&s_key[par], mine);
       __syncthreads();
       // s_key[par ^ 1] was last read before the barrier above; clearing it
@@ -769,7 +894,8 @@ __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
       if (bk) {     // every candidate beats lf, so the block's best is taken
         lf = key_fit(bk);
         const int wi = c.col + key_index(bk);
-        for (int k = tid; k < D; k += nt) sm[k] = p.pos[(size_t)k * p.ld + wi];
+        for (int k = k0 + tid; k < k1; k += nt)
+          sm[k - k0] = p.pos[(size_t)k * p.ld + wi];
       }
       __syncthreads();
       par ^= 1;
@@ -784,35 +910,52 @@ __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
 // async ran 54.96 and 56.43 us an iteration with it against 67.38 and 68.40
 // without (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W, one call, runs in
 // the order with, without, without, with); at d=1 the two were within the
-// runs' spread.
-template <int F, int R>
+// runs' spread. On a cluster every rank writes its slice of the local best
+// and rank 0 its fitness, and a last cluster.sync() keeps every CTA until
+// no rank can still read its shared memory (the lead's slots, the
+// partials); the remainder phase's launch resumes from lp and lf.
+template <int F, int R, bool CL>
 __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key[2];
   __shared__ float s_g;
-  __shared__ int s_act[3];
-  const Cta c = cta_of<false>(p);
+  __shared__ int s_act[CL ? 4 : 3];
+  const Cta c = cta_of<CL>(p);
   const size_t slot = (size_t)c.s * p.nb + c.b;   // per-(swarm, block) local
   const size_t lds = (size_t)p.s_cnt * p.nb;
-  load_rows<false>(p, c, sm, p.lp, lds, slot);
+  load_rows<CL>(p, c, sm, p.lp, lds, slot);
   if (threadIdx.x == 0) s_key[0] = s_key[1] = 0ull;
   float lf = p.lf[slot];
   __syncthreads();
   if constexpr (F < kHetero) {
-    lf = async_body<F, R>(p, c, sm, lf, s_key, &s_g, s_act);
+    lf = async_body<F, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
   } else {
-    switch (p.member_fit[c.member]) {   // uniform across the CTA
-      case 0: lf = async_body<0, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
-      case 1: lf = async_body<1, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
-      case 2: lf = async_body<2, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
-      case 3: lf = async_body<3, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
-      case 4: lf = async_body<4, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
-      default: lf = async_body<5, R>(p, c, sm, lf, s_key, &s_g, s_act); break;
+    switch (p.member_fit[c.member]) {   // uniform across the cluster
+      case 0:
+        lf = async_body<0, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        break;
+      case 1:
+        lf = async_body<1, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        break;
+      case 2:
+        lf = async_body<2, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        break;
+      case 3:
+        lf = async_body<3, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        break;
+      case 4:
+        lf = async_body<4, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        break;
+      default:
+        lf = async_body<5, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        break;
     }
   }
-  for (int k = threadIdx.x; k < p.d; k += blockDim.x)
-    p.lp[(size_t)k * lds + slot] = sm[k];
-  if (threadIdx.x == 0) p.lf[slot] = lf;
+  const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
+  for (int k = k0 + (int)threadIdx.x; k < k1; k += blockDim.x)
+    p.lp[(size_t)k * lds + slot] = sm[k - k0];
+  if (threadIdx.x == 0 && c.rank == 0) p.lf[slot] = lf;
+  if constexpr (CL) cg::this_cluster().sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -876,7 +1019,8 @@ const Kernel kFusedGrid[2][kHetero + 1][kRuleCount] = {
 const Kernel kFusedBlock[2][kHetero + 1][kRuleCount] = {
     PSO_TABLE(fused_kernel, , false, false),
     PSO_TABLE(fused_kernel, , false, true)};
-const Kernel kAsync[kHetero + 1][kRuleCount] = PSO_TABLE(async_kernel, );
+const Kernel kAsync[2][kHetero + 1][kRuleCount] = {
+    PSO_TABLE(async_kernel, , false), PSO_TABLE(async_kernel, , true)};
 // [cluster][objective][rule]: one swarm, no heterogeneous form
 const Kernel kQueue[2][kFitnessCount][kRuleCount] = {
     {PSO_BUILTINS(queue_kernel, , false)},
@@ -1014,22 +1158,23 @@ int pso_fused_resident(int fit, int rule, int bn, int d, int csize,
   return (int)resident(k, bn, d, csize, out);
 }
 
-// The fewest clusters of csize CTAs that any fused kernel (every objective,
-// the heterogeneous one, every rule) keeps resident at (bn, d): the card's
-// capacity on which the wrapper chooses csize, the same for every kernel
-// so that the choice depends on the shape alone.
+// The fewest clusters of csize CTAs that any fused or async kernel (every
+// objective, the heterogeneous one, every rule) keeps resident at (bn, d):
+// the card's capacity on which the wrapper chooses csize, the same for
+// every kernel so that the choice depends on the shape alone.
 int pso_cluster_capacity(int bn, int d, int csize, int* out) {
   if (csize < 2 || bad_cluster(csize, d, bn))
     return (int)cudaErrorInvalidValue;
   int least = -1;
-  for (int f = 0; f <= kHetero; ++f)
-    for (int r = 0; r < kRuleCount; ++r) {
-      int got = 0;
-      const cudaError_t err =
-          resident(kFusedGrid[1][f][r], bn, d, csize, &got);
-      if (err != cudaSuccess) return (int)err;
-      least = least < 0 || got < least ? got : least;
-    }
+  const Kernel (*tables[])[kRuleCount] = {kFusedGrid[1], kAsync[1]};
+  for (const auto table : tables)
+    for (int f = 0; f <= kHetero; ++f)
+      for (int r = 0; r < kRuleCount; ++r) {
+        int got = 0;
+        const cudaError_t err = resident(table[f][r], bn, d, csize, &got);
+        if (err != cudaSuccess) return (int)err;
+        least = least < 0 || got < least ? got : least;
+      }
   *out = least;
   return (int)cudaSuccess;
 }
@@ -1073,21 +1218,24 @@ int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
 }
 
 // `iters` async iterations of all s_cnt swarms, `chunk` iterations between
-// boundaries; `it_off` is added to every swarm's iteration counter. Null
-// seeds/its take seed0/it00 (one swarm). One CTA a particle block.
+// boundaries, each particle block on a cluster of csize CTAs (1: one CTA):
+// a normal launch of s_cnt*(n/bn)*csize CTAs. `it_off` is added to every
+// swarm's iteration counter. Null seeds/its take seed0/it00 (one swarm).
 int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
                      float* gf, const float* bounds, const int* member_fit,
                      const int* fids, const unsigned* seeds,
                      const unsigned* its, float* lp, float* lf,
                      unsigned* lock, int n, int d, int bn, int s_cnt,
-                     int iters, int chunk, unsigned it_off, unsigned seed0,
-                     unsigned it00, int fit, int rule, float w, float c1,
-                     float c2, float k0, float k1, float k2, void* stream) {
-  const Kernel k = pick(kAsync, fit, rule);
-  if (!k || bad_shape(n, d, bn, s_cnt) || chunk <= 0 || iters % chunk ||
-      (fit == kHetero && !(member_fit && fids)) ||
+                     int iters, int chunk, int csize, unsigned it_off,
+                     unsigned seed0, unsigned it00, int fit, int rule, float w,
+                     float c1, float c2, float k0, float k1, float k2,
+                     void* stream) {
+  if (bad_shape(n, d, bn, s_cnt) || bad_cluster(csize, d, bn) || chunk <= 0 ||
+      iters % chunk || (fit == kHetero && !(member_fit && fids)) ||
       (!(seeds && its) && s_cnt != 1))
     return (int)cudaErrorInvalidValue;
+  const Kernel k = pick(kAsync[csize > 1], fit, rule);
+  if (!k) return (int)cudaErrorInvalidValue;
   Params p = make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids,
                          seeds, its, seed0, it00, n, d, bn, s_cnt, iters, w,
                          c1, c2, k0, k1, k2);
@@ -1096,11 +1244,13 @@ int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
   p.lock = lock;
   p.chunk = chunk;
   p.it_off = it_off;
-  const size_t smem = smem_bytes(d, 1, bn);
+  p.csize = csize;
+  const size_t smem = smem_bytes(d, csize, bn);
   cudaError_t err = prepare(k, smem);
+  if (err == cudaSuccess)
+    err = launch(k, (unsigned)s_cnt * p.nb * csize, threads_for(bn), smem,
+                 (cudaStream_t)stream, csize, false, &p);
   if (err != cudaSuccess) return (int)err;
-  k<<<(unsigned)s_cnt * p.nb, threads_for(bn), smem,
-      (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

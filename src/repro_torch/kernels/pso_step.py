@@ -42,11 +42,11 @@ their inputs alone:
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; the
 batch wrappers count heterogeneous launches in ``.hetero_launches``.
 
-The queue and fused kernels run each particle block on a cluster of C
-CTAs, each CTA owning a slice of the dimensions; ``cluster_size`` picks C
-from the swarm's shape alone, so a batch row and the single swarm, and the
-queue and the fused kernel, sum each objective in the same order. The
-async kernel runs one CTA a block.
+All three kernels run each particle block on a cluster of C CTAs, each
+CTA owning a slice of the dimensions; ``cluster_size`` picks C from the
+swarm's shape alone, the same for every kernel, so a batch row and the
+single swarm, the queue and the fused kernel, and the async kernel with one
+block and the fused kernel, sum each objective in the same order.
 """
 from __future__ import annotations
 
@@ -312,7 +312,7 @@ def _lib():
     lib.pso_cluster_capacity.argtypes = [i] * 3 + [c.POINTER(i)]
     lib.pso_fused_launch.argtypes = ([p] * 13 + [i] * 8 + [u, u, i, i]
                                      + [f] * 6 + [p])
-    lib.pso_async_launch.argtypes = ([p] * 14 + [i] * 6 + [u, u, u, i, i]
+    lib.pso_async_launch.argtypes = ([p] * 14 + [i] * 7 + [u, u, u, i, i]
                                      + [f] * 6 + [p])
     lib.pso_queue_launch.argtypes = ([p] * 9 + [i] * 4 + [u, u, i, i]
                                      + [f] * 6 + [p])
@@ -389,22 +389,25 @@ MAX_CLUSTER_BLOCK = 512
 
 def cluster_size(n: int, d: int, block_n: int, capacity) -> int:
     """How many CTAs each particle block of a swarm of ``n`` particles in
-    ``d`` dimensions runs on, for the queue and the fused kernels: the
-    largest C in ``CLUSTER_SIZES`` that leaves every CTA at least
-    ``MIN_SLICE`` dimensions and, with several blocks, still lets the card
-    hold all ``n // block_n`` clusters at once (``capacity(C)``: the fewest
-    clusters of C any fused kernel keeps resident), since the fused kernel's
-    cooperative launch needs them all; 1 (one CTA a block, no cluster code)
-    otherwise, at ``d < 2 * MIN_SLICE`` and so always at d = 1, and for
-    blocks over ``MAX_CLUSTER_BLOCK``.
+    ``d`` dimensions runs on, for all three kernels: the largest C in
+    ``CLUSTER_SIZES`` that leaves every CTA at least ``MIN_SLICE``
+    dimensions and, with several blocks, still lets the card hold all
+    ``n // block_n`` clusters at once (``capacity(C)``: the fewest clusters
+    of C any fused or async kernel keeps resident), since the fused
+    kernel's cooperative launch needs them all and an async cluster that
+    does not fit waits out another's whole span; 1 (one CTA a block, no
+    cluster code) otherwise, at ``d < 2 * MIN_SLICE`` and so always at
+    d = 1, and for blocks over ``MAX_CLUSTER_BLOCK``.
 
     Why the largest: one thread walks its particle's dimensions in turn,
     so a CTA's iteration time grows with its slice (D / C steps), and at
     the main shapes a swarm's blocks alone put too few threads on the card
     (64 CTAs of 512 threads at n=32768, 12% of an H100's thread slots).
     The choice depends on the swarm's shape and the card, never on the
-    number of swarms S: a batch row then sums its objective in the single
-    swarm's order, and the queue kernel in the fused kernel's."""
+    number of swarms S or the kernel: a batch row then sums its objective
+    in the single swarm's order, the queue kernel in the fused kernel's,
+    and the async kernel with one block in the fused kernel's, which it
+    must equal bit for bit."""
     if block_n > MAX_CLUSTER_BLOCK:
         return 1
     nb = n // block_n
@@ -439,6 +442,21 @@ def launch_plan(n: int, d: int, block_n: int, s_cnt: int, capacity,
     return c, held // nb
 
 
+def async_plan(n: int, d: int, block_n: int, s_cnt: int, capacity,
+               cluster=None) -> Tuple[int, int]:
+    """(cluster size, CTAs) of each async launch on S = ``s_cnt`` swarms:
+    the fused kernel's C for the swarm's shape (``cluster_size``, or
+    ``cluster`` where the caller sets it), and one normal launch of all S
+    swarms' ``n // block_n`` clusters of C CTAs. A grid of 2^31 CTAs or
+    more raises."""
+    c = cluster_size(n, d, block_n, capacity) if cluster is None else cluster
+    ctas = s_cnt * (n // block_n) * c
+    if ctas >= 2 ** 31:
+        raise ValueError(f"async kernel: {ctas} CTAs in one launch; a grid "
+                         f"holds fewer than 2^31 — use a larger block_n")
+    return c, ctas
+
+
 def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
@@ -459,8 +477,9 @@ def _resident(fit_id: int, rule_id: int, block_n: int, d: int, csize: int,
 
 @functools.lru_cache(maxsize=None)
 def _capacity(block_n: int, d: int, device_index: int, csize: int) -> int:
-    """The fewest clusters of ``csize`` CTAs that any fused kernel keeps
-    resident at (block_n, d) on the card: ``cluster_size``'s capacity."""
+    """The fewest clusters of ``csize`` CTAs that any fused or async kernel
+    keeps resident at (block_n, d) on the card: ``cluster_size``'s
+    capacity."""
     import ctypes
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
@@ -678,28 +697,32 @@ def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
 
 def fused_async(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec, *,
                 seed: int, iteration: int, iters: int, sync_every: int,
-                block_n: int):
+                block_n: int, cluster=None):
     """``iters`` async queue-lock iterations of one swarm, in place: on
-    CUDA tensors one launch of ``n // block_n`` CTAs per ``async_spans``
-    phase (the remainder is a second launch), the plain version on CPU
-    tensors."""
+    CUDA tensors one launch of ``n // block_n`` clusters of
+    ``cluster_size`` CTAs (the fused kernel's C, so that with one block the
+    two agree bit for bit) per ``async_spans`` phase (the remainder is a
+    second launch), the plain version on CPU tensors. ``cluster`` sets the
+    cluster size in place of ``cluster_size``'s (chip_smoke.py times each
+    size); the plain version, the reference's math, ignores it."""
     state = (pos, vel, pbp, pbf, gp, gf, lp, lf)
     kw = dict(seed=seed, iteration=iteration, iters=iters,
               sync_every=sync_every, block_n=block_n)
     if pos.device.type == "cpu":
         return _copy_into(state, fused_async_plain(*state, spec, **kw))
-    _fused_async_launch(state, spec, **kw)
+    _fused_async_launch(state, spec, cluster=cluster, **kw)
     return state
 
 
 def _fused_async_launch(state, spec: KernelSpec, *, seed: int,
                         iteration: int, iters: int, sync_every: int,
-                        block_n: int) -> None:
+                        block_n: int, cluster=None) -> None:
     """The kernel path of ``fused_async``: the batched launch with S = 1."""
     pos, vel, pbp, pbf, gp, gf, lp, lf = state
     fused_async.launches += _fused_async_batch_launch(
         (pos, vel, pbp, pbf, gp[:, None], gf, lp, lf), [seed], [iteration],
-        (spec,), iters=iters, sync_every=sync_every, block_n=block_n)
+        (spec,), iters=iters, sync_every=sync_every, block_n=block_n,
+        cluster=cluster)
 
 
 fused_async.launches = 0
@@ -707,18 +730,20 @@ fused_async.launches = 0
 
 def fused_async_batch(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its, specs,
                       *, iters: int, sync_every: int, block_n: int,
-                      fids=None):
+                      fids=None, cluster=None):
     """``iters`` async queue-lock iterations of S swarms, in place (layout
     of ``fused_async_batch_plain``): on CUDA tensors one launch of
-    ``S * n // block_n`` CTAs per ``async_spans`` phase, on CPU tensors the
-    plain version. ``fids`` makes the batch heterogeneous, counted in
-    ``fused_async_batch.hetero_launches``."""
+    ``S * n // block_n`` clusters (``async_plan``) per ``async_spans``
+    phase, on CPU tensors the plain version. ``fids`` makes the batch
+    heterogeneous, counted in ``fused_async_batch.hetero_launches``;
+    ``cluster`` as in ``fused_async``."""
     state = (pos, vel, pbp, pbf, gp, gf, lp, lf)
     kw = dict(iters=iters, sync_every=sync_every, block_n=block_n, fids=fids)
     if pos.device.type == "cpu":
         return _copy_into(state, fused_async_batch_plain(
             *state, seeds, its, specs, **kw))
-    launched = _fused_async_batch_launch(state, seeds, its, specs, **kw)
+    launched = _fused_async_batch_launch(state, seeds, its, specs,
+                                         cluster=cluster, **kw)
     if fids is None:
         fused_async_batch.launches += launched
     else:
@@ -731,22 +756,26 @@ fused_async_batch.hetero_launches = 0
 
 
 def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
-                              sync_every: int, block_n: int,
-                              fids=None) -> int:
-    """The kernel path of the async wrappers; returns the launches made."""
+                              sync_every: int, block_n: int, fids=None,
+                              cluster=None) -> int:
+    """The kernel path of the async wrappers (``async_plan``); returns the
+    launches made. ``cluster`` sets the cluster size in place of
+    ``cluster_size``'s."""
     extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
         state, seeds, its, specs, fids, block_n)
     pos = state[0]
     lib = _lib()
     launches = 0
     with torch.cuda.device(pos.device):
+        c, _ = async_plan(n, d, block_n, s_cnt, functools.partial(
+            _capacity, block_n, d, _device_index(pos.device)), cluster)
         lock = torch.zeros(2 * s_cnt, dtype=torch.int32, device=pos.device)
         ptrs = _ptrs(list(state[:6]) + extra + list(state[6:]) + [lock])
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         for off, span, chunk in async_spans(iters, sync_every):
             _check(lib.pso_async_launch(
-                *ptrs, n, d, block_n, s_cnt, span, chunk, off & 0xFFFFFFFF,
-                *scalars, fit_id, rule_id, *coef, stream),
+                *ptrs, n, d, block_n, s_cnt, span, chunk, c,
+                off & 0xFFFFFFFF, *scalars, fit_id, rule_id, *coef, stream),
                 "async kernel launch")
             launches += 1
     return launches

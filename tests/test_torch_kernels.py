@@ -260,14 +260,17 @@ def _resident(c):
     return 264 if c == 1 else _CAPACITY(c)
 
 
-@pytest.mark.parametrize("n,d,bn,want", [
+_CLUSTER_RULE_CASES = [
     (32768, 120, 512, 4),     # 64 blocks: 64 clusters of 8 do not fit
     (8192, 120, 512, 8), (1024, 120, 512, 8), (128, 120, 128, 8),
     (1024, 37, 512, 2),       # slices of 18 and 19 dimensions
     (1024, 48, 512, 4), (1024, 24, 512, 2), (1024, 23, 512, 1),
     (1024, 10, 512, 1), (131072, 120, 512, 1),   # 256 blocks: no cluster
     (1024, 120, 1024, 1),     # a cluster takes one particle a thread
-])
+]
+
+
+@pytest.mark.parametrize("n,d,bn,want", _CLUSTER_RULE_CASES)
 def test_cluster_size_follows_the_shape(n, d, bn, want):
     """The rule: the largest C of 2, 4, 8 that leaves each CTA at least
     MIN_SLICE dimensions and lets all of a swarm's clusters be resident;
@@ -306,6 +309,36 @@ def test_launch_plan_raises_when_a_swarm_cannot_be_resident():
         pso_step.launch_plan(131072, 1, 256, 1, _CAPACITY, _resident)
 
 
+@pytest.mark.parametrize("n,d,bn,want", _CLUSTER_RULE_CASES)
+def test_async_cluster_is_the_fused_kernels(n, d, bn, want):
+    """The async kernel runs each block on the fused kernel's cluster size
+    at every shape: with one block the two must agree bit for bit, which
+    only the same order of the partial sums gives."""
+    c, ctas = pso_step.async_plan(n, d, bn, 1, _CAPACITY)
+    assert c == want == pso_step.launch_plan(n, d, bn, 1, _CAPACITY,
+                                             _resident)[0]
+    assert ctas == (n // bn) * c
+    assert pso_step.async_plan(n, d, bn, 1, _CAPACITY, cluster=2)[0] == 2
+
+
+@pytest.mark.parametrize("n,d,bn", [(1024, 120, 512), (32768, 120, 512),
+                                    (128, 120, 128), (1024, 24, 512),
+                                    (1024, 10, 512)])
+def test_async_plan_cluster_independent_of_swarm_count(n, d, bn):
+    """A batch's rows take the single swarm's cluster size for every S, so
+    a row sums its objective in the single swarm's order; the one normal
+    launch grows with S."""
+    c = pso_step.cluster_size(n, d, bn, _CAPACITY)
+    for s in (1, 4, 6, 128, 300, 1024):
+        assert pso_step.async_plan(n, d, bn, s, _CAPACITY) == (
+            c, s * (n // bn) * c)
+
+
+def test_async_plan_raises_beyond_the_grid():
+    with pytest.raises(ValueError, match="2\\^31"):
+        pso_step.async_plan(2 ** 20, 1, 1, 2 ** 11, _CAPACITY)
+
+
 def test_kernel_path_on_cpu_tensors_raises():
     tc = pso.PSOConfig(dim=2, particle_cnt=128).resolved()
     s = pso.init_swarm(tc, 0, device="cpu")
@@ -315,15 +348,50 @@ def test_kernel_path_on_cpu_tensors_raises():
         pso_step._fused_launch(state, spec, seed=0, iteration=0, iters=1,
                                block_n=128)
     lp, lf = state[4][:, None].clone(), state[5].clone()
-    with pytest.raises(ValueError, match="CUDA"):
-        pso_step._fused_async_launch(state + (lp, lf), spec, seed=0,
-                                     iteration=0, iters=1, sync_every=1,
-                                     block_n=128)
+    for cluster in (None, 2):
+        with pytest.raises(ValueError, match="CUDA"):
+            pso_step._fused_async_launch(state + (lp, lf), spec, seed=0,
+                                         iteration=0, iters=1, sync_every=1,
+                                         block_n=128, cluster=cluster)
     # the CPU wrappers ran no kernel
     before = (pso_step.fused.launches, pso_step.fused_async.launches)
     ops.run_queue_lock_fused(tc, s, 2)
     ops.run_queue_lock_fused_async(tc, s, 2)
     assert (pso_step.fused.launches, pso_step.fused_async.launches) == before
+
+
+@pytest.mark.parametrize("cluster", [None, 2, 8])
+def test_async_wrappers_on_cpu_tensors_run_the_plain_version(cluster):
+    """``cluster=`` chooses the kernel's cluster size; on CPU tensors the
+    wrappers run the plain versions, which know nothing of clusters, and
+    launch nothing."""
+    tc = pso.PSOConfig(dim=24, particle_cnt=256, fitness="rastrigin")
+    tc = tc.resolved()
+    state = _with_locals(ops.state_to_kernel(pso.init_swarm(tc, 3,
+                                                            device="cpu")), 2)
+    spec = ops.kernel_spec(tc)
+    kw = dict(seed=3, iteration=4, iters=5, sync_every=2, block_n=128)
+    want = pso_step.fused_async_plain(*state, spec, **kw)
+    before = pso_step.fused_async.launches
+    got = pso_step.fused_async(*[x.clone() for x in state], spec,
+                               cluster=cluster, **kw)
+    assert pso_step.fused_async.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    b = ms.init_batch(tc, BATCH_SEEDS[:3], device="cpu")
+    bstate = [ops.pack_dmajor_batch(b.pos), ops.pack_dmajor_batch(b.vel),
+              ops.pack_dmajor_batch(b.pbest_pos), b.pbest_fit.reshape(-1),
+              ops.pack_dmajor(b.gbest_pos), b.gbest_fit.clone()]
+    bstate += [bstate[4].repeat_interleave(2, 1),
+               bstate[5].repeat_interleave(2)]
+    bkw = dict(iters=5, sync_every=2, block_n=128)
+    want = pso_step.fused_async_batch_plain(*bstate, b.seed, b.iteration,
+                                            (spec,), **bkw)
+    got = pso_step.fused_async_batch(*[x.clone() for x in bstate], b.seed,
+                                     b.iteration, (spec,), cluster=cluster,
+                                     **bkw)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
 
 
 def test_kernel_spec_rejects_custom_objective_and_dtype():
@@ -793,3 +861,77 @@ def test_fused_kernel_d1_exact_on_card(cuda, rule):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# --- the async kernel on clusters, on the card -------------------------------
+
+_ONE_BLOCK_CASES = [(f, r) for f in FITNESS for r in ("pso", "sso", "lowcost")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fit,rule", _ONE_BLOCK_CASES)
+def test_cluster_async_kernel_one_block_equals_fused_on_card(cuda, fit, rule):
+    """One block of 128 particles at d=120 on clusters of 8: the async
+    kernel equals the fused kernel bit for bit for any chunk length, here
+    every iteration a boundary (sync_every=1) and two chunks plus an
+    ``async_spans`` remainder (sync_every=2, two launches); its local best
+    is gbest."""
+    _, spec, state, seed = _card_state(cuda, fit, rule, 120, 128)
+    assert pso_step._cluster(128, 120, 128, cuda) == 8
+    kw = dict(seed=seed, iteration=5, iters=5, block_n=128)
+    want = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    for sync_every in (1, 2):
+        got = pso_step.fused_async(*[x.clone() for x in
+                                     _with_locals(state, 1)], spec,
+                                   sync_every=sync_every, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), sync_every
+        assert torch.equal(got[6][:, 0], got[4])
+        assert torch.equal(got[7], got[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c", [(32768, 2), (1024, 8)])
+@pytest.mark.parametrize("fit", ["rastrigin", "cubic"])
+def test_cluster_async_kernel_multi_block_invariants_on_card(cuda, n, c, fit):
+    """Several blocks on clusters, a boundary every iteration: the
+    cluster-wide seqlock holds every invariant (a torn or lost publish
+    shows as a gbest_pos that is no pbest column)."""
+    cfg, spec, state, seed = _card_state(cuda, fit, "pso", 120, n)
+    assert pso_step._cluster(n, 120, 512, cuda) == c
+    _assert_async_invariants(cfg, spec, _with_locals(state, n // 512), seed,
+                             iters=8, sync_every=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_cnt,hetero", [(4, False), (6, True)])
+def test_cluster_async_batch_rows_equal_single_swarm_kernel_on_card(
+        cuda, s_cnt, hetero):
+    """At d=120 n=512 (one block on a cluster of 8) every row of a batched
+    async launch is the single-swarm async kernel on that swarm, bit for
+    bit, across a remainder launch."""
+    problems = [FITNESS[s % 6] for s in range(s_cnt)] if hetero else None
+    _, b, fids, specs = _card_batch(cuda, "rastrigin", "pso", 120, 512,
+                                    s_cnt, problems)
+    assert pso_step._cluster(512, 120, 512, cuda) == 8
+    orig = _batch_ops(b, nb=1)
+    state = [x.clone() for x in orig]
+    kw = dict(iters=11, sync_every=4, block_n=512)
+    pso_step.fused_async_batch(*state, b.seed, b.iteration, specs,
+                               fids=fids, **kw)
+    members = [0] * s_cnt if fids is None else fids.tolist()
+    seeds, its = b.seed.tolist(), b.iteration.tolist()
+    for s in range(s_cnt):
+        c = slice(s * 512, (s + 1) * 512)
+        one = [x[:, c].contiguous() for x in orig[:3]] + [
+            orig[3][c].clone(), orig[4][:, s].contiguous(),
+            orig[5][s:s + 1].clone(), orig[6][:, s:s + 1].contiguous(),
+            orig[7][s:s + 1].clone()]
+        pso_step.fused_async(*one, specs[members[s]], seed=seeds[s],
+                             iteration=its[s], **kw)
+        for a, w in zip(one, (state[0][:, c], state[1][:, c],
+                              state[2][:, c], state[3][c], state[4][:, s],
+                              state[5][s:s + 1], state[6][:, s:s + 1],
+                              state[7][s:s + 1])):
+            assert torch.equal(a, w), s
