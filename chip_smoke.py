@@ -11,7 +11,9 @@ standard library, and exits non-zero on any failure. Phases:
    and power limit;
 2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for ``sm_90a`` (one
    ``nvcc`` per source, started together) and prints each kernel's
-   registers and spills from ``-Xptxas -v``;
+   registers and spills from ``-Xptxas -v``, and the tensor-core (HMMA)
+   instructions of each GLA kernel's SASS (``cuobjdump``), which the
+   chunk-state and chunk-output kernels must have;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with the tolerances stated below. Single swarm: the
    queue kernel chained over one to six iterations (each followed by the
@@ -32,8 +34,10 @@ standard library, and exits non-zero on any failure. Phases:
    same on clusters at d=120 for both kernels, and
    multi-block async batches held to the invariants row by row, also on
    clusters. GLA (3c):
-   the kernel at hymba-1.5B's SSD width, at the xLSTM-350M mLSTM head shape
-   and at a padded sequence length;
+   the kernel path at hymba-1.5B's SSD width (with the reference tests'
+   gates and with the model's own), at the xLSTM-350M mLSTM head shape and
+   at a padded sequence length, then each of its three kernels against its
+   plain stage at the same shapes (H_in at every chunk);
 4. the main paths, each with every launch count set to 0 just before it and
    read just after: ``repro_torch.solve`` on the default device with
    ``backend="auto"`` for the paper's largest swarms (Table 4: cubic d=1
@@ -46,8 +50,11 @@ standard library, and exits non-zero on any failure. Phases:
    the numpy serial baseline on the host against the eager ``reduction`` and
    ``queue``, ``ops.queue_step`` iterated and the fused and async kernels
    (us per iteration and speed-up over serial); 4d: ``gla_forward`` at
-   hymba-1.5B's SSD width;
-5. the fused kernel at each cluster size (5b: single swarms, the queue
+   hymba-1.5B's SSD width, with the model's own gates;
+5. kernel and plain times on one call (GLA at hymba-1.5B's SSD width with
+   both kinds of gates and at the xLSTM-350M head shape, each beside its
+   bound, and the CTAs an SM of its kernels); the fused kernel at
+   each cluster size (5b: single swarms, the queue
    kernel alone, and batches) and the async kernel at each cluster size
    (single swarms at d=120, a d=24 batch), each kernel's device time
    summed over its
@@ -59,6 +66,7 @@ standard library, and exits non-zero on any failure. Phases:
    last line ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
+import ctypes
 import functools
 import json
 import math
@@ -92,6 +100,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 ISSUE_OPS_PER_S = FP32_OPS_PER_S
+# Dense TF32 on the tensor cores (the same data sheet), an FMA two
+# operations.
+TF32_OPS_PER_S = 495e12
 
 # Operations per particle-dimension-iteration of the cubic/pso path, counted
 # from csrc/pso_step.cu, work shared by all elements of an iteration left
@@ -261,6 +272,12 @@ def with_locals(state, nb: int):
                     state[5].repeat(nb))
 
 
+# A GLA kernel's name in a mangled symbol (after its length), with the
+# template arguments of gla_chunk_state.
+GLA_KERNEL = (r"\d(gla_(?:chunk_state|state_pass|chunk_output(?:_narrow)?))"
+              r"(?:ILi(\d+)ELi(\d+)E)?")
+
+
 def phase_build() -> None:
     sources = sorted(_build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -291,9 +308,10 @@ def phase_build() -> None:
                         g += ",cluster"
                     entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
                              f"{rules[m[3]]}{g}>")
-                else:              # a kernel without template arguments
-                    m = re.search(r"([a-z]+_kernel)", entry)
-                    entry = m[1] if m else entry
+                else:     # GLA (gla_chunk_state<WM>) or no template
+                    m = re.search(GLA_KERNEL + r"|([a-z]+_kernel)", entry)
+                    entry = (m[4] or m[1] + (f"<{m[2]},{m[3]}>" if m[2]
+                                             else "") if m else entry)
                 spill = ""
             elif "spill" in line and \
                     "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -303,6 +321,27 @@ def phase_build() -> None:
                 lines.append(f"{entry}:{regs[1] if regs else '?'}r{spill}")
         for i in range(0, len(lines), 3):
             print("  " + " | ".join(lines[i:i + 3]))
+    gla_hmma(next(lib for lib, _ in builds if lib.name.startswith("libgla")))
+
+
+def gla_hmma(lib) -> None:
+    """The tensor-core instructions (HMMA) in each GLA kernel's SASS: the
+    chunk-state and chunk-output kernels must have them."""
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = re.search(GLA_KERNEL, part.split("\n")[0])
+        if name:
+            key = name[1] + (f"<{name[2]},{name[3]}>" if name[2] else "")
+            counts[key] = part.count("HMMA")
+    print("  HMMA instructions in SASS: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(counts.items())))
+    for k in ("gla_chunk_state", "gla_chunk_output"):
+        mine = [v for n, v in counts.items() if n.startswith(k)]
+        check(bool(mine) and min(mine) > 0,
+              f"{k} has tensor-core instructions ({counts})")
 
 
 def cluster_of(n: int, d: int) -> int:
@@ -847,11 +886,17 @@ HYMBA = dict(h=25, n=16, p=128)
 XLSTM = dict(h=4, n=256, p=256)
 
 
-def gla_inputs(b, s, h, n, p, seed=0, ones=False):
+def gla_inputs(b, s, h, n, p, seed=0, ones=False, model_gates=False):
     """(q, k, v, log_decay, log_inc) on the card, made from a numpy seed as
     tests/test_gla_kernel.py's _inputs makes them: q, k ~ 0.3 N(0,1),
     v ~ N(0,1), log_decay = -0.1 softplus(N(0,1)), log_inc =
-    clip(0.3 N(0,1), -2, 2); ``ones`` appends mLSTM's ones column to v."""
+    clip(0.3 N(0,1), -2, 2); ``ones`` appends mLSTM's ones column to v.
+    ``model_gates``: the gates as hymba's SSD branch makes them at its
+    initialisation (``_ssd_gates`` of src/repro/models/ssm.py): dt =
+    softplus(x w_dt), x w_dt ~ N(0, 1600 * 0.02^2) for unit activations
+    (d_model 1600, w_dt's scale 0.02, dt_bias 0), log_decay = -dt exp(a_log)
+    with a_log = 0, log_inc = log(dt + 1e-9). Their running sum falls by
+    about 100 over a chunk of 128, so the clips bite inside every chunk."""
     r = np.random.default_rng(seed)
 
     def normal(*shape):
@@ -861,14 +906,20 @@ def gla_inputs(b, s, h, n, p, seed=0, ones=False):
         b, s, h, p)
     if ones:
         v = np.concatenate([v, np.ones((b, s, h, 1), np.float32)], -1)
-    ld = -np.logaddexp(0.0, normal(b, s, h)).astype(np.float32) * 0.1
-    li = np.clip(normal(b, s, h) * 0.3, -2, 2)
+    if model_gates:
+        dt = np.logaddexp(0.0, normal(b, s, h) * 0.8).astype(np.float32)
+        ld = -dt
+        li = np.log(dt + np.float32(1e-9))
+    else:
+        ld = -np.logaddexp(0.0, normal(b, s, h)).astype(np.float32) * 0.1
+        li = np.clip(normal(b, s, h) * 0.3, -2, 2)
     return [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
             for a in (q, k, v, ld, li)]
 
 
-def gla_against_plain(what, b, s, shape, errs, ones=False, chunk=128):
-    x = gla_inputs(b, s, **shape, ones=ones)
+def gla_against_plain(what, b, s, shape, errs, ones=False, chunk=128,
+                      model_gates=False):
+    x = gla_inputs(b, s, **shape, ones=ones, model_gates=model_gates)
     want = gla.gla_forward_plain(*x, chunk=chunk)
     got = gla.gla_forward(*x, chunk=chunk)
     torch.cuda.synchronize()
@@ -882,15 +933,63 @@ def gla_against_plain(what, b, s, shape, errs, ones=False, chunk=128):
           f"{float(want.abs().max()):.3g})")
 
 
+def gla_folded(x, chunk=128):
+    """gla_forward's padded, folded operands ([BH, S, .])."""
+    b, _, h = x[3].shape
+    padded = gla._pad(*x, chunk)
+    return [a.transpose(1, 2).reshape(b * h, a.shape[1], *a.shape[3:])
+            .contiguous() for a in padded]
+
+
+def gla_stages_against_plain(what, b, s, shape, ones=False, chunk=128,
+                             model_gates=False):
+    """Each of the three GLA kernels against its plain stage on the same
+    inputs: the chunks' own states and total decays (all but the last
+    chunk's, which nothing reads), H_in at every chunk from the plain
+    states, and y from the plain H_in."""
+    q, k, v, ld, li = gla_folded(gla_inputs(
+        b, s, **shape, ones=ones, model_gates=model_gates), chunk)
+    want_s, want_tot = gla.gla_chunk_states_plain(k, v, ld, li, chunk)
+    want_h = gla.gla_state_pass_plain(want_s, want_tot)
+    got_s, got_tot = gla.chunk_states(k, v, ld, li, chunk)
+    got_h = gla.state_pass(want_s.clone(), want_tot)
+    got_y = gla.chunk_output(q, k, v, ld, li, want_h, chunk)
+    torch.cuda.synchronize()
+    want_y = gla.gla_chunk_output_plain(q, k, v, ld, li, want_h, chunk)
+    pairs = [("states", got_s[:, :-1], want_s[:, :-1]),
+             ("tot", got_tot[:, :-1], want_tot[:, :-1])]
+    pairs += [(f"H_in[{c}]", got_h[:, c], want_h[:, c])
+              for c in range(want_h.shape[1])]
+    pairs.append(("y", got_y, want_y))
+    errs = {}
+    for name, got, want in pairs:
+        e = float((got - want).abs().max()) if got.numel() else 0.0
+        check(bool(torch.isfinite(got).all()) and
+              torch.allclose(got, want, **GLA_TOL),
+              f"{what}: {name} of the stage kernel and plain disagree, max "
+              f"error {e}")
+        errs[name.split("[")[0]] = max(errs.get(name.split("[")[0], 0.0), e)
+    print(f"  {what}, stage by stage: max |kernel - plain| " + ", ".join(
+        f"{k} {e:.3g}" for k, e in errs.items()) +
+        f" (H_in at each of {want_h.shape[1]} chunks)")
+
+
 def phase_compare_gla(errs) -> None:
-    print("phase 3c: the GLA kernel against its plain version on the card "
-          f"(rtol = atol = {GLA_TOL['rtol']})")
-    gla_against_plain("hymba-1.5B SSD B=4 S=4096 H=25 N=16 P=128 chunk 128",
-                      4, 4096, HYMBA, errs)
-    gla_against_plain("xLSTM-350M mLSTM B=1 S=1024 H=4 N=256 P=257 (ones "
-                      "column) chunk 128", 1, 1024, XLSTM, errs, ones=True)
-    gla_against_plain("hymba-1.5B SSD B=1 S=1000 (padded to 1024) chunk 128",
-                      1, 1000, HYMBA, errs)
+    print("phase 3c: the GLA kernels against their plain versions on the "
+          f"card (rtol = atol = {GLA_TOL['rtol']})")
+    hymba = "hymba-1.5B SSD B=4 S=4096 H=25 N=16 P=128 chunk 128"
+    model = hymba + ", the model's gates"
+    xlstm = ("xLSTM-350M mLSTM B=1 S=1024 H=4 N=256 P=257 (ones column) "
+             "chunk 128")
+    padded = "hymba-1.5B SSD B=1 S=1000 (padded to 1024) chunk 128"
+    gla_against_plain(hymba, 4, 4096, HYMBA, errs)
+    gla_against_plain(model, 4, 4096, HYMBA, errs, model_gates=True)
+    gla_against_plain(xlstm, 1, 1024, XLSTM, errs, ones=True)
+    gla_against_plain(padded, 1, 1000, HYMBA, errs)
+    gla_stages_against_plain(hymba, 4, 4096, HYMBA)
+    gla_stages_against_plain(model, 4, 4096, HYMBA, model_gates=True)
+    gla_stages_against_plain(xlstm, 1, 1024, XLSTM, ones=True)
+    gla_stages_against_plain(padded, 1, 1000, HYMBA)
 
 
 def phase_main_path(card: str):
@@ -1246,18 +1345,19 @@ def phase_tables(card: str, launches: dict) -> None:
 
 
 def phase_gla_path(card: str, launches: dict) -> None:
-    """``gla_forward`` at hymba-1.5B's SSD width, counts set to 0 just
-    before and read just after."""
+    """``gla_forward`` at hymba-1.5B's SSD width with the model's own
+    gates, counts set to 0 just before and read just after."""
     print("phase 4d: main path, repro_torch.kernels.gla.gla_forward at "
-          "hymba-1.5B SSD width")
+          "hymba-1.5B SSD width, the model's gates")
     b, s = 4, 4096
-    x = gla_inputs(b, s, **HYMBA, seed=1)
+    x = gla_inputs(b, s, **HYMBA, seed=1, model_gates=True)
     gla.gla_forward(*x)                                      # warm-up
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     us, y = host_us(lambda: gla.gla_forward(*x), 1)
     replay("gla_forward", "gla_forward hymba B=4 S=4096", 1,
-           lambda: gla.gla_forward(*gla_inputs(b, s, **HYMBA, seed=1)),
+           lambda: gla.gla_forward(*gla_inputs(b, s, **HYMBA, seed=1,
+                                               model_gates=True)),
            gla_bound(b * HYMBA["h"], s, HYMBA["n"], HYMBA["p"], 128))
     counts = {k: v for k, v in read_counts().items() if v}
     for k in counts:
@@ -1352,26 +1452,114 @@ def queue_bound(d: int, n: int, nb: int, improved: float):
     return roof(nbytes, n * d * INT_PER_ELEMENT, fps)
 
 
-def gla_bound(bh: int, s: int, n: int, p: int, chunk: int):
-    """The GLA forward on folded operands (S a multiple of the chunk):
-    q, k, v and both gates read, y written; the least products, counted as
-    FMAs at the float32 rate (one instruction each): per (batch.head) and
-    chunk q k^T and (q k^T o W) v on the causal half, and q H and the state
-    update where they are not zero or unused (H = 0 in the first chunk; the
-    last chunk's update is never read)."""
+def gla_fmas(bh: int, s: int, n: int, p: int, chunk: int) -> int:
+    """The GLA forward's least multiply-adds on folded operands (S a
+    multiple of the chunk): per (batch.head) and chunk q k^T and
+    (q k^T o W) v on the causal half, and q H and the state update where
+    they are not zero or unused (H = 0 in the first chunk; the last chunk's
+    update is never read)."""
     nc = s // chunk
     tri = chunk * (chunk + 1) // 2
-    fmas = bh * (nc * tri * (n + p) + 2 * (nc - 1) * chunk * n * p)
-    return roof(4 * bh * s * (2 * n + 2 * p + 2), 0, fmas)
+    return bh * (nc * tri * (n + p) + 2 * (nc - 1) * chunk * n * p)
 
 
-def phase_times():
+def gla_bound(bh: int, s: int, n: int, p: int, chunk: int):
+    """(ms, by) of the tensor-core design: q, k, v and both gates read and
+    y written once at the HBM rate, against the multiply-adds as three
+    TF32 MMAs each (3xTF32) at the dense TF32 rate."""
+    nbytes = 4 * bh * s * (2 * n + 2 * p + 2)
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = 3 * 2 * gla_fmas(bh, s, n, p, chunk) / TF32_OPS_PER_S
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def gla_ffma_ms(bh: int, s: int, n: int, p: int, chunk: int) -> float:
+    """The same multiply-adds as float32 FMAs outside the tensor cores (one
+    instruction each): the yardstick of the kernel before tensor cores."""
+    return 1e3 * gla_fmas(bh, s, n, p, chunk) / FP32_OPS_PER_S
+
+
+def kernel_device_us(fn, reps: int = 3) -> dict:
+    """Device us a call of each kernel that ``fn`` launches, summed by name
+    (template arguments kept) under torch.profiler over ``reps`` calls
+    after a warm one; empty if three tries record nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    out = {}
+    for _ in range(3):     # the profiler now and then records nothing
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                m = re.search(r"::(\w+(?:<[^>(]*>)?)\(", e.name)
+                name = m[1] if m else e.name[:40]
+                out[name] = (out.get(name, 0.0)
+                             + e.time_range.elapsed_us() / reps)
+        if out:
+            break
+    return out
+
+
+def gla_times(card: str) -> dict:
+    """``gla._launch`` (the kernel path on folded operands) and the plain
+    version at hymba-1.5B's SSD width, with the reference tests' gates and
+    with the model's own, and at the xLSTM-350M head shape: CUDA events
+    over 5 launches after a warm one, and each kernel's device us a call.
+    Returns {shape: (ms, plain ms, bound)}; no single PyTorch call computes
+    the function, so the library time is None."""
+    out = {}
+    for name, b, s, shape, ones, model in (
+            ("hymba", 4, 4096, HYMBA, False, False),
+            ("hymba, the model's gates", 4, 4096, HYMBA, False, True),
+            ("xlstm", 1, 1024, XLSTM, True, False)):
+        chunk = 128
+        folded = gla_folded(gla_inputs(b, s, **shape, ones=ones,
+                                       model_gates=model), chunk)
+        bh, p = folded[0].shape[0], folded[2].shape[-1]
+        ms = 1e3 * sync_time(lambda: gla._launch(*folded, chunk), 5)
+        plain = 1e3 * sync_time(lambda: gla.gla_folded_plain(*folded, chunk),
+                                2)
+        per = kernel_device_us(lambda: gla._launch(*folded, chunk))
+        stages = "; device us a call: " + (", ".join(
+            f"{k} {us:.1f}" for k, us in per.items()) or "not measured")
+        bnd = gla_bound(bh, s, shape["n"], p, chunk)
+        ffma = gla_ffma_ms(bh, s, shape["n"], p, chunk)
+        out[name] = (ms, plain, bnd)
+        print(f"  gla_forward {name} BH={bh} S={s} N={shape['n']} P={p} "
+              f"chunk {chunk}: {ms:.4f} ms (plain {plain:.2f} ms, library "
+              f"None), bound {bnd[0]:.4f} ms by {bnd[1]} (float32 FMAs "
+              f"alone {ffma:.4f} ms), {bnd[0] / ms:.1%} of the bound"
+              f"{stages} [{card}]")
+    return out
+
+
+def gla_residency(chunk: int = 128) -> None:
+    """CTAs an SM of the chunk-state and chunk-output kernels that the
+    forward launches at each GLA shape's state width."""
+    fn = gla._lib().gla_resident
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    for name, shape in (("hymba", HYMBA), ("xlstm", XLSTM)):
+        ctas = [ctypes.c_int(), ctypes.c_int()]
+        check(fn(shape["n"], chunk, *map(ctypes.byref, ctas)) == 0,
+              "gla_resident")
+        print(f"  gla {name} N={shape['n']} chunk {chunk}: CTAs an SM, "
+              f"chunk states {ctas[0].value}, chunk outputs {ctas[1].value}")
+
+
+def phase_times(card: str):
     """Kernel and plain version on the same call. The queue kernel: one
     iteration at Table 5's largest swarm, cubic d=120 n=32768, timed from a
     CUDA graph (its wrapper's host time is as long as the kernel). GLA: the
     launch alone on folded operands at hymba-1.5B's SSD width (B=4,
-    S=4096). Single swarm: the main path's cubic d=1 n=131072 swarm, 32
-    iterations (4 async chunks of 8).
+    S=4096; the JSON line takes the model's own gates), and beside it at
+    the xLSTM-350M head shape (``gla_times``).
+    Single swarm: the main path's cubic d=1 n=131072 swarm, 32 iterations
+    (4 async chunks of 8).
     Batches: the solve_many shape, rastrigin d=10 n=1024 S=128 (the six
     built-ins cycled over S=96 for the hetero kernels), 16 iterations (2
     async chunks of 8), from per-row iteration counters."""
@@ -1387,15 +1575,10 @@ def phase_times():
           f"{kernel_us:.2f} us a launch (a CUDA graph of 20 replayed), the "
           f"wrapper's host time {wrapper_us:.2f} us a call, {improved:.1f} "
           f"pbest columns written a launch")
-    b, s, chunk = 4, 4096, 128
-    x = gla_inputs(b, s, **HYMBA)
-    folded = [a.transpose(1, 2).reshape(b * HYMBA["h"], s, *a.shape[3:])
-              .contiguous() for a in x]
-    t["gla_forward"] = sync_time(lambda: gla._launch(*folded, chunk), 5)
-    t["gla_forward_plain"] = sync_time(
-        lambda: gla.gla_folded_plain(*folded, chunk), 2)
-    bounds["gla_forward"] = gla_bound(b * HYMBA["h"], s, HYMBA["n"],
-                                      HYMBA["p"], chunk)
+    ms, plain, bounds["gla_forward"] = gla_times(card)[
+        "hymba, the model's gates"]
+    gla_residency()
+    t["gla_forward"], t["gla_forward_plain"] = ms / 1e3, plain / 1e3
     d, n, iters, bn = 1, 131072, 32, 512
     nb = n // bn
     _, spec, state, seed = kernel_state("cubic", d, n)
@@ -1456,7 +1639,7 @@ FAMILY = {"queue_step": "queue_kernel", "fused": "fused_kernel",
           "fused_batch": "fused_kernel", "hetero_fused_batch": "fused_kernel",
           "fused_async": "async_kernel", "fused_async_batch": "async_kernel",
           "hetero_fused_async_batch": "async_kernel",
-          "gla_forward": "gla_kernel"}
+          "gla_forward": "gla_(chunk_state|state_pass|chunk_output)"}
 
 
 def phase_main_path_kernels(card: str) -> dict:
@@ -1478,7 +1661,7 @@ def phase_main_path_kernels(card: str) -> dict:
                 torch.cuda.synchronize()
             us = sum(e.time_range.elapsed_us() for e in prof.events()
                      if e.device_type == DeviceType.CUDA
-                     and FAMILY[name] in e.name)
+                     and re.search(FAMILY[name], e.name))
             if us:
                 break
         got = f"{us / iters:.2f} us an iteration" if us else "not measured"
@@ -1618,15 +1801,15 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     card = card_line()
+    # Full float32 in every plain version's products (GLA's einsums).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     print(f"phase 1: torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"{nvcc[-1]}; card: {card}; "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     phase_build()
-    # Full float32 in every plain version's products (GLA's einsums).
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     errs = dict.fromkeys(COUNTERS, 0.0)
     phase_compare(errs)
     phase_compare_batches(errs)
@@ -1636,7 +1819,7 @@ def main() -> int:
     phase_tables(card, launches)
     phase_gla_path(card, launches)
     print(f"phase 5: kernel and plain times on the same call [{card}]")
-    times, bounds = phase_times()
+    times, bounds = phase_times(card)
     phase_cluster_sweep(card)
     phase_main_path_kernels(card)
     kernels = []

@@ -15,7 +15,8 @@
 * ``variant``: ``reduction | queue | queue_lock | async`` (paper §3.2/§4).
 * ``backend``: ``eager`` (the PyTorch engine, ``core/pso.py``), ``kernel``
   (the hand-written CUDA kernels; only ``queue_lock``/``async`` exist as
-  kernels), or ``auto`` — the kernel for those two variants on a CUDA
+  kernels, and they carry the rules ``pso``, ``sso`` and ``lowcost``), or
+  ``auto`` — the kernel for those two variants and rules on a CUDA
   device, eager otherwise.
 
 ``device=None`` means the card; without one, ``solve`` raises instead of
@@ -37,7 +38,8 @@ from .core.multi_swarm import (ProblemRows, SwarmBatch, batch_rows,
 from .core.problem import Problem, resolve_problem
 from .core.pso import (ASYNC_SYNC_EVERY, VARIANTS, PSOConfig, SwarmState,
                        hetero_member_config, init_swarm, run)
-from .core.update_rules import TOPOLOGIES, resolve_rule
+from .core.update_rules import (TOPOLOGIES, kernel_carries, kernel_rule_id,
+                                 resolve_rule)
 
 _KERNEL_VARIANTS = ("queue_lock", "async")
 _BACKENDS = ("auto", "eager", "kernel")
@@ -87,6 +89,8 @@ class Method:
             raise ValueError(
                 f"unknown schedule {self.schedule!r}; one of fixed|auto")
         resolve_rule(self.rule)
+        if self.backend == "kernel":
+            kernel_rule_id(self.rule)     # raises naming the kernel rules
         if self.topology not in TOPOLOGIES:
             raise ValueError(
                 f"unknown topology {self.topology!r}; one of {TOPOLOGIES}")
@@ -110,7 +114,9 @@ class Method:
     def resolve_backend(self, device: torch.device) -> str:
         if self.backend != "auto":
             return self.backend
-        if self.variant in _KERNEL_VARIANTS and device.type == "cuda":
+        # A rule the CUDA kernels lack runs on the eager engine.
+        if self.variant in _KERNEL_VARIANTS and device.type == "cuda" \
+                and kernel_carries(self.rule):
             return "kernel"
         return "eager"
 

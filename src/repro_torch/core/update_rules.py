@@ -6,7 +6,8 @@ attractor) and the kernels' plain versions on ``[D, N]`` arrays (with a
 ``[D, 1]`` attractor). The operations run in the reference's order. Every
 rule draws two uniforms per (particle, dim) from the streams ``STREAM_R1``
 and ``STREAM_R2``; the CUDA kernels carry the same three rules, selected by
-``RULE_IDS``.
+``RULE_IDS`` through ``kernel_rule_id``, which refuses any other rule
+(``kernel_carries``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,11 @@ class UpdateRule:
     tensors broadcasting against ``pos``."""
 
     name: str = "pso"
+    #: uniform draws consumed per (particle, dim) per iteration
+    rng_draws: int = 2
+    #: whether the rule may run on a kernel backend at all; the CUDA
+    #: kernels carry only the rules of ``RULE_IDS`` (``kernel_carries``)
+    kernel_eligible: bool = True
 
     def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,6 +101,25 @@ RULE_IDS: Dict[str, int] = {"pso": 0, "sso": 1, "lowcost": 2}
 
 #: block-neighborhood topologies of the async variant ("gbest" is the star)
 TOPOLOGIES: Tuple[str, ...] = ("gbest", "ring", "vonneumann")
+
+
+def kernel_carries(rule) -> bool:
+    """Whether the CUDA kernels carry a rule (name or instance): a
+    kernel-eligible rule of ``RULE_IDS``. A Python ``advance`` cannot run
+    inside a CUDA kernel."""
+    r = resolve_rule(rule)
+    return r.kernel_eligible and r.name in RULE_IDS
+
+
+def kernel_rule_id(rule) -> int:
+    """The CUDA template index of a rule; ``ValueError`` for a rule the
+    kernels do not carry."""
+    if not kernel_carries(rule):
+        raise ValueError(
+            f"update rule {resolve_rule(rule).name!r} has no CUDA kernel; "
+            f"the kernel backend carries the rules {tuple(RULE_IDS)} — use "
+            f"backend='eager'")
+    return RULE_IDS[resolve_rule(rule).name]
 
 
 def rule_names() -> Tuple[str, ...]:

@@ -1,7 +1,7 @@
-// Hand-written Hopper (sm_90a) kernel for chunked gated linear attention
+// Hand-written Hopper (sm_90a) kernels for chunked gated linear attention
 // (GLA), the forward pass of the hymba SSD branch and the xLSTM mLSTM
-// blocks. Replaces the Pallas TPU kernel _gla_kernel / gla_forward_call of
-// src/repro/kernels/gla.py, written from what it computes:
+// blocks. They replace the Pallas TPU kernel _gla_kernel / gla_forward_call
+// of src/repro/kernels/gla.py, written from what it computes:
 //
 //   H_t = exp(ld_t) H_{t-1} + exp(li_t) k_t (x) v_t,    y_t = q_t . H_t
 //
@@ -12,243 +12,1135 @@
 // with cum the running sum of ld inside the chunk, tot its last entry,
 // clip to [-80, 20], and H = 0 at the start of each (batch.head). The clips
 // bite on sums within a chunk, so the chunk length defines the result and
-// the kernel takes the caller's.
+// the kernels take the caller's.
 //
 // Layout: q, k [BH, S, N], v and y [BH, S, P], ld and li [BH, S], float32,
-// S a multiple of L. One CTA per (batch.head, tile of kPT columns of P)
-// walks the chunks in order, the TPU kernel's sequential grid axis turned
-// into a loop. It keeps its [N, kPT] slice of H in shared memory for the
-// whole walk (the full H of the xLSTM-350M head shape, N = 256 by P = 257,
-// is 263 KB, over the 227 KB a CTA can have, so P is tiled). The chunk's
-// q and k are streamed over N in tiles of kNT columns, and in one pass over
-// a tile the CTA accumulates q k^T and q H in registers and then advances
-// the tile's rows of H; q k^T o W is recomputed by every P-tile of a
-// (batch.head). The products are plain FMAs of 256 threads on register
-// tiles (16 x 16 threads: rows ty + 16a, columns tx + 16b), a simple kernel
-// that is right first: no tensor cores, no asynchronous copies.
+// S a multiple of L. The TPU kernel walks the chunks of a (batch.head) in
+// order on its sequential grid axis. Here the walk is split in three
+// launches on one stream, so that every chunk runs in parallel:
 //
+//   1. gla_chunk_state: grid (N-tile x P-tile, chunk, batch.head). Each
+//      chunk's own state S_c = (k o wj)^T v into a float32 scratch
+//      [BH, nc, N, P], and tot_c into [BH, nc]. The last chunk's state is
+//      never read and is skipped.
+//   2. gla_state_pass: elementwise over (batch.head, N.P), the recurrence
+//      H_in(0) = 0, H_in(c+1) = H_in(c) exp(clip(tot_c)) + S_c, in place
+//      over the scratch (multiply, then add, as the reference does).
+//   3. y of every chunk from q, k, v and H_in(c): gla_chunk_output_narrow
+//      for N <= 16 (one CTA a chunk, walking P), gla_chunk_output for wider
+//      states (one CTA a chunk and 64 columns of P, q and k streamed over N).
+//
+// The products run on the tensor cores: mma.sync m16n8k8 with tf32
+// operands and float32 accumulators, in the 3xTF32 split (x = big + small,
+// both tf32; a.b ~ a_s.b_b + a_b.b_s + a_b.b_b), which keeps float32
+// accuracy where plain tf32 keeps about three decimal digits. mma.sync and
+// not wgmma: tf32 wgmma takes K-major operands only, and v (the B operand
+// of A v) and k (the A operand of (k o wj)^T v) are MN-major here. Each
+// warp loads its fragments from shared memory with row strides chosen so
+// that the 32 lanes of a fragment load hit 32 banks. In stage 3 the
+// weighted q k^T never leaves the registers: the m16n8 accumulator of
+// columns j0..j0+7 holds, in lane (g, t), columns 2t and 2t+1 of rows g
+// and g+8, which is an A fragment of the same rows if the MMA's k index t
+// stands for column 2t and t+4 for 2t+1; the B fragment (rows of v) takes
+// the same order. Tiles whose N, P or L is not a multiple of the MMA shape
+// are padded with zeros in shared memory. Global loads are cp.async
+// (16 bytes where rows allow, else 4), issued ahead of the tile they feed.
 // Masked entries (j > i) are skipped. In the reference they are
 // exp(-80) ~ 1.8e-35 times q.k, not 0; the difference is below float32's
-// resolution of any unmasked term.
+// resolution of any unmasked term. The N <= 16 kernel makes a chunk's
+// weights from an exp a row and an exp a column where it can (see there),
+// the others from an exp an entry.
 //
 // What bounds it on an H100 at the hymba-1.5B SSD shape (B=4, S=4096,
-// H=25, N=16, P=128, L=128): 120 MB in and out (q, k 6.6 MB each, v, y
-// 52 MB each), 36 us at 3.35 TB/s; 11 GFLOP of float32 products on the
-// causal half, 0.16 ms at 67 TFLOP/s. Operations bound it; this kernel
-// runs without the tensor cores and reads its operands from shared memory,
-// so it sits well above that bound (chip_smoke.py measures it).
+// H=25, N=16, P=128, L=128, so BH=100, nc=32): the bytes. Inputs read and
+// output written once are 4 B x 100 x 4096 x (2.16 + 2.128 + 2) = 475 MB,
+// 0.142 ms at 3.35 TB/s; the 5.4 G multiply-adds of the causal products,
+// at three tf32 MMAs each, take 0.066 ms at the dense 495 TF32 TFLOP/s
+// (0.162 ms as float32 FMAs at 67 TFLOP/s); mma.sync issues below the
+// dense rate, and every MMA here needs its operands split and loaded from
+// shared memory. Chunk parallelism costs bytes: v is read twice and the
+// states (26 MB) go through HBM four times, about 818 MB and 0.244 ms in
+// all. In exchange the card gets 6,200 + 3,200 CTAs at hymba width (the
+// single walk had 200) and 1,008 + 160 at the xLSTM-350M head shape
+// (N=256, P=257; it had 20), two to four of them an SM. A later design
+// can fuse stages 1 and 3 in a wavefront to read v once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kThreads = 256;      // 16 x 16
-constexpr int kMaxL = 128;         // longest chunk: 8 rows a thread
-constexpr int kRows = kMaxL / 16;
-constexpr int kPT = 64;            // columns of P a CTA owns
-constexpr int kCols = kPT / 16;
-constexpr int kNT = 32;            // columns of N in a streamed q/k tile
-constexpr int kSmemMax = 232448;   // what an H100 CTA may opt into
+constexpr int kMaxL = 128;          // longest chunk
 constexpr float kClipLo = -80.0f, kClipHi = 20.0f;
+constexpr float kWeightLo = 1.80485139e-35f;   // exp(-80)
+constexpr float kWeightHi = 4.85165195e8f;     // exp(20)
+
+// Stage 1: 4 warps, each a 16 x (8 NTW) tile of S_c (StateTile).
+constexpr int kStateThreads = 128;
+// Stage 3: 8 warps, each 16 rows of the chunk by kPT columns (OutTile).
+constexpr int kOutThreads = 256;
+constexpr int kPT = 64;             // columns of P an output CTA owns
+constexpr int kNT = 16;             // columns of N in a q/k tile
+// Row strides in floats. A lane (g, t) of a fragment load reads row t or
+// 2t and column g (B operands, stride = 8 or 4 mod 32) or row g and column
+// t (A operands, stride = 4 mod 8): conflict-free, and 16-byte rows.
+constexpr int kQKStride = kNT + 4;  // q, k tiles of stage 3
+constexpr int kSmemMax = 232448;    // what an H100 CTA may opt into
 
 __device__ __forceinline__ float clipped_exp(float x) {
   return expf(fminf(fmaxf(x, kClipLo), kClipHi));
 }
 
-// Shared memory, in floats: H [N][kPT], A [L][L+1], v [L][kPT],
-// q and k tiles [L][kNT+1] each (rows padded against bank conflicts), and
-// cum, li, exp(cum), the state weights [L] each.
-size_t smem_floats(int n, int l) {
-  return (size_t)n * kPT + (size_t)l * (l + 1) + (size_t)l * kPT +
-         2 * (size_t)l * (kNT + 1) + 4 * (size_t)l;
+__device__ __forceinline__ int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
 }
 
-__global__ void __launch_bounds__(kThreads) gla_kernel(
+// --- asynchronous copies --------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Copies `bytes` (0 to 16) from src and zero-fills the rest of 16 bytes.
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src,
+                                    int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Waits until at most `pending` (0 to 3) of the latest groups are in
+// flight.
+__device__ __forceinline__ void cp_wait_upto(int pending) {
+  if (pending <= 0) cp_wait<0>();
+  else if (pending == 1) cp_wait<1>();
+  else if (pending == 2) cp_wait<2>();
+  else cp_wait<3>();
+}
+
+// rows x cols floats of a row-major global matrix (row stride gs floats;
+// rows_in x cols_in of them exist) into shared memory at row stride ss,
+// zeros elsewhere. vec: 16-byte copies (gs, the tile's first column and
+// the base 16-byte aligned; cols a multiple of 4).
+__device__ __forceinline__ void load_tile(float* dst, int ss,
+                                          const float* src, size_t gs,
+                                          int rows, int cols, int rows_in,
+                                          int cols_in, bool vec, int tid,
+                                          int nthreads) {
+  if (vec) {
+    const int cv = cols / 4;
+    for (int e = tid; e < rows * cv; e += nthreads) {
+      const int r = e / cv, c = (e - r * cv) * 4;
+      const int n = r < rows_in ? min(4, max(0, cols_in - c)) : 0;
+      cp16(dst + r * ss + c, n ? src + r * gs + c : src, 4 * n);
+    }
+  } else {
+    for (int e = tid; e < rows * cols; e += nthreads) {
+      const int r = e / cols, c = e - r * cols;
+      const bool in = r < rows_in && c < cols_in;
+      cp4(dst + r * ss + c, in ? src + r * gs + c : src, in ? 4 : 0);
+    }
+  }
+}
+
+// Stores an accumulator pair, columns col and col + 1 of a row (as one
+// 8-byte store where the row allows), of which `left` exist.
+__device__ __forceinline__ void store_pair(float* dst, float a, float b,
+                                           int left, bool even) {
+  if (even && left >= 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  } else {
+    if (left >= 1) dst[0] = a;
+    if (left >= 2) dst[1] = b;
+  }
+}
+
+// --- 3xTF32 tensor-core products ------------------------------------------
+
+struct Tf32 {
+  uint32_t big, small;
+};
+
+// x = big + small, each rounded to tf32 to nearest, ties away from zero
+// (cvt.rna.tf32.f32) by adding half of tf32's last place to the magnitude:
+// the MMA reads the top 19 bits of an operand and ignores the low 13, so
+// only the small part's subtraction needs them cleared. Integer adds run
+// at four times the rate of the conversion instruction (CUDA C++
+// Programming Guide, arithmetic instruction throughput, sm_90).
+__device__ __forceinline__ Tf32 split(float x) {
+  const uint32_t big = __float_as_uint(x) + 0x1000u;
+  const float rest = x - __uint_as_float(big & 0xffffe000u);
+  return Tf32{big, __float_as_uint(rest) + 0x1000u};
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// An A fragment (16 x 8): a[0] (g, t), a[1] (g+8, t), a[2] (g, t+4),
+// a[3] (g+8, t+4), split.
+struct FragA {
+  Tf32 a[4];
+};
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  return FragA{{split(a0), split(a1), split(a2), split(a3)}};
+}
+
+// c[i] += A B_i for M accumulators at float32 accuracy, B_i (8 x 8) given
+// split as b0[i] (t, g) and b1[i] (t+4, g). The three products run as three
+// passes over the M accumulators, small products first, so that the MMAs
+// between two into the same accumulator are independent: a chain of
+// dependent MMAs would wait out the tensor pipe's latency at every step.
+template <int M>
+__device__ __forceinline__ void mma3(float (*c)[4], const FragA& f,
+                                     const Tf32 (&b0)[M],
+                                     const Tf32 (&b1)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    mma(c[i], f.a[0].small, f.a[1].small, f.a[2].small, f.a[3].small,
+        b0[i].big, b1[i].big);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    mma(c[i], f.a[0].big, f.a[1].big, f.a[2].big, f.a[3].big, b0[i].small,
+        b1[i].small);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    mma(c[i], f.a[0].big, f.a[1].big, f.a[2].big, f.a[3].big, b0[i].big,
+        b1[i].big);
+}
+
+// The chunk's gates, 4 entries a lane of warp 0 (entries l..kMaxL are 0).
+// A kernel loads them first, so that they do not queue behind its tiles.
+struct Gates {
+  float ld[4], li[4];
+};
+
+__device__ __forceinline__ Gates gate_load(const float* ldc, const float* lic,
+                                           int l, int tid) {
+  Gates gt = {};
+  if (tid < 32) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 4 * tid + r;
+      gt.ld[r] = i < l ? ldc[i] : 0.0f;
+      gt.li[r] = i < l ? lic[i] : 0.0f;
+    }
+  }
+  return gt;
+}
+
+// cum, the inclusive running sum of ld (a warp-parallel scan by warp 0),
+// and li into shared memory. Every thread calls it; it ends on a barrier.
+__device__ __forceinline__ void gate_scan(const Gates& gt, float* cum,
+                                          float* lis, int tid) {
+  if (tid < 32) {
+    float x[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = r ? x[r - 1] + gt.ld[r] : gt.ld[0];
+    float incl = x[3];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, incl, o);
+      if (tid >= o) incl += up;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (tid == 0) excl = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      cum[4 * tid + r] = x[r] + excl;
+      lis[4 * tid + r] = gt.li[r];
+    }
+  }
+  __syncthreads();
+}
+
+// --- stage 1: each chunk's own state -----------------------------------------
+
+// The CTA tile of S_c: WM warps down N (16 rows each) by 4 / WM across P
+// (8 NTW columns each). Shared memory in floats: k [Lp][16 WM + 8],
+// v [Lp][CTA columns + 8], cum, li and wj [kMaxL].
+template <int WM, int NTW>
+struct StateTile {
+  static constexpr int NT = 16 * WM, PT = 4 / WM * 8 * NTW;
+  static constexpr int KS = NT + 8, VS = PT + 8;
+  static size_t smem_floats(int lp) {
+    return (size_t)lp * (KS + VS) + 3 * kMaxL;
+  }
+};
+
+template <int WM, int NTW>
+__global__ void __launch_bounds__(kStateThreads) gla_chunk_state(
+    const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ ld, const float* __restrict__ li,
+    float* __restrict__ states, float* __restrict__ tot, int S, int N, int P,
+    int L, int vec_k, int vec_v) {
+  using T = StateTile<WM, NTW>;
+  constexpr int NT = T::NT, PT = T::PT, KS = T::KS, VS = T::VS;
+  extern __shared__ __align__(16) float sm[];
+  const int nc = S / L, c = blockIdx.y, bh = blockIdx.z;
+  const int tiles_p = (P + PT - 1) / PT;
+  const int n0 = (blockIdx.x / tiles_p) * NT, p0 = (blockIdx.x % tiles_p) * PT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int lp = round_up(L, 32);
+  float* ks = sm;
+  float* vs = ks + (size_t)lp * KS;
+  float* cum = vs + (size_t)lp * VS;
+  float* lis = cum + kMaxL;
+  float* wj = lis + kMaxL;
+
+  const size_t row0 = (size_t)bh * S + (size_t)c * L;
+  const Gates gt = gate_load(ld + row0, li + row0, L, tid);
+  // Slabs of 32 rows of the chunk, one copy group each, in order.
+  const int slabs = lp / 32;
+  for (int s = 0; s < slabs; ++s) {
+    const int r0 = 32 * s, rows_in = max(0, min(32, L - r0));
+    load_tile(ks + r0 * KS, KS, k + (row0 + r0) * N + n0, N, 32, NT, rows_in,
+              N - n0, vec_k, tid, kStateThreads);
+    load_tile(vs + r0 * VS, VS, v + (row0 + r0) * P + p0, P, 32, PT, rows_in,
+              P - p0, vec_v, tid, kStateThreads);
+    cp_commit();
+  }
+  gate_scan(gt, cum, lis, tid);
+  const float total = cum[L - 1];
+  for (int j = tid; j < lp; j += kStateThreads)
+    wj[j] = j < L ? clipped_exp(total - cum[j] + lis[j]) : 0.0f;
+  if (blockIdx.x == 0 && tid == 0) tot[(size_t)bh * nc + c] = total;
+
+  // Warp tile: rows 16 wm.. of the CTA's N tile, columns 8 NTW wn.. of its P.
+  const int wm = warp % WM, wn = warp / WM;
+  const int rn = 16 * wm, cp0 = 8 * NTW * wn;
+  const bool active = n0 + rn < N && p0 + cp0 < P;
+  float acc[NTW][4] = {};
+  for (int s = 0; s < slabs; ++s) {
+    cp_wait_upto(slabs - 1 - s);
+    __syncthreads();                  // this slab's copies and wj visible
+    if (!active) continue;
+    const int jend = min(32 * s + 32, round_up(L, 8));
+    for (int j0 = 32 * s; j0 < jend; j0 += 8) {
+      // A[n][j] = k[j][n] wj[j]: rows n (g, g+8), columns j (t, t+4).
+      const float w0 = wj[j0 + t], w1 = wj[j0 + t + 4];
+      const float* k0 = ks + (j0 + t) * KS + rn + g;
+      const float* k1 = k0 + 4 * KS;
+      const FragA a = frag_a(k0[0] * w0, k0[8] * w0, k1[0] * w1, k1[8] * w1);
+      const float* v0 = vs + (j0 + t) * VS + cp0 + g;
+      Tf32 b0[NTW], b1[NTW];
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt) {
+        b0[nt] = split(v0[8 * nt]);
+        b1[nt] = split(v0[8 * nt + 4 * VS]);
+      }
+      mma3<NTW>(acc, a, b0, b1);
+    }
+  }
+  if (!active) return;
+  float* out = states + (((size_t)bh * nc + c) * N + n0 + rn) * P + p0 + cp0;
+  const bool even = (P & 1) == 0;
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt) {
+    const int col = 8 * nt + 2 * t, left = P - p0 - cp0 - col;
+    if (n0 + rn + g < N)
+      store_pair(out + (size_t)g * P + col, acc[nt][0], acc[nt][1], left,
+                 even);
+    if (n0 + rn + g + 8 < N)
+      store_pair(out + (size_t)(g + 8) * P + col, acc[nt][2], acc[nt][3],
+                 left, even);
+  }
+}
+
+// --- stage 2: the recurrence over chunks -------------------------------------
+
+// A thread a state entry, walking the chunks in order, 32 at a time: a
+// load waits out the memory's latency, so the 32 chunks' entries are all
+// read before the first is written, and each lane of a warp takes one
+// chunk's exp(clip(tot)) and hands it round by shuffles.
+__global__ void __launch_bounds__(256) gla_state_pass(
+    float* __restrict__ states, const float* __restrict__ tot, int nc,
+    int np) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x, lane = threadIdx.x & 31;
+  const bool in = e < np;              // every lane takes part in shuffles
+  const size_t bh = blockIdx.y;
+  float* h = states + bh * nc * np + e;
+  const float* tb = tot + bh * nc;
+  float acc = 0.0f;
+  for (int c0 = 0; c0 < nc; c0 += 32) {
+    // The last chunk's state and tot are never written, nor needed.
+    const float decay = c0 + lane + 1 < nc ? clipped_exp(tb[c0 + lane]) : 0.0f;
+    float s[32];                       // S_c, read before H_in(c) replaces it
+#pragma unroll
+    for (int u = 0; u < 32; ++u)
+      s[u] = in && c0 + u + 1 < nc ? h[(size_t)(c0 + u) * np] : 0.0f;
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const float d = __shfl_sync(0xffffffffu, decay, u);
+      if (c0 + u < nc) {
+        if (in) h[(size_t)(c0 + u) * np] = acc;
+        acc = __fadd_rn(__fmul_rn(acc, d), s[u]);
+      }
+    }
+  }
+}
+
+// --- stage 3: each chunk's output ---------------------------------------------
+
+// Stage 3 for N > kNT (xLSTM's N = 256): one CTA a (batch.head, chunk,
+// kPT columns of P). q, k and H are streamed over N in double-buffered
+// tiles, q k^T and q H accumulate in the same stream, and every B operand
+// is split where it is used. Shared memory in floats:
+// q and k [2][Lp][kQKStride], H [2][kNT][HS], v [Lp][VS], cum, li and
+// exp(cum) [kMaxL].
+struct OutTile {
+  // Lanes (g, t) of a B fragment read rows t, 2t or g and columns g or t:
+  // these strides keep a fragment load on 32 banks.
+  static constexpr int KS = kQKStride, HS = kPT + 8, VS = kPT + 4;
+  static size_t smem_floats(int lp) {
+    return 2 * ((size_t)lp * (kQKStride + KS) + kNT * HS) +
+           (size_t)lp * VS + 3 * kMaxL;
+  }
+};
+
+// Element (row, col) of a B operand in a row-major shared tile: a raw
+// float split here, or a (big, small) pair split before.
+template <bool PAIRS>
+__device__ __forceinline__ Tf32 b_entry(const float* tile, int stride,
+                                        int row, int col) {
+  if (PAIRS) {
+    const float2 x =
+        *reinterpret_cast<const float2*>(tile + row * stride + 2 * col);
+    return Tf32{__float_as_uint(x.x), __float_as_uint(x.y)};
+  }
+  return split(tile[row * stride + col]);
+}
+
+__global__ void __launch_bounds__(kOutThreads, 2) gla_chunk_output(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ ld,
-    const float* __restrict__ li, float* __restrict__ y, int S, int N, int P,
-    int L) {
-  extern __shared__ float sm[];
-  const int bh = blockIdx.x;
-  const int p0 = blockIdx.y * kPT;
-  const int pw = min(kPT, P - p0);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int LA = L + 1, QA = kNT + 1;
-  float* H = sm;
-  float* A = H + (size_t)N * kPT;
-  float* vs = A + (size_t)L * LA;
-  float* qs = vs + (size_t)L * kPT;
-  float* ks = qs + (size_t)L * QA;
-  float* cum = ks + (size_t)L * QA;
-  float* lis = cum + L;
-  float* ei = lis + L;
-  float* wj = ei + L;
+    const float* __restrict__ li, const float* __restrict__ h_in,
+    float* __restrict__ y, int S, int N, int P, int L, int vec_qk,
+    int vec_vh) {
+  constexpr int KS = OutTile::KS, HS = OutTile::HS, VS = OutTile::VS;
+  constexpr int NP8 = kPT / 8;
+  extern __shared__ __align__(16) float sm[];
+  const int nc = S / L, c = blockIdx.y, bh = blockIdx.z;
+  const int p0 = blockIdx.x * kPT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int lp = round_up(L, 32);       // whole groups of four column tiles
+  float* qs = sm;                                    // [2][lp][kQKStride]
+  float* ks = qs + 2 * (size_t)lp * kQKStride;       // [2][lp][KS]
+  float* hs = ks + 2 * (size_t)lp * KS;              // [2][kNT][HS]
+  float* vs = hs + 2 * kNT * HS;                     // [lp][VS]
+  float* cum = vs + (size_t)lp * VS;
+  float* lis = cum + kMaxL;
+  float* ei = lis + kMaxL;
 
-  const float* qb = q + (size_t)bh * S * N;
-  const float* kb = k + (size_t)bh * S * N;
-  const float* vb = v + (size_t)bh * S * P;
-  const float* ldb = ld + (size_t)bh * S;
-  const float* lib = li + (size_t)bh * S;
-  float* yb = y + (size_t)bh * S * P;
+  const size_t row0 = (size_t)bh * S + (size_t)c * L;
+  const bool carry = c > 0;            // H_in(0) = 0: no q H term
+  const float* hb = h_in + ((size_t)bh * nc + c) * N * P + p0;
+  const int tiles = (N + kNT - 1) / kNT;
+  auto issue = [&](int it) {
+    const int n0 = it * kNT, b = it & 1;
+    load_tile(qs + b * lp * kQKStride, kQKStride, q + row0 * N + n0, N, lp,
+              kNT, L, N - n0, vec_qk, tid, kOutThreads);
+    load_tile(ks + b * lp * KS, KS, k + row0 * N + n0, N, lp, kNT, L, N - n0,
+              vec_qk, tid, kOutThreads);
+    if (carry)
+      load_tile(hs + b * kNT * HS, HS, hb + (size_t)n0 * P, P, kNT, kPT,
+                N - n0, P - p0, vec_vh, tid, kOutThreads);
+  };
+  const Gates gt = gate_load(ld + row0, li + row0, L, tid);
+  issue(0);
+  cp_commit();
+  load_tile(vs, VS, v + row0 * P + p0, P, lp, kPT, L, P - p0, vec_vh, tid,
+            kOutThreads);
+  cp_commit();
+  gate_scan(gt, cum, lis, tid);
+  for (int i = tid; i < lp; i += kOutThreads)
+    ei[i] = i < L ? clipped_exp(cum[i]) : 0.0f;
 
-  for (int e = tid; e < N * kPT; e += kThreads) H[e] = 0.0f;
-
-  for (int c0 = 0; c0 < S; c0 += L) {
-    for (int i = tid; i < L; i += kThreads) {
-      cum[i] = ldb[c0 + i];
-      lis[i] = lib[c0 + i];
-    }
-    for (int e = tid; e < L * kPT; e += kThreads) {
-      const int j = e / kPT, c = e % kPT;
-      vs[e] = c < pw ? vb[(size_t)(c0 + j) * P + p0 + c] : 0.0f;
-    }
+  // Warp w owns rows 16 rb.. of the chunk, rb = w for w < 4 and 11 - w
+  // above, so that the warps sharing a scheduler (w, w + 4) hold row blocks
+  // rb and 7 - rb: equal causal work at L = 128.
+  const int rb = warp < 4 ? warp : 11 - warp;
+  const int r0 = 16 * rb;
+  const bool active = r0 < L;
+  // Column tiles j of q k^T that hold causal entries: j <= r0 + 15.
+  const int jt_end = min(2 * rb + 2, round_up(L, 8) / 8);
+  float acc_a[16][4] = {};                 // (q k^T) rows r0.., cols 8 jt..
+  float acc_y[NP8][4] = {};                // (q H)   rows r0.., cols 8 pt..
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) issue(it + 1);
+    cp_commit();                           // (empty past the last tile)
+    if (it == 0) cp_wait<2>(); else cp_wait<1>();
     __syncthreads();
-    if (tid == 0) {                  // the running sum, in order
-      float s = 0.0f;
-      for (int i = 0; i < L; ++i) {
-        s += cum[i];
-        cum[i] = s;
-      }
-    }
-    __syncthreads();
-    const float tot = cum[L - 1];
-    for (int i = tid; i < L; i += kThreads) {
-      ei[i] = clipped_exp(cum[i]);
-      wj[i] = clipped_exp(tot - cum[i] + lis[i]);
-    }
-
-    float acc_a[kRows][kRows];      // (q k^T)[ty + 16a][tx + 16b]
-    float acc_y[kRows][kCols];      // (q H)[ty + 16a][tx + 16c]
+    const int b = it & 1;
+    const float* qt = qs + b * lp * kQKStride;
+    const float* kt = ks + b * lp * KS;
+    const float* ht = hs + b * kNT * HS;
+    if (active) {
 #pragma unroll
-    for (int a = 0; a < kRows; ++a) {
+      for (int n8 = 0; n8 < kNT; n8 += 8) {
+        const float* qa = qt + (r0 + g) * kQKStride + n8 + t;
+        const FragA a = frag_a(qa[0], qa[8 * kQKStride], qa[4],
+                               qa[8 * kQKStride + 4]);
+        // B[n][j] = k[j][n]: lane (g, t) takes k[8 jt + g][n8 + t (+4)],
+        // four column tiles at a time (past jt_end: zero rows or masked).
 #pragma unroll
-      for (int b = 0; b < kRows; ++b) acc_a[a][b] = 0.0f;
+        for (int j4 = 0; j4 < 16; j4 += 4) {
+          if (j4 < jt_end) {
+            Tf32 b0[4], b1[4];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc_y[a][c] = 0.0f;
-    }
-    for (int n0 = 0; n0 < N; n0 += kNT) {
-      const int nw = min(kNT, N - n0);
-      __syncthreads();               // the last tile's readers are done
-      for (int e = tid; e < L * kNT; e += kThreads) {
-        const int i = e / kNT, c = e % kNT;
-        const size_t o = (size_t)(c0 + i) * N + n0 + c;
-        qs[i * QA + c] = c < nw ? qb[o] : 0.0f;
-        ks[i * QA + c] = c < nw ? kb[o] : 0.0f;
-      }
-      __syncthreads();
-      for (int c = 0; c < nw; ++c) {
-        float qa[kRows], kk[kRows], hh[kCols];
-#pragma unroll
-        for (int a = 0; a < kRows; ++a) {
-          const int i = ty + 16 * a;
-          qa[a] = i < L ? qs[i * QA + c] : 0.0f;
-          kk[a] = tx + 16 * a < L ? ks[(tx + 16 * a) * QA + c] : 0.0f;
+            for (int i = 0; i < 4; ++i) {
+              b0[i] = b_entry<false>(kt, KS, 8 * (j4 + i) + g, n8 + t);
+              b1[i] = b_entry<false>(kt, KS, 8 * (j4 + i) + g, n8 + t + 4);
+            }
+            mma3<4>(acc_a + j4, a, b0, b1);
+          }
         }
+        if (carry) {
 #pragma unroll
-        for (int b = 0; b < kCols; ++b) hh[b] = H[(n0 + c) * kPT + tx + 16 * b];
+          for (int p4 = 0; p4 < NP8; p4 += 4) {
+            Tf32 b0[4], b1[4];
 #pragma unroll
-        for (int a = 0; a < kRows; ++a) {
-#pragma unroll
-          for (int b = 0; b < kRows; ++b) acc_a[a][b] += qa[a] * kk[b];
-#pragma unroll
-          for (int b = 0; b < kCols; ++b) acc_y[a][b] += qa[a] * hh[b];
-        }
-      }
-      __syncthreads();               // every read of this tile's H rows done
-      // H rows n0 + ty + 16r of the tile: exp(tot) H + sum_j k_j wj_j v_j
-      const float e_tot = clipped_exp(tot);
-#pragma unroll
-      for (int r = 0; r < kNT / 16; ++r) {
-        const int nn = ty + 16 * r;
-        if (nn >= nw) continue;
-        float acc_h[kCols];
-#pragma unroll
-        for (int b = 0; b < kCols; ++b) acc_h[b] = 0.0f;
-        for (int j = 0; j < L; ++j) {
-          const float kw = ks[j * QA + nn] * wj[j];
-#pragma unroll
-          for (int b = 0; b < kCols; ++b)
-            acc_h[b] += kw * vs[j * kPT + tx + 16 * b];
-        }
-#pragma unroll
-        for (int b = 0; b < kCols; ++b) {
-          float* h = H + (n0 + nn) * kPT + tx + 16 * b;
-          *h = *h * e_tot + acc_h[b];
+            for (int i = 0; i < 4; ++i) {
+              b0[i] = b_entry<false>(ht, HS, n8 + t, 8 * (p4 + i) + g);
+              b1[i] = b_entry<false>(ht, HS, n8 + t + 4, 8 * (p4 + i) + g);
+            }
+            mma3<4>(acc_y + p4, a, b0, b1);
+          }
         }
       }
     }
-    // A = q k^T o W on the causal half, 0 above it
-#pragma unroll
-    for (int a = 0; a < kRows; ++a) {
-      const int i = ty + 16 * a;
-#pragma unroll
-      for (int b = 0; b < kRows; ++b) {
-        const int j = tx + 16 * b;
-        if (i < L && j < L)
-          A[i * LA + j] = j <= i ? acc_a[a][b] *
-                                       clipped_exp(cum[i] - cum[j] + lis[j])
-                                 : 0.0f;
-      }
-    }
-    __syncthreads();
-    // y = exp(cum) o (q H) + A v, rows ty + 16a, columns tx + 16c
-#pragma unroll
-    for (int a = 0; a < kRows; ++a) {
-      const float e = ty + 16 * a < L ? ei[ty + 16 * a] : 0.0f;
-#pragma unroll
-      for (int b = 0; b < kCols; ++b) acc_y[a][b] *= e;
-    }
-    for (int j = 0; j < L; ++j) {
-      float vv[kCols];
-#pragma unroll
-      for (int b = 0; b < kCols; ++b) vv[b] = vs[j * kPT + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < kRows; ++a) {
-        const int i = ty + 16 * a;
-        const float w = i < L ? A[i * LA + j] : 0.0f;
-#pragma unroll
-        for (int b = 0; b < kCols; ++b) acc_y[a][b] += w * vv[b];
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < kRows; ++a) {
-      const int i = ty + 16 * a;
-#pragma unroll
-      for (int b = 0; b < kCols; ++b) {
-        const int c = tx + 16 * b;
-        if (i < L && c < pw) yb[(size_t)(c0 + i) * P + p0 + c] = acc_y[a][b];
-      }
-    }
-    __syncthreads();                 // before the next chunk's loads
+    __syncthreads();                       // the buffer is free for it + 2
   }
+
+  // q k^T o W. Accumulator lane (g, t) holds columns j = 8 jt + 2t, 2t + 1
+  // of rows i0, i1; W = exp(clip(cum_i - cum_j + li_j)) in the reference's
+  // order, 0 above the diagonal and outside the chunk.
+  const int i0 = r0 + g, i1 = i0 + 8;
+  if (active) {
+    const float c0 = cum[i0], c1 = cum[i1];
+#pragma unroll
+    for (int jt = 0; jt < 16; ++jt) {
+      if (jt < jt_end) {
+        const int ja = 8 * jt + 2 * t, jb = ja + 1;
+        acc_a[jt][0] *= ja <= i0 && i0 < L
+                            ? clipped_exp(c0 - cum[ja] + lis[ja]) : 0.0f;
+        acc_a[jt][1] *= jb <= i0 && i0 < L
+                            ? clipped_exp(c0 - cum[jb] + lis[jb]) : 0.0f;
+        acc_a[jt][2] *= ja <= i1 && i1 < L
+                            ? clipped_exp(c1 - cum[ja] + lis[ja]) : 0.0f;
+        acc_a[jt][3] *= jb <= i1 && i1 < L
+                            ? clipped_exp(c1 - cum[jb] + lis[jb]) : 0.0f;
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();                         // v visible
+  if (!active) return;
+
+  // y = exp(cum) o (q H) + (q k^T o W) v. The weighted accumulator is the
+  // A fragment whose k index t is column 2t and t + 4 is 2t + 1; the rows
+  // of v (B) follow that order.
+  const float e0 = ei[i0], e1 = ei[i1];
+#pragma unroll
+  for (int pt = 0; pt < NP8; ++pt) {
+    acc_y[pt][0] *= e0;
+    acc_y[pt][1] *= e0;
+    acc_y[pt][2] *= e1;
+    acc_y[pt][3] *= e1;
+  }
+#pragma unroll
+  for (int jt = 0; jt < 16; ++jt) {
+    if (jt < jt_end) {
+      const FragA a = frag_a(acc_a[jt][0], acc_a[jt][2], acc_a[jt][1],
+                             acc_a[jt][3]);
+      const int ja = 8 * jt + 2 * t;
+#pragma unroll
+      for (int p4 = 0; p4 < NP8; p4 += 4) {
+        Tf32 b0[4], b1[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          b0[i] = b_entry<false>(vs, VS, ja, 8 * (p4 + i) + g);
+          b1[i] = b_entry<false>(vs, VS, ja + 1, 8 * (p4 + i) + g);
+        }
+        mma3<4>(acc_y + p4, a, b0, b1);
+      }
+    }
+  }
+  float* yb = y + row0 * P + p0;
+  const bool even = (P & 1) == 0;
+#pragma unroll
+  for (int pt = 0; pt < NP8; ++pt) {
+    const int col = 8 * pt + 2 * t;
+    if (i0 < L)
+      store_pair(yb + (size_t)i0 * P + col, acc_y[pt][0], acc_y[pt][1],
+                 P - p0 - col, even);
+    if (i1 < L)
+      store_pair(yb + (size_t)i1 * P + col, acc_y[pt][2], acc_y[pt][3],
+                 P - p0 - col, even);
+  }
+}
+
+// Stage 3 for N <= kNT (hymba's SSD branch, N = 16), where q and k are one
+// tile. q k^T is made four column tiles (32 columns) at a time, weighted
+// and multiplied into v at once, as flash attention does, so that no warp
+// holds more than two 16 x 32 blocks of it. Four warps, warp w owning row
+// blocks w and 7 - w: equal causal work at L = 128, and every B fragment
+// (k, v) that a warp loads and splits serves both of its row blocks. k is
+// split into (big, small) tf32 pairs in shared memory once.
+//
+// The weights would cost an exp for every causal entry and P-tile. As exp
+// is monotonic, W_ij = exp(clip(cum_i - cum_j + li_j)) is the product
+// er_i ec_j clipped to [exp(-80), exp(20)], with er_i = exp(cum_i - m) and
+// ec_j = exp(li_j - cum_j + m) for any shift m: exps a row and a column
+// instead of an entry, and the weights stay what the reference's are,
+// clip included (see weights_factor). A chunk whose gates leave no such m
+// (cum or li - cum spanning more than 160 within it, for one) takes each
+// entry's own clipped exp.
+//
+// A CTA walks `per` P-tiles of its chunk, so that the chunk's gates, q
+// and k (and their split) are made once for all of them; the other CTAs on
+// its SM hide the wait for each tile's v and H (a second buffer would leave
+// room for two CTAs an SM, and measured slower). Shared memory in floats:
+// q [Lp][kQKStride], k pairs [Lp][KS], v [Lp][VS], H [kNT][HS], cum, li,
+// exp(clip(cum)), er and ec [kMaxL]: 71 KB at L = 128, three CTAs an SM.
+// The row factors are read from shared memory where they are used: held
+// in registers they cost spills under the 168 registers of three CTAs.
+constexpr int kNarrowThreads = 128;
+constexpr int kNarrowPT = 64;
+
+struct NarrowTile {
+  static constexpr int KS = 2 * kNT + 8;          // k pairs, B rows g
+  static constexpr int HS = kNarrowPT + 8;        // H raw, B rows t
+  static constexpr int VS = kNarrowPT + 4;        // v raw, B rows 2t
+  static size_t smem_floats(int lp) {
+    return (size_t)lp * (kQKStride + KS + VS) + kNT * HS + 5 * kMaxL;
+  }
+};
+
+// k's rows (kNT raw floats at the start of each) to (big, small) pairs in
+// place; warp w takes rows w, w + 4, ...
+__device__ __forceinline__ void split_k_rows(float* tile, int stride,
+                                             int rows, int warp, int lane) {
+  static_assert(kNT <= 32, "a lane a column");
+  for (int r = warp; r < rows; r += kNarrowThreads / 32) {
+    float* row = tile + r * stride;
+    const float x = lane < kNT ? row[lane] : 0.0f;
+    __syncwarp();
+    if (lane < kNT) {
+      const Tf32 sx = split(x);
+      reinterpret_cast<float2*>(row)[lane] =
+          make_float2(__uint_as_float(sx.big), __uint_as_float(sx.small));
+    }
+  }
+}
+
+// Two row blocks' products with one B: c0 += A0 B, c1 += A1 B, the three
+// passes interleaved over all eight accumulators.
+__device__ __forceinline__ void mma3_pair(float (*c0)[4], const FragA& f0,
+                                          float (*c1)[4], const FragA& f1,
+                                          const Tf32 (&b0)[4],
+                                          const Tf32 (&b1)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mma(c0[i], f0.a[0].small, f0.a[1].small, f0.a[2].small, f0.a[3].small,
+        b0[i].big, b1[i].big);
+    mma(c1[i], f1.a[0].small, f1.a[1].small, f1.a[2].small, f1.a[3].small,
+        b0[i].big, b1[i].big);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mma(c0[i], f0.a[0].big, f0.a[1].big, f0.a[2].big, f0.a[3].big,
+        b0[i].small, b1[i].small);
+    mma(c1[i], f1.a[0].big, f1.a[1].big, f1.a[2].big, f1.a[3].big,
+        b0[i].small, b1[i].small);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mma(c0[i], f0.a[0].big, f0.a[1].big, f0.a[2].big, f0.a[3].big,
+        b0[i].big, b1[i].big);
+    mma(c1[i], f1.a[0].big, f1.a[1].big, f1.a[2].big, f1.a[3].big,
+        b0[i].big, b1[i].big);
+  }
+}
+
+// Rows g and g + 8 of two row blocks' accumulators times e[0..3].
+__device__ __forceinline__ void scale_rows(float (*y0)[4], float (*y1)[4],
+                                           const float (&e)[4]) {
+#pragma unroll
+  for (int pt = 0; pt < kNarrowPT / 8; ++pt) {
+    y0[pt][0] *= e[0];
+    y0[pt][1] *= e[0];
+    y0[pt][2] *= e[1];
+    y0[pt][3] *= e[1];
+    y1[pt][0] *= e[2];
+    y1[pt][1] *= e[2];
+    y1[pt][2] *= e[3];
+    y1[pt][3] *= e[3];
+  }
+}
+
+// c += A B for the row blocks that take part (do0, do1).
+__device__ __forceinline__ void mma3_blocks(bool do0, float (*c0)[4],
+                                            const FragA& f0, bool do1,
+                                            float (*c1)[4], const FragA& f1,
+                                            const Tf32 (&b0)[4],
+                                            const Tf32 (&b1)[4]) {
+  if (do0 && do1)
+    mma3_pair(c0, f0, c1, f1, b0, b1);
+  else if (do0)
+    mma3<4>(c0, f0, b0, b1);
+  else if (do1)
+    mma3<4>(c1, f1, b0, b1);
+}
+
+// Whether a shift m puts both factors' exponents, cum_i - m and
+// li_j - cum_j + m for i, j < l, inside [-80, 80], and that m (the middle
+// of those that do). Then er_i and ec_j are normal floats, their product is
+// exp(cum_i - cum_j + li_j) up to rounding, and where it overflows or
+// underflows the exponent is past a clip, which the clamp of the product
+// restores (clip_weight). Every warp reduces the same values in the same
+// order, so every warp decides alike.
+__device__ __forceinline__ bool weights_factor(const float* cum,
+                                               const float* lis, int l,
+                                               int lane, float* shift) {
+  float a_lo = 3.0e38f, a_hi = -3.0e38f, b_lo = 3.0e38f, b_hi = -3.0e38f;
+  for (int i = lane; i < l; i += 32) {
+    a_lo = fminf(a_lo, cum[i]);
+    a_hi = fmaxf(a_hi, cum[i]);
+    b_lo = fminf(b_lo, lis[i] - cum[i]);
+    b_hi = fmaxf(b_hi, lis[i] - cum[i]);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    a_lo = fminf(a_lo, __shfl_xor_sync(0xffffffffu, a_lo, o));
+    a_hi = fmaxf(a_hi, __shfl_xor_sync(0xffffffffu, a_hi, o));
+    b_lo = fminf(b_lo, __shfl_xor_sync(0xffffffffu, b_lo, o));
+    b_hi = fmaxf(b_hi, __shfl_xor_sync(0xffffffffu, b_hi, o));
+  }
+  const float lo = fmaxf(a_hi + kClipLo, kClipLo - b_lo);
+  const float hi = fminf(a_lo - kClipLo, -kClipLo - b_hi);
+  *shift = 0.5f * (lo + hi);
+  return lo <= hi;
+}
+
+// exp(clip(x)) from e = exp(x), which may have overflowed or underflowed.
+__device__ __forceinline__ float clip_weight(float e) {
+  return fminf(fmaxf(e, kWeightLo), kWeightHi);
+}
+
+__global__ void __launch_bounds__(kNarrowThreads, 3) gla_chunk_output_narrow(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ ld,
+    const float* __restrict__ li, const float* __restrict__ h_in,
+    float* __restrict__ y, int S, int N, int P, int L, int per, int vec_qk,
+    int vec_vh) {
+  constexpr int KS = NarrowTile::KS, HS = NarrowTile::HS;
+  constexpr int VS = NarrowTile::VS, NP8 = kNarrowPT / 8;
+  static_assert(NP8 % 4 == 0, "B groups of four column tiles");
+  extern __shared__ __align__(16) float sm[];
+  const int nc = S / L, c = blockIdx.y, bh = blockIdx.z;
+  const int tile0 = blockIdx.x * per;
+  const int tile1 = min(tile0 + per, (P + kNarrowPT - 1) / kNarrowPT);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int lp = round_up(L, 32);       // whole groups of four column tiles
+  float* qs = sm;                                  // [lp][kQKStride]
+  float* ks = qs + (size_t)lp * kQKStride;         // [lp][KS]
+  float* vs = ks + (size_t)lp * KS;                // [lp][VS]
+  float* hs = vs + (size_t)lp * VS;                // [kNT][HS]
+  float* cum = hs + kNT * HS;
+  float* lis = cum + kMaxL;
+  float* ei = lis + kMaxL;
+  float* er = ei + kMaxL;                          // row factors
+  float* ec = er + kMaxL;                          // column factors
+
+  const size_t row0 = (size_t)bh * S + (size_t)c * L;
+  const bool carry = c > 0;            // H_in(0) = 0: no q H term
+  const float* hc = h_in + ((size_t)bh * nc + c) * N * P;
+  // v and H_in's columns of P-tile j.
+  auto issue_tile = [&](int j) {
+    const int p0 = j * kNarrowPT;
+    load_tile(vs, VS, v + row0 * P + p0, P, lp, kNarrowPT, L, P - p0,
+              vec_vh, tid, kNarrowThreads);
+    if (carry)
+      load_tile(hs, HS, hc + p0, P, kNT, kNarrowPT, N, P - p0, vec_vh, tid,
+                kNarrowThreads);
+  };
+  const Gates gt = gate_load(ld + row0, li + row0, L, tid);
+  load_tile(qs, kQKStride, q + row0 * N, N, lp, kNT, L, N, vec_qk, tid,
+            kNarrowThreads);
+  load_tile(ks, KS, k + row0 * N, N, lp, kNT, L, N, vec_qk, tid,
+            kNarrowThreads);
+  cp_commit();
+  issue_tile(tile0);
+  cp_commit();
+  gate_scan(gt, cum, lis, tid);
+  float m;
+  const bool factored = weights_factor(cum, lis, L, lane, &m);
+  for (int i = tid; i < lp; i += kNarrowThreads) {
+    ei[i] = i < L ? clipped_exp(cum[i]) : 0.0f;
+    er[i] = factored && i < L ? expf(cum[i] - m) : 0.0f;
+    ec[i] = factored && i < L ? expf(lis[i] - cum[i] + m) : 0.0f;
+  }
+  cp_wait<1>();                        // q and k
+  __syncthreads();
+  split_k_rows(ks, KS, lp, warp, lane);
+  __syncthreads();
+
+  // Row blocks: lo = warp, hi = 7 - warp; the column tiles j of q k^T
+  // that hold causal entries of a block at r0: j <= r0 + 15.
+  const int r_lo = 16 * warp, r_hi = 16 * (7 - warp);
+  const int tiles_l = round_up(L, 8) / 8;
+  const int jt_lo = r_lo < L ? min(2 * warp + 2, tiles_l) : 0;
+  const int jt_hi = r_hi < L ? min(16 - 2 * warp, tiles_l) : 0;
+  const int jt_end = max(jt_lo, jt_hi);
+  FragA qf[2][kNT / 8];                // q of each block, each k step
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int n8 = 0; n8 < kNT; n8 += 8) {
+      const float* qa = qs + ((h ? r_hi : r_lo) + g) * kQKStride + n8 + t;
+      qf[h][n8 / 8] =
+          frag_a(qa[0], qa[8 * kQKStride], qa[4], qa[8 * kQKStride + 4]);
+    }
+  }
+
+  for (int j = tile0; j < tile1; ++j) {
+    if (j > tile0) {
+      issue_tile(j);
+      cp_commit();
+    }
+    cp_wait<0>();                      // tile j
+    __syncthreads();
+    float y_lo[NP8][4] = {}, y_hi[NP8][4] = {};   // y of each block
+    if (carry) {                       // q H_in
+#pragma unroll
+      for (int n8 = 0; n8 < kNT; n8 += 8) {
+#pragma unroll
+        for (int p4 = 0; p4 < NP8; p4 += 4) {
+          Tf32 b0[4], b1[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            b0[i] = b_entry<false>(hs, HS, n8 + t, 8 * (p4 + i) + g);
+            b1[i] = b_entry<false>(hs, HS, n8 + t + 4, 8 * (p4 + i) + g);
+          }
+          mma3_blocks(jt_lo > 0, y_lo + p4, qf[0][n8 / 8], jt_hi > 0,
+                      y_hi + p4, qf[1][n8 / 8], b0, b1);
+        }
+      }
+      // Rows g and g + 8 of each block times exp(clip(cum)).
+      const float e[4] = {ei[r_lo + g], ei[r_lo + g + 8], ei[r_hi + g],
+                          ei[r_hi + g + 8]};
+      scale_rows(y_lo, y_hi, e);
+    }
+    for (int j4 = 0; j4 < jt_end; j4 += 4) {
+      const bool do_lo = j4 < jt_lo, do_hi = j4 < jt_hi;
+      // q k^T, column tiles j4..j4 + 3 (past a block's end: masked below).
+      float s_lo[4][4] = {}, s_hi[4][4] = {};
+#pragma unroll
+      for (int n8 = 0; n8 < kNT; n8 += 8) {
+        Tf32 b0[4], b1[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          b0[i] = b_entry<true>(ks, KS, 8 * (j4 + i) + g, n8 + t);
+          b1[i] = b_entry<true>(ks, KS, 8 * (j4 + i) + g, n8 + t + 4);
+        }
+        mma3_blocks(do_lo, s_lo, qf[0][n8 / 8], do_hi, s_hi, qf[1][n8 / 8],
+                    b0, b1);
+      }
+      // o W: lane (g, t) holds columns 2t, 2t + 1 of rows g, g + 8.
+      // W = clip_weight(er_i ec_j) where the chunk factors, else
+      // exp(clip(cum_i - cum_j + li_j)) in the reference's order; 0 above
+      // the diagonal and outside the chunk.
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ja = 8 * (j4 + i) + 2 * t, jb = ja + 1;
+        const float eca = ec[ja], ecb = ec[jb];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!(h ? do_hi : do_lo)) continue;
+          float(&sb)[4][4] = h ? s_hi : s_lo;
+          const int ra = (h ? r_hi : r_lo) + g, rc = ra + 8;
+          const bool in_a = ra < L, in_c = rc < L;
+          if (factored) {
+            const float era = er[ra], erc = er[rc];
+            sb[i][0] *= ja <= ra && in_a ? clip_weight(era * eca) : 0.0f;
+            sb[i][1] *= jb <= ra && in_a ? clip_weight(era * ecb) : 0.0f;
+            sb[i][2] *= ja <= rc && in_c ? clip_weight(erc * eca) : 0.0f;
+            sb[i][3] *= jb <= rc && in_c ? clip_weight(erc * ecb) : 0.0f;
+          } else {
+            const float ca = cum[ja], cb = cum[jb];
+            const float la = lis[ja], lb = lis[jb];
+            const float cra = cum[ra], crc = cum[rc];
+            sb[i][0] *= ja <= ra && in_a ? clipped_exp(cra - ca + la) : 0.0f;
+            sb[i][1] *= jb <= ra && in_a ? clipped_exp(cra - cb + lb) : 0.0f;
+            sb[i][2] *= ja <= rc && in_c ? clipped_exp(crc - ca + la) : 0.0f;
+            sb[i][3] *= jb <= rc && in_c ? clipped_exp(crc - cb + lb) : 0.0f;
+          }
+        }
+      }
+      // (q k^T o W) v: the weighted accumulator is the A fragment whose k
+      // index t is column 2t and t + 4 is 2t + 1; the rows of v follow.
+      // Column tiles past a block's causal end are all zero and skipped.
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ja = 8 * (j4 + i) + 2 * t;
+        const FragA a_lo =
+            frag_a(s_lo[i][0], s_lo[i][2], s_lo[i][1], s_lo[i][3]);
+        const FragA a_hi =
+            frag_a(s_hi[i][0], s_hi[i][2], s_hi[i][1], s_hi[i][3]);
+#pragma unroll
+        for (int p4 = 0; p4 < NP8; p4 += 4) {
+          Tf32 b0[4], b1[4];
+#pragma unroll
+          for (int pt = 0; pt < 4; ++pt) {
+            b0[pt] = b_entry<false>(vs, VS, ja, 8 * (p4 + pt) + g);
+            b1[pt] = b_entry<false>(vs, VS, ja + 1, 8 * (p4 + pt) + g);
+          }
+          mma3_blocks(j4 + i < jt_lo, y_lo + p4, a_lo, j4 + i < jt_hi,
+                      y_hi + p4, a_hi, b0, b1);
+        }
+      }
+    }
+    const int p0 = j * kNarrowPT;
+    float* yb = y + row0 * P + p0;
+    const bool even = (P & 1) == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float(&yy)[NP8][4] = h ? y_hi : y_lo;
+      const int ra = (h ? r_hi : r_lo) + g, rc = ra + 8;
+#pragma unroll
+      for (int pt = 0; pt < NP8; ++pt) {
+        const int col = 8 * pt + 2 * t;
+        if (ra < L)
+          store_pair(yb + (size_t)ra * P + col, yy[pt][0], yy[pt][1],
+                     P - p0 - col, even);
+        if (rc < L)
+          store_pair(yb + (size_t)rc * P + col, yy[pt][2], yy[pt][3],
+                     P - p0 - col, even);
+      }
+    }
+    __syncthreads();                   // v and H are free for the next tile
+  }
+}
+
+// --- launches -----------------------------------------------------------------
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Lets a kernel take `smem` bytes of dynamic shared memory, with the SM's
+// largest shared-memory carveout, so that as many CTAs fit as the bytes
+// allow.
+cudaError_t opt_in(const void* kernel, size_t smem) {
+  if (smem > (size_t)kSmemMax) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess || smem <= 48 * 1024) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+bool bad_shape(int bh, int s, int n, int p, int l) {
+  return bh <= 0 || s <= 0 || n <= 0 || p <= 0 || l <= 0 || l > kMaxL ||
+         s % l || s / l > 65535 || bh > 65535;
+}
+
+template <int WM, int NTW>
+int launch_state(const float* k, const float* v, const float* ld,
+                 const float* li, float* states, float* tot, int bh, int s,
+                 int n, int p, int l, cudaStream_t stream) {
+  using T = StateTile<WM, NTW>;
+  const int nc = s / l;
+  if (nc < 2) return (int)cudaSuccess;   // the last chunk's state is unused
+  const int lp = (l + 31) / 32 * 32;
+  const size_t smem = T::smem_floats(lp) * sizeof(float);
+  cudaError_t err = opt_in((const void*)gla_chunk_state<WM, NTW>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(((n + T::NT - 1) / T::NT) *
+                             ((p + T::PT - 1) / T::PT)),
+                  (unsigned)(nc - 1), (unsigned)bh);
+  gla_chunk_state<WM, NTW><<<grid, kStateThreads, smem, stream>>>(
+      k, v, ld, li, states, tot, s, n, p, l,
+      n % 4 == 0 && aligned16(k), p % 4 == 0 && aligned16(v));
+  return (int)cudaGetLastError();
+}
+
+// CTA tiles of S_c: 16 x 64 (N <= 16), 32 x 64 (N <= 32), else 64 x 32.
+int chunk_state(const float* k, const float* v, const float* ld,
+                const float* li, float* states, float* tot, int bh, int s,
+                int n, int p, int l, cudaStream_t stream) {
+  if (n <= 16)
+    return launch_state<1, 2>(k, v, ld, li, states, tot, bh, s, n, p, l,
+                              stream);
+  if (n <= 32)
+    return launch_state<2, 4>(k, v, ld, li, states, tot, bh, s, n, p, l,
+                              stream);
+  return launch_state<4, 4>(k, v, ld, li, states, tot, bh, s, n, p, l,
+                            stream);
+}
+
+int state_pass(float* states, const float* tot, int bh, int nc, int np,
+               cudaStream_t stream) {
+  if (bh <= 0 || nc <= 0 || np <= 0 || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((np + 255) / 256), (unsigned)bh);
+  gla_state_pass<<<grid, 256, 0, stream>>>(states, tot, nc, np);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of a kernel that one SM holds at once with `smem` bytes each.
+template <typename K>
+int resident(K kernel, int threads, size_t smem) {
+  int ctas = 0;
+  if (opt_in((const void*)kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return ctas;
+}
+
+template <int WM, int NTW>
+int state_resident(int l) {
+  const size_t lp = (l + 31) / 32 * 32;
+  return resident(gla_chunk_state<WM, NTW>, kStateThreads,
+                  StateTile<WM, NTW>::smem_floats(lp) * sizeof(float));
+}
+
+size_t output_smem(int n, int l) {
+  const int lp = (l + 31) / 32 * 32;
+  return (n <= kNT ? NarrowTile::smem_floats(lp)
+                   : OutTile::smem_floats(lp)) * sizeof(float);
+}
+
+// P-tiles a narrow CTA walks: all of a chunk's, unless that leaves fewer
+// than kNarrowCTAs CTAs to fill the card (three an SM, two waves).
+constexpr int kNarrowCTAs = 2 * 3 * 132;
+
+int narrow_per(int bh, int s, int p, int l) {
+  const int tiles = (p + kNarrowPT - 1) / kNarrowPT;
+  const long chunks = (long)bh * (s / l);
+  const int groups =
+      (int)std::min<long>(tiles, (kNarrowCTAs + chunks - 1) / chunks);
+  return (tiles + groups - 1) / groups;
+}
+
+int chunk_output(const float* q, const float* k, const float* v,
+                 const float* ld, const float* li, const float* h_in,
+                 float* y, int bh, int s, int n, int p, int l,
+                 cudaStream_t stream) {
+  const size_t smem = output_smem(n, l);
+  const int vec_qk = n % 4 == 0 && aligned16(q) && aligned16(k);
+  const int vec_vh = p % 4 == 0 && aligned16(v) && aligned16(h_in);
+  cudaError_t err;
+  if (n <= kNT) {
+    err = opt_in((const void*)gla_chunk_output_narrow, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int per = narrow_per(bh, s, p, l);
+    const int tiles = (p + kNarrowPT - 1) / kNarrowPT;
+    const dim3 grid((unsigned)((tiles + per - 1) / per), (unsigned)(s / l),
+                    (unsigned)bh);
+    gla_chunk_output_narrow<<<grid, kNarrowThreads, smem, stream>>>(
+        q, k, v, ld, li, h_in, y, s, n, p, l, per, vec_qk, vec_vh);
+  } else {
+    err = opt_in((const void*)gla_chunk_output, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((p + kPT - 1) / kPT), (unsigned)(s / l),
+                    (unsigned)bh);
+    gla_chunk_output<<<grid, kOutThreads, smem, stream>>>(
+        q, k, v, ld, li, h_in, y, s, n, p, l, vec_qk, vec_vh);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// y [bh, s, p] from q, k [bh, s, n], v [bh, s, p], ld, li [bh, s]: one
-// launch of bh x ceil(p / 64) CTAs. Chunks of l <= 128 (s a multiple of l);
-// the shared memory it needs, (64 n + l (l + 1) + 64 l + 66 l + 4 l)
-// floats, must fit in 227 KB.
+// Each returns a cudaError_t: a refused launch is reported here, never run.
+
+// Stage 1: states [bh, s / l, n, p] (all but the last chunk's) and tot
+// [bh, s / l] from k [bh, s, n], v [bh, s, p], ld, li [bh, s].
+int gla_chunk_state_launch(const float* k, const float* v, const float* ld,
+                           const float* li, float* states, float* tot, int bh,
+                           int s, int n, int p, int l, void* stream) {
+  if (bad_shape(bh, s, n, p, l)) return (int)cudaErrorInvalidValue;
+  return chunk_state(k, v, ld, li, states, tot, bh, s, n, p, l,
+                     (cudaStream_t)stream);
+}
+
+// Stage 2, in place: states [bh, nc, np] -> H_in.
+int gla_state_pass_launch(float* states, const float* tot, int bh, int nc,
+                          int np, void* stream) {
+  return state_pass(states, tot, bh, nc, np, (cudaStream_t)stream);
+}
+
+// Stage 3: y [bh, s, p] from q, k, v, the gates and h_in [bh, s / l, n, p].
+int gla_chunk_output_launch(const float* q, const float* k, const float* v,
+                            const float* ld, const float* li,
+                            const float* h_in, float* y, int bh, int s, int n,
+                            int p, int l, void* stream) {
+  if (bad_shape(bh, s, n, p, l)) return (int)cudaErrorInvalidValue;
+  return chunk_output(q, k, v, ld, li, h_in, y, bh, s, n, p, l,
+                      (cudaStream_t)stream);
+}
+
+// CTAs an SM holds at once of the stage-1 and stage-3 kernels that the
+// forward launches for state width n and chunk l (-1 where unknown).
+int gla_resident(int n, int l, int* state_ctas, int* output_ctas) {
+  if (n <= 0 || l <= 0 || l > kMaxL) return (int)cudaErrorInvalidValue;
+  *state_ctas = n <= 16   ? state_resident<1, 2>(l)
+                : n <= 32 ? state_resident<2, 4>(l)
+                          : state_resident<4, 4>(l);
+  *output_ctas =
+      n <= kNT ? resident(gla_chunk_output_narrow, kNarrowThreads,
+                          output_smem(n, l))
+               : resident(gla_chunk_output, kOutThreads,
+                          output_smem(n, l));
+  return (int)cudaSuccess;
+}
+
+// The forward: the three stages on one stream through the scratch states
+// [bh, s / l, n, p] and tot [bh, s / l], both float32, from the caller.
 int gla_forward_launch(const float* q, const float* k, const float* v,
-                       const float* ld, const float* li, float* y, int bh,
-                       int s, int n, int p, int l, void* stream) {
-  if (bh <= 0 || s <= 0 || n <= 0 || p <= 0 || l <= 0 || l > kMaxL || s % l)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(n, l) * sizeof(float);
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        (const void*)gla_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((unsigned)bh, (unsigned)((p + kPT - 1) / kPT));
-  gla_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(q, k, v, ld, li,
-                                                             y, s, n, p, l);
-  return (int)cudaGetLastError();
+                       const float* ld, const float* li, float* y,
+                       float* states, float* tot, int bh, int s, int n, int p,
+                       int l, void* stream) {
+  if (bad_shape(bh, s, n, p, l)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int err = chunk_state(k, v, ld, li, states, tot, bh, s, n, p, l, st);
+  if (err) return err;
+  err = state_pass(states, tot, bh, s / l, n * p, st);
+  if (err) return err;
+  return chunk_output(q, k, v, ld, li, states, y, bh, s, n, p, l, st);
 }
 
 }  // extern "C"

@@ -12,6 +12,17 @@ tensors (its plain version, ``gla_folded_plain``, on CPU tensors), then
 unfolds and crops. ``gla_forward_plain`` is the forward math of
 ``repro.models.ssm.gla_chunked`` in torch, on ``[B, S, H, .]``.
 
+The kernel path is three kernels, each with its plain version on folded
+operands; their composition is ``gla_folded_plain``:
+
+1. ``chunk_states`` (``gla_chunk_states_plain``): every chunk's own state
+   ``S_c = (k o exp(clip(tot - cum + li)))^T v`` and its total decay
+   ``tot_c``, all chunks at once;
+2. ``state_pass`` (``gla_state_pass_plain``): the recurrence over chunks,
+   ``H_in(0) = 0``, ``H_in(c+1) = H_in(c) exp(clip(tot_c)) + S_c``;
+3. ``chunk_output`` (``gla_chunk_output_plain``): every chunk's output
+   ``y = (q k^T o W) v + diag(exp(clip(cum))) q H_in(c)``, all at once.
+
 float32 only. The reference's kernel also takes bf16, but its tests run
 float32 only; bf16 waits for the LM substrate.
 """
@@ -26,7 +37,7 @@ from .. import _device
 Tensor = torch.Tensor
 
 CLAMP = 20.0          # log-space clamp: exponents are clipped to [-80, 20]
-MAX_CHUNK = 128       # the longest chunk the CUDA kernel takes
+MAX_CHUNK = 128       # the longest chunk the CUDA kernels take
 _BF16_ITEM = ("ROADMAP.md, port order item 8 (the LM substrate, with bf16 "
               "GLA)")
 
@@ -96,14 +107,63 @@ def gla_folded_plain(q, k, v, log_decay, log_inc, chunk: int) -> Tensor:
                    log_decay[:, :, None], log_inc[:, :, None], chunk)[:, :, 0]
 
 
+def _chunked(a: Tensor, chunk: int) -> Tensor:
+    """[BH, S, ...] -> [BH, S / chunk, chunk, ...]."""
+    return a.reshape(a.shape[0], a.shape[1] // chunk, chunk, *a.shape[2:])
+
+
+def gla_chunk_states_plain(k, v, log_decay, log_inc, chunk: int):
+    """Stage 1 on folded operands (S a multiple of ``chunk``): each chunk's
+    own state ``[BH, nc, N, P]`` (the last chunk's is never read and is
+    0 here) and its total log decay ``tot`` ``[BH, nc]``."""
+    cum = torch.cumsum(_chunked(log_decay, chunk), -1)      # [BH, nc, L]
+    tot = cum[..., -1].contiguous()
+    wj = _clipped_exp(tot[..., None] - cum + _chunked(log_inc, chunk))
+    states = torch.einsum("bcln,bclp->bcnp",
+                          _chunked(k, chunk) * wj[..., None],
+                          _chunked(v, chunk))
+    states[:, -1] = 0.0
+    return states, tot
+
+
+def gla_state_pass_plain(states, tot) -> Tensor:
+    """Stage 2: the state entering each chunk, ``H_in(0) = 0`` and
+    ``H_in(c+1) = H_in(c) * exp(clip(tot_c)) + S_c`` (the reference's
+    ``h * e_tot + dstate``): ``[BH, nc, N, P]``."""
+    h_in = torch.empty_like(states)
+    h = torch.zeros_like(states[:, 0])
+    for c in range(states.shape[1]):
+        h_in[:, c] = h
+        h = h * _clipped_exp(tot[:, c])[:, None, None] + states[:, c]
+    return h_in
+
+
+def gla_chunk_output_plain(q, k, v, log_decay, log_inc, h_in,
+                           chunk: int) -> Tensor:
+    """Stage 3: y ``[BH, S, P]`` from each chunk's operands and the state
+    entering it. Masked entries are exp(-80), as in the reference."""
+    cum = torch.cumsum(_chunked(log_decay, chunk), -1)      # [BH, nc, L]
+    idx = torch.arange(chunk, device=q.device)
+    tri = idx[:, None] >= idx[None, :]
+    logw = cum[..., :, None] - cum[..., None, :] + \
+        _chunked(log_inc, chunk)[..., None, :]
+    w = _clipped_exp(torch.where(tri, logw, -torch.inf))   # [BH, nc, L, L]
+    qc, kc, vc = (_chunked(a, chunk) for a in (q, k, v))
+    qk = torch.einsum("bcin,bcjn->bcij", qc, kc)
+    y = torch.einsum("bcij,bcjp->bcip", qk * w, vc) + torch.einsum(
+        "bcin,bcnp->bcip", qc * _clipped_exp(cum)[..., None], h_in)
+    return y.reshape(v.shape)
+
+
 def gla_forward(q, k, v, log_decay, log_inc, chunk: int = 128,
                 device=None) -> Tensor:
     """Forward-only chunked GLA, the port of
     ``repro.kernels.gla.gla_forward``: q, k ``[B, S, H, N]``, v
     ``[B, S, H, P]``, gates ``[B, S, H]`` -> y ``[B, S, H, P]`` float32.
     Runs on ``device`` (the CUDA card unless ``"cpu"`` is named; the
-    inputs are moved there): ONE launch of the CUDA kernel on the card,
-    its plain version on the CPU. The chunk defines the result (the clamps
+    inputs are moved there): the three CUDA kernels on the card (one call
+    of the kernel path, counted once in ``gla_forward.launches``), their
+    plain version on the CPU. The chunk defines the result (the clamps
     act on sums within a chunk), so it is the caller's: S is padded to a
     multiple of it, and the kernel takes chunks up to ``MAX_CHUNK``."""
     dev = _device.resolve(device)
@@ -148,36 +208,107 @@ def _lib():
 
     from . import _build
     lib = _build.load("gla")
-    lib.gla_forward_launch.argtypes = [c.c_void_p] * 6 + [c.c_int] * 5 + [
-        c.c_void_p]
-    lib.gla_forward_launch.restype = c.c_int
+    ptr, i = c.c_void_p, c.c_int
+    for name, args in (
+            ("gla_forward_launch", [ptr] * 8 + [i] * 5),
+            ("gla_chunk_state_launch", [ptr] * 6 + [i] * 5),
+            ("gla_state_pass_launch", [ptr] * 2 + [i] * 3),
+            ("gla_chunk_output_launch", [ptr] * 7 + [i] * 5)):
+        fn = getattr(lib, name)
+        fn.argtypes = args + [ptr]
+        fn.restype = c.c_int
     return lib
 
 
-def _launch(q, k, v, log_decay, log_inc, chunk: int) -> Tensor:
-    """The kernel path of ``gla_forward`` on folded operands."""
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"the GLA kernel takes chunks of at most "
-                         f"{MAX_CHUNK}, not {chunk}")
-    for t in (q, k, v, log_decay, log_inc):
-        if t.device != q.device or t.device.type != "cuda" \
+def _check_operands(*tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda" \
                 or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("GLA kernel operands must be contiguous float32 "
                              f"tensors on one CUDA device; got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+
+
+def _call(name: str, tensors, ints, what: str) -> None:
+    """One C launch function on the current stream; raises on its status
+    (a refused launch never runs, so it is reported here)."""
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = getattr(_lib(), name)(*(t.data_ptr() for t in tensors),
+                                       *ints, stream)
+    if status:
+        raise RuntimeError(f"{name} failed: CUDA error {status} ({what})")
+
+
+def _chunk_count(s: int, chunk: int) -> int:
+    if not 1 <= chunk <= MAX_CHUNK or s % chunk:
+        raise ValueError(f"the GLA kernels take chunks of 1 to {MAX_CHUNK} "
+                         f"dividing S, not {chunk} for S={s}")
+    return s // chunk
+
+
+def _launch(q, k, v, log_decay, log_inc, chunk: int) -> Tensor:
+    """The kernel path of ``gla_forward`` on folded operands: the three
+    kernels, one after the other on the current stream, through a state
+    buffer ``[BH, nc, N, P]`` and the chunks' total decays ``[BH, nc]``."""
+    _check_operands(q, k, v, log_decay, log_inc)
     bh, sp, n = q.shape
     p = v.shape[-1]
+    nc = _chunk_count(sp, chunk)
     y = torch.empty(bh, sp, p, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = _lib().gla_forward_launch(
-            *(t.data_ptr() for t in (q, k, v, log_decay, log_inc, y)),
-            bh, sp, n, p, chunk, stream)
-    if status:
-        raise RuntimeError(
-            f"GLA kernel launch failed: CUDA error {status} (BH={bh}, "
-            f"S={sp}, N={n}, P={p}, chunk={chunk}; the kernel keeps "
-            f"64*N + chunk*(chunk+135) floats in shared memory, at most "
-            f"227 KB)")
+    states = torch.empty(bh, nc, n, p, dtype=torch.float32, device=q.device)
+    tot = torch.empty(bh, nc, dtype=torch.float32, device=q.device)
+    _call("gla_forward_launch", (q, k, v, log_decay, log_inc, y, states, tot),
+          (bh, sp, n, p, chunk),
+          f"BH={bh}, S={sp}, N={n}, P={p}, chunk={chunk}")
     gla_forward.launches += 1
+    return y
+
+
+def chunk_states(k, v, log_decay, log_inc, chunk: int):
+    """Stage 1 alone: ``(states, tot)`` as ``gla_chunk_states_plain``
+    gives them, from the ``gla_chunk_state`` kernel on CUDA tensors (the
+    last chunk's state and tot are never read, and it leaves them
+    unwritten) and from the plain version on CPU tensors."""
+    if k.device.type == "cpu":
+        return gla_chunk_states_plain(k, v, log_decay, log_inc, chunk)
+    _check_operands(k, v, log_decay, log_inc)
+    bh, sp, n = k.shape
+    p = v.shape[-1]
+    nc = _chunk_count(sp, chunk)
+    states = torch.empty(bh, nc, n, p, dtype=torch.float32, device=k.device)
+    tot = torch.empty(bh, nc, dtype=torch.float32, device=k.device)
+    _call("gla_chunk_state_launch", (k, v, log_decay, log_inc, states, tot),
+          (bh, sp, n, p, chunk), f"BH={bh}, S={sp}, N={n}, P={p}")
+    return states, tot
+
+
+def state_pass(states, tot) -> Tensor:
+    """Stage 2 alone: ``H_in`` as ``gla_state_pass_plain`` gives it. The
+    ``gla_state_pass`` kernel turns ``states`` into ``H_in`` in place on
+    CUDA tensors; the plain version returns a new tensor on CPU ones."""
+    if states.device.type == "cpu":
+        return gla_state_pass_plain(states, tot)
+    _check_operands(states, tot)
+    bh, nc, n, p = states.shape
+    _call("gla_state_pass_launch", (states, tot), (bh, nc, n * p),
+          f"BH={bh}, nc={nc}, N*P={n * p}")
+    return states
+
+
+def chunk_output(q, k, v, log_decay, log_inc, h_in, chunk: int) -> Tensor:
+    """Stage 3 alone: y as ``gla_chunk_output_plain`` gives it, from the
+    ``gla_chunk_output`` kernel on CUDA tensors."""
+    if q.device.type == "cpu":
+        return gla_chunk_output_plain(q, k, v, log_decay, log_inc, h_in,
+                                      chunk)
+    _check_operands(q, k, v, log_decay, log_inc, h_in)
+    bh, sp, n = q.shape
+    p = v.shape[-1]
+    _chunk_count(sp, chunk)
+    y = torch.empty(bh, sp, p, dtype=torch.float32, device=q.device)
+    _call("gla_chunk_output_launch", (q, k, v, log_decay, log_inc, h_in, y),
+          (bh, sp, n, p, chunk), f"BH={bh}, S={sp}, N={n}, P={p}")
     return y

@@ -61,7 +61,7 @@ from ..core import rng
 from ..core.fitness import BUILTIN_PROBLEMS
 from ..core.problem import Bound
 from ..core.pso import STREAM_R1, STREAM_R2
-from ..core.update_rules import RULE_IDS, resolve_rule
+from ..core.update_rules import kernel_rule_id, resolve_rule
 
 Tensor = torch.Tensor
 
@@ -550,7 +550,7 @@ def _launch_operands(state, seeds, its, specs, fids, block_n: int):
     counters, scalars = _counters(seeds, its, dev)
     rows = (None, None) if counters is None else (counters[0], counters[1])
     return ([bounds, member_fit, fids, *rows], scalars, fit_id,
-            RULE_IDS[spec.rule], coef, n, d, s_cnt)
+            kernel_rule_id(spec.rule), coef, n, d, s_cnt)
 
 
 def _ptrs(tensors):

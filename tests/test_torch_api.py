@@ -152,6 +152,72 @@ def test_method_auto_backend_follows_device():
         torch.device("cuda")) == "eager"
 
 
+@pytest.fixture
+def custom_rules():
+    """Two rules the CUDA kernels do not carry, registered for one test: a
+    host-only rule and an elementwise, kernel-eligible one outside
+    ``RULE_IDS``. Both advance like pso."""
+    from repro_torch.core import update_rules as ur
+
+    class HostRule(ur.PSORule):
+        pass
+
+    added = {"hostonly": HostRule("hostonly", kernel_eligible=False),
+             "pso_twin": ur.PSORule("pso_twin")}
+    ur.UPDATE_RULES.update(added)
+    try:
+        yield added
+    finally:
+        for name in added:
+            del ur.UPDATE_RULES[name]
+
+
+@pytest.mark.parametrize("rule", ["hostonly", "pso_twin"])
+def test_method_refuses_kernel_backend_for_rules_without_kernel(
+        custom_rules, rule):
+    """Mirrors tests/test_update_rules.py::
+    test_method_validates_rule_and_topology: a rule the CUDA kernels lack
+    constructs, runs eager, is refused on backend='kernel' naming the
+    kernel rules, and backend='auto' resolves to eager even on a card."""
+    from repro_torch.core import update_rules as ur
+    assert custom_rules["hostonly"].kernel_eligible is False
+    assert custom_rules["hostonly"].rng_draws == 2
+    for variant in ("queue_lock", "async"):
+        api.Method(variant=variant, backend="eager", rule=rule)
+        with pytest.raises(ValueError, match="kernel") as ei:
+            api.Method(variant=variant, backend="kernel", rule=rule)
+        assert all(n in str(ei.value) for n in ("pso", "sso", "lowcost"))
+        m = api.Method(variant=variant, rule=rule)
+        assert m.resolve_backend(torch.device("cuda")) == "eager"
+        assert m.resolve_backend(torch.device("cpu")) == "eager"
+    with pytest.raises(ValueError, match="lowcost"):
+        ur.kernel_rule_id(rule)
+    with pytest.raises(ValueError, match="kernel"):
+        repro_torch.solve("sphere", dim=2, particles=64, iters=1,
+                          variant="async", backend="kernel", rule=rule,
+                          device="cpu")
+
+
+def test_kernel_rule_ids_and_auto_backend(custom_rules):
+    """The kernel rules keep their ids and the kernel under 'auto'; a
+    custom rule runs through 'auto' on the eager engine, as the
+    reference's eager engine runs it."""
+    from repro_torch.core import update_rules as ur
+    assert {n: ur.kernel_rule_id(n) for n in ur.RULE_IDS} == ur.RULE_IDS
+    assert ur.kernel_rule_id(ur.UPDATE_RULES["sso"]) == 1
+    for rule in ur.RULE_IDS:
+        assert api.Method(variant="async", rule=rule).resolve_backend(
+            torch.device("cuda")) == "kernel"
+    got = repro_torch.solve("sphere", dim=3, particles=64, iters=5, seed=0,
+                            variant="queue_lock", rule="pso_twin",
+                            device="cpu")
+    want = repro_torch.solve("sphere", dim=3, particles=64, iters=5, seed=0,
+                             variant="queue_lock", rule="pso",
+                             device="cpu")
+    assert got.method.resolve_backend(torch.device("cpu")) == "eager"
+    assert got.best_fit == want.best_fit
+
+
 def test_method_and_loose_kwargs_are_exclusive():
     with pytest.raises(ValueError, match="either method="):
         repro_torch.solve("cubic", method=api.Method(), variant="queue",

@@ -56,6 +56,28 @@ def _inputs(case, seed=0, decay_scale=0.1):
     return q, k, v, ld, li
 
 
+def _regime(case, regime, chunk, seed=0):
+    """Inputs whose gates stress the weights' clips. ``model``: hymba's SSD
+    gates at initialisation (``repro.models.ssm._ssd_gates``: dt =
+    softplus(x w_dt) with x w_dt ~ N(0, 0.8^2), a_log = 0), whose running
+    sum falls by about 100 over a chunk of 128, so the clips bite inside
+    every chunk. ``spike``: log_decay -70 at each chunk's first step and 0
+    after it, log_inc 10, q, k, v ~ 3 |N(0,1)| (no cancellation, so that
+    the sums are as large as they can be and float32 holds them to the
+    tolerance): every weight is exp(10), but exp(log_inc - cum) alone would
+    be exp(80)."""
+    q, k, v, ld, li = _inputs(case, seed=seed)
+    r = np.random.default_rng(seed + 1)
+    if regime == "model":
+        dt = np.logaddexp(0.0, r.standard_normal(ld.shape) * 0.8)
+        return q, k, v, (-dt).astype(np.float32), \
+            np.log(dt + 1e-9).astype(np.float32)
+    ld = np.zeros_like(ld)
+    ld[:, ::chunk] = -70.0
+    return np.abs(q) * 10, np.abs(k) * 10, np.abs(v) * 3, ld, \
+        np.full_like(li, 10.0)
+
+
 def _check_all(x, chunk):
     """The port's plain version and the CPU path of ``gla_forward``
     against the reference's Pallas kernel and its jnp engine."""
@@ -99,6 +121,12 @@ def test_gla_zero_and_total_decay(decay, reference):
     _check_all((q, k, v, np.full_like(ld, decay), li), 16)
 
 
+@pytest.mark.parametrize("regime", ["model", "spike"])
+def test_gla_gate_regimes_match_reference(regime, reference):
+    """Gates that drive the weights into the clips (see ``_regime``)."""
+    _check_all(_regime((1, 96, 2, 16, 24), regime, 32, seed=9), 32)
+
+
 def test_gla_state_carries_across_chunks():
     """Keeping and forgetting differ in later chunks: the state is carried."""
     q, k, v, ld, li = (torch.from_numpy(a)
@@ -124,6 +152,73 @@ def test_gla_folded_plain_is_the_model_math():
     assert torch.equal(got.reshape(2, 3, 32, 5).transpose(1, 2), want)
 
 
+def _fold(x):
+    b, s, h = x[3].shape
+    return [torch.from_numpy(a).transpose(1, 2).reshape(b * h, s,
+                                                        *a.shape[3:])
+            .contiguous() for a in x]
+
+
+def _stages(folded, chunk):
+    """The kernel path's decomposition, stage by stage, on folded operands
+    (the stage wrappers: plain versions on CPU tensors, kernels on CUDA)."""
+    q, k, v, ld, li = folded
+    states, tot = gla.chunk_states(k, v, ld, li, chunk)
+    h_in = gla.state_pass(states.clone(), tot)
+    return states, tot, h_in, gla.chunk_output(q, k, v, ld, li, h_in, chunk)
+
+
+@pytest.mark.parametrize("case,chunk,ones", [
+    ((2, 64, 2, 16, 32), 16, False),   # the reference test's tier-1 shape
+    ((2, 96, 1, 8, 24), 32, False),    # S not a multiple of the chunk
+    ((1, 40, 2, 8, 8), 64, False),     # S shorter than the chunk
+    ((1, 128, 4, 16, 16), 128, False),  # one chunk of the default length
+    ((1, 64, 2, 16, 16), 16, True),    # mLSTM's ones column, P = N + 1
+])
+def test_gla_stages_compose_to_the_reference(case, chunk, ones, reference):
+    """Chunk states, state pass and chunk output composed equal
+    ``gla_folded_plain`` and the reference's Pallas kernel (interpret mode)
+    and jnp engine, on the padded, folded operands."""
+    x = list(_inputs(case, seed=sum(case)))
+    if ones:
+        x[2] = np.concatenate([x[2], np.ones(x[2].shape[:3] + (1,),
+                                             np.float32)], -1)
+    b, s, h, _ = x[0].shape
+    p = x[2].shape[-1]
+    length = min(chunk, s)
+    padded = gla._pad(*(torch.from_numpy(a) for a in x), length)
+    folded = _fold([a.numpy() for a in padded])
+    states, tot, h_in, y = _stages(folded, length)
+    sp = folded[0].shape[1]
+    assert states.shape == (b * h, sp // length, case[3], p)
+    assert tot.shape == (b * h, sp // length)
+    assert torch.equal(h_in[:, 0], torch.zeros_like(h_in[:, 0]))
+    torch.testing.assert_close(y, gla.gla_folded_plain(*folded, length),
+                               **TOL)
+    got = y.reshape(b, h, sp, p).transpose(1, 2)[:, :s].numpy()
+    want_kernel = np.asarray(j_gla_forward(*map(jnp.asarray, x),
+                                           chunk=chunk))
+    want_engine = np.asarray(j_gla_chunked(*map(jnp.asarray, x),
+                                           chunk=chunk)[0])
+    np.testing.assert_allclose(got, want_kernel, **TOL)
+    np.testing.assert_allclose(got, want_engine, **TOL)
+
+
+def test_gla_state_pass_is_the_reference_recurrence():
+    """H_in(c+1) = H_in(c) * exp(clip(tot_c)) + S_c, from H_in(0) = 0, and
+    the last chunk's state is never read."""
+    folded = _fold(_inputs((1, 64, 2, 8, 6), seed=4))
+    states, tot = gla.gla_chunk_states_plain(*folded[1:], 16)
+    h_in = gla.gla_state_pass_plain(states, tot)
+    h = torch.zeros_like(states[:, 0])
+    for c in range(4):
+        torch.testing.assert_close(h_in[:, c], h, rtol=0, atol=0)
+        h = h * torch.exp(torch.clamp(tot[:, c], -80, 20))[:, None, None] \
+            + states[:, c]
+    states[:, -1] = 1e9
+    assert torch.equal(gla.gla_state_pass_plain(states, tot), h_in)
+
+
 def test_gla_rejects_bf16_and_bad_shapes():
     q, k, v, ld, li = (torch.from_numpy(a)
                        for a in _inputs((1, 16, 1, 4, 4), seed=2))
@@ -141,7 +236,8 @@ def test_gla_rejects_bf16_and_bad_shapes():
 @pytest.mark.parametrize("case,chunk", [
     ((2, 64, 2, 16, 32), 16), ((2, 96, 1, 8, 24), 32),
     ((1, 256, 4, 16, 128), 128), ((1, 200, 2, 256, 257), 128),
-    ((1, 64, 3, 40, 70), 64)])
+    ((1, 64, 3, 40, 70), 64),
+    ((2, 2048, 4, 16, 64), 16)])   # enough chunks that a CTA walks P-tiles
 def test_gla_kernel_matches_plain_on_card(cuda, case, chunk):
     x = [torch.from_numpy(a).to(cuda) for a in _inputs(case, seed=3)]
     want = gla.gla_forward_plain(*x, chunk=chunk)
@@ -150,3 +246,68 @@ def test_gla_kernel_matches_plain_on_card(cuda, case, chunk):
     torch.cuda.synchronize()
     assert gla.gla_forward.launches == before + 1
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [0.0, -50.0])
+@pytest.mark.parametrize("case", [(1, 256, 2, 16, 64), (1, 256, 2, 40, 70)])
+def test_gla_kernel_clipped_weights_on_card(cuda, case, decay):
+    """log_decay = 0 keeps every weight inside the clips; -50 drives them
+    into the clips at every step, and its running sum spans 6,400 within a
+    chunk: the N <= 16 kernel then takes each entry's own clipped exp, as
+    the N > 16 kernel always does."""
+    q, k, v, ld, li = (torch.from_numpy(a).to(cuda)
+                       for a in _inputs(case, seed=6))
+    ld = torch.full_like(ld, decay)
+    want = gla.gla_forward_plain(q, k, v, ld, li, chunk=128)
+    got = gla.gla_forward(q, k, v, ld, li, chunk=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["model", "spike"])
+@pytest.mark.parametrize("case", [(1, 256, 2, 16, 64), (1, 256, 2, 40, 70)])
+def test_gla_kernel_gate_regimes_on_card(cuda, case, regime):
+    """Gates whose weights reach the clips inside a chunk (``_regime``):
+    the N <= 16 kernel makes them from an exp a row and an exp a column,
+    clipping the product; the result is finite where the reference's is."""
+    q, k, v, ld, li = (torch.from_numpy(a).to(cuda)
+                       for a in _regime(case, regime, 128, seed=8))
+    want = gla.gla_forward_plain(q, k, v, ld, li, chunk=128)
+    got = gla.gla_forward(q, k, v, ld, li, chunk=128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(want).all())
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,chunk", [
+    ((2, 64, 2, 16, 32), 16), ((2, 96, 1, 8, 24), 32),
+    ((1, 256, 4, 16, 128), 128), ((1, 200, 2, 256, 257), 128),
+    ((1, 64, 3, 40, 70), 64),
+    ((2, 2048, 4, 16, 64), 16)])   # enough chunks that a CTA walks P-tiles
+def test_gla_stage_kernels_match_plain_on_card(cuda, case, chunk):
+    """Each of the three kernels against its plain stage on the same
+    inputs: every chunk's own state and total decay (the last chunk's are
+    never read, so the kernel does not write them), H_in at every chunk,
+    and y from the plain H_in."""
+    x = [torch.from_numpy(a) for a in _inputs(case, seed=3)]
+    length = min(chunk, case[1])
+    folded = [a.to(cuda) for a in _fold([t.numpy() for t in gla._pad(
+        *x, length)])]
+    q, k, v, ld, li = folded
+    want_states, want_tot = gla.gla_chunk_states_plain(k, v, ld, li, length)
+    want_h = gla.gla_state_pass_plain(want_states, want_tot)
+    states, tot = gla.chunk_states(k, v, ld, li, length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(states[:, :-1], want_states[:, :-1], **TOL)
+    torch.testing.assert_close(tot[:, :-1], want_tot[:, :-1], **TOL)
+    h_in = gla.state_pass(want_states.clone(), want_tot)
+    torch.cuda.synchronize()
+    for c in range(h_in.shape[1]):
+        torch.testing.assert_close(h_in[:, c], want_h[:, c], **TOL)
+    y = gla.chunk_output(q, k, v, ld, li, want_h, length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        y, gla.gla_chunk_output_plain(q, k, v, ld, li, want_h, length), **TOL)
