@@ -37,7 +37,11 @@ standard library, and exits non-zero on any failure. Phases:
    the kernel path at hymba-1.5B's SSD width (with the reference tests'
    gates and with the model's own), at the xLSTM-350M mLSTM head shape and
    at a padded sequence length, then each of its three kernels against its
-   plain stage at the same shapes (H_in at every chunk);
+   plain stage at the same shapes (H_in at every chunk). Every fused and
+   async check runs with the contention counters too: on and off bit for
+   bit the same state, the counts equal to the counting plain version's
+   (batch rows: the single-swarm kernel's, across the waves) where the
+   trajectory is deterministic, else held to the async invariants;
 4. the main paths, each with every launch count set to 0 just before it and
    read just after: ``repro_torch.solve`` on the default device with
    ``backend="auto"`` for the paper's largest swarms (Table 4: cubic d=1
@@ -50,20 +54,30 @@ standard library, and exits non-zero on any failure. Phases:
    the numpy serial baseline on the host against the eager ``reduction`` and
    ``queue``, ``ops.queue_step`` iterated and the fused and async kernels
    (us per iteration and speed-up over serial); 4d: ``gla_forward`` at
-   hymba-1.5B's SSD width, with the model's own gates;
+   hymba-1.5B's SSD width, with the model's own gates; 4e: ``solve`` with
+   ``telemetry=True, record_history=True`` at the paper's largest swarms,
+   both kernel variants, in turns with telemetry off and counters only
+   (the fused kernel's final state bit for bit the same in all three),
+   ``solve_many`` with both at d=10, and a ``profiler_session`` whose
+   trace names the fused kernel; 4f: the async kernel at cubic d=120
+   n=32768 chunk by chunk, per chunk its counts, the particles whose pbest
+   rose and its device us;
 5. kernel and plain times on one call (GLA at hymba-1.5B's SSD width with
    both kinds of gates and at the xLSTM-350M head shape, each beside its
    bound, and the CTAs an SM of its kernels); the fused kernel at
    each cluster size (5b: single swarms, the queue
    kernel alone, and batches) and the async kernel at each cluster size
    (single swarms at d=120, a d=24 batch), each kernel's device time
-   summed over its
-   main-path launches under ``torch.profiler`` beside its bound on the same
-   launches (5c), then one JSON line ``{"kernels": [...]}`` (launches on
-   the main paths,
-   maximum error against the plain version, kernel and plain times on the
-   same call, and the card's bound for that call), the card line, and a
-   last line ``{"ok": true, "device": {...}}``.
+   summed over its main-path launches (phases 4-4e) under
+   ``torch.profiler`` beside its bound on the same launches (5c), then one
+   JSON line ``{"kernels": [...]}`` (launches on the main paths, maximum
+   error against the plain version, kernel and plain times on the
+   same call, and the card's bound for that call; for the six fused and
+   async rows also the counter checks made and the device us an iteration
+   with counters off and on, each run from a copy of one starting state,
+   in turns), the card line, and a last line ``{"ok": true, "device":
+   {...}}``. Phase 5 also times the fused and async kernels alone at the
+   paper's largest swarms with counters off and on, in turns.
 """
 import concurrent.futures
 import ctypes
@@ -223,6 +237,55 @@ def read_counts() -> dict:
     return {k: getattr(w, attr) for k, (w, attr) in COUNTERS.items()}
 
 
+#: The six fused and async kernels' contention-counter checks (phase 3):
+#: runs whose counts equal, exactly, the counting plain version's (or, for
+#: batch rows, the single-swarm kernel's), and runs held to the invariants.
+COUNTER_KEYS = ("fused", "fused_async", "fused_batch", "hetero_fused_batch",
+                "fused_async_batch", "hetero_fused_async_batch")
+COUNTER_CHECKS = {k: {"exact": 0, "invariants": 0} for k in COUNTER_KEYS}
+
+
+def new_counts(s_cnt: int = 1):
+    """A zeroed counter buffer on the card (``[3*S]`` int32)."""
+    return torch.zeros(3 * s_cnt, dtype=torch.int32, device="cuda")
+
+
+def n_chunks(iters: int, sync_every: int) -> int:
+    """Boundaries that may publish: the chunks of every async phase."""
+    return sum(span // k for _, span, k in
+               pso_step.async_spans(iters, sync_every))
+
+
+def counts_invariants(cnt, iters: int, nb: int, what: str, key: str,
+                      chunks=None) -> None:
+    """Every swarm's counts after ``iters`` iterations of ``nb`` blocks:
+    queue updates <= block improvements <= iters * nb (a lane that beats
+    the working best beats its own pbest); publications == queue updates
+    for the fused kernel, <= chunks * nb for the async kernel (``chunks``
+    given), whose publish order is a race."""
+    for s, (q, p, i) in enumerate(cnt.view(-1, 3).tolist()):
+        check(q <= i <= iters * nb, f"{what}: swarm {s} counts {q} queue "
+              f"updates <= {i} block improvements <= {iters * nb}")
+        if chunks is None:
+            check(q == p, f"{what}: swarm {s} queue updates {q} == "
+                  f"publications {p}")
+        else:
+            check(p <= chunks * nb, f"{what}: swarm {s} publications {p} "
+                  f"<= {chunks} chunks x {nb} blocks")
+    COUNTER_CHECKS[key]["invariants"] += 1
+
+
+def counts_exact(got, want, what: str, key: str) -> None:
+    check(torch.equal(got, want), f"{what}: counts {got.view(-1, 3).tolist()}"
+          f" == {want.view(-1, 3).tolist()} exactly")
+    COUNTER_CHECKS[key]["exact"] += 1
+
+
+def same(a, b) -> bool:
+    """Two states (tuples of tensors) bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 FUSED_FIELDS = ("pos", "vel", "pbp", "pbf", "gp", "gf")
 ASYNC_FIELDS = FUSED_FIELDS + ("lp", "lf")
 
@@ -285,43 +348,49 @@ def phase_build() -> None:
         builds = list(pool.map(lambda p: _build.build(p.stem), sources))
     print(f"phase 2: built {len(sources)} source(s) for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
-    fits = {str(i): name for name, i in FITNESS_IDS.items()}
-    rules = {str(i): name for name, i in RULE_IDS.items()}
     for (lib, log), src in zip(builds, sources):
         print(f"  {src.name} -> {lib.name}")
-        # One line a kernel: registers, and spills where there are any.
-        entry, spill, lines = None, "", []
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-                # mangled <kernel>ILi<fitness>ELi<rule>E[Lb<flag>E...] ->
-                # kernel<f,r[,grid|block][,cluster]>: the fused kernel's
-                # flags are grid sync and cluster, the queue kernel's
-                # cluster; fitness 6 is the hetero kernel
-                m = re.search(r"([a-z]+_kernel)ILi(\d+)ELi(\d+)E((?:Lb\dE)*)",
-                              entry)
-                if m:
-                    flags, g = re.findall(r"Lb(\d)E", m[4]), ""
-                    if m[1] == "fused_kernel":
-                        g = ",grid" if flags.pop(0) == "1" else ",block"
-                    if flags == ["1"]:
-                        g += ",cluster"
-                    entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
-                             f"{rules[m[3]]}{g}>")
-                else:     # GLA (gla_chunk_state<WM>) or no template
-                    m = re.search(GLA_KERNEL + r"|([a-z]+_kernel)", entry)
-                    entry = (m[4] or m[1] + (f"<{m[2]},{m[3]}>" if m[2]
-                                             else "") if m else entry)
-                spill = ""
-            elif "spill" in line and \
-                    "0 bytes spill stores, 0 bytes spill loads" not in line:
-                spill = " " + line.strip().replace("bytes ", "B ")
-            elif "Used" in line and entry:
-                regs = re.search(r"Used (\d+) registers", line)
-                lines.append(f"{entry}:{regs[1] if regs else '?'}r{spill}")
+        lines = ptxas_lines(log)
         for i in range(0, len(lines), 3):
             print("  " + " | ".join(lines[i:i + 3]))
     gla_hmma(next(lib for lib, _ in builds if lib.name.startswith("libgla")))
+
+
+def ptxas_lines(log: str) -> list:
+    """One line a kernel from ``-Xptxas -v``: registers, and spills where
+    there are any."""
+    fits = {str(i): name for name, i in FITNESS_IDS.items()}
+    rules = {str(i): name for name, i in RULE_IDS.items()}
+    entry, spill, lines = None, "", []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            # mangled <kernel>ILi<fitness>ELi<rule>E[Lb<flag>E...] ->
+            # kernel<f,r[,grid|block][,cluster]>: the fused kernel's
+            # flags are grid sync and cluster, the queue kernel's
+            # cluster; fitness 6 is the hetero kernel
+            m = re.search(r"([a-z]+_kernel)ILi(\d+)ELi(\d+)E((?:Lb\dE)*)",
+                          entry)
+            if m:
+                flags, g = re.findall(r"Lb(\d)E", m[4]), ""
+                if m[1] == "fused_kernel":
+                    g = ",grid" if flags.pop(0) == "1" else ",block"
+                if flags == ["1"]:
+                    g += ",cluster"
+                entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
+                         f"{rules[m[3]]}{g}>")
+            else:     # GLA (gla_chunk_state<WM>) or no template
+                m = re.search(GLA_KERNEL + r"|([a-z]+_kernel)", entry)
+                entry = (m[4] or m[1] + (f"<{m[2]},{m[3]}>" if m[2]
+                                         else "") if m else entry)
+            spill = ""
+        elif "spill" in line and \
+                "0 bytes spill stores, 0 bytes spill loads" not in line:
+            spill = " " + line.strip().replace("bytes ", "B ")
+        elif "Used" in line and entry:
+            regs = re.search(r"Used (\d+) registers", line)
+            lines.append(f"{entry}:{regs[1] if regs else '?'}r{spill}")
+    return lines
 
 
 def gla_hmma(lib) -> None:
@@ -358,22 +427,30 @@ def fused_against_plain(fit, d, n, iters, offset, flips, errs, rule="pso",
     candidate slots, each slot's reuse two iterations on, and the grid
     sync. Where ``flips`` is set (D > 1, where the objective is summed in
     another order) the check stops at the first comparison flip; at D = 1
-    the two round alike and every launch must agree exactly. Returns the
+    the two round alike and every launch must agree exactly. Each launch
+    runs again with counters: bit for bit the same state, the counter
+    invariants, and the counts of the plain version over the same
+    iterations exactly wherever no comparison flipped. Returns the
     comparison flips met (0 or 1)."""
     cfg, spec, state, seed = kernel_state(fit, d, n, rule=rule)
     bn = ops._resolve_block(n, None)
-    want = state
+    want, plain_cnt = state, new_counts()
     for k in range(1, iters + 1):
         prev = want
         want = pso_step.fused_plain(*prev, spec, seed=seed,
                                     iteration=offset + k - 1, iters=1,
-                                    block_n=bn)
-        got = pso_step.fused(*[x.clone() for x in state], spec, seed=seed,
-                             iteration=offset, iters=k, block_n=bn)
+                                    block_n=bn, counts=plain_cnt)
+        kw = dict(seed=seed, iteration=offset, iters=k, block_n=bn)
+        got = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+        cnt = new_counts()
+        counted = pso_step.fused(*[x.clone() for x in state], spec,
+                                 counts=cnt, **kw)
         torch.cuda.synchronize()
         what = (f"fused {fit}/{rule} d={d} n={n} ({n // bn} blocks, "
                 f"clusters of {cluster_of(n, d)}), iterations "
                 f"{offset + 1}..{offset + k} in one launch")
+        check(same(got, counted), f"{what}: counters on == off bit for bit")
+        counts_invariants(cnt, k, n // bn, what, "fused")
         if flips and disagreeing(got, want, FUSED_FIELDS) \
                 and is_flip(cfg, prev, want, got):
             say(f"  {what}: a comparison flip at a near tie in the last "
@@ -382,8 +459,10 @@ def fused_against_plain(fit, d, n, iters, offset, flips, errs, rule="pso",
         e = compare(got, want, FUSED_FIELDS, what)
         if d == 1:
             check(e == 0.0, f"{what}: d=1 rounds as the plain version ({e})")
+        counts_exact(cnt, plain_cnt, what, "fused")
         errs["fused"] = max(errs["fused"], e)
-        say(f"  {what}: max |kernel - plain| = {e:.3g}")
+        say(f"  {what}: max |kernel - plain| = {e:.3g}; counters on == off "
+            f"bit for bit, counts {cnt.tolist()} == plain")
     return 0
 
 
@@ -395,15 +474,17 @@ def async_invariants(fit, d, n, sync_every, launches, iters, rule="pso",
     pbest position of fitness gbest (the torn-write check), and the fitness
     recomputed at gbest_pos equal to gbest_fit (exactly at D = 1; at D > 1
     torch sums the objective in another order, so within the fitness
-    tolerance)."""
+    tolerance). The launches carry counters, held to the async invariants
+    over all of them."""
     cfg, spec, state, seed = kernel_state(fit, d, n, seed=1, rule=rule)
     nb = n // 512
     state = with_locals(state, nb)
     prev = float(state[5][0])
+    cnt = new_counts()
     for launch in range(launches):
         pso_step.fused_async(*state, spec, seed=seed,
                              iteration=iters * launch, iters=iters,
-                             sync_every=sync_every, block_n=512)
+                             sync_every=sync_every, block_n=512, counts=cnt)
         torch.cuda.synchronize()
         pos, _, pbp, pbf, gp, gf = state[:6]
         g = float(gf[0])
@@ -420,10 +501,14 @@ def async_invariants(fit, d, n, sync_every, launches, iters, rule="pso",
         check(bool(((pos >= lo) & (pos <= hi)).all()),
               "async positions inside the bounds")
         prev = g
-    say(f"  async {fit}/{rule} d={d} n={n} {nb} blocks (clusters of "
-        f"{cluster_of(n, d)}) sync_every={sync_every}: {launches} launches "
+    what = (f"async {fit}/{rule} d={d} n={n} {nb} blocks (clusters of "
+            f"{cluster_of(n, d)}) sync_every={sync_every}")
+    counts_invariants(cnt, launches * iters, nb, what, "fused_async",
+                      chunks=launches * n_chunks(iters, sync_every))
+    say(f"  {what}: {launches} launches "
         f"of {iters}, gbest {prev:.7g} monotone, == max(pbest), == a pbest "
-        f"column, == f(gbest_pos); in bounds")
+        f"column, == f(gbest_pos); in bounds; counts {cnt.tolist()} within "
+        f"the async invariants")
 
 
 def queue_iteration(step, state, spec, seed, iteration, bn):
@@ -493,13 +578,20 @@ def phase_compare(errs) -> None:
     _, spec, state, seed = kernel_state("cubic", 8, 512)
     state = with_locals(state, 1)
     kw = dict(seed=seed, iteration=0, iters=53, sync_every=8, block_n=512)
-    want = pso_step.fused_async_plain(*state, spec, **kw)
+    want_cnt, cnt = new_counts(), new_counts()
+    want = pso_step.fused_async_plain(*state, spec, counts=want_cnt, **kw)
     got = pso_step.fused_async(*[x.clone() for x in state], spec, **kw)
+    counted = pso_step.fused_async(*[x.clone() for x in state], spec,
+                                   counts=cnt, **kw)
     torch.cuda.synchronize()
+    check(same(got, counted), "async single block: counters on == off bit "
+          "for bit")
     e = compare(got, want, ASYNC_FIELDS, "async single block")
+    counts_exact(cnt, want_cnt, "async single block", "fused_async")
     errs["fused_async"] = max(errs["fused_async"], e)
     print(f"  async cubic d=8 n=512 one block, 53 iterations, sync_every=8: "
-          f"max |kernel - plain| = {e:.3g}")
+          f"max |kernel - plain| = {e:.3g}; counters on == off bit for bit, "
+          f"counts {cnt.tolist()} == plain")
     # Async, several blocks, at both main-path shapes and on clusters of 2
     # (n=32768) and 8 (n=1024) at d=120; rastrigin at d=120 does not run to
     # the bounds, so its gbest_pos is no corner of the box and a torn copy
@@ -526,16 +618,25 @@ def async_one_block(fit, d, n, rule, errs) -> int:
     every iteration) and 2 (two chunks of 2, then a remainder launch of 1),
     its local best equal to gbest; and against ``fused_async_plain`` within
     the phase-3 tolerances (up to a comparison flip in the last iteration,
-    as for the fused kernel). Returns the comparison flips met (0 or 1)."""
+    as for the fused kernel). With counters: the fused and async launches
+    the same states; the async counts' queue updates and block
+    improvements those of the fused kernel (the same trajectory), at most
+    a publication a chunk, and the plain version's exactly where the two
+    agree; the async kernel with counters off bit for bit the same. Returns
+    the comparison flips met (0 or 1)."""
     cfg, spec, state, seed = kernel_state(fit, d, n, rule=rule)
     kw = dict(seed=seed, iteration=5, iters=5,
               block_n=ops._resolve_block(n, None))
-    fused = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    fcnt = new_counts()
+    fused = pso_step.fused(*[x.clone() for x in state], spec, counts=fcnt,
+                           **kw)
     what = (f"async {fit}/{rule} d={d} n={n} one block on clusters of "
             f"{cluster_of(n, d)}, iterations 6..10")
     for sync_every in (1, 2):
+        cnt = new_counts()
         got = pso_step.fused_async(*[x.clone() for x in with_locals(state, 1)],
-                                   spec, sync_every=sync_every, **kw)
+                                   spec, sync_every=sync_every, counts=cnt,
+                                   **kw)
         torch.cuda.synchronize()
         for a, b, name in zip(got, fused, FUSED_FIELDS):
             check(torch.equal(a, b), f"{what}, sync_every={sync_every}: "
@@ -543,8 +644,18 @@ def async_one_block(fit, d, n, rule, errs) -> int:
         check(torch.equal(got[6][:, 0], got[4]) and torch.equal(got[7],
                                                                  got[5]),
               f"{what}, sync_every={sync_every}: local best == gbest")
+        counts_invariants(cnt, 5, 1, f"{what}, sync_every={sync_every}",
+                          "fused_async", chunks=n_chunks(5, sync_every))
+        check(cnt[0] == fcnt[0] and cnt[2] == fcnt[2],
+              f"{what}, sync_every={sync_every}: queue updates and block "
+              f"improvements {cnt.tolist()} == the fused kernel's "
+              f"{fcnt.tolist()}")
+    off = pso_step.fused_async(*[x.clone() for x in with_locals(state, 1)],
+                               spec, sync_every=2, **kw)
+    check(same(off, got), f"{what}: counters on == off bit for bit")
+    want_cnt = new_counts()
     want = pso_step.fused_async_plain(*with_locals(state, 1), spec,
-                                      sync_every=2, **kw)
+                                      sync_every=2, counts=want_cnt, **kw)
     if disagreeing(got, want, ASYNC_FIELDS):
         prev = pso_step.fused_plain(*state, spec, **dict(kw, iters=4))
         check(is_flip(cfg, prev, want[:6], got[:6]),
@@ -552,6 +663,7 @@ def async_one_block(fit, d, n, rule, errs) -> int:
               f"{disagreeing(got, want, ASYNC_FIELDS)}")
         return 1
     e = compare(got, want, ASYNC_FIELDS, what)
+    counts_exact(cnt, want_cnt, what, "fused_async")
     errs["fused_async"] = max(errs["fused_async"], e)
     return 0
 
@@ -668,7 +780,10 @@ def row_operands(state, s: int, n: int, nb: int = 0):
 def batch_against_plain(what, d, n, s_cnt, bn, iters, errs, key, mixed=False,
                         fit="rastrigin", its0=0, sync_every=0) -> None:
     """One launch of the batched kernel (fused, or async if sync_every)
-    against its plain version on the same batch."""
+    against its plain version on the same batch, both with counters: the
+    counts equal row by row (the fused kernel at any block count and the
+    async kernel with one block follow the plain trajectory), else the
+    async invariants."""
     _, b, fids, specs, _ = batch_state(d, n, s_cnt, fit, mixed, its0)
     nb = n // bn if sync_every else 0
     state = batch_operands(b, nb)
@@ -679,51 +794,70 @@ def batch_against_plain(what, d, n, s_cnt, bn, iters, errs, key, mixed=False,
                          pso_step.fused_async_batch)
     else:
         plain, kernel = pso_step.fused_batch_plain, pso_step.fused_batch
-    want = plain(*state, b.seed, b.iteration, specs, **kw)
+    want_cnt, cnt = new_counts(s_cnt), new_counts(s_cnt)
+    want = plain(*state, b.seed, b.iteration, specs, counts=want_cnt, **kw)
     got = kernel(*[x.clone() for x in state], b.seed, b.iteration, specs,
-                 **kw)
+                 counts=cnt, **kw)
     torch.cuda.synchronize()
     names = ASYNC_FIELDS if sync_every else FUSED_FIELDS
     bad = batch_disagreeing(got, want, names, s_cnt)
     check(not bad, f"{what}: kernel and plain disagree, max error {bad}")
+    if sync_every and n != bn:
+        counts_invariants(cnt, iters, n // bn, what, key,
+                          chunks=n_chunks(iters, sync_every))
+    else:
+        counts_exact(cnt, want_cnt, what, key)
     e = max_err(got, want)
     errs[key] = max(errs[key], e)
-    print(f"  {what}: max |kernel - plain| = {e:.3g}")
+    tot = cnt.view(-1, 3).sum(0).tolist()
+    print(f"  {what}: max |kernel - plain| = {e:.3g}; counts == plain row "
+          f"by row (summed over the rows {tot})")
 
 
 def rows_equal_single(what, d, n, s_cnt, bn, iters, mixed=False,
                       sync_every=0) -> int:
     """Every row of one batched launch bit for bit the single-swarm kernel
     on that swarm (with the member's bounds and objective for a mixed
-    batch). Returns the batched launches (waves) made."""
+    batch), and the same launch with counters: bit for bit the same state,
+    and each row's counts those of the single-swarm kernel with counters
+    (across the waves of a batch larger than the card holds at once).
+    Returns the batched launches (waves) made."""
     _, b, fids, specs, _ = batch_state(d, n, s_cnt, mixed=mixed, its0=37)
     nb = n // bn if sync_every else 0
     orig = batch_operands(b, nb)
     state = [x.clone() for x in orig]
+    counted, cnt = [x.clone() for x in orig], new_counts(s_cnt)
     counter = pso_step.fused_async_batch if sync_every else \
         pso_step.fused_batch
     before = counter.launches + counter.hetero_launches
     kw = dict(iters=iters, block_n=bn)
     if sync_every:
         kw["sync_every"] = sync_every
-        pso_step.fused_async_batch(*state, b.seed, b.iteration, specs,
-                                   fids=fids, **kw)
-    else:
-        pso_step.fused_batch(*state, b.seed, b.iteration, specs, fids=fids,
-                             **kw)
+    batched = pso_step.fused_async_batch if sync_every else \
+        pso_step.fused_batch
+    batched(*state, b.seed, b.iteration, specs, fids=fids, **kw)
     waves = counter.launches + counter.hetero_launches - before
+    batched(*counted, b.seed, b.iteration, specs, fids=fids, counts=cnt,
+            **kw)
+    check(same(state, counted), f"{what}: counters on == off bit for bit")
     members = [0] * s_cnt if fids is None else fids.tolist()
     seeds, its = b.seed.tolist(), b.iteration.tolist()
+    want_cnt = new_counts(s_cnt)
     for s in range(s_cnt):
         one = row_operands(orig, s, n, nb)
         single = pso_step.fused_async if sync_every else pso_step.fused
-        single(*one, specs[members[s]], seed=seeds[s], iteration=its[s], **kw)
+        single(*one, specs[members[s]], seed=seeds[s], iteration=its[s],
+               counts=want_cnt[3 * s:3 * s + 3], **kw)
         for a, w in zip(one, row_operands(state, s, n, nb)):
             check(torch.equal(a, w), f"{what}: row {s} equals the "
                   f"single-swarm kernel")
     torch.cuda.synchronize()
+    key = (("hetero_" if mixed else "")
+           + ("fused_async_batch" if sync_every else "fused_batch"))
+    counts_exact(cnt, want_cnt, what, key)
     print(f"  {what}: {s_cnt} rows in {waves} launch(es), each bit for bit "
-          f"the single-swarm kernel")
+          f"the single-swarm kernel; with counters the same state, every "
+          f"row's counts the single-swarm kernel's")
     return waves
 
 
@@ -775,16 +909,21 @@ def async_batch_invariants(what, d, n, s_cnt, bn, sync_every, launches,
     state = batch_operands(b, n // bn)
     prev = state[5].clone()
     its = b.iteration
+    cnt = new_counts(s_cnt)
     for _ in range(launches):
         pso_step.fused_async_batch(*state, b.seed, its, specs, iters=iters,
                                    sync_every=sync_every, block_n=bn,
-                                   fids=fids)
+                                   fids=fids, counts=cnt)
         torch.cuda.synchronize()
         batch_invariants(b, state, cfg, table, fids, d, n, prev, what)
         prev, its = state[5].clone(), its + iters
+    counts_invariants(cnt, launches * iters, n // bn, what,
+                      ("hetero_" if mixed else "") + "fused_async_batch",
+                      chunks=launches * n_chunks(iters, sync_every))
     print(f"  {what}: {launches} launches of {iters}, every swarm: gbest "
           f"monotone, == max(pbest), == a pbest column, == f(gbest_pos); "
-          f"in bounds")
+          f"in bounds; counts within the async invariants (summed over the "
+          f"rows {cnt.view(-1, 3).sum(0).tolist()})")
 
 
 def phase_compare_batches(errs) -> None:
@@ -992,12 +1131,26 @@ def phase_compare_gla(errs) -> None:
     gla_stages_against_plain(padded, 1, 1000, HYMBA)
 
 
+#: The paper's largest swarms (Table 4: cubic d=1; Table 5: cubic d=120),
+#: (d, n, iterations) as phase 4 solves them.
+SOLVE_CELLS = ((1, 131072, 1000), (120, 32768, 200))
+#: solve_many with telemetry and histories (phase 4e): (label, where, S, n).
+MANY_TELEMETRY = (
+    ("rastrigin d=10 n=1024 S=128", dict(problem="rastrigin"), 128, 1024),
+    ("six built-ins d=10 n=1024 S=96",
+     dict(problems=[BUILTINS[s % 6] for s in range(96)]), 96, 1024))
+#: Phase 4f's async run chunk by chunk: (d, n, iterations, sync_every), and
+#: the chunks of its first part (Table 5's first 50 iterations, to a
+#: multiple of sync_every).
+CHUNK_CELL, EARLY_CHUNKS = (120, 32768, 200, 8), 6
+
+
 def phase_main_path(card: str):
     print("phase 4: main path, repro_torch.solve(backend='auto') on the "
           "default device")
     launches = dict.fromkeys(COUNTERS, 0)
     runs = []
-    for d, n, iters in ((1, 131072, 1000), (120, 32768, 200)):
+    for d, n, iters in SOLVE_CELLS:
         for variant in ("queue_lock", "async", "reduction"):
             kw = dict(dim=d, particles=n, seed=0, variant=variant)
             repro_torch.solve("cubic", iters=2, **kw)          # warm-up
@@ -1044,6 +1197,196 @@ def phase_main_path(card: str):
                   f"{us:9.2f} us/iter launches {counts} peak memory "
                   f"{mem / 2**20:.1f} MiB [{card}]")
     return launches, runs
+
+
+def history_ok(res, iters: int, sync_every: int, what: str) -> None:
+    """A Result's history: one sample a sync point (every iteration for
+    the fused kernel, ceil(iters / sync_every) for async), gbest monotone,
+    the last sample the result's gbest."""
+    h = res.history
+    want = iters if res.method.variant != "async" else -(-iters // sync_every)
+    check(h is not None and len(h) == want and int(h.iteration[-1]) == iters,
+          f"{what}: {want} history samples ending at iteration {iters}")
+    check(bool(np.all(np.diff(h.gbest_fit) >= 0)), f"{what}: history "
+          f"monotone")
+    check(float(h.gbest_fit[-1]) == res.gbest_fit,
+          f"{what}: last sample {h.gbest_fit[-1]} == gbest {res.gbest_fit}")
+
+
+def phase_telemetry_path(card: str, launches: dict):
+    """``repro_torch.solve(telemetry=True, record_history=True)`` at Table
+    4's and Table 5's largest cells, both kernel variants, each with every
+    launch count set to 0 just before and read just after, in turns with
+    telemetry off and with counters only: us an iteration of the three, the
+    counters and the history lengths; the fused kernel's final state bit
+    for bit the same in all three. Then ``solve_many`` with both flags, and
+    a ``profiler_session`` around a fused solve whose trace must name the
+    fused kernel. Returns {(d, variant): (us off, counters, both)}."""
+    print("phase 4e: main path with telemetry, repro_torch.solve("
+          "telemetry=True, record_history=True) on the default device")
+    out = {}
+    se = pso.ASYNC_SYNC_EVERY
+    for d, n, iters in SOLVE_CELLS:
+        nb = n // ops._resolve_block(n, None)
+        for variant in ("queue_lock", "async"):
+            kind = "fused" if variant == "queue_lock" else "fused_async"
+            kw = dict(dim=d, particles=n, seed=0, variant=variant)
+            repro_torch.solve("cubic", iters=2, telemetry=True,
+                              record_history=True, **kw)     # warm-up
+            us, res = {}, {}
+            for mode, flags in (("off", {}), ("counters",
+                                              dict(telemetry=True)),
+                                ("counters+history", dict(
+                                    telemetry=True, record_history=True))):
+                zero_counts()
+                us[mode], res[mode] = host_us(functools.partial(
+                    repro_torch.solve, "cubic", iters=iters, **kw, **flags),
+                    iters)
+                counts = {k: v for k, v in read_counts().items() if v}
+                for k in counts:
+                    launches[k] += counts[k]
+                want = (1 if kind == "fused" else len(
+                    pso_step.async_spans(iters, se)))
+                if "history" in mode:
+                    want = iters if kind == "fused" else -(-iters // se)
+                check(counts == {kind: want}, f"{variant} d={d} {mode}: "
+                      f"{want} launch(es) of {kind} and no other ({counts})")
+                replay(kind, f"solve cubic d={d} n={n} {variant} {mode}",
+                       iters, functools.partial(
+                           repro_torch.solve, "cubic", iters=iters, **kw,
+                           **flags),
+                       bound(d, n, iters, nb if kind == "fused_async" else 0))
+            both, off = res["counters+history"], res["off"]
+            what = f"solve cubic d={d} n={n} x{iters} {variant}"
+            history_ok(both, iters, se, what)
+            tel = both.telemetry.as_dict()
+            check(tel == res["counters"].telemetry.as_dict() or
+                  kind == "fused_async", f"{what}: the fused counts with "
+                  f"and without history")
+            counts_invariants(torch.tensor(list(tel.values())), iters, nb,
+                              what, kind, chunks=None if kind == "fused"
+                              else n_chunks(iters, se))
+            if kind == "fused":
+                for mode in ("counters", "counters+history"):
+                    check(same(res[mode].state[:7], off.state[:7]),
+                          f"{what}: {mode} final state == telemetry off bit "
+                          f"for bit")
+            for r in res.values():
+                check(math.isfinite(r.best_fit) and r.gbest_fit == float(
+                    r.state.pbest_fit.max()), f"{what}: gbest == max(pbest)")
+            out[(d, variant)] = (us["off"], us["counters"],
+                                 us["counters+history"])
+            print(f"  {what} (clusters of {cluster_of(n, d)}): us/iter off "
+                  f"{us['off']:.2f}, counters {us['counters']:.2f}, counters "
+                  f"+ history {us['counters+history']:.2f}; counters {tel}; "
+                  f"history {len(both.history)} samples, last "
+                  f"{both.history.gbest_fit[-1]:.7g} == gbest; gbest off "
+                  f"{off.best_fit:.7g} [{card}]")
+    for label, where, s_cnt, n in MANY_TELEMETRY:
+        for variant in ("queue_lock", "async"):
+            iters = 200
+            kw = dict(seeds=range(s_cnt), dim=10, particles=n,
+                      variant=variant, telemetry=True, record_history=True,
+                      **where)
+            repro_torch.solve_many(iters=2, **kw)              # warm-up
+            zero_counts()
+            us, rows = host_us(lambda: repro_torch.solve_many(iters=iters,
+                                                              **kw), iters)
+            counts = {k: v for k, v in read_counts().items() if v}
+            for k in counts:
+                launches[k] += counts[k]
+            kind = ("hetero_" if "problems" in where else "") + (
+                "fused_batch" if variant == "queue_lock"
+                else "fused_async_batch")
+            check(set(counts) == {kind}, f"solve_many {label} {variant}: "
+                  f"{kind} only ({counts})")
+            nb = n // ops._resolve_block(n, None)
+            problems = where.get("problems") or [where["problem"]] * s_cnt
+            replay(kind, f"solve_many {label} {variant} counters+history",
+                   iters, functools.partial(repro_torch.solve_many,
+                                            iters=iters, **kw),
+                   bound(10, n, iters, nb if variant == "async" else 0,
+                         objectives=problems, members=len(set(problems))))
+            what = f"solve_many {label} x{iters} {variant}"
+            tel = torch.tensor([list(r.telemetry.as_dict().values())
+                                for r in rows])
+            for s, r in enumerate(rows):
+                history_ok(r, iters, pso.ASYNC_SYNC_EVERY, f"{what} row {s}")
+            counts_invariants(tel.reshape(-1), iters, nb, what, kind,
+                              chunks=None if variant == "queue_lock"
+                              else n_chunks(iters, se))
+            print(f"  {what}: {us:.2f} us/iter with counters and history; "
+                  f"{len(rows[0].history)} samples a row; counts summed over "
+                  f"the rows {tel.sum(0).tolist()}, a row's queue updates "
+                  f"{int(tel[:, 0].min())}..{int(tel[:, 0].max())}; launches "
+                  f"{counts} [{card}]")
+    from repro_torch.telemetry import profiler_session
+    logdir = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+    d, n, _ = SOLVE_CELLS[-1]
+    with profiler_session(str(logdir)) as started:
+        repro_torch.solve("cubic", dim=d, particles=n, iters=10,
+                          variant="queue_lock", telemetry=True)
+        torch.cuda.synchronize()
+    check(started, "profiler_session started on the card")
+    trace = json.loads((logdir / "torch_trace.json").read_text())
+    names = {e.get("name", "") for e in trace.get("traceEvents", [])}
+    check(any("fused_kernel" in n for n in names),
+          "the profiler trace names the fused kernel")
+    print(f"  profiler_session: started, {len(names)} event names in "
+          f"{logdir.name}/torch_trace.json, fused_kernel among them")
+    return out
+
+
+def phase_async_chunks(card: str) -> None:
+    """PERF.md's open question on the async kernel's early iterations: at
+    Table 5's largest swarm (cubic d=120 n=32768, 200 iterations,
+    sync_every=8) the async kernel launched chunk by chunk on one state,
+    each launch one chunk of 8, with counters: per chunk the publications,
+    queue updates and block improvements, the particles whose pbest rose
+    (pbest fitness before and after), and the chunk's device us (CUDA
+    events); beside it the same chunks with counters off on a second copy
+    of the same start, the two copies advanced in turns, chunk by chunk.
+    Summed over the first 48 iterations (Table 5's 50 is not a multiple of
+    8) and over the rest."""
+    d, n, iters, se = CHUNK_CELL
+    print(f"phase 4f: the async kernel chunk by chunk, cubic d={d} n={n} "
+          f"x{iters}, sync_every={se} [{card}]")
+    bn = ops._resolve_block(n, None)
+    nb = n // bn
+    _, spec, state0, seed = kernel_state("cubic", d, n)
+    pso_step.fused_async(*with_locals(tuple(x.clone() for x in state0), nb),
+                         spec, seed=seed, iteration=0, iters=se,
+                         sync_every=se, block_n=bn)           # warm-up
+    rows = {True: [], False: []}
+    states = {c: with_locals(tuple(x.clone() for x in state0), nb)
+              for c in rows}
+    for c in range(iters // se):
+        for counted in (True, False) if c % 2 else (False, True):
+            state, cnt = states[counted], new_counts() if counted else None
+            before = state[3].clone()
+            us = device_us(lambda st: pso_step.fused_async(
+                *st, spec, seed=seed, iteration=c * se, iters=se,
+                sync_every=se, block_n=bn, counts=cnt), state, copy=False)
+            rose = int((state[3] > before).sum())
+            rows[counted].append((us / se, *(cnt.tolist() if counted
+                                             else (0, 0, 0)), rose))
+    for c, (on, off) in enumerate(zip(rows[True], rows[False])):
+        print(f"  chunk {c + 1:2d} (iterations {c * se + 1}..{(c + 1) * se}): "
+              f"{on[2]} publications, {on[1]} queue updates, {on[3]} block "
+              f"improvements, {on[4]} pbest rises; {on[0]:.2f} us/iter with "
+              f"counters, {off[0]:.2f} without")
+    cut = EARLY_CHUNKS * se
+    for label, part in ((f"iterations 1..{cut}", slice(0, EARLY_CHUNKS)),
+                        (f"iterations {cut + 1}..{iters}",
+                         slice(EARLY_CHUNKS, None))):
+        on, off = rows[True][part], rows[False][part]
+        tot = [sum(r[i] for r in on) for i in range(1, 5)]
+        print(f"  {label}: {sum(r[0] for r in on) / len(on):.2f} us/iter "
+              f"with counters, {sum(r[0] for r in off) / len(off):.2f} "
+              f"without; a chunk {tot[1] / len(on):.1f} publications, "
+              f"{tot[0] / len(on):.1f} queue updates, {tot[2] / len(on):.1f} "
+              f"block improvements (of {se * nb}), {tot[3] / len(on):.0f} "
+              f"pbest rises [{card}]")
 
 
 def phase_many_path(card: str, launches: dict):
@@ -1562,7 +1905,12 @@ def phase_times(card: str):
     (4 async chunks of 8).
     Batches: the solve_many shape, rastrigin d=10 n=1024 S=128 (the six
     built-ins cycled over S=96 for the hetero kernels), 16 iterations (2
-    async chunks of 8), from per-row iteration counters."""
+    async chunks of 8), from per-row iteration counters. The fused and
+    async kernels with counters off and on (``<name>_counters``), every
+    call from a copy of one starting state (``off_on``); ``iters``
+    maps each of them to the iterations a call runs. Then the fused and
+    async kernels alone at the main path's two solve cells, counters off
+    and on (``solve_cell_times``)."""
     d, n, bn = 120, 32768, 512
     _, spec, state, seed = kernel_state("cubic", d, n)
     qkw = dict(seed=seed, iteration=0, block_n=bn)
@@ -1584,18 +1932,21 @@ def phase_times(card: str):
     _, spec, state, seed = kernel_state("cubic", d, n)
     kw = dict(seed=seed, iteration=0, iters=iters, block_n=bn)
     akw = dict(kw, sync_every=8)
-    fstate = [x.clone() for x in state]
-    astate = [x.clone() for x in with_locals(state, nb)]
+    runs = {"fused": (lambda st, c: pso_step.fused(*st, spec, counts=c,
+                                                   **kw), state, 1),
+            "fused_async": (lambda st, c: pso_step.fused_async(
+                *st, spec, counts=c, **akw), with_locals(state, nb), 1)}
+    for key, args in runs.items():
+        t[key], t[key + "_counters"] = off_on(*args)
+        kernel_off_on(key, *args, iters)
     t.update({
-        "fused": sync_time(lambda: pso_step.fused(*fstate, spec, **kw), 20),
         "fused_plain": sync_time(
             lambda: pso_step.fused_plain(*state, spec, **kw), 3),
-        "fused_async": sync_time(
-            lambda: pso_step.fused_async(*astate, spec, **akw), 20),
         "fused_async_plain": sync_time(
             lambda: pso_step.fused_async_plain(*with_locals(state, nb), spec,
                                                **akw), 1),
     })
+    t["iters"] = dict(fused=iters, fused_async=iters)
     bounds["fused"] = bound(d=d, n=n, iters=iters)
     bounds["fused_async"] = bound(d=d, n=n, iters=iters, nb=nb)
     d, n, iters, bn = 10, 1024, 16, 512
@@ -1607,7 +1958,6 @@ def phase_times(card: str):
         _, b, fids, specs, _ = batch_state(d, n, s_cnt, mixed=mixed)
         nb = n // bn if sync_every else 0
         state = batch_operands(b, nb)
-        run = [x.clone() for x in state]
         kw = dict(iters=iters, block_n=bn, fids=fids)
         if sync_every:
             kw["sync_every"] = sync_every
@@ -1615,8 +1965,11 @@ def phase_times(card: str):
                              pso_step.fused_async_batch_plain)
         else:
             kernel, plain = pso_step.fused_batch, pso_step.fused_batch_plain
-        t[key] = sync_time(lambda: kernel(*run, b.seed, b.iteration, specs,
-                                          **kw), 20)
+        args = (lambda st, c: kernel(*st, b.seed, b.iteration, specs,
+                                     counts=c, **kw), state, s_cnt)
+        t[key], t[key + "_counters"] = off_on(*args)
+        kernel_off_on(key, *args, iters)
+        t["iters"][key] = iters
         t[key + "_plain"] = sync_time(lambda: plain(*state, b.seed,
                                                     b.iteration, specs,
                                                     **kw), 1)
@@ -1631,7 +1984,93 @@ def phase_times(card: str):
         print(f"  {key}: S={s_cnt} d={d} n={n}, {iters} iterations: "
               f"{s_cnt * (20 * n * d + 8 * n) / 1e6:.1f} MB an iteration "
               f"streamed, {stream * 1e3:.4f} ms at the HBM rate")
+    solve_cell_times(card)
     return t, bounds
+
+
+def device_us(fn, state, copy: bool = True) -> float:
+    """Device us of ``fn(st)`` in CUDA events around the call alone, ``st``
+    a fresh copy of ``state`` (``copy=False``: ``state`` itself)."""
+    st = [x.clone() for x in state] if copy else state
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn(st)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3
+
+
+def off_on(run, state, s_cnt: int = 1, rounds: int = 5, reps: int = 5):
+    """Seconds a call of ``run(st, counts)`` takes with counters off
+    (``counts`` None) and on: each round makes ``reps`` copies of
+    ``state`` and runs one call on each, back to back, between two CUDA
+    events, so every call starts from the same state and the host's work
+    overlaps the card's as in a run; off and on in turns (off first, then
+    on first), after a warm round. The medians (off, on) over ``rounds``."""
+    per = {False: [], True: []}
+    for k in range(rounds + 1):
+        for on in (False, True) if k % 2 else (True, False):
+            cnt = new_counts(s_cnt) if on else None
+            copies = [[x.clone() for x in state] for _ in range(reps)]
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            for st in copies:
+                run(st, cnt)
+            end.record()
+            torch.cuda.synchronize()
+            if k:
+                per[on].append(start.elapsed_time(end) / 1e3 / reps)
+            del copies
+    return tuple(sorted(v)[len(v) // 2] for v in per.values())
+
+
+def kernel_off_on(name: str, run, state, s_cnt: int, iters: int,
+                  rounds: int = 3) -> None:
+    """Prints the device us an iteration of ``name``'s kernels alone
+    (``kernel_device_us``, FAMILY[name]) in ``run(st, counts)`` on copies
+    of ``state``, counters off and on in turns: the medians over
+    ``rounds``, "not measured" where the profiler recorded no kernel. The
+    phase-5 times less these are the host's share."""
+    per = {False: [], True: []}
+    for k in range(rounds):
+        for on in (False, True) if k % 2 else (True, False):
+            cnt = new_counts(s_cnt) if on else None
+            us = kernel_device_us(
+                lambda: run([x.clone() for x in state], cnt), reps=5)
+            us = sum(v for kn, v in us.items() if re.search(FAMILY[name], kn))
+            if us:
+                per[on].append(us / iters)
+    got = [f"{sorted(v)[len(v) // 2]:.3f}" if v else "not measured"
+           for v in per.values()]
+    print(f"  {name}: its kernels alone (torch.profiler, median of "
+          f"{rounds} rounds of 5 calls, off and on in turns), device us/iter "
+          f"counters off {got[0]}, on {got[1]}")
+
+
+def solve_cell_times(card: str) -> None:
+    """The fused and async kernels alone at the main path's two solve
+    cells (Table 4's and Table 5's largest: cubic d=1 n=131072 x1000,
+    cubic d=120 n=32768 x200; async at sync_every=8), from the initial
+    swarm as ``solve`` runs them: device us an iteration of the wrapper's
+    launches, counters off and on (``off_on``)."""
+    for d, n, iters in SOLVE_CELLS:
+        _, spec, state, seed = kernel_state("cubic", d, n)
+        bn = ops._resolve_block(n, None)
+        nb = n // bn
+        kw = dict(seed=seed, iteration=0, iters=iters, block_n=bn)
+        off, on = off_on(lambda st, c: pso_step.fused(*st, spec, counts=c,
+                                                      **kw), state)
+        aoff, aon = off_on(lambda st, c: pso_step.fused_async(
+            *st, spec, counts=c, sync_every=pso.ASYNC_SYNC_EVERY, **kw),
+            with_locals(state, nb))
+        print(f"  cubic d={d} n={n} x{iters} (clusters of {cluster_of(n, d)})"
+              f", the kernels alone, device us/iter (median of 5 rounds of "
+              f"5 calls, counters off and on in turns): fused "
+              f"{off / iters * 1e6:.3f} / {on / iters * 1e6:.3f}, async "
+              f"{aoff / iters * 1e6:.3f} / {aon / iters * 1e6:.3f} [{card}]")
 
 
 # Each counter's kernel as torch.profiler names it.
@@ -1818,6 +2257,8 @@ def main() -> int:
     phase_many_path(card, launches)
     phase_tables(card, launches)
     phase_gla_path(card, launches)
+    phase_telemetry_path(card, launches)
+    phase_async_chunks(card)
     print(f"phase 5: kernel and plain times on the same call [{card}]")
     times, bounds = phase_times(card)
     phase_cluster_sweep(card)
@@ -1832,11 +2273,24 @@ def main() -> int:
             "ms": times[name] * 1e3, "plain_ms": times[name + "_plain"] * 1e3,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
+            # the contention counters (rows of the fused and async kernels)
+            "counter_checks": COUNTER_CHECKS.get(name),
+            "us_per_iter": None, "us_per_iter_counters": None,
         })
         k = kernels[-1]
+        if name in COUNTER_CHECKS:
+            per = 1e6 / times["iters"][name]
+            k["us_per_iter"] = times[name] * per
+            k["us_per_iter_counters"] = times[name + "_counters"] * per
+            check(all(COUNTER_CHECKS[name].values()), f"{name}: counters "
+                  f"checked exactly and against the invariants "
+                  f"({COUNTER_CHECKS[name]})")
         print(f"  {name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.2f} ms, "
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}), "
-              f"{k['launches']} launch(es) on the main path")
+              f"{k['launches']} launch(es) on the main path" + (
+                  f"; {k['us_per_iter']:.3f} us/iter, with counters "
+                  f"{k['us_per_iter_counters']:.3f}; counter checks "
+                  f"{k['counter_checks']}" if name in COUNTER_CHECKS else ""))
     check(all(k["launches"] > 0 for k in kernels), "every kernel launched")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

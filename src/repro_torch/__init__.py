@@ -8,14 +8,15 @@ works on CPU-only torch):
     repro_torch.solve_many(problem, seeds, ...) # one Result per seed
     repro_torch.best(results)                   # best of several Results
     repro_torch.Method / repro_torch.Result     # method spec / result
+    repro_torch.History                         # Result.history
     repro_torch.Problem / repro_torch.register_problem
     repro_torch.get_problem / repro_torch.list_problems
     repro_torch.resolve_problem / repro_torch.PSOConfig
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back. The
-layout mirrors ``repro`` (``core/``, ``kernels/``, ``api.py``), but nothing
-here imports JAX or ``repro``.
+layout mirrors ``repro`` (``core/``, ``kernels/``, ``telemetry/``,
+``api.py``), but nothing here imports JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ _EXPORTS = {
     "best": "repro_torch.api",
     "Method": "repro_torch.api",
     "Result": "repro_torch.api",
+    "History": "repro_torch.api",
     "Problem": "repro_torch.core.problem",
     "register_problem": "repro_torch.core.problem",
     "get_problem": "repro_torch.core.problem",

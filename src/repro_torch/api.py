@@ -17,7 +17,11 @@
   (the hand-written CUDA kernels; only ``queue_lock``/``async`` exist as
   kernels, and they carry the rules ``pso``, ``sso`` and ``lowcost``), or
   ``auto`` — the kernel for those two variants and rules on a CUDA
-  device, eager otherwise.
+  device (on any device with ``telemetry=True``), eager otherwise.
+* ``record_history``: ``Result.history``, gbest at every sync point;
+  ``telemetry``: ``Result.telemetry``, the kernels' contention counters
+  (``repro_torch.telemetry``; on the CPU the kernel backend's plain
+  versions count).
 
 ``device=None`` means the card; without one, ``solve`` raises instead of
 falling back to the CPU. Results are reported in the problem's own sense.
@@ -34,12 +38,16 @@ import torch
 
 from . import _device
 from .core.multi_swarm import (ProblemRows, SwarmBatch, batch_rows,
-                               init_batch, problem_rows, run_many)
+                               init_batch, problem_rows, run_many,
+                               run_many_with_history)
 from .core.problem import Problem, resolve_problem
 from .core.pso import (ASYNC_SYNC_EVERY, VARIANTS, PSOConfig, SwarmState,
-                       hetero_member_config, init_swarm, run)
+                       hetero_member_config, init_swarm, run,
+                       run_with_history)
 from .core.update_rules import (TOPOLOGIES, kernel_carries, kernel_rule_id,
                                  resolve_rule)
+from .telemetry import KernelCounters
+from .telemetry.counters import _host
 
 _KERNEL_VARIANTS = ("queue_lock", "async")
 _BACKENDS = ("auto", "eager", "kernel")
@@ -57,9 +65,11 @@ class Method:
 
     ``sync_every`` is the async variant's publication interval; ``block_n``
     the particle-block size (kernel CTAs; the eager async engine takes the
-    matching block count). ``islands``, ``record_history``, ``telemetry``,
-    ``schedule="auto"`` and the lbest ``topology`` values are accepted only
-    at their defaults until the port carries them.
+    matching block count). ``record_history`` fills ``Result.history`` (gbest
+    per sync point, any backend); ``telemetry`` fills ``Result.telemetry``
+    (the kernel backend only). ``islands``, ``schedule="auto"`` and the
+    lbest ``topology`` values are accepted only at their defaults until the
+    port carries them.
     """
 
     variant: str = "queue"
@@ -89,8 +99,27 @@ class Method:
             raise ValueError(
                 f"unknown schedule {self.schedule!r}; one of fixed|auto")
         resolve_rule(self.rule)
-        if self.backend == "kernel":
+        if self.backend == "kernel" or self.telemetry:
             kernel_rule_id(self.rule)     # raises naming the kernel rules
+        if self.telemetry and self.variant not in _KERNEL_VARIANTS:
+            raise ValueError(
+                f"telemetry counters are collected inside the fused CUDA "
+                f"kernels, which implement {_KERNEL_VARIANTS} — "
+                f"variant={self.variant!r} has no kernel to count in")
+        if self.telemetry and self.backend == "eager":
+            raise ValueError(
+                "telemetry counters are collected inside the fused CUDA "
+                "kernels; use backend='kernel' or 'auto' (auto resolves to "
+                "the kernel when telemetry is on)")
+        if self.telemetry and self.islands:
+            raise ValueError(
+                "telemetry counters are single-device only (the island "
+                "runners do not thread the counter outputs)")
+        if self.record_history and self.islands:
+            raise ValueError(
+                "record_history is single-device only (the island runners "
+                "do not surface per-iteration gbest); drop islands= or "
+                "record the trajectory from a single-device solve")
         if self.topology not in TOPOLOGIES:
             raise ValueError(
                 f"unknown topology {self.topology!r}; one of {TOPOLOGIES}")
@@ -104,16 +133,16 @@ class Method:
             raise _not_ported("schedule='auto' (the autotuner)", "9")
         if self.topology != "gbest":
             raise _not_ported(f"topology={self.topology!r}", "4 (topologies)")
-        if self.telemetry:
-            raise _not_ported("telemetry=True", "5 (telemetry counters)")
-        if self.record_history:
-            raise _not_ported("record_history=True", "5 (telemetry counters)")
         if self.islands:
             raise _not_ported("islands", "7 (islands and the CLI)")
 
     def resolve_backend(self, device: torch.device) -> str:
         if self.backend != "auto":
             return self.backend
+        if self.telemetry:
+            # the contention counters only exist in the kernels (and, on
+            # the CPU, in their plain versions)
+            return "kernel"
         # A rule the CUDA kernels lack runs on the eager engine.
         if self.variant in _KERNEL_VARIANTS and device.type == "cuda" \
                 and kernel_carries(self.rule):
@@ -122,15 +151,37 @@ class Method:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class History:
+    """Convergence history: the gbest trajectory sampled at sync points
+    (every iteration for the synchronous variants, every publication
+    boundary for ``async``). ``violation`` is the recorded gbest's
+    aggregate constraint violation — None for unconstrained problems, and
+    every ported problem is unconstrained."""
+
+    iteration: np.ndarray              # [K] absolute iteration numbers
+    gbest_fit: np.ndarray              # [K] canonical (maximized) fitness
+    violation: Optional[np.ndarray]    # [K] or None (unconstrained)
+
+    def __len__(self) -> int:
+        return len(self.iteration)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class Result:
     """A finished solve. ``best_fit``/``best_pos`` are in the problem's own
-    sense; ``state`` is the raw (canonical-max) SwarmState for resuming."""
+    sense; ``state`` is the raw (canonical-max) SwarmState for resuming.
+    ``history`` holds the gbest trajectory when the solve ran with
+    ``Method(record_history=True)``, ``telemetry`` the kernels' contention
+    counters (``repro_torch.telemetry.KernelCounters``) with
+    ``Method(telemetry=True)``."""
 
     problem: Problem
     config: PSOConfig
     method: Method
     iters: int
     state: SwarmState
+    history: Optional[History] = None
+    telemetry: Optional[KernelCounters] = None
 
     @property
     def best_fit(self) -> float:
@@ -144,6 +195,13 @@ class Result:
     def gbest_fit(self) -> float:
         """Canonical (maximized) fitness, as the engine tracks it."""
         return float(self.state.gbest_fit)
+
+    @property
+    def first_feasible_iter(self) -> Optional[int]:
+        """The first recorded iteration whose gbest was feasible: 0 for
+        every ported problem, since none is constrained (the reference's
+        answer for unconstrained problems)."""
+        return 0
 
 
 def _make_method(method: Optional[Method], **loose) -> Method:
@@ -196,16 +254,21 @@ def solve(problem: Union[str, Problem], *,
     cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
                        max_pos, max_v, m)
     state = init_swarm(cfg, seed, device=dev)
-    state = _run_segmented(cfg, state, iters, m)
+    state, hist, tel = _run_segmented(cfg, state, iters, m)
     return Result(problem=prob, config=cfg, method=m, iters=iters,
-                  state=state)
+                  state=state, history=hist, telemetry=tel)
 
 
 def _run_segmented(cfg: PSOConfig, state: SwarmState, iters: int,
-                   m: Method) -> SwarmState:
+                   m: Method):
     """The seam where the reference's penalty ramp splits a run into
-    static-weight segments; without constraints there is one segment."""
-    return _run_state(cfg, state, iters, m)
+    static-weight segments; without constraints there is one segment.
+    Returns (state, History or None, KernelCounters or None)."""
+    state, h, tel = _run_state(cfg, state, iters, m)
+    if h is None:
+        return state, None, tel
+    return state, History(iteration=np.asarray(h[0], dtype=np.int64),
+                          gbest_fit=h[1], violation=None), tel
 
 
 def _eager_async_blocks(m: Method, n: int) -> Optional[int]:
@@ -216,26 +279,38 @@ def _eager_async_blocks(m: Method, n: int) -> Optional[int]:
     return max(1, n // m.block_n)
 
 
-def _run_state(cfg: PSOConfig, state: SwarmState, iters: int,
-               m: Method) -> SwarmState:
-    """One static-weight segment on the resolved backend."""
+def _run_state(cfg: PSOConfig, state: SwarmState, iters: int, m: Method):
+    """One static-weight segment on the resolved backend -> (state,
+    (iterations, gbest_fit) or None, KernelCounters or None)."""
     if m.resolve_backend(state.pos.device) == "kernel":
         return _run_state_kernel(cfg, state, iters, m)
+    blocks = _eager_async_blocks(m, state.pos.shape[0])
+    if m.record_history:
+        state, (its, fits, _) = run_with_history(
+            cfg, state, iters, m.variant, sync_every=m.sync_every,
+            n_blocks=blocks)
+        return state, (its, _host(fits)), None
     return run(cfg, state, iters, m.variant, sync_every=m.sync_every,
-               n_blocks=_eager_async_blocks(m, state.pos.shape[0]))
+               n_blocks=blocks), None, None
 
 
 def _run_state_kernel(cfg: PSOConfig, state: SwarmState, iters: int,
-                      m: Method) -> SwarmState:
-    """The kernel-backend segment: one fused launch, or the async
-    kernel's launches (a remainder of ``iters % sync_every`` is a second
-    launch)."""
-    from .kernels.ops import run_queue_lock_fused, run_queue_lock_fused_async
-    if m.variant == "async":
-        return run_queue_lock_fused_async(cfg, state, iters,
-                                          sync_every=m.sync_every,
-                                          block_n=m.block_n)
-    return run_queue_lock_fused(cfg, state, iters, block_n=m.block_n)
+                      m: Method):
+    """The kernel-backend segment (``ops.run_queue_lock``): one fused
+    launch, or the async kernel's launches (a remainder of ``iters %
+    sync_every`` is a second launch), optionally with the contention
+    counters. With a history, one launch a sync point on operands packed
+    once: bit for bit the uninterrupted run for the fused kernel, whose
+    launches are iteration-major, and for async with one block; with
+    several async blocks the chunk seams make a more synchronous
+    interleaving, as in the reference. Counters add up over the
+    launches."""
+    from .kernels import ops
+    state, (its, fits), cnt = ops.run_queue_lock(
+        cfg, state, iters, m.variant, sync_every=m.sync_every,
+        block_n=m.block_n, telemetry=m.telemetry, history=m.record_history)
+    return state, None if its is None else (its, _host(fits)), (
+        None if cnt is None else KernelCounters.from_array(cnt))
 
 
 def solve_many(problem: Union[str, Problem, None] = None,
@@ -283,10 +358,30 @@ def solve_many(problem: Union[str, Problem, None] = None,
     prob = resolve_problem(problem)
     cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
                        max_pos, max_v, m)
-    batch = _run_batch(cfg, init_batch(cfg, seeds, device=dev), iters, m,
-                       coeffs)
+    batch, hist, cnt = _run_batch(cfg, init_batch(cfg, seeds, device=dev),
+                                  iters, m, coeffs)
     return [Result(problem=prob, config=cfg, method=m, iters=iters,
-                   state=row) for row in batch_rows(batch)]
+                   state=row, history=h, telemetry=t)
+            for row, h, t in zip(batch_rows(batch),
+                                 _row_histories(hist, batch.swarm_cnt),
+                                 _row_counters(cnt, batch.swarm_cnt))]
+
+
+def _row_histories(hist, s_cnt: int) -> List[Optional[History]]:
+    """Per-row History objects from a batch's ``(iterations, [K, S]
+    gbest_fit)`` record (all None when no history was recorded)."""
+    if hist is None:
+        return [None] * s_cnt
+    its = np.asarray(hist[0], dtype=np.int64)
+    return [History(iteration=its, gbest_fit=hist[1][:, s], violation=None)
+            for s in range(s_cnt)]
+
+
+def _row_counters(cnt, s_cnt: int) -> List[Optional[KernelCounters]]:
+    """Per-row KernelCounters from a batch's ``[S, 3]`` counts."""
+    if cnt is None:
+        return [None] * s_cnt
+    return KernelCounters.rows(cnt)
 
 
 def _solve_many_hetero(problems, seeds, m: Method, dim, particles, iters,
@@ -310,41 +405,47 @@ def _solve_many_hetero(problems, seeds, m: Method, dim, particles, iters,
     rows, table = problem_rows(probs, cfg.dim, cfg.dtype, device=dev)
     rcfg = cfg.resolved()
     batch = init_batch(rcfg, seeds, rows=rows, table=table, device=dev)
-    batch = _run_batch(rcfg, batch, iters, m, coeffs, rows, table)
+    batch, hist, cnt = _run_batch(rcfg, batch, iters, m, coeffs, rows, table)
     configs = {p: hetero_member_config(cfg, p) for p in set(probs)}
     return [Result(problem=p, config=configs[p], method=m, iters=iters,
-                   state=row) for p, row in zip(probs, batch_rows(batch))]
+                   state=row, history=h, telemetry=t)
+            for p, row, h, t in zip(probs, batch_rows(batch),
+                                    _row_histories(hist, len(probs)),
+                                    _row_counters(cnt, len(probs)))]
 
 
 def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int, m: Method,
-               coeffs, rows: Optional[ProblemRows] = None,
-               table=None) -> SwarmBatch:
-    """A batched segment on the resolved backend."""
+               coeffs, rows: Optional[ProblemRows] = None, table=None):
+    """A batched segment on the resolved backend -> (batch, (iterations,
+    [K, S] gbest_fit) or None, [S, 3] counts or None)."""
     if m.resolve_backend(batch.pos.device) == "kernel":
         if coeffs is not None:
             raise ValueError("per-swarm coeffs are an eager-engine feature; "
                              "pass backend='eager'")
         return _run_batch_kernel(cfg, batch, iters, m, rows, table)
+    blocks = _eager_async_blocks(m, batch.pos.shape[1])
+    if m.record_history:
+        batch, (its, fits, _) = run_many_with_history(
+            cfg, batch, iters, m.variant, coeffs, sync_every=m.sync_every,
+            rows=rows, table=table, n_blocks=blocks)
+        return batch, (its, _host(fits)), None
     return run_many(cfg, batch, iters, m.variant, coeffs,
                     sync_every=m.sync_every, rows=rows, table=table,
-                    n_blocks=_eager_async_blocks(m, batch.pos.shape[1]))
+                    n_blocks=blocks), None, None
 
 
 def _run_batch_kernel(cfg: PSOConfig, batch: SwarmBatch, iters: int,
                       m: Method, rows: Optional[ProblemRows] = None,
-                      table=None) -> SwarmBatch:
-    """The batched kernels: the fused queue-lock in one launch (or one a
-    wave of swarms), or the async kernel's launches. ``rows``/``table``
-    make the batch heterogeneous."""
-    from .kernels.ops import (run_queue_lock_fused_async_batch,
-                              run_queue_lock_fused_batch)
-    fids = None if rows is None else rows.fid
-    if m.variant == "async":
-        return run_queue_lock_fused_async_batch(
-            cfg, batch, iters, sync_every=m.sync_every, block_n=m.block_n,
-            fids=fids, table=table)
-    return run_queue_lock_fused_batch(cfg, batch, iters, block_n=m.block_n,
-                                      fids=fids, table=table)
+                      table=None):
+    """The batched kernels through ``ops.run_queue_lock``, with the
+    counters and the history of ``_run_state_kernel`` (one ``[S]`` sample
+    a sync point). ``rows``/``table`` make the batch heterogeneous."""
+    from .kernels import ops
+    batch, (its, fits), cnt = ops.run_queue_lock(
+        cfg, batch, iters, m.variant, sync_every=m.sync_every,
+        block_n=m.block_n, telemetry=m.telemetry, history=m.record_history,
+        fids=None if rows is None else rows.fid, table=table)
+    return batch, None if its is None else (its, _host(fits)), cnt
 
 
 def solve_stream(*args, **kwargs):

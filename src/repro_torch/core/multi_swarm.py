@@ -32,7 +32,7 @@ import torch
 from .. import _device
 from .problem import Problem, resolve_problem
 from .pso import (ASYNC_SYNC_EVERY, VARIANTS, HeteroRow, PSOConfig,
-                  SwarmState, init_swarm, run)
+                  SwarmState, init_swarm, run, run_with_history)
 
 Tensor = torch.Tensor
 
@@ -260,11 +260,28 @@ def run_many(cfg: PSOConfig, batch: SwarmBatch, iters: int,
                            hetero=_hetero(rows, table)))
 
 
-def run_many_with_history(*args, **kwargs):
-    """``run_many`` recording every row's gbest trajectory: not ported."""
-    raise NotImplementedError(
-        "run_many_with_history is not ported to repro_torch yet: "
-        "ROADMAP.md, port order item 5 (telemetry counters)")
+def run_many_with_history(cfg: PSOConfig, batch: SwarmBatch, iters: int,
+                          variant: str = "queue", coeffs=None,
+                          sync_every: int = ASYNC_SYNC_EVERY,
+                          rows: Optional[ProblemRows] = None,
+                          table: Optional[Tuple[Problem, ...]] = None,
+                          n_blocks: Optional[int] = None):
+    """``run_many`` that also records every row's gbest trajectory.
+
+    Returns ``(batch, (iterations, gbest_fits, violations))`` with
+    ``iterations`` a length-K tuple of absolute iteration numbers and
+    ``gbest_fits`` ``[K, S]``, one sample per sync point per row as
+    ``pso.run_with_history`` takes them (every iteration for the
+    synchronous variants, every ``sync_every`` boundary for ``async``);
+    ``violations`` is None (no constraints are ported). Row ``s`` equals
+    ``pso.run_with_history`` on ``batch_row(batch, s)``. Assumes the
+    lockstep batches the facades build (all rows at one iteration count)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    out, hist = run_with_history(
+        cfg, batch, iters, variant, sync_every=sync_every, n_blocks=n_blocks,
+        coeffs=_per_swarm_coeffs(coeffs, batch), hetero=_hetero(rows, table))
+    return SwarmBatch(*out), hist
 
 
 def solve_many(cfg: PSOConfig, seeds, iters: int = 1000,

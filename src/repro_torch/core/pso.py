@@ -515,6 +515,49 @@ def run(cfg: PSOConfig, state: SwarmState, iters: int,
     return state
 
 
+def run_with_history(cfg: PSOConfig, state: SwarmState, iters: int,
+                     variant: str = "queue",
+                     sync_every: int = ASYNC_SYNC_EVERY,
+                     n_blocks: Optional[int] = None, coeffs=None,
+                     hetero=None):
+    """Like ``run`` but also records the gbest trajectory.
+
+    Returns ``(state, (iterations, gbest_fits, violations))`` with one
+    entry per sync point: every iteration for the synchronous variants,
+    every ``sync_every`` boundary for ``async`` (the run is cut into
+    ``run_async`` calls at the sync points, which its absolute-iteration
+    schedule makes the uninterrupted run). ``iterations`` is a tuple of
+    absolute iteration numbers; ``gbest_fits`` is ``[K]`` (``[K, S]`` for a
+    batch), sampled into a tensor on the state's device. ``violations`` is
+    None: no constraints are ported, and the reference gives None for
+    unconstrained problems. A batch is assumed in lockstep (its rows at
+    one iteration), as the facades build it."""
+    cfg = cfg.resolved()
+    it0 = state.iteration
+    start = int(it0 if not isinstance(it0, Tensor) else it0.reshape(-1)[0])
+    async_ = variant == "async"
+    stride = max(1, sync_every) if async_ else 1
+    offs = range(0, max(iters, 0), stride)
+    fits = torch.empty((len(offs),) + tuple(state.gbest_fit.shape),
+                       dtype=state.gbest_fit.dtype,
+                       device=state.gbest_fit.device)
+    if not async_:
+        state = state._replace(lbest_pos=None, lbest_fit=None)
+    its = []
+    for j, off in enumerate(offs):
+        k = min(stride, iters - off)
+        if async_:
+            state = run_async(cfg, state, k, sync_every=sync_every,
+                              n_blocks=n_blocks, coeffs=coeffs,
+                              hetero=hetero)
+        else:
+            state = STEP_FNS[variant](cfg, state, coeffs=coeffs,
+                                      hetero=hetero)
+        fits[j] = state.gbest_fit
+        its.append(start + off + k)
+    return state, (tuple(its), fits, None)
+
+
 def solve(cfg: PSOConfig, seed: int = 0, iters: int = 1000,
           variant: str = "queue", sync_every: int = ASYNC_SYNC_EVERY,
           device=None) -> SwarmState:

@@ -17,6 +17,11 @@
 //                 fused_async_batch_call and hetero_fused_async_batch_call
 //                 (bodies _make_async_kernel(), chunk loop _async_chunk_body).
 //
+// fused_kernel and async_kernel also replace the TPU kernels' telemetry
+// variants (_make_sync_kernel(telemetry=True), _make_async_kernel(
+// telemetry=True)): given a counter buffer they add each swarm's
+// contention events into it (below, "Contention counters").
+//
 // Layout: D-major, arrays [D, S*N] with the particle index fastest (§5.1
 // coalescing rule); swarm s owns columns [s*N, (s+1)*N), and its gbest is
 // column s of gp [D, S]. A particle block of one swarm (bn <= 512 particles
@@ -122,6 +127,7 @@ struct Params {
   float* cand;                                       // fused: [2,S*nb,D]
   unsigned* lock;                                    // async: [S,2]
   float* aux_fit; int* aux_idx;                      // queue: [nb], [nb]
+  int* counts;               // fused/async: [S,3] event counts, or null
   int n, d, bn, nb, s_cnt, s0, iters, chunk;
   int csize;                 // CTAs in a particle block's cluster
   int ld;                    // row stride of the [D, S*N] arrays: S*N
@@ -356,15 +362,17 @@ __device__ __forceinline__ Objective<F> advance_particle(const Params& p,
 }
 
 // One iteration of particle i on all D dimensions (no cluster): advance,
-// objective, pbest fold. Returns the fitness.
-template <int F, int R>
+// objective, pbest fold. Returns the fitness. With counters (T and
+// p.counts) an improvement also raises the CTA's flag s_cnt[3].
+template <int F, int R, bool T>
 __device__ __forceinline__ float step_particle(const Params& p, const Cta& c,
                                                int i, uint32_t it,
-                                               const float* sm) {
+                                               const float* sm, int* s_cnt) {
   const int D = p.d;
   const int col = c.col + i;
   const float f = advance_particle<F, R, false>(p, c, i, it, sm).result(D);
   if (f > p.pbf[col]) {         // rare at steady state: copy the column
+    if (T && p.counts) s_cnt[3] = 1;
     p.pbf[col] = f;
     for (int j = 0; j < D; ++j) {
       const size_t o = (size_t)j * p.ld + col;
@@ -422,18 +430,20 @@ __device__ __forceinline__ float* partials(const Cta& c, float* sm) {
 }
 
 // Each thread's particles: one pass, returning the thread's best queue key
-// (0 when none of its particles beats `best`).
-template <int F, int R>
+// (0 when none of its particles beats `best`). T: count improvements into
+// s_cnt (step_particle).
+template <int F, int R, bool T>
 __device__ __forceinline__ unsigned long long step_block(const Params& p,
                                                          const Cta& c,
                                                          uint32_t it,
                                                          const float* sm,
-                                                         float best) {
+                                                         float best,
+                                                         int* s_cnt) {
   unsigned long long mine = 0ull;
   const int base = c.b * p.bn;
   for (int l = threadIdx.x; l < p.bn; l += blockDim.x) {
     const int i = base + l;
-    const float f = step_particle<F, R>(p, c, i, it, sm);
+    const float f = step_particle<F, R, T>(p, c, i, it, sm, s_cnt);
     if (f > best) {
       const unsigned long long key = make_key(f, i);
       mine = key > mine ? key : mine;
@@ -450,11 +460,12 @@ __device__ __forceinline__ unsigned long long step_block(const Params& p,
 // particle's pbest fitness, kept in a register by every rank (rank 0 alone
 // stores it): a rank that read it from memory could see rank 0's store of
 // this same iteration. Returns the thread's queue key (0 when its
-// particle does not beat `best`).
-template <int F, int R>
+// particle does not beat `best`). T as in step_block: every rank takes the
+// same pbest decision, so every rank's flag agrees.
+template <int F, int R, bool T>
 __device__ __forceinline__ unsigned long long step_cluster(
     const Params& p, const Cta& c, uint32_t it, const float* sm, float best,
-    float* part, float& pbf) {
+    float* part, float& pbf, int* s_cnt) {
   const cg::cluster_group cl = cg::this_cluster();
   const int l = threadIdx.x, i = c.b * p.bn + l, col = c.col + i;
   advance_particle<F, R, true>(p, c, i, it, sm).put(part, l, p.bn);
@@ -464,6 +475,7 @@ __device__ __forceinline__ unsigned long long step_cluster(
     obj.join(Objective<F>::take(cl.map_shared_rank(part, q), l, p.bn));
   const float f = obj.result(p.d);
   if (f > pbf) {               // rare at steady state: copy the slice
+    if (T && p.counts) s_cnt[3] = 1;
     pbf = f;
     if (c.rank == 0) p.pbf[col] = f;
     for (int k = c.k0; k < c.k1; ++k) {
@@ -472,6 +484,44 @@ __device__ __forceinline__ unsigned long long step_cluster(
     }
   }
   return f > best ? make_key(f, i) : 0ull;
+}
+
+// Contention counters (the port of the TPU kernels' telemetry variants),
+// gated at run time on Params::counts: null when telemetry is off, so the
+// kernels count nothing, no kernel is instantiated twice, and the off path
+// holds no extra register across the iteration loop (the step functions'
+// T flag only keeps the code out of the queue kernel, which has no
+// counters). A CTA keeps its swarm's counts in
+// shared memory, s_cnt: [0] queue updates, [1] publications, [2] block
+// improvements, and [3] a flag that any thread whose particle improved
+// its pbest raises inside the (rare) pbest fold. After the barrier that
+// follows the queue's atomicMax, thread 0 counts the iteration
+// (count_step) and clears the flag before the barrier that ends the
+// iteration, which every raise of the next iteration follows. At kernel
+// exit thread 0 of rank 0 adds the counts into counts[3*s .. 3*s+2] with
+// one atomicAdd each, so they add up over the CTAs of a swarm and over
+// launches. Every rank of a cluster takes the same queue and pbest
+// decisions (step_cluster), so rank 0's counts are the block's.
+__device__ __forceinline__ void count_step(int* s_cnt, bool queued,
+                                           bool publishes) {
+  if (queued) {
+    ++s_cnt[0];
+    if (publishes) ++s_cnt[1];
+  }
+  if (s_cnt[3]) {
+    ++s_cnt[2];
+    s_cnt[3] = 0;
+  }
+}
+
+__device__ __forceinline__ void add_counts(const Params& p, const Cta& c,
+                                           const int* s_cnt) {
+  if (p.counts && threadIdx.x == 0 && c.rank == 0) {
+    int* dst = p.counts + 3 * (size_t)c.s;
+    atomicAdd(dst, s_cnt[0]);
+    atomicAdd(dst + 1, s_cnt[1]);
+    atomicAdd(dst + 2, s_cnt[2]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -520,21 +570,32 @@ __device__ __forceinline__ unsigned long long step_cluster(
 //    rank reads the shared memory of a CTA that has exited. Each rank
 //    copies its slice of the block winner and gathers its slice of the
 //    swarm's winner; rank 0 alone raises the swarm's key.
+//
+// Counters: a block whose queue is non-empty (bk != 0) raises the swarm's
+// key (or, alone, takes its winner), so it counts a queue update and a
+// publication at once: queue_updates == publications, as in the TPU
+// kernel, and both <= block_improvements, since a lane that beats gbest
+// also beats its own pbest.
 // ---------------------------------------------------------------------------
 template <int F, int R, bool G>
 __device__ __forceinline__ void fused_body(const Params& p, const Cta& c,
                                            float* sm,
-                                           unsigned long long* s_key) {
+                                           unsigned long long* s_key,
+                                           int* s_cnt) {
   const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
   float gf = p.gf[c.s];
   int par = 0;
   for (int t = 0; t < p.iters; ++t) {
     const uint32_t it = c.it0 + (uint32_t)t + 1u;
-    const unsigned long long mine = step_block<F, R>(p, c, it, sm, gf);
+    const unsigned long long mine =
+        step_block<F, R, true>(p, c, it, sm, gf, s_cnt);
     if (mine) atomicMax(&s_key[par], mine);      // the intra-block queue
     __syncthreads();
     const unsigned long long bk = s_key[par];
-    if (tid == 0) s_key[par ^ 1] = 0ull;
+    if (tid == 0) {
+      s_key[par ^ 1] = 0ull;
+      if (p.counts) count_step(s_cnt, bk != 0ull, true);
+    }
     if constexpr (G) {
       const int slot = t & 1;
       unsigned long long* key = p.keys + 2 * (size_t)c.s + slot;
@@ -570,7 +631,8 @@ __device__ __forceinline__ void fused_body(const Params& p, const Cta& c,
 template <int F, int R, bool G>
 __device__ __forceinline__ void fused_cluster_body(const Params& p,
                                                    const Cta& c, float* sm,
-                                                   unsigned long long* s_key) {
+                                                   unsigned long long* s_key,
+                                                   int* s_cnt) {
   const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
   float* part = partials(c, sm);
   float gf = p.gf[c.s];
@@ -578,12 +640,15 @@ __device__ __forceinline__ void fused_cluster_body(const Params& p,
   int par = 0;
   for (int t = 0; t < p.iters; ++t) {
     const uint32_t it = c.it0 + (uint32_t)t + 1u;
-    const unsigned long long mine = step_cluster<F, R>(
-        p, c, it, sm, gf, part + par * 3 * p.bn, pbf);
+    const unsigned long long mine = step_cluster<F, R, true>(
+        p, c, it, sm, gf, part + par * 3 * p.bn, pbf, s_cnt);
     if (mine) atomicMax(&s_key[par], mine);      // the intra-block queue
     __syncthreads();
     const unsigned long long bk = s_key[par];
-    if (tid == 0) s_key[par ^ 1] = 0ull;
+    if (tid == 0) {
+      s_key[par ^ 1] = 0ull;
+      if (p.counts) count_step(s_cnt, bk != 0ull, true);
+    }
     if constexpr (G) {
       const int slot = t & 1;
       unsigned long long* key = p.keys + 2 * (size_t)c.s + slot;
@@ -623,31 +688,37 @@ __device__ __forceinline__ void fused_cluster_body(const Params& p,
 template <int F, int R, bool G, bool CL>
 __device__ __forceinline__ void fused_any(const Params& p, const Cta& c,
                                           float* sm,
-                                          unsigned long long* s_key) {
-  if constexpr (CL) fused_cluster_body<F, R, G>(p, c, sm, s_key);
-  else fused_body<F, R, G>(p, c, sm, s_key);
+                                          unsigned long long* s_key,
+                                          int* s_cnt) {
+  if constexpr (CL) fused_cluster_body<F, R, G>(p, c, sm, s_key, s_cnt);
+  else fused_body<F, R, G>(p, c, sm, s_key, s_cnt);
 }
 
 template <int F, int R, bool G, bool CL>
 __global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key[2];
+  __shared__ int s_cnt[4];
   const Cta c = cta_of<CL>(p);
   load_rows<CL>(p, c, sm, p.gp, (size_t)p.s_cnt, (size_t)c.s);
-  if (threadIdx.x == 0) s_key[0] = s_key[1] = 0ull;
+  if (threadIdx.x == 0) {
+    s_key[0] = s_key[1] = 0ull;
+    s_cnt[0] = s_cnt[1] = s_cnt[2] = s_cnt[3] = 0;
+  }
   __syncthreads();
   if constexpr (F < kHetero) {
-    fused_any<F, R, G, CL>(p, c, sm, s_key);
+    fused_any<F, R, G, CL>(p, c, sm, s_key, s_cnt);
   } else {
     switch (p.member_fit[c.member]) {   // uniform across the CTA
-      case 0: fused_any<0, R, G, CL>(p, c, sm, s_key); break;
-      case 1: fused_any<1, R, G, CL>(p, c, sm, s_key); break;
-      case 2: fused_any<2, R, G, CL>(p, c, sm, s_key); break;
-      case 3: fused_any<3, R, G, CL>(p, c, sm, s_key); break;
-      case 4: fused_any<4, R, G, CL>(p, c, sm, s_key); break;
-      default: fused_any<5, R, G, CL>(p, c, sm, s_key); break;
+      case 0: fused_any<0, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 1: fused_any<1, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 2: fused_any<2, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 3: fused_any<3, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 4: fused_any<4, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      default: fused_any<5, R, G, CL>(p, c, sm, s_key, s_cnt); break;
     }
   }
+  add_counts(p, c, s_cnt);
 }
 
 // ---------------------------------------------------------------------------
@@ -687,12 +758,20 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
 // the boundary runs once a cluster (boundary_cluster): thread 0 of rank 0
 // alone reads gbest, decides, spins on the lock and moves the sequence;
 // every rank copies its slice of the D floats.
+//
+// Counters: a queue update is an iteration of a block whose queue is
+// non-empty (it raises the block's local best); a publication is a write
+// to the shared gbest that landed, counted by the thread that makes the
+// sequence even again, after the re-check under the lock: an attempt that
+// loses the re-check is none. Publications happen only at boundaries, at
+// most once a chunk a block.
 // ---------------------------------------------------------------------------
 enum BoundaryAct { kNone = 0, kPublish = 1, kPull = 2 };
 
 __device__ __forceinline__ float boundary(const Params& p, const Cta& c,
                                           float* att, float lf, bool publish,
-                                          bool pull, float* s_g, int* s_act) {
+                                          bool pull, float* s_g, int* s_act,
+                                          int* s_cnt) {
   const int tid = threadIdx.x, nt = blockDim.x;
   unsigned* mutex = p.lock + 2 * (size_t)c.s;
   unsigned* seq = mutex + 1;
@@ -728,6 +807,7 @@ __device__ __forceinline__ float boundary(const Params& p, const Cta& c,
         __stcg(gf, lf);
         __threadfence();
         atomicAdd(seq, 1u);                 // even: the write is complete
+        if (p.counts) ++s_cnt[1];
       }
       __threadfence();
       atomicExch(mutex, 0u);
@@ -781,7 +861,7 @@ __device__ __forceinline__ float boundary_cluster(const Params& p,
                                                   const Cta& c, float* att,
                                                   float lf, bool publish,
                                                   bool pull, float* s_g,
-                                                  int* s_act) {
+                                                  int* s_act, int* s_cnt) {
   const cg::cluster_group cl = cg::this_cluster();
   const int tid = threadIdx.x, nt = blockDim.x;
   const bool lead = c.rank == 0 && tid == 0;
@@ -822,6 +902,7 @@ __device__ __forceinline__ float boundary_cluster(const Params& p,
         __stcg(gf, lf);
         __threadfence();
         atomicAdd(seq, 1u);                 // even: the write is complete
+        if (p.counts) ++s_cnt[1];
       }
       __threadfence();
       atomicExch(mutex, 0u);
@@ -864,7 +945,8 @@ template <int F, int R, bool CL>
 __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
                                             float* sm, float lf,
                                             unsigned long long* s_key,
-                                            float* s_g, int* s_act) {
+                                            float* s_g, int* s_act,
+                                            int* s_cnt) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
   const int chunks = p.iters / p.chunk;
@@ -873,24 +955,28 @@ __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
   int par = 0;
   for (int ch = 0; ch <= chunks; ++ch) {
     if constexpr (CL)
-      lf = boundary_cluster(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act);
+      lf = boundary_cluster(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act,
+                            s_cnt);
     else
-      lf = boundary(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act);
+      lf = boundary(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act, s_cnt);
     if (ch == chunks) break;
     for (int tl = 0; tl < p.chunk; ++tl) {
       const uint32_t it = c.it0 + (uint32_t)(ch * p.chunk + tl) + 1u;
       unsigned long long mine;
       if constexpr (CL)
-        mine = step_cluster<F, R>(p, c, it, sm, lf, part + par * 3 * p.bn,
-                                  pbf);
+        mine = step_cluster<F, R, true>(p, c, it, sm, lf,
+                                        part + par * 3 * p.bn, pbf, s_cnt);
       else
-        mine = step_block<F, R>(p, c, it, sm, lf);
+        mine = step_block<F, R, true>(p, c, it, sm, lf, s_cnt);
       if (mine) atomicMax(&s_key[par], mine);
       __syncthreads();
       // s_key[par ^ 1] was last read before the barrier above; clearing it
       // here keeps every clear ahead of the next iteration's atomicMax.
       const unsigned long long bk = s_key[par];
-      if (tid == 0) s_key[par ^ 1] = 0ull;
+      if (tid == 0) {
+        s_key[par ^ 1] = 0ull;
+        if (p.counts) count_step(s_cnt, bk != 0ull, false);
+      }
       if (bk) {     // every candidate beats lf, so the block's best is taken
         lf = key_fit(bk);
         const int wi = c.col + key_index(bk);
@@ -920,34 +1006,44 @@ __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
   __shared__ unsigned long long s_key[2];
   __shared__ float s_g;
   __shared__ int s_act[CL ? 4 : 3];
+  __shared__ int s_cnt[4];
   const Cta c = cta_of<CL>(p);
   const size_t slot = (size_t)c.s * p.nb + c.b;   // per-(swarm, block) local
   const size_t lds = (size_t)p.s_cnt * p.nb;
   load_rows<CL>(p, c, sm, p.lp, lds, slot);
-  if (threadIdx.x == 0) s_key[0] = s_key[1] = 0ull;
+  if (threadIdx.x == 0) {
+    s_key[0] = s_key[1] = 0ull;
+    s_cnt[0] = s_cnt[1] = s_cnt[2] = s_cnt[3] = 0;
+  }
   float lf = p.lf[slot];
   __syncthreads();
   if constexpr (F < kHetero) {
-    lf = async_body<F, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+    lf = async_body<F, R, CL>(p, c, sm, lf, s_key, &s_g, s_act, s_cnt);
   } else {
     switch (p.member_fit[c.member]) {   // uniform across the cluster
       case 0:
-        lf = async_body<0, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        lf = async_body<0, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
+                                    s_cnt);
         break;
       case 1:
-        lf = async_body<1, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        lf = async_body<1, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
+                                    s_cnt);
         break;
       case 2:
-        lf = async_body<2, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        lf = async_body<2, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
+                                    s_cnt);
         break;
       case 3:
-        lf = async_body<3, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        lf = async_body<3, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
+                                    s_cnt);
         break;
       case 4:
-        lf = async_body<4, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        lf = async_body<4, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
+                                    s_cnt);
         break;
       default:
-        lf = async_body<5, R, CL>(p, c, sm, lf, s_key, &s_g, s_act);
+        lf = async_body<5, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
+                                    s_cnt);
         break;
     }
   }
@@ -955,6 +1051,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
   for (int k = k0 + (int)threadIdx.x; k < k1; k += blockDim.x)
     p.lp[(size_t)k * lds + slot] = sm[k - k0];
   if (threadIdx.x == 0 && c.rank == 0) p.lf[slot] = lf;
+  add_counts(p, c, s_cnt);
   if constexpr (CL) cg::this_cluster().sync();
 }
 
@@ -980,14 +1077,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2) queue_kernel(Params p) {
   load_rows<CL>(p, c, sm, p.gp, (size_t)p.s_cnt, (size_t)c.s);
   if (threadIdx.x == 0) s_key = 0ull;
   unsigned long long mine;
-  if constexpr (CL) {
+  if constexpr (CL) {       // the queue kernel has no counters: T = false
     float pbf = p.pbf[c.col + c.b * p.bn + threadIdx.x];
     __syncthreads();
-    mine = step_cluster<F, R>(p, c, c.it0 + 1u, sm, p.gf[c.s],
-                              partials(c, sm), pbf);
+    mine = step_cluster<F, R, false>(p, c, c.it0 + 1u, sm, p.gf[c.s],
+                                     partials(c, sm), pbf, nullptr);
   } else {
     __syncthreads();
-    mine = step_block<F, R>(p, c, c.it0 + 1u, sm, p.gf[c.s]);
+    mine = step_block<F, R, false>(p, c, c.it0 + 1u, sm, p.gf[c.s],
+                                   nullptr);
   }
   if (mine) atomicMax(&s_key, mine);
   __syncthreads();
@@ -1183,15 +1281,16 @@ int pso_cluster_capacity(int bn, int d, int csize, int* out) {
 // each particle block on a cluster of csize CTAs (1: one CTA): one
 // cooperative launch of count*(n/bn)*csize CTAs, or, with one block a
 // swarm, a normal launch of count*csize. Null seeds/its take seed0/it00
-// (one swarm).
+// (one swarm); non-null counts [s_cnt,3] gets each swarm's events added.
 int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
                      float* gf, const float* bounds, const int* member_fit,
                      const int* fids, const unsigned* seeds,
                      const unsigned* its, unsigned long long* keys,
-                     float* cand, int n, int d, int bn, int s_cnt, int s0,
-                     int count, int iters, int csize, unsigned seed0,
-                     unsigned it00, int fit, int rule, float w, float c1,
-                     float c2, float k0, float k1, float k2, void* stream) {
+                     float* cand, int* counts, int n, int d, int bn,
+                     int s_cnt, int s0, int count, int iters, int csize,
+                     unsigned seed0, unsigned it00, int fit, int rule,
+                     float w, float c1, float c2, float k0, float k1,
+                     float k2, void* stream) {
   if (bad_shape(n, d, bn, s_cnt) || bad_cluster(csize, d, bn) || s0 < 0 ||
       count <= 0 || s0 + count > s_cnt ||
       (fit == kHetero && !(member_fit && fids)) ||
@@ -1206,6 +1305,7 @@ int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
                          c1, c2, k0, k1, k2);
   p.keys = keys;
   p.cand = cand;
+  p.counts = counts;
   p.s0 = s0;
   p.csize = csize;
   const size_t smem = smem_bytes(d, csize, bn);
@@ -1220,15 +1320,17 @@ int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
 // `iters` async iterations of all s_cnt swarms, `chunk` iterations between
 // boundaries, each particle block on a cluster of csize CTAs (1: one CTA):
 // a normal launch of s_cnt*(n/bn)*csize CTAs. `it_off` is added to every
-// swarm's iteration counter. Null seeds/its take seed0/it00 (one swarm).
+// swarm's iteration counter. Null seeds/its take seed0/it00 (one swarm);
+// non-null counts [s_cnt,3] gets each swarm's events added.
 int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
                      float* gf, const float* bounds, const int* member_fit,
                      const int* fids, const unsigned* seeds,
                      const unsigned* its, float* lp, float* lf,
-                     unsigned* lock, int n, int d, int bn, int s_cnt,
-                     int iters, int chunk, int csize, unsigned it_off,
-                     unsigned seed0, unsigned it00, int fit, int rule, float w,
-                     float c1, float c2, float k0, float k1, float k2,
+                     unsigned* lock, int* counts, int n, int d, int bn,
+                     int s_cnt, int iters, int chunk, int csize,
+                     unsigned it_off, unsigned seed0, unsigned it00, int fit,
+                     int rule, float w, float c1, float c2, float k0,
+                     float k1, float k2,
                      void* stream) {
   if (bad_shape(n, d, bn, s_cnt) || bad_cluster(csize, d, bn) || chunk <= 0 ||
       iters % chunk || (fit == kHetero && !(member_fit && fids)) ||
@@ -1242,6 +1344,7 @@ int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
   p.lp = lp;
   p.lf = lf;
   p.lock = lock;
+  p.counts = counts;
   p.chunk = chunk;
   p.it_off = it_off;
   p.csize = csize;

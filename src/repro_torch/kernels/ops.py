@@ -8,10 +8,17 @@ chain the async kernel's phases. Results match the eager
 ``repro_torch.core.pso`` variants (``step_queue`` iterated for the fused
 kernel; ``run_async`` block semantics for the async kernel), and row ``s``
 of a batch matches the single-swarm wrapper on ``batch_row(batch, s)``.
+
+``telemetry=True`` makes the fused and async functions return ``(state,
+counts)``: the kernels' contention counters, int32 ``[3]`` for one swarm
+and ``[S, 3]`` for a batch (``repro_torch.telemetry``). ``run_queue_lock``
+is the one entry point of the kernel backend: either variant, one swarm or
+a batch, with or without the counters, and with ``history=True`` a gbest
+sample at every sync point on operands packed once.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,6 +28,7 @@ from ..core.multi_swarm import SwarmBatch
 from ..core.problem import Problem
 from ..core.pso import (ASYNC_SYNC_EVERY, PSOConfig, SwarmState,
                         hetero_member_config)
+from ..telemetry import zero_counts
 from . import pso_step
 from .pso_step import KernelSpec
 # the phase split under the reference's name (repro.kernels.ops._async_spans)
@@ -105,43 +113,91 @@ def queue_epilogue(pos, gp, gf, aux_fit, aux_idx):
     return torch.where(take, cand_pos, gp), torch.where(take, cand_fit, gf)
 
 
-def run_queue_lock_fused(cfg: PSOConfig, s: SwarmState, iters: int,
-                         block_n: Optional[int] = None) -> SwarmState:
-    """``iters`` iterations of the fused queue-lock in ONE kernel launch
-    (on a CUDA state; the plain version on a CPU state)."""
+def _chunked(step, iters: int, stride: Optional[int], start: int, gf):
+    """Run ``step(offset, k)`` over ``iters`` iterations: in one call of
+    all of them (``stride`` None), or in chunks of ``stride`` (the last
+    shorter), copying the gbest fitness ``gf`` after each chunk into a
+    tensor allocated once on its device, so sampling adds no host round
+    trip. Returns (the absolute iteration after each chunk, from
+    ``start``, and the [K, *gf.shape] samples), or (None, None)."""
+    if stride is None:
+        step(0, iters)
+        return None, None
+    offs = range(0, iters, stride)
+    fits = torch.empty((len(offs),) + tuple(gf.shape), dtype=gf.dtype,
+                       device=gf.device)
+    its = []
+    for j, off in enumerate(offs):
+        k = min(stride, iters - off)
+        step(off, k)
+        fits[j].copy_(gf)
+        its.append(start + off + k)
+    return its, fits
+
+
+def _run_single(cfg: PSOConfig, s: SwarmState, iters: int,
+                block_n: Optional[int], telemetry: bool,
+                sync_every: Optional[int] = None,
+                stride: Optional[int] = None):
+    """One swarm through the fused kernel (``sync_every`` None) or the
+    async kernel, on D-major operands packed once and unpacked once, in
+    one run or in chunks of ``stride`` (``_chunked``). Returns (state,
+    (iterations, [K] gbest_fit) or (None, None), counts [3] or None)."""
     cfg = cfg.resolved()
     n, _ = s.pos.shape
     bn = _resolve_block(n, block_n)
+    spec = kernel_spec(cfg)
     ops = state_to_kernel(s)
-    pso_step.fused(*ops, kernel_spec(cfg), seed=s.seed, iteration=s.iteration,
-                   iters=iters, block_n=bn)
-    return kernel_to_state(s, *ops, iters)
+    cnt = zero_counts(1, s.pos.device) if telemetry else None
+    if sync_every is None:
+        def step(off, k):
+            pso_step.fused(*ops, spec, seed=s.seed,
+                           iteration=s.iteration + off, iters=k, block_n=bn,
+                           counts=cnt)
+    else:
+        nb = n // bn
+        if s.lbest_fit is not None and tuple(s.lbest_fit.shape) == (nb,):
+            lp, lf = pack_dmajor(s.lbest_pos), s.lbest_fit.clone()
+        else:                           # local bests seeded from gbest
+            lp, lf = ops[4][:, None].repeat(1, nb), ops[5].repeat(nb)
+
+        def step(off, k):
+            pso_step.fused_async(*ops, lp, lf, spec, seed=s.seed,
+                                 iteration=s.iteration + off, iters=k,
+                                 sync_every=sync_every, block_n=bn,
+                                 counts=cnt)
+    its, fits = _chunked(step, iters, stride, s.iteration, ops[5])
+    out = kernel_to_state(s, *ops, iters)
+    if sync_every is not None:
+        out = out._replace(lbest_pos=unpack_dmajor(lp), lbest_fit=lf)
+    return out, (its, None if fits is None else fits[:, 0]), cnt
+
+
+def run_queue_lock_fused(cfg: PSOConfig, s: SwarmState, iters: int,
+                         block_n: Optional[int] = None,
+                         telemetry: bool = False):
+    """``iters`` iterations of the fused queue-lock in ONE kernel launch
+    (on a CUDA state; the plain version on a CPU state). ``telemetry=True``
+    returns ``(state, counts)``, the [3] int32 contention counters."""
+    out, _, cnt = _run_single(cfg, s, iters, block_n, telemetry)
+    return (out, cnt) if telemetry else out
 
 
 def run_queue_lock_fused_async(cfg: PSOConfig, s: SwarmState, iters: int,
                                sync_every: int = ASYNC_SYNC_EVERY,
-                               block_n: Optional[int] = None) -> SwarmState:
+                               block_n: Optional[int] = None,
+                               telemetry: bool = False):
     """``iters`` iterations of the ASYNC queue-lock: each particle block
     runs ``sync_every`` iterations per chunk against its block-local best,
     touching the shared gbest only at chunk boundaries. A state that
     carries block-local bests of the same block count resumes them. With a
-    single block the result equals ``run_queue_lock_fused``."""
-    cfg = cfg.resolved()
-    n, _ = s.pos.shape
-    bn = _resolve_block(n, block_n)
-    nb = n // bn
-    ops = state_to_kernel(s)
-    gp, gf = ops[4], ops[5]
-    if s.lbest_fit is not None and tuple(s.lbest_fit.shape) == (nb,):
-        lp, lf = pack_dmajor(s.lbest_pos), s.lbest_fit.clone()
-    else:
-        lp = gp[:, None].repeat(1, nb)       # local bests seeded from gbest
-        lf = gf.repeat(nb)
-    pso_step.fused_async(*ops, lp, lf, kernel_spec(cfg), seed=s.seed,
-                         iteration=s.iteration, iters=iters,
-                         sync_every=sync_every, block_n=bn)
-    out = kernel_to_state(s, *ops, iters)
-    return out._replace(lbest_pos=unpack_dmajor(lp), lbest_fit=lf)
+    single block the result equals ``run_queue_lock_fused``.
+    ``telemetry=True`` returns ``(state, counts)``, the [3] int32
+    contention counters summed over the launches (the remainder phase
+    included)."""
+    out, _, cnt = _run_single(cfg, s, iters, block_n, telemetry,
+                              sync_every=sync_every)
+    return (out, cnt) if telemetry else out
 
 
 def pack_dmajor_batch(x: torch.Tensor) -> torch.Tensor:
@@ -191,10 +247,51 @@ def _kernel_to_batch(batch: SwarmBatch, pos, vel, pbp, pbf, gp, gf,
         iteration=batch.iteration + iters, lbest_pos=None, lbest_fit=None)
 
 
+def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
+               block_n: Optional[int], telemetry: bool, fids, table,
+               sync_every: Optional[int] = None,
+               stride: Optional[int] = None):
+    """``_run_single`` for a batch: the batched fused or async kernel.
+    Returns (batch, (iterations, [K, S] gbest_fit) or (None, None),
+    counts [S, 3] or None)."""
+    cfg = cfg.resolved()
+    s_cnt, n, _ = batch.pos.shape
+    bn = _resolve_block(n, block_n)
+    ops, specs = _batch_to_kernel(cfg, batch, fids, table)
+    cnt = zero_counts(s_cnt, batch.pos.device) if telemetry else None
+    if sync_every is None:
+        def step(off, k):
+            pso_step.fused_batch(*ops, batch.seed, batch.iteration + off,
+                                 specs, iters=k, block_n=bn, fids=fids,
+                                 counts=cnt)
+    else:
+        nb = n // bn
+        if batch.lbest_fit is not None \
+                and tuple(batch.lbest_fit.shape) == (s_cnt, nb):
+            lp = pack_dmajor_batch(batch.lbest_pos)
+            lf = batch.lbest_fit.reshape(-1).clone()
+        else:                         # local bests seeded from each gbest
+            lp = ops[4].repeat_interleave(nb, dim=1)
+            lf = ops[5].repeat_interleave(nb)
+
+        def step(off, k):
+            pso_step.fused_async_batch(*ops, lp, lf, batch.seed,
+                                       batch.iteration + off, specs, iters=k,
+                                       sync_every=sync_every, block_n=bn,
+                                       fids=fids, counts=cnt)
+    start = int(batch.iteration[0]) if stride is not None else 0
+    its, fits = _chunked(step, iters, stride, start, ops[5])
+    out = _kernel_to_batch(batch, *ops, iters)
+    if sync_every is not None:
+        out = out._replace(lbest_pos=unpack_dmajor_batch(lp, s_cnt),
+                           lbest_fit=lf.reshape(s_cnt, nb))
+    return out, (its, fits), None if cnt is None else cnt.reshape(s_cnt, 3)
+
+
 def run_queue_lock_fused_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
                                block_n: Optional[int] = None, fids=None,
-                               table: Optional[Sequence[Problem]] = None
-                               ) -> SwarmBatch:
+                               table: Optional[Sequence[Problem]] = None,
+                               telemetry: bool = False):
     """S independent swarms x ``iters`` fused queue-lock iterations: one
     kernel launch, or one a wave of swarms where a batch of several-block
     swarms does not fit on the card at once (on a CUDA batch; the plain
@@ -202,13 +299,12 @@ def run_queue_lock_fused_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
     slots, so row ``s`` equals ``run_queue_lock_fused`` on
     ``batch_row(batch, s)`` with the same ``block_n``. ``fids``/``table``
     (``multi_swarm.problem_rows``) make the batch heterogeneous: ``cfg``
-    then gives only dim, rule and coefficients."""
-    cfg = cfg.resolved()
-    bn = _resolve_block(batch.pos.shape[1], block_n)
-    ops, specs = _batch_to_kernel(cfg, batch, fids, table)
-    pso_step.fused_batch(*ops, batch.seed, batch.iteration, specs,
-                         iters=iters, block_n=bn, fids=fids)
-    return _kernel_to_batch(batch, *ops, iters)
+    then gives only dim, rule and coefficients. ``telemetry=True`` returns
+    ``(batch, counts)`` with row ``s`` of the [S, 3] counts swarm ``s``'s
+    (a heterogeneous batch counts per row too)."""
+    out, _, cnt = _run_batch(cfg, batch, iters, block_n, telemetry, fids,
+                             table)
+    return (out, cnt) if telemetry else out
 
 
 def run_queue_lock_fused_async_batch(cfg: PSOConfig, batch: SwarmBatch,
@@ -216,31 +312,44 @@ def run_queue_lock_fused_async_batch(cfg: PSOConfig, batch: SwarmBatch,
                                      sync_every: int = ASYNC_SYNC_EVERY,
                                      block_n: Optional[int] = None,
                                      fids=None,
-                                     table: Optional[Sequence[Problem]] = None
-                                     ) -> SwarmBatch:
+                                     table: Optional[Sequence[Problem]] = None,
+                                     telemetry: bool = False):
     """S independent swarms through the async queue-lock: one launch of
     every swarm's blocks per ``_async_spans`` phase, with per-(swarm,
     block) local bests, so row ``s`` equals ``run_queue_lock_fused_async``
     on ``batch_row(batch, s)`` with the same ``block_n``/``sync_every``
     (up to the multi-block publication race). A batch that carries local
-    bests of shape ``(S, nb)`` resumes them. ``fids``/``table`` as in
-    ``run_queue_lock_fused_batch``."""
-    cfg = cfg.resolved()
-    s_cnt, n, d = batch.pos.shape
-    bn = _resolve_block(n, block_n)
-    nb = n // bn
-    ops, specs = _batch_to_kernel(cfg, batch, fids, table)
-    gp, gf = ops[4], ops[5]
-    if batch.lbest_fit is not None \
-            and tuple(batch.lbest_fit.shape) == (s_cnt, nb):
-        lp = pack_dmajor_batch(batch.lbest_pos)
-        lf = batch.lbest_fit.reshape(-1).clone()
-    else:                             # local bests seeded from each gbest
-        lp = gp.repeat_interleave(nb, dim=1)
-        lf = gf.repeat_interleave(nb)
-    pso_step.fused_async_batch(*ops, lp, lf, batch.seed, batch.iteration,
-                               specs, iters=iters, sync_every=sync_every,
-                               block_n=bn, fids=fids)
-    out = _kernel_to_batch(batch, *ops, iters)
-    return out._replace(lbest_pos=unpack_dmajor_batch(lp, s_cnt),
-                        lbest_fit=lf.reshape(s_cnt, nb))
+    bests of shape ``(S, nb)`` resumes them. ``fids``/``table`` and
+    ``telemetry`` as in ``run_queue_lock_fused_batch``."""
+    out, _, cnt = _run_batch(cfg, batch, iters, block_n, telemetry, fids,
+                             table, sync_every=sync_every)
+    return (out, cnt) if telemetry else out
+
+
+def run_queue_lock(cfg: PSOConfig, state, iters: int, variant: str,
+                   sync_every: int = ASYNC_SYNC_EVERY,
+                   block_n: Optional[int] = None, telemetry: bool = False,
+                   history: bool = False, fids=None,
+                   table: Optional[Sequence[Problem]] = None
+                   ) -> Tuple[object, Tuple[Optional[List[int]],
+                                            Optional[torch.Tensor]],
+                              Optional[torch.Tensor]]:
+    """``state`` (a ``SwarmState``, or a ``SwarmBatch`` with
+    ``fids``/``table`` as above) through the fused kernel
+    (``variant="queue_lock"``) or the async kernel, as the functions above
+    run it. ``history=True`` launches once a sync point instead (every
+    iteration for the fused kernel, every ``sync_every`` for async) and
+    samples gbest_fit after each launch; the D-major operands are packed
+    once and unpacked once, the samples stay on the device until the
+    caller reads them, and the result equals chunk-by-chunk calls of the
+    functions above. Returns (state, (the absolute iteration of each
+    sample, gbest_fit [K] or [K, S]) or (None, None), counts [3] / [S, 3]
+    or None)."""
+    async_ = variant == "async"
+    kw = dict(sync_every=sync_every if async_ else None, stride=None)
+    if history:
+        kw["stride"] = max(1, sync_every) if async_ else 1
+    if isinstance(state, SwarmBatch):
+        return _run_batch(cfg, state, iters, block_n, telemetry, fids, table,
+                          **kw)
+    return _run_single(cfg, state, iters, block_n, telemetry, **kw)

@@ -42,6 +42,12 @@ their inputs alone:
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; the
 batch wrappers count heterogeneous launches in ``.hetero_launches``.
 
+The fused and async wrappers and their plain versions take ``counts``, an
+int32 ``[3*S]`` buffer (``repro_torch.telemetry``), and add each swarm's
+contention events into it: with ``counts=None`` the kernels get a null
+pointer and count nothing. ``queue_step`` has no counters, as the
+reference's queue kernel has none.
+
 All three kernels run each particle block on a cluster of C CTAs, each
 CTA owning a slice of the dimensions; ``cluster_size`` picks C from the
 swarm's shape alone, the same for every kernel, so a batch row and the
@@ -174,11 +180,23 @@ def queue_plain(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
     return pos, vel, pbp, pbf, q.amax(1), aux_idx.to(torch.int32)
 
 
+def _any_per_block(mask, block_n: int) -> Tensor:
+    """How many blocks of ``block_n`` lanes hold a True lane (a 0-d int
+    tensor: counting needs no host round trip)."""
+    return mask.reshape(-1, block_n).any(1).sum()
+
+
 def fused_plain(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
-                iteration: int, iters: int, block_n: int):
+                iteration: int, iters: int, block_n: int, counts=None):
     """``iters`` synchronous queue-lock iterations; returns new
     (pos, vel, pbp, pbf, gp, gf). The result does not depend on
     ``block_n``: every block reads the previous iteration's gbest.
+
+    ``counts`` (int32 ``[3]``, added into in place) counts per (iteration,
+    block) as the kernel does: blocks with a lane beating the previous
+    gbest (``queue_updates``, and as many ``publications``) and blocks with
+    a lane improving its pbest (``block_improvements``). With one block
+    these are ``ref.run_fused_oracle``'s counts.
 
     This is ``core.pso.step_queue`` iterated, written again on the kernel's
     own operands (D-major tiles, a ``KernelSpec``) rather than routed
@@ -186,24 +204,33 @@ def fused_plain(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
     ``fused_async_plain``, so with one block the two plain versions agree
     bit for bit, as the two kernels must. The engine sums each particle's
     objective over a contiguous [N, D] row, which may round differently."""
-    del block_n
     d, n = pos.shape
     bounds = _operands(spec, pos.device)
     idx = _rng_index(n, d, pos.device)
     for t in range(iters):
         pos, vel, fit = _advance(spec, bounds, seed, iteration + t + 1,
                                  pos, vel, pbp, gp[:, None], idx)
+        if counts is not None:
+            q = _any_per_block(fit > gf, block_n)
+            counts += torch.stack((q, q, _any_per_block(fit > pbf, block_n))
+                                  ).to(counts.dtype)
         pbp, pbf, gf, gp = _fold(fit, pos, pbp, pbf, gf, gp)
     return pos, vel, pbp, pbf, gp, gf
 
 
 def fused_async_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec,
                       *, seed: int, iteration: int, iters: int,
-                      sync_every: int, block_n: int):
+                      sync_every: int, block_n: int, counts=None):
     """``iters`` async queue-lock iterations, block-major: block b runs its
     whole span before block b+1, pulling gbest at chunk entry and
     publishing at chunk exit; a remainder runs as a second block-major
-    phase. Returns new (pos, vel, pbp, pbf, gp, gf, lp, lf)."""
+    phase. Returns new (pos, vel, pbp, pbf, gp, gf, lp, lf).
+
+    ``counts`` (int32 ``[3]``, added into in place) counts as
+    ``ref.run_fused_async_oracle``'s ``counters``: iterations of a block
+    with a lane beating its local best (``queue_updates``), chunk exits
+    that write the shared gbest (``publications``) and iterations of a
+    block with a lane improving its pbest (``block_improvements``)."""
     d, n = pos.shape
     bn = block_n
     bounds = _operands(spec, pos.device)
@@ -223,8 +250,13 @@ def fused_async_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec,
                     it = iteration + off + c * k + tl + 1
                     p, v, fit = _advance(spec, bounds, seed, it, p, v, bp,
                                          lpb[:, None], idx)
+                    if counts is not None:
+                        counts[0] += (fit > lfb).any().to(counts.dtype)
+                        counts[2] += (fit > bf).any().to(counts.dtype)
                     bp, bf, lfb, lpb = _fold(fit, p, bp, bf, lfb, lpb)
                 pub = lfb > gf                      # chunk exit
+                if counts is not None:
+                    counts[1] += pub[0].to(counts.dtype)
                 gf = torch.where(pub, lfb, gf)
                 gp = torch.where(pub, lpb, gp)
             pos[:, sl], vel[:, sl], pbp[:, sl], pbf[sl] = p, v, bp, bf
@@ -252,13 +284,20 @@ def _join(rows):
     return tuple(out)
 
 
+def _row_counts(counts, s: int):
+    """Swarm s's three slots of a ``[3*S]`` counter buffer (a view, so the
+    row's plain version adds into the buffer), or None."""
+    return None if counts is None else counts[3 * s:3 * s + 3]
+
+
 def fused_batch_plain(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
-                      iters: int, block_n: int, fids=None):
+                      iters: int, block_n: int, fids=None, counts=None):
     """``fused_plain`` on every swarm of a batch: swarm s owns columns
     ``[s*N, (s+1)*N)`` of ``pos``/``vel``/``pbp``/``pbf`` and column s of
     ``gp`` ``[D, S]``/``gf`` ``[S]``, starts from ``seeds[s]``/``its[s]``
-    and solves ``specs[fids[s]]`` (``specs[0]`` without ``fids``). This row
-    identity is the batched kernels' contract. Returns new tensors."""
+    and solves ``specs[fids[s]]`` (``specs[0]`` without ``fids``), adding
+    its events into slots ``3s..3s+2`` of ``counts``. This row identity is
+    the batched kernels' contract. Returns new tensors."""
     s_cnt = gf.shape[0]
     n = pos.shape[1] // s_cnt
     rows = []
@@ -267,13 +306,14 @@ def fused_batch_plain(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
         c = slice(s * n, (s + 1) * n)
         rows.append(fused_plain(pos[:, c], vel[:, c], pbp[:, c], pbf[c],
                                 gp[:, s], gf[s:s + 1], spec, seed=seed,
-                                iteration=it, iters=iters, block_n=block_n))
+                                iteration=it, iters=iters, block_n=block_n,
+                                counts=_row_counts(counts, s)))
     return _join(rows)
 
 
 def fused_async_batch_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its,
                             specs, *, iters: int, sync_every: int,
-                            block_n: int, fids=None):
+                            block_n: int, fids=None, counts=None):
     """``fused_async_plain`` on every swarm of a batch, laid out as in
     ``fused_batch_plain``; swarm s's block-local bests are columns
     ``[s*nb, (s+1)*nb)`` of ``lp`` ``[D, S*nb]`` and ``lf`` ``[S*nb]``.
@@ -288,7 +328,8 @@ def fused_async_batch_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its,
         rows.append(fused_async_plain(
             pos[:, c], vel[:, c], pbp[:, c], pbf[c], gp[:, s], gf[s:s + 1],
             lp[:, cl], lf[cl], spec, seed=seed, iteration=it, iters=iters,
-            sync_every=sync_every, block_n=block_n))
+            sync_every=sync_every, block_n=block_n,
+            counts=_row_counts(counts, s)))
     return _join(rows)
 
 
@@ -310,9 +351,9 @@ def _lib():
     p, i, u, f = c.c_void_p, c.c_int, c.c_uint, c.c_float
     lib.pso_fused_resident.argtypes = [i] * 5 + [c.POINTER(i)]
     lib.pso_cluster_capacity.argtypes = [i] * 3 + [c.POINTER(i)]
-    lib.pso_fused_launch.argtypes = ([p] * 13 + [i] * 8 + [u, u, i, i]
+    lib.pso_fused_launch.argtypes = ([p] * 14 + [i] * 8 + [u, u, i, i]
                                      + [f] * 6 + [p])
-    lib.pso_async_launch.argtypes = ([p] * 14 + [i] * 7 + [u, u, u, i, i]
+    lib.pso_async_launch.argtypes = ([p] * 15 + [i] * 7 + [u, u, u, i, i]
                                      + [f] * 6 + [p])
     lib.pso_queue_launch.argtypes = ([p] * 9 + [i] * 4 + [u, u, i, i]
                                      + [f] * 6 + [p])
@@ -558,6 +599,18 @@ def _ptrs(tensors):
     return [None if t is None else t.data_ptr() for t in tensors]
 
 
+def _check_counts(counts, s_cnt: int, dev) -> None:
+    """A counter buffer the kernels add into: contiguous int32 ``[3*S]`` on
+    the state's device, or None (telemetry off: the null pointer)."""
+    if counts is not None and (
+            counts.dtype != torch.int32 or counts.device != dev
+            or tuple(counts.shape) != (3 * s_cnt,)
+            or not counts.is_contiguous()):
+        raise ValueError(f"counts must be a contiguous int32 [{3 * s_cnt}] "
+                         f"tensor on {dev}; got {counts.dtype} "
+                         f"{tuple(counts.shape)} on {counts.device}")
+
+
 def _copy_into(state, out):
     """The CPU path of a wrapper: the plain version's results, in place."""
     for dst, src in zip(state, out):
@@ -608,13 +661,15 @@ queue_step.launches = 0
 
 
 def fused(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
-          iteration: int, iters: int, block_n: int):
+          iteration: int, iters: int, block_n: int, counts=None):
     """``iters`` fused queue-lock iterations of one swarm, in place: ONE
     launch of ``n // block_n`` clusters of ``cluster_size`` CTAs on CUDA
     tensors (cooperative with several blocks), the plain version on CPU
-    tensors."""
+    tensors. ``counts`` (int32 ``[3]``) gets the run's contention counts
+    added (``repro_torch.telemetry``)."""
     state = (pos, vel, pbp, pbf, gp, gf)
-    kw = dict(seed=seed, iteration=iteration, iters=iters, block_n=block_n)
+    kw = dict(seed=seed, iteration=iteration, iters=iters, block_n=block_n,
+              counts=counts)
     if pos.device.type == "cpu":
         return _copy_into(state, fused_plain(*state, spec, **kw))
     _fused_launch(state, spec, **kw)
@@ -622,20 +677,21 @@ def fused(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
 
 
 def _fused_launch(state, spec: KernelSpec, *, seed: int, iteration: int,
-                  iters: int, block_n: int, cluster=None) -> None:
+                  iters: int, block_n: int, cluster=None,
+                  counts=None) -> None:
     """The kernel path of ``fused``: the batched launch with S = 1
     (``cluster`` as in ``_fused_batch_launch``)."""
     pos, vel, pbp, pbf, gp, gf = state
     fused.launches += _fused_batch_launch(
         (pos, vel, pbp, pbf, gp[:, None], gf), [seed], [iteration], (spec,),
-        iters=iters, block_n=block_n, cluster=cluster)
+        iters=iters, block_n=block_n, cluster=cluster, counts=counts)
 
 
 fused.launches = 0
 
 
 def fused_batch(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
-                iters: int, block_n: int, fids=None):
+                iters: int, block_n: int, fids=None, counts=None):
     """``iters`` fused queue-lock iterations of S swarms, in place (layout
     of ``fused_batch_plain``; ``seeds``/``its`` int64 ``[S]``). On CUDA
     tensors, each block on a cluster of ``cluster_size`` CTAs: with one
@@ -643,9 +699,11 @@ def fused_batch(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
     launches in waves of as many whole swarms as the card holds at once.
     On CPU tensors the plain version. ``fids``
     (with a table ``specs`` of several members) makes the batch
-    heterogeneous; its launches count in ``fused_batch.hetero_launches``."""
+    heterogeneous; its launches count in ``fused_batch.hetero_launches``.
+    ``counts`` (int32 ``[3*S]``) gets swarm s's contention counts added in
+    slots ``3s..3s+2``, across the waves."""
     state = (pos, vel, pbp, pbf, gp, gf)
-    kw = dict(iters=iters, block_n=block_n, fids=fids)
+    kw = dict(iters=iters, block_n=block_n, fids=fids, counts=counts)
     if pos.device.type == "cpu":
         return _copy_into(state, fused_batch_plain(*state, seeds, its, specs,
                                                    **kw))
@@ -662,12 +720,14 @@ fused_batch.hetero_launches = 0
 
 
 def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
-                        block_n: int, fids=None, cluster=None) -> int:
+                        block_n: int, fids=None, cluster=None,
+                        counts=None) -> int:
     """The kernel path of the fused wrappers (``launch_plan``); returns the
     launches made. ``cluster`` sets the cluster size in place of
     ``cluster_size``'s (chip_smoke.py times each size)."""
     extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
         state, seeds, its, specs, fids, block_n)
+    _check_counts(counts, s_cnt, state[0].device)
     if iters <= 0:
         return 0
     pos = state[0]
@@ -683,7 +743,7 @@ def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
         keys = torch.zeros(2 * s_cnt, dtype=torch.int64, device=pos.device)
         cand = (torch.empty(2 * s_cnt * nb * d, dtype=torch.float32,
                             device=pos.device) if nb > 1 else None)
-        ptrs = _ptrs(list(state) + extra + [keys, cand])
+        ptrs = _ptrs(list(state) + extra + [keys, cand, counts])
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         launches = 0
         for s0 in range(0, s_cnt, wave):
@@ -697,17 +757,19 @@ def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
 
 def fused_async(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec, *,
                 seed: int, iteration: int, iters: int, sync_every: int,
-                block_n: int, cluster=None):
+                block_n: int, cluster=None, counts=None):
     """``iters`` async queue-lock iterations of one swarm, in place: on
     CUDA tensors one launch of ``n // block_n`` clusters of
     ``cluster_size`` CTAs (the fused kernel's C, so that with one block the
     two agree bit for bit) per ``async_spans`` phase (the remainder is a
     second launch), the plain version on CPU tensors. ``cluster`` sets the
     cluster size in place of ``cluster_size``'s (chip_smoke.py times each
-    size); the plain version, the reference's math, ignores it."""
+    size); the plain version, the reference's math, ignores it. ``counts``
+    (int32 ``[3]``) gets the run's contention counts added, over both
+    phases."""
     state = (pos, vel, pbp, pbf, gp, gf, lp, lf)
     kw = dict(seed=seed, iteration=iteration, iters=iters,
-              sync_every=sync_every, block_n=block_n)
+              sync_every=sync_every, block_n=block_n, counts=counts)
     if pos.device.type == "cpu":
         return _copy_into(state, fused_async_plain(*state, spec, **kw))
     _fused_async_launch(state, spec, cluster=cluster, **kw)
@@ -716,13 +778,13 @@ def fused_async(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec, *,
 
 def _fused_async_launch(state, spec: KernelSpec, *, seed: int,
                         iteration: int, iters: int, sync_every: int,
-                        block_n: int, cluster=None) -> None:
+                        block_n: int, cluster=None, counts=None) -> None:
     """The kernel path of ``fused_async``: the batched launch with S = 1."""
     pos, vel, pbp, pbf, gp, gf, lp, lf = state
     fused_async.launches += _fused_async_batch_launch(
         (pos, vel, pbp, pbf, gp[:, None], gf, lp, lf), [seed], [iteration],
         (spec,), iters=iters, sync_every=sync_every, block_n=block_n,
-        cluster=cluster)
+        cluster=cluster, counts=counts)
 
 
 fused_async.launches = 0
@@ -730,15 +792,16 @@ fused_async.launches = 0
 
 def fused_async_batch(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its, specs,
                       *, iters: int, sync_every: int, block_n: int,
-                      fids=None, cluster=None):
+                      fids=None, cluster=None, counts=None):
     """``iters`` async queue-lock iterations of S swarms, in place (layout
     of ``fused_async_batch_plain``): on CUDA tensors one launch of
     ``S * n // block_n`` clusters (``async_plan``) per ``async_spans``
     phase, on CPU tensors the plain version. ``fids`` makes the batch
     heterogeneous, counted in ``fused_async_batch.hetero_launches``;
-    ``cluster`` as in ``fused_async``."""
+    ``cluster`` as in ``fused_async``; ``counts`` as in ``fused_batch``."""
     state = (pos, vel, pbp, pbf, gp, gf, lp, lf)
-    kw = dict(iters=iters, sync_every=sync_every, block_n=block_n, fids=fids)
+    kw = dict(iters=iters, sync_every=sync_every, block_n=block_n, fids=fids,
+              counts=counts)
     if pos.device.type == "cpu":
         return _copy_into(state, fused_async_batch_plain(
             *state, seeds, its, specs, **kw))
@@ -757,12 +820,13 @@ fused_async_batch.hetero_launches = 0
 
 def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
                               sync_every: int, block_n: int, fids=None,
-                              cluster=None) -> int:
+                              cluster=None, counts=None) -> int:
     """The kernel path of the async wrappers (``async_plan``); returns the
     launches made. ``cluster`` sets the cluster size in place of
     ``cluster_size``'s."""
     extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
         state, seeds, its, specs, fids, block_n)
+    _check_counts(counts, s_cnt, state[0].device)
     pos = state[0]
     lib = _lib()
     launches = 0
@@ -770,7 +834,8 @@ def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
         c, _ = async_plan(n, d, block_n, s_cnt, functools.partial(
             _capacity, block_n, d, _device_index(pos.device)), cluster)
         lock = torch.zeros(2 * s_cnt, dtype=torch.int32, device=pos.device)
-        ptrs = _ptrs(list(state[:6]) + extra + list(state[6:]) + [lock])
+        ptrs = _ptrs(list(state[:6]) + extra + list(state[6:])
+                     + [lock, counts])
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         for off, span, chunk in async_spans(iters, sync_every):
             _check(lib.pso_async_launch(

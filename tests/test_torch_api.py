@@ -227,8 +227,6 @@ def test_method_and_loose_kwargs_are_exclusive():
 @pytest.mark.parametrize("kw,item", [
     (dict(schedule="auto"), "item 9"),
     (dict(islands=2), "item 7"),
-    (dict(telemetry=True), "item 5"),
-    (dict(record_history=True), "item 5"),
     (dict(variant="async", topology="ring"), "item 4"),
     (dict(variant="async", backend="kernel", topology="vonneumann"),
      "item 4"),
@@ -239,8 +237,6 @@ def test_unported_method_features_raise(kw, item):
 
 
 def test_unported_entry_points_and_problem_fields_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        api.solve_many("cubic", [0, 1], record_history=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         api.solve_stream([])
     with pytest.raises(NotImplementedError, match="item 3"):

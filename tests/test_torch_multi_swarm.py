@@ -205,8 +205,6 @@ def test_solve_many_core_matches_reference_and_validates():
                       problems=["sphere", "cubic"], device="cpu")
     with pytest.raises(ValueError, match="coeffs"):
         ms.run_many(tc, tb, 1, "queue", coeffs=([1.0], [2.0], [2.0]))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ms.run_many_with_history(tc, tb, 1)
 
 
 def test_stack_states_batch_row_round_trip():

@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""The fused and async kernels of several checkouts on one card, in turns.
+
+    python3 tools/kernel_trees.py OLD/src src src OLD/src
+
+Each argument is a checkout's ``src/``, run in a process of its own (a
+package is imported once a process) in the order given, so ``P C C P``
+compares two trees within one call on one card. For each tree: the build
+of its ``pso_step.cu`` and every kernel's ``-Xptxas -v`` line (registers
+and spills), then the fused and async kernels alone at the main path's two
+solve cells (cubic d=1 n=131072 x1000, cubic d=120 n=32768 x200; async at
+sync_every=8), counters off, each run from a copy of the initial swarm:
+device us an iteration (CUDA events), the median of five after a warm
+run. Last, the kernels whose ``-Xptxas -v`` line differs between the
+first two distinct trees, side by side, with the spill totals.
+
+The timing and the swarms are chip_smoke.py's (``kernel_state``,
+``with_locals``, ``device_us``); the tree's ``repro_torch`` is imported
+before ``chip_smoke``, so chip_smoke's helpers drive that tree's package.
+Needs one CUDA card, ``nvcc`` and ``nvidia-smi``.
+"""
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def one_tree(src: str) -> None:
+    """Build and time one tree's kernels; the last line is its
+    ``-Xptxas -v`` lines as JSON."""
+    sys.path.insert(0, src)
+    import repro_torch  # noqa: F401  (the tree's package, first)
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    import torch
+    from repro_torch.kernels import _build, ops, pso_step
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_trees: no CUDA device")
+    card = cs.card_line()
+    lib, log = _build.build("pso_step")
+    lines = cs.ptxas_lines(log)
+    print(f"tree {src}: {lib.name}, {len(lines)} kernels [{card}]")
+    for line in lines:
+        print(f"  {line}")
+    for d, n, iters in cs.SOLVE_CELLS:
+        _, spec, state, seed = cs.kernel_state("cubic", d, n)
+        bn = ops._resolve_block(n, None)
+        kw = dict(seed=seed, iteration=0, iters=iters, block_n=bn)
+        runs = (("fused", lambda st: pso_step.fused(*st, spec, **kw), state),
+                ("async", lambda st: pso_step.fused_async(
+                    *st, spec, sync_every=cs.pso.ASYNC_SYNC_EVERY, **kw),
+                 cs.with_locals(state, n // bn)))
+        for kind, run, st in runs:
+            cs.device_us(run, st)                             # warm-up
+            us = sorted(cs.device_us(run, st) / iters for _ in range(5))
+            print(f"  cubic d={d} n={n} x{iters} {kind} (clusters of "
+                  f"{cs.cluster_of(n, d)}), device us/iter, median "
+                  f"{us[2]:.3f} ({', '.join(f'{u:.3f}' for u in us)}) "
+                  f"[{card}]")
+    print(json.dumps(lines))
+
+
+def spills(info: str) -> int:
+    return sum(int(b) for b in re.findall(r"(\d+) B spill", info))
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--tree"]:
+        one_tree(sys.argv[2])
+        return 0
+    trees = sys.argv[1:]
+    if not trees:
+        raise SystemExit(__doc__)
+    ptxas = {}
+    for src in trees:
+        out = subprocess.run([sys.executable, __file__, "--tree", src],
+                             capture_output=True, text=True)
+        if out.returncode:
+            sys.stderr.write(out.stderr)
+            raise SystemExit(f"kernel_trees: tree {src} failed")
+        *shown, last = out.stdout.strip().splitlines()
+        print("\n".join(shown), flush=True)
+        ptxas.setdefault(src, dict(l.split(":", 1) for l in json.loads(last)))
+    if len(ptxas) > 1:
+        (a, pa), (b, pb) = list(ptxas.items())[:2]
+        moved = [k for k in pa if pa[k] != pb.get(k)]
+        print(f"-Xptxas -v, {a} -> {b}: {len(moved)} of {len(pa)} kernels "
+              f"differ; spills (stores + loads) "
+              f"{sum(map(spills, pa.values()))} -> "
+              f"{sum(map(spills, pb.values()))} B in all")
+        for k in moved:
+            print(f"  {k}: {pa[k]} -> {pb.get(k)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
