@@ -102,6 +102,12 @@ from repro_torch.core.fitness import FITNESS_IDS  # noqa: E402
 from repro_torch.core.serial import run_serial_fast  # noqa: E402
 from repro_torch.core.update_rules import RULE_IDS  # noqa: E402
 from repro_torch.kernels import _build, gla, ops, pso_step  # noqa: E402
+try:    # tools/kernel_trees.py drives older checkouts, without the split path
+    from repro_torch.core import constraints as cons
+    from repro_torch.kernels import pso_split
+except ImportError:
+    cons = pso_split = None
+
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and 67 TFLOP/s of
 # float32 outside the tensor cores, which counts an FMA as two operations.
@@ -216,6 +222,10 @@ COUNTERS = {
                                  "hetero_launches"),
     "gla_forward": (gla.gla_forward, "launches"),
 }
+if pso_split is not None:
+    COUNTERS.update(split_advance=(pso_split.advance, "launches"),
+                    split_fold=(pso_split.fold, "launches"),
+                    split_publish=(pso_split.publish, "launches"))
 
 
 #: The main paths' kernel calls, each registered where its phase runs it:
@@ -2217,6 +2227,470 @@ def async_cluster_sweep(card: str) -> None:
               f"C={cluster_of(n, d)}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the split path (kernels/pso_split.py), every Problem that is not
+# one of the six unconstrained built-ins: three kernels an iteration around
+# the user's torch operators.
+# ---------------------------------------------------------------------------
+
+SPLIT = ("split_advance", "split_fold", "split_publish")
+#: Each split kernel as torch.profiler names it.
+SPLIT_FAMILY = {"split_advance": "split_advance_kernel",
+                "split_fold": "split_fold_kernel",
+                "split_publish": "split_publish_kernel"}
+
+
+def plane_ball():
+    """Repair mode (the reference tests' ``_plane_ball``): maximize sum(x) in
+    [-2, 2]^D subject to ||x||^2 <= 2.25, whose box corner is infeasible."""
+    return repro_torch.Problem(
+        name="plane_ball", fn=lambda x: torch.sum(x, -1), lo=-2.0, hi=2.0,
+        constraints=cons.ConstraintSet(
+            constraints=(cons.Constraint(
+                fn=lambda x: torch.sum(x * x, -1) - 2.25, name="ball"),),
+            mode="repair", repair_tries=64))
+
+
+def custom_sphere():
+    """The built-in sphere's objective and box as a custom Problem: the
+    split path beside the built-in fused kernel on the same swarm."""
+    return repro_torch.Problem(name="my_sphere",
+                               fn=lambda x: -torch.sum(x * x, -1),
+                               lo=-100.0, hi=100.0)
+
+
+def ramped_penalty():
+    """sphere_simplex_pen with its weight doubled every 50 iterations."""
+    pen = repro_torch.get_problem("sphere_simplex_pen")
+    return cons.constrain_problem(pen, cons.ConstraintSet(
+        constraints=pen.constraints.constraints, mode="penalty", weight=50.0,
+        ramp=2.0, ramp_every=50), name="sphere_simplex_pen_ramp")
+
+
+def split_round(what, cfg, b, rows, table, variant, bn, errs) -> None:
+    """One split iteration of batch ``b`` (S >= 1, two eager iterations in)
+    on the card: each kernel against its plain version on the same card
+    tensors. The advance must equal bit for bit; the fold (given the same
+    fit/viol tensors, counters on) and the publish exactly."""
+    fids = None if rows is None else rows.fid
+    b = ms.run_many(cfg, b, 2, "queue", rows=rows, table=table)
+    s_cnt, n, d = b.pos.shape
+    nb = n // bn
+    state, specs = ops._batch_to_kernel(cfg, b, fids, table)
+    pos, vel, pbp, pbf, gp, gf = state
+    fused = variant == "fused"
+    attractor, gdiv = ((gp, n) if fused
+                   else (gp.repeat_interleave(nb, 1).contiguous(), bn))
+    akw = dict(n=n, it_off=0, gdiv=gdiv)
+    want = pso_split.split_advance_plain(pos, vel, pbp, attractor, b.seed,
+                                         b.iteration, specs, fids, **akw)
+    pso_split.advance(pos, vel, pbp, attractor, b.seed, b.iteration, specs,
+                      fids, **akw)
+    err = max_err((pos, vel), want)
+    check(torch.equal(pos, want[0]) and torch.equal(vel, want[1]),
+          f"{what}: advance kernel bit for bit its plain version ({err})")
+    fit, viol = pso_split.torch_step((cfg.problem,) if table is None
+                                     else table, fids, n, (s_cnt, n))(pos)
+    pbv = ops._pbv(cfg, fids, b.pbest_pos)
+    fkw = dict(n=n, block_n=bn, mode=variant, pbv=pbv, viol=viol)
+    if fused:
+        fkw.update(gf=gf, keys=torch.zeros(s_cnt, dtype=torch.int64,
+                                           device="cuda"))
+    else:
+        fkw.update(lp=attractor.clone(), lf=gf.repeat_interleave(nb))
+    cnt, plain_cnt = new_counts(s_cnt), new_counts(s_cnt)
+    want = pso_split.split_fold_plain(pos, pbp, pbf, fit, counts=plain_cnt,
+                                      **fkw)
+    pso_split.fold(pos, pbp, pbf, fit, counts=cnt, **fkw)
+    got = dict(fkw, pbp=pbp, pbf=pbf)
+    bad = [k for k, w in want.items() if not torch.equal(got[k], w)]
+    check(not bad and torch.equal(cnt, plain_cnt),
+          f"{what}: fold kernel equals its plain version ({bad}, counts "
+          f"{cnt.tolist()} / {plain_cnt.tolist()})")
+    fold_err = max(max_err([got[k]], [w]) for k, w in want.items()
+                   if got[k].dtype.is_floating_point)
+    pkw = dict(n=n, mode=variant)
+    if fused:
+        pkw["keys"] = fkw["keys"]
+    else:
+        pkw.update(lp=fkw["lp"], lf=fkw["lf"], act=torch.full(
+            (s_cnt,), pso_split.ACT_SYNC, dtype=torch.int32, device="cuda"))
+        pkw["act"][::2] = pso_split.ACT_FLUSH
+    want = pso_split.split_publish_plain(pos, fit, gp, gf, counts=plain_cnt,
+                                         **pkw)
+    pso_split.publish(pos, fit, gp, gf, counts=cnt, **pkw)
+    got = dict(gp=gp, gf=gf, **pkw)
+    bad = [k for k, w in want.items() if not torch.equal(got[k], w)]
+    check(not bad and torch.equal(cnt, plain_cnt),
+          f"{what}: publish kernel equals its plain version ({bad})")
+    pub_err = max(max_err([got[k]], [w]) for k, w in want.items()
+                  if got[k].dtype.is_floating_point)
+    for k, e in zip(SPLIT, (err, fold_err, pub_err)):
+        errs[k] = max(errs[k], e)
+    print(f"  {what} {variant}: advance, fold and publish equal their plain "
+          f"versions (max error {max(err, fold_err, pub_err)}; "
+          f"{int(cnt[2::3].sum())} block improvements, "
+          f"{int(cnt[0::3].sum())} queue updates)")
+
+
+def phase_split_compare(errs) -> None:
+    print("phase 6a: the split kernels against their plain versions on the "
+          "card")
+    cells = [("sphere_simplex d=8 n=1024", "sphere_simplex", 8, 1024, None),
+             ("sphere_simplex d=120 n=32768", "sphere_simplex", 120, 32768,
+              512),
+             ("plane_ball (repair) d=3 n=64, one block", plane_ball(), 3, 64,
+              64)]
+    for what, prob, d, n, bn in cells:
+        cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
+                            fitness=prob).resolved()
+        b = ms.init_batch(cfg, [0], device="cuda")
+        for variant in ("fused", "async"):
+            split_round(what, cfg, b, None, None, variant,
+                        ops._resolve_block(n, bn), errs)
+    # a heterogeneous batch holding a custom member beside built-ins and a
+    # penalty-mode member
+    table = (repro_torch.get_problem("cubic"), custom_sphere(),
+             repro_torch.get_problem("sphere_simplex_pen"),
+             repro_torch.get_problem("rastrigin"))
+    rows, table = ms.problem_rows([table[s % 4] for s in range(8)], 8,
+                                  table=table, device="cuda")
+    cfg = pso.PSOConfig(dim=8, particle_cnt=1024, w=0.7).resolved()
+    b = ms.init_batch(cfg, range(8), rows=rows, table=table, device="cuda")
+    for variant in ("fused", "async"):
+        split_round("mixed batch (cubic, custom, penalty, rastrigin) d=8 "
+                    "n=1024 S=8", cfg, b, rows, table, variant, 512, errs)
+    # the queue mode: one iteration of ops.queue_step, against the plain
+    # versions chained alike on the CPU copy
+    cfg = pso.PSOConfig(dim=8, particle_cnt=1024, w=0.7,
+                        fitness="sphere_simplex").resolved()
+    s = pso.run(cfg, pso.init_swarm(cfg, 0, device="cuda"), 2, "queue")
+    got = ops.queue_step(cfg, s, block_n=256)
+    want = pso.step_queue(cfg, s)
+    check(torch.equal(got.pos, want.pos) and torch.equal(
+        got.gbest_pos, want.gbest_pos), "split queue step == step_queue")
+    print("  sphere_simplex d=8 n=1024 queue mode: ops.queue_step equals "
+          "core.pso.step_queue bit for bit")
+
+
+#: Phase 6b's cells: (label, problem, d, n, iterations).
+SPLIT_CELLS = (
+    ("sphere_simplex", "sphere_simplex", 8, 1024, 200),
+    ("sphere_simplex_pen", "sphere_simplex_pen", 8, 1024, 200),
+    ("sphere_simplex_pen ramp 2.0/50", "ramp", 8, 1024, 200),
+    ("plane_ball (repair)", "plane_ball", 3, 1024, 200),
+    ("custom sphere", "custom", 8, 1024, 200),
+    ("sphere_simplex", "sphere_simplex", 120, 32768, 200),
+    ("custom sphere", "custom", 120, 32768, 200),
+)
+
+
+def split_problem(key):
+    return {"ramp": ramped_penalty, "plane_ball": plane_ball,
+            "custom": custom_sphere}.get(
+        key, lambda: repro_torch.get_problem(key))()
+
+
+def split_invariants(what, res, prob, iters) -> None:
+    """Feasibility, history and gbest invariants of a split-path Result."""
+    s = res.state
+    cs = prob.constraints
+    check(math.isfinite(res.best_fit), f"{what}: finite gbest")
+    if prob.projection_fn is not None:
+        check(float(s.pos.min()) >= 0.0 and float(
+            (s.pos.sum(-1) - 1).abs().max()) <= 1e-5 and res.feasible,
+            f"{what}: every position on the simplex")
+    if cs is not None and cs.mode == "repair":
+        v = prob.violation_fn(s.pbest_pos)
+        check(float(v.max()) <= 0.0, f"{what}: every pbest feasible")
+    if cs is None or cs.mode == "penalty":
+        check(float(s.gbest_fit) == float(s.pbest_fit.max()),
+              f"{what}: gbest == max pbest")
+    h = res.history
+    every = cs.ramp_every if cs is not None and cs.ramp_every else iters
+    seg = (h.iteration - 1) // every          # the ramp's weight segments
+    check(int(h.iteration[-1]) == iters and all(
+        bool(np.all(np.diff(h.gbest_fit[seg == k]) >= 0))
+        for k in np.unique(seg)), f"{what}: gbest monotone within each "
+          f"weight, the history ending at iteration {iters}")
+
+
+def phase_split_path(card: str):
+    """The split path's main path: ``repro_torch.solve`` on the kernel
+    backend (auto on the card) for each cell of SPLIT_CELLS and both kernel
+    variants, each run with every launch count set to 0 just before it and
+    read just after. Returns (launches, the split kernels' device us an
+    iteration at sphere_simplex d=120 n=32768 queue_lock)."""
+    print(f"phase 6b: main path, repro_torch.solve(backend='auto') on the "
+          f"split path [{card}]")
+    launches = dict.fromkeys(SPLIT, 0)
+    by_variant = {v: dict.fromkeys(SPLIT, 0) for v in ("queue_lock", "async")}
+    main_ms = dict.fromkeys(SPLIT, 0.0)
+    main_bound = dict.fromkeys(SPLIT, 0.0)
+    big = {}
+    for label, key, d, n, iters in SPLIT_CELLS:
+        prob = split_problem(key)
+        for variant in ("queue_lock", "async"):
+            what = f"{label} d={d} n={n} x{iters} {variant}"
+            kw = dict(dim=d, particles=n, seed=0, variant=variant, w=0.7)
+            repro_torch.solve(prob, iters=2, **kw)           # warm-up
+            zero_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = repro_torch.solve(prob, iters=iters, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v for k, v in read_counts().items() if v}
+            check(set(counts) == set(SPLIT) and all(
+                counts[k] >= iters for k in SPLIT),
+                f"{what}: the three split kernels, and no other "
+                f"({counts})")
+            for k in SPLIT:
+                launches[k] += counts[k]
+                by_variant[variant][k] += counts[k]
+            mem = torch.cuda.max_memory_allocated()
+            hist = repro_torch.solve(prob, iters=iters, record_history=True,
+                                     **kw)
+            check(hist.best_fit == res.best_fit, f"{what}: history on and "
+                  f"off agree")
+            split_invariants(what, hist, prob, iters)
+            dev = kernel_device_us(functools.partial(
+                repro_torch.solve, prob, iters=iters, **kw), reps=1)
+            per = {k: sum(v for kn, v in dev.items()
+                          if re.search(SPLIT_FAMILY[k], kn)) / iters
+                   for k in SPLIT}
+            other = (sum(dev.values()) / iters - sum(per.values())
+                     if dev else 0.0)
+            for k, (b_ms, _) in split_bounds(d, n, prob.deb).items():
+                main_ms[k] += per[k] * iters / 1e3
+                main_bound[k] += b_ms * counts[k]
+            if d == 120 and key == "sphere_simplex" and variant == \
+                    "queue_lock":
+                big = per
+            opt = ("" if key in ("custom", "plane_ball")
+                   else f" (optimum 1/D = {1 / d:.7g})")
+            dev_txt = (", ".join(f"{k[6:]} {v:.2f}" for k, v in per.items())
+                       + f", torch step and the rest {other:.2f}"
+                       if dev else "not measured")
+            print(f"  {what}: {dt / iters * 1e6:.2f} us/iter [device us/iter "
+                  f"{dev_txt}]; gbest {res.best_fit:.7g}{opt}, violation "
+                  f"{res.violation:.3g}, feasible {res.feasible}; peak "
+                  f"memory {mem / 2**20:.1f} MiB")
+    batch_launches = split_many_path(main_ms, main_bound)
+    for k in SPLIT:
+        launches[k] += batch_launches[k]
+    print(f"  launches on this main path: solve queue_lock (fused mode) "
+          f"{by_variant['queue_lock']}, solve async {by_variant['async']}, "
+          f"solve_many {batch_launches}")
+    print("  device ms summed over these launches (torch.profiler), beside "
+          "their bound (the fold's without its data-dependent pbest copies): "
+          + ", ".join(f"{k} {main_ms[k]:.3f} ({main_bound[k]:.3f})"
+                      for k in SPLIT))
+    split_beside_builtin(card)
+    return launches, big
+
+
+#: split_many_path's batch: (d, n, S, iterations).
+SPLIT_MANY = (8, 1024, 64, 100)
+
+
+def split_many_path(main_ms: dict, main_bound: dict) -> dict:
+    """``repro_torch.solve_many`` of sphere_simplex on the split path, both
+    kernel variants (the batched converted forms, rows 3c and 6c), each run
+    with the launch counts set to 0 just before it and read just after;
+    every row's positions on the simplex. Adds the kernels' device ms and
+    bounds into ``main_ms``/``main_bound``; returns the launches."""
+    d, n, s_cnt, iters = SPLIT_MANY
+    launches = dict.fromkeys(SPLIT, 0)
+    for variant in ("queue_lock", "async"):
+        what = f"solve_many sphere_simplex d={d} n={n} S={s_cnt} x{iters} " \
+               f"{variant}"
+        kw = dict(dim=d, particles=n, variant=variant, w=0.7)
+        repro_torch.solve_many("sphere_simplex", range(2), iters=2, **kw)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = repro_torch.solve_many("sphere_simplex", range(s_cnt),
+                                      iters=iters, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        check(set(counts) == set(SPLIT), f"{what}: the three split kernels, "
+              f"and no other ({counts})")
+        for k in SPLIT:
+            launches[k] += counts[k]
+        pos = torch.stack([r.state.pos for r in rows])
+        check(float(pos.min()) >= 0.0 and float(
+            (pos.sum(-1) - 1).abs().max()) <= 1e-5 and all(
+            r.feasible for r in rows), f"{what}: every row on the simplex")
+        dev = kernel_device_us(functools.partial(
+            repro_torch.solve_many, "sphere_simplex", range(s_cnt),
+            iters=iters, **kw), reps=1)
+        per = {k: sum(v for kn, v in dev.items()
+                      if re.search(SPLIT_FAMILY[k], kn)) for k in SPLIT}
+        for k, (b_ms, _) in split_bounds(d, s_cnt * n, True,
+                                         s_cnt=s_cnt).items():
+            main_ms[k] += per[k] / 1e3
+            main_bound[k] += b_ms * counts[k]
+        best = repro_torch.best(rows)
+        print(f"  {what}: {dt / iters * 1e6:.2f} us/iter of the batch "
+              f"[device us/iter " + ", ".join(
+                  f"{k[6:]} {per[k] / iters:.2f}" for k in SPLIT)
+              + f"]; best row gbest {best.best_fit:.7g} (optimum "
+              f"{1 / d:.7g}), launches {counts}")
+    return launches
+
+
+#: split_beside_builtin's swarms (d, n) and its solves' iterations.
+BESIDE_CELLS, BESIDE_ITERS = ((8, 1024), (120, 32768)), 200
+
+
+def split_beside_builtin(card: str) -> None:
+    """The custom sphere (split path) beside the built-in sphere (fused
+    kernel) on the same swarm: iteration 1's positions bit for bit, then
+    ten iterations one at a time from the built-in's state (positions bit
+    for bit, fitness within FIT_RTOL, a differing gbest only as a named
+    comparison flip), and both solves' us/iter."""
+    for d, n in BESIDE_CELLS:
+        cb = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
+                           fitness="sphere").resolved()
+        cc = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
+                           fitness=custom_sphere()).resolved()
+        s = pso.init_swarm(cb, 0, device="cuda")
+        flips = []
+        for t in range(10):
+            a = ops.run_queue_lock_fused(cb, s, 1)
+            c = ops.run_queue_lock_fused(cc, s, 1)
+            check(torch.equal(a.pos, c.pos) and torch.equal(a.vel, c.vel),
+                  f"custom vs built-in sphere d={d}: iteration {t + 1}'s "
+                  f"positions bit for bit")
+            tol = FIT_RTOL * max(1.0, abs(float(a.gbest_fit)))
+            check(abs(float(a.gbest_fit) - float(c.gbest_fit)) <= tol and
+                  torch.allclose(a.pbest_fit, c.pbest_fit, rtol=FIT_RTOL,
+                                 atol=tol),
+                  f"custom vs built-in sphere d={d}: fitness within "
+                  f"FIT_RTOL at iteration {t + 1}")
+            if not torch.equal(a.gbest_pos, c.gbest_pos):
+                flips.append(t + 1)
+            s = a
+        times = []
+        for prob in ("sphere", custom_sphere()):
+            kw = dict(dim=d, particles=n, iters=BESIDE_ITERS, seed=0,
+                      variant="queue_lock", w=0.7)
+            repro_torch.solve(prob, **dict(kw, iters=2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            repro_torch.solve(prob, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / BESIDE_ITERS * 1e6)
+        print(f"  custom sphere beside the built-in sphere d={d} n={n}: ten "
+              f"iterations step by step, positions bit for bit, fitness "
+              f"within {FIT_RTOL:g}, gbest comparison flips at "
+              f"{flips or 'none'}; solve x{BESIDE_ITERS} queue_lock: "
+              f"built-in fused kernel {times[0]:.2f} us/iter, split path "
+              f"{times[1]:.2f} us/iter "
+              f"[{card}]")
+
+
+def split_bounds(d: int, n: int, deb: bool, improved: int = 0,
+                 s_cnt: int = 1) -> dict:
+    """Each split kernel's bound (ms, by) for one launch on ``s_cnt``
+    swarms of ``n`` particles in all, in ``d`` dimensions (``roof``): the
+    advance reads pos, vel, pbp, the attractor column, the bounds rows and
+    the counters and writes pos and vel, against its integer and float
+    operations; the fold reads fit, pbf and gf (and viol, pbv under Deb's
+    rule) and writes pbf (pbv) and a pbest column (pos read, pbp written)
+    for each of ``improved`` particles, and the key; the publish reads the
+    key, the winner's column and fitness and writes gbest and clears the
+    key."""
+    per = 3 if deb else 2           # fit, pbf (viol, pbv) read a particle
+    return {
+        "split_advance": roof(4 * (5 * n * d + d + 4 * d + 2),
+                              n * d * INT_PER_ELEMENT,
+                              n * d * FP_DRAWS_RULE),
+        "split_fold": roof(4 * (per * n + s_cnt) + improved * (
+            (8 if deb else 4) + 8 * d) + 8 * s_cnt, 0, 4 * n),
+        "split_publish": roof(s_cnt * (8 + 8 * (d + 1) + 8), 0, 0)}
+
+
+def split_times(card: str, times: dict, bounds: dict) -> None:
+    """Each split kernel and its plain version on one call at the main
+    path's largest cell (sphere_simplex d=120 n=32768, block 512, fused
+    mode, two eager iterations in), each call on a fresh copy of the
+    operands: the kernel alone under torch.profiler (the mean of 5 calls;
+    the JSON's ms), the call in CUDA events (the median of 5; host-paced,
+    the wrapper's host work inside), the plain version in CUDA events;
+    beside them the card's bound for that call (``split_bounds``), counted
+    from this call's data."""
+    print(f"phase 6c: the split kernels and their plain versions on one "
+          f"call, sphere_simplex d=120 n=32768 [{card}]")
+    d, n, bn = 120, 32768, 512
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
+                        fitness="sphere_simplex").resolved()
+    s = pso.run(cfg, pso.init_swarm(cfg, 0, device="cuda"), 2, "queue")
+    state = list(ops.state_to_kernel(s))
+    state[4] = state[4][:, None].contiguous()
+    pos, vel, pbp, pbf, gp, gf = state
+    spec, (seed, it) = ops.kernel_spec(cfg), ops._seed_rows(s)
+    akw = dict(n=n, it_off=0, gdiv=n)
+    events = {}
+
+    def med(fn, args):
+        return sorted(device_us(fn, args) for _ in range(5))[2] / 1e6
+
+    def alone(key, fn, args):
+        """(kernel alone s, call in events s)."""
+        us = kernel_device_us(lambda: fn([x.clone() for x in args]), reps=5)
+        us = sum(v for kn, v in us.items() if re.search(SPLIT_FAMILY[key],
+                                                         kn))
+        return (us / 1e6 if us else None), med(fn, args)
+
+    times["split_advance"], events["split_advance"] = alone(
+        "split_advance", lambda st: pso_split.advance(
+            *st, gp, seed, it, (spec,), **akw), (pos, vel, pbp))
+    times["split_advance_plain"] = med(lambda st: pso_split.
+                                       split_advance_plain(
+                                           *st, gp, seed, it, (spec,),
+                                           **akw), (pos, vel, pbp))
+    pso_split.advance(pos, vel, pbp, gp, seed, it, (spec,), **akw)
+    fit, viol = pso_split.torch_step((cfg.problem,), None, n, (n,))(pos)
+    pbv = ops._pbv(cfg, None, s.pbest_pos)
+    keys = torch.zeros(1, dtype=torch.int64, device="cuda")
+    fkw = dict(n=n, block_n=bn, mode="fused", gf=gf, viol=viol)
+
+    def fold(st):
+        pso_split.fold(pos, st[0], st[1], fit, pbv=st[2], keys=st[3], **fkw)
+
+    def fold_plain(st):
+        pso_split.split_fold_plain(pos, st[0], st[1], fit, pbv=st[2],
+                                   keys=st[3], **fkw)
+    fstate = (pbp, pbf, pbv, keys)
+    times["split_fold"], events["split_fold"] = alone("split_fold", fold,
+                                                      fstate)
+    times["split_fold_plain"] = med(fold_plain, fstate)
+    improved = int(cons.deb_improved(fit, viol, pbf, pbv).sum())
+    bounds.update(split_bounds(d, n, True, improved))
+    pso_split.fold(pos, pbp, pbf, fit, pbv=pbv, keys=keys, **fkw)
+    pkw = dict(n=n, mode="fused")
+    pstate = (gp, gf, keys)
+    times["split_publish"], events["split_publish"] = alone(
+        "split_publish", lambda st: pso_split.publish(
+            pos, fit, st[0], st[1], keys=st[2], **pkw), pstate)
+    times["split_publish_plain"] = med(lambda st: pso_split.
+                                       split_publish_plain(
+                                           pos, fit, st[0], st[1],
+                                           keys=st[2], **pkw), pstate)
+    for k in SPLIT:
+        check(times[k] is not None, f"{k}: the profiler saw the kernel")
+        print(f"  {k}: the kernel alone {times[k] * 1e6:.2f} us, the call "
+              f"{events[k] * 1e6:.2f} us (plain "
+              f"{times[k + '_plain'] * 1e6:.2f} us), bound "
+              f"{bounds[k][0] * 1e3:.3f} us by {bounds[k][1]}"
+              + (f"; {improved} pbest columns written" if k == "split_fold"
+                 else ""))
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -2227,11 +2701,23 @@ REPLACES = {
     "fused_async_batch": "src/repro/kernels/pso_step.py:1419",
     "hetero_fused_async_batch": "src/repro/kernels/pso_step.py:1500",
     "gla_forward": "src/repro/kernels/gla.py:78",
+    # the split kernels: the converted forms of rows 1-7 (SPLIT_REPLACES),
+    # named by fused_call, the main path's
+    "split_advance": "src/repro/kernels/pso_step.py:874",
+    "split_fold": "src/repro/kernels/pso_step.py:874",
+    "split_publish": "src/repro/kernels/pso_step.py:874",
 }
+#: The pallas_call functions whose converted forms (a custom objective, the
+#: projection, the Deb fold, resolved by lower_statics) the split kernels
+#: replace.
+SPLIT_REPLACES = ["src/repro/kernels/pso_step.py:" + str(line)
+                  for line in (822, 874, 938, 1036, 1349, 1419, 1500)]
 
 #: Each kernel's CUDA source.
 SOURCES = {name: "src/repro_torch/kernels/csrc/pso_step.cu" for name in REPLACES}
 SOURCES["gla_forward"] = "src/repro_torch/kernels/csrc/gla.cu"
+for _name in ("split_advance", "split_fold", "split_publish"):
+    SOURCES[_name] = "src/repro_torch/kernels/csrc/pso_split.cu"
 
 
 def main() -> int:
@@ -2263,6 +2749,10 @@ def main() -> int:
     times, bounds = phase_times(card)
     phase_cluster_sweep(card)
     phase_main_path_kernels(card)
+    phase_split_compare(errs)
+    split_launches, split_us = phase_split_path(card)
+    launches.update(split_launches)
+    split_times(card, times, bounds)
     kernels = []
     for name, replaces in REPLACES.items():
         b_ms, b_by = bounds[name]
@@ -2278,6 +2768,10 @@ def main() -> int:
             "us_per_iter": None, "us_per_iter_counters": None,
         })
         k = kernels[-1]
+        if name in split_us:
+            # device us an iteration on the main path's largest cell
+            k["us_per_iter"] = split_us[name]
+            k["replaces_converted_forms_of"] = SPLIT_REPLACES
         if name in COUNTER_CHECKS:
             per = 1e6 / times["iters"][name]
             k["us_per_iter"] = times[name] * per

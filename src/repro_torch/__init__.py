@@ -12,6 +12,9 @@ works on CPU-only torch):
     repro_torch.Problem / repro_torch.register_problem
     repro_torch.get_problem / repro_torch.list_problems
     repro_torch.resolve_problem / repro_torch.PSOConfig
+    repro_torch.Constraint / repro_torch.ConstraintSet   # constraints
+    repro_torch.project_simplex / repro_torch.simplex_constraints
+    repro_torch.constrain_problem
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back. The
@@ -35,6 +38,11 @@ _EXPORTS = {
     "list_problems": "repro_torch.core.problem",
     "resolve_problem": "repro_torch.core.problem",
     "PSOConfig": "repro_torch.core.pso",
+    "Constraint": "repro_torch.core.constraints",
+    "ConstraintSet": "repro_torch.core.constraints",
+    "project_simplex": "repro_torch.core.constraints",
+    "simplex_constraints": "repro_torch.core.constraints",
+    "constrain_problem": "repro_torch.core.constraints",
 }
 
 __all__ = sorted(_EXPORTS)

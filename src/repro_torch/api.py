@@ -17,11 +17,20 @@
   (the hand-written CUDA kernels; only ``queue_lock``/``async`` exist as
   kernels, and they carry the rules ``pso``, ``sso`` and ``lowcost``), or
   ``auto`` — the kernel for those two variants and rules on a CUDA
-  device (on any device with ``telemetry=True``), eager otherwise.
+  device (on any device with ``telemetry=True``), eager otherwise. The
+  kernel backend takes every Problem: the six unconstrained built-ins on
+  their own kernels, any other (custom objectives, ``kernel_fn``, every
+  constraint mode) on the split path (``kernels/pso_split.py``).
 * ``record_history``: ``Result.history``, gbest at every sync point;
   ``telemetry``: ``Result.telemetry``, the kernels' contention counters
   (``repro_torch.telemetry``; on the CPU the kernel backend's plain
   versions count).
+
+Constrained problems (``core/constraints.py``): ``Result.violation``,
+``feasible`` and ``first_feasible_iter`` report feasibility, ``best``
+ranks by Deb's rule, and a penalty set with ``ramp``/``ramp_every`` runs
+as segments of one weight each, the carried fitness re-weighted at every
+boundary (``_ramp_loop``), on either backend.
 
 ``device=None`` means the card; without one, ``solve`` raises instead of
 falling back to the CPU. Results are reported in the problem's own sense.
@@ -143,7 +152,8 @@ class Method:
             # the contention counters only exist in the kernels (and, on
             # the CPU, in their plain versions)
             return "kernel"
-        # A rule the CUDA kernels lack runs on the eager engine.
+        # A rule the CUDA kernels lack runs on the eager engine; every
+        # Problem has a kernel path (the built-ins' or the split path).
         if self.variant in _KERNEL_VARIANTS and device.type == "cuda" \
                 and kernel_carries(self.rule):
             return "kernel"
@@ -155,8 +165,7 @@ class History:
     """Convergence history: the gbest trajectory sampled at sync points
     (every iteration for the synchronous variants, every publication
     boundary for ``async``). ``violation`` is the recorded gbest's
-    aggregate constraint violation — None for unconstrained problems, and
-    every ported problem is unconstrained."""
+    aggregate constraint violation, None for unconstrained problems."""
 
     iteration: np.ndarray              # [K] absolute iteration numbers
     gbest_fit: np.ndarray              # [K] canonical (maximized) fitness
@@ -197,11 +206,28 @@ class Result:
         return float(self.state.gbest_fit)
 
     @property
+    def violation(self) -> float:
+        """Aggregate constraint violation at ``best_pos`` (0.0 when
+        unconstrained or exactly feasible)."""
+        return self.problem.violation_at(self.state.gbest_pos)
+
+    @property
+    def feasible(self) -> bool:
+        """True iff ``best_pos`` satisfies every constraint (always for
+        unconstrained problems)."""
+        return self.violation <= 0.0
+
+    @property
     def first_feasible_iter(self) -> Optional[int]:
-        """The first recorded iteration whose gbest was feasible: 0 for
-        every ported problem, since none is constrained (the reference's
-        answer for unconstrained problems)."""
-        return 0
+        """The first recorded iteration whose gbest was feasible, or None
+        (never feasible, or no history recorded); 0 for unconstrained
+        problems, feasible from the start."""
+        if not self.problem.constrained:
+            return 0
+        if self.history is None or self.history.violation is None:
+            return None
+        feas = np.flatnonzero(self.history.violation <= 0.0)
+        return int(self.history.iteration[feas[0]]) if feas.size else None
 
 
 def _make_method(method: Optional[Method], **loose) -> Method:
@@ -254,21 +280,97 @@ def solve(problem: Union[str, Problem], *,
     cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
                        max_pos, max_v, m)
     state = init_swarm(cfg, seed, device=dev)
-    state, hist, tel = _run_segmented(cfg, state, iters, m)
+    state, hist, tel = _run_segmented(prob, cfg, state, iters, m)
     return Result(problem=prob, config=cfg, method=m, iters=iters,
                   state=state, history=hist, telemetry=tel)
 
 
-def _run_segmented(cfg: PSOConfig, state: SwarmState, iters: int,
-                   m: Method):
-    """The seam where the reference's penalty ramp splits a run into
-    static-weight segments; without constraints there is one segment.
+def _ramp_segments(iters: int, cset):
+    """(iterations, penalty weight) of each segment of the penalty ramp:
+    segment k of ``ramp_every`` iterations runs at ``weight * ramp**k``;
+    one ``(iters, None)`` segment (the problem as it is) without a ramp."""
+    if (cset is None or cset.mode != "penalty" or cset.ramp_every <= 0
+            or cset.ramp == 1.0):
+        return [(iters, None)]
+    segs, done, k = [], 0, 0
+    while done < iters:
+        n = min(cset.ramp_every, iters - done)
+        segs.append((n, cset.weight * (cset.ramp ** k)))
+        done += n
+        k += 1
+    return segs
+
+
+def _reweight_state(cfg: PSOConfig, state: SwarmState) -> SwarmState:
+    """The carried fitness re-evaluated at a new penalty weight (a ramp
+    boundary): current, pbest and block-local fitness from their
+    positions, gbest re-selected from the re-weighted pbests, so gbest ==
+    max(pbest) holds at every weight. A batch re-selects per row."""
+    fn = cfg.fitness_fn
+    fit = fn(state.pos)
+    pbf = fn(state.pbest_pos)
+    b = torch.argmax(pbf, -1, keepdim=True)
+    gp = state.pbest_pos.gather(
+        -2, b[..., None].expand(*b.shape, state.pbest_pos.shape[-1]))
+    state = state._replace(fit=fit, pbest_fit=pbf,
+                           gbest_pos=gp[..., 0, :],
+                           gbest_fit=pbf.gather(-1, b)[..., 0])
+    if state.lbest_fit is not None:
+        state = state._replace(lbest_fit=fn(state.lbest_pos))
+    return state
+
+
+def _ramp_loop(prob: Problem, cfg: PSOConfig, state, iters: int, run_seg):
+    """The penalty-ramp scheduler: each segment a static-weight run on any
+    backend, the carried fitness of ``state`` (a swarm or a batch)
+    re-weighted at the boundaries (``_reweight_state``). ``run_seg(cfg,
+    state, k) -> (state, history or None)``. Returns (state, [history,
+    ...])."""
+    hists = []
+    for j, (seg_iters, weight) in enumerate(
+            _ramp_segments(iters, prob.constraints)):
+        cfg_k = cfg
+        if weight is not None:
+            cfg_k = dataclasses.replace(
+                cfg, fitness=prob.with_penalty_weight(weight))
+            if j:
+                state = _reweight_state(cfg_k, state)
+        state, h = run_seg(cfg_k, state, seg_iters)
+        if h is not None:
+            hists.append(h)
+    return state, hists
+
+
+def _sum_counters(cnts):
+    """Per-segment counter records folded into one (None when empty)."""
+    total = None
+    for c in cnts:
+        total = c if total is None else total + c
+    return total
+
+
+def _run_segmented(prob: Problem, cfg: PSOConfig, state: SwarmState,
+                   iters: int, m: Method):
+    """``_run_state`` over the ramp's segments (one without a ramp).
     Returns (state, History or None, KernelCounters or None)."""
-    state, h, tel = _run_state(cfg, state, iters, m)
-    if h is None:
+    cnts = []
+
+    def seg(c, s, k):
+        s, h, cnt = _run_state(c, s, k, m)
+        if cnt is not None:
+            cnts.append(cnt)
+        return s, h
+
+    state, hists = _ramp_loop(prob, cfg, state, iters, seg)
+    tel = _sum_counters(cnts)
+    if not hists:
         return state, None, tel
-    return state, History(iteration=np.asarray(h[0], dtype=np.int64),
-                          gbest_fit=h[1], violation=None), tel
+    return state, History(
+        iteration=np.concatenate([np.asarray(h[0], dtype=np.int64)
+                                  for h in hists]),
+        gbest_fit=np.concatenate([h[1] for h in hists]),
+        violation=(None if hists[0][2] is None
+                   else np.concatenate([h[2] for h in hists]))), tel
 
 
 def _eager_async_blocks(m: Method, n: int) -> Optional[int]:
@@ -279,17 +381,29 @@ def _eager_async_blocks(m: Method, n: int) -> Optional[int]:
     return max(1, n // m.block_n)
 
 
+def _kernel_history(cfg: PSOConfig, its, fits, gps):
+    """A kernel segment's ``(iterations, gbest_fit, violations or None)``
+    on the host (None without a history): the violations of the sampled
+    gbest positions ``gps`` where they were sampled."""
+    if its is None:
+        return None
+    vf = cfg.problem.violation_fn
+    return its, _host(fits), None if gps is None else _host(vf(gps))
+
+
 def _run_state(cfg: PSOConfig, state: SwarmState, iters: int, m: Method):
     """One static-weight segment on the resolved backend -> (state,
-    (iterations, gbest_fit) or None, KernelCounters or None)."""
+    (iterations, gbest_fit, violations or None) or None, KernelCounters or
+    None)."""
     if m.resolve_backend(state.pos.device) == "kernel":
         return _run_state_kernel(cfg, state, iters, m)
     blocks = _eager_async_blocks(m, state.pos.shape[0])
     if m.record_history:
-        state, (its, fits, _) = run_with_history(
+        state, (its, fits, viols) = run_with_history(
             cfg, state, iters, m.variant, sync_every=m.sync_every,
             n_blocks=blocks)
-        return state, (its, _host(fits)), None
+        return state, (its, _host(fits),
+                       None if viols is None else _host(viols)), None
     return run(cfg, state, iters, m.variant, sync_every=m.sync_every,
                n_blocks=blocks), None, None
 
@@ -306,10 +420,13 @@ def _run_state_kernel(cfg: PSOConfig, state: SwarmState, iters: int,
     interleaving, as in the reference. Counters add up over the
     launches."""
     from .kernels import ops
-    state, (its, fits), cnt = ops.run_queue_lock(
+    positions = cfg.problem.constrained
+    state, hist, cnt = ops.run_queue_lock(
         cfg, state, iters, m.variant, sync_every=m.sync_every,
-        block_n=m.block_n, telemetry=m.telemetry, history=m.record_history)
-    return state, None if its is None else (its, _host(fits)), (
+        block_n=m.block_n, telemetry=m.telemetry, history=m.record_history,
+        positions=positions)
+    hist = _kernel_history(cfg, *(hist if positions else (*hist, None)))
+    return state, hist, (
         None if cnt is None else KernelCounters.from_array(cnt))
 
 
@@ -340,7 +457,9 @@ def solve_many(problem: Union[str, Problem, None] = None,
     of ``problem``) makes the batch heterogeneous: row ``s`` solves
     ``problems[s]``, a registered built-in, with its own objective and box
     bounds, so the ``min_pos``/``max_pos``/``max_v`` overrides are
-    rejected."""
+    rejected. A penalty ramp applies to homogeneous batches (a
+    heterogeneous batch's members keep their weights, as in the
+    reference)."""
     dev = _device.resolve(device)
     m = _make_method(method, variant=variant, backend=backend,
                      sync_every=sync_every, block_n=block_n,
@@ -358,30 +477,44 @@ def solve_many(problem: Union[str, Problem, None] = None,
     prob = resolve_problem(problem)
     cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
                        max_pos, max_v, m)
-    batch, hist, cnt = _run_batch(cfg, init_batch(cfg, seeds, device=dev),
-                                  iters, m, coeffs)
+    cnts = []
+
+    def seg(c, b, k):
+        b, h, cnt = _run_batch(c, b, k, m, coeffs)
+        if cnt is not None:
+            cnts.append(cnt)
+        return b, h
+
+    batch, hists = _ramp_loop(prob, cfg, init_batch(cfg, seeds, device=dev),
+                              iters, seg)
     return [Result(problem=prob, config=cfg, method=m, iters=iters,
                    state=row, history=h, telemetry=t)
             for row, h, t in zip(batch_rows(batch),
-                                 _row_histories(hist, batch.swarm_cnt),
-                                 _row_counters(cnt, batch.swarm_cnt))]
+                                 _row_histories(hists, batch.swarm_cnt),
+                                 _row_counters(cnts, batch.swarm_cnt))]
 
 
-def _row_histories(hist, s_cnt: int) -> List[Optional[History]]:
-    """Per-row History objects from a batch's ``(iterations, [K, S]
-    gbest_fit)`` record (all None when no history was recorded)."""
-    if hist is None:
+def _row_histories(hists, s_cnt: int) -> List[Optional[History]]:
+    """Per-row History objects from per-segment ``(iterations, [K, S]
+    gbest_fit, [K, S] violations or None)`` records (all None when no
+    history was recorded)."""
+    if not hists:
         return [None] * s_cnt
-    its = np.asarray(hist[0], dtype=np.int64)
-    return [History(iteration=its, gbest_fit=hist[1][:, s], violation=None)
+    its = np.concatenate([np.asarray(h[0], dtype=np.int64) for h in hists])
+    fits = np.concatenate([h[1] for h in hists])
+    viols = (None if hists[0][2] is None
+             else np.concatenate([h[2] for h in hists]))
+    return [History(iteration=its, gbest_fit=fits[:, s],
+                    violation=None if viols is None else viols[:, s])
             for s in range(s_cnt)]
 
 
-def _row_counters(cnt, s_cnt: int) -> List[Optional[KernelCounters]]:
-    """Per-row KernelCounters from a batch's ``[S, 3]`` counts."""
-    if cnt is None:
+def _row_counters(cnts, s_cnt: int) -> List[Optional[KernelCounters]]:
+    """Per-row KernelCounters from per-segment ``[S, 3]`` counts."""
+    total = _sum_counters([_host(c) for c in cnts])
+    if total is None:
         return [None] * s_cnt
-    return KernelCounters.rows(cnt)
+    return KernelCounters.rows(total)
 
 
 def _solve_many_hetero(problems, seeds, m: Method, dim, particles, iters,
@@ -409,15 +542,17 @@ def _solve_many_hetero(problems, seeds, m: Method, dim, particles, iters,
     configs = {p: hetero_member_config(cfg, p) for p in set(probs)}
     return [Result(problem=p, config=configs[p], method=m, iters=iters,
                    state=row, history=h, telemetry=t)
-            for p, row, h, t in zip(probs, batch_rows(batch),
-                                    _row_histories(hist, len(probs)),
-                                    _row_counters(cnt, len(probs)))]
+            for p, row, h, t in zip(
+                probs, batch_rows(batch),
+                _row_histories([] if hist is None else [hist], len(probs)),
+                _row_counters([] if cnt is None else [cnt], len(probs)))]
 
 
 def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int, m: Method,
                coeffs, rows: Optional[ProblemRows] = None, table=None):
     """A batched segment on the resolved backend -> (batch, (iterations,
-    [K, S] gbest_fit) or None, [S, 3] counts or None)."""
+    [K, S] gbest_fit, [K, S] violations or None) or None, [S, 3] counts or
+    None)."""
     if m.resolve_backend(batch.pos.device) == "kernel":
         if coeffs is not None:
             raise ValueError("per-swarm coeffs are an eager-engine feature; "
@@ -425,10 +560,11 @@ def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int, m: Method,
         return _run_batch_kernel(cfg, batch, iters, m, rows, table)
     blocks = _eager_async_blocks(m, batch.pos.shape[1])
     if m.record_history:
-        batch, (its, fits, _) = run_many_with_history(
+        batch, (its, fits, viols) = run_many_with_history(
             cfg, batch, iters, m.variant, coeffs, sync_every=m.sync_every,
             rows=rows, table=table, n_blocks=blocks)
-        return batch, (its, _host(fits)), None
+        return batch, (its, _host(fits),
+                       None if viols is None else _host(viols)), None
     return run_many(cfg, batch, iters, m.variant, coeffs,
                     sync_every=m.sync_every, rows=rows, table=table,
                     n_blocks=blocks), None, None
@@ -441,11 +577,14 @@ def _run_batch_kernel(cfg: PSOConfig, batch: SwarmBatch, iters: int,
     counters and the history of ``_run_state_kernel`` (one ``[S]`` sample
     a sync point). ``rows``/``table`` make the batch heterogeneous."""
     from .kernels import ops
-    batch, (its, fits), cnt = ops.run_queue_lock(
+    positions = rows is None and cfg.problem.constrained
+    batch, hist, cnt = ops.run_queue_lock(
         cfg, batch, iters, m.variant, sync_every=m.sync_every,
         block_n=m.block_n, telemetry=m.telemetry, history=m.record_history,
-        fids=None if rows is None else rows.fid, table=table)
-    return batch, None if its is None else (its, _host(fits)), cnt
+        fids=None if rows is None else rows.fid, table=table,
+        positions=positions)
+    hist = _kernel_history(cfg, *(hist if positions else (*hist, None)))
+    return batch, hist, cnt
 
 
 def solve_stream(*args, **kwargs):
@@ -454,10 +593,14 @@ def solve_stream(*args, **kwargs):
 
 
 def best(results: Sequence[Result]) -> Result:
-    """The best Result of a batch: the highest canonical fitness (every
-    ported problem is unconstrained, so the reference's Deb rule reduces to
-    this)."""
+    """The best Result of a batch by Deb's rule: a feasible result beats
+    any infeasible one, feasible results compare on canonical fitness,
+    infeasible ones on violation (smaller wins). Unconstrained results are
+    all feasible, so for them this is the highest fitness."""
     results = list(results)
     if not results:
         raise ValueError("best() of no results")
-    return max(results, key=lambda r: r.gbest_fit)
+    feas = [r for r in results if r.feasible]
+    if feas:
+        return max(feas, key=lambda r: r.gbest_fit)
+    return min(results, key=lambda r: r.violation)

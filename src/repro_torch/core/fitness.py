@@ -3,7 +3,8 @@
 Each maps ``pos[..., D] -> fit[...]`` with the same operations in the same
 order as ``repro.core.fitness``; classical minimization benchmarks are
 negated. The CUDA kernels carry per-thread forms of the same arithmetic
-(``kernels/csrc/pso_step.cu``), selected by ``FITNESS_IDS``.
+(``kernels/csrc/pso_step.cu``), selected by ``FITNESS_IDS``; ``is_builtin``
+says which Problems they take.
 """
 from __future__ import annotations
 
@@ -80,13 +81,11 @@ FITNESS_FNS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 FITNESS_IDS: Dict[str, int] = {name: i for i, name in enumerate(FITNESS_FNS)}
 
 
-def builtin_id(problem: Problem) -> int:
-    """The kernel id of a built-in Problem; other objectives raise, since
-    the kernels carry only the six hand-written forms."""
-    name = problem.name
-    if name in FITNESS_IDS and problem == BUILTIN_PROBLEMS[FITNESS_IDS[name]]:
-        return FITNESS_IDS[name]
-    from .problem import _CUSTOM_ITEM
-    raise NotImplementedError(
-        f"custom objective {name!r} on the kernel backend is not ported yet "
-        f"({_CUSTOM_ITEM}); use backend='eager'")
+def is_builtin(problem: Problem) -> bool:
+    """Whether ``problem`` takes the built-in kernels: one of the six
+    registered objectives, unchanged (``Problem`` equality, so a lookalike
+    with another ``fn`` does not). Every other Problem, constrained or
+    custom, takes the kernel backend's split path
+    (``repro_torch.kernels.pso_split``)."""
+    i = FITNESS_IDS.get(problem.name)
+    return i is not None and problem == BUILTIN_PROBLEMS[i]

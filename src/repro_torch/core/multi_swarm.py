@@ -12,8 +12,11 @@ never a semantic one.
 
 Per-swarm hyper-parameters: ``coeffs=(w, c1, c2)``, each ``[S]``.
 Heterogeneous batches: ``rows``/``table`` from ``problem_rows`` give row
-``s`` its own built-in problem; each table member's objective runs once, on
-the rows that select it.
+``s`` its own problem from the table (the six built-ins by default; a table
+may hold custom and penalty-mode members too); each table member's
+objective runs once, on the rows that select it. A homogeneous batch of a
+constrained problem takes the engine's constrained init and Deb fold on
+every row, as the standalone swarm does.
 
 The reference pads batches smaller than ``MIN_VALIDATED_SWARMS`` with dead
 rows to dodge an XLA:CPU per-shape FMA-contraction quirk. Eager PyTorch
@@ -42,15 +45,16 @@ class ProblemRows(NamedTuple):
     static table of ``Problem``s: ``fid[s]`` indexes the table, and the
     bound rows repeat the arithmetic ``PSOConfig.resolved()`` gives row
     ``s``'s problem (``0.5 * (hi - lo)`` in Python floats, then one cast).
-    ``sense``/``cmode``/``pweight`` are the reference's descriptor metadata;
-    with no constraints ported, ``cmode`` and ``pweight`` are 0."""
+    ``sense``/``cmode``/``pweight`` are the reference's descriptor metadata:
+    ``cmode`` 1 and ``pweight`` the weight for a penalty-mode member (the
+    penalty rides its ``max_fn``), else 0."""
 
     fid: Tensor      # [S] int32
     lo: Tensor       # [S, D]
     hi: Tensor       # [S, D]
     mv: Tensor       # [S, D]
     sense: Tensor    # [S] int32: +1 max / -1 min
-    cmode: Tensor    # [S] int32: 0 unconstrained
+    cmode: Tensor    # [S] int32: 0 unconstrained / 1 penalty
     pweight: Tensor  # [S]
 
     @property
@@ -84,13 +88,21 @@ def problem_rows(problems: Sequence, dim: int, dtype: str = "float32",
                  ) -> Tuple[ProblemRows, Tuple[Problem, ...]]:
     """The per-row descriptors of a heterogeneous batch on ``device``
     (``None``: the card). ``problems`` are names or ``Problem``s, each of
-    which must be in ``table`` (default: the six built-ins). Returns
-    ``(rows, table)``."""
+    which must be in ``table`` (default: the six built-ins). Table members
+    must be unconstrained or penalty-mode: projection and repair would need
+    per-row init and advance hooks. Returns ``(rows, table)``."""
     from .fitness import BUILTIN_PROBLEMS
     dev = _device.resolve(device)
     table = BUILTIN_PROBLEMS if table is None else tuple(table)
+    for p in table:
+        if p.projection_fn is not None or (
+                p.constrained and p.constraints.mode == "repair"):
+            raise ValueError(
+                f"problem {p.name!r}: projection/repair constraint modes "
+                "cannot join a heterogeneous dispatch table (per-row "
+                "init/advance hooks); solve it in its own batch")
     dt = np.dtype(dtype)
-    fid, lo, hi, mv, sense = [], [], [], [], []
+    fid, lo, hi, mv, sense, cmode, pw = [], [], [], [], [], [], []
     for f in problems:
         prob = resolve_problem(f)
         try:
@@ -105,15 +117,16 @@ def problem_rows(problems: Sequence, dim: int, dtype: str = "float32",
         hi.append(_row_bound(r.max_pos, dim, dt))
         mv.append(_row_bound(r.max_v, dim, dt))
         sense.append(1 if prob.sense == "max" else -1)
-    s_cnt = len(fid)
+        penalized = prob.constrained and prob.constraints.mode == "penalty"
+        cmode.append(1 if penalized else 0)
+        pw.append(prob.constraints.weight if penalized else 0.0)
 
     def put(x, dtype=None):
         return torch.as_tensor(np.asarray(x, dtype), device=dev)
     return ProblemRows(
         fid=put(fid, np.int32), lo=put(np.stack(lo)), hi=put(np.stack(hi)),
         mv=put(np.stack(mv)), sense=put(sense, np.int32),
-        cmode=put(np.zeros(s_cnt), np.int32),
-        pweight=put(np.zeros(s_cnt), dt)), table
+        cmode=put(cmode, np.int32), pweight=put(pw, dt)), table
 
 
 def _hetero(rows: Optional[ProblemRows], table):
@@ -273,7 +286,8 @@ def run_many_with_history(cfg: PSOConfig, batch: SwarmBatch, iters: int,
     ``gbest_fits`` ``[K, S]``, one sample per sync point per row as
     ``pso.run_with_history`` takes them (every iteration for the
     synchronous variants, every ``sync_every`` boundary for ``async``);
-    ``violations`` is None (no constraints are ported). Row ``s`` equals
+    ``violations`` is the recorded gbests' violation ``[K, S]`` for a
+    constrained homogeneous batch, else None. Row ``s`` equals
     ``pso.run_with_history`` on ``batch_row(batch, s)``. Assumes the
     lockstep batches the facades build (all rows at one iteration count)."""
     if variant not in VARIANTS:

@@ -4,7 +4,17 @@
 MAXIMIZES: ``sense="min"`` canonicalizes through ``max_fn`` (negation) and
 results convert back with ``user_value``. ``lo``/``hi`` are a scalar or a
 length-D tuple (per-dimension boxes), normalized so the Problem stays
-hashable. Constraints and hand-written kernel forms are not ported yet.
+hashable.
+
+``constraints`` attaches a ``repro_torch.core.constraints.ConstraintSet``
+(penalty, projection or repair handling; see that module for the Deb rule).
+``kernel_fn`` is an optional D-major torch form of the objective,
+``kernel_fn(pos [D, N]) -> fit [N]`` in the canonical (max) sense, applied
+column by column: the kernel backend's split path
+(``repro_torch.kernels.pso_split``) calls it on its D-major positions in
+place of ``max_fn(pos.T)``, saving the transpose; the eager engine ignores
+it, as the reference's jnp engine does. ``kernel_fn`` and ``constraints``
+are mutually exclusive.
 """
 from __future__ import annotations
 
@@ -12,10 +22,6 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple, Union
 
 Bound = Union[float, Tuple[float, ...]]
-
-#: ROADMAP item that ports constraint sets and custom kernel objectives.
-_CUSTOM_ITEM = ("ROADMAP.md, port order item 3 (constraints and custom "
-                "objectives)")
 
 
 def _norm_bound(v) -> Bound:
@@ -43,9 +49,7 @@ class Problem:
     """A named objective with bounds and sense — frozen and hashable.
 
     ``lo``/``hi`` may be scalars or length-D tuples; a ``bounds=(lo, hi)``
-    pair may be passed instead of the two fields. ``constraints=`` and
-    ``kernel_fn=`` raise ``NotImplementedError`` until the port carries
-    them.
+    pair may be passed instead of the two fields.
     """
 
     name: str
@@ -54,16 +58,10 @@ class Problem:
     hi: Bound = 100.0
     sense: str = "max"
     kernel_fn: Optional[Callable] = None
-    constraints: Optional[object] = None
+    constraints: Optional[object] = None   # constraints.ConstraintSet
     bounds: dataclasses.InitVar[Optional[Tuple[Bound, Bound]]] = None
 
     def __post_init__(self, bounds):
-        if self.constraints is not None:
-            raise NotImplementedError(
-                f"Problem(constraints=...) is not ported yet: {_CUSTOM_ITEM}")
-        if self.kernel_fn is not None:
-            raise NotImplementedError(
-                f"Problem(kernel_fn=...) is not ported yet: {_CUSTOM_ITEM}")
         lo, hi = bounds if bounds is not None else (self.lo, self.hi)
         lo, hi = broadcast_bounds(_norm_bound(lo), _norm_bound(hi))
         if isinstance(lo, tuple):
@@ -82,29 +80,99 @@ class Problem:
             raise ValueError("Problem.name must be a non-empty string")
         if not callable(self.fn):
             raise TypeError("Problem.fn must be callable")
+        if self.constraints is not None:
+            from .constraints import ConstraintSet
+            if not isinstance(self.constraints, ConstraintSet):
+                raise TypeError(
+                    f"constraints must be a repro_torch.core.constraints."
+                    f"ConstraintSet, got {self.constraints!r}")
+            if self.kernel_fn is not None:
+                raise ValueError(
+                    "kernel_fn and constraints are mutually exclusive: a "
+                    "hand-written kernel form cannot apply the penalty/"
+                    "projection (drop kernel_fn; the split path evaluates "
+                    "the constrained objective itself)")
+        if self.kernel_fn is not None and not callable(self.kernel_fn):
+            raise TypeError("Problem.kernel_fn must be callable")
         object.__setattr__(self, "lo", lo)
         object.__setattr__(self, "hi", hi)
 
     @property
     def max_fn(self) -> Callable:
-        """``fn`` in the engine's canonical maximization convention, cached
+        """``fn`` in the engine's canonical maximization convention, with
+        the penalty term of a ``mode="penalty"`` constraint set
+        (``max_fn(x) = canonical fn(x) - weight * violation(x)``); cached
         on the instance so repeated accesses return the same object."""
-        if self.sense == "max":
+        cset = self.constraints
+        penalized = cset is not None and cset.mode == "penalty"
+        if self.sense == "max" and not penalized:
             return self.fn
         cached = self.__dict__.get("_max_fn")
         if cached is None:
             fn = self.fn
+            neg = self.sense == "min"
+            if penalized:
+                viol = cset.violation_fn()
+                weight = cset.weight
 
-            def cached(pos):
-                return -fn(pos)
+                def cached(pos):
+                    f = fn(pos)
+                    if neg:
+                        f = -f
+                    return f - weight * viol(pos)
 
-            cached.__name__ = f"neg_{getattr(fn, '__name__', 'fn')}"
+                cached.__name__ = f"penalized_{getattr(fn, '__name__', 'fn')}"
+            else:
+                def cached(pos):
+                    return -fn(pos)
+
+                cached.__name__ = f"neg_{getattr(fn, '__name__', 'fn')}"
             object.__setattr__(self, "_max_fn", cached)
         return cached
 
     def user_value(self, canonical_fit):
-        """Map a canonical (maximized) fitness back to the user's sense."""
+        """Map a canonical (maximized) fitness back to the user's sense; for
+        a penalty-mode problem at a feasible point that is the objective."""
         return -canonical_fit if self.sense == "min" else canonical_fit
+
+    @property
+    def constrained(self) -> bool:
+        return self.constraints is not None
+
+    @property
+    def projection_fn(self) -> Optional[Callable]:
+        """The feasibility projection ``pos[..., D] -> pos`` (applied after
+        the box clip), or None for every mode but "projection"."""
+        cset = self.constraints
+        if cset is not None and cset.mode == "projection":
+            return cset.projection
+        return None
+
+    @property
+    def violation_fn(self) -> Optional[Callable]:
+        """Aggregate violation ``pos[..., D] -> viol[...]``, or None when
+        unconstrained."""
+        cset = self.constraints
+        return None if cset is None else cset.violation_fn()
+
+    @property
+    def deb(self) -> bool:
+        """Whether the pbest fold takes the Deb rule: the projection and
+        repair modes (penalty mode keeps the raw fitness fold)."""
+        return self.constrained and self.constraints.mode != "penalty"
+
+    def violation_at(self, pos) -> float:
+        """Violation of one position vector (0.0 if unconstrained)."""
+        vf = self.violation_fn
+        return 0.0 if vf is None else float(vf(pos))
+
+    def with_penalty_weight(self, weight: float) -> "Problem":
+        """This problem at another penalty weight (a ramp segment)."""
+        if self.constraints is None or self.constraints.mode != "penalty":
+            raise ValueError("with_penalty_weight needs a penalty-mode "
+                             "constraint set")
+        return dataclasses.replace(
+            self, constraints=self.constraints.with_weight(weight))
 
     @property
     def ndim(self) -> Optional[int]:
@@ -135,7 +203,8 @@ def register_problem(problem: Union[Problem, str], fn: Callable = None, *,
 
 
 def get_problem(name: str) -> Problem:
-    from . import fitness  # noqa: F401  (registers the six built-ins)
+    # registers the six built-ins and the sphere-on-simplex problems
+    from . import constraints, fitness  # noqa: F401
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -145,7 +214,7 @@ def get_problem(name: str) -> Problem:
 
 
 def list_problems() -> Tuple[str, ...]:
-    from . import fitness  # noqa: F401  (registers the six built-ins)
+    from . import constraints, fitness  # noqa: F401
     return tuple(sorted(_REGISTRY))
 
 

@@ -9,6 +9,12 @@ enhanced queue-lock: blocks advance against block-local bests and publish
 every ``sync_every`` iterations). All parallel variants are synchronous
 PPSO: every particle sees the gbest of the previous iteration.
 
+Constrained problems (``core.constraints``): ``init_swarm`` projects or
+repairs the initial draw, ``_advance`` projects after the box clip, and in
+the projection and repair modes every pbest fold takes the Deb rule
+(``deb_selection_fn``). A heterogeneous batch takes none of these hooks,
+as in the reference (its members are unconstrained or penalty-mode).
+
 This eager engine is the CPU twin of the main-path kernels and the engine
 of ``backend="eager"``. It keeps the reference's particle-major layout:
 ``pos`` is ``[N, D]``. Where the reference branches with ``lax.cond`` the
@@ -38,6 +44,7 @@ import torch
 from .. import _device
 from . import rng
 from .blocking import default_block_count
+from .constraints import deb_improved, repair_init_positions
 from .problem import Bound, Problem, broadcast_bounds, resolve_problem
 from .update_rules import TOPOLOGIES, resolve_rule
 
@@ -269,8 +276,16 @@ def init_swarm(cfg: PSOConfig, seed, n: Optional[int] = None,
         mv = _bound_operand(cfg.max_v, dt, dev)
     else:
         lo, hi, mv = (x.unsqueeze(-2) for x in hetero[1][1:])
-    pos = lo + (hi - lo) * u_pos
+    span = hi - lo
+    pos = lo + span * u_pos
     vel = -mv + 2.0 * mv * u_vel
+    prob = cfg.problem
+    if hetero is None and prob.projection_fn is not None:
+        pos = prob.projection_fn(pos)          # start feasible
+    elif hetero is None and prob.constrained \
+            and prob.constraints.mode == "repair":
+        pos = repair_init_positions(prob.constraints, prob.violation_fn, pos,
+                                    lo, span, sd, STREAM_INIT_POS, idx, dt)
     fit = (cfg.fitness_fn(pos) if hetero is None
            else _hetero_fitness(hetero[0], hetero[1].fid, pos))
     gbest_fit, gbest_pos = _pick(fit, pos, torch.argmax(fit, -1, True))
@@ -315,14 +330,34 @@ def _advance(cfg: PSOConfig, s: SwarmState, index_offset: int = 0,
     pos, vel = resolve_rule(cfg.update_rule).advance(
         r1, r2, s.pos, s.vel, s.pbest_pos, gbp, w=w, c1=c1, c2=c2,
         mv=mv, lo=lo, hi=hi)
-    fit = (cfg.fitness_fn(pos) if hetero is None
-           else _hetero_fitness(hetero[0], hetero[1].fid, pos))
-    return pos, vel, fit
+    if hetero is not None:
+        return pos, vel, _hetero_fitness(hetero[0], hetero[1].fid, pos)
+    proj = cfg.problem.projection_fn
+    if proj is not None:
+        pos = proj(pos)        # the box clip first, then the feasible set
+    return pos, vel, cfg.fitness_fn(pos)
 
 
-def _update_pbest(s: SwarmState, pos: Tensor, fit: Tensor
+def deb_selection_fn(cfg: PSOConfig, hetero=None):
+    """The constrained pbest comparator ``better(fit_new, pos_new,
+    fit_old, pos_old) -> bool`` (the Deb rule on the problem's violation),
+    or None: unconstrained, penalty-mode and heterogeneous runs keep the
+    raw ``fit > pbest_fit`` fold."""
+    prob = cfg.problem
+    if hetero is not None or not prob.deb:
+        return None
+    vf = prob.violation_fn
+
+    def better(fit_new, pos_new, fit_old, pos_old):
+        return deb_improved(fit_new, vf(pos_new), fit_old, vf(pos_old))
+
+    return better
+
+
+def _update_pbest(s: SwarmState, pos: Tensor, fit: Tensor, better=None
                   ) -> Tuple[Tensor, Tensor]:
-    improved = fit > s.pbest_fit
+    improved = (fit > s.pbest_fit if better is None
+                else better(fit, pos, s.pbest_fit, s.pbest_pos))
     pbest_fit = torch.where(improved, fit, s.pbest_fit)
     pbest_pos = torch.where(improved[..., None], pos, s.pbest_pos)
     return pbest_pos, pbest_fit
@@ -341,7 +376,8 @@ def step_reduction(cfg: PSOConfig, s: SwarmState, coeffs=None,
                    hetero=None) -> SwarmState:
     """Baseline: unconditional full argmax reduction (paper §3.2)."""
     pos, vel, fit = _advance(cfg, s, coeffs=coeffs, hetero=hetero)
-    pbest_pos, pbest_fit = _update_pbest(s, pos, fit)
+    pbest_pos, pbest_fit = _update_pbest(s, pos, fit,
+                                         deb_selection_fn(cfg, hetero))
     gbest_pos, gbest_fit = _take_best(pbest_fit, pbest_pos, s)
     return s._replace(pos=pos, vel=vel, fit=fit, pbest_pos=pbest_pos,
                       pbest_fit=pbest_fit, gbest_pos=gbest_pos,
@@ -354,7 +390,8 @@ def step_queue(cfg: PSOConfig, s: SwarmState, coeffs=None,
     fitness beats the stale gbest; its best member (first on ties) becomes
     gbest. With an empty queue nothing beats gbest and nothing is taken."""
     pos, vel, fit = _advance(cfg, s, coeffs=coeffs, hetero=hetero)
-    pbest_pos, pbest_fit = _update_pbest(s, pos, fit)
+    pbest_pos, pbest_fit = _update_pbest(s, pos, fit,
+                                         deb_selection_fn(cfg, hetero))
     q = torch.where(fit > s.gbest_fit[..., None], fit,
                     torch.full_like(fit, -torch.inf))
     gbest_pos, gbest_fit = _take_best(q, pos, s)
@@ -370,7 +407,8 @@ def step_queue_lock(cfg: PSOConfig, s: SwarmState, coeffs=None,
     pbest improving; without an improvement the argmax cannot beat gbest,
     so selecting unconditionally gives the same state)."""
     pos, vel, fit = _advance(cfg, s, coeffs=coeffs, hetero=hetero)
-    pbest_pos, pbest_fit = _update_pbest(s, pos, fit)
+    pbest_pos, pbest_fit = _update_pbest(s, pos, fit,
+                                         deb_selection_fn(cfg, hetero))
     gbest_pos, gbest_fit = _take_best(pbest_fit, pbest_pos, s)
     return s._replace(pos=pos, vel=vel, fit=fit, pbest_pos=pbest_pos,
                       pbest_fit=pbest_fit, gbest_pos=gbest_pos,
@@ -413,7 +451,8 @@ def step_async(cfg: PSOConfig, s: SwarmState, local: Tuple[Tensor, Tensor],
     gb = lbp.repeat_interleave(bn, dim=-2)        # particle -> its block best
     pos, vel, fit = _advance(cfg, s, gbest_pos=gb, coeffs=coeffs,
                              hetero=hetero)
-    pbest_pos, pbest_fit = _update_pbest(s, pos, fit)
+    pbest_pos, pbest_fit = _update_pbest(s, pos, fit,
+                                         deb_selection_fn(cfg, hetero))
     fb = fit.reshape(*lead, nb, bn)
     bfit, bpos = _pick(fb, pos.reshape(*lead, nb, bn, d),
                        torch.argmax(fb, -1, True))
@@ -528,10 +567,12 @@ def run_with_history(cfg: PSOConfig, state: SwarmState, iters: int,
     ``run_async`` calls at the sync points, which its absolute-iteration
     schedule makes the uninterrupted run). ``iterations`` is a tuple of
     absolute iteration numbers; ``gbest_fits`` is ``[K]`` (``[K, S]`` for a
-    batch), sampled into a tensor on the state's device. ``violations`` is
-    None: no constraints are ported, and the reference gives None for
-    unconstrained problems. A batch is assumed in lockstep (its rows at
-    one iteration), as the facades build it."""
+    batch), sampled into a tensor on the state's device. ``violations``
+    holds the aggregate constraint violation of each recorded gbest, shaped as
+    ``gbest_fits``, for a constrained problem, and is None otherwise (and
+    for a heterogeneous batch, whose members report none, as in the
+    reference). A batch is assumed in lockstep (its rows at one
+    iteration), as the facades build it."""
     cfg = cfg.resolved()
     it0 = state.iteration
     start = int(it0 if not isinstance(it0, Tensor) else it0.reshape(-1)[0])
@@ -541,6 +582,8 @@ def run_with_history(cfg: PSOConfig, state: SwarmState, iters: int,
     fits = torch.empty((len(offs),) + tuple(state.gbest_fit.shape),
                        dtype=state.gbest_fit.dtype,
                        device=state.gbest_fit.device)
+    vf = cfg.problem.violation_fn if hetero is None else None
+    viols = None if vf is None else torch.empty_like(fits)
     if not async_:
         state = state._replace(lbest_pos=None, lbest_fit=None)
     its = []
@@ -554,8 +597,10 @@ def run_with_history(cfg: PSOConfig, state: SwarmState, iters: int,
             state = STEP_FNS[variant](cfg, state, coeffs=coeffs,
                                       hetero=hetero)
         fits[j] = state.gbest_fit
+        if vf is not None:
+            viols[j] = vf(state.gbest_pos)
         its.append(start + off + k)
-    return state, (tuple(its), fits, None)
+    return state, (tuple(its), fits, viols)
 
 
 def solve(cfg: PSOConfig, seed: int = 0, iters: int = 1000,

@@ -12,9 +12,10 @@ parallel variants.
 
 The six built-ins are evaluated in numpy; any other objective through its
 torch ``max_fn`` on a CPU tensor (correctness over speed: the serial path
-is a baseline, not a hot path). The port's ``Problem`` does not yet carry
-constraints (ROADMAP.md, port order item 3), so the reference's projection
-and repair init have no counterpart here.
+is a baseline, not a hot path). A constrained Problem takes the engine's
+constrained init (projection, or the repair redraws from the same counter
+RNG) and, in projection mode, the projection after every advance, through
+its torch operators on CPU tensors.
 """
 from __future__ import annotations
 
@@ -103,6 +104,39 @@ def _torch_fitness(max_fn, pos: np.ndarray) -> np.ndarray:
     return max_fn(torch.from_numpy(np.ascontiguousarray(pos))).numpy()
 
 
+def _projection(cfg: PSOConfig):
+    """The problem's feasibility projection, numpy in and out, or None
+    (every mode but "projection")."""
+    proj = cfg.problem.projection_fn
+    if proj is None:
+        return None
+    return lambda pos: proj(torch.from_numpy(
+        np.ascontiguousarray(pos))).numpy().astype(pos.dtype)
+
+
+def _constrained_init(cfg: PSOConfig, pos: np.ndarray, seed: int, lo, span,
+                      idx: np.ndarray, dt) -> np.ndarray:
+    """``init_swarm``'s constrained init on numpy: the projection, or the
+    repair redraws through ``constraints.repair_init_positions`` (its
+    counter RNG is this module's numpy mirror, bit for bit)."""
+    prob = cfg.problem
+    proj = _projection(cfg)
+    if proj is not None:
+        return proj(pos)
+    if not (prob.constrained and prob.constraints.mode == "repair"):
+        return pos
+    from .constraints import repair_init_positions
+
+    def operand(v):
+        return v if isinstance(v, float) else torch.from_numpy(
+            np.asarray(v, dt))
+    return repair_init_positions(
+        prob.constraints, prob.violation_fn, torch.from_numpy(pos),
+        operand(lo), operand(span), seed, STREAM_INIT_POS,
+        torch.from_numpy(idx.astype(np.int64)), getattr(torch, dt.name)
+    ).numpy().astype(pos.dtype)
+
+
 class SerialSwarm:
     """Alg. 1 state + sequential iteration."""
 
@@ -117,6 +151,8 @@ class SerialSwarm:
         mv = _np_bound(cfg.max_v, dt)
         span = hi - lo
         self.pos = lo + span * _uniform(seed, 0, STREAM_INIT_POS, idx, dt)
+        self.pos = _constrained_init(cfg, self.pos, seed, lo, span, idx, dt)
+        self._project = _projection(cfg)
         self.vel = -mv + 2 * mv * _uniform(seed, 0, STREAM_INIT_VEL, idx, dt)
         self.fit = _fitness(cfg, self.pos)
         self.pbest_pos = self.pos.copy()
@@ -142,6 +178,8 @@ class SerialSwarm:
             v = np.clip(v, -mv, mv)
             p = np.clip(self.pos[i] + v, _np_bound(cfg.min_pos, v.dtype),
                         _np_bound(cfg.max_pos, v.dtype))
+            if self._project is not None:   # post-advance feasibility hook
+                p = self._project(p[None])[0]
             f = float(_fitness(cfg, p[None])[0])
             self.vel[i] = v
             self.pos[i] = p
@@ -177,6 +215,8 @@ def run_serial_fast(cfg: PSOConfig, seed: int,
     mv = _np_bound(cfg.max_v, dt)
     span = hi - lo
     pos = lo + span * _uniform(seed, 0, STREAM_INIT_POS, idx, dt)
+    pos = _constrained_init(cfg, pos, seed, lo, span, idx, dt)
+    project = _projection(cfg)
     vel = -mv + 2 * mv * _uniform(seed, 0, STREAM_INIT_VEL, idx, dt)
     fit = _fitness(cfg, pos)
     pbest_pos, pbest_fit = pos.copy(), fit.copy()
@@ -189,6 +229,8 @@ def run_serial_fast(cfg: PSOConfig, seed: int,
                + cfg.c2 * r2 * (gbest_pos[None] - pos))
         np.clip(vel, -mv, mv, out=vel)
         pos = np.clip(pos + vel, lo, hi)
+        if project is not None:
+            pos = project(pos)
         fit = _fitness(cfg, pos)
         m = fit > pbest_fit
         pbest_fit = np.where(m, fit, pbest_fit)

@@ -9,6 +9,14 @@ chain the async kernel's phases. Results match the eager
 kernel; ``run_async`` block semantics for the async kernel), and row ``s``
 of a batch matches the single-swarm wrapper on ``batch_row(batch, s)``.
 
+Every Problem that is not one of the six unconstrained built-ins (a custom
+objective, a ``kernel_fn``, any constraint mode), and a heterogeneous table
+with such a member, takes the split path (``kernels.pso_split``): three
+kernels an iteration around the user's torch operators, with the same
+results as the eager engine's ``step_queue`` iterated (fused) and
+``run_async`` (async), and the Deb fold where it applies. The built-ins
+keep ``pso_step``'s kernels.
+
 ``telemetry=True`` makes the fused and async functions return ``(state,
 counts)``: the kernels' contention counters, int32 ``[3]`` for one swarm
 and ``[S, 3]`` for a batch (``repro_torch.telemetry``). ``run_queue_lock``
@@ -23,13 +31,13 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..core.blocking import pick_block_n
-from ..core.fitness import builtin_id
+from ..core.fitness import FITNESS_IDS, is_builtin
 from ..core.multi_swarm import SwarmBatch
 from ..core.problem import Problem
 from ..core.pso import (ASYNC_SYNC_EVERY, PSOConfig, SwarmState,
                         hetero_member_config)
 from ..telemetry import zero_counts
-from . import pso_step
+from . import pso_split, pso_step
 from .pso_step import KernelSpec
 # the phase split under the reference's name (repro.kernels.ops._async_spans)
 from .pso_step import async_spans as _async_spans  # noqa: F401
@@ -54,13 +62,19 @@ def unpack_dmajor(arr: torch.Tensor) -> torch.Tensor:
     return arr.t().contiguous()
 
 
+#: ``KernelSpec.fitness`` of a Problem that takes the split path.
+CONVERTED = -1
+
+
 def kernel_spec(cfg: PSOConfig) -> KernelSpec:
-    """Static kernel operands from a config: the kernels carry the six
-    built-in objectives and take float32 only."""
+    """Static kernel operands from a config: a built-in objective's id, or
+    ``CONVERTED`` for any other Problem (the split path); float32 only."""
     cfg = cfg.resolved()
     if cfg.dtype != "float32":
         raise ValueError(f"the kernels take float32 only, not {cfg.dtype}")
-    return KernelSpec(fitness=builtin_id(cfg.problem), rule=cfg.update_rule,
+    prob = cfg.problem
+    fid = FITNESS_IDS[prob.name] if is_builtin(prob) else CONVERTED
+    return KernelSpec(fitness=fid, rule=cfg.update_rule,
                       w=cfg.w, c1=cfg.c1, c2=cfg.c2, lo=cfg.min_pos,
                       hi=cfg.max_pos, mv=cfg.max_v)
 
@@ -76,7 +90,7 @@ def kernel_to_state(s: SwarmState, pos, vel, pbp, pbf, gp, gf,
                     iters: int) -> SwarmState:
     return s._replace(
         pos=unpack_dmajor(pos), vel=unpack_dmajor(vel),
-        fit=pbf,  # the kernels do not keep the raw fit; pbest_fit >= fit
+        fit=pbf,  # the kernels do not keep the raw fit; pbest_fit stands in
         pbest_pos=unpack_dmajor(pbp), pbest_fit=pbf,
         gbest_pos=gp, gbest_fit=gf[0], iteration=s.iteration + iters,
         lbest_pos=None, lbest_fit=None)
@@ -93,10 +107,23 @@ def queue_step(cfg: PSOConfig, s: SwarmState,
     cfg = cfg.resolved()
     n, _ = s.pos.shape
     bn = _resolve_block(n, block_n)
+    spec = kernel_spec(cfg)
     pos, vel, pbp, pbf, gp, gf = state_to_kernel(s)
-    pos, vel, pbp, pbf, aux_fit, aux_idx = pso_step.queue_step(
-        pos, vel, pbp, pbf, gp, gf, kernel_spec(cfg), seed=s.seed,
-        iteration=s.iteration, block_n=bn)
+    if spec.fitness == CONVERTED:
+        seeds, its = _seed_rows(s)
+        pso_split.advance(pos, vel, pbp, gp[:, None], seeds, its, (spec,),
+                          n=n, it_off=0, gdiv=n)
+        fit, viol = pso_split.torch_step((cfg.problem,), None, n, (n,))(pos)
+        nb = n // bn
+        aux_fit = torch.empty(nb, dtype=pos.dtype, device=pos.device)
+        aux_idx = torch.empty(nb, dtype=torch.int32, device=pos.device)
+        pso_split.fold(pos, pbp, pbf, fit, n=n, block_n=bn, mode="queue",
+                       gf=gf, pbv=_pbv(cfg, None, s.pbest_pos), viol=viol,
+                       aux_fit=aux_fit, aux_idx=aux_idx)
+    else:
+        pos, vel, pbp, pbf, aux_fit, aux_idx = pso_step.queue_step(
+            pos, vel, pbp, pbf, gp, gf, spec, seed=s.seed,
+            iteration=s.iteration, block_n=bn)
     gp, gf = queue_epilogue(pos, gp, gf, aux_fit, aux_idx)
     return kernel_to_state(s, pos, vel, pbp, pbf, gp, gf, 1)
 
@@ -113,64 +140,112 @@ def queue_epilogue(pos, gp, gf, aux_fit, aux_idx):
     return torch.where(take, cand_pos, gp), torch.where(take, cand_fit, gf)
 
 
-def _chunked(step, iters: int, stride: Optional[int], start: int, gf):
+def _seed_rows(s: SwarmState):
+    """A swarm's (seed, iteration) as the split path's int64 ``[1]``
+    operands."""
+    dev = s.pos.device
+    return (torch.tensor([s.seed], dtype=torch.int64, device=dev),
+            torch.tensor([s.iteration], dtype=torch.int64, device=dev))
+
+
+def _pbv(cfg: PSOConfig, fids, pbest_pos) -> Optional[torch.Tensor]:
+    """The carried pbest violation ``[S*N]`` where the Deb fold applies
+    (projection and repair modes, homogeneous), else None."""
+    prob = cfg.problem
+    if fids is not None or not prob.deb:
+        return None
+    return prob.violation_fn(pbest_pos).reshape(-1).contiguous()
+
+
+def _split_step(cfg, state, seeds, its, specs, table, fids, n: int,
+                bn: int, lead, sync_every, cnt):
+    """The ``step(off, k)`` of ``_chunked`` on the split path, for the
+    D-major ``state`` (plus the async locals) of ``table``'s problems."""
+    step = pso_split.torch_step(tuple(table), fids, n, lead)
+    pbv = _pbv(cfg, fids, state[2].t().reshape(*lead, state[2].shape[0]))
+    counters = (pso_split.uint32_rows(seeds, its, state[0].device)
+                if state[0].device.type == "cuda" else None)
+
+    def run(off, k):
+        pso_split.iterate(state, seeds, its, specs, fids, step, n=n,
+                          block_n=bn, off=off, iters=k,
+                          sync_every=sync_every, pbv=pbv, counts=cnt,
+                          counters=counters)
+    return run
+
+
+def _chunked(step, iters: int, stride: Optional[int], start: int, gf,
+             gp=None):
     """Run ``step(offset, k)`` over ``iters`` iterations: in one call of
     all of them (``stride`` None), or in chunks of ``stride`` (the last
-    shorter), copying the gbest fitness ``gf`` after each chunk into a
-    tensor allocated once on its device, so sampling adds no host round
-    trip. Returns (the absolute iteration after each chunk, from
-    ``start``, and the [K, *gf.shape] samples), or (None, None)."""
+    shorter), copying the gbest fitness ``gf`` (and, given ``gp``, the
+    gbest position) after each chunk into a tensor allocated once on its
+    device, so sampling adds no host round trip. Returns (the absolute
+    iteration after each chunk, from ``start``, the [K, *gf.shape] samples,
+    the [K, *gp.shape] samples or None), or (None, None, None)."""
     if stride is None:
         step(0, iters)
-        return None, None
+        return None, None, None
     offs = range(0, iters, stride)
     fits = torch.empty((len(offs),) + tuple(gf.shape), dtype=gf.dtype,
                        device=gf.device)
+    gps = None if gp is None else gp.new_empty((len(offs),) + tuple(gp.shape))
     its = []
     for j, off in enumerate(offs):
         k = min(stride, iters - off)
         step(off, k)
         fits[j].copy_(gf)
+        if gps is not None:
+            gps[j].copy_(gp)
         its.append(start + off + k)
-    return its, fits
+    return its, fits, gps
 
 
 def _run_single(cfg: PSOConfig, s: SwarmState, iters: int,
                 block_n: Optional[int], telemetry: bool,
                 sync_every: Optional[int] = None,
-                stride: Optional[int] = None):
+                stride: Optional[int] = None, positions: bool = False):
     """One swarm through the fused kernel (``sync_every`` None) or the
     async kernel, on D-major operands packed once and unpacked once, in
     one run or in chunks of ``stride`` (``_chunked``). Returns (state,
-    (iterations, [K] gbest_fit) or (None, None), counts [3] or None)."""
+    (iterations, [K] gbest_fit, [K, D] gbest_pos where ``positions``) or
+    Nones, counts [3] or None)."""
     cfg = cfg.resolved()
     n, _ = s.pos.shape
     bn = _resolve_block(n, block_n)
     spec = kernel_spec(cfg)
     ops = state_to_kernel(s)
     cnt = zero_counts(1, s.pos.device) if telemetry else None
-    if sync_every is None:
-        def step(off, k):
-            pso_step.fused(*ops, spec, seed=s.seed,
-                           iteration=s.iteration + off, iters=k, block_n=bn,
-                           counts=cnt)
-    else:
+    lp = lf = None
+    if sync_every is not None:
         nb = n // bn
         if s.lbest_fit is not None and tuple(s.lbest_fit.shape) == (nb,):
             lp, lf = pack_dmajor(s.lbest_pos), s.lbest_fit.clone()
         else:                           # local bests seeded from gbest
             lp, lf = ops[4][:, None].repeat(1, nb), ops[5].repeat(nb)
-
+    if spec.fitness == CONVERTED:
+        seeds, its = _seed_rows(s)
+        state = ops[:4] + (ops[4][:, None], ops[5]) + (
+            () if lp is None else (lp, lf))
+        step = _split_step(cfg, state, seeds, its, (spec,), (cfg.problem,),
+                           None, n, bn, (n,), sync_every, cnt)
+    elif sync_every is None:
+        def step(off, k):
+            pso_step.fused(*ops, spec, seed=s.seed,
+                           iteration=s.iteration + off, iters=k, block_n=bn,
+                           counts=cnt)
+    else:
         def step(off, k):
             pso_step.fused_async(*ops, lp, lf, spec, seed=s.seed,
                                  iteration=s.iteration + off, iters=k,
                                  sync_every=sync_every, block_n=bn,
                                  counts=cnt)
-    its, fits = _chunked(step, iters, stride, s.iteration, ops[5])
+    its, fits, gps = _chunked(step, iters, stride, s.iteration, ops[5],
+                              ops[4] if positions else None)
     out = kernel_to_state(s, *ops, iters)
     if sync_every is not None:
         out = out._replace(lbest_pos=unpack_dmajor(lp), lbest_fit=lf)
-    return out, (its, None if fits is None else fits[:, 0]), cnt
+    return out, (its, None if fits is None else fits[:, 0], gps), cnt
 
 
 def run_queue_lock_fused(cfg: PSOConfig, s: SwarmState, iters: int,
@@ -241,7 +316,7 @@ def _kernel_to_batch(batch: SwarmBatch, pos, vel, pbp, pbf, gp, gf,
     return batch._replace(
         pos=unpack_dmajor_batch(pos, s_cnt),
         vel=unpack_dmajor_batch(vel, s_cnt),
-        fit=pbf,  # the kernels do not keep the raw fit; pbest_fit >= fit
+        fit=pbf,  # the kernels do not keep the raw fit; pbest_fit stands in
         pbest_pos=unpack_dmajor_batch(pbp, s_cnt), pbest_fit=pbf,
         gbest_pos=unpack_dmajor(gp), gbest_fit=gf,
         iteration=batch.iteration + iters, lbest_pos=None, lbest_fit=None)
@@ -250,21 +325,17 @@ def _kernel_to_batch(batch: SwarmBatch, pos, vel, pbp, pbf, gp, gf,
 def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
                block_n: Optional[int], telemetry: bool, fids, table,
                sync_every: Optional[int] = None,
-               stride: Optional[int] = None):
+               stride: Optional[int] = None, positions: bool = False):
     """``_run_single`` for a batch: the batched fused or async kernel.
-    Returns (batch, (iterations, [K, S] gbest_fit) or (None, None),
-    counts [S, 3] or None)."""
+    Returns (batch, (iterations, [K, S] gbest_fit, [K, S, D] gbest_pos
+    where ``positions``) or Nones, counts [S, 3] or None)."""
     cfg = cfg.resolved()
     s_cnt, n, _ = batch.pos.shape
     bn = _resolve_block(n, block_n)
     ops, specs = _batch_to_kernel(cfg, batch, fids, table)
     cnt = zero_counts(s_cnt, batch.pos.device) if telemetry else None
-    if sync_every is None:
-        def step(off, k):
-            pso_step.fused_batch(*ops, batch.seed, batch.iteration + off,
-                                 specs, iters=k, block_n=bn, fids=fids,
-                                 counts=cnt)
-    else:
+    lp = lf = None
+    if sync_every is not None:
         nb = n // bn
         if batch.lbest_fit is not None \
                 and tuple(batch.lbest_fit.shape) == (s_cnt, nb):
@@ -273,19 +344,32 @@ def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
         else:                         # local bests seeded from each gbest
             lp = ops[4].repeat_interleave(nb, dim=1)
             lf = ops[5].repeat_interleave(nb)
-
+    if any(m.fitness == CONVERTED for m in specs):
+        step = _split_step(cfg, ops + (() if lp is None else (lp, lf)),
+                           batch.seed, batch.iteration, specs,
+                           (cfg.problem,) if fids is None else table, fids,
+                           n, bn, (s_cnt, n), sync_every, cnt)
+    elif sync_every is None:
+        def step(off, k):
+            pso_step.fused_batch(*ops, batch.seed, batch.iteration + off,
+                                 specs, iters=k, block_n=bn, fids=fids,
+                                 counts=cnt)
+    else:
         def step(off, k):
             pso_step.fused_async_batch(*ops, lp, lf, batch.seed,
                                        batch.iteration + off, specs, iters=k,
                                        sync_every=sync_every, block_n=bn,
                                        fids=fids, counts=cnt)
     start = int(batch.iteration[0]) if stride is not None else 0
-    its, fits = _chunked(step, iters, stride, start, ops[5])
+    its, fits, gps = _chunked(step, iters, stride, start, ops[5],
+                              ops[4] if positions else None)
     out = _kernel_to_batch(batch, *ops, iters)
     if sync_every is not None:
         out = out._replace(lbest_pos=unpack_dmajor_batch(lp, s_cnt),
                            lbest_fit=lf.reshape(s_cnt, nb))
-    return out, (its, fits), None if cnt is None else cnt.reshape(s_cnt, 3)
+    return out, (its, fits, None if gps is None
+                 else gps.transpose(1, 2).contiguous()), (
+        None if cnt is None else cnt.reshape(s_cnt, 3))
 
 
 def run_queue_lock_fused_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
@@ -330,10 +414,9 @@ def run_queue_lock(cfg: PSOConfig, state, iters: int, variant: str,
                    sync_every: int = ASYNC_SYNC_EVERY,
                    block_n: Optional[int] = None, telemetry: bool = False,
                    history: bool = False, fids=None,
-                   table: Optional[Sequence[Problem]] = None
-                   ) -> Tuple[object, Tuple[Optional[List[int]],
-                                            Optional[torch.Tensor]],
-                              Optional[torch.Tensor]]:
+                   table: Optional[Sequence[Problem]] = None,
+                   positions: bool = False
+                   ) -> Tuple[object, Tuple, Optional[torch.Tensor]]:
     """``state`` (a ``SwarmState``, or a ``SwarmBatch`` with
     ``fids``/``table`` as above) through the fused kernel
     (``variant="queue_lock"``) or the async kernel, as the functions above
@@ -344,12 +427,17 @@ def run_queue_lock(cfg: PSOConfig, state, iters: int, variant: str,
     caller reads them, and the result equals chunk-by-chunk calls of the
     functions above. Returns (state, (the absolute iteration of each
     sample, gbest_fit [K] or [K, S]) or (None, None), counts [3] / [S, 3]
-    or None)."""
+    or None); ``positions=True`` adds the sampled gbest_pos ([K, D] or
+    [K, S, D]) to the history pair."""
     async_ = variant == "async"
-    kw = dict(sync_every=sync_every if async_ else None, stride=None)
+    kw = dict(sync_every=sync_every if async_ else None, stride=None,
+              positions=positions)
     if history:
         kw["stride"] = max(1, sync_every) if async_ else 1
     if isinstance(state, SwarmBatch):
-        return _run_batch(cfg, state, iters, block_n, telemetry, fids, table,
-                          **kw)
-    return _run_single(cfg, state, iters, block_n, telemetry, **kw)
+        out, hist, cnt = _run_batch(cfg, state, iters, block_n, telemetry,
+                                    fids, table, **kw)
+    else:
+        out, hist, cnt = _run_single(cfg, state, iters, block_n, telemetry,
+                                     **kw)
+    return out, hist if positions else hist[:2], cnt

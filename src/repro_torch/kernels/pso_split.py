@@ -1,0 +1,506 @@
+"""The split path of the kernel backend: any Problem that is not one of the
+six unconstrained built-ins, on three hand-written CUDA kernels around the
+user's own torch operators.
+
+The kernels are ``csrc/pso_split.cu``'s ``split_advance_kernel``,
+``split_fold_kernel`` and ``split_publish_kernel``. Together with the torch
+step between them they replace the converted forms of the Pallas call
+functions of ``repro.kernels.pso_step`` (``queue_step_call``, ``fused_call``,
+``fused_batch_call``, ``hetero_fused_batch_call``, ``fused_async_call``,
+``fused_async_batch_call``, ``hetero_fused_async_batch_call``), which trace
+a custom objective (``dmajor_adapter`` or ``kernel_fn``), the projection
+(``kernel_projection``) and the Deb fold (``kernel_violation``) into their
+bodies. One iteration is:
+
+1. ``advance``: pos and vel against an attractor column, clipped to the box;
+2. the torch step (``torch_step``): the projection, written back into pos;
+   the objective (``max_fn`` on the particle-major positions, or
+   ``kernel_fn`` on the D-major ones); the violation where Deb applies.
+   This is the user's code, which the reference traced into its kernels;
+3. ``fold``: the pbest fold (raw fitness, or Deb's rule against the
+   carried pbest violation ``pbv``) and the paper's intra-block queue on raw
+   fitness (gbest publication is not Deb-gated, as in the reference);
+4. ``publish``: the cross-block stage.
+
+Semantics (held by ``tests/test_torch_constraints.py``):
+
+* Fused mode is synchronous PPSO: every block reads iteration t-1's gbest.
+  It equals ``core.pso.step_queue`` iterated (the reference's
+  ``ref.queue_step_oracle`` iterated), each with the Deb fold where it
+  applies, and ``pso_step.fused_plain``; with one block also
+  ``ref.run_fused_oracle``.
+* Async mode is the eager engine's lockstep async: it equals
+  ``core.pso.run_async(n_blocks=nb)``, one valid interleaving of the async
+  race, publishing and pulling at the iterations that are multiples of
+  ``sync_every`` and publishing only at the end of a call. With one block
+  it equals the fused mode for every ``sync_every``.
+* Queue mode is one iteration of the paper's queue algorithm: each block's
+  best lane beating gbest as ``(aux_fit, aux_idx)``, the cross-block
+  argmax being ``ops.queue_epilogue``.
+* ``pbv`` carries ``violation_fn(pbest_pos)``, which the reference
+  recomputes every iteration; after any run ``pbv ==
+  violation_fn(pbest_pos)`` holds exactly.
+
+Arrays are D-major as in ``pso_step``: ``pos``/``vel``/``pbp`` ``[D, S*N]``,
+``pbf``/``pbv``/``fit``/``viol`` ``[S*N]``, ``gp`` ``[D, S]``, ``gf``
+``[S]``, ``lp`` ``[D, S*nb]``, ``lf`` ``[S*nb]``, ``seeds``/``its`` int64
+``[S]``, ``keys`` int64 ``[S]`` (the uint64 queue keys' bits), ``act``
+int32 ``[S]``. A heterogeneous batch takes a table of ``KernelSpec``
+members and ``fids[S]`` into it.
+
+``split_advance_plain``, ``split_fold_plain`` and ``split_publish_plain``
+are the plain versions, with the kernels' operands and arithmetic. On CPU
+tensors, and only there, the wrappers run them; on CUDA tensors they launch
+the kernel or raise. Each wrapper counts its launches in
+``<wrapper>.launches``. ``fold`` and ``publish`` take ``counts`` (int32
+``[3*S]``, or None) with the meaning of ``repro_torch.telemetry``: the fold
+counts queue updates and block improvements, and in fused mode a
+publication for each block that raised its swarm's key; the async publish
+counts the sync points at which a swarm's gbest rose.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..core import rng
+from ..core.pso import STREAM_R1, STREAM_R2
+from ..core.update_rules import kernel_rule_id, resolve_rule
+from .pso_step import (KernelSpec, _check, _counters, _operands, _ptrs,
+                       _tables)
+
+Tensor = torch.Tensor
+
+#: Fold and publish modes (``csrc/pso_split.cu``).
+MODES = {"queue": 0, "fused": 1, "async": 2}
+#: The async publish's per-swarm action: none, publish and pull (a sync
+#: point), publish only (the end of a call).
+ACT_NONE, ACT_SYNC, ACT_FLUSH = 0, 1, 2
+
+_U32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Queue keys in torch: the uint64 key of csrc/pso_split.cu's make_key, held
+# as the int64 with the same bits.
+# ---------------------------------------------------------------------------
+
+def queue_keys(fit: Tensor, index: Tensor) -> Tensor:
+    """``(ordered fitness bits) << 32 | (0xFFFFFFFF - index)`` as int64."""
+    u = (fit + 0.0).view(torch.int32).to(torch.int64) & _U32   # -0 -> +0
+    u = torch.where(u >= 2 ** 31, u ^ _U32, u | 2 ** 31)
+    hi = torch.where(u >= 2 ** 31, u - 2 ** 32, u)   # the int64's high word
+    return hi * 2 ** 32 + (_U32 - index.to(torch.int64))
+
+
+def key_index(keys: Tensor) -> Tensor:
+    """The particle index of each key (meaningless where a key is 0)."""
+    return _U32 - (keys & _U32)
+
+
+def _umax(keys: Tensor, cand: Tensor) -> Tensor:
+    """Each row's ``keys`` raised to the largest of its ``cand`` row, in
+    the unsigned order of the uint64 keys (what atomicMax does)."""
+    flip = torch.iinfo(torch.int64).min
+    return torch.maximum(keys ^ flip, (cand ^ flip).amax(1)) ^ flip
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _member_columns(specs, fids, n: int, dev):
+    """[(member spec, its columns or None for all)] of a launch."""
+    if fids is None:
+        return [(specs[0], None)]
+    col_fid = fids.to(dev, torch.int64).repeat_interleave(n)
+    return [(specs[k], (col_fid == k).nonzero()[:, 0])
+            for k in torch.unique(col_fid).tolist()]
+
+
+def split_advance_plain(pos, vel, pbp, attractor, seeds, its, specs,
+                        fids=None, *, n: int, it_off: int, gdiv: int):
+    """One advance of every element of the ``[D, S*N]`` state, iteration
+    ``its[s] + it_off + 1`` of swarm s, against column ``col // gdiv`` of
+    ``attractor``, each swarm with its member's rule, coefficients and bounds
+    (scalars stay Python floats, as in the eager engine). Returns new
+    (pos, vel)."""
+    d, ld = pos.shape
+    dev = pos.device
+    col = torch.arange(ld, device=dev)
+    sw = col // n
+    idx = (col - sw * n)[None, :] * d + torch.arange(d, device=dev)[:, None]
+    seed = seeds.to(dev, torch.int64)[sw][None, :]
+    it = (its.to(dev, torch.int64)[sw] + it_off + 1)[None, :]
+    r1 = rng.uniform(seed, it, STREAM_R1, idx)
+    r2 = rng.uniform(seed, it, STREAM_R2, idx)
+    att = attractor.index_select(1, col // gdiv)
+    out_pos, out_vel = torch.empty_like(pos), torch.empty_like(vel)
+    for spec, cols in _member_columns(specs, fids, n, dev):
+        lo, hi, mv = _operands(spec, dev)
+        take = ((lambda t: t) if cols is None
+                else (lambda t: t.index_select(1, cols)))
+        p, v = resolve_rule(spec.rule).advance(
+            take(r1), take(r2), take(pos), take(vel), take(pbp), take(att),
+            w=spec.w, c1=spec.c1, c2=spec.c2, mv=mv, lo=lo, hi=hi)
+        if cols is None:
+            out_pos, out_vel = p, v
+        else:
+            out_pos[:, cols], out_vel[:, cols] = p, v
+    return out_pos, out_vel
+
+
+def split_fold_plain(pos, pbp, pbf, fit, *, n: int, block_n: int, mode: str,
+                     gf=None, pbv=None, viol=None, lp=None, lf=None,
+                     keys=None, counts=None) -> Dict[str, Tensor]:
+    """The pbest fold and each block's queue; returns the new outputs by
+    name (``pbp``, ``pbf``, ``pbv`` with Deb; ``aux_fit``/``aux_idx`` in
+    queue mode, ``keys`` in fused mode, ``lp``/``lf`` in async mode) and
+    adds the events into ``counts``."""
+    d, ld = pos.shape
+    s_cnt = ld // n
+    nb = n // block_n
+    dev = pos.device
+    if viol is None:
+        imp = fit > pbf
+    else:
+        from ..core.constraints import deb_improved
+        imp = deb_improved(fit, viol, pbf, pbv)
+    out = {"pbp": torch.where(imp[None, :], pos, pbp),
+           "pbf": torch.where(imp, fit, pbf)}
+    if viol is not None:
+        out["pbv"] = torch.where(imp, viol, pbv)
+    g = (lf if mode == "async" else gf.repeat_interleave(nb))[:, None]
+    fb = fit.reshape(s_cnt * nb, block_n)
+    q = torch.where(fb > g, fb, torch.full_like(fb, -math.inf))
+    has = (fb > g).any(1)
+    lane = torch.argmax(q, 1)                 # first lane of the maximum
+    local = (torch.arange(s_cnt * nb, device=dev) % nb) * block_n + lane
+    win = (torch.arange(s_cnt * nb, device=dev) // nb) * n + local
+    if counts is not None:
+        per = torch.stack((has, has if mode == "fused" else torch.zeros_like(
+            has), imp.reshape(s_cnt * nb, block_n).any(1)), 1)
+        counts += per.reshape(s_cnt, nb, 3).sum(1).reshape(-1).to(
+            counts.dtype)
+    if mode == "queue":
+        out["aux_fit"] = torch.where(has, fit[win],
+                                     torch.full_like(fit[win], -math.inf))
+        out["aux_idx"] = local.to(torch.int32)   # the base on an empty queue
+    elif mode == "fused":
+        cand = torch.where(has, queue_keys(fit[win], local),
+                           torch.zeros_like(local))
+        out["keys"] = _umax(keys, cand.reshape(s_cnt, nb))
+    else:
+        out["lf"] = torch.where(has, fit[win], lf)
+        out["lp"] = torch.where(has[None, :], pos.index_select(1, win), lp)
+    return out
+
+
+def split_publish_plain(pos, fit, gp, gf, *, n: int, mode: str, keys=None,
+                        lp=None, lf=None, act=None, counts=None
+                        ) -> Dict[str, Tensor]:
+    """The cross-block stage of every swarm; returns the new outputs by
+    name (``gp``, ``gf``, and ``keys`` cleared in fused mode or ``lp``/
+    ``lf`` in async mode) and adds the async publications into
+    ``counts``."""
+    s_cnt = gf.shape[0]
+    dev = pos.device
+    if mode == "fused":
+        has = keys != 0
+        win = torch.arange(s_cnt, device=dev) * n + key_index(keys)
+        win = torch.where(has, win, torch.zeros_like(win))
+        return {"gp": torch.where(has[None, :], pos.index_select(1, win), gp),
+                "gf": torch.where(has, fit[win], gf),
+                "keys": torch.zeros_like(keys)}
+    nb = lf.shape[0] // s_cnt
+    lfs = lf.reshape(s_cnt, nb)
+    b = torch.argmax(lfs, 1)                  # first local of the maximum
+    slot = torch.arange(s_cnt, device=dev) * nb + b
+    take = (act != ACT_NONE) & (lf[slot] > gf)
+    gf2 = torch.where(take, lf[slot], gf)
+    gp2 = torch.where(take[None, :], lp.index_select(1, slot), gp)
+    if counts is not None:
+        counts.view(s_cnt, 3)[:, 1] += take.to(counts.dtype)
+    pull = (act == ACT_SYNC).repeat_interleave(nb)
+    return {"gp": gp2, "gf": gf2,
+            "lf": torch.where(pull, gf2.repeat_interleave(nb), lf),
+            "lp": torch.where(pull[None, :], gp2.repeat_interleave(nb, 1),
+                              lp)}
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    import ctypes as c
+
+    from . import _build
+    lib = _build.load("pso_split")
+    p, i, u, f = c.c_void_p, c.c_int, c.c_uint, c.c_float
+    lib.pso_split_advance.argtypes = ([p] * 8 + [i] * 4 + [u, i] + [f] * 6
+                                      + [p])
+    lib.pso_split_fold.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.pso_split_publish.argtypes = [p] * 9 + [i] * 5 + [p]
+    for fn in (lib.pso_split_advance, lib.pso_split_fold,
+               lib.pso_split_publish):
+        fn.restype = i
+    return lib
+
+
+def _validate(what: str, d: int, ld: int, n: int, nb: int, **operands):
+    """Each given operand's shape and dtype as the kernels and the plain
+    versions read them, for a state of ``ld // n`` swarms of ``n``
+    particles in ``d`` dimensions and ``nb`` blocks a swarm (a wrong size
+    would be read past its end on the card). None means absent."""
+    s_cnt = ld // n
+    if n < 1 or ld % n:
+        raise ValueError(f"{what}: {ld} columns are not swarms of {n}")
+    f32, i32 = torch.float32, torch.int32
+    want = {"pos": ((d, ld), f32), "vel": ((d, ld), f32),
+            "pbp": ((d, ld), f32), "pbf": ((ld,), f32), "fit": ((ld,), f32),
+            "viol": ((ld,), f32), "pbv": ((ld,), f32), "gp": ((d, s_cnt), f32),
+            "gf": ((s_cnt,), f32), "lp": ((d, s_cnt * nb), f32),
+            "lf": ((s_cnt * nb,), f32), "keys": ((s_cnt,), torch.int64),
+            "aux_fit": ((s_cnt * nb,), f32), "aux_idx": ((s_cnt * nb,), i32),
+            "act": ((s_cnt,), i32), "counts": ((3 * s_cnt,), i32)}
+    for name, t in operands.items():
+        shape, dtype = want[name]
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype):
+            raise ValueError(f"{what}: {name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _cuda_operands(*tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError("split-kernel operands must be contiguous "
+                             f"tensors on one CUDA device; got "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def uint32_rows(seeds: Tensor, its: Tensor, dev) -> Tensor:
+    """The [2, S] int32 operand the advance kernel reads as uint32 seeds
+    and iteration counters (``pso_step``'s batch counters)."""
+    return _counters(seeds, its, dev)[0]
+
+
+def _copy_into(dst, out):
+    for name, t in out.items():
+        dst[name].copy_(t)
+
+
+def advance(pos, vel, pbp, attractor, seeds, its,
+            specs: Sequence[KernelSpec], fids=None, *, n: int, it_off: int,
+            gdiv: int, counters=None):
+    """``split_advance_plain`` in place: on CUDA tensors one launch of
+    ``split_advance_kernel`` (``counters``: ``uint32_rows`` made once a
+    call, else made here), on CPU tensors the plain version."""
+    d, ld = pos.shape
+    _validate("split advance", d, ld, n, 1, pos=pos, vel=vel, pbp=pbp)
+    if gdiv < 1 or n % gdiv or tuple(attractor.shape) != (d, ld // gdiv):
+        raise ValueError(f"split advance: attractor must be [{d}, "
+                         f"{ld}/gdiv] with gdiv dividing {n}; got "
+                         f"{tuple(attractor.shape)}, gdiv={gdiv}")
+    if pos.device.type == "cpu":
+        p, v = split_advance_plain(pos, vel, pbp, attractor, seeds, its,
+                                   specs, fids, n=n, it_off=it_off, gdiv=gdiv)
+        pos.copy_(p)
+        vel.copy_(v)
+        return pos, vel
+    dev = pos.device
+    if counters is None:
+        counters = uint32_rows(seeds, its, dev)
+    if fids is not None:
+        fids = fids.to(dev, torch.int32).contiguous()
+    bounds, _ = _tables(tuple(specs), d, dev)
+    _cuda_operands(pos, vel, pbp, attractor, bounds, fids, counters)
+    spec = specs[0]
+    coef = [spec.w, spec.c1, spec.c2, *resolve_rule(spec.rule)
+            .kernel_consts()]
+    with torch.cuda.device(dev):
+        _check(_lib().pso_split_advance(
+            *_ptrs([pos, vel, pbp, attractor, bounds, fids, counters[0],
+                    counters[1]]),
+            n, d, ld // n, gdiv, it_off & _U32, kernel_rule_id(spec.rule),
+            *coef, _stream(dev)), "split advance kernel launch")
+    advance.launches += 1
+    return pos, vel
+
+
+advance.launches = 0
+
+
+def fold(pos, pbp, pbf, fit, *, n: int, block_n: int, mode: str, gf=None,
+         pbv=None, viol=None, lp=None, lf=None, keys=None, aux_fit=None,
+         aux_idx=None, counts=None):
+    """``split_fold_plain`` in place (``aux_fit``/``aux_idx`` [S*nb] are
+    the queue mode's outputs): on CUDA tensors one launch of
+    ``split_fold_kernel``, on CPU tensors the plain version."""
+    d, ld = pos.shape
+    if block_n < 1 or n % block_n:
+        raise ValueError(f"split fold: block_n={block_n} must divide {n}")
+    _validate("split fold", d, ld, n, n // block_n, pos=pos, pbp=pbp,
+              pbf=pbf, fit=fit, gf=gf, pbv=pbv, viol=viol, lp=lp, lf=lf,
+              keys=keys, aux_fit=aux_fit, aux_idx=aux_idx, counts=counts)
+    if pos.device.type == "cpu":
+        out = split_fold_plain(pos, pbp, pbf, fit, n=n, block_n=block_n,
+                               mode=mode, gf=gf, pbv=pbv, viol=viol, lp=lp,
+                               lf=lf, keys=keys, counts=counts)
+        _copy_into(dict(pbp=pbp, pbf=pbf, pbv=pbv, lp=lp, lf=lf, keys=keys,
+                        aux_fit=aux_fit, aux_idx=aux_idx), out)
+        return
+    dev = pos.device
+    _cuda_operands(pos, pbp, pbf, fit, gf, pbv, viol, lp, lf, keys, aux_fit,
+                   aux_idx, counts)
+    with torch.cuda.device(dev):
+        _check(_lib().pso_split_fold(
+            *_ptrs([pos, pbp, pbf, pbv, fit, viol, gf, lp, lf, keys, aux_fit,
+                    aux_idx, counts]),
+            n, d, block_n, ld // n, MODES[mode], _stream(dev)),
+            "split fold kernel launch")
+    fold.launches += 1
+
+
+fold.launches = 0
+
+
+def publish(pos, fit, gp, gf, *, n: int, mode: str, keys=None, lp=None,
+            lf=None, act=None, counts=None):
+    """``split_publish_plain`` in place: on CUDA tensors one launch of
+    ``split_publish_kernel``, on CPU tensors the plain version."""
+    d, ld = pos.shape
+    s_cnt = ld // n
+    nb = 1 if lf is None else lf.shape[0] // max(s_cnt, 1)
+    _validate("split publish", d, ld, n, nb, pos=pos, fit=fit, gp=gp, gf=gf,
+              keys=keys, lp=lp, lf=lf, act=act, counts=counts)
+    if pos.device.type == "cpu":
+        out = split_publish_plain(pos, fit, gp, gf, n=n, mode=mode,
+                                  keys=keys, lp=lp, lf=lf, act=act,
+                                  counts=counts)
+        _copy_into(dict(gp=gp, gf=gf, keys=keys, lp=lp, lf=lf), out)
+        return
+    dev = pos.device
+    _cuda_operands(pos, fit, gp, gf, lp, lf, keys, act, counts)
+    with torch.cuda.device(dev):
+        _check(_lib().pso_split_publish(
+            *_ptrs([pos, fit, gp, gf, lp, lf, keys, act, counts]),
+            n, d, nb, s_cnt, MODES[mode], _stream(dev)),
+            "split publish kernel launch")
+    publish.launches += 1
+
+
+publish.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The torch step and the iteration chain
+# ---------------------------------------------------------------------------
+
+def _flat(x: Tensor, pos: Tensor) -> Tensor:
+    """A user function's per-particle output as the contiguous float32
+    [S*N] the fold kernel reads."""
+    return x.reshape(-1).to(pos.dtype).contiguous()
+
+
+def torch_step(table, fids, n: int, lead: Tuple[int, ...]
+               ) -> Callable[[Tensor], Tuple[Tensor, Optional[Tensor]]]:
+    """The torch step between ``advance`` and ``fold``: ``step(pos [D,
+    S*N]) -> (fit [S*N], viol [S*N] or None)``. The positions are given to
+    the user's functions particle-major and contiguous, ``[*lead, D]``
+    (``lead`` is ``(N,)`` for one swarm, ``(S, N)`` for a batch), as the
+    eager engine gives them, so a run matches it bit for bit; a
+    ``kernel_fn`` takes the D-major array itself. A heterogeneous table
+    evaluates each member on its own swarms' positions (projection and the
+    Deb rule never apply there)."""
+    if fids is None:
+        prob = table[0]
+        proj, kfn = prob.projection_fn, prob.kernel_fn
+        vf = prob.violation_fn if prob.deb else None
+
+        def step(pos):
+            if kfn is not None:
+                return _flat(kfn(pos), pos), None
+            x = pos.t().contiguous().view(*lead, pos.shape[0])
+            if proj is not None:
+                x = proj(x)
+                pos.copy_(x.reshape(-1, pos.shape[0]).t())
+            return _flat(prob.max_fn(x), pos), (
+                None if vf is None else _flat(vf(x), pos))
+        return step
+    fl = fids.tolist()
+    s_cnt = len(fl)
+    groups = []
+    for k in sorted(set(fl)):
+        rows = [s for s in range(s_cnt) if fl[s] == k]
+        groups.append((table[k], torch.tensor(rows, device=fids.device)))
+
+    def step(pos):
+        d, ld = pos.shape
+        fit = pos.new_empty(s_cnt, n)
+        x = None
+        for prob, rows in groups:
+            rows = rows.to(pos.device)
+            if prob.kernel_fn is not None:
+                cols = (rows[:, None] * n + torch.arange(
+                    n, device=pos.device)).reshape(-1)
+                fit[rows] = prob.kernel_fn(pos.index_select(1, cols)
+                                           ).reshape(-1, n).to(pos.dtype)
+                continue
+            if x is None:
+                x = pos.t().contiguous().view(s_cnt, n, d)
+            fit[rows] = prob.max_fn(x[rows]).to(pos.dtype)
+        return fit.reshape(-1), None
+    return step
+
+
+def iterate(state, seeds, its, specs, fids, step, *, n: int, block_n: int,
+            off: int, iters: int, sync_every: Optional[int] = None,
+            pbv=None, counts=None, counters=None) -> Optional[Tensor]:
+    """``iters`` iterations of the split path on ``state`` = (pos, vel,
+    pbp, pbf, gp, gf), plus (lp, lf) for the async mode (``sync_every``
+    given), in place, the first at offset ``off`` into the call's
+    iterations. ``step`` is ``torch_step``'s; ``pbv`` the carried pbest
+    violation where Deb applies. Returns the last iteration's fitness."""
+    pos, vel, pbp, pbf, gp, gf = state[:6]
+    s_cnt = gf.shape[0]
+    dev = pos.device
+    if counters is None and dev.type == "cuda":
+        counters = uint32_rows(seeds, its, dev)
+    fit = None
+    if sync_every is None:
+        keys = torch.zeros(s_cnt, dtype=torch.int64, device=dev)
+        for t in range(iters):
+            advance(pos, vel, pbp, gp, seeds, its, specs, fids, n=n,
+                    it_off=off + t, gdiv=n, counters=counters)
+            fit, viol = step(pos)
+            fold(pos, pbp, pbf, fit, n=n, block_n=block_n, mode="fused",
+                 gf=gf, pbv=pbv, viol=viol, keys=keys, counts=counts)
+            publish(pos, fit, gp, gf, n=n, mode="fused", keys=keys,
+                    counts=counts)
+        return fit
+    lp, lf = state[6:]
+    # the action of each iteration for each swarm (core/pso.py _sync_point)
+    t_ar = torch.arange(iters, device=dev)[:, None]
+    due = (its.to(dev, torch.int64)[None, :] + off + t_ar + 1) \
+        % max(1, sync_every) == 0
+    act = torch.where(due, ACT_SYNC, torch.where(
+        t_ar == iters - 1, ACT_FLUSH, ACT_NONE)).to(torch.int32)
+    for t in range(iters):
+        advance(pos, vel, pbp, lp, seeds, its, specs, fids, n=n,
+                it_off=off + t, gdiv=block_n, counters=counters)
+        fit, viol = step(pos)
+        fold(pos, pbp, pbf, fit, n=n, block_n=block_n, mode="async",
+             pbv=pbv, viol=viol, lp=lp, lf=lf, counts=counts)
+        publish(pos, fit, gp, gf, n=n, mode="async", lp=lp, lf=lf,
+                act=act[t], counts=counts)
+    return fit

@@ -239,14 +239,15 @@ def test_unported_method_features_raise(kw, item):
 def test_unported_entry_points_and_problem_fields_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         api.solve_stream([])
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # constraints and kernel_fn are ported: what raises now is the
+    # reference's validation of them
+    with pytest.raises(TypeError, match="ConstraintSet"):
         Problem(name="c", fn=lambda x: x.sum(-1), constraints=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Problem(name="k", fn=lambda x: x.sum(-1), kernel_fn=lambda *a: 0)
-    with pytest.raises(NotImplementedError, match="custom objective"):
-        repro_torch.solve(lambda x: -(x * x).sum(-1), dim=2, particles=64,
-                          iters=1, variant="queue_lock", backend="kernel",
-                          device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Problem(name="k", fn=lambda x: x.sum(-1), kernel_fn=lambda p: p[0],
+                constraints=repro_torch.ConstraintSet(
+                    mode="projection",
+                    projection=repro_torch.project_simplex))
 
 
 def test_solve_without_device_needs_a_card():
@@ -312,3 +313,60 @@ def test_port_sources_import_no_jax_or_reference():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+# --- constrained problems and custom objectives through the facade ----------
+
+@pytest.mark.parametrize("name", ["sphere_simplex", "sphere_simplex_pen"])
+@pytest.mark.parametrize("variant,backend", [
+    ("queue_lock", "eager"), ("async", "eager"), ("queue_lock", "kernel"),
+    ("async", "kernel")])
+def test_solve_constrained_cpu_matches_reference(name, variant, backend):
+    """The registered constrained problems through ``solve`` on both
+    backends (the kernel backend's split path in its plain versions)
+    against ``repro.solve``; a penalised fitness also within atol 1e-5 (its
+    violation cancels to a few ulps of 1, times the weight 50)."""
+    kw = dict(dim=4, particles=128, iters=3, seed=7, variant=variant,
+              sync_every=2, w=0.7, record_history=True)
+    want = repro.solve(name, backend="jnp", **kw)
+    got = repro_torch.solve(name, backend=backend, device="cpu", **kw)
+    np.testing.assert_allclose(got.state.pos.numpy(),
+                               np.asarray(want.state.pos), **TRAJ_TOL)
+    np.testing.assert_allclose(got.best_pos, want.best_pos, **TRAJ_TOL)
+    np.testing.assert_allclose(got.best_fit, want.best_fit, rtol=1e-5,
+                               atol=1e-5)
+    assert got.feasible == want.feasible
+    assert got.first_feasible_iter == want.first_feasible_iter
+    np.testing.assert_allclose(got.history.violation,
+                               want.history.violation, rtol=1e-4, atol=1e-6)
+    if name == "sphere_simplex":
+        pos = got.state.pos
+        assert float(pos.min()) >= 0.0
+        np.testing.assert_allclose(pos.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["queue_lock", "async"])
+def test_solve_many_constrained_rows_equal_solve(variant):
+    kw = dict(dim=4, particles=64, iters=4, variant=variant, sync_every=2,
+              w=0.7, backend="kernel", record_history=True, device="cpu")
+    rows = repro_torch.solve_many("sphere_simplex", [3, 4, 5], **kw)
+    for sd, r in zip([3, 4, 5], rows):
+        one = repro_torch.solve("sphere_simplex", seed=sd, **kw)
+        assert torch.equal(r.state.pos, one.state.pos)
+        assert r.best_fit == one.best_fit
+        np.testing.assert_array_equal(r.history.violation,
+                                      one.history.violation)
+    assert repro_torch.best(rows).best_fit == min(r.best_fit for r in rows)
+
+
+def test_custom_objective_on_the_kernel_backend_matches_eager():
+    """A custom objective runs on the kernel backend (the split path) and
+    equals the eager engine's queue variant bit for bit."""
+    fn = lambda x: -(x * x).sum(-1)          # noqa: E731
+    kw = dict(dim=3, particles=128, iters=5, seed=2, device="cpu")
+    got = repro_torch.solve(fn, variant="queue_lock", backend="kernel",
+                            telemetry=True, **kw)
+    want = repro_torch.solve(fn, variant="queue", backend="eager", **kw)
+    assert torch.equal(got.state.pos, want.state.pos)
+    assert got.best_fit == want.best_fit
+    assert got.telemetry.queue_updates == got.telemetry.publications > 0

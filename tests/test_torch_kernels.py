@@ -395,10 +395,13 @@ def test_async_wrappers_on_cpu_tensors_run_the_plain_version(cluster):
 
 
 def test_kernel_spec_rejects_custom_objective_and_dtype():
+    # a custom objective is no built-in kernel's: its spec routes it to the
+    # split path (kernels/pso_split.py) instead of raising
     mine = pso.Problem(name="mine", fn=lambda x: -x.sum(-1))
     cfg = pso.PSOConfig(dim=2, particle_cnt=64, fitness=mine)
-    with pytest.raises(NotImplementedError, match="custom objective"):
-        ops.kernel_spec(cfg)
+    assert ops.kernel_spec(cfg).fitness == ops.CONVERTED
+    assert ops.kernel_spec(pso.PSOConfig(dim=2, particle_cnt=64,
+                                         fitness="sphere")).fitness == 1
     with pytest.raises(ValueError, match="float32"):
         ops.kernel_spec(pso.PSOConfig(dim=2, particle_cnt=64,
                                       dtype="float64"))
