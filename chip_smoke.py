@@ -78,9 +78,22 @@ standard library, and exits non-zero on any failure. Phases:
    in turns), the card line, and a last line ``{"ok": true, "device":
    {...}}``. Phase 5 also times the fused and async kernels alone at the
    paper's largest swarms with counters off and on, in turns.
+
+Before the JSON line: 6, the split path (6a its three kernels against
+their plain versions, 6b ``solve``/``solve_many`` of custom and constrained
+Problems, 6c each split kernel's time); 7, the lbest topologies (ring, von
+Neumann): the card's neighbour ids, one-block lbest runs bit for bit the
+star's kernel and against their plain versions, the multi-block
+invariants (a torn-read check in the kernels' own arithmetic) and ``solve``
+of the star beside both topologies at the paper's largest swarms (us/iter,
+gbest, the async kernel alone in turns, the counters and pbest rises),
+``solve_many`` at phase 4e's batches, and the split path's lbest bit for
+bit the eager engine's. The JSON line counts phase 7's lbest launches
+under the async rows.
 """
 import concurrent.futures
 import ctypes
+import dataclasses
 import functools
 import json
 import math
@@ -107,6 +120,10 @@ try:    # tools/kernel_trees.py drives older checkouts, without the split path
     from repro_torch.kernels import pso_split
 except ImportError:
     cons = pso_split = None
+try:    # nor the lbest topologies
+    from repro_torch.core import topology
+except ImportError:
+    topology = None
 
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and 67 TFLOP/s of
@@ -376,17 +393,23 @@ def ptxas_lines(log: str) -> list:
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
             # mangled <kernel>ILi<fitness>ELi<rule>E[Lb<flag>E...] ->
-            # kernel<f,r[,grid|block][,cluster]>: the fused kernel's
-            # flags are grid sync and cluster, the queue kernel's
-            # cluster; fitness 6 is the hetero kernel
+            # kernel<f,r[,grid|block][,cluster][,lbest]>: the fused
+            # kernel's flags are grid sync and cluster, the queue kernel's
+            # cluster, the async kernel's cluster and lbest; fitness 6 is
+            # the hetero kernel
             m = re.search(r"([a-z]+_kernel)ILi(\d+)ELi(\d+)E((?:Lb\dE)*)",
                           entry)
             if m:
                 flags, g = re.findall(r"Lb(\d)E", m[4]), ""
                 if m[1] == "fused_kernel":
                     g = ",grid" if flags.pop(0) == "1" else ",block"
+                # the async kernel's lbest flag (trees before it have none)
+                lbest = m[1] == "async_kernel" and len(flags) == 2 \
+                    and flags.pop() == "1"
                 if flags == ["1"]:
                     g += ",cluster"
+                if lbest:
+                    g += ",lbest"
                 entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
                          f"{rules[m[3]]}{g}>")
             else:     # GLA (gla_chunk_state<WM>) or no template
@@ -2691,6 +2714,353 @@ def split_times(card: str, times: dict, bounds: dict) -> None:
                  else ""))
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the lbest topologies (ring, von Neumann) of the async kernel
+# (rows 5-7) and of the split path's publish kernel.
+# ---------------------------------------------------------------------------
+
+LBEST = ("ring", "vonneumann")
+#: The async rows: their wrappers count the lbest launches as well.
+ASYNC_ROWS = ("fused_async", "fused_async_batch", "hetero_fused_async_batch")
+#: Block counts whose neighbour ids the card computes (1..7: degenerate
+#: grids; 64, 256: the solve cells' von Neumann 8x8 and 16x16).
+NEIGHBOR_NBS = (1, 2, 3, 7, 64, 256)
+#: The multi-block invariant runs: (d, n, launches, iterations a launch) at
+#: the solve cells, and solve_many's iterations.
+LBEST_CELLS = ((1, 131072, 3, 16), (120, 32768, 2, 16))
+LBEST_MANY_ITERS = 200
+
+
+def kernel_fitness(spec, cols, c: int):
+    """The kernels' own fitness of each column of ``cols`` ``[D, m]`` on
+    the card, summed as the fused and async kernels sum it on clusters of
+    ``c``: one fused iteration that leaves every position where it is
+    (w = c1 = c2 = 0, pbest at the position, no velocity) folds it into a
+    pbest of -inf. A check that a stored (position, fitness) pair is whole
+    then depends on no reduction order."""
+    still = dataclasses.replace(spec, rule="pso", w=0.0, c1=0.0, c2=0.0)
+    pos = cols.contiguous().clone()
+    m = pos.shape[1]
+    pbf = torch.full((m,), -math.inf, device=pos.device)
+    state = (pos, torch.zeros_like(pos), pos.clone(), pbf, pos[:, 0].clone(),
+             torch.full((1,), -math.inf, device=pos.device))
+    pso_step._fused_launch(state, still, seed=0, iteration=0, iters=1,
+                           block_n=m, cluster=c)
+    torch.cuda.synchronize()
+    check(torch.equal(pos, cols), "kernel_fitness leaves positions alone")
+    return pbf
+
+
+def whole_slots(what, spec, lp, lf, gp, gf, c: int) -> None:
+    """The torn-read check: every local-best slot's position (``lp``
+    ``[D, m]``) and every gbest's (``gp`` ``[D]`` or ``[D, S]``) evaluate,
+    in the kernels' own arithmetic, to exactly the fitness stored with
+    them."""
+    got = kernel_fitness(spec, torch.cat((lp, gp.reshape(lp.shape[0], -1)),
+                                         1), c)
+    want = torch.cat((lf.reshape(-1), gf.reshape(-1)))
+    bad = int((got != want).sum())
+    check(bad == 0, f"{what}: {bad} slot(s) whose position does not "
+          f"evaluate to its stored fitness (a torn copy)")
+
+
+def lbest_neighbor_ids() -> None:
+    for topo in LBEST:
+        for nb in NEIGHBOR_NBS:
+            got = pso_step.neighbor_ids(nb, topo, "cuda").cpu()
+            want = pso_step.neighbor_ids(nb, topo, "cpu")
+            check(torch.equal(got, want), f"{topo} nb={nb}: the card's "
+                  f"neighbour ids == kernel_neighbor_ids")
+    print(f"  neighbour ids on the card == core.topology.kernel_neighbor_ids "
+          f"exactly, nb in {NEIGHBOR_NBS}, ring and von Neumann")
+
+
+def lbest_one_block(errs) -> None:
+    """One block: an lbest fold reads only the block itself, so the lbest
+    kernel equals the star's bit for bit; against its plain version at
+    C = 1 (cubic d=8 n=512, 53 iterations at sync_every=8: a remainder
+    launch) within the phase-3 tolerances, and at C = 8 (rastrigin d=120
+    n=128, iterations 6..10 at sync_every=2) up to a comparison flip in the
+    last iteration, as ``async_one_block``."""
+    for topo in LBEST:
+        for fit, d, n, kw in (
+                ("cubic", 8, 512, dict(iteration=0, iters=53, sync_every=8)),
+                ("rastrigin", 120, 128, dict(iteration=5, iters=5,
+                                             sync_every=2))):
+            cfg, spec, state, seed = kernel_state(fit, d, n)
+            c = cluster_of(n, d)
+            check(c == (1 if d == 8 else 8), f"d={d} n={n}: clusters of {c}")
+            kw = dict(kw, seed=seed, block_n=n)
+            loc = with_locals(state, 1)
+            got = pso_step.fused_async(*[x.clone() for x in loc], spec,
+                                       topology=topo, **kw)
+            star = pso_step.fused_async(*[x.clone() for x in loc], spec,
+                                        **kw)
+            want = pso_step.fused_async_plain(*loc, spec, topology=topo,
+                                              **kw)
+            torch.cuda.synchronize()
+            what = (f"async {topo} {fit} d={d} n={n} one block, clusters of "
+                    f"{c}")
+            check(same(got, star), f"{what}: bit for bit the star's kernel")
+            if c > 1 and disagreeing(got, want, ASYNC_FIELDS):
+                prev = pso_step.fused_plain(
+                    *state, spec, seed=seed, iteration=kw["iteration"],
+                    iters=kw["iters"] - 1, block_n=n)
+                check(is_flip(cfg, prev, want[:6], got[:6]),
+                      f"{what}: kernel and plain disagree, max error "
+                      f"{disagreeing(got, want, ASYNC_FIELDS)}")
+                print(f"  {what}: == the star's kernel bit for bit; a "
+                      f"comparison flip at a near tie in the last iteration")
+                continue
+            e = compare(got, want, ASYNC_FIELDS, what)
+            errs["fused_async"] = max(errs["fused_async"], e)
+            print(f"  {what}, {kw['iters']} iterations at sync_every="
+                  f"{kw['sync_every']}: == the star's kernel bit for bit, "
+                  f"max |kernel - plain| = {e:.3g}")
+
+
+def lbest_invariants(topo, d, n, launches, iters, sync_every=8) -> None:
+    """The lbest kernel over many blocks, a race by design, at a main-path
+    cell: ``launches`` launches of ``iters`` from the initial cubic swarm,
+    each held to gbest monotone, == max(pbest) after the final flush and ==
+    a pbest column, positions in the box, every slot's fitness
+    non-decreasing and at least its neighbourhood's best at launch, every
+    slot whole (``whole_slots``); over all launches, publications <=
+    chunks x blocks."""
+    cfg, spec, state, seed = kernel_state("cubic", d, n, seed=1)
+    bn = ops._resolve_block(n, None)
+    nb = n // bn
+    c = cluster_of(n, d)
+    state = with_locals(state, nb)
+    prev = float(state[5][0])
+    cnt = new_counts()
+    for launch in range(launches):
+        lf0 = state[7].clone()
+        _, hood = topology.block_neighbor_best(lf0, state[6].T, topo)
+        pso_step.fused_async(*state, spec, seed=seed,
+                             iteration=iters * launch, iters=iters,
+                             sync_every=sync_every, block_n=bn, counts=cnt,
+                             topology=topo)
+        torch.cuda.synchronize()
+        pos, _, pbp, pbf, gp, gf, lp, lf = state
+        what = (f"async {topo} cubic d={d} n={n} ({nb} blocks, clusters of "
+                f"{c}), launch {launch + 1}")
+        g = float(gf[0])
+        check(g >= prev, f"{what}: gbest monotone ({g} < {prev})")
+        check(g == float(pbf.max()), f"{what}: gbest == max(pbest)")
+        check(gbest_is_a_pbest(pbp, pbf, gp, gf), f"{what}: gbest_pos a "
+              f"pbest column of fitness gbest")
+        lo, hi, _ = pso_step._operands(spec, pos.device)
+        check(bool(((pos >= lo) & (pos <= hi)).all()), f"{what}: in bounds")
+        check(bool((lf >= lf0).all()), f"{what}: every slot non-decreasing")
+        check(bool((lf >= hood).all()), f"{what}: every slot >= its "
+              f"neighbourhood's best at launch")
+        whole_slots(what, spec, lp, lf, gp, gf, c)
+        if d == 1:
+            check(torch.equal(cfg.fitness_fn(lp.T.contiguous()), lf),
+                  f"{what}: torch's fitness at every slot == its own")
+        prev = g
+    counts_invariants(cnt, launches * iters, nb, f"async {topo} d={d}",
+                      "fused_async",
+                      chunks=launches * n_chunks(iters, sync_every))
+    print(f"  async {topo} cubic d={d} n={n} ({nb} blocks, clusters of {c}) "
+          f"{launches} launches of {iters} at sync_every={sync_every}: gbest "
+          f"{prev:.7g} monotone, == max(pbest), a pbest column; in bounds; "
+          f"every slot non-decreasing, >= its neighbourhood at launch and "
+          f"whole; counts {cnt.tolist()} within the async invariants")
+
+
+def lbest_main(what, fn, want_counts):
+    """One main-path call with every launch count set to 0 just before it
+    and read just after: (its result, host seconds, the counts)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    check(set(counts) == want_counts, f"{what}: launched {want_counts} and "
+          f"no other ({counts})")
+    return res, dt, counts
+
+
+def lbest_solve_cells(card: str, launches: dict) -> None:
+    """``repro_torch.solve(variant="async", topology=...)`` at the paper's
+    largest solve cells, the star beside ring and von Neumann (every lbest
+    launch counted under its row): us an iteration, gbest, the result's
+    slots whole; then the async kernel alone from one state, device us an
+    iteration in turns (the median of five)."""
+    for d, n, iters in SOLVE_CELLS:
+        bn = ops._resolve_block(n, None)
+        c = cluster_of(n, d)
+        line = []
+        for topo in ("gbest",) + LBEST:
+            kw = dict(dim=d, particles=n, seed=0, variant="async",
+                      topology=topo)
+            repro_torch.solve("cubic", iters=2, **kw)          # warm-up
+            what = f"solve cubic d={d} n={n} x{iters} async {topo}"
+            res, dt, counts = lbest_main(what, functools.partial(
+                repro_torch.solve, "cubic", iters=iters, **kw),
+                {"fused_async"})
+            if topo != "gbest":
+                launches["fused_async"] += counts["fused_async"]
+            st = res.state
+            g = res.best_fit
+            check(math.isfinite(g) and g <= OPTIMUM_PER_DIM * d * (1 + 1e-6),
+                  f"{what}: finite gbest <= the optimum")
+            check(g == float(st.pbest_fit.max()), f"{what}: gbest == "
+                  f"max(pbest)")
+            check(gbest_is_a_pbest(st.pbest_pos.T, st.pbest_fit,
+                                   st.gbest_pos, st.gbest_fit),
+                  f"{what}: gbest_pos a pbest")
+            whole_slots(what, ops.kernel_spec(res.config), st.lbest_pos.T,
+                        st.lbest_fit, st.gbest_pos, st.gbest_fit, c)
+            line.append(f"{topo} {dt / iters * 1e6:.2f} us/iter gbest "
+                        f"{g:.7g}")
+        rows, cols = topology.grid_dims(n // bn)
+        print(f"  solve cubic d={d} n={n} x{iters} async, sync_every=8, "
+              f"{n // bn} blocks (von Neumann {rows}x{cols}), "
+              f"clusters of {c}: " + "; ".join(line)
+              + f" (optimum {OPTIMUM_PER_DIM * d:.7g}); every slot whole "
+              f"[{card}]")
+        _, spec, state, seed = kernel_state("cubic", d, n)
+        state = with_locals(state, n // bn)
+        kw = dict(seed=seed, iteration=0, iters=iters, block_n=bn,
+                  sync_every=pso.ASYNC_SYNC_EVERY)
+        us = {t: [] for t in ("gbest",) + LBEST}
+        for k in range(6):
+            order = list(us) if k % 2 else list(us)[::-1]
+            for topo in order:
+                t = device_us(lambda st: pso_step.fused_async(
+                    *st, spec, topology=topo, **kw), state)
+                if k:
+                    us[topo].append(t / iters)
+        print(f"  cubic d={d} n={n} x{iters}, the async kernel alone from "
+              f"one state, device us/iter (CUDA events, median of 5, in "
+              f"turns): " + ", ".join(
+                  f"{t} {sorted(v)[2]:.3f} ("
+                  + ", ".join(f"{u:.3f}" for u in v) + ")"
+                  for t, v in us.items()) + f" [{card}]")
+        # what the topologies change in the swarm's work: the counters of
+        # the run, the particles whose pbest rose (each a pbest column
+        # copy) and the device time, chunk by chunk, the first four chunks
+        # (where the swarm still climbs) apart from the rest
+        work = []
+        se = kw["sync_every"]
+        for topo in us:
+            st, cnt, rises, t = [x.clone() for x in state], new_counts(), 0, []
+            for ch in range(iters // se):
+                prev = st[3].clone()
+                t.append(device_us(lambda x: pso_step.fused_async(
+                    *x, spec, topology=topo, counts=cnt,
+                    **dict(kw, iteration=ch * se, iters=se)), st, copy=False))
+                rises += int((st[3] > prev).sum())
+            q, pub, imp = cnt.tolist()
+            work.append(f"{topo} {q} queue updates, {pub} publications, "
+                        f"{imp} block improvements, {rises} pbest rises, "
+                        f"device us/iter {sum(t[:4]) / (4 * se):.2f} in "
+                        f"chunks 1-4, "
+                        f"{sum(t[4:]) / max(1, len(t[4:]) * se):.2f} after")
+        print(f"  cubic d={d} n={n} x{iters}, chunk by chunk (launches of "
+              f"{se}, counters on): " + "; ".join(work) + f" [{card}]")
+
+
+def lbest_many(card: str, launches: dict) -> None:
+    """``repro_torch.solve_many`` under both lbest topologies, beside the
+    star, at phase 4e's batches (rastrigin d=10 n=1024 S=128; the six
+    built-ins over S=96), counters on: every row's gbest == max(pbest),
+    positions in its box, publications <= chunks x blocks, its slots
+    whole (every lbest launch counted under its row)."""
+    for label, where, s_cnt, n in MANY_TELEMETRY:
+        key = ("hetero_fused_async_batch" if "problems" in where
+               else "fused_async_batch")
+        bn = ops._resolve_block(n, None)
+        nb = n // bn
+        for topo in ("gbest",) + LBEST:
+            iters = LBEST_MANY_ITERS
+            kw = dict(where, seeds=range(s_cnt), dim=10, particles=n,
+                      iters=iters, variant="async", topology=topo,
+                      telemetry=True)
+            what = f"solve_many {label} x{iters} async {topo}"
+            repro_torch.solve_many(**dict(kw, iters=2))       # warm-up
+            rows, dt, counts = lbest_main(what, functools.partial(
+                repro_torch.solve_many, **kw), {key})
+            if topo != "gbest":
+                launches[key] += counts[key]
+            groups = {}
+            for r in rows:
+                st = r.state
+                check(r.config.topology == topo, f"{what}: the topology "
+                      f"reported")
+                check(r.gbest_fit == float(st.pbest_fit.max()),
+                      f"{what}: gbest == max(pbest) in every row")
+                check(bool(((st.pos >= r.config.min_pos)
+                            & (st.pos <= r.config.max_pos)).all()),
+                      f"{what}: every row in its box")
+                check(r.telemetry.publications
+                      <= n_chunks(iters, pso.ASYNC_SYNC_EVERY) * nb,
+                      f"{what}: publications <= chunks x blocks")
+                groups.setdefault(ops.kernel_spec(r.config), []).append(st)
+            for spec, sts in groups.items():
+                whole_slots(what, spec,
+                            torch.cat([x.lbest_pos.T for x in sts], 1),
+                            torch.cat([x.lbest_fit for x in sts]),
+                            torch.stack([x.gbest_pos for x in sts], 1),
+                            torch.stack([x.gbest_fit for x in sts]),
+                            cluster_of(n, 10))
+            best = max(r.gbest_fit for r in rows)
+            print(f"  {what}: {dt / iters * 1e6:.2f} us/iter of the "
+                  f"batch, best row {best:.7g}; every row's gbest == "
+                  f"max(pbest), in its box, its slots whole, publications "
+                  f"<= chunks x {nb}; launches {counts} [{card}]")
+
+
+def lbest_split(card: str) -> None:
+    """The split path's lbest (the pull inside the publish kernel) on the
+    card: sphere_simplex d=8 n=1024 x100 through ``solve`` on the kernel
+    backend equals the eager engine's, bit for bit."""
+    if pso_split is None:
+        return
+    for topo in LBEST:
+        m = dict(variant="async", topology=topo, block_n=128, w=0.7)
+        zero_counts()
+        kern = repro_torch.solve("sphere_simplex", dim=8, particles=1024,
+                                 iters=100, backend="kernel", **m)
+        counts = {k: v for k, v in read_counts().items() if v}
+        check(set(counts) == set(SPLIT), f"split {topo}: the split kernels "
+              f"({counts})")
+        eager = repro_torch.solve("sphere_simplex", dim=8, particles=1024,
+                                  iters=100, backend="eager", **m)
+        for f in ("pos", "vel", "pbest_pos", "pbest_fit", "gbest_pos",
+                  "gbest_fit", "lbest_pos", "lbest_fit"):
+            check(torch.equal(getattr(kern.state, f),
+                              getattr(eager.state, f)),
+                  f"split {topo}: {f} bit for bit the eager engine's")
+        print(f"  split path sphere_simplex d=8 n=1024 x100 async {topo} (8 "
+              f"blocks): == the eager run_async bit for bit, gbest "
+              f"{kern.best_fit:.7g} (optimum 0.125), feasible "
+              f"{kern.feasible} [{card}]")
+
+
+def phase_lbest(card: str, errs) -> dict:
+    """Phase 7; returns the lbest launches of its main-path calls."""
+    print(f"phase 7: the lbest topologies, ring and von Neumann [{card}]")
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(ASYNC_ROWS, 0)
+    lbest_neighbor_ids()
+    lbest_one_block(errs)
+    for topo in LBEST:
+        for cell in LBEST_CELLS:
+            lbest_invariants(topo, *cell)
+    lbest_solve_cells(card, launches)
+    lbest_many(card, launches)
+    lbest_split(card)
+    print(f"  phase 7: {time.perf_counter() - t0:.1f} s; lbest launches on "
+          f"its main paths {launches}")
+    return launches
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -2753,6 +3123,8 @@ def main() -> int:
     split_launches, split_us = phase_split_path(card)
     launches.update(split_launches)
     split_times(card, times, bounds)
+    for k, v in phase_lbest(card, errs).items():
+        launches[k] += v
     kernels = []
     for name, replaces in REPLACES.items():
         b_ms, b_by = bounds[name]

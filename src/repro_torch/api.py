@@ -21,6 +21,9 @@
   kernel backend takes every Problem: the six unconstrained built-ins on
   their own kernels, any other (custom objectives, ``kernel_fn``, every
   constraint mode) on the split path (``kernels/pso_split.py``).
+* ``topology`` (async only): ``gbest``, the paper's star, or the lbest
+  ``ring``/``vonneumann``, where each particle block pulls the best of its
+  neighbour blocks' local bests instead of gbest (``core/topology.py``).
 * ``record_history``: ``Result.history``, gbest at every sync point;
   ``telemetry``: ``Result.telemetry``, the kernels' contention counters
   (``repro_torch.telemetry``; on the CPU the kernel backend's plain
@@ -76,9 +79,11 @@ class Method:
     the particle-block size (kernel CTAs; the eager async engine takes the
     matching block count). ``record_history`` fills ``Result.history`` (gbest
     per sync point, any backend); ``telemetry`` fills ``Result.telemetry``
-    (the kernel backend only). ``islands``, ``schedule="auto"`` and the
-    lbest ``topology`` values are accepted only at their defaults until the
-    port carries them.
+    (the kernel backend only). ``topology`` is the async variant's pull at
+    a sync point: ``gbest`` (the star), or the lbest ``ring`` and
+    ``vonneumann`` (``variant="async"`` only). ``islands`` and
+    ``schedule="auto"`` are accepted only at their defaults until the port
+    carries them.
     """
 
     variant: str = "queue"
@@ -132,6 +137,12 @@ class Method:
         if self.topology not in TOPOLOGIES:
             raise ValueError(
                 f"unknown topology {self.topology!r}; one of {TOPOLOGIES}")
+        if self.topology != "gbest" and self.variant != "async":
+            raise ValueError(
+                f"topology={self.topology!r} generalizes the async "
+                f"variant's block-local pull; variant={self.variant!r} has "
+                f"no block-local bests — use variant='async' (lbest "
+                f"topologies: {TOPOLOGIES[1:]})")
         if self.islands < 0 or self.exchange_interval < 1:
             raise ValueError(
                 f"islands={self.islands} must be >= 0 and "
@@ -140,8 +151,6 @@ class Method:
             raise ValueError(f"sync_every={self.sync_every} must be >= 1")
         if self.schedule == "auto":
             raise _not_ported("schedule='auto' (the autotuner)", "9")
-        if self.topology != "gbest":
-            raise _not_ported(f"topology={self.topology!r}", "4 (topologies)")
         if self.islands:
             raise _not_ported("islands", "7 (islands and the CLI)")
 

@@ -263,8 +263,10 @@ def run_many(cfg: PSOConfig, batch: SwarmBatch, iters: int,
     ``variant`` is one of ``reduction | queue | queue_lock | async``;
     ``coeffs`` optionally gives per-swarm ``(w, c1, c2)``; ``rows``/``table``
     make the batch heterogeneous; ``sync_every``/``n_blocks`` are the async
-    variant's. Async rows resumed at different iterations keep their own
-    publication schedules. Synchronous variants drop the async locals."""
+    variant's, and ``cfg.topology`` its pull at a sync point (each row's
+    locals fold only within the row). Async rows resumed at different
+    iterations keep their own publication schedules. Synchronous variants
+    drop the async locals."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     return SwarmBatch(*run(cfg, batch, iters, variant, sync_every=sync_every,

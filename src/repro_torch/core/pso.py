@@ -46,12 +46,10 @@ from . import rng
 from .blocking import default_block_count
 from .constraints import deb_improved, repair_init_positions
 from .problem import Bound, Problem, broadcast_bounds, resolve_problem
+from .topology import block_neighbor_best
 from .update_rules import TOPOLOGIES, resolve_rule
 
 Tensor = torch.Tensor
-
-#: ROADMAP item that ports the lbest topologies.
-_TOPOLOGY_ITEM = "ROADMAP.md, port order item 4 (topologies)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +59,9 @@ class PSOConfig:
     ``fitness`` is a registered problem name or a ``Problem``;
     ``min_pos``/``max_pos``/``max_v`` override the problem's domain, each a
     scalar or a length-``dim`` tuple. ``update_rule`` names the rule
-    (``pso``/``sso``/``lowcost``). Only the ``"gbest"`` topology is ported.
+    (``pso``/``sso``/``lowcost``). ``topology`` names the async variant's
+    pull at a sync point: ``gbest`` (the paper's star) or the lbest
+    ``ring``/``vonneumann`` (``core.topology``).
     """
 
     dim: int = 1
@@ -86,10 +86,6 @@ class PSOConfig:
         if self.topology not in TOPOLOGIES:
             raise ValueError(
                 f"unknown topology {self.topology!r}; one of {TOPOLOGIES}")
-        if self.topology != "gbest":
-            raise NotImplementedError(
-                f"topology={self.topology!r} is not ported yet: "
-                f"{_TOPOLOGY_ITEM}")
 
     @property
     def problem(self) -> Problem:
@@ -482,17 +478,34 @@ def flush_async_locals(s: SwarmState, local: Tuple[Tensor, Tensor]
     return s._replace(gbest_pos=gp, gbest_fit=gf), (lbp, lbf)
 
 
-def _sync_point(s: SwarmState, local, sync_every: int, last: bool):
-    """After an async step: publish and pull where the swarm's iteration is
-    a multiple of ``sync_every``, else flush publish-only after the last
-    step of the call. A batch decides per swarm, as its rows may stand at
-    different iterations."""
+def lbest_sync(s: SwarmState, local, topology: str
+               ) -> Tuple[SwarmState, Tuple[Tensor, Tensor]]:
+    """The scheduled sync of an lbest topology: flush the best local into
+    gbest (for monitoring and the final answer), then give every block the
+    best of its neighbourhood of locals (``block_neighbor_best``); gbest is
+    never pulled back."""
+    s, (lbp, lbf) = flush_async_locals(s, local)
+    return s, block_neighbor_best(lbf, lbp, topology)
+
+
+def _sync_point(s: SwarmState, local, sync_every: int, last: bool,
+                topology: str = "gbest"):
+    """After an async step: the scheduled sync where the swarm's iteration
+    is a multiple of ``sync_every`` (publish and pull gbest under the star,
+    ``lbest_sync`` under an lbest ``topology``), else flush publish-only
+    after the last step of the call. A batch decides per swarm, as its rows
+    may stand at different iterations."""
     due = s.iteration % sync_every == 0
+
+    def scheduled(s, local):
+        if topology == "gbest":
+            return publish_async_locals(s, local)
+        return lbest_sync(s, local, topology)
     if not isinstance(due, Tensor):
         if due:
-            return publish_async_locals(s, local)
+            return scheduled(s, local)
         return flush_async_locals(s, local) if last else (s, local)
-    pub_s, pub_l = publish_async_locals(s, local)
+    pub_s, pub_l = scheduled(s, local)
     keep_s, keep_l = flush_async_locals(s, local) if last else (s, local)
 
     def pick(a, b):
@@ -513,9 +526,11 @@ def run_async(cfg: PSOConfig, state: SwarmState, iters: int,
     and pulled at every iteration that is a multiple of ``sync_every``
     (aligned to absolute iteration numbers, so a resumed run keeps the
     uninterrupted schedule), and a call that ends between two such points
-    flushes publish-only. The result carries the block-local bests, and its
-    ``gbest_fit`` equals ``max(pbest_fit)``. A state that carries locals of
-    the same block count resumes them.
+    flushes publish-only. Under an lbest ``cfg.topology`` the scheduled
+    sync flushes gbest and pulls each block's neighbourhood best of the
+    locals instead (``lbest_sync``). The result carries the block-local
+    bests, and its ``gbest_fit`` equals ``max(pbest_fit)``. A state that
+    carries locals of the same block count resumes them.
     """
     cfg = cfg.resolved()
     n = state.pos.shape[-2]
@@ -532,7 +547,8 @@ def run_async(cfg: PSOConfig, state: SwarmState, iters: int,
     s = state._replace(lbest_pos=None, lbest_fit=None)
     for t in range(iters):
         s, local = step_async(cfg, s, local, coeffs=coeffs, hetero=hetero)
-        s, local = _sync_point(s, local, sync_every, last=t == iters - 1)
+        s, local = _sync_point(s, local, sync_every, last=t == iters - 1,
+                               topology=cfg.topology)
     return s._replace(lbest_pos=local[0], lbest_fit=local[1])
 
 

@@ -20,7 +20,9 @@
 //                            particle block, one thread a particle).
 //   split_publish_kernel     the cross-block stage (one CTA a swarm): the
 //                            fused mode's gbest from the folded keys, the
-//                            async mode's publish-and-pull or flush.
+//                            async mode's publish-and-pull or flush; under
+//                            an lbest topology the pull is each block's
+//                            neighbourhood best of the locals.
 //
 // In stream order that is synchronous PPSO: every block reads iteration
 // t-1's gbest, as the fused kernel of pso_step.cu does with several
@@ -117,6 +119,22 @@ __device__ __forceinline__ unsigned long long make_key(float f, int i) {
 }
 __device__ __forceinline__ int key_index(unsigned long long key) {
   return (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
+}
+
+// Neighbour k of block b under an lbest topology (core/topology.py
+// kernel_neighbor_ids): ring (1) b-1, b+1; von Neumann (2), on a rows x
+// cols torus, the row above, below, the column left, right.
+constexpr int kRing = 1, kVonNeumann = 2;
+__device__ __forceinline__ int neighbor_id(int b, int nb, int topo, int rows,
+                                           int cols, int k) {
+  if (topo == kRing) return k == 0 ? (b + nb - 1) % nb : (b + 1) % nb;
+  const int r = b / cols, c = b - r * cols;
+  switch (k) {
+    case 0: return ((r + rows - 1) % rows) * cols + c;
+    case 1: return ((r + 1) % rows) * cols + c;
+    case 2: return r * cols + (c + cols - 1) % cols;
+    default: return r * cols + (c + 1) % cols;
+  }
 }
 
 // Deb's rule (core/constraints.py deb_improved).
@@ -245,13 +263,19 @@ __global__ void __launch_bounds__(kFoldThreads) split_fold_kernel(
 // keys[s] is cleared for the next iteration. Async mode, act[s]: kActSync
 // publishes the best local (first on ties) into gbest where it beats it,
 // then pulls gbest into every local; 2 publishes only (the end of a call);
-// kActNone leaves the swarm alone (core/pso.py _sync_point).
+// kActNone leaves the swarm alone (core/pso.py _sync_point). Under an
+// lbest topology (topo 1 or 2) the pull of kActSync is core/topology.py's
+// block_neighbor_best: every local becomes the best of itself and its
+// neighbours (self first, strict >), all read before any is written, so
+// the swarm's locals are first copied to `scratch` ([D+1, S*nb]: lp's rows,
+// then lf) and read from there.
 __global__ void __launch_bounds__(kPublishThreads) split_publish_kernel(
     const float* __restrict__ pos, const float* __restrict__ fit,
     float* __restrict__ gp, float* __restrict__ gf, float* __restrict__ lp,
     float* __restrict__ lf, unsigned long long* __restrict__ keys,
-    const int* __restrict__ act, int* __restrict__ counts, int n, int d,
-    int nb, int s_cnt, int mode) {
+    const int* __restrict__ act, int* __restrict__ counts,
+    float* __restrict__ scratch, int n, int d, int nb, int s_cnt, int mode,
+    int topo, int rows, int cols) {
   __shared__ unsigned long long s_key;
   const int s = blockIdx.x;
   const int ld = s_cnt * n;
@@ -290,6 +314,34 @@ __global__ void __launch_bounds__(kPublishThreads) split_publish_kernel(
     if (counts) atomicAdd(counts + 3 * s + 1, 1);   // publications
   }
   if (a != kActSync) return;
+  if (topo) {
+    const float* slf = scratch + (size_t)d * lld;
+    for (int e = threadIdx.x; e < nb * (d + 1); e += blockDim.x) {
+      const int k = e / nb, j = e - k * nb;
+      scratch[(size_t)k * lld + s * nb + j] =
+          k < d ? lp[(size_t)k * lld + s * nb + j] : lf[s * nb + j];
+    }
+    __syncthreads();
+    const int nbrs = topo == kRing ? 2 : 4;
+    for (int e = threadIdx.x; e < nb * (d + 1); e += blockDim.x) {
+      const int k = e / nb, j = e - k * nb;
+      int w = j;
+      float best = slf[s * nb + j];
+      for (int q = 0; q < nbrs; ++q) {
+        const int o = neighbor_id(j, nb, topo, rows, cols, q);
+        if (slf[s * nb + o] > best) {
+          best = slf[s * nb + o];
+          w = o;
+        }
+      }
+      const size_t row = (size_t)k * lld + s * nb;
+      if (k < d)
+        lp[row + j] = scratch[row + w];
+      else
+        lf[s * nb + j] = best;
+    }
+    return;
+  }
   const float g = take ? bf : old;
   for (int e = threadIdx.x; e < nb * d; e += blockDim.x) {
     const int k = e / nb, j = e - k * nb;
@@ -359,19 +411,24 @@ int pso_split_fold(const float* pos, float* pbp, float* pbf, float* pbv,
 }
 
 // The cross-block stage of every swarm: mode 1 (fused, keys[S]) or 2
-// (async, act[S] of 0 none / 1 publish and pull / 2 publish only).
+// (async, act[S] of 0 none / 1 publish and pull / 2 publish only). topo 0
+// pulls gbest; 1 (ring) and 2 (von Neumann on a rows x cols torus of the
+// nb blocks) pull the neighbourhood best, through scratch [D+1, S*nb].
 int pso_split_publish(const float* pos, const float* fit, float* gp,
                       float* gf, float* lp, float* lf,
                       unsigned long long* keys, const int* act, int* counts,
-                      int n, int d, int nb, int s_cnt, int mode,
-                      void* stream) {
+                      float* scratch, int n, int d, int nb, int s_cnt,
+                      int mode, int topo, int rows, int cols, void* stream) {
   if (n < 1 || d < 1 || s_cnt < 1 || nb < 1 ||
       (mode == kFused && !keys) || (mode == kAsync && !(lp && lf && act)) ||
-      (mode != kFused && mode != kAsync))
+      (mode != kFused && mode != kAsync) || topo < 0 || topo > kVonNeumann ||
+      (topo && (mode != kAsync || !scratch)) ||
+      (topo == kVonNeumann && (rows < 1 || cols < 1 || rows * cols != nb)))
     return (int)cudaErrorInvalidValue;
   split_publish_kernel<<<(unsigned)s_cnt, kPublishThreads, 0,
                          (cudaStream_t)stream>>>(
-      pos, fit, gp, gf, lp, lf, keys, act, counts, n, d, nb, s_cnt, mode);
+      pos, fit, gp, gf, lp, lf, keys, act, counts, scratch, n, d, nb, s_cnt,
+      mode, topo, rows, cols);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,10 @@
 //   async_kernel  the paper's enhanced asynchronous queue-lock for S
 //                 swarms. Replaces fused_async_call (S = 1),
 //                 fused_async_batch_call and hetero_fused_async_batch_call
-//                 (bodies _make_async_kernel(), chunk loop _async_chunk_body).
+//                 (bodies _make_async_kernel(), chunk loop _async_chunk_body),
+//                 with every `topology` they take: the star (gbest) and,
+//                 as instantiations of their own (LB), the lbest ring and
+//                 von Neumann neighbour folds.
 //
 // fused_kernel and async_kernel also replace the TPU kernels' telemetry
 // variants (_make_sync_kernel(telemetry=True), _make_async_kernel(
@@ -134,6 +137,10 @@ struct Params {
   uint32_t it_off;           // added to its[] (the async remainder phase)
   uint32_t seed0, it00;      // a single swarm's counters, passed by value
   float w, c1, c2, k0, k1, k2;
+  // async under an lbest topology: [S*nb] per-slot sequence counters of
+  // lp/lf, the topology (kRing, kVonNeumann) and the von Neumann grid
+  unsigned* slot_seq;
+  int topo, grid_r, grid_c;
 };
 
 // Where a CTA works: swarm s (of the whole batch; a wave of the fused
@@ -931,6 +938,160 @@ __device__ __forceinline__ float boundary_cluster(const Params& p,
   return lf;
 }
 
+// ---------------------------------------------------------------------------
+// lbest topologies (the TPU kernel's topology="ring" | "vonneumann", ported
+// from repro/core/topology.py). A block's chunk entry does not pull the
+// shared gbest: it folds its neighbour blocks' local-best slots lp[:, slot],
+// lf[slot] (slot = s*nb + block) into its own local best, and its own slot
+// is where the neighbours read it. The shared gbest is still flushed at
+// every boundary after a chunk (boundary with pull = false), for
+// monitoring and the final answer, and never read back.
+//
+// On the TPU the grid runs block-major, so block b's fold sees block b-1's
+// slot after b-1's whole span and block b+1's as it was at launch. CUDA
+// blocks run at once, so on the card the neighbour reads are a race, as the
+// gbest publications are: each slot is guarded by its own sequence counter
+// (slot_seq[slot], a seqlock). A slot has one writer, its block, so no
+// mutex is needed: the writer makes the sequence odd, stores the D floats
+// and the fitness (__stcg, past L1), fences, and makes it even. It writes
+// only when its local best rose since it last wrote (a local best only
+// grows), at a boundary after a chunk.
+//
+// The fold reads all neighbours' sequences and fitnesses together, one
+// thread a neighbour (2 for the ring, 4 for von Neumann): a loop of 2-4
+// dependent L2 round trips would add microseconds to every boundary, while
+// a chunk of 8 iterations at d=1 takes about 8 us. The winner is the first
+// maximum in kernel_neighbor_ids order with the block itself first and a
+// strict >, which is the sequential running max of every engine. Only the
+// winner's D floats are copied, into the shared attractor; then its
+// sequence is read again and the fold retried if it moved. A reader spins
+// only while a sequence is odd, which its writer holds only while it is
+// resident and mid-write, so no block waits for another to reach a
+// boundary, whatever the residency.
+//
+// On a cluster the boundary_cluster discipline holds: the lead (thread 0 of
+// rank 0) moves the sequence and decides, threads of rank 0 read the
+// neighbours, every rank stores or loads its slice of the D floats and
+// fences at gpu scope before the cluster barrier after which the lead
+// moves or re-reads the sequence, and the lead's decision reaches every
+// rank over DSMEM.
+// ---------------------------------------------------------------------------
+constexpr int kRing = 1, kVonNeumann = 2;
+constexpr int kMaxNeighbors = 4;
+
+__device__ __forceinline__ int neighbor_count(int topo) {
+  return topo == kRing ? 2 : kMaxNeighbors;
+}
+
+// Neighbour k of block b (core/topology.py kernel_neighbor_ids): ring b-1,
+// b+1; von Neumann, on a rows x cols torus, the row above, below, the
+// column left, right. A small nb may give b itself.
+__device__ __forceinline__ int neighbor_id(int b, int nb, int topo, int rows,
+                                           int cols, int k) {
+  if (topo == kRing) return k == 0 ? (b + nb - 1) % nb : (b + 1) % nb;
+  const int r = b / cols, c = b - r * cols;
+  switch (k) {
+    case 0: return ((r + rows - 1) % rows) * cols + c;
+    case 1: return ((r + 1) % rows) * cols + c;
+    case 2: return r * cols + (c + cols - 1) % cols;
+    default: return r * cols + (c + 1) % cols;
+  }
+}
+
+__device__ __forceinline__ size_t neighbor_slot(const Params& p, const Cta& c,
+                                                int k) {
+  return (size_t)c.s * p.nb +
+         neighbor_id(c.b, p.nb, p.topo, p.grid_r, p.grid_c, k);
+}
+
+// Writes the block's local best (the attractor att of the CTA's dimensions
+// and lf) into its slot under the slot's sequence.
+template <bool CL>
+__device__ __forceinline__ void publish_slot(const Params& p, const Cta& c,
+                                             const float* att, float lf) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool lead = c.rank == 0 && tid == 0;
+  const size_t slot = (size_t)c.s * p.nb + c.b;
+  const size_t lds = (size_t)p.s_cnt * p.nb;
+  unsigned* seq = p.slot_seq + slot;
+  const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
+  if (lead) {
+    atomicAdd(seq, 1u);                     // odd: a write is in flight
+    __threadfence();
+  }
+  if constexpr (CL) cg::this_cluster().sync(); else __syncthreads();
+  for (int k = k0 + tid; k < k1; k += nt)
+    __stcg(p.lp + k * lds + slot, att[k - k0]);
+  if (lead) __stcg(p.lf + slot, lf);
+  __threadfence();                          // the slice, at gpu scope
+  if constexpr (CL) cg::this_cluster().sync(); else __syncthreads();
+  if (lead) atomicAdd(seq, 1u);             // even: the write is complete
+}
+
+// The chunk-entry fold: returns the new local best's fitness and leaves its
+// D floats (the CTA's slice) in att. Shared slots, all on rank 0 and read
+// by the other ranks over DSMEM: s_nf/s_ns each neighbour's fitness and
+// the sequence it was read at, s_dec[0] the winner (-1: none beats lf),
+// s_dec[1] whether its copy was torn. Each is written once a round and
+// read after the barrier that follows the write; the next write comes
+// after the barrier that ends the round, or after a chunk's iterations.
+template <bool CL>
+__device__ __forceinline__ float fold_neighbors(const Params& p, const Cta& c,
+                                                float* att, float lf) {
+  __shared__ float s_nf[kMaxNeighbors];
+  __shared__ unsigned s_ns[kMaxNeighbors];
+  __shared__ int s_dec[2];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool lead = c.rank == 0 && tid == 0;
+  const int nbrs = neighbor_count(p.topo);
+  const size_t lds = (size_t)p.s_cnt * p.nb;
+  const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
+  const float* nf = s_nf;
+  const int* dec = s_dec;
+  if constexpr (CL) {
+    nf = cg::this_cluster().map_shared_rank(&s_nf[0], 0);
+    dec = cg::this_cluster().map_shared_rank(&s_dec[0], 0);
+  }
+  auto sync = [] {
+    if constexpr (CL) cg::this_cluster().sync(); else __syncthreads();
+  };
+  for (;;) {
+    if (c.rank == 0 && tid < nbrs) {        // every neighbour at once
+      const size_t slot = neighbor_slot(p, c, tid);
+      unsigned s1;
+      while ((s1 = __ldcg(p.slot_seq + slot)) & 1u) __nanosleep(32);
+      __threadfence();
+      s_nf[tid] = __ldcg(p.lf + slot);
+      s_ns[tid] = s1;
+    }
+    sync();
+    if (lead) {                             // self first, strict >
+      float best = lf;
+      int w = -1;
+      for (int k = 0; k < nbrs; ++k)
+        if (s_nf[k] > best) {
+          best = s_nf[k];
+          w = k;
+        }
+      s_dec[0] = w;
+    }
+    sync();
+    const int w = dec[0];
+    if (w < 0) return lf;
+    const size_t slot = neighbor_slot(p, c, w);
+    for (int k = k0 + tid; k < k1; k += nt)
+      att[k - k0] = __ldcg(p.lp + k * lds + slot);
+    __threadfence();                        // the slice, before the re-read
+    sync();
+    if (lead) s_dec[1] = __ldcg(p.slot_seq + slot) != s_ns[w];
+    sync();
+    const bool torn = dec[1];
+    const float f = nf[w];
+    sync();                                 // read before a retry rewrites
+    if (!torn) return f;    // a slot only grows: f still beats lf
+  }
+}
+
 // The chunk loop. On a cluster (CL) each rank keeps its own copy of the
 // block's local best lf and of the queue key s_key, and they stay
 // identical without any communication inside a chunk: step_cluster gives
@@ -941,7 +1102,14 @@ __device__ __forceinline__ float boundary_cluster(const Params& p,
 // The partials alternate by iteration parity across chunks; every
 // boundary adds cluster barriers, which only separate a parity's write
 // from its next reuse further.
-template <int F, int R, bool CL>
+//
+// Under an lbest topology (LB) a boundary after a chunk writes the block's
+// slot where its local best rose since the last write (`pub`: the fitness
+// the slot holds, at first the launch's) and flushes to gbest without
+// pulling; a boundary before a chunk folds the neighbours' slots. The
+// local best, and so the decision to write, is the same on every thread
+// and every rank.
+template <int F, int R, bool CL, bool LB>
 __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
                                             float* sm, float lf,
                                             unsigned long long* s_key,
@@ -953,12 +1121,26 @@ __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
   float* part = partials(c, sm);
   float pbf = CL ? p.pbf[c.col + c.b * p.bn + tid] : 0.0f;
   int par = 0;
+  float pub = lf;
   for (int ch = 0; ch <= chunks; ++ch) {
-    if constexpr (CL)
+    if constexpr (LB) {
+      if (ch > 0) {
+        if (lf != pub) {
+          publish_slot<CL>(p, c, sm, lf);
+          pub = lf;
+        }
+        if constexpr (CL)
+          boundary_cluster(p, c, sm, lf, true, false, s_g, s_act, s_cnt);
+        else
+          boundary(p, c, sm, lf, true, false, s_g, s_act, s_cnt);
+      }
+      if (ch < chunks) lf = fold_neighbors<CL>(p, c, sm, lf);
+    } else if constexpr (CL) {
       lf = boundary_cluster(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act,
                             s_cnt);
-    else
+    } else {
       lf = boundary(p, c, sm, lf, ch > 0, ch < chunks, s_g, s_act, s_cnt);
+    }
     if (ch == chunks) break;
     for (int tl = 0; tl < p.chunk; ++tl) {
       const uint32_t it = c.it0 + (uint32_t)(ch * p.chunk + tl) + 1u;
@@ -999,8 +1181,9 @@ __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
 // runs' spread. On a cluster every rank writes its slice of the local best
 // and rank 0 its fitness, and a last cluster.sync() keeps every CTA until
 // no rank can still read its shared memory (the lead's slots, the
-// partials); the remainder phase's launch resumes from lp and lf.
-template <int F, int R, bool CL>
+// partials); the remainder phase's launch resumes from lp and lf. Under an
+// lbest topology (LB) the last boundary has already written the slot.
+template <int F, int R, bool CL, bool LB = false>
 __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key[2];
@@ -1018,39 +1201,41 @@ __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
   float lf = p.lf[slot];
   __syncthreads();
   if constexpr (F < kHetero) {
-    lf = async_body<F, R, CL>(p, c, sm, lf, s_key, &s_g, s_act, s_cnt);
+    lf = async_body<F, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act, s_cnt);
   } else {
     switch (p.member_fit[c.member]) {   // uniform across the cluster
       case 0:
-        lf = async_body<0, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
-                                    s_cnt);
+        lf = async_body<0, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
+                                        s_cnt);
         break;
       case 1:
-        lf = async_body<1, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
-                                    s_cnt);
+        lf = async_body<1, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
+                                        s_cnt);
         break;
       case 2:
-        lf = async_body<2, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
-                                    s_cnt);
+        lf = async_body<2, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
+                                        s_cnt);
         break;
       case 3:
-        lf = async_body<3, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
-                                    s_cnt);
+        lf = async_body<3, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
+                                        s_cnt);
         break;
       case 4:
-        lf = async_body<4, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
-                                    s_cnt);
+        lf = async_body<4, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
+                                        s_cnt);
         break;
       default:
-        lf = async_body<5, R, CL>(p, c, sm, lf, s_key, &s_g, s_act,
-                                    s_cnt);
+        lf = async_body<5, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
+                                        s_cnt);
         break;
     }
   }
-  const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
-  for (int k = k0 + (int)threadIdx.x; k < k1; k += blockDim.x)
-    p.lp[(size_t)k * lds + slot] = sm[k - k0];
-  if (threadIdx.x == 0 && c.rank == 0) p.lf[slot] = lf;
+  if constexpr (!LB) {
+    const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
+    for (int k = k0 + (int)threadIdx.x; k < k1; k += blockDim.x)
+      p.lp[(size_t)k * lds + slot] = sm[k - k0];
+    if (threadIdx.x == 0 && c.rank == 0) p.lf[slot] = lf;
+  }
   add_counts(p, c, s_cnt);
   if constexpr (CL) cg::this_cluster().sync();
 }
@@ -1097,6 +1282,17 @@ __global__ void __launch_bounds__(kMaxThreads, 2) queue_kernel(Params p) {
   if constexpr (CL) cg::this_cluster().sync();   // partials read remotely
 }
 
+// The neighbour ids of every block, as the lbest folds compute them, into
+// out[nb, neighbor_count(topo)]: the test entry pso_neighbor_ids.
+__global__ void neighbors_kernel(int nb, int topo, int rows, int cols,
+                                 int* out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  const int m = neighbor_count(topo);
+  for (int k = 0; k < m; ++k)
+    out[b * m + k] = neighbor_id(b, nb, topo, rows, cols, k);
+}
+
 using Kernel = void (*)(Params);
 
 // PSO_TABLE(kernel, <empty> or <empty>, <more template arguments>): the
@@ -1119,6 +1315,10 @@ const Kernel kFusedBlock[2][kHetero + 1][kRuleCount] = {
     PSO_TABLE(fused_kernel, , false, true)};
 const Kernel kAsync[2][kHetero + 1][kRuleCount] = {
     PSO_TABLE(async_kernel, , false), PSO_TABLE(async_kernel, , true)};
+// [cluster][objective or kHetero][rule], lbest topologies
+const Kernel kAsyncLbest[2][kHetero + 1][kRuleCount] = {
+    PSO_TABLE(async_kernel, , false, true),
+    PSO_TABLE(async_kernel, , true, true)};
 // [cluster][objective][rule]: one swarm, no heterogeneous form
 const Kernel kQueue[2][kFitnessCount][kRuleCount] = {
     {PSO_BUILTINS(queue_kernel, , false)},
@@ -1321,22 +1521,29 @@ int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
 // boundaries, each particle block on a cluster of csize CTAs (1: one CTA):
 // a normal launch of s_cnt*(n/bn)*csize CTAs. `it_off` is added to every
 // swarm's iteration counter. Null seeds/its take seed0/it00 (one swarm);
-// non-null counts [s_cnt,3] gets each swarm's events added.
+// non-null counts [s_cnt,3] gets each swarm's events added. topo 0 is the
+// star (slot_seq null); 1 (ring) and 2 (von Neumann, on a grid_r x grid_c
+// torus of the n/bn blocks) fold neighbours, with slot_seq [s_cnt*n/bn]
+// even (zeroed) sequence counters.
 int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
                      float* gf, const float* bounds, const int* member_fit,
                      const int* fids, const unsigned* seeds,
                      const unsigned* its, float* lp, float* lf,
-                     unsigned* lock, int* counts, int n, int d, int bn,
-                     int s_cnt, int iters, int chunk, int csize,
+                     unsigned* lock, int* counts, unsigned* slot_seq, int n,
+                     int d, int bn, int s_cnt, int iters, int chunk,
+                     int csize, int topo, int grid_r, int grid_c,
                      unsigned it_off, unsigned seed0, unsigned it00, int fit,
                      int rule, float w, float c1, float c2, float k0,
                      float k1, float k2,
                      void* stream) {
   if (bad_shape(n, d, bn, s_cnt) || bad_cluster(csize, d, bn) || chunk <= 0 ||
       iters % chunk || (fit == kHetero && !(member_fit && fids)) ||
-      (!(seeds && its) && s_cnt != 1))
+      (!(seeds && its) && s_cnt != 1) || topo < 0 || topo > kVonNeumann ||
+      (topo != 0) != (slot_seq != nullptr) ||
+      (topo == kVonNeumann &&
+       (grid_r < 1 || grid_c < 1 || grid_r * grid_c != n / bn)))
     return (int)cudaErrorInvalidValue;
-  const Kernel k = pick(kAsync[csize > 1], fit, rule);
+  const Kernel k = pick((topo ? kAsyncLbest : kAsync)[csize > 1], fit, rule);
   if (!k) return (int)cudaErrorInvalidValue;
   Params p = make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids,
                          seeds, its, seed0, it00, n, d, bn, s_cnt, iters, w,
@@ -1348,6 +1555,10 @@ int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
   p.chunk = chunk;
   p.it_off = it_off;
   p.csize = csize;
+  p.slot_seq = slot_seq;
+  p.topo = topo;
+  p.grid_r = grid_r;
+  p.grid_c = grid_c;
   const size_t smem = smem_bytes(d, csize, bn);
   cudaError_t err = prepare(k, smem);
   if (err == cudaSuccess)
@@ -1383,6 +1594,19 @@ int pso_queue_launch(float* pos, float* vel, float* pbp, float* pbf,
     err = launch(k, (unsigned)(p.nb * csize), threads_for(bn), smem,
                  (cudaStream_t)stream, csize, false, &p);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Every block's neighbour ids under topology topo (1 ring, 2 von Neumann
+// on a rows x cols torus) into out [nb, 2 or 4], as async_kernel's lbest
+// folds compute them.
+int pso_neighbor_ids(int nb, int topo, int rows, int cols, int* out,
+                     void* stream) {
+  if (nb < 1 || (topo != kRing && topo != kVonNeumann) || !out ||
+      (topo == kVonNeumann && (rows < 1 || cols < 1 || rows * cols != nb)))
+    return (int)cudaErrorInvalidValue;
+  neighbors_kernel<<<(nb + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      nb, topo, rows, cols, out);
   return (int)cudaGetLastError();
 }
 

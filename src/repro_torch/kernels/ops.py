@@ -17,6 +17,10 @@ results as the eager engine's ``step_queue`` iterated (fused) and
 ``run_async`` (async), and the Deb fold where it applies. The built-ins
 keep ``pso_step``'s kernels.
 
+The async functions follow ``cfg.topology``: the star pulls gbest at a
+chunk entry, an lbest topology folds the neighbour blocks' local bests
+(``pso_step``'s module docstring; ``pso_split`` in lockstep).
+
 ``telemetry=True`` makes the fused and async functions return ``(state,
 counts)``: the kernels' contention counters, int32 ``[3]`` for one swarm
 and ``[S, 3]`` for a batch (``repro_torch.telemetry``). ``run_queue_lock``
@@ -170,7 +174,7 @@ def _split_step(cfg, state, seeds, its, specs, table, fids, n: int,
         pso_split.iterate(state, seeds, its, specs, fids, step, n=n,
                           block_n=bn, off=off, iters=k,
                           sync_every=sync_every, pbv=pbv, counts=cnt,
-                          counters=counters)
+                          counters=counters, topology=cfg.topology)
     return run
 
 
@@ -239,7 +243,7 @@ def _run_single(cfg: PSOConfig, s: SwarmState, iters: int,
             pso_step.fused_async(*ops, lp, lf, spec, seed=s.seed,
                                  iteration=s.iteration + off, iters=k,
                                  sync_every=sync_every, block_n=bn,
-                                 counts=cnt)
+                                 counts=cnt, topology=cfg.topology)
     its, fits, gps = _chunked(step, iters, stride, s.iteration, ops[5],
                               ops[4] if positions else None)
     out = kernel_to_state(s, *ops, iters)
@@ -359,7 +363,8 @@ def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
             pso_step.fused_async_batch(*ops, lp, lf, batch.seed,
                                        batch.iteration + off, specs, iters=k,
                                        sync_every=sync_every, block_n=bn,
-                                       fids=fids, counts=cnt)
+                                       fids=fids, counts=cnt,
+                                       topology=cfg.topology)
     start = int(batch.iteration[0]) if stride is not None else 0
     its, fits, gps = _chunked(step, iters, stride, start, ops[5],
                               ops[4] if positions else None)

@@ -33,7 +33,10 @@ Semantics (held by ``tests/test_torch_constraints.py``):
   ``core.pso.run_async(n_blocks=nb)``, one valid interleaving of the async
   race, publishing and pulling at the iterations that are multiples of
   ``sync_every`` and publishing only at the end of a call. With one block
-  it equals the fused mode for every ``sync_every``.
+  it equals the fused mode for every ``sync_every``. Under an lbest
+  ``topology`` the pull at a sync point is ``core.topology``'s
+  ``block_neighbor_best`` of the locals, computed inside the publish
+  kernel, so it equals ``run_async`` with that topology.
 * Queue mode is one iteration of the paper's queue algorithm: each block's
   best lane beating gbest as ``(aux_fit, aux_idx)``, the cross-block
   argmax being ``ops.queue_epilogue``.
@@ -68,9 +71,10 @@ import torch
 
 from ..core import rng
 from ..core.pso import STREAM_R1, STREAM_R2
+from ..core.topology import block_neighbor_best
 from ..core.update_rules import kernel_rule_id, resolve_rule
 from .pso_step import (KernelSpec, _check, _counters, _operands, _ptrs,
-                       _tables)
+                       _tables, _topology_operands)
 
 Tensor = torch.Tensor
 
@@ -200,12 +204,13 @@ def split_fold_plain(pos, pbp, pbf, fit, *, n: int, block_n: int, mode: str,
 
 
 def split_publish_plain(pos, fit, gp, gf, *, n: int, mode: str, keys=None,
-                        lp=None, lf=None, act=None, counts=None
-                        ) -> Dict[str, Tensor]:
+                        lp=None, lf=None, act=None, counts=None,
+                        topology: str = "gbest") -> Dict[str, Tensor]:
     """The cross-block stage of every swarm; returns the new outputs by
     name (``gp``, ``gf``, and ``keys`` cleared in fused mode or ``lp``/
     ``lf`` in async mode) and adds the async publications into
-    ``counts``."""
+    ``counts``. An lbest ``topology`` pulls each local's neighbourhood
+    best at a sync point instead of gbest."""
     s_cnt = gf.shape[0]
     dev = pos.device
     if mode == "fused":
@@ -225,6 +230,14 @@ def split_publish_plain(pos, fit, gp, gf, *, n: int, mode: str, keys=None,
     if counts is not None:
         counts.view(s_cnt, 3)[:, 1] += take.to(counts.dtype)
     pull = (act == ACT_SYNC).repeat_interleave(nb)
+    if topology != "gbest":
+        d = lp.shape[0]
+        nbp, nbf = block_neighbor_best(
+            lfs, lp.reshape(d, s_cnt, nb).permute(1, 2, 0), topology)
+        return {"gp": gp2, "gf": gf2,
+                "lf": torch.where(pull, nbf.reshape(-1), lf),
+                "lp": torch.where(pull[None, :], nbp.permute(2, 0, 1)
+                                  .reshape(d, s_cnt * nb), lp)}
     return {"gp": gp2, "gf": gf2,
             "lf": torch.where(pull, gf2.repeat_interleave(nb), lf),
             "lp": torch.where(pull[None, :], gp2.repeat_interleave(nb, 1),
@@ -245,7 +258,7 @@ def _lib():
     lib.pso_split_advance.argtypes = ([p] * 8 + [i] * 4 + [u, i] + [f] * 6
                                       + [p])
     lib.pso_split_fold.argtypes = [p] * 13 + [i] * 5 + [p]
-    lib.pso_split_publish.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.pso_split_publish.argtypes = [p] * 10 + [i] * 8 + [p]
     for fn in (lib.pso_split_advance, lib.pso_split_fold,
                lib.pso_split_publish):
         fn.restype = i
@@ -375,26 +388,32 @@ fold.launches = 0
 
 
 def publish(pos, fit, gp, gf, *, n: int, mode: str, keys=None, lp=None,
-            lf=None, act=None, counts=None):
+            lf=None, act=None, counts=None, topology: str = "gbest"):
     """``split_publish_plain`` in place: on CUDA tensors one launch of
-    ``split_publish_kernel``, on CPU tensors the plain version."""
+    ``split_publish_kernel`` (under an lbest ``topology`` with a scratch
+    copy of the locals, ``[(D+1) * S*nb]``), on CPU tensors the plain
+    version."""
     d, ld = pos.shape
     s_cnt = ld // n
     nb = 1 if lf is None else lf.shape[0] // max(s_cnt, 1)
     _validate("split publish", d, ld, n, nb, pos=pos, fit=fit, gp=gp, gf=gf,
               keys=keys, lp=lp, lf=lf, act=act, counts=counts)
+    topo = _topology_operands(topology, nb)
+    if topo[0] and mode != "async":
+        raise ValueError("an lbest topology pulls in the async mode only")
     if pos.device.type == "cpu":
         out = split_publish_plain(pos, fit, gp, gf, n=n, mode=mode,
                                   keys=keys, lp=lp, lf=lf, act=act,
-                                  counts=counts)
+                                  counts=counts, topology=topology)
         _copy_into(dict(gp=gp, gf=gf, keys=keys, lp=lp, lf=lf), out)
         return
     dev = pos.device
+    scratch = pos.new_empty((d + 1) * s_cnt * nb) if topo[0] else None
     _cuda_operands(pos, fit, gp, gf, lp, lf, keys, act, counts)
     with torch.cuda.device(dev):
         _check(_lib().pso_split_publish(
-            *_ptrs([pos, fit, gp, gf, lp, lf, keys, act, counts]),
-            n, d, nb, s_cnt, MODES[mode], _stream(dev)),
+            *_ptrs([pos, fit, gp, gf, lp, lf, keys, act, counts, scratch]),
+            n, d, nb, s_cnt, MODES[mode], *topo, _stream(dev)),
             "split publish kernel launch")
     publish.launches += 1
 
@@ -465,12 +484,14 @@ def torch_step(table, fids, n: int, lead: Tuple[int, ...]
 
 def iterate(state, seeds, its, specs, fids, step, *, n: int, block_n: int,
             off: int, iters: int, sync_every: Optional[int] = None,
-            pbv=None, counts=None, counters=None) -> Optional[Tensor]:
+            pbv=None, counts=None, counters=None,
+            topology: str = "gbest") -> Optional[Tensor]:
     """``iters`` iterations of the split path on ``state`` = (pos, vel,
     pbp, pbf, gp, gf), plus (lp, lf) for the async mode (``sync_every``
-    given), in place, the first at offset ``off`` into the call's
-    iterations. ``step`` is ``torch_step``'s; ``pbv`` the carried pbest
-    violation where Deb applies. Returns the last iteration's fitness."""
+    given, pulling by ``topology`` at its sync points), in place, the
+    first at offset ``off`` into the call's iterations. ``step`` is
+    ``torch_step``'s; ``pbv`` the carried pbest violation where Deb
+    applies. Returns the last iteration's fitness."""
     pos, vel, pbp, pbf, gp, gf = state[:6]
     s_cnt = gf.shape[0]
     dev = pos.device
@@ -502,5 +523,5 @@ def iterate(state, seeds, its, specs, fids, step, *, n: int, block_n: int,
         fold(pos, pbp, pbf, fit, n=n, block_n=block_n, mode="async",
              pbv=pbv, viol=viol, lp=lp, lf=lf, counts=counts)
         publish(pos, fit, gp, gf, n=n, mode="async", lp=lp, lf=lf,
-                act=act[t], counts=counts)
+                act=act[t], counts=counts, topology=topology)
     return fit

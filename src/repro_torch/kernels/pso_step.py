@@ -35,12 +35,19 @@ their inputs alone:
   with a single block it is also ``ref.run_fused_oracle``.
 * ``fused_async_plain``: block-major, mirroring
   ``ref.run_fused_async_oracle`` including the ``async_spans`` remainder
-  phase — one valid interleaving of the kernel's race.
+  phase and its ``topology`` — one valid interleaving of the kernel's
+  race.
 * ``fused_batch_plain``/``fused_async_batch_plain``: the single-swarm plain
   version on each row, which is the batched kernels' contract.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; the
 batch wrappers count heterogeneous launches in ``.hetero_launches``.
+
+The async wrappers and their plain versions take ``topology``: ``gbest``
+(the paper's star: a chunk entry pulls the shared gbest) or an lbest
+``ring``/``vonneumann`` (a chunk entry folds the neighbour blocks' local
+bests, ``core.topology.kernel_neighbor_ids``; the shared gbest is only
+flushed). ``neighbor_ids`` runs the kernels' own neighbour ids.
 
 The fused and async wrappers and their plain versions take ``counts``, an
 int32 ``[3*S]`` buffer (``repro_torch.telemetry``), and add each swarm's
@@ -67,6 +74,7 @@ from ..core import rng
 from ..core.fitness import BUILTIN_PROBLEMS
 from ..core.problem import Bound
 from ..core.pso import STREAM_R1, STREAM_R2
+from ..core.topology import LBEST_IDS, grid_dims, kernel_neighbor_ids
 from ..core.update_rules import kernel_rule_id, resolve_rule
 
 Tensor = torch.Tensor
@@ -220,11 +228,20 @@ def fused_plain(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
 
 def fused_async_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec,
                       *, seed: int, iteration: int, iters: int,
-                      sync_every: int, block_n: int, counts=None):
+                      sync_every: int, block_n: int, counts=None,
+                      topology: str = "gbest"):
     """``iters`` async queue-lock iterations, block-major: block b runs its
-    whole span before block b+1, pulling gbest at chunk entry and
-    publishing at chunk exit; a remainder runs as a second block-major
+    whole span before block b+1, refreshing its local best at chunk entry
+    and publishing at chunk exit; a remainder runs as a second block-major
     phase. Returns new (pos, vel, pbp, pbf, gp, gf, lp, lf).
+
+    The chunk entry pulls gbest under ``topology="gbest"``; under an lbest
+    topology it folds the neighbours' slots of ``lp``/``lf`` in
+    ``kernel_neighbor_ids`` order, and the chunk exit writes the block's
+    own slot before it publishes to gbest (never pulled back), so block b
+    sees block b-1's slot after b-1's whole span and block b+1's as it was
+    at the start of the phase, as ``ref.run_fused_async_oracle(...,
+    topology=)``.
 
     ``counts`` (int32 ``[3]``, added into in place) counts as
     ``ref.run_fused_async_oracle``'s ``counters``: iterations of a block
@@ -233,19 +250,27 @@ def fused_async_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec,
     block with a lane improving its pbest (``block_improvements``)."""
     d, n = pos.shape
     bn = block_n
+    nb = n // bn
     bounds = _operands(spec, pos.device)
     pos, vel, pbp, pbf, lp, lf = (t.clone() for t in
                                   (pos, vel, pbp, pbf, lp, lf))
+    lbest = topology != "gbest"
     for off, span, k in async_spans(iters, sync_every):
-        for b in range(n // bn):
+        for b in range(nb):
             sl = slice(b * bn, (b + 1) * bn)
             p, v, bp, bf = pos[:, sl], vel[:, sl], pbp[:, sl], pbf[sl]
             lpb, lfb = lp[:, b], lf[b:b + 1]
             idx = _rng_index(bn, d, pos.device, base=b * bn)
             for c in range(span // k):
-                pull = gf > lfb                     # chunk entry
-                lfb = torch.where(pull, gf, lfb)
-                lpb = torch.where(pull, gp, lpb)
+                if lbest:                           # chunk entry: neighbours
+                    for nbr in kernel_neighbor_ids(b, nb, topology):
+                        take = lf[nbr:nbr + 1] > lfb
+                        lfb = torch.where(take, lf[nbr:nbr + 1], lfb)
+                        lpb = torch.where(take, lp[:, nbr], lpb)
+                else:                               # chunk entry: gbest
+                    pull = gf > lfb
+                    lfb = torch.where(pull, gf, lfb)
+                    lpb = torch.where(pull, gp, lpb)
                 for tl in range(k):
                     it = iteration + off + c * k + tl + 1
                     p, v, fit = _advance(spec, bounds, seed, it, p, v, bp,
@@ -254,6 +279,8 @@ def fused_async_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec,
                         counts[0] += (fit > lfb).any().to(counts.dtype)
                         counts[2] += (fit > bf).any().to(counts.dtype)
                     bp, bf, lfb, lpb = _fold(fit, p, bp, bf, lfb, lpb)
+                if lbest:                           # chunk exit: own slot
+                    lp[:, b], lf[b:b + 1] = lpb, lfb
                 pub = lfb > gf                      # chunk exit
                 if counts is not None:
                     counts[1] += pub[0].to(counts.dtype)
@@ -262,8 +289,6 @@ def fused_async_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec,
             pos[:, sl], vel[:, sl], pbp[:, sl], pbf[sl] = p, v, bp, bf
             lp[:, b], lf[b:b + 1] = lpb, lfb
     return pos, vel, pbp, pbf, gp, gf, lp, lf
-
-
 
 
 def _members(specs, fids, s_cnt: int):
@@ -313,11 +338,13 @@ def fused_batch_plain(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
 
 def fused_async_batch_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its,
                             specs, *, iters: int, sync_every: int,
-                            block_n: int, fids=None, counts=None):
+                            block_n: int, fids=None, counts=None,
+                            topology: str = "gbest"):
     """``fused_async_plain`` on every swarm of a batch, laid out as in
     ``fused_batch_plain``; swarm s's block-local bests are columns
-    ``[s*nb, (s+1)*nb)`` of ``lp`` ``[D, S*nb]`` and ``lf`` ``[S*nb]``.
-    Returns new tensors."""
+    ``[s*nb, (s+1)*nb)`` of ``lp`` ``[D, S*nb]`` and ``lf`` ``[S*nb]``
+    (an lbest fold reads slot ``s*nb + nbr``, within its swarm). Returns
+    new tensors."""
     s_cnt = gf.shape[0]
     n = pos.shape[1] // s_cnt
     nb = n // block_n
@@ -329,7 +356,7 @@ def fused_async_batch_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its,
             pos[:, c], vel[:, c], pbp[:, c], pbf[c], gp[:, s], gf[s:s + 1],
             lp[:, cl], lf[cl], spec, seed=seed, iteration=it, iters=iters,
             sync_every=sync_every, block_n=block_n,
-            counts=_row_counts(counts, s)))
+            counts=_row_counts(counts, s), topology=topology))
     return _join(rows)
 
 
@@ -353,13 +380,14 @@ def _lib():
     lib.pso_cluster_capacity.argtypes = [i] * 3 + [c.POINTER(i)]
     lib.pso_fused_launch.argtypes = ([p] * 14 + [i] * 8 + [u, u, i, i]
                                      + [f] * 6 + [p])
-    lib.pso_async_launch.argtypes = ([p] * 15 + [i] * 7 + [u, u, u, i, i]
+    lib.pso_async_launch.argtypes = ([p] * 16 + [i] * 10 + [u, u, u, i, i]
                                      + [f] * 6 + [p])
+    lib.pso_neighbor_ids.argtypes = [i] * 4 + [p, p]
     lib.pso_queue_launch.argtypes = ([p] * 9 + [i] * 4 + [u, u, i, i]
                                      + [f] * 6 + [p])
     for fn in (lib.pso_fused_resident, lib.pso_cluster_capacity,
                lib.pso_fused_launch, lib.pso_async_launch,
-               lib.pso_queue_launch):
+               lib.pso_queue_launch, lib.pso_neighbor_ids):
         fn.restype = i
     return lib
 
@@ -757,7 +785,8 @@ def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
 
 def fused_async(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec, *,
                 seed: int, iteration: int, iters: int, sync_every: int,
-                block_n: int, cluster=None, counts=None):
+                block_n: int, cluster=None, counts=None,
+                topology: str = "gbest"):
     """``iters`` async queue-lock iterations of one swarm, in place: on
     CUDA tensors one launch of ``n // block_n`` clusters of
     ``cluster_size`` CTAs (the fused kernel's C, so that with one block the
@@ -766,10 +795,11 @@ def fused_async(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec, *,
     cluster size in place of ``cluster_size``'s (chip_smoke.py times each
     size); the plain version, the reference's math, ignores it. ``counts``
     (int32 ``[3]``) gets the run's contention counts added, over both
-    phases."""
+    phases. ``topology`` is the chunk entry's pull (module docstring)."""
     state = (pos, vel, pbp, pbf, gp, gf, lp, lf)
     kw = dict(seed=seed, iteration=iteration, iters=iters,
-              sync_every=sync_every, block_n=block_n, counts=counts)
+              sync_every=sync_every, block_n=block_n, counts=counts,
+              topology=topology)
     if pos.device.type == "cpu":
         return _copy_into(state, fused_async_plain(*state, spec, **kw))
     _fused_async_launch(state, spec, cluster=cluster, **kw)
@@ -778,13 +808,14 @@ def fused_async(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec, *,
 
 def _fused_async_launch(state, spec: KernelSpec, *, seed: int,
                         iteration: int, iters: int, sync_every: int,
-                        block_n: int, cluster=None, counts=None) -> None:
+                        block_n: int, cluster=None, counts=None,
+                        topology: str = "gbest") -> None:
     """The kernel path of ``fused_async``: the batched launch with S = 1."""
     pos, vel, pbp, pbf, gp, gf, lp, lf = state
     fused_async.launches += _fused_async_batch_launch(
         (pos, vel, pbp, pbf, gp[:, None], gf, lp, lf), [seed], [iteration],
         (spec,), iters=iters, sync_every=sync_every, block_n=block_n,
-        cluster=cluster, counts=counts)
+        cluster=cluster, counts=counts, topology=topology)
 
 
 fused_async.launches = 0
@@ -792,16 +823,18 @@ fused_async.launches = 0
 
 def fused_async_batch(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its, specs,
                       *, iters: int, sync_every: int, block_n: int,
-                      fids=None, cluster=None, counts=None):
+                      fids=None, cluster=None, counts=None,
+                      topology: str = "gbest"):
     """``iters`` async queue-lock iterations of S swarms, in place (layout
     of ``fused_async_batch_plain``): on CUDA tensors one launch of
     ``S * n // block_n`` clusters (``async_plan``) per ``async_spans``
     phase, on CPU tensors the plain version. ``fids`` makes the batch
     heterogeneous, counted in ``fused_async_batch.hetero_launches``;
-    ``cluster`` as in ``fused_async``; ``counts`` as in ``fused_batch``."""
+    ``cluster`` and ``topology`` as in ``fused_async``; ``counts`` as in
+    ``fused_batch``."""
     state = (pos, vel, pbp, pbf, gp, gf, lp, lf)
     kw = dict(iters=iters, sync_every=sync_every, block_n=block_n, fids=fids,
-              counts=counts)
+              counts=counts, topology=topology)
     if pos.device.type == "cpu":
         return _copy_into(state, fused_async_batch_plain(
             *state, seeds, its, specs, **kw))
@@ -818,15 +851,30 @@ fused_async_batch.launches = 0
 fused_async_batch.hetero_launches = 0
 
 
+def _topology_operands(topology: str, nb: int) -> Tuple[int, int, int]:
+    """(kernel topology id, von Neumann rows, cols) of the n // block_n
+    blocks of a swarm; the star is id 0."""
+    if topology == "gbest":
+        return 0, 0, 0
+    if topology not in LBEST_IDS:
+        raise ValueError(f"unknown topology {topology!r}; one of "
+                         f"{('gbest',) + tuple(LBEST_IDS)}")
+    return (LBEST_IDS[topology],) + grid_dims(nb)
+
+
 def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
                               sync_every: int, block_n: int, fids=None,
-                              cluster=None, counts=None) -> int:
+                              cluster=None, counts=None,
+                              topology: str = "gbest") -> int:
     """The kernel path of the async wrappers (``async_plan``); returns the
     launches made. ``cluster`` sets the cluster size in place of
-    ``cluster_size``'s."""
+    ``cluster_size``'s. An lbest ``topology`` takes the kernels' lbest
+    instantiations and a zeroed sequence counter a local-best slot, shared
+    by the call's launches."""
     extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
         state, seeds, its, specs, fids, block_n)
     _check_counts(counts, s_cnt, state[0].device)
+    topo = _topology_operands(topology, n // block_n)
     pos = state[0]
     lib = _lib()
     launches = 0
@@ -834,13 +882,41 @@ def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
         c, _ = async_plan(n, d, block_n, s_cnt, functools.partial(
             _capacity, block_n, d, _device_index(pos.device)), cluster)
         lock = torch.zeros(2 * s_cnt, dtype=torch.int32, device=pos.device)
+        seq = (torch.zeros(s_cnt * (n // block_n), dtype=torch.int32,
+                           device=pos.device) if topo[0] else None)
         ptrs = _ptrs(list(state[:6]) + extra + list(state[6:])
-                     + [lock, counts])
+                     + [lock, counts, seq])
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         for off, span, chunk in async_spans(iters, sync_every):
             _check(lib.pso_async_launch(
-                *ptrs, n, d, block_n, s_cnt, span, chunk, c,
+                *ptrs, n, d, block_n, s_cnt, span, chunk, c, *topo,
                 off & 0xFFFFFFFF, *scalars, fit_id, rule_id, *coef, stream),
                 "async kernel launch")
             launches += 1
     return launches
+
+
+def neighbor_ids(nb: int, topology: str, device) -> Tensor:
+    """Every block's neighbour ids ``[nb, 2 or 4]`` (int32) under an lbest
+    ``topology``, in fold order: on a CUDA device from the kernels' own
+    device function (one launch), on the CPU from
+    ``core.topology.kernel_neighbor_ids``."""
+    device = torch.device(device)
+    topo, rows, cols = _topology_operands(topology, nb)
+    if not topo:
+        raise ValueError("the star topology folds no neighbours")
+    if device.type == "cpu":
+        return torch.tensor([kernel_neighbor_ids(b, nb, topology)
+                             for b in range(nb)], dtype=torch.int32)
+    out = torch.empty(nb, 2 if topology == "ring" else 4,
+                      dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        _check(_lib().pso_neighbor_ids(
+            nb, topo, rows, cols, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream),
+            "neighbour ids launch")
+    neighbor_ids.launches += 1
+    return out
+
+
+neighbor_ids.launches = 0

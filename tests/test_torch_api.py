@@ -227,13 +227,31 @@ def test_method_and_loose_kwargs_are_exclusive():
 @pytest.mark.parametrize("kw,item", [
     (dict(schedule="auto"), "item 9"),
     (dict(islands=2), "item 7"),
-    (dict(variant="async", topology="ring"), "item 4"),
-    (dict(variant="async", backend="kernel", topology="vonneumann"),
-     "item 4"),
 ])
 def test_unported_method_features_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         api.Method(**kw)
+
+
+@pytest.mark.parametrize("topology", ["ring", "vonneumann"])
+def test_lbest_topology_runs_on_the_async_variant(topology):
+    """The lbest topologies are ported: an async Method takes them on
+    either backend, and ``solve`` carries them into the config."""
+    for backend in ("auto", "eager", "kernel"):
+        m = api.Method(variant="async", backend=backend, topology=topology)
+        assert m.topology == topology
+    res = repro_torch.solve("cubic", dim=2, particles=64, iters=6,
+                            variant="async", topology=topology,
+                            sync_every=2, device="cpu")
+    assert res.config.topology == topology
+
+
+@pytest.mark.parametrize("variant", ["reduction", "queue", "queue_lock"])
+def test_lbest_topology_needs_the_async_variant(variant):
+    """As in the reference: only the async variant has block-local bests
+    for a neighbourhood pull."""
+    with pytest.raises(ValueError, match="variant='async'"):
+        api.Method(variant=variant, topology="ring")
 
 
 def test_unported_entry_points_and_problem_fields_raise():
