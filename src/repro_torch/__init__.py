@@ -6,6 +6,7 @@ works on CPU-only torch):
 
     repro_torch.solve(problem, ...) -> Result   # the unified facade
     repro_torch.solve_many(problem, seeds, ...) # one Result per seed
+    repro_torch.solve_stream(requests, ...)     # continuous-batching serving
     repro_torch.best(results)                   # best of several Results
     repro_torch.Method / repro_torch.Result     # method spec / result
     repro_torch.History                         # Result.history
@@ -19,7 +20,8 @@ works on CPU-only torch):
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back. The
 layout mirrors ``repro`` (``core/``, ``kernels/``, ``telemetry/``,
-``api.py``), but nothing here imports JAX or ``repro``.
+``serving/``, ``launch/``, ``api.py``), but nothing here imports JAX or
+``repro``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import importlib
 _EXPORTS = {
     "solve": "repro_torch.api",
     "solve_many": "repro_torch.api",
+    "solve_stream": "repro_torch.api",
     "best": "repro_torch.api",
     "Method": "repro_torch.api",
     "Result": "repro_torch.api",

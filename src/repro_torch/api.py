@@ -35,6 +35,9 @@ ranks by Deb's rule, and a penalty set with ``ramp``/``ramp_every`` runs
 as segments of one weight each, the carried fitness re-weighted at every
 boundary (``_ramp_loop``), on either backend.
 
+``solve_stream(requests, ...)`` serves a stream of ``SolveRequest``s
+through the continuous-batching scheduler (``repro_torch.serving``).
+
 ``device=None`` means the card; without one, ``solve`` raises instead of
 falling back to the CPU. Results are reported in the problem's own sense.
 Features of ``repro.api`` that are not ported yet raise
@@ -596,9 +599,47 @@ def _run_batch_kernel(cfg: PSOConfig, batch: SwarmBatch, iters: int,
     return batch, hist, cnt
 
 
-def solve_stream(*args, **kwargs):
-    """Continuous-batching serving: not ported yet."""
-    raise _not_ported("solve_stream", "6 (serving)")
+def solve_stream(requests: Sequence, *, lane_width: int = 8,
+                 coalesce_registry: bool = True, compile_cache=None,
+                 autotune: bool = False, metrics=None,
+                 record_history: bool = False, trace=None,
+                 trace_path: Optional[str] = None, backend: str = "auto",
+                 device=None) -> List:
+    """Run a stream of independent solve requests through the
+    continuous-batching scheduler (``repro_torch.serving.
+    ContinuousScheduler``) on ``device`` (``None``: the CUDA card).
+
+    ``requests`` are ``repro_torch.launch.serve.SolveRequest``s (or dicts
+    of their fields). Async requests ride persistent batched lanes with
+    chunk-boundary admission, each result its request's standalone solve;
+    synchronous and sub-chunk requests run standalone. ``backend``:
+    ``auto`` | ``eager`` | ``kernel``, as in ``Method``. ``compile_cache``
+    (a ``CompileCache``, or a directory path for one) keeps the lane
+    programs' manifest across processes; ``metrics`` (a
+    ``ServingMetrics``) collects latency spans and batch fill. ``trace``
+    (a ``TraceWriter``) records the serving timeline, and ``trace_path``
+    writes it as a trace.json at the end (allocating a writer if ``trace``
+    is None). ``record_history=True`` samples each lane request's gbest at
+    its chunk boundaries onto ``SolveResult.history``. Returns one
+    ``SolveResult`` per request, in request order."""
+    from .launch.serve import SolveRequest
+    from .serving import CompileCache, ContinuousScheduler
+    if isinstance(compile_cache, str):
+        compile_cache = CompileCache(path=compile_cache)
+    if trace is None and trace_path is not None:
+        from .telemetry import TraceWriter
+        trace = TraceWriter()
+    reqs = [r if isinstance(r, SolveRequest) else SolveRequest(**r)
+            for r in requests]
+    sched = ContinuousScheduler(
+        lane_width=lane_width, coalesce_registry=coalesce_registry,
+        compile_cache=compile_cache, autotune=autotune, metrics=metrics,
+        trace=trace, record_history=record_history, backend=backend,
+        device=device)
+    out = sched.run(reqs)
+    if trace is not None and trace_path is not None:
+        trace.write(trace_path)
+    return out
 
 
 def best(results: Sequence[Result]) -> Result:

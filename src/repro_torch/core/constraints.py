@@ -163,8 +163,9 @@ class ConstraintSet:
         return dataclasses.replace(self, weight=float(weight))
 
     def _content(self) -> Tuple:
-        """Explicit fields and raw callables, the reference's content
-        identity (a serving batch key; the key itself is not ported)."""
+        """Explicit fields and raw callables, hashed by
+        ``Problem.cache_key`` (never the repr, which embeds function
+        addresses)."""
         return ("cset", self.mode, self.weight, self.ramp, self.ramp_every,
                 self.repair_tries, self.projection,
                 tuple((c.kind, c.tol, c.name, c.fn)

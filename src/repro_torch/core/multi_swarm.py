@@ -20,7 +20,9 @@ every row, as the standalone swarm does.
 
 The reference pads batches smaller than ``MIN_VALIDATED_SWARMS`` with dead
 rows to dodge an XLA:CPU per-shape FMA-contraction quirk. Eager PyTorch
-compiles nothing per shape, so the port runs every batch at its own size.
+compiles nothing per shape, so the port runs every batch at its own size;
+it keeps the constant because the serving scheduler floors its lane width
+at it, as the reference's does.
 
 The batched CUDA kernels are ``repro_torch.kernels.ops``'s
 ``run_queue_lock_fused_batch`` and ``run_queue_lock_fused_async_batch``.
@@ -38,6 +40,10 @@ from .pso import (ASYNC_SYNC_EVERY, VARIANTS, HeteroRow, PSOConfig,
                   SwarmState, init_swarm, run, run_with_history)
 
 Tensor = torch.Tensor
+
+#: The reference's smallest validated batch; the port's engine needs no
+#: floor, but ``serving.ContinuousScheduler`` floors lane widths at it.
+MIN_VALIDATED_SWARMS = 8
 
 
 class ProblemRows(NamedTuple):

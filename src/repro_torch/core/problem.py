@@ -15,10 +15,16 @@ column by column: the kernel backend's split path
 place of ``max_fn(pos.T)``, saving the transpose; the eager engine ignores
 it, as the reference's jnp engine does. ``kernel_fn`` and ``constraints``
 are mutually exclusive.
+
+``Problem.cache_key()`` is the content hash the serving layer groups and
+keys programs by (``repro_torch.launch.serve``, ``repro_torch.serving``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
+import types
 from typing import Callable, Dict, Optional, Tuple, Union
 
 Bound = Union[float, Tuple[float, ...]]
@@ -42,6 +48,76 @@ def broadcast_bounds(lo: Bound, hi: Bound) -> Tuple[Bound, Bound]:
     elif isinstance(hi, tuple) and not isinstance(lo, tuple):
         lo = (float(lo),) * len(hi)
     return lo, hi
+
+
+# --- content hashing (cache_key) --------------------------------------------
+# repr() is not a faithful serialization: array and tensor reprs truncate and
+# round, and a repr of a function or a built-in embeds its address, which
+# changes from process to process. Hash raw bytes, and recurse into nested
+# functions and code objects instead.
+
+def _hash_value(h, v, depth: int = 0) -> None:
+    import numpy as np
+    import torch
+    if depth > 6:
+        h.update(b"<deep>")
+        return
+    if v is None or isinstance(v, (str, bytes, int, float, bool, complex)):
+        h.update(repr(v).encode())
+    elif isinstance(v, (tuple, list)):
+        h.update(b"(")
+        for x in v:
+            _hash_value(h, x, depth + 1)
+        h.update(b")")
+    elif isinstance(v, types.CodeType):
+        _hash_code(h, v, depth + 1)
+    elif isinstance(v, torch.Tensor):
+        h.update(str(v.dtype).encode())
+        h.update(repr(tuple(v.shape)).encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    elif callable(v):
+        _hash_fn(h, v, depth + 1)
+    else:
+        try:
+            arr = np.asarray(v)
+        except (TypeError, ValueError):
+            arr = None
+        if arr is not None and arr.dtype != object:
+            h.update(str(arr.dtype).encode())
+            h.update(repr(arr.shape).encode())
+            h.update(arr.tobytes())
+        else:
+            h.update(repr(v).encode())
+
+
+def _hash_code(h, code: types.CodeType, depth: int) -> None:
+    h.update(code.co_code)
+    h.update(repr(code.co_names).encode())
+    _hash_value(h, code.co_consts, depth)      # may nest code objects
+
+
+def _hash_fn(h, fn, depth: int = 0) -> None:
+    if isinstance(fn, functools.partial):
+        _hash_fn(h, fn.func, depth)
+        _hash_value(h, fn.args, depth)
+        _hash_value(h, tuple(sorted(fn.keywords.items())), depth)
+        return
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        # a built-in (torch.sum, math.cos) or another callable: its name,
+        # which, unlike its repr, is the same in every process
+        name = getattr(fn, "__qualname__", None)
+        h.update((f"{getattr(fn, '__module__', None)}.{name}" if name
+                  else repr(fn)).encode())
+        return
+    _hash_code(h, code, depth)
+    _hash_value(h, getattr(fn, "__defaults__", None), depth)
+    try:
+        cells = tuple(c.cell_contents for c in (fn.__closure__ or ()))
+    except ValueError:                          # unfilled cell
+        h.update(b"<cell>")
+        return
+    _hash_value(h, cells, depth)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +254,28 @@ class Problem:
     def ndim(self) -> Optional[int]:
         """Dimensionality pinned by per-dimension bounds (None if scalar)."""
         return len(self.lo) if isinstance(self.lo, tuple) else None
+
+    def cache_key(self) -> str:
+        """Content hash for serving batch keys and lane program keys, as in
+        ``repro``: the objective's code (bytecode, constants, closure
+        values, defaults, nested functions; tensors and arrays by their raw
+        bytes, never their repr), ``kernel_fn``, bounds, sense and the
+        constraint set's content, not the object's identity. Two problems
+        under one name that compute different things never share a key;
+        re-built identical ones do, in any process. The string is not the
+        reference's (a torch objective is other code than a jnp one).
+        Memoized on the frozen instance."""
+        cached = self.__dict__.get("_cache_key")
+        if cached is None:
+            h = hashlib.sha1()
+            _hash_value(h, (self.name, self.sense, self.lo, self.hi))
+            for fn in (self.fn, self.kernel_fn):
+                _hash_value(h, fn)
+            if self.constraints is not None:
+                _hash_value(h, self.constraints._content())
+            cached = h.hexdigest()[:16]
+            object.__setattr__(self, "_cache_key", cached)
+        return cached
 
 
 _REGISTRY: Dict[str, Problem] = {}

@@ -432,6 +432,21 @@ def init_async_locals(state: SwarmState, n_blocks: int
     return lbp.clone(), lbf.clone()
 
 
+def init_swarm_async(cfg: PSOConfig, seed, n_blocks: Optional[int] = None,
+                     hetero=None, device=None) -> SwarmState:
+    """``init_swarm`` with the async block-local bests attached (``n_blocks``
+    of them, by default ``default_block_count``): the serving scheduler's
+    admission seam, as in ``repro``. Seeding the locals from gbest at
+    iteration 0 is what ``run_async`` does on its first call for a bare
+    ``init_swarm`` state, so an admitted row runs as the standalone solve
+    of its request does."""
+    cfg = cfg.resolved()
+    s = init_swarm(cfg, seed, device=device, hetero=hetero)
+    nb = n_blocks or default_block_count(s.pos.shape[-2])
+    lbp, lbf = init_async_locals(s, nb)
+    return s._replace(lbest_pos=lbp, lbest_fit=lbf)
+
+
 def step_async(cfg: PSOConfig, s: SwarmState, local: Tuple[Tensor, Tensor],
                coeffs=None, hetero=None
                ) -> Tuple[SwarmState, Tuple[Tensor, Tensor]]:

@@ -37,14 +37,21 @@ def nvcc() -> str:
                        "kernels are built with the CUDA toolkit at first use")
 
 
+def tag(name: str) -> str:
+    """The build tag of ``csrc/<name>.cu``: a hash of the source and the
+    flags, which names its library (and fingerprints the serving compile
+    cache's manifest)."""
+    src = CSRC / f"{name}.cu"
+    return hashlib.sha1(src.read_bytes()
+                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+
+
 def build(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless its build exists; returns the
     library path and the compiler's report (``-Xptxas -v``: registers,
     shared memory and spills of every kernel)."""
     src = CSRC / f"{name}.cu"
-    tag = hashlib.sha1(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"lib{name}-{tag}.so"
+    lib = BUILD_DIR / f"lib{name}-{tag(name)}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

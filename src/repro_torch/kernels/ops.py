@@ -27,16 +27,21 @@ and ``[S, 3]`` for a batch (``repro_torch.telemetry``). ``run_queue_lock``
 is the one entry point of the kernel backend: either variant, one swarm or
 a batch, with or without the counters, and with ``history=True`` a gbest
 sample at every sync point on operands packed once.
+
+``AsyncLane`` is the serving scheduler's lane program: a batch held in the
+kernels' layout for its whole lifetime, rows written into their columns at
+admission, one chunk a dispatch, replayed from a CUDA graph on the card.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.blocking import pick_block_n
 from ..core.fitness import FITNESS_IDS, is_builtin
-from ..core.multi_swarm import SwarmBatch
+from ..core.multi_swarm import ProblemRows, SwarmBatch
 from ..core.problem import Problem
 from ..core.pso import (ASYNC_SYNC_EVERY, PSOConfig, SwarmState,
                         hetero_member_config)
@@ -446,3 +451,170 @@ def run_queue_lock(cfg: PSOConfig, state, iters: int, variant: str,
         out, hist, cnt = _run_single(cfg, state, iters, block_n, telemetry,
                                      **kw)
     return out, hist if positions else hist[:2], cnt
+
+
+class AsyncLane:
+    """A serving lane: ``width`` rows of one solve shape held in the
+    kernels' D-major layout for the lane's whole lifetime, advanced a chunk
+    of ``sync_every`` async iterations a dispatch (``cfg.topology``'s pull
+    at each chunk entry).
+
+    The layout is ``_batch_to_kernel``'s: ``pos``/``vel``/``pbp`` ``[D,
+    S*n]``, ``pbf`` ``[S*n]``, ``gp`` ``[D, S]``, ``gf`` ``[S]``, the locals
+    ``lp`` ``[D, S*nb]`` and ``lf`` ``[S*nb]``, the ``[2, S]`` (seed,
+    iteration) ``counters`` and, for a heterogeneous lane (``table``, the
+    kernels' member table), ``fids`` ``[S]``. ``admit`` writes a fresh row
+    (``core.pso.init_swarm_async``) into its columns in place; ``gbest``
+    and ``row`` read rows back. Every row stands at an iteration that is a
+    multiple of ``sync_every`` (admission only at chunk boundaries), so one
+    launch of one chunk is every row's own schedule: a row equals the
+    single-swarm kernel run a chunk a launch.
+
+    ``dispatch`` is one chunk. On the card it replays a CUDA graph captured
+    once, when the lane is built (``pso_step.async_lane_launch``: zero the
+    lock, one launch, the iteration counters raised on the device); a
+    capture that fails raises, and nothing runs the launch uncaptured. On
+    the CPU it runs the wrapper's plain version (``fused_async_batch``),
+    only because the caller named the CPU. Launches count under
+    ``pso_step.fused_async_batch`` (rows 6 and 7), the captures in
+    ``AsyncLane.captures``."""
+
+    captures = 0
+
+    def __init__(self, cfg: PSOConfig, width: int, sync_every: int, *,
+                 table: Optional[Sequence[Problem]] = None,
+                 block_n: Optional[int] = None, device=None):
+        self.cfg = cfg = cfg.resolved()
+        d, n = cfg.dim, cfg.particle_cnt
+        self.width, self.sync_every = width, sync_every
+        self.block_n = _resolve_block(n, block_n)
+        self.nb = n // self.block_n
+        self.specs = ((kernel_spec(cfg),) if table is None
+                      else _hetero_members(cfg, table))
+        if any(m.fitness == CONVERTED for m in self.specs):
+            raise ValueError("a lane runs the built-ins' kernels; a custom "
+                             "Problem takes the split path")
+        self.device = dev = torch.device(device or "cuda")
+        f32 = dict(dtype=torch.float32, device=dev)
+        sn, snb = width * n, width * self.nb
+        self.state = (torch.zeros(d, sn, **f32), torch.zeros(d, sn, **f32),
+                      torch.zeros(d, sn, **f32), torch.zeros(sn, **f32),
+                      torch.zeros(d, width, **f32), torch.zeros(width, **f32),
+                      torch.zeros(d, snb, **f32), torch.zeros(snb, **f32))
+        # the kernels read the counters as uint32 from int32; the plain
+        # versions take the uint32 values in int64
+        self.counters = torch.zeros(2, width, device=dev, dtype=(
+            torch.int32 if dev.type == "cuda" else torch.int64))
+        self.fids = (None if table is None else
+                     torch.zeros(width, dtype=torch.int32, device=dev))
+        self.seeds = [0] * width        # host mirrors of the counters
+        self.iterations = [0] * width
+        self._fresh = True
+        self.graph = None
+        if dev.type == "cuda":
+            self._capture()
+
+    @property
+    def hetero(self) -> bool:
+        return self.fids is not None
+
+    def _count(self) -> None:
+        if self.hetero:
+            pso_step.fused_async_batch.hetero_launches += 1
+        else:
+            pso_step.fused_async_batch.launches += 1
+
+    def _capture(self) -> None:
+        launch = pso_step.async_lane_launch(
+            self.state, self.counters, self.specs, self.fids,
+            block_n=self.block_n, sync_every=self.sync_every,
+            topology=self.cfg.topology)
+        # one launch outside the capture loads the kernel (CUDA loads a
+        # module at its first launch), on buffers that hold no row yet
+        launch()
+        self._count()
+        torch.cuda.synchronize(self.device)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
+            launch()
+        self._launch = launch
+        AsyncLane.captures += 1
+
+    def _views(self):
+        """(pos, vel, pbp) ``[D, S, n]``, pbf ``[S, n]``, gp ``[D, S, 1]``,
+        gf ``[S, 1]``, lp ``[D, S, nb]``, lf ``[S, nb]``: views whose
+        second-to-last axis is the row."""
+        d, s = self.cfg.dim, self.width
+        pos, vel, pbp, pbf, gp, gf, lp, lf = self.state
+        return (pos.view(d, s, -1), vel.view(d, s, -1), pbp.view(d, s, -1),
+                pbf.view(s, -1), gp.unsqueeze(-1), gf.unsqueeze(-1),
+                lp.view(d, s, -1), lf.view(s, -1))
+
+    def admit(self, slot: int, state: SwarmState,
+              one: Optional[ProblemRows] = None) -> None:
+        """Write ``state`` (a fresh row with its locals, at iteration 0)
+        into row ``slot``; ``one`` is its one-row descriptor set in a
+        heterogeneous lane. The first admission writes it into every row, so
+        rows never admitted hold a well-defined swarm (never read back)."""
+        if state.lbest_fit is None or tuple(state.lbest_fit.shape) != (
+                self.nb,):
+            raise ValueError(f"a lane row carries {self.nb} block-local "
+                             "bests (init_swarm_async)")
+        if self.hetero != (one is not None):
+            raise ValueError("a heterogeneous lane admits rows with their "
+                             "descriptors; a homogeneous lane without")
+        vals = (state.pos.T, state.vel.T, state.pbest_pos.T, state.pbest_fit,
+                state.gbest_pos.unsqueeze(-1), state.gbest_fit.reshape(1),
+                state.lbest_pos.T, state.lbest_fit)
+        seed = int(state.seed) & 0xFFFFFFFF
+        word = seed - 2 ** 32 if (seed >= 2 ** 31 and
+                                  self.counters.dtype == torch.int32) else seed
+        if self._fresh:
+            for view, v in zip(self._views(), vals):
+                view.copy_(v.unsqueeze(-2).expand_as(view))
+            self.counters[0].fill_(word)
+            self.counters[1].zero_()
+            if one is not None:
+                self.fids.copy_(one.fid[:1].expand(self.width))
+            self.seeds = [seed] * self.width
+            self.iterations = [0] * self.width
+            self._fresh = False
+            return
+        for view, v in zip(self._views(), vals):
+            view[..., slot, :].copy_(v)
+        self.counters[0, slot].fill_(word)
+        self.counters[1, slot].zero_()
+        if one is not None:
+            self.fids[slot:slot + 1].copy_(one.fid[:1])
+        self.seeds[slot], self.iterations[slot] = seed, 0
+
+    def dispatch(self) -> None:
+        """Every row one chunk of ``sync_every`` iterations further."""
+        if self.graph is not None:
+            self.graph.replay()
+            self._count()
+        else:
+            pso_step.fused_async_batch(
+                *self.state, self.counters[0], self.counters[1], self.specs,
+                iters=self.sync_every, sync_every=self.sync_every,
+                block_n=self.block_n, fids=self.fids,
+                topology=self.cfg.topology)
+            self.counters[1].add_(self.sync_every)
+        self.iterations = [i + self.sync_every for i in self.iterations]
+
+    def gbest(self):
+        """Every row's (gbest_fit ``[S]``, gbest_pos ``[S, D]``), copied
+        to the host: two copies for the whole lane, not two a row."""
+        return (np.array(self.state[5].cpu()),
+                np.array(self.state[4].t().cpu()))
+
+    def row(self, slot: int) -> SwarmState:
+        """Row ``slot`` as a standalone swarm with its locals (views into
+        the lane; the kernel wrappers copy what they are given)."""
+        pos, vel, pbp, pbf, gp, gf, lp, lf = self._views()
+        return SwarmState(
+            pos=pos[:, slot].T, vel=vel[:, slot].T, fit=pbf[slot],
+            pbest_pos=pbp[:, slot].T, pbest_fit=pbf[slot],
+            gbest_pos=gp[:, slot, 0], gbest_fit=gf[slot, 0],
+            iteration=self.iterations[slot], seed=self.seeds[slot],
+            lbest_pos=lp[:, slot].T, lbest_fit=lf[slot])

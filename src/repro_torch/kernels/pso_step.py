@@ -862,6 +862,59 @@ def _topology_operands(topology: str, nb: int) -> Tuple[int, int, int]:
     return (LBEST_IDS[topology],) + grid_dims(nb)
 
 
+def _async_launcher(state, seeds, its, specs, fids, *, block_n: int,
+                    cluster=None, counts=None, topology: str = "gbest",
+                    counters=None):
+    """Everything a launch of the async kernel needs but the launch, done
+    once: the operands' checks and tables (``_launch_operands``; the hetero
+    ``fids`` range check is a host sync), the cluster size (``async_plan``,
+    an occupancy query; ``cluster`` sets it in place of ``cluster_size``'s)
+    and the lock and, under an lbest ``topology``, zeroed sequence
+    counters, a local-best slot each. ``counters``, a caller's own
+    contiguous int32 ``[2, S]`` (seed, iteration) operand, takes the place
+    of the one built from ``seeds`` and ``its``.
+
+    Returns ``(launch, lock, seq)``: ``launch(span, chunk, off)`` makes one
+    ``pso_async_launch`` of ``span`` iterations in chunks of ``chunk`` at
+    iteration offset ``off`` on the current stream. It allocates nothing
+    and reads nothing back, and the kernel reads every operand through its
+    pointer, so a CUDA graph can capture it. ``launch.operands`` holds the
+    tensors while a launch may run."""
+    pos = state[0]
+    dev = pos.device
+    extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
+        state, seeds, its, specs, fids, block_n)
+    _check_counts(counts, s_cnt, dev)
+    if counters is not None:
+        if counters.dtype != torch.int32 or counters.device != dev \
+                or tuple(counters.shape) != (2, s_cnt) \
+                or not counters.is_contiguous():
+            raise ValueError(f"counters must be a contiguous int32 "
+                             f"[2, {s_cnt}] tensor on {dev}")
+        extra[3:5] = [counters[0], counters[1]]
+    topo = _topology_operands(topology, n // block_n)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        c, _ = async_plan(n, d, block_n, s_cnt, functools.partial(
+            _capacity, block_n, d, _device_index(dev)), cluster)
+    lock = torch.zeros(2 * s_cnt, dtype=torch.int32, device=dev)
+    seq = (torch.zeros(s_cnt * (n // block_n), dtype=torch.int32, device=dev)
+           if topo[0] else None)
+    ptrs = _ptrs(list(state[:6]) + extra + list(state[6:])
+                 + [lock, counts, seq])
+
+    def launch(span: int, chunk: int, off: int) -> None:
+        with torch.cuda.device(dev):
+            _check(lib.pso_async_launch(
+                *ptrs, n, d, block_n, s_cnt, span, chunk, c, *topo,
+                off & 0xFFFFFFFF, *scalars, fit_id, rule_id, *coef,
+                torch.cuda.current_stream(dev).cuda_stream),
+                "async kernel launch")
+
+    launch.operands = (extra, counts, lock, seq)
+    return launch, lock, seq
+
+
 def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
                               sync_every: int, block_n: int, fids=None,
                               cluster=None, counts=None,
@@ -871,29 +924,46 @@ def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
     ``cluster_size``'s. An lbest ``topology`` takes the kernels' lbest
     instantiations and a zeroed sequence counter a local-best slot, shared
     by the call's launches."""
-    extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
-        state, seeds, its, specs, fids, block_n)
-    _check_counts(counts, s_cnt, state[0].device)
-    topo = _topology_operands(topology, n // block_n)
-    pos = state[0]
-    lib = _lib()
+    launch, _, _ = _async_launcher(state, seeds, its, specs, fids,
+                                   block_n=block_n, cluster=cluster,
+                                   counts=counts, topology=topology)
     launches = 0
-    with torch.cuda.device(pos.device):
-        c, _ = async_plan(n, d, block_n, s_cnt, functools.partial(
-            _capacity, block_n, d, _device_index(pos.device)), cluster)
-        lock = torch.zeros(2 * s_cnt, dtype=torch.int32, device=pos.device)
-        seq = (torch.zeros(s_cnt * (n // block_n), dtype=torch.int32,
-                           device=pos.device) if topo[0] else None)
-        ptrs = _ptrs(list(state[:6]) + extra + list(state[6:])
-                     + [lock, counts, seq])
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        for off, span, chunk in async_spans(iters, sync_every):
-            _check(lib.pso_async_launch(
-                *ptrs, n, d, block_n, s_cnt, span, chunk, c, *topo,
-                off & 0xFFFFFFFF, *scalars, fit_id, rule_id, *coef, stream),
-                "async kernel launch")
-            launches += 1
+    for off, span, chunk in async_spans(iters, sync_every):
+        launch(span, chunk, off)
+        launches += 1
     return launches
+
+
+def async_lane_launch(state, counters, specs, fids, *, block_n: int,
+                      sync_every: int, topology: str = "gbest"):
+    """One chunk of a serving lane on the card (``ops.AsyncLane``), with
+    everything but the launch done once, here (``_async_launcher``: the
+    checks, the member table's upload, the ``fids`` range check, the
+    cluster size, the lock and sequence buffers). ``state`` is the batch's
+    8 D-major tensors, ``counters`` the lane's own ``[2, S]`` int32 (seed,
+    iteration) operand, ``fids`` the lane's int32 ``[S]`` or None; the
+    kernels read all of them through pointers, so what the lane writes into
+    them between chunks is what the next chunk reads.
+
+    Returns ``launch()``: zero the lock (and, under an lbest topology, the
+    sequence counters), make one ``pso_async_launch`` of ``sync_every``
+    iterations on the current stream, and add ``sync_every`` to every row's
+    iteration counter, all on the device: no host sync, no allocation, no
+    copy from the host, so a CUDA graph can capture it. It counts no
+    launch: the caller counts what runs (a replay, not the capture)."""
+    one, lock, seq = _async_launcher(
+        state, counters[0].long(), counters[1].long(), specs, fids,
+        block_n=block_n, topology=topology, counters=counters)
+
+    def launch() -> None:
+        lock.zero_()
+        if seq is not None:
+            seq.zero_()
+        one(sync_every, sync_every, 0)
+        counters[1].add_(sync_every)
+
+    launch.operands = (one, lock, seq)   # held while the launch may run
+    return launch
 
 
 def neighbor_ids(nb: int, topology: str, device) -> Tensor:

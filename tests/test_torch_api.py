@@ -255,8 +255,8 @@ def test_lbest_topology_needs_the_async_variant(variant):
 
 
 def test_unported_entry_points_and_problem_fields_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        api.solve_stream([])
+    # solve_stream is ported (item 6): an empty stream serves nothing
+    assert api.solve_stream([], device="cpu") == []
     # constraints and kernel_fn are ported: what raises now is the
     # reference's validation of them
     with pytest.raises(TypeError, match="ConstraintSet"):
@@ -294,15 +294,15 @@ def test_registry_exports():
             "best_of_batch"} <= set(dir(core))
     cfg = repro_torch.PSOConfig(dim=2, fitness="griewank").resolved()
     assert (cfg.min_pos, cfg.max_pos, cfg.max_v) == (-600.0, 600.0, 600.0)
-    with pytest.raises(AttributeError):
-        repro_torch.solve_stream  # noqa: B018
+    assert repro_torch.solve_stream is repro_torch.api.solve_stream
 
 
 def test_importing_the_port_loads_no_jax_or_reference():
     code = ("import sys, repro_torch, repro_torch.api, "
             "repro_torch.core.multi_swarm, repro_torch.core.serial, "
             "repro_torch.kernels.ops, repro_torch.kernels.pso_step, "
-            "repro_torch.kernels.gla\n"
+            "repro_torch.kernels.gla, repro_torch.serving, "
+            "repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
