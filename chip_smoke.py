@@ -102,7 +102,19 @@ graph replay against ``ops.run_queue_lock`` for the same chunk, host and
 device us; admission us; mean gbest beside ``solve_many``); 8c a
 ``queue_lock`` flush (rows 4 and 3), a custom Problem's lane (the split
 path), a ``queue`` request and a ``CompileCache`` cold then warm. Its
-launches count under rows 3-7 and the split rows of the JSON.
+launches count under rows 3-7 and the split rows of the JSON. 9, the
+launcher, checkpoints and islands: 9a ``python -m
+repro_torch.launch.pso_run --kernel`` in a subprocess at cubic d=120
+n=32768 x200, a checkpoint every 50 iterations, ``queue_lock`` (its chunks
+and a restored step 100 continued by one launch bit for bit one fused
+launch of 200) and ``async --sync-every 8`` (gbest monotone over its
+checkpoints, == max pbest, in the box); 9b ``solve`` with
+``Method(queue_lock, islands=k, exchange_interval=10)`` at the same cell
+(one island bit for bit one fused launch; 4 islands x10 against the fused
+kernel's plain version as every island's local step; the invariants at
+200; us/iter of 1 and 4 islands beside one launch) and the eager async
+ring at d=10 n=4096; 9c ``checkpoint.save``/``restore`` of the 9a state.
+Its launches, the CLI's from its printout, count under rows 2 and 5.
 """
 import concurrent.futures
 import ctypes
@@ -110,6 +122,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -3517,6 +3530,273 @@ def phase_serving(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the launcher, checkpoints and islands on the card.
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+#: The launcher's own width (its docstring's cell): cubic d=120 n=32768 x200.
+LAUNCH_D, LAUNCH_N, LAUNCH_ITERS, LAUNCH_CHUNK = 120, 32768, 200, 50
+ISLANDS, ISLAND_EXCHANGE = 4, 10
+RING_D, RING_N = 10, 4096
+
+
+def pso_run_cli(args, what: str, card: str) -> dict:
+    """``python -m repro_torch.launch.pso_run`` in a subprocess (it loads
+    the kernels built by phase 2: ``_build`` keys them by source hash);
+    returns its gbest_fit, us/iter and kernel launches as it prints them."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.pso_run", *map(str, args)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(out.returncode == 0, f"9a {what}: pso_run exits 0 "
+          f"({out.stderr[-2000:]})")
+    got = re.search(r"gbest_fit=(\S+) .*\(([\d.]+) us/iter\)", out.stdout)
+    cnt = re.search(r"kernel launches: fused=(\d+)\s+fused_async=(\d+)",
+                    out.stdout)
+    check(got is not None and cnt is not None,
+          f"9a {what}: pso_run prints its result and launches")
+    res = dict(gbest_fit=float(got.group(1)), us=float(got.group(2)),
+               fused=int(cnt.group(1)), fused_async=int(cnt.group(2)))
+    print(f"  9a {what}: gbest_fit={res['gbest_fit']:.7g} "
+          f"{res['us']:.1f} us/iter (the CLI's wall clock: process, init, "
+          f"kernel loads, checkpoints), launches fused={res['fused']} "
+          f"fused_async={res['fused_async']}, "
+          f"{time.perf_counter() - t0:.1f} s with the process [{card}]")
+    return res
+
+
+def equal_states(a, b) -> bool:
+    """Two SwarmStates bit for bit (tensors and counters)."""
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(a, b))
+
+
+def in_box(cfg, s) -> bool:
+    return bool(((s.pos >= cfg.min_pos) & (s.pos <= cfg.max_pos)).all())
+
+
+def launcher_runs(card: str, launches: dict, tmp: Path):
+    """9a; returns the queue_lock run's config and final state."""
+    from repro_torch import checkpoint as ckpt
+    cfg = pso.PSOConfig(dim=LAUNCH_D, particle_cnt=LAUNCH_N).resolved()
+    base = ["--dim", LAUNCH_D, "--particles", LAUNCH_N, "--iters",
+            LAUNCH_ITERS, "--kernel", "--seed", 0, "--ckpt-every",
+            LAUNCH_CHUNK]
+    steps = list(range(LAUNCH_CHUNK, LAUNCH_ITERS + 1, LAUNCH_CHUNK))
+    ql = pso_run_cli(base + ["--variant", "queue_lock", "--ckpt-dir",
+                             tmp / "queue_lock"], "queue_lock", card)
+    an = pso_run_cli(base + ["--variant", "async", "--sync-every", 8,
+                             "--ckpt-dir", tmp / "async"], "async", card)
+    check(ql["fused"] == len(steps) and ql["fused_async"] == 0,
+          f"9a queue_lock: a fused launch a chunk ({ql})")
+    check(an["fused_async"] > 0 and an["fused"] == 0,
+          f"9a async: the async kernel launched ({an})")
+    for k in ("fused", "fused_async"):
+        launches[k] += ql[k] + an[k]
+    s0 = pso.init_swarm(cfg, 0, device="cuda")
+    tmpl = ckpt.stand_ins(s0)
+    check(ckpt.latest_step(str(tmp / "queue_lock")) == LAUNCH_ITERS,
+          "9a: the newest checkpoint is the last chunk's")
+    final = ckpt.restore(str(tmp / "queue_lock"), LAUNCH_ITERS, tmpl)
+    one = ops.run_queue_lock_fused(cfg, s0, LAUNCH_ITERS)
+    check(equal_states(final, one), "9a: the CLI's chunks (4 launches) == "
+          "one fused launch of 200 iterations, bit for bit")
+    mid = ckpt.restore(str(tmp / "queue_lock"), LAUNCH_ITERS // 2, tmpl)
+    cont = ops.run_queue_lock_fused(cfg, mid, LAUNCH_ITERS - mid.iteration)
+    check(equal_states(cont, one), f"9a: restored step {mid.iteration} + "
+          f"one launch to {LAUNCH_ITERS} == the uninterrupted fused run, bit "
+          f"for bit")
+    # the CLI prints 6 significant digits
+    check(math.isclose(float(one.gbest_fit), ql["gbest_fit"], rel_tol=1e-5),
+          "9a: the printed gbest is the run's")
+    # the async run: a race across blocks, held to the invariants chunk by
+    # chunk (its checkpoints carry the block locals)
+    nb = LAUNCH_N // ops._resolve_block(LAUNCH_N, None)
+    tmpl_async = ckpt.stand_ins(s0._replace(
+        lbest_pos=s0.pos[:nb], lbest_fit=s0.fit[:nb]))
+    prev = -math.inf
+    for st in steps:
+        a = ckpt.restore(str(tmp / "async"), st, tmpl_async)
+        g = float(a.gbest_fit)
+        check(a.iteration == st, f"9a async step {st}: its iteration")
+        check(g >= prev, f"9a async: gbest monotone across chunks ({prev} "
+              f"-> {g} at {st})")
+        check(g == float(a.pbest_fit.max()), f"9a async step {st}: gbest "
+              f"== max pbest")
+        check(in_box(cfg, a), f"9a async step {st}: positions in the box")
+        check(gbest_is_a_pbest(a.pbest_pos.T, a.pbest_fit, a.gbest_pos,
+                               a.gbest_fit), f"9a async step {st}: "
+              f"gbest_pos is a pbest")
+        prev = g
+    check(math.isclose(prev, an["gbest_fit"], rel_tol=1e-5),
+          "9a async: the printed gbest is the last checkpoint's")
+    print(f"  9a: the CLI's queue_lock chunks and a restored step "
+          f"{mid.iteration} continued equal one fused launch bit for bit; "
+          f"async gbest "
+          f"monotone over {len(steps)} checkpoints, == max pbest, in the "
+          f"box [{card}]")
+    return cfg, final
+
+
+def plain_local_step(cfg, s):
+    """The fused kernel's plain version as an island's local step (one
+    iteration), on the card's tensors."""
+    n = s.pos.shape[0]
+    out = pso_step.fused_plain(*ops.state_to_kernel(s), ops.kernel_spec(cfg),
+                               seed=s.seed, iteration=s.iteration, iters=1,
+                               block_n=ops._resolve_block(n, None))
+    return ops.kernel_to_state(s, *out, 1)
+
+
+def island_runs(card: str, launches: dict, errs: dict) -> None:
+    """9b: islands on row 2 through the facade, and the eager ring."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.blocking import default_block_count
+    cfg = pso.PSOConfig(dim=LAUNCH_D, particle_cnt=LAUNCH_N).resolved()
+    s0 = pso.init_swarm(cfg, 0, device="cuda")
+    one = ops.run_queue_lock_fused(cfg, s0, LAUNCH_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.run_queue_lock_fused(cfg, s0, LAUNCH_ITERS)
+    torch.cuda.synchronize()
+    us_one = (time.perf_counter() - t0) / LAUNCH_ITERS * 1e6
+    local_n = LAUNCH_N // ISLANDS
+    print(f"  9b: islands at cubic d={LAUNCH_D} n={LAUNCH_N}: {ISLANDS} of "
+          f"{local_n} on clusters of {cluster_of(local_n, LAUNCH_D)}, one "
+          f"swarm on clusters of {cluster_of(LAUNCH_N, LAUNCH_D)}")
+    # 10 iterations of 4 islands: the fused kernel against its plain version
+    st = dist.init_sharded_swarm(cfg, 0, ISLANDS, device="cuda")
+    got = dist.make_distributed_run(
+        cfg, ISLANDS, ISLAND_EXCHANGE, "queue_lock", ISLAND_EXCHANGE,
+        local_step_fn=ops.make_fused_local_step())(st)
+    want = dist.make_distributed_run(
+        cfg, ISLANDS, ISLAND_EXCHANGE, "queue_lock", ISLAND_EXCHANGE,
+        local_step_fn=plain_local_step)(st)
+    err = compare(ops.state_to_kernel(got), ops.state_to_kernel(want),
+                  FUSED_FIELDS, f"9b {ISLANDS} islands x{ISLAND_EXCHANGE}")
+    errs["fused"] = max(errs["fused"], err)
+    print(f"  9b: {ISLANDS} islands x{ISLAND_EXCHANGE} on the fused kernel "
+          f"== its plain version as the local step, max error {err:.3g} "
+          f"[{card}]")
+    timings = {}
+    for k in (1, ISLANDS):
+        m = repro_torch.Method(variant="queue_lock", islands=k,
+                               exchange_interval=ISLAND_EXCHANGE)
+        kw = dict(dim=LAUNCH_D, particles=LAUNCH_N, seed=0, method=m)
+        repro_torch.solve("cubic", iters=2, **kw)             # warm-up
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = repro_torch.solve("cubic", iters=LAUNCH_ITERS, **kw)
+        torch.cuda.synchronize()
+        timings[k] = (time.perf_counter() - t0) / LAUNCH_ITERS * 1e6
+        counts = {c: v for c, v in read_counts().items() if v}
+        check(counts == {"fused": k * LAUNCH_ITERS}, f"9b {k} island(s): "
+              f"a fused launch an iteration an island ({counts})")
+        launches["fused"] += counts.get("fused", 0)
+        s = res.state
+        check(s.iteration == LAUNCH_ITERS, f"9b {k} island(s): iterations")
+        check(float(s.gbest_fit) == float(s.pbest_fit.max()),
+              f"9b {k} island(s): gbest == max pbest after the exchange")
+        check(in_box(cfg, s), f"9b {k} island(s): positions in the box")
+        check(gbest_is_a_pbest(s.pbest_pos.T, s.pbest_fit, s.gbest_pos,
+                               s.gbest_fit), f"9b {k} island(s): gbest_pos "
+              f"is a pbest")
+        if k == 1:
+            check(equal_states(s, one), "9b: one island (200 one-iteration "
+                  "launches) == one fused launch of 200, bit for bit")
+        print(f"  9b: solve(Method(queue_lock, islands={k}, exchange "
+              f"{ISLAND_EXCHANGE})) gbest {res.best_fit:.7g} "
+              f"{timings[k]:.2f} us/iter, launches {counts} [{card}]")
+    per_island = bound(LAUNCH_D, local_n, 1)[0] * ISLANDS
+    print(f"  9b: us/iter one fused launch {us_one:.2f}, 1 island "
+          f"{timings[1]:.2f}, {ISLANDS} islands {timings[ISLANDS]:.2f} "
+          f"(a launch, a D-major pack and unpack an island an iteration; "
+          f"bound {per_island * 1e3:.2f} us/iter for {ISLANDS} islands' "
+          f"launches, {bound(LAUNCH_D, LAUNCH_N, LAUNCH_ITERS)[0] * 1e3 / LAUNCH_ITERS:.2f}"
+          f" for the one launch) [{card}]")
+    # the async island ring: the eager engine on the card
+    rcfg = pso.PSOConfig(dim=RING_D, particle_cnt=RING_N).resolved()
+    ring = {}
+    for k in (1, ISLANDS):
+        m = repro_torch.Method(variant="async", islands=k,
+                               exchange_interval=8, sync_every=8)
+        kw = dict(dim=RING_D, particles=RING_N, seed=1, method=m)
+        repro_torch.solve("cubic", iters=8, **kw)             # warm-up
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = repro_torch.solve("cubic", iters=LAUNCH_ITERS, **kw)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / LAUNCH_ITERS * 1e6
+        check(not any(read_counts().values()), "9b ring: eager, no kernel")
+        s = res.state
+        check(float(s.gbest_fit) == float(s.pbest_fit.max()),
+              f"9b ring {k}: gbest == max pbest after the drain")
+        check(in_box(rcfg, s), f"9b ring {k}: positions in the box")
+        check(tuple(s.lbest_fit.shape) == (k * default_block_count(
+            RING_N // k),), f"9b ring {k}: the islands' block locals")
+        ring[k] = res
+        print(f"  9b: async ring, {k} island(s) of {RING_N // k} at cubic "
+              f"d={RING_D}, exchange 8, sync_every 8: gbest "
+              f"{res.best_fit:.7g} {us:.1f} us/iter (eager) [{card}]")
+    eager = pso.run_async(rcfg, pso.init_swarm(rcfg, 1, device="cuda"),
+                          LAUNCH_ITERS, sync_every=8)
+    check(equal_states(ring[1].state, eager), "9b ring: one island == "
+          "run_async on the card, bit for bit")
+
+
+def checkpoint_times(card: str, state, tmp: Path) -> None:
+    """9c: save and restore of the launcher's final state."""
+    from repro_torch import checkpoint as ckpt
+    tmpl = ckpt.stand_ins(state)
+    path = tmp / "times"
+    ckpt.save(str(path), 0, state)                  # warm-up
+    ckpt.restore(str(path), 0, tmpl)
+    saves, restores = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(str(path), 1, state)
+        saves.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = ckpt.restore(str(path), 1, tmpl)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+    check(equal_states(back, state), "9c: restore == the saved state")
+    nbytes = sum(f.stat().st_size for f in (path / "step_00000001").iterdir())
+    tensor_bytes = sum(x.numel() * x.element_size() for x in state
+                       if isinstance(x, torch.Tensor))
+    print(f"  9c: checkpoint of the 9a state ({tensor_bytes / 1e6:.1f} MB of "
+          f"tensors, {nbytes / 1e6:.1f} MB written): save "
+          f"{min(saves) * 1e3:.1f}-{max(saves) * 1e3:.1f} ms, restore "
+          f"{min(restores) * 1e3:.1f}-{max(restores) * 1e3:.1f} ms, "
+          f"3 rounds [{card}]")
+
+
+def phase_launcher(card: str, errs: dict) -> dict:
+    """Phase 9; returns the launches of its main-path drives (the CLI's
+    from its printout)."""
+    print(f"phase 9: the launcher, checkpoints and islands on the card "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(COUNTERS, 0)
+    tmp = ROOT / "build" / "chip_smoke_phase9"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        _, state = launcher_runs(card, launches, tmp)
+        island_runs(card, launches, errs)
+        checkpoint_times(card, state, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 9: {time.perf_counter() - t0:.1f} s; launches "
+          f"{dict((k, v) for k, v in launches.items() if v)}")
+    return launches
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -3582,6 +3862,8 @@ def main() -> int:
     for k, v in phase_lbest(card, errs).items():
         launches[k] += v
     for k, v in phase_serving(card).items():
+        launches[k] += v
+    for k, v in phase_launcher(card, errs).items():
         launches[k] += v
     kernels = []
     for name, replaces in REPLACES.items():

@@ -7,6 +7,9 @@ works on CPU-only torch):
     repro_torch.solve(problem, ...) -> Result   # the unified facade
     repro_torch.solve_many(problem, seeds, ...) # one Result per seed
     repro_torch.solve_stream(requests, ...)     # continuous-batching serving
+    repro_torch.ContinuousScheduler / repro_torch.CompileCache
+    repro_torch.ServingMetrics
+    repro_torch.SolveServer / repro_torch.SolveRequest  # flush batching
     repro_torch.best(results)                   # best of several Results
     repro_torch.Method / repro_torch.Result     # method spec / result
     repro_torch.History                         # Result.history
@@ -20,8 +23,8 @@ works on CPU-only torch):
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back. The
 layout mirrors ``repro`` (``core/``, ``kernels/``, ``telemetry/``,
-``serving/``, ``launch/``, ``api.py``), but nothing here imports JAX or
-``repro``.
+``serving/``, ``checkpoint/``, ``runtime/``, ``launch/``, ``api.py``), but
+nothing here imports JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,11 @@ _EXPORTS = {
     "Method": "repro_torch.api",
     "Result": "repro_torch.api",
     "History": "repro_torch.api",
+    "ContinuousScheduler": "repro_torch.serving",
+    "CompileCache": "repro_torch.serving",
+    "ServingMetrics": "repro_torch.serving",
+    "SolveServer": "repro_torch.launch.serve",
+    "SolveRequest": "repro_torch.launch.serve",
     "Problem": "repro_torch.core.problem",
     "register_problem": "repro_torch.core.problem",
     "get_problem": "repro_torch.core.problem",

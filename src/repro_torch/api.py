@@ -28,6 +28,12 @@
   ``telemetry``: ``Result.telemetry``, the kernels' contention counters
   (``repro_torch.telemetry``; on the CPU the kernel backend's plain
   versions count).
+* ``islands=k``: the swarm split into k equal islands of contiguous rows
+  on the one device (``core/distributed.py``), each iterating locally and
+  exchanging its best every ``exchange_interval`` iterations: the
+  ``_pmax_best`` reduction for the synchronous variants (on the kernel
+  backend each island's steps launch the fused kernel), the island ring
+  for ``async`` (the eager engine).
 
 Constrained problems (``core/constraints.py``): ``Result.violation``,
 ``feasible`` and ``first_feasible_iter`` report feasibility, ``best``
@@ -84,9 +90,13 @@ class Method:
     per sync point, any backend); ``telemetry`` fills ``Result.telemetry``
     (the kernel backend only). ``topology`` is the async variant's pull at
     a sync point: ``gbest`` (the star), or the lbest ``ring`` and
-    ``vonneumann`` (``variant="async"`` only). ``islands`` and
-    ``schedule="auto"`` are accepted only at their defaults until the port
-    carries them.
+    ``vonneumann`` (``variant="async"`` only). ``islands > 0`` splits the
+    swarm into that many islands on the one device (``core.distributed``;
+    the reference shards them over devices and refuses more islands than
+    it has): synchronous variants exchange the best every
+    ``exchange_interval`` iterations, ``async`` exchanges over the island
+    ring. ``schedule="auto"`` is accepted only at its default until the
+    port carries it.
     """
 
     variant: str = "queue"
@@ -115,6 +125,10 @@ class Method:
         if self.schedule not in ("fixed", "auto"):
             raise ValueError(
                 f"unknown schedule {self.schedule!r}; one of fixed|auto")
+        if self.schedule == "auto" and self.islands:
+            raise ValueError(
+                "schedule='auto' tunes single-device schedules; the island "
+                "runners pick their own block layout — use schedule='fixed'")
         resolve_rule(self.rule)
         if self.backend == "kernel" or self.telemetry:
             kernel_rule_id(self.rule)     # raises naming the kernel rules
@@ -150,12 +164,16 @@ class Method:
             raise ValueError(
                 f"islands={self.islands} must be >= 0 and "
                 f"exchange_interval={self.exchange_interval} >= 1")
+        if self.backend == "kernel" and self.islands and \
+                self.variant == "async":
+            raise ValueError(
+                "async islands run the eager ring local loop; use "
+                "backend='auto'/'eager' (the CUDA async kernel has no "
+                "island ring)")
         if self.sync_every < 1:
             raise ValueError(f"sync_every={self.sync_every} must be >= 1")
         if self.schedule == "auto":
             raise _not_ported("schedule='auto' (the autotuner)", "9")
-        if self.islands:
-            raise _not_ported("islands", "7 (islands and the CLI)")
 
     def resolve_backend(self, device: torch.device) -> str:
         if self.backend != "auto":
@@ -291,8 +309,12 @@ def solve(problem: Union[str, Problem], *,
                      rule=rule, topology=topology, telemetry=telemetry)
     cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
                        max_pos, max_v, m)
-    state = init_swarm(cfg, seed, device=dev)
-    state, hist, tel = _run_segmented(prob, cfg, state, iters, m)
+    if m.islands:
+        state = _run_islands(prob, cfg, seed, iters, m, dev)
+        hist = tel = None
+    else:
+        state = init_swarm(cfg, seed, device=dev)
+        state, hist, tel = _run_segmented(prob, cfg, state, iters, m)
     return Result(problem=prob, config=cfg, method=m, iters=iters,
                   state=state, history=hist, telemetry=tel)
 
@@ -332,12 +354,13 @@ def _reweight_state(cfg: PSOConfig, state: SwarmState) -> SwarmState:
     return state
 
 
-def _ramp_loop(prob: Problem, cfg: PSOConfig, state, iters: int, run_seg):
+def _ramp_loop(prob: Problem, cfg: PSOConfig, state, iters: int, run_seg,
+               reweight=_reweight_state):
     """The penalty-ramp scheduler: each segment a static-weight run on any
     backend, the carried fitness of ``state`` (a swarm or a batch)
-    re-weighted at the boundaries (``_reweight_state``). ``run_seg(cfg,
-    state, k) -> (state, history or None)``. Returns (state, [history,
-    ...])."""
+    re-weighted at the boundaries (``reweight(cfg, state) -> state``).
+    ``run_seg(cfg, state, k) -> (state, history or None)``. Returns
+    (state, [history, ...])."""
     hists = []
     for j, (seg_iters, weight) in enumerate(
             _ramp_segments(iters, prob.constraints)):
@@ -346,11 +369,40 @@ def _ramp_loop(prob: Problem, cfg: PSOConfig, state, iters: int, run_seg):
             cfg_k = dataclasses.replace(
                 cfg, fitness=prob.with_penalty_weight(weight))
             if j:
-                state = _reweight_state(cfg_k, state)
+                state = reweight(cfg_k, state)
         state, h = run_seg(cfg_k, state, seg_iters)
         if h is not None:
             hists.append(h)
     return state, hists
+
+
+def _run_islands(prob: Problem, cfg: PSOConfig, seed: int, iters: int,
+                 m: Method, dev: torch.device) -> SwarmState:
+    """The island path: ``init_sharded_swarm`` once, then one
+    ``make_distributed_run`` a penalty-ramp segment (one without a ramp).
+    On the kernel backend the synchronous variants' local step is the
+    fused kernel (``ops.make_fused_local_step``)."""
+    from .core.distributed import init_sharded_swarm, make_distributed_run
+    local_step = None
+    if m.variant != "async" and m.resolve_backend(dev) == "kernel":
+        from .kernels.ops import make_fused_local_step
+        local_step = make_fused_local_step(block_n=m.block_n)
+    state = init_sharded_swarm(cfg, seed, m.islands, device=dev)
+
+    def run_seg(cfg_k: PSOConfig, s: SwarmState, seg_iters: int):
+        runner = make_distributed_run(
+            cfg_k, m.islands, iters=seg_iters, variant=m.variant,
+            exchange_interval=m.exchange_interval, local_step_fn=local_step,
+            sync_every=m.sync_every)
+        return runner(s), None
+
+    def reweight(cfg_k: PSOConfig, s: SwarmState) -> SwarmState:
+        # every ring segment seeds its islands' block locals anew
+        return _reweight_state(cfg_k, s._replace(lbest_pos=None,
+                                                 lbest_fit=None))
+
+    state, _ = _ramp_loop(prob, cfg, state, iters, run_seg, reweight)
+    return state
 
 
 def _sum_counters(cnts):
@@ -477,6 +529,9 @@ def solve_many(problem: Union[str, Problem, None] = None,
                      sync_every=sync_every, block_n=block_n,
                      record_history=record_history, schedule=schedule,
                      rule=rule, topology=topology, telemetry=telemetry)
+    if m.islands:
+        raise ValueError("islands split ONE swarm; use solve() — "
+                         "solve_many batches independent swarms instead")
     if (problem is None) == (problems is None):
         raise ValueError(
             "pass exactly one of problem= (homogeneous batch) or "

@@ -80,6 +80,10 @@ FITNESS_FNS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 #: Stable integer ids for kernel-side selection.
 FITNESS_IDS: Dict[str, int] = {name: i for i, name in enumerate(FITNESS_FNS)}
 
+#: Search-domain defaults per function.
+DEFAULT_BOUNDS: Dict[str, tuple] = {
+    p.name: (p.lo, p.hi) for p in BUILTIN_PROBLEMS}
+
 
 def is_builtin(problem: Problem) -> bool:
     """Whether ``problem`` takes the built-in kernels: one of the six

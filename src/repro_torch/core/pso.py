@@ -448,20 +448,22 @@ def init_swarm_async(cfg: PSOConfig, seed, n_blocks: Optional[int] = None,
 
 
 def step_async(cfg: PSOConfig, s: SwarmState, local: Tuple[Tensor, Tensor],
-               coeffs=None, hetero=None
+               coeffs=None, hetero=None, index_offset: int = 0
                ) -> Tuple[SwarmState, Tuple[Tensor, Tensor]]:
     """One async iteration: every block of ``n // nb`` particles advances
     against its block-local best; the iteration's per-block winner (first
     on ties) is folded into the local best. The shared gbest is untouched
-    until ``publish_async_locals``."""
+    until ``publish_async_locals``. ``index_offset`` shifts the particles'
+    RNG indices, so an island owning particles [off, off + n) draws the
+    monolithic swarm's slice (``core.distributed``)."""
     lbp, lbf = local
     n, d = s.pos.shape[-2:]
     lead = s.pos.shape[:-2]
     nb = lbf.shape[-1]
     bn = n // nb
     gb = lbp.repeat_interleave(bn, dim=-2)        # particle -> its block best
-    pos, vel, fit = _advance(cfg, s, gbest_pos=gb, coeffs=coeffs,
-                             hetero=hetero)
+    pos, vel, fit = _advance(cfg, s, index_offset=index_offset, gbest_pos=gb,
+                             coeffs=coeffs, hetero=hetero)
     pbest_pos, pbest_fit = _update_pbest(s, pos, fit,
                                          deb_selection_fn(cfg, hetero))
     fb = fit.reshape(*lead, nb, bn)
@@ -504,13 +506,13 @@ def lbest_sync(s: SwarmState, local, topology: str
 
 
 def _sync_point(s: SwarmState, local, sync_every: int, last: bool,
-                topology: str = "gbest"):
+                topology: str = "gbest", shift=0):
     """After an async step: the scheduled sync where the swarm's iteration
-    is a multiple of ``sync_every`` (publish and pull gbest under the star,
-    ``lbest_sync`` under an lbest ``topology``), else flush publish-only
-    after the last step of the call. A batch decides per swarm, as its rows
-    may stand at different iterations."""
-    due = s.iteration % sync_every == 0
+    less ``shift`` is a multiple of ``sync_every`` (publish and pull gbest
+    under the star, ``lbest_sync`` under an lbest ``topology``), else flush
+    publish-only after the last step of the call. A batch decides per
+    swarm, as its rows may stand at different iterations."""
+    due = (s.iteration - shift) % sync_every == 0
 
     def scheduled(s, local):
         if topology == "gbest":
@@ -534,7 +536,8 @@ def _sync_point(s: SwarmState, local, sync_every: int, last: bool,
 def run_async(cfg: PSOConfig, state: SwarmState, iters: int,
               sync_every: int = ASYNC_SYNC_EVERY,
               n_blocks: Optional[int] = None, coeffs=None,
-              hetero=None) -> SwarmState:
+              hetero=None, index_offset: int = 0,
+              phase: Optional[int] = None) -> SwarmState:
     """``iters`` iterations of relaxed-consistency async PSO (eager).
 
     Blocks run against block-local bests; the shared gbest is published
@@ -546,6 +549,11 @@ def run_async(cfg: PSOConfig, state: SwarmState, iters: int,
     locals instead (``lbest_sync``). The result carries the block-local
     bests, and its ``gbest_fit`` equals ``max(pbest_fit)``. A state that
     carries locals of the same block count resumes them.
+
+    ``phase`` (the reference's) places the call's start ``phase``
+    iterations into a window instead: the island ring passes 0, so every
+    round's schedule starts at the round. ``index_offset`` shifts the
+    particles' RNG indices (``step_async``).
     """
     cfg = cfg.resolved()
     n = state.pos.shape[-2]
@@ -559,11 +567,13 @@ def run_async(cfg: PSOConfig, state: SwarmState, iters: int,
                == tuple(state.gbest_fit.shape) + (nb,))
     local = ((state.lbest_pos, state.lbest_fit) if carried
              else init_async_locals(state, nb))
+    shift = 0 if phase is None else state.iteration - phase
     s = state._replace(lbest_pos=None, lbest_fit=None)
     for t in range(iters):
-        s, local = step_async(cfg, s, local, coeffs=coeffs, hetero=hetero)
+        s, local = step_async(cfg, s, local, coeffs=coeffs, hetero=hetero,
+                              index_offset=index_offset)
         s, local = _sync_point(s, local, sync_every, last=t == iters - 1,
-                               topology=cfg.topology)
+                               topology=cfg.topology, shift=shift)
     return s._replace(lbest_pos=local[0], lbest_fit=local[1])
 
 

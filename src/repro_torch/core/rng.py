@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import _device
+
 _M = 0xFFFFFFFF
 
 # Weyl constants (odd, high-entropy) for combining counter components.
@@ -56,3 +58,14 @@ def uniform(seed, iteration, stream, index,
     """Uniform in [0, 1) with 24 bits of mantissa entropy."""
     bits = hash_u32(seed, iteration, stream, index)
     return (bits >> 8).to(dtype) * (1.0 / (1 << 24))
+
+
+def uniform_grid(seed, iteration, stream, n, d,
+                 dtype: torch.dtype = torch.float32, device=None
+                 ) -> torch.Tensor:
+    """Uniform [n, d] grid keyed by flat element index, the common PSO
+    shape, on ``device`` (``None``: the card). The indices are int64 (the
+    reference's are uint32): torch on the CPU has no uint32 ``arange``."""
+    idx = torch.arange(n * d, dtype=torch.int64,
+                       device=_device.resolve(device)).reshape(n, d)
+    return uniform(seed, iteration, stream, idx, dtype=dtype)

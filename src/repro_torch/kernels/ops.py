@@ -284,6 +284,21 @@ def run_queue_lock_fused_async(cfg: PSOConfig, s: SwarmState, iters: int,
     return (out, cnt) if telemetry else out
 
 
+def make_fused_local_step(iters_per_call: int = 1,
+                          block_n: Optional[int] = None):
+    """The fused kernel as the ``local_step_fn`` of synchronous islands
+    (``core.distributed``): ``iters_per_call`` iterations of
+    ``run_queue_lock_fused`` on one island's rows (row 2 on a CUDA state;
+    a custom Problem's split kernels; the plain versions on a CPU state).
+    As in the reference, no index offset: every island draws at its local
+    indices from the swarm's seed. The reference's ``interpret`` has no
+    counterpart. Each call packs the island's rows D-major and unpacks
+    them again."""
+    def step(cfg: PSOConfig, s: SwarmState) -> SwarmState:
+        return run_queue_lock_fused(cfg, s, iters_per_call, block_n=block_n)
+    return step
+
+
 def pack_dmajor_batch(x: torch.Tensor) -> torch.Tensor:
     """[S, N, D] -> a new contiguous [D, S*N] (swarm s owns columns
     [s*N, (s+1)*N))."""

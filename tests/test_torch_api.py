@@ -1,6 +1,7 @@
 """repro_torch.api on the CPU: solve and solve_many against
 repro.solve/repro.solve_many(backend="jnp") for every variant at a few
 iterations (solve_many homogeneous and with problems=), Method validation,
+islands through the facade, the export surface against the reference's,
 the features that are not ported yet, the no-card error, and the port's
 independence of JAX and of the reference package.
 
@@ -138,6 +139,7 @@ def test_best_picks_highest_fitness():
     (dict(topology="star"), "unknown topology"),
     (dict(islands=-1), "islands"),
     (dict(sync_every=0), "sync_every"),
+    (dict(islands=2, schedule="auto"), "single-device schedules"),
 ])
 def test_method_validation(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -226,11 +228,57 @@ def test_method_and_loose_kwargs_are_exclusive():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(schedule="auto"), "item 9"),
-    (dict(islands=2), "item 7"),
 ])
 def test_unported_method_features_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         api.Method(**kw)
+
+
+def test_method_facade_islands():
+    """Method(islands=...) routes solve() through the island runner, as in
+    the reference (tests/test_islands_ring.py): one async island is the
+    single-swarm async solve, the facade's checks raise the reference's
+    errors, and sync islands run (on the kernel backend through the fused
+    kernel's plain version here)."""
+    res = repro_torch.solve("rastrigin", dim=3, particles=128, iters=16,
+                            seed=0, device="cpu", method=api.Method(
+                                variant="async", islands=1,
+                                exchange_interval=8, sync_every=4))
+    ref = repro_torch.solve("rastrigin", dim=3, particles=128, iters=16,
+                            seed=0, device="cpu", method=api.Method(
+                                variant="async", sync_every=4))
+    assert res.gbest_fit == ref.gbest_fit       # 1-island ring == one swarm
+    assert res.method.islands == 1
+    with pytest.raises(ValueError, match="solve_many"):
+        repro_torch.solve_many("cubic", seeds=[0, 1], device="cpu",
+                               method=api.Method(islands=2))
+    with pytest.raises(ValueError, match="ring local loop"):
+        api.Method(variant="async", backend="kernel", islands=2)
+    for variant, backend in (("queue", "auto"), ("queue_lock", "kernel")):
+        res_q = repro_torch.solve("rastrigin", dim=3, particles=128,
+                                  iters=16, seed=0, device="cpu",
+                                  method=api.Method(
+                                      variant=variant, backend=backend,
+                                      islands=4, exchange_interval=4))
+        assert np.isfinite(res_q.gbest_fit)
+        assert res_q.gbest_fit == float(res_q.state.pbest_fit.max())
+
+
+def test_export_surface_matches_the_reference():
+    """Every top-level name of repro exists in repro_torch, and repro.core
+    and repro_torch.core export the same names, each importable."""
+    import repro.core
+    import repro_torch.core
+    assert set(repro.__all__) <= set(repro_torch.__all__)
+    assert set(repro.core.__all__) == set(repro_torch.core.__all__)
+    for name in repro_torch.__all__:
+        assert getattr(repro_torch, name) is not None, name
+    for name in repro_torch.core.__all__:
+        assert getattr(repro_torch.core, name) is not None, name
+    from repro_torch.launch.serve import SolveServer
+    from repro_torch.serving import ContinuousScheduler
+    assert repro_torch.SolveServer is SolveServer
+    assert repro_torch.ContinuousScheduler is ContinuousScheduler
 
 
 @pytest.mark.parametrize("topology", ["ring", "vonneumann"])
@@ -302,7 +350,9 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.core.multi_swarm, repro_torch.core.serial, "
             "repro_torch.kernels.ops, repro_torch.kernels.pso_step, "
             "repro_torch.kernels.gla, repro_torch.serving, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.pso_run, "
+            "repro_torch.checkpoint, repro_torch.runtime, "
+            "repro_torch.core.distributed, repro_torch.core.tuner\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
