@@ -114,7 +114,25 @@ checkpoints, == max pbest, in the box); 9b ``solve`` with
 kernel's plain version as every island's local step; the invariants at
 200; us/iter of 1 and 4 islands beside one launch) and the eager async
 ring at d=10 n=4096; 9c ``checkpoint.save``/``restore`` of the 9a state.
-Its launches, the CLI's from its printout, count under rows 2 and 5.
+Its launches, the CLI's from its printout, count under rows 2 and 5. 10,
+the schedule autotuner (``core/autotune.py``, ``roofline/pso_cost.py``):
+10a ``resolve_schedule(measure=True)`` on a fresh cache at cubic d=1
+n=131072 x1000, cubic d=120 n=32768 x200 and rastrigin d=10 n=1024 S=128,
+every measured candidate (variant, backend, block_n, cluster size C,
+sync_every, predicted and measured µs/iter), the pick no slower than the
+fixed anchor, a second resolve a cache hit with no launch; 10b
+``solve``/``solve_many(schedule="auto")`` against the fixed Method it
+resolved to (bit for bit where the run is one trajectory, else the async
+invariants) and the fixed default, with the resolve's cost; 10c the card's
+calibration from its own records (the eager engine's Table 3 cells, the
+kernels' async sweep, the split path's dispatches: the constants of
+``pso_cost.CUDA_CALIBRATION`` and ``CUDA_EAGER_CALIBRATION``), 10a's
+candidates predicted against measured with Spearman's rank correlation
+(printed, not gated), ``BENCH_pso.json`` refused on the card; 10d phase
+8a's trace at n=128 through ``SolveServer(autotune=True)`` and
+``ContinuousScheduler(autotune=True)``, each result bit for bit its
+standalone kernel solve at the tuned ``sync_every``. Its launches count
+under rows 2, 3, 5 and 7.
 """
 import concurrent.futures
 import ctypes
@@ -157,6 +175,11 @@ try:    # nor serving
     from repro_torch.launch.serve import SolveRequest, SolveServer
 except ImportError:
     serving = None
+try:    # nor the autotuner
+    from repro_torch.core import autotune
+    from repro_torch.roofline import pso_cost
+except ImportError:
+    autotune = pso_cost = None
 
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and 67 TFLOP/s of
@@ -3797,6 +3820,434 @@ def phase_launcher(card: str, errs: dict) -> dict:
     return launches
 
 
+#: Phase 10: the autotuner's cells, (problem, d, n, iters, S): phase 4's two
+#: solve cells (the paper's largest swarms) and phase 4b's first batch.
+TUNE_CELLS = (("cubic", 1, 131072, 1000, 1), ("cubic", 120, 32768, 200, 1),
+              ("rastrigin", 10, 1024, 200, 128))
+#: 10c: the records ``pso_cost.fit_calibration`` reads, in the reference's
+#: names: Table 3's eager cubic d=1 at these n (``table3/p{n}/{variant}``),
+#: and the async sweep of the kernels at rastrigin d=1 on blocks of 512
+#: (``async_sweep/d1_n{n}_b512/{sync_kernel,sync_every_k}``), 256, 64 and
+#: 16 blocks, each call CALIB_ITERS iterations.
+CALIB_EAGER_N = (1024, 65536, 1048576, 8388608)
+CALIB_SWEEP_N = (131072, 32768, 8192)
+CALIB_SYNC = (1, 4, 16, 64)
+CALIB_ITERS = 400
+
+
+def tune_label(prob: str, d: int, n: int, iters: int, s_cnt: int) -> str:
+    return f"{prob} d={d} n={n} x{iters}" + (f" S={s_cnt}" if s_cnt > 1
+                                            else "")
+
+
+def schedule_text(s, n: int, d: int) -> str:
+    """A schedule as phase 10 prints it: variant and backend, the block
+    size and, on the kernels, the cluster size C; sync_every for async."""
+    if s.backend == "kernel":
+        bn = s.block_n or ops._resolve_block(n, None)
+        where = (f"kernel block_n={bn} C="
+                 f"{pso_step._cluster(n, d, bn, torch.device('cuda'))}")
+    else:
+        where = f"eager block_n={s.block_n}"
+    se = f" sync_every={s.sync_every}" if s.variant == "async" else ""
+    return f"{s.variant} {where}{se}"
+
+
+def sched_key(s):
+    return (s.variant, s.backend, s.block_n,
+            s.sync_every if s.variant == "async" else None)
+
+
+def tune_cells(card: str, launches: dict, cache) -> dict:
+    """10a: ``resolve_schedule(measure=True)`` on a fresh cache at each
+    cell, every measured candidate printed beside its prediction; the pick
+    no slower than the fixed anchor in the same measurement; a second
+    resolve a cache hit with no launch. Returns per cell (the pick, the
+    measured candidates, the resolve's seconds)."""
+    out = {}
+    real = autotune.measure_schedule
+    anchor = autotune.fixed_schedule(device="cuda")
+    for cell in TUNE_CELLS:
+        prob, d, n, iters, s_cnt = cell
+        label = tune_label(*cell)
+        measured = []
+
+        def recording(sched, *a, **k):
+            us = real(sched, *a, **k)
+            measured.append(sched.replace(measured_us=us))
+            return us
+
+        kw = dict(batch=s_cnt, cache=cache, device="cuda")
+        autotune.measure_schedule = recording
+        try:
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pick = autotune.resolve_schedule(prob, d, n, iters, **kw)
+            dt = time.perf_counter() - t0
+        finally:
+            autotune.measure_schedule = real
+        counts = read_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        check(pick.source == "measured" and len(measured) >= 2,
+              f"10a {label}: a measured pick ({pick})")
+        anch = [m for m in measured if sched_key(m) == sched_key(anchor)]
+        check(len(anch) == 1, f"10a {label}: the fixed anchor measured once")
+        check(pick.measured_us <= anch[0].measured_us,
+              f"10a {label}: pick {pick.measured_us:.2f} us/iter <= the "
+              f"anchor's {anch[0].measured_us:.2f}")
+        check(any(m.backend == "kernel" for m in measured),
+              f"10a {label}: kernel candidates measured")
+        measured = [m.replace(predicted_us=autotune.rank_schedules(
+            [m], prob, d, n, iters, batch=s_cnt,
+            device="cuda")[0].predicted_us) for m in measured]
+        for m in measured:
+            print(f"  10a {label}: {schedule_text(m, n, d):52s} predicted "
+                  f"{m.predicted_us:10.3f} measured {m.measured_us:10.3f} "
+                  f"us/iter" + (" (the fixed anchor)" if sched_key(m)
+                                == sched_key(anchor) else "")
+                  + (" <- the pick" if sched_key(m) == sched_key(pick)
+                     else ""))
+        zero_counts()
+        t0 = time.perf_counter()
+        hit = autotune.resolve_schedule(prob, d, n, iters, **kw)
+        dt_hit = time.perf_counter() - t0
+        again = {k: v for k, v in read_counts().items() if v}
+        check(hit.source == "cache" and sched_key(hit) == sched_key(pick)
+              and not again, f"10a {label}: the second resolve is a cache "
+              f"hit with no launch ({hit.source}, {again})")
+        print(f"  10a {label}: pick {schedule_text(pick, n, d)} "
+              f"{pick.measured_us:.3f} us/iter against the anchor "
+              f"{schedule_text(anchor, n, d)} {anch[0].measured_us:.3f} "
+              f"({anch[0].measured_us / pick.measured_us:.1f}x); resolve "
+              f"{dt:.3f} s, {len(measured)} candidates measured, launches "
+              f"{dict((k, v) for k, v in counts.items() if v)}; second "
+              f"resolve {dt_hit * 1e6:.0f} us, a cache hit, no launch "
+              f"[{card}]")
+        out[cell] = (pick, measured, dt)
+    return out
+
+
+def deterministic(m, n: int) -> bool:
+    """Whether a fixed Method's run is one trajectory: the eager engine, the
+    fused kernel (synchronous PPSO) or the async kernel with one block."""
+    return (m.backend == "eager" or m.variant == "queue_lock"
+            or n // (m.block_n or ops._resolve_block(n, None)) == 1)
+
+
+def state_invariants(cfg, s, what: str) -> None:
+    """Phase 3's invariants of a multi-block async run (a race)."""
+    check(float(s.gbest_fit) == float(s.pbest_fit.max()),
+          f"{what}: gbest == max pbest")
+    check(in_box(cfg, s), f"{what}: positions in the box")
+    check(gbest_is_a_pbest(s.pbest_pos.T, s.pbest_fit, s.gbest_pos,
+                           s.gbest_fit), f"{what}: gbest_pos is a pbest")
+
+
+def timed(fn, iters: int):
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / iters * 1e6, {
+        k: v for k, v in read_counts().items() if v}
+
+
+def auto_against_fixed(card: str, launches: dict, tuned: dict) -> None:
+    """10b: ``schedule="auto"`` (a cache hit of 10a's resolve) against the
+    fixed Method it resolved to from the same seed: bit for bit where the
+    run is one trajectory, else both held to the invariants; µs/iter of
+    auto, of the resolved fixed Method and of the fixed default
+    (``Method()``: the eager queue variant), beside the resolve's cost."""
+    for cell, (pick, _, resolve_s) in tuned.items():
+        prob, d, n, iters, s_cnt = cell
+        label = tune_label(*cell)
+        if s_cnt == 1:
+            def run(iters=iters, **kw):
+                return [repro_torch.solve(prob, dim=d, particles=n,
+                                          iters=iters, seed=0, **kw)]
+        else:
+            def run(iters=iters, **kw):
+                return repro_torch.solve_many(prob, range(s_cnt), dim=d,
+                                              particles=n, iters=iters, **kw)
+        # warm-ups (first launches at this shape: occupancy queries, tables)
+        # of the pick as a fixed Method and of the default, two iterations
+        run(iters=2, method=repro_torch.Method(
+            variant=pick.variant, backend=pick.backend, block_n=pick.block_n,
+            sync_every=pick.sync_every))
+        run(iters=2)
+        auto, us_auto, counts = timed(lambda: run(schedule="auto"), iters)
+        for k, v in counts.items():
+            launches[k] += v
+        m = auto[0].method
+        check(m.schedule == "fixed" and (m.variant, m.backend, m.block_n,
+                                         m.sync_every) == (
+            pick.variant, pick.backend, pick.block_n, pick.sync_every),
+              f"10b {label}: auto ran the pick ({m})")
+        fixed, us_fixed, counts = timed(lambda: run(method=m), iters)
+        for k, v in counts.items():
+            launches[k] += v
+        default, us_default, _ = timed(lambda: run(), iters)
+        cfg = auto[0].config
+        if deterministic(m, n):
+            check(all(equal_states(a.state, f.state)
+                      for a, f in zip(auto, fixed)),
+                  f"10b {label}: auto == the resolved fixed Method bit for "
+                  f"bit")
+            how = "bit for bit"
+        else:
+            for j, (a, f) in enumerate(zip(auto, fixed)):
+                state_invariants(cfg, a.state, f"10b {label} auto row {j}")
+                state_invariants(cfg, f.state, f"10b {label} fixed row {j}")
+            how = "both held to the async invariants (a race)"
+        best = max(r.best_fit for r in auto)
+        print(f"  10b {label}: auto {us_auto:.2f} us/iter ({m.variant} "
+              f"{m.backend} block_n={m.block_n} sync_every={m.sync_every}; "
+              f"{how}), the resolved fixed Method {us_fixed:.2f}, the fixed "
+              f"default (eager queue) {us_default:.2f} "
+              f"({us_default / us_auto:.1f}x auto); the resolve "
+              f"{resolve_s:.3f} s = {resolve_s * 1e6 / iters:.1f} us/iter "
+              f"of this budget; best gbest {best:.7g} (default "
+              f"{max(r.best_fit for r in default):.7g}) [{card}]")
+
+
+def spearman(a, b) -> float:
+    ra = np.argsort(np.argsort(a)).astype(float)
+    rb = np.argsort(np.argsort(b)).astype(float)
+    if ra.std() == 0 or rb.std() == 0:
+        return float("nan")
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def best_of(fn, rounds: int = 3) -> float:
+    """Host seconds of the fastest of ``rounds`` synchronized calls, after a
+    warm call."""
+    fn()
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def calibration_records():
+    """10c's records: (eager table3 records, kernel async_sweep records),
+    each ``{"name", "us_per_call"}`` in µs an iteration."""
+    eager = []
+    for n in CALIB_EAGER_N:
+        cfg = pso.PSOConfig(dim=1, particle_cnt=n).resolved()
+        s0 = pso.init_swarm(cfg, 0, device="cuda")
+        for v in ("reduction", "queue", "queue_lock"):
+            t = best_of(lambda: pso.run(cfg, s0, 10, v))
+            eager.append({"name": f"table3/p{n}/{v}",
+                          "us_per_call": t / 10 * 1e6})
+        del s0
+    sweep = []
+    for n in CALIB_SWEEP_N:
+        cfg = pso.PSOConfig(dim=1, particle_cnt=n,
+                            fitness="rastrigin").resolved()
+        s0 = pso.init_swarm(cfg, 0, device="cuda")
+        fns = {"sync_kernel": lambda: ops.run_queue_lock_fused(
+            cfg, s0, CALIB_ITERS, block_n=512)}
+        for k in CALIB_SYNC:
+            fns[f"sync_every_{k}"] = functools.partial(
+                ops.run_queue_lock_fused_async, cfg, s0, CALIB_ITERS,
+                sync_every=k, block_n=512)
+        best = dict.fromkeys(fns, float("inf"))
+        for fn in fns.values():
+            fn()
+        for _ in range(3):                   # interleaved, keep the min
+            for name, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                best[name] = min(best[name], time.perf_counter() - t0)
+        sweep += [{"name": f"async_sweep/d1_n{n}_b512/{name}",
+                   "us_per_call": t / CALIB_ITERS * 1e6}
+                  for name, t in best.items()]
+    return eager, sweep
+
+
+def sweep_cost(name: str):
+    """The kernel ``IterCost`` of an async_sweep record, and its n."""
+    shape, what = name.split("/")[1:]
+    n = int(shape.split("_n")[1].split("_b")[0])
+    bn = int(shape.split("_b")[1])
+    if what == "sync_kernel":
+        return pso_cost.iteration_cost("queue_lock", "rastrigin", 1, n,
+                                       block_n=bn, backend="kernel"), n
+    return pso_cost.iteration_cost(
+        "async", "rastrigin", 1, n, block_n=bn,
+        sync_every=int(what.rsplit("_", 1)[1]), backend="kernel"), n
+
+
+def calibrate(card: str, tuned: dict) -> None:
+    """10c: the card's calibration from its own records (the eager engine's
+    Table 3 cells, the kernels' async sweep, the split path's dispatches),
+    printed as the constants of ``pso_cost.CUDA_CALIBRATION`` and
+    ``CUDA_EAGER_CALIBRATION``; 10a's candidates predicted against
+    measured (Spearman's rank correlation, printed, not gated) under the
+    shipped constants and the fitted ones; the committed CPU baseline
+    refused on the card."""
+    t0 = time.perf_counter()
+    eager_recs, sweep_recs = calibration_records()
+    meta = dict(pso_cost._host_fingerprint(), torch=torch.__version__)
+    check(meta["device_kind"] == torch.cuda.get_device_name(0),
+          "10c: the records name the card")
+    eager = pso_cost.fit_calibration({"meta": meta, "benchmarks": eager_recs},
+                                     base=pso_cost.CUDA_EAGER_CALIBRATION)
+    kern = pso_cost.fit_calibration({"meta": meta, "benchmarks": sweep_recs},
+                                    base=pso_cost.CUDA_CALIBRATION)
+    check(kern.source == "bench-fit", f"10c: the async sweep fits "
+          f"({kern.source})")
+    for r in eager_recs + sweep_recs:
+        print(f"  10c record {r['name']}: {r['us_per_call']:.3f} us/iter "
+              f"[{card}]")
+    base = dataclasses.replace(kern, iter_overhead_us=0.0, dispatch_us=0.0)
+    resid = []
+    for r in sweep_recs:
+        cost, n = sweep_cost(r["name"])
+        resid.append(r["us_per_call"] - base.us_per_iter(
+            cost, rng_elems=n * pso_cost.RNG_DRAWS))
+    overhead = max(0.0, float(np.median(resid)))
+    # the split path: a custom sphere at d=8 n=1024, fused mode
+    prob = custom_sphere()
+    cfg = pso.PSOConfig(dim=8, particle_cnt=1024, fitness=prob).resolved()
+    s0 = pso.init_swarm(cfg, 0, device="cuda")
+    split_us = best_of(lambda: ops.run_queue_lock_fused(cfg, s0, 50)) / 50 \
+        * 1e6
+    cost = pso_cost.iteration_cost("queue_lock", prob, 8, 1024,
+                                   backend="kernel")
+    rest = dataclasses.replace(base, iter_overhead_us=overhead).us_per_iter(
+        cost, rng_elems=1024 * 8 * pso_cost.RNG_DRAWS)
+    dispatch = max(0.0, (split_us - rest) / cost.dispatches)
+    fitted = {"kernel": dataclasses.replace(
+        kern, iter_overhead_us=overhead, dispatch_us=dispatch,
+        source="cuda-default")}
+    fitted["eager"] = dataclasses.replace(
+        fitted["kernel"], flops_per_us=float(eager.flops_per_us),
+        iter_overhead_us=eager.iter_overhead_us,
+        source="cuda-eager-default")
+    print(f"  10c fit: kernels grid_step_us={kern.grid_step_us:.6g} "
+          f"iter_overhead_us={overhead:.6g} (median residual of "
+          f"{len(sweep_recs)} sweep records) dispatch_us={dispatch:.6g} "
+          f"(split path, custom sphere d=8 n=1024: {split_us:.1f} us/iter, "
+          f"{cost.dispatches:.0f} dispatches); eager ({eager.source}) "
+          f"flops_per_us={eager.flops_per_us:.6g} "
+          f"iter_overhead_us={eager.iter_overhead_us:.6g} [{card}]")
+    pooled = {"shipped": ([], []), "fitted": ([], [])}
+    for cell, (_, measured, _) in tuned.items():
+        prob, d, n, iters, s_cnt = cell
+        got = [m.measured_us for m in measured]
+        shipped = [m.predicted_us for m in measured]
+        refit = [pso_cost.estimate_us_per_iter(
+            m.variant, prob, d, n, backend=m.backend, block_n=m.block_n,
+            sync_every=m.sync_every, batch=s_cnt, calib=fitted[m.backend])
+            for m in measured]
+        for which, pred in (("shipped", shipped), ("fitted", refit)):
+            pooled[which][0].extend(pred)
+            pooled[which][1].extend(got)
+        print(f"  10c {tune_label(*cell)}: predicted (shipped / fitted) "
+              f"against measured us/iter: " + "; ".join(
+                  f"{schedule_text(m, n, d)} {p:.2f} / {q:.2f} / "
+                  f"{m.measured_us:.2f}"
+                  for m, p, q in zip(measured, shipped, refit))
+              + f"; Spearman {spearman(shipped, got):.3f} / "
+              f"{spearman(refit, got):.3f} [{card}]")
+    print("  10c all cells pooled, Spearman shipped "
+          f"{spearman(*pooled['shipped']):.3f}, fitted "
+          f"{spearman(*pooled['fitted']):.3f}")
+    for name, c in fitted.items():
+        print(f"  10c {name} calibration: {c}")
+    baseline = pso_cost.fit_calibration(
+        str(ROOT / "benchmarks" / "BENCH_pso.json"))
+    check("host-mismatch" in baseline.source, f"10c: BENCH_pso.json (a CPU "
+          f"in interpret mode) refused on the card ({baseline.source})")
+    print(f"  10c: BENCH_pso.json -> {baseline.source}; 10c took "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def serving_tuned(card: str, launches: dict) -> None:
+    """10d: phase 8a's trace at n=128 (one block) through
+    ``SolveServer(autotune=True)`` and ``ContinuousScheduler(autotune=
+    True)`` on the kernel backend: every result equals ``solve(...,
+    sync_every=<the tuned value>, backend="kernel")`` bit for bit."""
+    reqs = serve_requests(SERVE_BUDGETS, 128)
+    tuned = [dataclasses.replace(r, sync_every=autotune.tuned_sync_every(
+        r.fitness, r.dim, r.particle_cnt, r.iters, device="cuda"))
+        for r in reqs]
+    check(all(r.sync_every in autotune.SYNC_EVERY_CHOICES for r in tuned),
+          "10d: tuned sync_every in SYNC_EVERY_CHOICES")
+    want = [standalone_kernel(r) for r in tuned]
+    srv = SolveServer(backend="kernel", autotune=True)
+    res, dt, counts = serving_main("10d", functools.partial(srv.solve_all,
+                                                            reqs))
+    for k, v in counts.items():
+        launches[k] += v
+    check(all(same_result(x, w) for x, w in zip(res, want)),
+          "10d: SolveServer(autotune=True) == solve(sync_every=tuned, "
+          "backend='kernel') bit for bit")
+    print(f"  10d SolveServer(autotune=True): {len(reqs)} requests, "
+          f"{srv.stats.dispatches} dispatches, ladders "
+          f"{sorted(set(srv._ladders.values()))}; every result == its "
+          f"standalone kernel solve at the tuned sync_every bit for bit; "
+          f"launches {counts}; {dt:.3f} s [{card}]")
+    sched = serving.ContinuousScheduler(lane_width=8, backend="kernel",
+                                        autotune=True, record_history=True)
+    res, dt, counts = serving_main("10d", functools.partial(sched.run, reqs))
+    for k, v in counts.items():
+        launches[k] += v
+    check(all(same_result(x, w) for x, w in zip(res, want)),
+          "10d: ContinuousScheduler(autotune=True) == solve(sync_every="
+          "tuned, backend='kernel') bit for bit")
+    widths = sorted({lane.width for lane in sched._lanes.values()})
+    ladder = autotune.bucket_ladder("cubic", SERVE_D, 128, 16, max_batch=8,
+                                    variant="async", min_bucket=8,
+                                    device="cuda")
+    print(f"  10d ContinuousScheduler(autotune=True): tuned sync_every by "
+          f"budget {sorted({(r.iters, r.sync_every) for r in tuned})}, "
+          f"{len(sched._lanes)} lane(s) of width {widths} (ladder {ladder} "
+          f"at lane width 8; at 128: "
+          f"{autotune.bucket_ladder('cubic', SERVE_D, 128, 16, max_batch=128, variant='async', min_bucket=8, device='cuda')}"
+          f"), {metric_counts(sched.metrics)}; every result == its "
+          f"standalone kernel solve bit for bit; launches {counts}; "
+          f"{dt:.3f} s [{card}]")
+
+
+def phase_autotune(card: str) -> dict:
+    """Phase 10; returns the launches of 10a's resolves, 10b's solves and
+    10d's serving drives."""
+    print(f"phase 10: the schedule autotuner on the card [{card}]")
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(COUNTERS, 0)
+    tmp = ROOT / "build" / "chip_smoke_phase10"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    env = os.environ.get(autotune.CACHE_ENV)
+    os.environ[autotune.CACHE_ENV] = str(tmp / "autotune.json")
+    try:
+        cache = autotune.AutotuneCache(str(tmp / "autotune.json"))
+        tuned = tune_cells(card, launches, cache)
+        auto_against_fixed(card, launches, tuned)
+        calibrate(card, tuned)
+        serving_tuned(card, launches)
+    finally:
+        if env is None:
+            os.environ.pop(autotune.CACHE_ENV, None)
+        else:
+            os.environ[autotune.CACHE_ENV] = env
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s; launches "
+          f"{dict((k, v) for k, v in launches.items() if v)}")
+    return launches
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -3864,6 +4315,8 @@ def main() -> int:
     for k, v in phase_serving(card).items():
         launches[k] += v
     for k, v in phase_launcher(card, errs).items():
+        launches[k] += v
+    for k, v in phase_autotune(card).items():
         launches[k] += v
     kernels = []
     for name, replaces in REPLACES.items():

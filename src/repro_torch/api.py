@@ -46,8 +46,8 @@ through the continuous-batching scheduler (``repro_torch.serving``).
 
 ``device=None`` means the card; without one, ``solve`` raises instead of
 falling back to the CPU. Results are reported in the problem's own sense.
-Features of ``repro.api`` that are not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``schedule="auto"`` (``Method``) lets the roofline autotuner
+(``core.autotune``) pick the execution schedule of each solve shape.
 """
 from __future__ import annotations
 
@@ -74,12 +74,6 @@ _KERNEL_VARIANTS = ("queue_lock", "async")
 _BACKENDS = ("auto", "eager", "kernel")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP.md, port order "
-        f"item {item}")
-
-
 @dataclasses.dataclass(frozen=True)
 class Method:
     """How to run a solve: aggregation variant + execution backend.
@@ -95,8 +89,12 @@ class Method:
     the reference shards them over devices and refuses more islands than
     it has): synchronous variants exchange the best every
     ``exchange_interval`` iterations, ``async`` exchanges over the island
-    ring. ``schedule="auto"`` is accepted only at its default until the
-    port carries it.
+    ring. ``schedule="auto"`` asks the roofline autotuner
+    (``core.autotune``) for the ``(variant, backend, block_n,
+    sync_every)`` schedule of each solve shape: the cost model ranks the
+    candidates, the top few and the fixed default run timed micro-runs, and
+    the pick is cached per shape on disk. Under ``schedule="auto"`` the
+    ``variant`` field only keeps an lbest ``topology`` on ``async``.
     """
 
     variant: str = "queue"
@@ -172,8 +170,6 @@ class Method:
                 "island ring)")
         if self.sync_every < 1:
             raise ValueError(f"sync_every={self.sync_every} must be >= 1")
-        if self.schedule == "auto":
-            raise _not_ported("schedule='auto' (the autotuner)", "9")
 
     def resolve_backend(self, device: torch.device) -> str:
         if self.backend != "auto":
@@ -188,6 +184,51 @@ class Method:
                 and kernel_carries(self.rule):
             return "kernel"
         return "eager"
+
+    def resolve_schedule(self, problem, d: int, n: int, iters: int, *,
+                         device=None, dtype: str = "float32", batch: int = 1,
+                         hetero_table: int = 0, measure: bool = True):
+        """The grown form of ``resolve_backend``: a full execution schedule
+        for one solve shape on ``device`` (None: the card).
+        ``schedule="fixed"`` returns this Method's own knobs (backend by the
+        fixed rule); ``schedule="auto"`` asks the roofline autotuner:
+        cost-model ranking, measured micro-run fallback (``measure=False``
+        stops at the model), on-disk cache per shape."""
+        from .core.autotune import Schedule, resolve_schedule
+        dev = _device.resolve(device)
+        if self.schedule != "auto":
+            return Schedule(variant=self.variant,
+                            backend=self.resolve_backend(dev),
+                            block_n=self.block_n,
+                            sync_every=self.sync_every, source="fixed")
+        kernel_ok = None
+        if self.backend == "eager":
+            kernel_ok = False
+        elif self.backend == "kernel" or self.telemetry:
+            kernel_ok = True
+        return resolve_schedule(
+            problem, d, n, iters, dtype=dtype, batch=batch,
+            hetero_table=hetero_table, record_history=self.record_history,
+            measure=measure, kernel_ok=kernel_ok, rule=self.rule,
+            device=dev)
+
+
+def _effective_method(m: Method, problem, cfg: PSOConfig, iters: int,
+                      device: torch.device, batch: int = 1,
+                      hetero_table: int = 0) -> Method:
+    """Collapse ``schedule="auto"`` into a concrete fixed Method through the
+    autotuner (one resolution a solve, covering every ramp segment)."""
+    if m.schedule != "auto":
+        return m
+    s = m.resolve_schedule(problem, cfg.dim, cfg.particle_cnt, iters,
+                           device=device, dtype=cfg.dtype, batch=batch,
+                           hetero_table=hetero_table)
+    # lbest topologies only exist on the async variant's block-local
+    # machinery: the tuner may not migrate such a request off async
+    variant = s.variant if m.topology == "gbest" else m.variant
+    return dataclasses.replace(m, variant=variant, backend=s.backend,
+                               block_n=s.block_n, sync_every=s.sync_every,
+                               schedule="fixed")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -309,6 +350,7 @@ def solve(problem: Union[str, Problem], *,
                      rule=rule, topology=topology, telemetry=telemetry)
     cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
                        max_pos, max_v, m)
+    m = _effective_method(m, prob, cfg, iters, dev)
     if m.islands:
         state = _run_islands(prob, cfg, seed, iters, m, dev)
         hist = tel = None
@@ -544,6 +586,7 @@ def solve_many(problem: Union[str, Problem, None] = None,
     prob = resolve_problem(problem)
     cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
                        max_pos, max_v, m)
+    m = _effective_method(m, prob, cfg, iters, dev, batch=len(seeds))
     cnts = []
 
     def seg(c, b, k):
@@ -602,6 +645,8 @@ def _solve_many_hetero(problems, seeds, m: Method, dim, particles, iters,
         if v is not None:
             kw[key] = v
     cfg = PSOConfig(**kw)
+    m = _effective_method(m, probs[0], cfg, iters, dev, batch=len(seeds),
+                          hetero_table=len({p.cache_key() for p in probs}))
     rows, table = problem_rows(probs, cfg.dim, cfg.dtype, device=dev)
     rcfg = cfg.resolved()
     batch = init_batch(rcfg, seeds, rows=rows, table=table, device=dev)

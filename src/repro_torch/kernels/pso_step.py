@@ -526,6 +526,21 @@ def async_plan(n: int, d: int, block_n: int, s_cnt: int, capacity,
     return c, ctas
 
 
+def launch_fits(variant: str, n: int, d: int, block_n: int, s_cnt: int,
+                capacity, resident) -> bool:
+    """Whether the card takes a launch of ``variant`` (``queue_lock``: the
+    fused kernel, ``launch_plan``; ``async``: ``async_plan``) on S =
+    ``s_cnt`` swarms of ``n`` particles in blocks of ``block_n``, without
+    raising: the fused kernel with several blocks needs every cluster of a
+    swarm resident at once, the async grid fewer than 2^31 CTAs.
+    ``capacity`` and ``resident`` are ``launch_plan``'s."""
+    c = cluster_size(n, d, block_n, capacity)
+    nb = n // block_n
+    if variant == "async":
+        return s_cnt * nb * c < 2 ** 31
+    return nb == 1 or resident(c) >= nb
+
+
 def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 

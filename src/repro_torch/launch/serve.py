@@ -29,8 +29,8 @@ tickets to error results and leaves the other groups alone; a request
 with an unknown variant, rule or topology gets its own error result.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 \\
-        --iters 200 [--backend eager|kernel] [--metrics-out PATH] \\
-        [--device cpu]
+        --iters 200 [--backend eager|kernel] [--autotune] \\
+        [--metrics-out PATH] [--device cpu]
 
 Padding rows reuse the group's first seed and are dropped before results
 are returned. ``ServeStats`` reports the padding; an attached
@@ -48,7 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from .. import _device
-from ..api import _KERNEL_VARIANTS, Method, _not_ported
+from ..api import _KERNEL_VARIANTS, Method
 from ..core.multi_swarm import (hetero_fid, init_batch, problem_rows,
                                 solve_many)
 from ..core.problem import Problem, resolve_problem
@@ -230,8 +230,16 @@ class SolveServer:
     resolved per group; ``device=None`` means the card. ``block_n`` is the
     kernels' particle-block size (``None``: their pick).
     ``coalesce_registry`` (default on) merges every registered built-in at
-    one solve shape into one heterogeneous batch. ``autotune=True`` needs
-    the autotuner, which is not ported yet.
+    one solve shape into one heterogeneous batch.
+
+    ``autotune=True`` consults the roofline autotuner (``core.autotune``,
+    model-only: no timed micro-runs on the serving path, but previously
+    measured cache entries win): async requests' ``sync_every`` is
+    rewritten to the tuned value for their shape BEFORE grouping (the tuned
+    interval is part of the group key, so every request at one shape
+    shares one tuned dispatch), and the bucket ladder is derived per
+    grouping shape from the cost model (buckets past the point of
+    diminishing per-row returns are dropped).
     """
 
     def __init__(self, max_batch: int = 64, backend: str = "auto",
@@ -244,18 +252,42 @@ class SolveServer:
         if max_batch < BUCKETS[0]:
             raise ValueError(
                 f"max_batch={max_batch} < minimum bucket {BUCKETS[0]}")
-        if autotune:
-            raise _not_ported("SolveServer(autotune=True)",
-                              "9 (the autotuner)")
         self.device = _device.resolve(device)
         self.max_batch = max_batch
         self.backend = backend
         self.block_n = block_n
         self.coalesce_registry = coalesce_registry
+        self.autotune = autotune
         self.stats = ServeStats()
         self.metrics = metrics   # optional serving.ServingMetrics
         self._pending: List[Tuple[int, SolveRequest, float]] = []
         self._ticket = 0
+        self._ladders: Dict[Tuple, Tuple[int, ...]] = {}
+
+    def _tuned_request(self, r: SolveRequest) -> SolveRequest:
+        """An async request with its publication interval rewritten to the
+        tuned value for its shape (sync variants and autotune off: as it
+        is)."""
+        if not self.autotune or r.variant != "async":
+            return r
+        from ..core.autotune import tuned_sync_every
+        k = tuned_sync_every(r.fitness, r.dim, r.particle_cnt, r.iters,
+                             r.dtype, device=self.device)
+        return dataclasses.replace(r, sync_every=k)
+
+    def _buckets_for(self, r0: SolveRequest) -> Tuple[int, ...]:
+        """The bucket ladder of one grouping shape: static by default,
+        model-tuned (memoized per shape) when autotuning."""
+        if not self.autotune:
+            return BUCKETS
+        key = (r0.dim, r0.particle_cnt, r0.iters, r0.variant, r0.dtype)
+        if key not in self._ladders:
+            from ..core.autotune import bucket_ladder
+            self._ladders[key] = bucket_ladder(
+                r0.fitness, r0.dim, r0.particle_cnt, r0.iters,
+                max_batch=self.max_batch, variant=r0.variant,
+                dtype=r0.dtype, min_bucket=_MIN_BUCKET, device=self.device)
+        return self._ladders[key]
 
     def submit(self, req: SolveRequest) -> int:
         """Enqueue a request; returns a ticket resolved by ``flush()``."""
@@ -274,7 +306,8 @@ class SolveServer:
         for lo in range(0, len(reqs), self.max_batch):
             chunk = reqs[lo:lo + self.max_batch]
             k = len(chunk)
-            padded = bucket_size(k, self.max_batch)
+            padded = bucket_size(k, self.max_batch,
+                                 self._buckets_for(chunk[0]))
             seeds = np.array([r.seed for r in chunk]
                              + [chunk[0].seed] * (padded - k), dtype=np.int64)
             r0 = chunk[0]
@@ -355,6 +388,7 @@ class SolveServer:
                     gbest_pos=np.full((r.dim,), np.nan),
                     batch_size=0, error=err)
                 continue
+            r = self._tuned_request(r)   # the tuned sync_every keys the group
             groups[r.group_key(self.coalesce_registry)].append((t, r, ts))
         self._pending.clear()
         for _, members in sorted(groups.items(), key=lambda kv: repr(kv[0])):
@@ -422,6 +456,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="async variant publication interval")
     ap.add_argument("--no-coalesce", action="store_true",
                     help="per-problem content-hash grouping")
+    ap.add_argument("--autotune", action="store_true",
+                    help="roofline-tuned sync_every and bucket ladder")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write a Prometheus text exposition of the "
                          "serving metrics here after the flush")
@@ -447,7 +483,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         metrics = ServingMetrics()
     srv = SolveServer(max_batch=args.max_batch, backend=args.backend,
                       coalesce_registry=not args.no_coalesce,
-                      metrics=metrics, device=args.device)
+                      autotune=args.autotune, metrics=metrics,
+                      device=args.device)
     t0 = time.time()
     results = srv.solve_all(reqs)
     dt = time.time() - t0

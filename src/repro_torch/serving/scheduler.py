@@ -69,7 +69,7 @@ from ..core.multi_swarm import (MIN_VALIDATED_SWARMS, ProblemRows, batch_row,
 from ..core.problem import resolve_problem
 from ..core.pso import (HeteroRow, PSOConfig, hetero_member_config,
                         init_swarm_async, run_async)
-from ..api import History, _not_ported
+from ..api import History
 from ..launch.serve import (_HETERO, _HETERO_CANONICAL_FITNESS, BACKENDS,
                             SolveRequest, SolveResult, request_error,
                             resolve_backend)
@@ -250,8 +250,11 @@ class ContinuousScheduler:
     solve shape into heterogeneous lanes; ``compile_cache`` (a
     ``CompileCache``) makes lane programs restart-persistent. ``backend``
     (``auto`` | ``eager`` | ``kernel``) and ``device`` (None: the card)
-    resolve as in ``SolveServer``. ``autotune=True`` needs the autotuner,
-    which is not ported yet.
+    resolve as in ``SolveServer``. ``autotune=True`` rewrites async
+    requests' ``sync_every`` to the model-tuned value (a lane key of its
+    own, so its own program) and caps lane width at the autotuner's bucket
+    ladder's last rung, the point where the cost model prices per-row gains
+    as flattened.
 
     Telemetry (``repro_torch.telemetry``): ``trace`` (a ``TraceWriter``)
     records the timeline, one row per lane with a span per chunk,
@@ -271,9 +274,6 @@ class ContinuousScheduler:
                  metrics: Optional[ServingMetrics] = None,
                  trace=None, record_history: bool = False,
                  backend: str = "auto", device=None):
-        if autotune:
-            raise _not_ported("ContinuousScheduler(autotune=True)",
-                              "9 (the autotuner)")
         if backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {backend!r}; one of {BACKENDS}")
@@ -281,6 +281,7 @@ class ContinuousScheduler:
         self.backend = backend
         self.lane_width = max(MIN_VALIDATED_SWARMS, lane_width)
         self.coalesce_registry = coalesce_registry
+        self.autotune = autotune
         self.metrics = metrics or ServingMetrics()
         self.trace = trace
         self.record_history = record_history
@@ -291,6 +292,7 @@ class ContinuousScheduler:
         self._pending: List[_Active] = []
         self._results: Dict[int, SolveResult] = {}
         self._ticket = 0
+        self._ladder_width: Dict[Tuple, int] = {}
 
     # -- submission --------------------------------------------------------
     def submit(self, req: SolveRequest) -> int:
@@ -300,6 +302,14 @@ class ContinuousScheduler:
         self._pending.append(_Active(ticket=t, request=req,
                                      submitted_us=_now_us()))
         return t
+
+    def _tuned(self, r: SolveRequest) -> SolveRequest:
+        if not self.autotune or r.variant != "async":
+            return r
+        from ..core.autotune import tuned_sync_every
+        k = tuned_sync_every(r.fitness, r.dim, r.particle_cnt, r.iters,
+                             r.dtype, device=self.device)
+        return dataclasses.replace(r, sync_every=k)
 
     def _backend(self, r: SolveRequest) -> str:
         return resolve_backend(self.backend, r.variant, r.rule, self.device)
@@ -324,11 +334,25 @@ class ContinuousScheduler:
                            _HETERO_CANONICAL_FITNESS if hetero
                            else r.fitness, r.dtype, r.rule,
                            r._topology_key())
-        lane = _Lane(key, cfg, self.lane_width, r.sync_every, hetero,
+        lane = _Lane(key, cfg, self._width_for(r), r.sync_every, hetero,
                      self._backend(r), self.device)
         lane.uid = len(self._lanes)
         self._lanes[key] = lane
         return lane
+
+    def _width_for(self, r: SolveRequest) -> int:
+        if not self.autotune:
+            return self.lane_width
+        key = (r.dim, r.particle_cnt, r.variant, r.dtype)
+        if key not in self._ladder_width:
+            from ..core.autotune import bucket_ladder
+            ladder = bucket_ladder(
+                r.fitness, r.dim, r.particle_cnt, r.iters,
+                max_batch=self.lane_width, variant=r.variant,
+                dtype=r.dtype, min_bucket=MIN_VALIDATED_SWARMS,
+                device=self.device)
+            self._ladder_width[key] = max(MIN_VALIDATED_SWARMS, ladder[-1])
+        return self._ladder_width[key]
 
     # -- admission ---------------------------------------------------------
     def _admit(self) -> None:
@@ -344,7 +368,7 @@ class ContinuousScheduler:
                     gbest_pos=np.full((a.request.dim,), np.nan),
                     batch_size=0, error=err)
                 continue
-            r = a.request
+            r = self._tuned(a.request)
             if r.variant != "async" or r.iters < max(1, r.sync_every):
                 self._solve_standalone(a, r)
                 continue

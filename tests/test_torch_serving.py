@@ -554,17 +554,6 @@ def test_bucket_size_edges():
     assert bucket_size(40, max_batch=64, buckets=(4, 32)) == 64
 
 
-def test_autotune_is_not_ported_yet():
-    """The reference's autotuned ladders and sync_every need the autotuner
-    (ROADMAP item 9)."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _server("eager", autotune=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _sched("eager", autotune=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        repro_torch.solve_stream([], autotune=True, device=CPU)
-
-
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_serve_rejects_invalid_requests_per_request(backend):
     good = [_req(0, 16, variant="queue"), _req(1, 16)]
