@@ -79,11 +79,13 @@ standard library, and exits non-zero on any failure. Phases:
    {...}}``. Phase 5 also times the fused and async kernels alone at the
    paper's largest swarms with counters off and on, in turns.
 
-Before the JSON line: 6, the split path (6a its three kernels against
-their plain versions, 6b ``solve``/``solve_many`` of custom and constrained
-Problems, 6c each split kernel's time); 7, the lbest topologies (ring, von
-Neumann): the card's neighbour ids, one-block lbest runs bit for bit the
-star's kernel and against their plain versions, the multi-block
+Before the JSON line: 6, the split path (6a its two kernels against
+their plain versions, the fold-and-publish kernel at every cluster size,
+6b ``solve``/``solve_many`` of custom and constrained Problems, each
+iteration two launches, 6c each split kernel's time, and the
+fold-and-publish kernel's at every cluster size); 7, the lbest topologies
+(ring, von Neumann): the card's neighbour ids, one-block lbest runs bit for
+bit the star's kernel and against their plain versions, the multi-block
 invariants (a torn-read check in the kernels' own arithmetic) and ``solve``
 of the star beside both topologies at the paper's largest swarms (us/iter,
 gbest, the async kernel alone in turns, the counters and pbest rises),
@@ -297,8 +299,7 @@ COUNTERS = {
 }
 if pso_split is not None:
     COUNTERS.update(split_advance=(pso_split.advance, "launches"),
-                    split_fold=(pso_split.fold, "launches"),
-                    split_publish=(pso_split.publish, "launches"))
+                    split_fold_publish=(pso_split.fold_publish, "launches"))
 
 
 #: The main paths' kernel calls, each registered where its phase runs it:
@@ -468,10 +469,15 @@ def ptxas_lines(log: str) -> list:
                     g += ",lbest"
                 entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
                          f"{rules[m[3]]}{g}>")
-            else:     # GLA (gla_chunk_state<WM>) or no template
-                m = re.search(GLA_KERNEL + r"|([a-z]+_kernel)", entry)
-                entry = (m[4] or m[1] + (f"<{m[2]},{m[3]}>" if m[2]
-                                         else "") if m else entry)
+            else:     # GLA (gla_chunk_state<WM>), the split kernels
+                # (split_advance_kernel<rule>) or no template
+                m = re.search(GLA_KERNEL
+                              + r"|([a-z_]+_kernel)(?:ILi(\d+)EE)?", entry)
+                if m and m[4]:
+                    entry = m[4] + (f"<{rules.get(m[5], m[5])}>" if m[5]
+                                    else "")
+                elif m:
+                    entry = m[1] + (f"<{m[2]},{m[3]}>" if m[2] else "")
             spill = ""
         elif "spill" in line and \
                 "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -1916,12 +1922,14 @@ _L2_SCRUB = []
 
 
 def flush_l2() -> None:
-    """Evict the card's L2 (50 MB on the H100) by writing 256 MB, so that
-    what a timed call reads next comes from HBM."""
+    """Evict the card's L2 (50 MB on the H100) by reading 256 MB, so that
+    what a timed call reads next comes from HBM, and the lines it evicts
+    are clean (a flush that wrote would leave 50 MB of dirty lines for the
+    timed call to write back)."""
     if not _L2_SCRUB:
-        _L2_SCRUB.append(torch.empty(2 ** 26, dtype=torch.int32,
-                                     device="cuda"))
-    _L2_SCRUB[0].zero_()
+        _L2_SCRUB.append(torch.ones(2 ** 26, dtype=torch.int32,
+                                    device="cuda"))
+    _L2_SCRUB[0].sum()
 
 
 def kernel_device_us(fn, reps: int = 3) -> dict:
@@ -2320,15 +2328,14 @@ def async_cluster_sweep(card: str) -> None:
 
 # ---------------------------------------------------------------------------
 # Phase 6: the split path (kernels/pso_split.py), every Problem that is not
-# one of the six unconstrained built-ins: three kernels an iteration around
+# one of the six unconstrained built-ins: two kernels an iteration around
 # the user's torch operators.
 # ---------------------------------------------------------------------------
 
-SPLIT = ("split_advance", "split_fold", "split_publish")
+SPLIT = ("split_advance", "split_fold_publish")
 #: Each split kernel as torch.profiler names it.
 SPLIT_FAMILY = {"split_advance": "split_advance_kernel",
-                "split_fold": "split_fold_kernel",
-                "split_publish": "split_publish_kernel"}
+                "split_fold_publish": "split_fold_publish_kernel"}
 
 
 def plane_ball():
@@ -2358,11 +2365,70 @@ def ramped_penalty():
         ramp=2.0, ramp_every=50), name="sphere_simplex_pen_ramp")
 
 
+def fold_publish_operands(base, *, n: int, bn: int, variant: str, act=None):
+    """Fresh copies of one ``fold_publish`` call's in-place operands on the
+    card from ``base`` = (pbp, pbf, pbv, gp, gf): zero counts, zero keys
+    (fused), the locals seeded from gbest and the swarms' actions ``act``
+    (async)."""
+    pbp, pbf, pbv, gp, gf = base
+    s_cnt, nb = gf.shape[0], n // bn
+    op = dict(pbp=pbp.clone(), pbf=pbf.clone(),
+              pbv=None if pbv is None else pbv.clone(), gp=gp.clone(),
+              gf=gf.clone(), counts=new_counts(s_cnt))
+    if variant == "fused":
+        op["keys"] = torch.zeros(s_cnt, dtype=torch.int64, device="cuda")
+    else:
+        op.update(lp=gp.repeat_interleave(nb, 1).contiguous(),
+                  lf=gf.repeat_interleave(nb).contiguous(), act=act)
+    return op
+
+
+def fold_publish_round(pos, fit, viol, base, *, n, bn, variant, act=None,
+                       topology="gbest", cluster=None):
+    """One launch of the fold-and-publish kernel against its plain version
+    (``split_fold_plain``, then ``split_publish_plain`` on its outputs) on
+    copies of the same card operands: every output and the counts equal,
+    exactly, and every arrival counter back at 0. Returns (max |kernel -
+    plain| of the float outputs, the kernel's counts)."""
+    op = fold_publish_operands(base, n=n, bn=bn, variant=variant, act=act)
+    want = {k: (None if v is None else v.clone()) for k, v in op.items()}
+    want.update(pso_split.split_fold_plain(
+        pos, want["pbp"], want["pbf"], fit, n=n, block_n=bn, mode=variant,
+        gf=want["gf"], pbv=want["pbv"], viol=viol, lp=want.get("lp"),
+        lf=want.get("lf"), keys=want.get("keys"), counts=want["counts"]))
+    want.update(pso_split.split_publish_plain(
+        pos, fit, want["gp"], want["gf"], n=n, mode=variant,
+        keys=want.get("keys"), lp=want.get("lp"), lf=want.get("lf"),
+        act=want.get("act"), counts=want["counts"], topology=topology))
+    arrive = torch.zeros(base[4].shape[0], dtype=torch.int32, device="cuda")
+    pso_split.fold_publish(pos, op["pbp"], op["pbf"], fit, n=n, block_n=bn,
+                           mode=variant, viol=viol, arrive=arrive,
+                           topology=topology, _cluster=cluster,
+                           **{k: v for k, v in op.items()
+                              if k not in ("pbp", "pbf")})
+    torch.cuda.synchronize()
+    bad = [k for k, w in want.items()
+           if w is not None and not torch.equal(op[k], w)]
+    where = (f"C={cluster}, {variant}" + (f" {topology}" if variant == "async"
+                                          else ""))
+    check(not bad, f"fold-and-publish kernel equals its plain version "
+          f"({where}: {bad}, counts {op['counts'].tolist()} / "
+          f"{want['counts'].tolist()})")
+    check(not arrive.any(), f"fold-and-publish ({where}): every arrival "
+          f"counter back at 0 ({arrive.tolist()})")
+    err = max(max_err([op[k]], [w]) for k, w in want.items()
+              if w is not None and w.dtype.is_floating_point)
+    return err, op["counts"]
+
+
 def split_round(what, cfg, b, rows, table, variant, bn, errs) -> None:
     """One split iteration of batch ``b`` (S >= 1, two eager iterations in)
     on the card: each kernel against its plain version on the same card
-    tensors. The advance must equal bit for bit; the fold (given the same
-    fit/viol tensors, counters on) and the publish exactly."""
+    tensors. The advance must equal bit for bit; the fold-and-publish
+    kernel (given the same fit/viol tensors, counters on) exactly, at every
+    cluster size C it may run on, forced, and in the async mode under each
+    action (none, sync, flush, and a mix across the swarms of a batch) and
+    each topology (star, ring, von Neumann, at a sync point)."""
     fids = None if rows is None else rows.fid
     b = ms.run_many(cfg, b, 2, "queue", rows=rows, table=table)
     s_cnt, n, d = b.pos.shape
@@ -2371,7 +2437,7 @@ def split_round(what, cfg, b, rows, table, variant, bn, errs) -> None:
     pos, vel, pbp, pbf, gp, gf = state
     fused = variant == "fused"
     attractor, gdiv = ((gp, n) if fused
-                   else (gp.repeat_interleave(nb, 1).contiguous(), bn))
+                       else (gp.repeat_interleave(nb, 1).contiguous(), bn))
     akw = dict(n=n, it_off=0, gdiv=gdiv)
     want = pso_split.split_advance_plain(pos, vel, pbp, attractor, b.seed,
                                          b.iteration, specs, fids, **akw)
@@ -2382,44 +2448,42 @@ def split_round(what, cfg, b, rows, table, variant, bn, errs) -> None:
           f"{what}: advance kernel bit for bit its plain version ({err})")
     fit, viol = pso_split.torch_step((cfg.problem,) if table is None
                                      else table, fids, n, (s_cnt, n))(pos)
-    pbv = ops._pbv(cfg, fids, b.pbest_pos)
-    fkw = dict(n=n, block_n=bn, mode=variant, pbv=pbv, viol=viol)
+    base = (pbp, pbf, ops._pbv(cfg, fids, b.pbest_pos), gp, gf)
+
+    def acts(*codes):
+        return torch.tensor([codes[s % len(codes)] for s in range(s_cnt)],
+                            dtype=torch.int32, device="cuda")
     if fused:
-        fkw.update(gf=gf, keys=torch.zeros(s_cnt, dtype=torch.int64,
-                                           device="cuda"))
+        cases = [(None, "gbest")]
     else:
-        fkw.update(lp=attractor.clone(), lf=gf.repeat_interleave(nb))
-    cnt, plain_cnt = new_counts(s_cnt), new_counts(s_cnt)
-    want = pso_split.split_fold_plain(pos, pbp, pbf, fit, counts=plain_cnt,
-                                      **fkw)
-    pso_split.fold(pos, pbp, pbf, fit, counts=cnt, **fkw)
-    got = dict(fkw, pbp=pbp, pbf=pbf)
-    bad = [k for k, w in want.items() if not torch.equal(got[k], w)]
-    check(not bad and torch.equal(cnt, plain_cnt),
-          f"{what}: fold kernel equals its plain version ({bad}, counts "
-          f"{cnt.tolist()} / {plain_cnt.tolist()})")
-    fold_err = max(max_err([got[k]], [w]) for k, w in want.items()
-                   if got[k].dtype.is_floating_point)
-    pkw = dict(n=n, mode=variant)
-    if fused:
-        pkw["keys"] = fkw["keys"]
-    else:
-        pkw.update(lp=fkw["lp"], lf=fkw["lf"], act=torch.full(
-            (s_cnt,), pso_split.ACT_SYNC, dtype=torch.int32, device="cuda"))
-        pkw["act"][::2] = pso_split.ACT_FLUSH
-    want = pso_split.split_publish_plain(pos, fit, gp, gf, counts=plain_cnt,
-                                         **pkw)
-    pso_split.publish(pos, fit, gp, gf, counts=cnt, **pkw)
-    got = dict(gp=gp, gf=gf, **pkw)
-    bad = [k for k, w in want.items() if not torch.equal(got[k], w)]
-    check(not bad and torch.equal(cnt, plain_cnt),
-          f"{what}: publish kernel equals its plain version ({bad})")
-    pub_err = max(max_err([got[k]], [w]) for k, w in want.items()
-                  if got[k].dtype.is_floating_point)
-    for k, e in zip(SPLIT, (err, fold_err, pub_err)):
+        cases = [(acts(pso_split.ACT_NONE), "gbest"),
+                 (acts(pso_split.ACT_SYNC), "gbest"),
+                 (acts(pso_split.ACT_FLUSH), "gbest"),
+                 (acts(pso_split.ACT_SYNC, pso_split.ACT_FLUSH,
+                       pso_split.ACT_NONE), "gbest"),
+                 (acts(pso_split.ACT_SYNC), "ring"),
+                 (acts(pso_split.ACT_SYNC, pso_split.ACT_FLUSH),
+                  "vonneumann")]
+    fold_err, cnt, rounds = 0.0, None, 0
+    for c in pso_split.FOLD_CLUSTERS:
+        for act, topo in cases:
+            e, got = fold_publish_round(pos, fit, viol, base, n=n, bn=bn,
+                                        variant=variant, act=act,
+                                        topology=topo, cluster=c)
+            fold_err = max(fold_err, e)
+            cnt = got if cnt is None else cnt
+            rounds += 1
+    for k, e in zip(SPLIT, (err, fold_err)):
         errs[k] = max(errs[k], e)
-    print(f"  {what} {variant}: advance, fold and publish equal their plain "
-          f"versions (max error {max(err, fold_err, pub_err)}; "
+    planned = pso_split.fold_cluster_size(
+        s_cnt, n, d, bn,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"  {what} {variant}: advance bit for bit, fold-and-publish equal "
+          f"to its plain version in {rounds} rounds (C = "
+          f"{', '.join(map(str, pso_split.FOLD_CLUSTERS))} forced; the "
+          f"planner picks {planned}"
+          + ("" if fused else "; actions none / sync / flush / mixed, ring "
+             "and von Neumann") + f"; max error {max(err, fold_err)}; "
           f"{int(cnt[2::3].sum())} block improvements, "
           f"{int(cnt[0::3].sum())} queue updates)")
 
@@ -2431,7 +2495,9 @@ def phase_split_compare(errs) -> None:
              ("sphere_simplex d=120 n=32768", "sphere_simplex", 120, 32768,
               512),
              ("plane_ball (repair) d=3 n=64, one block", plane_ball(), 3, 64,
-              64)]
+              64),
+             ("custom sphere d=24 n=1002 (blocks of 501: one-lane copies)",
+              custom_sphere(), 24, 1002, 501)]
     for what, prob, d, n, bn in cells:
         cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
                             fitness=prob).resolved()
@@ -2533,10 +2599,9 @@ def phase_split_path(card: str):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             counts = {k: v for k, v in read_counts().items() if v}
-            check(set(counts) == set(SPLIT) and all(
-                counts[k] >= iters for k in SPLIT),
-                f"{what}: the three split kernels, and no other "
-                f"({counts})")
+            check(counts == dict.fromkeys(SPLIT, iters),
+                  f"{what}: the two split kernels, {iters} launches each, "
+                  f"and no other ({counts})")
             for k in SPLIT:
                 launches[k] += counts[k]
                 by_variant[variant][k] += counts[k]
@@ -2607,8 +2672,8 @@ def split_many_path(main_ms: dict, main_bound: dict) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = {k: v for k, v in read_counts().items() if v}
-        check(set(counts) == set(SPLIT), f"{what}: the three split kernels, "
-              f"and no other ({counts})")
+        check(counts == dict.fromkeys(SPLIT, iters), f"{what}: the two split "
+              f"kernels, {iters} launches each, and no other ({counts})")
         for k in SPLIT:
             launches[k] += counts[k]
         pos = torch.stack([r.state.pos for r in rows])
@@ -2690,37 +2755,49 @@ def split_bounds(d: int, n: int, deb: bool, improved: int = 0,
     swarms of ``n`` particles in all, in ``d`` dimensions (``roof``): the
     advance reads pos, vel, pbp, the attractor column, the bounds rows and
     the counters and writes pos and vel, against its integer and float
-    operations; the fold reads fit, pbf and gf (and viol, pbv under Deb's
+    operations. The fold-and-publish kernel is the fold's bytes plus the
+    publish's: the fold reads fit, pbf and gf (and viol, pbv under Deb's
     rule) and writes pbf (pbv) and a pbest column (pos read, pbp written)
     for each of ``improved`` particles, and the key; the publish reads the
     key, the winner's column and fitness and writes gbest and clears the
-    key."""
-    per = 3 if deb else 2           # fit, pbf (viol, pbv) read a particle
+    key; the arrival counter is read and written once a swarm."""
+    per = 4 if deb else 2           # fit, pbf (viol, pbv) read a particle
+    fold = 4 * (per * n + s_cnt) + improved * (
+        (8 if deb else 4) + 8 * d) + 8 * s_cnt
+    publish = s_cnt * (8 + 8 * (d + 1) + 8 + 8)
     return {
         "split_advance": roof(4 * (5 * n * d + d + 4 * d + 2),
                               n * d * INT_PER_ELEMENT,
                               n * d * FP_DRAWS_RULE),
-        "split_fold": roof(4 * (per * n + s_cnt) + improved * (
-            (8 if deb else 4) + 8 * d) + 8 * s_cnt, 0, 4 * n),
-        "split_publish": roof(s_cnt * (8 + 8 * (d + 1) + 8), 0, 0)}
+        "split_fold_publish": roof(fold + publish, 0, 4 * n)}
+
+
+#: 6c's call: sphere_simplex (d, n, block_n), fused mode, two eager
+#: iterations in.
+SPLIT_TIMED = (120, 32768, 512)
+#: 6c's batch sweep: its columns as swarms of (n, block_n), a block each.
+SPLIT_BATCH_VIEW = (256, 256)
 
 
 def split_times(card: str, times: dict, bounds: dict) -> None:
     """Each split kernel and its plain version on one call at the main
-    path's largest cell (sphere_simplex d=120 n=32768, block 512, fused
-    mode, two eager iterations in), each call on a fresh copy of the
+    path's largest cell (``SPLIT_TIMED``), each call on a fresh copy of the
     operands with the L2 flushed after the copy (``flush_l2``: the inputs
     come from HBM, as the bound counts them): the kernel alone under
     torch.profiler (the mean of 5 calls; the JSON's ms), the call in CUDA
     events (the median of 5; host-paced, the wrapper's host work inside),
     the plain version in CUDA events; beside them the card's bound for that
-    call (``split_bounds``), counted from this call's data. A profiler
+    call (``split_bounds``), counted from this call's data: the pbest
+    columns the fold writes are the particles that improve. A profiler
     reading below the bound or above the call's events is not the
     kernel's: it is taken again, and after three tries the events' reading
-    stands in for it (an upper bound of the kernel's time)."""
+    stands in for it (an upper bound of the kernel's time). Then the
+    fold-and-publish kernel alone at every cluster size C, forced, beside
+    the planner's pick, on the call's swarm and on its columns taken as a
+    batch that fills the card at C=1 (``SPLIT_BATCH_VIEW``)."""
+    d, n, bn = SPLIT_TIMED
     print(f"phase 6c: the split kernels and their plain versions on one "
-          f"call, sphere_simplex d=120 n=32768 [{card}]")
-    d, n, bn = 120, 32768, 512
+          f"call, sphere_simplex d={d} n={n} [{card}]")
     cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
                         fitness="sphere_simplex").resolved()
     s = pso.run(cfg, pso.init_swarm(cfg, 0, device="cuda"), 2, "queue")
@@ -2740,10 +2817,9 @@ def split_times(card: str, times: dict, bounds: dict) -> None:
         return sorted(device_us(fn, cold(args), copy=False)
                       for _ in range(5))[2] / 1e6
 
-    def alone(key, fn, args):
-        """(kernel alone s, call in events s); how the first was read
-        goes to ``read_by``."""
-        ev, lo = med(fn, args), bounds[key][0] / 1e3
+    def alone(key, fn, args, bound=None):
+        """(kernel alone s, call in events s, how the first was read)."""
+        ev, lo = med(fn, args), (bound or bounds[key])[0] / 1e3
         seen = []
         for _ in range(3):
             us = kernel_device_us(lambda: fn(cold(args)), reps=5)
@@ -2751,16 +2827,14 @@ def split_times(card: str, times: dict, bounds: dict) -> None:
                      if re.search(SPLIT_FAMILY[key], kn)) / 1e6
             seen.append(us)
             if lo <= us <= 1.1 * ev:
-                read_by[key] = "torch.profiler"
-                return us, ev
-        read_by[key] = (f"CUDA events (torch.profiler read "
+                return us, ev, "torch.profiler"
+        return ev, ev, (f"CUDA events (torch.profiler read "
                         f"{', '.join(f'{x * 1e6:.2f}' for x in seen)} us, "
                         f"outside [bound, events])")
-        return ev, ev
 
     bounds["split_advance"] = split_bounds(d, n, True)["split_advance"]
-    times["split_advance"], events["split_advance"] = alone(
-        "split_advance", lambda st: pso_split.advance(
+    times["split_advance"], events["split_advance"], read_by[
+        "split_advance"] = alone("split_advance", lambda st: pso_split.advance(
             *st, gp, seed, it, (spec,), **akw), (pos, vel, pbp))
     times["split_advance_plain"] = med(lambda st: pso_split.
                                        split_advance_plain(
@@ -2770,42 +2844,86 @@ def split_times(card: str, times: dict, bounds: dict) -> None:
     fit, viol = pso_split.torch_step((cfg.problem,), None, n, (n,))(pos)
     pbv = ops._pbv(cfg, None, s.pbest_pos)
     keys = torch.zeros(1, dtype=torch.int64, device="cuda")
-    fkw = dict(n=n, block_n=bn, mode="fused", gf=gf, viol=viol)
+    arrive = torch.zeros(1, dtype=torch.int32, device="cuda")
     improved = int(cons.deb_improved(fit, viol, pbf, pbv).sum())
-    bounds.update(split_bounds(d, n, True, improved))
+    key = "split_fold_publish"
+    bounds[key] = split_bounds(d, n, True, improved)[key]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planned = pso_split.fold_cluster_size(1, n, d, bn, sms)
 
-    def fold(st):
-        pso_split.fold(pos, st[0], st[1], fit, pbv=st[2], keys=st[3], **fkw)
+    def fold_publish(cluster, sn=n, sbn=bn):
+        def run(st):
+            pso_split.fold_publish(pos, st[0], st[1], fit, n=sn,
+                                   block_n=sbn, mode="fused", gp=st[3],
+                                   gf=st[4], pbv=st[2], viol=viol,
+                                   keys=st[5], arrive=st[6],
+                                   _cluster=cluster)
+        return run
 
-    def fold_plain(st):
-        pso_split.split_fold_plain(pos, st[0], st[1], fit, pbv=st[2],
-                                   keys=st[3], **fkw)
-    fstate = (pbp, pbf, pbv, keys)
-    times["split_fold"], events["split_fold"] = alone("split_fold", fold,
-                                                      fstate)
-    times["split_fold_plain"] = med(fold_plain, fstate)
-    pso_split.fold(pos, pbp, pbf, fit, pbv=pbv, keys=keys, **fkw)
-    pkw = dict(n=n, mode="fused")
-    pstate = (gp, gf, keys)
-    times["split_publish"], events["split_publish"] = alone(
-        "split_publish", lambda st: pso_split.publish(
-            pos, fit, st[0], st[1], keys=st[2], **pkw), pstate)
-    times["split_publish_plain"] = med(lambda st: pso_split.
-                                       split_publish_plain(
-                                           pos, fit, st[0], st[1],
-                                           keys=st[2], **pkw), pstate)
+    def fold_publish_plain(st):
+        out = pso_split.split_fold_plain(pos, st[0], st[1], fit, n=n,
+                                         block_n=bn, mode="fused", gf=st[4],
+                                         pbv=st[2], viol=viol, keys=st[5])
+        pso_split.split_publish_plain(pos, fit, st[3], st[4], n=n,
+                                      mode="fused", keys=out["keys"])
+    fstate = (pbp, pbf, pbv, gp, gf, keys, arrive)
+    times[key], events[key], read_by[key] = alone(key, fold_publish(None),
+                                                  fstate)
+    times[key + "_plain"] = med(fold_publish_plain, fstate)
     for k in SPLIT:
         print(f"  {k}: the kernel alone {times[k] * 1e6:.2f} us (read by "
               f"{read_by[k]}), the call {events[k] * 1e6:.2f} us (plain "
               f"{times[k + '_plain'] * 1e6:.2f} us), bound "
               f"{bounds[k][0] * 1e3:.3f} us by {bounds[k][1]}"
-              + (f"; {improved} pbest columns written" if k == "split_fold"
-                 else ""))
+              + (f"; clusters of {planned} (the planner's), {improved} "
+                 f"pbest columns written of {n}" if k == key else "")
+              + f" [{card}]")
+    sweep = []
+    for c in pso_split.FOLD_CLUSTERS:
+        us, ev, how = alone(key, fold_publish(c), fstate)
+        sweep.append(f"C={c} {us * 1e6:.2f}" + (
+            "" if how == "torch.profiler" else " (events)"))
+    print(f"  {key} alone by cluster size, us: {', '.join(sweep)}; bound "
+          f"{bounds[key][0] * 1e3:.3f}; the planner picks C={planned} "
+          f"[{card}]")
+    # the same columns as a batch (SPLIT_BATCH_VIEW): blocks of a swarm
+    # each, enough of them to fill the card at C=1
+    bs, bn_ = SPLIT_BATCH_VIEW
+    bstate = (pbp, pbf, pbv, gp.repeat(1, n // bs).contiguous(),
+              gf.repeat(n // bs), torch.zeros(n // bs, dtype=torch.int64,
+                                              device="cuda"),
+              torch.zeros(n // bs, dtype=torch.int32, device="cuda"))
+    bbound = split_bounds(d, n, True, improved, n // bs)[key]
+    sweep = []
+    for c in pso_split.FOLD_CLUSTERS:
+        us, ev, how = alone(key, fold_publish(c, bs, bn_), bstate, bbound)
+        sweep.append(f"C={c} {us * 1e6:.2f}" + (
+            "" if how == "torch.profiler" else " (events)"))
+    print(f"  {key} alone by cluster size on the same columns as {n // bs} "
+          f"swarms of {bs} ({n // bs * (bs // bn_)} CTAs at C=1), us: "
+          f"{', '.join(sweep)}; bound {bbound[0] * 1e3:.3f}; the planner "
+          f"picks C={pso_split.fold_cluster_size(n // bs, bs, d, bn_, sms)}"
+          f" [{card}]")
+
+    def warm(args):
+        us = kernel_device_us(lambda: fold_publish(None)(
+            [x.clone() for x in args]), reps=5)
+        return sum(v for kn, v in us.items()
+                   if re.search(SPLIT_FAMILY[key], kn))
+    cells = [f"this call {warm(fstate):.2f}"]
+    for what, f in (("the fixed cost", math.inf), ("the most copies",
+                                                      -math.inf)):
+        st = (pbp, torch.full_like(pbf, f), torch.zeros_like(pbv))
+        k = int(cons.deb_improved(fit, viol, st[1], st[2]).sum())
+        cells.append(f"pbest fitness {f} ({what}: {k} improving) "
+                     f"{warm(st + fstate[3:]):.2f}")
+    print(f"  {key} alone at C={planned} with the L2 warm (no flush), us: "
+          f"{'; '.join(cells)} [{card}]")
 
 
 # ---------------------------------------------------------------------------
 # Phase 7: the lbest topologies (ring, von Neumann) of the async kernel
-# (rows 5-7) and of the split path's publish kernel.
+# (rows 5-7) and of the split path's fold-and-publish kernel.
 # ---------------------------------------------------------------------------
 
 LBEST = ("ring", "vonneumann")
@@ -3106,7 +3224,8 @@ def lbest_many(card: str, launches: dict) -> None:
 
 
 def lbest_split(card: str) -> None:
-    """The split path's lbest (the pull inside the publish kernel) on the
+    """The split path's lbest (the pull inside the fold-and-publish kernel,
+    in the last block to arrive) on the
     card: sphere_simplex d=8 n=1024 x100 through ``solve`` on the kernel
     backend equals the eager engine's, bit for bit."""
     if pso_split is None:
@@ -4261,8 +4380,7 @@ REPLACES = {
     # the split kernels: the converted forms of rows 1-7 (SPLIT_REPLACES),
     # named by fused_call, the main path's
     "split_advance": "src/repro/kernels/pso_step.py:874",
-    "split_fold": "src/repro/kernels/pso_step.py:874",
-    "split_publish": "src/repro/kernels/pso_step.py:874",
+    "split_fold_publish": "src/repro/kernels/pso_step.py:874",
 }
 #: The pallas_call functions whose converted forms (a custom objective, the
 #: projection, the Deb fold, resolved by lower_statics) the split kernels
@@ -4273,7 +4391,7 @@ SPLIT_REPLACES = ["src/repro/kernels/pso_step.py:" + str(line)
 #: Each kernel's CUDA source.
 SOURCES = {name: "src/repro_torch/kernels/csrc/pso_step.cu" for name in REPLACES}
 SOURCES["gla_forward"] = "src/repro_torch/kernels/csrc/gla.cu"
-for _name in ("split_advance", "split_fold", "split_publish"):
+for _name in SPLIT:
     SOURCES[_name] = "src/repro_torch/kernels/csrc/pso_split.cu"
 
 

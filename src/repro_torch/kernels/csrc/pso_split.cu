@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) kernels of the split path: one PSO
-// iteration as three launches around the user's own torch operators, for
+// iteration as two launches around the user's own torch operators, for
 // every Problem that is not one of the six unconstrained built-ins
 // (custom objectives, kernel_fn, and the penalty, projection and repair
 // constraint modes). They port the converted forms of the Pallas kernels
@@ -9,20 +9,21 @@
 // the user's jnp functions into their bodies; a CUDA kernel cannot run a
 // Python callable, so the iteration is split where those functions run:
 //
-//   split_advance_kernel<R>  pos and vel against an attractor column,
-//                            clipped to the box; no fitness (one thread an
-//                            element).
+//   split_advance_kernel<R>    pos and vel against an attractor column,
+//                              clipped to the box; no fitness (one thread
+//                              an element).
 //   -- the caller's torch step: projection (written back into pos), the
 //      objective (max_fn or kernel_fn), the violation where Deb applies --
-//   split_fold_kernel        the pbest fold (raw fitness, or Deb's rule on
-//                            fit/viol against the carried pbest violation)
-//                            and the paper's intra-block queue (one CTA a
-//                            particle block, one thread a particle).
-//   split_publish_kernel     the cross-block stage (one CTA a swarm): the
-//                            fused mode's gbest from the folded keys, the
-//                            async mode's publish-and-pull or flush; under
-//                            an lbest topology the pull is each block's
-//                            neighbourhood best of the locals.
+//   split_fold_publish_kernel  the pbest fold (raw fitness, or Deb's rule
+//                              on fit/viol against the carried pbest
+//                              violation), the paper's intra-block queue,
+//                              and the cross-block stage: the CTA that
+//                              arrives last at its swarm's counter
+//                              publishes (the fused mode's gbest from the
+//                              folded keys, the async mode's
+//                              publish-and-pull or flush; under an lbest
+//                              topology the pull is each block's
+//                              neighbourhood best of the locals).
 //
 // In stream order that is synchronous PPSO: every block reads iteration
 // t-1's gbest, as the fused kernel of pso_step.cu does with several
@@ -37,11 +38,33 @@
 // and the rule), so at large N*D it is bound by bytes, and one thread an
 // element with the particle index fastest keeps every access coalesced.
 // The fold reads 8 to 16 bytes a particle (fit and pbest_fit, plus the
-// violations under Deb's rule) and copies a pbest column only where a
-// particle improved; the publish moves one column a swarm. Both are small
-// beside the advance and beside the user's torch step between them; at
-// small swarms the three launches and the host's torch calls, not the
-// card, set the time of an iteration (chip_smoke.py phase 6).
+// violations under Deb's rule) and, for each particle that improved,
+// writes its pbest fitness and copies its column: 4 + 8*D bytes (pos read,
+// pbest_pos written), so two iterations into a run, when most particles
+// still improve, the copies are nearly all of its bytes (23 MB at
+// N=32768, D=120) and the fold is bound by bytes; the publish moves one
+// column a swarm. The card moves those bytes in 32-byte sectors: where a
+// quarter of the particles do not improve, nearly every sector of pos is
+// read and every sector of pbest_pos is written in part, which needs its
+// old contents (a fill from HBM). What the design does about it: each
+// particle block runs on a cluster of C = 1 or 2 CTAs (fold_cluster_size
+// in pso_split.py: two where the launch still keeps at most one CTA an
+// SM), every rank decides `improved` for the whole block itself, and
+// each copies its own slice of the D rows; a
+// rank compacts the block's groups of four lanes with an improving lane
+// into shared memory with a warp ballot, then all its threads stride over
+// (row, group) pairs, four pairs in flight a thread, each one float4 of
+// pos merged with the float4 of pbest_pos where not all four lanes
+// improved, so every write is a whole 16 bytes (a lane at a time where
+// the rows are not 16-byte aligned). The queue's 64-bit key is reduced
+// over each warp by shuffles, then one shared atomicMax a warp. The
+// cross-block stage needs no launch of its own and no co-resident CTAs:
+// no CTA ever waits for another; the last to arrive publishes (the
+// paper's point: threads update a shared result with atomics rather than
+// in a separate reduction stage), and the rank-0 CTA copies its rows
+// while its arrival is in flight, so the arrival waits for no copy. At
+// small swarms the two launches and the host's torch calls, not the card,
+// set the time of an iteration (chip_smoke.py phase 6).
 //
 // Layout: D-major, [D, S*N] with the particle index fastest; swarm s owns
 // columns [s*N, (s+1)*N). gp [D, S], gf [S]; the async mode's block-local
@@ -51,20 +74,28 @@
 // its[s] + it_off + 1 draws at element index particle*D + dim, local to the
 // swarm, as every engine of the port does. float32 only.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr uint32_t kStreamR1 = 2u, kStreamR2 = 3u;
 constexpr int kFoldThreads = 512;
-constexpr int kPublishThreads = 256;
 constexpr int kAdvanceThreads = 256;
+// (row, entry) pairs a thread of the fold's pbest copies has in flight:
+// float4 entries (four lanes) and single-lane ones.
+constexpr int kCopyUnroll4 = 4, kCopyUnroll1 = 8;
+// The largest cluster a particle block runs on (FOLD_CLUSTERS in
+// pso_split.py: the sizes chip_smoke.py phase 6c measures).
+constexpr int kMaxCluster = 2;
 
-// Fold and publish modes (kernels/pso_split.py MODES).
+// Fold modes (kernels/pso_split.py MODES).
 constexpr int kQueue = 0, kFused = 1, kAsync = 2;
-// The publish kernel's per-swarm action in the async mode (2: publish
-// only, the end of a call).
+// The async publish's per-swarm action (2: publish only, the end of a
+// call).
 constexpr int kActNone = 0, kActSync = 1;
 
 struct Coef { float w, c1, c2, k0, k1, k2; };
@@ -179,156 +210,186 @@ __global__ void __launch_bounds__(kAdvanceThreads) split_advance_kernel(
   }
 }
 
-// ---- split_fold_kernel -----------------------------------------------------
-// One CTA a particle block (blockIdx.x = s * nb + b), one thread a particle
-// (threads stride over a block longer than the CTA). viol null: the raw
-// fitness fold; else Deb's rule against pbv, which carries the violation
-// of each pbest. The queue holds the lanes whose raw fitness beats the
-// attractor's fitness (gf[s], or the async mode's lf[s*nb + b]); gbest is not
-// Deb-gated, as in the reference.
-__global__ void __launch_bounds__(kFoldThreads) split_fold_kernel(
-    const float* __restrict__ pos, float* __restrict__ pbp,
-    float* __restrict__ pbf, float* __restrict__ pbv,
-    const float* __restrict__ fit, const float* __restrict__ viol,
-    const float* __restrict__ gf, float* __restrict__ lp,
-    float* __restrict__ lf, unsigned long long* __restrict__ keys,
-    float* __restrict__ aux_fit, int* __restrict__ aux_idx,
-    int* __restrict__ counts, int n, int d, int bn, int s_cnt, int mode) {
-  __shared__ unsigned long long s_key;
-  __shared__ int s_imp;
-  const int nb = n / bn;
-  const int blk = blockIdx.x;
-  const int s = blk / nb, b = blk - s * nb;
-  const int ld = s_cnt * n;
-  const int base = s * n + b * bn;          // the block's first column
-  const float g = mode == kAsync ? lf[blk] : gf[s];
-  if (threadIdx.x == 0) {
-    s_key = 0ull;
-    s_imp = 0;
-  }
-  __syncthreads();
-  bool imp_any = false;
-  for (int l = threadIdx.x; l < bn; l += blockDim.x) {
-    const int col = base + l;
-    const float f = fit[col];
-    bool imp;
-    float v = 0.0f;
-    if (viol) {
-      v = viol[col];
-      imp = deb_improved(f, v, pbf[col], pbv[col]);
-    } else {
-      imp = f > pbf[col];
-    }
-    if (imp) {              // rare at steady state: copy the column
-      imp_any = true;
-      pbf[col] = f;
-      if (viol) pbv[col] = v;
-      for (int k = 0; k < d; ++k) {
-        const size_t o = (size_t)k * ld + col;
-        pbp[o] = pos[o];
+// ---- split_fold_publish_kernel --------------------------------------------
+// Everything the kernel reads and writes; null pointers for what a mode
+// does not use (kernels/pso_split.py fold_publish).
+struct FoldArgs {
+  const float* pos;
+  float* pbp;
+  float* pbf;
+  float* pbv;
+  const float* fit;
+  const float* viol;
+  float* gp;
+  float* gf;
+  float* lp;
+  float* lf;
+  unsigned long long* keys;
+  float* aux_fit;
+  int* aux_idx;
+  int* counts;
+  const int* act;
+  int* arrive;
+  float* scratch;
+  int n, d, bn, s_cnt, mode, topo, rows, cols, csize;
+  int vec4;                 // the copies in float4 (copy_columns<true>)
+};
+
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync(int csize) {
+  if (csize > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// Rows [k0, k1) of the block's pbest copies (pos into pbp), from the `m`
+// entries s_cols[0..m) the ballot compacted: (lane << 4) | its mask of
+// improving lanes. V4: an entry is four lanes, one float4 a row, and
+// where not all four improved the pbest float4 is read too and merged,
+// so every write is a whole 16 bytes; else an entry is one lane. The
+// CTA's threads stride over the (row, entry) pairs, the entry fastest, so
+// a warp's neighbouring threads touch neighbouring columns of one row;
+// several pairs' loads are issued before their stores.
+template <bool V4>
+__device__ __forceinline__ void copy_columns(const FoldArgs& a,
+                                             const int* s_cols, int m,
+                                             int base, int k0, int k1,
+                                             size_t ld) {
+  constexpr int U = V4 ? kCopyUnroll4 : kCopyUnroll1;
+  const int rows = k1 - k0, nt = blockDim.x;
+  if (m == 0 || rows <= 0) return;
+  int j = threadIdx.x % m, k = threadIdx.x / m;
+  const int dj = nt % m, dk = nt / m;
+  while (k < rows) {
+    float4 v[U], p[U];
+    size_t o[U];
+    int msk[U];
+    bool in[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int ent = s_cols[j];
+      in[u] = k < rows;
+      msk[u] = ent & 15;
+      o[u] = (size_t)(k0 + k) * ld + base + (ent >> 4);
+      if (in[u]) {
+        if (V4) {
+          v[u] = *reinterpret_cast<const float4*>(a.pos + o[u]);
+          if (msk[u] != 15)
+            p[u] = *reinterpret_cast<const float4*>(a.pbp + o[u]);
+        } else {
+          v[u].x = a.pos[o[u]];
+        }
+      }
+      j += dj;
+      k += dk;
+      if (j >= m) {
+        j -= m;
+        ++k;
       }
     }
-    if (f > g) atomicMax(&s_key, make_key(f, b * bn + l));   // the queue
-  }
-  if (imp_any) s_imp = 1;
-  __syncthreads();
-  const unsigned long long key = s_key;
-  if (threadIdx.x == 0 && counts) {
-    if (key) {
-      atomicAdd(counts + 3 * s, 1);                 // queue updates
-      if (mode == kFused) atomicAdd(counts + 3 * s + 1, 1);  // publications
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!in[u]) continue;
+      if (V4) {
+        if (msk[u] != 15) {
+          v[u].x = msk[u] & 1 ? v[u].x : p[u].x;
+          v[u].y = msk[u] & 2 ? v[u].y : p[u].y;
+          v[u].z = msk[u] & 4 ? v[u].z : p[u].z;
+          v[u].w = msk[u] & 8 ? v[u].w : p[u].w;
+        }
+        *reinterpret_cast<float4*>(a.pbp + o[u]) = v[u];
+      } else {
+        a.pbp[o[u]] = v[u].x;
+      }
     }
-    if (s_imp) atomicAdd(counts + 3 * s + 2, 1);    // block improvements
-  }
-  if (mode == kQueue) {
-    if (threadIdx.x == 0) {
-      const int w = key ? key_index(key) : b * bn;
-      aux_fit[blk] = key ? fit[s * n + w] : -__int_as_float(0x7f800000);
-      aux_idx[blk] = w;
-    }
-  } else if (mode == kFused) {
-    if (threadIdx.x == 0 && key) atomicMax(keys + s, key);
-  } else if (key) {         // async: the block's winner into its local best
-    const int wc = s * n + key_index(key);
-    const int lld = s_cnt * nb;
-    for (int k = threadIdx.x; k < d; k += blockDim.x)
-      lp[(size_t)k * lld + blk] = pos[(size_t)k * ld + wc];
-    if (threadIdx.x == 0) lf[blk] = fit[wc];
   }
 }
 
-// ---- split_publish_kernel --------------------------------------------------
-// One CTA a swarm. Fused mode: the winner of keys[s] (the best lane of the
-// iteration that beat gf[s], every block's key folded) becomes gbest, and
-// keys[s] is cleared for the next iteration. Async mode, act[s]: kActSync
-// publishes the best local (first on ties) into gbest where it beats it,
-// then pulls gbest into every local; 2 publishes only (the end of a call);
-// kActNone leaves the swarm alone (core/pso.py _sync_point). Under an
-// lbest topology (topo 1 or 2) the pull of kActSync is core/topology.py's
-// block_neighbor_best: every local becomes the best of itself and its
-// neighbours (self first, strict >), all read before any is written, so
-// the swarm's locals are first copied to `scratch` ([D+1, S*nb]: lp's rows,
-// then lf) and read from there.
-__global__ void __launch_bounds__(kPublishThreads) split_publish_kernel(
-    const float* __restrict__ pos, const float* __restrict__ fit,
-    float* __restrict__ gp, float* __restrict__ gf, float* __restrict__ lp,
-    float* __restrict__ lf, unsigned long long* __restrict__ keys,
-    const int* __restrict__ act, int* __restrict__ counts,
-    float* __restrict__ scratch, int n, int d, int nb, int s_cnt, int mode,
-    int topo, int rows, int cols) {
-  __shared__ unsigned long long s_key;
-  const int s = blockIdx.x;
-  const int ld = s_cnt * n;
-  if (mode == kFused) {
-    const unsigned long long key = keys[s];
+__device__ __forceinline__ void copy_rows(const FoldArgs& a,
+                                          const int* s_cols, int m, int base,
+                                          int k0, int k1, size_t ld) {
+  if (a.vec4)
+    copy_columns<true>(a, s_cols, m, base, k0, k1, ld);
+  else
+    copy_columns<false>(a, s_cols, m, base, k0, k1, ld);
+}
+
+// The cross-block stage of swarm s, run by the rank-0 CTA of the swarm's
+// last block to arrive, after every block's fold. Fused mode: the winner
+// of keys[s] (the best lane of the iteration that beat gf[s], every
+// block's key folded) becomes gbest, and keys[s] is cleared for the next
+// iteration. Async mode, act[s]: kActSync publishes the best local (first
+// on ties) into gbest where it beats it, then pulls gbest into every
+// local; 2 publishes only (the end of a call); kActNone leaves the swarm
+// alone (core/pso.py _sync_point). Under an lbest topology (topo 1 or 2)
+// the pull of kActSync is core/topology.py's block_neighbor_best: every
+// local becomes the best of itself and its neighbours (self first, strict
+// >), all read before any is written, so the swarm's locals are first
+// copied to `scratch` ([D+1, S*nb]: lp's rows, then lf) and read from
+// there. What other blocks wrote in this launch (keys, lp, lf) is read
+// from L2 (__ldcg): a line of it may sit stale in this SM's L1.
+__device__ void publish_swarm(const FoldArgs& a, int s, int nb,
+                              unsigned long long* s_key) {
+  const int n = a.n, d = a.d, s_cnt = a.s_cnt;
+  const size_t ld = (size_t)s_cnt * n;
+  if (a.mode == kFused) {
+    const unsigned long long key = __ldcg(a.keys + s);
     __syncthreads();                   // every thread has read keys[s]
     if (!key) return;
     const int wc = s * n + key_index(key);
     for (int k = threadIdx.x; k < d; k += blockDim.x)
-      gp[(size_t)k * s_cnt + s] = pos[(size_t)k * ld + wc];
+      a.gp[(size_t)k * s_cnt + s] = a.pos[(size_t)k * ld + wc];
     if (threadIdx.x == 0) {
-      gf[s] = fit[wc];
-      keys[s] = 0ull;
+      a.gf[s] = a.fit[wc];
+      a.keys[s] = 0ull;
     }
     return;
   }
-  const int a = act[s];
-  if (a == kActNone) return;
-  const int lld = s_cnt * nb;
-  if (threadIdx.x == 0) s_key = 0ull;
+  const int act = a.act[s];
+  if (act == kActNone) return;
+  const size_t lld = (size_t)s_cnt * nb;
+  float* lp = a.lp;
+  float* lf = a.lf;
+  if (threadIdx.x == 0) *s_key = 0ull;
   __syncthreads();
   for (int j = threadIdx.x; j < nb; j += blockDim.x)
-    atomicMax(&s_key, make_key(lf[s * nb + j], j));
+    atomicMax(s_key, make_key(__ldcg(lf + s * nb + j), j));
   __syncthreads();
-  const int slot = s * nb + key_index(s_key);
-  const float old = gf[s];
-  const float bf = lf[slot];
+  const int slot = s * nb + key_index(*s_key);
+  const float old = a.gf[s];
+  const float bf = __ldcg(lf + slot);
   const bool take = bf > old;
   if (take) {
     for (int k = threadIdx.x; k < d; k += blockDim.x)
-      gp[(size_t)k * s_cnt + s] = lp[(size_t)k * lld + slot];
+      a.gp[(size_t)k * s_cnt + s] = __ldcg(lp + (size_t)k * lld + slot);
   }
   __syncthreads();                     // every thread has read old and bf
   if (threadIdx.x == 0 && take) {
-    gf[s] = bf;
-    if (counts) atomicAdd(counts + 3 * s + 1, 1);   // publications
+    a.gf[s] = bf;
+    if (a.counts) atomicAdd(a.counts + 3 * s + 1, 1);   // publications
   }
-  if (a != kActSync) return;
-  if (topo) {
+  if (act != kActSync) return;
+  if (a.topo) {
+    float* scratch = a.scratch;
     const float* slf = scratch + (size_t)d * lld;
     for (int e = threadIdx.x; e < nb * (d + 1); e += blockDim.x) {
       const int k = e / nb, j = e - k * nb;
       scratch[(size_t)k * lld + s * nb + j] =
-          k < d ? lp[(size_t)k * lld + s * nb + j] : lf[s * nb + j];
+          k < d ? __ldcg(lp + (size_t)k * lld + s * nb + j)
+                : __ldcg(lf + s * nb + j);
     }
     __syncthreads();
-    const int nbrs = topo == kRing ? 2 : 4;
+    const int nbrs = a.topo == kRing ? 2 : 4;
     for (int e = threadIdx.x; e < nb * (d + 1); e += blockDim.x) {
       const int k = e / nb, j = e - k * nb;
       int w = j;
       float best = slf[s * nb + j];
       for (int q = 0; q < nbrs; ++q) {
-        const int o = neighbor_id(j, nb, topo, rows, cols, q);
+        const int o = neighbor_id(j, nb, a.topo, a.rows, a.cols, q);
         if (slf[s * nb + o] > best) {
           best = slf[s * nb + o];
           w = o;
@@ -345,9 +406,159 @@ __global__ void __launch_bounds__(kPublishThreads) split_publish_kernel(
   const float g = take ? bf : old;
   for (int e = threadIdx.x; e < nb * d; e += blockDim.x) {
     const int k = e / nb, j = e - k * nb;
-    lp[(size_t)k * lld + s * nb + j] = gp[(size_t)k * s_cnt + s];
+    lp[(size_t)k * lld + s * nb + j] = a.gp[(size_t)k * s_cnt + s];
   }
   for (int j = threadIdx.x; j < nb; j += blockDim.x) lf[s * nb + j] = g;
+}
+
+// One cluster of csize CTAs a particle block (cluster b of swarm s is
+// blockIdx.x / csize = s * nb + b; csize 1: no cluster), blockDim.x
+// threads over the block's lanes, in chunks of blockDim.x. viol null: the
+// raw fitness fold; else Deb's rule against pbv, which carries the
+// violation of each pbest. The queue holds the lanes whose raw fitness
+// beats the attractor's fitness (gf[s], or the async mode's lf[s*nb + b]);
+// gbest is not Deb-gated, as in the reference.
+//
+// A chunk: every rank reads fit and pbf (viol, pbv) of the chunk's lanes,
+// decides `improved` and compacts the improving lanes (vec4: the groups
+// of four lanes with one improving) into s_cols with a warp ballot; a
+// cluster barrier (every rank has read pbf); rank 0 writes pbf (pbv); each
+// rank copies rows [d*rank/csize, d*(rank+1)/csize) of the improving
+// columns (copy_columns). Rank 0 alone reads the attractor's fitness,
+// builds the queue key (a warp-shuffle max, then one shared atomicMax a
+// warp), counts, and writes the mode's output: aux_fit/aux_idx (queue),
+// keys[s] (fused), the block's winner into lp/lf (async). Then, outside
+// the queue mode, it arrives at arrive[s]; the block that counts nb - 1
+// arrivals runs publish_swarm and resets arrive[s] to 0 for the next
+// launch. Every block reads gf[s] or lf[blk] before it arrives and writes
+// its outputs (released) before it arrives, so the publish, which overwrites
+// gf and every lf and lp of the swarm, starts only after every block of
+// the swarm is done with them. The last chunk's copies are issued while
+// the arrival's atomic is in flight and before the publish: the publish
+// reads no pbest, and the fence before the arrival waits for no copy.
+__global__ void __launch_bounds__(kFoldThreads)
+    split_fold_publish_kernel(FoldArgs a) {
+  __shared__ int s_cols[kFoldThreads];
+  __shared__ unsigned long long s_key;
+  __shared__ int s_m, s_any, s_last;
+  const int csize = a.csize;
+  const int rank = csize > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const bool lead = rank == 0;
+  const int nb = a.n / a.bn;
+  const int blk = (int)(blockIdx.x / (unsigned)csize);
+  const int s = blk / nb, b = blk - s * nb;
+  const size_t ld = (size_t)a.s_cnt * a.n;
+  const int base = s * a.n + b * a.bn;      // the block's first column
+  const int k0 = (int)((long long)a.d * rank / csize);
+  const int k1 = (int)((long long)a.d * (rank + 1) / csize);
+  const int t = threadIdx.x, nt = blockDim.x;
+  const unsigned lane_lt = (1u << (t & 31)) - 1u;
+  float g = 0.0f;
+  if (lead) g = a.mode == kAsync ? a.lf[blk] : a.gf[s];
+  if (t == 0) {
+    s_key = 0ull;
+    s_m = 0;
+    s_any = 0;
+  }
+  __syncthreads();
+  unsigned long long key = 0ull;
+  int m = 0;
+  for (int c0 = 0; c0 < a.bn; c0 += nt) {
+    const int l = c0 + t;
+    const int col = base + l;
+    bool imp = false;
+    float f = 0.0f, v = 0.0f;
+    if (l < a.bn) {
+      f = a.fit[col];
+      if (a.viol) {
+        v = a.viol[col];
+        imp = deb_improved(f, v, a.pbf[col], a.pbv[col]);
+      } else {
+        imp = f > a.pbf[col];
+      }
+      if (lead && f > g) {                  // the queue
+        const unsigned long long kk = make_key(f, b * a.bn + l);
+        key = kk > key ? kk : key;
+      }
+    }
+    // the entries: (lane << 4) | mask of its improving lanes
+    const unsigned mask = __ballot_sync(0xFFFFFFFFu, imp);
+    const unsigned nib = (mask >> (t & 28)) & 0xFu;
+    const bool has = a.vec4 ? (t & 3) == 0 && nib : imp;
+    const int ent = (l << 4) | (a.vec4 ? (int)nib : 1);
+    const unsigned hm = __ballot_sync(0xFFFFFFFFu, has);
+    int at = 0;
+    if ((t & 31) == 0 && hm) at = atomicAdd(&s_m, __popc(hm));
+    at = __shfl_sync(0xFFFFFFFFu, at, 0);
+    if (has) s_cols[at + __popc(hm & lane_lt)] = ent;
+    cluster_sync(csize);   // s_cols whole; every rank has read pbf (pbv)
+    m = s_m;
+    if (lead && imp) {
+      a.pbf[col] = f;
+      if (a.viol) a.pbv[col] = v;
+    }
+    if (lead && t == 0 && m) s_any = 1;
+    if (c0 + nt < a.bn) {           // not the last chunk: its copies now
+      copy_rows(a, s_cols, m, base, k0, k1, ld);
+      __syncthreads();
+      if (t == 0) s_m = 0;
+      __syncthreads();
+    }
+  }
+  if (!lead) {
+    copy_rows(a, s_cols, m, base, k0, k1, ld);
+    return;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xFFFFFFFFu, key, o);
+    key = other > key ? other : key;
+  }
+  if ((t & 31) == 0 && key) atomicMax(&s_key, key);
+  __syncthreads();
+  key = s_key;
+  if (t == 0 && a.counts) {
+    if (key) {
+      atomicAdd(a.counts + 3 * s, 1);                 // queue updates
+      if (a.mode == kFused) atomicAdd(a.counts + 3 * s + 1, 1);  // pubs
+    }
+    if (s_any) atomicAdd(a.counts + 3 * s + 2, 1);    // block improvements
+  }
+  if (a.mode == kQueue) {
+    if (t == 0) {
+      const int w = key ? key_index(key) : b * a.bn;
+      a.aux_fit[blk] = key ? a.fit[s * a.n + w] : -__int_as_float(0x7f800000);
+      a.aux_idx[blk] = w;
+    }
+  } else {
+    if (a.mode == kFused) {
+      if (t == 0 && key) atomicMax(a.keys + s, key);
+    } else if (key) {       // async: the block's winner into its local best
+      const int wc = s * a.n + key_index(key);
+      const size_t lld = (size_t)a.s_cnt * nb;
+      for (int k = t; k < a.d; k += nt)
+        a.lp[(size_t)k * lld + blk] = a.pos[(size_t)k * ld + wc];
+      if (t == 0) a.lf[blk] = a.fit[wc];
+    }
+    // The arrival: the barrier orders every thread's outputs before thread
+    // 0's release fence, and the last block's acquire fence orders every
+    // other block's outputs before the barrier after which its threads
+    // read them (the semaphore pattern of CUTLASS's Semaphore).
+    __syncthreads();
+    if (t == 0) {
+      fence_acq_rel_gpu();
+      const bool last = atomicAdd(a.arrive + s, 1) == nb - 1;
+      if (last) {
+        a.arrive[s] = 0;                    // every block has arrived
+        fence_acq_rel_gpu();
+      }
+      s_last = last;
+    }
+  }
+  copy_rows(a, s_cols, m, base, k0, k1, ld);   // beside the arrival
+  if (a.mode == kQueue) return;
+  __syncthreads();
+  if (s_last) publish_swarm(a, s, nb, &s_key);
 }
 
 typedef void (*AdvanceKernel)(float*, float*, const float*, const float*,
@@ -389,47 +600,68 @@ int pso_split_advance(float* pos, float* vel, const float* pbp,
   return (int)cudaGetLastError();
 }
 
-// The pbest fold and the intra-block queue of every particle block, in
-// mode 0 (queue: aux_fit/aux_idx [S*nb]), 1 (fused: keys[S]) or 2 (async:
-// lp/lf). viol and pbv null: the raw fold; counts null: no counting.
-int pso_split_fold(const float* pos, float* pbp, float* pbf, float* pbv,
-                   const float* fit, const float* viol, const float* gf,
-                   float* lp, float* lf, unsigned long long* keys,
-                   float* aux_fit, int* aux_idx, int* counts, int n, int d,
-                   int bn, int s_cnt, int mode, void* stream) {
-  if (n < 1 || d < 1 || s_cnt < 1 || bn < 1 || n % bn ||
-      (viol && !pbv) || (mode == kQueue && !(aux_fit && aux_idx)) ||
-      (mode == kFused && !keys) || (mode == kAsync && !(lp && lf)) ||
-      mode < kQueue || mode > kAsync || (size_t)s_cnt * n >= (1u << 31))
-    return (int)cudaErrorInvalidValue;
-  const int threads = bn < kFoldThreads ? (bn + 31) / 32 * 32 : kFoldThreads;
-  split_fold_kernel<<<(unsigned)(s_cnt * (n / bn)), threads, 0,
-                      (cudaStream_t)stream>>>(
-      pos, pbp, pbf, pbv, fit, viol, gf, lp, lf, keys, aux_fit, aux_idx,
-      counts, n, d, bn, s_cnt, mode);
-  return (int)cudaGetLastError();
-}
-
-// The cross-block stage of every swarm: mode 1 (fused, keys[S]) or 2
-// (async, act[S] of 0 none / 1 publish and pull / 2 publish only). topo 0
-// pulls gbest; 1 (ring) and 2 (von Neumann on a rows x cols torus of the
-// nb blocks) pull the neighbourhood best, through scratch [D+1, S*nb].
-int pso_split_publish(const float* pos, const float* fit, float* gp,
-                      float* gf, float* lp, float* lf,
-                      unsigned long long* keys, const int* act, int* counts,
-                      float* scratch, int n, int d, int nb, int s_cnt,
-                      int mode, int topo, int rows, int cols, void* stream) {
-  if (n < 1 || d < 1 || s_cnt < 1 || nb < 1 ||
-      (mode == kFused && !keys) || (mode == kAsync && !(lp && lf && act)) ||
-      (mode != kFused && mode != kAsync) || topo < 0 || topo > kVonNeumann ||
+// The pbest fold and the intra-block queue of every particle block, and
+// the cross-block stage of every swarm in the same launch: mode 0 (queue:
+// aux_fit/aux_idx [S*nb]; no cross-block stage, ops.queue_epilogue is the
+// caller's), 1 (fused: keys[S], zero between launches, into gp/gf) or 2
+// (async: lp/lf, act[S] of 0 none / 1 publish and pull / 2 publish only).
+// topo 0 pulls gbest; 1 (ring) and 2 (von Neumann on a rows x cols torus
+// of the nb blocks) pull the neighbourhood best, through scratch [D+1,
+// S*nb]. arrive[S] (modes 1 and 2): int32 arrival counters, zero before
+// the launch and zero again after it. Each particle block runs on a
+// cluster of csize CTAs (1 or 2). viol and pbv null: the raw fold;
+// counts null: no counting. A refused launch is returned, never retried
+// another way.
+int pso_split_fold_publish(const float* pos, float* pbp, float* pbf,
+                           float* pbv, const float* fit, const float* viol,
+                           float* gp, float* gf, float* lp, float* lf,
+                           unsigned long long* keys, float* aux_fit,
+                           int* aux_idx, int* counts, const int* act,
+                           int* arrive, float* scratch, int n, int d, int bn,
+                           int s_cnt, int mode, int topo, int rows, int cols,
+                           int csize, void* stream) {
+  const bool pub = mode == kFused || mode == kAsync;
+  if (n < 1 || d < 1 || s_cnt < 1 || bn < 1 || n % bn || (viol && !pbv) ||
+      mode < kQueue || mode > kAsync ||
+      (mode == kQueue && !(aux_fit && aux_idx && gf)) ||
+      (mode == kFused && !(keys && gp && gf)) ||
+      (mode == kAsync && !(lp && lf && act && gp && gf)) ||
+      (pub && !arrive) || topo < 0 || topo > kVonNeumann ||
       (topo && (mode != kAsync || !scratch)) ||
-      (topo == kVonNeumann && (rows < 1 || cols < 1 || rows * cols != nb)))
+      (topo == kVonNeumann &&
+       (rows < 1 || cols < 1 || rows * cols != n / bn)) ||
+      (csize != 1 && csize != kMaxCluster) ||
+      (size_t)s_cnt * n >= (1u << 31) ||
+      (size_t)s_cnt * (n / bn) * csize >= (1u << 31))
     return (int)cudaErrorInvalidValue;
-  split_publish_kernel<<<(unsigned)s_cnt, kPublishThreads, 0,
-                         (cudaStream_t)stream>>>(
-      pos, fit, gp, gf, lp, lf, keys, act, counts, scratch, n, d, nb, s_cnt,
-      mode, topo, rows, cols);
-  return (int)cudaGetLastError();
+  // float4 copies where every row's block starts on 16 bytes
+  const int vec4 = n % 4 == 0 && bn % 4 == 0 &&
+                   ((uintptr_t)pos | (uintptr_t)pbp) % 16 == 0;
+  const FoldArgs a{pos, pbp, pbf, pbv, fit, viol, gp, gf, lp, lf, keys,
+                   aux_fit, aux_idx, counts, act, arrive, scratch, n, d, bn,
+                   s_cnt, mode, topo, rows, cols, csize, vec4};
+  const int threads = bn < kFoldThreads ? (bn + 31) / 32 * 32 : kFoldThreads;
+  const unsigned blocks = (unsigned)(s_cnt * (n / bn) * csize);
+  if (csize == 1) {
+    split_fold_publish_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        a);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, split_fold_publish_kernel,
+                                             a);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -11,7 +11,7 @@ of a batch matches the single-swarm wrapper on ``batch_row(batch, s)``.
 
 Every Problem that is not one of the six unconstrained built-ins (a custom
 objective, a ``kernel_fn``, any constraint mode), and a heterogeneous table
-with such a member, takes the split path (``kernels.pso_split``): three
+with such a member, takes the split path (``kernels.pso_split``): two
 kernels an iteration around the user's torch operators, with the same
 results as the eager engine's ``step_queue`` iterated (fused) and
 ``run_async`` (async), and the Deb fold where it applies. The built-ins
@@ -126,9 +126,10 @@ def queue_step(cfg: PSOConfig, s: SwarmState,
         nb = n // bn
         aux_fit = torch.empty(nb, dtype=pos.dtype, device=pos.device)
         aux_idx = torch.empty(nb, dtype=torch.int32, device=pos.device)
-        pso_split.fold(pos, pbp, pbf, fit, n=n, block_n=bn, mode="queue",
-                       gf=gf, pbv=_pbv(cfg, None, s.pbest_pos), viol=viol,
-                       aux_fit=aux_fit, aux_idx=aux_idx)
+        pso_split.fold_publish(pos, pbp, pbf, fit, n=n, block_n=bn,
+                               mode="queue", gf=gf,
+                               pbv=_pbv(cfg, None, s.pbest_pos), viol=viol,
+                               aux_fit=aux_fit, aux_idx=aux_idx)
     else:
         pos, vel, pbp, pbf, aux_fit, aux_idx = pso_step.queue_step(
             pos, vel, pbp, pbf, gp, gf, spec, seed=s.seed,

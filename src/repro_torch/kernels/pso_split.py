@@ -1,11 +1,11 @@
 """The split path of the kernel backend: any Problem that is not one of the
-six unconstrained built-ins, on three hand-written CUDA kernels around the
+six unconstrained built-ins, on two hand-written CUDA kernels around the
 user's own torch operators.
 
-The kernels are ``csrc/pso_split.cu``'s ``split_advance_kernel``,
-``split_fold_kernel`` and ``split_publish_kernel``. Together with the torch
-step between them they replace the converted forms of the Pallas call
-functions of ``repro.kernels.pso_step`` (``queue_step_call``, ``fused_call``,
+The kernels are ``csrc/pso_split.cu``'s ``split_advance_kernel`` and
+``split_fold_publish_kernel``. Together with the torch step between them
+they replace the converted forms of the Pallas call functions of
+``repro.kernels.pso_step`` (``queue_step_call``, ``fused_call``,
 ``fused_batch_call``, ``hetero_fused_batch_call``, ``fused_async_call``,
 ``fused_async_batch_call``, ``hetero_fused_async_batch_call``), which trace
 a custom objective (``dmajor_adapter`` or ``kernel_fn``), the projection
@@ -17,10 +17,14 @@ bodies. One iteration is:
    the objective (``max_fn`` on the particle-major positions, or
    ``kernel_fn`` on the D-major ones); the violation where Deb applies.
    This is the user's code, which the reference traced into its kernels;
-3. ``fold``: the pbest fold (raw fitness, or Deb's rule against the
+3. ``fold_publish``: the pbest fold (raw fitness, or Deb's rule against the
    carried pbest violation ``pbv``) and the paper's intra-block queue on raw
-   fitness (gbest publication is not Deb-gated, as in the reference);
-4. ``publish``: the cross-block stage.
+   fitness (gbest publication is not Deb-gated, as in the reference), then,
+   in the same launch, the cross-block stage, run by the particle block
+   that arrives last at its swarm's counter (``arrive``).
+
+Each particle block of the fold runs on a cluster of one or two CTAs that
+share its pbest copies by rows (``fold_cluster_size``).
 
 Semantics (held by ``tests/test_torch_constraints.py``):
 
@@ -35,11 +39,12 @@ Semantics (held by ``tests/test_torch_constraints.py``):
   ``sync_every`` and publishing only at the end of a call. With one block
   it equals the fused mode for every ``sync_every``. Under an lbest
   ``topology`` the pull at a sync point is ``core.topology``'s
-  ``block_neighbor_best`` of the locals, computed inside the publish
-  kernel, so it equals ``run_async`` with that topology.
+  ``block_neighbor_best`` of the locals, computed in the cross-block
+  stage, so it equals ``run_async`` with that topology.
 * Queue mode is one iteration of the paper's queue algorithm: each block's
   best lane beating gbest as ``(aux_fit, aux_idx)``, the cross-block
-  argmax being ``ops.queue_epilogue``.
+  argmax being ``ops.queue_epilogue``; ``fold_publish`` runs the fold
+  alone there.
 * ``pbv`` carries ``violation_fn(pbest_pos)``, which the reference
   recomputes every iteration; after any run ``pbv ==
   violation_fn(pbest_pos)`` holds exactly.
@@ -47,19 +52,20 @@ Semantics (held by ``tests/test_torch_constraints.py``):
 Arrays are D-major as in ``pso_step``: ``pos``/``vel``/``pbp`` ``[D, S*N]``,
 ``pbf``/``pbv``/``fit``/``viol`` ``[S*N]``, ``gp`` ``[D, S]``, ``gf``
 ``[S]``, ``lp`` ``[D, S*nb]``, ``lf`` ``[S*nb]``, ``seeds``/``its`` int64
-``[S]``, ``keys`` int64 ``[S]`` (the uint64 queue keys' bits), ``act``
-int32 ``[S]``. A heterogeneous batch takes a table of ``KernelSpec``
-members and ``fids[S]`` into it.
+``[S]``, ``keys`` int64 ``[S]`` (the uint64 queue keys' bits), ``act`` and
+``arrive`` int32 ``[S]``. A heterogeneous batch takes a table of
+``KernelSpec`` members and ``fids[S]`` into it.
 
-``split_advance_plain``, ``split_fold_plain`` and ``split_publish_plain``
-are the plain versions, with the kernels' operands and arithmetic. On CPU
+``split_advance_plain`` is the advance's plain version; ``split_fold_plain``
+followed (outside the queue mode) by ``split_publish_plain`` is
+``fold_publish``'s, with the kernel's operands and arithmetic. On CPU
 tensors, and only there, the wrappers run them; on CUDA tensors they launch
 the kernel or raise. Each wrapper counts its launches in
-``<wrapper>.launches``. ``fold`` and ``publish`` take ``counts`` (int32
-``[3*S]``, or None) with the meaning of ``repro_torch.telemetry``: the fold
-counts queue updates and block improvements, and in fused mode a
-publication for each block that raised its swarm's key; the async publish
-counts the sync points at which a swarm's gbest rose.
+``<wrapper>.launches``. ``fold_publish`` takes ``counts`` (int32 ``[3*S]``,
+or None) with the meaning of ``repro_torch.telemetry``: the fold counts
+queue updates and block improvements, and in fused mode a publication for
+each block that raised its swarm's key; the async cross-block stage counts
+the sync points at which a swarm's gbest rose.
 """
 from __future__ import annotations
 
@@ -78,11 +84,16 @@ from .pso_step import (KernelSpec, _check, _counters, _operands, _ptrs,
 
 Tensor = torch.Tensor
 
-#: Fold and publish modes (``csrc/pso_split.cu``).
+#: Fold modes (``csrc/pso_split.cu``).
 MODES = {"queue": 0, "fused": 1, "async": 2}
 #: The async publish's per-swarm action: none, publish and pull (a sync
 #: point), publish only (the end of a call).
 ACT_NONE, ACT_SYNC, ACT_FLUSH = 0, 1, 2
+#: The cluster sizes a particle block of the fold runs on: the two that
+#: chip_smoke.py phase 6c measures (4 and 8 read slower there than 2).
+FOLD_CLUSTERS = (1, 2)
+#: The fewest rows of the pbest copies each CTA of a cluster takes.
+FOLD_MIN_ROWS = 8
 
 _U32 = 0xFFFFFFFF
 
@@ -257,12 +268,31 @@ def _lib():
     p, i, u, f = c.c_void_p, c.c_int, c.c_uint, c.c_float
     lib.pso_split_advance.argtypes = ([p] * 8 + [i] * 4 + [u, i] + [f] * 6
                                       + [p])
-    lib.pso_split_fold.argtypes = [p] * 13 + [i] * 5 + [p]
-    lib.pso_split_publish.argtypes = [p] * 10 + [i] * 8 + [p]
-    for fn in (lib.pso_split_advance, lib.pso_split_fold,
-               lib.pso_split_publish):
+    lib.pso_split_fold_publish.argtypes = [p] * 17 + [i] * 9 + [p]
+    for fn in (lib.pso_split_advance, lib.pso_split_fold_publish):
         fn.restype = i
     return lib
+
+
+def fold_cluster_size(s_cnt: int, n: int, d: int, block_n: int,
+                      sm_count: int) -> int:
+    """How many CTAs each particle block of the fold runs on, for ``s_cnt``
+    swarms of ``n`` particles in ``d`` dimensions in blocks of ``block_n``
+    on a card of ``sm_count`` SMs: 2 where the launch's clusters of two
+    still hold at most one CTA an SM (``s_cnt * n // block_n * 2 <=
+    sm_count``) and each CTA owns at least ``FOLD_MIN_ROWS`` rows of the
+    pbest copies, else 1. A launch that already fills the card gains
+    nothing from a second CTA a block, which adds its read of the block's
+    fitness and a cluster barrier (chip_smoke.py phase 6c sweeps C, on one
+    swarm and on a batch that fills the card). Correctness never needs the
+    clusters resident at once (no CTA waits for another)."""
+    ctas = s_cnt * (n // block_n)
+    return 2 if d >= 2 * FOLD_MIN_ROWS and 2 * ctas <= sm_count else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _validate(what: str, d: int, ld: int, n: int, nb: int, **operands):
@@ -280,7 +310,8 @@ def _validate(what: str, d: int, ld: int, n: int, nb: int, **operands):
             "gf": ((s_cnt,), f32), "lp": ((d, s_cnt * nb), f32),
             "lf": ((s_cnt * nb,), f32), "keys": ((s_cnt,), torch.int64),
             "aux_fit": ((s_cnt * nb,), f32), "aux_idx": ((s_cnt * nb,), i32),
-            "act": ((s_cnt,), i32), "counts": ((3 * s_cnt,), i32)}
+            "act": ((s_cnt,), i32), "arrive": ((s_cnt,), i32),
+            "counts": ((3 * s_cnt,), i32)}
     for name, t in operands.items():
         shape, dtype = want[name]
         if t is not None and (tuple(t.shape) != shape or t.dtype != dtype):
@@ -353,72 +384,83 @@ def advance(pos, vel, pbp, attractor, seeds, its,
 advance.launches = 0
 
 
-def fold(pos, pbp, pbf, fit, *, n: int, block_n: int, mode: str, gf=None,
-         pbv=None, viol=None, lp=None, lf=None, keys=None, aux_fit=None,
-         aux_idx=None, counts=None):
-    """``split_fold_plain`` in place (``aux_fit``/``aux_idx`` [S*nb] are
-    the queue mode's outputs): on CUDA tensors one launch of
-    ``split_fold_kernel``, on CPU tensors the plain version."""
+#: The operands each mode of ``fold_publish`` needs besides pos, pbp, pbf
+#: and fit.
+_NEEDS = {"queue": ("gf", "aux_fit", "aux_idx"),
+          "fused": ("gp", "gf", "keys"),
+          "async": ("gp", "gf", "lp", "lf", "act")}
+
+
+def fold_publish(pos, pbp, pbf, fit, *, n: int, block_n: int, mode: str,
+                 gp=None, gf=None, pbv=None, viol=None, lp=None, lf=None,
+                 keys=None, act=None, aux_fit=None, aux_idx=None,
+                 counts=None, arrive=None, topology: str = "gbest",
+                 _cluster: Optional[int] = None):
+    """``split_fold_plain``, then outside the queue mode
+    ``split_publish_plain`` on its outputs, in place (``aux_fit``/
+    ``aux_idx`` [S*nb] are the queue mode's outputs; ``act`` [S] the async
+    mode's action a swarm; an lbest ``topology`` pulls the neighbourhood
+    best at a sync point): on CUDA tensors one launch of
+    ``split_fold_publish_kernel``, each particle block on a cluster of
+    ``fold_cluster_size`` CTAs (``_cluster`` forces one of
+    ``FOLD_CLUSTERS``, for the tests and chip_smoke.py; under an lbest
+    ``topology`` with a scratch copy of the locals, ``[(D+1) * S*nb]``), on
+    CPU tensors the plain versions. ``arrive`` (int32 [S], zero; zero again
+    after the launch) is the swarms' arrival counters, which a caller
+    launching many times owns (else they are allocated here)."""
     d, ld = pos.shape
     if block_n < 1 or n % block_n:
         raise ValueError(f"split fold: block_n={block_n} must divide {n}")
-    _validate("split fold", d, ld, n, n // block_n, pos=pos, pbp=pbp,
-              pbf=pbf, fit=fit, gf=gf, pbv=pbv, viol=viol, lp=lp, lf=lf,
-              keys=keys, aux_fit=aux_fit, aux_idx=aux_idx, counts=counts)
+    nb = n // block_n
+    _validate("split fold", d, ld, n, nb, pos=pos, pbp=pbp, pbf=pbf,
+              fit=fit, gp=gp, gf=gf, pbv=pbv, viol=viol, lp=lp, lf=lf,
+              keys=keys, act=act, aux_fit=aux_fit, aux_idx=aux_idx,
+              counts=counts, arrive=arrive)
+    given = dict(gp=gp, gf=gf, lp=lp, lf=lf, keys=keys, act=act,
+                 aux_fit=aux_fit, aux_idx=aux_idx)
+    missing = [k for k in _NEEDS[mode] if given[k] is None]
+    if (viol is None) != (pbv is None):
+        missing.append("viol and pbv together")
+    if missing:
+        raise ValueError(f"split fold, {mode} mode: needs {missing}")
+    topo = _topology_operands(topology, nb)
+    if topo[0] and mode != "async":
+        raise ValueError("an lbest topology pulls in the async mode only")
+    if _cluster is not None and _cluster not in FOLD_CLUSTERS:
+        raise ValueError(f"split fold: cluster size {_cluster} is not one "
+                         f"of {FOLD_CLUSTERS}")
     if pos.device.type == "cpu":
         out = split_fold_plain(pos, pbp, pbf, fit, n=n, block_n=block_n,
                                mode=mode, gf=gf, pbv=pbv, viol=viol, lp=lp,
                                lf=lf, keys=keys, counts=counts)
         _copy_into(dict(pbp=pbp, pbf=pbf, pbv=pbv, lp=lp, lf=lf, keys=keys,
                         aux_fit=aux_fit, aux_idx=aux_idx), out)
+        if mode != "queue":
+            out = split_publish_plain(pos, fit, gp, gf, n=n, mode=mode,
+                                      keys=keys, lp=lp, lf=lf, act=act,
+                                      counts=counts, topology=topology)
+            _copy_into(dict(gp=gp, gf=gf, keys=keys, lp=lp, lf=lf), out)
         return
     dev = pos.device
-    _cuda_operands(pos, pbp, pbf, fit, gf, pbv, viol, lp, lf, keys, aux_fit,
-                   aux_idx, counts)
-    with torch.cuda.device(dev):
-        _check(_lib().pso_split_fold(
-            *_ptrs([pos, pbp, pbf, pbv, fit, viol, gf, lp, lf, keys, aux_fit,
-                    aux_idx, counts]),
-            n, d, block_n, ld // n, MODES[mode], _stream(dev)),
-            "split fold kernel launch")
-    fold.launches += 1
-
-
-fold.launches = 0
-
-
-def publish(pos, fit, gp, gf, *, n: int, mode: str, keys=None, lp=None,
-            lf=None, act=None, counts=None, topology: str = "gbest"):
-    """``split_publish_plain`` in place: on CUDA tensors one launch of
-    ``split_publish_kernel`` (under an lbest ``topology`` with a scratch
-    copy of the locals, ``[(D+1) * S*nb]``), on CPU tensors the plain
-    version."""
-    d, ld = pos.shape
     s_cnt = ld // n
-    nb = 1 if lf is None else lf.shape[0] // max(s_cnt, 1)
-    _validate("split publish", d, ld, n, nb, pos=pos, fit=fit, gp=gp, gf=gf,
-              keys=keys, lp=lp, lf=lf, act=act, counts=counts)
-    topo = _topology_operands(topology, nb)
-    if topo[0] and mode != "async":
-        raise ValueError("an lbest topology pulls in the async mode only")
-    if pos.device.type == "cpu":
-        out = split_publish_plain(pos, fit, gp, gf, n=n, mode=mode,
-                                  keys=keys, lp=lp, lf=lf, act=act,
-                                  counts=counts, topology=topology)
-        _copy_into(dict(gp=gp, gf=gf, keys=keys, lp=lp, lf=lf), out)
-        return
-    dev = pos.device
+    if arrive is None and mode != "queue":
+        arrive = torch.zeros(s_cnt, dtype=torch.int32, device=dev)
     scratch = pos.new_empty((d + 1) * s_cnt * nb) if topo[0] else None
-    _cuda_operands(pos, fit, gp, gf, lp, lf, keys, act, counts)
+    cluster = _cluster or fold_cluster_size(s_cnt, n, d, block_n, _sm_count(
+        torch.cuda.current_device() if dev.index is None else dev.index))
+    _cuda_operands(pos, pbp, pbf, fit, gp, gf, pbv, viol, lp, lf, keys, act,
+                   aux_fit, aux_idx, counts, arrive)
     with torch.cuda.device(dev):
-        _check(_lib().pso_split_publish(
-            *_ptrs([pos, fit, gp, gf, lp, lf, keys, act, counts, scratch]),
-            n, d, nb, s_cnt, MODES[mode], *topo, _stream(dev)),
-            "split publish kernel launch")
-    publish.launches += 1
+        _check(_lib().pso_split_fold_publish(
+            *_ptrs([pos, pbp, pbf, pbv, fit, viol, gp, gf, lp, lf, keys,
+                    aux_fit, aux_idx, counts, act, arrive, scratch]),
+            n, d, block_n, s_cnt, MODES[mode], *topo, cluster,
+            _stream(dev)),
+            "split fold-and-publish kernel launch")
+    fold_publish.launches += 1
 
 
-publish.launches = 0
+fold_publish.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -489,14 +531,19 @@ def iterate(state, seeds, its, specs, fids, step, *, n: int, block_n: int,
     """``iters`` iterations of the split path on ``state`` = (pos, vel,
     pbp, pbf, gp, gf), plus (lp, lf) for the async mode (``sync_every``
     given, pulling by ``topology`` at its sync points), in place, the
-    first at offset ``off`` into the call's iterations. ``step`` is
-    ``torch_step``'s; ``pbv`` the carried pbest violation where Deb
+    first at offset ``off`` into the call's iterations: two launches an
+    iteration, ``advance`` and ``fold_publish``, around ``step``
+    (``torch_step``'s); ``pbv`` the carried pbest violation where Deb
     applies. Returns the last iteration's fitness."""
     pos, vel, pbp, pbf, gp, gf = state[:6]
     s_cnt = gf.shape[0]
     dev = pos.device
-    if counters is None and dev.type == "cuda":
+    cuda = dev.type == "cuda"
+    if counters is None and cuda:
         counters = uint32_rows(seeds, its, dev)
+    # owned by this call: zero between launches
+    arrive = torch.zeros(s_cnt, dtype=torch.int32, device=dev) if cuda \
+        else None
     fit = None
     if sync_every is None:
         keys = torch.zeros(s_cnt, dtype=torch.int64, device=dev)
@@ -504,10 +551,9 @@ def iterate(state, seeds, its, specs, fids, step, *, n: int, block_n: int,
             advance(pos, vel, pbp, gp, seeds, its, specs, fids, n=n,
                     it_off=off + t, gdiv=n, counters=counters)
             fit, viol = step(pos)
-            fold(pos, pbp, pbf, fit, n=n, block_n=block_n, mode="fused",
-                 gf=gf, pbv=pbv, viol=viol, keys=keys, counts=counts)
-            publish(pos, fit, gp, gf, n=n, mode="fused", keys=keys,
-                    counts=counts)
+            fold_publish(pos, pbp, pbf, fit, n=n, block_n=block_n,
+                         mode="fused", gp=gp, gf=gf, pbv=pbv, viol=viol,
+                         keys=keys, counts=counts, arrive=arrive)
         return fit
     lp, lf = state[6:]
     # the action of each iteration for each swarm (core/pso.py _sync_point)
@@ -520,8 +566,8 @@ def iterate(state, seeds, its, specs, fids, step, *, n: int, block_n: int,
         advance(pos, vel, pbp, lp, seeds, its, specs, fids, n=n,
                 it_off=off + t, gdiv=block_n, counters=counters)
         fit, viol = step(pos)
-        fold(pos, pbp, pbf, fit, n=n, block_n=block_n, mode="async",
-             pbv=pbv, viol=viol, lp=lp, lf=lf, counts=counts)
-        publish(pos, fit, gp, gf, n=n, mode="async", lp=lp, lf=lf,
-                act=act[t], counts=counts, topology=topology)
+        fold_publish(pos, pbp, pbf, fit, n=n, block_n=block_n, mode="async",
+                     gp=gp, gf=gf, pbv=pbv, viol=viol, lp=lp, lf=lf,
+                     act=act[t], counts=counts, arrive=arrive,
+                     topology=topology)
     return fit

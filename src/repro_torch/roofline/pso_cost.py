@@ -47,9 +47,10 @@ Three ingredient families, as in the reference:
      kernel keeps a block resident in VMEM over a chunk);
    * ``queue``: a launch an iteration, ``grid_steps = nb`` and one
      dispatch (as the reference);
-   * the split path (a non-built-in Problem): three normal launches an
-     iteration (advance, fold, publish) around the user's torch step, so
-     ``dispatches = 3 +`` the step's torch calls (``torch_step_calls``),
+   * the split path (a non-built-in Problem): two normal launches an
+     iteration (the advance, and the fold with the cross-block stage in
+     its last block) around the user's torch step, so
+     ``dispatches = 2 +`` the step's torch calls (``torch_step_calls``),
      ``grid_steps = 0`` and no hoisted-const bytes (``const_operand_bytes``
      is 0: nothing is lowered into a kernel; the reference streams the
      adapter's consts).
@@ -96,8 +97,8 @@ PBEST_FLOPS_PER_PARTICLE = 2
 RNG_DRAWS = 2
 #: switch bookkeeping per kernel block for hetero dispatch.
 HETERO_SWITCH_FLOPS = 16.0
-#: launches an iteration of the split path (advance, fold, publish).
-SPLIT_LAUNCHES = 3
+#: launches an iteration of the split path (advance, fold and publish).
+SPLIT_LAUNCHES = 2
 
 BACKENDS = ("eager", "kernel")
 

@@ -230,7 +230,7 @@ def test_golden_async_kernel_streams_state_every_iteration():
 
 
 def test_golden_split_path_dispatches():
-    """A non-built-in Problem on the kernel backend: three launches an
+    """A non-built-in Problem on the kernel backend: two launches an
     iteration plus its torch step's calls, no synchronisation arrivals."""
     prob = repro_torch.Problem(name="my_sphere", fn=_torch_sphere)
     for variant in ("queue_lock", "async"):

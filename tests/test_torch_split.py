@@ -1,14 +1,18 @@
 """The split path's kernels (``repro_torch.kernels.pso_split``) against their
 plain versions on a card (``gpu``-marked; they skip inside the test when
 there is none), and the plain versions' own contracts on the CPU: the queue
-keys' order, the fold's and the publish's modes. Imports no JAX, so it runs
-on a card host as it is.
+keys' order, the fold's and the publish's modes, the fold's cluster
+planner, and ``fold_publish`` on CPU tensors. Imports no JAX, so it runs on
+a card host as it is.
 
 On the card each kernel is held to its plain version on the same card
-tensors, exactly: advance positions and velocities bit for bit, fold and
-publish outputs given the same fit/viol tensors."""
+tensors, exactly: advance positions and velocities bit for bit, the
+fold-and-publish kernel's outputs (given the same fit/viol tensors) equal
+to ``split_fold_plain`` followed by ``split_publish_plain``, at every
+cluster size, with its arrival counters back at zero."""
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -115,21 +119,86 @@ def test_wrappers_refuse_operands_of_the_wrong_shape():
     pos, vel, pbp = (torch.zeros(d, n) for _ in range(3))
     pbf, gf = torch.zeros(n), torch.zeros(1)
     with pytest.raises(ValueError, match="fit must be"):
-        pso_split.fold(pos, pbp, pbf, torch.zeros(n - 1), n=n, block_n=16,
-                       mode="fused", gf=gf,
-                       keys=torch.zeros(1, dtype=torch.int64))
+        pso_split.fold_publish(pos, pbp, pbf, torch.zeros(n - 1), n=n,
+                               block_n=16, mode="fused", gp=torch.zeros(d, 1),
+                               gf=gf, keys=torch.zeros(1, dtype=torch.int64))
     with pytest.raises(ValueError, match="attractor must be"):
         pso_split.advance(pos, vel, pbp, torch.zeros(d, 2),
                           torch.zeros(1, dtype=torch.int64),
                           torch.zeros(1, dtype=torch.int64), (), n=n,
                           it_off=0, gdiv=n)
     with pytest.raises(ValueError, match="act must be"):
-        pso_split.publish(pos, torch.zeros(n), torch.zeros(d, 1), gf, n=n,
-                          mode="async", lp=torch.zeros(d, 4),
-                          lf=torch.zeros(4), act=torch.zeros(1))
+        pso_split.fold_publish(pos, pbp, pbf, torch.zeros(n), n=n,
+                               block_n=16, mode="async", gp=torch.zeros(d, 1),
+                               gf=gf, lp=torch.zeros(d, 4), lf=torch.zeros(4),
+                               act=torch.zeros(1))
 
 
-def _card_round(name, variant, d, n, bn, dev):
+def _operands(gp, gf, pbp, pbf, pbv, *, n, bn, variant, act=None):
+    """Fresh copies of one fold_publish call's in-place operands, counts
+    zero; async locals seeded from gbest, ``act`` a sync point for every
+    swarm unless given."""
+    dev, s_cnt, nb = gf.device, gf.shape[0], n // bn
+    op = dict(pbp=pbp.clone(), pbf=pbf.clone(), gp=gp.clone(),
+              gf=gf.clone(), pbv=None if pbv is None else pbv.clone(),
+              counts=torch.zeros(3 * s_cnt, dtype=torch.int32, device=dev))
+    if variant == "fused":
+        op["keys"] = torch.zeros(s_cnt, dtype=torch.int64, device=dev)
+    elif variant == "async":
+        op.update(lp=gp.repeat_interleave(nb, 1).contiguous(),
+                  lf=gf.repeat_interleave(nb).contiguous(),
+                  act=torch.full((s_cnt,), pso_split.ACT_SYNC,
+                                 dtype=torch.int32, device=dev)
+                  if act is None else act)
+    else:
+        op.update(aux_fit=torch.empty(s_cnt * nb, device=dev),
+                  aux_idx=torch.empty(s_cnt * nb, dtype=torch.int32,
+                                      device=dev))
+        del op["gp"]
+    return op
+
+
+def _plain_chain(pos, fit, viol, op, *, n, bn, variant, topology="gbest"):
+    """``split_fold_plain`` then (outside the queue mode)
+    ``split_publish_plain`` on copies of ``op``: the outputs by name."""
+    w = {k: (None if v is None else v.clone()) for k, v in op.items()}
+    w.update(pso_split.split_fold_plain(
+        pos, w["pbp"], w["pbf"], fit, n=n, block_n=bn, mode=variant,
+        gf=w["gf"], pbv=w["pbv"], viol=viol, lp=w.get("lp"),
+        lf=w.get("lf"), keys=w.get("keys"), counts=w["counts"]))
+    if variant != "queue":
+        w.update(pso_split.split_publish_plain(
+            pos, fit, w["gp"], w["gf"], n=n, mode=variant,
+            keys=w.get("keys"), lp=w.get("lp"), lf=w.get("lf"),
+            act=w.get("act"), counts=w["counts"], topology=topology))
+    return w
+
+
+def _held_to_plain(pos, fit, viol, op, *, n, bn, variant, cluster=None,
+                   topology="gbest"):
+    """One ``fold_publish`` on ``op`` in place against the plain chain on
+    copies: every output and the counts equal, exactly; one launch counted
+    on the card and none on the CPU; on the card every arrival counter back
+    at 0."""
+    want = _plain_chain(pos, fit, viol, op, n=n, bn=bn, variant=variant,
+                        topology=topology)
+    dev = pos.device
+    arrive = (torch.zeros(fit.shape[0] // n, dtype=torch.int32, device=dev)
+              if dev.type == "cuda" and variant != "queue" else None)
+    before = pso_split.fold_publish.launches
+    pso_split.fold_publish(pos, op["pbp"], op["pbf"], fit, n=n, block_n=bn,
+                           mode=variant, viol=viol, arrive=arrive,
+                           _cluster=cluster, topology=topology,
+                           **{k: v for k, v in op.items()
+                              if k not in ("pbp", "pbf")})
+    assert pso_split.fold_publish.launches == before + (dev.type == "cuda")
+    for k, w in want.items():
+        if w is not None:
+            assert torch.equal(op[k], w), k
+    assert arrive is None or not arrive.any()
+
+
+def _card_round(name, variant, d, n, bn, dev, cluster=None):
     """One split iteration on the card from a state two iterations in:
     each kernel against its plain version on the same card tensors."""
     cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
@@ -150,31 +219,94 @@ def _card_round(name, variant, d, n, bn, dev):
     assert torch.equal(pos, p0) and torch.equal(vel, v0)
     fit, viol = pso_split.torch_step((cfg.problem,), None, n, (n,))(pos)
     pbv = ops._pbv(cfg, None, s.pbest_pos)
-    bufs = dict(pbp=pbp, pbf=pbf, pbv=pbv)
-    kw = dict(n=n, block_n=bn, mode=variant, pbv=pbv, viol=viol,
-              counts=torch.zeros(3, dtype=torch.int32, device=dev))
-    if variant == "fused":
-        kw.update(gf=gf, keys=torch.zeros(1, dtype=torch.int64, device=dev))
-    else:
-        kw.update(lp=attractor.clone(), lf=gf.repeat(nb))
-    plain_counts = kw["counts"].clone()
-    want = pso_split.split_fold_plain(pos, pbp, pbf, fit,
-                                      **dict(kw, counts=plain_counts))
-    pso_split.fold(pos, pbp, pbf, fit, **kw)
-    for k, w in want.items():
-        assert torch.equal(bufs.get(k, kw.get(k)), w), k
-    assert torch.equal(kw["counts"], plain_counts)
-    pkw = dict(n=n, mode=variant)
-    if variant == "fused":
-        pkw["keys"] = kw["keys"]
-    else:
-        pkw.update(lp=kw["lp"], lf=kw["lf"], act=torch.full(
-            (1,), pso_split.ACT_SYNC, dtype=torch.int32, device=dev))
-    want = pso_split.split_publish_plain(pos, fit, gp, gf, **pkw)
-    pso_split.publish(pos, fit, gp, gf, **pkw)
-    got = dict(gp=gp, gf=gf, **pkw)
-    for k, w in want.items():
-        assert torch.equal(got[k], w), k
+    op = _operands(gp, gf, pbp, pbf, pbv, n=n, bn=bn, variant=variant)
+    _held_to_plain(pos, fit, viol, op, n=n, bn=bn, variant=variant,
+                   cluster=cluster)
+
+
+def _random_state(seed, s_cnt, n, d, deb, dev="cpu"):
+    """A random D-major state of ``s_cnt`` swarms whose fitness, pbest
+    fitness and violations tie and cross one another, from numpy."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, k=5):
+        return torch.tensor(rng.integers(-k, k, size=shape).astype(
+            np.float32), device=dev)
+    pos, pbp = f32(d, s_cnt * n, k=100), f32(d, s_cnt * n, k=100)
+    fit, pbf = f32(s_cnt * n), f32(s_cnt * n)
+    gp, gf = f32(d, s_cnt, k=100), f32(s_cnt, k=3)
+    viol = torch.clamp(f32(s_cnt * n, k=2), min=0) if deb else None
+    pbv = torch.clamp(f32(s_cnt * n, k=2), min=0) if deb else None
+    return pos, pbp, pbf, gp, gf, fit, viol, pbv
+
+
+#: fold_publish's modes on the CPU: (variant, topology, actions a swarm).
+FOLD_CASES = [("queue", "gbest", None), ("fused", "gbest", None),
+              ("async", "gbest", (0, 0, 0, 0)), ("async", "gbest", (1,) * 4),
+              ("async", "gbest", (2,) * 4), ("async", "gbest", (1, 2, 0, 1)),
+              ("async", "ring", (1, 2, 0, 1)),
+              ("async", "vonneumann", (1, 1, 2, 0))]
+
+
+@pytest.mark.parametrize("deb", [False, True])
+@pytest.mark.parametrize("variant,topology,act", FOLD_CASES)
+def test_fold_publish_on_cpu_is_the_plain_chain(variant, topology, act,
+                                                deb):
+    """The wrapper on CPU tensors, in place, equals split_fold_plain then
+    split_publish_plain on copies, counts included, in every mode, action
+    and topology, with and without Deb's rule; it launches nothing."""
+    s_cnt, n, bn, d = 4, 48, 8, 3
+    pos, pbp, pbf, gp, gf, fit, viol, pbv = _random_state(
+        7, s_cnt, n, d, deb)
+    op = _operands(gp, gf, pbp, pbf, pbv, n=n, bn=bn, variant=variant,
+                   act=None if act is None else torch.tensor(
+                       act, dtype=torch.int32))
+    _held_to_plain(pos, fit, viol, op, n=n, bn=bn, variant=variant,
+                   topology=topology)
+    assert int(op["counts"].sum()) > 0
+
+
+#: fold_cluster_size on a 132-SM H100: (S, n, d, block_n, C), at phase
+#: 6b's and 6c's solve cells, solve_many's batch (chip_smoke.py SPLIT_MANY),
+#: 6c's batch sweep and the thresholds of the row cap and the SM fill.
+PLANS = [(1, 32768, 120, 512, 2),    # 6b/6c sphere_simplex, custom d=120
+         (1, 1024, 8, 512, 1),       # 6b d=8 cells
+         (64, 1024, 8, 512, 1),      # solve_many's rows
+         (1, 1024, 3, 512, 1),       # 6b plane_ball
+         (1, 1024, 8, 128, 1),       # phase 7's split lbest
+         (1, 1024, 15, 512, 1), (1, 1024, 16, 512, 2), (1, 1024, 37, 512, 2),
+         (1, 16384, 120, 512, 2), (1, 8192, 120, 512, 2),
+         (1, 131072, 120, 512, 1),   # 256 blocks: more than one an SM
+         (1, 132 * 512, 120, 512, 1), (1, 66 * 512, 120, 512, 2),
+         (1, 67 * 512, 120, 512, 1),
+         (128, 256, 120, 256, 1),    # 6c's batch: 128 CTAs at C=1
+         (64, 1024, 120, 512, 1),    # a batch that fills the card at C=1
+         (33, 1024, 120, 512, 2), (34, 1024, 120, 512, 1)]
+
+
+@pytest.mark.parametrize("s_cnt,n,d,bn,want", PLANS)
+def test_fold_cluster_size_plans(s_cnt, n, d, bn, want):
+    c = pso_split.fold_cluster_size(s_cnt, n, d, bn, 132)
+    assert c == want and c in pso_split.FOLD_CLUSTERS
+    # never more CTAs a block than rows of FOLD_MIN_ROWS, and 1 at d <= 8;
+    # never more than one CTA an SM, batch included, where C > 1
+    assert c == 1 or (d >= c * pso_split.FOLD_MIN_ROWS
+                      and s_cnt * (n // bn) * c <= 132)
+
+
+def test_fold_publish_refuses_a_mode_without_its_operands():
+    d, n = 3, 64
+    pos, pbp = torch.zeros(d, n), torch.zeros(d, n)
+    pbf, fit, gf = torch.zeros(n), torch.zeros(n), torch.zeros(1)
+    with pytest.raises(ValueError, match="needs"):
+        pso_split.fold_publish(pos, pbp, pbf, fit, n=n, block_n=16,
+                               mode="fused", gf=gf)
+    with pytest.raises(ValueError, match="cluster"):
+        pso_split.fold_publish(pos, pbp, pbf, fit, n=n, block_n=16,
+                               mode="queue", gf=gf,
+                               aux_fit=torch.zeros(4),
+                               aux_idx=torch.zeros(4, dtype=torch.int32),
+                               _cluster=4)
 
 
 @pytest.fixture
@@ -192,6 +324,32 @@ def cuda():
 def test_split_kernels_match_plain_on_card(cuda, name, variant):
     _card_round(name, variant, 3 if name == "plane_ball" else 8, 1024, 256,
                 cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", pso_split.FOLD_CLUSTERS)
+@pytest.mark.parametrize("variant", ["fused", "async"])
+@pytest.mark.parametrize("n,bn", [(4096, 512), (1002, 501)])
+def test_fold_publish_matches_plain_on_card_at_each_cluster(cuda, variant,
+                                                            cluster, n, bn):
+    """At blocks of 512 the copies run in float4, at 501 a lane at a time
+    (n and the block not multiples of four)."""
+    _card_round("sphere_simplex", variant, 40, n, bn, cuda, cluster=cluster)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", pso_split.FOLD_CLUSTERS)
+@pytest.mark.parametrize("variant,topology,act", FOLD_CASES)
+def test_fold_publish_modes_on_card_at_each_cluster(cuda, variant, topology,
+                                                    act, cluster):
+    s_cnt, n, bn, d = 4, 1024, 128, 20
+    pos, pbp, pbf, gp, gf, fit, viol, pbv = _random_state(
+        3, s_cnt, n, d, True, dev=cuda)
+    op = _operands(gp, gf, pbp, pbf, pbv, n=n, bn=bn, variant=variant,
+                   act=None if act is None else torch.tensor(
+                       act, dtype=torch.int32, device=cuda))
+    _held_to_plain(pos, fit, viol, op, n=n, bn=bn, variant=variant,
+                   cluster=cluster, topology=topology)
 
 
 @pytest.mark.gpu

@@ -353,7 +353,7 @@ def _my_sphere():
 @pytest.mark.parametrize("name", ["sphere_simplex", "my_sphere"])
 def test_split_lbest_equals_eager_bitwise(topo, name):
     """The split path's async mode under an lbest topology (the pull is
-    ``block_neighbor_best`` inside the publish kernel's plain version)
+    ``block_neighbor_best`` inside ``split_publish_plain``)
     equals the eager ``run_async`` bit for bit, also resumed from its
     carried locals, and a batch's rows equal it too."""
     prob = _my_sphere() if name == "my_sphere" else name

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""The fused and async kernels of several checkouts on one card, in turns.
+"""The fused and async kernels, or the split path's, of several checkouts
+on one card, in turns.
 
     python3 tools/kernel_trees.py OLD/src src src OLD/src
+    python3 tools/kernel_trees.py --source pso_split OLD/src src src OLD/src
 
 Each argument is a checkout's ``src/``, run in a process of its own (a
 package is imported once a process) in the order given, so ``P C C P``
@@ -17,8 +19,16 @@ first two distinct trees, side by side, with the spill totals.
 The timing and the swarms are chip_smoke.py's (``kernel_state``,
 ``with_locals``, ``device_us``); the tree's ``repro_torch`` is imported
 before ``chip_smoke``, so chip_smoke's helpers drive that tree's package.
+
+With ``--source pso_split`` each tree builds its ``pso_split.cu`` instead
+and runs its own checkout's ``chip_smoke.split_times`` (phase 6c: each
+split kernel alone at sphere_simplex d=120 n=32768, the L2 flushed, beside
+its bound, the L2 flushed by reading in every tree), since the split
+kernels and their timing differ between trees, then phase 6b's solves below d=120 (``split_solves``: host us/iter and each
+split kernel's device us/iter).
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``.
 """
+import functools
 import json
 import re
 import subprocess
@@ -28,23 +38,34 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def one_tree(src: str) -> None:
-    """Build and time one tree's kernels; the last line is its
-    ``-Xptxas -v`` lines as JSON."""
+def one_tree(src: str, source: str) -> None:
+    """Build and time one tree's kernels of ``source``; the last line is
+    its ``-Xptxas -v`` lines as JSON."""
     sys.path.insert(0, src)
     import repro_torch  # noqa: F401  (the tree's package, first)
-    sys.path.insert(1, str(ROOT))
+    sys.path.insert(1, str(ROOT if source == "pso_step"
+                           else Path(src).resolve().parent))
     import chip_smoke as cs
     import torch
     from repro_torch.kernels import _build, ops, pso_step
     if not torch.cuda.is_available():
         raise SystemExit("kernel_trees: no CUDA device")
     card = cs.card_line()
-    lib, log = _build.build("pso_step")
+    lib, log = _build.build(source)
     lines = cs.ptxas_lines(log)
     print(f"tree {src}: {lib.name}, {len(lines)} kernels [{card}]")
     for line in lines:
         print(f"  {line}")
+    if source == "pso_split":
+        # every tree's 6c flushes the L2 alike: by reading 256 MB, as this
+        # checkout's chip_smoke.flush_l2 does (an older one wrote zeros,
+        # which the timed kernel then wrote back)
+        scrub = torch.ones(2 ** 26, dtype=torch.int32, device="cuda")
+        cs.flush_l2 = scrub.sum
+        cs.split_times(card, {}, {})
+        split_solves(cs, card)
+        print(json.dumps(lines))
+        return
     for d, n, iters in cs.SOLVE_CELLS:
         _, spec, state, seed = cs.kernel_state("cubic", d, n)
         bn = ops._resolve_block(n, None)
@@ -63,21 +84,64 @@ def one_tree(src: str) -> None:
     print(json.dumps(lines))
 
 
+def split_solves(cs, card: str) -> None:
+    """The tree's chip_smoke.py phase 6b solves below d=120 (``SPLIT_CELLS``)
+    through ``repro_torch.solve``: the host's us/iter (median of 3 solves)
+    and, under torch.profiler, the device us/iter of each split kernel by
+    name and of everything else on the card (the torch step)."""
+    import time
+
+    import repro_torch
+    import torch
+    for label, key, d, n, iters in cs.SPLIT_CELLS:
+        if d >= 120:
+            continue
+        for variant in ("queue_lock", "async"):
+            run = functools.partial(repro_torch.solve, cs.split_problem(key),
+                                    dim=d, particles=n, iters=iters, seed=0,
+                                    variant=variant, w=0.7)
+            run()                                               # warm-up
+            host = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) / iters * 1e6)
+            dev = cs.kernel_device_us(run, reps=1)
+            split = {k: v / iters for k, v in dev.items()
+                     if k.startswith("split_")}
+            rest = sum(dev.values()) / iters - sum(split.values())
+            print(f"  {label} d={d} n={n} x{iters} {variant}: host "
+                  f"{sorted(host)[1]:.2f} us/iter; device us/iter "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                      split.items()))
+                  + f", the split kernels {sum(split.values()):.3f}, the "
+                  f"rest {rest:.3f} [{card}]")
+
+
 def spills(info: str) -> int:
     return sum(int(b) for b in re.findall(r"(\d+) B spill", info))
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--tree"]:
-        one_tree(sys.argv[2])
+    args = sys.argv[1:]
+    source = "pso_step"
+    if args[:1] == ["--source"]:
+        source, args = args[1], args[2:]
+    if source not in ("pso_step", "pso_split"):
+        raise SystemExit(f"kernel_trees: --source pso_step or pso_split, "
+                         f"not {source}")
+    if args[:1] == ["--tree"]:
+        one_tree(args[1], source)
         return 0
-    trees = sys.argv[1:]
+    trees = args
     if not trees:
         raise SystemExit(__doc__)
     ptxas = {}
     for src in trees:
-        out = subprocess.run([sys.executable, __file__, "--tree", src],
-                             capture_output=True, text=True)
+        out = subprocess.run([sys.executable, __file__, "--source", source,
+                              "--tree", src], capture_output=True, text=True)
         if out.returncode:
             sys.stderr.write(out.stderr)
             raise SystemExit(f"kernel_trees: tree {src} failed")
