@@ -134,7 +134,19 @@ candidates predicted against measured with Spearman's rank correlation
 8a's trace at n=128 through ``SolveServer(autotune=True)`` and
 ``ContinuousScheduler(autotune=True)``, each result bit for bit its
 standalone kernel solve at the tuned ``sync_every``. Its launches count
-under rows 2, 3, 5 and 7.
+under rows 2, 3, 5 and 7. 11, the LM substrate (``configs/``,
+``models/``, ``launch/steps.py``) with the GLA kernels in bfloat16: 11a
+the bfloat16 kernel path and its stages against their plain versions
+within the bf16 bound (``GLA_BF16_RTOL``) at hymba-1.5B's SSD width (the
+model's gates) and the xLSTM-350M head shape, with their times (the L2
+flushed by reading) beside the bound; 11b hymba-1.5B at full width (32
+layers, bfloat16, the port's own init from a seed): ``make_prefill_step``
+on B=1 S=4096, 32 bfloat16 GLA launches, the loss finite and within the
+reference smoke test's bound and within ``LM_LOSS_RTOL`` of the same
+prefill with the plain GLA, prefill ms, tokens/s, peak memory and the GLA
+kernels' share of the device time; 11c ``make_serve_step`` from
+``init_cache(B=4, max_len=4096)``, 16 greedy tokens, ms a token. Its
+launches count under the ``gla_bf16`` row.
 """
 import concurrent.futures
 import ctypes
@@ -182,6 +194,12 @@ try:    # nor the autotuner
     from repro_torch.roofline import pso_cost
 except ImportError:
     autotune = pso_cost = None
+try:    # nor the LM substrate
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.models import zoo as lm_zoo
+except ImportError:
+    get_arch = lm_steps = lm_zoo = None
 
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and 67 TFLOP/s of
@@ -198,6 +216,8 @@ ISSUE_OPS_PER_S = FP32_OPS_PER_S
 # Dense TF32 on the tensor cores (the same data sheet), an FMA two
 # operations.
 TF32_OPS_PER_S = 495e12
+# Dense BF16 on the tensor cores (the same data sheet).
+BF16_OPS_PER_S = 989e12
 
 # Operations per particle-dimension-iteration of the cubic/pso path, counted
 # from csrc/pso_step.cu, work shared by all elements of an iteration left
@@ -300,6 +320,9 @@ COUNTERS = {
 if pso_split is not None:
     COUNTERS.update(split_advance=(pso_split.advance, "launches"),
                     split_fold_publish=(pso_split.fold_publish, "launches"))
+if hasattr(gla.gla_forward, "bf16_launches"):
+    # the bfloat16 launches of gla_forward (also counted in its launches)
+    COUNTERS["gla_bf16"] = (gla.gla_forward, "bf16_launches")
 
 
 #: The main paths' kernel calls, each registered where its phase runs it:
@@ -419,10 +442,22 @@ def with_locals(state, nb: int):
                     state[5].repeat(nb))
 
 
-# A GLA kernel's name in a mangled symbol (after its length), with the
-# template arguments of gla_chunk_state.
+# A GLA kernel's name in a mangled symbol (after its length), with its
+# element type (float32 in trees before bfloat16, which had no type
+# argument) and the tile arguments of gla_chunk_state.
 GLA_KERNEL = (r"\d(gla_(?:chunk_state|state_pass|chunk_output(?:_narrow)?))"
-              r"(?:ILi(\d+)ELi(\d+)E)?")
+              r"(?:I(f|13__nv_bfloat16)?(?:Li(\d+)ELi(\d+)E)?E)?")
+
+
+def gla_key(symbol: str):
+    """``gla_chunk_state<1,2>``, ``gla_chunk_output_bf16`` ... for a GLA
+    kernel's mangled symbol (float32 keys as in trees before bfloat16),
+    else None."""
+    m = re.search(GLA_KERNEL, symbol)
+    if not m:
+        return None
+    return (m[1] + ("_bf16" if m[2] and m[2] != "f" else "")
+            + (f"<{m[3]},{m[4]}>" if m[3] else ""))
 
 
 def phase_build() -> None:
@@ -469,15 +504,14 @@ def ptxas_lines(log: str) -> list:
                     g += ",lbest"
                 entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
                          f"{rules[m[3]]}{g}>")
-            else:     # GLA (gla_chunk_state<WM>), the split kernels
+            else:     # GLA (gla_chunk_state<WM,NTW>), the split kernels
                 # (split_advance_kernel<rule>) or no template
-                m = re.search(GLA_KERNEL
-                              + r"|([a-z_]+_kernel)(?:ILi(\d+)EE)?", entry)
-                if m and m[4]:
-                    entry = m[4] + (f"<{rules.get(m[5], m[5])}>" if m[5]
-                                    else "")
+                m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)EE)?", entry)
+                if gla_key(entry):
+                    entry = gla_key(entry)
                 elif m:
-                    entry = m[1] + (f"<{m[2]},{m[3]}>" if m[2] else "")
+                    entry = m[1] + (f"<{rules.get(m[2], m[2])}>" if m[2]
+                                    else "")
             spill = ""
         elif "spill" in line and \
                 "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -496,9 +530,8 @@ def gla_hmma(lib) -> None:
                           text=True, check=True).stdout
     counts = {}
     for part in sass.split("Function : ")[1:]:
-        name = re.search(GLA_KERNEL, part.split("\n")[0])
-        if name:
-            key = name[1] + (f"<{name[2]},{name[3]}>" if name[2] else "")
+        key = gla_key(part.split("\n")[0])
+        if key:
             counts[key] = part.count("HMMA")
     print("  HMMA instructions in SASS: " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items())))
@@ -4367,6 +4400,268 @@ def phase_autotune(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the LM substrate (models/, launch/steps.py) at hymba-1.5B's full
+# width, with the GLA kernels in bfloat16 on its SSD heads.
+# ---------------------------------------------------------------------------
+
+# The bfloat16 GLA bound, elementwise: |kernel - plain| <= 2^-7 |plain| +
+# 2^-8 max |plain|. Both round at the same points (q k^T o W to bfloat16,
+# y to bfloat16) from float32 sums taken in other orders, so a value within
+# float32 rounding of a bfloat16 tie can round either way: at y that is one
+# bfloat16 unit of the entry (2^-7 relative at most), at a q k^T o W term one
+# unit of that term, which the second part bounds for the rare flips.
+GLA_BF16_RTOL = 2.0 ** -7
+GLA_BF16_ATOL_OF_MAX = 2.0 ** -8
+
+
+def gla_bf16_err(got, want):
+    """(max |got - want|, whether every entry is inside the bf16 bound)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = GLA_BF16_RTOL * w.abs() + GLA_BF16_ATOL_OF_MAX * float(
+        w.abs().max())
+    return float(err.max()), bool((err <= tol).all())
+
+
+def gla_bf16_bound(bh: int, s: int, n: int, p: int, chunk: int):
+    """(ms, by) of the bfloat16 kernel path: q, k, v read and y written once
+    as bfloat16 and both float32 gates read once, at the HBM rate, against
+    q k^T and (q k^T o W) v as bfloat16 MMAs at the dense BF16 rate and q H
+    and the state update (float32 operands in the reference) as three TF32
+    MMAs each."""
+    nbytes = 2 * bh * s * (2 * n + 2 * p) + 4 * bh * s * 2
+    nc = s // chunk
+    intra = bh * nc * (chunk * (chunk + 1) // 2) * (n + p)
+    carry = bh * 2 * (nc - 1) * chunk * n * p
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = 2 * intra / BF16_OPS_PER_S + 3 * 2 * carry / TF32_OPS_PER_S
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def cold_ms(fn, args) -> float:
+    """ms of ``fn(args)`` in CUDA events, the L2 flushed by reading just
+    before each call: the median of 5."""
+    out = []
+    for _ in range(5):
+        flush_l2()
+        out.append(device_us(fn, args, copy=False))
+    return sorted(out)[2] / 1e3
+
+
+def gla_cold_us(folded, chunk: int) -> dict:
+    """Device us of each GLA kernel a call of the kernel path on
+    ``folded``, the L2 flushed by reading before each call
+    (torch.profiler, the mean of 5 calls; the flush not counted)."""
+    per = kernel_device_us(lambda: (flush_l2(), gla._launch(*folded, chunk)),
+                           reps=5)
+    return {k: v for k, v in per.items() if k.startswith("gla_")}
+
+
+def phase_gla_bf16(card: str, errs: dict, times: dict, bounds: dict) -> None:
+    """11a: the bfloat16 kernel path against its plain version at hymba-1.5B's
+    SSD width (the model's gates) and at the xLSTM-350M head shape (N > 16,
+    P = 257), within the bf16 bound, and each stage kernel against its
+    plain stage; then, the L2 flushed by reading before every call, the
+    kernels' device time (``gla_cold_us``; the JSON's ms takes the hymba
+    call), the call in CUDA events (the wrapper's host work inside), the
+    float32 kernels on the same operands widened, the plain version's time
+    and the bound."""
+    print(f"phase 11a: the GLA kernels in bfloat16 against their plain "
+          f"versions (|kernel - plain| <= {GLA_BF16_RTOL:g} |plain| + "
+          f"{GLA_BF16_ATOL_OF_MAX:g} max |plain|) [{card}]")
+    chunk = 128
+    for name, b, s, shape, ones, model in (
+            ("hymba-1.5B SSD B=4 S=4096 H=25 N=16 P=128, the model's gates",
+             4, 4096, HYMBA, False, True),
+            ("xLSTM-350M mLSTM B=1 S=1024 H=4 N=256 P=257 (ones column)",
+             1, 1024, XLSTM, True, False)):
+        x = gla_inputs(b, s, **shape, ones=ones, model_gates=model)
+        x = [a.bfloat16() for a in x[:3]] + x[3:]
+        q, k, v, ld, li = folded = gla_folded(x, chunk)
+        want = gla.gla_folded_plain(*folded, chunk)
+        got = gla._launch(*folded, chunk)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 == want.dtype and
+              got.shape == want.shape, f"{name}: bf16 y")
+        check(bool(torch.isfinite(got.float()).all()), f"{name}: finite")
+        e, ok = gla_bf16_err(got, want)
+        check(ok, f"{name}: kernel and plain disagree, max error {e}")
+        # the stages on the same operands: states and H_in as float32 (the
+        # GLA tolerance), y from the plain H_in within the bf16 bound
+        want_s, want_tot = gla.gla_chunk_states_plain(k, v, ld, li, chunk)
+        want_h = gla.gla_state_pass_plain(want_s, want_tot)
+        got_s, _ = gla.chunk_states(k, v, ld, li, chunk)
+        got_y = gla.chunk_output(q, k, v, ld, li, want_h, chunk)
+        torch.cuda.synchronize()
+        check(torch.allclose(got_s[:, :-1], want_s[:, :-1], **GLA_TOL),
+              f"{name}: bf16 chunk states")
+        e_y, ok = gla_bf16_err(got_y, gla.gla_chunk_output_plain(
+            q, k, v, ld, li, want_h, chunk))
+        check(ok, f"{name}: bf16 chunk outputs, max error {e_y}")
+        errs["gla_bf16"] = max(errs["gla_bf16"], e, e_y)
+        bh, sp, p = q.shape[0], q.shape[1], v.shape[-1]
+        call_ms = cold_ms(lambda st: gla._launch(*st, chunk), folded)
+        per = gla_cold_us(folded, chunk)
+        ms = sum(per.values()) / 1e3 or call_ms
+        plain = 1e3 * sync_time(lambda: gla.gla_folded_plain(*folded, chunk))
+        f32_ms = sum(gla_cold_us([x.float() for x in folded], chunk).values()
+                     ) / 1e3
+        bnd = gla_bf16_bound(bh, sp, shape["n"], p, chunk)
+        check(ms >= bnd[0], f"{name}: {ms} ms under its bound {bnd[0]}")
+        if b == 4:
+            times["gla_bf16"], times["gla_bf16_plain"] = ms / 1e3, plain / 1e3
+            bounds["gla_bf16"] = bnd
+        print(f"  {name}: max |kernel - plain| {e:.3g}, stage 3 alone "
+              f"{e_y:.3g} (|y| up to {float(want.float().abs().max()):.3g});"
+              f" the kernels {ms:.4f} ms, L2 flushed ("
+              + (", ".join(f"{k} {us:.1f} us" for k, us in per.items())
+                 or "not measured: CUDA events") + f"; the call in CUDA "
+              f"events {call_ms:.4f} ms, the float32 kernels on the widened "
+              f"operands {f32_ms:.4f} ms), plain {plain:.2f} ms, library "
+              f"None, bound {bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.1%} of "
+              f"the bound [{card}]")
+
+
+# hymba-1.5B at full width (src/repro_torch/configs/hymba_1_5b.py), bf16:
+# prefill B=1 S=4096 (4224 positions with the meta tokens), decode B=4
+# from an empty cache of 4096.
+LM_ARCH, LM_PREFILL, LM_DECODE, LM_TOKENS = "hymba-1.5b", (1, 4096), 4, 16
+# The whole model's loss, kernel route against plain route: the SSD heads'
+# outputs differ within the bf16 GLA bound above, in a model whose
+# activations are bfloat16, so the two losses agree to the resolution of
+# bfloat16 (2^-7 relative).
+LM_LOSS_RTOL = 2.0 ** -7
+
+
+def plain_gla(q, k, v, log_decay, log_inc, chunk=128, device=None):
+    """``gla.gla_forward`` with the kernel path swapped for its plain
+    version, on the card: phase 11b's plain route."""
+    return gla.gla_forward_plain(q, k, v, log_decay.float(),
+                                 log_inc.float(), chunk=chunk)
+
+
+def phase_lm(card: str) -> dict:
+    """11b: ``launch.steps.make_prefill_step`` of hymba-1.5B at full width
+    from the port's own init (seed 0), counts set to 0 just before and read
+    just after: 32 GLA kernel-path launches, all bfloat16; the loss finite
+    and inside the reference smoke test's bound, 0 < loss < 3 ln V + 5;
+    the same prefill with ``gla_forward`` swapped for its plain version
+    (``plain_gla``) within ``LM_LOSS_RTOL``; prefill ms, tokens/s and peak
+    memory; the GLA kernels' share of the prefill's device time and the
+    largest kernels (torch.profiler). 11c: ``make_serve_step`` from
+    ``init_cache(B=4, max_len=4096)``, 16 greedy tokens (the loop is this
+    script's), finite logits, ms a token. Returns the launches."""
+    cfg = get_arch(LM_ARCH)
+    print(f"phase 11b: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, SSD "
+          f"{cfg.ssm_heads}x{cfg.ssm_state} expand {cfg.ssm_expand}, SWA "
+          f"{cfg.swa_window}, global layers {cfg.global_attn_layers}, "
+          f"{cfg.meta_tokens} meta tokens, vocab {cfg.vocab}, "
+          f"{cfg.param_dtype}) [{card}]")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm_zoo.init_params(cfg, gen, "cuda")
+    n_params = sum(t.numel() for t in param_leaves(params))
+    b, s = LM_PREFILL
+    batch = lm_zoo.make_batch(cfg, "prefill_32k", b, s, gen)
+    prefill = lm_steps.make_prefill_step(cfg)
+    prefill(params, batch)                                     # warm-up
+    torch.cuda.synchronize()
+    print(f"  init {n_params / 1e9:.3f} B parameters and a warm prefill: "
+          f"{time.perf_counter() - t0:.1f} s")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    us, loss = host_us(lambda: prefill(params, batch), 1)
+    counts = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(counts == {"gla_forward": cfg.n_layers, "gla_bf16": cfg.n_layers},
+          f"{cfg.n_layers} bf16 GLA launches a prefill ({counts})")
+    loss = float(loss)
+    hi = 3 * math.log(cfg.vocab) + 5
+    check(math.isfinite(loss) and 0 < loss < hi,
+          f"prefill loss {loss} in (0, {hi:.2f})")
+    kernel_route = gla.gla_forward
+    gla.gla_forward = plain_gla
+    try:
+        plain_loss = float(prefill(params, batch))
+    finally:
+        gla.gla_forward = kernel_route
+    check(abs(loss - plain_loss) <= LM_LOSS_RTOL * abs(plain_loss),
+          f"prefill loss {loss} against the plain route's {plain_loss}")
+    ms = us / 1e3
+    print(f"  prefill B={b} S={s} ({s + cfg.meta_tokens} positions): loss "
+          f"{loss:.6f} (plain GLA route {plain_loss:.6f}, |diff| "
+          f"{abs(loss - plain_loss):.3g}), {ms:.2f} ms, "
+          f"{b * s / (ms / 1e3):.0f} tokens/s, peak memory {peak:.2f} GiB, "
+          f"GLA launches {counts['gla_forward']} [{card}]")
+    per = kernel_device_us(lambda: prefill(params, batch), reps=1)
+    total = sum(per.values())
+    glas = sum(v for k, v in per.items() if k.startswith("gla_"))
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    # the 32 launches' bound: one SSD layer's operands, B x 25 heads over
+    # the 4224 positions (33 chunks of 128)
+    sp = -(-(s + cfg.meta_tokens) // cfg.ssm_chunk) * cfg.ssm_chunk
+    one = gla_bf16_bound(b * cfg.ssm_heads, sp, cfg.ssm_state,
+                         cfg.ssm_expand * cfg.d_model // cfg.ssm_heads,
+                         cfg.ssm_chunk)
+    print(f"  prefill device time (torch.profiler): {total / 1e3:.2f} ms in "
+          f"all (the device idle {max(0.0, 1 - total / 1e3 / ms):.1%} of the "
+          f"host's {ms:.2f} ms), GLA kernels {glas / 1e3:.3f} ms "
+          f"({glas / max(total, 1e-9):.1%}; bound of the "
+          f"{counts['gla_bf16']} launches {counts['gla_bf16'] * one[0]:.4f} "
+          f"ms by {one[1]}); the largest: " + ", ".join(
+              f"{k} {v / 1e3:.3f} ms" for k, v in top) + f" [{card}]")
+    # the f32 row (gla_forward) counts its own main path's launches (4d)
+    launches = {"gla_bf16": counts["gla_bf16"]}
+    print(f"phase 11c: {cfg.name} make_serve_step, B={LM_DECODE} from "
+          f"init_cache(max_len={s}), {LM_TOKENS} greedy tokens [{card}]")
+    serve = lm_steps.make_serve_step(cfg)
+    first = torch.randint(0, cfg.vocab, (LM_DECODE, 1), generator=gen,
+                          device="cuda")
+
+    def greedy():
+        cache = lm_zoo.init_cache(cfg, LM_DECODE, s, device="cuda")
+        tok, out = first, []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for n in range(LM_TOKENS):
+            logits, cache = serve(params, cache, n, tok)
+            tok = logits.argmax(-1, keepdim=True)
+            out.append(logits)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / LM_TOKENS * 1e3, out
+
+    greedy()                                                   # warm-up
+    zero_counts()
+    ms_token, logits = greedy()
+    check(not any(read_counts().values()), "decode launches no kernel")
+    check(all(tuple(x.shape) == (LM_DECODE, cfg.vocab) and
+              bool(torch.isfinite(x).all()) for x in logits),
+          "finite decode logits")
+    cache = lm_zoo.init_cache(cfg, LM_DECODE, s, device="cuda")
+    busy = sum(kernel_device_us(lambda: serve(params, cache, 0, first),
+                                reps=1).values()) / 1e3
+    print(f"  {ms_token:.2f} ms a token ({LM_DECODE} rows), "
+          f"{LM_DECODE / (ms_token / 1e3):.0f} tokens/s, the device busy "
+          f"{busy:.3f} ms of a step (torch.profiler), |logits| up to "
+          f"{max(float(x.abs().max()) for x in logits):.3g}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def param_leaves(tree):
+    """The tensors of a parameter tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from param_leaves(v)
+    else:
+        yield tree
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -4377,6 +4672,7 @@ REPLACES = {
     "fused_async_batch": "src/repro/kernels/pso_step.py:1419",
     "hetero_fused_async_batch": "src/repro/kernels/pso_step.py:1500",
     "gla_forward": "src/repro/kernels/gla.py:78",
+    "gla_bf16": "src/repro/kernels/gla.py:78",
     # the split kernels: the converted forms of rows 1-7 (SPLIT_REPLACES),
     # named by fused_call, the main path's
     "split_advance": "src/repro/kernels/pso_step.py:874",
@@ -4390,7 +4686,8 @@ SPLIT_REPLACES = ["src/repro/kernels/pso_step.py:" + str(line)
 
 #: Each kernel's CUDA source.
 SOURCES = {name: "src/repro_torch/kernels/csrc/pso_step.cu" for name in REPLACES}
-SOURCES["gla_forward"] = "src/repro_torch/kernels/csrc/gla.cu"
+SOURCES["gla_forward"] = SOURCES["gla_bf16"] = \
+    "src/repro_torch/kernels/csrc/gla.cu"
 for _name in SPLIT:
     SOURCES[_name] = "src/repro_torch/kernels/csrc/pso_split.cu"
 
@@ -4435,6 +4732,9 @@ def main() -> int:
     for k, v in phase_launcher(card, errs).items():
         launches[k] += v
     for k, v in phase_autotune(card).items():
+        launches[k] += v
+    phase_gla_bf16(card, errs, times, bounds)
+    for k, v in phase_lm(card).items():
         launches[k] += v
     kernels = []
     for name, replaces in REPLACES.items():

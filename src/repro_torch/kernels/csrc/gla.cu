@@ -14,8 +14,19 @@
 // bite on sums within a chunk, so the chunk length defines the result and
 // the kernels take the caller's.
 //
-// Layout: q, k [BH, S, N], v and y [BH, S, P], ld and li [BH, S], float32,
-// S a multiple of L. The TPU kernel walks the chunks of a (batch.head) in
+// Layout: q, k [BH, S, N], v and y [BH, S, P], ld and li [BH, S], S a
+// multiple of L. ld, li, the states and every product's accumulator are
+// float32; q, k, v and y are float32 or bfloat16 (each kernel a template on
+// that type T, the float32 instantiations the same code as before it).
+// bfloat16 rounds where the reference's kernel rounds: q k^T from the
+// bfloat16 operands (exact in tf32, so the 3xTF32 products of their widened
+// values are exact, and the passes over their zero small parts are
+// skipped), q k^T o W rounded to bfloat16 before it multiplies v,
+// the inter-chunk term and the state update from float32 (q o exp(cum),
+// k o wj), and y rounded once as it is stored. bfloat16 operands are
+// widened to float32 as they are stored in shared memory, by plain loads
+// (cp.async copies bytes and cannot widen): a bfloat16 row of P = 257 is
+// 2-byte aligned only. The TPU kernel walks the chunks of a (batch.head) in
 // order on its sequential grid axis. Here the walk is split in three
 // launches on one stream, so that every chunk runs in parallel:
 //
@@ -65,12 +76,16 @@
 // (N=256, P=257; it had 20), two to four of them an SM. A later design
 // can fuse stages 1 and 3 in a wavefront to read v once.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kMaxL = 128;          // longest chunk
 constexpr float kClipLo = -80.0f, kClipHi = 20.0f;
@@ -161,6 +176,60 @@ __device__ __forceinline__ void load_tile(float* dst, int ss,
   }
 }
 
+// The two float32 values of a pair of bfloat16 bits (low half first).
+__device__ __forceinline__ float4 widen(uint32_t a, uint32_t b) {
+  return make_float4(__uint_as_float(a << 16),
+                     __uint_as_float(a & 0xffff0000u),
+                     __uint_as_float(b << 16),
+                     __uint_as_float(b & 0xffff0000u));
+}
+
+// The same tile from a bfloat16 matrix (cols a multiple of 8), widened to
+// float32 by plain loads and stores, visible after the barrier that follows
+// the copy group's wait (cp.async copies bytes and cannot widen). Groups of
+// eight entries: one 16-byte load where the group lies whole in a 16-byte
+// aligned piece of its row, else an entry at a time (a bfloat16 row of
+// P = 257 is 2-byte aligned only). A thread issues kLoads groups' loads
+// before it stores any, so that they are in flight together (a store waits
+// for its load, and a warp issues in order).
+template <int kLoads = 4>
+__device__ __forceinline__ void load_tile(float* dst, int ss, const bf16* src,
+                                          size_t gs, int rows, int cols,
+                                          int rows_in, int cols_in,
+                                          bool /*vec*/, int tid,
+                                          int nthreads) {
+  const int cg = cols / 8, groups = rows * cg;
+  const uint16_t* bits = reinterpret_cast<const uint16_t*>(src);
+  for (int e0 = tid; e0 < groups; e0 += kLoads * nthreads) {
+    uint4 raw[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * nthreads, r = e / cg, c = (e - r * cg) * 8;
+      const int n =
+          e < groups && r < rows_in ? min(8, max(0, cols_in - c)) : 0;
+      const uint16_t* row = bits + (n ? r * gs + c : 0);
+      if (n == 8 && ((uintptr_t)row & 15) == 0) {
+        raw[u] = *reinterpret_cast<const uint4*>(row);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (i < n) w[i >> 1] |= (uint32_t)row[i] << (16 * (i & 1));
+        raw[u] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * nthreads, r = e / cg, c = (e - r * cg) * 8;
+      if (e < groups) {
+        float* d = dst + r * ss + c;
+        *reinterpret_cast<float4*>(d) = widen(raw[u].x, raw[u].y);
+        *reinterpret_cast<float4*>(d + 4) = widen(raw[u].z, raw[u].w);
+      }
+    }
+  }
+}
+
 // Stores an accumulator pair, columns col and col + 1 of a row (as one
 // 8-byte store where the row allows), of which `left` exist.
 __device__ __forceinline__ void store_pair(float* dst, float a, float b,
@@ -171,6 +240,31 @@ __device__ __forceinline__ void store_pair(float* dst, float a, float b,
     if (left >= 1) dst[0] = a;
     if (left >= 2) dst[1] = b;
   }
+}
+
+// The same into a bfloat16 row, each rounded to nearest even.
+__device__ __forceinline__ void store_pair(bf16* dst, float a, float b,
+                                           int left, bool even) {
+  if (even && left >= 2) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+  } else {
+    if (left >= 1) dst[0] = __float2bfloat16_rn(a);
+    if (left >= 2) dst[1] = __float2bfloat16_rn(b);
+  }
+}
+
+// Whether the input type's values are exact in tf32 (bfloat16: 8
+// significant bits of tf32's 11), so that their 3xTF32 small parts are 0.
+template <typename T>
+constexpr bool kExact = std::is_same_v<T, bf16>;
+
+// x rounded to the input type T and widened back: the reference's
+// (q k^T o W).astype(v.dtype) before the product with v.
+template <typename T>
+__device__ __forceinline__ float to_input(float x) {
+  if constexpr (std::is_same_v<T, bf16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
 }
 
 // --- 3xTF32 tensor-core products ------------------------------------------
@@ -216,18 +310,24 @@ __device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
 // passes over the M accumulators, small products first, so that the MMAs
 // between two into the same accumulator are independent: a chain of
 // dependent MMAs would wait out the tensor pipe's latency at every step.
-template <int M>
+// AX (BX): every entry of A (B) is exact in tf32 (a widened bfloat16), so
+// its small parts are 0 and the pass that multiplies them is skipped.
+template <int M, bool AX = false, bool BX = false>
 __device__ __forceinline__ void mma3(float (*c)[4], const FragA& f,
                                      const Tf32 (&b0)[M],
                                      const Tf32 (&b1)[M]) {
+  if constexpr (!AX) {
 #pragma unroll
-  for (int i = 0; i < M; ++i)
-    mma(c[i], f.a[0].small, f.a[1].small, f.a[2].small, f.a[3].small,
-        b0[i].big, b1[i].big);
+    for (int i = 0; i < M; ++i)
+      mma(c[i], f.a[0].small, f.a[1].small, f.a[2].small, f.a[3].small,
+          b0[i].big, b1[i].big);
+  }
+  if constexpr (!BX) {
 #pragma unroll
-  for (int i = 0; i < M; ++i)
-    mma(c[i], f.a[0].big, f.a[1].big, f.a[2].big, f.a[3].big, b0[i].small,
-        b1[i].small);
+    for (int i = 0; i < M; ++i)
+      mma(c[i], f.a[0].big, f.a[1].big, f.a[2].big, f.a[3].big, b0[i].small,
+          b1[i].small);
+  }
 #pragma unroll
   for (int i = 0; i < M; ++i)
     mma(c[i], f.a[0].big, f.a[1].big, f.a[2].big, f.a[3].big, b0[i].big,
@@ -293,14 +393,14 @@ struct StateTile {
   }
 };
 
-template <int WM, int NTW>
+template <typename T, int WM, int NTW>
 __global__ void __launch_bounds__(kStateThreads) gla_chunk_state(
-    const float* __restrict__ k, const float* __restrict__ v,
+    const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ ld, const float* __restrict__ li,
     float* __restrict__ states, float* __restrict__ tot, int S, int N, int P,
     int L, int vec_k, int vec_v) {
-  using T = StateTile<WM, NTW>;
-  constexpr int NT = T::NT, PT = T::PT, KS = T::KS, VS = T::VS;
+  using Tile = StateTile<WM, NTW>;
+  constexpr int NT = Tile::NT, PT = Tile::PT, KS = Tile::KS, VS = Tile::VS;
   extern __shared__ __align__(16) float sm[];
   const int nc = S / L, c = blockIdx.y, bh = blockIdx.z;
   const int tiles_p = (P + PT - 1) / PT;
@@ -318,13 +418,22 @@ __global__ void __launch_bounds__(kStateThreads) gla_chunk_state(
   const Gates gt = gate_load(ld + row0, li + row0, L, tid);
   // Slabs of 32 rows of the chunk, one copy group each, in order.
   const int slabs = lp / 32;
-  for (int s = 0; s < slabs; ++s) {
-    const int r0 = 32 * s, rows_in = max(0, min(32, L - r0));
-    load_tile(ks + r0 * KS, KS, k + (row0 + r0) * N + n0, N, 32, NT, rows_in,
-              N - n0, vec_k, tid, kStateThreads);
-    load_tile(vs + r0 * VS, VS, v + (row0 + r0) * P + p0, P, 32, PT, rows_in,
-              P - p0, vec_v, tid, kStateThreads);
-    cp_commit();
+  if constexpr (kExact<T>) {
+    // bfloat16: whole tiles, each thread's loads in flight together (plain
+    // loads cannot run under the slabs' products as copy groups do).
+    load_tile<8>(ks, KS, k + row0 * N + n0, N, lp, NT, L, N - n0, vec_k, tid,
+                 kStateThreads);
+    load_tile<8>(vs, VS, v + row0 * P + p0, P, lp, PT, L, P - p0, vec_v, tid,
+                 kStateThreads);
+  } else {
+    for (int s = 0; s < slabs; ++s) {
+      const int r0 = 32 * s, rows_in = max(0, min(32, L - r0));
+      load_tile(ks + r0 * KS, KS, k + (row0 + r0) * N + n0, N, 32, NT,
+                rows_in, N - n0, vec_k, tid, kStateThreads);
+      load_tile(vs + r0 * VS, VS, v + (row0 + r0) * P + p0, P, 32, PT,
+                rows_in, P - p0, vec_v, tid, kStateThreads);
+      cp_commit();
+    }
   }
   gate_scan(gt, cum, lis, tid);
   const float total = cum[L - 1];
@@ -355,7 +464,7 @@ __global__ void __launch_bounds__(kStateThreads) gla_chunk_state(
         b0[nt] = split(v0[8 * nt]);
         b1[nt] = split(v0[8 * nt + 4 * VS]);
       }
-      mma3<NTW>(acc, a, b0, b1);
+      mma3<NTW, false, kExact<T>>(acc, a, b0, b1);   // (k o wj) v
     }
   }
   if (!active) return;
@@ -437,11 +546,12 @@ __device__ __forceinline__ Tf32 b_entry(const float* tile, int stride,
   return split(tile[row * stride + col]);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kOutThreads, 2) gla_chunk_output(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ ld,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ ld,
     const float* __restrict__ li, const float* __restrict__ h_in,
-    float* __restrict__ y, int S, int N, int P, int L, int vec_qk,
+    T* __restrict__ y, int S, int N, int P, int L, int vec_qk,
     int vec_vh) {
   constexpr int KS = OutTile::KS, HS = OutTile::HS, VS = OutTile::VS;
   constexpr int NP8 = kPT / 8;
@@ -519,7 +629,7 @@ __global__ void __launch_bounds__(kOutThreads, 2) gla_chunk_output(
               b0[i] = b_entry<false>(kt, KS, 8 * (j4 + i) + g, n8 + t);
               b1[i] = b_entry<false>(kt, KS, 8 * (j4 + i) + g, n8 + t + 4);
             }
-            mma3<4>(acc_a + j4, a, b0, b1);
+            mma3<4, kExact<T>, kExact<T>>(acc_a + j4, a, b0, b1);  // q k^T
           }
         }
         if (carry) {
@@ -531,7 +641,7 @@ __global__ void __launch_bounds__(kOutThreads, 2) gla_chunk_output(
               b0[i] = b_entry<false>(ht, HS, n8 + t, 8 * (p4 + i) + g);
               b1[i] = b_entry<false>(ht, HS, n8 + t + 4, 8 * (p4 + i) + g);
             }
-            mma3<4>(acc_y + p4, a, b0, b1);
+            mma3<4, kExact<T>>(acc_y + p4, a, b0, b1);           // q H
           }
         }
       }
@@ -557,6 +667,8 @@ __global__ void __launch_bounds__(kOutThreads, 2) gla_chunk_output(
                             ? clipped_exp(c1 - cum[ja] + lis[ja]) : 0.0f;
         acc_a[jt][3] *= jb <= i1 && i1 < L
                             ? clipped_exp(c1 - cum[jb] + lis[jb]) : 0.0f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_a[jt][e] = to_input<T>(acc_a[jt][e]);
       }
     }
   }
@@ -589,11 +701,11 @@ __global__ void __launch_bounds__(kOutThreads, 2) gla_chunk_output(
           b0[i] = b_entry<false>(vs, VS, ja, 8 * (p4 + i) + g);
           b1[i] = b_entry<false>(vs, VS, ja + 1, 8 * (p4 + i) + g);
         }
-        mma3<4>(acc_y + p4, a, b0, b1);
+        mma3<4, kExact<T>, kExact<T>>(acc_y + p4, a, b0, b1);  // (.) v
       }
     }
   }
-  float* yb = y + row0 * P + p0;
+  T* yb = y + row0 * P + p0;
   const bool even = (P & 1) == 0;
 #pragma unroll
   for (int pt = 0; pt < NP8; ++pt) {
@@ -662,24 +774,29 @@ __device__ __forceinline__ void split_k_rows(float* tile, int stride,
 }
 
 // Two row blocks' products with one B: c0 += A0 B, c1 += A1 B, the three
-// passes interleaved over all eight accumulators.
+// passes interleaved over all eight accumulators (AX, BX as for mma3).
+template <bool AX = false, bool BX = false>
 __device__ __forceinline__ void mma3_pair(float (*c0)[4], const FragA& f0,
                                           float (*c1)[4], const FragA& f1,
                                           const Tf32 (&b0)[4],
                                           const Tf32 (&b1)[4]) {
+  if constexpr (!AX) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mma(c0[i], f0.a[0].small, f0.a[1].small, f0.a[2].small, f0.a[3].small,
-        b0[i].big, b1[i].big);
-    mma(c1[i], f1.a[0].small, f1.a[1].small, f1.a[2].small, f1.a[3].small,
-        b0[i].big, b1[i].big);
+    for (int i = 0; i < 4; ++i) {
+      mma(c0[i], f0.a[0].small, f0.a[1].small, f0.a[2].small,
+          f0.a[3].small, b0[i].big, b1[i].big);
+      mma(c1[i], f1.a[0].small, f1.a[1].small, f1.a[2].small,
+          f1.a[3].small, b0[i].big, b1[i].big);
+    }
   }
+  if constexpr (!BX) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mma(c0[i], f0.a[0].big, f0.a[1].big, f0.a[2].big, f0.a[3].big,
-        b0[i].small, b1[i].small);
-    mma(c1[i], f1.a[0].big, f1.a[1].big, f1.a[2].big, f1.a[3].big,
-        b0[i].small, b1[i].small);
+    for (int i = 0; i < 4; ++i) {
+      mma(c0[i], f0.a[0].big, f0.a[1].big, f0.a[2].big, f0.a[3].big,
+          b0[i].small, b1[i].small);
+      mma(c1[i], f1.a[0].big, f1.a[1].big, f1.a[2].big, f1.a[3].big,
+          b0[i].small, b1[i].small);
+    }
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -707,17 +824,18 @@ __device__ __forceinline__ void scale_rows(float (*y0)[4], float (*y1)[4],
 }
 
 // c += A B for the row blocks that take part (do0, do1).
+template <bool AX = false, bool BX = false>
 __device__ __forceinline__ void mma3_blocks(bool do0, float (*c0)[4],
                                             const FragA& f0, bool do1,
                                             float (*c1)[4], const FragA& f1,
                                             const Tf32 (&b0)[4],
                                             const Tf32 (&b1)[4]) {
   if (do0 && do1)
-    mma3_pair(c0, f0, c1, f1, b0, b1);
+    mma3_pair<AX, BX>(c0, f0, c1, f1, b0, b1);
   else if (do0)
-    mma3<4>(c0, f0, b0, b1);
+    mma3<4, AX, BX>(c0, f0, b0, b1);
   else if (do1)
-    mma3<4>(c1, f1, b0, b1);
+    mma3<4, AX, BX>(c1, f1, b0, b1);
 }
 
 // Whether a shift m puts both factors' exponents, cum_i - m and
@@ -755,11 +873,12 @@ __device__ __forceinline__ float clip_weight(float e) {
   return fminf(fmaxf(e, kWeightLo), kWeightHi);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kNarrowThreads, 3) gla_chunk_output_narrow(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ ld,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ ld,
     const float* __restrict__ li, const float* __restrict__ h_in,
-    float* __restrict__ y, int S, int N, int P, int L, int per, int vec_qk,
+    T* __restrict__ y, int S, int N, int P, int L, int per, int vec_qk,
     int vec_vh) {
   constexpr int KS = NarrowTile::KS, HS = NarrowTile::HS;
   constexpr int VS = NarrowTile::VS, NP8 = kNarrowPT / 8;
@@ -787,11 +906,21 @@ __global__ void __launch_bounds__(kNarrowThreads, 3) gla_chunk_output_narrow(
   // v and H_in's columns of P-tile j.
   auto issue_tile = [&](int j) {
     const int p0 = j * kNarrowPT;
-    load_tile(vs, VS, v + row0 * P + p0, P, lp, kNarrowPT, L, P - p0,
-              vec_vh, tid, kNarrowThreads);
-    if (carry)
-      load_tile(hs, HS, hc + p0, P, kNT, kNarrowPT, N, P - p0, vec_vh, tid,
-                kNarrowThreads);
+    if constexpr (kExact<T>) {
+      // bfloat16: H's copies first, in flight under v's plain loads, all
+      // eight of a thread's at once.
+      if (carry)
+        load_tile(hs, HS, hc + p0, P, kNT, kNarrowPT, N, P - p0, vec_vh, tid,
+                  kNarrowThreads);
+      load_tile<8>(vs, VS, v + row0 * P + p0, P, lp, kNarrowPT, L, P - p0,
+                   vec_vh, tid, kNarrowThreads);
+    } else {
+      load_tile(vs, VS, v + row0 * P + p0, P, lp, kNarrowPT, L, P - p0,
+                vec_vh, tid, kNarrowThreads);
+      if (carry)
+        load_tile(hs, HS, hc + p0, P, kNT, kNarrowPT, N, P - p0, vec_vh, tid,
+                  kNarrowThreads);
+    }
   };
   const Gates gt = gate_load(ld + row0, li + row0, L, tid);
   load_tile(qs, kQKStride, q + row0 * N, N, lp, kNT, L, N, vec_qk, tid,
@@ -851,8 +980,9 @@ __global__ void __launch_bounds__(kNarrowThreads, 3) gla_chunk_output_narrow(
             b0[i] = b_entry<false>(hs, HS, n8 + t, 8 * (p4 + i) + g);
             b1[i] = b_entry<false>(hs, HS, n8 + t + 4, 8 * (p4 + i) + g);
           }
-          mma3_blocks(jt_lo > 0, y_lo + p4, qf[0][n8 / 8], jt_hi > 0,
-                      y_hi + p4, qf[1][n8 / 8], b0, b1);
+          mma3_blocks<kExact<T>>(jt_lo > 0, y_lo + p4, qf[0][n8 / 8],
+                                 jt_hi > 0, y_hi + p4, qf[1][n8 / 8], b0,
+                                 b1);
         }
       }
       // Rows g and g + 8 of each block times exp(clip(cum)).
@@ -872,8 +1002,8 @@ __global__ void __launch_bounds__(kNarrowThreads, 3) gla_chunk_output_narrow(
           b0[i] = b_entry<true>(ks, KS, 8 * (j4 + i) + g, n8 + t);
           b1[i] = b_entry<true>(ks, KS, 8 * (j4 + i) + g, n8 + t + 4);
         }
-        mma3_blocks(do_lo, s_lo, qf[0][n8 / 8], do_hi, s_hi, qf[1][n8 / 8],
-                    b0, b1);
+        mma3_blocks<kExact<T>, kExact<T>>(do_lo, s_lo, qf[0][n8 / 8], do_hi,
+                                          s_hi, qf[1][n8 / 8], b0, b1);
       }
       // o W: lane (g, t) holds columns 2t, 2t + 1 of rows g, g + 8.
       // W = clip_weight(er_i ec_j) where the chunk factors, else
@@ -904,6 +1034,8 @@ __global__ void __launch_bounds__(kNarrowThreads, 3) gla_chunk_output_narrow(
             sb[i][2] *= ja <= rc && in_c ? clipped_exp(crc - ca + la) : 0.0f;
             sb[i][3] *= jb <= rc && in_c ? clipped_exp(crc - cb + lb) : 0.0f;
           }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sb[i][e] = to_input<T>(sb[i][e]);
         }
       }
       // (q k^T o W) v: the weighted accumulator is the A fragment whose k
@@ -924,13 +1056,14 @@ __global__ void __launch_bounds__(kNarrowThreads, 3) gla_chunk_output_narrow(
             b0[pt] = b_entry<false>(vs, VS, ja, 8 * (p4 + pt) + g);
             b1[pt] = b_entry<false>(vs, VS, ja + 1, 8 * (p4 + pt) + g);
           }
-          mma3_blocks(j4 + i < jt_lo, y_lo + p4, a_lo, j4 + i < jt_hi,
-                      y_hi + p4, a_hi, b0, b1);
+          mma3_blocks<kExact<T>, kExact<T>>(j4 + i < jt_lo, y_lo + p4,
+                                            a_lo, j4 + i < jt_hi, y_hi + p4,
+                                            a_hi, b0, b1);
         }
       }
     }
     const int p0 = j * kNarrowPT;
-    float* yb = y + row0 * P + p0;
+    T* yb = y + row0 * P + p0;
     const bool even = (P & 1) == 0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -974,38 +1107,39 @@ bool bad_shape(int bh, int s, int n, int p, int l) {
          s % l || s / l > 65535 || bh > 65535;
 }
 
-template <int WM, int NTW>
-int launch_state(const float* k, const float* v, const float* ld,
-                 const float* li, float* states, float* tot, int bh, int s,
-                 int n, int p, int l, cudaStream_t stream) {
-  using T = StateTile<WM, NTW>;
+template <typename T, int WM, int NTW>
+int launch_state(const T* k, const T* v, const float* ld, const float* li,
+                 float* states, float* tot, int bh, int s, int n, int p,
+                 int l, cudaStream_t stream) {
+  using Tile = StateTile<WM, NTW>;
   const int nc = s / l;
   if (nc < 2) return (int)cudaSuccess;   // the last chunk's state is unused
   const int lp = (l + 31) / 32 * 32;
-  const size_t smem = T::smem_floats(lp) * sizeof(float);
-  cudaError_t err = opt_in((const void*)gla_chunk_state<WM, NTW>, smem);
+  const size_t smem = Tile::smem_floats(lp) * sizeof(float);
+  cudaError_t err = opt_in((const void*)gla_chunk_state<T, WM, NTW>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(((n + T::NT - 1) / T::NT) *
-                             ((p + T::PT - 1) / T::PT)),
+  const dim3 grid((unsigned)(((n + Tile::NT - 1) / Tile::NT) *
+                             ((p + Tile::PT - 1) / Tile::PT)),
                   (unsigned)(nc - 1), (unsigned)bh);
-  gla_chunk_state<WM, NTW><<<grid, kStateThreads, smem, stream>>>(
+  gla_chunk_state<T, WM, NTW><<<grid, kStateThreads, smem, stream>>>(
       k, v, ld, li, states, tot, s, n, p, l,
       n % 4 == 0 && aligned16(k), p % 4 == 0 && aligned16(v));
   return (int)cudaGetLastError();
 }
 
 // CTA tiles of S_c: 16 x 64 (N <= 16), 32 x 64 (N <= 32), else 64 x 32.
-int chunk_state(const float* k, const float* v, const float* ld,
-                const float* li, float* states, float* tot, int bh, int s,
-                int n, int p, int l, cudaStream_t stream) {
+template <typename T>
+int chunk_state(const T* k, const T* v, const float* ld, const float* li,
+                float* states, float* tot, int bh, int s, int n, int p,
+                int l, cudaStream_t stream) {
   if (n <= 16)
-    return launch_state<1, 2>(k, v, ld, li, states, tot, bh, s, n, p, l,
-                              stream);
+    return launch_state<T, 1, 2>(k, v, ld, li, states, tot, bh, s, n, p, l,
+                                 stream);
   if (n <= 32)
-    return launch_state<2, 4>(k, v, ld, li, states, tot, bh, s, n, p, l,
-                              stream);
-  return launch_state<4, 4>(k, v, ld, li, states, tot, bh, s, n, p, l,
-                            stream);
+    return launch_state<T, 2, 4>(k, v, ld, li, states, tot, bh, s, n, p, l,
+                                 stream);
+  return launch_state<T, 4, 4>(k, v, ld, li, states, tot, bh, s, n, p, l,
+                               stream);
 }
 
 int state_pass(float* states, const float* tot, int bh, int nc, int np,
@@ -1031,7 +1165,7 @@ int resident(K kernel, int threads, size_t smem) {
 template <int WM, int NTW>
 int state_resident(int l) {
   const size_t lp = (l + 31) / 32 * 32;
-  return resident(gla_chunk_state<WM, NTW>, kStateThreads,
+  return resident(gla_chunk_state<float, WM, NTW>, kStateThreads,
                   StateTile<WM, NTW>::smem_floats(lp) * sizeof(float));
 }
 
@@ -1053,32 +1187,44 @@ int narrow_per(int bh, int s, int p, int l) {
   return (tiles + groups - 1) / groups;
 }
 
-int chunk_output(const float* q, const float* k, const float* v,
-                 const float* ld, const float* li, const float* h_in,
-                 float* y, int bh, int s, int n, int p, int l,
-                 cudaStream_t stream) {
+template <typename T>
+int chunk_output(const T* q, const T* k, const T* v, const float* ld,
+                 const float* li, const float* h_in, T* y, int bh, int s,
+                 int n, int p, int l, cudaStream_t stream) {
   const size_t smem = output_smem(n, l);
   const int vec_qk = n % 4 == 0 && aligned16(q) && aligned16(k);
   const int vec_vh = p % 4 == 0 && aligned16(v) && aligned16(h_in);
   cudaError_t err;
   if (n <= kNT) {
-    err = opt_in((const void*)gla_chunk_output_narrow, smem);
+    err = opt_in((const void*)gla_chunk_output_narrow<T>, smem);
     if (err != cudaSuccess) return (int)err;
     const int per = narrow_per(bh, s, p, l);
     const int tiles = (p + kNarrowPT - 1) / kNarrowPT;
     const dim3 grid((unsigned)((tiles + per - 1) / per), (unsigned)(s / l),
                     (unsigned)bh);
-    gla_chunk_output_narrow<<<grid, kNarrowThreads, smem, stream>>>(
+    gla_chunk_output_narrow<T><<<grid, kNarrowThreads, smem, stream>>>(
         q, k, v, ld, li, h_in, y, s, n, p, l, per, vec_qk, vec_vh);
   } else {
-    err = opt_in((const void*)gla_chunk_output, smem);
+    err = opt_in((const void*)gla_chunk_output<T>, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((p + kPT - 1) / kPT), (unsigned)(s / l),
                     (unsigned)bh);
-    gla_chunk_output<<<grid, kOutThreads, smem, stream>>>(
+    gla_chunk_output<T><<<grid, kOutThreads, smem, stream>>>(
         q, k, v, ld, li, h_in, y, s, n, p, l, vec_qk, vec_vh);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int forward(const T* q, const T* k, const T* v, const float* ld,
+            const float* li, T* y, float* states, float* tot, int bh, int s,
+            int n, int p, int l, cudaStream_t st) {
+  if (bad_shape(bh, s, n, p, l)) return (int)cudaErrorInvalidValue;
+  int err = chunk_state(k, v, ld, li, states, tot, bh, s, n, p, l, st);
+  if (err) return err;
+  err = state_pass(states, tot, bh, s / l, n * p, st);
+  if (err) return err;
+  return chunk_output(q, k, v, ld, li, states, y, bh, s, n, p, l, st);
 }
 
 }  // namespace
@@ -1092,6 +1238,16 @@ extern "C" {
 int gla_chunk_state_launch(const float* k, const float* v, const float* ld,
                            const float* li, float* states, float* tot, int bh,
                            int s, int n, int p, int l, void* stream) {
+  if (bad_shape(bh, s, n, p, l)) return (int)cudaErrorInvalidValue;
+  return chunk_state(k, v, ld, li, states, tot, bh, s, n, p, l,
+                     (cudaStream_t)stream);
+}
+
+// The same from bfloat16 k and v.
+int gla_chunk_state_bf16_launch(const bf16* k, const bf16* v, const float* ld,
+                                const float* li, float* states, float* tot,
+                                int bh, int s, int n, int p, int l,
+                                void* stream) {
   if (bad_shape(bh, s, n, p, l)) return (int)cudaErrorInvalidValue;
   return chunk_state(k, v, ld, li, states, tot, bh, s, n, p, l,
                      (cudaStream_t)stream);
@@ -1113,6 +1269,16 @@ int gla_chunk_output_launch(const float* q, const float* k, const float* v,
                       (cudaStream_t)stream);
 }
 
+// The same from bfloat16 q, k and v, y bfloat16.
+int gla_chunk_output_bf16_launch(const bf16* q, const bf16* k, const bf16* v,
+                                 const float* ld, const float* li,
+                                 const float* h_in, bf16* y, int bh, int s,
+                                 int n, int p, int l, void* stream) {
+  if (bad_shape(bh, s, n, p, l)) return (int)cudaErrorInvalidValue;
+  return chunk_output(q, k, v, ld, li, h_in, y, bh, s, n, p, l,
+                      (cudaStream_t)stream);
+}
+
 // CTAs an SM holds at once of the stage-1 and stage-3 kernels that the
 // forward launches for state width n and chunk l (-1 where unknown).
 int gla_resident(int n, int l, int* state_ctas, int* output_ctas) {
@@ -1121,9 +1287,9 @@ int gla_resident(int n, int l, int* state_ctas, int* output_ctas) {
                 : n <= 32 ? state_resident<2, 4>(l)
                           : state_resident<4, 4>(l);
   *output_ctas =
-      n <= kNT ? resident(gla_chunk_output_narrow, kNarrowThreads,
+      n <= kNT ? resident(gla_chunk_output_narrow<float>, kNarrowThreads,
                           output_smem(n, l))
-               : resident(gla_chunk_output, kOutThreads,
+               : resident(gla_chunk_output<float>, kOutThreads,
                           output_smem(n, l));
   return (int)cudaSuccess;
 }
@@ -1134,13 +1300,17 @@ int gla_forward_launch(const float* q, const float* k, const float* v,
                        const float* ld, const float* li, float* y,
                        float* states, float* tot, int bh, int s, int n, int p,
                        int l, void* stream) {
-  if (bad_shape(bh, s, n, p, l)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  int err = chunk_state(k, v, ld, li, states, tot, bh, s, n, p, l, st);
-  if (err) return err;
-  err = state_pass(states, tot, bh, s / l, n * p, st);
-  if (err) return err;
-  return chunk_output(q, k, v, ld, li, states, y, bh, s, n, p, l, st);
+  return forward(q, k, v, ld, li, y, states, tot, bh, s, n, p, l,
+                 (cudaStream_t)stream);
+}
+
+// The same from bfloat16 q, k and v, y bfloat16 (states and tot float32).
+int gla_forward_bf16_launch(const bf16* q, const bf16* k, const bf16* v,
+                            const float* ld, const float* li, bf16* y,
+                            float* states, float* tot, int bh, int s, int n,
+                            int p, int l, void* stream) {
+  return forward(q, k, v, ld, li, y, states, tot, bh, s, n, p, l,
+                 (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -9,8 +9,9 @@ TPU kernel ``gla_forward_call``: it pads S to a multiple of the chunk
 (``log_inc`` with -40, ``log_decay`` with 0), folds ``[B, S, H, .]`` into
 ``[B*H, S, .]``, runs the hand-written CUDA kernel ``csrc/gla.cu`` on CUDA
 tensors (its plain version, ``gla_folded_plain``, on CPU tensors), then
-unfolds and crops. ``gla_forward_plain`` is the forward math of
-``repro.models.ssm.gla_chunked`` in torch, on ``[B, S, H, .]``.
+unfolds and crops. ``gla_forward_plain`` is its plain version on
+``[B, S, H, .]`` (at float32 also the forward math of
+``repro.models.ssm.gla_chunked``).
 
 The kernel path is three kernels, each with its plain version on folded
 operands; their composition is ``gla_folded_plain``:
@@ -23,8 +24,13 @@ operands; their composition is ``gla_folded_plain``:
 3. ``chunk_output`` (``gla_chunk_output_plain``): every chunk's output
    ``y = (q k^T o W) v + diag(exp(clip(cum))) q H_in(c)``, all at once.
 
-float32 only. The reference's kernel also takes bf16, but its tests run
-float32 only; bf16 waits for the LM substrate.
+q, k and v are float32 or bfloat16 (one dtype), the gates are read as
+float32, the state stays float32 and y comes back in v's dtype. bfloat16
+rounds where the reference's kernel rounds: ``q k^T`` from the bfloat16
+operands in float32, ``q k^T o W`` rounded to bfloat16 before it meets v,
+the inter-chunk term and the state update in float32 (``(q o e)`` and
+``(k o wj)`` are float32), y rounded once at the end. The model's
+``gla_chunked`` rounds elsewhere (``models/ssm.py``).
 """
 from __future__ import annotations
 
@@ -38,18 +44,27 @@ Tensor = torch.Tensor
 
 CLAMP = 20.0          # log-space clamp: exponents are clipped to [-80, 20]
 MAX_CHUNK = 128       # the longest chunk the CUDA kernels take
-_BF16_ITEM = ("ROADMAP.md, port order item 8 (the LM substrate, with bf16 "
-              "GLA)")
+DTYPES = (torch.float32, torch.bfloat16)   # q, k and v; the gates as float32
 
 
-def _clipped_exp(x: Tensor) -> Tensor:
+def clipped_exp(x: Tensor) -> Tensor:
+    """exp(clip(x, -80, 20)), the reference's gate and weight exponent."""
     return torch.exp(torch.clamp(x, -4 * CLAMP, CLAMP))
 
 
+def rounded(x: Tensor, dtype) -> Tensor:
+    """x (float32) rounded to ``dtype`` and widened back: the reference
+    kernel's ``(q k^T o W).astype(v.dtype)``."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def _chunks(q, k, v, log_decay, log_inc, chunk: int) -> Tensor:
-    """``gla_chunked``'s chunk loop on ``[B, S, H, .]`` with S a multiple
-    of ``chunk`` and a zero initial state: y ``[B, S, H, P]``. Masked
-    entries are exp(-80), as in the reference."""
+    """The kernel's chunk loop on ``[B, S, H, .]`` with S a multiple of
+    ``chunk`` and a zero initial state: y ``[B, S, H, P]`` in v's dtype.
+    Masked entries are exp(-80), as in the reference."""
+    dtype = v.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    log_decay, log_inc = log_decay.float(), log_inc.float()
     b, sp, h, n = q.shape
     p = v.shape[-1]
     idx = torch.arange(chunk, device=q.device)
@@ -61,17 +76,18 @@ def _chunks(q, k, v, log_decay, log_inc, chunk: int) -> Tensor:
         qi, ki, vi, li = q[:, sl], k[:, sl], v[:, sl], log_inc[:, sl]
         cum = torch.cumsum(log_decay[:, sl], 1)                 # [B, L, H]
         logw = cum[:, :, None] - cum[:, None, :] + li[:, None, :]
-        w = _clipped_exp(torch.where(tri, logw, -torch.inf))   # [B, L, L, H]
+        w = clipped_exp(torch.where(tri, logw, -torch.inf))   # [B, L, L, H]
         qk = torch.einsum("blhn,bmhn->blmh", qi, ki)
-        y_intra = torch.einsum("blmh,bmhp->blhp", qk * w, vi)
-        ei = _clipped_exp(cum)
+        y_intra = torch.einsum("blmh,bmhp->blhp", rounded(qk * w, dtype),
+                               vi)
+        ei = clipped_exp(cum)
         y_inter = torch.einsum("blhn,bhnp->blhp", qi * ei[..., None], hprev)
         tot = cum[:, -1:, :]
-        wj = _clipped_exp(tot - cum + li)
+        wj = clipped_exp(tot - cum + li)
         dstate = torch.einsum("blhn,blhp->bhnp", ki * wj[..., None], vi)
-        hprev = hprev * _clipped_exp(tot[:, 0])[:, :, None, None] + dstate
+        hprev = hprev * clipped_exp(tot[:, 0])[:, :, None, None] + dstate
         ys.append(y_intra + y_inter)
-    return torch.cat(ys, 1)
+    return torch.cat(ys, 1).to(dtype)
 
 
 def _pad(q, k, v, log_decay, log_inc, chunk: int):
@@ -91,9 +107,11 @@ def _pad(q, k, v, log_decay, log_inc, chunk: int):
 
 def gla_forward_plain(q, k, v, log_decay, log_inc,
                       chunk: int = 128) -> Tensor:
-    """The forward math of ``repro.models.ssm.gla_chunked`` (y only, zero
-    initial state): q, k ``[B, S, H, N]``, v ``[B, S, H, P]``, gates
-    ``[B, S, H]`` -> y ``[B, S, H, P]``, on any device."""
+    """The plain version of ``gla_forward``, with the reference kernel's
+    rounding points (at float32 the forward math of
+    ``repro.models.ssm.gla_chunked``: y only, zero initial state): q, k
+    ``[B, S, H, N]``, v ``[B, S, H, P]``, gates ``[B, S, H]`` -> y
+    ``[B, S, H, P]`` in v's dtype, on any device."""
     s = q.shape[1]
     chunk = min(chunk, s)
     return _chunks(*_pad(q, k, v, log_decay, log_inc, chunk), chunk)[:, :s]
@@ -115,13 +133,13 @@ def _chunked(a: Tensor, chunk: int) -> Tensor:
 def gla_chunk_states_plain(k, v, log_decay, log_inc, chunk: int):
     """Stage 1 on folded operands (S a multiple of ``chunk``): each chunk's
     own state ``[BH, nc, N, P]`` (the last chunk's is never read and is
-    0 here) and its total log decay ``tot`` ``[BH, nc]``."""
-    cum = torch.cumsum(_chunked(log_decay, chunk), -1)      # [BH, nc, L]
+    0 here) and its total log decay ``tot`` ``[BH, nc]``, both float32."""
+    cum = torch.cumsum(_chunked(log_decay.float(), chunk), -1)  # [BH, nc, L]
     tot = cum[..., -1].contiguous()
-    wj = _clipped_exp(tot[..., None] - cum + _chunked(log_inc, chunk))
+    wj = clipped_exp(tot[..., None] - cum + _chunked(log_inc.float(), chunk))
     states = torch.einsum("bcln,bclp->bcnp",
-                          _chunked(k, chunk) * wj[..., None],
-                          _chunked(v, chunk))
+                          _chunked(k.float(), chunk) * wj[..., None],
+                          _chunked(v.float(), chunk))
     states[:, -1] = 0.0
     return states, tot
 
@@ -134,48 +152,56 @@ def gla_state_pass_plain(states, tot) -> Tensor:
     h = torch.zeros_like(states[:, 0])
     for c in range(states.shape[1]):
         h_in[:, c] = h
-        h = h * _clipped_exp(tot[:, c])[:, None, None] + states[:, c]
+        h = h * clipped_exp(tot[:, c])[:, None, None] + states[:, c]
     return h_in
 
 
 def gla_chunk_output_plain(q, k, v, log_decay, log_inc, h_in,
                            chunk: int) -> Tensor:
-    """Stage 3: y ``[BH, S, P]`` from each chunk's operands and the state
-    entering it. Masked entries are exp(-80), as in the reference."""
+    """Stage 3: y ``[BH, S, P]`` in v's dtype from each chunk's operands
+    and the state entering it. Masked entries are exp(-80), as in the
+    reference."""
+    dtype = v.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    log_decay, log_inc = log_decay.float(), log_inc.float()
     cum = torch.cumsum(_chunked(log_decay, chunk), -1)      # [BH, nc, L]
     idx = torch.arange(chunk, device=q.device)
     tri = idx[:, None] >= idx[None, :]
     logw = cum[..., :, None] - cum[..., None, :] + \
         _chunked(log_inc, chunk)[..., None, :]
-    w = _clipped_exp(torch.where(tri, logw, -torch.inf))   # [BH, nc, L, L]
+    w = clipped_exp(torch.where(tri, logw, -torch.inf))   # [BH, nc, L, L]
     qc, kc, vc = (_chunked(a, chunk) for a in (q, k, v))
     qk = torch.einsum("bcin,bcjn->bcij", qc, kc)
-    y = torch.einsum("bcij,bcjp->bcip", qk * w, vc) + torch.einsum(
-        "bcin,bcnp->bcip", qc * _clipped_exp(cum)[..., None], h_in)
-    return y.reshape(v.shape)
+    y = torch.einsum("bcij,bcjp->bcip", rounded(qk * w, dtype), vc) + \
+        torch.einsum("bcin,bcnp->bcip", qc * clipped_exp(cum)[..., None],
+                     h_in)
+    return y.reshape(v.shape).to(dtype)
 
 
 def gla_forward(q, k, v, log_decay, log_inc, chunk: int = 128,
                 device=None) -> Tensor:
     """Forward-only chunked GLA, the port of
     ``repro.kernels.gla.gla_forward``: q, k ``[B, S, H, N]``, v
-    ``[B, S, H, P]``, gates ``[B, S, H]`` -> y ``[B, S, H, P]`` float32.
-    Runs on ``device`` (the CUDA card unless ``"cpu"`` is named; the
-    inputs are moved there): the three CUDA kernels on the card (one call
-    of the kernel path, counted once in ``gla_forward.launches``), their
-    plain version on the CPU. The chunk defines the result (the clamps
-    act on sums within a chunk), so it is the caller's: S is padded to a
-    multiple of it, and the kernel takes chunks up to ``MAX_CHUNK``."""
+    ``[B, S, H, P]`` float32 or bfloat16, gates ``[B, S, H]`` (read as
+    float32) -> y ``[B, S, H, P]`` in v's dtype. Runs on ``device`` (the
+    CUDA card unless ``"cpu"`` is named; the inputs are moved there): the
+    three CUDA kernels on the card (one call of the kernel path, counted
+    once in ``gla_forward.launches``, and a bfloat16 one also in
+    ``gla_forward.bf16_launches``), their plain version on the CPU. The
+    chunk defines the result (the clamps act on sums within a chunk), so
+    it is the caller's: S is padded to a multiple of it, and the kernel
+    takes chunks up to ``MAX_CHUNK``."""
     dev = _device.resolve(device)
     args = [torch.as_tensor(x).to(dev) for x in (q, k, v, log_decay,
                                                  log_inc)]
-    for x in args:
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"bf16 GLA is not ported yet: {_BF16_ITEM}")
-        if x.dtype != torch.float32:
-            raise ValueError(f"GLA takes float32 inputs, not {x.dtype}")
-    q, k, v, log_decay, log_inc = args
+    dtypes = [x.dtype for x in args]
+    if dtypes[0] not in DTYPES or dtypes[1:3] != dtypes[:1] * 2 \
+            or any(t not in DTYPES for t in dtypes[3:]):
+        raise ValueError(f"GLA takes q, k, v of one dtype, float32 or "
+                         f"bfloat16, and float32 or bfloat16 gates, not "
+                         f"{dtypes}")
+    q, k, v = args[:3]
+    log_decay, log_inc = (x.float() for x in args[3:])
     b, s, h, n = q.shape
     p = v.shape[-1]
     shapes = [tuple(x.shape) for x in args]
@@ -200,6 +226,7 @@ def gla_forward(q, k, v, log_decay, log_inc, chunk: int = 128,
 
 
 gla_forward.launches = 0
+gla_forward.bf16_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,20 +241,30 @@ def _lib():
             ("gla_chunk_state_launch", [ptr] * 6 + [i] * 5),
             ("gla_state_pass_launch", [ptr] * 2 + [i] * 3),
             ("gla_chunk_output_launch", [ptr] * 7 + [i] * 5)):
-        fn = getattr(lib, name)
-        fn.argtypes = args + [ptr]
-        fn.restype = c.c_int
+        for suffix in ("", "_bf16"):
+            if name == "gla_state_pass_launch" and suffix:
+                continue                  # the states are float32 alike
+            fn = getattr(lib, name.replace("_launch", suffix + "_launch"))
+            fn.argtypes = args + [ptr]
+            fn.restype = c.c_int
     return lib
 
 
-def _check_operands(*tensors) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or t.device.type != "cuda" \
-                or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("GLA kernel operands must be contiguous float32 "
-                             f"tensors on one CUDA device; got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+def _check_operands(inputs, floats=()) -> str:
+    """Checks the kernel operands: ``inputs`` of one dtype in ``DTYPES``,
+    ``floats`` (gates, states) float32, all contiguous on one CUDA device.
+    Returns the launch functions' suffix for the inputs' dtype."""
+    dev = (*inputs, *floats)[0].device
+    for t in (*inputs, *floats):
+        want = inputs[0].dtype if any(t is x for x in inputs) \
+            else torch.float32
+        if t.device != dev or t.device.type != "cuda" or t.dtype != want \
+                or want not in DTYPES or not t.is_contiguous():
+            raise ValueError("GLA kernel operands must be contiguous tensors "
+                             "on one CUDA device, q, k and v float32 or "
+                             "bfloat16, gates and states float32; got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return "_bf16" if inputs and inputs[0].dtype == torch.bfloat16 else ""
 
 
 def _call(name: str, tensors, ints, what: str) -> None:
@@ -253,17 +290,20 @@ def _launch(q, k, v, log_decay, log_inc, chunk: int) -> Tensor:
     """The kernel path of ``gla_forward`` on folded operands: the three
     kernels, one after the other on the current stream, through a state
     buffer ``[BH, nc, N, P]`` and the chunks' total decays ``[BH, nc]``."""
-    _check_operands(q, k, v, log_decay, log_inc)
+    suffix = _check_operands((q, k, v), (log_decay, log_inc))
     bh, sp, n = q.shape
     p = v.shape[-1]
     nc = _chunk_count(sp, chunk)
-    y = torch.empty(bh, sp, p, dtype=torch.float32, device=q.device)
+    y = torch.empty(bh, sp, p, dtype=v.dtype, device=q.device)
     states = torch.empty(bh, nc, n, p, dtype=torch.float32, device=q.device)
     tot = torch.empty(bh, nc, dtype=torch.float32, device=q.device)
-    _call("gla_forward_launch", (q, k, v, log_decay, log_inc, y, states, tot),
+    _call(f"gla_forward{suffix}_launch",
+          (q, k, v, log_decay, log_inc, y, states, tot),
           (bh, sp, n, p, chunk),
-          f"BH={bh}, S={sp}, N={n}, P={p}, chunk={chunk}")
+          f"{v.dtype}, BH={bh}, S={sp}, N={n}, P={p}, chunk={chunk}")
     gla_forward.launches += 1
+    if suffix:
+        gla_forward.bf16_launches += 1
     return y
 
 
@@ -274,14 +314,15 @@ def chunk_states(k, v, log_decay, log_inc, chunk: int):
     unwritten) and from the plain version on CPU tensors."""
     if k.device.type == "cpu":
         return gla_chunk_states_plain(k, v, log_decay, log_inc, chunk)
-    _check_operands(k, v, log_decay, log_inc)
+    suffix = _check_operands((k, v), (log_decay, log_inc))
     bh, sp, n = k.shape
     p = v.shape[-1]
     nc = _chunk_count(sp, chunk)
     states = torch.empty(bh, nc, n, p, dtype=torch.float32, device=k.device)
     tot = torch.empty(bh, nc, dtype=torch.float32, device=k.device)
-    _call("gla_chunk_state_launch", (k, v, log_decay, log_inc, states, tot),
-          (bh, sp, n, p, chunk), f"BH={bh}, S={sp}, N={n}, P={p}")
+    _call(f"gla_chunk_state{suffix}_launch",
+          (k, v, log_decay, log_inc, states, tot),
+          (bh, sp, n, p, chunk), f"{v.dtype}, BH={bh}, S={sp}, N={n}, P={p}")
     return states, tot
 
 
@@ -291,7 +332,7 @@ def state_pass(states, tot) -> Tensor:
     CUDA tensors; the plain version returns a new tensor on CPU ones."""
     if states.device.type == "cpu":
         return gla_state_pass_plain(states, tot)
-    _check_operands(states, tot)
+    _check_operands((), (states, tot))
     bh, nc, n, p = states.shape
     _call("gla_state_pass_launch", (states, tot), (bh, nc, n * p),
           f"BH={bh}, nc={nc}, N*P={n * p}")
@@ -304,11 +345,12 @@ def chunk_output(q, k, v, log_decay, log_inc, h_in, chunk: int) -> Tensor:
     if q.device.type == "cpu":
         return gla_chunk_output_plain(q, k, v, log_decay, log_inc, h_in,
                                       chunk)
-    _check_operands(q, k, v, log_decay, log_inc, h_in)
+    suffix = _check_operands((q, k, v), (log_decay, log_inc, h_in))
     bh, sp, n = q.shape
     p = v.shape[-1]
     _chunk_count(sp, chunk)
-    y = torch.empty(bh, sp, p, dtype=torch.float32, device=q.device)
-    _call("gla_chunk_output_launch", (q, k, v, log_decay, log_inc, h_in, y),
-          (bh, sp, n, p, chunk), f"BH={bh}, S={sp}, N={n}, P={p}")
+    y = torch.empty(bh, sp, p, dtype=v.dtype, device=q.device)
+    _call(f"gla_chunk_output{suffix}_launch",
+          (q, k, v, log_decay, log_inc, h_in, y),
+          (bh, sp, n, p, chunk), f"{v.dtype}, BH={bh}, S={sp}, N={n}, P={p}")
     return y

@@ -346,7 +346,8 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.checkpoint, repro_torch.runtime, "
             "repro_torch.core.distributed, repro_torch.core.tuner, "
             "repro_torch.core.autotune, repro_torch.roofline, "
-            "repro_torch.roofline.pso_cost\n"
+            "repro_torch.roofline.pso_cost, repro_torch.configs, "
+            "repro_torch.models, repro_torch.launch.steps\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -220,14 +220,96 @@ def test_gla_state_pass_is_the_reference_recurrence():
 
 
 def test_gla_rejects_bf16_and_bad_shapes():
+    """bfloat16 q, k and v are taken together (see the bf16 tests below);
+    bfloat16 mixed with float32 operands, other dtypes and bad shapes are
+    refused."""
     q, k, v, ld, li = (torch.from_numpy(a)
                        for a in _inputs((1, 16, 1, 4, 4), seed=2))
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(ValueError, match="one dtype"):
         gla.gla_forward(q.bfloat16(), k, v, ld, li, device="cpu")
     with pytest.raises(ValueError, match="shapes"):
         gla.gla_forward(q, k[:, :8], v, ld, li, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         gla.gla_forward(q.double(), k, v, ld, li, device="cpu")
+    with pytest.raises(ValueError, match="bfloat16"):
+        gla.gla_forward(q.half(), k.half(), v.half(), ld, li, device="cpu")
+    with pytest.raises(ValueError, match="gates"):
+        gla.gla_forward(q, k, v, ld.half(), li, device="cpu")
+
+
+# --- bfloat16 ----------------------------------------------------------------
+#
+# The bf16 bound, elementwise: |got - want| <= 2^-7 |want| + 2^-8 max|want|.
+# Both sides round where the reference's kernel rounds (q k^T o W to
+# bfloat16 before it meets v, y to bfloat16) from float32 sums taken in
+# other orders, so a value within float32 rounding of a bfloat16 tie may
+# round either way: at y one bfloat16 unit of the entry (2^-7 relative at
+# most), at a q k^T o W term one unit of that term, which the second part
+# bounds. The float32 tolerance above does not hold: one bfloat16 unit is
+# 2^-8 to 2^-7 of a value. (The reference's jnp engine rounds elsewhere, q
+# k^T and the carried state too; against the kernel it differs by ~0.5% of
+# max|y|, so it is not held to this bound.)
+
+def _bf16_close(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    tol = 2.0 ** -7 * np.abs(want) + 2.0 ** -8 * np.abs(want).max()
+    err = np.abs(got - want)
+    assert (err <= tol).all(), (float(err.max()), float(np.abs(want).max()))
+
+
+def _bf16_inputs(case, seed, ones=False):
+    """bfloat16 q, k, v (rounded from ``_inputs``) and float32 gates, as
+    torch tensors and as the reference's jnp arrays."""
+    x = list(_inputs(case, seed=seed))
+    if ones:
+        x[2] = np.concatenate([x[2], np.ones(x[2].shape[:3] + (1,),
+                                             np.float32)], -1)
+    t = [torch.from_numpy(a).bfloat16() for a in x[:3]] + \
+        [torch.from_numpy(a) for a in x[3:]]
+    j = [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+         for a in t[:3]] + [jnp.asarray(a) for a in x[3:]]
+    return t, j
+
+
+@pytest.mark.parametrize("case,chunk,ones", [
+    ((2, 64, 2, 16, 32), 16, False),   # N <= 16 (hymba's SSD heads)
+    ((1, 64, 2, 40, 33), 32, False),   # N > 16 and an odd P
+    ((1, 50, 2, 24, 24), 32, True),    # mLSTM's ones column, S padded
+])
+def test_gla_bf16_matches_reference(case, chunk, ones, reference):
+    """bfloat16 q, k, v: the plain version, the CPU path of gla_forward and
+    the three stages composed against the reference's Pallas kernel at
+    bfloat16 (interpret mode), within the bf16 bound; y in v's dtype."""
+    t, j = _bf16_inputs(case, sum(case), ones)
+    want = np.asarray(j_gla_forward(*j, chunk=chunk).astype(jnp.float32))
+    plain = gla.gla_forward_plain(*t, chunk=chunk)
+    got = gla.gla_forward(*t, chunk=chunk, device="cpu")
+    assert plain.dtype == got.dtype == torch.bfloat16
+    assert got.shape == t[2].shape
+    _bf16_close(plain.float().numpy(), want)
+    _bf16_close(got.float().numpy(), want)
+    b, s, h, _ = t[0].shape
+    length = min(chunk, s)
+    folded = [a.transpose(1, 2).reshape(b * h, a.shape[1], *a.shape[3:])
+              .contiguous() for a in gla._pad(*t, length)]
+    *_, y = _stages(folded, length)
+    assert y.dtype == torch.bfloat16
+    sp = folded[0].shape[1]
+    y = y.reshape(b, h, sp, -1).transpose(1, 2)[:, :s]
+    _bf16_close(y.float().numpy(), want)
+
+
+def test_gla_bf16_rounds_where_the_reference_kernel_rounds():
+    """The plain version at bfloat16 is its float32 math on the widened
+    inputs with q k^T o W rounded to bfloat16 before it meets v: not the
+    float32 result rounded once."""
+    t = [torch.from_numpy(a) for a in _inputs((1, 32, 1, 16, 8), seed=11)]
+    t = [a.bfloat16() for a in t[:3]] + t[3:]
+    y = gla.gla_forward_plain(*t, chunk=16)
+    wide = gla.gla_forward_plain(*[a.float() for a in t], chunk=16)
+    assert y.dtype == torch.bfloat16 and wide.dtype == torch.float32
+    assert not torch.equal(y, wide.bfloat16())
+    _bf16_close(y.float().numpy(), wide.numpy())
 
 
 # --- on the card -------------------------------------------------------------
@@ -311,3 +393,40 @@ def test_gla_stage_kernels_match_plain_on_card(cuda, case, chunk):
     torch.cuda.synchronize()
     torch.testing.assert_close(
         y, gla.gla_chunk_output_plain(q, k, v, ld, li, want_h, length), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,chunk,ones", [
+    ((1, 256, 4, 16, 128), 128, False), ((2, 96, 1, 8, 24), 32, False),
+    ((1, 200, 2, 256, 256), 128, True), ((1, 64, 3, 40, 70), 64, False),
+    ((2, 2048, 4, 16, 64), 16, False)])
+def test_gla_bf16_kernel_matches_plain_on_card(cuda, case, chunk, ones):
+    """The bfloat16 kernel path and its stages against their plain versions
+    within the bf16 bound (P = 257 with the ones column: rows of bfloat16
+    that are 2-byte aligned only)."""
+    x = list(_inputs(case, seed=4))
+    if ones:
+        x[2] = np.concatenate([x[2], np.ones(x[2].shape[:3] + (1,),
+                                             np.float32)], -1)
+    t = [torch.from_numpy(a).to(cuda) for a in x]
+    t = [a.bfloat16() for a in t[:3]] + t[3:]
+    want = gla.gla_forward_plain(*t, chunk=chunk)
+    before = (gla.gla_forward.launches, gla.gla_forward.bf16_launches)
+    got = gla.gla_forward(*t, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (gla.gla_forward.launches, gla.gla_forward.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
+    length = min(chunk, case[1])
+    folded = [a.transpose(1, 2).reshape(-1, a.shape[1], *a.shape[3:])
+              .contiguous() for a in gla._pad(*t, length)]
+    q, k, v, ld, li = folded
+    want_states, want_tot = gla.gla_chunk_states_plain(k, v, ld, li, length)
+    want_h = gla.gla_state_pass_plain(want_states, want_tot)
+    states, _ = gla.chunk_states(k, v, ld, li, length)
+    y = gla.chunk_output(q, k, v, ld, li, want_h, length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(states[:, :-1], want_states[:, :-1], **TOL)
+    _bf16_close(y.float().cpu().numpy(), gla.gla_chunk_output_plain(
+        q, k, v, ld, li, want_h, length).float().cpu().numpy())

@@ -4,6 +4,7 @@ on one card, in turns.
 
     python3 tools/kernel_trees.py OLD/src src src OLD/src
     python3 tools/kernel_trees.py --source pso_split OLD/src src src OLD/src
+    python3 tools/kernel_trees.py --source gla OLD/src src src OLD/src
 
 Each argument is a checkout's ``src/``, run in a process of its own (a
 package is imported once a process) in the order given, so ``P C C P``
@@ -26,6 +27,12 @@ split kernel alone at sphere_simplex d=120 n=32768, the L2 flushed, beside
 its bound, the L2 flushed by reading in every tree), since the split
 kernels and their timing differ between trees, then phase 6b's solves below d=120 (``split_solves``: host us/iter and each
 split kernel's device us/iter).
+
+With ``--source gla`` each tree builds its ``gla.cu`` and runs this
+checkout's ``chip_smoke.gla_times`` (phase 5's float32 GLA kernel path at
+hymba-1.5B's SSD width, both kinds of gates, and the xLSTM-350M head shape:
+ms and each kernel's device us); this checkout's parser keys the float32
+kernels alike in trees with and without the bfloat16 instantiations.
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``.
 """
 import functools
@@ -43,7 +50,7 @@ def one_tree(src: str, source: str) -> None:
     its ``-Xptxas -v`` lines as JSON."""
     sys.path.insert(0, src)
     import repro_torch  # noqa: F401  (the tree's package, first)
-    sys.path.insert(1, str(ROOT if source == "pso_step"
+    sys.path.insert(1, str(ROOT if source in ("pso_step", "gla")
                            else Path(src).resolve().parent))
     import chip_smoke as cs
     import torch
@@ -56,6 +63,11 @@ def one_tree(src: str, source: str) -> None:
     print(f"tree {src}: {lib.name}, {len(lines)} kernels [{card}]")
     for line in lines:
         print(f"  {line}")
+    if source == "gla":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cs.gla_times(card)
+        print(json.dumps(lines))
+        return
     if source == "pso_split":
         # every tree's 6c flushes the L2 alike: by reading 256 MB, as this
         # checkout's chip_smoke.flush_l2 does (an older one wrote zeros,
@@ -129,9 +141,9 @@ def main() -> int:
     source = "pso_step"
     if args[:1] == ["--source"]:
         source, args = args[1], args[2:]
-    if source not in ("pso_step", "pso_split"):
-        raise SystemExit(f"kernel_trees: --source pso_step or pso_split, "
-                         f"not {source}")
+    if source not in ("pso_step", "pso_split", "gla"):
+        raise SystemExit(f"kernel_trees: --source pso_step, pso_split or "
+                         f"gla, not {source}")
     if args[:1] == ["--tree"]:
         one_tree(args[1], source)
         return 0
