@@ -146,7 +146,24 @@ reference smoke test's bound and within ``LM_LOSS_RTOL`` of the same
 prefill with the plain GLA, prefill ms, tokens/s, peak memory and the GLA
 kernels' share of the device time; 11c ``make_serve_step`` from
 ``init_cache(B=4, max_len=4096)``, 16 greedy tokens, ms a token. Its
-launches count under the ``gla_bf16`` row.
+launches count under the ``gla_bf16`` row. 12, the LM substrate's training
+path (``launch.steps.make_train_step``: autograd, remat, the cosine lr,
+the arch's optimizer; ``data.SyntheticLM``): 12a hymba-1.5B at full width
+(bfloat16, Adam) on B=1 S=4096, a warm-up step and 3 timed steps on one
+repeated batch, no GLA kernel launched in a train step (training takes the
+plain chunked engine under autograd, as the reference trains), the loss
+finite, inside the smoke bound and falling, then the same model's no-grad
+prefill with its 32 bfloat16 GLA launches; step ms, tokens/s, peak
+memory, the device idle share and the largest kernels; one train step of
+``hymba-1.5b.smoke()`` in float32 on the card against the CPU port's
+(``TRAIN_CPU_TOL``); 12b whisper-small at full size (12 + 12 layers, B=4
+frames of 1500, 448 tokens): 3 train steps, then ``make_prefill_step`` and
+16 greedy tokens from ``init_cache`` with the cross cache filled from the
+encoder; 12c phi-3.5-MoE at full width, its depth cut from 32 layers to 2
+(the whole model and Adam do not fit one card): 2 train steps on B=1
+S=4096 (one dispatch group, capacity 640 an expert), the auxiliary loss in
+the loss, the share of (token, choice) pairs dropped over capacity, then
+prefill and 16 decode tokens. Phase 12 adds no launch to the JSON line.
 """
 import concurrent.futures
 import ctypes
@@ -200,6 +217,15 @@ try:    # nor the LM substrate
     from repro_torch.models import zoo as lm_zoo
 except ImportError:
     get_arch = lm_steps = lm_zoo = None
+try:    # nor its training path
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import encdec as lm_encdec
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import moe as lm_moe
+    from repro_torch.models import transformer as lm_transformer
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+except ImportError:
+    SyntheticLM = None
 
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and 67 TFLOP/s of
@@ -1965,13 +1991,14 @@ def flush_l2() -> None:
     _L2_SCRUB[0].sum()
 
 
-def kernel_device_us(fn, reps: int = 3) -> dict:
+def kernel_device_us(fn, reps: int = 3, warm: bool = True) -> dict:
     """Device us a call of each kernel that ``fn`` launches, summed by name
     (template arguments kept) under torch.profiler over ``reps`` calls
-    after a warm one; empty if three tries record nothing."""
+    after a warm one (``warm``); empty if three tries record nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     out = {}
     for _ in range(3):     # the profiler now and then records nothing
         torch.cuda.synchronize()
@@ -4662,6 +4689,318 @@ def param_leaves(tree):
         yield tree
 
 
+#: Phase 12's schedule: the train CLI's default lr; a warm-up of one step
+#: (the first step's lr is 0), so every later step moves the weights.
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 3e-4, 1, 100
+TRAIN_CELLS = dict(
+    hymba=dict(arch="hymba-1.5b", batch=1, seq=4096, steps=4),
+    whisper=dict(arch="whisper-small", batch=4, seq=448, frames=1500,
+                 steps=3),
+    phi=dict(arch="phi3.5-moe-42b-a6.6b", batch=1, seq=4096, steps=2,
+             layers=2))
+#: One float32 train step (two, so that the second moves the weights) of
+#: hymba-1.5b.smoke() on the card against the CPU port, TF32 off: loss and
+#: grad norm rtol 1e-5, Adam's moments rtol 1e-4 atol 1e-6, and the
+#: weights by the regime of the CPU's |g^| = sqrt(v / (1 - b2^t)): where
+#: |g^| >= 1e-5 (1000 eps) Adam's update is ~sign(g), |d| <= 1e-6; below,
+#: the update g/(|g| + eps) is rounding noise of the grads, |d| <= 3 lr
+#: (tests/test_torch_train.py holds the CPU port to JAX alike).
+TRAIN_CPU_LR = 1e-2
+TRAIN_CPU_TOL = dict(loss=1e-5, moments=(1e-4, 1e-6), tight=1e-6,
+                     regime=1e-5, loose=3 * TRAIN_CPU_LR)
+
+
+def lm_batch(cfg, b: int, s: int, device, frames: int = 0) -> dict:
+    """``SyntheticLM``'s step-0 batch (seed 0) on ``device``; enc-dec
+    configs also take ``frames`` stub frame embeddings from a seed."""
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                  global_batch=b, seed=0)).batch(0)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    if frames:
+        gen = torch.Generator(device=device).manual_seed(0)
+        batch["frames"] = torch.randn(
+            (b, frames, cfg.d_model), generator=gen, device=device).to(
+                getattr(torch, cfg.param_dtype))
+    return batch
+
+
+def train_cell(card: str, label: str, cfg, batch: dict, steps: int):
+    """``steps`` train steps of ``cfg`` from the port's own init (seed 0)
+    on one repeated batch: the first a warm-up, the rest timed on the host
+    clock (synchronised); the GLA counters must read 0 through them. Then
+    one more step under torch.profiler (the idle share, the largest
+    kernels). Returns (params, stats)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm_zoo.init_params(cfg, gen, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    step, opt_init = lm_steps.make_train_step(cfg, TRAIN_LR, TRAIN_WARMUP,
+                                              TRAIN_TOTAL)
+    opt = opt_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, gnorms, host_ms = [], [], []
+    for i in range(steps):
+        us, (params, opt, m) = host_us(lambda: step(params, opt, batch), 1)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if i:
+            host_ms.append(us / 1e3)
+    counts = {k: v for k, v in read_counts().items() if v}
+    check(not counts, f"{label}: a train step launches no GLA kernel "
+          f"({counts})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hi = 3 * math.log(cfg.vocab) + 5
+    check(all(math.isfinite(x) and 0 < x < hi for x in losses),
+          f"{label}: losses {losses} in (0, {hi:.2f})")
+    check(all(math.isfinite(g) and g > 0 for g in gnorms),
+          f"{label}: grad norms {gnorms} finite")
+    ms = sum(host_ms) / len(host_ms)
+    tokens = batch["tokens"].numel()
+    per = kernel_device_us(lambda: step(params, opt, batch), reps=1,
+                           warm=False)
+    busy = sum(per.values()) / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  {label}: {n_params / 1e9:.3f} B parameters ({cfg.param_dtype}"
+          f", {cfg.optimizer}), init {init_s:.1f} s; losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + "; grad norms "
+          + ", ".join(f"{g:.4f}" for g in gnorms)
+          + f"; step {ms:.2f} ms (timed steps "
+          + ", ".join(f"{x:.2f}" for x in host_ms)
+          + f"), {tokens / (ms / 1e3):.0f} tokens/s, peak memory "
+          f"{peak:.2f} GiB, GLA launches 0 [{card}]")
+    print(f"  {label} step device time (torch.profiler): {busy:.2f} ms, the "
+          f"device idle {max(0.0, 1 - busy / ms):.1%} of the host's "
+          f"{ms:.2f} ms; the largest: " + ", ".join(
+              f"{k} {v / 1e3:.2f} ms" for k, v in top) + f" [{card}]")
+    return params, dict(losses=losses, ms=ms, peak=peak)
+
+
+def loss_falls(label: str, first: float, after: float, when: str) -> None:
+    """The loss on the repeated batch ``when`` (``after``) is below the
+    first step's."""
+    check(after < first, f"{label}: loss {after} {when} not below the "
+          f"first step's {first}")
+    print(f"  {label}: loss on the repeated batch {first:.6f} at the first "
+          f"step, {after:.6f} {when}")
+
+
+def greedy_decode(card: str, label: str, cfg, params, b: int, max_len: int,
+                  fill=None) -> None:
+    """16 greedy ``make_serve_step`` tokens (the loop is this script's)
+    from ``init_cache(b, max_len)`` (``fill(cache)`` first, if given):
+    finite logits, ms a token."""
+    serve = lm_steps.make_serve_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    first = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device="cuda")
+
+    def run():
+        cache = lm_zoo.init_cache(cfg, b, max_len, device="cuda")
+        if fill is not None:
+            fill(cache)
+        tok, out = first, []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for n in range(LM_TOKENS):
+            logits, cache = serve(params, cache, n, tok)
+            tok = logits.argmax(-1, keepdim=True)
+            out.append(logits)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / LM_TOKENS * 1e3, out
+
+    run()                                                      # warm-up
+    ms_token, logits = run()
+    check(all(tuple(x.shape) == (b, cfg.vocab) and
+              bool(torch.isfinite(x).all()) for x in logits),
+          f"{label}: finite decode logits")
+    print(f"  {label} decode: {LM_TOKENS} greedy tokens, B={b}, "
+          f"{ms_token:.2f} ms a token, {b / (ms_token / 1e3):.0f} tokens/s, "
+          f"|logits| up to {max(float(x.abs().max()) for x in logits):.3g} "
+          f"[{card}]")
+
+
+def prefill_ms(card: str, label: str, cfg, params, batch):
+    """(ms, loss) of ``make_prefill_step`` on ``batch`` (after a warm
+    call), printed."""
+    prefill = lm_steps.make_prefill_step(cfg)
+    prefill(params, batch)
+    us, loss = host_us(lambda: prefill(params, batch), 1)
+    print(f"  {label} prefill: {us / 1e3:.2f} ms, "
+          f"{batch['tokens'].numel() / (us / 1e6):.0f} tokens/s, loss "
+          f"{float(loss):.6f} [{card}]")
+    return us / 1e3, float(loss)
+
+
+def train_cpu_against_card(card: str) -> None:
+    """12a's check of the card against the CPU (``TRAIN_CPU_TOL``)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_arch("hymba-1.5b").smoke()
+        params = lm_zoo.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.clone().to(dev), params)
+            step, init = lm_steps.make_train_step(cfg, TRAIN_CPU_LR, 1, 10)
+            opt, batch = init(p), lm_batch(cfg, 2, 64, dev)
+            metrics = []
+            for _ in range(2):
+                p, opt, m = step(p, opt, batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = metrics, p, opt
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (want, wp, wo), (got, gp, go) = runs["cpu"], runs["cuda"]
+    tol = TRAIN_CPU_TOL
+    for (wl, wg), (gl, gg) in zip(want, got):
+        check(abs(gl - wl) <= tol["loss"] * abs(wl)
+              and abs(gg - wg) <= tol["loss"] * abs(wg),
+              f"12a smoke: loss/grad norm {gl}/{gg} on the card against "
+              f"{wl}/{wg} on the CPU")
+    rtol, atol = tol["moments"]
+    worst_m = 0.0
+    for key in ("m", "v"):
+        for a, b in zip(tree_leaves(go.inner[key]),
+                        tree_leaves(wo.inner[key])):
+            a = a.cpu()
+            worst_m = max(worst_m, float((a - b).abs().max()))
+            check(bool(((a - b).abs() <= atol + rtol * b.abs()).all()),
+                  f"12a smoke: Adam's {key} on the card against the CPU")
+    c2 = 1 - 0.95 ** int(wo.step)
+    loose = total = 0
+    worst = [0.0, 0.0]
+    for a, b, v in zip(tree_leaves(gp), tree_leaves(wp),
+                       tree_leaves(wo.inner["v"])):
+        d = (a.cpu() - b).abs()
+        tight = torch.sqrt(v / c2) >= tol["regime"]
+        if bool(tight.any()):
+            worst[0] = max(worst[0], float(d[tight].max()))
+        if bool((~tight).any()):
+            worst[1] = max(worst[1], float(d[~tight].max()))
+        loose += int((~tight).sum())
+        total += d.numel()
+    check(worst[0] <= tol["tight"] and worst[1] <= tol["loose"],
+          f"12a smoke: weights on the card against the CPU, max |d| "
+          f"{worst[0]:.3g} (|g^| >= {tol['regime']}) and {worst[1]:.3g} "
+          f"(below)")
+    print(f"  12a hymba-1.5b.smoke() float32, 2 train steps, card against "
+          f"the CPU port: losses {[x[0] for x in got]} against "
+          f"{[x[0] for x in want]}, grad norms {[x[1] for x in got]} against "
+          f"{[x[1] for x in want]}; moments max |d| {worst_m:.3g}; weights "
+          f"max |d| {worst[0]:.3g} where |g^| >= {tol['regime']}, "
+          f"{worst[1]:.3g} in the {loose} of {total} entries below "
+          f"[{card}]")
+
+
+def free_cuda() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_train(card: str) -> None:
+    """12a–12c (the module docstring). Adds no launch to the JSON line."""
+    t_phase = time.perf_counter()
+    c = TRAIN_CELLS["hymba"]
+    cfg = get_arch(c["arch"])
+    print(f"phase 12a: {cfg.name} make_train_step at full width "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype},"
+          f" {cfg.optimizer}, remat {cfg.remat}), B={c['batch']} "
+          f"S={c['seq']} ({c['seq'] + cfg.meta_tokens} positions) from "
+          f"SyntheticLM, lr {TRAIN_LR} warm-up {TRAIN_WARMUP} [{card}]")
+    batch = lm_batch(cfg, c["batch"], c["seq"], "cuda")
+    params, st = train_cell(card, "12a", cfg, batch, c["steps"])
+    prefill = lm_steps.make_prefill_step(cfg)
+    zero_counts()
+    after = float(prefill(params, batch))
+    counts = {k: v for k, v in read_counts().items() if v}
+    check(counts == {"gla_forward": cfg.n_layers, "gla_bf16": cfg.n_layers},
+          f"12a: {cfg.n_layers} bf16 GLA launches in the no-grad prefill "
+          f"({counts})")
+    print(f"  12a: the trained model's no-grad prefill launches "
+          f"{counts['gla_bf16']} bfloat16 GLA kernels, loss {after:.6f}")
+    loss_falls("12a", st["losses"][0], st["losses"][-1],
+               f"at step {len(st['losses'])}")
+    del params, batch
+    free_cuda()
+    train_cpu_against_card(card)
+
+    c = TRAIN_CELLS["whisper"]
+    cfg = get_arch(c["arch"])
+    print(f"phase 12b: {cfg.name} at full size ({cfg.enc_layers} + "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab},"
+          f" {cfg.param_dtype}, {cfg.optimizer}), B={c['batch']} frames of "
+          f"{c['frames']} and {c['seq']} tokens [{card}]")
+    batch = lm_batch(cfg, c["batch"], c["seq"], "cuda", c["frames"])
+    params, st = train_cell(card, "12b", cfg, batch, c["steps"])
+    loss_falls("12b", st["losses"][0], st["losses"][-1],
+               f"at step {len(st['losses'])}")
+    prefill_ms(card, "12b", cfg, params, batch)
+
+    def fill(cache):
+        """The cross cache from the encoder of the batch's frames."""
+        with torch.no_grad():
+            enc = lm_encdec.encode(cfg, params, batch["frames"])
+            for i in range(cfg.n_layers):
+                k, v = lm_encdec._enc_kv(
+                    cfg, lm_transformer._take(params["dec_layers"], i), enc)
+                cache["xk"][i].copy_(k)
+                cache["xv"][i].copy_(v)
+
+    greedy_decode(card, "12b", cfg, params, c["batch"], c["seq"], fill)
+    del params, batch
+    free_cuda()
+
+    c = TRAIN_CELLS["phi"]
+    full = get_arch(c["arch"])
+    cfg = dataclasses.replace(full, n_layers=c["layers"])
+    print(f"phase 12c: {cfg.name} at full width, depth cut from "
+          f"{full.n_layers} layers to {cfg.n_layers} (the whole model and "
+          f"Adam do not fit one card): d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.param_dtype}, {cfg.optimizer}; B={c['batch']} S={c['seq']}"
+          f" [{card}]")
+    batch = lm_batch(cfg, c["batch"], c["seq"], "cuda")
+    params, st = train_cell(card, "12c", cfg, batch, c["steps"])
+    routes = []
+    dispatch = lm_moe.dispatch
+
+    def recording(*args, **kw):
+        routes.append(dispatch(*args, **kw))
+        return routes[-1]
+
+    lm_moe.dispatch = recording
+    try:
+        with torch.no_grad():
+            h, aux, n_prefix = lm_transformer.forward(cfg, params,
+                                                      batch["tokens"])
+            nll = lm_layers.chunked_xent(
+                h[:, n_prefix:], lm_transformer.unembed_matrix(cfg, params),
+                batch["labels"], cfg.loss_chunk, pad_vocab=cfg.pad_vocab)
+    finally:
+        lm_moe.dispatch = dispatch
+    _, loss = prefill_ms(card, "12c", cfg, params, batch)
+    aux, nll = float(aux), float(nll)
+    check(math.isfinite(aux) and aux > 0, f"12c: auxiliary loss {aux}")
+    check(abs(loss - (nll + 0.01 * aux)) <= LM_LOSS_RTOL * abs(loss),
+          f"12c: loss {loss} against nll {nll} + 0.01 aux {aux}")
+    pairs = sum(r.keep.numel() for r in routes)
+    dropped = sum(int((~r.keep).sum()) for r in routes)
+    print(f"  12c: {len(routes)} MoE layers, capacity {routes[0].cap} an "
+          f"expert; {dropped} of {pairs} (token, choice) pairs dropped over "
+          f"capacity ({dropped / pairs:.2%}); aux {aux:.6f} (0.01 aux "
+          f"{0.01 * aux:.6f} of the loss {loss:.6f}, nll {nll:.6f})")
+    loss_falls("12c", st["losses"][0], loss,
+               "in the prefill after the train and profiled steps")
+    greedy_decode(card, "12c", cfg, params, LM_DECODE, c["seq"])
+    del params, batch
+    free_cuda()
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -4736,6 +5075,7 @@ def main() -> int:
     phase_gla_bf16(card, errs, times, bounds)
     for k, v in phase_lm(card).items():
         launches[k] += v
+    phase_train(card)
     kernels = []
     for name, replaces in REPLACES.items():
         b_ms, b_by = bounds[name]

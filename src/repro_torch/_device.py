@@ -15,3 +15,17 @@ def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
             "repro_torch runs on a CUDA device and none is available; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def resolve_for(generator: Optional[torch.Generator],
+                device: Optional[Union[str, torch.device]] = None
+                ) -> torch.device:
+    """``resolve(device)``, where ``generator`` (if any) must draw on that
+    device: a generator on another device raises ``ValueError`` instead of
+    moving the draws there."""
+    dev = resolve(device)
+    if generator is not None and generator.device.type != dev.type:
+        raise ValueError(
+            f"the generator draws on {generator.device} and the device asked "
+            f"for is {dev}; pass a torch.Generator(device={dev.type!r})")
+    return dev

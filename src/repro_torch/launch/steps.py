@@ -1,22 +1,49 @@
-"""Serve step builders of the LM substrate (the port of
-``repro.launch.steps``). The steps run without autograd, so the GLA
-engine of ``models/ssm.py`` takes the CUDA kernel path on the card."""
+"""Train and serve step builders of the LM substrate (the port of
+``repro.launch.steps``).
+
+The prefill and serve steps run without autograd, so the GLA engine of
+``models/ssm.py`` takes the CUDA kernel path on the card. The train step
+records autograd, so the SSD and mLSTM heads take the plain chunked
+engine, differentiated by autograd, as the reference trains through
+``gla_chunked``'s autodiff (its GLA kernel is forward only)."""
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
-from ..models import transformer, zoo
+from ..models import zoo
+from ..optim import get_optimizer
+from ..optim.optimizers import tree_leaves, tree_map, tree_unflatten
+from ..optim.schedules import cosine_schedule
 
 
-def make_train_step(cfg: ArchConfig, *args, **kwargs):
-    """Not ported yet: it needs the optimizers and schedules."""
-    raise NotImplementedError(
-        f"{cfg.name}: make_train_step is not ported yet: "
-        + transformer.NOT_PORTED.format(
-            what="optim/, launch/train.py, make_train_step"))
+def make_train_step(cfg: ArchConfig, base_lr: float = 3e-4,
+                    warmup: int = 100, total_steps: int = 10000
+                    ) -> Tuple[Callable, Callable]:
+    """Returns (train_step, opt_init). train_step: (params, opt_state,
+    batch) -> (params, opt_state, {"loss", "grad_norm"}), both float32
+    0-d tensors. The batch holds tensors on the parameters' device; the
+    parameters and the optimizer state are updated in place and returned
+    (``optim.optimizers``)."""
+    opt_init, opt_update = get_optimizer(cfg.optimizer)
+
+    def train_step(params, opt_state, batch):
+        with torch.enable_grad():
+            live = tree_map(lambda p: p.detach().requires_grad_(), params)
+            loss = zoo.loss_fn(cfg, live, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(live),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        grads = tree_unflatten(params, grads)
+        lr = cosine_schedule(opt_state.step, base_lr, warmup, total_steps)
+        params, opt_state = opt_update(params, grads, opt_state, lr)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in tree_leaves(grads)))
+        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step, opt_init
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

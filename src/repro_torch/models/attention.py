@@ -176,14 +176,20 @@ def gqa_project(p: Params, x, h: int, kh: int, hd: int):
 
 def gqa_forward(p: Params, x, positions, *, h, kh, hd, theta, window=0,
                 prefix_len=0, q_block=1024, kv_block=1024,
-                return_kv: bool = False):
-    """Prefill self-attention. x: [B, S, d]."""
+                use_custom_vjp: bool = False, return_kv: bool = False):
+    """Training / prefill self-attention. x: [B, S, d]. ``use_custom_vjp``
+    takes ``flash_vjp.flash_attention_vjp`` (the blockwise backward)."""
     q, k, v = gqa_project(p, x, h, kh, hd)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
-    out = flash_attention(q, k, v, causal=True, window=window,
-                          prefix_len=prefix_len, q_block=q_block,
-                          kv_block=kv_block)
+    if use_custom_vjp:
+        from .flash_vjp import flash_attention_vjp
+        out = flash_attention_vjp(q, k, v, True, window, 0, q_block,
+                                  kv_block, None, prefix_len)
+    else:
+        out = flash_attention(q, k, v, causal=True, window=window,
+                              prefix_len=prefix_len, q_block=q_block,
+                              kv_block=kv_block)
     out = out.reshape(*x.shape[:2], h * hd) @ p["wo"]
     return (out, (k, v)) if return_kv else out
 

@@ -11,20 +11,35 @@ Structure:
   * hymba    — SWA layers in runs around the global-attention layers
                (exact interleave, ``_hymba_segments``), 128 meta tokens
                prepended;
-  * xlstm    — groups of (slstm_group-1 mLSTM + 1 sLSTM).
+  * xlstm    — groups of (slstm_group-1 mLSTM + 1 sLSTM);
+  * moe      — every layer a top-k MoE FFN (``models/moe.py``), arctic's
+               with a parallel dense FFN (``dense_residual``).
 
-MoE layers belong to the training part of the LM substrate and raise.
+Remat (``cfg.remat``), where autograd records: "full" runs each layer
+under ``torch.utils.checkpoint`` (non-reentrant, so the layer's recompute
+runs with autograd on, like its first forward, and the GLA engine takes
+the same plain route both times); "dots" saves the matmul outputs and
+recomputes the rest (``jax.checkpoint_policies.checkpoint_dots``);
+"nothing" runs plain. The reference leaves hymba's three unrolled global
+layers outside ``jax.checkpoint``; here every layer is checkpointed, which
+changes memory, not values. Without autograd (prefill) layers run plain.
+
 Decode writes its caches in place (``init_cache``'s tensors) and returns
 them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from .. import _device
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm
 from .layers import (chunked_xent, dense_init, embed_init, init_mlp, mlp,
                      normal, rmsnorm, rmsnorm_init)
@@ -32,20 +47,35 @@ from .layers import (chunked_xent, dense_init, embed_init, init_mlp, mlp,
 Params = Dict[str, Any]
 Tensor = torch.Tensor
 
-#: What an unported part of the reference raises with.
-NOT_PORTED = ("ROADMAP.md, port order item 8(b): the LM substrate's "
-              "training part ({what})")
-
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def _no_moe(cfg: ArchConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet: "
-            + NOT_PORTED.format(what="models/moe.py"))
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``fn`` under the remat policy ``mode`` (module docstring)."""
+    if mode == "nothing":
+        return fn
+    context = {}
+    if mode == "dots":
+        context["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **context)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +83,7 @@ def _no_moe(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_layer(cfg: ArchConfig, gen, kind: str, lead, device) -> Params:
-    """kind: dense | hybrid | mlstm | slstm, stacked on ``lead``."""
+    """kind: dense | moe | hybrid | mlstm | slstm, stacked on ``lead``."""
     dt = _dtype(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     kw = dict(lead=lead, device=device)
@@ -76,7 +106,13 @@ def _init_layer(cfg: ArchConfig, gen, kind: str, lead, device) -> Params:
     if kind == "hybrid":
         p["ssd"] = ssm.init_ssd(gen, d, cfg.ssm_heads, cfg.ssm_state,
                                 cfg.ssm_expand, dt, **kw)
-    if cfg.d_ff:
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, d, cfg.d_ff, cfg.n_experts, cfg.act,
+                                    dt, **kw)
+        if cfg.dense_residual:
+            p["dense_mlp"] = init_mlp(gen, d, cfg.dense_residual_ff, cfg.act,
+                                      dt, **kw)
+    elif cfg.d_ff:
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dt, **kw)
     return p
 
@@ -93,16 +129,30 @@ def _mla_kwargs(cfg: ArchConfig):
                 v_hd=cfg.v_head_dim, theta=cfg.rope_theta, eps=cfg.norm_eps)
 
 
+def _moe_ffn(cfg: ArchConfig, lp: Params, h2, group_tokens: int):
+    """The MoE FFN (plus arctic's dense residual): (out, aux)."""
+    m, aux = moe_mod.moe_apply(lp["moe"], h2, n_experts=cfg.n_experts,
+                               top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               act=cfg.act, group_tokens=group_tokens,
+                               expert_sharding=cfg.moe_expert_sharding)
+    if cfg.dense_residual:
+        m = m + mlp(lp["dense_mlp"], h2, cfg.act)
+    return m, aux
+
+
 def _apply_layer(cfg: ArchConfig, lp: Params, x, positions, kind: str,
                  window: int):
-    """Prefill forward of one layer."""
+    """Training/prefill forward of one layer: (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "mlstm":
         return x + ssm.mlstm_forward(lp["mlstm"],
                                      rmsnorm(lp["ln"], x, cfg.norm_eps),
-                                     heads=cfg.n_heads, chunk=cfg.ssm_chunk)
+                                     heads=cfg.n_heads,
+                                     chunk=cfg.ssm_chunk), aux
     if kind == "slstm":
         return x + ssm.slstm_forward(lp["slstm"],
-                                     rmsnorm(lp["ln"], x, cfg.norm_eps))
+                                     rmsnorm(lp["ln"], x, cfg.norm_eps)), aux
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     blocks = dict(q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
     if cfg.mla:
@@ -110,16 +160,21 @@ def _apply_layer(cfg: ArchConfig, lp: Params, x, positions, kind: str,
                              **blocks)
     else:
         a = attn.gqa_forward(lp["attn"], h, positions,
-                             **_attn_kwargs(cfg, window), **blocks)
+                             **_attn_kwargs(cfg, window), **blocks,
+                             use_custom_vjp=cfg.flash_custom_vjp)
     if kind == "hybrid":
         s = ssm.ssd_forward(lp["ssd"], h, heads=cfg.ssm_heads,
                             state=cfg.ssm_state, expand=cfg.ssm_expand,
                             chunk=cfg.ssm_chunk)
         a = 0.5 * (a + s)                    # hymba: parallel heads, fused
     x = x + a
-    if cfg.d_ff:
-        x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.act)
-    return x
+    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if kind == "moe":
+        m, aux = _moe_ffn(cfg, lp, h2, cfg.moe_group_tokens)
+        x = x + m
+    elif cfg.d_ff:
+        x = x + mlp(lp["mlp"], h2, cfg.act)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -133,17 +188,16 @@ def _layer_plan(cfg: ArchConfig):
         return ("xlstm", cfg.n_layers // g, g)
     if cfg.hybrid_ssm:
         return ("hymba",)
-    return ("dense",)                 # every layer alike (MoE raises)
+    return ("uniform", "moe" if cfg.moe else "dense")
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator,
+def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
                 device=None) -> Params:
     """The reference's parameter tree, leaf for leaf (shapes and dtypes),
-    drawn from the same distributions with ``gen`` on ``device`` (the
-    generator's own by default; ``gen`` None draws from torch's default
-    generator, and on the meta device nothing is drawn)."""
-    _no_moe(cfg)
-    device = torch.device(device) if device is not None else gen.device
+    drawn from the same distributions with ``gen`` on ``device`` (``None``:
+    the card; ``gen`` must draw there, and ``gen`` None draws from torch's
+    default generator; on the meta device nothing is drawn)."""
+    device = _device.resolve_for(gen, device)
     dt = _dtype(cfg)
     p: Params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, device),
                  "final_norm": rmsnorm_init(cfg.d_model, dt, device=device)}
@@ -166,7 +220,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
             "swa": _init_layer(cfg, gen, "hybrid",
                                (cfg.n_layers - n_global,), device)}
     else:
-        p["layers"] = _init_layer(cfg, gen, "dense", (cfg.n_layers,), device)
+        p["layers"] = _init_layer(cfg, gen, plan[1], (cfg.n_layers,), device)
     return p
 
 
@@ -211,9 +265,8 @@ def _hymba_layers(cfg: ArchConfig):
 def forward(cfg: ArchConfig, params: Params, tokens: Tensor,
             extra_embeds: Optional[Tensor] = None):
     """tokens: [B, S_text]; extra_embeds (vlm patches): [B, P, d].
-    Returns (hidden [B, S_total, d], n_prefix) where n_prefix = meta +
-    extra positions that carry no loss."""
-    _no_moe(cfg)
+    Returns (hidden [B, S_total, d], aux_loss, n_prefix) where n_prefix =
+    meta + extra positions that carry no loss."""
     x = params["embed"][tokens]
     n_prefix = 0
     if extra_embeds is not None:
@@ -229,20 +282,23 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor,
     plan = _layer_plan(cfg)
     layers = params["layers"]
     if plan[0] == "xlstm":
+        order = []
         for gi in range(plan[1]):
-            for i in range(plan[2] - 1):
-                x = _apply_layer(cfg, _take(_take(layers["m"], gi), i), x,
-                                 positions, "mlstm", 0)
-            x = _apply_layer(cfg, _take(layers["s"], gi), x, positions,
-                             "slstm", 0)
+            order += [(_take(_take(layers["m"], gi), i), "mlstm", 0)
+                      for i in range(plan[2] - 1)]
+            order.append((_take(layers["s"], gi), "slstm", 0))
     elif plan[0] == "hymba":
-        for stack, i, window in _hymba_layers(cfg):
-            x = _apply_layer(cfg, _take(layers[stack], i), x, positions,
-                             "hybrid", window)
+        order = [(_take(layers[stack], i), "hybrid", window)
+                 for stack, i, window in _hymba_layers(cfg)]
     else:
-        for i in range(cfg.n_layers):
-            x = _apply_layer(cfg, _take(layers, i), x, positions, "dense", 0)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), n_prefix
+        order = [(_take(layers, i), plan[1], 0) for i in range(cfg.n_layers)]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, kind, window in order:
+        layer = _remat(functools.partial(_apply_layer, cfg, kind=kind,
+                                         window=window), cfg.remat)
+        x, a = layer(lp, x, positions)
+        aux = aux + a
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux, n_prefix
 
 
 def unembed_matrix(cfg: ArchConfig, params: Params) -> Tensor:
@@ -251,13 +307,14 @@ def unembed_matrix(cfg: ArchConfig, params: Params) -> Tensor:
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]):
     """batch: tokens [B,S], labels [B,S] (-1 = masked), optional
-    vision_embeds. Returns the scalar loss (fp32). The reference adds
-    0.01 times the MoE auxiliary loss, 0 for every ported family."""
-    h, n_prefix = forward(cfg, params, batch["tokens"],
-                          batch.get("vision_embeds"))
+    vision_embeds. Returns the scalar loss (fp32): the mean NLL plus 0.01
+    times the MoE auxiliary loss (0 without MoE layers)."""
+    h, aux, n_prefix = forward(cfg, params, batch["tokens"],
+                               batch.get("vision_embeds"))
     h = h[:, n_prefix:]                       # loss only over text positions
-    return chunked_xent(h, unembed_matrix(cfg, params), batch["labels"],
-                        cfg.loss_chunk, pad_vocab=cfg.pad_vocab)
+    nll = chunked_xent(h, unembed_matrix(cfg, params), batch["labels"],
+                       cfg.loss_chunk, pad_vocab=cfg.pad_vocab)
+    return nll + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -266,8 +323,9 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> Params:
-    """Cache tree for one-token decode (the reference's shapes)."""
-    _no_moe(cfg)
+    """Cache tree for one-token decode (the reference's shapes), on
+    ``device`` (``None``: the card)."""
+    device = _device.resolve(device)
     dt = _dtype(cfg)
     hd = cfg.resolved_head_dim
     L = cfg.n_layers
@@ -335,8 +393,11 @@ def _decode_layer(cfg: ArchConfig, lp, cache_l, x, cache_len: int, kind,
         cache_l["ssm"].copy_(ssm_state)
         a = 0.5 * (a + s_out)
     x = x + a
-    if cfg.d_ff:
-        x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.act)
+    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if kind == "moe":
+        x = x + _moe_ffn(cfg, lp, h2, x.shape[0])[0]
+    elif cfg.d_ff:
+        x = x + mlp(lp["mlp"], h2, cfg.act)
     return x
 
 
@@ -345,7 +406,6 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Params, cache_len,
     """One-token decode. token: [B, 1] int; cache_len: int (or a 0-d
     tensor) — positions already in the cache (incl. meta tokens). Returns
     (logits [B, V] float32, cache), the cache written in place."""
-    _no_moe(cfg)
     cache_len = int(cache_len)
     x = params["embed"][token]
     plan = _layer_plan(cfg)
@@ -366,6 +426,6 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Params, cache_len,
     else:
         for i in range(cfg.n_layers):
             x = _decode_layer(cfg, _take(layers, i), _take(cache, i), x,
-                              cache_len, "dense", 0)
+                              cache_len, plan[1], 0)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (x[:, 0] @ unembed_matrix(cfg, params)).float(), cache

@@ -8,46 +8,48 @@
   input_specs(cfg, shape_name)          -> dict of TensorSpec
   make_batch(cfg, shape_name, b, s, g)  -> a random batch
 
-The enc-dec family (whisper) belongs to the training part of the LM
-substrate and raises.
+Every entry point that makes tensors puts them on ``device``, the card when
+it is ``None``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import _device
 from ..configs.base import SHAPES, ArchConfig
-from . import transformer
+from . import encdec, transformer
 
 Params = Dict[str, Any]
 
-
-def _no_encdec(cfg: ArchConfig) -> None:
-    if cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the enc-dec family is not ported yet: "
-            + transformer.NOT_PORTED.format(what="models/encdec.py"))
+#: The encoder context of the enc-dec family's cross cache (the stub
+#: frontend's 1500 frames, whisper's 30 s window).
+ENC_LEN = 1500
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator,
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator],
                 device=None) -> Params:
-    _no_encdec(cfg)
+    if cfg.encdec:
+        return encdec.init_params(cfg, generator, device)
     return transformer.init_params(cfg, generator, device)
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch):
-    _no_encdec(cfg)
+    if cfg.encdec:
+        return encdec.loss_fn(cfg, params, batch)
     return transformer.loss_fn(cfg, params, batch)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    _no_encdec(cfg)
+    if cfg.encdec:
+        return encdec.init_cache(cfg, batch, max_len, ENC_LEN, device)
     return transformer.init_cache(cfg, batch, max_len, device)
 
 
 def decode_fn(cfg: ArchConfig, params: Params, cache, cache_len, token):
-    _no_encdec(cfg)
+    if cfg.encdec:
+        return encdec.decode_step(cfg, params, cache, cache_len, token)
     return transformer.decode_step(cfg, params, cache, cache_len, token)
 
 
@@ -87,23 +89,28 @@ def input_specs(cfg: ArchConfig, shape_name: str,
 def make_batch(cfg: ArchConfig, shape_name: str, batch: int, seq: int,
                generator: torch.Generator, device=None) -> Dict[str, Any]:
     """A random batch for smoke runs (reduced sizes), drawn with
-    ``generator`` on ``device`` (the generator's own by default)."""
-    _no_encdec(cfg)
+    ``generator`` on ``device`` (``None``: the card; ``generator`` must
+    draw there)."""
     cell = SHAPES[shape_name]
-    device = device if device is not None else generator.device
+    device = _device.resolve_for(generator, device)
     dt = getattr(torch, cfg.param_dtype)
 
-    def ints(*shape):
+    def ints(*shape):                      # int32, as the reference's
         return torch.randint(0, cfg.vocab, shape, generator=generator,
-                             device=device)
+                             device=device, dtype=torch.int32)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device).to(dt)
 
     if cell.kind in ("train", "prefill"):
+        if cfg.encdec:
+            return {"frames": normal(batch, seq, cfg.d_model),
+                    "tokens": ints(batch, seq), "labels": ints(batch, seq)}
         if cfg.vision_prefix:
             st = max(seq - cfg.vision_prefix, 8)
             tokens = ints(batch, st)
-            return {"vision_embeds": torch.randn(
-                        (batch, cfg.vision_prefix, cfg.d_model),
-                        generator=generator, device=device).to(dt),
+            return {"vision_embeds": normal(batch, cfg.vision_prefix,
+                                            cfg.d_model),
                     "tokens": tokens, "labels": ints(batch, st)}
         return {"tokens": ints(batch, seq), "labels": ints(batch, seq)}
     return {"token": ints(batch, 1), "cache_len": seq - 1}

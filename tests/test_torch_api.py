@@ -347,7 +347,9 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.core.distributed, repro_torch.core.tuner, "
             "repro_torch.core.autotune, repro_torch.roofline, "
             "repro_torch.roofline.pso_cost, repro_torch.configs, "
-            "repro_torch.models, repro_torch.launch.steps\n"
+            "repro_torch.models, repro_torch.launch.steps, "
+            "repro_torch.launch.train, repro_torch.optim, "
+            "repro_torch.data\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -1,8 +1,10 @@
 """The LM substrate's serving path (``repro_torch.configs``, ``models``,
 ``launch.steps``) against the JAX reference (``repro.configs``,
 ``repro.models``) on the CPU, at smoke size in float32, with the
-reference's weights carried across by ``models.convert.params_from_jax``.
-Its building blocks: ``tests/test_torch_lm_blocks.py``.
+reference's weights carried across by ``models.convert.params_from_jax``,
+and the entry points' device rule (``None`` means the card). Its building
+blocks: ``tests/test_torch_lm_blocks.py``; training:
+``tests/test_torch_train.py``.
 
 Inputs are made from numpy seeds. Tolerances, float32 throughout: whole
 models (loss, decode logits) rtol = atol = 1e-4, sums over a few hundred
@@ -32,10 +34,12 @@ except ModuleNotFoundError:     # a CUDA host may have no JAX installed
 torch.set_num_threads(1)
 
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
-#: The archs whose serving path is ported, each a family: hybrid (SSD heads,
-#: SWA, meta tokens), xLSTM (mLSTM/sLSTM), dense MHA, MLA, VLM prefix.
+#: One arch of each family: hybrid (SSD heads, SWA, meta tokens), xLSTM
+#: (mLSTM/sLSTM), dense MHA, MLA, VLM prefix, MoE (top-2, and arctic's with
+#: a dense residual), enc-dec (whisper: stub frames, cross-attention).
 ARCHS = ["hymba-1.5b", "xlstm-350m", "stablelm-3b", "minicpm3-4b",
-         "llava-next-34b"]
+         "llava-next-34b", "phi3.5-moe-42b-a6.6b", "arctic-480b",
+         "whisper-small"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -102,7 +106,10 @@ def arch(request):
     if cfg.vision_prefix:
         batch["vision_embeds"] = _normal(r, 2, cfg.vision_prefix,
                                          cfg.d_model)
-    return cfg, cfg_j, jp, convert.params_from_jax(cfg, tree), batch, r
+    if cfg.encdec:
+        batch["frames"] = _normal(r, 2, 64, cfg.d_model)
+    return (cfg, cfg_j, jp, convert.params_from_jax(cfg, tree, "cpu"), batch,
+            r)
 
 
 def test_params_layout_equals_reference(arch):
@@ -157,7 +164,7 @@ def test_serve_step_matches_reference(arch):
     fed to both."""
     cfg, cfg_j, jp, params, _, r = arch
     jc = j_zoo.init_cache(cfg_j, 2, 16)
-    tc = t_zoo.init_cache(cfg, 2, 16)
+    tc = t_zoo.init_cache(cfg, 2, 16, "cpu")
     assert [tuple(a.shape) for a in jax.tree.leaves(tc)] == \
         [a.shape for a in jax.tree.leaves(jc)]
     decode = jax.jit(lambda p, c, n, t: j_zoo.decode_fn(cfg_j, p, c, n, t))
@@ -182,27 +189,57 @@ def test_input_specs_and_batches_equal_reference():
                     for g in got.values()] == \
                 [(w.shape, str(w.dtype)) for w in want.values()]
     cfg = t_configs.get_arch("llava-next-34b").smoke()
-    b = t_zoo.make_batch(cfg, "train_4k", 2, 40, torch.Generator())
-    want = j_zoo.make_batch(j_configs.get_arch("llava-next-34b").smoke(),
-                            "train_4k", 2, 40, jax.random.key(0))
-    assert {k: tuple(v.shape) for k, v in b.items()} == \
-        {k: v.shape for k, v in want.items()}
+    for name in ("llava-next-34b", "whisper-small"):
+        cfg = t_configs.get_arch(name).smoke()
+        b = t_zoo.make_batch(cfg, "train_4k", 2, 40, torch.Generator(),
+                             "cpu")
+        want = j_zoo.make_batch(j_configs.get_arch(name).smoke(),
+                                "train_4k", 2, 40, jax.random.key(0))
+        assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+                for k, v in b.items()} == \
+            {k: (v.shape, str(v.dtype)) for k, v in want.items()}
 
 
-@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "arctic-480b",
-                                  "whisper-small"])
-def test_unported_families_raise(name):
-    """MoE and enc-dec belong to the training part of item 8."""
-    cfg = t_configs.get_arch(name).smoke()
-    gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_zoo.init_params(cfg, gen, "cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_zoo.init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_zoo.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 8, dtype=int),
-                                "labels": torch.zeros(1, 8, dtype=int)})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_steps.make_serve_step(cfg)({}, {}, 0, torch.zeros(1, 1, dtype=int))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_steps.make_train_step(cfg)
+def test_entry_points_default_to_the_card():
+    """``None`` means the card: without one, ``init_params``,
+    ``init_cache``, ``make_batch``, ``tree_from_numpy`` and
+    ``params_from_jax`` raise ``RuntimeError`` unless given ``device="cpu"``;
+    a generator on another device than the one asked for raises
+    ``ValueError``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the no-card error cannot occur")
+    gen = torch.Generator().manual_seed(0)
+    for name in ("stablelm-3b", "phi3.5-moe-42b-a6.6b", "whisper-small"):
+        cfg = t_configs.get_arch(name).smoke()
+        calls = {
+            "init_params": lambda d: t_zoo.init_params(cfg, gen, *d),
+            "init_cache": lambda d: t_zoo.init_cache(cfg, 1, 8, *d),
+            "make_batch": lambda d: t_zoo.make_batch(cfg, "train_4k", 1, 8,
+                                                     gen, *d),
+            "tree_from_numpy": lambda d: convert.tree_from_numpy(
+                {"w": np.ones(3, np.float32)}, *d),
+            "params_from_jax": lambda d: convert.params_from_jax(
+                cfg, jax.tree.map(np.asarray, j_zoo.init_params(
+                    j_configs.get_arch(name).smoke(), jax.random.key(0))),
+                *d),
+        }
+        for what, call in calls.items():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call(())
+            tree = call(("cpu",))
+            leaves = jax.tree.leaves(tree)
+            assert leaves and all(t.device.type == "cpu" for t in leaves
+                                  if isinstance(t, torch.Tensor)), what
+        with pytest.raises(ValueError, match="generator"):
+            t_zoo.init_params(cfg, gen, "meta")
+        with pytest.raises(ValueError, match="generator"):
+            t_zoo.make_batch(cfg, "train_4k", 1, 8, gen, "meta")
+
+
+def test_params_from_jax_refuses_another_config():
+    cfg = t_configs.get_arch("stablelm-3b").smoke()
+    tree = jax.tree.map(np.asarray, j_zoo.init_params(
+        j_configs.get_arch("phi3.5-moe-42b-a6.6b").smoke(),
+        jax.random.key(0)))
+    with pytest.raises(ValueError, match="parameters"):
+        convert.params_from_jax(cfg, tree, "cpu")

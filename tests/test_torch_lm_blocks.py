@@ -67,7 +67,7 @@ def _close(got, want, tol=BLOCK_TOL):
 
 def _carry(tree):
     """The reference's jnp tree as the port's tensors."""
-    return convert.tree_from_numpy(jax.tree.map(np.asarray, tree))
+    return convert.tree_from_numpy(jax.tree.map(np.asarray, tree), "cpu")
 
 
 # --- building blocks ---------------------------------------------------------
