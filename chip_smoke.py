@@ -164,6 +164,22 @@ encoder; 12c phi-3.5-MoE at full width, its depth cut from 32 layers to 2
 S=4096 (one dispatch group, capacity 640 an expert), the auxiliary loss in
 the loss, the share of (token, choice) pairs dropped over capacity, then
 prefill and 16 decode tokens. Phase 12 adds no launch to the JSON line.
+13, the LM substrate's tooling (``roofline/{analysis,piecewise}.py``,
+``launch/dryrun.py``, ``examples/``): 13a the one-card dry run over all 40
+(arch x shape) cells in a background process on the host (meta device,
+nothing launched on the card), one row a cell (parameters, argument and
+temporary GB, whether it fits the card, t_compute and t_memory at H100
+rates, the bottleneck), none failing, started after 13b's timings; 13b
+two pieces counted and timed on the card, on one route (hymba-1.5B's SWA
+hybrid layer forward at B=1 S=4096, which launches the bfloat16 GLA
+kernel, its work added to the count, and stablelm-3b's dense layer
+forward and backward), each at or above its counted roofline (the meta
+device's count, the plain GLA engine's, printed beside it), the MFU of
+11b's prefill and 12a's train step, and 12a's peak memory estimated on
+the meta device within [0.5, 2] of the measured peak; 13c ``examples.train_lm`` (200 steps, a checkpoint every 100, the
+loss falling, then resumed from step 100 within
+``TRAIN_LM_RESUME_RTOL``) and ``examples.tune_lm_hparams`` at its
+defaults. Its GLA launches (13b) count under the ``gla_bf16`` row.
 """
 import concurrent.futures
 import ctypes
@@ -226,6 +242,14 @@ try:    # nor its training path
     from repro_torch.optim.optimizers import tree_leaves, tree_map
 except ImportError:
     SyntheticLM = None
+try:    # nor its tooling (roofline, dry run, examples)
+    from repro_torch.examples import train_lm as lm_train_lm
+    from repro_torch.examples import tune_lm_hparams as lm_tune
+    from repro_torch.optim import get_optimizer as lm_get_optimizer
+    from repro_torch.roofline import analysis as lm_ra
+    from repro_torch.roofline import piecewise as lm_pw
+except ImportError:
+    lm_pw = None
 
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and 67 TFLOP/s of
@@ -4451,16 +4475,25 @@ def gla_bf16_err(got, want):
     return float(err.max()), bool((err <= tol).all())
 
 
-def gla_bf16_bound(bh: int, s: int, n: int, p: int, chunk: int):
-    """(ms, by) of the bfloat16 kernel path: q, k, v read and y written once
-    as bfloat16 and both float32 gates read once, at the HBM rate, against
-    q k^T and (q k^T o W) v as bfloat16 MMAs at the dense BF16 rate and q H
-    and the state update (float32 operands in the reference) as three TF32
-    MMAs each."""
+def gla_bf16_work(bh: int, s: int, n: int, p: int, chunk: int):
+    """(bytes, intra, carry) of one call of the bfloat16 kernel path on
+    folded operands: q, k, v read and y written once as bfloat16 and both
+    float32 gates read once; the multiply-adds of q k^T and (q k^T o W) v
+    within the chunks (causal), and of q H and the state update across
+    them."""
     nbytes = 2 * bh * s * (2 * n + 2 * p) + 4 * bh * s * 2
     nc = s // chunk
     intra = bh * nc * (chunk * (chunk + 1) // 2) * (n + p)
     carry = bh * 2 * (nc - 1) * chunk * n * p
+    return nbytes, intra, carry
+
+
+def gla_bf16_bound(bh: int, s: int, n: int, p: int, chunk: int):
+    """(ms, by) of the bfloat16 kernel path (``gla_bf16_work``): its bytes
+    at the HBM rate, against q k^T and (q k^T o W) v as bfloat16 MMAs at
+    the dense BF16 rate and q H and the state update (float32 operands in
+    the reference) as three TF32 MMAs each."""
+    nbytes, intra, carry = gla_bf16_work(bh, s, n, p, chunk)
     by_bytes = nbytes / HBM_BYTES_PER_S
     by_ops = 2 * intra / BF16_OPS_PER_S + 3 * 2 * carry / TF32_OPS_PER_S
     return (1e3 * max(by_bytes, by_ops),
@@ -4555,6 +4588,10 @@ def phase_gla_bf16(card: str, errs: dict, times: dict, bounds: dict) -> None:
 # prefill B=1 S=4096 (4224 positions with the meta tokens), decode B=4
 # from an empty cache of 4096.
 LM_ARCH, LM_PREFILL, LM_DECODE, LM_TOKENS = "hymba-1.5b", (1, 4096), 4, 16
+#: Phases 11b's and 12a's measurements, which phase 13 holds against the
+#: roofline: {"11b": {"ms", "tokens"}, "12a": {"ms", "tokens", "peak",
+#: "batch", "seq"}}.
+LM_TIMES = {}
 # The whole model's loss, kernel route against plain route: the SSD heads'
 # outputs differ within the bf16 GLA bound above, in a model whose
 # activations are bfloat16, so the two losses agree to the resolution of
@@ -4618,6 +4655,7 @@ def phase_lm(card: str) -> dict:
     check(abs(loss - plain_loss) <= LM_LOSS_RTOL * abs(plain_loss),
           f"prefill loss {loss} against the plain route's {plain_loss}")
     ms = us / 1e3
+    LM_TIMES["11b"] = dict(ms=ms, tokens=b * s)
     print(f"  prefill B={b} S={s} ({s + cfg.meta_tokens} positions): loss "
           f"{loss:.6f} (plain GLA route {plain_loss:.6f}, |diff| "
           f"{abs(loss - plain_loss):.3g}), {ms:.2f} ms, "
@@ -4912,6 +4950,8 @@ def phase_train(card: str) -> None:
           f"SyntheticLM, lr {TRAIN_LR} warm-up {TRAIN_WARMUP} [{card}]")
     batch = lm_batch(cfg, c["batch"], c["seq"], "cuda")
     params, st = train_cell(card, "12a", cfg, batch, c["steps"])
+    LM_TIMES["12a"] = dict(ms=st["ms"], tokens=batch["tokens"].numel(),
+                           peak=st["peak"], batch=c["batch"], seq=c["seq"])
     prefill = lm_steps.make_prefill_step(cfg)
     zero_counts()
     after = float(prefill(params, batch))
@@ -5001,6 +5041,244 @@ def phase_train(card: str) -> None:
     print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the LM substrate's tooling: the one-card dry run (meta device,
+# piecewise), its roofline held against the card, and the two LM examples.
+# ---------------------------------------------------------------------------
+
+#: 13b's two pieces: (label, arch, piece name, batch, tokens, forward only).
+ROOF_PIECES = (("hymba hybrid_swa forward", "hymba-1.5b", "hybrid_swa", 1,
+                4096, True),
+               ("stablelm dense train", "stablelm-3b", "dense", 1, 4096,
+                False))
+#: 13c: train_lm's run (the example's defaults, 200 steps, a checkpoint
+#: every 100) and the resumed run's tolerance against it. The resumed
+#: run's first step computes the same forward from the restored weights
+#: (rtol 1e-6); later steps go through the embedding's backward, whose
+#: atomic sums on the card need not repeat bit for bit, through Adam
+#: (rtol 1e-4 on each loss; the card has repeated them exactly).
+TRAIN_LM_STEPS, TRAIN_LM_RESUME_RTOL = 200, (1e-6, 1e-4)
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun.json"
+
+
+def start_dryrun() -> subprocess.Popen:
+    """13a in the background: the port's dry run over all 40 cells, on the
+    host's meta device (one process, beside 13c on the card; started after
+    13b's timings, which it would slow on the host)."""
+    if DRYRUN_OUT.exists():
+        DRYRUN_OUT.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+         "--shape", "all", "--out", str(DRYRUN_OUT)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_dryrun(card: str, proc: subprocess.Popen, t0: float) -> dict:
+    """13a's rows: one a cell, from the dry run's JSON."""
+    out, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"13a: the dry run exits 0 ({out[-2000:]})")
+    res = json.loads(DRYRUN_OUT.read_text())
+    status = [r["status"] for r in res.values()]
+    check("fail" not in status and len(res) == 40,
+          f"13a: 40 cells, none failed ({status.count('ok')} ok, "
+          f"{status.count('skip')} skip)")
+    print(f"phase 13a: the one-card dry run (meta device, piecewise), "
+          f"{status.count('ok')} cells ok and {status.count('skip')} "
+          f"defined skips in {time.perf_counter() - t0:.1f} s of wall time "
+          f"beside 13c; memory against {next(iter(r['capacity_from'] for r in res.values() if r['status'] == 'ok'))} [{card}]")
+    for key in sorted(res):
+        r = res[key]
+        if r["status"] != "ok":
+            continue
+        print(f"  13a {key}: {r['params_total'] / 1e9:.3f} B params "
+              f"({r['params_active'] / 1e9:.3f} B active), argument "
+              f"{r['mem_argument_gb']:.2f} GB + temp {r['mem_temp_gb']:.2f} "
+              f"GB, fits {r['fits']}; t_compute {r['t_compute'] * 1e3:.3f} "
+              f"ms, t_memory {r['t_memory'] * 1e3:.3f} ms at H100 rates, "
+              f"{r['bottleneck']}-bound, useful ratio "
+              f"{r['useful_ratio']:.3f}, traced in {r['t_trace_s']} s")
+    return res
+
+
+def count_on_card(run) -> dict:
+    """``piecewise.measure_run`` of ``run`` on the card: the eager ops that
+    its timed runs dispatch, on their route (the GLA engine takes the kernel
+    path there, the plain chunked GLA on the meta device). A kernel launch
+    is no aten op, so each bf16 GLA launch adds its own work
+    (``gla_bf16_work``: its bytes, and its multiply-adds as matmul flops).
+    Returns the totals and the GLA launches counted."""
+    real, work = gla._launch, []
+
+    def launch(q, k, v, log_decay, log_inc, chunk):
+        work.append(gla_bf16_work(q.shape[0], q.shape[1], q.shape[2],
+                                  v.shape[2], chunk))
+        return real(q, k, v, log_decay, log_inc, chunk)
+
+    gla._launch = launch
+    try:
+        count = lm_pw.measure_run(run)
+    finally:
+        gla._launch = real
+    for nbytes, intra, carry in work:
+        count["bytes"] += nbytes
+        count["flops"] += 2 * (intra + carry)
+        count["mm_flops"] += 2 * (intra + carry)
+    return count, len(work)
+
+
+def roof_piece(card: str, label: str, arch: str, piece: str, b: int,
+               tokens: int, fwd: bool) -> int:
+    """One piece of ``piecewise`` counted and timed on the card at the same
+    config, shapes and route (forward under no_grad, or forward and
+    backward under the config's remat): the time at or above the count's
+    roofline. The meta device's count (the dry run's, the plain GLA engine
+    on the hybrid piece) is printed beside it. Returns the GLA launches
+    of the timed runs."""
+    cfg = lm_pw._analysis_cfg(get_arch(arch))
+    s_total = tokens + cfg.meta_tokens
+    _, kind, window, _, sp, _ = next(
+        p for p in lm_pw.layer_plan_pieces(cfg, s_total) if p[0] == piece)
+    meta = lm_pw.measure_run(lm_pw.train_layer_run(cfg, kind, window, b, sp,
+                                                   fwd))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    run = lm_pw.train_layer_run(cfg, kind, window, b, sp, fwd, "cuda", gen)
+    count, counted_launches = count_on_card(run)
+    zero_counts()
+    reps = 5
+    ms = sync_time(lambda: lm_pw.execute(run), reps) * 1e3
+    launches = read_counts()["gla_bf16"]
+    check(launches == counted_launches * (reps + 1),
+          f"13b {label}: the counted run and the timed runs take one route "
+          f"({counted_launches} GLA launch(es) counted, {launches} in "
+          f"{reps + 1} timed runs)")
+
+    def roof(c):
+        return max(c["flops"] / lm_ra.PEAK_FLOPS,
+                   c["bytes"] / lm_ra.HBM_BW) * 1e3
+
+    t_c = count["flops"] / lm_ra.PEAK_FLOPS * 1e3
+    t_m = count["bytes"] / lm_ra.HBM_BW * 1e3
+    bound = max(t_c, t_m)
+    check(ms >= bound, f"13b {label}: {ms:.3f} ms at or above its roofline "
+          f"{bound:.3f} ms")
+    print(f"  13b {label} ({arch}, {kind}, B={b} S={sp}, "
+          f"{cfg.param_dtype}, remat {cfg.remat}): counted on the card's "
+          f"route {count['flops']:.4e} flops ({count['mm_flops']:.4e} in "
+          f"matmuls), {count['bytes']:.4e} bytes unfused; roofline "
+          f"t_compute {t_c:.3f} ms, t_memory {t_m:.3f} ms; measured "
+          f"{ms:.3f} ms (CUDA events, {reps} runs after a warm one), "
+          f"{ms / bound:.2f}x the roofline; GLA launches {launches}; the "
+          f"meta device's count {meta['flops']:.4e} flops, "
+          f"{meta['bytes']:.4e} bytes, roofline {roof(meta):.3f} ms "
+          f"({ms / roof(meta):.2f}x) [{card}]")
+    del run
+    free_cuda()
+    return launches
+
+
+def mfu_and_memory(card: str) -> None:
+    """MODEL_FLOPS over 11b's prefill and 12a's step times at the bf16
+    peak; 12a's memory estimated on the meta device (arguments + the
+    piecewise temp) against its measured peak."""
+    cfg = get_arch(LM_ARCH)
+    params = lm_zoo.abstract_params(cfg)
+    for key, kind in (("11b", "prefill"), ("12a", "train")):
+        t = LM_TIMES[key]
+        mf = lm_ra.model_flops(cfg, params, kind, t["tokens"])
+        print(f"  13b MFU of {key}'s {kind} ({cfg.name}, {t['tokens']} "
+              f"tokens): MODEL_FLOPS {mf:.4e} over {t['ms']:.2f} ms at "
+              f"{lm_ra.PEAK_FLOPS:.3g} FLOP/s = "
+              f"{mf / (t['ms'] / 1e3 * lm_ra.PEAK_FLOPS):.2%} [{card}]")
+    t = LM_TIMES["12a"]
+    pw = lm_pw.analyze_cell_piecewise(cfg, "train_4k", batch=t["batch"],
+                                      seq=t["seq"])
+    state = lm_get_optimizer(cfg.optimizer)[0](params)
+    arg = sum(x.numel() * x.element_size()
+              for x in tree_leaves((params, state.inner)))
+    arg += 2 * t["batch"] * t["seq"] * 4                # tokens, labels
+    est = (arg + pw["mem_temp_dev"]) / 2 ** 30
+    ratio = est / t["peak"]
+    check(0.5 <= ratio <= 2, f"13b: 12a's memory estimate {est:.2f} GiB "
+          f"within [0.5, 2] of the measured {t['peak']:.2f} GiB")
+    print(f"  13b 12a's peak memory: estimated {est:.2f} GiB on the meta "
+          f"device (arguments {arg / 2 ** 30:.2f} GiB: bf16 params, Adam's "
+          f"float32 m and v, the batch; temp {pw['mem_temp_dev'] / 2 ** 30:.2f}"
+          f" GiB from the pieces), measured {t['peak']:.2f} GiB "
+          f"(max_memory_allocated), ratio {ratio:.3f} [{card}]")
+
+
+def examples_on_card(card: str) -> None:
+    """13c: train_lm for 200 steps with a checkpoint every 100, then
+    resumed from step 100 (the step-200 checkpoint removed: a run that
+    stopped there); tune_lm_hparams at its defaults (6 particles, 4
+    iterations, stablelm-3b smoke)."""
+    cfg = lm_train_lm.hundred_m_config()
+    ckpt_dir = ROOT / "build" / "chip_smoke_train_lm"
+    kw = dict(steps=TRAIN_LM_STEPS, batch=8, seq=256, lr=3e-4,
+              ckpt_dir=str(ckpt_dir), device="cuda")
+    print(f"phase 13c: examples.train_lm ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}), "
+          f"{TRAIN_LM_STEPS} steps of B=8 S=256, a checkpoint every 100 "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    first, _, _ = lm_train_lm.train(cfg, **kw)
+    t_first = time.perf_counter() - t0
+    steps = sorted(first)
+    check(first[steps[-1]] < first[steps[0]],
+          f"13c: train_lm's loss falls ({first[steps[0]]} -> "
+          f"{first[steps[-1]]})")
+    shutil.rmtree(ckpt_dir / f"step_{TRAIN_LM_STEPS:08d}")
+    t0 = time.perf_counter()
+    resumed, _, _ = lm_train_lm.train(cfg, resume=True, **kw)
+    t_resumed = time.perf_counter() - t0
+    half = TRAIN_LM_STEPS // 2
+    check(sorted(resumed) == list(range(half, TRAIN_LM_STEPS)),
+          "13c: the resumed run starts at step 100")
+    rel = {k: abs(resumed[k] - first[k]) / abs(first[k]) for k in resumed}
+    tight, loose = TRAIN_LM_RESUME_RTOL
+    check(rel[half] <= tight and max(rel.values()) <= loose,
+          f"13c: resumed losses against the first run's (step {half} "
+          f"rel {rel[half]:.3g}, worst {max(rel.values()):.3g})")
+    print(f"  13c train_lm: loss {first[steps[0]]:.4f} -> "
+          f"{first[steps[-1]]:.4f} in {t_first:.1f} s (checkpoints "
+          f"included); resumed from step {half} in {t_resumed:.1f} s, its "
+          f"losses against the first run's: step {half} rel "
+          f"{rel[half]:.3g}, worst rel {max(rel.values()):.3g} (tolerances "
+          f"{tight:g} and {loose:g}) [{card}]")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free_cuda()
+    t0 = time.perf_counter()
+    print(f"  13c tune_lm_hparams --device cuda (6 particles x 4 "
+          f"iterations, stablelm-3b smoke) [{card}]")
+    check(lm_tune.main(["--device", "cuda"]) == 0, "13c: tune_lm_hparams")
+    print(f"  13c tune_lm_hparams: {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    free_cuda()
+
+
+def phase_tooling(card: str) -> dict:
+    """13a-13c (the module docstring). Returns 13b's GLA launches."""
+    t0 = time.perf_counter()
+    print(f"phase 13b: piecewise roofline counts against the card, H100 "
+          f"rates {lm_ra.PEAK_FLOPS:.3g} FLOP/s bf16 and {lm_ra.HBM_BW:.3g} "
+          f"B/s [{card}]")
+    gla = sum(roof_piece(card, *p) for p in ROOF_PIECES)
+    check(gla > 0, "13b: the hymba piece launches the bf16 GLA kernel")
+    mfu_and_memory(card)
+    t_dry = time.perf_counter()
+    proc = start_dryrun()
+    try:
+        examples_on_card(card)
+        finish_dryrun(card, proc, t_dry)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"gla_bf16": gla}
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -5076,6 +5354,8 @@ def main() -> int:
     for k, v in phase_lm(card).items():
         launches[k] += v
     phase_train(card)
+    for k, v in phase_tooling(card).items():
+        launches[k] += v
     kernels = []
     for name, replaces in REPLACES.items():
         b_ms, b_by = bounds[name]

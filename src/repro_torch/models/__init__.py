@@ -1,11 +1,11 @@
 """The LM substrate's models (the port of ``repro.models``):
 ``attention``, ``layers``, ``ssm``, ``moe``, ``flash_vjp``, ``encdec``,
 ``transformer`` and ``zoo``; ``convert`` carries the reference's weights
-across. ``policy`` and ``unroll`` are not ported yet (ROADMAP.md, port
-order item 8(c)); ``policy``'s sharding hints are the identity on one
-device."""
-from . import (attention, convert, encdec, flash_vjp, layers, moe, ssm,
-               transformer, zoo)
+across. ``unroll`` keeps the reference's scan switch (``maybe_scan`` is a
+Python loop in eager torch), and ``policy`` its activation-sharding hints,
+which are the identity on one card."""
+from . import (attention, convert, encdec, flash_vjp, layers, moe, policy,
+               ssm, transformer, unroll, zoo)
 
 __all__ = ["attention", "convert", "encdec", "flash_vjp", "layers", "moe",
-           "ssm", "transformer", "zoo"]
+           "policy", "ssm", "transformer", "unroll", "zoo"]

@@ -6,10 +6,14 @@
   decode_fn(cfg, params, cache, n, tok) -> (logits, cache)
   init_cache(cfg, batch, max_len)       -> cache tree
   input_specs(cfg, shape_name)          -> dict of TensorSpec
+  abstract_params(cfg)                  -> params tree on the meta device
+  abstract_cache(cfg, shape_name)       -> cache tree on the meta device
   make_batch(cfg, shape_name, b, s, g)  -> a random batch
 
 Every entry point that makes tensors puts them on ``device``, the card when
-it is ``None``.
+it is ``None``. The two ``abstract_*`` trees (the reference's
+``jax.eval_shape`` stand-ins) are meta tensors: shapes and dtypes, no
+storage, at any size.
 """
 from __future__ import annotations
 
@@ -33,6 +37,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator],
     if cfg.encdec:
         return encdec.init_params(cfg, generator, device)
     return transformer.init_params(cfg, generator, device)
+
+
+def abstract_params(cfg: ArchConfig) -> Params:
+    """Shape-only params for the dry run (no allocation)."""
+    return init_params(cfg, None, device="meta")
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch):
@@ -84,6 +93,12 @@ def input_specs(cfg: ArchConfig, shape_name: str,
     # decode: one new token against a cache of length s
     return {"token": TensorSpec((b, 1), i32),
             "cache_len": TensorSpec((), i32)}
+
+
+def abstract_cache(cfg: ArchConfig, shape_name: str) -> Params:
+    """Shape-only decode cache of one shape cell (no allocation)."""
+    cell = SHAPES[shape_name]
+    return init_cache(cfg, cell.global_batch, cell.seq_len, device="meta")
 
 
 def make_batch(cfg: ArchConfig, shape_name: str, batch: int, seq: int,

@@ -218,12 +218,19 @@ class _OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        name = func.overloadpacket.__name__.rstrip("_")
+        self._count(func, args, out)
+        return out
+
+    @staticmethod
+    def _is_view(func) -> bool:
         schema = func._schema
-        view = (not schema.is_mutable
+        return (not schema.is_mutable
                 and any(r.alias_info is not None for r in schema.returns))
-        if view or name in _NO_WORK:
-            return out
+
+    def _count(self, func, args, out) -> None:
+        name = func.overloadpacket.__name__.rstrip("_")
+        if self._is_view(func) or name in _NO_WORK:
+            return
         first = _numel(args[0]) if args else 0
         result = _numel(out[0] if isinstance(out, (tuple, list)) else out)
         if name in _REDUCTIONS:
@@ -236,7 +243,6 @@ class _OpCounter(TorchDispatchMode):
         else:
             self.flops += result
         self.calls += 1
-        return out
 
 
 _MEASURED: Dict[Tuple[str, int, str], Tuple[OpMix, int]] = {}

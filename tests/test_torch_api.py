@@ -349,7 +349,11 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.roofline.pso_cost, repro_torch.configs, "
             "repro_torch.models, repro_torch.launch.steps, "
             "repro_torch.launch.train, repro_torch.optim, "
-            "repro_torch.data\n"
+            "repro_torch.data, repro_torch.launch.dryrun, "
+            "repro_torch.launch.hillclimb, repro_torch.launch.sharding, "
+            "repro_torch.roofline.piecewise, repro_torch.roofline.report, "
+            "repro_torch.examples.train_lm, "
+            "repro_torch.examples.tune_lm_hparams\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -36,10 +36,11 @@ torch.set_num_threads(1)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 #: One arch of each family: hybrid (SSD heads, SWA, meta tokens), xLSTM
 #: (mLSTM/sLSTM), dense MHA, MLA, VLM prefix, MoE (top-2, and arctic's with
-#: a dense residual), enc-dec (whisper: stub frames, cross-attention).
+#: a dense residual), enc-dec (whisper: stub frames, cross-attention);
+#: and the two dense GQA archs with qkv biases (qwen2-7b, qwen1.5-110b).
 ARCHS = ["hymba-1.5b", "xlstm-350m", "stablelm-3b", "minicpm3-4b",
          "llava-next-34b", "phi3.5-moe-42b-a6.6b", "arctic-480b",
-         "whisper-small"]
+         "whisper-small", "qwen2-7b", "qwen1.5-110b"]
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -19,6 +19,13 @@ the second the parameters. Tolerances, float32:
   |ĝ| < 1e-5 (grads that are zero or cancel to rounding noise) the update
   g/(|g| + eps) is rounding noise itself, |Δ| <= 3 lr. The test reports how
   many entries fall in the loose regime.
+- Adafactor (arctic-480b, llava-next-34b, qwen1.5-110b): the factored
+  second moments (vr, vc, v) as Adam's v; the bfloat16 momentum m, leaf by
+  leaf, |Δm| <= 2^-5 max|m| (measured up to 1.5%: entries whose grads are
+  rounding noise get an O(1) normalized update either way) with at most
+  0.1% of its entries more than one bfloat16 ulp (2^-7 |m|) apart
+  (measured 0.02%); parameters, leaf by leaf, |Δ| <= 2^-5 times the
+  reference's largest change of that leaf in the step (measured 1.4%).
 """
 import dataclasses
 
@@ -46,7 +53,9 @@ except ModuleNotFoundError:     # a CUDA host may have no JAX installed
 torch.set_num_threads(1)
 
 ARCHS = ["stablelm-3b", "hymba-1.5b", "xlstm-350m", "phi3.5-moe-42b-a6.6b",
-         "whisper-small"]
+         "whisper-small", "arctic-480b", "llava-next-34b", "qwen1.5-110b"]
+#: Adafactor's bounds (module docstring).
+ADAFACTOR_M, ADAFACTOR_FAR, ADAFACTOR_P = 2.0 ** -5, 1e-3, 2.0 ** -5
 LR, WARMUP, TOTAL = 1e-2, 1, 10
 B2 = 0.95
 
@@ -99,11 +108,13 @@ def runs(request):
                     (float(tm["loss"]), float(tm["grad_norm"]),
                      [a.float().numpy().copy() for a in tree_leaves(tp)],
                      int(ts.step), tree_map(torch.clone, ts.inner))))
-    return name, out
+    out.insert(0, [np.asarray(a, np.float32) for a in jax.tree.leaves(
+        j_zoo.init_params(cfg_j, jax.random.key(0)))])
+    return name, cfg.optimizer, out
 
 
 def test_train_loss_and_grad_norm_match_reference(runs):
-    _, out = runs
+    _, _, (_, *out) = runs
     for want, got in out:
         np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
         np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
@@ -113,9 +124,14 @@ def test_train_loss_and_grad_norm_match_reference(runs):
 
 @pytest.mark.parametrize("step", [0, 1])
 def test_train_state_matches_reference(runs, step):
-    """Parameters and Adam's moments after one and after two steps."""
-    name, out = runs
+    """Parameters and the optimizer's moments after one and after two
+    steps."""
+    name, optimizer, (init, *out) = runs
     want, got = out[step]
+    if optimizer == "adafactor":
+        before = init if step == 0 else out[step - 1][0][2]
+        _adafactor_state_matches(name, step, want, got, before)
+        return
     m_j, v_j = want[4]["m"], want[4]["v"]
     m_t, v_t = got[4]["m"], got[4]["v"]
     for tree_j, tree_t in ((m_j, m_t), (v_j, v_t)):
@@ -132,6 +148,32 @@ def test_train_state_matches_reference(runs, step):
     total = sum(p.size for p in want[2])
     print(f"{name} step {step + 1}: {loose} of {total} entries in the loose "
           "regime")
+    if step == 0:
+        for p_j, p_t in zip(want[2], got[2]):
+            np.testing.assert_array_equal(p_t, p_j)   # lr 0: unchanged
+
+
+def _adafactor_state_matches(name, step, want, got, before):
+    """Adafactor's bounds (module docstring)."""
+    js = jax.tree_util.tree_flatten_with_path(want[4])[0]
+    ts = jax.tree_util.tree_flatten_with_path(got[4])[0]
+    assert [p for p, _ in ts] == [p for p, _ in js]
+    far = total = 0
+    for (path, a), (_, b) in zip(js, ts):
+        a, b = np.asarray(a, np.float32), b.float().numpy()
+        if jax.tree_util.keystr(path).endswith("['m']"):
+            d = np.abs(b - a)
+            assert d.max() <= ADAFACTOR_M * np.abs(a).max(), (name, path)
+            far += int((d > 2.0 ** -7 * np.abs(a)).sum())
+            total += a.size
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-6)
+    assert far <= ADAFACTOR_FAR * total, (name, far, total)
+    for p0, p_j, p_t in zip(before, want[2], got[2]):
+        moved = np.abs(p_j - p0).max()
+        assert np.abs(p_t - p_j).max() <= ADAFACTOR_P * moved, name
+    print(f"{name} step {step + 1}: {far} of {total} momentum entries more "
+          "than one bfloat16 ulp apart")
     if step == 0:
         for p_j, p_t in zip(want[2], got[2]):
             np.testing.assert_array_equal(p_t, p_j)   # lr 0: unchanged
