@@ -156,8 +156,9 @@ finite, inside the smoke bound and falling, then the same model's no-grad
 prefill with its 32 bfloat16 GLA launches; step ms, tokens/s, peak
 memory, the device idle share and the largest kernels; one train step of
 ``hymba-1.5b.smoke()`` in float32 on the card against the CPU port's
-(``TRAIN_CPU_TOL``); 12b whisper-small at full size (12 + 12 layers, B=4
-frames of 1500, 448 tokens): 3 train steps, then ``make_prefill_step`` and
+(``TRAIN_CPU_TOL``; its prefill loss and 4 decode steps too); 12b
+whisper-small at full size (12 + 12 layers, B=4 frames of 1500, 448
+tokens): 3 train steps, then ``make_prefill_step`` and
 16 greedy tokens from ``init_cache`` with the cross cache filled from the
 encoder; 12c phi-3.5-MoE at full width, its depth cut from 32 layers to 2
 (the whole model and Adam do not fit one card): 2 train steps on B=1
@@ -179,7 +180,29 @@ device's count, the plain GLA engine's, printed beside it), the MFU of
 the meta device within [0.5, 2] of the measured peak; 13c ``examples.train_lm`` (200 steps, a checkpoint every 100, the
 loss falling, then resumed from step 100 within
 ``TRAIN_LM_RESUME_RTOL``) and ``examples.tune_lm_hparams`` at its
-defaults. Its GLA launches (13b) count under the ``gla_bf16`` row.
+defaults. Its GLA launches (13b) count under the ``gla_bf16`` row. 14,
+the zoo's seven other archs and the PSO examples: 14a xlstm-350m,
+stablelm-3b, minicpm3-4b, qwen2-7b, llava-next-34b, qwen1.5-110b and
+arctic-480b at their published widths in bfloat16 from a seed, each with
+a ``make_prefill_step`` at B=1 S=4096 (llava's 576-row vision prefix
+within it; xLSTM-350M's 20 mLSTM layers each one bfloat16 GLA launch, its
+loss within ``LM_LOSS_RTOL`` of the plain GLA route's, its sLSTM time
+loops' share of the host time), ``ZOO_DECODE_TOKENS`` greedy
+``make_serve_step`` tokens at B=4 from an empty cache of 4096, and a
+warm-up train step under the profiler and a timed one at B=1 S=4096 with
+the arch's optimizer (no GLA launch, the loss falling): ms, tokens/s,
+the peak memory beside the meta-device estimate (``zoo_estimate``) and
+the device idle share; the depth cut only where the estimate of the
+arch's own depth passes ``ZOO_FIT_GIB`` (``ZOO_PLAN``, each cut printed
+with the estimates that force it; arctic-480b's train step a defined
+skip); then each arch's ``.smoke()`` config on the card against the CPU
+port (``train_cpu_against_card``: the prefill loss, 4 decode steps, 2
+train steps); 14b ``examples.quickstart``, ``constrained`` and
+``custom_objective`` at their own sizes through their ``main`` (their
+printed lines, ``constrained``'s and ``custom_objective``'s asserts), and
+``python -m repro_torch.examples.custom_objective`` in a subprocess. Its
+launches (14a's bfloat16 GLA, 14b's fused, async and split kernels) count
+under their rows.
 """
 import concurrent.futures
 import ctypes
@@ -238,6 +261,7 @@ try:    # nor its training path
     from repro_torch.models import encdec as lm_encdec
     from repro_torch.models import layers as lm_layers
     from repro_torch.models import moe as lm_moe
+    from repro_torch.models import ssm as lm_ssm
     from repro_torch.models import transformer as lm_transformer
     from repro_torch.optim.optimizers import tree_leaves, tree_map
 except ImportError:
@@ -245,11 +269,18 @@ except ImportError:
 try:    # nor its tooling (roofline, dry run, examples)
     from repro_torch.examples import train_lm as lm_train_lm
     from repro_torch.examples import tune_lm_hparams as lm_tune
+    from repro_torch.launch import dryrun as lm_dryrun
     from repro_torch.optim import get_optimizer as lm_get_optimizer
     from repro_torch.roofline import analysis as lm_ra
     from repro_torch.roofline import piecewise as lm_pw
 except ImportError:
     lm_pw = None
+try:    # nor the PSO examples
+    from repro_torch.examples import constrained as ex_constrained
+    from repro_torch.examples import custom_objective as ex_custom
+    from repro_torch.examples import quickstart as ex_quickstart
+except ImportError:
+    ex_quickstart = None
 
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and 67 TFLOP/s of
@@ -2015,11 +2046,26 @@ def flush_l2() -> None:
     _L2_SCRUB[0].sum()
 
 
+def device_events(prof):
+    """(name, device us) of each device event of a finished
+    torch.profiler run: read from the profiler's raw kineto events where
+    the profiler keeps them (no per-event Python object is built, so a
+    host-bound step of millions of launches sums in seconds), else from
+    ``prof.events()``."""
+    from torch.autograd import DeviceType
+    raw = getattr(getattr(prof.profiler, "kineto_results", None), "events",
+                  None)
+    if raw is not None:
+        return ((e.name(), e.duration_ns() / 1e3) for e in raw()
+                if e.device_type() == DeviceType.CUDA)
+    return ((e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA)
+
+
 def kernel_device_us(fn, reps: int = 3, warm: bool = True) -> dict:
     """Device us a call of each kernel that ``fn`` launches, summed by name
     (template arguments kept) under torch.profiler over ``reps`` calls
     after a warm one (``warm``); empty if three tries record nothing."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
@@ -2030,12 +2076,13 @@ def kernel_device_us(fn, reps: int = 3, warm: bool = True) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                m = re.search(r"::(\w+(?:<[^>(]*>)?)\(", e.name)
-                name = m[1] if m else e.name[:40]
-                out[name] = (out.get(name, 0.0)
-                             + e.time_range.elapsed_us() / reps)
+        by_symbol = {}
+        for symbol, us in device_events(prof):
+            by_symbol[symbol] = by_symbol.get(symbol, 0.0) + us
+        for symbol, us in by_symbol.items():
+            m = re.search(r"::(\w+(?:<[^>(]*>)?)\(", symbol)
+            name = m[1] if m else symbol[:40]
+            out[name] = out.get(name, 0.0) + us / reps
         if out:
             break
     return out
@@ -4736,8 +4783,8 @@ TRAIN_CELLS = dict(
                  steps=3),
     phi=dict(arch="phi3.5-moe-42b-a6.6b", batch=1, seq=4096, steps=2,
              layers=2))
-#: One float32 train step (two, so that the second moves the weights) of
-#: hymba-1.5b.smoke() on the card against the CPU port, TF32 off: loss and
+#: Two float32 train steps (the second moves the weights) of an arch's
+#: ``.smoke()`` config on the card against the CPU port, TF32 off: loss and
 #: grad norm rtol 1e-5, Adam's moments rtol 1e-4 atol 1e-6, and the
 #: weights by the regime of the CPU's |g^| = sqrt(v / (1 - b2^t)): where
 #: |g^| >= 1e-5 (1000 eps) Adam's update is ~sign(g), |d| <= 1e-6; below,
@@ -4746,28 +4793,48 @@ TRAIN_CELLS = dict(
 TRAIN_CPU_LR = 1e-2
 TRAIN_CPU_TOL = dict(loss=1e-5, moments=(1e-4, 1e-6), tight=1e-6,
                      regime=1e-5, loose=3 * TRAIN_CPU_LR)
+#: The smoke configs' prefill loss and decode logits, card against the
+#: CPU: (rtol, atol), tests/test_torch_lm.py's bound on the CPU port
+#: against JAX.
+SMOKE_TOL = (1e-4, 1e-4)
+#: Adafactor's train step, card against the CPU (tests/test_torch_train.py's
+#: bounds against JAX): the bfloat16 momentum, leaf by leaf, within 2^-5 of
+#: its largest |m| with at most 0.1% of its entries beyond one bfloat16 ulp
+#: (2^-7 |m|); the factored moments as Adam's (rtol 1e-4, atol 1e-6); the
+#: weights, leaf by leaf, within 2^-5 of the CPU's largest change of that
+#: leaf in the steps.
+ADAFACTOR_TOL = dict(m=2.0 ** -5, far=1e-3, moments=(1e-4, 1e-6),
+                     p=2.0 ** -5)
 
 
 def lm_batch(cfg, b: int, s: int, device, frames: int = 0) -> dict:
     """``SyntheticLM``'s step-0 batch (seed 0) on ``device``; enc-dec
-    configs also take ``frames`` stub frame embeddings from a seed."""
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=s,
+    configs also take ``frames`` stub frame embeddings from a seed, and a
+    vision-prefix config (llava) its prefix of patch embeddings from a seed
+    in the first ``cfg.vision_prefix`` of the ``s`` positions, as
+    ``zoo.make_batch`` lays it out."""
+    text = s - cfg.vision_prefix
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=text,
                                   global_batch=b, seed=0)).batch(0)
     batch = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
-    if frames:
-        gen = torch.Generator(device=device).manual_seed(0)
-        batch["frames"] = torch.randn(
-            (b, frames, cfg.d_model), generator=gen, device=device).to(
-                getattr(torch, cfg.param_dtype))
+    gen = torch.Generator(device=device).manual_seed(0)
+    for key, rows in (("frames", frames),
+                      ("vision_embeds", cfg.vision_prefix)):
+        if rows:
+            batch[key] = torch.randn(
+                (b, rows, cfg.d_model), generator=gen, device=device).to(
+                    getattr(torch, cfg.param_dtype))
     return batch
 
 
-def train_cell(card: str, label: str, cfg, batch: dict, steps: int):
+def train_cell(card: str, label: str, cfg, batch: dict, steps: int,
+               profile_warmup: bool = False):
     """``steps`` train steps of ``cfg`` from the port's own init (seed 0)
     on one repeated batch: the first a warm-up, the rest timed on the host
     clock (synchronised); the GLA counters must read 0 through them. Then
     one more step under torch.profiler (the idle share, the largest
-    kernels). Returns (params, stats)."""
+    kernels), or with ``profile_warmup`` the warm-up step under it in its
+    place. Returns (params, stats)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = lm_zoo.init_params(cfg, gen, "cuda")
@@ -4780,8 +4847,18 @@ def train_cell(card: str, label: str, cfg, batch: dict, steps: int):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     losses, gnorms, host_ms = [], [], []
+    per = None
     for i in range(steps):
-        us, (params, opt, m) = host_us(lambda: step(params, opt, batch), 1)
+        if i == 0 and profile_warmup:
+            out, t = [], time.perf_counter()
+            per = kernel_device_us(
+                lambda: out.append(step(params, opt, batch)), reps=1,
+                warm=False)
+            params, opt, m = out[-1]
+            prof_s = time.perf_counter() - t
+        else:
+            us, (params, opt, m) = host_us(lambda: step(params, opt, batch),
+                                           1)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
         if i:
@@ -4797,8 +4874,11 @@ def train_cell(card: str, label: str, cfg, batch: dict, steps: int):
           f"{label}: grad norms {gnorms} finite")
     ms = sum(host_ms) / len(host_ms)
     tokens = batch["tokens"].numel()
-    per = kernel_device_us(lambda: step(params, opt, batch), reps=1,
-                           warm=False)
+    if per is None:
+        t = time.perf_counter()
+        per = kernel_device_us(lambda: step(params, opt, batch), reps=1,
+                               warm=False)
+        prof_s = time.perf_counter() - t
     busy = sum(per.values()) / 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
     print(f"  {label}: {n_params / 1e9:.3f} B parameters ({cfg.param_dtype}"
@@ -4809,7 +4889,9 @@ def train_cell(card: str, label: str, cfg, batch: dict, steps: int):
           + ", ".join(f"{x:.2f}" for x in host_ms)
           + f"), {tokens / (ms / 1e3):.0f} tokens/s, peak memory "
           f"{peak:.2f} GiB, GLA launches 0 [{card}]")
-    print(f"  {label} step device time (torch.profiler): {busy:.2f} ms, the "
+    print(f"  {label} step device time (torch.profiler"
+          + (", the warm-up step" if profile_warmup else "")
+          + f", {prof_s:.1f} s with its processing): {busy:.2f} ms, the "
           f"device idle {max(0.0, 1 - busy / ms):.1%} of the host's "
           f"{ms:.2f} ms; the largest: " + ", ".join(
               f"{k} {v / 1e3:.2f} ms" for k, v in top) + f" [{card}]")
@@ -4826,10 +4908,11 @@ def loss_falls(label: str, first: float, after: float, when: str) -> None:
 
 
 def greedy_decode(card: str, label: str, cfg, params, b: int, max_len: int,
-                  fill=None) -> None:
-    """16 greedy ``make_serve_step`` tokens (the loop is this script's)
-    from ``init_cache(b, max_len)`` (``fill(cache)`` first, if given):
-    finite logits, ms a token."""
+                  fill=None, tokens: int = LM_TOKENS):
+    """``tokens`` greedy ``make_serve_step`` tokens (the loop is this
+    script's) from ``init_cache(b, max_len)`` (``fill(cache)`` first, if
+    given): finite logits, ms a token. The peak memory is reset after the
+    warm-up run. Returns (ms a token, the first tokens)."""
     serve = lm_steps.make_serve_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(1)
     first = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device="cuda")
@@ -4841,22 +4924,24 @@ def greedy_decode(card: str, label: str, cfg, params, b: int, max_len: int,
         tok, out = first, []
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for n in range(LM_TOKENS):
+        for n in range(tokens):
             logits, cache = serve(params, cache, n, tok)
             tok = logits.argmax(-1, keepdim=True)
             out.append(logits)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t) / LM_TOKENS * 1e3, out
+        return (time.perf_counter() - t) / tokens * 1e3, out
 
     run()                                                      # warm-up
+    torch.cuda.reset_peak_memory_stats()
     ms_token, logits = run()
     check(all(tuple(x.shape) == (b, cfg.vocab) and
               bool(torch.isfinite(x).all()) for x in logits),
           f"{label}: finite decode logits")
-    print(f"  {label} decode: {LM_TOKENS} greedy tokens, B={b}, "
+    print(f"  {label} decode: {tokens} greedy tokens, B={b}, "
           f"{ms_token:.2f} ms a token, {b / (ms_token / 1e3):.0f} tokens/s, "
           f"|logits| up to {max(float(x.abs().max()) for x in logits):.3g} "
           f"[{card}]")
+    return ms_token, first
 
 
 def prefill_ms(card: str, label: str, cfg, params, batch):
@@ -4871,47 +4956,75 @@ def prefill_ms(card: str, label: str, cfg, params, batch):
     return us / 1e3, float(loss)
 
 
-def train_cpu_against_card(card: str) -> None:
-    """12a's check of the card against the CPU (``TRAIN_CPU_TOL``)."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        cfg = get_arch("hymba-1.5b").smoke()
-        params = lm_zoo.init_params(cfg, torch.Generator().manual_seed(0),
-                                    "cpu")
-        runs = {}
-        for dev in ("cpu", "cuda"):
-            p = tree_map(lambda t: t.clone().to(dev), params)
-            step, init = lm_steps.make_train_step(cfg, TRAIN_CPU_LR, 1, 10)
-            opt, batch = init(p), lm_batch(cfg, 2, 64, dev)
-            metrics = []
-            for _ in range(2):
-                p, opt, m = step(p, opt, batch)
-                metrics.append((float(m["loss"]), float(m["grad_norm"])))
-            runs[dev] = metrics, p, opt
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    (want, wp, wo), (got, gp, go) = runs["cpu"], runs["cuda"]
+def keyed_leaves(tree, path: str = ""):
+    """(path, tensor) of each leaf, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from keyed_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from keyed_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def adafactor_against(label: str, got, want, params, wp, p0) -> str:
+    """Adafactor's state and weights on the card against the CPU by
+    ``ADAFACTOR_TOL``; returns what it measured."""
+    tol = ADAFACTOR_TOL
+    far = total = 0
+    worst_m = worst_v = 0.0
+    for (path, a), (_, b) in zip(keyed_leaves(got.inner),
+                                 keyed_leaves(want.inner)):
+        a, b = a.float().cpu(), b.float()
+        d = (a - b).abs()
+        if path.endswith("/m"):
+            worst_m = max(worst_m, float(d.max()) / max(
+                float(b.abs().max()), 1e-30))
+            check(float(d.max()) <= tol["m"] * float(b.abs().max()),
+                  f"{label}: Adafactor's m {path} on the card against the "
+                  f"CPU")
+            far += int((d > 2.0 ** -7 * b.abs()).sum())
+            total += d.numel()
+        else:
+            worst_v = max(worst_v, float(d.max()))
+            check(bool((d <= tol["moments"][1]
+                        + tol["moments"][0] * b.abs()).all()),
+                  f"{label}: Adafactor's {path} on the card against the CPU")
+    check(far <= tol["far"] * total, f"{label}: {far} of {total} momentum "
+          f"entries more than one bfloat16 ulp apart")
+    worst_p = 0.0
+    for a, b, b0 in zip(tree_leaves(params), tree_leaves(wp),
+                        tree_leaves(p0)):
+        d = float((a.cpu() - b).abs().max())
+        moved = float((b - b0).abs().max())
+        worst_p = max(worst_p, d / max(moved, 1e-30))
+        check(d <= tol["p"] * moved, f"{label}: weights on the card against "
+              f"the CPU, |d| {d:.3g} over the step's {moved:.3g}")
+    return (f"Adafactor's m max |d| {worst_m:.3g} of its largest |m|, "
+            f"{far} of {total} entries beyond one bf16 ulp; factored "
+            f"moments max |d| {worst_v:.3g}; weights max |d| {worst_p:.3g} "
+            f"of the leaf's largest step")
+
+
+def adam_against(label: str, got, want, params, wp) -> str:
+    """Adam's moments and the weights on the card against the CPU by
+    ``TRAIN_CPU_TOL``; returns what it measured."""
     tol = TRAIN_CPU_TOL
-    for (wl, wg), (gl, gg) in zip(want, got):
-        check(abs(gl - wl) <= tol["loss"] * abs(wl)
-              and abs(gg - wg) <= tol["loss"] * abs(wg),
-              f"12a smoke: loss/grad norm {gl}/{gg} on the card against "
-              f"{wl}/{wg} on the CPU")
     rtol, atol = tol["moments"]
     worst_m = 0.0
     for key in ("m", "v"):
-        for a, b in zip(tree_leaves(go.inner[key]),
-                        tree_leaves(wo.inner[key])):
+        for a, b in zip(tree_leaves(got.inner[key]),
+                        tree_leaves(want.inner[key])):
             a = a.cpu()
             worst_m = max(worst_m, float((a - b).abs().max()))
             check(bool(((a - b).abs() <= atol + rtol * b.abs()).all()),
-                  f"12a smoke: Adam's {key} on the card against the CPU")
-    c2 = 1 - 0.95 ** int(wo.step)
+                  f"{label}: Adam's {key} on the card against the CPU")
+    c2 = 1 - 0.95 ** int(want.step)
     loose = total = 0
     worst = [0.0, 0.0]
-    for a, b, v in zip(tree_leaves(gp), tree_leaves(wp),
-                       tree_leaves(wo.inner["v"])):
+    for a, b, v in zip(tree_leaves(params), tree_leaves(wp),
+                       tree_leaves(want.inner["v"])):
         d = (a.cpu() - b).abs()
         tight = torch.sqrt(v / c2) >= tol["regime"]
         if bool(tight.any()):
@@ -4921,16 +5034,77 @@ def train_cpu_against_card(card: str) -> None:
         loose += int((~tight).sum())
         total += d.numel()
     check(worst[0] <= tol["tight"] and worst[1] <= tol["loose"],
-          f"12a smoke: weights on the card against the CPU, max |d| "
+          f"{label}: weights on the card against the CPU, max |d| "
           f"{worst[0]:.3g} (|g^| >= {tol['regime']}) and {worst[1]:.3g} "
           f"(below)")
-    print(f"  12a hymba-1.5b.smoke() float32, 2 train steps, card against "
-          f"the CPU port: losses {[x[0] for x in got]} against "
-          f"{[x[0] for x in want]}, grad norms {[x[1] for x in got]} against "
-          f"{[x[1] for x in want]}; moments max |d| {worst_m:.3g}; weights "
-          f"max |d| {worst[0]:.3g} where |g^| >= {tol['regime']}, "
-          f"{worst[1]:.3g} in the {loose} of {total} entries below "
-          f"[{card}]")
+    return (f"moments max |d| {worst_m:.3g}; weights max |d| "
+            f"{worst[0]:.3g} where |g^| >= {tol['regime']}, {worst[1]:.3g} "
+            f"in the {loose} of {total} entries below")
+
+
+def train_cpu_against_card(card: str, arch: str = "hymba-1.5b",
+                           label: str = "12a") -> None:
+    """``arch``'s ``.smoke()`` config in float32, TF32 off, on the card
+    against the CPU port from the same weights (drawn on the CPU) and the
+    same batch (B=2, S=64): the prefill loss and 4 greedy decode steps'
+    logits from ``init_cache(2, 16)`` within ``SMOKE_TOL``, and two train
+    steps (the first at lr 0): loss and grad norm, Adam's moments and the
+    weights by ``TRAIN_CPU_TOL``, or Adafactor's by ``ADAFACTOR_TOL``."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_arch(arch).smoke()
+        params = lm_zoo.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        batch = lm_batch(cfg, 2, 64, "cpu")
+        toks = torch.randint(0, cfg.vocab, (4, 2, 1),
+                             generator=torch.Generator().manual_seed(1))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.clone().to(dev), params)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            loss = float(lm_steps.make_prefill_step(cfg)(p, b))
+            serve = lm_steps.make_serve_step(cfg)
+            cache = lm_zoo.init_cache(cfg, 2, 16, device=dev)
+            logits = []
+            for n in range(4):
+                out, cache = serve(p, cache, n, toks[n].to(dev))
+                logits.append(out.float().cpu())
+            step, init = lm_steps.make_train_step(cfg, TRAIN_CPU_LR, 1, 10)
+            opt = init(p)
+            metrics = []
+            for _ in range(2):
+                p, opt, m = step(p, opt, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = loss, logits, metrics, p, opt
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (wl0, wlog, want, wp, wo), (gl0, glog, got, gp, go) = \
+        runs["cpu"], runs["cuda"]
+    rtol, atol = SMOKE_TOL
+    check(abs(gl0 - wl0) <= atol + rtol * abs(wl0),
+          f"{label} smoke: prefill loss {gl0} on the card against {wl0}")
+    worst_logit = max(float((a - b).abs().max()) for a, b in zip(glog, wlog))
+    check(all(bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+              for a, b in zip(glog, wlog)),
+          f"{label} smoke: decode logits on the card against the CPU, max "
+          f"|d| {worst_logit:.3g}")
+    tol = TRAIN_CPU_TOL
+    for (wl, wg), (gl, gg) in zip(want, got):
+        check(abs(gl - wl) <= tol["loss"] * abs(wl)
+              and abs(gg - wg) <= tol["loss"] * abs(wg),
+              f"{label} smoke: loss/grad norm {gl}/{gg} on the card against "
+              f"{wl}/{wg} on the CPU")
+    if cfg.optimizer == "adafactor":
+        state = adafactor_against(f"{label} smoke", go, wo, gp, wp, params)
+    else:
+        state = adam_against(f"{label} smoke", go, wo, gp, wp)
+    print(f"  {label} {arch}.smoke() float32, card against the CPU port: "
+          f"prefill loss {gl0:.7f} against {wl0:.7f}; 4 decode steps' "
+          f"logits max |d| {worst_logit:.3g}; 2 train steps ({cfg.optimizer}"
+          f"): losses {[x[0] for x in got]} against {[x[0] for x in want]},"
+          f" grad norms {[x[1] for x in got]} against "
+          f"{[x[1] for x in want]}; {state} [{card}]")
 
 
 def free_cuda() -> None:
@@ -5191,20 +5365,15 @@ def mfu_and_memory(card: str) -> None:
               f"{lm_ra.PEAK_FLOPS:.3g} FLOP/s = "
               f"{mf / (t['ms'] / 1e3 * lm_ra.PEAK_FLOPS):.2%} [{card}]")
     t = LM_TIMES["12a"]
-    pw = lm_pw.analyze_cell_piecewise(cfg, "train_4k", batch=t["batch"],
-                                      seq=t["seq"])
-    state = lm_get_optimizer(cfg.optimizer)[0](params)
-    arg = sum(x.numel() * x.element_size()
-              for x in tree_leaves((params, state.inner)))
-    arg += 2 * t["batch"] * t["seq"] * 4                # tokens, labels
-    est = (arg + pw["mem_temp_dev"]) / 2 ** 30
+    arg, temp = zoo_estimate(cfg, "train", (t["batch"], t["seq"]))
+    est = (arg + temp) / 2 ** 30
     ratio = est / t["peak"]
     check(0.5 <= ratio <= 2, f"13b: 12a's memory estimate {est:.2f} GiB "
           f"within [0.5, 2] of the measured {t['peak']:.2f} GiB")
     print(f"  13b 12a's peak memory: estimated {est:.2f} GiB on the meta "
           f"device (arguments {arg / 2 ** 30:.2f} GiB: bf16 params, Adam's "
-          f"float32 m and v, the batch; temp {pw['mem_temp_dev'] / 2 ** 30:.2f}"
-          f" GiB from the pieces), measured {t['peak']:.2f} GiB "
+          f"float32 m and v, the batch; temp {temp / 2 ** 30:.2f} GiB from "
+          f"the pieces), measured {t['peak']:.2f} GiB "
           f"(max_memory_allocated), ratio {ratio:.3f} [{card}]")
 
 
@@ -5277,6 +5446,374 @@ def phase_tooling(card: str) -> dict:
             proc.wait()
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s [{card}]")
     return {"gla_bf16": gla}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the zoo's seven other archs at full width on the card, and the
+# three PSO examples.
+# ---------------------------------------------------------------------------
+
+#: 14a's archs, in order.
+ZOO_ARCHS = ("xlstm-350m", "stablelm-3b", "minicpm3-4b", "qwen2-7b",
+             "llava-next-34b", "qwen1.5-110b", "arctic-480b")
+#: 14a's cells, (B, S): a no-grad prefill (llava's 576-row vision prefix in
+#: the first of its S positions, as ``zoo.make_batch`` lays it out), greedy
+#: decode from an empty cache of S, a train step.
+ZOO_SHAPES = dict(prefill=(1, 4096), decode=(4, 4096), train=(1, 4096))
+#: The most a cell may take by the meta-device estimate (``zoo_estimate``),
+#: GiB, of a card's 79.18: 90% of 80 GiB for a no-grad prefill or decode
+#: (their measured peaks came within 1% of the estimate), 80% for a train
+#: step, whose peak ran 1.045 of its estimate (minicpm3-4b) and beyond
+#: (qwen2-7b at 20 layers, estimated 70.33 GiB, ran out of memory with
+#: 71.61 GiB allocated and 4.31 GiB held free by the allocator).
+ZOO_FIT_GIB = dict(prefill=72.0, decode=72.0, train=64.0)
+#: Each cell's depth: the arch's own where the meta estimate fits
+#: ``ZOO_FIT_GIB`` of its mode, else the largest depth that does (``zoo_depth``; 0: no
+#: depth fits, a defined skip). Widths, vocabularies, head and expert
+#: counts are the published ones (``src/repro_torch/configs``).
+#: tests/test_torch_zoo_plan.py recomputes every entry on the meta device.
+ZOO_PLAN = {
+    "xlstm-350m": dict(prefill=24, decode=24, train=24),
+    "stablelm-3b": dict(prefill=32, decode=32, train=32),
+    "minicpm3-4b": dict(prefill=62, decode=62, train=62),
+    "qwen2-7b": dict(prefill=28, decode=28, train=17),
+    "llava-next-34b": dict(prefill=60, decode=60, train=7),
+    "qwen1.5-110b": dict(prefill=25, decode=25, train=1),
+    "arctic-480b": dict(prefill=2, decode=2, train=0),
+}
+#: Train steps of a cell, a warm-up under the profiler and one timed, and
+#: greedy decode tokens (after as many warm-up tokens): with a warm-up, two
+#: timed and a profiled step and 16 tokens phase 14 ran ~335 s on its own,
+#: xLSTM-350M's sLSTM time loops 44-51 s a train step.
+ZOO_TRAIN_STEPS, ZOO_DECODE_TOKENS = 2, 8
+
+
+def zoo_cfg(arch: str, layers: int):
+    """``arch``'s config at ``layers`` layers (its own at its own depth)."""
+    full = get_arch(arch)
+    return full if layers == full.n_layers else dataclasses.replace(
+        full, n_layers=layers)
+
+
+def zoo_estimate(cfg, mode: str, shape=None):
+    """The meta-device memory estimate of one ``mode`` cell at
+    ``shape`` (B, S; default ``ZOO_SHAPES[mode]``), (argument bytes,
+    temporary bytes): the parameters, the batch, and for ``train`` the
+    optimizer's state, with ``piecewise.analyze_cell_piecewise``'s
+    temporaries at that B and S; for ``decode`` the parameters and the
+    cache of ``init_cache(B, S)``, with the peak live bytes of one whole
+    ``make_serve_step`` step traced on the meta device
+    (``piecewise.measure_run``; the piecewise decode pieces take the shape
+    table's batch and length)."""
+    params = lm_zoo.abstract_params(cfg)
+    arg = lm_dryrun._nbytes(params)
+    b, s = shape or ZOO_SHAPES[mode]
+    if mode == "decode":
+        cache = lm_zoo.init_cache(cfg, b, s, device="meta")
+        token = torch.empty((b, 1), dtype=torch.int64, device="meta")
+        serve = lm_steps.make_serve_step(cfg)
+        run = lm_pw.PieceRun(lambda: serve(params, cache, s - 1, token))
+        return (arg + lm_dryrun._nbytes(cache),
+                lm_pw.measure_run(run)["peak_bytes"])
+    arg += lm_dryrun._nbytes(lm_zoo.make_batch(cfg, "prefill_32k", b, s,
+                                               None, "meta"))
+    if mode == "train":
+        arg += lm_dryrun._nbytes(
+            lm_get_optimizer(cfg.optimizer)[0](params).inner)
+    pw = lm_pw.analyze_cell_piecewise(
+        cfg, "train_4k" if mode == "train" else "prefill_32k", batch=b,
+        seq=s)
+    return arg, pw["mem_temp_dev"]
+
+
+@functools.lru_cache(maxsize=None)
+def zoo_gib(arch: str, mode: str, layers: int) -> float:
+    """``zoo_estimate`` of ``arch`` at ``layers`` layers, in GiB."""
+    return sum(zoo_estimate(zoo_cfg(arch, layers), mode)) / 2 ** 30
+
+
+def zoo_depth(arch: str, mode: str) -> int:
+    """The depth of ``ZOO_PLAN``: ``arch``'s own if its estimate fits
+    ``ZOO_FIT_GIB[mode]``, else the largest that fits (xLSTM by whole
+    groups of ``slstm_group`` layers), 0 if none does; the estimate grows
+    with the depth."""
+    full = get_arch(arch)
+    unit = full.slstm_group or 1
+    fit = ZOO_FIT_GIB[mode]
+    if zoo_gib(arch, mode, full.n_layers) <= fit:
+        return full.n_layers
+    lo, hi = 0, full.n_layers // unit          # lo fits (or 0), hi does not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if zoo_gib(arch, mode, mid * unit) <= fit:
+            lo = mid
+        else:
+            hi = mid
+    return lo * unit
+
+
+def zoo_cut_line(arch: str, mode: str, layers: int) -> str:
+    """The estimate at the planned depth, and for a cut the estimates that
+    force it (the arch's own depth and one step more)."""
+    full = get_arch(arch)
+    unit = full.slstm_group or 1
+    if layers == full.n_layers:
+        return (f"{layers} layers (not cut), meta estimate "
+                f"{zoo_gib(arch, mode, layers):.2f} GiB")
+    more = zoo_gib(arch, mode, layers + unit)
+    own = zoo_gib(arch, mode, full.n_layers)
+    if not layers:
+        return (f"a defined skip: {unit} layer(s) estimated at {more:.2f} "
+                f"GiB on the meta device, {own:.2f} GiB at its "
+                f"{full.n_layers}, over the {ZOO_FIT_GIB[mode]:g} GiB a "
+                f"{mode} cell may take on one card")
+    return (f"depth cut from {full.n_layers} layers to {layers}: the meta "
+            f"estimate {own:.2f} GiB at {full.n_layers} and {more:.2f} at "
+            f"{layers + unit} layers, over the {ZOO_FIT_GIB[mode]:g} GiB a "
+            f"{mode} cell may take; {zoo_gib(arch, mode, layers):.2f} GiB "
+            f"at {layers}")
+
+
+def gla_layers(cfg) -> int:
+    """The layers whose GLA a no-grad prefill sends to the kernel path:
+    xLSTM's mLSTM layers, a hybrid's SSD heads (every layer), else 0."""
+    if cfg.xlstm:
+        return cfg.n_layers // cfg.slstm_group * (cfg.slstm_group - 1)
+    return cfg.n_layers if cfg.hybrid_ssm else 0
+
+
+def slstm_timed(run):
+    """(``run()``, the host seconds of its ``ssm.slstm_forward`` calls,
+    their count): each call timed on the host clock, synchronised."""
+    real, spent = lm_ssm.slstm_forward, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    lm_ssm.slstm_forward = timed
+    try:
+        out = run()
+    finally:
+        lm_ssm.slstm_forward = real
+    return out, sum(spent), len(spent)
+
+
+def zoo_prefill(card: str, arch: str, cfg, params, gen) -> int:
+    """14a's prefill (B=1 S=4096) through ``make_prefill_step``, counts set
+    to 0 just before and read just after: the GLA kernel-path launches
+    (xLSTM: one bfloat16 launch an mLSTM layer), the loss within the
+    reference smoke test's bound (and for xLSTM within ``LM_LOSS_RTOL`` of
+    the plain GLA route's, and the sLSTM layers' share of the host time,
+    ``slstm_timed``), ms, tokens/s, peak memory beside the estimate, the
+    device idle share (the warm-up run under the profiler). Returns the
+    bfloat16 GLA launches."""
+    b, s = ZOO_SHAPES["prefill"]
+    batch = lm_zoo.make_batch(cfg, "prefill_32k", b, s, gen, "cuda")
+    prefill = lm_steps.make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    per = kernel_device_us(lambda: prefill(params, batch), reps=1,
+                           warm=False)                         # warm-up
+    zero_counts()
+    (us, loss), slstm_s, calls = slstm_timed(
+        lambda: host_us(lambda: prefill(params, batch), 1))
+    counts = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = gla_layers(cfg)
+    want = {"gla_forward": n, "gla_bf16": n} if n else {}
+    check(counts == want, f"14a {arch} prefill: GLA launches {counts}, "
+          f"expected {want}")
+    loss = float(loss)
+    hi = 3 * math.log(cfg.vocab) + 5
+    check(math.isfinite(loss) and 0 < loss < hi,
+          f"14a {arch} prefill loss {loss} in (0, {hi:.2f})")
+    ms = us / 1e3
+    extra = ""
+    if n:
+        kernel_route = gla.gla_forward
+        gla.gla_forward = plain_gla
+        try:
+            plain_loss = float(prefill(params, batch))
+        finally:
+            gla.gla_forward = kernel_route
+        check(abs(loss - plain_loss) <= LM_LOSS_RTOL * abs(plain_loss),
+              f"14a {arch} prefill loss {loss} against the plain GLA "
+              f"route's {plain_loss}")
+        extra = (f"; the plain GLA route's loss {plain_loss:.6f} (|diff| "
+                 f"{abs(loss - plain_loss):.3g}, within {LM_LOSS_RTOL:g} "
+                 f"relative), {counts['gla_bf16']} bfloat16 GLA launches")
+    if calls:
+        extra += (f"; the {calls} sLSTM layers' time loops "
+                  f"{slstm_s / (us / 1e6):.1%} of the prefill's host time")
+    busy = sum(per.values()) / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+    est = zoo_gib(arch, "prefill", cfg.n_layers)
+    print(f"  14a {arch} prefill B={b} S={s}"
+          + (f" ({cfg.vision_prefix}-row vision prefix)"
+             if cfg.vision_prefix else "")
+          + f": loss {loss:.6f}, {ms:.2f} ms, {b * s / (ms / 1e3):.0f} "
+          f"tokens/s, peak memory {peak:.2f} GiB (meta estimate {est:.2f}, "
+          f"ratio {est / peak:.3f}), device busy {busy:.2f} ms (idle "
+          f"{max(0.0, 1 - busy / ms):.1%}); the largest: " + ", ".join(
+              f"{k} {v / 1e3:.2f} ms" for k, v in top) + extra
+          + f" [{card}]")
+    LM_TIMES[f"14a {arch} prefill"] = dict(ms=ms, peak=peak, est=est)
+    return counts.get("gla_bf16", 0)
+
+
+def zoo_decode(card: str, arch: str, cfg, params) -> None:
+    """14a's decode: ``ZOO_DECODE_TOKENS`` greedy tokens at B=4 from an
+    empty cache of 4096 (``greedy_decode``), peak memory beside the
+    estimate, no kernel launched, the device's share of a step (one step
+    profiled)."""
+    b, s = ZOO_SHAPES["decode"]
+    zero_counts()
+    ms_token, first = greedy_decode(card, f"14a {arch}", cfg, params, b, s,
+                                    tokens=ZOO_DECODE_TOKENS)
+    check(not any(read_counts().values()),
+          f"14a {arch}: decode launches no kernel")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    serve = lm_steps.make_serve_step(cfg)
+    cache = lm_zoo.init_cache(cfg, b, s, device="cuda")
+    busy = sum(kernel_device_us(lambda: serve(params, cache, 0, first),
+                                reps=1).values()) / 1e3
+    del cache
+    est = zoo_gib(arch, "decode", cfg.n_layers)
+    print(f"  14a {arch} decode: peak memory {peak:.2f} GiB (meta estimate "
+          f"{est:.2f}, ratio {est / peak:.3f}), the device busy {busy:.3f} "
+          f"ms of a step (idle {max(0.0, 1 - busy / ms_token):.1%}) "
+          f"[{card}]")
+    LM_TIMES[f"14a {arch} decode"] = dict(ms=ms_token, peak=peak, est=est)
+
+
+def zoo_train(card: str, arch: str, cfg) -> None:
+    """14a's train step (``train_cell``: the port's init from seed 0,
+    ``ZOO_TRAIN_STEPS`` steps on one repeated ``SyntheticLM`` batch, B=1
+    S=4096, the arch's optimizer, no GLA launch, the warm-up step under
+    the profiler), the loss of a no-grad prefill of the trained weights on
+    the batch below the first step's, peak memory beside the estimate."""
+    b, s = ZOO_SHAPES["train"]
+    batch = lm_batch(cfg, b, s, "cuda")
+    params, st = train_cell(card, f"14a {arch}", cfg, batch,
+                            ZOO_TRAIN_STEPS, profile_warmup=True)
+    after = float(lm_steps.make_prefill_step(cfg)(params, batch))
+    del params, batch
+    loss_falls(f"14a {arch}", st["losses"][0], after,
+               "in a no-grad prefill after the train steps")
+    est = zoo_gib(arch, "train", cfg.n_layers)
+    print(f"  14a {arch} train: peak memory {st['peak']:.2f} GiB, meta "
+          f"estimate {est:.2f} (ratio {est / st['peak']:.3f}) [{card}]")
+    LM_TIMES[f"14a {arch} train"] = dict(ms=st["ms"], peak=st["peak"],
+                                         est=est)
+
+
+def zoo_arch(card: str, arch: str) -> int:
+    """14a for one arch: prefill, decode and train at ``ZOO_PLAN``'s
+    depths, then its smoke config on the card against the CPU port.
+    Returns the prefill's bfloat16 GLA launches."""
+    t0 = time.perf_counter()
+    full = get_arch(arch)
+    plan = ZOO_PLAN[arch]
+    print(f"phase 14a: {arch} at full width ({full.n_layers} layers, "
+          f"d_model {full.d_model}, {full.n_heads}/{full.n_kv_heads} heads, "
+          f"d_ff {full.d_ff}, vocab {full.vocab}"
+          + (f", {full.n_experts} experts top-{full.top_k}, dense residual "
+             f"{full.dense_residual_ff}" if full.moe else "")
+          + (", MLA q/kv rank {}/{}".format(full.q_rank, full.kv_rank)
+             if full.mla else "")
+          + (", qkv bias" if full.qkv_bias else "")
+          + (f", {full.vision_prefix}-row vision prefix"
+             if full.vision_prefix else "")
+          + (f", sLSTM 1 in {full.slstm_group}" if full.xlstm else "")
+          + f", {full.param_dtype}, {full.optimizer}) [{card}]")
+    for mode in ZOO_SHAPES:
+        print(f"  14a {arch} {mode}: {zoo_cut_line(arch, mode, plan[mode])}")
+    launches = 0
+    params, layers = None, None
+    for mode in ("prefill", "decode"):
+        if plan[mode] != layers:
+            params = None
+            free_cuda()
+            layers = plan[mode]
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = lm_zoo.init_params(zoo_cfg(arch, layers), gen, "cuda")
+        cfg = zoo_cfg(arch, layers)
+        if mode == "prefill":
+            launches = zoo_prefill(card, arch, cfg, params, gen)
+        else:
+            zoo_decode(card, arch, cfg, params)
+    del params
+    free_cuda()
+    if plan["train"]:
+        zoo_train(card, arch, zoo_cfg(arch, plan["train"]))
+        free_cuda()
+    else:
+        print(f"  14a {arch} train: skipped, "
+              f"{zoo_cut_line(arch, 'train', 0)} [{card}]")
+    train_cpu_against_card(card, arch, f"14a {arch}")
+    free_cuda()
+    print(f"  14a {arch}: {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
+def examples_pso(card: str) -> dict:
+    """14b: each PSO example's ``main([])`` (the card, the reference's
+    sizes, its printed lines and asserts), counts set to 0 just before
+    each and read just after; then ``python -m
+    repro_torch.examples.custom_objective`` in a subprocess (it loads the
+    kernels phase 2 built). Returns the in-process runs' launches."""
+    launches = {}
+    for mod, rows in ((ex_quickstart, ("fused", "fused_async")),
+                      (ex_constrained, SPLIT), (ex_custom, SPLIT)):
+        name = mod.__name__
+        print(f"phase 14b: {name}.main([]) [{card}]")
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = mod.main([])
+        except AssertionError as e:
+            rc = f"its asserts failed ({e})"
+        torch.cuda.synchronize()
+        check(rc == 0, f"14b {name}: main returns {rc}")
+        counts = {k: v for k, v in read_counts().items() if v}
+        check(all(counts.get(k, 0) > 0 for k in rows),
+              f"14b {name}: launches {counts}, expected {rows}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"  14b {name}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{counts} [{card}]")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", ex_custom.__name__], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(out.returncode == 0 and "cuda fused" in out.stdout,
+          f"14b python -m {ex_custom.__name__} exits 0 "
+          f"({out.stdout[-1000:]}{out.stderr[-2000:]})")
+    print(out.stdout.rstrip())
+    print(f"  14b python -m {ex_custom.__name__}: exit 0, "
+          f"{time.perf_counter() - t0:.1f} s with the process [{card}]")
+    return launches
+
+
+def phase_zoo(card: str) -> dict:
+    """14a-14b (the module docstring). Returns the launches: 14a's prefill
+    bfloat16 GLA launches (xLSTM-350M's), 14b's fused, async and split
+    kernel launches."""
+    t0 = time.perf_counter()
+    launches = {"gla_bf16": 0}
+    for arch in ZOO_ARCHS:
+        launches["gla_bf16"] += zoo_arch(card, arch)
+    t_b = time.perf_counter()
+    for k, v in examples_pso(card).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s (14a "
+          f"{t_b - t0:.1f}, 14b {time.perf_counter() - t_b:.1f}) [{card}]")
+    return launches
 
 
 #: Each kernel of the port and the TPU kernel it replaces.
@@ -5355,6 +5892,8 @@ def main() -> int:
         launches[k] += v
     phase_train(card)
     for k, v in phase_tooling(card).items():
+        launches[k] += v
+    for k, v in phase_zoo(card).items():
         launches[k] += v
     kernels = []
     for name, replaces in REPLACES.items():

@@ -15,7 +15,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..models import zoo
 from ..optim import get_optimizer
-from ..optim.optimizers import tree_leaves, tree_map, tree_unflatten
+from ..optim.optimizers import _pieces, tree_leaves, tree_map, \
+    tree_unflatten
 from ..optim.schedules import cosine_schedule
 
 
@@ -26,7 +27,10 @@ def make_train_step(cfg: ArchConfig, base_lr: float = 3e-4,
     batch) -> (params, opt_state, {"loss", "grad_norm"}), both float32
     0-d tensors. The batch holds tensors on the parameters' device; the
     parameters and the optimizer state are updated in place and returned
-    (``optim.optimizers``)."""
+    (``optim.optimizers``). The grad norm sums each leaf's squares a
+    leading slice at a time (``optimizers._pieces``), so a stacked leaf of
+    a full-width model makes no float32 copy of its whole size; a leaf of
+    at most ``_PIECE`` elements is one sum, as before."""
     opt_init, opt_update = get_optimizer(cfg.optimizer)
 
     def train_step(params, opt_state, batch):
@@ -39,8 +43,9 @@ def make_train_step(cfg: ArchConfig, base_lr: float = 3e-4,
         grads = tree_unflatten(params, grads)
         lr = cosine_schedule(opt_state.step, base_lr, warmup, total_steps)
         params, opt_state = opt_update(params, grads, opt_state, lr)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in tree_leaves(grads)))
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                               for g in tree_leaves(grads)
+                               for (x,) in _pieces(g)))
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return train_step, opt_init

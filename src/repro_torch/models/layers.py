@@ -17,12 +17,47 @@ Params = Dict[str, Any]
 Tensor = torch.Tensor
 
 
+#: Elements of the largest float32 draw ``normal`` makes at once (4 GiB).
+#: A larger leaf (a full-width stacked MLP or expert weight: 8.8 G elements
+#: for llava-next-34b's, 35 GiB in float32) is drawn a run of leading rows
+#: at a time into its own dtype, so the float32 transient of its draw fits
+#: beside the parameters already made. Leaves up to this size are one draw.
+DRAW_ELEMENTS = 1 << 30
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype,
            device=None) -> Tensor:
-    """N(0, 1) * scale drawn in float32 on ``gen``'s device, then cast."""
-    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=device or gen.device)
-    return (x * scale).to(dtype)
+    """N(0, 1) * scale drawn in float32 on ``gen``'s device, then cast
+    (a leaf of more than ``DRAW_ELEMENTS`` a run of leading rows at a
+    time, in row order)."""
+    shape, device = tuple(shape), device or gen.device
+    n = 1
+    for k in shape:
+        n *= k
+    if n <= DRAW_ELEMENTS or torch.device(device).type == "meta":
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (x * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    _draw_rows(gen, out, scale)
+    return out
+
+
+def _draw_rows(gen: torch.Generator, out: Tensor, scale: float) -> None:
+    """``out`` filled with N(0, 1) * scale, runs of at most
+    ``DRAW_ELEMENTS`` elements of leading rows drawn in float32 one after
+    the other (a row larger than that is split in turn)."""
+    row = out.numel() // out.shape[0]
+    if row > DRAW_ELEMENTS:
+        for i in range(out.shape[0]):
+            _draw_rows(gen, out[i], scale)
+        return
+    rows = max(1, DRAW_ELEMENTS // row)
+    for i in range(0, out.shape[0], rows):
+        piece = out[i:i + rows]
+        piece.copy_(torch.randn(piece.shape, generator=gen,
+                                dtype=torch.float32,
+                                device=out.device).mul_(scale))
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype,

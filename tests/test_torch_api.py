@@ -353,7 +353,10 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "repro_torch.launch.hillclimb, repro_torch.launch.sharding, "
             "repro_torch.roofline.piecewise, repro_torch.roofline.report, "
             "repro_torch.examples.train_lm, "
-            "repro_torch.examples.tune_lm_hparams\n"
+            "repro_torch.examples.tune_lm_hparams, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.constrained, "
+            "repro_torch.examples.custom_objective\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"

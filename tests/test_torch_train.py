@@ -243,3 +243,30 @@ def test_flash_custom_vjp_trains_like_default():
     _, _, m = step(params, init(params), batch)
     assert np.isfinite(float(m["loss"])) and np.isfinite(
         float(m["grad_norm"]))
+
+
+def test_grad_norm_sums_a_large_leaf_a_slice_at_a_time(monkeypatch):
+    """The grad norm of a leaf larger than ``optimizers._PIECE`` elements
+    is summed a run of leading rows at a time (no float32 copy of the
+    whole leaf): within float32 rounding (rtol 1e-6) of the one-sum norm,
+    with the same loss and, Adam being elementwise, the same weights bit
+    for bit (stablelm-3b smoke, ``_PIECE`` lowered to 1000 elements)."""
+    from repro_torch.optim import optimizers
+    cfg = t_configs.get_arch("stablelm-3b").smoke()
+    batch = _torch_batch(_batch(cfg))
+    out = []
+    for piece in (optimizers._PIECE, 1000):
+        monkeypatch.setattr(optimizers, "_PIECE", piece)
+        params = t_zoo.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        step, init = t_steps.make_train_step(cfg, LR, WARMUP, TOTAL)
+        opt = init(params)
+        for _ in range(2):
+            params, opt, m = step(params, opt, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"]), params))
+    (l0, g0, p0), (l1, g1, p1) = out
+    assert max(t.numel() for t in tree_leaves(p0)) > 1000
+    assert l1 == l0
+    np.testing.assert_allclose(g1, g0, rtol=1e-6)
+    for a, b in zip(tree_leaves(p1), tree_leaves(p0)):
+        assert torch.equal(a, b)
