@@ -9,8 +9,10 @@ standard library, and exits non-zero on any failure. Phases:
 
 1. identity: torch and CUDA versions, ``nvcc --version``, the card's name
    and power limit;
-2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for ``sm_90a`` (one
-   ``nvcc`` per source, started together) and prints each kernel's
+2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for ``sm_90a``,
+   and ``pso_step.cu`` a second time with ``-DPSO_T_BF16`` into the
+   bfloat16 library (one ``nvcc`` a library, started together; each
+   library's seconds printed), and prints each kernel's
    registers and spills from ``-Xptxas -v``, and the tensor-core (HMMA)
    instructions of each GLA kernel's SASS (``cuobjdump``), which the
    chunk-state and chunk-output kernels must have;
@@ -202,7 +204,30 @@ train steps); 14b ``examples.quickstart``, ``constrained`` and
 printed lines, ``constrained``'s and ``custom_objective``'s asserts), and
 ``python -m repro_torch.examples.custom_objective`` in a subprocess. Its
 launches (14a's bfloat16 GLA, 14b's fused, async and split kernels) count
-under their rows.
+under their rows. xLSTM-350M's train step runs 6 of its 24 layers
+(``ZOO_TIME_CUT``: for the run's time, not its memory). 15, bfloat16
+swarms through the kernels of rows 1, 2, 3, 5 and 6 (the library built
+with ``-DPSO_T_BF16``), under ROADMAP's bfloat16 parity contract (bit for
+bit on one CTA a block; on clusters one bfloat16 rounding of a fitness,
+``BF16_ULP``): 15a every objective and rule on one CTA and on clusters of
+2, one block and two (queue, fused, async star and ring: every bfloat16
+instantiation launched), the one-block async kernel bit for bit the fused
+kernel; cubic d=1 n=131072 (queue chained, a fused launch of 32 with
+counters, the async kernel over 256 blocks by the invariants), cubic
+d=120 n=32768 on clusters of 2 (one step under the contract, the async
+kernel over 64 blocks), a one-block async swarm with counters, ring and
+von Neumann over 8 blocks, rastrigin d=10 n=1024 S=128 (rows 3 and 6);
+the invariants: in the box, gbest monotone, == max(pbest), a pbest column,
+and gbest_pos evaluated by the kernel itself to gbest_fit; 15b ``solve``
+at the two solve cells (queue_lock and async, ``backend="auto"``),
+``solve_many`` rastrigin d=10 n=1024 S=128 x200 and ``ops.queue_step``
+chained, counts set to 0 just before and read just after: every bfloat16
+row launched and no float32 kernel, bfloat16 states; float16, float64, a
+heterogeneous bfloat16 batch and a custom Problem in bfloat16 raise
+``ValueError``; 15c each bfloat16 kernel's ms on phase 5's call beside
+its plain version and its bound at 2 bytes an element, and rows 2 and 5
+in bfloat16 beside float32 at the two solve cells, in turns. Its launches
+count under the ``<row>_bf16`` rows of the JSON.
 """
 import concurrent.futures
 import ctypes
@@ -360,7 +385,10 @@ def sync_time(fn, reps: int = 1) -> float:
 
 
 def max_err(got, want) -> float:
-    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+    """The largest |got - want| over the fields, taken in float32 (exact
+    for bfloat16 fields)."""
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
 
 
 def fit_tol(ref) -> dict:
@@ -404,6 +432,14 @@ if pso_split is not None:
 if hasattr(gla.gla_forward, "bf16_launches"):
     # the bfloat16 launches of gla_forward (also counted in its launches)
     COUNTERS["gla_bf16"] = (gla.gla_forward, "bf16_launches")
+#: Phase 15's rows: the bfloat16 kernels of rows 1, 2, 3, 5 and 6, each
+#: counted in its wrapper's ``bf16_launches`` (a subset of its
+#: ``launches``, which ``read_counts`` leaves to the float32 row).
+BF16_ROWS = ("queue_step", "fused", "fused_batch", "fused_async",
+             "fused_async_batch")
+if hasattr(pso_step.fused, "bf16_launches"):
+    for _row in BF16_ROWS:
+        COUNTERS[_row + "_bf16"] = (getattr(pso_step, _row), "bf16_launches")
 
 
 #: The main paths' kernel calls, each registered where its phase runs it:
@@ -422,7 +458,10 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {k: getattr(w, attr) for k, (w, attr) in COUNTERS.items()}
+    got = {k: getattr(w, attr) for k, (w, attr) in COUNTERS.items()}
+    for row in BF16_ROWS:
+        got[row] -= got.get(row + "_bf16", 0)
+    return got
 
 
 #: The six fused and async kernels' contention-counter checks (phase 3):
@@ -541,19 +580,35 @@ def gla_key(symbol: str):
             + (f"<{m[3]},{m[4]}>" if m[3] else ""))
 
 
+#: The build variants chip_smoke builds beside each source's plain build:
+#: (source, ``_build.VARIANTS`` key).
+BUILD_VARIANTS = (("pso_step", "bf16"),)
+
+
 def phase_build() -> None:
-    sources = sorted(_build.CSRC.glob("*.cu"))
+    """Every library at once, one nvcc each (the sources and the bfloat16
+    build of ``pso_step.cu``), each library's build seconds printed."""
+    jobs = [(p.stem, "") for p in sorted(_build.CSRC.glob("*.cu"))]
+    jobs += list(BUILD_VARIANTS)
+
+    def timed_build(job):
+        t = time.perf_counter()
+        lib, log = _build.build(*job)
+        return lib, log, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        builds = list(pool.map(lambda p: _build.build(p.stem), sources))
-    print(f"phase 2: built {len(sources)} source(s) for sm_90a in "
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        builds = list(pool.map(timed_build, jobs))
+    print(f"phase 2: built {len(jobs)} librar(ies) for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
-    for (lib, log), src in zip(builds, sources):
-        print(f"  {src.name} -> {lib.name}")
+    for (lib, log, sec), (stem, variant) in zip(builds, jobs):
+        print(f"  {stem}.cu{' (' + variant + ')' if variant else ''} -> "
+              f"{lib.name}: {sec:.1f} s")
         lines = ptxas_lines(log)
         for i in range(0, len(lines), 3):
             print("  " + " | ".join(lines[i:i + 3]))
-    gla_hmma(next(lib for lib, _ in builds if lib.name.startswith("libgla")))
+    gla_hmma(next(lib for lib, _, _ in builds
+                  if lib.name.startswith("libgla")))
 
 
 def ptxas_lines(log: str) -> list:
@@ -565,15 +620,17 @@ def ptxas_lines(log: str) -> list:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-            # mangled <kernel>ILi<fitness>ELi<rule>E[Lb<flag>E...] ->
-            # kernel<f,r[,grid|block][,cluster][,lbest]>: the fused
-            # kernel's flags are grid sync and cluster, the queue kernel's
-            # cluster, the async kernel's cluster and lbest; fitness 6 is
-            # the hetero kernel
-            m = re.search(r"([a-z]+_kernel)ILi(\d+)ELi(\d+)E((?:Lb\dE)*)",
-                          entry)
+            # mangled <kernel>I[<type>]Li<fitness>ELi<rule>E[Lb<flag>E...]
+            # -> kernel<f,r[,grid|block][,cluster][,lbest][,bf16]>: the
+            # fused kernel's flags are grid sync and cluster, the queue
+            # kernel's cluster, the async kernel's cluster and lbest;
+            # fitness 6 is the hetero kernel; the storage type (float in
+            # trees before it was a parameter, which had none) keys only
+            # bfloat16
+            m = re.search(r"([a-z]+_kernel)I(f|13__nv_bfloat16)?Li(\d+)ELi"
+                          r"(\d+)E((?:Lb\dE)*)", entry)
             if m:
-                flags, g = re.findall(r"Lb(\d)E", m[4]), ""
+                flags, g = re.findall(r"Lb(\d)E", m[5]), ""
                 if m[1] == "fused_kernel":
                     g = ",grid" if flags.pop(0) == "1" else ",block"
                 # the async kernel's lbest flag (trees before it have none)
@@ -583,8 +640,10 @@ def ptxas_lines(log: str) -> list:
                     g += ",cluster"
                 if lbest:
                     g += ",lbest"
-                entry = (f"{m[1]}<{fits.get(m[2], 'hetero')},"
-                         f"{rules[m[3]]}{g}>")
+                if m[2] and m[2] != "f":
+                    g += ",bf16"
+                entry = (f"{m[1]}<{fits.get(m[3], 'hetero')},"
+                         f"{rules[m[4]]}{g}>")
             else:     # GLA (gla_chunk_state<WM,NTW>), the split kernels
                 # (split_advance_kernel<rule>) or no template
                 m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)EE)?", entry)
@@ -1964,21 +2023,23 @@ def many_layers(s_cnt, n, d, iters, variant, problems) -> None:
 
 
 def bound(d: int, n: int, iters: int, nb: int = 0,
-          objectives=("cubic",), members: int = 1):
+          objectives=("cubic",), members: int = 1, esize: int = 4):
     """(ms, "bytes" | "operations"): the least time for the call on a batch
     of ``len(objectives)`` swarms (one objective each) — each input read
     once and each output written once (pos, vel, pbp, pbf, gbest, plus the
-    async locals; seeds, iteration counters, the bounds table and fids
-    read) at the HBM rate, or the operations at the card's rates (integer
-    pipe, float32 pipe, issue), whichever is largest."""
+    async locals, ``esize`` bytes an element: 2 in bfloat16; seeds,
+    iteration counters, the float32 bounds table and fids read) at the HBM
+    rate, or the operations at the card's rates (integer pipe, float32
+    pipe, issue), whichever is largest. The bfloat16 kernels do the same
+    float32 operations and round besides, so their count stays a lower
+    bound."""
     s_cnt = len(objectives)
     state = s_cnt * (3 * n * d + n + d + 1 + nb * (d + 1))
-    inputs = state + 2 * s_cnt + members * 4 * d + (s_cnt if members > 1
-                                                    else 0)
+    words = 2 * s_cnt + members * 4 * d + (s_cnt if members > 1 else 0)
     ints = iters * s_cnt * n * d * INT_PER_ELEMENT
     fps = iters * n * sum(d * (FP_DRAWS_RULE + FP_OBJECTIVE[o])
                           + FP_PER_PARTICLE for o in objectives)
-    return roof(4 * (inputs + state), ints, fps)
+    return roof(esize * 2 * state + 4 * words, ints, fps)
 
 
 def roof(nbytes: float, ints: float, fps: float):
@@ -1992,14 +2053,16 @@ def roof(nbytes: float, ints: float, fps: float):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def queue_bound(d: int, n: int, nb: int, improved: float):
+def queue_bound(d: int, n: int, nb: int, improved: float, esize: int = 4):
     """The queue kernel's one iteration of cubic/pso: pos, vel, pbp, pbf,
     gbest and the bounds read; pos and vel written, and pbf and the pbp
     column only for the ``improved`` particles (the kernel folds pbest in
     place, so an unchanged column is not an output); the [nb] pair
-    written; the operations of one iteration."""
-    nbytes = 4 * (3 * n * d + n + d + 1 + 4 * d
-                  + 2 * n * d + improved * (d + 1) + 2 * nb)
+    written; the operations of one iteration. The swarm's elements and
+    aux_fit take ``esize`` bytes (2 in bfloat16), the bounds table and
+    aux_idx 4."""
+    nbytes = (esize * (3 * n * d + n + d + 1 + 2 * n * d
+                       + improved * (d + 1) + nb) + 4 * (4 * d + nb))
     fps = n * (d * (FP_DRAWS_RULE + FP_OBJECTIVE["cubic"]) + FP_PER_PARTICLE)
     return roof(nbytes, n * d * INT_PER_ELEMENT, fps)
 
@@ -3079,9 +3142,10 @@ def kernel_fitness(spec, cols, c: int):
     still = dataclasses.replace(spec, rule="pso", w=0.0, c1=0.0, c2=0.0)
     pos = cols.contiguous().clone()
     m = pos.shape[1]
-    pbf = torch.full((m,), -math.inf, device=pos.device)
+    inf = dict(dtype=pos.dtype, device=pos.device)  # the columns' kernels
+    pbf = torch.full((m,), -math.inf, **inf)
     state = (pos, torch.zeros_like(pos), pos.clone(), pbf, pos[:, 0].clone(),
-             torch.full((1,), -math.inf, device=pos.device))
+             torch.full((1,), -math.inf, **inf))
     pso_step._fused_launch(state, still, seed=0, iteration=0, iters=1,
                            block_n=m, cluster=c)
     torch.cuda.synchronize()
@@ -5467,13 +5531,21 @@ ZOO_SHAPES = dict(prefill=(1, 4096), decode=(4, 4096), train=(1, 4096))
 #: (qwen2-7b at 20 layers, estimated 70.33 GiB, ran out of memory with
 #: 71.61 GiB allocated and 4.31 GiB held free by the allocator).
 ZOO_FIT_GIB = dict(prefill=72.0, decode=72.0, train=64.0)
+#: Cells cut below the depth that fits, for the run's time: xLSTM-350M's
+#: train step at its own 24 layers (4 groups of 6, sLSTM every 6th) took
+#: 43.3 s and its profiled warm-up 96.6 s, phase 14's longest cell and 18%
+#: of chip_smoke's 780.4 s against an aim of 900 s with phase 15 and the
+#: bfloat16 build added (PERF.md, PR 27 F3). One group of 6 layers still
+#: runs 5 mLSTM layers and an sLSTM time loop under autograd.
+ZOO_TIME_CUT = {("xlstm-350m", "train"): 6}
 #: Each cell's depth: the arch's own where the meta estimate fits
-#: ``ZOO_FIT_GIB`` of its mode, else the largest depth that does (``zoo_depth``; 0: no
-#: depth fits, a defined skip). Widths, vocabularies, head and expert
-#: counts are the published ones (``src/repro_torch/configs``).
+#: ``ZOO_FIT_GIB`` of its mode, else the largest depth that does
+#: (``zoo_depth``; 0: no depth fits, a defined skip), and no deeper than a
+#: ``ZOO_TIME_CUT``. Widths, vocabularies, head and expert counts are the
+#: published ones (``src/repro_torch/configs``).
 #: tests/test_torch_zoo_plan.py recomputes every entry on the meta device.
 ZOO_PLAN = {
-    "xlstm-350m": dict(prefill=24, decode=24, train=24),
+    "xlstm-350m": dict(prefill=24, decode=24, train=6),
     "stablelm-3b": dict(prefill=32, decode=32, train=32),
     "minicpm3-4b": dict(prefill=62, decode=62, train=62),
     "qwen2-7b": dict(prefill=28, decode=28, train=17),
@@ -5554,12 +5626,17 @@ def zoo_depth(arch: str, mode: str) -> int:
 
 def zoo_cut_line(arch: str, mode: str, layers: int) -> str:
     """The estimate at the planned depth, and for a cut the estimates that
-    force it (the arch's own depth and one step more)."""
+    force it (the arch's own depth and one step more), or a time cut's."""
     full = get_arch(arch)
     unit = full.slstm_group or 1
     if layers == full.n_layers:
         return (f"{layers} layers (not cut), meta estimate "
                 f"{zoo_gib(arch, mode, layers):.2f} GiB")
+    if (arch, mode) in ZOO_TIME_CUT:
+        return (f"{layers} of {full.n_layers} layers, cut for the run's time "
+                f"(ZOO_TIME_CUT), not its memory: meta estimate "
+                f"{zoo_gib(arch, mode, layers):.2f} GiB, "
+                f"{zoo_gib(arch, mode, full.n_layers):.2f} at its own depth")
     more = zoo_gib(arch, mode, layers + unit)
     own = zoo_gib(arch, mode, full.n_layers)
     if not layers:
@@ -5816,6 +5893,505 @@ def phase_zoo(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: bfloat16 swarms through the built-in kernels (rows 1, 2, 3, 5, 6)
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+#: One bfloat16 rounding of a fitness (ROADMAP, parity contract,
+#: "bfloat16"): 8 significant bits, so an ulp is at most 2^-7 of the value.
+#: On one CTA a block a bfloat16 kernel equals its plain version bit for
+#: bit (the same float32 operations, roundings and cosf/expf/sqrtf as
+#: torch's); on clusters of C >= 2 the objective's float32 partial sums
+#: meet in rank order, so a fitness may land one rounding away, and a
+#: pbest or gbest decision may flip only where the two fitnesses tie
+#: within that.
+BF16_ULP = 2.0 ** -7
+#: 15a's every-objective-and-rule shapes, (d, n, one block or two): C = 1
+#: at d=8, C = 2 at d=37 (one block and two), which with the lbest twins
+#: launches every instantiation of the bfloat16 library.
+BF16_GRID = ((8, 512, 512), (8, 1024, 512), (37, 128, 128), (37, 1024, 512))
+
+
+def bf16_state(fit: str, d: int, n: int, seed: int = 0, rule: str = "pso"):
+    """A bfloat16 swarm on the card as kernel operands."""
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, fitness=fit, update_rule=rule,
+                        dtype="bfloat16").resolved()
+    s = pso.init_swarm(cfg, seed, device="cuda")
+    return cfg, ops.kernel_spec(cfg), ops.state_to_kernel(s), s.seed
+
+
+def bf16_cluster(n: int, d: int, bn: int) -> int:
+    """The cluster size the wrappers pick in the bfloat16 library."""
+    return pso_step._cluster(n, d, bn, torch.device("cuda"), dtype=BF)
+
+
+def bf16_step(got, want, prev, what: str) -> float:
+    """One step of a kernel against its plain version from the shared
+    state ``prev``, under the contract (``BF16_ULP``): positions and
+    velocities bit for bit; each pbest fitness within one rounding, and
+    the pbest column equal wherever the two took the same decision; gbest
+    within one rounding, its position equal where the fitness is. Returns
+    the largest |kernel - plain|."""
+    pos, vel, pbp, pbf, gp, gf = got[:6]
+    check(torch.equal(pos, want[0]) and torch.equal(vel, want[1]),
+          f"{what}: positions and velocities bit for bit")
+    tol = BF16_ULP * want[3].float().abs()
+    check(bool(((pbf.float() - want[3].float()).abs() <= tol).all()),
+          f"{what}: pbest fitness within one bfloat16 rounding")
+    same_call = (pbf > prev[3]) == (want[3] > prev[3])
+    check(torch.equal(pbp[:, same_call], want[2][:, same_call]),
+          f"{what}: pbest positions equal where the decisions agree")
+    g, w = float(gf[0]), float(want[5][0])
+    check(abs(g - w) <= BF16_ULP * abs(w), f"{what}: gbest {g} within one "
+          f"bfloat16 rounding of {w}")
+    if g == w:
+        check(torch.equal(gp, want[4]) or gbest_is_a_pbest(pbp, pbf, gp, gf),
+              f"{what}: gbest_pos the plain one's or a pbest of its fitness")
+    return max_err(got, want)
+
+
+def bf16_invariants(spec, state, prev: float, c: int, what: str) -> float:
+    """An async (or any) bfloat16 state held to the invariants: gbest
+    monotone from ``prev``, == max(pbest), every position inside the box,
+    gbest_pos bit for bit a pbest column of fitness gbest, and gbest_pos
+    evaluated by the kernel itself (``kernel_fitness`` on clusters of
+    ``c``) to gbest_fit exactly. Returns gbest."""
+    pos, _, pbp, pbf, gp, gf = state[:6]
+    g = float(gf[0])
+    check(g >= prev, f"{what}: gbest monotone ({g} < {prev})")
+    check(g == float(pbf.max()), f"{what}: gbest == max(pbest)")
+    lo, hi, _ = pso_step._operands(spec, pos.device, BF)
+    check(bool(((pos >= lo) & (pos <= hi)).all()), f"{what}: in the box")
+    check(gbest_is_a_pbest(pbp, pbf, gp, gf), f"{what}: gbest_pos a pbest "
+          f"column of fitness gbest")
+    refit = kernel_fitness(spec, gp[:, None], c)
+    check(torch.equal(refit, gf), f"{what}: the kernel evaluates gbest_pos "
+          f"to {float(refit[0])}, gbest {g}")
+    return g
+
+
+def bf16_every_instantiation(errs: dict) -> None:
+    """15a: every objective and rule at ``BF16_GRID``'s shapes. One CTA a
+    block (d=8): the queue kernel's iteration and a fused launch of 2
+    iterations bit for bit their plain versions, the async kernel over two
+    blocks held to the invariants. Clusters (d=37, C=2): one queue and one
+    fused iteration under ``bf16_step``, the queue step bit for bit the
+    fused launch. One block at each C: the async kernel bit for bit the
+    fused kernel (the star, and the ring, whose one block folds only
+    itself). Launches every instantiation of the bfloat16 library."""
+    kinds = 0
+    for fit in BUILTINS:
+        for rule in RULE_IDS:
+            for d, n, bn in BF16_GRID:
+                cfg, spec, state, seed = bf16_state(fit, d, n, 5, rule)
+                c = bf16_cluster(n, d, bn)
+                what = f"bf16 {fit}/{rule} d={d} n={n} bn={bn} C={c}"
+                kw = dict(seed=seed, iteration=3, block_n=bn)
+                if n > bn:
+                    q = queue_iteration(pso_step.queue_step,
+                                        [x.clone() for x in state], spec,
+                                        seed, 3, bn)
+                    qp = queue_iteration(pso_step.queue_plain, state, spec,
+                                         seed, 3, bn)
+                    f1 = pso_step.fused(*[x.clone() for x in state], spec,
+                                        iters=1, **kw)
+                    check(same(q, f1), f"{what}: a queue step == a fused "
+                          f"launch of one iteration bit for bit")
+                    if c == 1:
+                        check(same(q, qp), f"{what}: queue == plain")
+                        e_q = max_err(q, qp)
+                        f2 = pso_step.fused(*[x.clone() for x in state],
+                                            spec, iters=2, **kw)
+                        f2p = pso_step.fused_plain(*state, spec, iters=2,
+                                                   **kw)
+                        check(same(f2, f2p), f"{what}: fused x2 == plain")
+                    else:
+                        e_q = bf16_step(q, qp, state, what + " queue")
+                    errs["queue_step_bf16"] = max(errs["queue_step_bf16"],
+                                                  e_q)
+                    errs["fused_bf16"] = max(errs["fused_bf16"], max_err(
+                        f1, pso_step.fused_plain(*state, spec, iters=1,
+                                                 **kw)))
+                    st = with_locals(state, n // bn)
+                    pso_step.fused_async(*st, spec, iters=4, sync_every=2,
+                                         **kw)
+                    bf16_invariants(spec, st, float(state[5][0]), c,
+                                    what + " async, two blocks")
+                else:
+                    f = pso_step.fused(*[x.clone() for x in state], spec,
+                                       iters=3, **kw)
+                    for topo in ("gbest", "ring"):
+                        a = pso_step.fused_async(
+                            *with_locals(tuple(x.clone() for x in state), 1),
+                            spec, iters=3, sync_every=1, topology=topo, **kw)
+                        check(same(a[:6], f), f"{what}: one-block async "
+                              f"({topo}) == fused bit for bit")
+                    if c == 1:
+                        check(same(f, pso_step.fused_plain(
+                            *state, spec, iters=3, **kw)),
+                            f"{what}: one-block fused == plain")
+                kinds += 1
+    torch.cuda.synchronize()
+    print(f"  15a: {kinds} (objective, rule, shape) cases: queue, fused "
+          f"(grid and block), async (star and ring), each on one CTA and on "
+          f"clusters of 2; bit for bit at C=1 and one-block async == fused "
+          f"at every C")
+
+
+def bf16_main_cells(errs: dict) -> None:
+    """15a at the main paths' shapes (the contract as above)."""
+    # cubic d=1 n=131072 (C=1): queue chained, a fused launch of 32, the
+    # async kernel over 256 blocks; with counters
+    _, spec, state, seed = bf16_state("cubic", 1, 131072)
+    bn = 512
+    got, want = [x.clone() for x in state], state
+    for k in range(3):
+        got = queue_iteration(pso_step.queue_step, got, spec, seed, 37 + k,
+                              bn)
+        want = queue_iteration(pso_step.queue_plain, want, spec, seed,
+                               37 + k, bn)
+        check(same(got, want), f"bf16 queue cubic d=1 iteration {38 + k} "
+              f"== plain bit for bit")
+        errs["queue_step_bf16"] = max(errs["queue_step_bf16"],
+                                      max_err(got, want))
+    kw = dict(seed=seed, iteration=37, iters=32, block_n=bn)
+    cnt, pcnt = new_counts(), new_counts()
+    got = pso_step.fused(*[x.clone() for x in state], spec, counts=cnt, **kw)
+    want = pso_step.fused_plain(*state, spec, counts=pcnt, **kw)
+    torch.cuda.synchronize()
+    check(same(got, want), "bf16 fused cubic d=1 n=131072 x32 == plain bit "
+          "for bit")
+    errs["fused_bf16"] = max(errs["fused_bf16"], max_err(got, want))
+    check(torch.equal(cnt, pcnt), f"bf16 fused counts {cnt.tolist()} == "
+          f"plain {pcnt.tolist()}")
+    check(float(got[5][0]) >= float(state[5][0]), "bf16 fused gbest "
+          "monotone")
+    print(f"  15a cubic d=1 n=131072 (C=1): 3 queue iterations and a fused "
+          f"launch of 32 bit for bit the plain versions, counts "
+          f"{cnt.tolist()} == plain; gbest {float(state[5][0])} -> "
+          f"{float(got[5][0])}")
+    st, prev, cnt = with_locals(state, 256), float(state[5][0]), new_counts()
+    for launch in range(3):
+        pso_step.fused_async(*st, spec, seed=seed, iteration=16 * launch,
+                             iters=16, sync_every=8, block_n=bn, counts=cnt)
+        prev = bf16_invariants(spec, st, prev, 1, "bf16 async cubic d=1")
+    counts_invariants(cnt, 48, 256, "bf16 async cubic d=1", "fused_async",
+                      chunks=3 * n_chunks(16, 8))
+    print(f"  15a async cubic d=1 n=131072, 256 blocks, 3 launches of 16: "
+          f"gbest {prev} monotone, == max(pbest), in the box, == a pbest "
+          f"column, == the kernel's fitness of gbest_pos; counts "
+          f"{cnt.tolist()} within the invariants")
+    # cubic d=120 n=32768 (C=2): one step under the contract, the queue
+    # step == the fused launch, the async kernel over 64 blocks
+    _, spec, state, seed = bf16_state("cubic", 120, 32768)
+    c = bf16_cluster(32768, 120, bn)
+    check(c == 2, f"bf16 cubic d=120 n=32768 runs on clusters of 2 ({c})")
+    kw = dict(seed=seed, iteration=5, block_n=bn)
+    q = queue_iteration(pso_step.queue_step, [x.clone() for x in state],
+                        spec, seed, 5, bn)
+    f1 = pso_step.fused(*[x.clone() for x in state], spec, iters=1, **kw)
+    check(same(q, f1), "bf16 cubic d=120: queue step == fused launch of 1")
+    e = bf16_step(f1, pso_step.fused_plain(*state, spec, iters=1, **kw),
+                  state, "bf16 fused cubic d=120 n=32768")
+    e_q = bf16_step(q, queue_iteration(pso_step.queue_plain, state, spec,
+                                       seed, 5, bn),
+                    state, "bf16 queue cubic d=120 n=32768")
+    errs["fused_bf16"] = max(errs["fused_bf16"], e)
+    errs["queue_step_bf16"] = max(errs["queue_step_bf16"], e_q)
+    st, prev = with_locals(state, 64), float(state[5][0])
+    for launch in range(2):
+        pso_step.fused_async(*st, spec, seed=seed, iteration=8 * launch,
+                             iters=8, sync_every=8, block_n=bn)
+        prev = bf16_invariants(spec, st, prev, c, "bf16 async cubic d=120")
+    print(f"  15a cubic d=120 n=32768 (C=2): queue step == fused launch bit "
+          f"for bit, against plain max |kernel - plain| fused {e:.4g}, "
+          f"queue {e_q:.4g} within the contract; async 64 blocks x16: gbest {prev} by the invariants")
+    # a one-block async swarm, counters on, == its plain version
+    _, spec, state, seed = bf16_state("rastrigin", 10, 1024)
+    kw = dict(seed=seed, iteration=0, iters=21, sync_every=8, block_n=1024)
+    cnt, pcnt = new_counts(), new_counts()
+    one = with_locals(tuple(x.clone() for x in state), 1)
+    got = pso_step.fused_async(*one, spec, counts=cnt, **kw)
+    want = pso_step.fused_async_plain(*with_locals(state, 1), spec,
+                                      counts=pcnt, **kw)
+    check(same(got, want) and torch.equal(cnt, pcnt), "bf16 async "
+          "rastrigin d=10 one block x21 == plain bit for bit, counts too")
+    errs["fused_async_bf16"] = max(errs["fused_async_bf16"],
+                                   max_err(got, want))
+    # lbest: one block == the star; several blocks by the invariants
+    for topo in LBEST:
+        _, spec, state, seed = bf16_state("rastrigin", 10, 4096, 2)
+        st, prev = with_locals(state, 8), float(state[5][0])
+        for launch in range(2):
+            pso_step.fused_async(*st, spec, seed=seed, iteration=8 * launch,
+                                 iters=8, sync_every=2, block_n=512,
+                                 topology=topo)
+            prev = bf16_invariants(spec, st, prev, 1,
+                                   f"bf16 async {topo} 8 blocks")
+    print(f"  15a async rastrigin d=10 one block x21 (3 phases) == plain bit "
+          f"for bit, counts {cnt.tolist()} == plain; ring and von Neumann "
+          f"over 8 blocks by the invariants")
+    # batches: rastrigin d=10 n=1024 S=128
+    cfg = pso.PSOConfig(dim=10, particle_cnt=1024, fitness="rastrigin",
+                        dtype="bfloat16").resolved()
+    b = ms.init_batch(cfg, range(128), device="cuda")
+    b = b._replace(iteration=3 * torch.arange(128, device="cuda"))
+    specs = (ops.kernel_spec(cfg),)
+    state = batch_operands(b)
+    cnt, pcnt = new_counts(128), new_counts(128)
+    kw = dict(iters=16, block_n=512)
+    got = pso_step.fused_batch(*[x.clone() for x in state], b.seed,
+                               b.iteration, specs, counts=cnt, **kw)
+    want = pso_step.fused_batch_plain(*state, b.seed, b.iteration, specs,
+                                      counts=pcnt, **kw)
+    check(same(got, want) and torch.equal(cnt, pcnt), "bf16 fused batch "
+          "S=128 x16 == plain bit for bit, counts too")
+    errs["fused_batch_bf16"] = max(errs["fused_batch_bf16"],
+                                   max_err(got, want))
+    state = batch_operands(b, 1)
+    kw = dict(iters=16, sync_every=8, block_n=1024)
+    got = pso_step.fused_async_batch(*[x.clone() for x in state], b.seed,
+                                     b.iteration, specs, **kw)
+    want = pso_step.fused_async_batch_plain(*state, b.seed, b.iteration,
+                                            specs, **kw)
+    check(same(got, want), "bf16 async batch S=128 one block x16 == plain")
+    errs["fused_async_batch_bf16"] = max(errs["fused_async_batch_bf16"],
+                                         max_err(got, want))
+    state = batch_operands(b, 2)
+    got = pso_step.fused_async_batch(*[x.clone() for x in state], b.seed,
+                                     b.iteration, specs,
+                                     **dict(kw, block_n=512))
+    torch.cuda.synchronize()
+    check(bool((got[5] >= state[5]).all()) and torch.equal(
+        got[5], got[3].view(128, -1).amax(1)), "bf16 async batch S=128 two "
+        "blocks: every gbest monotone, == max(pbest)")
+    print("  15a rastrigin d=10 n=1024 S=128: fused batch x16 (counts too) "
+          "and one-block async batch x16 bit for bit the plain versions; "
+          "two-block async batch by the invariants")
+
+
+def bf16_refusals() -> None:
+    """What the kernels do not take raises ValueError, on the card as on
+    the CPU: float16 and float64 swarms, a heterogeneous bfloat16 batch, a
+    custom Problem in bfloat16 (the split kernels are float32)."""
+    kw = dict(dim=3, particles=256, iters=2, variant="async")
+    for what, call in (
+            ("float16", lambda: repro_torch.solve("cubic", dtype="float16",
+                                                  **kw)),
+            ("float64", lambda: repro_torch.solve("cubic", dtype="float64",
+                                                  **kw)),
+            ("heterogeneous bfloat16", lambda: repro_torch.solve_many(
+                problems=["cubic", "sphere"], seeds=range(2),
+                dtype="bfloat16", **kw)),
+            ("custom Problem in bfloat16", lambda: repro_torch.solve(
+                custom_sphere(), dtype="bfloat16", **kw))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"  15b {what}: ValueError ({str(e)[:110]})")
+            continue
+        check(False, f"15b {what} raises ValueError")
+
+
+def bf16_main_calls():
+    """15b's main-path calls in bfloat16, each ``(row, what, call, bound
+    (ms, by))``: ``solve`` at the two solve cells, queue_lock and async
+    under ``backend="auto"``; ``solve_many`` of rastrigin d=10 n=1024
+    S=128 x200, both variants; ``ops.queue_step`` chained 20 times at
+    cubic d=1 n=131072. Each call checks what it returns."""
+    calls = []
+    bn = 512
+    for d, n, iters in SOLVE_CELLS:
+        for variant, row in (("queue_lock", "fused"),
+                             ("async", "fused_async")):
+            def solve(d=d, n=n, iters=iters, variant=variant):
+                r = repro_torch.solve("cubic", dim=d, particles=n,
+                                      iters=iters, seed=0, variant=variant,
+                                      dtype="bfloat16")
+                st = r.state
+                check(st.pos.dtype == BF and st.gbest_fit.dtype == BF,
+                      f"bf16 solve {variant} d={d}: a bfloat16 state")
+                check(bool(((st.pos >= -100) & (st.pos <= 100)).all()),
+                      f"bf16 solve {variant} d={d}: in the box")
+                check(math.isfinite(r.best_fit), "a finite best")
+                return f"best {r.best_fit} (optimum {OPTIMUM_PER_DIM * d:.0f})"
+            nb = n // bn if variant == "async" else 0
+            calls.append((row, f"solve cubic d={d} n={n} x{iters} {variant}",
+                          solve, bound(d, n, iters, nb=nb, esize=2)))
+    sn = ops._resolve_block(1024, None)
+    for variant, row in (("queue_lock", "fused_batch"),
+                         ("async", "fused_async_batch")):
+        def many(variant=variant):
+            rs = repro_torch.solve_many("rastrigin", range(128), dim=10,
+                                        particles=1024, iters=200,
+                                        variant=variant, dtype="bfloat16")
+            best = [r.best_fit for r in rs]
+            check(all(math.isfinite(x) for x in best) and all(
+                r.state.pos.dtype == BF for r in rs), "bf16 solve_many")
+            return f"best of the rows {min(best)} .. {max(best)}"
+        nb = 1024 // sn if variant == "async" else 0
+        calls.append((row, f"solve_many rastrigin d=10 n=1024 S=128 x200 "
+                      f"{variant}", many,
+                      bound(10, 1024, 200, nb=nb,
+                            objectives=["rastrigin"] * 128, esize=2)))
+
+    def queue():
+        cfg = pso.PSOConfig(dim=1, particle_cnt=131072,
+                            dtype="bfloat16").resolved()
+        s = queue_loop(cfg, pso.init_swarm(cfg, 0, device="cuda"), 20)
+        check(s.pos.dtype == BF, "bf16 queue_step keeps bfloat16")
+        return f"gbest {float(s.gbest_fit)}"
+    q_ms, q_by = queue_bound(1, 131072, 256, 0.0, esize=2)
+    calls.append(("queue_step", "ops.queue_step x20 cubic d=1 n=131072",
+                  queue, (20 * q_ms, q_by)))
+    return calls
+
+
+def bf16_main_path(card: str) -> dict:
+    """15b: the main paths in bfloat16 through the entry points
+    (``bf16_main_calls``), counts set to 0 just before and read just after:
+    every bfloat16 row launched, no float32 kernel, bfloat16 states. Then
+    each row's calls once more under torch.profiler: the bfloat16 kernel's
+    device ms summed over its main-path launches beside their bound (2
+    bytes an element; the queue kernel's bound leaves out the pbest
+    columns it writes). Then the refusals. Returns the counts."""
+    print(f"phase 15b: the main paths in bfloat16 [{card}]")
+    calls = bf16_main_calls()
+    zero_counts()
+    for row, what, call, _ in calls:
+        t0 = time.perf_counter()
+        said = call()
+        torch.cuda.synchronize()
+        print(f"  15b {what}: {said}, {time.perf_counter() - t0:.3f} s "
+              f"[{card}]")
+    counts = read_counts()
+    got = {k: counts[k + "_bf16"] for k in BF16_ROWS}
+    f32 = {k: counts[k] for k in BF16_ROWS}
+    print(f"  15b launches: bfloat16 {got}, float32 {f32}")
+    check(all(v > 0 for v in got.values()), "every bfloat16 row launched")
+    check(not any(f32.values()), "no float32 kernel on a bfloat16 path")
+    main = {}
+    for row, what, call, (b_ms, _) in calls:
+        us = kernel_device_us(call, reps=1, warm=False)
+        mine = sum(v for k, v in us.items()
+                   if k.startswith(FAMILY[row]) and "bfloat16" in k)
+        ms, bms = main.get(row, (0.0, 0.0))
+        main[row] = (ms + mine / 1e3, bms + b_ms)
+    for row, (ms, bms) in main.items():
+        print(f"  15b {row}_bf16: {ms:.3f} ms of {FAMILY[row]} on the main "
+              f"path (torch.profiler), bound {bms:.3f} ms at 2 bytes an "
+              f"element [{card}]")
+    bf16_refusals()
+    return {k + "_bf16": v for k, v in got.items()}
+
+
+def bf16_times(card: str, times: dict, bounds: dict) -> None:
+    """15c: each bfloat16 kernel and its plain version on phase 5's calls
+    (device us in CUDA events, median of 5 on copies of one state; the
+    queue kernel from a CUDA graph), beside its bound at 2 bytes an
+    element; then rows 2 and 5 in bfloat16 beside float32 at the two solve
+    cells, in turns (float32, bfloat16, bfloat16, float32)."""
+    print(f"phase 15c: bfloat16 kernels, plain versions and bounds [{card}]")
+
+    def med(run, state):
+        device_us(run, state)
+        return sorted(device_us(run, state) for _ in range(5))[2]
+
+    d, n, bn = 120, 32768, 512
+    _, spec, state, seed = bf16_state("cubic", d, n)
+    qkw = dict(seed=seed, iteration=0, block_n=bn)
+    kernel_us, _, improved = queue_kernel_time(state, spec, qkw)
+    times["queue_step_bf16"] = kernel_us / 1e6
+    times["queue_step_bf16_plain"] = sync_time(
+        lambda: pso_step.queue_plain(*state, spec, **qkw), 3)
+    bounds["queue_step_bf16"] = queue_bound(d, n, n // bn, improved, esize=2)
+    d, n, iters = 1, 131072, 32
+    nb = n // bn
+    _, spec, state, seed = bf16_state("cubic", d, n)
+    kw = dict(seed=seed, iteration=0, iters=iters, block_n=bn)
+    akw = dict(kw, sync_every=8)
+    times["fused_bf16"] = med(lambda st: pso_step.fused(*st, spec, **kw),
+                              state) / 1e6
+    times["fused_bf16_plain"] = sync_time(
+        lambda: pso_step.fused_plain(*state, spec, **kw), 1)
+    bounds["fused_bf16"] = bound(d=d, n=n, iters=iters, esize=2)
+    times["fused_async_bf16"] = med(lambda st: pso_step.fused_async(
+        *st, spec, **akw), with_locals(state, nb)) / 1e6
+    times["fused_async_bf16_plain"] = sync_time(
+        lambda: pso_step.fused_async_plain(*with_locals(state, nb), spec,
+                                           **akw), 1)
+    bounds["fused_async_bf16"] = bound(d=d, n=n, iters=iters, nb=nb, esize=2)
+    d, n, iters, s_cnt = 10, 1024, 16, 128
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, fitness="rastrigin",
+                        dtype="bfloat16").resolved()
+    b = ms.init_batch(cfg, range(s_cnt), device="cuda")
+    b = b._replace(iteration=3 * torch.arange(s_cnt, device="cuda"))
+    specs = (ops.kernel_spec(cfg),)
+    for key, sync_every in (("fused_batch_bf16", 0),
+                            ("fused_async_batch_bf16", 8)):
+        nb = n // bn if sync_every else 0
+        state = batch_operands(b, nb)
+        kw = dict(iters=iters, block_n=bn)
+        if sync_every:
+            kw["sync_every"] = sync_every
+            kernel, plain = (pso_step.fused_async_batch,
+                             pso_step.fused_async_batch_plain)
+        else:
+            kernel, plain = pso_step.fused_batch, pso_step.fused_batch_plain
+        times[key] = med(lambda st: kernel(*st, b.seed, b.iteration, specs,
+                                           **kw), state) / 1e6
+        times[key + "_plain"] = sync_time(
+            lambda: plain(*state, b.seed, b.iteration, specs, **kw), 1)
+        bounds[key] = bound(d=d, n=n, iters=iters, nb=nb,
+                            objectives=["rastrigin"] * s_cnt, esize=2)
+    for row in BF16_ROWS:
+        key = row + "_bf16"
+        b_ms, by = bounds[key]
+        print(f"  {key}: {times[key] * 1e3:.4f} ms against its bound "
+              f"{b_ms:.4f} ms by {by} at 2 bytes an element (plain "
+              f"{times[key + '_plain'] * 1e3:.2f} ms); float32 row "
+              f"{row} on phase 5's call [{card}]")
+    for d, n, iters in SOLVE_CELLS:
+        runs = {}
+        for dt in ("float32", "bfloat16"):
+            cfg = pso.PSOConfig(dim=d, particle_cnt=n, dtype=dt).resolved()
+            st = ops.state_to_kernel(pso.init_swarm(cfg, 0, device="cuda"))
+            spec, nb = ops.kernel_spec(cfg), n // bn
+            kw = dict(seed=0, iteration=0, iters=iters, block_n=bn)
+            runs[dt] = ((lambda st, spec=spec, kw=kw: pso_step.fused(
+                *st, spec, **kw)), st, (lambda st, spec=spec, kw=kw:
+                pso_step.fused_async(*st, spec, sync_every=8, **kw)),
+                with_locals(st, nb))
+        got = {k: [] for k in ("fused float32", "fused bfloat16",
+                               "async float32", "async bfloat16")}
+        for fused, st, async_, sta in runs.values():      # warm-up
+            device_us(fused, st)
+            device_us(async_, sta)
+        for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+            fused, st, async_, sta = runs[dt]
+            got["fused " + dt].append(device_us(fused, st) / iters)
+            got["async " + dt].append(device_us(async_, sta) / iters)
+        print(f"  rows 2 and 5, cubic d={d} n={n} x{iters} (clusters of "
+              f"{bf16_cluster(n, d, bn)} in bfloat16, {cluster_of(n, d)} in "
+              f"float32), device us/iter in turns: " + "; ".join(
+                  f"{k} {', '.join(f'{u:.3f}' for u in v)}"
+                  for k, v in got.items()) + f" [{card}]")
+
+
+def phase_bf16(card: str, errs: dict, times: dict, bounds: dict) -> dict:
+    """15a-15c (the module docstring). Returns 15b's launches."""
+    t0 = time.perf_counter()
+    print(f"phase 15a: the bfloat16 kernels against their plain versions "
+          f"[{card}]")
+    bf16_every_instantiation(errs)
+    bf16_main_cells(errs)
+    launches = bf16_main_path(card)
+    bf16_times(card, times, bounds)
+    print(f"  phase 15: {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -5832,6 +6408,9 @@ REPLACES = {
     "split_advance": "src/repro/kernels/pso_step.py:874",
     "split_fold_publish": "src/repro/kernels/pso_step.py:874",
 }
+# phase 15: the bfloat16 kernels of rows 1, 2, 3, 5 and 6 replace the same
+# builders at dtype=bfloat16
+REPLACES.update({row + "_bf16": REPLACES[row] for row in BF16_ROWS})
 #: The pallas_call functions whose converted forms (a custom objective, the
 #: projection, the Deb fold, resolved by lower_statics) the split kernels
 #: replace.
@@ -5894,6 +6473,8 @@ def main() -> int:
     for k, v in phase_tooling(card).items():
         launches[k] += v
     for k, v in phase_zoo(card).items():
+        launches[k] += v
+    for k, v in phase_bf16(card, errs, times, bounds).items():
         launches[k] += v
     kernels = []
     for name, replaces in REPLACES.items():

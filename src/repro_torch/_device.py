@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -15,6 +16,19 @@ def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
             "repro_torch runs on a CUDA device and none is available; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def host(t) -> np.ndarray:
+    """A copy of a tensor's values as a numpy array on the host, which
+    later in-place updates of the tensor leave alone. numpy has no
+    bfloat16: a bfloat16 tensor comes back as float32, which holds every
+    bfloat16 value exactly."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return np.array(t.numpy())
+    return np.asarray(t)
 
 
 def resolve_for(generator: Optional[torch.Generator],

@@ -68,7 +68,6 @@ from .core.pso import (ASYNC_SYNC_EVERY, VARIANTS, PSOConfig, SwarmState,
 from .core.update_rules import (TOPOLOGIES, kernel_carries, kernel_rule_id,
                                  resolve_rule)
 from .telemetry import KernelCounters
-from .telemetry.counters import _host
 
 _KERNEL_VARIANTS = ("queue_lock", "async")
 _BACKENDS = ("auto", "eager", "kernel")
@@ -269,7 +268,9 @@ class Result:
 
     @property
     def best_pos(self) -> np.ndarray:
-        return self.state.gbest_pos.detach().cpu().numpy()
+        """gbest's position on the host (float32 for a bfloat16 swarm:
+        numpy has no bfloat16)."""
+        return _device.host(self.state.gbest_pos)
 
     @property
     def gbest_fit(self) -> float:
@@ -494,7 +495,8 @@ def _kernel_history(cfg: PSOConfig, its, fits, gps):
     if its is None:
         return None
     vf = cfg.problem.violation_fn
-    return its, _host(fits), None if gps is None else _host(vf(gps))
+    return (its, _device.host(fits),
+            None if gps is None else _device.host(vf(gps)))
 
 
 def _run_state(cfg: PSOConfig, state: SwarmState, iters: int, m: Method):
@@ -508,8 +510,8 @@ def _run_state(cfg: PSOConfig, state: SwarmState, iters: int, m: Method):
         state, (its, fits, viols) = run_with_history(
             cfg, state, iters, m.variant, sync_every=m.sync_every,
             n_blocks=blocks)
-        return state, (its, _host(fits),
-                       None if viols is None else _host(viols)), None
+        return state, (its, _device.host(fits),
+                       None if viols is None else _device.host(viols)), None
     return run(cfg, state, iters, m.variant, sync_every=m.sync_every,
                n_blocks=blocks), None, None
 
@@ -621,7 +623,7 @@ def _row_histories(hists, s_cnt: int) -> List[Optional[History]]:
 
 def _row_counters(cnts, s_cnt: int) -> List[Optional[KernelCounters]]:
     """Per-row KernelCounters from per-segment ``[S, 3]`` counts."""
-    total = _sum_counters([_host(c) for c in cnts])
+    total = _sum_counters([_device.host(c) for c in cnts])
     if total is None:
         return [None] * s_cnt
     return KernelCounters.rows(total)
@@ -675,8 +677,8 @@ def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int, m: Method,
         batch, (its, fits, viols) = run_many_with_history(
             cfg, batch, iters, m.variant, coeffs, sync_every=m.sync_every,
             rows=rows, table=table, n_blocks=blocks)
-        return batch, (its, _host(fits),
-                       None if viols is None else _host(viols)), None
+        return batch, (its, _device.host(fits),
+                       None if viols is None else _device.host(viols)), None
     return run_many(cfg, batch, iters, m.variant, coeffs,
                     sync_every=m.sync_every, rows=rows, table=table,
                     n_blocks=blocks), None, None

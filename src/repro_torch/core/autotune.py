@@ -90,11 +90,18 @@ class Schedule:
         return dataclasses.replace(self, **kw)
 
 
-def _kernel_ok(device: torch.device, rule: str = "pso") -> bool:
-    """Whether kernel candidates exist: a CUDA device and a rule the CUDA
-    kernels carry."""
+def _kernel_ok(device: torch.device, rule: str = "pso", problem=None,
+               dtype: str = "float32") -> bool:
+    """Whether kernel candidates exist: a CUDA device, a rule the CUDA
+    kernels carry and a dtype they take (float32; bfloat16 for the
+    built-in objectives, ``ops.kernel_spec``)."""
+    from .fitness import is_builtin
+    from .problem import resolve_problem
     from .update_rules import kernel_carries
-    return device.type == "cuda" and kernel_carries(rule)
+    takes = dtype == "float32" or (
+        dtype == "bfloat16" and problem is not None
+        and is_builtin(resolve_problem(problem)))
+    return device.type == "cuda" and kernel_carries(rule) and takes
 
 
 def cache_scope(kernel_ok: bool, device: torch.device) -> str:
@@ -271,10 +278,11 @@ def candidate_schedules(d: int, n: int, iters: int, *,
 
 
 def _card_plan(problem, d: int, hetero_table: int, rule: str,
-               device: torch.device) -> Tuple[Callable, Callable]:
+               device: torch.device, dtype: str = "float32"
+               ) -> Tuple[Callable, Callable]:
     """``(capacity, resident)`` of ``pso_step.launch_fits`` on the card, as
     functions of ``(block_n, cluster size)``: the occupancy queries the
-    kernel wrappers make before a launch."""
+    kernel wrappers make before a launch, on ``dtype``'s library."""
     from ..kernels import pso_step
     from .fitness import FITNESS_IDS
     from .problem import resolve_problem
@@ -284,14 +292,15 @@ def _card_plan(problem, d: int, hetero_table: int, rule: str,
     fit_id = (pso_step.HETERO if hetero_table
               else FITNESS_IDS[resolve_problem(problem).name])
     rule_id = kernel_rule_id(rule)
+    dt = getattr(torch, dtype)
 
     def capacity(bn: int, c: int) -> int:
         with torch.cuda.device(idx):
-            return pso_step._capacity(bn, d, idx, c)
+            return pso_step._capacity(bn, d, idx, c, dt)
 
     def resident(bn: int, c: int) -> int:
         with torch.cuda.device(idx):
-            return pso_step._resident(fit_id, rule_id, bn, d, c, idx)
+            return pso_step._resident(fit_id, rule_id, bn, d, c, idx, dt)
 
     return capacity, resident
 
@@ -300,14 +309,15 @@ def feasible_schedules(cands: Sequence[Schedule], problem, d: int, n: int,
                        *, batch: int = 1, hetero_table: int = 0,
                        rule: str = "pso", device=None,
                        capacity: Optional[Callable] = None,
-                       resident: Optional[Callable] = None
-                       ) -> List[Schedule]:
+                       resident: Optional[Callable] = None,
+                       dtype: str = "float32") -> List[Schedule]:
     """``cands`` without the kernel schedules the card cannot launch
     (``pso_step.launch_fits``; ``capacity(block_n, c)`` and
     ``resident(block_n, c)`` default to the card's occupancy queries on a
-    CUDA device). Eager schedules, the split path's (any non-built-in
-    Problem: normal launches of any size) and, on the CPU without injected
-    queries, every schedule (the plain versions take any block) stay."""
+    CUDA device, in ``dtype``'s library). Eager schedules, the split
+    path's (any non-built-in Problem: normal launches of any size) and, on
+    the CPU without injected queries, every schedule (the plain versions
+    take any block) stay."""
     from ..kernels import pso_step
     from .blocking import pick_block_n
     from .fitness import is_builtin
@@ -318,7 +328,8 @@ def feasible_schedules(cands: Sequence[Schedule], problem, d: int, n: int,
     if split or (capacity is None and dev.type != "cuda"):
         return list(cands)
     if capacity is None:
-        capacity, resident = _card_plan(problem, d, hetero_table, rule, dev)
+        capacity, resident = _card_plan(problem, d, hetero_table, rule, dev,
+                                        dtype)
     out = []
     for s in cands:
         if s.backend == "kernel":
@@ -437,7 +448,8 @@ def resolve_schedule(problem, d: int, n: int, iters: int, *,
     dev = _device.resolve(device)
     cache = cache or default_cache()
     if kernel_ok is None:
-        kernel_ok = _kernel_ok(dev, rule) and not record_history
+        kernel_ok = (_kernel_ok(dev, rule, problem, dtype)
+                     and not record_history)
     scope = cache_scope(kernel_ok, dev)
     key = shape_key(problem, d, n, iters, dtype, batch, hetero_table,
                     rule=rule)
@@ -448,7 +460,7 @@ def resolve_schedule(problem, d: int, n: int, iters: int, *,
                                 variants=variants)
     cands = feasible_schedules(cands, problem, d, n, batch=batch,
                                hetero_table=hetero_table, rule=rule,
-                               device=dev)
+                               device=dev, dtype=dtype)
     ranked = rank_schedules(cands, problem, d, n, iters, dtype=dtype,
                             batch=batch, hetero_table=hetero_table,
                             rule=rule, device=dev)
@@ -518,10 +530,10 @@ def seed_priors(cache: Optional[AutotuneCache] = None,
     cache = cache or default_cache()
     if problems is None:
         problems = [p.name for p in BUILTIN_PROBLEMS]
-    kernel_ok = _kernel_ok(dev)
-    scope = cache_scope(kernel_ok, dev)
     seeded = 0
     for prob in problems:
+        kernel_ok = _kernel_ok(dev, problem=prob, dtype=dtype)
+        scope = cache_scope(kernel_ok, dev)
         for d in dims:
             for n in particles:
                 key = shape_key(prob, d, n, iters, dtype)
@@ -529,7 +541,7 @@ def seed_priors(cache: Optional[AutotuneCache] = None,
                     continue
                 cands = feasible_schedules(
                     candidate_schedules(d, n, iters, kernel_ok=kernel_ok),
-                    prob, d, n, device=dev)
+                    prob, d, n, device=dev, dtype=dtype)
                 ranked = rank_schedules(cands, prob, d, n, iters,
                                         dtype=dtype, device=dev)
                 if ranked:

@@ -5,9 +5,14 @@ order as ``repro.core.fitness``; classical minimization benchmarks are
 negated. The CUDA kernels carry per-thread forms of the same arithmetic
 (``kernels/csrc/pso_step.cu``), selected by ``FITNESS_IDS``; ``is_builtin``
 says which Problems they take.
+
+A Python constant enters an operation as the reference's weak typing makes
+it: rounded to the operand's dtype where that is narrower than float32
+(``weak``), which torch does not do by itself.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict
 
@@ -15,11 +20,31 @@ import torch
 
 from .problem import Problem, register_problem
 
+#: Float dtypes narrower than float32.
+LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def weak(v, dtype: torch.dtype):
+    """A Python number ``v`` as it enters an operation of ``dtype`` under
+    the reference's weak typing: rounded to ``dtype`` (to nearest even)
+    where that is narrower than float32. Torch computes ``x * 0.8`` on a
+    bfloat16 ``x`` with 0.8 at float32 precision; the reference with
+    bfloat16(0.8). ``v`` itself in wider dtypes, and a tensor unchanged."""
+    if dtype not in LOW_PRECISION or isinstance(v, torch.Tensor):
+        return v
+    return _rounded(float(v), dtype)
+
 
 def cubic(pos: torch.Tensor) -> torch.Tensor:
     """Paper Eq. 3, maximized: sum_i x_i^3 - 0.8 x_i^2 - 1000 x_i + 8000."""
     x = pos
-    return torch.sum(x * x * x - 0.8 * (x * x) - 1000.0 * x + 8000.0, dim=-1)
+    return torch.sum(x * x * x - weak(0.8, x.dtype) * (x * x) - 1000.0 * x
+                     + 8000.0, dim=-1)
 
 
 def sphere(pos: torch.Tensor) -> torch.Tensor:
@@ -44,23 +69,31 @@ def griewank(pos: torch.Tensor) -> torch.Tensor:
     d = x.shape[-1]
     idx = torch.arange(1, d + 1, dtype=x.dtype, device=x.device)
     s = torch.sum(x * x, dim=-1) / 4000.0
-    p = torch.prod(torch.cos(x / torch.sqrt(idx)), dim=-1)
+    c = torch.cos(x / torch.sqrt(idx))
+    if x.dtype in LOW_PRECISION:    # jnp.prod accumulates these in float32
+        p = torch.prod(c, dim=-1, dtype=torch.float32).to(x.dtype)
+    else:
+        p = torch.prod(c, dim=-1)
     return -(s - p + 1.0)
 
 
 def rastrigin(pos: torch.Tensor) -> torch.Tensor:
     x = pos
     d = x.shape[-1]
-    return -(10.0 * d + torch.sum(x * x - 10.0 * torch.cos(2.0 * math.pi * x),
-                                  dim=-1))
+    two_pi = weak(2.0 * math.pi, x.dtype)
+    return -(weak(10.0 * d, x.dtype)
+             + torch.sum(x * x - 10.0 * torch.cos(two_pi * x), dim=-1))
 
 
 def ackley(pos: torch.Tensor) -> torch.Tensor:
     x = pos
     d = x.shape[-1]
-    s1 = torch.sqrt(torch.sum(x * x, dim=-1) / d)
-    s2 = torch.sum(torch.cos(2.0 * math.pi * x), dim=-1) / d
-    return -(-20.0 * torch.exp(-0.2 * s1) - torch.exp(s2) + 20.0 + math.e)
+    dt = x.dtype
+    s1 = torch.sqrt(torch.sum(x * x, dim=-1) / weak(d, dt))
+    s2 = torch.sum(torch.cos(weak(2.0 * math.pi, dt) * x), dim=-1) \
+        / weak(d, dt)
+    return -(-20.0 * torch.exp(weak(-0.2, dt) * s1) - torch.exp(s2) + 20.0
+             + weak(math.e, dt))
 
 
 # Declaration order fixes FITNESS_IDS (the kernels' template index), so keep

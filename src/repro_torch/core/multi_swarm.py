@@ -45,6 +45,9 @@ Tensor = torch.Tensor
 #: floor, but ``serving.ContinuousScheduler`` floors lane widths at it.
 MIN_VALIDATED_SWARMS = 8
 
+#: Dtypes without a heterogeneous batch (``problem_rows``).
+NO_HETERO_DTYPES = ("bfloat16", "float16")
+
 
 class ProblemRows(NamedTuple):
     """Per-row problem descriptors of a heterogeneous batch, against a
@@ -96,8 +99,15 @@ def problem_rows(problems: Sequence, dim: int, dtype: str = "float32",
     (``None``: the card). ``problems`` are names or ``Problem``s, each of
     which must be in ``table`` (default: the six built-ins). Table members
     must be unconstrained or penalty-mode: projection and repair would need
-    per-row init and advance hooks. Returns ``(rows, table)``."""
+    per-row init and advance hooks. Float32 and float64 only: the
+    reference's heterogeneous batch fails in bfloat16 (its scan carries a
+    float32 fitness beside the bfloat16 state), and the port refuses it
+    there and in float16 with a ``ValueError``. Returns ``(rows, table)``."""
     from .fitness import BUILTIN_PROBLEMS
+    if dtype in NO_HETERO_DTYPES:
+        raise ValueError(f"heterogeneous batches take float32 (or float64) "
+                         f"only, not {dtype}: the reference's fails there "
+                         f"too; solve each problem in a batch of its own")
     dev = _device.resolve(device)
     table = BUILTIN_PROBLEMS if table is None else tuple(table)
     for p in table:

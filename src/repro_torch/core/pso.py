@@ -45,6 +45,7 @@ from .. import _device
 from . import rng
 from .blocking import default_block_count
 from .constraints import deb_improved, repair_init_positions
+from .fitness import weak
 from .problem import Bound, Problem, broadcast_bounds, resolve_problem
 from .topology import block_neighbor_best
 from .update_rules import TOPOLOGIES, resolve_rule
@@ -272,9 +273,11 @@ def init_swarm(cfg: PSOConfig, seed, n: Optional[int] = None,
         mv = _bound_operand(cfg.max_v, dt, dev)
     else:
         lo, hi, mv = (x.unsqueeze(-2) for x in hetero[1][1:])
-    span = hi - lo
-    pos = lo + span * u_pos
-    vel = -mv + 2.0 * mv * u_vel
+    # scalar bounds are weak-typed constants (fitness.weak) in the
+    # reference: its span is the Python difference, rounded to the dtype
+    span = weak(hi - lo, dt)
+    pos = weak(lo, dt) + span * u_pos
+    vel = weak(-mv, dt) + weak(2.0 * mv, dt) * u_vel
     prob = cfg.problem
     if hetero is None and prob.projection_fn is not None:
         pos = prob.projection_fn(pos)          # start feasible

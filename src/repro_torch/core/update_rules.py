@@ -30,8 +30,8 @@ class UpdateRule:
     #: kernels carry only the rules of ``RULE_IDS`` (``kernel_carries``)
     kernel_eligible: bool = True
 
-    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi,
+                span=None) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
     def kernel_consts(self) -> Tuple[float, float, float]:
@@ -43,7 +43,8 @@ class UpdateRule:
 class PSORule(UpdateRule):
     """Canonical inertia-weight PSO — the default rule."""
 
-    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi):
+    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi,
+                span=None):
         vel = (w * vel + c1 * r1 * (pbp - pos) + c2 * r2 * (gp - pos))
         vel = torch.clamp(vel, -mv, mv)
         pos = torch.clamp(pos + vel, lo, hi)
@@ -54,14 +55,17 @@ class PSORule(UpdateRule):
 class SSORule(UpdateRule):
     """Simplified Swarm Optimization (arXiv 2110.01470): copy from gbest
     (``r1 < cg``), pbest (``< cg+cp``), keep (``< cg+cp+cw``), or resample
-    uniformly in the box from ``r2``. Velocity passes through."""
+    uniformly in the box from ``r2``. Velocity passes through. ``span``,
+    where given, is the box width ``hi - lo`` as the caller's arithmetic
+    takes it (the kernels' plain versions in bfloat16)."""
 
     cg: float = 0.4
     cp: float = 0.3
     cw: float = 0.2
 
-    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi):
-        fresh = lo + (hi - lo) * r2
+    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi,
+                span=None):
+        fresh = lo + (hi - lo if span is None else span) * r2
         pos = torch.where(
             r1 < self.cg, gp,
             torch.where(r1 < self.cg + self.cp, pbp,
@@ -81,7 +85,8 @@ class LowCostRule(UpdateRule):
     """Low-complexity PSO (arXiv 1401.0546): Bernoulli-selected difference
     terms, no stochastic multiplies."""
 
-    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi):
+    def advance(self, r1, r2, pos, vel, pbp, gp, *, w, c1, c2, mv, lo, hi,
+                span=None):
         zero = torch.zeros_like(pos)
         vel = (vel + torch.where(r1 < 0.5, pbp - pos, zero)
                + torch.where(r2 < 0.5, gp - pos, zero))

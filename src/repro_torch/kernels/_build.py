@@ -6,6 +6,11 @@ header, so ``nvcc`` builds it in seconds. The shared library goes to
 source and the flags, so a changed source is never served a stale build;
 it is built at first use. Nothing here runs at import time: CPU-only torch
 imports the package without a compiler.
+
+A variant builds the same source again with defines of its own
+(``VARIANTS``: ``pso_step`` with ``-DPSO_T_BF16`` holds the bfloat16
+kernels) into a library, tag and compiler report of its own, so the plain
+build of a source is the same with and without its variants.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: A variant's defines, added to ``NVCC_FLAGS`` for ``<source>_<variant>``.
+VARIANTS = {"bf16": ("-DPSO_T_BF16",)}
+
 
 def nvcc() -> str:
     """The CUDA compiler: on ``PATH``, else under ``CUDA_HOME``."""
@@ -37,27 +45,33 @@ def nvcc() -> str:
                        "kernels are built with the CUDA toolkit at first use")
 
 
-def tag(name: str) -> str:
-    """The build tag of ``csrc/<name>.cu``: a hash of the source and the
-    flags, which names its library (and fingerprints the serving compile
-    cache's manifest)."""
+def _flags(variant: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + (VARIANTS[variant] if variant else ())
+
+
+def tag(name: str, variant: str = "") -> str:
+    """The build tag of ``csrc/<name>.cu`` (in ``variant``, a key of
+    ``VARIANTS``, or plain): a hash of the source and the flags, which
+    names its library (and fingerprints the serving compile cache's
+    manifest)."""
     src = CSRC / f"{name}.cu"
     return hashlib.sha1(src.read_bytes()
-                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                        + " ".join(_flags(variant)).encode()).hexdigest()[:12]
 
 
-def build(name: str) -> Tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its build exists; returns the
-    library path and the compiler's report (``-Xptxas -v``: registers,
-    shared memory and spills of every kernel)."""
+def build(name: str, variant: str = "") -> Tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` (in ``variant``) unless its build exists;
+    returns the library path and the compiler's report (``-Xptxas -v``:
+    registers, shared memory and spills of every kernel)."""
     src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}-{tag(name)}.so"
+    stem = f"{name}_{variant}" if variant else name
+    lib = BUILD_DIR / f"lib{stem}-{tag(name, variant)}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.run([nvcc(), *_flags(variant), "-o", str(tmp),
+                               str(src)], capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
                                f"{proc.stderr}")
@@ -67,7 +81,8 @@ def build(name: str) -> Tuple[Path, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` once per process."""
-    lib, _ = build(name)
+def load(name: str, variant: str = "") -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` (in ``variant``) once
+    per process."""
+    lib, _ = build(name, variant)
     return ctypes.CDLL(str(lib))

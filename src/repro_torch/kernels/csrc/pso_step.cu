@@ -42,7 +42,13 @@
 // particles base + l + blockDim, ..., and there is no cluster code at all.
 // Every swarm has its own RNG seed and iteration counter (seeds[S],
 // its[S]), and RNG element indices are local to the swarm, so a swarm's row
-// of a batch draws what the swarm draws alone. float32 only.
+// of a batch draws what the swarm draws alone.
+//
+// Storage type: every kernel template takes the type T of the swarm's
+// arrays (below, "Storage types"): float, or __nv_bfloat16 in the library
+// built from this source with -DPSO_T_BF16. One library holds one type's
+// kernels; kernels/pso_step.py loads the one a swarm's dtype needs. The
+// bfloat16 library has no heterogeneous kernels.
 //
 // Heterogeneous batches: bounds are a table [members, 4, D] and fids[S]
 // picks a swarm's member (a homogeneous batch is a table of one, read at
@@ -102,8 +108,11 @@
 // (kernels/pso_step.py) do, which is what chip_smoke.py holds them to.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -116,27 +125,79 @@ constexpr int kRuleCount = 3;      // core/update_rules.py RULE_IDS order
 constexpr uint32_t kStreamR1 = 2u, kStreamR2 = 3u;
 constexpr int kBatch = 4;          // dimensions loaded together
 
+// ---- storage types ---------------------------------------------------------
+// The swarm's arrays (pos, vel, pbest, the bests, the async locals, the
+// fused kernel's candidate columns and the queue kernel's aux_fit) are of
+// type T; the bounds table and shared memory are float in both libraries.
+// A value is widened to float when it is loaded and narrowed when it is
+// stored. In bfloat16 the kernels compute what the reference's kernels
+// compute in that dtype (ROADMAP, parity contract, "bfloat16"): every
+// operation's result is rounded to bfloat16 (q<T>), each constant is the
+// bfloat16 value of the reference's weak-typed Python float (kc<T>), and
+// an objective's sum over D adds its rounded terms in float, in dimension
+// order, and is rounded once. For float, q<T>, widen and narrow are the
+// identity, so the float kernels compute what they computed before T was a
+// parameter.
+#ifdef PSO_T_BF16
+using Store = __nv_bfloat16;
+#else
+using Store = float;
+#endif
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T narrow(float x) {
+  if constexpr (std::is_same<T, float>::value) return x;
+  else return __float2bfloat16_rn(x);
+}
+// x rounded to T (to nearest even) and widened again.
+template <typename T>
+__device__ __forceinline__ float q(float x) {
+  return widen(narrow<T>(x));
+}
+// A constant: its float value f, or b, the same Python float rounded to
+// bfloat16.
+template <typename T>
+__device__ __forceinline__ constexpr float kc(float f, float b) {
+  return std::is_same<T, float>::value ? f : b;
+}
+// Loads and stores past L1 (the async kernel's shared gbest and slots).
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg(const __nv_bfloat16* p) {
+  return widen(__ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void stcg(float* p, float v) { __stcg(p, v); }
+__device__ __forceinline__ void stcg(__nv_bfloat16* p, float v) {
+  __stcg(reinterpret_cast<unsigned short*>(p),
+         __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+template <typename T>
 struct Params {
-  float* pos; float* vel; float* pbp; float* pbf;   // [D,S*N] x3, [S*N]
-  float* gp; float* gf;                              // [D,S], [S]
+  T* pos; T* vel; T* pbp; T* pbf;                    // [D,S*N] x3, [S*N]
+  T* gp; T* gf;                                      // [D,S], [S]
   const float* bounds;       // [members,4,D]: lo, hi, max_v, span
   const int* member_fit;     // hetero: [members] objective ids
   const int* fids;           // hetero: [S] member of each swarm, else null
   const unsigned* seeds;     // [S] RNG seeds, or null: seed0
   const unsigned* its;       // [S] iteration counters before the launch,
                              // or null: it00
-  float* lp; float* lf;                              // async: [D,S*nb], [S*nb]
+  T* lp; T* lf;                                      // async: [D,S*nb], [S*nb]
   unsigned long long* keys;                          // fused: [S,2] winner keys
-  float* cand;                                       // fused: [2,S*nb,D]
+  T* cand;                                           // fused: [2,S*nb,D]
   unsigned* lock;                                    // async: [S,2]
-  float* aux_fit; int* aux_idx;                      // queue: [nb], [nb]
+  T* aux_fit; int* aux_idx;                          // queue: [nb], [nb]
   int* counts;               // fused/async: [S,3] event counts, or null
   int n, d, bn, nb, s_cnt, s0, iters, chunk;
   int csize;                 // CTAs in a particle block's cluster
   int ld;                    // row stride of the [D, S*N] arrays: S*N
   uint32_t it_off;           // added to its[] (the async remainder phase)
   uint32_t seed0, it00;      // a single swarm's counters, passed by value
-  float w, c1, c2, k0, k1, k2;
+  float w, c1, c2, k0, k1, k2;   // values of T (the caller rounds them)
   // async under an lbest topology: [S*nb] per-slot sequence counters of
   // lp/lf, the topology (kRing, kVonNeumann) and the von Neumann grid
   unsigned* slot_seq;
@@ -158,8 +219,8 @@ struct Cta {
   int k0, k1, ls;  // the CTA's dimensions [k0, k1); ls: its shared row length
 };
 
-template <bool CL>
-__device__ __forceinline__ Cta cta_of(const Params& p) {
+template <bool CL, typename T>
+__device__ __forceinline__ Cta cta_of(const Params<T>& p) {
   Cta c;
   // A 1-D cluster is C consecutive CTAs: blockIdx.x / C is the block.
   const int blk = CL ? (int)blockIdx.x / p.csize : (int)blockIdx.x;
@@ -188,43 +249,56 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
+// In bfloat16 the 24 bits are rounded to bfloat16 (to nearest even) before
+// the exact scaling, as the reference's (h >> 8).astype(dtype) * 2**-24:
+// the draw may then be 1.0.
+template <typename T>
 __device__ __forceinline__ float uniform01(uint32_t seed, uint32_t it,
                                            uint32_t stream, uint32_t idx) {
   uint32_t h = seed * 0x9E3779B9u + it * 0x85EBCA6Bu + stream * 0xC2B2AE35u +
                idx * 0x27D4EB2Fu;
   h = mix32(h);
   h = mix32(h ^ (idx * 0x9E3779B9u + it * 0xC2B2AE35u));
-  return __fmul_rn((float)(h >> 8), 1.0f / 16777216.0f);
+  return __fmul_rn(q<T>((float)(h >> 8)), 1.0f / 16777216.0f);
 }
 
 // ---- the three update rules (core/update_rules.py) ------------------------
-template <int R>
-__device__ __forceinline__ void advance(const Params& p, float r1, float r2,
-                                        float& x, float& v, float pb, float g,
-                                        float lo, float hi, float mv,
-                                        float span) {
+// Each operation rounds to T (q<T>, the identity for float).
+template <int R, typename T>
+__device__ __forceinline__ void advance(const Params<T>& p, float r1,
+                                        float r2, float& x, float& v,
+                                        float pb, float g, float lo, float hi,
+                                        float mv, float span) {
   if (R == 0) {          // pso: v = w v + c1 r1 (pb - x) + c2 r2 (g - x)
-    const float a = __fmul_rn(p.w, v);
-    const float b = __fmul_rn(__fmul_rn(p.c1, r1), __fsub_rn(pb, x));
-    const float c = __fmul_rn(__fmul_rn(p.c2, r2), __fsub_rn(g, x));
-    v = fminf(fmaxf(__fadd_rn(__fadd_rn(a, b), c), -mv), mv);
-    x = fminf(fmaxf(__fadd_rn(x, v), lo), hi);
+    const float a = q<T>(__fmul_rn(p.w, v));
+    const float b = q<T>(__fmul_rn(q<T>(__fmul_rn(p.c1, r1)),
+                                   q<T>(__fsub_rn(pb, x))));
+    const float c = q<T>(__fmul_rn(q<T>(__fmul_rn(p.c2, r2)),
+                                   q<T>(__fsub_rn(g, x))));
+    v = fminf(fmaxf(q<T>(__fadd_rn(q<T>(__fadd_rn(a, b)), c)), -mv), mv);
+    x = fminf(fmaxf(q<T>(__fadd_rn(x, v)), lo), hi);
   } else if (R == 1) {   // sso: copy from gbest / pbest / keep / resample
-    const float fresh = __fadd_rn(lo, __fmul_rn(span, r2));
+    const float fresh = q<T>(__fadd_rn(lo, q<T>(__fmul_rn(span, r2))));
     x = r1 < p.k0 ? g : (r1 < p.k1 ? pb : (r1 < p.k2 ? x : fresh));
     x = fminf(fmaxf(x, lo), hi);
   } else {               // lowcost: Bernoulli-selected difference terms
-    const float a = r1 < 0.5f ? __fsub_rn(pb, x) : 0.0f;
-    const float b = r2 < 0.5f ? __fsub_rn(g, x) : 0.0f;
-    v = fminf(fmaxf(__fadd_rn(__fadd_rn(v, a), b), -mv), mv);
-    x = fminf(fmaxf(__fadd_rn(x, v), lo), hi);
+    const float a = r1 < 0.5f ? q<T>(__fsub_rn(pb, x)) : 0.0f;
+    const float b = r2 < 0.5f ? q<T>(__fsub_rn(g, x)) : 0.0f;
+    v = fminf(fmaxf(q<T>(__fadd_rn(q<T>(__fadd_rn(v, a)), b)), -mv), mv);
+    x = fminf(fmaxf(q<T>(__fadd_rn(x, v)), lo), hi);
   }
 }
 
 // ---- the six objectives (core/fitness.py), one streaming pass over D -------
+// In bfloat16 the terms and the result follow the reference's kernel forms
+// (repro/kernels/pso_step.py _fitness_dmajor) rounding by rounding: each
+// term rounded, the sum over D in float, rounded once (jnp.sum's float32
+// accumulation). Griewank's product there is float32 (its dimension index
+// is a float32 column), so it stays float here and the fitness is rounded
+// once, at the end.
 constexpr float kTwoPi = 6.283185307179586f;
 
-template <int F>
+template <typename T, int F>
 struct Objective {
   float s = 0.0f, t = 0.0f, prev = 0.0f;
   float p = 1.0f;
@@ -232,11 +306,15 @@ struct Objective {
 
   // Dimension k of a walk that starts at dimension k0 (0 without a split).
   __device__ __forceinline__ void add(int k, int k0, float x) {
-    const float xx = __fmul_rn(x, x);
+    const float xx = q<T>(__fmul_rn(x, x));
     if (F == 0) {          // cubic: x^3 - 0.8 x^2 - 1000 x + 8000
-      const float v = __fadd_rn(__fsub_rn(__fsub_rn(__fmul_rn(xx, x),
-                                                    __fmul_rn(0.8f, xx)),
-                                          __fmul_rn(1000.0f, x)), 8000.0f);
+      const float v = q<T>(__fadd_rn(
+          q<T>(__fsub_rn(q<T>(__fsub_rn(q<T>(__fmul_rn(xx, x)),
+                                        q<T>(__fmul_rn(kc<T>(0.8f,
+                                                             0.80078125f),
+                                                       xx)))),
+                         q<T>(__fmul_rn(1000.0f, x)))),
+          8000.0f));
       s = __fadd_rn(s, v);
     } else if (F == 1) {   // sphere
       s = __fadd_rn(s, xx);
@@ -244,8 +322,8 @@ struct Objective {
       if (k > k0) {
         s = __fadd_rn(s, pair(prev, x));
       } else {
-        const float q = __fsub_rn(1.0f, x);
-        t = __fmul_rn(q, q);
+        const float u = q<T>(__fsub_rn(1.0f, x));
+        t = q<T>(__fmul_rn(u, u));
         first = x;
       }
       prev = x;
@@ -253,18 +331,25 @@ struct Objective {
       s = __fadd_rn(s, xx);
       p = __fmul_rn(p, cosf(__fdiv_rn(x, sqrtf((float)(k + 1)))));
     } else if (F == 4) {   // rastrigin
-      s = __fadd_rn(s, __fsub_rn(xx, __fmul_rn(10.0f,
-                                               cosf(__fmul_rn(kTwoPi, x)))));
+      const float c = q<T>(cosf(q<T>(__fmul_rn(kc<T>(kTwoPi, 6.28125f), x))));
+      s = __fadd_rn(s, q<T>(__fsub_rn(xx, q<T>(__fmul_rn(10.0f, c)))));
     } else {               // ackley
       s = __fadd_rn(s, xx);
-      t = __fadd_rn(t, cosf(__fmul_rn(kTwoPi, x)));
+      t = __fadd_rn(t, q<T>(cosf(q<T>(__fmul_rn(kc<T>(kTwoPi, 6.28125f),
+                                                  x)))));
     }
   }
 
+  // float: 100 (u u) + (1 - a)^2; bfloat16 as the reference's kernel:
+  // (100 u) u + (1 - a)^2, each operation rounded.
   static __device__ __forceinline__ float pair(float a, float x) {
-    const float u = __fsub_rn(x, __fmul_rn(a, a));
-    const float q = __fsub_rn(1.0f, a);
-    return __fadd_rn(__fmul_rn(100.0f, __fmul_rn(u, u)), __fmul_rn(q, q));
+    const float u = q<T>(__fsub_rn(x, q<T>(__fmul_rn(a, a))));
+    const float r = q<T>(__fsub_rn(1.0f, a));
+    if constexpr (std::is_same<T, float>::value)
+      return __fadd_rn(__fmul_rn(100.0f, __fmul_rn(u, u)), __fmul_rn(r, r));
+    else
+      return q<T>(__fadd_rn(q<T>(__fmul_rn(q<T>(__fmul_rn(100.0f, u)), u)),
+                            q<T>(__fmul_rn(r, r))));
   }
 
   // Appends the partial state of the next slice (rank order): the sums add,
@@ -300,16 +385,23 @@ struct Objective {
   }
 
   __device__ __forceinline__ float result(int d) const {
-    if (F == 0) return s;
-    if (F == 1) return -s;
-    if (F == 2) return d == 1 ? -t : -s;
-    if (F == 3) return -__fadd_rn(__fsub_rn(__fdiv_rn(s, 4000.0f), p), 1.0f);
-    if (F == 4) return -__fadd_rn((float)(10.0 * d), s);
-    const float fd = (float)d;
-    const float e1 = expf(__fmul_rn(-0.2f, sqrtf(__fdiv_rn(s, fd))));
-    const float e2 = expf(__fdiv_rn(t, fd));
-    return -__fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(-20.0f, e1), e2), 20.0f),
-                      2.718281828459045f);
+    const float sum = q<T>(s);
+    if (F == 0) return sum;
+    if (F == 1) return -sum;
+    if (F == 2) return d == 1 ? -t : -sum;
+    if (F == 3)
+      return q<T>(-__fadd_rn(__fsub_rn(q<T>(__fdiv_rn(sum, 4000.0f)), p),
+                             1.0f));
+    if (F == 4) return -q<T>(__fadd_rn(q<T>((float)(10.0 * d)), sum));
+    const float fd = q<T>((float)d);
+    const float e1 = q<T>(expf(q<T>(__fmul_rn(
+        kc<T>(-0.2f, -0.2001953125f), q<T>(sqrtf(q<T>(__fdiv_rn(sum,
+                                                                 fd))))))));
+    const float e2 = q<T>(expf(q<T>(__fdiv_rn(q<T>(t), fd))));
+    return -q<T>(__fadd_rn(
+        q<T>(__fadd_rn(q<T>(__fsub_rn(q<T>(__fmul_rn(-20.0f, e1)), e2)),
+                       20.0f)),
+        kc<T>(2.718281828459045f, 2.71875f)));
   }
 };
 
@@ -318,11 +410,9 @@ struct Objective {
 // max_v and span rows, each ls long, indexed from k0), writes pos and vel,
 // and returns the objective's state over those dimensions. Without a
 // cluster the range is all of D.
-template <int F, int R, bool CL>
-__device__ __forceinline__ Objective<F> advance_particle(const Params& p,
-                                                         const Cta& c, int i,
-                                                         uint32_t it,
-                                                         const float* sm) {
+template <typename T, int F, int R, bool CL>
+__device__ __forceinline__ Objective<T, F> advance_particle(
+    const Params<T>& p, const Cta& c, int i, uint32_t it, const float* sm) {
   const int D = p.d;
   const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : D, ls = CL ? c.ls : D;
   const float* att = sm;
@@ -330,17 +420,17 @@ __device__ __forceinline__ Objective<F> advance_particle(const Params& p,
   const float* hi = sm + 2 * ls;
   const float* mv = sm + 3 * ls;
   const float* span = sm + 4 * ls;
-  Objective<F> obj;
+  Objective<T, F> obj;
   const uint32_t idx0 = (uint32_t)i * (uint32_t)D;   // index = particle*D + dim
   const int col = c.col + i;
   auto update = [&](int k, float x, float v, float pb) {
     const size_t o = (size_t)k * p.ld + col;
-    const float r1 = uniform01(c.seed, it, kStreamR1, idx0 + (uint32_t)k);
-    const float r2 = uniform01(c.seed, it, kStreamR2, idx0 + (uint32_t)k);
+    const float r1 = uniform01<T>(c.seed, it, kStreamR1, idx0 + (uint32_t)k);
+    const float r2 = uniform01<T>(c.seed, it, kStreamR2, idx0 + (uint32_t)k);
     const int j = k - k0;
     advance<R>(p, r1, r2, x, v, pb, att[j], lo[j], hi[j], mv[j], span[j]);
-    p.pos[o] = x;
-    p.vel[o] = v;
+    p.pos[o] = narrow<T>(x);
+    p.vel[o] = narrow<T>(v);
     obj.add(k, k0, x);
   };
   // One thread walks its dimensions of its particle, so the loads of
@@ -354,33 +444,35 @@ __device__ __forceinline__ Objective<F> advance_particle(const Params& p,
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
       const size_t o = (size_t)(k + j) * p.ld + col;
-      x[j] = p.pos[o];
-      v[j] = p.vel[o];
-      pb[j] = p.pbp[o];
+      x[j] = widen(p.pos[o]);
+      v[j] = widen(p.vel[o]);
+      pb[j] = widen(p.pbp[o]);
     }
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) update(k + j, x[j], v[j], pb[j]);
   }
   for (; k < k1; ++k) {
     const size_t o = (size_t)k * p.ld + col;
-    update(k, p.pos[o], p.vel[o], p.pbp[o]);
+    update(k, widen(p.pos[o]), widen(p.vel[o]), widen(p.pbp[o]));
   }
   return obj;
 }
 
 // One iteration of particle i on all D dimensions (no cluster): advance,
-// objective, pbest fold. Returns the fitness. With counters (T and
+// objective, pbest fold. Returns the fitness. With counters (TL and
 // p.counts) an improvement also raises the CTA's flag s_cnt[3].
-template <int F, int R, bool T>
-__device__ __forceinline__ float step_particle(const Params& p, const Cta& c,
-                                               int i, uint32_t it,
-                                               const float* sm, int* s_cnt) {
+template <typename T, int F, int R, bool TL>
+__device__ __forceinline__ float step_particle(const Params<T>& p,
+                                               const Cta& c, int i,
+                                               uint32_t it, const float* sm,
+                                               int* s_cnt) {
   const int D = p.d;
   const int col = c.col + i;
-  const float f = advance_particle<F, R, false>(p, c, i, it, sm).result(D);
-  if (f > p.pbf[col]) {         // rare at steady state: copy the column
-    if (T && p.counts) s_cnt[3] = 1;
-    p.pbf[col] = f;
+  const float f =
+      advance_particle<T, F, R, false>(p, c, i, it, sm).result(D);
+  if (f > widen(p.pbf[col])) {  // rare at steady state: copy the column
+    if (TL && p.counts) s_cnt[3] = 1;
+    p.pbf[col] = narrow<T>(f);
     for (int j = 0; j < D; ++j) {
       const size_t o = (size_t)j * p.ld + col;
       p.pbp[o] = p.pos[o];
@@ -413,9 +505,9 @@ __device__ __forceinline__ int key_index(unsigned long long key) {
 // [k0, k1) (all of D without a cluster); with a cluster, the partial
 // objectives after them (partials()). `src` is the attractor: a D-major
 // array with row stride `stride`, read at column `colm`.
-template <bool CL>
-__device__ __forceinline__ void load_rows(const Params& p, const Cta& c,
-                                          float* sm, const float* src,
+template <bool CL, typename T>
+__device__ __forceinline__ void load_rows(const Params<T>& p, const Cta& c,
+                                          float* sm, const T* src,
                                           size_t stride, size_t colm) {
   const float* b = p.bounds + (size_t)c.member * 4 * p.d;
   if constexpr (!CL) {
@@ -428,7 +520,7 @@ __device__ __forceinline__ void load_rows(const Params& p, const Cta& c,
     }
   }
   for (int k = c.k0 + (int)threadIdx.x; k < c.k1; k += blockDim.x)
-    sm[k - c.k0] = src[(size_t)k * stride + colm];
+    sm[k - c.k0] = widen(src[(size_t)k * stride + colm]);
 }
 
 // A cluster CTA's partial-objective buffers: [2 parities][3][bn] floats.
@@ -437,10 +529,10 @@ __device__ __forceinline__ float* partials(const Cta& c, float* sm) {
 }
 
 // Each thread's particles: one pass, returning the thread's best queue key
-// (0 when none of its particles beats `best`). T: count improvements into
+// (0 when none of its particles beats `best`). TL: count improvements into
 // s_cnt (step_particle).
-template <int F, int R, bool T>
-__device__ __forceinline__ unsigned long long step_block(const Params& p,
+template <typename T, int F, int R, bool TL>
+__device__ __forceinline__ unsigned long long step_block(const Params<T>& p,
                                                          const Cta& c,
                                                          uint32_t it,
                                                          const float* sm,
@@ -450,7 +542,7 @@ __device__ __forceinline__ unsigned long long step_block(const Params& p,
   const int base = c.b * p.bn;
   for (int l = threadIdx.x; l < p.bn; l += blockDim.x) {
     const int i = base + l;
-    const float f = step_particle<F, R, T>(p, c, i, it, sm, s_cnt);
+    const float f = step_particle<T, F, R, TL>(p, c, i, it, sm, s_cnt);
     if (f > best) {
       const unsigned long long key = make_key(f, i);
       mine = key > mine ? key : mine;
@@ -467,24 +559,25 @@ __device__ __forceinline__ unsigned long long step_block(const Params& p,
 // particle's pbest fitness, kept in a register by every rank (rank 0 alone
 // stores it): a rank that read it from memory could see rank 0's store of
 // this same iteration. Returns the thread's queue key (0 when its
-// particle does not beat `best`). T as in step_block: every rank takes the
+// particle does not beat `best`). TL as in step_block: every rank takes the
 // same pbest decision, so every rank's flag agrees.
-template <int F, int R, bool T>
+template <typename T, int F, int R, bool TL>
 __device__ __forceinline__ unsigned long long step_cluster(
-    const Params& p, const Cta& c, uint32_t it, const float* sm, float best,
-    float* part, float& pbf, int* s_cnt) {
+    const Params<T>& p, const Cta& c, uint32_t it, const float* sm,
+    float best, float* part, float& pbf, int* s_cnt) {
+  using Obj = Objective<T, F>;
   const cg::cluster_group cl = cg::this_cluster();
   const int l = threadIdx.x, i = c.b * p.bn + l, col = c.col + i;
-  advance_particle<F, R, true>(p, c, i, it, sm).put(part, l, p.bn);
+  advance_particle<T, F, R, true>(p, c, i, it, sm).put(part, l, p.bn);
   cl.sync();
-  Objective<F> obj = Objective<F>::take(cl.map_shared_rank(part, 0), l, p.bn);
-  for (int q = 1; q < p.csize; ++q)
-    obj.join(Objective<F>::take(cl.map_shared_rank(part, q), l, p.bn));
+  Obj obj = Obj::take(cl.map_shared_rank(part, 0), l, p.bn);
+  for (int r = 1; r < p.csize; ++r)
+    obj.join(Obj::take(cl.map_shared_rank(part, r), l, p.bn));
   const float f = obj.result(p.d);
   if (f > pbf) {               // rare at steady state: copy the slice
-    if (T && p.counts) s_cnt[3] = 1;
+    if (TL && p.counts) s_cnt[3] = 1;
     pbf = f;
-    if (c.rank == 0) p.pbf[col] = f;
+    if (c.rank == 0) p.pbf[col] = narrow<T>(f);
     for (int k = c.k0; k < c.k1; ++k) {
       const size_t o = (size_t)k * p.ld + col;
       p.pbp[o] = p.pos[o];
@@ -521,7 +614,8 @@ __device__ __forceinline__ void count_step(int* s_cnt, bool queued,
   }
 }
 
-__device__ __forceinline__ void add_counts(const Params& p, const Cta& c,
+template <typename T>
+__device__ __forceinline__ void add_counts(const Params<T>& p, const Cta& c,
                                            const int* s_cnt) {
   if (p.counts && threadIdx.x == 0 && c.rank == 0) {
     int* dst = p.counts + 3 * (size_t)c.s;
@@ -584,18 +678,18 @@ __device__ __forceinline__ void add_counts(const Params& p, const Cta& c,
 // kernel, and both <= block_improvements, since a lane that beats gbest
 // also beats its own pbest.
 // ---------------------------------------------------------------------------
-template <int F, int R, bool G>
-__device__ __forceinline__ void fused_body(const Params& p, const Cta& c,
+template <typename T, int F, int R, bool G>
+__device__ __forceinline__ void fused_body(const Params<T>& p, const Cta& c,
                                            float* sm,
                                            unsigned long long* s_key,
                                            int* s_cnt) {
   const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
-  float gf = p.gf[c.s];
+  float gf = widen(p.gf[c.s]);
   int par = 0;
   for (int t = 0; t < p.iters; ++t) {
     const uint32_t it = c.it0 + (uint32_t)t + 1u;
     const unsigned long long mine =
-        step_block<F, R, true>(p, c, it, sm, gf, s_cnt);
+        step_block<T, F, R, true>(p, c, it, sm, gf, s_cnt);
     if (mine) atomicMax(&s_key[par], mine);      // the intra-block queue
     __syncthreads();
     const unsigned long long bk = s_key[par];
@@ -606,7 +700,7 @@ __device__ __forceinline__ void fused_body(const Params& p, const Cta& c,
     if constexpr (G) {
       const int slot = t & 1;
       unsigned long long* key = p.keys + 2 * (size_t)c.s + slot;
-      float* cand = p.cand + ((size_t)slot * p.s_cnt + c.s) * p.nb * D;
+      T* cand = p.cand + ((size_t)slot * p.s_cnt + c.s) * p.nb * D;
       if (bk) {
         const int wi = c.col + key_index(bk);
         for (int k = tid; k < D; k += nt)
@@ -618,36 +712,38 @@ __device__ __forceinline__ void fused_body(const Params& p, const Cta& c,
       const float kf = key_fit(gk);
       if (gk != 0ull && kf > gf) {
         gf = kf;
-        const float* win = cand + (size_t)(key_index(gk) / p.bn) * D;
-        for (int k = tid; k < D; k += nt) sm[k] = __ldcg(win + k);
+        const T* win = cand + (size_t)(key_index(gk) / p.bn) * D;
+        for (int k = tid; k < D; k += nt) sm[k] = ldcg(win + k);
       }
     } else if (bk) {  // one block: every candidate beats gf, the best wins
       gf = key_fit(bk);
       const int wi = c.col + key_index(bk);
-      for (int k = tid; k < D; k += nt) sm[k] = p.pos[(size_t)k * p.ld + wi];
+      for (int k = tid; k < D; k += nt)
+        sm[k] = widen(p.pos[(size_t)k * p.ld + wi]);
     }
     __syncthreads();
     par ^= 1;
   }
   if (c.b == 0) {
-    for (int k = tid; k < D; k += nt) p.gp[(size_t)k * p.s_cnt + c.s] = sm[k];
-    if (tid == 0) p.gf[c.s] = gf;
+    for (int k = tid; k < D; k += nt)
+      p.gp[(size_t)k * p.s_cnt + c.s] = narrow<T>(sm[k]);
+    if (tid == 0) p.gf[c.s] = narrow<T>(gf);
   }
 }
 
-template <int F, int R, bool G>
-__device__ __forceinline__ void fused_cluster_body(const Params& p,
+template <typename T, int F, int R, bool G>
+__device__ __forceinline__ void fused_cluster_body(const Params<T>& p,
                                                    const Cta& c, float* sm,
                                                    unsigned long long* s_key,
                                                    int* s_cnt) {
   const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
   float* part = partials(c, sm);
-  float gf = p.gf[c.s];
-  float pbf = p.pbf[c.col + c.b * p.bn + tid];
+  float gf = widen(p.gf[c.s]);
+  float pbf = widen(p.pbf[c.col + c.b * p.bn + tid]);
   int par = 0;
   for (int t = 0; t < p.iters; ++t) {
     const uint32_t it = c.it0 + (uint32_t)t + 1u;
-    const unsigned long long mine = step_cluster<F, R, true>(
+    const unsigned long long mine = step_cluster<T, F, R, true>(
         p, c, it, sm, gf, part + par * 3 * p.bn, pbf, s_cnt);
     if (mine) atomicMax(&s_key[par], mine);      // the intra-block queue
     __syncthreads();
@@ -659,7 +755,7 @@ __device__ __forceinline__ void fused_cluster_body(const Params& p,
     if constexpr (G) {
       const int slot = t & 1;
       unsigned long long* key = p.keys + 2 * (size_t)c.s + slot;
-      float* cand = p.cand + ((size_t)slot * p.s_cnt + c.s) * p.nb * D;
+      T* cand = p.cand + ((size_t)slot * p.s_cnt + c.s) * p.nb * D;
       if (bk) {
         const int wi = c.col + key_index(bk);
         for (int k = c.k0 + tid; k < c.k1; k += nt)
@@ -671,38 +767,39 @@ __device__ __forceinline__ void fused_cluster_body(const Params& p,
       const float kf = key_fit(gk);
       if (gk != 0ull && kf > gf) {
         gf = kf;
-        const float* win = cand + (size_t)(key_index(gk) / p.bn) * D;
+        const T* win = cand + (size_t)(key_index(gk) / p.bn) * D;
         for (int k = c.k0 + tid; k < c.k1; k += nt)
-          sm[k - c.k0] = __ldcg(win + k);
+          sm[k - c.k0] = ldcg(win + k);
       }
     } else if (bk) {  // one block: every candidate beats gf, the best wins
       gf = key_fit(bk);
       const int wi = c.col + key_index(bk);
       for (int k = c.k0 + tid; k < c.k1; k += nt)
-        sm[k - c.k0] = p.pos[(size_t)k * p.ld + wi];
+        sm[k - c.k0] = widen(p.pos[(size_t)k * p.ld + wi]);
     }
     __syncthreads();
     par ^= 1;
   }
   if (c.b == 0) {
     for (int k = c.k0 + tid; k < c.k1; k += nt)
-      p.gp[(size_t)k * p.s_cnt + c.s] = sm[k - c.k0];
-    if (c.rank == 0 && tid == 0) p.gf[c.s] = gf;
+      p.gp[(size_t)k * p.s_cnt + c.s] = narrow<T>(sm[k - c.k0]);
+    if (c.rank == 0 && tid == 0) p.gf[c.s] = narrow<T>(gf);
   }
   cg::this_cluster().sync();
 }
 
-template <int F, int R, bool G, bool CL>
-__device__ __forceinline__ void fused_any(const Params& p, const Cta& c,
+template <typename T, int F, int R, bool G, bool CL>
+__device__ __forceinline__ void fused_any(const Params<T>& p, const Cta& c,
                                           float* sm,
                                           unsigned long long* s_key,
                                           int* s_cnt) {
-  if constexpr (CL) fused_cluster_body<F, R, G>(p, c, sm, s_key, s_cnt);
-  else fused_body<F, R, G>(p, c, sm, s_key, s_cnt);
+  if constexpr (CL) fused_cluster_body<T, F, R, G>(p, c, sm, s_key, s_cnt);
+  else fused_body<T, F, R, G>(p, c, sm, s_key, s_cnt);
 }
 
-template <int F, int R, bool G, bool CL>
-__global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
+template <typename T, int F, int R, bool G, bool CL>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    fused_kernel(Params<T> p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key[2];
   __shared__ int s_cnt[4];
@@ -714,15 +811,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
   }
   __syncthreads();
   if constexpr (F < kHetero) {
-    fused_any<F, R, G, CL>(p, c, sm, s_key, s_cnt);
+    fused_any<T, F, R, G, CL>(p, c, sm, s_key, s_cnt);
   } else {
     switch (p.member_fit[c.member]) {   // uniform across the CTA
-      case 0: fused_any<0, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      case 1: fused_any<1, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      case 2: fused_any<2, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      case 3: fused_any<3, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      case 4: fused_any<4, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      default: fused_any<5, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 0: fused_any<T, 0, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 1: fused_any<T, 1, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 2: fused_any<T, 2, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 3: fused_any<T, 3, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 4: fused_any<T, 4, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      default: fused_any<T, 5, R, G, CL>(p, c, sm, s_key, s_cnt); break;
     }
   }
   add_counts(p, c, s_cnt);
@@ -775,18 +872,19 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fused_kernel(Params p) {
 // ---------------------------------------------------------------------------
 enum BoundaryAct { kNone = 0, kPublish = 1, kPull = 2 };
 
-__device__ __forceinline__ float boundary(const Params& p, const Cta& c,
+template <typename T>
+__device__ __forceinline__ float boundary(const Params<T>& p, const Cta& c,
                                           float* att, float lf, bool publish,
                                           bool pull, float* s_g, int* s_act,
                                           int* s_cnt) {
   const int tid = threadIdx.x, nt = blockDim.x;
   unsigned* mutex = p.lock + 2 * (size_t)c.s;
   unsigned* seq = mutex + 1;
-  float* gf = p.gf + c.s;
-  float* gp = p.gp + c.s;             // column s of [D, S]: stride s_cnt
+  T* gf = p.gf + c.s;
+  T* gp = p.gp + c.s;                 // column s of [D, S]: stride s_cnt
   const size_t ld = (size_t)p.s_cnt;
   if (tid == 0) {
-    const float g = __ldcg(gf);
+    const float g = ldcg(gf);
     *s_act = (publish && lf > g) ? kPublish : ((pull && g > lf) ? kPull : kNone);
   }
   __syncthreads();
@@ -795,7 +893,7 @@ __device__ __forceinline__ float boundary(const Params& p, const Cta& c,
     if (tid == 0) {
       while (atomicCAS(mutex, 0u, 1u) != 0u) __nanosleep(64);
       __threadfence();
-      const float g = __ldcg(gf);
+      const float g = ldcg(gf);
       const bool win = lf > g;
       if (win) {
         atomicAdd(seq, 1u);                 // odd: a write is in flight
@@ -806,12 +904,12 @@ __device__ __forceinline__ float boundary(const Params& p, const Cta& c,
     __syncthreads();
     act = *s_act;
     if (act == kPublish)
-      for (int k = tid; k < p.d; k += nt) __stcg(gp + k * ld, att[k]);
+      for (int k = tid; k < p.d; k += nt) stcg(gp + k * ld, att[k]);
     __threadfence();
     __syncthreads();
     if (tid == 0) {
       if (act == kPublish) {
-        __stcg(gf, lf);
+        stcg(gf, lf);
         __threadfence();
         atomicAdd(seq, 1u);                 // even: the write is complete
         if (p.counts) ++s_cnt[1];
@@ -826,11 +924,11 @@ __device__ __forceinline__ float boundary(const Params& p, const Cta& c,
         unsigned s1;
         while ((s1 = __ldcg(seq)) & 1u) __nanosleep(32);
         __threadfence();
-        *s_g = __ldcg(gf);
+        *s_g = ldcg(gf);
         s_act[1] = (int)s1;
       }
       __syncthreads();
-      for (int k = tid; k < p.d; k += nt) att[k] = __ldcg(gp + k * ld);
+      for (int k = tid; k < p.d; k += nt) att[k] = ldcg(gp + k * ld);
       __threadfence();
       __syncthreads();
       if (tid == 0) s_act[2] = __ldcg(seq) != (unsigned)s_act[1];
@@ -864,7 +962,8 @@ __device__ __forceinline__ float boundary(const Params& p, const Cta& c,
 // turns even, and a pulled slice read before the sequence is checked again.
 // The lead spins alone; the cluster's other threads wait at the barrier. A
 // cluster is co-scheduled, so a cluster that holds the lock is resident.
-__device__ __forceinline__ float boundary_cluster(const Params& p,
+template <typename T>
+__device__ __forceinline__ float boundary_cluster(const Params<T>& p,
                                                   const Cta& c, float* att,
                                                   float lf, bool publish,
                                                   bool pull, float* s_g,
@@ -874,12 +973,12 @@ __device__ __forceinline__ float boundary_cluster(const Params& p,
   const bool lead = c.rank == 0 && tid == 0;
   unsigned* mutex = p.lock + 2 * (size_t)c.s;
   unsigned* seq = mutex + 1;
-  float* gf = p.gf + c.s;
-  float* gp = p.gp + c.s;             // column s of [D, S]: stride s_cnt
+  T* gf = p.gf + c.s;
+  T* gp = p.gp + c.s;                 // column s of [D, S]: stride s_cnt
   const size_t ld = (size_t)p.s_cnt;
   const int* act_of = cl.map_shared_rank(s_act, 0);   // the lead's slots
   if (lead) {
-    const float g = __ldcg(gf);
+    const float g = ldcg(gf);
     s_act[0] = (publish && lf > g) ? kPublish
                                    : ((pull && g > lf) ? kPull : kNone);
   }
@@ -889,7 +988,7 @@ __device__ __forceinline__ float boundary_cluster(const Params& p,
     if (lead) {
       while (atomicCAS(mutex, 0u, 1u) != 0u) __nanosleep(64);
       __threadfence();
-      const float g = __ldcg(gf);
+      const float g = ldcg(gf);
       const bool win = lf > g;
       if (win) {
         atomicAdd(seq, 1u);                 // odd: a write is in flight
@@ -901,12 +1000,12 @@ __device__ __forceinline__ float boundary_cluster(const Params& p,
     act = act_of[1];
     if (act == kPublish)
       for (int k = c.k0 + tid; k < c.k1; k += nt)
-        __stcg(gp + k * ld, att[k - c.k0]);
+        stcg(gp + k * ld, att[k - c.k0]);
     __threadfence();                        // the slice, at gpu scope
     cl.sync();
     if (lead) {
       if (act == kPublish) {
-        __stcg(gf, lf);
+        stcg(gf, lf);
         __threadfence();
         atomicAdd(seq, 1u);                 // even: the write is complete
         if (p.counts) ++s_cnt[1];
@@ -921,12 +1020,12 @@ __device__ __forceinline__ float boundary_cluster(const Params& p,
         unsigned s1;
         while ((s1 = __ldcg(seq)) & 1u) __nanosleep(32);
         __threadfence();
-        *s_g = __ldcg(gf);
+        *s_g = ldcg(gf);
         s_act[2] = (int)s1;
       }
       cl.sync();
       for (int k = c.k0 + tid; k < c.k1; k += nt)
-        att[k - c.k0] = __ldcg(gp + k * ld);
+        att[k - c.k0] = ldcg(gp + k * ld);
       __threadfence();                      // the slice, before the re-read
       cl.sync();
       if (lead) s_act[3] = __ldcg(seq) != (unsigned)s_act[2];
@@ -998,17 +1097,19 @@ __device__ __forceinline__ int neighbor_id(int b, int nb, int topo, int rows,
   }
 }
 
-__device__ __forceinline__ size_t neighbor_slot(const Params& p, const Cta& c,
-                                                int k) {
+template <typename T>
+__device__ __forceinline__ size_t neighbor_slot(const Params<T>& p,
+                                                const Cta& c, int k) {
   return (size_t)c.s * p.nb +
          neighbor_id(c.b, p.nb, p.topo, p.grid_r, p.grid_c, k);
 }
 
 // Writes the block's local best (the attractor att of the CTA's dimensions
 // and lf) into its slot under the slot's sequence.
-template <bool CL>
-__device__ __forceinline__ void publish_slot(const Params& p, const Cta& c,
-                                             const float* att, float lf) {
+template <bool CL, typename T>
+__device__ __forceinline__ void publish_slot(const Params<T>& p,
+                                             const Cta& c, const float* att,
+                                             float lf) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const bool lead = c.rank == 0 && tid == 0;
   const size_t slot = (size_t)c.s * p.nb + c.b;
@@ -1021,8 +1122,8 @@ __device__ __forceinline__ void publish_slot(const Params& p, const Cta& c,
   }
   if constexpr (CL) cg::this_cluster().sync(); else __syncthreads();
   for (int k = k0 + tid; k < k1; k += nt)
-    __stcg(p.lp + k * lds + slot, att[k - k0]);
-  if (lead) __stcg(p.lf + slot, lf);
+    stcg(p.lp + k * lds + slot, att[k - k0]);
+  if (lead) stcg(p.lf + slot, lf);
   __threadfence();                          // the slice, at gpu scope
   if constexpr (CL) cg::this_cluster().sync(); else __syncthreads();
   if (lead) atomicAdd(seq, 1u);             // even: the write is complete
@@ -1035,9 +1136,10 @@ __device__ __forceinline__ void publish_slot(const Params& p, const Cta& c,
 // s_dec[1] whether its copy was torn. Each is written once a round and
 // read after the barrier that follows the write; the next write comes
 // after the barrier that ends the round, or after a chunk's iterations.
-template <bool CL>
-__device__ __forceinline__ float fold_neighbors(const Params& p, const Cta& c,
-                                                float* att, float lf) {
+template <bool CL, typename T>
+__device__ __forceinline__ float fold_neighbors(const Params<T>& p,
+                                                const Cta& c, float* att,
+                                                float lf) {
   __shared__ float s_nf[kMaxNeighbors];
   __shared__ unsigned s_ns[kMaxNeighbors];
   __shared__ int s_dec[2];
@@ -1061,7 +1163,7 @@ __device__ __forceinline__ float fold_neighbors(const Params& p, const Cta& c,
       unsigned s1;
       while ((s1 = __ldcg(p.slot_seq + slot)) & 1u) __nanosleep(32);
       __threadfence();
-      s_nf[tid] = __ldcg(p.lf + slot);
+      s_nf[tid] = ldcg(p.lf + slot);
       s_ns[tid] = s1;
     }
     sync();
@@ -1080,7 +1182,7 @@ __device__ __forceinline__ float fold_neighbors(const Params& p, const Cta& c,
     if (w < 0) return lf;
     const size_t slot = neighbor_slot(p, c, w);
     for (int k = k0 + tid; k < k1; k += nt)
-      att[k - k0] = __ldcg(p.lp + k * lds + slot);
+      att[k - k0] = ldcg(p.lp + k * lds + slot);
     __threadfence();                        // the slice, before the re-read
     sync();
     if (lead) s_dec[1] = __ldcg(p.slot_seq + slot) != s_ns[w];
@@ -1109,8 +1211,8 @@ __device__ __forceinline__ float fold_neighbors(const Params& p, const Cta& c,
 // pulling; a boundary before a chunk folds the neighbours' slots. The
 // local best, and so the decision to write, is the same on every thread
 // and every rank.
-template <int F, int R, bool CL, bool LB>
-__device__ __forceinline__ float async_body(const Params& p, const Cta& c,
+template <typename T, int F, int R, bool CL, bool LB>
+__device__ __forceinline__ float async_body(const Params<T>& p, const Cta& c,
                                             float* sm, float lf,
                                             unsigned long long* s_key,
                                             float* s_g, int* s_act,
@@ -1119,7 +1221,7 @@ __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
   const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
   const int chunks = p.iters / p.chunk;
   float* part = partials(c, sm);
-  float pbf = CL ? p.pbf[c.col + c.b * p.bn + tid] : 0.0f;
+  float pbf = CL ? widen(p.pbf[c.col + c.b * p.bn + tid]) : 0.0f;
   int par = 0;
   float pub = lf;
   for (int ch = 0; ch <= chunks; ++ch) {
@@ -1146,10 +1248,10 @@ __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
       const uint32_t it = c.it0 + (uint32_t)(ch * p.chunk + tl) + 1u;
       unsigned long long mine;
       if constexpr (CL)
-        mine = step_cluster<F, R, true>(p, c, it, sm, lf,
-                                        part + par * 3 * p.bn, pbf, s_cnt);
+        mine = step_cluster<T, F, R, true>(p, c, it, sm, lf,
+                                           part + par * 3 * p.bn, pbf, s_cnt);
       else
-        mine = step_block<F, R, true>(p, c, it, sm, lf, s_cnt);
+        mine = step_block<T, F, R, true>(p, c, it, sm, lf, s_cnt);
       if (mine) atomicMax(&s_key[par], mine);
       __syncthreads();
       // s_key[par ^ 1] was last read before the barrier above; clearing it
@@ -1163,7 +1265,7 @@ __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
         lf = key_fit(bk);
         const int wi = c.col + key_index(bk);
         for (int k = k0 + tid; k < k1; k += nt)
-          sm[k - k0] = p.pos[(size_t)k * p.ld + wi];
+          sm[k - k0] = widen(p.pos[(size_t)k * p.ld + wi]);
       }
       __syncthreads();
       par ^= 1;
@@ -1183,8 +1285,9 @@ __device__ __forceinline__ float async_body(const Params& p, const Cta& c,
 // no rank can still read its shared memory (the lead's slots, the
 // partials); the remainder phase's launch resumes from lp and lf. Under an
 // lbest topology (LB) the last boundary has already written the slot.
-template <int F, int R, bool CL, bool LB = false>
-__global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
+template <typename T, int F, int R, bool CL, bool LB = false>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    async_kernel(Params<T> p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key[2];
   __shared__ float s_g;
@@ -1198,43 +1301,44 @@ __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
     s_key[0] = s_key[1] = 0ull;
     s_cnt[0] = s_cnt[1] = s_cnt[2] = s_cnt[3] = 0;
   }
-  float lf = p.lf[slot];
+  float lf = widen(p.lf[slot]);
   __syncthreads();
   if constexpr (F < kHetero) {
-    lf = async_body<F, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act, s_cnt);
+    lf = async_body<T, F, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
+                                     s_cnt);
   } else {
     switch (p.member_fit[c.member]) {   // uniform across the cluster
       case 0:
-        lf = async_body<0, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
-                                        s_cnt);
+        lf = async_body<T, 0, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
+                                           s_act, s_cnt);
         break;
       case 1:
-        lf = async_body<1, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
-                                        s_cnt);
+        lf = async_body<T, 1, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
+                                           s_act, s_cnt);
         break;
       case 2:
-        lf = async_body<2, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
-                                        s_cnt);
+        lf = async_body<T, 2, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
+                                           s_act, s_cnt);
         break;
       case 3:
-        lf = async_body<3, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
-                                        s_cnt);
+        lf = async_body<T, 3, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
+                                           s_act, s_cnt);
         break;
       case 4:
-        lf = async_body<4, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
-                                        s_cnt);
+        lf = async_body<T, 4, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
+                                           s_act, s_cnt);
         break;
       default:
-        lf = async_body<5, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
-                                        s_cnt);
+        lf = async_body<T, 5, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
+                                           s_act, s_cnt);
         break;
     }
   }
   if constexpr (!LB) {
     const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
     for (int k = k0 + (int)threadIdx.x; k < k1; k += blockDim.x)
-      p.lp[(size_t)k * lds + slot] = sm[k - k0];
-    if (threadIdx.x == 0 && c.rank == 0) p.lf[slot] = lf;
+      p.lp[(size_t)k * lds + slot] = narrow<T>(sm[k - k0]);
+    if (threadIdx.x == 0 && c.rank == 0) p.lf[slot] = narrow<T>(lf);
   }
   add_counts(p, c, s_cnt);
   if constexpr (CL) cg::this_cluster().sync();
@@ -1254,8 +1358,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) async_kernel(Params p) {
 // gives). No grid sync, no candidate columns, no lock: kernel 2 of the
 // paper, the cross-block argmax and gather, is the caller's epilogue.
 // ---------------------------------------------------------------------------
-template <int F, int R, bool CL>
-__global__ void __launch_bounds__(kMaxThreads, 2) queue_kernel(Params p) {
+template <typename T, int F, int R, bool CL>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    queue_kernel(Params<T> p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key;
   const Cta c = cta_of<CL>(p);
@@ -1263,20 +1368,22 @@ __global__ void __launch_bounds__(kMaxThreads, 2) queue_kernel(Params p) {
   if (threadIdx.x == 0) s_key = 0ull;
   unsigned long long mine;
   if constexpr (CL) {       // the queue kernel has no counters: T = false
-    float pbf = p.pbf[c.col + c.b * p.bn + threadIdx.x];
+    float pbf = widen(p.pbf[c.col + c.b * p.bn + threadIdx.x]);
     __syncthreads();
-    mine = step_cluster<F, R, false>(p, c, c.it0 + 1u, sm, p.gf[c.s],
-                                     partials(c, sm), pbf, nullptr);
+    mine = step_cluster<T, F, R, false>(p, c, c.it0 + 1u, sm,
+                                        widen(p.gf[c.s]), partials(c, sm),
+                                        pbf, nullptr);
   } else {
     __syncthreads();
-    mine = step_block<F, R, false>(p, c, c.it0 + 1u, sm, p.gf[c.s],
-                                   nullptr);
+    mine = step_block<T, F, R, false>(p, c, c.it0 + 1u, sm,
+                                      widen(p.gf[c.s]), nullptr);
   }
   if (mine) atomicMax(&s_key, mine);
   __syncthreads();
   if (threadIdx.x == 0 && c.rank == 0) {
     const unsigned long long bk = s_key;
-    p.aux_fit[c.b] = bk ? key_fit(bk) : __uint_as_float(0xff800000u);  // -inf
+    p.aux_fit[c.b] =
+        narrow<T>(bk ? key_fit(bk) : __uint_as_float(0xff800000u));  // -inf
     p.aux_idx[c.b] = bk ? key_index(bk) : c.b * p.bn;
   }
   if constexpr (CL) cg::this_cluster().sync();   // partials read remotely
@@ -1293,30 +1400,38 @@ __global__ void neighbors_kernel(int nb, int topo, int rows, int cols,
     out[b * m + k] = neighbor_id(b, nb, topo, rows, cols, k);
 }
 
-using Kernel = void (*)(Params);
+using Kernel = void (*)(Params<Store>);
 
 // PSO_TABLE(kernel, <empty> or <empty>, <more template arguments>): the
-// variadic tail is pasted after the rule id, so `, true` selects <F, R, true>.
-#define PSO_RULES(K, F, ...) {K<F, 0 __VA_ARGS__>, K<F, 1 __VA_ARGS__>, \
-                              K<F, 2 __VA_ARGS__>}
+// variadic tail is pasted after the rule id, so `, true` selects
+// <Store, F, R, true>. The bfloat16 library has no heterogeneous row.
+#define PSO_RULES(K, F, ...) {K<Store, F, 0 __VA_ARGS__>,                  \
+                              K<Store, F, 1 __VA_ARGS__>,                  \
+                              K<Store, F, 2 __VA_ARGS__>}
 #define PSO_BUILTINS(K, ...)                                               \
   PSO_RULES(K, 0, __VA_ARGS__), PSO_RULES(K, 1, __VA_ARGS__),              \
   PSO_RULES(K, 2, __VA_ARGS__), PSO_RULES(K, 3, __VA_ARGS__),              \
   PSO_RULES(K, 4, __VA_ARGS__), PSO_RULES(K, 5, __VA_ARGS__)
+#ifdef PSO_T_BF16
+constexpr int kTableFits = kFitnessCount;
+#define PSO_TABLE(K, ...) {PSO_BUILTINS(K, __VA_ARGS__)}
+#else
+constexpr int kTableFits = kHetero + 1;
 #define PSO_TABLE(K, ...)                                                  \
   {PSO_BUILTINS(K, __VA_ARGS__), PSO_RULES(K, 6, __VA_ARGS__)}
+#endif
 
 // [cluster][objective or kHetero][rule]
-const Kernel kFusedGrid[2][kHetero + 1][kRuleCount] = {
+const Kernel kFusedGrid[2][kTableFits][kRuleCount] = {
     PSO_TABLE(fused_kernel, , true, false),
     PSO_TABLE(fused_kernel, , true, true)};
-const Kernel kFusedBlock[2][kHetero + 1][kRuleCount] = {
+const Kernel kFusedBlock[2][kTableFits][kRuleCount] = {
     PSO_TABLE(fused_kernel, , false, false),
     PSO_TABLE(fused_kernel, , false, true)};
-const Kernel kAsync[2][kHetero + 1][kRuleCount] = {
+const Kernel kAsync[2][kTableFits][kRuleCount] = {
     PSO_TABLE(async_kernel, , false), PSO_TABLE(async_kernel, , true)};
 // [cluster][objective or kHetero][rule], lbest topologies
-const Kernel kAsyncLbest[2][kHetero + 1][kRuleCount] = {
+const Kernel kAsyncLbest[2][kTableFits][kRuleCount] = {
     PSO_TABLE(async_kernel, , false, true),
     PSO_TABLE(async_kernel, , true, true)};
 // [cluster][objective][rule]: one swarm, no heterogeneous form
@@ -1325,7 +1440,7 @@ const Kernel kQueue[2][kFitnessCount][kRuleCount] = {
     {PSO_BUILTINS(queue_kernel, , true)}};
 
 Kernel pick(const Kernel (*table)[kRuleCount], int fit, int rule,
-            int fits = kHetero + 1) {
+            int fits = kTableFits) {
   if (fit < 0 || fit >= fits || rule < 0 || rule >= kRuleCount)
     return nullptr;
   return table[fit][rule];
@@ -1345,13 +1460,14 @@ cudaError_t prepare(Kernel k, size_t smem) {
                               (int)smem);
 }
 
-Params make_params(float* pos, float* vel, float* pbp, float* pbf, float* gp,
-                   float* gf, const float* bounds, const int* member_fit,
-                   const int* fids, const unsigned* seeds, const unsigned* its,
-                   unsigned seed0, unsigned it00, int n, int d, int bn,
-                   int s_cnt, int iters, float w, float c1, float c2,
-                   float k0, float k1, float k2) {
-  Params p = {};
+Params<Store> make_params(Store* pos, Store* vel, Store* pbp, Store* pbf,
+                          Store* gp, Store* gf, const float* bounds,
+                          const int* member_fit, const int* fids,
+                          const unsigned* seeds, const unsigned* its,
+                          unsigned seed0, unsigned it00, int n, int d, int bn,
+                          int s_cnt, int iters, float w, float c1, float c2,
+                          float k0, float k1, float k2) {
+  Params<Store> p = {};
   p.pos = pos; p.vel = vel; p.pbp = pbp; p.pbf = pbf; p.gp = gp; p.gf = gf;
   p.bounds = bounds; p.member_fit = member_fit; p.fids = fids;
   p.seeds = seeds; p.its = its; p.seed0 = seed0; p.it00 = it00;
@@ -1402,7 +1518,8 @@ cudaLaunchConfig_t cluster_config(unsigned blocks, int threads, size_t smem,
 // cudaLaunchKernelEx (cooperative too when coop), else the classic way. A
 // refused launch is returned, never retried another way.
 cudaError_t launch(Kernel k, unsigned blocks, int threads, size_t smem,
-                   cudaStream_t stream, int csize, bool coop, Params* p) {
+                   cudaStream_t stream, int csize, bool coop,
+                   Params<Store>* p) {
   void* args[] = {p};
   if (csize > 1) {
     cudaLaunchAttribute attrs[2];
@@ -1456,8 +1573,9 @@ int pso_fused_resident(int fit, int rule, int bn, int d, int csize,
   return (int)resident(k, bn, d, csize, out);
 }
 
-// The fewest clusters of csize CTAs that any fused or async kernel (every
-// objective, the heterogeneous one, every rule) keeps resident at (bn, d):
+// The fewest clusters of csize CTAs that any fused or async kernel of this
+// library (every objective, the heterogeneous one where the library has
+// it, every rule) keeps resident at (bn, d):
 // the card's capacity on which the wrapper chooses csize, the same for
 // every kernel so that the choice depends on the shape alone.
 int pso_cluster_capacity(int bn, int d, int csize, int* out) {
@@ -1466,7 +1584,7 @@ int pso_cluster_capacity(int bn, int d, int csize, int* out) {
   int least = -1;
   const Kernel (*tables[])[kRuleCount] = {kFusedGrid[1], kAsync[1]};
   for (const auto table : tables)
-    for (int f = 0; f <= kHetero; ++f)
+    for (int f = 0; f < kTableFits; ++f)
       for (int r = 0; r < kRuleCount; ++r) {
         int got = 0;
         const cudaError_t err = resident(table[f][r], bn, d, csize, &got);
@@ -1482,11 +1600,12 @@ int pso_cluster_capacity(int bn, int d, int csize, int* out) {
 // cooperative launch of count*(n/bn)*csize CTAs, or, with one block a
 // swarm, a normal launch of count*csize. Null seeds/its take seed0/it00
 // (one swarm); non-null counts [s_cnt,3] gets each swarm's events added.
-int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
-                     float* gf, const float* bounds, const int* member_fit,
-                     const int* fids, const unsigned* seeds,
+int pso_fused_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
+                     Store* gp, Store* gf, const float* bounds,
+                     const int* member_fit, const int* fids,
+                     const unsigned* seeds,
                      const unsigned* its, unsigned long long* keys,
-                     float* cand, int* counts, int n, int d, int bn,
+                     Store* cand, int* counts, int n, int d, int bn,
                      int s_cnt, int s0, int count, int iters, int csize,
                      unsigned seed0, unsigned it00, int fit, int rule,
                      float w, float c1, float c2, float k0, float k1,
@@ -1500,9 +1619,10 @@ int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
   const Kernel k = pick((grid ? kFusedGrid : kFusedBlock)[csize > 1], fit,
                         rule);
   if (!k) return (int)cudaErrorInvalidValue;
-  Params p = make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids,
-                         seeds, its, seed0, it00, n, d, bn, s_cnt, iters, w,
-                         c1, c2, k0, k1, k2);
+  Params<Store> p =
+      make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids, seeds,
+                  its, seed0, it00, n, d, bn, s_cnt, iters, w, c1, c2, k0, k1,
+                  k2);
   p.keys = keys;
   p.cand = cand;
   p.counts = counts;
@@ -1525,10 +1645,11 @@ int pso_fused_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
 // star (slot_seq null); 1 (ring) and 2 (von Neumann, on a grid_r x grid_c
 // torus of the n/bn blocks) fold neighbours, with slot_seq [s_cnt*n/bn]
 // even (zeroed) sequence counters.
-int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
-                     float* gf, const float* bounds, const int* member_fit,
-                     const int* fids, const unsigned* seeds,
-                     const unsigned* its, float* lp, float* lf,
+int pso_async_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
+                     Store* gp, Store* gf, const float* bounds,
+                     const int* member_fit, const int* fids,
+                     const unsigned* seeds,
+                     const unsigned* its, Store* lp, Store* lf,
                      unsigned* lock, int* counts, unsigned* slot_seq, int n,
                      int d, int bn, int s_cnt, int iters, int chunk,
                      int csize, int topo, int grid_r, int grid_c,
@@ -1545,9 +1666,10 @@ int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
     return (int)cudaErrorInvalidValue;
   const Kernel k = pick((topo ? kAsyncLbest : kAsync)[csize > 1], fit, rule);
   if (!k) return (int)cudaErrorInvalidValue;
-  Params p = make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids,
-                         seeds, its, seed0, it00, n, d, bn, s_cnt, iters, w,
-                         c1, c2, k0, k1, k2);
+  Params<Store> p =
+      make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids, seeds,
+                  its, seed0, it00, n, d, bn, s_cnt, iters, w, c1, c2, k0, k1,
+                  k2);
   p.lp = lp;
   p.lf = lf;
   p.lock = lock;
@@ -1572,19 +1694,19 @@ int pso_async_launch(float* pos, float* vel, float* pbp, float* pbf, float* gp,
 // block on a cluster of csize CTAs (1: one CTA): a normal launch of
 // (n/bn)*csize CTAs that updates pos/vel/pbp/pbf in place and writes
 // aux_fit[n/bn], aux_idx[n/bn]; gp [D] and gf [1] are only read.
-int pso_queue_launch(float* pos, float* vel, float* pbp, float* pbf,
-                     const float* gp, const float* gf, const float* bounds,
-                     float* aux_fit, int* aux_idx, int n, int d, int bn,
+int pso_queue_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
+                     const Store* gp, const Store* gf, const float* bounds,
+                     Store* aux_fit, int* aux_idx, int n, int d, int bn,
                      int csize, unsigned seed0, unsigned it00, int fit,
                      int rule, float w, float c1, float c2, float k0,
                      float k1, float k2, void* stream) {
   const Kernel k = pick(kQueue[csize > 1], fit, rule, kFitnessCount);
   if (!k || bad_shape(n, d, bn, 1) || bad_cluster(csize, d, bn))
     return (int)cudaErrorInvalidValue;
-  Params p = make_params(pos, vel, pbp, pbf, const_cast<float*>(gp),
-                         const_cast<float*>(gf), bounds, nullptr, nullptr,
-                         nullptr, nullptr, seed0, it00, n, d, bn, 1, 1, w, c1,
-                         c2, k0, k1, k2);
+  Params<Store> p = make_params(
+      pos, vel, pbp, pbf, const_cast<Store*>(gp), const_cast<Store*>(gf),
+      bounds, nullptr, nullptr, nullptr, nullptr, seed0, it00, n, d, bn, 1, 1,
+      w, c1, c2, k0, k1, k2);
   p.aux_fit = aux_fit;
   p.aux_idx = aux_idx;
   p.csize = csize;

@@ -39,6 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import _device
 from ..core.blocking import pick_block_n
 from ..core.fitness import FITNESS_IDS, is_builtin
 from ..core.multi_swarm import ProblemRows, SwarmBatch
@@ -77,11 +78,20 @@ CONVERTED = -1
 
 def kernel_spec(cfg: PSOConfig) -> KernelSpec:
     """Static kernel operands from a config: a built-in objective's id, or
-    ``CONVERTED`` for any other Problem (the split path); float32 only."""
+    ``CONVERTED`` for any other Problem (the split path). The built-ins'
+    kernels take float32 and bfloat16, the split path float32 only."""
     cfg = cfg.resolved()
-    if cfg.dtype != "float32":
-        raise ValueError(f"the kernels take float32 only, not {cfg.dtype}")
+    if cfg.dtype not in ("float32", "bfloat16"):
+        reason = (" (the reference's float16 draw, (h >> 8) in float16, "
+                  "overflows to inf)" if cfg.dtype == "float16" else "")
+        raise ValueError(f"the kernels take float32 and, for the built-in "
+                         f"objectives, bfloat16; not {cfg.dtype}{reason}")
     prob = cfg.problem
+    if cfg.dtype != "float32" and not is_builtin(prob):
+        raise ValueError(
+            f"the split path's kernels (custom and constrained Problems, "
+            f"here {prob.name!r}) take float32 only, not {cfg.dtype}: use "
+            f"dtype='float32' or backend='eager'")
     fid = FITNESS_IDS[prob.name] if is_builtin(prob) else CONVERTED
     return KernelSpec(fitness=fid, rule=cfg.update_rule,
                       w=cfg.w, c1=cfg.c1, c2=cfg.c2, lo=cfg.min_pos,
@@ -314,7 +324,8 @@ def unpack_dmajor_batch(arr: torch.Tensor, s_cnt: int) -> torch.Tensor:
 def _hetero_members(cfg: PSOConfig, table: Sequence[Problem]):
     """The kernels' member table for a heterogeneous batch: member ``k`` is
     what a homogeneous kernel of ``table[k]`` at this dim/coeffs/dtype
-    takes (``hetero_member_config`` re-derives its bounds)."""
+    takes (``hetero_member_config`` re-derives its bounds). Float32 only:
+    the wrappers refuse another dtype (``pso_step.check_hetero``)."""
     return tuple(kernel_spec(hetero_member_config(cfg, p)) for p in table)
 
 
@@ -477,7 +488,8 @@ class AsyncLane:
 
     The layout is ``_batch_to_kernel``'s: ``pos``/``vel``/``pbp`` ``[D,
     S*n]``, ``pbf`` ``[S*n]``, ``gp`` ``[D, S]``, ``gf`` ``[S]``, the locals
-    ``lp`` ``[D, S*nb]`` and ``lf`` ``[S*nb]``, the ``[2, S]`` (seed,
+    ``lp`` ``[D, S*nb]`` and ``lf`` ``[S*nb]``, all in the config's dtype
+    (float32, or bfloat16 for a homogeneous lane), the ``[2, S]`` (seed,
     iteration) ``counters`` and, for a heterogeneous lane (``table``, the
     kernels' member table), ``fids`` ``[S]``. ``admit`` writes a fresh row
     (``core.pso.init_swarm_async``) into its columns in place; ``gbest``
@@ -492,8 +504,8 @@ class AsyncLane:
     capture that fails raises, and nothing runs the launch uncaptured. On
     the CPU it runs the wrapper's plain version (``fused_async_batch``),
     only because the caller named the CPU. Launches count under
-    ``pso_step.fused_async_batch`` (rows 6 and 7), the captures in
-    ``AsyncLane.captures``."""
+    ``pso_step.fused_async_batch`` (rows 6 and 7; a bfloat16 lane's also in
+    ``.bf16_launches``), the captures in ``AsyncLane.captures``."""
 
     captures = 0
 
@@ -511,12 +523,12 @@ class AsyncLane:
             raise ValueError("a lane runs the built-ins' kernels; a custom "
                              "Problem takes the split path")
         self.device = dev = torch.device(device or "cuda")
-        f32 = dict(dtype=torch.float32, device=dev)
+        fl = dict(dtype=cfg.torch_dtype, device=dev)     # the swarm's dtype
         sn, snb = width * n, width * self.nb
-        self.state = (torch.zeros(d, sn, **f32), torch.zeros(d, sn, **f32),
-                      torch.zeros(d, sn, **f32), torch.zeros(sn, **f32),
-                      torch.zeros(d, width, **f32), torch.zeros(width, **f32),
-                      torch.zeros(d, snb, **f32), torch.zeros(snb, **f32))
+        self.state = (torch.zeros(d, sn, **fl), torch.zeros(d, sn, **fl),
+                      torch.zeros(d, sn, **fl), torch.zeros(sn, **fl),
+                      torch.zeros(d, width, **fl), torch.zeros(width, **fl),
+                      torch.zeros(d, snb, **fl), torch.zeros(snb, **fl))
         # the kernels read the counters as uint32 from int32; the plain
         # versions take the uint32 values in int64
         self.counters = torch.zeros(2, width, device=dev, dtype=(
@@ -538,7 +550,8 @@ class AsyncLane:
         if self.hetero:
             pso_step.fused_async_batch.hetero_launches += 1
         else:
-            pso_step.fused_async_batch.launches += 1
+            pso_step.count(pso_step.fused_async_batch, self.state[0].dtype,
+                           1)
 
     def _capture(self) -> None:
         launch = pso_step.async_lane_launch(
@@ -621,8 +634,8 @@ class AsyncLane:
     def gbest(self):
         """Every row's (gbest_fit ``[S]``, gbest_pos ``[S, D]``), copied
         to the host: two copies for the whole lane, not two a row."""
-        return (np.array(self.state[5].cpu()),
-                np.array(self.state[4].t().cpu()))
+        return (_device.host(self.state[5]),
+                _device.host(self.state[4].t()))
 
     def row(self, slot: int) -> SwarmState:
         """Row ``slot`` as a standalone swarm with its locals (views into

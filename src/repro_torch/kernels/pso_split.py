@@ -79,8 +79,8 @@ from ..core import rng
 from ..core.pso import STREAM_R1, STREAM_R2
 from ..core.topology import block_neighbor_best
 from ..core.update_rules import kernel_rule_id, resolve_rule
-from .pso_step import (KernelSpec, _check, _counters, _operands, _ptrs,
-                       _tables, _topology_operands)
+from .pso_step import (KernelSpec, _check, _counters, _ptrs,
+                       _rule_operands, _tables, _topology_operands)
 
 Tensor = torch.Tensor
 
@@ -155,12 +155,11 @@ def split_advance_plain(pos, vel, pbp, attractor, seeds, its, specs,
     att = attractor.index_select(1, col // gdiv)
     out_pos, out_vel = torch.empty_like(pos), torch.empty_like(vel)
     for spec, cols in _member_columns(specs, fids, n, dev):
-        lo, hi, mv = _operands(spec, dev)
         take = ((lambda t: t) if cols is None
                 else (lambda t: t.index_select(1, cols)))
         p, v = resolve_rule(spec.rule).advance(
             take(r1), take(r2), take(pos), take(vel), take(pbp), take(att),
-            w=spec.w, c1=spec.c1, c2=spec.c2, mv=mv, lo=lo, hi=hi)
+            **_rule_operands(spec, dev))
         if cols is None:
             out_pos, out_vel = p, v
         else:

@@ -17,9 +17,21 @@ Arrays are D-major: ``pos``/``vel``/``pbp`` ``[D, N]``, ``pbf`` ``[N]``,
 ``lf`` ``[nb]``; a batch puts swarm s in columns ``[s*N, (s+1)*N)`` of
 ``[D, S*N]`` arrays, with ``gp`` ``[D, S]``, ``gf`` ``[S]``, ``lp``
 ``[D, S*nb]``, ``lf`` ``[S*nb]`` and per-swarm ``seeds``/``its`` int64
-``[S]``. All float32 and contiguous. A heterogeneous batch takes a table of
-``KernelSpec`` members (same rule and coefficients, own objective and
-bounds) and ``fids[S]`` into it; a homogeneous batch is a table of one.
+``[S]``. All contiguous and of one float dtype, float32 or bfloat16
+(``KERNEL_DTYPES``): each dtype has a library of its own, built from the
+same source (``csrc/pso_step.cu``; bfloat16 with ``-DPSO_T_BF16``, at its
+first launch). A heterogeneous batch takes a table of ``KernelSpec``
+members (same rule and coefficients, own objective and bounds) and
+``fids[S]`` into it; a homogeneous batch is a table of one. Heterogeneous
+batches are float32 only.
+
+In bfloat16 the kernels and the plain versions compute what the
+reference's kernels compute in that dtype (ROADMAP, parity contract,
+"bfloat16"): every operation rounds to bfloat16, each Python constant is
+rounded to bfloat16 first (``fitness.weak``), the draws are ``(h >> 8)``
+rounded to bfloat16 times 2**-24, and an objective's sum over D adds its
+rounded terms in float32 in dimension order and is rounded once
+(``_objective_bf16``).
 
 A wrapper updates its state tensors in place and returns them. On CUDA
 tensors it launches its kernel (or raises); on CPU tensors, and only there,
@@ -40,8 +52,10 @@ their inputs alone:
 * ``fused_batch_plain``/``fused_async_batch_plain``: the single-swarm plain
   version on each row, which is the batched kernels' contract.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``; the
-batch wrappers count heterogeneous launches in ``.hetero_launches``.
+Each wrapper counts every launch of its kernel in ``<wrapper>.launches``
+and the bfloat16 ones also in ``.bf16_launches`` (``count``), as
+``gla.gla_forward`` does; the batch wrappers count heterogeneous launches
+in ``.hetero_launches``.
 
 The async wrappers and their plain versions take ``topology``: ``gbest``
 (the paper's star: a chunk entry pulls the shared gbest) or an lbest
@@ -71,13 +85,18 @@ from typing import List, Tuple
 import torch
 
 from ..core import rng
-from ..core.fitness import BUILTIN_PROBLEMS
+from ..core.fitness import BUILTIN_PROBLEMS, weak
 from ..core.problem import Bound
 from ..core.pso import STREAM_R1, STREAM_R2
 from ..core.topology import LBEST_IDS, grid_dims, kernel_neighbor_ids
 from ..core.update_rules import kernel_rule_id, resolve_rule
 
 Tensor = torch.Tensor
+
+#: The storage dtypes the kernels take, one library each.
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: The build variant (``_build.VARIANTS``) of each dtype's library.
+_VARIANT = {torch.float32: "", torch.bfloat16: "bf16"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,13 +134,29 @@ def async_spans(iters: int, sync_every: int) -> List[Tuple[int, int, int]]:
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _operands(spec: KernelSpec, device):
-    """Bounds as the reference's kernels take them: scalars stay Python
-    floats, per-dimension tuples become [D, 1] columns."""
+def _operands(spec: KernelSpec, device, dtype=torch.float32):
+    """Bounds as the reference's kernels take them in ``dtype``: scalars
+    stay Python floats (``weak``: rounded to bfloat16 in bfloat16),
+    per-dimension tuples become [D, 1] columns of ``dtype``. Returns (lo,
+    hi, max_v)."""
     def col(v):
-        return v if not isinstance(v, tuple) else torch.tensor(
-            v, dtype=torch.float32, device=device)[:, None]
+        return weak(v, dtype) if not isinstance(v, tuple) else torch.tensor(
+            v, dtype=dtype, device=device)[:, None]
     return col(spec.lo), col(spec.hi), col(spec.mv)
+
+
+def _rule_operands(spec: KernelSpec, device, dtype=torch.float32) -> dict:
+    """The rule's keyword operands in ``dtype``: the coefficients
+    (``weak``) and ``_operands``'s bounds; ``span`` is the SSO rule's
+    resample width where the rule may not take ``hi - lo`` itself: in
+    bfloat16 with scalar bounds, the Python difference rounded, as the
+    reference's weak typing gives."""
+    lo, hi, mv = _operands(spec, device, dtype)
+    span = None
+    if dtype != torch.float32 and not isinstance(spec.lo, tuple):
+        span = weak(spec.hi - spec.lo, dtype)
+    return dict(w=weak(spec.w, dtype), c1=weak(spec.c1, dtype),
+                c2=weak(spec.c2, dtype), lo=lo, hi=hi, mv=mv, span=span)
 
 
 def _rng_index(n: int, d: int, device, base: int = 0) -> Tensor:
@@ -131,16 +166,77 @@ def _rng_index(n: int, d: int, device, base: int = 0) -> Tensor:
                                             device=device)[:, None]
 
 
-def _advance(spec, bounds, seed, it, pos, vel, pbp, att, idx):
-    """One advance of a [D, n] tile against the attractor ``att`` [D, 1],
-    plus the objective: (pos, vel, fit [n])."""
-    lo, hi, mv = bounds
-    r1 = rng.uniform(seed, it, STREAM_R1, idx)
-    r2 = rng.uniform(seed, it, STREAM_R2, idx)
-    pos, vel = resolve_rule(spec.rule).advance(
-        r1, r2, pos, vel, pbp, att, w=spec.w, c1=spec.c1, c2=spec.c2,
-        mv=mv, lo=lo, hi=hi)
-    return pos, vel, BUILTIN_PROBLEMS[spec.fitness].fn(pos.T)
+def _sum_f32(v: Tensor) -> Tensor:
+    """A [D, n] bfloat16 tile's sum over D as the reference's kernels take
+    it (jnp.sum's float32 accumulation): from 0 in float32, one dimension
+    after another, rounded once."""
+    acc = torch.zeros(v.shape[1], dtype=torch.float32, device=v.device)
+    for row in v:
+        acc = acc + row.float()
+    return acc.to(v.dtype)
+
+
+def _objective_bf16(fid: int, x: Tensor) -> Tensor:
+    """Built-in objective ``fid`` of a [D, n] bfloat16 tile, maximized, as
+    the reference's kernel forms (``repro.kernels.pso_step.
+    _fitness_dmajor``) compute it in bfloat16: each operation rounded, the
+    constants rounded (``weak``), the sums over D by ``_sum_f32``.
+    Rosenbrock takes ``(100 u) u`` in that order. Griewank's dimension
+    index is a float32 column there, so its quotients, cosines and product
+    are float32 and the fitness is rounded once, at the end (the
+    reference's kernel cannot store that float32 fitness into its bfloat16
+    pbest and raises; the port rounds it)."""
+    d = x.shape[0]
+    dt = x.dtype
+    name = BUILTIN_PROBLEMS[fid].name
+    if name == "cubic":
+        return _sum_f32(x * x * x - weak(0.8, dt) * (x * x) - 1000.0 * x
+                        + 8000.0)
+    if name == "sphere":
+        return -_sum_f32(x * x)
+    if name == "rosenbrock":
+        if d == 1:
+            r = 1.0 - x[0]
+            return -(r * r)
+        a, b = x[:-1], x[1:]
+        u = b - a * a
+        r = 1.0 - a
+        return -_sum_f32(100.0 * u * u + r * r)
+    if name == "griewank":
+        root = torch.sqrt(torch.arange(1, d + 1, dtype=torch.float32,
+                                       device=x.device))
+        p = torch.ones(x.shape[1], dtype=torch.float32, device=x.device)
+        for k in range(d):
+            p = p * torch.cos(x[k].float() / root[k])
+        s = _sum_f32(x * x) / 4000.0
+        return (-(s.float() - p + 1.0)).to(dt)
+    two_pi = weak(2.0 * math.pi, dt)
+    if name == "rastrigin":
+        return -(weak(10.0 * d, dt)
+                 + _sum_f32(x * x - 10.0 * torch.cos(two_pi * x)))
+    s1 = torch.sqrt(_sum_f32(x * x) / weak(d, dt))              # ackley
+    s2 = _sum_f32(torch.cos(two_pi * x)) / weak(d, dt)
+    return -(-20.0 * torch.exp(weak(-0.2, dt) * s1) - torch.exp(s2) + 20.0
+             + weak(math.e, dt))
+
+
+def _objective(fid: int, pos: Tensor) -> Tensor:
+    """Built-in objective ``fid`` of a [D, n] tile: the engine's form in
+    float32, the reference kernels' bfloat16 form in bfloat16."""
+    if pos.dtype == torch.float32:
+        return BUILTIN_PROBLEMS[fid].fn(pos.T)
+    return _objective_bf16(fid, pos)
+
+
+def _advance(spec, ops, seed, it, pos, vel, pbp, att, idx):
+    """One advance of a [D, n] tile against the attractor ``att`` [D, 1]
+    (``ops``: ``_rule_operands``), plus the objective: (pos, vel, fit
+    [n])."""
+    r1 = rng.uniform(seed, it, STREAM_R1, idx, dtype=pos.dtype)
+    r2 = rng.uniform(seed, it, STREAM_R2, idx, dtype=pos.dtype)
+    pos, vel = resolve_rule(spec.rule).advance(r1, r2, pos, vel, pbp, att,
+                                               **ops)
+    return pos, vel, _objective(spec.fitness, pos)
 
 
 def _fold_pbest(fit, pos, pbp, pbf):
@@ -177,9 +273,9 @@ def queue_plain(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
     (pos, vel, pbp, pbf, aux_fit [nb], aux_idx [nb] int32)."""
     d, n = pos.shape
     nb = n // block_n
-    pos, vel, fit = _advance(spec, _operands(spec, pos.device), seed,
-                             iteration + 1, pos, vel, pbp, gp[:, None],
-                             _rng_index(n, d, pos.device))
+    ops = _rule_operands(spec, pos.device, pos.dtype)
+    pos, vel, fit = _advance(spec, ops, seed, iteration + 1, pos, vel, pbp,
+                             gp[:, None], _rng_index(n, d, pos.device))
     pbp, pbf = _fold_pbest(fit, pos, pbp, pbf)
     q = _queue(fit, gf).reshape(nb, block_n)
     # first lane of the block's maximum; lane 0 (the base) on an empty queue
@@ -213,7 +309,7 @@ def fused_plain(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
     bit for bit, as the two kernels must. The engine sums each particle's
     objective over a contiguous [N, D] row, which may round differently."""
     d, n = pos.shape
-    bounds = _operands(spec, pos.device)
+    bounds = _rule_operands(spec, pos.device, pos.dtype)
     idx = _rng_index(n, d, pos.device)
     for t in range(iters):
         pos, vel, fit = _advance(spec, bounds, seed, iteration + t + 1,
@@ -251,7 +347,7 @@ def fused_async_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec,
     d, n = pos.shape
     bn = block_n
     nb = n // bn
-    bounds = _operands(spec, pos.device)
+    bounds = _rule_operands(spec, pos.device, pos.dtype)
     pos, vel, pbp, pbf, lp, lf = (t.clone() for t in
                                   (pos, vel, pbp, pbf, lp, lf))
     lbest = topology != "gbest"
@@ -291,10 +387,11 @@ def fused_async_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec,
     return pos, vel, pbp, pbf, gp, gf, lp, lf
 
 
-def _members(specs, fids, s_cnt: int):
+def _members(specs, fids, s_cnt: int, dtype: torch.dtype):
     """Each swarm's member of the table: member 0 without ``fids``."""
     if fids is None:
         return [specs[0]] * s_cnt
+    check_hetero(dtype)
     return [specs[f] for f in fids.tolist()]
 
 
@@ -327,7 +424,8 @@ def fused_batch_plain(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
     n = pos.shape[1] // s_cnt
     rows = []
     for s, (spec, seed, it) in enumerate(zip(
-            _members(specs, fids, s_cnt), seeds.tolist(), its.tolist())):
+            _members(specs, fids, s_cnt, pos.dtype), seeds.tolist(),
+            its.tolist())):
         c = slice(s * n, (s + 1) * n)
         rows.append(fused_plain(pos[:, c], vel[:, c], pbp[:, c], pbf[c],
                                 gp[:, s], gf[s:s + 1], spec, seed=seed,
@@ -350,7 +448,8 @@ def fused_async_batch_plain(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its,
     nb = n // block_n
     rows = []
     for s, (spec, seed, it) in enumerate(zip(
-            _members(specs, fids, s_cnt), seeds.tolist(), its.tolist())):
+            _members(specs, fids, s_cnt, pos.dtype), seeds.tolist(),
+            its.tolist())):
         c, cl = slice(s * n, (s + 1) * n), slice(s * nb, (s + 1) * nb)
         rows.append(fused_async_plain(
             pos[:, c], vel[:, c], pbp[:, c], pbf[c], gp[:, s], gf[s:s + 1],
@@ -370,11 +469,12 @@ HETERO = len(BUILTIN_PROBLEMS)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
+def _lib(dtype: torch.dtype = torch.float32):
+    """The library of ``dtype``'s kernels, built at its first use."""
     import ctypes as c
 
     from . import _build
-    lib = _build.load("pso_step")
+    lib = _build.load("pso_step", _VARIANT[dtype])
     p, i, u, f = c.c_void_p, c.c_int, c.c_uint, c.c_float
     lib.pso_fused_resident.argtypes = [i] * 5 + [c.POINTER(i)]
     lib.pso_cluster_capacity.argtypes = [i] * 3 + [c.POINTER(i)]
@@ -397,17 +497,22 @@ def _check(status: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {status}")
 
 
-def _bound_rows(spec: KernelSpec, d: int):
+def _bound_rows(spec: KernelSpec, d: int, dtype=torch.float32):
     """One member's [4, D] rows (lo, hi, max_v, span) as the kernels read
-    them."""
+    them: values of ``dtype``, as the plain version takes them
+    (``_operands``), in a float32 table."""
     def row(v):
-        return [float(x) for x in v] if isinstance(v, tuple) else [v] * d
+        if isinstance(v, tuple):
+            return torch.tensor(v, dtype=dtype).tolist()
+        return [weak(v, dtype)] * d
     lo, hi = row(spec.lo), row(spec.hi)
     # The SSO rule's resample width: as the plain version computes it,
-    # in double for scalar bounds and in float32 for per-dim bounds.
-    span = ([spec.hi - spec.lo] * d if not isinstance(spec.lo, tuple)
-            else (torch.tensor(hi, dtype=torch.float32)
-                  - torch.tensor(lo, dtype=torch.float32)).tolist())
+    # in double (rounded to the dtype) for scalar bounds and in the dtype
+    # for per-dim bounds.
+    span = ([weak(spec.hi - spec.lo, dtype)] * d
+            if not isinstance(spec.lo, tuple)
+            else (torch.tensor(hi, dtype=dtype)
+                  - torch.tensor(lo, dtype=dtype)).tolist())
     return [lo, hi, row(spec.mv), span]
 
 
@@ -420,10 +525,12 @@ def _upload(rows, dtype, dev):
 
 
 @functools.lru_cache(maxsize=64)
-def _tables(specs, d: int, dev):
-    """The members' [M, 4, D] bounds and [M] objective ids on ``dev``,
-    uploaded once per table: the kernels only read them."""
-    return (_upload([_bound_rows(m, d) for m in specs], torch.float32, dev),
+def _tables(specs, d: int, dev, dtype=torch.float32):
+    """The members' [M, 4, D] bounds (values of ``dtype``) and [M]
+    objective ids on ``dev``, uploaded once per table: the kernels only
+    read them."""
+    return (_upload([_bound_rows(m, d, dtype) for m in specs], torch.float32,
+                    dev),
             _upload([m.fitness for m in specs], torch.int32, dev))
 
 
@@ -547,39 +654,58 @@ def _device_index(dev) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _resident(fit_id: int, rule_id: int, block_n: int, d: int, csize: int,
-              device_index: int) -> int:
+              device_index: int, dtype=torch.float32) -> int:
     """How many fused-kernel CTAs (``csize`` 1) or clusters of ``csize``
-    CTAs of this configuration fit on the card at once."""
+    CTAs of this configuration, in ``dtype``'s library, fit on the card
+    at once."""
     import ctypes
     resident = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _check(_lib().pso_fused_resident(fit_id, rule_id, block_n, d, csize,
-                                         ctypes.byref(resident)),
+        _check(_lib(dtype).pso_fused_resident(fit_id, rule_id, block_n, d,
+                                              csize, ctypes.byref(resident)),
                "occupancy query")
     return resident.value
 
 
 @functools.lru_cache(maxsize=None)
-def _capacity(block_n: int, d: int, device_index: int, csize: int) -> int:
+def _capacity(block_n: int, d: int, device_index: int, csize: int,
+              dtype=torch.float32) -> int:
     """The fewest clusters of ``csize`` CTAs that any fused or async kernel
-    keeps resident at (block_n, d) on the card: ``cluster_size``'s
-    capacity."""
+    of ``dtype``'s library keeps resident at (block_n, d) on the card:
+    ``cluster_size``'s capacity. Shared memory holds float rows in both
+    libraries, so the element size moves residency only through the
+    kernels' registers, which this query reads."""
     import ctypes
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _check(_lib().pso_cluster_capacity(block_n, d, csize,
-                                           ctypes.byref(out)),
+        _check(_lib(dtype).pso_cluster_capacity(block_n, d, csize,
+                                                ctypes.byref(out)),
                "cluster occupancy query")
     return out.value
 
 
-def _cluster(n: int, d: int, block_n: int, dev, cluster=None) -> int:
+def capacity_of(block_n: int, d: int, dev, dtype=torch.float32):
+    """``cluster_size``'s ``capacity`` for (block_n, d) on ``dev`` in
+    ``dtype``'s library."""
+    return functools.partial(_capacity, block_n, d, _device_index(dev),
+                             dtype=dtype)
+
+
+def resident_of(fit_id: int, rule_id: int, block_n: int, d: int, dev,
+                dtype=torch.float32):
+    """``launch_plan``'s ``resident`` for one configuration on ``dev`` in
+    ``dtype``'s library."""
+    return functools.partial(_resident, fit_id, rule_id, block_n, d,
+                             device_index=_device_index(dev), dtype=dtype)
+
+
+def _cluster(n: int, d: int, block_n: int, dev, cluster=None,
+             dtype=torch.float32) -> int:
     """The cluster size of a launch on ``dev``: ``cluster`` if given,
-    else ``cluster_size`` on the card's capacity."""
+    else ``cluster_size`` on the card's capacity in ``dtype``'s library."""
     if cluster is not None:
         return cluster
-    return cluster_size(n, d, block_n, functools.partial(
-        _capacity, block_n, d, _device_index(dev)))
+    return cluster_size(n, d, block_n, capacity_of(block_n, d, dev, dtype))
 
 
 def _launch_operands(state, seeds, its, specs, fids, block_n: int):
@@ -590,13 +716,14 @@ def _launch_operands(state, seeds, its, specs, fids, block_n: int):
     until its launches are enqueued: freed earlier, their memory could go
     to another tensor before the kernel reads them."""
     pos, gf = state[0], state[5]
-    dev = pos.device
+    dev, dtype = pos.device, pos.dtype
     for t in state:
-        if t.device != dev or dev.type != "cuda" \
-                or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous float32 "
-                             f"tensors on one CUDA device; got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+        if t.device != dev or dev.type != "cuda" or t.dtype != dtype \
+                or dtype not in KERNEL_DTYPES or not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous tensors of "
+                             "one dtype, float32 or bfloat16, on one CUDA "
+                             f"device; got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device} beside {dtype} on {dev}")
     s_cnt = gf.shape[0]
     d, sn = pos.shape
     n = sn // max(s_cnt, 1)
@@ -615,12 +742,13 @@ def _launch_operands(state, seeds, its, specs, fids, block_n: int):
     if len({(m.rule, m.w, m.c1, m.c2) for m in specs}) != 1:
         raise ValueError("the members of a table share rule and "
                          "coefficients; they differ in objective and bounds")
-    bounds, member_fit = _tables(tuple(specs), d, dev)
+    bounds, member_fit = _tables(tuple(specs), d, dev, dtype)
     if fids is None:
         if len(specs) != 1:
             raise ValueError("a table of several members needs fids")
         fit_id, member_fit = specs[0].fitness, None
     else:
+        check_hetero(dtype)
         fids = fids.to(dev, torch.int32).contiguous()
         if tuple(fids.shape) != (s_cnt,) or not all(
                 0 <= f < len(specs)
@@ -629,12 +757,25 @@ def _launch_operands(state, seeds, its, specs, fids, block_n: int):
                              f"of {len(specs)} members")
         fit_id = HETERO
     spec = specs[0]
-    coef = [spec.w, spec.c1, spec.c2, *resolve_rule(spec.rule)
-            .kernel_consts()]
+    coef = [weak(c, dtype) for c in (spec.w, spec.c1, spec.c2,
+                                     *resolve_rule(spec.rule).kernel_consts())]
     counters, scalars = _counters(seeds, its, dev)
     rows = (None, None) if counters is None else (counters[0], counters[1])
     return ([bounds, member_fit, fids, *rows], scalars, fit_id,
             kernel_rule_id(spec.rule), coef, n, d, s_cnt)
+
+
+def check_hetero(dtype: torch.dtype) -> None:
+    """Heterogeneous batches are float32 only: the bfloat16 library has no
+    heterogeneous kernel, and the reference's heterogeneous batch fails in
+    bfloat16 too (its scan carries a float32 fitness beside bfloat16
+    state). The plain versions (``_members``) refuse them as the kernel
+    launches (``_launch_operands``) do."""
+    if dtype != torch.float32:
+        raise ValueError(f"heterogeneous batches take float32 only, not "
+                         f"{dtype}: the bfloat16 kernels have no "
+                         f"heterogeneous form, as the reference has none "
+                         f"that runs")
 
 
 def _ptrs(tensors):
@@ -652,6 +793,14 @@ def _check_counts(counts, s_cnt: int, dev) -> None:
         raise ValueError(f"counts must be a contiguous int32 [{3 * s_cnt}] "
                          f"tensor on {dev}; got {counts.dtype} "
                          f"{tuple(counts.shape)} on {counts.device}")
+
+
+def count(wrapper, dtype: torch.dtype, launches: int) -> None:
+    """Adds ``launches`` of ``dtype``'s kernel to ``wrapper.launches``,
+    and a bfloat16 kernel's also to ``wrapper.bf16_launches``."""
+    wrapper.launches += launches
+    if dtype == torch.bfloat16:
+        wrapper.bf16_launches += launches
 
 
 def _copy_into(state, out):
@@ -687,20 +836,20 @@ def _queue_launch(state, gp, gf, spec: KernelSpec, *, seed: int,
         (pos, vel, pbp, pbf, gp[:, None], gf), [seed], [iteration], (spec,),
         None, block_n)
     nb = n // block_n
-    aux_fit = torch.empty(nb, dtype=torch.float32, device=pos.device)
+    aux_fit = torch.empty(nb, dtype=pos.dtype, device=pos.device)
     aux_idx = torch.empty(nb, dtype=torch.int32, device=pos.device)
     with torch.cuda.device(pos.device):
-        c = _cluster(n, d, block_n, pos.device, cluster)
+        c = _cluster(n, d, block_n, pos.device, cluster, pos.dtype)
         stream = torch.cuda.current_stream(pos.device).cuda_stream
-        _check(_lib().pso_queue_launch(
+        _check(_lib(pos.dtype).pso_queue_launch(
             *_ptrs([pos, vel, pbp, pbf, gp, gf, extra[0], aux_fit, aux_idx]),
             n, d, block_n, c, *scalars, fit_id, rule_id, *coef, stream),
             "queue kernel launch")
-    queue_step.launches += 1
+    count(queue_step, pos.dtype, 1)
     return aux_fit, aux_idx
 
 
-queue_step.launches = 0
+queue_step.launches = queue_step.bf16_launches = 0
 
 
 def fused(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
@@ -725,12 +874,12 @@ def _fused_launch(state, spec: KernelSpec, *, seed: int, iteration: int,
     """The kernel path of ``fused``: the batched launch with S = 1
     (``cluster`` as in ``_fused_batch_launch``)."""
     pos, vel, pbp, pbf, gp, gf = state
-    fused.launches += _fused_batch_launch(
+    count(fused, pos.dtype, _fused_batch_launch(
         (pos, vel, pbp, pbf, gp[:, None], gf), [seed], [iteration], (spec,),
-        iters=iters, block_n=block_n, cluster=cluster, counts=counts)
+        iters=iters, block_n=block_n, cluster=cluster, counts=counts))
 
 
-fused.launches = 0
+fused.launches = fused.bf16_launches = 0
 
 
 def fused_batch(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
@@ -752,13 +901,13 @@ def fused_batch(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
                                                    **kw))
     launched = _fused_batch_launch(state, seeds, its, specs, **kw)
     if fids is None:
-        fused_batch.launches += launched
+        count(fused_batch, pos.dtype, launched)
     else:
         fused_batch.hetero_launches += launched
     return state
 
 
-fused_batch.launches = 0
+fused_batch.launches = fused_batch.bf16_launches = 0
 fused_batch.hetero_launches = 0
 
 
@@ -775,16 +924,15 @@ def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
         return 0
     pos = state[0]
     nb = n // block_n
-    lib = _lib()
+    lib = _lib(pos.dtype)
     with torch.cuda.device(pos.device):
-        dev = _device_index(pos.device)
         c, wave = launch_plan(
-            n, d, block_n, s_cnt, functools.partial(_capacity, block_n, d,
-                                                    dev),
-            functools.partial(_resident, fit_id, rule_id, block_n, d,
-                              device_index=dev), cluster)
+            n, d, block_n, s_cnt,
+            capacity_of(block_n, d, pos.device, pos.dtype),
+            resident_of(fit_id, rule_id, block_n, d, pos.device, pos.dtype),
+            cluster)
         keys = torch.zeros(2 * s_cnt, dtype=torch.int64, device=pos.device)
-        cand = (torch.empty(2 * s_cnt * nb * d, dtype=torch.float32,
+        cand = (torch.empty(2 * s_cnt * nb * d, dtype=pos.dtype,
                             device=pos.device) if nb > 1 else None)
         ptrs = _ptrs(list(state) + extra + [keys, cand, counts])
         stream = torch.cuda.current_stream(pos.device).cuda_stream
@@ -827,13 +975,13 @@ def _fused_async_launch(state, spec: KernelSpec, *, seed: int,
                         topology: str = "gbest") -> None:
     """The kernel path of ``fused_async``: the batched launch with S = 1."""
     pos, vel, pbp, pbf, gp, gf, lp, lf = state
-    fused_async.launches += _fused_async_batch_launch(
+    count(fused_async, pos.dtype, _fused_async_batch_launch(
         (pos, vel, pbp, pbf, gp[:, None], gf, lp, lf), [seed], [iteration],
         (spec,), iters=iters, sync_every=sync_every, block_n=block_n,
-        cluster=cluster, counts=counts, topology=topology)
+        cluster=cluster, counts=counts, topology=topology))
 
 
-fused_async.launches = 0
+fused_async.launches = fused_async.bf16_launches = 0
 
 
 def fused_async_batch(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its, specs,
@@ -856,13 +1004,13 @@ def fused_async_batch(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its, specs,
     launched = _fused_async_batch_launch(state, seeds, its, specs,
                                          cluster=cluster, **kw)
     if fids is None:
-        fused_async_batch.launches += launched
+        count(fused_async_batch, pos.dtype, launched)
     else:
         fused_async_batch.hetero_launches += launched
     return state
 
 
-fused_async_batch.launches = 0
+fused_async_batch.launches = fused_async_batch.bf16_launches = 0
 fused_async_batch.hetero_launches = 0
 
 
@@ -908,10 +1056,10 @@ def _async_launcher(state, seeds, its, specs, fids, *, block_n: int,
                              f"[2, {s_cnt}] tensor on {dev}")
         extra[3:5] = [counters[0], counters[1]]
     topo = _topology_operands(topology, n // block_n)
-    lib = _lib()
+    lib = _lib(pos.dtype)
     with torch.cuda.device(dev):
-        c, _ = async_plan(n, d, block_n, s_cnt, functools.partial(
-            _capacity, block_n, d, _device_index(dev)), cluster)
+        c, _ = async_plan(n, d, block_n, s_cnt,
+                          capacity_of(block_n, d, dev, pos.dtype), cluster)
     lock = torch.zeros(2 * s_cnt, dtype=torch.int32, device=dev)
     seq = (torch.zeros(s_cnt * (n // block_n), dtype=torch.int32, device=dev)
            if topo[0] else None)

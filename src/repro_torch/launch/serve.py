@@ -322,8 +322,8 @@ class SolveServer:
                 batch = self._dispatch_hetero(cfg, seeds, probs, r0)
             else:
                 batch = self._dispatch_uniform(r0.config(), seeds, r0)
-            gf = batch.gbest_fit.cpu().numpy()
-            gp = batch.gbest_pos.cpu().numpy()
+            gf = _device.host(batch.gbest_fit)
+            gp = _device.host(batch.gbest_pos)
             self.stats.dispatches += 1
             self.stats.hetero_dispatches += int(hetero)
             self.stats.padded_rows += padded - k

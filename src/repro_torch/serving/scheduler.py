@@ -63,9 +63,9 @@ import torch
 from .. import _device, api
 from ..core.blocking import default_block_count, pick_block_n
 from ..core.fitness import BUILTIN_PROBLEMS
-from ..core.multi_swarm import (MIN_VALIDATED_SWARMS, ProblemRows, batch_row,
-                                hetero_fid, problem_rows, run_many,
-                                stack_states)
+from ..core.multi_swarm import (MIN_VALIDATED_SWARMS, NO_HETERO_DTYPES,
+                                ProblemRows, batch_row, hetero_fid,
+                                problem_rows, run_many, stack_states)
 from ..core.problem import resolve_problem
 from ..core.pso import (HeteroRow, PSOConfig, hetero_member_config,
                         init_swarm_async, run_async)
@@ -75,7 +75,6 @@ from ..launch.serve import (_HETERO, _HETERO_CANONICAL_FITNESS, BACKENDS,
                             resolve_backend)
 from .compile_cache import CompileCache
 from .metrics import ServingMetrics
-
 
 def _now_us() -> float:
     return time.perf_counter() * 1e6
@@ -140,8 +139,8 @@ class BatchLane:
 
     def gbest(self):
         # copies: admissions write the batch in place
-        return (np.array(self.batch.gbest_fit.cpu()),
-                np.array(self.batch.gbest_pos.cpu()))
+        return (_device.host(self.batch.gbest_fit),
+                _device.host(self.batch.gbest_pos))
 
     def row(self, slot: int):
         return batch_row(self.batch, slot)
@@ -317,8 +316,12 @@ class ContinuousScheduler:
     # -- lane keying -------------------------------------------------------
     def _lane_key(self, r: SolveRequest) -> Tuple:
         """Like ``SolveRequest.group_key`` but WITHOUT ``iters``: per-row
-        accounting lets mixed budgets share a lane."""
-        hetero = self.coalesce_registry and hetero_fid(r.fitness) is not None
+        accounting lets mixed budgets share a lane. Registered built-ins
+        coalesce into a heterogeneous lane in float32 and float64 only (a
+        heterogeneous batch has no bfloat16 form, ``problem_rows``); a
+        bfloat16 request takes a lane of its own problem."""
+        hetero = (self.coalesce_registry and r.dtype not in NO_HETERO_DTYPES
+                  and hetero_fid(r.fitness) is not None)
         content = _HETERO if hetero else resolve_problem(
             r.fitness).cache_key()
         return (r.dim, r.particle_cnt, r.dtype, r.sync_every,
@@ -428,7 +431,7 @@ class ContinuousScheduler:
                 args={"fitness": str(r.fitness), "variant": r.variant,
                       "iters": r.iters})
         self.metrics.inc("standalone_solves")
-        self._finish(a, res.gbest_fit, res.state.gbest_pos.cpu().numpy(),
+        self._finish(a, res.gbest_fit, _device.host(res.state.gbest_pos),
                      batch_size=1)
 
     def _eject(self, lane: _Lane, slot: int, rem: int) -> None:
@@ -457,7 +460,7 @@ class ContinuousScheduler:
                 f"eject t{a.ticket}", _now_us(), process="serving",
                 thread=f"lane {lane.uid}", cat="admission",
                 args={"slot": slot, "remainder": rem})
-        self._finish(a, gf, st.gbest_pos.cpu().numpy(),
+        self._finish(a, gf, _device.host(st.gbest_pos),
                      batch_size=lane.width)
 
     def _finish(self, a: _Active, gf: float, gp: np.ndarray,

@@ -30,7 +30,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List
 
-import numpy as np
 import torch
 
 from .. import _device
@@ -49,13 +48,6 @@ def zero_counts(swarms: int = 1, device=None) -> torch.Tensor:
                        device=_device.resolve(device))
 
 
-def _host(arr) -> np.ndarray:
-    """An array on the host (a torch tensor read back once)."""
-    if isinstance(arr, torch.Tensor):
-        arr = arr.detach().cpu().numpy()
-    return np.asarray(arr)
-
-
 @dataclass(frozen=True)
 class KernelCounters:
     """Host-side view of one swarm's kernel counter slots."""
@@ -67,7 +59,7 @@ class KernelCounters:
     @classmethod
     def from_array(cls, arr) -> "KernelCounters":
         """[SLOTS_PER_SWARM] buffer -> one swarm's counters."""
-        a = _host(arr).reshape(-1)
+        a = _device.host(arr).reshape(-1)
         if a.shape[0] != SLOTS_PER_SWARM:
             raise ValueError(
                 f"expected {SLOTS_PER_SWARM} counter slots, got {a.shape}")
@@ -76,7 +68,7 @@ class KernelCounters:
     @classmethod
     def rows(cls, arr) -> List["KernelCounters"]:
         """[S * SLOTS_PER_SWARM] or [S, SLOTS_PER_SWARM] -> per-swarm."""
-        a = _host(arr).reshape(-1, SLOTS_PER_SWARM)
+        a = _device.host(arr).reshape(-1, SLOTS_PER_SWARM)
         return [cls(*(int(v) for v in row)) for row in a]
 
     def as_dict(self) -> Dict[str, int]:

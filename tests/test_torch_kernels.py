@@ -938,3 +938,113 @@ def test_cluster_async_batch_rows_equal_single_swarm_kernel_on_card(
                               state[5][s:s + 1], state[6][:, s:s + 1],
                               state[7][s:s + 1])):
             assert torch.equal(a, w), s
+
+
+# --- bfloat16 kernels against their plain versions on the card --------------
+# ROADMAP's bfloat16 parity contract: on one CTA a block a bfloat16 kernel
+# computes the plain version's float32 operations, roundings and cosf/expf
+# in the same order, so the two agree bit for bit; on clusters only the
+# order of the objective's float32 partial sums differs, and the async
+# kernel with one block equals the fused kernel at the same cluster size.
+
+def _bf16_card_state(cuda, fit, rule, d, n, seed=1):
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, fitness=fit,
+                        update_rule=rule, dtype="bfloat16").resolved()
+    s = pso.init_swarm(cfg, seed, device=cuda)
+    return cfg, ops.kernel_spec(cfg), ops.state_to_kernel(s), s.seed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fit", FITNESS)
+@pytest.mark.parametrize("rule", ["pso", "sso", "lowcost"])
+def test_bf16_fused_and_queue_kernels_match_plain_on_card(cuda, fit, rule):
+    """d=8, two blocks of 512 on one CTA each: a fused launch of three
+    iterations and a queue step, bfloat16 throughout, bit for bit their
+    plain versions; the queue step bit for bit a fused launch of one."""
+    _, spec, state, seed = _bf16_card_state(cuda, fit, rule, 8, 1024)
+    kw = dict(seed=seed, iteration=5, block_n=512)
+    want = pso_step.fused_plain(*state, spec, iters=3, **kw)
+    got = pso_step.fused(*[x.clone() for x in state], spec, iters=3, **kw)
+    q = pso_step.queue_step(*[x.clone() for x in state], spec, **kw)
+    qp = pso_step.queue_plain(*state, spec, **kw)
+    one = pso_step.fused(*[x.clone() for x in state], spec, iters=1, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got + q, want + qp):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(q[:4], one[:4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topology", ["gbest", "ring", "vonneumann"])
+@pytest.mark.parametrize("d,n", [(8, 512), (37, 128)])
+def test_bf16_async_one_block_equals_fused_on_card(cuda, topology, d, n):
+    """One block (one CTA at d=8, a cluster of 2 at d=37), bfloat16: the
+    async kernel under every topology equals the fused kernel bit for bit
+    across a remainder launch, and the plain version at one CTA."""
+    _, spec, state, seed = _bf16_card_state(cuda, "rastrigin", "pso", d, n)
+    kw = dict(seed=seed, iteration=0, iters=11, block_n=n)
+    fused = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    locals_ = (state[4][:, None].clone(), state[5].clone())
+    got = pso_step.fused_async(*[x.clone() for x in state + locals_], spec,
+                               sync_every=4, topology=topology, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:6], fused):
+        assert torch.equal(a, b)
+    if pso_step._cluster(n, d, n, cuda, dtype=torch.bfloat16) == 1:
+        want = pso_step.fused_async_plain(*state, *locals_, spec,
+                                          sync_every=4, topology=topology,
+                                          **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bf16_batches_match_plain_on_card(cuda):
+    """rastrigin d=10 n=1024 S=16, bfloat16: the batched fused kernel (two
+    blocks a swarm) and the batched async kernel (one block a swarm) bit
+    for bit their plain versions."""
+    cfg = pso.PSOConfig(dim=10, particle_cnt=1024, fitness="rastrigin",
+                        dtype="bfloat16").resolved()
+    b = ms.init_batch(cfg, range(16), device=cuda)
+    b = b._replace(iteration=3 * torch.arange(16, device=cuda))
+    specs = (ops.kernel_spec(cfg),)
+    st = _batch_ops(b)
+    kw = dict(iters=8, block_n=512)
+    got = pso_step.fused_batch(*[x.clone() for x in st], b.seed,
+                               b.iteration, specs, **kw)
+    want = pso_step.fused_batch_plain(*st, b.seed, b.iteration, specs, **kw)
+    st = _batch_ops(b, nb=1)
+    kw = dict(iters=8, sync_every=4, block_n=1024)
+    got += pso_step.fused_async_batch(*[x.clone() for x in st], b.seed,
+                                      b.iteration, specs, **kw)
+    want += pso_step.fused_async_batch_plain(*st, b.seed, b.iteration,
+                                             specs, **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, w)
+
+
+@pytest.mark.gpu
+def test_bf16_async_kernel_multi_block_invariants_on_card(cuda):
+    """cubic d=120 n=32768 in bfloat16, 64 blocks on clusters of 2: gbest
+    monotone over launches, == max(pbest), a pbest column of its fitness,
+    every position in the box."""
+    _, spec, state, seed = _bf16_card_state(cuda, "cubic", "pso", 120,
+                                            32768)
+    assert pso_step._cluster(32768, 120, 512, cuda, dtype=torch.bfloat16) \
+        == 2
+    state = state + (state[4][:, None].repeat(1, 64).contiguous(),
+                     state[5].repeat(64))
+    prev = float(state[5][0])
+    for launch in range(3):
+        pso_step.fused_async(*state, spec, seed=seed, iteration=8 * launch,
+                             iters=8, sync_every=4, block_n=512)
+        torch.cuda.synchronize()
+        pos, _, pbp, pbf, gp, gf = state[:6]
+        g = float(gf[0])
+        assert g >= prev and g == float(pbf.max())
+        cols = pbp[:, pbf == gf]
+        assert bool((cols == gp[:, None]).all(0).any())
+        assert bool(((pos >= -100) & (pos <= 100)).all())
+        prev = g

@@ -57,20 +57,25 @@ def test_the_plan_names_the_seven_archs(smoke):
                                   "qwen2-7b", "llava-next-34b",
                                   "qwen1.5-110b", "arctic-480b"])
 def test_each_planned_depth_is_the_largest_that_fits(smoke, arch):
-    """Every cell at the depth ``zoo_depth`` computes; a planned cell's
-    estimate within ``ZOO_FIT_GIB`` of its mode; a cut cell's estimate one
-    step deeper over it (the card forces the cut); arctic's train step the
-    one defined skip, one layer's estimate over the budget."""
+    """Every cell at the depth ``zoo_depth`` computes, or at a
+    ``ZOO_TIME_CUT`` below it (a whole group of layers, cut for the run's
+    time, not its memory); a planned cell's estimate within ``ZOO_FIT_GIB``
+    of its mode; a cell cut for memory has its estimate one step deeper
+    over it (the card forces the cut); arctic's train step the one defined
+    skip, one layer's estimate over the budget."""
     full = get_arch(arch)
     unit = full.slstm_group or 1
     for mode, layers in smoke.ZOO_PLAN[arch].items():
-        assert smoke.zoo_depth(arch, mode) == layers, (arch, mode)
+        fits = smoke.zoo_depth(arch, mode)
+        cut = smoke.ZOO_TIME_CUT.get((arch, mode))
+        assert layers == (fits if cut is None else cut), (arch, mode)
+        assert cut is None or 0 < cut < fits, (arch, mode)
         assert layers % unit == 0 and 0 <= layers <= full.n_layers
         if layers:
             assert smoke.zoo_gib(arch, mode, layers) <= \
                 smoke.ZOO_FIT_GIB[mode]
-        if layers < full.n_layers:
-            assert smoke.zoo_gib(arch, mode, layers + unit) > \
+        if fits < full.n_layers:
+            assert smoke.zoo_gib(arch, mode, fits + unit) > \
                 smoke.ZOO_FIT_GIB[mode], (arch, mode)
     skips = [m for m, n in smoke.ZOO_PLAN[arch].items() if not n]
     assert skips == (["train"] if arch == "arctic-480b" else [])

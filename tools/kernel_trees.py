@@ -15,7 +15,10 @@ solve cells (cubic d=1 n=131072 x1000, cubic d=120 n=32768 x200; async at
 sync_every=8), counters off, each run from a copy of the initial swarm:
 device us an iteration (CUDA events), the median of five after a warm
 run. Last, the kernels whose ``-Xptxas -v`` line differs between the
-first two distinct trees, side by side, with the spill totals.
+first two distinct trees, side by side, with the spill totals (this
+checkout's parser keys a tree's float32 kernels alike whether or not its
+kernels take the storage type as a template parameter; the bfloat16
+library, ``-DPSO_T_BF16``, is not built here).
 
 The timing and the swarms are chip_smoke.py's (``kernel_state``,
 ``with_locals``, ``device_us``); the tree's ``repro_torch`` is imported
