@@ -10,11 +10,11 @@ standard library, and exits non-zero on any failure. Phases:
 1. identity: torch and CUDA versions, ``nvcc --version``, the card's name
    and power limit;
 2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for ``sm_90a``,
-   and ``pso_step.cu`` a second time with ``-DPSO_T_BF16`` into the
-   bfloat16 library (one ``nvcc`` a library, started together; each
-   library's seconds printed), and prints each kernel's
-   registers and spills from ``-Xptxas -v``, and the tensor-core (HMMA)
-   instructions of each GLA kernel's SASS (``cuobjdump``), which the
+   and ``pso_step.cu`` and ``pso_split.cu`` a second time with
+   ``-DPSO_T_BF16`` into their bfloat16 libraries (one ``nvcc`` a library,
+   started together; each library's seconds printed), and prints each
+   kernel's registers and spills from ``-Xptxas -v``, and the tensor-core
+   (HMMA) instructions of each GLA kernel's SASS (``cuobjdump``), which the
    chunk-state and chunk-output kernels must have;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with the tolerances stated below. Single swarm: the
@@ -222,12 +222,32 @@ and gbest_pos evaluated by the kernel itself to gbest_fit; 15b ``solve``
 at the two solve cells (queue_lock and async, ``backend="auto"``),
 ``solve_many`` rastrigin d=10 n=1024 S=128 x200 and ``ops.queue_step``
 chained, counts set to 0 just before and read just after: every bfloat16
-row launched and no float32 kernel, bfloat16 states; float16, float64, a
-heterogeneous bfloat16 batch and a custom Problem in bfloat16 raise
-``ValueError``; 15c each bfloat16 kernel's ms on phase 5's call beside
-its plain version and its bound at 2 bytes an element, and rows 2 and 5
-in bfloat16 beside float32 at the two solve cells, in turns. Its launches
-count under the ``<row>_bf16`` rows of the JSON.
+row launched and no float32 kernel, bfloat16 states; float16, float64 and
+a heterogeneous bfloat16 batch raise ``ValueError``; 15c each bfloat16
+kernel's ms on phase 5's call beside its plain version and its bound at 2
+bytes an element, and rows 2 and 5 in bfloat16 beside float32 at the two
+solve cells, in turns. Its launches count under the ``<row>_bf16`` rows of
+the JSON. 16, bfloat16 on the split path (the converted forms 1c, 2c, 3c,
+5c, 6c; ``pso_split.cu`` built with ``-DPSO_T_BF16``): 16a each bfloat16
+instantiation of both split kernels against its plain version from one
+shared state, the advance bit for bit and the fold-and-publish kernel
+exactly (given the same fit/viol tensors, counters on) at clusters of 1
+and 2, in the queue, fused and async modes (every action, the star, ring
+and von Neumann), every rule, a projection and a repair (Deb) problem, a
+custom objective with one-lane copies and a batch of 8; 16b
+``repro_torch.solve(..., dtype="bfloat16")`` with ``backend="auto"`` at
+phase 6b's cells, both variants, µs/iter beside float32's on the same
+cell and held to the invariants (in bfloat16 a projected position's sum
+within ``SIMPLEX_BF16`` a dimension of 1), ``solve_many`` of a custom
+Problem at d=10 n=1024 S=128, ``ops.queue_step`` chained, one
+``ContinuousScheduler`` request of a custom Problem, each with the counts
+set to 0 just before and read just after (the bfloat16 split kernels
+only), the kernels' main-path ms under torch.profiler beside their bound,
+and the refusals (float16, float64, a heterogeneous bfloat16 table); 16c
+each bfloat16 split kernel alone at sphere_simplex d=120 n=32768, as 6c
+times the float32 ones (torch.profiler, the L2 flushed), beside its bound
+at 2 bytes an element and its plain version. Its launches count under the
+``split_*_bf16`` rows of the JSON.
 """
 import concurrent.futures
 import ctypes
@@ -253,6 +273,10 @@ from repro_torch.core import multi_swarm as ms  # noqa: E402
 from repro_torch.core import pso  # noqa: E402
 from repro_torch.core.fitness import (  # noqa: E402
     BUILTIN_PROBLEMS, FITNESS_IDS)
+try:    # trees before bfloat16 on the split path
+    from repro_torch.core.fitness import sum_f32
+except ImportError:
+    sum_f32 = None
 from repro_torch.core.serial import run_serial_fast  # noqa: E402
 from repro_torch.core.update_rules import RULE_IDS  # noqa: E402
 from repro_torch.kernels import _build, gla, ops, pso_step  # noqa: E402
@@ -440,6 +464,12 @@ BF16_ROWS = ("queue_step", "fused", "fused_batch", "fused_async",
 if hasattr(pso_step.fused, "bf16_launches"):
     for _row in BF16_ROWS:
         COUNTERS[_row + "_bf16"] = (getattr(pso_step, _row), "bf16_launches")
+#: Phase 16's rows: the split kernels in bfloat16, counted as above.
+SPLIT_BF16 = ("split_advance_bf16", "split_fold_publish_bf16")
+if pso_split is not None and hasattr(pso_split.advance, "bf16_launches"):
+    COUNTERS.update(
+        split_advance_bf16=(pso_split.advance, "bf16_launches"),
+        split_fold_publish_bf16=(pso_split.fold_publish, "bf16_launches"))
 
 
 #: The main paths' kernel calls, each registered where its phase runs it:
@@ -458,9 +488,12 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
+    """Each row's launches; a row with a ``_bf16`` twin keeps its float32
+    launches (the wrapper's ``launches`` less its ``bf16_launches``)."""
     got = {k: getattr(w, attr) for k, (w, attr) in COUNTERS.items()}
-    for row in BF16_ROWS:
-        got[row] -= got.get(row + "_bf16", 0)
+    for row in got:
+        if row + "_bf16" in got:
+            got[row] -= got[row + "_bf16"]
     return got
 
 
@@ -582,12 +615,13 @@ def gla_key(symbol: str):
 
 #: The build variants chip_smoke builds beside each source's plain build:
 #: (source, ``_build.VARIANTS`` key).
-BUILD_VARIANTS = (("pso_step", "bf16"),)
+BUILD_VARIANTS = (("pso_step", "bf16"), ("pso_split", "bf16"))
 
 
 def phase_build() -> None:
     """Every library at once, one nvcc each (the sources and the bfloat16
-    build of ``pso_step.cu``), each library's build seconds printed."""
+    builds of ``pso_step.cu`` and ``pso_split.cu``), each library's build
+    seconds printed."""
     jobs = [(p.stem, "") for p in sorted(_build.CSRC.glob("*.cu"))]
     jobs += list(BUILD_VARIANTS)
 
@@ -645,13 +679,17 @@ def ptxas_lines(log: str) -> list:
                 entry = (f"{m[1]}<{fits.get(m[3], 'hetero')},"
                          f"{rules[m[4]]}{g}>")
             else:     # GLA (gla_chunk_state<WM,NTW>), the split kernels
-                # (split_advance_kernel<rule>) or no template
-                m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)EE)?", entry)
+                # (split_advance_kernel<rule[,T]>, split_fold_publish_kernel
+                # [<T>]; the storage type, as above, keys only bfloat16) or
+                # no template
+                m = re.search(r"([a-z_]+_kernel)(?:I(?:Li(\d+)E)?"
+                              r"(f|13__nv_bfloat16)?E)?", entry)
                 if gla_key(entry):
                     entry = gla_key(entry)
                 elif m:
-                    entry = m[1] + (f"<{rules.get(m[2], m[2])}>" if m[2]
-                                    else "")
+                    args = ([rules.get(m[2], m[2])] if m[2] else []) + (
+                        ["bf16"] if m[3] and m[3] != "f" else [])
+                    entry = m[1] + (f"<{','.join(args)}>" if args else "")
             spill = ""
         elif "spill" in line and \
                 "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -2562,8 +2600,8 @@ def ramped_penalty():
 def fold_publish_operands(base, *, n: int, bn: int, variant: str, act=None):
     """Fresh copies of one ``fold_publish`` call's in-place operands on the
     card from ``base`` = (pbp, pbf, pbv, gp, gf): zero counts, zero keys
-    (fused), the locals seeded from gbest and the swarms' actions ``act``
-    (async)."""
+    (fused), the blocks' queue outputs (queue), the locals seeded from
+    gbest and the swarms' actions ``act`` (async)."""
     pbp, pbf, pbv, gp, gf = base
     s_cnt, nb = gf.shape[0], n // bn
     op = dict(pbp=pbp.clone(), pbf=pbf.clone(),
@@ -2571,6 +2609,10 @@ def fold_publish_operands(base, *, n: int, bn: int, variant: str, act=None):
               gf=gf.clone(), counts=new_counts(s_cnt))
     if variant == "fused":
         op["keys"] = torch.zeros(s_cnt, dtype=torch.int64, device="cuda")
+    elif variant == "queue":
+        op.update(aux_fit=gf.new_zeros(s_cnt * nb),
+                  aux_idx=torch.zeros(s_cnt * nb, dtype=torch.int32,
+                                      device="cuda"))
     else:
         op.update(lp=gp.repeat_interleave(nb, 1).contiguous(),
                   lf=gf.repeat_interleave(nb).contiguous(), act=act)
@@ -2590,10 +2632,11 @@ def fold_publish_round(pos, fit, viol, base, *, n, bn, variant, act=None,
         pos, want["pbp"], want["pbf"], fit, n=n, block_n=bn, mode=variant,
         gf=want["gf"], pbv=want["pbv"], viol=viol, lp=want.get("lp"),
         lf=want.get("lf"), keys=want.get("keys"), counts=want["counts"]))
-    want.update(pso_split.split_publish_plain(
-        pos, fit, want["gp"], want["gf"], n=n, mode=variant,
-        keys=want.get("keys"), lp=want.get("lp"), lf=want.get("lf"),
-        act=want.get("act"), counts=want["counts"], topology=topology))
+    if variant != "queue":
+        want.update(pso_split.split_publish_plain(
+            pos, fit, want["gp"], want["gf"], n=n, mode=variant,
+            keys=want.get("keys"), lp=want.get("lp"), lf=want.get("lf"),
+            act=want.get("act"), counts=want["counts"], topology=topology))
     arrive = torch.zeros(base[4].shape[0], dtype=torch.int32, device="cuda")
     pso_split.fold_publish(pos, op["pbp"], op["pbf"], fit, n=n, block_n=bn,
                            mode=variant, viol=viol, arrive=arrive,
@@ -2615,21 +2658,25 @@ def fold_publish_round(pos, fit, viol, base, *, n, bn, variant, act=None,
     return err, op["counts"]
 
 
-def split_round(what, cfg, b, rows, table, variant, bn, errs) -> None:
+def split_round(what, cfg, b, rows, table, variant, bn, errs,
+                keys=SPLIT) -> None:
     """One split iteration of batch ``b`` (S >= 1, two eager iterations in)
     on the card: each kernel against its plain version on the same card
     tensors. The advance must equal bit for bit; the fold-and-publish
     kernel (given the same fit/viol tensors, counters on) exactly, at every
-    cluster size C it may run on, forced, and in the async mode under each
-    action (none, sync, flush, and a mix across the swarms of a batch) and
-    each topology (star, ring, von Neumann, at a sync point)."""
+    cluster size C it may run on, forced, in the queue mode (each block's
+    queue, no publish), and in the async mode under each action (none,
+    sync, flush, and a mix across the swarms of a batch) and each topology
+    (star, ring, von Neumann, at a sync point). Each kernel's max |kernel -
+    plain| goes into ``errs`` under ``keys`` (the advance's, the fold's:
+    phase 16 passes the bfloat16 rows)."""
     fids = None if rows is None else rows.fid
     b = ms.run_many(cfg, b, 2, "queue", rows=rows, table=table)
     s_cnt, n, d = b.pos.shape
     nb = n // bn
     state, specs = ops._batch_to_kernel(cfg, b, fids, table)
     pos, vel, pbp, pbf, gp, gf = state
-    fused = variant == "fused"
+    fused = variant != "async"
     attractor, gdiv = ((gp, n) if fused
                        else (gp.repeat_interleave(nb, 1).contiguous(), bn))
     akw = dict(n=n, it_off=0, gdiv=gdiv)
@@ -2667,7 +2714,7 @@ def split_round(what, cfg, b, rows, table, variant, bn, errs) -> None:
             fold_err = max(fold_err, e)
             cnt = got if cnt is None else cnt
             rounds += 1
-    for k, e in zip(SPLIT, (err, fold_err)):
+    for k, e in zip(keys, (err, fold_err)):
         errs[k] = max(errs[k], e)
     planned = pso_split.fold_cluster_size(
         s_cnt, n, d, bn,
@@ -2743,11 +2790,26 @@ def split_problem(key):
 
 
 def split_invariants(what, res, prob, iters) -> None:
-    """Feasibility, history and gbest invariants of a split-path Result."""
+    """Feasibility, history and gbest invariants of a split-path Result. In
+    bfloat16 a projected position is on the simplex only within
+    ``SIMPLEX_BF16`` (the projection's prefix sums round at every add, as
+    the reference's ``jnp.cumsum`` does), so there no feasibility at the
+    constraint's tolerance is asked of it; every other position stays in
+    the box."""
     s = res.state
     cs = prob.constraints
     check(math.isfinite(res.best_fit), f"{what}: finite gbest")
-    if prob.projection_fn is not None:
+    if s.pos.dtype == BF:
+        d = s.pos.shape[-1]
+        if prob.projection_fn is not None:
+            off = float((sum_f32(s.pos.float()) - 1).abs().max())
+            check(float(s.pos.min()) >= 0.0 and off <= d * SIMPLEX_BF16,
+                  f"{what}: every position >= 0, its sum within "
+                  f"d * {SIMPLEX_BF16} of 1 ({off})")
+        else:
+            check(float(s.pos.min()) >= prob.lo and float(s.pos.max())
+                  <= prob.hi, f"{what}: every position in the box")
+    elif prob.projection_fn is not None:
         check(float(s.pos.min()) >= 0.0 and float(
             (s.pos.sum(-1) - 1).abs().max()) <= 1e-5 and res.feasible,
             f"{what}: every position on the simplex")
@@ -2944,23 +3006,25 @@ def split_beside_builtin(card: str) -> None:
 
 
 def split_bounds(d: int, n: int, deb: bool, improved: int = 0,
-                 s_cnt: int = 1) -> dict:
+                 s_cnt: int = 1, esize: int = 4) -> dict:
     """Each split kernel's bound (ms, by) for one launch on ``s_cnt``
-    swarms of ``n`` particles in all, in ``d`` dimensions (``roof``): the
-    advance reads pos, vel, pbp, the attractor column, the bounds rows and
-    the counters and writes pos and vel, against its integer and float
+    swarms of ``n`` particles in all, in ``d`` dimensions (``roof``), the
+    swarm's elements ``esize`` bytes (2 in bfloat16): the advance reads
+    pos, vel, pbp, the attractor column, the float32 bounds rows and the
+    counters and writes pos and vel, against its integer and float
     operations. The fold-and-publish kernel is the fold's bytes plus the
     publish's: the fold reads fit, pbf and gf (and viol, pbv under Deb's
     rule) and writes pbf (pbv) and a pbest column (pos read, pbp written)
-    for each of ``improved`` particles, and the key; the publish reads the
-    key, the winner's column and fitness and writes gbest and clears the
-    key; the arrival counter is read and written once a swarm."""
+    for each of ``improved`` particles, and the 8-byte key; the publish
+    reads the key, the winner's column and fitness and writes gbest and
+    clears the key; the arrival counter is read and written once a
+    swarm."""
     per = 4 if deb else 2           # fit, pbf (viol, pbv) read a particle
-    fold = 4 * (per * n + s_cnt) + improved * (
-        (8 if deb else 4) + 8 * d) + 8 * s_cnt
-    publish = s_cnt * (8 + 8 * (d + 1) + 8 + 8)
+    fold = esize * (per * n + s_cnt) + improved * esize * (
+        (2 if deb else 1) + 2 * d) + 8 * s_cnt
+    publish = s_cnt * (8 + 2 * esize * (d + 1) + 8 + 8)
     return {
-        "split_advance": roof(4 * (5 * n * d + d + 4 * d + 2),
+        "split_advance": roof(esize * (5 * n * d + d) + 4 * (4 * d + 2),
                               n * d * INT_PER_ELEMENT,
                               n * d * FP_DRAWS_RULE),
         "split_fold_publish": roof(fold + publish, 0, 4 * n)}
@@ -2971,6 +3035,51 @@ def split_bounds(d: int, n: int, deb: bool, improved: int = 0,
 SPLIT_TIMED = (120, 32768, 512)
 #: 6c's batch sweep: its columns as swarms of (n, block_n), a block each.
 SPLIT_BATCH_VIEW = (256, 256)
+
+
+def cold_copies(args):
+    """Fresh copies of the tensors ``args``, the L2 flushed after the copy
+    (``flush_l2``): a call on them reads its inputs from HBM."""
+    st = [x.clone() for x in args]
+    flush_l2()
+    return st
+
+
+def cold_events(fn, args) -> float:
+    """Seconds of ``fn(st)`` on ``cold_copies(args)`` in CUDA events around
+    the call (the wrapper's host work inside), the median of 5."""
+    return sorted(device_us(fn, cold_copies(args), copy=False)
+                  for _ in range(5))[2] / 1e6
+
+
+def kernel_alone(pattern: str, fn, args, lo: float, reps: int = 5):
+    """(seconds, the call's ``cold_events`` seconds, how the first was
+    read): the device time of the one kernel whose symbol matches
+    ``pattern`` that a call of ``fn`` on cold copies launches, under
+    torch.profiler (the mean over ``reps`` calls). A reading is the
+    kernel's only where the profiler recorded all ``reps`` launches (a
+    reading late in a long run has held only some of them), at or above
+    ``lo`` (the bound, in seconds) and not above the call's events; else
+    it is taken again, and after three tries the events' reading stands in
+    for it (an upper bound of the kernel's time)."""
+    from torch.profiler import ProfilerActivity, profile
+    ev = cold_events(fn, args)
+    fn(cold_copies(args))
+    seen = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(cold_copies(args))
+            torch.cuda.synchronize()
+        mine = [us for name, us in device_events(prof)
+                if re.search(pattern, name)]
+        us = sum(mine) / max(1, len(mine)) / 1e6
+        seen.append(f"{us * 1e6:.2f} ({len(mine)} of {reps} launches)")
+        if len(mine) == reps and lo <= us <= 1.1 * ev:
+            return us, ev, "torch.profiler"
+    return ev, ev, (f"CUDA events (torch.profiler read {', '.join(seen)} "
+                    f"us, not all launches or outside [bound, events])")
 
 
 def split_times(card: str, times: dict, bounds: dict) -> None:
@@ -3002,38 +3111,17 @@ def split_times(card: str, times: dict, bounds: dict) -> None:
     akw = dict(n=n, it_off=0, gdiv=n)
     events, read_by = {}, {}
 
-    def cold(args):
-        st = [x.clone() for x in args]
-        flush_l2()
-        return st
-
-    def med(fn, args):
-        return sorted(device_us(fn, cold(args), copy=False)
-                      for _ in range(5))[2] / 1e6
-
     def alone(key, fn, args, bound=None):
-        """(kernel alone s, call in events s, how the first was read)."""
-        ev, lo = med(fn, args), (bound or bounds[key])[0] / 1e3
-        seen = []
-        for _ in range(3):
-            us = kernel_device_us(lambda: fn(cold(args)), reps=5)
-            us = sum(v for kn, v in us.items()
-                     if re.search(SPLIT_FAMILY[key], kn)) / 1e6
-            seen.append(us)
-            if lo <= us <= 1.1 * ev:
-                return us, ev, "torch.profiler"
-        return ev, ev, (f"CUDA events (torch.profiler read "
-                        f"{', '.join(f'{x * 1e6:.2f}' for x in seen)} us, "
-                        f"outside [bound, events])")
+        return kernel_alone(SPLIT_FAMILY[key], fn, args,
+                            (bound or bounds[key])[0] / 1e3)
 
     bounds["split_advance"] = split_bounds(d, n, True)["split_advance"]
     times["split_advance"], events["split_advance"], read_by[
         "split_advance"] = alone("split_advance", lambda st: pso_split.advance(
             *st, gp, seed, it, (spec,), **akw), (pos, vel, pbp))
-    times["split_advance_plain"] = med(lambda st: pso_split.
-                                       split_advance_plain(
-                                           *st, gp, seed, it, (spec,),
-                                           **akw), (pos, vel, pbp))
+    times["split_advance_plain"] = cold_events(
+        lambda st: pso_split.split_advance_plain(*st, gp, seed, it, (spec,),
+                                                 **akw), (pos, vel, pbp))
     pso_split.advance(pos, vel, pbp, gp, seed, it, (spec,), **akw)
     fit, viol = pso_split.torch_step((cfg.problem,), None, n, (n,))(pos)
     pbv = ops._pbv(cfg, None, s.pbest_pos)
@@ -3063,7 +3151,7 @@ def split_times(card: str, times: dict, bounds: dict) -> None:
     fstate = (pbp, pbf, pbv, gp, gf, keys, arrive)
     times[key], events[key], read_by[key] = alone(key, fold_publish(None),
                                                   fstate)
-    times[key + "_plain"] = med(fold_publish_plain, fstate)
+    times[key + "_plain"] = cold_events(fold_publish_plain, fstate)
     for k in SPLIT:
         print(f"  {k}: the kernel alone {times[k] * 1e6:.2f} us (read by "
               f"{read_by[k]}), the call {events[k] * 1e6:.2f} us (plain "
@@ -6171,27 +6259,24 @@ def bf16_main_cells(errs: dict) -> None:
           "two-block async batch by the invariants")
 
 
-def bf16_refusals() -> None:
+def refusals(phase: str, problem, hetero) -> None:
     """What the kernels do not take raises ValueError, on the card as on
-    the CPU: float16 and float64 swarms, a heterogeneous bfloat16 batch, a
-    custom Problem in bfloat16 (the split kernels are float32)."""
+    the CPU: float16 and float64 swarms of ``problem``, a heterogeneous
+    bfloat16 batch of ``hetero``."""
     kw = dict(dim=3, particles=256, iters=2, variant="async")
     for what, call in (
-            ("float16", lambda: repro_torch.solve("cubic", dtype="float16",
+            ("float16", lambda: repro_torch.solve(problem, dtype="float16",
                                                   **kw)),
-            ("float64", lambda: repro_torch.solve("cubic", dtype="float64",
+            ("float64", lambda: repro_torch.solve(problem, dtype="float64",
                                                   **kw)),
             ("heterogeneous bfloat16", lambda: repro_torch.solve_many(
-                problems=["cubic", "sphere"], seeds=range(2),
-                dtype="bfloat16", **kw)),
-            ("custom Problem in bfloat16", lambda: repro_torch.solve(
-                custom_sphere(), dtype="bfloat16", **kw))):
+                problems=hetero, seeds=range(2), dtype="bfloat16", **kw))):
         try:
             call()
         except ValueError as e:
-            print(f"  15b {what}: ValueError ({str(e)[:110]})")
+            print(f"  {phase} {what}: ValueError ({str(e)[:110]})")
             continue
-        check(False, f"15b {what} raises ValueError")
+        check(False, f"{phase} {what} raises ValueError")
 
 
 def bf16_main_calls():
@@ -6282,7 +6367,7 @@ def bf16_main_path(card: str) -> dict:
         print(f"  15b {row}_bf16: {ms:.3f} ms of {FAMILY[row]} on the main "
               f"path (torch.profiler), bound {bms:.3f} ms at 2 bytes an "
               f"element [{card}]")
-    bf16_refusals()
+    refusals("15b", "cubic", ["cubic", "sphere"])
     return {k + "_bf16": v for k, v in got.items()}
 
 
@@ -6392,6 +6477,283 @@ def phase_bf16(card: str, errs: dict, times: dict, bounds: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: bfloat16 on the split path (converted forms 1c, 2c, 3c, 5c, 6c)
+# ---------------------------------------------------------------------------
+
+#: How far from 1 the sum of a position projected in bfloat16 may lie, a
+#: dimension: the projection's prefix sums round to bfloat16 at every add
+#: (the reference's ``jnp.cumsum``), each by up to half an ulp of a value
+#: near 1 (2^-8 below 1, 2^-7 above), and the threshold and the clipped
+#: coordinates round once more.
+SIMPLEX_BF16 = 2.0 ** -7
+#: 16a's cells: (what, problem key of ``split_problem``, d, n, block_n,
+#: the rules).
+SPLIT_BF16_CELLS = (
+    ("sphere_simplex (projection) d=8 n=1024", "sphere_simplex", 8, 1024,
+     512, tuple(RULE_IDS)),
+    ("plane_ball (repair, Deb) d=3 n=1024", "plane_ball", 3, 1024, 512,
+     tuple(RULE_IDS)),
+    ("custom sphere d=24 n=1002 (blocks of 501: one-lane copies)", "custom",
+     24, 1002, 501, ("pso",)),
+    ("sphere_simplex d=120 n=32768", "sphere_simplex", 120, 32768, 512,
+     ("pso",)),
+)
+#: 16b's solve_many of a custom Problem: (d, n, S, iterations).
+SPLIT_BF16_MANY = (10, 1024, 128, 100)
+
+
+def split_bf16_compare(errs) -> None:
+    """16a: each bfloat16 instantiation of both split kernels against its
+    plain version on the card (``split_round``: the advance bit for bit;
+    the fold-and-publish kernel exactly, given the same fit/viol tensors,
+    counters on, at clusters of 1 and 2, forced), in the queue, fused and
+    async modes (the async mode under every action, the star, ring and von
+    Neumann), every rule, a projection and a repair (Deb) problem, a
+    custom objective whose blocks are not aligned to four lanes, and a
+    batch of 8 swarms."""
+    print("phase 16a: the bfloat16 split kernels against their plain "
+          "versions on the card")
+    for what, key, d, n, bn, rules in SPLIT_BF16_CELLS:
+        for rule in rules:
+            cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
+                                fitness=split_problem(key), update_rule=rule,
+                                dtype="bfloat16").resolved()
+            b = ms.init_batch(cfg, [0], device="cuda")
+            for variant in ("queue", "fused", "async"):
+                split_round(f"bf16 {what} {rule}", cfg, b, None, None,
+                            variant, bn, errs, keys=SPLIT_BF16)
+    cfg = pso.PSOConfig(dim=8, particle_cnt=1024, w=0.7,
+                        fitness=custom_sphere(),
+                        dtype="bfloat16").resolved()
+    b = ms.init_batch(cfg, range(8), device="cuda")
+    for variant in ("fused", "async"):
+        split_round("bf16 custom sphere d=8 n=1024 S=8", cfg, b, None, None,
+                    variant, 512, errs, keys=SPLIT_BF16)
+
+
+def split_bf16_launched(what: str, want: int = 0) -> dict:
+    """The launches since the last ``zero_counts``: the bfloat16 split
+    kernels' (``want`` each where given, else some), and no other kernel
+    (no float32 split kernel, no built-in)."""
+    counts = {k: v for k, v in read_counts().items() if v}
+    got = {k: counts.pop(k, 0) for k in SPLIT_BF16}
+    check(all(v == want if want else v > 0 for v in got.values())
+          and not counts, f"{what}: the bfloat16 split kernels {got}"
+          f"{f', {want} each' if want else ''}, and no other ({counts})")
+    return got
+
+
+def split_bf16_main_path(card: str, launches: dict, main: dict) -> dict:
+    """16b: the main paths in bfloat16 through the entry points, each call
+    with the counts set to 0 just before it and read just after
+    (``split_bf16_launched``): ``repro_torch.solve(..., dtype="bfloat16")``
+    with ``backend="auto"`` at phase 6b's ``SPLIT_CELLS``, both variants,
+    µs/iter beside float32's on the same cell, held to
+    ``split_invariants`` (with a history); ``solve_many`` of a custom
+    Problem (``SPLIT_BF16_MANY``), both variants; ``ops.queue_step``
+    chained; one ``ContinuousScheduler`` request of a custom Problem; then
+    each solve once more under torch.profiler (the bfloat16 kernels' device
+    ms beside the bound of the same launches, in ``main``); the refusals.
+    Adds the launches into ``launches``; returns the split kernels' device
+    us an iteration at sphere_simplex d=120 n=32768 queue_lock."""
+    print(f"phase 16b: the split path's main paths in bfloat16 [{card}]")
+    big = {}
+    for label, key, d, n, iters in SPLIT_CELLS:
+        prob = split_problem(key)
+        for variant in ("queue_lock", "async"):
+            what = f"bf16 {label} d={d} n={n} x{iters} {variant}"
+            kw = dict(dim=d, particles=n, seed=0, variant=variant, w=0.7)
+            us = {}
+            for dt in ("bfloat16", "float32"):
+                repro_torch.solve(prob, iters=2, dtype=dt, **kw)  # warm-up
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = repro_torch.solve(prob, iters=iters, dtype=dt, **kw)
+                torch.cuda.synchronize()
+                us[dt] = (time.perf_counter() - t0) / iters * 1e6
+                if dt == "bfloat16":
+                    got = split_bf16_launched(what, iters)
+                    for k in SPLIT_BF16:
+                        launches[k] += got[k]
+                    check(res.state.pos.dtype == BF,
+                          f"{what}: a bfloat16 state")
+                    best = res.best_fit
+            hist = repro_torch.solve(prob, iters=iters, dtype="bfloat16",
+                                     record_history=True, **kw)
+            check(hist.best_fit == best, f"{what}: history on and off agree")
+            split_invariants(what, hist, prob, iters)
+            dev = kernel_device_us(functools.partial(
+                repro_torch.solve, prob, iters=iters, dtype="bfloat16",
+                **kw), reps=1)
+            per = {k: sum(v for kn, v in dev.items()
+                          if re.search(SPLIT_FAMILY[k[:-5]], kn)
+                          and "bfloat16" in kn) / iters
+                   for k in SPLIT_BF16}
+            bnd = split_bounds(d, n, prob.deb, esize=2)
+            for k in SPLIT_BF16:
+                ms_, bms = main.get(k, (0.0, 0.0))
+                main[k] = (ms_ + per[k] * iters / 1e3,
+                           bms + bnd[k[:-5]][0] * iters)
+            if d == 120 and key == "sphere_simplex" and \
+                    variant == "queue_lock":
+                big = per
+            print(f"  16b {what}: {us['bfloat16']:.2f} us/iter in bfloat16, "
+                  f"{us['float32']:.2f} in float32 [device us/iter "
+                  + ", ".join(f"{k[6:-5]} {v:.2f}" for k, v in per.items())
+                  + f"]; gbest {hist.best_fit:.7g}, violation "
+                  f"{hist.violation:.3g} [{card}]")
+    d, n, s_cnt, iters = SPLIT_BF16_MANY
+    for variant in ("queue_lock", "async"):
+        what = f"bf16 solve_many custom sphere d={d} n={n} S={s_cnt} " \
+               f"x{iters} {variant}"
+        kw = dict(dim=d, particles=n, iters=iters, variant=variant,
+                  dtype="bfloat16")
+        repro_torch.solve_many(custom_sphere(), range(2), **dict(kw, iters=2))
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = repro_torch.solve_many(custom_sphere(), range(s_cnt), **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = split_bf16_launched(what, iters)
+        for k in SPLIT_BF16:
+            launches[k] += got[k]
+        pos = torch.stack([r.state.pos for r in rows])
+        check(pos.dtype == BF and float(pos.abs().max()) <= 100.0 and all(
+            math.isfinite(r.best_fit) for r in rows) and all(
+            r.state.gbest_fit == r.state.pbest_fit.max() for r in rows),
+            f"{what}: bfloat16 rows in the box, gbest == max(pbest)")
+        dev = kernel_device_us(functools.partial(
+            repro_torch.solve_many, custom_sphere(), range(s_cnt), **kw),
+            reps=1)
+        bnd = split_bounds(d, s_cnt * n, False, s_cnt=s_cnt, esize=2)
+        for k in SPLIT_BF16:
+            mine = sum(v for kn, v in dev.items()
+                       if re.search(SPLIT_FAMILY[k[:-5]], kn)
+                       and "bfloat16" in kn)
+            ms_, bms = main.get(k, (0.0, 0.0))
+            main[k] = (ms_ + mine / 1e3, bms + bnd[k[:-5]][0] * iters)
+        print(f"  16b {what}: {dt / iters * 1e6:.2f} us/iter of the batch; "
+              f"best row {repro_torch.best(rows).best_fit:.7g} [{card}]")
+    cfg = pso.PSOConfig(dim=8, particle_cnt=1024, w=0.7,
+                        fitness="sphere_simplex", dtype="bfloat16").resolved()
+    s = pso.init_swarm(cfg, 0, device="cuda")
+    zero_counts()
+    s = queue_loop(cfg, s, 20)
+    got = split_bf16_launched("bf16 ops.queue_step x20 sphere_simplex d=8",
+                              20)
+    for k in SPLIT_BF16:
+        launches[k] += got[k]
+    check(s.pos.dtype == BF and float(s.pos.min()) >= 0.0,
+          "bf16 ops.queue_step: a bfloat16 state, positions >= 0")
+    print(f"  16b ops.queue_step x20 sphere_simplex d=8 n=1024: gbest "
+          f"{float(s.gbest_fit)}, launches {got}")
+    req = SolveRequest(dim=8, particle_cnt=1024, fitness=custom_sphere(),
+                       seed=3, iters=24, variant="async", sync_every=8,
+                       dtype="bfloat16")
+    sched = serving.ContinuousScheduler(backend="kernel")
+    zero_counts()
+    (r,) = sched.run([req])
+    got = split_bf16_launched("bf16 serving, a custom Problem's request")
+    for k in SPLIT_BF16:
+        launches[k] += got[k]
+    want = repro_torch.solve(custom_sphere(), dim=8, particles=1024,
+                             iters=24, seed=3, variant="async", sync_every=8,
+                             dtype="bfloat16", backend="kernel",
+                             record_history=True)
+    lane = next(iter(sched._lanes.values()))
+    check(r.ok and lane.program.batch.pos.dtype == BF and math.isfinite(
+        r.gbest_fit), "bf16 serving: the custom request runs in a bfloat16 "
+        "lane of the split path")
+    print(f"  16b ContinuousScheduler, a custom Problem's request in "
+          f"bfloat16: gbest {r.gbest_fit} (its standalone solve "
+          f"{want.best_fit}), launches {got}")
+    refusals("16b", custom_sphere(), [custom_sphere(), "cubic"])
+    return big
+
+
+def split_bf16_times(card: str, times: dict, bounds: dict) -> None:
+    """16c: each bfloat16 split kernel alone at sphere_simplex d=120
+    n=32768 (``SPLIT_TIMED``, two eager iterations in), as phase 6c times
+    the float32 ones (``kernel_alone``: each call on fresh copies with the
+    L2 flushed, the kernel's device time under torch.profiler, the call in
+    CUDA events, the median of 5), beside its bound at 2 bytes an element
+    counted from this call's data, and its plain version's time."""
+    d, n, bn = SPLIT_TIMED
+    print(f"phase 16c: the bfloat16 split kernels alone, sphere_simplex d={d} "
+          f"n={n} [{card}]")
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
+                        fitness="sphere_simplex", dtype="bfloat16").resolved()
+    s = pso.run(cfg, pso.init_swarm(cfg, 0, device="cuda"), 2, "queue")
+    pos, vel, pbp, pbf, gp, gf = ops.state_to_kernel(s)
+    gp = gp[:, None].contiguous()
+    spec, (seed, it) = ops.kernel_spec(cfg), ops._seed_rows(s)
+    akw = dict(n=n, it_off=0, gdiv=n)
+    adv, fold = SPLIT_BF16
+    bounds[adv] = split_bounds(d, n, True, esize=2)["split_advance"]
+    events, read_by = {}, {}
+    times[adv], events[adv], read_by[adv] = kernel_alone(
+        SPLIT_FAMILY["split_advance"] + ".*bfloat16",
+        lambda st: pso_split.advance(*st, gp, seed, it, (spec,), **akw),
+        (pos, vel, pbp), bounds[adv][0] / 1e3)
+    times[adv + "_plain"] = cold_events(
+        lambda st: pso_split.split_advance_plain(*st, gp, seed, it, (spec,),
+                                                 **akw), (pos, vel, pbp))
+    pso_split.advance(pos, vel, pbp, gp, seed, it, (spec,), **akw)
+    fit, viol = pso_split.torch_step((cfg.problem,), None, n, (n,))(pos)
+    pbv = ops._pbv(cfg, None, s.pbest_pos)
+    improved = int(cons.deb_improved(fit, viol, pbf, pbv).sum())
+    bounds[fold] = split_bounds(d, n, True, improved,
+                                esize=2)["split_fold_publish"]
+    fstate = (pbp, pbf, pbv, gp, gf,
+              torch.zeros(1, dtype=torch.int64, device="cuda"),
+              torch.zeros(1, dtype=torch.int32, device="cuda"))
+
+    def kernel(st):
+        pso_split.fold_publish(pos, st[0], st[1], fit, n=n, block_n=bn,
+                               mode="fused", gp=st[3], gf=st[4], pbv=st[2],
+                               viol=viol, keys=st[5], arrive=st[6])
+
+    def plain(st):
+        out = pso_split.split_fold_plain(pos, st[0], st[1], fit, n=n,
+                                         block_n=bn, mode="fused", gf=st[4],
+                                         pbv=st[2], viol=viol, keys=st[5])
+        pso_split.split_publish_plain(pos, fit, st[3], st[4], n=n,
+                                      mode="fused", keys=out["keys"])
+    times[fold], events[fold], read_by[fold] = kernel_alone(
+        SPLIT_FAMILY["split_fold_publish"] + ".*bfloat16", kernel, fstate,
+        bounds[fold][0] / 1e3)
+    times[fold + "_plain"] = cold_events(plain, fstate)
+    for k in SPLIT_BF16:
+        print(f"  {k}: the kernel alone {times[k] * 1e6:.2f} us (read by "
+              f"{read_by[k]}), the call {events[k] * 1e6:.2f} us (plain "
+              f"{times[k + '_plain'] * 1e6:.2f} us), bound "
+              f"{bounds[k][0] * 1e3:.3f} us by {bounds[k][1]} at 2 bytes an "
+              f"element" + (f"; {improved} pbest columns written of {n}"
+                            if k == fold else "") + f" [{card}]")
+
+
+def phase_split_bf16(card: str, errs: dict, times: dict,
+                     bounds: dict) -> tuple:
+    """16a-16c (the module docstring). Returns (16b's launches, the
+    bfloat16 split kernels' device us an iteration at the largest cell)."""
+    t0 = time.perf_counter()
+    split_bf16_compare(errs)
+    launches, main = dict.fromkeys(SPLIT_BF16, 0), {}
+    big = split_bf16_main_path(card, launches, main)
+    print(f"  16b launches on these main paths: {launches}")
+    print("  16b device ms summed over these launches (torch.profiler), "
+          "beside their bound at 2 bytes an element (the fold's without its "
+          "data-dependent pbest copies): " + ", ".join(
+              f"{k} {ms_:.3f} ({bms:.3f})" for k, (ms_, bms) in main.items())
+          + f" [{card}]")
+    split_bf16_times(card, times, bounds)
+    print(f"  phase 16: {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches, big
+
+
 #: Each kernel of the port and the TPU kernel it replaces.
 REPLACES = {
     "queue_step": "src/repro/kernels/pso_step.py:822",
@@ -6407,6 +6769,10 @@ REPLACES = {
     # named by fused_call, the main path's
     "split_advance": "src/repro/kernels/pso_step.py:874",
     "split_fold_publish": "src/repro/kernels/pso_step.py:874",
+    # phase 16: the split kernels in bfloat16, the same converted forms at
+    # dtype=bfloat16
+    "split_advance_bf16": "src/repro/kernels/pso_step.py:874",
+    "split_fold_publish_bf16": "src/repro/kernels/pso_step.py:874",
 }
 # phase 15: the bfloat16 kernels of rows 1, 2, 3, 5 and 6 replace the same
 # builders at dtype=bfloat16
@@ -6421,7 +6787,7 @@ SPLIT_REPLACES = ["src/repro/kernels/pso_step.py:" + str(line)
 SOURCES = {name: "src/repro_torch/kernels/csrc/pso_step.cu" for name in REPLACES}
 SOURCES["gla_forward"] = SOURCES["gla_bf16"] = \
     "src/repro_torch/kernels/csrc/gla.cu"
-for _name in SPLIT:
+for _name in SPLIT + SPLIT_BF16:
     SOURCES[_name] = "src/repro_torch/kernels/csrc/pso_split.cu"
 
 
@@ -6476,6 +6842,10 @@ def main() -> int:
         launches[k] += v
     for k, v in phase_bf16(card, errs, times, bounds).items():
         launches[k] += v
+    split_bf16_launches, split_bf16_us = phase_split_bf16(card, errs, times,
+                                                          bounds)
+    launches.update(split_bf16_launches)
+    split_us.update(split_bf16_us)
     kernels = []
     for name, replaces in REPLACES.items():
         b_ms, b_by = bounds[name]

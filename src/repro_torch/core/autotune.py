@@ -90,18 +90,15 @@ class Schedule:
         return dataclasses.replace(self, **kw)
 
 
-def _kernel_ok(device: torch.device, rule: str = "pso", problem=None,
+def _kernel_ok(device: torch.device, rule: str = "pso",
                dtype: str = "float32") -> bool:
     """Whether kernel candidates exist: a CUDA device, a rule the CUDA
-    kernels carry and a dtype they take (float32; bfloat16 for the
-    built-in objectives, ``ops.kernel_spec``)."""
-    from .fitness import is_builtin
-    from .problem import resolve_problem
+    kernels carry and a dtype they take (float32 or bfloat16, for every
+    homogeneous Problem: the built-ins' kernels and the split path,
+    ``ops.kernel_spec``)."""
     from .update_rules import kernel_carries
-    takes = dtype == "float32" or (
-        dtype == "bfloat16" and problem is not None
-        and is_builtin(resolve_problem(problem)))
-    return device.type == "cuda" and kernel_carries(rule) and takes
+    return (device.type == "cuda" and kernel_carries(rule)
+            and dtype in ("float32", "bfloat16"))
 
 
 def cache_scope(kernel_ok: bool, device: torch.device) -> str:
@@ -448,7 +445,7 @@ def resolve_schedule(problem, d: int, n: int, iters: int, *,
     dev = _device.resolve(device)
     cache = cache or default_cache()
     if kernel_ok is None:
-        kernel_ok = (_kernel_ok(dev, rule, problem, dtype)
+        kernel_ok = (_kernel_ok(dev, rule, dtype)
                      and not record_history)
     scope = cache_scope(kernel_ok, dev)
     key = shape_key(problem, d, n, iters, dtype, batch, hetero_table,
@@ -532,7 +529,7 @@ def seed_priors(cache: Optional[AutotuneCache] = None,
         problems = [p.name for p in BUILTIN_PROBLEMS]
     seeded = 0
     for prob in problems:
-        kernel_ok = _kernel_ok(dev, problem=prob, dtype=dtype)
+        kernel_ok = _kernel_ok(dev, dtype=dtype)
         scope = cache_scope(kernel_ok, dev)
         for d in dims:
             for n in particles:

@@ -48,6 +48,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from . import rng
+from .fitness import LOW_PRECISION, sum_f32, weak
 from .problem import Problem, register_problem
 
 Tensor = torch.Tensor
@@ -90,7 +91,8 @@ class Constraint:
         """Per-position violation contribution (0 where satisfied)."""
         r = self.fn(pos)
         if self.kind == "eq":
-            return torch.clamp(torch.abs(r) - self.tol, min=0.0)
+            return torch.clamp(torch.abs(r) - weak(self.tol, r.dtype),
+                               min=0.0)
         return torch.clamp(r, min=0.0)
 
 
@@ -193,12 +195,27 @@ def repair_init_positions(cset: ConstraintSet, viol_fn: Callable,
 # Ready-made operators and the sphere-on-simplex problems.
 # ---------------------------------------------------------------------------
 
+def _cumsum(u: Tensor) -> Tensor:
+    """The prefix sums over the last axis as the reference's
+    ``jnp.cumsum`` takes them: in a dtype narrower than float32 each prefix
+    is rounded after every add (``torch.cumsum`` accumulates in float32 and
+    rounds each prefix once, which disagreed on most bfloat16 rows near
+    the simplex); ``torch.cumsum`` in wider dtypes."""
+    if u.dtype not in LOW_PRECISION:
+        return torch.cumsum(u, dim=-1)
+    terms = u.unbind(-1)
+    out = [terms[0]]
+    for t in terms[1:]:
+        out.append(out[-1] + t)
+    return torch.stack(out, -1)
+
+
 def project_simplex(pos: Tensor, radius: float = 1.0) -> Tensor:
     """Euclidean projection of ``pos[..., D]`` onto the simplex
     ``{x : x >= 0, sum(x) = radius}`` (Duchi et al. 2008, sort-based)."""
     d = pos.shape[-1]
     u = torch.sort(pos, dim=-1, descending=True).values
-    css = torch.cumsum(u, dim=-1) - radius
+    css = _cumsum(u) - weak(radius, pos.dtype)
     k = torch.arange(1, d + 1, dtype=pos.dtype, device=pos.device)
     rho = torch.sum((u - css / k > 0).to(torch.int32), dim=-1)
     rho = torch.clamp(rho, min=1)                      # numerical guard
@@ -208,7 +225,7 @@ def project_simplex(pos: Tensor, radius: float = 1.0) -> Tensor:
 
 
 def _simplex_sum(x):
-    return torch.sum(x, dim=-1) - 1.0
+    return sum_f32(x) - weak(1.0, x.dtype)
 
 
 def _simplex_nonneg(x):
@@ -223,7 +240,7 @@ def simplex_constraints(tol: float = 1e-5) -> Tuple[Constraint, ...]:
 
 def _sphere_obj(x):
     """The sphere in the problem's own (minimization) sense."""
-    return torch.sum(x * x, dim=-1)
+    return sum_f32(x * x)
 
 
 # Minimize ||x||^2 on the probability simplex (optimum x_i = 1/D, f = 1/D),
@@ -245,9 +262,9 @@ SPHERE_SIMPLEX_PENALTY = register_problem(Problem(
 # ---------------------------------------------------------------------------
 
 _REDUCERS = {
-    "sum": lambda x: torch.sum(x, dim=-1),
-    "norm": lambda x: torch.sqrt(torch.sum(x * x, dim=-1)),
-    "norm2": lambda x: torch.sum(x * x, dim=-1),
+    "sum": sum_f32,
+    "norm": lambda x: torch.sqrt(sum_f32(x * x)),
+    "norm2": lambda x: sum_f32(x * x),
     "min": lambda x: torch.amin(x, dim=-1),
     "max": lambda x: torch.amax(x, dim=-1),
 }

@@ -188,6 +188,7 @@ class Problem:
             fn = self.fn
             neg = self.sense == "min"
             if penalized:
+                from .fitness import weak
                 viol = cset.violation_fn()
                 weight = cset.weight
 
@@ -195,7 +196,7 @@ class Problem:
                     f = fn(pos)
                     if neg:
                         f = -f
-                    return f - weight * viol(pos)
+                    return f - weak(weight, f.dtype) * viol(pos)
 
                 cached.__name__ = f"penalized_{getattr(fn, '__name__', 'fn')}"
             else:

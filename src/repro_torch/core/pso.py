@@ -45,7 +45,7 @@ from .. import _device
 from . import rng
 from .blocking import default_block_count
 from .constraints import deb_improved, repair_init_positions
-from .fitness import weak
+from .fitness import LOW_PRECISION, weak
 from .problem import Bound, Problem, broadcast_bounds, resolve_problem
 from .topology import block_neighbor_best
 from .update_rules import TOPOLOGIES, resolve_rule
@@ -318,17 +318,21 @@ def _advance(cfg: PSOConfig, s: SwarmState, index_offset: int = 0,
     idx = _particle_index(n, d, dev, index_offset)
     r1 = rng.uniform(sd, it, STREAM_R1, idx, dtype=dt)
     r2 = rng.uniform(sd, it, STREAM_R2, idx, dtype=dt)
-    w, c1, c2 = ((cfg.w, cfg.c1, cfg.c2) if coeffs is None
-                 else (_per_row(c, 2) for c in coeffs))
+    # Python constants enter as the reference's weak typing makes them
+    # (rounded in bfloat16), as in the kernels' plain versions
+    w, c1, c2 = ((weak(cfg.w, dt), weak(cfg.c1, dt), weak(cfg.c2, dt))
+                 if coeffs is None else (_per_row(c, 2) for c in coeffs))
+    span = None
     if hetero is None:
-        lo = _bound_operand(cfg.min_pos, dt, dev)
-        hi = _bound_operand(cfg.max_pos, dt, dev)
-        mv = _bound_operand(cfg.max_v, dt, dev)
+        lo, hi, mv = (weak(_bound_operand(v, dt, dev), dt)
+                      for v in (cfg.min_pos, cfg.max_pos, cfg.max_v))
+        if dt in LOW_PRECISION and not isinstance(lo, Tensor):
+            span = weak(cfg.max_pos - cfg.min_pos, dt)
     else:
         lo, hi, mv = (x.unsqueeze(-2) for x in hetero[1][1:])
     pos, vel = resolve_rule(cfg.update_rule).advance(
         r1, r2, s.pos, s.vel, s.pbest_pos, gbp, w=w, c1=c1, c2=c2,
-        mv=mv, lo=lo, hi=hi)
+        mv=mv, lo=lo, hi=hi, span=span)
     if hetero is not None:
         return pos, vel, _hetero_fitness(hetero[0], hetero[1].fid, pos)
     proj = cfg.problem.projection_fn

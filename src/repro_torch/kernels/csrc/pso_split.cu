@@ -53,10 +53,13 @@
 // each copies its own slice of the D rows; a
 // rank compacts the block's groups of four lanes with an improving lane
 // into shared memory with a warp ballot, then all its threads stride over
-// (row, group) pairs, four pairs in flight a thread, each one float4 of
-// pos merged with the float4 of pbest_pos where not all four lanes
-// improved, so every write is a whole 16 bytes (a lane at a time where
-// the rows are not 16-byte aligned). The queue's 64-bit key is reduced
+// (row, group) pairs, four pairs in flight a thread, each group's four
+// lanes of pos in one access merged with pbest_pos's where not all four
+// lanes improved, so every write is whole: a float4, 16 bytes, in float;
+// in bfloat16 the same groups of four lanes in 8-byte accesses (a uint2,
+// two lanes a word), which keeps the ballot, the masks and the
+// compaction of the float kernel (a lane at a time where the rows are not
+// aligned to four lanes). The queue's 64-bit key is reduced
 // over each warp by shuffles, then one shared atomicMax a warp. The
 // cross-block stage needs no launch of its own and no co-resident CTAs:
 // no CTA ever waits for another; the last to arrive publishes (the
@@ -72,11 +75,29 @@
 // [members, 4, D] (lo, hi, max_v, span) and fids[S] (null: member 0).
 // seeds[S] and its[S] are uint32 counters; the advance of iteration
 // its[s] + it_off + 1 draws at element index particle*D + dim, local to the
-// swarm, as every engine of the port does. float32 only.
+// swarm, as every engine of the port does.
+//
+// Storage types: the swarm's arrays (pos, vel, pbest, the fitnesses and
+// violations, the bests, the async locals, aux_fit and the lbest scratch)
+// are of type T, float, or __nv_bfloat16 in the library built from this
+// source with -DPSO_T_BF16 (kernels/_build.py VARIANTS); the bounds table
+// is float in both, holding values of T. A value is widened to float when
+// it is loaded. In bfloat16 the advance computes what the reference's
+// kernels compute in that dtype (ROADMAP, parity contract, "bfloat16"):
+// every operation's result rounded to bfloat16 (q<T>), the coefficients
+// the host's rounded values, the draw (h >> 8) rounded to bfloat16 before
+// its exact scaling (so it may be 1.0). The fold only compares widened
+// values (exact) and copies: the queue keys come from the widened
+// fitness, so the order and the first-lane tie-break are float's. For
+// float, q<T> and widen are the identity, and the float kernels compute
+// what they computed before T was a parameter.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -86,7 +107,7 @@ constexpr uint32_t kStreamR1 = 2u, kStreamR2 = 3u;
 constexpr int kFoldThreads = 512;
 constexpr int kAdvanceThreads = 256;
 // (row, entry) pairs a thread of the fold's pbest copies has in flight:
-// float4 entries (four lanes) and single-lane ones.
+// four-lane entries (Quad<T>) and single-lane ones.
 constexpr int kCopyUnroll4 = 4, kCopyUnroll1 = 8;
 // The largest cluster a particle block runs on (FOLD_CLUSTERS in
 // pso_split.py: the sizes chip_smoke.py phase 6c measures).
@@ -98,7 +119,68 @@ constexpr int kQueue = 0, kFused = 1, kAsync = 2;
 // call).
 constexpr int kActNone = 0, kActSync = 1;
 
-struct Coef { float w, c1, c2, k0, k1, k2; };
+struct Coef { float w, c1, c2, k0, k1, k2; };   // values of T
+
+// ---- storage types (the header's "Storage types") ---------------------------
+#ifdef PSO_T_BF16
+using Store = __nv_bfloat16;
+#else
+using Store = float;
+#endif
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T narrow(float x) {
+  if constexpr (std::is_same<T, float>::value) return x;
+  else return __float2bfloat16_rn(x);
+}
+// x rounded to T (to nearest even) and widened again.
+template <typename T>
+__device__ __forceinline__ float q(float x) {
+  return widen(narrow<T>(x));
+}
+// A load past L1 (what other blocks wrote in this launch), as T.
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldcg(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// Four lanes of T in one access, and one lane's bits: a float4 and float,
+// or for bfloat16 a uint2 (two lanes a word, the lower lane in the low
+// half) and unsigned short. merge keeps the lanes of v whose bit is set in
+// m and takes the others from p.
+template <typename T>
+struct Quad;
+template <>
+struct Quad<float> {
+  using V = float4;
+  using S = float;
+  __device__ static __forceinline__ V merge(V v, const V& p, int m) {
+    v.x = m & 1 ? v.x : p.x;
+    v.y = m & 2 ? v.y : p.y;
+    v.z = m & 4 ? v.z : p.z;
+    v.w = m & 8 ? v.w : p.w;
+    return v;
+  }
+};
+template <>
+struct Quad<__nv_bfloat16> {
+  using V = uint2;
+  using S = unsigned short;
+  __device__ static __forceinline__ V merge(V v, const V& p, int m) {
+    const unsigned m0 =
+        (m & 1 ? 0x0000FFFFu : 0u) | (m & 2 ? 0xFFFF0000u : 0u);
+    const unsigned m1 =
+        (m & 4 ? 0x0000FFFFu : 0u) | (m & 8 ? 0xFFFF0000u : 0u);
+    v.x = (v.x & m0) | (p.x & ~m0);
+    v.y = (v.y & m1) | (p.y & ~m1);
+    return v;
+  }
+};
 
 // ---- counter hash: repro_torch/core/rng.py, bit for bit -------------------
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -106,36 +188,42 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
+// In bfloat16 the 24 bits are rounded to bfloat16 (to nearest even) before
+// the exact scaling, as the reference's (h >> 8).astype(dtype) * 2**-24.
+template <typename T>
 __device__ __forceinline__ float uniform01(uint32_t seed, uint32_t it,
                                            uint32_t stream, uint32_t idx) {
   uint32_t h = seed * 0x9E3779B9u + it * 0x85EBCA6Bu + stream * 0xC2B2AE35u +
                idx * 0x27D4EB2Fu;
   h = mix32(h);
   h = mix32(h ^ (idx * 0x9E3779B9u + it * 0xC2B2AE35u));
-  return __fmul_rn((float)(h >> 8), 1.0f / 16777216.0f);
+  return __fmul_rn(q<T>((float)(h >> 8)), 1.0f / 16777216.0f);
 }
 
 // ---- the three update rules (core/update_rules.py) -------------------------
-template <int R>
+// Each operation rounds to T (q<T>, the identity for float).
+template <int R, typename T>
 __device__ __forceinline__ void advance(const Coef& p, float r1, float r2,
                                         float& x, float& v, float pb, float g,
                                         float lo, float hi, float mv,
                                         float span) {
   if (R == 0) {          // pso: v = w v + c1 r1 (pb - x) + c2 r2 (g - x)
-    const float a = __fmul_rn(p.w, v);
-    const float b = __fmul_rn(__fmul_rn(p.c1, r1), __fsub_rn(pb, x));
-    const float c = __fmul_rn(__fmul_rn(p.c2, r2), __fsub_rn(g, x));
-    v = fminf(fmaxf(__fadd_rn(__fadd_rn(a, b), c), -mv), mv);
-    x = fminf(fmaxf(__fadd_rn(x, v), lo), hi);
+    const float a = q<T>(__fmul_rn(p.w, v));
+    const float b = q<T>(__fmul_rn(q<T>(__fmul_rn(p.c1, r1)),
+                                   q<T>(__fsub_rn(pb, x))));
+    const float c = q<T>(__fmul_rn(q<T>(__fmul_rn(p.c2, r2)),
+                                   q<T>(__fsub_rn(g, x))));
+    v = fminf(fmaxf(q<T>(__fadd_rn(q<T>(__fadd_rn(a, b)), c)), -mv), mv);
+    x = fminf(fmaxf(q<T>(__fadd_rn(x, v)), lo), hi);
   } else if (R == 1) {   // sso: copy from gbest / pbest / keep / resample
-    const float fresh = __fadd_rn(lo, __fmul_rn(span, r2));
+    const float fresh = q<T>(__fadd_rn(lo, q<T>(__fmul_rn(span, r2))));
     x = r1 < p.k0 ? g : (r1 < p.k1 ? pb : (r1 < p.k2 ? x : fresh));
     x = fminf(fmaxf(x, lo), hi);
   } else {               // lowcost: Bernoulli-selected difference terms
-    const float a = r1 < 0.5f ? __fsub_rn(pb, x) : 0.0f;
-    const float b = r2 < 0.5f ? __fsub_rn(g, x) : 0.0f;
-    v = fminf(fmaxf(__fadd_rn(__fadd_rn(v, a), b), -mv), mv);
-    x = fminf(fmaxf(__fadd_rn(x, v), lo), hi);
+    const float a = r1 < 0.5f ? q<T>(__fsub_rn(pb, x)) : 0.0f;
+    const float b = r2 < 0.5f ? q<T>(__fsub_rn(g, x)) : 0.0f;
+    v = fminf(fmaxf(q<T>(__fadd_rn(q<T>(__fadd_rn(v, a)), b)), -mv), mv);
+    x = fminf(fmaxf(q<T>(__fadd_rn(x, v)), lo), hi);
   }
 }
 
@@ -168,7 +256,7 @@ __device__ __forceinline__ int neighbor_id(int b, int nb, int topo, int rows,
   }
 }
 
-// Deb's rule (core/constraints.py deb_improved).
+// Deb's rule (core/constraints.py deb_improved), on widened values.
 __device__ __forceinline__ bool deb_improved(float fn, float vn, float fo,
                                              float vo) {
   const bool a = vn <= 0.0f, b = vo <= 0.0f;
@@ -180,10 +268,10 @@ __device__ __forceinline__ bool deb_improved(float fn, float vn, float fo,
 // neighbouring threads touch neighbouring columns of one row. The attractor
 // of column col is column col / gdiv of the attractor array (gdiv = N: gp, one
 // column a swarm; gdiv = bn: lp, one column a particle block).
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(kAdvanceThreads) split_advance_kernel(
-    float* __restrict__ pos, float* __restrict__ vel,
-    const float* __restrict__ pbp, const float* __restrict__ attractor,
+    T* __restrict__ pos, T* __restrict__ vel,
+    const T* __restrict__ pbp, const T* __restrict__ attractor,
     const float* __restrict__ bounds, const int* __restrict__ fids,
     const uint32_t* __restrict__ seeds, const uint32_t* __restrict__ its,
     int n, int d, int s_cnt, int gdiv, uint32_t it_off, Coef cf) {
@@ -199,40 +287,41 @@ __global__ void __launch_bounds__(kAdvanceThreads) split_advance_kernel(
     const float* b = bounds + (size_t)(fids ? fids[s] : 0) * 4 * d;
     const uint32_t it = its[s] + it_off + 1u;
     const uint32_t idx = (uint32_t)i * (uint32_t)d + (uint32_t)k;
-    const float r1 = uniform01(seeds[s], it, kStreamR1, idx);
-    const float r2 = uniform01(seeds[s], it, kStreamR2, idx);
-    float x = pos[e], v = vel[e];
-    advance<R>(cf, r1, r2, x, v, pbp[e],
-               attractor[(size_t)k * gld + col / gdiv], b[k], b[d + k],
-               b[2 * d + k], b[3 * d + k]);
-    pos[e] = x;
-    vel[e] = v;
+    const float r1 = uniform01<T>(seeds[s], it, kStreamR1, idx);
+    const float r2 = uniform01<T>(seeds[s], it, kStreamR2, idx);
+    float x = widen(pos[e]), v = widen(vel[e]);
+    advance<R, T>(cf, r1, r2, x, v, widen(pbp[e]),
+                  widen(attractor[(size_t)k * gld + col / gdiv]), b[k],
+                  b[d + k], b[2 * d + k], b[3 * d + k]);
+    pos[e] = narrow<T>(x);
+    vel[e] = narrow<T>(v);
   }
 }
 
 // ---- split_fold_publish_kernel --------------------------------------------
 // Everything the kernel reads and writes; null pointers for what a mode
-// does not use (kernels/pso_split.py fold_publish).
+// does not use (kernels/pso_split.py fold_publish). T: the storage type.
+template <typename T>
 struct FoldArgs {
-  const float* pos;
-  float* pbp;
-  float* pbf;
-  float* pbv;
-  const float* fit;
-  const float* viol;
-  float* gp;
-  float* gf;
-  float* lp;
-  float* lf;
+  const T* pos;
+  T* pbp;
+  T* pbf;
+  T* pbv;
+  const T* fit;
+  const T* viol;
+  T* gp;
+  T* gf;
+  T* lp;
+  T* lf;
   unsigned long long* keys;
-  float* aux_fit;
+  T* aux_fit;
   int* aux_idx;
   int* counts;
   const int* act;
   int* arrive;
-  float* scratch;
+  T* scratch;
   int n, d, bn, s_cnt, mode, topo, rows, cols, csize;
-  int vec4;                 // the copies in float4 (copy_columns<true>)
+  int vec4;                 // the copies four lanes at a time (Quad<T>)
 };
 
 __device__ __forceinline__ void fence_acq_rel_gpu() {
@@ -248,24 +337,26 @@ __device__ __forceinline__ void cluster_sync(int csize) {
 
 // Rows [k0, k1) of the block's pbest copies (pos into pbp), from the `m`
 // entries s_cols[0..m) the ballot compacted: (lane << 4) | its mask of
-// improving lanes. V4: an entry is four lanes, one float4 a row, and
-// where not all four improved the pbest float4 is read too and merged,
-// so every write is a whole 16 bytes; else an entry is one lane. The
+// improving lanes. V4: an entry is four lanes, one Quad<T> access a row,
+// and where not all four improved the pbest lanes are read too and
+// merged, so every write is whole; else an entry is one lane. The
 // CTA's threads stride over the (row, entry) pairs, the entry fastest, so
 // a warp's neighbouring threads touch neighbouring columns of one row;
 // several pairs' loads are issued before their stores.
-template <bool V4>
-__device__ __forceinline__ void copy_columns(const FoldArgs& a,
+template <bool V4, typename T>
+__device__ __forceinline__ void copy_columns(const FoldArgs<T>& a,
                                              const int* s_cols, int m,
                                              int base, int k0, int k1,
                                              size_t ld) {
+  using V = typename Quad<T>::V;
+  using S = typename Quad<T>::S;
   constexpr int U = V4 ? kCopyUnroll4 : kCopyUnroll1;
   const int rows = k1 - k0, nt = blockDim.x;
   if (m == 0 || rows <= 0) return;
   int j = threadIdx.x % m, k = threadIdx.x / m;
   const int dj = nt % m, dk = nt / m;
   while (k < rows) {
-    float4 v[U], p[U];
+    V v[U], p[U];
     size_t o[U];
     int msk[U];
     bool in[U];
@@ -277,11 +368,11 @@ __device__ __forceinline__ void copy_columns(const FoldArgs& a,
       o[u] = (size_t)(k0 + k) * ld + base + (ent >> 4);
       if (in[u]) {
         if (V4) {
-          v[u] = *reinterpret_cast<const float4*>(a.pos + o[u]);
+          v[u] = *reinterpret_cast<const V*>(a.pos + o[u]);
           if (msk[u] != 15)
-            p[u] = *reinterpret_cast<const float4*>(a.pbp + o[u]);
+            p[u] = *reinterpret_cast<const V*>(a.pbp + o[u]);
         } else {
-          v[u].x = a.pos[o[u]];
+          v[u].x = *reinterpret_cast<const S*>(a.pos + o[u]);
         }
       }
       j += dj;
@@ -295,27 +386,23 @@ __device__ __forceinline__ void copy_columns(const FoldArgs& a,
     for (int u = 0; u < U; ++u) {
       if (!in[u]) continue;
       if (V4) {
-        if (msk[u] != 15) {
-          v[u].x = msk[u] & 1 ? v[u].x : p[u].x;
-          v[u].y = msk[u] & 2 ? v[u].y : p[u].y;
-          v[u].z = msk[u] & 4 ? v[u].z : p[u].z;
-          v[u].w = msk[u] & 8 ? v[u].w : p[u].w;
-        }
-        *reinterpret_cast<float4*>(a.pbp + o[u]) = v[u];
+        if (msk[u] != 15) v[u] = Quad<T>::merge(v[u], p[u], msk[u]);
+        *reinterpret_cast<V*>(a.pbp + o[u]) = v[u];
       } else {
-        a.pbp[o[u]] = v[u].x;
+        *reinterpret_cast<S*>(a.pbp + o[u]) = (S)v[u].x;
       }
     }
   }
 }
 
-__device__ __forceinline__ void copy_rows(const FoldArgs& a,
+template <typename T>
+__device__ __forceinline__ void copy_rows(const FoldArgs<T>& a,
                                           const int* s_cols, int m, int base,
                                           int k0, int k1, size_t ld) {
   if (a.vec4)
-    copy_columns<true>(a, s_cols, m, base, k0, k1, ld);
+    copy_columns<true, T>(a, s_cols, m, base, k0, k1, ld);
   else
-    copy_columns<false>(a, s_cols, m, base, k0, k1, ld);
+    copy_columns<false, T>(a, s_cols, m, base, k0, k1, ld);
 }
 
 // The cross-block stage of swarm s, run by the rank-0 CTA of the swarm's
@@ -331,8 +418,9 @@ __device__ __forceinline__ void copy_rows(const FoldArgs& a,
 // >), all read before any is written, so the swarm's locals are first
 // copied to `scratch` ([D+1, S*nb]: lp's rows, then lf) and read from
 // there. What other blocks wrote in this launch (keys, lp, lf) is read
-// from L2 (__ldcg): a line of it may sit stale in this SM's L1.
-__device__ void publish_swarm(const FoldArgs& a, int s, int nb,
+// from L2 (ldcg): a line of it may sit stale in this SM's L1.
+template <typename T>
+__device__ void publish_swarm(const FoldArgs<T>& a, int s, int nb,
                               unsigned long long* s_key) {
   const int n = a.n, d = a.d, s_cnt = a.s_cnt;
   const size_t ld = (size_t)s_cnt * n;
@@ -352,20 +440,20 @@ __device__ void publish_swarm(const FoldArgs& a, int s, int nb,
   const int act = a.act[s];
   if (act == kActNone) return;
   const size_t lld = (size_t)s_cnt * nb;
-  float* lp = a.lp;
-  float* lf = a.lf;
+  T* lp = a.lp;
+  T* lf = a.lf;
   if (threadIdx.x == 0) *s_key = 0ull;
   __syncthreads();
   for (int j = threadIdx.x; j < nb; j += blockDim.x)
-    atomicMax(s_key, make_key(__ldcg(lf + s * nb + j), j));
+    atomicMax(s_key, make_key(widen(ldcg(lf + s * nb + j)), j));
   __syncthreads();
   const int slot = s * nb + key_index(*s_key);
-  const float old = a.gf[s];
-  const float bf = __ldcg(lf + slot);
-  const bool take = bf > old;
+  const T old = a.gf[s];
+  const T bf = ldcg(lf + slot);
+  const bool take = widen(bf) > widen(old);
   if (take) {
     for (int k = threadIdx.x; k < d; k += blockDim.x)
-      a.gp[(size_t)k * s_cnt + s] = __ldcg(lp + (size_t)k * lld + slot);
+      a.gp[(size_t)k * s_cnt + s] = ldcg(lp + (size_t)k * lld + slot);
   }
   __syncthreads();                     // every thread has read old and bf
   if (threadIdx.x == 0 && take) {
@@ -374,23 +462,23 @@ __device__ void publish_swarm(const FoldArgs& a, int s, int nb,
   }
   if (act != kActSync) return;
   if (a.topo) {
-    float* scratch = a.scratch;
-    const float* slf = scratch + (size_t)d * lld;
+    T* scratch = a.scratch;
+    const T* slf = scratch + (size_t)d * lld;
     for (int e = threadIdx.x; e < nb * (d + 1); e += blockDim.x) {
       const int k = e / nb, j = e - k * nb;
       scratch[(size_t)k * lld + s * nb + j] =
-          k < d ? __ldcg(lp + (size_t)k * lld + s * nb + j)
-                : __ldcg(lf + s * nb + j);
+          k < d ? ldcg(lp + (size_t)k * lld + s * nb + j)
+                : ldcg(lf + s * nb + j);
     }
     __syncthreads();
     const int nbrs = a.topo == kRing ? 2 : 4;
     for (int e = threadIdx.x; e < nb * (d + 1); e += blockDim.x) {
       const int k = e / nb, j = e - k * nb;
       int w = j;
-      float best = slf[s * nb + j];
+      T best = slf[s * nb + j];
       for (int q = 0; q < nbrs; ++q) {
         const int o = neighbor_id(j, nb, a.topo, a.rows, a.cols, q);
-        if (slf[s * nb + o] > best) {
+        if (widen(slf[s * nb + o]) > widen(best)) {
           best = slf[s * nb + o];
           w = o;
         }
@@ -403,7 +491,7 @@ __device__ void publish_swarm(const FoldArgs& a, int s, int nb,
     }
     return;
   }
-  const float g = take ? bf : old;
+  const T g = take ? bf : old;
   for (int e = threadIdx.x; e < nb * d; e += blockDim.x) {
     const int k = e / nb, j = e - k * nb;
     lp[(size_t)k * lld + s * nb + j] = a.gp[(size_t)k * s_cnt + s];
@@ -436,8 +524,9 @@ __device__ void publish_swarm(const FoldArgs& a, int s, int nb,
 // the swarm is done with them. The last chunk's copies are issued while
 // the arrival's atomic is in flight and before the publish: the publish
 // reads no pbest, and the fence before the arrival waits for no copy.
+template <typename T>
 __global__ void __launch_bounds__(kFoldThreads)
-    split_fold_publish_kernel(FoldArgs a) {
+    split_fold_publish_kernel(FoldArgs<T> a) {
   __shared__ int s_cols[kFoldThreads];
   __shared__ unsigned long long s_key;
   __shared__ int s_m, s_any, s_last;
@@ -454,7 +543,7 @@ __global__ void __launch_bounds__(kFoldThreads)
   const int t = threadIdx.x, nt = blockDim.x;
   const unsigned lane_lt = (1u << (t & 31)) - 1u;
   float g = 0.0f;
-  if (lead) g = a.mode == kAsync ? a.lf[blk] : a.gf[s];
+  if (lead) g = widen(a.mode == kAsync ? a.lf[blk] : a.gf[s]);
   if (t == 0) {
     s_key = 0ull;
     s_m = 0;
@@ -469,12 +558,12 @@ __global__ void __launch_bounds__(kFoldThreads)
     bool imp = false;
     float f = 0.0f, v = 0.0f;
     if (l < a.bn) {
-      f = a.fit[col];
+      f = widen(a.fit[col]);
       if (a.viol) {
-        v = a.viol[col];
-        imp = deb_improved(f, v, a.pbf[col], a.pbv[col]);
+        v = widen(a.viol[col]);
+        imp = deb_improved(f, v, widen(a.pbf[col]), widen(a.pbv[col]));
       } else {
-        imp = f > a.pbf[col];
+        imp = f > widen(a.pbf[col]);
       }
       if (lead && f > g) {                  // the queue
         const unsigned long long kk = make_key(f, b * a.bn + l);
@@ -493,9 +582,9 @@ __global__ void __launch_bounds__(kFoldThreads)
     if (has) s_cols[at + __popc(hm & lane_lt)] = ent;
     cluster_sync(csize);   // s_cols whole; every rank has read pbf (pbv)
     m = s_m;
-    if (lead && imp) {
-      a.pbf[col] = f;
-      if (a.viol) a.pbv[col] = v;
+    if (lead && imp) {                // widened from T: exact
+      a.pbf[col] = narrow<T>(f);
+      if (a.viol) a.pbv[col] = narrow<T>(v);
     }
     if (lead && t == 0 && m) s_any = 1;
     if (c0 + nt < a.bn) {           // not the last chunk: its copies now
@@ -527,7 +616,8 @@ __global__ void __launch_bounds__(kFoldThreads)
   if (a.mode == kQueue) {
     if (t == 0) {
       const int w = key ? key_index(key) : b * a.bn;
-      a.aux_fit[blk] = key ? a.fit[s * a.n + w] : -__int_as_float(0x7f800000);
+      a.aux_fit[blk] = key ? a.fit[s * a.n + w]
+                           : narrow<T>(-__int_as_float(0x7f800000));
       a.aux_idx[blk] = w;
     }
   } else {
@@ -561,13 +651,13 @@ __global__ void __launch_bounds__(kFoldThreads)
   if (s_last) publish_swarm(a, s, nb, &s_key);
 }
 
-typedef void (*AdvanceKernel)(float*, float*, const float*, const float*,
+typedef void (*AdvanceKernel)(Store*, Store*, const Store*, const Store*,
                               const float*, const int*, const uint32_t*,
                               const uint32_t*, int, int, int, int, uint32_t,
                               Coef);
-const AdvanceKernel kAdvance[3] = {split_advance_kernel<0>,
-                                   split_advance_kernel<1>,
-                                   split_advance_kernel<2>};
+const AdvanceKernel kAdvance[3] = {split_advance_kernel<0, Store>,
+                                   split_advance_kernel<1, Store>,
+                                   split_advance_kernel<2, Store>};
 
 int grid_for(size_t total) {
   // Enough CTAs to fill the card many times over; the loop strides past.
@@ -581,9 +671,10 @@ extern "C" {
 
 // One advance of every element of the [D, S*N] state (iteration
 // its[s] + it_off + 1 of swarm s) with rule `rule`; the attractor of
-// column col is column col / gdiv of `attractor`.
-int pso_split_advance(float* pos, float* vel, const float* pbp,
-                      const float* attractor, const float* bounds,
+// column col is column col / gdiv of `attractor`. The arrays are of the
+// library's storage type, the coefficients its values.
+int pso_split_advance(Store* pos, Store* vel, const Store* pbp,
+                      const Store* attractor, const float* bounds,
                       const int* fids, const unsigned* seeds,
                       const unsigned* its, int n, int d, int s_cnt, int gdiv,
                       unsigned it_off, int rule, float w, float c1, float c2,
@@ -612,12 +703,12 @@ int pso_split_advance(float* pos, float* vel, const float* pbp,
 // cluster of csize CTAs (1 or 2). viol and pbv null: the raw fold;
 // counts null: no counting. A refused launch is returned, never retried
 // another way.
-int pso_split_fold_publish(const float* pos, float* pbp, float* pbf,
-                           float* pbv, const float* fit, const float* viol,
-                           float* gp, float* gf, float* lp, float* lf,
-                           unsigned long long* keys, float* aux_fit,
+int pso_split_fold_publish(const Store* pos, Store* pbp, Store* pbf,
+                           Store* pbv, const Store* fit, const Store* viol,
+                           Store* gp, Store* gf, Store* lp, Store* lf,
+                           unsigned long long* keys, Store* aux_fit,
                            int* aux_idx, int* counts, const int* act,
-                           int* arrive, float* scratch, int n, int d, int bn,
+                           int* arrive, Store* scratch, int n, int d, int bn,
                            int s_cnt, int mode, int topo, int rows, int cols,
                            int csize, void* stream) {
   const bool pub = mode == kFused || mode == kAsync;
@@ -634,17 +725,20 @@ int pso_split_fold_publish(const float* pos, float* pbp, float* pbf,
       (size_t)s_cnt * n >= (1u << 31) ||
       (size_t)s_cnt * (n / bn) * csize >= (1u << 31))
     return (int)cudaErrorInvalidValue;
-  // float4 copies where every row's block starts on 16 bytes
+  // copies four lanes at a time where every row's block starts on four
+  // lanes' bytes (16 in float, 8 in bfloat16)
   const int vec4 = n % 4 == 0 && bn % 4 == 0 &&
-                   ((uintptr_t)pos | (uintptr_t)pbp) % 16 == 0;
-  const FoldArgs a{pos, pbp, pbf, pbv, fit, viol, gp, gf, lp, lf, keys,
-                   aux_fit, aux_idx, counts, act, arrive, scratch, n, d, bn,
-                   s_cnt, mode, topo, rows, cols, csize, vec4};
+                   ((uintptr_t)pos | (uintptr_t)pbp) % (4 * sizeof(Store)) ==
+                       0;
+  const FoldArgs<Store> a{pos, pbp, pbf, pbv, fit, viol, gp, gf, lp, lf,
+                          keys, aux_fit, aux_idx, counts, act, arrive,
+                          scratch, n, d, bn, s_cnt, mode, topo, rows, cols,
+                          csize, vec4};
   const int threads = bn < kFoldThreads ? (bn + 31) / 32 * 32 : kFoldThreads;
   const unsigned blocks = (unsigned)(s_cnt * (n / bn) * csize);
   if (csize == 1) {
-    split_fold_publish_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        a);
+    split_fold_publish_kernel<Store>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -659,8 +753,8 @@ int pso_split_fold_publish(const float* pos, float* pbp, float* pbf,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, split_fold_publish_kernel,
-                                             a);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, split_fold_publish_kernel<Store>, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

@@ -78,20 +78,17 @@ CONVERTED = -1
 
 def kernel_spec(cfg: PSOConfig) -> KernelSpec:
     """Static kernel operands from a config: a built-in objective's id, or
-    ``CONVERTED`` for any other Problem (the split path). The built-ins'
-    kernels take float32 and bfloat16, the split path float32 only."""
+    ``CONVERTED`` for any other Problem (the split path). The kernels, the
+    built-ins' and the split path's, take float32 and bfloat16 (a
+    heterogeneous table float32 only: the wrappers refuse it,
+    ``pso_step.check_hetero``)."""
     cfg = cfg.resolved()
     if cfg.dtype not in ("float32", "bfloat16"):
         reason = (" (the reference's float16 draw, (h >> 8) in float16, "
                   "overflows to inf)" if cfg.dtype == "float16" else "")
-        raise ValueError(f"the kernels take float32 and, for the built-in "
-                         f"objectives, bfloat16; not {cfg.dtype}{reason}")
+        raise ValueError(f"the kernels take float32 and bfloat16, not "
+                         f"{cfg.dtype}{reason}")
     prob = cfg.problem
-    if cfg.dtype != "float32" and not is_builtin(prob):
-        raise ValueError(
-            f"the split path's kernels (custom and constrained Problems, "
-            f"here {prob.name!r}) take float32 only, not {cfg.dtype}: use "
-            f"dtype='float32' or backend='eager'")
     fid = FITNESS_IDS[prob.name] if is_builtin(prob) else CONVERTED
     return KernelSpec(fitness=fid, rule=cfg.update_rule,
                       w=cfg.w, c1=cfg.c1, c2=cfg.c2, lo=cfg.min_pos,
@@ -174,7 +171,8 @@ def _pbv(cfg: PSOConfig, fids, pbest_pos) -> Optional[torch.Tensor]:
     prob = cfg.problem
     if fids is not None or not prob.deb:
         return None
-    return prob.violation_fn(pbest_pos).reshape(-1).contiguous()
+    return prob.violation_fn(pbest_pos).reshape(-1).to(
+        pbest_pos.dtype).contiguous()
 
 
 def _split_step(cfg, state, seeds, its, specs, table, fids, n: int,

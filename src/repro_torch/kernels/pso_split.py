@@ -53,15 +53,27 @@ Arrays are D-major as in ``pso_step``: ``pos``/``vel``/``pbp`` ``[D, S*N]``,
 ``pbf``/``pbv``/``fit``/``viol`` ``[S*N]``, ``gp`` ``[D, S]``, ``gf``
 ``[S]``, ``lp`` ``[D, S*nb]``, ``lf`` ``[S*nb]``, ``seeds``/``its`` int64
 ``[S]``, ``keys`` int64 ``[S]`` (the uint64 queue keys' bits), ``act`` and
-``arrive`` int32 ``[S]``. A heterogeneous batch takes a table of
-``KernelSpec`` members and ``fids[S]`` into it.
+``arrive`` int32 ``[S]``. The float operands are of the state's dtype,
+float32 or bfloat16, a library each (``csrc/pso_split.cu``; bfloat16 with
+``-DPSO_T_BF16``, built at its first launch). A heterogeneous batch takes
+a table of ``KernelSpec`` members and ``fids[S]`` into it, in float32
+only.
+
+In bfloat16 the plain versions compute what the reference's converted
+kernels compute in that dtype (ROADMAP, parity contract, "bfloat16"): the
+advance as ``pso_step``'s plain versions round it (the draws, bounds and
+coefficients of the dtype, every operation rounded); the fold and the
+publish only compare and copy, and the queue keys come from the fitness
+widened to float32, which is exact. The user's functions round as their
+own code does.
 
 ``split_advance_plain`` is the advance's plain version; ``split_fold_plain``
 followed (outside the queue mode) by ``split_publish_plain`` is
 ``fold_publish``'s, with the kernel's operands and arithmetic. On CPU
 tensors, and only there, the wrappers run them; on CUDA tensors they launch
 the kernel or raise. Each wrapper counts its launches in
-``<wrapper>.launches``. ``fold_publish`` takes ``counts`` (int32 ``[3*S]``,
+``<wrapper>.launches`` and the bfloat16 ones also in ``.bf16_launches``
+(``pso_step.count``). ``fold_publish`` takes ``counts`` (int32 ``[3*S]``,
 or None) with the meaning of ``repro_torch.telemetry``: the fold counts
 queue updates and block improvements, and in fused mode a publication for
 each block that raised its swarm's key; the async cross-block stage counts
@@ -76,11 +88,13 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..core import rng
+from ..core.fitness import weak
 from ..core.pso import STREAM_R1, STREAM_R2
 from ..core.topology import block_neighbor_best
 from ..core.update_rules import kernel_rule_id, resolve_rule
-from .pso_step import (KernelSpec, _check, _counters, _ptrs,
-                       _rule_operands, _tables, _topology_operands)
+from .pso_step import (_VARIANT, KERNEL_DTYPES, KernelSpec, _check,
+                       _counters, _ptrs, _rule_operands, _tables,
+                       _topology_operands, check_hetero, count)
 
 Tensor = torch.Tensor
 
@@ -104,8 +118,11 @@ _U32 = 0xFFFFFFFF
 # ---------------------------------------------------------------------------
 
 def queue_keys(fit: Tensor, index: Tensor) -> Tensor:
-    """``(ordered fitness bits) << 32 | (0xFFFFFFFF - index)`` as int64."""
-    u = (fit + 0.0).view(torch.int32).to(torch.int64) & _U32   # -0 -> +0
+    """``(ordered fitness bits) << 32 | (0xFFFFFFFF - index)`` as int64,
+    from the fitness widened to float32 (exact from bfloat16, so the order
+    and the first-lane tie-break are the same in both dtypes)."""
+    # + 0.0: -0 -> +0
+    u = (fit.float() + 0.0).view(torch.int32).to(torch.int64) & _U32
     u = torch.where(u >= 2 ** 31, u ^ _U32, u | 2 ** 31)
     hi = torch.where(u >= 2 ** 31, u - 2 ** 32, u)   # the int64's high word
     return hi * 2 ** 32 + (_U32 - index.to(torch.int64))
@@ -141,7 +158,9 @@ def split_advance_plain(pos, vel, pbp, attractor, seeds, its, specs,
     """One advance of every element of the ``[D, S*N]`` state, iteration
     ``its[s] + it_off + 1`` of swarm s, against column ``col // gdiv`` of
     ``attractor``, each swarm with its member's rule, coefficients and bounds
-    (scalars stay Python floats, as in the eager engine). Returns new
+    (scalars stay Python floats, as in the eager engine), in the state's
+    dtype: in bfloat16 the draws, bounds, coefficients and every operation
+    rounded as ``pso_step``'s plain versions round them. Returns new
     (pos, vel)."""
     d, ld = pos.shape
     dev = pos.device
@@ -150,8 +169,8 @@ def split_advance_plain(pos, vel, pbp, attractor, seeds, its, specs,
     idx = (col - sw * n)[None, :] * d + torch.arange(d, device=dev)[:, None]
     seed = seeds.to(dev, torch.int64)[sw][None, :]
     it = (its.to(dev, torch.int64)[sw] + it_off + 1)[None, :]
-    r1 = rng.uniform(seed, it, STREAM_R1, idx)
-    r2 = rng.uniform(seed, it, STREAM_R2, idx)
+    r1 = rng.uniform(seed, it, STREAM_R1, idx, dtype=pos.dtype)
+    r2 = rng.uniform(seed, it, STREAM_R2, idx, dtype=pos.dtype)
     att = attractor.index_select(1, col // gdiv)
     out_pos, out_vel = torch.empty_like(pos), torch.empty_like(vel)
     for spec, cols in _member_columns(specs, fids, n, dev):
@@ -159,7 +178,7 @@ def split_advance_plain(pos, vel, pbp, attractor, seeds, its, specs,
                 else (lambda t: t.index_select(1, cols)))
         p, v = resolve_rule(spec.rule).advance(
             take(r1), take(r2), take(pos), take(vel), take(pbp), take(att),
-            **_rule_operands(spec, dev))
+            **_rule_operands(spec, dev, pos.dtype))
         if cols is None:
             out_pos, out_vel = p, v
         else:
@@ -259,11 +278,13 @@ def split_publish_plain(pos, fit, gp, gf, *, n: int, mode: str, keys=None,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _lib():
+def _lib(dtype: torch.dtype = torch.float32):
+    """The library of ``dtype``'s split kernels, built at its first use:
+    ``csrc/pso_split.cu``, in bfloat16 with ``-DPSO_T_BF16``."""
     import ctypes as c
 
     from . import _build
-    lib = _build.load("pso_split")
+    lib = _build.load("pso_split", _VARIANT[dtype])
     p, i, u, f = c.c_void_p, c.c_int, c.c_uint, c.c_float
     lib.pso_split_advance.argtypes = ([p] * 8 + [i] * 4 + [u, i] + [f] * 6
                                       + [p])
@@ -294,21 +315,27 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _validate(what: str, d: int, ld: int, n: int, nb: int, **operands):
+def _validate(what: str, d: int, ld: int, n: int, nb: int,
+              fl: torch.dtype, **operands):
     """Each given operand's shape and dtype as the kernels and the plain
     versions read them, for a state of ``ld // n`` swarms of ``n``
-    particles in ``d`` dimensions and ``nb`` blocks a swarm (a wrong size
-    would be read past its end on the card). None means absent."""
+    particles in ``d`` dimensions and ``nb`` blocks a swarm, every float
+    operand of the state's dtype ``fl`` (float32 or bfloat16, a library
+    each; a wrong size would be read past its end on the card). None means
+    absent."""
     s_cnt = ld // n
     if n < 1 or ld % n:
         raise ValueError(f"{what}: {ld} columns are not swarms of {n}")
-    f32, i32 = torch.float32, torch.int32
-    want = {"pos": ((d, ld), f32), "vel": ((d, ld), f32),
-            "pbp": ((d, ld), f32), "pbf": ((ld,), f32), "fit": ((ld,), f32),
-            "viol": ((ld,), f32), "pbv": ((ld,), f32), "gp": ((d, s_cnt), f32),
-            "gf": ((s_cnt,), f32), "lp": ((d, s_cnt * nb), f32),
-            "lf": ((s_cnt * nb,), f32), "keys": ((s_cnt,), torch.int64),
-            "aux_fit": ((s_cnt * nb,), f32), "aux_idx": ((s_cnt * nb,), i32),
+    if fl not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: the split kernels take float32 or "
+                         f"bfloat16, not {fl}")
+    i32 = torch.int32
+    want = {"pos": ((d, ld), fl), "vel": ((d, ld), fl),
+            "pbp": ((d, ld), fl), "pbf": ((ld,), fl), "fit": ((ld,), fl),
+            "viol": ((ld,), fl), "pbv": ((ld,), fl), "gp": ((d, s_cnt), fl),
+            "gf": ((s_cnt,), fl), "lp": ((d, s_cnt * nb), fl),
+            "lf": ((s_cnt * nb,), fl), "keys": ((s_cnt,), torch.int64),
+            "aux_fit": ((s_cnt * nb,), fl), "aux_idx": ((s_cnt * nb,), i32),
             "act": ((s_cnt,), i32), "arrive": ((s_cnt,), i32),
             "counts": ((3 * s_cnt,), i32)}
     for name, t in operands.items():
@@ -347,13 +374,19 @@ def advance(pos, vel, pbp, attractor, seeds, its,
             gdiv: int, counters=None):
     """``split_advance_plain`` in place: on CUDA tensors one launch of
     ``split_advance_kernel`` (``counters``: ``uint32_rows`` made once a
-    call, else made here), on CPU tensors the plain version."""
+    call, else made here), on CPU tensors the plain version. A
+    heterogeneous table (``fids``) takes float32 only."""
     d, ld = pos.shape
-    _validate("split advance", d, ld, n, 1, pos=pos, vel=vel, pbp=pbp)
-    if gdiv < 1 or n % gdiv or tuple(attractor.shape) != (d, ld // gdiv):
-        raise ValueError(f"split advance: attractor must be [{d}, "
-                         f"{ld}/gdiv] with gdiv dividing {n}; got "
-                         f"{tuple(attractor.shape)}, gdiv={gdiv}")
+    _validate("split advance", d, ld, n, 1, pos.dtype, pos=pos, vel=vel,
+              pbp=pbp)
+    if fids is not None:
+        check_hetero(pos.dtype)
+    if gdiv < 1 or n % gdiv or tuple(attractor.shape) != (d, ld // gdiv) \
+            or attractor.dtype != pos.dtype:
+        raise ValueError(f"split advance: attractor must be {pos.dtype} "
+                         f"[{d}, {ld}/gdiv] with gdiv dividing {n}; got "
+                         f"{attractor.dtype} {tuple(attractor.shape)}, "
+                         f"gdiv={gdiv}")
     if pos.device.type == "cpu":
         p, v = split_advance_plain(pos, vel, pbp, attractor, seeds, its,
                                    specs, fids, n=n, it_off=it_off, gdiv=gdiv)
@@ -365,22 +398,24 @@ def advance(pos, vel, pbp, attractor, seeds, its,
         counters = uint32_rows(seeds, its, dev)
     if fids is not None:
         fids = fids.to(dev, torch.int32).contiguous()
-    bounds, _ = _tables(tuple(specs), d, dev)
+    dtype = pos.dtype
+    bounds, _ = _tables(tuple(specs), d, dev, dtype)
     _cuda_operands(pos, vel, pbp, attractor, bounds, fids, counters)
     spec = specs[0]
-    coef = [spec.w, spec.c1, spec.c2, *resolve_rule(spec.rule)
-            .kernel_consts()]
+    coef = [weak(c, dtype) for c in (spec.w, spec.c1, spec.c2,
+                                     *resolve_rule(spec.rule)
+                                     .kernel_consts())]
     with torch.cuda.device(dev):
-        _check(_lib().pso_split_advance(
+        _check(_lib(dtype).pso_split_advance(
             *_ptrs([pos, vel, pbp, attractor, bounds, fids, counters[0],
                     counters[1]]),
             n, d, ld // n, gdiv, it_off & _U32, kernel_rule_id(spec.rule),
             *coef, _stream(dev)), "split advance kernel launch")
-    advance.launches += 1
+    count(advance, dtype, 1)
     return pos, vel
 
 
-advance.launches = 0
+advance.launches = advance.bf16_launches = 0
 
 
 #: The operands each mode of ``fold_publish`` needs besides pos, pbp, pbf
@@ -411,9 +446,9 @@ def fold_publish(pos, pbp, pbf, fit, *, n: int, block_n: int, mode: str,
     if block_n < 1 or n % block_n:
         raise ValueError(f"split fold: block_n={block_n} must divide {n}")
     nb = n // block_n
-    _validate("split fold", d, ld, n, nb, pos=pos, pbp=pbp, pbf=pbf,
-              fit=fit, gp=gp, gf=gf, pbv=pbv, viol=viol, lp=lp, lf=lf,
-              keys=keys, act=act, aux_fit=aux_fit, aux_idx=aux_idx,
+    _validate("split fold", d, ld, n, nb, pos.dtype, pos=pos, pbp=pbp,
+              pbf=pbf, fit=fit, gp=gp, gf=gf, pbv=pbv, viol=viol, lp=lp,
+              lf=lf, keys=keys, act=act, aux_fit=aux_fit, aux_idx=aux_idx,
               counts=counts, arrive=arrive)
     given = dict(gp=gp, gf=gf, lp=lp, lf=lf, keys=keys, act=act,
                  aux_fit=aux_fit, aux_idx=aux_idx)
@@ -450,16 +485,16 @@ def fold_publish(pos, pbp, pbf, fit, *, n: int, block_n: int, mode: str,
     _cuda_operands(pos, pbp, pbf, fit, gp, gf, pbv, viol, lp, lf, keys, act,
                    aux_fit, aux_idx, counts, arrive)
     with torch.cuda.device(dev):
-        _check(_lib().pso_split_fold_publish(
+        _check(_lib(pos.dtype).pso_split_fold_publish(
             *_ptrs([pos, pbp, pbf, pbv, fit, viol, gp, gf, lp, lf, keys,
                     aux_fit, aux_idx, counts, act, arrive, scratch]),
             n, d, block_n, s_cnt, MODES[mode], *topo, cluster,
             _stream(dev)),
             "split fold-and-publish kernel launch")
-    fold_publish.launches += 1
+    count(fold_publish, pos.dtype, 1)
 
 
-fold_publish.launches = 0
+fold_publish.launches = fold_publish.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -467,8 +502,8 @@ fold_publish.launches = 0
 # ---------------------------------------------------------------------------
 
 def _flat(x: Tensor, pos: Tensor) -> Tensor:
-    """A user function's per-particle output as the contiguous float32
-    [S*N] the fold kernel reads."""
+    """A user function's per-particle output as the contiguous [S*N] the
+    fold kernel reads, in the state's dtype (a wider output rounded)."""
     return x.reshape(-1).to(pos.dtype).contiguous()
 
 

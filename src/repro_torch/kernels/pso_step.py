@@ -85,7 +85,7 @@ from typing import List, Tuple
 import torch
 
 from ..core import rng
-from ..core.fitness import BUILTIN_PROBLEMS, weak
+from ..core.fitness import BUILTIN_PROBLEMS, sum_f32, weak
 from ..core.problem import Bound
 from ..core.pso import STREAM_R1, STREAM_R2
 from ..core.topology import LBEST_IDS, grid_dims, kernel_neighbor_ids
@@ -166,21 +166,11 @@ def _rng_index(n: int, d: int, device, base: int = 0) -> Tensor:
                                             device=device)[:, None]
 
 
-def _sum_f32(v: Tensor) -> Tensor:
-    """A [D, n] bfloat16 tile's sum over D as the reference's kernels take
-    it (jnp.sum's float32 accumulation): from 0 in float32, one dimension
-    after another, rounded once."""
-    acc = torch.zeros(v.shape[1], dtype=torch.float32, device=v.device)
-    for row in v:
-        acc = acc + row.float()
-    return acc.to(v.dtype)
-
-
 def _objective_bf16(fid: int, x: Tensor) -> Tensor:
     """Built-in objective ``fid`` of a [D, n] bfloat16 tile, maximized, as
     the reference's kernel forms (``repro.kernels.pso_step.
     _fitness_dmajor``) compute it in bfloat16: each operation rounded, the
-    constants rounded (``weak``), the sums over D by ``_sum_f32``.
+    constants rounded (``weak``), the sums over D by ``sum_f32``.
     Rosenbrock takes ``(100 u) u`` in that order. Griewank's dimension
     index is a float32 column there, so its quotients, cosines and product
     are float32 and the fitness is rounded once, at the end (the
@@ -190,10 +180,10 @@ def _objective_bf16(fid: int, x: Tensor) -> Tensor:
     dt = x.dtype
     name = BUILTIN_PROBLEMS[fid].name
     if name == "cubic":
-        return _sum_f32(x * x * x - weak(0.8, dt) * (x * x) - 1000.0 * x
-                        + 8000.0)
+        return sum_f32(x * x * x - weak(0.8, dt) * (x * x) - 1000.0 * x
+                       + 8000.0, 0)
     if name == "sphere":
-        return -_sum_f32(x * x)
+        return -sum_f32(x * x, 0)
     if name == "rosenbrock":
         if d == 1:
             r = 1.0 - x[0]
@@ -201,21 +191,21 @@ def _objective_bf16(fid: int, x: Tensor) -> Tensor:
         a, b = x[:-1], x[1:]
         u = b - a * a
         r = 1.0 - a
-        return -_sum_f32(100.0 * u * u + r * r)
+        return -sum_f32(100.0 * u * u + r * r, 0)
     if name == "griewank":
         root = torch.sqrt(torch.arange(1, d + 1, dtype=torch.float32,
                                        device=x.device))
         p = torch.ones(x.shape[1], dtype=torch.float32, device=x.device)
         for k in range(d):
             p = p * torch.cos(x[k].float() / root[k])
-        s = _sum_f32(x * x) / 4000.0
+        s = sum_f32(x * x, 0) / 4000.0
         return (-(s.float() - p + 1.0)).to(dt)
     two_pi = weak(2.0 * math.pi, dt)
     if name == "rastrigin":
         return -(weak(10.0 * d, dt)
-                 + _sum_f32(x * x - 10.0 * torch.cos(two_pi * x)))
-    s1 = torch.sqrt(_sum_f32(x * x) / weak(d, dt))              # ackley
-    s2 = _sum_f32(torch.cos(two_pi * x)) / weak(d, dt)
+                 + sum_f32(x * x - 10.0 * torch.cos(two_pi * x), 0))
+    s1 = torch.sqrt(sum_f32(x * x, 0) / weak(d, dt))           # ackley
+    s2 = sum_f32(torch.cos(two_pi * x), 0) / weak(d, dt)
     return -(-20.0 * torch.exp(weak(-0.2, dt) * s1) - torch.exp(s2) + 20.0
              + weak(math.e, dt))
 

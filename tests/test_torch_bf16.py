@@ -358,16 +358,19 @@ def test_float16_and_float64_raise_on_kernel_backend(variant):
         repro_torch.solve("cubic", dtype="float64", **kw)
 
 
-def test_custom_problem_bf16_raises_on_kernel_backend():
-    """The split kernels are float32: a custom Problem in bfloat16 raises
-    on the kernel backend (the eager engine still takes it)."""
+def test_custom_problem_bf16_runs_on_kernel_backend():
+    """The split kernels take bfloat16: a custom Problem in bfloat16 runs
+    on the kernel backend, with a bfloat16 state, and one block a swarm
+    equals the eager engine bit for bit, as in float32."""
     mine = pso.Problem(name="mine_bf16", fn=lambda x: -(x * x).sum(-1),
                        lo=-5.0, hi=5.0)
-    kw = dict(dim=3, particles=128, iters=2, variant="async",
+    kw = dict(dim=3, particles=128, iters=4, variant="queue_lock",
               dtype="bfloat16", device=CPU)
-    with pytest.raises(ValueError, match="split path"):
-        repro_torch.solve(mine, backend="kernel", **kw)
-    assert repro_torch.solve(mine, backend="eager", **kw).state.pos.dtype == BF
+    got = repro_torch.solve(mine, backend="kernel", block_n=128, **kw)
+    want = repro_torch.solve(mine, backend="eager", **kw)
+    assert got.state.pos.dtype == want.state.pos.dtype == BF
+    assert torch.equal(got.state.pos, want.state.pos)
+    assert got.best_fit == want.best_fit
 
 
 def test_hetero_wrappers_refuse_bf16():
@@ -492,17 +495,15 @@ def test_resolve_schedule_bf16_prices_and_measures_bf16(tmp_path,
 
 
 def test_kernel_candidates_follow_the_dtype_on_a_card():
-    """Kernel candidates exist where the kernels take the dtype: float32,
-    and bfloat16 for a built-in objective."""
+    """Kernel candidates exist where the kernels take the dtype: float32
+    and bfloat16, for every homogeneous Problem (a custom one takes the
+    split path)."""
     from repro_torch.core import autotune as at
     card = torch.device("cuda")
-    mine = pso.Problem(name="mine_tune", fn=lambda x: -(x * x).sum(-1))
-    assert at._kernel_ok(card, "pso", "cubic", "float32")
-    assert at._kernel_ok(card, "pso", "cubic", "bfloat16")
-    assert at._kernel_ok(card, "pso", mine, "float32")
-    assert not at._kernel_ok(card, "pso", mine, "bfloat16")
-    assert not at._kernel_ok(card, "pso", "cubic", "float16")
-    assert not at._kernel_ok(torch.device(CPU), "pso", "cubic", "bfloat16")
+    assert at._kernel_ok(card, "pso", "float32")
+    assert at._kernel_ok(card, "pso", "bfloat16")
+    assert not at._kernel_ok(card, "pso", "float16")
+    assert not at._kernel_ok(torch.device(CPU), "pso", "bfloat16")
 
 
 # --- the weak-typed constants and the draws ----------------------------------

@@ -9,7 +9,9 @@ On the card each kernel is held to its plain version on the same card
 tensors, exactly: advance positions and velocities bit for bit, the
 fold-and-publish kernel's outputs (given the same fit/viol tensors) equal
 to ``split_fold_plain`` followed by ``split_publish_plain``, at every
-cluster size, with its arrival counters back at zero."""
+cluster size, with its arrival counters back at zero; in float32 and in
+bfloat16 (the library built with ``-DPSO_T_BF16``, whose launches also
+count in ``.bf16_launches``)."""
 import math
 
 import numpy as np
@@ -22,6 +24,8 @@ from repro_torch.core import pso
 from repro_torch.kernels import ops, pso_split
 
 torch.set_num_threads(1)
+
+BF = torch.bfloat16
 
 
 def _plane_ball():
@@ -151,7 +155,7 @@ def _operands(gp, gf, pbp, pbf, pbv, *, n, bn, variant, act=None):
                                  dtype=torch.int32, device=dev)
                   if act is None else act)
     else:
-        op.update(aux_fit=torch.empty(s_cnt * nb, device=dev),
+        op.update(aux_fit=gf.new_empty(s_cnt * nb),
                   aux_idx=torch.empty(s_cnt * nb, dtype=torch.int32,
                                       device=dev))
         del op["gp"]
@@ -185,31 +189,36 @@ def _held_to_plain(pos, fit, viol, op, *, n, bn, variant, cluster=None,
     dev = pos.device
     arrive = (torch.zeros(fit.shape[0] // n, dtype=torch.int32, device=dev)
               if dev.type == "cuda" and variant != "queue" else None)
-    before = pso_split.fold_publish.launches
+    before = (pso_split.fold_publish.launches,
+              pso_split.fold_publish.bf16_launches)
     pso_split.fold_publish(pos, op["pbp"], op["pbf"], fit, n=n, block_n=bn,
                            mode=variant, viol=viol, arrive=arrive,
                            _cluster=cluster, topology=topology,
                            **{k: v for k, v in op.items()
                               if k not in ("pbp", "pbf")})
-    assert pso_split.fold_publish.launches == before + (dev.type == "cuda")
+    card = dev.type == "cuda"
+    assert (pso_split.fold_publish.launches,
+            pso_split.fold_publish.bf16_launches) == (
+        before[0] + card, before[1] + (card and pos.dtype == BF))
     for k, w in want.items():
         if w is not None:
             assert torch.equal(op[k], w), k
     assert arrive is None or not arrive.any()
 
 
-def _card_round(name, variant, d, n, bn, dev, cluster=None):
+def _card_round(name, variant, d, n, bn, dev, cluster=None, rule="pso",
+                dtype="float32"):
     """One split iteration on the card from a state two iterations in:
     each kernel against its plain version on the same card tensors."""
-    cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
-                        fitness=_problem(name)).resolved()
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7, update_rule=rule,
+                        fitness=_problem(name), dtype=dtype).resolved()
     s = pso.run(cfg, pso.init_swarm(cfg, 0, device=dev), 2, "queue")
     pos, vel, pbp, pbf, gp, gf = ops.state_to_kernel(s)
     gp = gp[:, None].contiguous()
     spec = ops.kernel_spec(cfg)
     seeds, its = ops._seed_rows(s)
     nb = n // bn
-    attractor, gdiv = (gp, n) if variant == "fused" else (
+    attractor, gdiv = (gp, n) if variant != "async" else (
         gp.repeat(1, nb).contiguous(), bn)
     p0, v0 = pso_split.split_advance_plain(pos, vel, pbp, attractor, seeds,
                                            its, (spec,), n=n, it_off=0,
@@ -224,14 +233,15 @@ def _card_round(name, variant, d, n, bn, dev, cluster=None):
                    cluster=cluster)
 
 
-def _random_state(seed, s_cnt, n, d, deb, dev="cpu"):
+def _random_state(seed, s_cnt, n, d, deb, dev="cpu", dtype=torch.float32):
     """A random D-major state of ``s_cnt`` swarms whose fitness, pbest
-    fitness and violations tie and cross one another, from numpy."""
+    fitness and violations tie and cross one another, from numpy (small
+    integers, which bfloat16 holds exactly)."""
     rng = np.random.default_rng(seed)
 
     def f32(*shape, k=5):
         return torch.tensor(rng.integers(-k, k, size=shape).astype(
-            np.float32), device=dev)
+            np.float32), device=dev).to(dtype)
     pos, pbp = f32(d, s_cnt * n, k=100), f32(d, s_cnt * n, k=100)
     fit, pbf = f32(s_cnt * n), f32(s_cnt * n)
     gp, gf = f32(d, s_cnt, k=100), f32(s_cnt, k=3)
@@ -264,6 +274,22 @@ def test_fold_publish_on_cpu_is_the_plain_chain(variant, topology, act,
     _held_to_plain(pos, fit, viol, op, n=n, bn=bn, variant=variant,
                    topology=topology)
     assert int(op["counts"].sum()) > 0
+
+
+@pytest.mark.parametrize("variant,topology,act", FOLD_CASES)
+def test_fold_publish_bf16_on_cpu_is_the_plain_chain(variant, topology, act):
+    """The same in bfloat16 (Deb's rule on): the wrapper takes bfloat16
+    operands, every float output bfloat16, and launches nothing."""
+    s_cnt, n, bn, d = 4, 48, 8, 3
+    pos, pbp, pbf, gp, gf, fit, viol, pbv = _random_state(
+        7, s_cnt, n, d, True, dtype=BF)
+    op = _operands(gp, gf, pbp, pbf, pbv, n=n, bn=bn, variant=variant,
+                   act=None if act is None else torch.tensor(
+                       act, dtype=torch.int32))
+    _held_to_plain(pos, fit, viol, op, n=n, bn=bn, variant=variant,
+                   topology=topology)
+    assert all(t.dtype == BF for t in op.values()
+               if t is not None and t.is_floating_point())
 
 
 #: fold_cluster_size on a 132-SM H100: (S, n, d, block_n, C), at phase
@@ -361,3 +387,59 @@ def test_split_solve_on_card_is_feasible(cuda, variant):
     pos = r.state.pos
     assert float(pos.min()) >= 0.0
     assert float((pos.sum(-1) - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sphere_simplex", "sphere_simplex_pen",
+                                  "plane_ball", "custom"])
+@pytest.mark.parametrize("rule", ["pso", "sso", "lowcost"])
+@pytest.mark.parametrize("variant", ["queue", "fused", "async"])
+def test_split_kernels_match_plain_on_card_bf16(cuda, name, rule, variant):
+    """The bfloat16 split kernels against their plain versions, every
+    rule and mode."""
+    before = pso_split.advance.bf16_launches
+    _card_round(name, variant, 3 if name == "plane_ball" else 8, 1024, 256,
+                cuda, rule=rule, dtype="bfloat16")
+    assert pso_split.advance.bf16_launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", pso_split.FOLD_CLUSTERS)
+@pytest.mark.parametrize("variant", ["fused", "async"])
+@pytest.mark.parametrize("n,bn", [(4096, 512), (1002, 501)])
+def test_fold_publish_bf16_matches_plain_on_card_at_each_cluster(
+        cuda, variant, cluster, n, bn):
+    """In bfloat16 the copies take four lanes in 8 bytes at blocks of 512,
+    a lane at a time at 501."""
+    _card_round("sphere_simplex", variant, 40, n, bn, cuda, cluster=cluster,
+                dtype="bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", pso_split.FOLD_CLUSTERS)
+@pytest.mark.parametrize("variant,topology,act", FOLD_CASES)
+def test_fold_publish_bf16_modes_on_card_at_each_cluster(
+        cuda, variant, topology, act, cluster):
+    s_cnt, n, bn, d = 4, 1024, 128, 20
+    pos, pbp, pbf, gp, gf, fit, viol, pbv = _random_state(
+        3, s_cnt, n, d, True, dev=cuda, dtype=BF)
+    op = _operands(gp, gf, pbp, pbf, pbv, n=n, bn=bn, variant=variant,
+                   act=None if act is None else torch.tensor(
+                       act, dtype=torch.int32, device=cuda))
+    _held_to_plain(pos, fit, viol, op, n=n, bn=bn, variant=variant,
+                   cluster=cluster, topology=topology)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["queue_lock", "async"])
+def test_split_solve_on_card_bf16(cuda, variant):
+    """A custom Problem in bfloat16 through ``solve`` on the card: the
+    bfloat16 split kernels only, a bfloat16 state in the box."""
+    before = pso_split.fold_publish.bf16_launches
+    r = repro_torch.solve(_problem("custom"), dim=8, particles=1024,
+                          iters=50, variant=variant, w=0.7,
+                          dtype="bfloat16")
+    assert pso_split.fold_publish.bf16_launches == before + 50
+    pos = r.state.pos
+    assert pos.dtype == BF and float(pos.abs().max()) <= 5.0
+    assert r.state.gbest_fit == r.state.pbest_fit.max()
