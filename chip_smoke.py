@@ -228,7 +228,15 @@ kernel's ms on phase 5's call beside its plain version and its bound at 2
 bytes an element, and rows 2 and 5 in bfloat16 beside float32 at the two
 solve cells, in turns. Its launches count under the ``<row>_bf16`` rows of
 the JSON. 16, bfloat16 on the split path (the converted forms 1c, 2c, 3c,
-5c, 6c; ``pso_split.cu`` built with ``-DPSO_T_BF16``): 16a each bfloat16
+5c, 6c; ``pso_split.cu`` built with ``-DPSO_T_BF16``): 16a the bfloat16
+advance alone at d=1, 3, 120, a row tail (n=1002), operands 2 bytes off
+16, S > 1 at gdiv = block_n and gdiv % 8 != 0, 16b's solve_many batch
+(d=10 n=1024 S=128, gbest and the async locals), every rule, each of its
+two paths (eight lanes a thread in 16-byte accesses, a lane a thread) that
+the operands allow, bit for bit its plain version; its packed instructions
+on every operand pair against the float operation rounded once, 0
+mismatches
+(``pso_split.check_bf16_ops``); then each bfloat16
 instantiation of both split kernels against its plain version from one
 shared state, the advance bit for bit and the fold-and-publish kernel
 exactly (given the same fit/viol tensors, counters on) at clusters of 1
@@ -246,10 +254,16 @@ only), the kernels' main-path ms under torch.profiler beside their bound,
 and the refusals (float16, float64, a heterogeneous bfloat16 table); 16c
 each bfloat16 split kernel alone at sphere_simplex d=120 n=32768, as 6c
 times the float32 ones (torch.profiler, the L2 flushed), beside its bound
-at 2 bytes an element and its plain version. Its launches count under the
-``split_*_bf16`` rows of the JSON.
+at 2 bytes an element and its plain version, then on the same call the
+advance's lane path forced and the float32 advance on the same swarm in
+float32, each with the bytes it moved a second, and both paths of the
+bfloat16 advance by size (3k to 3.9M elements, beside the planner's pick,
+``pso_split.advance_lanes``). Its launches count under
+the ``split_*_bf16`` rows of the JSON (16b also counts the advance's
+lane-path launches).
 """
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -485,6 +499,9 @@ def replay(name: str, what: str, iters: int, fn, bound_ms) -> None:
 def zero_counts() -> None:
     for w, attr in COUNTERS.values():
         setattr(w, attr, 0)
+    if pso_split is not None:
+        # the bfloat16 advance's lane-path share of its launches
+        pso_split.advance.bf16_lane_launches = 0
 
 
 def read_counts() -> dict:
@@ -680,11 +697,21 @@ def ptxas_lines(log: str) -> list:
                          f"{rules[m[4]]}{g}>")
             else:     # GLA (gla_chunk_state<WM,NTW>), the split kernels
                 # (split_advance_kernel<rule[,T]>, split_fold_publish_kernel
-                # [<T>]; the storage type, as above, keys only bfloat16) or
-                # no template
+                # [<T>]; the storage type, as above, keys only bfloat16;
+                # split_advance_bf16_kernel<rule,lanes>, the premise's
+                # split_bf16_check_kernel<op>) or no template
                 m = re.search(r"([a-z_]+_kernel)(?:I(?:Li(\d+)E)?"
                               r"(f|13__nv_bfloat16)?E)?", entry)
-                if gla_key(entry):
+                b = re.search(r"split_(advance_bf16|bf16_check)_kernelILi"
+                              r"(\d+)E(?:Li(\d+)E)?E", entry)
+                if b and b[1] == "advance_bf16":
+                    entry = (f"split_advance_bf16_kernel<{rules[b[2]]},"
+                             f"{b[3]}>")
+                elif b:
+                    op = int(b[2])
+                    entry = ("split_bf16_check_kernel<"
+                             f"{pso_split.BF16_OPS[op] if pso_split else op}>")
+                elif gla_key(entry):
                     entry = gla_key(entry)
                 elif m:
                     args = ([rules.get(m[2], m[2])] if m[2] else []) + (
@@ -2568,6 +2595,48 @@ SPLIT = ("split_advance", "split_fold_publish")
 #: Each split kernel as torch.profiler names it.
 SPLIT_FAMILY = {"split_advance": "split_advance_kernel",
                 "split_fold_publish": "split_fold_publish_kernel"}
+#: Phase 16's bfloat16 split kernels as torch.profiler names them: the
+#: advance's two paths (``split_advance_bf16_kernel<rule, 8 or 1>``) and the
+#: fold's bfloat16 instantiation.
+SPLIT_BF16_FAMILY = {
+    "split_advance_bf16": "split_advance_bf16_kernel",
+    "split_fold_publish_bf16": "split_fold_publish_kernel<__nv_bfloat16>"}
+
+
+@contextlib.contextmanager
+def improved_tally():
+    """The particles each fold-and-publish launch inside finds improved, by
+    the kernel's own rule (fit > pbf, or Deb's rule on fit/viol against
+    pbf/pbv), tallied on the card: yields a list of device counts, one a
+    launch, read once after the run. Around an extra run of a main-path
+    call, for the bound of the pbest copies its launches make (the run is
+    deterministic: synchronous PPSO, the lockstep async); that run's
+    launches count in no row."""
+    orig = pso_split.fold_publish
+    tally = []
+
+    def fold(pos, pbp, pbf, fit, **kw):
+        viol = kw.get("viol")
+        tally.append((fit > pbf if viol is None else cons.deb_improved(
+            fit, viol, pbf, kw["pbv"])).sum())
+        orig(pos, pbp, pbf, fit, **kw)
+    fold.launches = fold.bf16_launches = 0      # the counts orig adds to
+    pso_split.fold_publish = fold
+    try:
+        yield tally
+    finally:
+        pso_split.fold_publish = orig
+
+
+def fold_main_bound(run, d: int, n: int, deb: bool, s_cnt: int = 1,
+                    esize: int = 4) -> float:
+    """The fold-and-publish kernel's bound (ms) summed over the launches of
+    ``run()``, each with the pbest copies of the particles it finds
+    improved (``improved_tally``, ``split_bounds``)."""
+    with improved_tally() as tally:
+        run()
+    return sum(split_bounds(d, n, deb, imp, s_cnt, esize)[
+        "split_fold_publish"][0] for imp in torch.stack(tally).tolist())
 
 
 def plane_ball():
@@ -2874,9 +2943,13 @@ def phase_split_path(card: str):
                    for k in SPLIT}
             other = (sum(dev.values()) / iters - sum(per.values())
                      if dev else 0.0)
-            for k, (b_ms, _) in split_bounds(d, n, prob.deb).items():
+            for k in SPLIT:
                 main_ms[k] += per[k] * iters / 1e3
-                main_bound[k] += b_ms * counts[k]
+            main_bound["split_advance"] += split_bounds(d, n, prob.deb)[
+                "split_advance"][0] * counts["split_advance"]
+            main_bound["split_fold_publish"] += fold_main_bound(
+                functools.partial(repro_torch.solve, prob, iters=iters, **kw),
+                d, n, prob.deb)
             if d == 120 and key == "sphere_simplex" and variant == \
                     "queue_lock":
                 big = per
@@ -2896,7 +2969,8 @@ def phase_split_path(card: str):
           f"{by_variant['queue_lock']}, solve async {by_variant['async']}, "
           f"solve_many {batch_launches}")
     print("  device ms summed over these launches (torch.profiler), beside "
-          "their bound (the fold's without its data-dependent pbest copies): "
+          "their bound (the fold's with the pbest copies of the particles "
+          "each launch found improved): "
           + ", ".join(f"{k} {main_ms[k]:.3f} ({main_bound[k]:.3f})"
                       for k in SPLIT))
     split_beside_builtin(card)
@@ -2941,10 +3015,15 @@ def split_many_path(main_ms: dict, main_bound: dict) -> dict:
             iters=iters, **kw), reps=1)
         per = {k: sum(v for kn, v in dev.items()
                       if re.search(SPLIT_FAMILY[k], kn)) for k in SPLIT}
-        for k, (b_ms, _) in split_bounds(d, s_cnt * n, True,
-                                         s_cnt=s_cnt).items():
+        for k in SPLIT:
             main_ms[k] += per[k] / 1e3
-            main_bound[k] += b_ms * counts[k]
+        main_bound["split_advance"] += split_bounds(
+            d, s_cnt * n, True, s_cnt=s_cnt)["split_advance"][0] * counts[
+            "split_advance"]
+        main_bound["split_fold_publish"] += fold_main_bound(
+            functools.partial(repro_torch.solve_many, "sphere_simplex",
+                              range(s_cnt), iters=iters, **kw),
+            d, s_cnt * n, True, s_cnt)
         best = repro_torch.best(rows)
         print(f"  {what}: {dt / iters * 1e6:.2f} us/iter of the batch "
               f"[device us/iter " + ", ".join(
@@ -3005,6 +3084,14 @@ def split_beside_builtin(card: str) -> None:
               f"[{card}]")
 
 
+def advance_bytes(d: int, n: int, esize: int = 4) -> int:
+    """The bytes one advance must move for ``n`` particles in ``d``
+    dimensions of ``esize`` bytes: pos, vel and pbp read, pos and vel
+    written, the attractor column read, and the float32 bounds rows and the
+    uint32 counters."""
+    return esize * (5 * n * d + d) + 4 * (4 * d + 2)
+
+
 def split_bounds(d: int, n: int, deb: bool, improved: int = 0,
                  s_cnt: int = 1, esize: int = 4) -> dict:
     """Each split kernel's bound (ms, by) for one launch on ``s_cnt``
@@ -3024,7 +3111,7 @@ def split_bounds(d: int, n: int, deb: bool, improved: int = 0,
         (2 if deb else 1) + 2 * d) + 8 * s_cnt
     publish = s_cnt * (8 + 2 * esize * (d + 1) + 8 + 8)
     return {
-        "split_advance": roof(esize * (5 * n * d + d) + 4 * (4 * d + 2),
+        "split_advance": roof(advance_bytes(d, n, esize),
                               n * d * INT_PER_ELEMENT,
                               n * d * FP_DRAWS_RULE),
         "split_fold_publish": roof(fold + publish, 0, 4 * n)}
@@ -6514,6 +6601,7 @@ def split_bf16_compare(errs) -> None:
     batch of 8 swarms."""
     print("phase 16a: the bfloat16 split kernels against their plain "
           "versions on the card")
+    split_bf16_advance_paths(errs)
     for what, key, d, n, bn, rules in SPLIT_BF16_CELLS:
         for rule in rules:
             cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
@@ -6532,6 +6620,109 @@ def split_bf16_compare(errs) -> None:
                     variant, 512, errs, keys=SPLIT_BF16)
 
 
+#: 16a's cells of the bfloat16 advance alone: (what, d, n, S, gdiv, pos,
+#: vel and pbp 2 bytes past 16), each at every rule on each path its
+#: operands allow (``advance_paths``: the 16-byte path needs gdiv % 8 == 0
+#: and 16-byte operands).
+ADVANCE_BF16_CELLS = (
+    ("d=1 n=1024", 1, 1024, 1, 1024, False),
+    ("d=3 n=1024", 3, 1024, 1, 1024, False),
+    ("d=120 n=32768", 120, 32768, 1, 32768, False),
+    ("d=24 n=1002 (a row tail)", 24, 1002, 1, 1002, False),
+    ("d=8 n=1024, pos/vel/pbp 2 bytes off 16", 8, 1024, 1, 1024, True),
+    ("d=8 n=1024 S=4, the async locals (gdiv 256)", 8, 1024, 4, 256, False),
+    ("d=10 n=1000 S=3, gdiv 500", 10, 1000, 3, 500, False),
+    ("d=10 n=1024 S=128, 16b's solve_many batch (gbest)", 10, 1024, 128,
+     1024, False),
+    ("d=10 n=1024 S=128, 16b's solve_many batch (the async locals, gdiv "
+     "512)", 10, 1024, 128, 512, False),
+)
+
+
+@contextlib.contextmanager
+def advance_path(lanes: int):
+    """The bfloat16 advance held to one path through the planner's
+    threshold (``pso_split.ADVANCE_MIN_ELEMENTS``): ``lanes`` > 1 the
+    16-byte path wherever ``advance_paths`` allows it, 1 the lane path."""
+    old = pso_split.ADVANCE_MIN_ELEMENTS
+    pso_split.ADVANCE_MIN_ELEMENTS = 0 if lanes > 1 else 1 << 62
+    try:
+        yield
+    finally:
+        pso_split.ADVANCE_MIN_ELEMENTS = old
+
+
+def off16(t):
+    """A contiguous copy of ``t`` that starts 2 bytes past 16 (a fresh
+    allocation starts on 512)."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[
+        1:].view(t.shape).copy_(t)
+
+
+def split_bf16_advance_paths(errs) -> None:
+    """16a: the bfloat16 advance alone at ``ADVANCE_BF16_CELLS``, each
+    rule on each path its operands allow (``advance_paths``, each forced
+    with ``advance_path``), from a custom sphere's swarms two eager
+    iterations in, against gbest (gdiv = n) or a distinct local a block
+    (each block's first pbest column): bit for bit ``split_advance_plain``,
+    a lane-path launch counted in ``bf16_lane_launches``. Then the premise: each packed
+    instruction on every operand pair (``pso_split.check_bf16_ops``), 0
+    mismatches."""
+    for what, d, n, s_cnt, gdiv, off in ADVANCE_BF16_CELLS:
+        taken = set()
+        for rule in RULE_IDS:
+            cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
+                                fitness=custom_sphere(), update_rule=rule,
+                                dtype="bfloat16").resolved()
+            b = ms.run_many(cfg, ms.init_batch(cfg, range(s_cnt),
+                                               device="cuda"), 2, "queue")
+            (pos, vel, pbp, _, gp, _), specs = ops._batch_to_kernel(
+                cfg, b, None, None)
+            att = gp if gdiv == n else pbp[:, ::gdiv].contiguous()
+            if off:
+                pos, vel, pbp = off16(pos), off16(vel), off16(pbp)
+            kw = dict(n=n, it_off=0, gdiv=gdiv)
+            want = pso_split.split_advance_plain(pos, vel, pbp, att, b.seed,
+                                                 b.iteration, specs, **kw)
+            paths = pso_split.advance_paths(pos, vel, pbp, gdiv=gdiv)
+            check(paths == ((1,) if off or gdiv % 8 else (1, 8)),
+                  f"16a bf16 advance {what}: advance_paths {paths}")
+            for lanes in paths:
+                p, v = (off16(pos), off16(vel)) if off else (pos.clone(),
+                                                             vel.clone())
+                lane0 = pso_split.advance.bf16_lane_launches
+                with advance_path(lanes):
+                    check(pso_split.advance_lanes(p, v, pbp, gdiv=gdiv)
+                          == lanes, f"16a bf16 advance {what}: {lanes} "
+                          f"lane(s) a thread forced")
+                    pso_split.advance(p, v, pbp, att, b.seed, b.iteration,
+                                      specs, **kw)
+                torch.cuda.synchronize()
+                bits = all(torch.equal(x.view(torch.int16),
+                                       y.view(torch.int16))
+                           for x, y in ((p, want[0]), (v, want[1])))
+                check(bits and pso_split.advance.bf16_lane_launches
+                      == lane0 + (lanes == 1),
+                      f"16a bf16 advance {what} {rule}, {lanes} lane(s) a "
+                      f"thread: bit for bit its plain version")
+                errs["split_advance_bf16"] = max(
+                    errs["split_advance_bf16"], max_err((p, v), want))
+                taken.add("16-byte" if lanes > 1 else "lane")
+        print(f"  16a bf16 advance {what}: pso, sso, lowcost on the "
+              f"{' and '.join(sorted(taken))} path(s), bit for bit")
+    t0 = time.perf_counter()
+    got = pso_split.check_bf16_ops()
+    sec = time.perf_counter() - t0
+    for name, (bad, seen, first) in got.items():
+        check(bad == 0 and seen == (1 << 24 if name == "draw" else 1 << 32),
+              f"16a packed bfloat16 {name}: {bad} mismatches of {seen}"
+              + (f", the first at {first:#x}" if bad else ""))
+    print("  16a the packed instructions on every operand pair against the "
+          "float operation rounded once: "
+          + ", ".join(f"{k} {v[0]} mismatches of {v[1]}"
+                      for k, v in got.items()) + f" ({sec:.2f} s)")
+
+
 def split_bf16_launched(what: str, want: int = 0) -> dict:
     """The launches since the last ``zero_counts``: the bfloat16 split
     kernels' (``want`` each where given, else some), and no other kernel
@@ -6542,6 +6733,21 @@ def split_bf16_launched(what: str, want: int = 0) -> dict:
           and not counts, f"{what}: the bfloat16 split kernels {got}"
           f"{f', {want} each' if want else ''}, and no other ({counts})")
     return got
+
+
+#: 16b's count of the bfloat16 advance's launches on its lane path.
+LANE_PATH = "split_advance_bf16 (lane path)"
+
+
+def add_split_bf16(launches: dict, got: dict) -> None:
+    """Adds one main-path call's bfloat16 split launches
+    (``split_bf16_launched``) into ``launches``, and the advance's lane-path
+    share of them (``bf16_lane_launches``, zeroed with the counts) under
+    ``LANE_PATH``."""
+    for k in SPLIT_BF16:
+        launches[k] += got[k]
+    launches[LANE_PATH] = (launches.get(LANE_PATH, 0)
+                           + pso_split.advance.bf16_lane_launches)
 
 
 def split_bf16_main_path(card: str, launches: dict, main: dict) -> dict:
@@ -6575,8 +6781,7 @@ def split_bf16_main_path(card: str, launches: dict, main: dict) -> dict:
                 us[dt] = (time.perf_counter() - t0) / iters * 1e6
                 if dt == "bfloat16":
                     got = split_bf16_launched(what, iters)
-                    for k in SPLIT_BF16:
-                        launches[k] += got[k]
+                    add_split_bf16(launches, got)
                     check(res.state.pos.dtype == BF,
                           f"{what}: a bfloat16 state")
                     best = res.best_fit
@@ -6588,14 +6793,17 @@ def split_bf16_main_path(card: str, launches: dict, main: dict) -> dict:
                 repro_torch.solve, prob, iters=iters, dtype="bfloat16",
                 **kw), reps=1)
             per = {k: sum(v for kn, v in dev.items()
-                          if re.search(SPLIT_FAMILY[k[:-5]], kn)
-                          and "bfloat16" in kn) / iters
+                          if re.search(SPLIT_BF16_FAMILY[k], kn)) / iters
                    for k in SPLIT_BF16}
-            bnd = split_bounds(d, n, prob.deb, esize=2)
+            bnd = {"split_advance_bf16": split_bounds(
+                d, n, prob.deb, esize=2)["split_advance"][0] * iters,
+                "split_fold_publish_bf16": fold_main_bound(
+                    functools.partial(repro_torch.solve, prob, iters=iters,
+                                      dtype="bfloat16", **kw),
+                    d, n, prob.deb, esize=2)}
             for k in SPLIT_BF16:
                 ms_, bms = main.get(k, (0.0, 0.0))
-                main[k] = (ms_ + per[k] * iters / 1e3,
-                           bms + bnd[k[:-5]][0] * iters)
+                main[k] = (ms_ + per[k] * iters / 1e3, bms + bnd[k])
             if d == 120 and key == "sphere_simplex" and \
                     variant == "queue_lock":
                 big = per
@@ -6618,8 +6826,7 @@ def split_bf16_main_path(card: str, launches: dict, main: dict) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got = split_bf16_launched(what, iters)
-        for k in SPLIT_BF16:
-            launches[k] += got[k]
+        add_split_bf16(launches, got)
         pos = torch.stack([r.state.pos for r in rows])
         check(pos.dtype == BF and float(pos.abs().max()) <= 100.0 and all(
             math.isfinite(r.best_fit) for r in rows) and all(
@@ -6628,13 +6835,17 @@ def split_bf16_main_path(card: str, launches: dict, main: dict) -> dict:
         dev = kernel_device_us(functools.partial(
             repro_torch.solve_many, custom_sphere(), range(s_cnt), **kw),
             reps=1)
-        bnd = split_bounds(d, s_cnt * n, False, s_cnt=s_cnt, esize=2)
+        bnd = {"split_advance_bf16": split_bounds(
+            d, s_cnt * n, False, s_cnt=s_cnt, esize=2)["split_advance"][0]
+            * iters, "split_fold_publish_bf16": fold_main_bound(
+                functools.partial(repro_torch.solve_many, custom_sphere(),
+                                  range(s_cnt), **kw),
+                d, s_cnt * n, False, s_cnt, esize=2)}
         for k in SPLIT_BF16:
             mine = sum(v for kn, v in dev.items()
-                       if re.search(SPLIT_FAMILY[k[:-5]], kn)
-                       and "bfloat16" in kn)
+                       if re.search(SPLIT_BF16_FAMILY[k], kn))
             ms_, bms = main.get(k, (0.0, 0.0))
-            main[k] = (ms_ + mine / 1e3, bms + bnd[k[:-5]][0] * iters)
+            main[k] = (ms_ + mine / 1e3, bms + bnd[k])
         print(f"  16b {what}: {dt / iters * 1e6:.2f} us/iter of the batch; "
               f"best row {repro_torch.best(rows).best_fit:.7g} [{card}]")
     cfg = pso.PSOConfig(dim=8, particle_cnt=1024, w=0.7,
@@ -6644,8 +6855,7 @@ def split_bf16_main_path(card: str, launches: dict, main: dict) -> dict:
     s = queue_loop(cfg, s, 20)
     got = split_bf16_launched("bf16 ops.queue_step x20 sphere_simplex d=8",
                               20)
-    for k in SPLIT_BF16:
-        launches[k] += got[k]
+    add_split_bf16(launches, got)
     check(s.pos.dtype == BF and float(s.pos.min()) >= 0.0,
           "bf16 ops.queue_step: a bfloat16 state, positions >= 0")
     print(f"  16b ops.queue_step x20 sphere_simplex d=8 n=1024: gbest "
@@ -6657,8 +6867,7 @@ def split_bf16_main_path(card: str, launches: dict, main: dict) -> dict:
     zero_counts()
     (r,) = sched.run([req])
     got = split_bf16_launched("bf16 serving, a custom Problem's request")
-    for k in SPLIT_BF16:
-        launches[k] += got[k]
+    add_split_bf16(launches, got)
     want = repro_torch.solve(custom_sphere(), dim=8, particles=1024,
                              iters=24, seed=3, variant="async", sync_every=8,
                              dtype="bfloat16", backend="kernel",
@@ -6674,13 +6883,56 @@ def split_bf16_main_path(card: str, launches: dict, main: dict) -> dict:
     return big
 
 
+#: 16c's sweep of the bfloat16 advance's two paths by size: (d, S, n), an
+#: attractor column a swarm, 3k to 3.9M elements.
+ADVANCE_SWEEP = ((3, 1, 1024), (8, 1, 1024), (24, 1, 1024), (8, 1, 4096),
+                 (120, 1, 1024), (8, 1, 16384), (120, 1, 2048),
+                 (8, 1, 32768), (120, 1, 4096), (8, 1, 65536),
+                 (120, 1, 8192), (10, 128, 1024), (120, 1, 16384),
+                 (120, 1, 32768))
+
+
+def advance_sweep(card: str) -> None:
+    """16c: the bfloat16 advance's lane path and 16-byte path, each forced,
+    at ``ADVANCE_SWEEP``'s sizes on a custom sphere's swarms, the L2 warm
+    (as the main path's small cells find it): device us a launch under
+    torch.profiler (the mean of 20), beside the planner's pick
+    (``advance_lanes``, ``ADVANCE_MIN_ELEMENTS``)."""
+    rows = []
+    for d, s_cnt, n in ADVANCE_SWEEP:
+        cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
+                            fitness=custom_sphere(),
+                            dtype="bfloat16").resolved()
+        b = ms.init_batch(cfg, range(s_cnt), device="cuda")
+        (pos, vel, pbp, _, gp, _), specs = ops._batch_to_kernel(
+            cfg, b, None, None)
+        us = []
+        for lanes in (1, pso_split.ADVANCE_LANES):
+            with advance_path(lanes):
+                dev = kernel_device_us(functools.partial(
+                    pso_split.advance, pos, vel, pbp, gp, b.seed,
+                    b.iteration, specs, n=n, it_off=0, gdiv=n), reps=20)
+            us.append(sum(v for k, v in dev.items() if re.search(
+                SPLIT_BF16_FAMILY["split_advance_bf16"], k)))
+        pick = pso_split.advance_lanes(pos, vel, pbp, gdiv=n)
+        rows.append(f"{d}x{s_cnt}x{n} ({d * s_cnt * n}) {us[0]:.2f} / "
+                    f"{us[1]:.2f} -> {pick}")
+    print("  16c the bfloat16 advance by size, D x S x N (elements): device "
+          "us a launch on the lane path / the 16-byte path (the L2 warm, "
+          "torch.profiler, the mean of 20) -> the planner's lanes: "
+          + "; ".join(rows) + f" [{card}]")
+
+
 def split_bf16_times(card: str, times: dict, bounds: dict) -> None:
     """16c: each bfloat16 split kernel alone at sphere_simplex d=120
     n=32768 (``SPLIT_TIMED``, two eager iterations in), as phase 6c times
     the float32 ones (``kernel_alone``: each call on fresh copies with the
     L2 flushed, the kernel's device time under torch.profiler, the call in
     CUDA events, the median of 5), beside its bound at 2 bytes an element
-    counted from this call's data, and its plain version's time."""
+    counted from this call's data, and its plain version's time; then the
+    advance's lane path forced and the float32 advance on the same swarm
+    in float32, each with the bytes it moved a second, and
+    ``advance_sweep``."""
     d, n, bn = SPLIT_TIMED
     print(f"phase 16c: the bfloat16 split kernels alone, sphere_simplex d={d} "
           f"n={n} [{card}]")
@@ -6695,7 +6947,7 @@ def split_bf16_times(card: str, times: dict, bounds: dict) -> None:
     bounds[adv] = split_bounds(d, n, True, esize=2)["split_advance"]
     events, read_by = {}, {}
     times[adv], events[adv], read_by[adv] = kernel_alone(
-        SPLIT_FAMILY["split_advance"] + ".*bfloat16",
+        SPLIT_BF16_FAMILY[adv],
         lambda st: pso_split.advance(*st, gp, seed, it, (spec,), **akw),
         (pos, vel, pbp), bounds[adv][0] / 1e3)
     times[adv + "_plain"] = cold_events(
@@ -6723,7 +6975,7 @@ def split_bf16_times(card: str, times: dict, bounds: dict) -> None:
         pso_split.split_publish_plain(pos, fit, st[3], st[4], n=n,
                                       mode="fused", keys=out["keys"])
     times[fold], events[fold], read_by[fold] = kernel_alone(
-        SPLIT_FAMILY["split_fold_publish"] + ".*bfloat16", kernel, fstate,
+        SPLIT_BF16_FAMILY[fold], kernel, fstate,
         bounds[fold][0] / 1e3)
     times[fold + "_plain"] = cold_events(plain, fstate)
     for k in SPLIT_BF16:
@@ -6733,6 +6985,34 @@ def split_bf16_times(card: str, times: dict, bounds: dict) -> None:
               f"{bounds[k][0] * 1e3:.3f} us by {bounds[k][1]} at 2 bytes an "
               f"element" + (f"; {improved} pbest columns written of {n}"
                             if k == fold else "") + f" [{card}]")
+    # beside it on this call: the lane path forced on the same swarm, and
+    # the float32 advance on the same swarm in float32 (phase 6c's kernel)
+    with advance_path(1):
+        lane_us, _, lane_by = kernel_alone(
+            SPLIT_BF16_FAMILY[adv] + r"<\d+, ?1>",
+            lambda st: pso_split.advance(*st, gp, seed, it, (spec,), **akw),
+            (pos, vel, pbp), bounds[adv][0] / 1e3)
+    cfg32 = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7,
+                          fitness="sphere_simplex").resolved()
+    s32 = pso.run(cfg32, pso.init_swarm(cfg32, 0, device="cuda"), 2, "queue")
+    p32, v32, b32, _, g32, _ = ops.state_to_kernel(s32)
+    g32 = g32[:, None].contiguous()
+    spec32, (seed32, it32) = ops.kernel_spec(cfg32), ops._seed_rows(s32)
+    bound32 = split_bounds(d, n, True)["split_advance"]
+    f32_us, _, f32_by = kernel_alone(
+        SPLIT_FAMILY["split_advance"],
+        lambda st: pso_split.advance(*st, g32, seed32, it32, (spec32,),
+                                     **akw), (p32, v32, b32),
+        bound32[0] / 1e3)
+    rate = [advance_bytes(d, n, e) / t / 1e9
+            for e, t in ((2, times[adv]), (2, lane_us), (4, f32_us))]
+    print(f"  16c the advance alone on this call, us (GB/s moved, of "
+          f"{HBM_BYTES_PER_S / 1e9:.0f}): bfloat16 16-byte path "
+          f"{times[adv] * 1e6:.2f} ({rate[0]:.0f}), its lane path forced "
+          f"{lane_us * 1e6:.2f} ({rate[1]:.0f}; read by {lane_by}), float32 "
+          f"on the same swarm {f32_us * 1e6:.2f} ({rate[2]:.0f}; read by "
+          f"{f32_by}; bound {bound32[0] * 1e3:.3f} by {bound32[1]}) [{card}]")
+    advance_sweep(card)
 
 
 def phase_split_bf16(card: str, errs: dict, times: dict,
@@ -6745,8 +7025,9 @@ def phase_split_bf16(card: str, errs: dict, times: dict,
     big = split_bf16_main_path(card, launches, main)
     print(f"  16b launches on these main paths: {launches}")
     print("  16b device ms summed over these launches (torch.profiler), "
-          "beside their bound at 2 bytes an element (the fold's without its "
-          "data-dependent pbest copies): " + ", ".join(
+          "beside their bound at 2 bytes an element (the fold's with the "
+          "pbest copies of the particles each launch found improved): "
+          + ", ".join(
               f"{k} {ms_:.3f} ({bms:.3f})" for k, (ms_, bms) in main.items())
           + f" [{card}]")
     split_bf16_times(card, times, bounds)

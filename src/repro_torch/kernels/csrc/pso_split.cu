@@ -11,7 +11,9 @@
 //
 //   split_advance_kernel<R>    pos and vel against an attractor column,
 //                              clipped to the box; no fitness (one thread
-//                              an element).
+//                              an element; in bfloat16
+//                              split_advance_bf16_kernel<R, L>, 8 or 1
+//                              lanes a thread, computed on lane pairs).
 //   -- the caller's torch step: projection (written back into pos), the
 //      objective (max_fn or kernel_fn), the violation where Deb applies --
 //   split_fold_publish_kernel  the pbest fold (raw fitness, or Deb's rule
@@ -36,7 +38,9 @@
 // swarm: 78.6 MB at N=32768, D=120, beyond the 50 MB L2), against 42
 // integer and 16 float operations an element (the two counter-hash draws
 // and the rule), so at large N*D it is bound by bytes, and one thread an
-// element with the particle index fastest keeps every access coalesced.
+// element with the particle index fastest keeps every access coalesced. In
+// bfloat16 the bytes halve and what the kernel issues sets its time
+// (split_advance_bf16_kernel's note).
 // The fold reads 8 to 16 bytes a particle (fit and pbest_fit, plus the
 // violations under Deb's rule) and, for each particle that improved,
 // writes its pbest fitness and copies its column: 4 + 8*D bytes (pos read,
@@ -82,14 +86,14 @@
 // are of type T, float, or __nv_bfloat16 in the library built from this
 // source with -DPSO_T_BF16 (kernels/_build.py VARIANTS); the bounds table
 // is float in both, holding values of T. A value is widened to float when
-// it is loaded. In bfloat16 the advance computes what the reference's
-// kernels compute in that dtype (ROADMAP, parity contract, "bfloat16"):
-// every operation's result rounded to bfloat16 (q<T>), the coefficients
-// the host's rounded values, the draw (h >> 8) rounded to bfloat16 before
-// its exact scaling (so it may be 1.0). The fold only compares widened
-// values (exact) and copies: the queue keys come from the widened
-// fitness, so the order and the first-lane tie-break are float's. For
-// float, q<T> and widen are the identity, and the float kernels compute
+// it is loaded. In bfloat16 the advance (split_advance_bf16_kernel)
+// computes what the reference's kernels compute in that dtype (ROADMAP,
+// parity contract, "bfloat16"): every operation's result rounded to
+// bfloat16, the coefficients the host's rounded values, the draw (h >> 8)
+// rounded to bfloat16 before its exact scaling (so it may be 1.0). The
+// fold only compares widened values (exact) and copies: the queue keys come
+// from the widened fitness, so the order and the first-lane tie-break are
+// float's. For float, widen is the identity, and the float kernels compute
 // what they computed before T was a parameter.
 
 #include <cooperative_groups.h>
@@ -137,11 +141,6 @@ __device__ __forceinline__ T narrow(float x) {
   if constexpr (std::is_same<T, float>::value) return x;
   else return __float2bfloat16_rn(x);
 }
-// x rounded to T (to nearest even) and widened again.
-template <typename T>
-__device__ __forceinline__ float q(float x) {
-  return widen(narrow<T>(x));
-}
 // A load past L1 (what other blocks wrote in this launch), as T.
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ __nv_bfloat16 ldcg(const __nv_bfloat16* p) {
@@ -188,42 +187,36 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-// In bfloat16 the 24 bits are rounded to bfloat16 (to nearest even) before
-// the exact scaling, as the reference's (h >> 8).astype(dtype) * 2**-24.
-template <typename T>
 __device__ __forceinline__ float uniform01(uint32_t seed, uint32_t it,
                                            uint32_t stream, uint32_t idx) {
   uint32_t h = seed * 0x9E3779B9u + it * 0x85EBCA6Bu + stream * 0xC2B2AE35u +
                idx * 0x27D4EB2Fu;
   h = mix32(h);
   h = mix32(h ^ (idx * 0x9E3779B9u + it * 0xC2B2AE35u));
-  return __fmul_rn(q<T>((float)(h >> 8)), 1.0f / 16777216.0f);
+  return __fmul_rn((float)(h >> 8), 1.0f / 16777216.0f);
 }
 
 // ---- the three update rules (core/update_rules.py) -------------------------
-// Each operation rounds to T (q<T>, the identity for float).
-template <int R, typename T>
+template <int R>
 __device__ __forceinline__ void advance(const Coef& p, float r1, float r2,
                                         float& x, float& v, float pb, float g,
                                         float lo, float hi, float mv,
                                         float span) {
   if (R == 0) {          // pso: v = w v + c1 r1 (pb - x) + c2 r2 (g - x)
-    const float a = q<T>(__fmul_rn(p.w, v));
-    const float b = q<T>(__fmul_rn(q<T>(__fmul_rn(p.c1, r1)),
-                                   q<T>(__fsub_rn(pb, x))));
-    const float c = q<T>(__fmul_rn(q<T>(__fmul_rn(p.c2, r2)),
-                                   q<T>(__fsub_rn(g, x))));
-    v = fminf(fmaxf(q<T>(__fadd_rn(q<T>(__fadd_rn(a, b)), c)), -mv), mv);
-    x = fminf(fmaxf(q<T>(__fadd_rn(x, v)), lo), hi);
+    const float a = __fmul_rn(p.w, v);
+    const float b = __fmul_rn(__fmul_rn(p.c1, r1), __fsub_rn(pb, x));
+    const float c = __fmul_rn(__fmul_rn(p.c2, r2), __fsub_rn(g, x));
+    v = fminf(fmaxf(__fadd_rn(__fadd_rn(a, b), c), -mv), mv);
+    x = fminf(fmaxf(__fadd_rn(x, v), lo), hi);
   } else if (R == 1) {   // sso: copy from gbest / pbest / keep / resample
-    const float fresh = q<T>(__fadd_rn(lo, q<T>(__fmul_rn(span, r2))));
+    const float fresh = __fadd_rn(lo, __fmul_rn(span, r2));
     x = r1 < p.k0 ? g : (r1 < p.k1 ? pb : (r1 < p.k2 ? x : fresh));
     x = fminf(fmaxf(x, lo), hi);
   } else {               // lowcost: Bernoulli-selected difference terms
-    const float a = r1 < 0.5f ? q<T>(__fsub_rn(pb, x)) : 0.0f;
-    const float b = r2 < 0.5f ? q<T>(__fsub_rn(g, x)) : 0.0f;
-    v = fminf(fmaxf(q<T>(__fadd_rn(q<T>(__fadd_rn(v, a)), b)), -mv), mv);
-    x = fminf(fmaxf(q<T>(__fadd_rn(x, v)), lo), hi);
+    const float a = r1 < 0.5f ? __fsub_rn(pb, x) : 0.0f;
+    const float b = r2 < 0.5f ? __fsub_rn(g, x) : 0.0f;
+    v = fminf(fmaxf(__fadd_rn(__fadd_rn(v, a), b), -mv), mv);
+    x = fminf(fmaxf(__fadd_rn(x, v), lo), hi);
   }
 }
 
@@ -267,11 +260,12 @@ __device__ __forceinline__ bool deb_improved(float fn, float vn, float fo,
 // One thread an element (k, col) of the [D, S*N] arrays, grid-stride:
 // neighbouring threads touch neighbouring columns of one row. The attractor
 // of column col is column col / gdiv of the attractor array (gdiv = N: gp, one
-// column a swarm; gdiv = bn: lp, one column a particle block).
-template <int R, typename T>
+// column a swarm; gdiv = bn: lp, one column a particle block). The float
+// library's advance; the bfloat16 library's is split_advance_bf16_kernel.
+template <int R>
 __global__ void __launch_bounds__(kAdvanceThreads) split_advance_kernel(
-    T* __restrict__ pos, T* __restrict__ vel,
-    const T* __restrict__ pbp, const T* __restrict__ attractor,
+    float* __restrict__ pos, float* __restrict__ vel,
+    const float* __restrict__ pbp, const float* __restrict__ attractor,
     const float* __restrict__ bounds, const int* __restrict__ fids,
     const uint32_t* __restrict__ seeds, const uint32_t* __restrict__ its,
     int n, int d, int s_cnt, int gdiv, uint32_t it_off, Coef cf) {
@@ -287,16 +281,317 @@ __global__ void __launch_bounds__(kAdvanceThreads) split_advance_kernel(
     const float* b = bounds + (size_t)(fids ? fids[s] : 0) * 4 * d;
     const uint32_t it = its[s] + it_off + 1u;
     const uint32_t idx = (uint32_t)i * (uint32_t)d + (uint32_t)k;
-    const float r1 = uniform01<T>(seeds[s], it, kStreamR1, idx);
-    const float r2 = uniform01<T>(seeds[s], it, kStreamR2, idx);
-    float x = widen(pos[e]), v = widen(vel[e]);
-    advance<R, T>(cf, r1, r2, x, v, widen(pbp[e]),
-                  widen(attractor[(size_t)k * gld + col / gdiv]), b[k],
-                  b[d + k], b[2 * d + k], b[3 * d + k]);
-    pos[e] = narrow<T>(x);
-    vel[e] = narrow<T>(v);
+    const float r1 = uniform01(seeds[s], it, kStreamR1, idx);
+    const float r2 = uniform01(seeds[s], it, kStreamR2, idx);
+    float x = pos[e], v = vel[e];
+    advance<R>(cf, r1, r2, x, v, pbp[e],
+               attractor[(size_t)k * gld + col / gdiv], b[k], b[d + k],
+               b[2 * d + k], b[3 * d + k]);
+    pos[e] = x;
+    vel[e] = v;
   }
 }
+
+#ifdef PSO_T_BF16
+// ---- the bfloat16 advance: split_advance_bf16_kernel ------------------------
+// What bounds the advance in each dtype. In float it moves 20 bytes an
+// element against ~42 integer operations (the counter hash) and 16 float
+// ones, so bytes bound it (23.5 us at D=120, N=32768). In bfloat16 it moves
+// 10 bytes (11.7 us) against the same hash (~9.9 us on the integer pipe,
+// half the float rate), so what the kernel issues beside the hash decides
+// its time. Written as the float kernel is, one thread an element with each
+// of its 12 results rounded to bfloat16, it would issue far more: a 64-bit
+// division and the swarm's counters and bound rows for every element, a
+// 2-byte access a lane, and two conversions (float to bfloat16 and back)
+// around each rounding, on the conversion pipe (16 a clock an SM). What
+// this kernel does about it:
+//   * a CTA takes one row k (grid y, strided past 65535) and a stretch of
+//     columns; the row's bounds, the swarm's counters and the hash's
+//     per-swarm terms are loaded or computed once a thread, the element
+//     index's hash terms advance by a constant from lane to lane, and no
+//     64-bit division is left;
+//   * L = 8 lanes a thread: pos, vel and pbest_pos in one 16-byte access
+//     each (four lane pairs), all issued before the hash; the attractor
+//     column is one value for the tile (gdiv % 8 == 0). L = 1, a lane a
+//     thread, takes what that cannot: gdiv % 8 != 0 (which includes
+//     N % 8 != 0), an operand not on 16 bytes, a member table; and the
+//     small launches, where eight lanes a thread leave too few threads to
+//     hide their latency (the caller, kernels/pso_split.py advance_lanes,
+//     picks);
+//   * the rule on lane pairs in sm_90's packed instructions (bf2 below):
+//     one instruction, and one rounding, for two lanes' operation, no
+//     conversion but the draws' one pair rounding.
+// It computes split_advance_plain (kernels/pso_split.py) in bfloat16 bit for
+// bit: the float kernel's operations in the same order, each result rounded
+// once to bfloat16 (chip_smoke.py 16a; pso_split_bf16_check proves the
+// premise below).
+
+// Two bfloat16 lanes in a 32-bit register, the lower lane in the low half,
+// and the packed instructions on them. Each rounds the exact result once to
+// nearest even, which is what __f*_rn followed by __float2bfloat16_rn
+// computes on values of bfloat16: a product of two 8-bit
+// significands is exact in float, and rounding a float sum (24 bits) again
+// to 8 bits gives the once-rounded sum (24 >= 2 * 8 + 2). The explicit .rn
+// keeps ptxas from contracting a product and a sum into an fma, which would
+// skip the product's rounding; max and min return one of their operands,
+// as fmaxf and fminf do.
+typedef uint32_t bf2;
+__device__ __forceinline__ bf2 bmul(bf2 a, bf2 b) {
+  bf2 r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ bf2 badd(bf2 a, bf2 b) {
+  bf2 r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ bf2 bsub(bf2 a, bf2 b) {
+  bf2 r;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ bf2 bmax(bf2 a, bf2 b) {
+  bf2 r;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ bf2 bmin(bf2 a, bf2 b) {
+  bf2 r;
+  asm("min.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+// Two floats rounded to bfloat16 (to nearest even) in one instruction.
+__device__ __forceinline__ bf2 bpack(float lo, float hi) {
+  bf2 r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+// A float that holds a value of bfloat16 (a bound, a coefficient), in both
+// lanes: its high 16 bits, exactly.
+__device__ __forceinline__ bf2 bboth(float f) {
+  return __byte_perm(__float_as_uint(f), 0u, 0x3232);
+}
+__device__ __forceinline__ bf2 bboth(unsigned short h) {
+  return (bf2)h * 0x10001u;
+}
+__device__ __forceinline__ float blo(bf2 p) {
+  return __uint_as_float(p << 16);
+}
+__device__ __forceinline__ float bhi(bf2 p) {
+  return __uint_as_float(p & 0xFFFF0000u);
+}
+// The lanes whose f is below t, as a mask of their halves.
+__device__ __forceinline__ uint32_t below(bf2 r, float t) {
+  return (blo(r) < t ? 0x0000FFFFu : 0u) | (bhi(r) < t ? 0xFFFF0000u : 0u);
+}
+
+constexpr bf2 kScale2 = 0x33803380u;   // 2^-24 in both lanes
+
+// uniform01's draw in bfloat16 for two elements (their (h >> 8) values u0,
+// u1) as a lane pair: each rounded to bfloat16 (to nearest even), then
+// scaled exactly, as the reference's (h >> 8).astype(dtype) * 2**-24.
+__device__ __forceinline__ bf2 draw_pair(uint32_t u0, uint32_t u1) {
+  return bmul(bpack((float)u0, (float)u1), kScale2);
+}
+// (h >> 8) of uniform01's hash for one element, its terms summed ahead:
+// hs = seed*C + it*C + stream*C + idx*C, t = idx*C + it*C.
+__device__ __forceinline__ uint32_t draw24(uint32_t hs, uint32_t t) {
+  return mix32(mix32(hs) ^ t) >> 8;
+}
+
+struct Coef2 { bf2 w, c1, c2; float k0, k1, k2; };
+struct Row2 { bf2 lo, hi, mv, nmv, span; };
+
+// advance<R> on a lane pair in bfloat16: the same operations in the same
+// order, each one packed instruction that rounds its result once.
+template <int R>
+__device__ __forceinline__ void advance2(const Coef2& p, bf2 r1, bf2 r2,
+                                         bf2& x, bf2& v, bf2 pb, bf2 g,
+                                         const Row2& b) {
+  if (R == 0) {          // pso
+    const bf2 a = bmul(p.w, v);
+    const bf2 c = bmul(bmul(p.c1, r1), bsub(pb, x));
+    const bf2 e = bmul(bmul(p.c2, r2), bsub(g, x));
+    v = bmin(bmax(badd(badd(a, c), e), b.nmv), b.mv);
+    x = bmin(bmax(badd(x, v), b.lo), b.hi);
+  } else if (R == 1) {   // sso: each lane picks by its own r1
+    const bf2 fresh = badd(b.lo, bmul(b.span, r2));
+    const float f0 = blo(r1), f1 = bhi(r1);
+    const bf2 s0 =
+        f0 < p.k0 ? g : (f0 < p.k1 ? pb : (f0 < p.k2 ? x : fresh));
+    const bf2 s1 =
+        f1 < p.k0 ? g : (f1 < p.k1 ? pb : (f1 < p.k2 ? x : fresh));
+    x = bmin(bmax((s0 & 0x0000FFFFu) | (s1 & 0xFFFF0000u), b.lo), b.hi);
+  } else {               // lowcost: +0 where a term is not selected
+    const bf2 a = bsub(pb, x) & below(r1, 0.5f);
+    const bf2 c = bsub(g, x) & below(r2, 0.5f);
+    v = bmin(bmax(badd(badd(v, a), c), b.nmv), b.mv);
+    x = bmin(bmax(badd(x, v), b.lo), b.hi);
+  }
+}
+
+// L = 8 or 1 lanes a thread (the note above): thread t of CTA (bx, by) takes
+// columns [col, col + L) of rows by, by + gridDim.y, ..., col = (bx *
+// blockDim.x + t) * L. gld = S*N / gdiv, the attractor's row length.
+template <int R, int L>
+__global__ void __launch_bounds__(kAdvanceThreads) split_advance_bf16_kernel(
+    __nv_bfloat16* __restrict__ pos, __nv_bfloat16* __restrict__ vel,
+    const __nv_bfloat16* __restrict__ pbp,
+    const __nv_bfloat16* __restrict__ attractor,
+    const float* __restrict__ bounds, const int* __restrict__ fids,
+    const uint32_t* __restrict__ seeds, const uint32_t* __restrict__ its,
+    int n, int d, int s_cnt, int gdiv, int gld, uint32_t it_off, Coef cf) {
+  using U = unsigned short;
+  const int ld = s_cnt * n;
+  const long long c0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * L;
+  if (c0 >= ld) return;
+  const int col = (int)c0;
+  // with L = 8 the tile lies in one swarm (N % 8 == 0) and one attractor
+  // column (gdiv % 8 == 0)
+  const int s = s_cnt == 1 ? 0 : col / n;
+  const int i = col - s * n;
+  const int acol = gdiv == n ? s : col / gdiv;
+  const uint32_t it = its[s] + it_off + 1u;
+  const uint32_t hs = seeds[s] * 0x9E3779B9u + it * 0x85EBCA6Bu;
+  const uint32_t h1 = hs + kStreamR1 * 0xC2B2AE35u;
+  const uint32_t h2 = hs + kStreamR2 * 0xC2B2AE35u;
+  const uint32_t ts = it * 0xC2B2AE35u;
+  // a lane further: the element index grows by d
+  const uint32_t step_a = (uint32_t)d * 0x27D4EB2Fu;
+  const uint32_t step_t = (uint32_t)d * 0x9E3779B9u;
+  const float* bnd = bounds + (size_t)(fids ? fids[s] : 0) * 4 * d;
+  const Coef2 p{bboth(cf.w), bboth(cf.c1), bboth(cf.c2), cf.k0, cf.k1, cf.k2};
+  const U* att = reinterpret_cast<const U*>(attractor);
+  for (int k = blockIdx.y; k < d; k += gridDim.y) {
+    const size_t e = (size_t)k * ld + col;
+    const bf2 g = bboth(att[(size_t)k * gld + acol]);
+    const bf2 mv = bboth(bnd[2 * d + k]);
+    const Row2 b{bboth(bnd[k]), bboth(bnd[d + k]), mv, mv ^ 0x80008000u,
+                 bboth(bnd[3 * d + k])};
+    const uint32_t idx = (uint32_t)i * (uint32_t)d + (uint32_t)k;
+    uint32_t a = idx * 0x27D4EB2Fu, t = idx * 0x9E3779B9u + ts;
+    if constexpr (L == 8) {
+      const uint4 x4 = *reinterpret_cast<const uint4*>(pos + e);
+      const uint4 v4 =
+          R == 1 ? uint4{} : *reinterpret_cast<const uint4*>(vel + e);
+      const uint4 p4 = *reinterpret_cast<const uint4*>(pbp + e);
+      bf2 x[4] = {x4.x, x4.y, x4.z, x4.w}, v[4] = {v4.x, v4.y, v4.z, v4.w};
+      const bf2 pb[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t u1a = draw24(h1 + a, t), u2a = draw24(h2 + a, t);
+        a += step_a;
+        t += step_t;
+        const uint32_t u1b = draw24(h1 + a, t), u2b = draw24(h2 + a, t);
+        a += step_a;
+        t += step_t;
+        advance2<R>(p, draw_pair(u1a, u1b), draw_pair(u2a, u2b), x[j], v[j],
+                    pb[j], g, b);
+      }
+      *reinterpret_cast<uint4*>(pos + e) = uint4{x[0], x[1], x[2], x[3]};
+      if (R != 1)   // sso passes the velocity through: vel is left as it is
+        *reinterpret_cast<uint4*>(vel + e) = uint4{v[0], v[1], v[2], v[3]};
+    } else {        // one lane, in both halves of the pair
+      const U* pu = reinterpret_cast<const U*>(pos);
+      bf2 x = bboth(pu[e]);
+      bf2 v = R == 1 ? 0u : bboth(reinterpret_cast<const U*>(vel)[e]);
+      const bf2 pb = bboth(reinterpret_cast<const U*>(pbp)[e]);
+      const uint32_t u1 = draw24(h1 + a, t), u2 = draw24(h2 + a, t);
+      advance2<R>(p, draw_pair(u1, u1), draw_pair(u2, u2), x, v, pb, g, b);
+      reinterpret_cast<U*>(pos)[e] = (U)x;
+      if (R != 1) reinterpret_cast<U*>(vel)[e] = (U)v;
+    }
+  }
+}
+
+// ---- the premise, on the card: pso_split_bf16_check ------------------------
+// Each packed instruction above on every operand pair against the float
+// operation rounded once, the plain version's model: mul, add and sub over
+// all 2^32 pairs of bfloat16 values (a, b) against
+// __float2bfloat16_rn(__f*_rn(a, b)); max and min
+// against fmaxf and fminf; the draws' pair rounding over every (h >> 8)
+// (2^24) against __float2bfloat16_rn of each. Equal: the same 16 bits, or
+// NaN on both sides whatever its sign and payload (the kernel's operands are
+// never NaN); a signed zero is compared by its bits, so max(-0, +0) must
+// pick the zero fmaxf picks.
+constexpr int kOpMul = 0, kOpAdd = 1, kOpSub = 2, kOpMax = 3, kOpMin = 4,
+              kOpDraw = 5, kOps = 6;
+
+__device__ __forceinline__ bool same_bf16(uint32_t a, uint32_t b) {
+  return a == b || ((a & 0x7FFFu) > 0x7F80u && (b & 0x7FFFu) > 0x7F80u);
+}
+
+template <int OP>
+__device__ __forceinline__ uint32_t float_form(uint32_t a, uint32_t b) {
+  const float x = __uint_as_float(a << 16), y = __uint_as_float(b << 16);
+  float r;
+  if (OP == kOpMul) r = __fmul_rn(x, y);
+  else if (OP == kOpAdd) r = __fadd_rn(x, y);
+  else if (OP == kOpSub) r = __fsub_rn(x, y);
+  else if (OP == kOpMax) r = fmaxf(x, y);
+  else r = fminf(x, y);
+  return __bfloat16_as_ushort(__float2bfloat16_rn(r));
+}
+
+template <int OP>
+__device__ __forceinline__ bf2 packed_form(bf2 a, bf2 b) {
+  if (OP == kOpMul) return bmul(a, b);
+  if (OP == kOpAdd) return badd(a, b);
+  if (OP == kOpSub) return bsub(a, b);
+  if (OP == kOpMax) return bmax(a, b);
+  return bmin(a, b);
+}
+
+// out[0] += mismatches, out[1] = min(out[1], the first mismatch's index:
+// a << 16 | b, or the draw's value), out[2] += the pairs checked.
+template <int OP>
+__global__ void __launch_bounds__(256) split_bf16_check_kernel(
+    unsigned long long* out) {
+  // packed pair p: lanes (a, b) and (a, b + 1), a = p >> 15, b = 2p mod 2^16;
+  // the draws: values 2p and 2p + 1
+  const uint32_t total = OP == kOpDraw ? 1u << 23 : 1u << 31;
+  unsigned long long bad = 0, first = ~0ull, seen = 0;
+  for (uint32_t q = blockIdx.x * blockDim.x + threadIdx.x; q < total;
+       q += gridDim.x * blockDim.x) {
+    uint32_t got, want0, want1, id0;
+    if (OP == kOpDraw) {
+      id0 = 2 * q;
+      got = bpack((float)id0, (float)(id0 + 1));
+      want0 = __bfloat16_as_ushort(__float2bfloat16_rn((float)id0));
+      want1 = __bfloat16_as_ushort(__float2bfloat16_rn((float)(id0 + 1)));
+    } else {
+      const uint32_t a = q >> 15, b = (2 * q) & 0xFFFFu;
+      id0 = (a << 16) | b;
+      got = packed_form<OP>(a * 0x10001u, b | ((b + 1) << 16));
+      want0 = float_form<OP>(a, b);
+      want1 = float_form<OP>(a, b + 1);
+    }
+    seen += 2;
+    if (!same_bf16(got & 0xFFFFu, want0)) {
+      ++bad;
+      first = first < id0 ? first : id0;
+    }
+    if (!same_bf16(got >> 16, want1)) {
+      ++bad;
+      first = first < id0 + 1 ? first : id0 + 1;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    bad += __shfl_xor_sync(0xFFFFFFFFu, bad, o);
+    seen += __shfl_xor_sync(0xFFFFFFFFu, seen, o);
+    const unsigned long long f = __shfl_xor_sync(0xFFFFFFFFu, first, o);
+    first = f < first ? f : first;
+  }
+  if ((threadIdx.x & 31) == 0) {
+    if (bad) atomicAdd(out, bad);
+    if (first != ~0ull) atomicMin(out + 1, first);
+    atomicAdd(out + 2, seen);
+  }
+}
+#endif  // PSO_T_BF16
 
 // ---- split_fold_publish_kernel --------------------------------------------
 // Everything the kernel reads and writes; null pointers for what a mode
@@ -651,19 +946,37 @@ __global__ void __launch_bounds__(kFoldThreads)
   if (s_last) publish_swarm(a, s, nb, &s_key);
 }
 
+#ifdef PSO_T_BF16
+typedef void (*AdvanceKernel)(Store*, Store*, const Store*, const Store*,
+                              const float*, const int*, const uint32_t*,
+                              const uint32_t*, int, int, int, int, int,
+                              uint32_t, Coef);
+// [lanes == 8][rule]
+const AdvanceKernel kAdvance[2][3] = {
+    {split_advance_bf16_kernel<0, 1>, split_advance_bf16_kernel<1, 1>,
+     split_advance_bf16_kernel<2, 1>},
+    {split_advance_bf16_kernel<0, 8>, split_advance_bf16_kernel<1, 8>,
+     split_advance_bf16_kernel<2, 8>}};
+typedef void (*CheckKernel)(unsigned long long*);
+const CheckKernel kCheck[kOps] = {
+    split_bf16_check_kernel<kOpMul>, split_bf16_check_kernel<kOpAdd>,
+    split_bf16_check_kernel<kOpSub>, split_bf16_check_kernel<kOpMax>,
+    split_bf16_check_kernel<kOpMin>, split_bf16_check_kernel<kOpDraw>};
+#else
 typedef void (*AdvanceKernel)(Store*, Store*, const Store*, const Store*,
                               const float*, const int*, const uint32_t*,
                               const uint32_t*, int, int, int, int, uint32_t,
                               Coef);
-const AdvanceKernel kAdvance[3] = {split_advance_kernel<0, Store>,
-                                   split_advance_kernel<1, Store>,
-                                   split_advance_kernel<2, Store>};
+const AdvanceKernel kAdvance[3] = {split_advance_kernel<0>,
+                                   split_advance_kernel<1>,
+                                   split_advance_kernel<2>};
 
 int grid_for(size_t total) {
   // Enough CTAs to fill the card many times over; the loop strides past.
   const size_t want = (total + kAdvanceThreads - 1) / kAdvanceThreads;
   return (int)(want < 65536 ? want : 65536);
 }
+#endif
 
 }  // namespace
 
@@ -672,24 +985,57 @@ extern "C" {
 // One advance of every element of the [D, S*N] state (iteration
 // its[s] + it_off + 1 of swarm s) with rule `rule`; the attractor of
 // column col is column col / gdiv of `attractor`. The arrays are of the
-// library's storage type, the coefficients its values.
+// library's storage type, the coefficients its values. `lanes`: 1, or in
+// bfloat16 8, the 16-byte path, which needs gdiv % 8 == 0, no member
+// table and pos, vel and pbp on 16 bytes (refused otherwise).
 int pso_split_advance(Store* pos, Store* vel, const Store* pbp,
                       const Store* attractor, const float* bounds,
                       const int* fids, const unsigned* seeds,
                       const unsigned* its, int n, int d, int s_cnt, int gdiv,
                       unsigned it_off, int rule, float w, float c1, float c2,
-                      float k0, float k1, float k2, void* stream) {
+                      float k0, float k1, float k2, int lanes, void* stream) {
   if (n < 1 || d < 1 || s_cnt < 1 || gdiv < 1 || n % gdiv ||
       rule < 0 || rule > 2 || (size_t)s_cnt * n >= (1u << 31))
     return (int)cudaErrorInvalidValue;
-  const size_t total = (size_t)d * s_cnt * n;
   const Coef cf{w, c1, c2, k0, k1, k2};
+#ifdef PSO_T_BF16
+  const bool v8 = lanes == 8;
+  if ((lanes != 1 && !v8) ||
+      (v8 && (gdiv % 8 || fids ||
+              ((uintptr_t)pos | (uintptr_t)vel | (uintptr_t)pbp) % 16)))
+    return (int)cudaErrorInvalidValue;
+  const int ld = s_cnt * n;
+  const int tiles = (ld + lanes - 1) / lanes;         // a thread each, a row
+  const int threads = tiles < kAdvanceThreads ? (tiles + 31) / 32 * 32
+                                              : kAdvanceThreads;
+  const dim3 grid((unsigned)((tiles + threads - 1) / threads),
+                  (unsigned)(d < 65535 ? d : 65535));
+  kAdvance[v8][rule]<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      pos, vel, pbp, attractor, bounds, fids, (const uint32_t*)seeds,
+      (const uint32_t*)its, n, d, s_cnt, gdiv, ld / gdiv, (uint32_t)it_off,
+      cf);
+#else
+  if (lanes != 1) return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)d * s_cnt * n;
   kAdvance[rule]<<<grid_for(total), kAdvanceThreads, 0,
                    (cudaStream_t)stream>>>(
       pos, vel, pbp, attractor, bounds, fids, (const uint32_t*)seeds,
       (const uint32_t*)its, n, d, s_cnt, gdiv, (uint32_t)it_off, cf);
+#endif
   return (int)cudaGetLastError();
 }
+
+#ifdef PSO_T_BF16
+// pso_split_bf16_check's op (0 mul, 1 add, 2 sub, 3 max, 4 min, 5 the
+// draws' pair rounding) on every operand pair, into out[3] (zeroed by the
+// caller, out[1] set to all ones): mismatches, the first mismatch's index,
+// the pairs checked.
+int pso_split_bf16_check(int op, unsigned long long* out, void* stream) {
+  if (op < 0 || op >= kOps || !out) return (int)cudaErrorInvalidValue;
+  kCheck[op]<<<132 * 8, 256, 0, (cudaStream_t)stream>>>(out);
+  return (int)cudaGetLastError();
+}
+#endif
 
 // The pbest fold and the intra-block queue of every particle block, and
 // the cross-block stage of every swarm in the same launch: mode 0 (queue:

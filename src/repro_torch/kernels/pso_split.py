@@ -2,9 +2,10 @@
 six unconstrained built-ins, on two hand-written CUDA kernels around the
 user's own torch operators.
 
-The kernels are ``csrc/pso_split.cu``'s ``split_advance_kernel`` and
-``split_fold_publish_kernel``. Together with the torch step between them
-they replace the converted forms of the Pallas call functions of
+The kernels are ``csrc/pso_split.cu``'s ``split_advance_kernel`` (in
+bfloat16 ``split_advance_bf16_kernel``) and ``split_fold_publish_kernel``.
+Together with the torch step between them they replace the converted forms
+of the Pallas call functions of
 ``repro.kernels.pso_step`` (``queue_step_call``, ``fused_call``,
 ``fused_batch_call``, ``hetero_fused_batch_call``, ``fused_async_call``,
 ``fused_async_batch_call``, ``hetero_fused_async_batch_call``), which trace
@@ -24,7 +25,12 @@ bodies. One iteration is:
    that arrives last at its swarm's counter (``arrive``).
 
 Each particle block of the fold runs on a cluster of one or two CTAs that
-share its pbest copies by rows (``fold_cluster_size``).
+share its pbest copies by rows (``fold_cluster_size``). In bfloat16 the
+advance takes eight lanes a thread in 16-byte accesses where the shape and
+the operands' alignment allow and the launch is large, else a lane a thread
+(``advance_lanes``); both compute on lane pairs with sm_90's packed
+bfloat16 instructions, whose premise ``check_bf16_ops`` runs on every
+operand pair.
 
 Semantics (held by ``tests/test_torch_constraints.py``):
 
@@ -108,6 +114,18 @@ ACT_NONE, ACT_SYNC, ACT_FLUSH = 0, 1, 2
 FOLD_CLUSTERS = (1, 2)
 #: The fewest rows of the pbest copies each CTA of a cluster takes.
 FOLD_MIN_ROWS = 8
+#: Lanes a thread of the bfloat16 advance's 16-byte path (``advance_lanes``).
+ADVANCE_LANES = 8
+#: The fewest elements (D * S * N) a bfloat16 advance takes the 16-byte
+#: path at (``advance_lanes``): below it a lane a thread is faster, eight
+#: lanes a thread leaving too few threads to hide their latency
+#: (chip_smoke.py 16c's sweep of both paths by size: the lane path ahead
+#: at 131072 elements, the 16-byte path at 245760).
+ADVANCE_MIN_ELEMENTS = 5 << 15
+#: The packed bfloat16 operations of the advance kernel that
+#: ``check_bf16_ops`` holds to the float operation rounded once, in the C
+#: entry's order.
+BF16_OPS = ("mul", "add", "sub", "max", "min", "draw")
 
 _U32 = 0xFFFFFFFF
 
@@ -287,9 +305,13 @@ def _lib(dtype: torch.dtype = torch.float32):
     lib = _build.load("pso_split", _VARIANT[dtype])
     p, i, u, f = c.c_void_p, c.c_int, c.c_uint, c.c_float
     lib.pso_split_advance.argtypes = ([p] * 8 + [i] * 4 + [u, i] + [f] * 6
-                                      + [p])
+                                      + [i, p])
     lib.pso_split_fold_publish.argtypes = [p] * 17 + [i] * 9 + [p]
-    for fn in (lib.pso_split_advance, lib.pso_split_fold_publish):
+    fns = [lib.pso_split_advance, lib.pso_split_fold_publish]
+    if dtype == torch.bfloat16:
+        lib.pso_split_bf16_check.argtypes = [i, p, p]
+        fns.append(lib.pso_split_bf16_check)
+    for fn in fns:
         fn.restype = i
     return lib
 
@@ -369,13 +391,42 @@ def _copy_into(dst, out):
         dst[name].copy_(t)
 
 
+def advance_paths(pos, vel, pbp, *, gdiv: int,
+                  fids=None) -> Tuple[int, ...]:
+    """The lanes a thread the advance kernel can take for these operands:
+    1 (the float kernel; the bfloat16 kernel's lane path, a kernel of its
+    own), and ``ADVANCE_LANES`` (the bfloat16 kernel's 16-byte path) where
+    the state is bfloat16, every attractor column spans whole tiles of eight
+    lanes (``gdiv % 8 == 0``, so N is a multiple of 8 and no tile straddles
+    two swarms), there is no member table, and pos, vel and pbp start on 16
+    bytes."""
+    if (pos.dtype != torch.bfloat16 or gdiv % ADVANCE_LANES
+            or fids is not None
+            or any(t.data_ptr() % 16 for t in (pos, vel, pbp))):
+        return (1,)
+    return (1, ADVANCE_LANES)
+
+
+def advance_lanes(pos, vel, pbp, *, gdiv: int, fids=None) -> int:
+    """The lanes a thread the advance kernel takes: the 16-byte path where
+    ``advance_paths`` allows it and the launch holds at least
+    ``ADVANCE_MIN_ELEMENTS`` elements, else a lane a thread."""
+    if pos.numel() < ADVANCE_MIN_ELEMENTS:
+        return 1
+    return advance_paths(pos, vel, pbp, gdiv=gdiv, fids=fids)[-1]
+
+
 def advance(pos, vel, pbp, attractor, seeds, its,
             specs: Sequence[KernelSpec], fids=None, *, n: int, it_off: int,
             gdiv: int, counters=None):
     """``split_advance_plain`` in place: on CUDA tensors one launch of
-    ``split_advance_kernel`` (``counters``: ``uint32_rows`` made once a
-    call, else made here), on CPU tensors the plain version. A
-    heterogeneous table (``fids``) takes float32 only."""
+    the advance kernel (``counters``: ``uint32_rows`` made once a call,
+    else made here), on CPU tensors the plain version. In bfloat16 the
+    kernel takes ``advance_lanes`` lanes a thread (the tests and
+    chip_smoke.py select each path through ``ADVANCE_MIN_ELEMENTS``). A
+    heterogeneous table (``fids``) takes float32 only. A launch
+    of the bfloat16 lane path also counts in
+    ``advance.bf16_lane_launches``."""
     d, ld = pos.shape
     _validate("split advance", d, ld, n, 1, pos.dtype, pos=pos, vel=vel,
               pbp=pbp)
@@ -405,17 +456,47 @@ def advance(pos, vel, pbp, attractor, seeds, its,
     coef = [weak(c, dtype) for c in (spec.w, spec.c1, spec.c2,
                                      *resolve_rule(spec.rule)
                                      .kernel_consts())]
+    lanes = advance_lanes(pos, vel, pbp, gdiv=gdiv, fids=fids)
     with torch.cuda.device(dev):
         _check(_lib(dtype).pso_split_advance(
             *_ptrs([pos, vel, pbp, attractor, bounds, fids, counters[0],
                     counters[1]]),
             n, d, ld // n, gdiv, it_off & _U32, kernel_rule_id(spec.rule),
-            *coef, _stream(dev)), "split advance kernel launch")
+            *coef, lanes, _stream(dev)), "split advance kernel launch")
     count(advance, dtype, 1)
+    if dtype == torch.bfloat16 and lanes == 1:
+        advance.bf16_lane_launches += 1
     return pos, vel
 
 
-advance.launches = advance.bf16_launches = 0
+advance.launches = advance.bf16_launches = advance.bf16_lane_launches = 0
+
+
+def check_bf16_ops(device=None) -> Dict[str, Tuple[int, int, int]]:
+    """The premise of the bfloat16 advance, on the card: each packed
+    instruction it computes with (``BF16_OPS``) run on every operand pair
+    against the plain version's rounding model: mul, add and sub over all
+    2^32 pairs of bfloat16 values against the float operation rounded once
+    to bfloat16; max and min against fmaxf and fminf; the draws' pair
+    rounding over all 2^24 values of (h >> 8) against one rounding each.
+    Equal means the same 16 bits, or NaN on both sides whatever its sign
+    and payload; signed zeros are compared by their bits. Returns, for each
+    operation, (mismatches, lanes checked, the first mismatch's index: ``a
+    << 16 | b``, the draw's value, or -1)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("check_bf16_ops runs the packed instructions on a "
+                         f"card; got {dev}")
+    lib = _lib(torch.bfloat16)
+    got = {}
+    with torch.cuda.device(dev):
+        for op, name in enumerate(BF16_OPS):
+            out = torch.tensor([0, -1, 0], dtype=torch.int64, device=dev)
+            _check(lib.pso_split_bf16_check(op, out.data_ptr(), _stream(dev)),
+                   f"bfloat16 {name} check launch")
+            bad, first, seen = out.tolist()
+            got[name] = (bad, seen, first if bad else -1)
+    return got
 
 
 #: The operands each mode of ``fold_publish`` needs besides pos, pbp, pbf

@@ -335,6 +335,171 @@ def test_fold_publish_refuses_a_mode_without_its_operands():
                                _cluster=4)
 
 
+def _advance_operands(d, n, s_cnt, gdiv, rule="pso", dev="cpu",
+                      misaligned=False, dtype=BF, seed=0):
+    """One advance's operands: a custom Problem's kernel spec (box [-5, 5])
+    under ``rule``, and ``s_cnt`` swarms of random positions, velocities,
+    pbest and attractor columns (numpy, seeded; values of ``dtype``), seeds
+    and iteration counters. ``misaligned`` puts pos, vel and pbp 2 bytes
+    past a 16-byte boundary, contiguous all the same."""
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, w=0.7, update_rule=rule,
+                        fitness=_problem("custom"),
+                        dtype=str(dtype).split(".")[-1]).resolved()
+    rng = np.random.default_rng(seed)
+    ld = s_cnt * n
+
+    def arr(shape, bound, off=False):
+        t = torch.tensor(rng.uniform(-bound, bound, size=shape).astype(
+            np.float32)).to(dtype).to(dev)
+        if not off:
+            return t
+        out = torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:]
+        return out.view(shape).copy_(t)
+    pos, vel, pbp = (arr((d, ld), b, misaligned) for b in (5.0, 12.0, 5.0))
+    att = arr((d, ld // gdiv), 5.0)
+    seeds = torch.tensor(rng.integers(0, 2 ** 31, size=s_cnt))
+    its = torch.tensor(rng.integers(0, 5000, size=s_cnt))
+    return pos, vel, pbp, att, seeds, its, (ops.kernel_spec(cfg),)
+
+
+#: advance_paths' cases: (dtype, n, S, gdiv, misaligned, a member table,
+#: the paths the operands allow).
+PATH_CASES = [(BF, 1024, 1, 1024, False, False, (1, 8)),   # gbest
+              (BF, 1024, 4, 256, False, False, (1, 8)),    # locals, S = 4
+              (BF, 1002, 1, 1002, False, False, (1,)),     # N % 8: a tail
+              (BF, 1000, 1, 500, False, False, (1,)),      # gdiv % 8
+              (BF, 1024, 1, 1024, True, False, (1,)),      # 2 bytes off 16
+              (BF, 1024, 2, 1024, False, True, (1,)),      # a member table
+              (torch.float32, 1024, 1, 1024, False, False, (1,))]
+
+
+@pytest.mark.parametrize("dtype,n,s_cnt,gdiv,off,table,want", PATH_CASES)
+def test_advance_paths_by_shape_and_alignment(dtype, n, s_cnt, gdiv, off,
+                                              table, want):
+    pos, vel, pbp, *_ = _advance_operands(3, n, s_cnt, gdiv, dtype=dtype,
+                                          misaligned=off)
+    assert pos.is_contiguous() and (pos.data_ptr() % 16 != 0) == off
+    fids = torch.zeros(s_cnt, dtype=torch.int32) if table else None
+    assert pso_split.advance_paths(pos, vel, pbp, gdiv=gdiv,
+                                   fids=fids) == want
+
+
+@pytest.mark.parametrize("d,n,off,want", [
+    (3, 1024, False, 1),                       # a small launch
+    (8, 20480, False, 8),                      # ADVANCE_MIN_ELEMENTS
+    (8, 20472, False, 1),                      # just under it
+    (120, 32768, False, 8),                    # 16c's swarm
+    (8, 20480, True, 1)])                      # large, but 2 bytes off 16
+def test_advance_lanes_takes_the_16_byte_path_on_large_launches(d, n, off,
+                                                                want):
+    pos, vel, pbp, *_ = _advance_operands(d, n, 1, n, misaligned=off)
+    big = d * n >= pso_split.ADVANCE_MIN_ELEMENTS
+    assert want == (8 if big and not off else 1)
+    assert pso_split.advance_lanes(pos, vel, pbp, gdiv=n) == want
+
+
+#: A threshold past every launch: the planner's lane path at any size.
+NEVER = 1 << 62
+
+
+@pytest.mark.parametrize("n,gdiv,least,want", [
+    (1024, 1024, 0, 8),        # the threshold at 0: the 16-byte path
+    (1024, 256, 0, 8),         # the async locals, likewise
+    (1024, 1024, NEVER, 1),    # past every launch: the lane path
+    (1002, 1002, 0, 1),        # a row tail takes the lanes at any size
+    (1000, 500, 0, 1)])        # and so does gdiv % 8
+def test_advance_lanes_follows_the_size_threshold(monkeypatch, n, gdiv,
+                                                  least, want):
+    """The card tests and chip_smoke.py select each path through the
+    planner's threshold (``ADVANCE_MIN_ELEMENTS``): at 0 the 16-byte path
+    wherever ``advance_paths`` allows it, past every launch the lane path.
+    On the CPU the advance is the plain version's whichever it picks."""
+    pos, vel, pbp, att, seeds, its, specs = _advance_operands(
+        5, n, 2, gdiv, rule="lowcost")
+    monkeypatch.setattr(pso_split, "ADVANCE_MIN_ELEMENTS", least)
+    assert pso_split.advance_lanes(pos, vel, pbp, gdiv=gdiv) == want
+    kw = dict(n=n, it_off=3, gdiv=gdiv)
+    ref = pso_split.split_advance_plain(pos, vel, pbp, att, seeds, its,
+                                        specs, **kw)
+    pso_split.advance(pos, vel, pbp, att, seeds, its, specs, **kw)
+    assert torch.equal(pos, ref[0]) and torch.equal(vel, ref[1])
+
+
+def _bf16_bits_rne(v: np.ndarray) -> np.ndarray:
+    """float64 values rounded once to bfloat16, to nearest even, written on
+    the bits: the 53-bit significand cut to 8 bits (fewer below bfloat16's
+    least normal, 2^-126, down to its subnormals' 2^-133), a carry into the
+    exponent, overflow to inf at (2 - 2^-8) * 2^127; NaN to 0x7FC0.
+    Returns the uint16 bits."""
+    b = v.view(np.uint64)
+    sign = ((b >> np.uint64(63)) << np.uint64(15)).astype(np.int64)
+    biased = ((b >> np.uint64(52)) & np.uint64(0x7FF)).astype(np.int64)
+    frac = (b & np.uint64((1 << 52) - 1)).astype(np.int64)
+    e = biased - 1023
+    m = frac | (1 << 52)
+    shift = np.minimum(45 + np.maximum(-126 - e, 0), 60)
+    kept = m >> shift
+    rem = m & ((np.int64(1) << shift) - 1)
+    half = np.int64(1) << (shift - 1)
+    kept += (rem > half) | ((rem == half) & (kept & 1 == 1))
+    bits = (np.maximum(e + 126, 0) << 7) + kept     # the carry included
+    bits = np.where(bits >= 0x7F80, 0x7F80, bits)
+    bits = np.where(v == 0, 0, bits)
+    bits = np.where(np.isnan(v), 0x7FC0, bits | sign)
+    return bits.astype(np.uint16)
+
+
+def _bf16_of_bits(bits: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(bits.astype(np.uint16).view(np.int16)).view(BF)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def _same_bf16(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    nan = lambda x: (x & 0x7FFF) > 0x7F80
+    return (a == b) | (nan(a) & nan(b))
+
+
+#: The other operand of every bfloat16 value in the rounding test: +-0,
+#: subnormals, the least normals, the extremes, +-inf, NaNs, values near 1,
+#: the draws' scale 2^-24, powers whose products overflow or underflow, and
+#: a seeded sample.
+EDGE_BITS = np.array(
+    [0x0000, 0x8000, 0x0001, 0x8001, 0x0002, 0x0003, 0x003F, 0x0040, 0x0041,
+     0x807F, 0x007F, 0x0080, 0x8080, 0x0081, 0x00FF, 0x7F7F, 0xFF7F, 0x7F7E,
+     0x7F00, 0x7F80, 0xFF80, 0x7FC0, 0xFFC0, 0x7F81, 0x3F80, 0xBF80, 0x3F81,
+     0x3F7F, 0x4000, 0x3F00, 0x3380, 0x5F80, 0x1F80, 0x0C00, 0x7300, 0xC2C8]
+    + np.random.default_rng(0).integers(0, 1 << 16, size=64).tolist(),
+    dtype=np.uint16)
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_bf16_rounding_model_is_the_once_rounded_result(op):
+    """The plain version's bfloat16 arithmetic (a float32 result rounded
+    once to bfloat16: torch's bfloat16 operators on the CPU, and numpy's
+    float32 operation then torch's rounding) against the exact result
+    rounded once (float64, exact for mul and to 53 bits for add and sub,
+    then ``_bf16_bits_rne``), for every bfloat16 value against
+    ``EDGE_BITS``: the premise on which the kernel's packed instructions
+    (one rounding each) compute the plain version's values."""
+    a_bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    a, b = _bf16_of_bits(a_bits)[:, None], _bf16_of_bits(EDGE_BITS)[None, :]
+    fn = {"mul": lambda x, y: x * y, "add": lambda x, y: x + y,
+          "sub": lambda x, y: x - y}[op]
+    model = _bits(fn(a, b))
+    with np.errstate(all="ignore"):
+        f32 = fn(a.float().numpy(), b.float().numpy())
+        exact = _bf16_bits_rne(fn(a.double().numpy(), b.double().numpy()))
+    from_f32 = _bits(torch.from_numpy(f32).to(BF))
+    assert _same_bf16(model, from_f32).all()
+    bad = ~_same_bf16(model, exact)
+    assert not bad.any(), (
+        f"{int(bad.sum())} {op} results differ, first "
+        f"{[hex(int(x)) for x in np.argwhere(bad)[0]]}")
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -401,6 +566,66 @@ def test_split_kernels_match_plain_on_card_bf16(cuda, name, rule, variant):
     _card_round(name, variant, 3 if name == "plane_ball" else 8, 1024, 256,
                 cuda, rule=rule, dtype="bfloat16")
     assert pso_split.advance.bf16_launches == before + 1
+
+
+#: The bfloat16 advance's cells on the card: (d, n, S, gdiv, misaligned).
+ADVANCE_BF16_CELLS = [(1, 1024, 1, 1024, False), (3, 1024, 1, 1024, False),
+                      (120, 32768, 1, 32768, False),   # 16c's swarm
+                      (24, 1002, 1, 1002, False),      # a row tail
+                      (8, 1024, 1, 1024, True),        # 2 bytes off 16
+                      (8, 1024, 4, 256, False),        # async locals, S = 4
+                      (10, 1000, 3, 500, False),       # gdiv % 8
+                      # solve_many's batch: gbest, and the async locals
+                      (10, 1024, 128, 1024, False),
+                      (10, 1024, 128, 512, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["pso", "sso", "lowcost"])
+@pytest.mark.parametrize("d,n,s_cnt,gdiv,off", ADVANCE_BF16_CELLS)
+def test_advance_bf16_each_path_bit_for_bit_on_card(cuda, monkeypatch, d, n,
+                                                    s_cnt, gdiv, off, rule):
+    """The bfloat16 advance's 16-byte path and its lane path, each selected
+    on purpose where the operands allow it (``ADVANCE_MIN_ELEMENTS`` at 0 or
+    past every launch), bit for bit ``split_advance_plain``; a lane-path
+    launch also counts in ``bf16_lane_launches``."""
+    pos, vel, pbp, att, seeds, its, specs = _advance_operands(
+        d, n, s_cnt, gdiv, rule=rule, dev=cuda, misaligned=off)
+    kw = dict(n=n, it_off=7, gdiv=gdiv)
+    want = pso_split.split_advance_plain(pos, vel, pbp, att, seeds, its,
+                                         specs, **kw)
+    paths = pso_split.advance_paths(pos, vel, pbp, gdiv=gdiv)
+    assert paths == ((1,) if off or gdiv % 8 else (1, 8))
+    for lanes in paths:
+        p, v = pos.clone(), vel.clone()
+        if off:
+            p = torch.empty(p.numel() + 1, dtype=BF, device=cuda)[1:].view(
+                p.shape).copy_(pos)
+            v = torch.empty(v.numel() + 1, dtype=BF, device=cuda)[1:].view(
+                v.shape).copy_(vel)
+        monkeypatch.setattr(pso_split, "ADVANCE_MIN_ELEMENTS",
+                            0 if lanes > 1 else NEVER)
+        assert pso_split.advance_lanes(p, v, pbp, gdiv=gdiv) == lanes
+        before = (pso_split.advance.bf16_launches,
+                  pso_split.advance.bf16_lane_launches)
+        pso_split.advance(p, v, pbp, att, seeds, its, specs, **kw)
+        torch.cuda.synchronize()
+        assert (pso_split.advance.bf16_launches,
+                pso_split.advance.bf16_lane_launches) == (
+            before[0] + 1, before[1] + (lanes == 1))
+        for got, w in ((p, want[0]), (v, want[1])):
+            assert torch.equal(got.view(torch.int16), w.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_bf16_packed_instructions_exhaustive_on_card(cuda):
+    """Every packed instruction of the bfloat16 advance equals the float
+    operation rounded once on every operand pair (``check_bf16_ops``)."""
+    got = pso_split.check_bf16_ops(cuda)
+    assert list(got) == list(pso_split.BF16_OPS)
+    for name, (bad, seen, first) in got.items():
+        assert seen == (1 << 24 if name == "draw" else 1 << 32), name
+        assert bad == 0 and first == -1, (name, bad, hex(first))
 
 
 @pytest.mark.gpu

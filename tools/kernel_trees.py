@@ -24,12 +24,18 @@ The timing and the swarms are chip_smoke.py's (``kernel_state``,
 ``with_locals``, ``device_us``); the tree's ``repro_torch`` is imported
 before ``chip_smoke``, so chip_smoke's helpers drive that tree's package.
 
-With ``--source pso_split`` each tree builds its ``pso_split.cu`` instead
-and runs its own checkout's ``chip_smoke.split_times`` (phase 6c: each
-split kernel alone at sphere_simplex d=120 n=32768, the L2 flushed, beside
-its bound, the L2 flushed by reading in every tree), since the split
-kernels and their timing differ between trees, then phase 6b's solves below d=120 (``split_solves``: host us/iter and each
-split kernel's device us/iter).
+With ``--source pso_split`` each tree builds its ``pso_split.cu`` instead,
+both libraries (float32, and bfloat16 with ``-DPSO_T_BF16``; the
+``-Xptxas -v`` comparison covers both and counts the float32 lines that
+moved apart), prints each advance kernel's SASS by instruction class
+(``advance_sass``, ``cuobjdump -sass``), and runs its own checkout's
+``chip_smoke.split_times`` and ``split_bf16_times`` (phases 6c and 16c:
+each split kernel alone at sphere_simplex d=120 n=32768 in float32, then
+in bfloat16, the L2 flushed by reading in every tree, beside its bound),
+since the split kernels and their timing differ between trees, then phase
+6b's solves below d=120 in float32 and all of them in bfloat16 (16b's
+cells; ``split_solves``: host us/iter and each split kernel's device
+us/iter).
 
 With ``--source gla`` each tree builds its ``gla.cu`` and runs this
 checkout's ``chip_smoke.gla_times`` (phase 5's float32 GLA kernel path at
@@ -61,9 +67,12 @@ def one_tree(src: str, source: str) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_trees: no CUDA device")
     card = cs.card_line()
-    lib, log = _build.build(source)
-    lines = cs.ptxas_lines(log)
-    print(f"tree {src}: {lib.name}, {len(lines)} kernels [{card}]")
+    libs = [_build.build(source)]
+    if source == "pso_split":
+        libs.append(_build.build(source, "bf16"))
+    lines = [line for _, log in libs for line in cs.ptxas_lines(log)]
+    print(f"tree {src}: {', '.join(lib.name for lib, _ in libs)}, "
+          f"{len(lines)} kernels [{card}]")
     for line in lines:
         print(f"  {line}")
     if source == "gla":
@@ -77,8 +86,11 @@ def one_tree(src: str, source: str) -> None:
         # which the timed kernel then wrote back)
         scrub = torch.ones(2 ** 26, dtype=torch.int32, device="cuda")
         cs.flush_l2 = scrub.sum
+        advance_sass([lib for lib, _ in libs], card)
         cs.split_times(card, {}, {})
+        cs.split_bf16_times(card, {}, {})
         split_solves(cs, card)
+        split_solves(cs, card, "bfloat16")
         print(json.dumps(lines))
         return
     for d, n, iters in cs.SOLVE_CELLS:
@@ -99,22 +111,75 @@ def one_tree(src: str, source: str) -> None:
     print(json.dumps(lines))
 
 
-def split_solves(cs, card: str) -> None:
-    """The tree's chip_smoke.py phase 6b solves below d=120 (``SPLIT_CELLS``)
-    through ``repro_torch.solve``: the host's us/iter (median of 3 solves)
-    and, under torch.profiler, the device us/iter of each split kernel by
-    name and of everything else on the card (the torch step)."""
+#: SASS instruction classes (``advance_sass``), by opcode.
+SASS_CLASSES = {
+    "integer": ("IMAD", "IADD3", "IADD", "VIADD", "LOP3", "SHF", "LEA",
+                "ISETP", "SEL", "IABS", "PRMT", "IMNMX", "FLO", "POPC"),
+    "conversion": ("I2F", "I2FP", "F2F", "F2FP", "F2I", "MUFU"),
+    "float": ("FMUL", "FADD", "FFMA", "FMNMX", "FSETP", "FSEL"),
+    "packed bf16": ("HMUL2", "HADD2", "HFMA2", "HMNMX2"),
+    "memory": ("LDG", "STG", "LDC", "LD", "ST")}
+
+
+def advance_sass(libs, card: str) -> None:
+    """Each advance kernel of the tree's libraries in SASS (``cuobjdump
+    -sass``): its instructions in the binary by class, and for the pso
+    rule's kernels those over the elements their stores cover (pos and vel
+    stored: the lanes of every STG over two; the static code of one loop
+    trip or tile, its set-up included)."""
+    from repro_torch.kernels import _build    # the tree's, imported first
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    for lib in libs:
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            head = part.split("\n")[0]
+            m = re.search(r"\d(split_advance(?:_bf16)?_kernel)ILi(\d)E"
+                          r"(?:Li(\d)E)?(13__nv_bfloat16)?", head)
+            if not m:
+                continue
+            name = (f"{m[1]}<{m[2]}" + (f",{m[3]}" if m[3] else "")
+                    + (",bf16" if m[4] else "") + ">")
+            ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_.]+)", part)
+            base = [op.split(".")[0] for op in ops]
+            by = {c: sum(b in names for b in base)
+                  for c, names in SASS_CLASSES.items()}
+            esize = 16 if "bf16" in name else 32
+            lanes = 0
+            for op in ops:
+                if op.startswith("STG"):
+                    w = re.search(r"\.(128|64|U16|S16|U8)\b", op)
+                    lanes += {"128": 128, "64": 64, "U16": 16, "S16": 16,
+                              "U8": 8}.get(w[1] if w else "", 32) // esize
+            per = (f"; {lanes // 2} elements stored, "
+                   f"{len(ops) / (lanes // 2):.1f} an element ("
+                   + ", ".join(f"{c} {v / (lanes // 2):.1f}"
+                               for c, v in by.items()) + ")"
+                   if m[2] == "0" and lanes else "")
+            print(f"  sass {name}: {len(ops)} instructions ("
+                  + ", ".join(f"{c} {v}" for c, v in by.items())
+                  + f"){per} [{card}]")
+
+
+def split_solves(cs, card: str, dtype: str = "float32") -> None:
+    """The tree's chip_smoke.py phase 6b solves (``SPLIT_CELLS``; below
+    d=120 in float32) through ``repro_torch.solve`` in ``dtype``: the
+    host's us/iter (median of 3 solves) and, under torch.profiler, the
+    device us/iter of each split kernel by name and of everything else on
+    the card (the torch step)."""
     import time
 
     import repro_torch
     import torch
     for label, key, d, n, iters in cs.SPLIT_CELLS:
-        if d >= 120:
+        if d >= 120 and dtype == "float32":
             continue
         for variant in ("queue_lock", "async"):
             run = functools.partial(repro_torch.solve, cs.split_problem(key),
                                     dim=d, particles=n, iters=iters, seed=0,
-                                    variant=variant, w=0.7)
+                                    variant=variant, w=0.7, dtype=dtype)
             run()                                               # warm-up
             host = []
             for _ in range(3):
@@ -127,7 +192,7 @@ def split_solves(cs, card: str) -> None:
             split = {k: v / iters for k, v in dev.items()
                      if k.startswith("split_")}
             rest = sum(dev.values()) / iters - sum(split.values())
-            print(f"  {label} d={d} n={n} x{iters} {variant}: host "
+            print(f"  {dtype} {label} d={d} n={n} x{iters} {variant}: host "
                   f"{sorted(host)[1]:.2f} us/iter; device us/iter "
                   + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
                       split.items()))
@@ -165,13 +230,16 @@ def main() -> int:
         ptxas.setdefault(src, dict(l.split(":", 1) for l in json.loads(last)))
     if len(ptxas) > 1:
         (a, pa), (b, pb) = list(ptxas.items())[:2]
-        moved = [k for k in pa if pa[k] != pb.get(k)]
-        print(f"-Xptxas -v, {a} -> {b}: {len(moved)} of {len(pa)} kernels "
-              f"differ; spills (stores + loads) "
-              f"{sum(map(spills, pa.values()))} -> "
+        keys = list(pa) + [k for k in pb if k not in pa]
+        moved = [k for k in keys if pa.get(k) != pb.get(k)]
+        f32 = [k for k in keys if "bf16" not in k]
+        print(f"-Xptxas -v, {a} -> {b}: {len(moved)} of {len(keys)} kernels "
+              f"differ, {sum(k in f32 for k in moved)} of the {len(f32)} "
+              f"float32 ones (a kernel in one tree only differs); spills "
+              f"(stores + loads) {sum(map(spills, pa.values()))} -> "
               f"{sum(map(spills, pb.values()))} B in all")
         for k in moved:
-            print(f"  {k}: {pa[k]} -> {pb.get(k)}")
+            print(f"  {k}: {pa.get(k)} -> {pb.get(k)}")
     return 0
 
 
