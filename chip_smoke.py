@@ -12,7 +12,9 @@ standard library, and exits non-zero on any failure. Phases:
 2. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` for ``sm_90a``,
    and ``pso_step.cu`` and ``pso_split.cu`` a second time with
    ``-DPSO_T_BF16`` into their bfloat16 libraries (one ``nvcc`` a library,
-   started together; each library's seconds printed), and prints each
+   started together; each library's seconds printed; the bfloat16
+   ``pso_step.cu``, the longest, left building in the background until
+   phase 15 or a phase that needs it), and prints each
    kernel's registers and spills from ``-Xptxas -v``, and the tensor-core
    (HMMA) instructions of each GLA kernel's SASS (``cuobjdump``), which the
    chunk-state and chunk-output kernels must have;
@@ -209,10 +211,18 @@ under their rows. xLSTM-350M's train step runs 6 of its 24 layers
 swarms through the kernels of rows 1, 2, 3, 5 and 6 (the library built
 with ``-DPSO_T_BF16``), under ROADMAP's bfloat16 parity contract (bit for
 bit on one CTA a block; on clusters one bfloat16 rounding of a fitness,
-``BF16_ULP``): 15a every objective and rule on one CTA and on clusters of
-2, one block and two (queue, fused, async star and ring: every bfloat16
-instantiation launched), the one-block async kernel bit for bit the fused
-kernel; cubic d=1 n=131072 (queue chained, a fused launch of 32 with
+``BF16_ULP``); the fused and async kernels take two paths there (the
+pair path, two particles a thread in packed bf16x2 arithmetic, and the
+lane path, a particle a thread, which odd or misaligned swarms take;
+``pso_step.kernel_lanes``): 15a every objective and rule on one CTA and on
+clusters of 2 and 8, one block and two (queue, fused, async star and
+ring: every bfloat16 instantiation launched), each fused and async launch
+also on the lane path (``lane_copy``: operands 2 bytes off 4) bit for bit
+the pair path, the one-block async kernel bit for bit the fused kernel;
+the shapes that force the lane path (odd blocks, one odd block on a
+cluster of 2, S=4 swarms of an odd n, every rule, counters on; lbest in
+blocks of fewer than four pairs, and the one refused); cubic
+d=1 n=131072 (queue chained, a fused launch of 32 with
 counters, the async kernel over 256 blocks by the invariants), cubic
 d=120 n=32768 on clusters of 2 (one step under the contract, the async
 kernel over 64 blocks), a one-block async swarm with counters, ring and
@@ -220,13 +230,15 @@ von Neumann over 8 blocks, rastrigin d=10 n=1024 S=128 (rows 3 and 6);
 the invariants: in the box, gbest monotone, == max(pbest), a pbest column,
 and gbest_pos evaluated by the kernel itself to gbest_fit; 15b ``solve``
 at the two solve cells (queue_lock and async, ``backend="auto"``),
-``solve_many`` rastrigin d=10 n=1024 S=128 x200 and ``ops.queue_step``
-chained, counts set to 0 just before and read just after: every bfloat16
-row launched and no float32 kernel, bfloat16 states; float16, float64 and
-a heterogeneous bfloat16 batch raise ``ValueError``; 15c each bfloat16
-kernel's ms on phase 5's call beside its plain version and its bound at 2
-bytes an element, and rows 2 and 5 in bfloat16 beside float32 at the two
-solve cells, in turns. Its launches count under the ``<row>_bf16`` rows of
+``solve_many`` rastrigin d=10 n=1024 S=128 x200, ``ops.queue_step``
+chained and ``solve`` rastrigin d=10 n=1001 (odd blocks of 143: the lane
+path), counts set to 0 just before and read just after: every bfloat16
+row launched, rows 2 and 5 on both paths, no float32 kernel, bfloat16
+states; float16, float64 and a heterogeneous bfloat16 batch raise
+``ValueError``; 15c each bfloat16 kernel's ms on phase 5's call beside
+its plain version and its bound at 2 bytes an element, rows 2 and 5 at
+the two solve cells in float32 and in bfloat16 on both paths, in turns.
+Its launches count under the ``<row>_bf16`` rows of
 the JSON. 16, bfloat16 on the split path (the converted forms 1c, 2c, 3c,
 5c, 6c; ``pso_split.cu`` built with ``-DPSO_T_BF16``): 16a the bfloat16
 advance alone at d=1, 3, 120, a row tail (n=1002), operands 2 bytes off
@@ -633,90 +645,120 @@ def gla_key(symbol: str):
 #: The build variants chip_smoke builds beside each source's plain build:
 #: (source, ``_build.VARIANTS`` key).
 BUILD_VARIANTS = (("pso_step", "bf16"), ("pso_split", "bf16"))
+#: The build phase 2 leaves running in the background: the bfloat16
+#: ``pso_step.cu`` (the lane and the pair path, the longest build), which
+#: no phase before 15 needs; a phase that does waits for it
+#: (``_build.build``), and phase 15 prints it (``join_builds``).
+BACKGROUND_BUILD = ("pso_step", "bf16")
+#: Its future, from phase 2 until ``join_builds``.
+_background = None
+
+
+def _timed_build(job):
+    t = time.perf_counter()
+    lib, log = _build.build(*job)
+    return lib, log, time.perf_counter() - t
+
+
+def _print_build(job, lib, log, sec) -> None:
+    stem, variant = job
+    print(f"  {stem}.cu{' (' + variant + ')' if variant else ''} -> "
+          f"{lib.name}: {sec:.1f} s")
+    lines = ptxas_lines(log)
+    for i in range(0, len(lines), 3):
+        print("  " + " | ".join(lines[i:i + 3]))
 
 
 def phase_build() -> None:
     """Every library at once, one nvcc each (the sources and the bfloat16
     builds of ``pso_step.cu`` and ``pso_split.cu``), each library's build
-    seconds printed."""
+    seconds printed; ``BACKGROUND_BUILD`` left running, to be joined by
+    ``join_builds``."""
     jobs = [(p.stem, "") for p in sorted(_build.CSRC.glob("*.cu"))]
-    jobs += list(BUILD_VARIANTS)
-
-    def timed_build(job):
-        t = time.perf_counter()
-        lib, log = _build.build(*job)
-        return lib, log, time.perf_counter() - t
-
+    now = [j for j in jobs + list(BUILD_VARIANTS) if j != BACKGROUND_BUILD]
+    global _background
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        builds = list(pool.map(timed_build, jobs))
-    print(f"phase 2: built {len(jobs)} librar(ies) for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for (lib, log, sec), (stem, variant) in zip(builds, jobs):
-        print(f"  {stem}.cu{' (' + variant + ')' if variant else ''} -> "
-              f"{lib.name}: {sec:.1f} s")
-        lines = ptxas_lines(log)
-        for i in range(0, len(lines), 3):
-            print("  " + " | ".join(lines[i:i + 3]))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    _background = pool.submit(_timed_build, BACKGROUND_BUILD)
+    pool.shutdown(wait=False)
+    with concurrent.futures.ThreadPoolExecutor(len(now)) as pool:
+        builds = list(pool.map(_timed_build, now))
+    stem, variant = BACKGROUND_BUILD
+    print(f"phase 2: built {len(now)} librar(ies) for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s; {stem}.cu ({variant}) "
+          f"building in the background")
+    for job, (lib, log, sec) in zip(now, builds):
+        _print_build(job, lib, log, sec)
     gla_hmma(next(lib for lib, _, _ in builds
                   if lib.name.startswith("libgla")))
 
 
-def ptxas_lines(log: str) -> list:
-    """One line a kernel from ``-Xptxas -v``: registers, and spills where
-    there are any."""
+def join_builds() -> None:
+    """Waits for phase 2's background build and prints it."""
+    global _background
+    if _background is not None:
+        _print_build(BACKGROUND_BUILD, *_background.result())
+        _background = None
+
+
+def kernel_key(entry: str) -> str:
+    """A kernel's key for its mangled symbol, alike in every tree: the
+    fused, async and queue kernels (and the bfloat16 pair path's fused and
+    async kernels) as <kernel>I[<type>]Li<fitness>ELi<rule>E[Lb<flag>E...]
+    -> kernel<f,r[,grid|block][,cluster][,lbest][,bf16]>: the fused
+    kernels' flags are grid sync and cluster, the queue kernel's cluster,
+    the async kernels' cluster and lbest; fitness 6 is the hetero kernel;
+    the storage type (float in trees before it was a parameter, which had
+    none) keys only bfloat16. Any other symbol as below."""
     fits = {str(i): name for name, i in FITNESS_IDS.items()}
     rules = {str(i): name for name, i in RULE_IDS.items()}
+    m = re.search(r"\d([a-z][a-z_]*?_kernel)I(f|13__nv_bfloat16)?Li(\d+)ELi"
+                  r"(\d+)E((?:Lb\dE)*)", entry)
+    if m:
+        flags, g = re.findall(r"Lb(\d)E", m[5]), ""
+        if m[1] in ("fused_kernel", "fused_pair_kernel"):
+            g = ",grid" if flags.pop(0) == "1" else ",block"
+        # the async kernels' lbest flag (trees before it have none)
+        lbest = m[1] in ("async_kernel", "async_pair_kernel") \
+            and len(flags) == 2 and flags.pop() == "1"
+        if flags == ["1"]:
+            g += ",cluster"
+        if lbest:
+            g += ",lbest"
+        if m[2] and m[2] != "f":
+            g += ",bf16"
+        return f"{m[1]}<{fits.get(m[3], 'hetero')},{rules[m[4]]}{g}>"
+    # GLA (gla_chunk_state<WM,NTW>), the split kernels
+    # (split_advance_kernel<rule[,T]>, split_fold_publish_kernel[<T>];
+    # the storage type, as above, keys only bfloat16;
+    # split_advance_bf16_kernel<rule,lanes>, the premise's
+    # split_bf16_check_kernel<op>) or no template
+    m = re.search(r"([a-z_]+_kernel)(?:I(?:Li(\d+)E)?"
+                  r"(f|13__nv_bfloat16)?E)?", entry)
+    b = re.search(r"split_(advance_bf16|bf16_check)_kernelILi"
+                  r"(\d+)E(?:Li(\d+)E)?E", entry)
+    if b and b[1] == "advance_bf16":
+        return f"split_advance_bf16_kernel<{rules[b[2]]},{b[3]}>"
+    if b:
+        op = int(b[2])
+        return ("split_bf16_check_kernel<"
+                f"{pso_split.BF16_OPS[op] if pso_split else op}>")
+    if gla_key(entry):
+        return gla_key(entry)
+    if m:
+        args = ([rules.get(m[2], m[2])] if m[2] else []) + (
+            ["bf16"] if m[3] and m[3] != "f" else [])
+        return m[1] + (f"<{','.join(args)}>" if args else "")
+    return entry
+
+
+def ptxas_lines(log: str) -> list:
+    """One line a kernel from ``-Xptxas -v`` (``kernel_key: registers``):
+    registers, and spills where there are any."""
     entry, spill, lines = None, "", []
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-            # mangled <kernel>I[<type>]Li<fitness>ELi<rule>E[Lb<flag>E...]
-            # -> kernel<f,r[,grid|block][,cluster][,lbest][,bf16]>: the
-            # fused kernel's flags are grid sync and cluster, the queue
-            # kernel's cluster, the async kernel's cluster and lbest;
-            # fitness 6 is the hetero kernel; the storage type (float in
-            # trees before it was a parameter, which had none) keys only
-            # bfloat16
-            m = re.search(r"([a-z]+_kernel)I(f|13__nv_bfloat16)?Li(\d+)ELi"
-                          r"(\d+)E((?:Lb\dE)*)", entry)
-            if m:
-                flags, g = re.findall(r"Lb(\d)E", m[5]), ""
-                if m[1] == "fused_kernel":
-                    g = ",grid" if flags.pop(0) == "1" else ",block"
-                # the async kernel's lbest flag (trees before it have none)
-                lbest = m[1] == "async_kernel" and len(flags) == 2 \
-                    and flags.pop() == "1"
-                if flags == ["1"]:
-                    g += ",cluster"
-                if lbest:
-                    g += ",lbest"
-                if m[2] and m[2] != "f":
-                    g += ",bf16"
-                entry = (f"{m[1]}<{fits.get(m[3], 'hetero')},"
-                         f"{rules[m[4]]}{g}>")
-            else:     # GLA (gla_chunk_state<WM,NTW>), the split kernels
-                # (split_advance_kernel<rule[,T]>, split_fold_publish_kernel
-                # [<T>]; the storage type, as above, keys only bfloat16;
-                # split_advance_bf16_kernel<rule,lanes>, the premise's
-                # split_bf16_check_kernel<op>) or no template
-                m = re.search(r"([a-z_]+_kernel)(?:I(?:Li(\d+)E)?"
-                              r"(f|13__nv_bfloat16)?E)?", entry)
-                b = re.search(r"split_(advance_bf16|bf16_check)_kernelILi"
-                              r"(\d+)E(?:Li(\d+)E)?E", entry)
-                if b and b[1] == "advance_bf16":
-                    entry = (f"split_advance_bf16_kernel<{rules[b[2]]},"
-                             f"{b[3]}>")
-                elif b:
-                    op = int(b[2])
-                    entry = ("split_bf16_check_kernel<"
-                             f"{pso_split.BF16_OPS[op] if pso_split else op}>")
-                elif gla_key(entry):
-                    entry = gla_key(entry)
-                elif m:
-                    args = ([rules.get(m[2], m[2])] if m[2] else []) + (
-                        ["bf16"] if m[3] and m[3] != "f" else [])
-                    entry = m[1] + (f"<{','.join(args)}>" if args else "")
+            entry = kernel_key(line.split("'")[1])
             spill = ""
         elif "spill" in line and \
                 "0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -6083,9 +6125,44 @@ BF = torch.bfloat16
 #: within that.
 BF16_ULP = 2.0 ** -7
 #: 15a's every-objective-and-rule shapes, (d, n, one block or two): C = 1
-#: at d=8, C = 2 at d=37 (one block and two), which with the lbest twins
-#: launches every instantiation of the bfloat16 library.
-BF16_GRID = ((8, 512, 512), (8, 1024, 512), (37, 128, 128), (37, 1024, 512))
+#: at d=8, C = 2 at d=37 (one block and two), C = 8 at d=120 (one block),
+#: which on both paths (the pair path, and the lane path on ``lane_copy``)
+#: and with the lbest twins launches every instantiation of the bfloat16
+#: library.
+BF16_GRID = ((8, 512, 512), (8, 1024, 512), (37, 128, 128), (37, 1024, 512),
+             (120, 128, 128))
+
+
+def lane_copy(state):
+    """A copy of a kernel state whose pos, vel, pbp and pbf start 2 bytes
+    past a 4-byte boundary, so that the bfloat16 fused and async kernels
+    take their lane path at any shape (``pso_step.kernel_lanes``); the
+    other tensors cloned."""
+    out = []
+    for k, t in enumerate(state):
+        if k < 4:
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            t = buf[1:].view(t.shape).copy_(t)
+        else:
+            t = t.clone()
+        out.append(t)
+    return out
+
+
+def lane_twin(run, state, want, what: str) -> None:
+    """``run`` (a wrapper call on a state) on ``lane_copy(state)``: the
+    lane path, counted as one in the wrappers' ``bf16_lane_launches``,
+    bit for bit ``want`` (the pair path's result on the same state)."""
+    before = sum(getattr(pso_step, w).bf16_lane_launches for w in LANE_ROWS)
+    got = run(lane_copy(state))
+    torch.cuda.synchronize()
+    after = sum(getattr(pso_step, w).bf16_lane_launches for w in LANE_ROWS)
+    check(after > before, f"{what}: the lane twin took the lane path")
+    check(same(got, want), f"{what}: lane path == pair path bit for bit")
+
+
+#: The wrappers whose bfloat16 launches take the pair or the lane path.
+LANE_ROWS = ("fused", "fused_batch", "fused_async", "fused_async_batch")
 
 
 def bf16_state(fit: str, d: int, n: int, seed: int = 0, rule: str = "pso"):
@@ -6147,14 +6224,16 @@ def bf16_invariants(spec, state, prev: float, c: int, what: str) -> float:
 
 
 def bf16_every_instantiation(errs: dict) -> None:
-    """15a: every objective and rule at ``BF16_GRID``'s shapes. One CTA a
-    block (d=8): the queue kernel's iteration and a fused launch of 2
-    iterations bit for bit their plain versions, the async kernel over two
-    blocks held to the invariants. Clusters (d=37, C=2): one queue and one
-    fused iteration under ``bf16_step``, the queue step bit for bit the
-    fused launch. One block at each C: the async kernel bit for bit the
-    fused kernel (the star, and the ring, whose one block folds only
-    itself). Launches every instantiation of the bfloat16 library."""
+    """15a: every objective and rule at ``BF16_GRID``'s shapes, the fused
+    and async kernels on the pair path, each launch also on the lane path
+    (``lane_twin``: bit for bit). One CTA a block (d=8): the queue kernel's
+    iteration and a fused launch of 2 iterations bit for bit their plain
+    versions, the async kernel over two blocks held to the invariants.
+    Clusters (d=37, C=2): one queue and one fused iteration under
+    ``bf16_step``, the queue step bit for bit the fused launch. One block
+    at each C (1, 2, 8): the async kernel bit for bit the fused kernel (the
+    star, and the ring, whose one block folds only itself). Launches every
+    instantiation of the bfloat16 library."""
     kinds = 0
     for fit in BUILTINS:
         for rule in RULE_IDS:
@@ -6163,6 +6242,8 @@ def bf16_every_instantiation(errs: dict) -> None:
                 c = bf16_cluster(n, d, bn)
                 what = f"bf16 {fit}/{rule} d={d} n={n} bn={bn} C={c}"
                 kw = dict(seed=seed, iteration=3, block_n=bn)
+                check(pso_step.kernel_lanes(*state[:4], n=n, block_n=bn)
+                      == pso_step.PAIR, f"{what}: the pair path")
                 if n > bn:
                     q = queue_iteration(pso_step.queue_step,
                                         [x.clone() for x in state], spec,
@@ -6173,6 +6254,9 @@ def bf16_every_instantiation(errs: dict) -> None:
                                         iters=1, **kw)
                     check(same(q, f1), f"{what}: a queue step == a fused "
                           f"launch of one iteration bit for bit")
+                    lane_twin(lambda st: pso_step.fused(*st, spec, iters=1,
+                                                        **kw),
+                              state, f1, what + " fused x1")
                     if c == 1:
                         check(same(q, qp), f"{what}: queue == plain")
                         e_q = max_err(q, qp)
@@ -6193,6 +6277,11 @@ def bf16_every_instantiation(errs: dict) -> None:
                                          **kw)
                     bf16_invariants(spec, st, float(state[5][0]), c,
                                     what + " async, two blocks")
+                    st = lane_copy(with_locals(state, n // bn))
+                    pso_step.fused_async(*st, spec, iters=4, sync_every=2,
+                                         **kw)
+                    bf16_invariants(spec, st, float(state[5][0]), c,
+                                    what + " async, two blocks, lane path")
                 else:
                     f = pso_step.fused(*[x.clone() for x in state], spec,
                                        iters=3, **kw)
@@ -6202,6 +6291,13 @@ def bf16_every_instantiation(errs: dict) -> None:
                             spec, iters=3, sync_every=1, topology=topo, **kw)
                         check(same(a[:6], f), f"{what}: one-block async "
                               f"({topo}) == fused bit for bit")
+                        lane_twin(lambda st, topo=topo: pso_step.fused_async(
+                            *st, spec, iters=3, sync_every=1, topology=topo,
+                            **kw), with_locals(state, 1), a,
+                            f"{what} async ({topo})")
+                    lane_twin(lambda st: pso_step.fused(*st, spec, iters=3,
+                                                        **kw),
+                              state, f, what + " fused x3")
                     if c == 1:
                         check(same(f, pso_step.fused_plain(
                             *state, spec, iters=3, **kw)),
@@ -6210,8 +6306,9 @@ def bf16_every_instantiation(errs: dict) -> None:
     torch.cuda.synchronize()
     print(f"  15a: {kinds} (objective, rule, shape) cases: queue, fused "
           f"(grid and block), async (star and ring), each on one CTA and on "
-          f"clusters of 2; bit for bit at C=1 and one-block async == fused "
-          f"at every C")
+          f"clusters of 2 and 8, fused and async on the pair path and on the "
+          f"lane path bit for bit; bit for bit at C=1 and one-block async == "
+          f"fused at every C")
 
 
 def bf16_main_cells(errs: dict) -> None:
@@ -6346,6 +6443,128 @@ def bf16_main_cells(errs: dict) -> None:
           "two-block async batch by the invariants")
 
 
+def bf16_lane_shapes(errs: dict) -> None:
+    """15a: shapes that force the lane path (``pso_step.kernel_lanes``),
+    every rule, counters on: odd blocks (rastrigin d=8 n=1023 in 3 blocks
+    of 341 on one CTA each: a fused launch of 3 bit for bit the plain
+    version, counts too; the async kernel over the 3 blocks by the
+    invariants); one odd block on a cluster of 2 (cubic d=37 n=341: async,
+    star and ring, bit for bit the fused kernel; one fused iteration
+    against the plain version under ``bf16_step``); a batch of S=4 swarms
+    of an odd n=341 (ackley d=10: the fused batch and the one-block async
+    batch bit for bit the plain versions, counts too). Every launch is on
+    the lane path (``bf16_lane_launches``)."""
+    lanes0 = {w: getattr(pso_step, w).bf16_lane_launches for w in LANE_ROWS}
+    for rule in RULE_IDS:
+        what = f"bf16 lane path {rule}"
+        _, spec, state, seed = bf16_state("rastrigin", 8, 1023, 2, rule)
+        check(pso_step.kernel_lanes(*state[:4], n=1023, block_n=341) == 1,
+              f"{what}: odd blocks take the lane path")
+        kw = dict(seed=seed, iteration=1, block_n=341)
+        cnt, pcnt = new_counts(), new_counts()
+        got = pso_step.fused(*[x.clone() for x in state], spec, iters=3,
+                             counts=cnt, **kw)
+        want = pso_step.fused_plain(*state, spec, iters=3, counts=pcnt, **kw)
+        torch.cuda.synchronize()
+        check(same(got, want) and torch.equal(cnt, pcnt), f"{what}: fused "
+              f"rastrigin d=8 n=1023 (blocks of 341) x3 == plain, counts too")
+        errs["fused_bf16"] = max(errs["fused_bf16"], max_err(got, want))
+        st, cnt = with_locals(state, 3), new_counts()
+        pso_step.fused_async(*st, spec, iters=4, sync_every=2, counts=cnt,
+                             **kw)
+        bf16_invariants(spec, st, float(state[5][0]), 1,
+                        f"{what}: async over 3 odd blocks")
+        counts_invariants(cnt, 4, 3, f"{what}: async over 3 odd blocks",
+                          "fused_async", chunks=n_chunks(4, 2))
+        _, spec, state, seed = bf16_state("cubic", 37, 341, 2, rule)
+        c = bf16_cluster(341, 37, 341)
+        check(c == 2, f"{what}: cubic d=37 n=341 on clusters of 2 ({c})")
+        kw = dict(seed=seed, iteration=0, block_n=341)
+        f = pso_step.fused(*[x.clone() for x in state], spec, iters=5, **kw)
+        for topo in ("gbest", "ring"):
+            a = pso_step.fused_async(
+                *with_locals(tuple(x.clone() for x in state), 1), spec,
+                iters=5, sync_every=2, topology=topo, **kw)
+            check(same(a[:6], f), f"{what}: one odd block on a cluster of "
+                  f"2, async ({topo}) == fused bit for bit")
+        f1 = pso_step.fused(*[x.clone() for x in state], spec, iters=1, **kw)
+        errs["fused_bf16"] = max(errs["fused_bf16"], bf16_step(
+            f1, pso_step.fused_plain(*state, spec, iters=1, **kw), state,
+            f"{what}: fused cubic d=37 n=341 C=2"))
+        cfg = pso.PSOConfig(dim=10, particle_cnt=341, fitness="ackley",
+                            update_rule=rule, dtype="bfloat16").resolved()
+        b = ms.init_batch(cfg, range(4), device="cuda")
+        b = b._replace(iteration=2 * torch.arange(4, device="cuda"))
+        specs = (ops.kernel_spec(cfg),)
+        st = batch_operands(b)
+        check(pso_step.kernel_lanes(*st[:4], n=341, block_n=341) == 1,
+              f"{what}: S=4 swarms of n=341 take the lane path")
+        cnt, pcnt = new_counts(4), new_counts(4)
+        kw = dict(iters=4, block_n=341)
+        got = pso_step.fused_batch(*[x.clone() for x in st], b.seed,
+                                   b.iteration, specs, counts=cnt, **kw)
+        want = pso_step.fused_batch_plain(*st, b.seed, b.iteration, specs,
+                                          counts=pcnt, **kw)
+        torch.cuda.synchronize()
+        check(same(got, want) and torch.equal(cnt, pcnt), f"{what}: fused "
+              f"batch S=4 n=341 x4 == plain, counts too")
+        errs["fused_batch_bf16"] = max(errs["fused_batch_bf16"],
+                                       max_err(got, want))
+        st = batch_operands(b, 1)
+        got = pso_step.fused_async_batch(*[x.clone() for x in st], b.seed,
+                                         b.iteration, specs, sync_every=2,
+                                         **kw)
+        want = pso_step.fused_async_batch_plain(*st, b.seed, b.iteration,
+                                                specs, sync_every=2, **kw)
+        torch.cuda.synchronize()
+        check(same(got, want), f"{what}: async batch S=4 n=341 x4 == plain")
+        errs["fused_async_batch_bf16"] = max(errs["fused_async_batch_bf16"],
+                                             max_err(got, want))
+    lanes = {w: getattr(pso_step, w).bf16_lane_launches - lanes0[w]
+             for w in LANE_ROWS}
+    check(all(lanes.values()), f"15a lane path: launches of every row "
+          f"({lanes})")
+    bf16_lbest_small_blocks()
+    print(f"  15a lane path by shape, every rule: fused rastrigin d=8 "
+          f"n=1023 (blocks of 341) == plain with counts, async by the "
+          f"invariants; cubic d=37 n=341 (C=2) async star/ring == fused; "
+          f"S=4 n=341 fused and async batches == plain; lane launches "
+          f"{lanes}; lbest in blocks of fewer than 4 pairs on the lane "
+          f"path by the invariants, von Neumann in blocks of 2 refused")
+
+
+def bf16_lbest_small_blocks() -> None:
+    """15a: blocks of fewer than four pairs (``pso_step.kernel_lanes``:
+    an lbest fold reads a neighbour a thread) take the lane path: the
+    async kernel under ring in blocks of 2 and von Neumann in blocks of 4
+    (rastrigin d=3 n=48, 8 iterations at sync_every=2) ends, every slot
+    non-decreasing and at least its neighbourhood's best at launch, held
+    to ``bf16_invariants``; von Neumann in blocks of 2 (two threads, four
+    neighbours) raises ValueError before a launch."""
+    for topo, bn in (("ring", 2), ("vonneumann", 4)):
+        what = f"bf16 async {topo} in blocks of {bn}"
+        _, spec, state, seed = bf16_state("rastrigin", 3, 48)
+        check(pso_step.kernel_lanes(*state[:4], n=48, block_n=bn) == 1,
+              f"{what}: the lane path")
+        st = list(with_locals(state, 48 // bn))
+        lf0 = st[7].clone()
+        _, hood = topology.block_neighbor_best(lf0, st[6].T, topo)
+        pso_step.fused_async(*st, spec, seed=seed, iteration=0, iters=8,
+                             sync_every=2, block_n=bn, topology=topo)
+        torch.cuda.synchronize()
+        check(bool((st[7] >= lf0).all()) and bool((st[7] >= hood).all()),
+              f"{what}: every slot non-decreasing, >= its neighbourhood")
+        bf16_invariants(spec, st, float(state[5][0]), 1, what)
+    try:
+        pso_step.fused_async(*with_locals(state, 24), spec, seed=seed,
+                             iteration=0, iters=8, sync_every=2, block_n=2,
+                             topology="vonneumann")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "bf16 async vonneumann in blocks of 2: refused")
+
+
 def refusals(phase: str, problem, hetero) -> None:
     """What the kernels do not take raises ValueError, on the card as on
     the CPU: float16 and float64 swarms of ``problem``, a heterogeneous
@@ -6417,7 +6636,26 @@ def bf16_main_calls():
     q_ms, q_by = queue_bound(1, 131072, 256, 0.0, esize=2)
     calls.append(("queue_step", "ops.queue_step x20 cubic d=1 n=131072",
                   queue, (20 * q_ms, q_by)))
+    for variant, row in (("queue_lock", "fused"), ("async", "fused_async")):
+        def odd(variant=variant):
+            r = repro_torch.solve("rastrigin", dim=10, particles=1001,
+                                  iters=200, seed=0, variant=variant,
+                                  dtype="bfloat16")
+            check(r.state.pos.dtype == BF and math.isfinite(r.best_fit),
+                  f"bf16 solve rastrigin n=1001 {variant}")
+            return f"best {r.best_fit}"
+        calls.append((row, f"solve rastrigin d=10 n=1001 x200 {variant} "
+                      f"(blocks of {ops._resolve_block(1001, None)}: the "
+                      f"lane path)", odd,
+                      bound(10, 1001, 200, nb=7 if variant == "async" else 0,
+                            objectives=["rastrigin"], esize=2)))
     return calls
+
+
+#: Each bfloat16 row's kernels by name: the lane path's, and the fused
+#: and async rows' pair path (``fused_pair_kernel``, ``async_pair_kernel``).
+BF16_FAMILY = {row: FAMILY[row].replace("_kernel", "(?:_pair)?_kernel")
+               for row in BF16_ROWS}
 
 
 def bf16_main_path(card: str) -> dict:
@@ -6431,6 +6669,8 @@ def bf16_main_path(card: str) -> dict:
     print(f"phase 15b: the main paths in bfloat16 [{card}]")
     calls = bf16_main_calls()
     zero_counts()
+    for w in LANE_ROWS:
+        getattr(pso_step, w).bf16_lane_launches = 0
     for row, what, call, _ in calls:
         t0 = time.perf_counter()
         said = call()
@@ -6443,32 +6683,40 @@ def bf16_main_path(card: str) -> dict:
     print(f"  15b launches: bfloat16 {got}, float32 {f32}")
     check(all(v > 0 for v in got.values()), "every bfloat16 row launched")
     check(not any(f32.values()), "no float32 kernel on a bfloat16 path")
+    lanes = {w: getattr(pso_step, w).bf16_lane_launches for w in LANE_ROWS}
+    print(f"  15b launches on the lane path (the rest on the pair path): "
+          f"{lanes}")
+    check(all(got[w] > lanes[w] for w in LANE_ROWS) and lanes["fused"]
+          and lanes["fused_async"], "rows 2 and 5 on both paths, rows 3 "
+          "and 6 on the pair path")
     main = {}
     for row, what, call, (b_ms, _) in calls:
         us = kernel_device_us(call, reps=1, warm=False)
         mine = sum(v for k, v in us.items()
-                   if k.startswith(FAMILY[row]) and "bfloat16" in k)
+                   if re.match(BF16_FAMILY[row], k) and "bfloat16" in k)
+        print(f"  15b {what}: {mine / 1e3:.3f} ms of {BF16_FAMILY[row]} "
+              f"(bound {b_ms:.3f} ms) [{card}]")
         ms, bms = main.get(row, (0.0, 0.0))
         main[row] = (ms + mine / 1e3, bms + b_ms)
     for row, (ms, bms) in main.items():
-        print(f"  15b {row}_bf16: {ms:.3f} ms of {FAMILY[row]} on the main "
-              f"path (torch.profiler), bound {bms:.3f} ms at 2 bytes an "
+        print(f"  15b {row}_bf16: {ms:.3f} ms of {BF16_FAMILY[row]} on the "
+              f"main path (torch.profiler), bound {bms:.3f} ms at 2 bytes an "
               f"element [{card}]")
     refusals("15b", "cubic", ["cubic", "sphere"])
     return {k + "_bf16": v for k, v in got.items()}
 
 
 def bf16_times(card: str, times: dict, bounds: dict) -> None:
-    """15c: each bfloat16 kernel and its plain version on phase 5's calls
-    (device us in CUDA events, median of 5 on copies of one state; the
-    queue kernel from a CUDA graph), beside its bound at 2 bytes an
-    element; then rows 2 and 5 in bfloat16 beside float32 at the two solve
-    cells, in turns (float32, bfloat16, bfloat16, float32)."""
+    """15c: each bfloat16 kernel and its plain version on phase 5's calls,
+    timed as phase 5 times the float32 rows (``off_on``, counters off:
+    rounds of 5 calls back to back on copies of one state, in CUDA events;
+    the queue kernel from a CUDA graph), beside its bound at 2 bytes an
+    element; then rows 2 and 5 at the two solve cells, in float32 and in
+    bfloat16 on both paths, in turns."""
     print(f"phase 15c: bfloat16 kernels, plain versions and bounds [{card}]")
 
-    def med(run, state):
-        device_us(run, state)
-        return sorted(device_us(run, state) for _ in range(5))[2]
+    def med(run, state, s_cnt=1):
+        return off_on(run, state, s_cnt)[0] * 1e6
 
     d, n, bn = 120, 32768, 512
     _, spec, state, seed = bf16_state("cubic", d, n)
@@ -6483,13 +6731,13 @@ def bf16_times(card: str, times: dict, bounds: dict) -> None:
     _, spec, state, seed = bf16_state("cubic", d, n)
     kw = dict(seed=seed, iteration=0, iters=iters, block_n=bn)
     akw = dict(kw, sync_every=8)
-    times["fused_bf16"] = med(lambda st: pso_step.fused(*st, spec, **kw),
-                              state) / 1e6
+    times["fused_bf16"] = med(lambda st, c: pso_step.fused(
+        *st, spec, counts=c, **kw), state) / 1e6
     times["fused_bf16_plain"] = sync_time(
         lambda: pso_step.fused_plain(*state, spec, **kw), 1)
     bounds["fused_bf16"] = bound(d=d, n=n, iters=iters, esize=2)
-    times["fused_async_bf16"] = med(lambda st: pso_step.fused_async(
-        *st, spec, **akw), with_locals(state, nb)) / 1e6
+    times["fused_async_bf16"] = med(lambda st, c: pso_step.fused_async(
+        *st, spec, counts=c, **akw), with_locals(state, nb)) / 1e6
     times["fused_async_bf16_plain"] = sync_time(
         lambda: pso_step.fused_async_plain(*with_locals(state, nb), spec,
                                            **akw), 1)
@@ -6511,8 +6759,9 @@ def bf16_times(card: str, times: dict, bounds: dict) -> None:
                              pso_step.fused_async_batch_plain)
         else:
             kernel, plain = pso_step.fused_batch, pso_step.fused_batch_plain
-        times[key] = med(lambda st: kernel(*st, b.seed, b.iteration, specs,
-                                           **kw), state) / 1e6
+        times[key] = med(lambda st, c: kernel(
+            *st, b.seed, b.iteration, specs, counts=c, **kw), state,
+            s_cnt) / 1e6
         times[key + "_plain"] = sync_time(
             lambda: plain(*state, b.seed, b.iteration, specs, **kw), 1)
         bounds[key] = bound(d=d, n=n, iters=iters, nb=nb,
@@ -6526,38 +6775,55 @@ def bf16_times(card: str, times: dict, bounds: dict) -> None:
               f"{row} on phase 5's call [{card}]")
     for d, n, iters in SOLVE_CELLS:
         runs = {}
-        for dt in ("float32", "bfloat16"):
+        for kind in ("float32", "pair", "lane"):
+            dt = "float32" if kind == "float32" else "bfloat16"
             cfg = pso.PSOConfig(dim=d, particle_cnt=n, dtype=dt).resolved()
             st = ops.state_to_kernel(pso.init_swarm(cfg, 0, device="cuda"))
             spec, nb = ops.kernel_spec(cfg), n // bn
             kw = dict(seed=0, iteration=0, iters=iters, block_n=bn)
-            runs[dt] = ((lambda st, spec=spec, kw=kw: pso_step.fused(
+            runs[kind] = ((lambda st, spec=spec, kw=kw: pso_step.fused(
                 *st, spec, **kw)), st, (lambda st, spec=spec, kw=kw:
                 pso_step.fused_async(*st, spec, sync_every=8, **kw)),
-                with_locals(st, nb))
-        got = {k: [] for k in ("fused float32", "fused bfloat16",
-                               "async float32", "async bfloat16")}
-        for fused, st, async_, sta in runs.values():      # warm-up
-            device_us(fused, st)
-            device_us(async_, sta)
-        for dt in ("float32", "bfloat16", "bfloat16", "float32"):
-            fused, st, async_, sta = runs[dt]
-            got["fused " + dt].append(device_us(fused, st) / iters)
-            got["async " + dt].append(device_us(async_, sta) / iters)
+                with_locals(st, nb),
+                lane_copy if kind == "lane" else
+                (lambda st: [x.clone() for x in st]))
+        got = {f"{row} {kind}": [] for row in ("fused", "async")
+               for kind in runs}
+
+        def turn(kind):
+            fused, st, async_, sta, copy = runs[kind]
+            return (device_us(fused, copy(st), copy=False) / iters,
+                    device_us(async_, copy(sta), copy=False) / iters)
+        for kind in runs:                                  # warm-up
+            turn(kind)
+        for kind in ("float32", "pair", "lane", "lane", "pair", "float32"):
+            f, a = turn(kind)
+            got["fused " + kind].append(f)
+            got["async " + kind].append(a)
+        # an iteration's least time: pos and vel read and written and
+        # pbest_pos read (10 bytes an element in bfloat16, 20 in float32),
+        # no pbest column counted as written (``queue_bound``)
+        (b16, by16), (b32, by32) = (queue_bound(d, n, n // bn, 0, esize)
+                                    for esize in (2, 4))
         print(f"  rows 2 and 5, cubic d={d} n={n} x{iters} (clusters of "
               f"{bf16_cluster(n, d, bn)} in bfloat16, {cluster_of(n, d)} in "
-              f"float32), device us/iter in turns: " + "; ".join(
+              f"float32), device us/iter in turns (bfloat16 on the pair "
+              f"path and, on lane_copy, the lane path): " + "; ".join(
                   f"{k} {', '.join(f'{u:.3f}' for u in v)}"
-                  for k, v in got.items()) + f" [{card}]")
+                  for k, v in got.items()) + f"; bound an iteration "
+              f"{b16 * 1e3:.3f} us by {by16} in bfloat16, {b32 * 1e3:.3f} "
+              f"by {by32} in float32 [{card}]")
 
 
 def phase_bf16(card: str, errs: dict, times: dict, bounds: dict) -> dict:
     """15a-15c (the module docstring). Returns 15b's launches."""
+    join_builds()
     t0 = time.perf_counter()
     print(f"phase 15a: the bfloat16 kernels against their plain versions "
           f"[{card}]")
     bf16_every_instantiation(errs)
     bf16_main_cells(errs)
+    bf16_lane_shapes(errs)
     launches = bf16_main_path(card)
     bf16_times(card, times, bounds)
     print(f"  phase 15: {time.perf_counter() - t0:.1f} s [{card}]")

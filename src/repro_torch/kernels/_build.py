@@ -1,7 +1,8 @@
 """Build the hand-written CUDA sources and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
-header, so ``nvcc`` builds it in seconds. The shared library goes to
+header (only CUDA's and the ``csrc/*.cuh`` beside it), so ``nvcc`` builds
+it in seconds. The shared library goes to
 ``build/repro_torch/`` at the repository root, named after a hash of the
 source and the flags, so a changed source is never served a stale build;
 it is built at first use. Nothing here runs at import time: CPU-only torch
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Tuple
 
@@ -51,21 +53,34 @@ def _flags(variant: str) -> Tuple[str, ...]:
 
 def tag(name: str, variant: str = "") -> str:
     """The build tag of ``csrc/<name>.cu`` (in ``variant``, a key of
-    ``VARIANTS``, or plain): a hash of the source and the flags, which
-    names its library (and fingerprints the serving compile cache's
+    ``VARIANTS``, or plain): a hash of the source, the headers beside it
+    (``csrc/*.cuh``, which the sources include) and the flags, which names
+    its library (and fingerprints the serving compile cache's
     manifest)."""
-    src = CSRC / f"{name}.cu"
-    return hashlib.sha1(src.read_bytes()
+    parts = [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+    return hashlib.sha1(b"".join(p.read_bytes() for p in parts)
                         + " ".join(_flags(variant)).encode()).hexdigest()[:12]
+
+
+_LOCKS: dict = {}
+_LOCKS_GUARD = threading.Lock()
 
 
 def build(name: str, variant: str = "") -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` (in ``variant``) unless its build exists;
     returns the library path and the compiler's report (``-Xptxas -v``:
-    registers, shared memory and spills of every kernel)."""
+    registers, shared memory and spills of every kernel). A thread that
+    asks for a library another thread is building waits for that build."""
     src = CSRC / f"{name}.cu"
     stem = f"{name}_{variant}" if variant else name
     lib = BUILD_DIR / f"lib{stem}-{tag(name, variant)}.so"
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(lib, threading.Lock())
+    with lock:
+        return _build(src, variant, lib)
+
+
+def _build(src: Path, variant: str, lib: Path) -> Tuple[Path, str]:
     log = lib.with_suffix(".log")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

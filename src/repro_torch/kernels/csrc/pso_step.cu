@@ -48,7 +48,10 @@
 // arrays (below, "Storage types"): float, or __nv_bfloat16 in the library
 // built from this source with -DPSO_T_BF16. One library holds one type's
 // kernels; kernels/pso_step.py loads the one a swarm's dtype needs. The
-// bfloat16 library has no heterogeneous kernels.
+// bfloat16 library has no heterogeneous kernels, and its fused and async
+// kernels come twice: a particle a thread (the lane path), and two a
+// thread in packed bfloat16 arithmetic (fused_pair_kernel,
+// async_pair_kernel; below, "the bfloat16 pair path").
 //
 // Heterogeneous batches: bounds are a table [members, 4, D] and fids[S]
 // picks a swarm's member (a homogeneous batch is a table of one, read at
@@ -586,6 +589,330 @@ __device__ __forceinline__ unsigned long long step_cluster(
   return f > best ? make_key(f, i) : 0ull;
 }
 
+// The particles a thread of the fused and async kernels takes: P = 1, one
+// (step_block, step_cluster; every library), or P = 2, a pair (the
+// bfloat16 library's pair path, step_pairs and step_pairs_cluster below).
+// Pbf<P> is a cluster rank's copy of its particles' pbest fitnesses, kept
+// in registers (step_cluster).
+template <int P>
+using Pbf = typename std::conditional<P == 2, float2, float>::type;
+
+template <int P, typename T>
+__device__ __forceinline__ Pbf<P> load_pbf(const Params<T>& p,
+                                           const Cta& c) {
+  const int i = c.col + c.b * p.bn + P * (int)threadIdx.x;
+  if constexpr (P == 2)
+    return make_float2(widen(p.pbf[i]), widen(p.pbf[i + 1]));
+  else
+    return widen(p.pbf[i]);
+}
+
+template <int F, int R, bool TL>
+__device__ __forceinline__ unsigned long long step_pairs(
+    const Params<__nv_bfloat16>& p, const Cta& c, uint32_t it,
+    const float* sm, float best, int* s_cnt);
+template <int F, int R, bool TL>
+__device__ __forceinline__ unsigned long long step_pairs_cluster(
+    const Params<__nv_bfloat16>& p, const Cta& c, uint32_t it,
+    const float* sm, float best, float* part, float2& pbf, int* s_cnt);
+
+template <typename T, int F, int R, bool TL, int P>
+__device__ __forceinline__ unsigned long long step_any(
+    const Params<T>& p, const Cta& c, uint32_t it, const float* sm,
+    float best, int* s_cnt) {
+  if constexpr (P == 2)
+    return step_pairs<F, R, TL>(p, c, it, sm, best, s_cnt);
+  else
+    return step_block<T, F, R, TL>(p, c, it, sm, best, s_cnt);
+}
+
+template <typename T, int F, int R, bool TL, int P>
+__device__ __forceinline__ unsigned long long step_any_cluster(
+    const Params<T>& p, const Cta& c, uint32_t it, const float* sm,
+    float best, float* part, Pbf<P>& pbf, int* s_cnt) {
+  if constexpr (P == 2)
+    return step_pairs_cluster<F, R, TL>(p, c, it, sm, best, part, pbf,
+                                        s_cnt);
+  else
+    return step_cluster<T, F, R, TL>(p, c, it, sm, best, part, pbf, s_cnt);
+}
+
+#ifdef PSO_T_BF16
+// ---- the bfloat16 pair path ------------------------------------------------
+// What bounds the fused and async kernels' element path in each dtype. In
+// float an element moves 20 bytes (23.5 us a pass at N=32768, D=120)
+// against ~42 integer operations (the two counter-hash draws) and ~24
+// float ones (the rule, the objective), so bytes bound it. In bfloat16 it
+// moves 10 bytes (11.7 us at HBM's rate; that swarm's 31.5 MB of state
+// even stays in the 50 MB L2), and the lane path (P = 1, the float
+// kernel's form) rounds every one of the reference's operations as a
+// float operation, a conversion to bfloat16 and one back (q<T>): about 20
+// conversions an element at cubic/pso on the conversion pipe (16 a clock
+// an SM), a 2-byte access a lane, and the hash's per-swarm terms formed
+// for every draw. The conversions then set its time, not the bytes. What
+// the pair path does about it:
+//   * two particles a thread, 2l and 2l + 1 of the block (particles are
+//     the contiguous axis of [D, S*N]): a dimension's pos, vel and
+//     pbest_pos are one 4-byte load each and pos and vel one store each
+//     (vel neither under the SSO rule, which leaves it as it is), the
+//     loads of kPairBatch dimensions issued before the first is used;
+//   * the rule (advance2) and every objective term the reference rounds as
+//     one multiply, add or subtract on the lane pair in sm_90's packed
+//     instructions (bf16x2.cuh): one instruction and one rounding for both
+//     particles, no conversion. cosf, sqrtf and the divisions stay float a
+//     lane, rounded as before (bpack rounds a pair in one conversion), and
+//     the sums over D stay float, in dimension order, rounded once;
+//   * the hash's per-swarm, per-iteration terms formed once an iteration
+//     (hash_terms), its element terms stepped by a constant a dimension
+//     and offset by D constants for the second particle.
+// A cluster's partials still meet in rank order, so the pair path computes
+// the lane path's results bit for bit (chip_smoke.py 15a; check_bf16_ops
+// proves the packed instructions). Pairs need an even block (so an even
+// swarm and even columns) of at least kMaxNeighbors pairs (an lbest fold
+// reads a neighbour a thread) and operands on 4 bytes: elsewhere the
+// wrapper takes the lane path (kernels/pso_step.py kernel_lanes).
+#include "bf16x2.cuh"
+
+using Bf = __nv_bfloat16;
+
+// Dimensions whose loads a thread of the pair path issues together.
+constexpr int kPairBatch = 4;
+
+// The objectives' constants as bfloat16 bits in both lanes: 1, the
+// rounded 0.8 (0.80078125), 1000, 8000, 10, 100 and the rounded 2 pi
+// (6.28125), the values kc<T> and the float literals give the lane path.
+constexpr bf2 kOne2 = 0x3F803F80u, k08x2 = 0x3F4D3F4Du,
+              k1000x2 = 0x447A447Au, k8000x2 = 0x45FA45FAu,
+              k10x2 = 0x41204120u, k100x2 = 0x42C842C8u,
+              k2Pi2 = 0x40C940C9u;
+
+__device__ __forceinline__ bf2 ld2(const Bf* q) {
+  return *reinterpret_cast<const bf2*>(q);
+}
+__device__ __forceinline__ void st2(Bf* q, bf2 v) {
+  *reinterpret_cast<bf2*>(q) = v;
+}
+
+// uniform01's per-swarm, per-iteration terms: seed*C + it*C + stream*C for
+// each of the two streams, and it*C of the second mix.
+struct Hash2 {
+  uint32_t h1, h2, ts;
+};
+__device__ __forceinline__ Hash2 hash_terms(uint32_t seed, uint32_t it) {
+  const uint32_t hs = seed * 0x9E3779B9u + it * 0x85EBCA6Bu;
+  return {hs + kStreamR1 * 0xC2B2AE35u, hs + kStreamR2 * 0xC2B2AE35u,
+          it * 0xC2B2AE35u};
+}
+
+// Objective<Bf, F>'s state for a lane pair: each term on the pair in
+// packed instructions, added in float to each lane's sums in dimension
+// order; lane(j) is particle j's state, for put/join/result.
+template <int F>
+struct Objective2 {
+  float s[2] = {0.0f, 0.0f}, t[2] = {0.0f, 0.0f}, pr[2] = {1.0f, 1.0f};
+  bf2 prev = 0u, first = 0u, tt = 0u;    // rosenbrock
+
+  static __device__ __forceinline__ void acc(float* a, bf2 v) {
+    a[0] = __fadd_rn(a[0], blo(v));
+    a[1] = __fadd_rn(a[1], bhi(v));
+  }
+  // rastrigin's and ackley's cos(2 pi x), each lane's cosf rounded
+  static __device__ __forceinline__ bf2 cos2(bf2 x) {
+    const bf2 a = bmul(k2Pi2, x);
+    return bpack(cosf(blo(a)), cosf(bhi(a)));
+  }
+  // Objective::pair on the lane pair: (100 u) u + (1 - a)^2
+  static __device__ __forceinline__ bf2 pair(bf2 a, bf2 x) {
+    const bf2 u = bsub(x, bmul(a, a));
+    const bf2 r = bsub(kOne2, a);
+    return badd(bmul(bmul(k100x2, u), u), bmul(r, r));
+  }
+
+  __device__ __forceinline__ void add(int k, int k0, bf2 x) {
+    const bf2 xx = bmul(x, x);
+    if (F == 0) {          // cubic
+      acc(s, badd(bsub(bsub(bmul(xx, x), bmul(k08x2, xx)),
+                       bmul(k1000x2, x)),
+                  k8000x2));
+    } else if (F == 2) {   // rosenbrock
+      if (k > k0) {
+        acc(s, pair(prev, x));
+      } else {
+        const bf2 u = bsub(kOne2, x);
+        tt = bmul(u, u);
+        first = x;
+      }
+      prev = x;
+    } else if (F == 4) {   // rastrigin
+      acc(s, bsub(xx, bmul(k10x2, cos2(x))));
+    } else {               // sphere, griewank, ackley
+      acc(s, xx);
+    }
+    if (F == 3) {          // griewank's product, float a lane
+      const float r = sqrtf((float)(k + 1));
+      pr[0] = __fmul_rn(pr[0], cosf(__fdiv_rn(blo(x), r)));
+      pr[1] = __fmul_rn(pr[1], cosf(__fdiv_rn(bhi(x), r)));
+    }
+    if (F == 5) acc(t, cos2(x));
+  }
+
+  __device__ __forceinline__ Objective<Bf, F> lane(int j) const {
+    Objective<Bf, F> o;
+    o.s = s[j];
+    o.t = F == 2 ? (j ? bhi(tt) : blo(tt)) : t[j];
+    o.p = pr[j];
+    o.prev = j ? bhi(prev) : blo(prev);
+    o.first = j ? bhi(first) : blo(first);
+    return o;
+  }
+};
+
+// advance_particle for particles i and i + 1 (i even): the rule and the
+// objective on the lane pair over the CTA's dimensions [k0, k1).
+template <int F, int R, bool CL>
+__device__ __forceinline__ void advance_pair(const Params<Bf>& p,
+                                             const Cta& c, int i,
+                                             const Hash2& hh,
+                                             const float* sm,
+                                             Objective2<F>& obj) {
+  const int D = p.d;
+  const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : D, ls = CL ? c.ls : D;
+  const float* att = sm;
+  const float* lo = sm + ls;
+  const float* hi = sm + 2 * ls;
+  const float* mv = sm + 3 * ls;
+  const float* span = sm + 4 * ls;
+  const Coef2 cf{bboth(p.w), bboth(p.c1), bboth(p.c2), p.k0, p.k1, p.k2};
+  // the hash's element terms (index = particle*D + dim) at (i, k0); a
+  // dimension further adds one constant, particle i + 1 is D elements on
+  const uint32_t idx = (uint32_t)i * (uint32_t)D + (uint32_t)k0;
+  uint32_t a = idx * 0x27D4EB2Fu, t = idx * 0x9E3779B9u + hh.ts;
+  const uint32_t da = (uint32_t)D * 0x27D4EB2Fu;
+  const uint32_t dt = (uint32_t)D * 0x9E3779B9u;
+  const int col = c.col + i;
+  auto update = [&](int k, bf2 x, bf2 v, bf2 pb) {
+    const size_t o = (size_t)k * p.ld + col;
+    const uint32_t a1 = a + da, t1 = t + dt;
+    const bf2 r1 = draw_pair(draw24(hh.h1 + a, t), draw24(hh.h1 + a1, t1));
+    const bf2 r2 = draw_pair(draw24(hh.h2 + a, t), draw24(hh.h2 + a1, t1));
+    a += 0x27D4EB2Fu;
+    t += 0x9E3779B9u;
+    const int j = k - k0;
+    const bf2 m = bboth(mv[j]);
+    advance2<R>(cf, r1, r2, x, v, pb, bboth(att[j]),
+                Row2{bboth(lo[j]), bboth(hi[j]), m, m ^ 0x80008000u,
+                     bboth(span[j])});
+    st2(p.pos + o, x);
+    if (R != 1) st2(p.vel + o, v);    // sso leaves vel as it is
+    obj.add(k, k0, x);
+  };
+  int k = k0;
+  for (; k + kPairBatch <= k1; k += kPairBatch) {
+    bf2 x[kPairBatch], v[kPairBatch], pb[kPairBatch];
+#pragma unroll
+    for (int j = 0; j < kPairBatch; ++j) {
+      const size_t o = (size_t)(k + j) * p.ld + col;
+      x[j] = ld2(p.pos + o);
+      v[j] = R == 1 ? 0u : ld2(p.vel + o);
+      pb[j] = ld2(p.pbp + o);
+    }
+#pragma unroll
+    for (int j = 0; j < kPairBatch; ++j) update(k + j, x[j], v[j], pb[j]);
+  }
+  for (; k < k1; ++k) {
+    const size_t o = (size_t)k * p.ld + col;
+    update(k, ld2(p.pos + o), R == 1 ? 0u : ld2(p.vel + o),
+           ld2(p.pbp + o));
+  }
+}
+
+// The pbest fold of a pair, each particle on its own decision: its pbest
+// fitness (where `fits`: every rank of a cluster decides, rank 0 writes)
+// and its column over [k0, k1), one word a dimension where both improved.
+template <bool TL>
+__device__ __forceinline__ void fold_pair(const Params<Bf>& p, int col,
+                                          int k0, int k1, bool up0, bool up1,
+                                          float f0, float f1, bool fits,
+                                          int* s_cnt) {
+  if (!(up0 || up1)) return;       // rare at steady state
+  if (TL && p.counts) s_cnt[3] = 1;
+  if (fits) {
+    if (up0) p.pbf[col] = narrow<Bf>(f0);
+    if (up1) p.pbf[col + 1] = narrow<Bf>(f1);
+  }
+  const int j = up1 && !up0;       // the one lane that improved
+  for (int k = k0; k < k1; ++k) {
+    const size_t o = (size_t)k * p.ld + col;
+    if (up0 && up1) st2(p.pbp + o, ld2(p.pos + o));
+    else p.pbp[o + j] = p.pos[o + j];
+  }
+}
+
+// The queue keys of a pair (0 where neither beats `best`).
+__device__ __forceinline__ unsigned long long pair_key(float f0, float f1,
+                                                       int i, float best) {
+  const unsigned long long k0 = f0 > best ? make_key(f0, i) : 0ull;
+  const unsigned long long k1 = f1 > best ? make_key(f1, i + 1) : 0ull;
+  return k0 > k1 ? k0 : k1;
+}
+
+// step_block on pairs: thread l takes pairs l, l + blockDim, ... of the
+// block (particles base + 2l, base + 2l + 1).
+template <int F, int R, bool TL>
+__device__ __forceinline__ unsigned long long step_pairs(
+    const Params<Bf>& p, const Cta& c, uint32_t it, const float* sm,
+    float best, int* s_cnt) {
+  unsigned long long mine = 0ull;
+  const Hash2 hh = hash_terms(c.seed, it);
+  const int base = c.b * p.bn;
+  for (int l = threadIdx.x; 2 * l < p.bn; l += blockDim.x) {
+    const int i = base + 2 * l, col = c.col + i;
+    const bf2 pbf = ld2(p.pbf + col);
+    Objective2<F> obj;
+    advance_pair<F, R, false>(p, c, i, hh, sm, obj);
+    const float f0 = obj.lane(0).result(p.d), f1 = obj.lane(1).result(p.d);
+    fold_pair<TL>(p, col, 0, p.d, f0 > blo(pbf), f1 > bhi(pbf), f0, f1,
+                  true, s_cnt);
+    const unsigned long long key = pair_key(f0, f1, i, best);
+    mine = key > mine ? key : mine;
+  }
+  return mine;
+}
+
+// step_cluster on pairs: thread l is the pair base + 2l, base + 2l + 1
+// (blockDim == bn / 2); each particle's partials at its own index of
+// `part`, read back in rank order, and `pbf` both particles' pbest
+// fitnesses.
+template <int F, int R, bool TL>
+__device__ __forceinline__ unsigned long long step_pairs_cluster(
+    const Params<Bf>& p, const Cta& c, uint32_t it, const float* sm,
+    float best, float* part, float2& pbf, int* s_cnt) {
+  using Obj = Objective<Bf, F>;
+  const cg::cluster_group cl = cg::this_cluster();
+  const int l = 2 * (int)threadIdx.x, i = c.b * p.bn + l, col = c.col + i;
+  {
+    Objective2<F> obj;
+    advance_pair<F, R, true>(p, c, i, hash_terms(c.seed, it), sm, obj);
+    obj.lane(0).put(part, l, p.bn);
+    obj.lane(1).put(part, l + 1, p.bn);
+  }
+  cl.sync();
+  const float* r0 = cl.map_shared_rank(part, 0);
+  Obj o0 = Obj::take(r0, l, p.bn), o1 = Obj::take(r0, l + 1, p.bn);
+  for (int r = 1; r < p.csize; ++r) {
+    const float* pr = cl.map_shared_rank(part, r);
+    o0.join(Obj::take(pr, l, p.bn));
+    o1.join(Obj::take(pr, l + 1, p.bn));
+  }
+  const float f0 = o0.result(p.d), f1 = o1.result(p.d);
+  const bool up0 = f0 > pbf.x, up1 = f1 > pbf.y;
+  if (up0) pbf.x = f0;
+  if (up1) pbf.y = f1;
+  fold_pair<TL>(p, col, c.k0, c.k1, up0, up1, f0, f1, c.rank == 0, s_cnt);
+  return pair_key(f0, f1, i, best);
+}
+#endif  // PSO_T_BF16
+
 // Contention counters (the port of the TPU kernels' telemetry variants),
 // gated at run time on Params::counts: null when telemetry is off, so the
 // kernels count nothing, no kernel is instantiated twice, and the off path
@@ -678,7 +1005,7 @@ __device__ __forceinline__ void add_counts(const Params<T>& p, const Cta& c,
 // kernel, and both <= block_improvements, since a lane that beats gbest
 // also beats its own pbest.
 // ---------------------------------------------------------------------------
-template <typename T, int F, int R, bool G>
+template <typename T, int F, int R, bool G, int P>
 __device__ __forceinline__ void fused_body(const Params<T>& p, const Cta& c,
                                            float* sm,
                                            unsigned long long* s_key,
@@ -689,7 +1016,7 @@ __device__ __forceinline__ void fused_body(const Params<T>& p, const Cta& c,
   for (int t = 0; t < p.iters; ++t) {
     const uint32_t it = c.it0 + (uint32_t)t + 1u;
     const unsigned long long mine =
-        step_block<T, F, R, true>(p, c, it, sm, gf, s_cnt);
+        step_any<T, F, R, true, P>(p, c, it, sm, gf, s_cnt);
     if (mine) atomicMax(&s_key[par], mine);      // the intra-block queue
     __syncthreads();
     const unsigned long long bk = s_key[par];
@@ -731,7 +1058,7 @@ __device__ __forceinline__ void fused_body(const Params<T>& p, const Cta& c,
   }
 }
 
-template <typename T, int F, int R, bool G>
+template <typename T, int F, int R, bool G, int P>
 __device__ __forceinline__ void fused_cluster_body(const Params<T>& p,
                                                    const Cta& c, float* sm,
                                                    unsigned long long* s_key,
@@ -739,11 +1066,11 @@ __device__ __forceinline__ void fused_cluster_body(const Params<T>& p,
   const int D = p.d, tid = threadIdx.x, nt = blockDim.x;
   float* part = partials(c, sm);
   float gf = widen(p.gf[c.s]);
-  float pbf = widen(p.pbf[c.col + c.b * p.bn + tid]);
+  Pbf<P> pbf = load_pbf<P>(p, c);
   int par = 0;
   for (int t = 0; t < p.iters; ++t) {
     const uint32_t it = c.it0 + (uint32_t)t + 1u;
-    const unsigned long long mine = step_cluster<T, F, R, true>(
+    const unsigned long long mine = step_any_cluster<T, F, R, true, P>(
         p, c, it, sm, gf, part + par * 3 * p.bn, pbf, s_cnt);
     if (mine) atomicMax(&s_key[par], mine);      // the intra-block queue
     __syncthreads();
@@ -788,18 +1115,20 @@ __device__ __forceinline__ void fused_cluster_body(const Params<T>& p,
   cg::this_cluster().sync();
 }
 
-template <typename T, int F, int R, bool G, bool CL>
+template <typename T, int F, int R, bool G, bool CL, int P>
 __device__ __forceinline__ void fused_any(const Params<T>& p, const Cta& c,
                                           float* sm,
                                           unsigned long long* s_key,
                                           int* s_cnt) {
-  if constexpr (CL) fused_cluster_body<T, F, R, G>(p, c, sm, s_key, s_cnt);
-  else fused_body<T, F, R, G>(p, c, sm, s_key, s_cnt);
+  if constexpr (CL)
+    fused_cluster_body<T, F, R, G, P>(p, c, sm, s_key, s_cnt);
+  else
+    fused_body<T, F, R, G, P>(p, c, sm, s_key, s_cnt);
 }
 
-template <typename T, int F, int R, bool G, bool CL>
-__global__ void __launch_bounds__(kMaxThreads, 2)
-    fused_kernel(Params<T> p) {
+// The fused kernel's CTA, P particles a thread (step_any).
+template <typename T, int F, int R, bool G, bool CL, int P>
+__device__ __forceinline__ void fused_entry(const Params<T>& p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key[2];
   __shared__ int s_cnt[4];
@@ -811,18 +1140,31 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   }
   __syncthreads();
   if constexpr (F < kHetero) {
-    fused_any<T, F, R, G, CL>(p, c, sm, s_key, s_cnt);
+    fused_any<T, F, R, G, CL, P>(p, c, sm, s_key, s_cnt);
   } else {
     switch (p.member_fit[c.member]) {   // uniform across the CTA
-      case 0: fused_any<T, 0, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      case 1: fused_any<T, 1, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      case 2: fused_any<T, 2, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      case 3: fused_any<T, 3, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      case 4: fused_any<T, 4, R, G, CL>(p, c, sm, s_key, s_cnt); break;
-      default: fused_any<T, 5, R, G, CL>(p, c, sm, s_key, s_cnt); break;
+      case 0: fused_any<T, 0, R, G, CL, P>(p, c, sm, s_key, s_cnt); break;
+      case 1: fused_any<T, 1, R, G, CL, P>(p, c, sm, s_key, s_cnt); break;
+      case 2: fused_any<T, 2, R, G, CL, P>(p, c, sm, s_key, s_cnt); break;
+      case 3: fused_any<T, 3, R, G, CL, P>(p, c, sm, s_key, s_cnt); break;
+      case 4: fused_any<T, 4, R, G, CL, P>(p, c, sm, s_key, s_cnt); break;
+      default: fused_any<T, 5, R, G, CL, P>(p, c, sm, s_key, s_cnt); break;
     }
   }
   add_counts(p, c, s_cnt);
+}
+
+template <typename T, int F, int R, bool G, bool CL>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    fused_kernel(Params<T> p) {
+  fused_entry<T, F, R, G, CL, 1>(p);
+}
+
+// The bfloat16 pair path's fused kernel (bn / 2 threads a cluster CTA).
+template <typename T, int F, int R, bool G, bool CL>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    fused_pair_kernel(Params<T> p) {
+  fused_entry<T, F, R, G, CL, 2>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1211,7 +1553,7 @@ __device__ __forceinline__ float fold_neighbors(const Params<T>& p,
 // pulling; a boundary before a chunk folds the neighbours' slots. The
 // local best, and so the decision to write, is the same on every thread
 // and every rank.
-template <typename T, int F, int R, bool CL, bool LB>
+template <typename T, int F, int R, bool CL, bool LB, int P>
 __device__ __forceinline__ float async_body(const Params<T>& p, const Cta& c,
                                             float* sm, float lf,
                                             unsigned long long* s_key,
@@ -1221,7 +1563,7 @@ __device__ __forceinline__ float async_body(const Params<T>& p, const Cta& c,
   const int k0 = CL ? c.k0 : 0, k1 = CL ? c.k1 : p.d;
   const int chunks = p.iters / p.chunk;
   float* part = partials(c, sm);
-  float pbf = CL ? widen(p.pbf[c.col + c.b * p.bn + tid]) : 0.0f;
+  Pbf<P> pbf = CL ? load_pbf<P>(p, c) : Pbf<P>{};
   int par = 0;
   float pub = lf;
   for (int ch = 0; ch <= chunks; ++ch) {
@@ -1248,10 +1590,10 @@ __device__ __forceinline__ float async_body(const Params<T>& p, const Cta& c,
       const uint32_t it = c.it0 + (uint32_t)(ch * p.chunk + tl) + 1u;
       unsigned long long mine;
       if constexpr (CL)
-        mine = step_cluster<T, F, R, true>(p, c, it, sm, lf,
-                                           part + par * 3 * p.bn, pbf, s_cnt);
+        mine = step_any_cluster<T, F, R, true, P>(
+            p, c, it, sm, lf, part + par * 3 * p.bn, pbf, s_cnt);
       else
-        mine = step_block<T, F, R, true>(p, c, it, sm, lf, s_cnt);
+        mine = step_any<T, F, R, true, P>(p, c, it, sm, lf, s_cnt);
       if (mine) atomicMax(&s_key[par], mine);
       __syncthreads();
       // s_key[par ^ 1] was last read before the barrier above; clearing it
@@ -1284,10 +1626,10 @@ __device__ __forceinline__ float async_body(const Params<T>& p, const Cta& c,
 // and rank 0 its fitness, and a last cluster.sync() keeps every CTA until
 // no rank can still read its shared memory (the lead's slots, the
 // partials); the remainder phase's launch resumes from lp and lf. Under an
-// lbest topology (LB) the last boundary has already written the slot.
-template <typename T, int F, int R, bool CL, bool LB = false>
-__global__ void __launch_bounds__(kMaxThreads, 2)
-    async_kernel(Params<T> p) {
+// lbest topology (LB) the last boundary has already written the slot. The
+// CTA, P particles a thread (step_any):
+template <typename T, int F, int R, bool CL, bool LB, int P>
+__device__ __forceinline__ void async_entry(const Params<T>& p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key[2];
   __shared__ float s_g;
@@ -1304,33 +1646,33 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   float lf = widen(p.lf[slot]);
   __syncthreads();
   if constexpr (F < kHetero) {
-    lf = async_body<T, F, R, CL, LB>(p, c, sm, lf, s_key, &s_g, s_act,
-                                     s_cnt);
+    lf = async_body<T, F, R, CL, LB, P>(p, c, sm, lf, s_key, &s_g, s_act,
+                                        s_cnt);
   } else {
     switch (p.member_fit[c.member]) {   // uniform across the cluster
       case 0:
-        lf = async_body<T, 0, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
-                                           s_act, s_cnt);
+        lf = async_body<T, 0, R, CL, LB, P>(p, c, sm, lf, s_key,
+                                             &s_g, s_act, s_cnt);
         break;
       case 1:
-        lf = async_body<T, 1, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
-                                           s_act, s_cnt);
+        lf = async_body<T, 1, R, CL, LB, P>(p, c, sm, lf, s_key,
+                                             &s_g, s_act, s_cnt);
         break;
       case 2:
-        lf = async_body<T, 2, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
-                                           s_act, s_cnt);
+        lf = async_body<T, 2, R, CL, LB, P>(p, c, sm, lf, s_key,
+                                             &s_g, s_act, s_cnt);
         break;
       case 3:
-        lf = async_body<T, 3, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
-                                           s_act, s_cnt);
+        lf = async_body<T, 3, R, CL, LB, P>(p, c, sm, lf, s_key,
+                                             &s_g, s_act, s_cnt);
         break;
       case 4:
-        lf = async_body<T, 4, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
-                                           s_act, s_cnt);
+        lf = async_body<T, 4, R, CL, LB, P>(p, c, sm, lf, s_key,
+                                             &s_g, s_act, s_cnt);
         break;
       default:
-        lf = async_body<T, 5, R, CL, LB>(p, c, sm, lf, s_key, &s_g,
-                                           s_act, s_cnt);
+        lf = async_body<T, 5, R, CL, LB, P>(p, c, sm, lf, s_key,
+                                             &s_g, s_act, s_cnt);
         break;
     }
   }
@@ -1342,6 +1684,19 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   }
   add_counts(p, c, s_cnt);
   if constexpr (CL) cg::this_cluster().sync();
+}
+
+template <typename T, int F, int R, bool CL, bool LB = false>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    async_kernel(Params<T> p) {
+  async_entry<T, F, R, CL, LB, 1>(p);
+}
+
+// The bfloat16 pair path's async kernel (bn / 2 threads a cluster CTA).
+template <typename T, int F, int R, bool CL, bool LB = false>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    async_pair_kernel(Params<T> p) {
+  async_entry<T, F, R, CL, LB, 2>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1438,12 +1793,55 @@ const Kernel kAsyncLbest[2][kTableFits][kRuleCount] = {
 const Kernel kQueue[2][kFitnessCount][kRuleCount] = {
     {PSO_BUILTINS(queue_kernel, , false)},
     {PSO_BUILTINS(queue_kernel, , true)}};
+#ifdef PSO_T_BF16
+// The pair path's tables, laid out as the lane path's above.
+const Kernel kFusedPairGrid[2][kTableFits][kRuleCount] = {
+    PSO_TABLE(fused_pair_kernel, , true, false),
+    PSO_TABLE(fused_pair_kernel, , true, true)};
+const Kernel kFusedPairBlock[2][kTableFits][kRuleCount] = {
+    PSO_TABLE(fused_pair_kernel, , false, false),
+    PSO_TABLE(fused_pair_kernel, , false, true)};
+const Kernel kAsyncPair[2][kTableFits][kRuleCount] = {
+    PSO_TABLE(async_pair_kernel, , false),
+    PSO_TABLE(async_pair_kernel, , true)};
+const Kernel kAsyncPairLbest[2][kTableFits][kRuleCount] = {
+    PSO_TABLE(async_pair_kernel, , false, true),
+    PSO_TABLE(async_pair_kernel, , true, true)};
+#endif
 
 Kernel pick(const Kernel (*table)[kRuleCount], int fit, int rule,
             int fits = kTableFits) {
-  if (fit < 0 || fit >= fits || rule < 0 || rule >= kRuleCount)
+  if (!table || fit < 0 || fit >= fits || rule < 0 || rule >= kRuleCount)
     return nullptr;
   return table[fit][rule];
+}
+
+// A fused launch's table: the lane path's (lanes 1) or, in the bfloat16
+// library, the pair path's (lanes 2); null for any other.
+const Kernel (*fused_table(bool grid, bool cl, int lanes))[kRuleCount] {
+#ifdef PSO_T_BF16
+  if (lanes == 2) return (grid ? kFusedPairGrid : kFusedPairBlock)[cl];
+#endif
+  return lanes == 1 ? (grid ? kFusedGrid : kFusedBlock)[cl] : nullptr;
+}
+
+// An async launch's table, as fused_table.
+const Kernel (*async_table(bool lbest, bool cl, int lanes))[kRuleCount] {
+#ifdef PSO_T_BF16
+  if (lanes == 2) return (lbest ? kAsyncPairLbest : kAsyncPair)[cl];
+#endif
+  return lanes == 1 ? (lbest ? kAsyncLbest : kAsync)[cl] : nullptr;
+}
+
+// The pair path takes an even block (so an even swarm, whose columns start
+// even) of at least kMaxNeighbors pairs (fold_neighbors reads neighbour k
+// on thread k) and pos, vel, pbest_pos and pbest_fit on 4 bytes.
+bool bad_pairs(int lanes, int n, int bn, const void* pos, const void* vel,
+               const void* pbp, const void* pbf) {
+  if (lanes != 2) return false;
+  const uintptr_t a = (uintptr_t)pos | (uintptr_t)vel | (uintptr_t)pbp |
+                      (uintptr_t)pbf;
+  return n % 2 || bn % 2 || bn / 2 < kMaxNeighbors || (a & 3u);
 }
 
 // att and the four bound rows of the CTA's slice; with a cluster, the
@@ -1478,7 +1876,12 @@ Params<Store> make_params(Store* pos, Store* vel, Store* pbp, Store* pbf,
   return p;
 }
 
-int threads_for(int bn) { return bn < kMaxThreads ? bn : kMaxThreads; }
+// A CTA's threads: a particle each (lanes 1) or a pair each (lanes 2), at
+// most kMaxThreads.
+int threads_for(int bn, int lanes = 1) {
+  const int t = bn / lanes;
+  return t < kMaxThreads ? t : kMaxThreads;
+}
 
 bool bad_shape(int n, int d, int bn, int s_cnt) {
   return n <= 0 || d <= 0 || bn <= 0 || n % bn || s_cnt <= 0 ||
@@ -1600,6 +2003,8 @@ int pso_cluster_capacity(int bn, int d, int csize, int* out) {
 // cooperative launch of count*(n/bn)*csize CTAs, or, with one block a
 // swarm, a normal launch of count*csize. Null seeds/its take seed0/it00
 // (one swarm); non-null counts [s_cnt,3] gets each swarm's events added.
+// lanes 1 takes a particle a thread; 2, in the bfloat16 library, the pair
+// path (n and bn even, pos, vel, pbp and pbf on 4 bytes; bad_pairs).
 int pso_fused_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
                      Store* gp, Store* gf, const float* bounds,
                      const int* member_fit, const int* fids,
@@ -1609,15 +2014,15 @@ int pso_fused_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
                      int s_cnt, int s0, int count, int iters, int csize,
                      unsigned seed0, unsigned it00, int fit, int rule,
                      float w, float c1, float c2, float k0, float k1,
-                     float k2, void* stream) {
+                     float k2, int lanes, void* stream) {
   if (bad_shape(n, d, bn, s_cnt) || bad_cluster(csize, d, bn) || s0 < 0 ||
       count <= 0 || s0 + count > s_cnt ||
       (fit == kHetero && !(member_fit && fids)) ||
-      (!(seeds && its) && s_cnt != 1))
+      (!(seeds && its) && s_cnt != 1) ||
+      bad_pairs(lanes, n, bn, pos, vel, pbp, pbf))
     return (int)cudaErrorInvalidValue;
   const bool grid = n / bn > 1;
-  const Kernel k = pick((grid ? kFusedGrid : kFusedBlock)[csize > 1], fit,
-                        rule);
+  const Kernel k = pick(fused_table(grid, csize > 1, lanes), fit, rule);
   if (!k) return (int)cudaErrorInvalidValue;
   Params<Store> p =
       make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids, seeds,
@@ -1631,8 +2036,8 @@ int pso_fused_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
   const size_t smem = smem_bytes(d, csize, bn);
   cudaError_t err = prepare(k, smem);
   if (err == cudaSuccess)
-    err = launch(k, (unsigned)(count * p.nb * csize), threads_for(bn), smem,
-                 (cudaStream_t)stream, csize, grid, &p);
+    err = launch(k, (unsigned)(count * p.nb * csize), threads_for(bn, lanes),
+                 smem, (cudaStream_t)stream, csize, grid, &p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1644,7 +2049,8 @@ int pso_fused_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
 // non-null counts [s_cnt,3] gets each swarm's events added. topo 0 is the
 // star (slot_seq null); 1 (ring) and 2 (von Neumann, on a grid_r x grid_c
 // torus of the n/bn blocks) fold neighbours, with slot_seq [s_cnt*n/bn]
-// even (zeroed) sequence counters.
+// even (zeroed) sequence counters, and a CTA needs a thread a neighbour.
+// lanes as in pso_fused_launch.
 int pso_async_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
                      Store* gp, Store* gf, const float* bounds,
                      const int* member_fit, const int* fids,
@@ -1655,16 +2061,18 @@ int pso_async_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
                      int csize, int topo, int grid_r, int grid_c,
                      unsigned it_off, unsigned seed0, unsigned it00, int fit,
                      int rule, float w, float c1, float c2, float k0,
-                     float k1, float k2,
-                     void* stream) {
+                     float k1, float k2, int lanes, void* stream) {
   if (bad_shape(n, d, bn, s_cnt) || bad_cluster(csize, d, bn) || chunk <= 0 ||
       iters % chunk || (fit == kHetero && !(member_fit && fids)) ||
       (!(seeds && its) && s_cnt != 1) || topo < 0 || topo > kVonNeumann ||
       (topo != 0) != (slot_seq != nullptr) ||
       (topo == kVonNeumann &&
-       (grid_r < 1 || grid_c < 1 || grid_r * grid_c != n / bn)))
+       (grid_r < 1 || grid_c < 1 || grid_r * grid_c != n / bn)) ||
+      (topo != 0 &&
+       threads_for(bn, lanes) < (topo == kRing ? 2 : kMaxNeighbors)) ||
+      bad_pairs(lanes, n, bn, pos, vel, pbp, pbf))
     return (int)cudaErrorInvalidValue;
-  const Kernel k = pick((topo ? kAsyncLbest : kAsync)[csize > 1], fit, rule);
+  const Kernel k = pick(async_table(topo != 0, csize > 1, lanes), fit, rule);
   if (!k) return (int)cudaErrorInvalidValue;
   Params<Store> p =
       make_params(pos, vel, pbp, pbf, gp, gf, bounds, member_fit, fids, seeds,
@@ -1684,8 +2092,8 @@ int pso_async_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
   const size_t smem = smem_bytes(d, csize, bn);
   cudaError_t err = prepare(k, smem);
   if (err == cudaSuccess)
-    err = launch(k, (unsigned)s_cnt * p.nb * csize, threads_for(bn), smem,
-                 (cudaStream_t)stream, csize, false, &p);
+    err = launch(k, (unsigned)s_cnt * p.nb * csize, threads_for(bn, lanes),
+                 smem, (cudaStream_t)stream, csize, false, &p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

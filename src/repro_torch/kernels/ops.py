@@ -549,13 +549,14 @@ class AsyncLane:
             pso_step.fused_async_batch.hetero_launches += 1
         else:
             pso_step.count(pso_step.fused_async_batch, self.state[0].dtype,
-                           1)
+                           1, self._lanes)
 
     def _capture(self) -> None:
         launch = pso_step.async_lane_launch(
             self.state, self.counters, self.specs, self.fids,
             block_n=self.block_n, sync_every=self.sync_every,
             topology=self.cfg.topology)
+        self._lanes = launch.lanes
         # one launch outside the capture loads the kernel (CUDA loads a
         # module at its first launch), on buffers that hold no row yet
         launch()

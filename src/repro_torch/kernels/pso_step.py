@@ -69,6 +69,14 @@ contention events into it: with ``counts=None`` the kernels get a null
 pointer and count nothing. ``queue_step`` has no counters, as the
 reference's queue kernel has none.
 
+In bfloat16 the fused and async kernels take two paths (``kernel_lanes``
+picks by shape and alignment): the pair path, two neighbouring particles
+a thread on packed bfloat16 arithmetic (``fused_pair_kernel``,
+``async_pair_kernel``), and the lane path, a particle a thread, where
+pairs cannot be formed (an odd block or swarm, operands off 4 bytes). Both
+compute the same bits; lane-path launches also count in
+``.bf16_lane_launches``.
+
 All three kernels run each particle block on a cluster of C CTAs, each
 CTA owning a slice of the dimensions; ``cluster_size`` picks C from the
 swarm's shape alone, the same for every kernel, so a batch row and the
@@ -469,9 +477,9 @@ def _lib(dtype: torch.dtype = torch.float32):
     lib.pso_fused_resident.argtypes = [i] * 5 + [c.POINTER(i)]
     lib.pso_cluster_capacity.argtypes = [i] * 3 + [c.POINTER(i)]
     lib.pso_fused_launch.argtypes = ([p] * 14 + [i] * 8 + [u, u, i, i]
-                                     + [f] * 6 + [p])
+                                     + [f] * 6 + [i, p])
     lib.pso_async_launch.argtypes = ([p] * 16 + [i] * 10 + [u, u, u, i, i]
-                                     + [f] * 6 + [p])
+                                     + [f] * 6 + [i, p])
     lib.pso_neighbor_ids.argtypes = [i] * 4 + [p, p]
     lib.pso_queue_launch.argtypes = ([p] * 9 + [i] * 4 + [u, u, i, i]
                                      + [f] * 6 + [p])
@@ -785,12 +793,57 @@ def _check_counts(counts, s_cnt: int, dev) -> None:
                          f"{tuple(counts.shape)} on {counts.device}")
 
 
-def count(wrapper, dtype: torch.dtype, launches: int) -> None:
-    """Adds ``launches`` of ``dtype``'s kernel to ``wrapper.launches``,
-    and a bfloat16 kernel's also to ``wrapper.bf16_launches``."""
+def count(wrapper, dtype: torch.dtype, launches: int, lanes=None) -> None:
+    """Adds ``launches`` of ``dtype``'s kernel to ``wrapper.launches``, a
+    bfloat16 kernel's also to ``wrapper.bf16_launches`` and, on the fused
+    and async kernels' lane path (``lanes`` 1, ``kernel_lanes``), to
+    ``wrapper.bf16_lane_launches``."""
     wrapper.launches += launches
     if dtype == torch.bfloat16:
         wrapper.bf16_launches += launches
+        if lanes == 1:
+            wrapper.bf16_lane_launches += launches
+
+
+#: Particles a thread of the bfloat16 fused and async kernels' pair path.
+PAIR = 2
+#: The most neighbours an lbest block folds (von Neumann's four; the
+#: ring's two): the async kernels' chunk-entry fold reads neighbour k on
+#: thread k of the CTA, so a CTA needs at least that many threads.
+MAX_NEIGHBORS = 4
+
+
+def kernel_lanes(pos, vel, pbp, pbf, *, n: int, block_n: int) -> int:
+    """The particles a thread the fused and async kernels take for these
+    operands: ``PAIR`` (the bfloat16 library's pair path,
+    ``fused_pair_kernel``/``async_pair_kernel``) where the state is
+    bfloat16, ``block_n`` and the swarm size ``n`` are even (no pair
+    straddles two blocks or two swarms, and every swarm's columns start
+    even), a block's pairs are at least ``MAX_NEIGHBORS`` threads and pos,
+    vel, pbest_pos and pbest_fit start on 4 bytes; else 1 (float32's
+    kernels; in bfloat16 the lane path, ``fused_kernel``/
+    ``async_kernel``)."""
+    if (pos.dtype != torch.bfloat16 or block_n % PAIR or n % PAIR
+            or block_n // PAIR < MAX_NEIGHBORS
+            or any(t.data_ptr() % 4 for t in (pos, vel, pbp, pbf))):
+        return 1
+    return PAIR
+
+
+def check_lbest_threads(topology: str, block_n: int, lanes: int) -> None:
+    """Refuses an lbest ``topology`` whose CTAs would hold fewer threads
+    (``block_n // lanes``) than a block has neighbours (ring 2, von
+    Neumann 4): the kernels' chunk-entry fold reads neighbour k on thread
+    k. Only the lane path's blocks of 1 (ring) or 1-3 (von Neumann)
+    particles meet it; ``kernel_lanes`` keeps the pair path above it."""
+    if topology == "gbest":
+        return
+    need = 2 if topology == "ring" else MAX_NEIGHBORS
+    if block_n // lanes < need:
+        raise ValueError(
+            f"the {topology} topology's kernels need blocks of at least "
+            f"{need * lanes} particles here (a thread a neighbour); got "
+            f"block_n={block_n}")
 
 
 def _copy_into(state, out):
@@ -864,12 +917,12 @@ def _fused_launch(state, spec: KernelSpec, *, seed: int, iteration: int,
     """The kernel path of ``fused``: the batched launch with S = 1
     (``cluster`` as in ``_fused_batch_launch``)."""
     pos, vel, pbp, pbf, gp, gf = state
-    count(fused, pos.dtype, _fused_batch_launch(
+    count(fused, pos.dtype, *_fused_batch_launch(
         (pos, vel, pbp, pbf, gp[:, None], gf), [seed], [iteration], (spec,),
         iters=iters, block_n=block_n, cluster=cluster, counts=counts))
 
 
-fused.launches = fused.bf16_launches = 0
+fused.launches = fused.bf16_launches = fused.bf16_lane_launches = 0
 
 
 def fused_batch(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
@@ -889,29 +942,32 @@ def fused_batch(pos, vel, pbp, pbf, gp, gf, seeds, its, specs, *,
     if pos.device.type == "cpu":
         return _copy_into(state, fused_batch_plain(*state, seeds, its, specs,
                                                    **kw))
-    launched = _fused_batch_launch(state, seeds, its, specs, **kw)
+    launched, lanes = _fused_batch_launch(state, seeds, its, specs, **kw)
     if fids is None:
-        count(fused_batch, pos.dtype, launched)
+        count(fused_batch, pos.dtype, launched, lanes)
     else:
         fused_batch.hetero_launches += launched
     return state
 
 
 fused_batch.launches = fused_batch.bf16_launches = 0
+fused_batch.bf16_lane_launches = 0
 fused_batch.hetero_launches = 0
 
 
 def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
                         block_n: int, fids=None, cluster=None,
-                        counts=None) -> int:
+                        counts=None) -> Tuple[int, int]:
     """The kernel path of the fused wrappers (``launch_plan``); returns the
-    launches made. ``cluster`` sets the cluster size in place of
-    ``cluster_size``'s (chip_smoke.py times each size)."""
+    launches made and the particles a thread they took (``kernel_lanes``).
+    ``cluster`` sets the cluster size in place of ``cluster_size``'s
+    (chip_smoke.py times each size)."""
     extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
         state, seeds, its, specs, fids, block_n)
     _check_counts(counts, s_cnt, state[0].device)
+    lanes = kernel_lanes(*state[:4], n=n, block_n=block_n)
     if iters <= 0:
-        return 0
+        return 0, lanes
     pos = state[0]
     nb = n // block_n
     lib = _lib(pos.dtype)
@@ -930,10 +986,10 @@ def _fused_batch_launch(state, seeds, its, specs, *, iters: int,
         for s0 in range(0, s_cnt, wave):
             _check(lib.pso_fused_launch(
                 *ptrs, n, d, block_n, s_cnt, s0, min(wave, s_cnt - s0),
-                iters, c, *scalars, fit_id, rule_id, *coef, stream),
+                iters, c, *scalars, fit_id, rule_id, *coef, lanes, stream),
                 "fused kernel launch")
             launches += 1
-    return launches
+    return launches, lanes
 
 
 def fused_async(pos, vel, pbp, pbf, gp, gf, lp, lf, spec: KernelSpec, *,
@@ -965,13 +1021,14 @@ def _fused_async_launch(state, spec: KernelSpec, *, seed: int,
                         topology: str = "gbest") -> None:
     """The kernel path of ``fused_async``: the batched launch with S = 1."""
     pos, vel, pbp, pbf, gp, gf, lp, lf = state
-    count(fused_async, pos.dtype, _fused_async_batch_launch(
+    count(fused_async, pos.dtype, *_fused_async_batch_launch(
         (pos, vel, pbp, pbf, gp[:, None], gf, lp, lf), [seed], [iteration],
         (spec,), iters=iters, sync_every=sync_every, block_n=block_n,
         cluster=cluster, counts=counts, topology=topology))
 
 
 fused_async.launches = fused_async.bf16_launches = 0
+fused_async.bf16_lane_launches = 0
 
 
 def fused_async_batch(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its, specs,
@@ -991,16 +1048,17 @@ def fused_async_batch(pos, vel, pbp, pbf, gp, gf, lp, lf, seeds, its, specs,
     if pos.device.type == "cpu":
         return _copy_into(state, fused_async_batch_plain(
             *state, seeds, its, specs, **kw))
-    launched = _fused_async_batch_launch(state, seeds, its, specs,
-                                         cluster=cluster, **kw)
+    launched, lanes = _fused_async_batch_launch(state, seeds, its, specs,
+                                                cluster=cluster, **kw)
     if fids is None:
-        count(fused_async_batch, pos.dtype, launched)
+        count(fused_async_batch, pos.dtype, launched, lanes)
     else:
         fused_async_batch.hetero_launches += launched
     return state
 
 
 fused_async_batch.launches = fused_async_batch.bf16_launches = 0
+fused_async_batch.bf16_lane_launches = 0
 fused_async_batch.hetero_launches = 0
 
 
@@ -1032,7 +1090,8 @@ def _async_launcher(state, seeds, its, specs, fids, *, block_n: int,
     iteration offset ``off`` on the current stream. It allocates nothing
     and reads nothing back, and the kernel reads every operand through its
     pointer, so a CUDA graph can capture it. ``launch.operands`` holds the
-    tensors while a launch may run."""
+    tensors while a launch may run; ``launch.lanes`` is the particles a
+    thread its launches take (``kernel_lanes``)."""
     pos = state[0]
     dev = pos.device
     extra, scalars, fit_id, rule_id, coef, n, d, s_cnt = _launch_operands(
@@ -1046,6 +1105,8 @@ def _async_launcher(state, seeds, its, specs, fids, *, block_n: int,
                              f"[2, {s_cnt}] tensor on {dev}")
         extra[3:5] = [counters[0], counters[1]]
     topo = _topology_operands(topology, n // block_n)
+    lanes = kernel_lanes(*state[:4], n=n, block_n=block_n)
+    check_lbest_threads(topology, block_n, lanes)
     lib = _lib(pos.dtype)
     with torch.cuda.device(dev):
         c, _ = async_plan(n, d, block_n, s_cnt,
@@ -1060,20 +1121,22 @@ def _async_launcher(state, seeds, its, specs, fids, *, block_n: int,
         with torch.cuda.device(dev):
             _check(lib.pso_async_launch(
                 *ptrs, n, d, block_n, s_cnt, span, chunk, c, *topo,
-                off & 0xFFFFFFFF, *scalars, fit_id, rule_id, *coef,
+                off & 0xFFFFFFFF, *scalars, fit_id, rule_id, *coef, lanes,
                 torch.cuda.current_stream(dev).cuda_stream),
                 "async kernel launch")
 
     launch.operands = (extra, counts, lock, seq)
+    launch.lanes = lanes
     return launch, lock, seq
 
 
 def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
                               sync_every: int, block_n: int, fids=None,
                               cluster=None, counts=None,
-                              topology: str = "gbest") -> int:
+                              topology: str = "gbest") -> Tuple[int, int]:
     """The kernel path of the async wrappers (``async_plan``); returns the
-    launches made. ``cluster`` sets the cluster size in place of
+    launches made and their particles a thread (``kernel_lanes``).
+    ``cluster`` sets the cluster size in place of
     ``cluster_size``'s. An lbest ``topology`` takes the kernels' lbest
     instantiations and a zeroed sequence counter a local-best slot, shared
     by the call's launches."""
@@ -1084,7 +1147,7 @@ def _fused_async_batch_launch(state, seeds, its, specs, *, iters: int,
     for off, span, chunk in async_spans(iters, sync_every):
         launch(span, chunk, off)
         launches += 1
-    return launches
+    return launches, launch.lanes
 
 
 def async_lane_launch(state, counters, specs, fids, *, block_n: int,
@@ -1103,7 +1166,8 @@ def async_lane_launch(state, counters, specs, fids, *, block_n: int,
     iterations on the current stream, and add ``sync_every`` to every row's
     iteration counter, all on the device: no host sync, no allocation, no
     copy from the host, so a CUDA graph can capture it. It counts no
-    launch: the caller counts what runs (a replay, not the capture)."""
+    launch: the caller counts what runs (a replay, not the capture), on
+    the path ``launch.lanes`` names."""
     one, lock, seq = _async_launcher(
         state, counters[0].long(), counters[1].long(), specs, fids,
         block_n=block_n, topology=topology, counters=counters)
@@ -1116,6 +1180,7 @@ def async_lane_launch(state, counters, specs, fids, *, block_n: int,
         counters[1].add_(sync_every)
 
     launch.operands = (one, lock, seq)   # held while the launch may run
+    launch.lanes = one.lanes
     return launch
 
 

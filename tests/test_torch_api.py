@@ -387,6 +387,76 @@ def test_port_sources_import_no_jax_or_reference():
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+# --- a history on the eager async engine with an explicit block_n -----------
+# The port's history run passes the block count on (as its run without a
+# history does), so a history never changes the trajectory; the reference's
+# single-swarm history run drops it and takes the default block count
+# (ROADMAP, parity contract: "History runs and block_n").
+
+HISTORY_KW = dict(dim=4, particles=128, iters=8, seed=5)
+
+
+def _async_run(mod, block_n: int, dtype: str, history: bool, backend: str):
+    m = mod.Method(variant="async", sync_every=2, block_n=block_n,
+                   record_history=history, backend=backend)
+    extra = dict(device="cpu") if mod is repro_torch else {}
+    return mod.solve("rastrigin", method=m, dtype=dtype, **HISTORY_KW,
+                     **extra)
+
+
+def _f32(pos) -> np.ndarray:
+    if isinstance(pos, torch.Tensor):
+        return pos.float().numpy()
+    return np.asarray(pos).astype(np.float32)
+
+
+@pytest.mark.parametrize("block_n", [64, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_history_run_keeps_the_block_count(dtype, block_n):
+    """Several blocks: the port's history run equals its run without a
+    history bit for bit, and the reference's run without a history (bit
+    for bit in bfloat16, within TRAJ_TOL in float32), not the reference's
+    history run, which runs one block."""
+    hist = _async_run(repro_torch, block_n, dtype, True, "eager")
+    plain = _async_run(repro_torch, block_n, dtype, False, "eager")
+    assert torch.equal(hist.state.pos, plain.state.pos)
+    assert torch.equal(hist.state.vel, plain.state.vel)
+    assert hist.best_fit == plain.best_fit
+    assert hist.history.gbest_fit[-1] == plain.best_fit
+    want = _async_run(repro, block_n, dtype, False, "jnp")
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(_f32(hist.state.pos),
+                                      _f32(want.state.pos))
+        assert hist.best_fit == want.best_fit
+    else:
+        np.testing.assert_allclose(_f32(hist.state.pos),
+                                   _f32(want.state.pos), **TRAJ_TOL)
+        np.testing.assert_allclose(hist.best_fit, want.best_fit, rtol=1e-5)
+    theirs = _async_run(repro, block_n, dtype, True, "jnp")
+    assert np.abs(_f32(hist.state.pos) - _f32(theirs.state.pos)).max() > 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_history_run_one_block_equals_the_reference_history(dtype):
+    """One block (block_n = particles): the two packages' history runs
+    agree, bit for bit in bfloat16 and within TRAJ_TOL in float32, their
+    histories included."""
+    got = _async_run(repro_torch, 128, dtype, True, "eager")
+    want = _async_run(repro, 128, dtype, True, "jnp")
+    np.testing.assert_array_equal(got.history.iteration,
+                                  np.asarray(want.history.iteration))
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(_f32(got.state.pos),
+                                      _f32(want.state.pos))
+        np.testing.assert_array_equal(_f32(got.history.gbest_fit),
+                                      _f32(want.history.gbest_fit))
+    else:
+        np.testing.assert_allclose(_f32(got.state.pos),
+                                   _f32(want.state.pos), **TRAJ_TOL)
+        np.testing.assert_allclose(got.history.gbest_fit,
+                                   want.history.gbest_fit, rtol=1e-5)
+
+
 # --- constrained problems and custom objectives through the facade ----------
 
 @pytest.mark.parametrize("name", ["sphere_simplex", "sphere_simplex_pen"])

@@ -32,6 +32,7 @@ import torch
 import repro_torch
 from repro_torch.core import multi_swarm as ms
 from repro_torch.core import pso
+from repro_torch.core.topology import block_neighbor_best
 from repro_torch.kernels import ops, pso_step
 from repro_torch.launch.serve import SolveRequest, SolveServer
 from repro_torch.serving import ContinuousScheduler
@@ -532,3 +533,256 @@ def test_weak_constants_round_in_bf16_only():
     assert weak(3, torch.float32) == 3
     t = torch.ones(2)
     assert weak(t, BF) is t
+
+
+# --- the fused and async kernels' two bfloat16 paths -------------------------
+# ``pso_step.kernel_lanes`` picks, by shape and alignment alone, the pair
+# path (two particles a thread on packed bfloat16 arithmetic) or the lane
+# path (a particle a thread); both compute the plain versions' bits.
+
+def _operands(n, s_cnt=1, d=3, dtype=BF, shift=()):
+    """pos, vel, pbp [D, S*N] and pbf [S*N] of ``dtype``; the tensors
+    named in ``shift`` start one element (2 bytes in bfloat16) past a
+    4-byte boundary."""
+    out = []
+    for name, shape in (("pos", (d, s_cnt * n)), ("vel", (d, s_cnt * n)),
+                        ("pbp", (d, s_cnt * n)), ("pbf", (s_cnt * n,))):
+        size = math.prod(shape)
+        buf = torch.zeros(size + 2, dtype=dtype)
+        k = 1 if name in shift else 0
+        out.append(buf[k:k + size].view(shape))
+    return out
+
+
+@pytest.mark.parametrize("n,block_n,s_cnt,want", [
+    (1024, 512, 1, 2),          # even blocks: pairs
+    (1024, 1024, 1, 2),         # one block of more than 512
+    (1024, 512, 4, 2),          # a batch of even swarms
+    (128, 8, 1, 2),             # the smallest pair block: 4 pairs
+    (128, 2, 1, 1),             # fewer pairs than an lbest fold's
+    (128, 4, 1, 1),             # neighbours (a thread each): one
+    (128, 6, 1, 1),             # particle a thread
+    (1023, 341, 1, 1),          # odd block_n (and n)
+    (1023, 1023, 1, 1),         # one odd block
+    (341, 341, 4, 1),           # S > 1 with an odd n: odd columns
+    (6, 3, 2, 1),               # odd block_n in an even swarm
+])
+def test_kernel_lanes_by_shape(n, block_n, s_cnt, want):
+    ops_ = _operands(n, s_cnt)
+    assert pso_step.kernel_lanes(*ops_, n=n, block_n=block_n) == want
+
+
+@pytest.mark.parametrize("shifted", ["pos", "vel", "pbp", "pbf"])
+def test_kernel_lanes_by_alignment(shifted):
+    """An operand that starts 2 bytes past a 4-byte boundary takes the lane
+    path; the same shape aligned takes pairs."""
+    ops_ = _operands(1024, shift=(shifted,))
+    assert ops_[["pos", "vel", "pbp", "pbf"].index(shifted)].data_ptr() % 4
+    assert pso_step.kernel_lanes(*ops_, n=1024, block_n=512) == 1
+    assert pso_step.kernel_lanes(*_operands(1024), n=1024, block_n=512) == 2
+
+
+@pytest.mark.parametrize("topology,block_n,lanes,ok", [
+    ("gbest", 1, 1, True),
+    ("ring", 1, 1, False),          # one thread, two neighbours
+    ("ring", 2, 1, True),
+    ("vonneumann", 3, 1, False),    # three threads, four neighbours
+    ("vonneumann", 4, 1, True),
+    ("vonneumann", 6, 2, False),    # three pairs: kernel_lanes avoids it
+    ("vonneumann", 8, 2, True),
+])
+def test_check_lbest_threads(topology, block_n, lanes, ok):
+    """The async kernels' lbest fold reads a neighbour a thread, so a CTA
+    with fewer threads than neighbours is refused before the launch."""
+    if ok:
+        pso_step.check_lbest_threads(topology, block_n, lanes)
+    else:
+        with pytest.raises(ValueError, match="at least"):
+            pso_step.check_lbest_threads(topology, block_n, lanes)
+
+
+def test_kernel_lanes_float32_is_one_lane():
+    assert pso_step.kernel_lanes(*_operands(1024, dtype=torch.float32),
+                                 n=1024, block_n=512) == 1
+
+
+def test_lane_launches_count_bf16_lane_path_only():
+    """``count``: bfloat16 launches on the lane path also count in
+    ``bf16_lane_launches``; pair-path and float32 launches do not."""
+    w = pso_step.fused_async_batch
+    before = (w.launches, w.bf16_launches, w.bf16_lane_launches)
+    pso_step.count(w, BF, 2, 1)
+    pso_step.count(w, BF, 3, 2)
+    pso_step.count(w, torch.float32, 4, 1)
+    after = (w.launches, w.bf16_launches, w.bf16_lane_launches)
+    assert [a - b for a, b in zip(after, before)] == [9, 5, 2]
+
+
+@pytest.mark.parametrize("shift", [(), ("pos", "pbf")])
+def test_plain_versions_ignore_the_path(shift):
+    """On the CPU the wrappers run the plain version whatever the path:
+    operands off 4 bytes give the aligned ones' bits."""
+    cfg = pso.PSOConfig(dim=3, particle_cnt=256, fitness="rastrigin",
+                        dtype="bfloat16").resolved()
+    s = pso.init_swarm(cfg, 4, device=CPU)
+    spec, state = ops.kernel_spec(cfg), ops.state_to_kernel(s)
+    moved = [x.clone() for x in state]
+    odd = _operands(256, shift=shift)
+    for dst, src in zip(odd, moved[:4]):
+        dst.copy_(src)
+    moved[:4] = odd
+    kw = dict(seed=s.seed, iteration=2, iters=3, block_n=128)
+    want = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    got = pso_step.fused(*moved, spec, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.fixture
+def cuda():
+    """The card, decided inside the test so every worker collects alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run on the H100 with "
+                    "`python -m pytest -m gpu tests/test_torch_bf16.py`")
+    return torch.device("cuda")
+
+
+def _card_state(cuda, fit, rule, d, n, seed=3):
+    cfg = pso.PSOConfig(dim=d, particle_cnt=n, fitness=fit,
+                        update_rule=rule, dtype="bfloat16").resolved()
+    s = pso.init_swarm(cfg, seed, device=cuda)
+    return ops.kernel_spec(cfg), list(ops.state_to_kernel(s)), s.seed
+
+
+def _lane_copy(state):
+    """A copy of a kernel state whose pos, vel, pbp and pbf start 2 bytes
+    past a 4-byte boundary: the lane path at any shape."""
+    out = []
+    for k, t in enumerate(state):
+        if k < 4:
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            t = buf[1:].view(t.shape).copy_(t)
+        else:
+            t = t.clone()
+        out.append(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("fit", FITS + ("griewank",))
+@pytest.mark.parametrize("d,n,bn", [(8, 1024, 512), (37, 1024, 512),
+                                    (120, 128, 128)])
+def test_bf16_pair_and_lane_paths_agree_on_card(cuda, fit, rule, d, n, bn):
+    """One CTA a block (d=8), clusters of 2 (d=37) and of 8 (d=120, one
+    block): a fused launch of three iterations, counters on, on the pair
+    path and on the lane path bit for bit, counts too; at one CTA both are
+    the plain version's bits; with one block the async kernel on each path
+    equals the fused kernel."""
+    spec, state, seed = _card_state(cuda, fit, rule, d, n)
+    kw = dict(seed=seed, iteration=4, iters=3, block_n=bn)
+    assert pso_step.kernel_lanes(*state[:4], n=n, block_n=bn) == 2
+    c1, c2 = (torch.zeros(3, dtype=torch.int32, device=cuda)
+              for _ in range(2))
+    lanes = pso_step.fused.bf16_lane_launches
+    pair = pso_step.fused(*[x.clone() for x in state], spec, counts=c1, **kw)
+    lane = pso_step.fused(*_lane_copy(state), spec, counts=c2, **kw)
+    torch.cuda.synchronize()
+    assert pso_step.fused.bf16_lane_launches == lanes + 1
+    for a, b in zip(pair, lane):
+        assert torch.equal(a, b)
+    assert torch.equal(c1, c2)
+    if pso_step._cluster(n, d, bn, cuda, dtype=BF) == 1:
+        want = pso_step.fused_plain(*state, spec, **kw)
+        for a, b in zip(pair, want):
+            assert torch.equal(a, b)
+    if n == bn:
+        loc = [state[4][:, None].clone(), state[5].clone()]
+        for st in ([x.clone() for x in state] + loc,
+                   _lane_copy(state) + [x.clone() for x in loc]):
+            got = pso_step.fused_async(*st, spec, sync_every=1, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(got[:6], pair):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", RULES)
+def test_bf16_lane_path_by_shape_on_card(cuda, rule):
+    """Shapes that force the lane path, bit for bit the plain versions:
+    odd blocks (n=1023 in blocks of 341 on one CTA each, fused and, with
+    one block of 341 at d=37 on a cluster of 2, async against fused) and a
+    batch of S=4 swarms of an odd n=341."""
+    spec, state, seed = _card_state(cuda, "rastrigin", rule, 8, 1023)
+    kw = dict(seed=seed, iteration=1, iters=3, block_n=341)
+    assert pso_step.kernel_lanes(*state[:4], n=1023, block_n=341) == 1
+    lanes = pso_step.fused.bf16_lane_launches
+    got = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    want = pso_step.fused_plain(*state, spec, **kw)
+    torch.cuda.synchronize()
+    assert pso_step.fused.bf16_lane_launches == lanes + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    spec, state, seed = _card_state(cuda, "cubic", rule, 37, 341)
+    assert pso_step._cluster(341, 37, 341, cuda, dtype=BF) == 2
+    kw = dict(seed=seed, iteration=0, iters=5, block_n=341)
+    fused = pso_step.fused(*[x.clone() for x in state], spec, **kw)
+    loc = (state[4][:, None].clone(), state[5].clone())
+    got = pso_step.fused_async(*[x.clone() for x in state], *loc, spec,
+                               sync_every=2, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:6], fused):
+        assert torch.equal(a, b)
+    cfg = pso.PSOConfig(dim=10, particle_cnt=341, fitness="ackley",
+                        update_rule=rule, dtype="bfloat16").resolved()
+    b = ms.init_batch(cfg, range(4), device=cuda)
+    specs = (ops.kernel_spec(cfg),)
+    st = [ops.pack_dmajor_batch(b.pos), ops.pack_dmajor_batch(b.vel),
+          ops.pack_dmajor_batch(b.pbest_pos), b.pbest_fit.reshape(-1).clone(),
+          ops.pack_dmajor(b.gbest_pos), b.gbest_fit.clone()]
+    assert pso_step.kernel_lanes(*st[:4], n=341, block_n=341) == 1
+    kw = dict(iters=4, block_n=341)
+    lanes = pso_step.fused_batch.bf16_lane_launches
+    got = pso_step.fused_batch(*[x.clone() for x in st], b.seed, b.iteration,
+                               specs, **kw)
+    want = pso_step.fused_batch_plain(*st, b.seed, b.iteration, specs, **kw)
+    torch.cuda.synchronize()
+    assert pso_step.fused_batch.bf16_lane_launches == lanes + 1
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topology,bn", [("ring", 2), ("ring", 4),
+                                         ("ring", 6), ("vonneumann", 4),
+                                         ("vonneumann", 6)])
+def test_bf16_lbest_small_blocks_on_card(cuda, topology, bn):
+    """Blocks of fewer than four pairs take the lane path, whose CTAs hold
+    a thread a neighbour: the async kernel over n/bn such blocks (rastrigin
+    d=3 n=48, 8 iterations at sync_every=2) ends, every local-best slot is
+    non-decreasing and at least its neighbourhood's best at launch, and
+    gbest is max(pbest). Below a thread a neighbour (von Neumann in blocks
+    of 2) the launch is refused."""
+    spec, state, seed = _card_state(cuda, "rastrigin", "pso", 3, 48)
+    assert pso_step.kernel_lanes(*state[:4], n=48, block_n=bn) == 1
+    nb = 48 // bn
+    lp = state[4][:, None].repeat(1, nb).contiguous()
+    lf = state[5].repeat(nb)
+    lf[torch.arange(nb, device=cuda) % 3 == 1] -= 1.0   # distinct slots
+    st = [x.clone() for x in state] + [lp, lf]
+    lf0, lp0 = lf.clone(), lp.clone()
+    _, hood = block_neighbor_best(lf0, lp0.T, topology)
+    kw = dict(seed=seed, iteration=0, iters=8, sync_every=2, block_n=bn,
+              topology=topology)
+    pso_step.fused_async(*st, spec, **kw)
+    torch.cuda.synchronize()
+    pbf, gf, lf = st[3], st[5], st[7]
+    assert bool((lf >= lf0).all())
+    assert bool((lf >= hood).all())
+    assert float(gf[0]) >= float(state[5][0])
+    assert float(gf[0]) == float(pbf.max())
+    if topology == "vonneumann":
+        st = [x.clone() for x in state] + [
+            state[4][:, None].repeat(1, 24).contiguous(), state[5].repeat(24)]
+        with pytest.raises(ValueError, match="at least"):
+            pso_step.fused_async(*st, spec, **dict(kw, block_n=2))
