@@ -211,17 +211,21 @@ under their rows. xLSTM-350M's train step runs 6 of its 24 layers
 swarms through the kernels of rows 1, 2, 3, 5 and 6 (the library built
 with ``-DPSO_T_BF16``), under ROADMAP's bfloat16 parity contract (bit for
 bit on one CTA a block; on clusters one bfloat16 rounding of a fitness,
-``BF16_ULP``); the fused and async kernels take two paths there (the
-pair path, two particles a thread in packed bf16x2 arithmetic, and the
-lane path, a particle a thread, which odd or misaligned swarms take;
+``BF16_ULP``); the queue, fused and async kernels take two paths there
+(the pair path, two particles a thread in packed bf16x2 arithmetic, and
+the lane path, a particle a thread, which odd or misaligned swarms take;
 ``pso_step.kernel_lanes``): 15a every objective and rule on one CTA and on
 clusters of 2 and 8, one block and two (queue, fused, async star and
-ring: every bfloat16 instantiation launched), each fused and async launch
-also on the lane path (``lane_copy``: operands 2 bytes off 4) bit for bit
-the pair path, the one-block async kernel bit for bit the fused kernel;
-the shapes that force the lane path (odd blocks, one odd block on a
-cluster of 2, S=4 swarms of an odd n, every rule, counters on; lbest in
-blocks of fewer than four pairs, and the one refused); cubic
+ring: every bfloat16 instantiation launched), each queue, fused and async
+launch also on the lane path (``lane_copy``: operands 2 bytes off 4) bit
+for bit the pair path (the queue step's aux_fit and aux_idx too), the
+one-block async kernel bit for bit the fused kernel; the shapes that
+force the lane path (odd blocks, one odd block on a cluster of 2, S=4
+swarms of an odd n, every rule, counters on); lbest in blocks of fewer
+threads than neighbours and just above (ring in blocks of 1 and 2, von
+Neumann in blocks of 1-4 and 6) in float32 and bfloat16, on both
+bfloat16 paths, held to the invariants and, at one block, to the star's
+kernel and the plain version; cubic
 d=1 n=131072 (queue chained, a fused launch of 32 with
 counters, the async kernel over 256 blocks by the invariants), cubic
 d=120 n=32768 on clusters of 2 (one step under the contract, the async
@@ -626,15 +630,18 @@ def with_locals(state, nb: int):
 
 # A GLA kernel's name in a mangled symbol (after its length), with its
 # element type (float32 in trees before bfloat16, which had no type
-# argument) and the tile arguments of gla_chunk_state.
-GLA_KERNEL = (r"\d(gla_(?:chunk_state|state_pass|chunk_output(?:_narrow)?))"
-              r"(?:I(f|13__nv_bfloat16)?(?:Li(\d+)ELi(\d+)E)?E)?")
+# argument; bfloat16 as a type argument in trees before the bfloat16
+# kernels of their own, ``..._bf16``) and the tile arguments of
+# gla_chunk_state.
+GLA_KERNEL = (r"\d(gla_(?:chunk_state|state_pass|chunk_output(?:_narrow)?)"
+              r"(?:_bf16)?)(?:I(f|13__nv_bfloat16)?(?:Li(\d+)ELi(\d+)E)?E)?")
 
 
 def gla_key(symbol: str):
     """``gla_chunk_state<1,2>``, ``gla_chunk_output_bf16`` ... for a GLA
-    kernel's mangled symbol (float32 keys as in trees before bfloat16),
-    else None."""
+    kernel's mangled symbol (float32 keys as in trees before bfloat16,
+    bfloat16 keys alike whether the type was a template argument or the
+    kernel's own), else None."""
     m = re.search(GLA_KERNEL, symbol)
     if not m:
         return None
@@ -1875,18 +1882,21 @@ def queue_loop(cfg, s, iters: int):
     return s
 
 
-def queue_kernel_time(state, spec, kw, reps: int = 20, cluster=None):
+def queue_kernel_time(state, spec, kw, reps: int = 20, cluster=None,
+                      copy=None):
     """The queue kernel alone and its wrapper's kernel path, on copies of
-    ``state``: (us a launch, from a CUDA graph of ``reps`` calls replayed,
-    so no host work sits between the launches; the host us a call,
-    enqueued back to back; pbest columns a timed launch wrote, on average,
-    counted on the same launches replayed one at a time). ``cluster`` sets
-    the cluster size in place of the wrappers' rule."""
+    ``state`` (``copy``, default a clone of each tensor): (us a launch,
+    from a CUDA graph of ``reps`` calls replayed, so no host work sits
+    between the launches; the host us a call, enqueued back to back; pbest
+    columns a timed launch wrote, on average, counted on the same launches
+    replayed one at a time). ``cluster`` sets the cluster size in place of
+    the wrappers' rule."""
     def step(run):
         pso_step._queue_launch(run[:4], run[4], run[5], spec,
                                cluster=cluster, **kw)
 
-    run = [x.clone() for x in state]
+    copy = copy or (lambda st: [x.clone() for x in st])
+    run = copy(state)
     step(run)                           # warm: the build, the bounds table
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -1901,7 +1911,7 @@ def queue_kernel_time(state, spec, kw, reps: int = 20, cluster=None):
     end.record()
     torch.cuda.synchronize()
     kernel_us = start.elapsed_time(end) * 1e3 / reps
-    again = [x.clone() for x in state]
+    again = copy(state)
     for _ in range(1 + reps):
         step(again)
     improved = 0
@@ -6162,7 +6172,8 @@ def lane_twin(run, state, want, what: str) -> None:
 
 
 #: The wrappers whose bfloat16 launches take the pair or the lane path.
-LANE_ROWS = ("fused", "fused_batch", "fused_async", "fused_async_batch")
+LANE_ROWS = ("queue_step", "fused", "fused_batch", "fused_async",
+             "fused_async_batch")
 
 
 def bf16_state(fit: str, d: int, n: int, seed: int = 0, rule: str = "pso"):
@@ -6204,7 +6215,8 @@ def bf16_step(got, want, prev, what: str) -> float:
 
 
 def bf16_invariants(spec, state, prev: float, c: int, what: str) -> float:
-    """An async (or any) bfloat16 state held to the invariants: gbest
+    """An async (or any) bfloat16 (or float32) state held to the
+    invariants: gbest
     monotone from ``prev``, == max(pbest), every position inside the box,
     gbest_pos bit for bit a pbest column of fitness gbest, and gbest_pos
     evaluated by the kernel itself (``kernel_fitness`` on clusters of
@@ -6213,7 +6225,7 @@ def bf16_invariants(spec, state, prev: float, c: int, what: str) -> float:
     g = float(gf[0])
     check(g >= prev, f"{what}: gbest monotone ({g} < {prev})")
     check(g == float(pbf.max()), f"{what}: gbest == max(pbest)")
-    lo, hi, _ = pso_step._operands(spec, pos.device, BF)
+    lo, hi, _ = pso_step._operands(spec, pos.device, pos.dtype)
     check(bool(((pos >= lo) & (pos <= hi)).all()), f"{what}: in the box")
     check(gbest_is_a_pbest(pbp, pbf, gp, gf), f"{what}: gbest_pos a pbest "
           f"column of fitness gbest")
@@ -6254,6 +6266,11 @@ def bf16_every_instantiation(errs: dict) -> None:
                                         iters=1, **kw)
                     check(same(q, f1), f"{what}: a queue step == a fused "
                           f"launch of one iteration bit for bit")
+                    # the queue step's six outputs, aux_fit and aux_idx too
+                    lane_twin(lambda st: pso_step.queue_step(*st, spec, **kw),
+                              state, pso_step.queue_step(
+                                  *[x.clone() for x in state], spec, **kw),
+                              what + " queue step")
                     lane_twin(lambda st: pso_step.fused(*st, spec, iters=1,
                                                         **kw),
                               state, f1, what + " fused x1")
@@ -6306,9 +6323,9 @@ def bf16_every_instantiation(errs: dict) -> None:
     torch.cuda.synchronize()
     print(f"  15a: {kinds} (objective, rule, shape) cases: queue, fused "
           f"(grid and block), async (star and ring), each on one CTA and on "
-          f"clusters of 2 and 8, fused and async on the pair path and on the "
-          f"lane path bit for bit; bit for bit at C=1 and one-block async == "
-          f"fused at every C")
+          f"clusters of 2 and 8, queue, fused and async on the pair path and "
+          f"on the lane path bit for bit; bit for bit at C=1 and one-block "
+          f"async == fused at every C")
 
 
 def bf16_main_cells(errs: dict) -> None:
@@ -6469,6 +6486,13 @@ def bf16_lane_shapes(errs: dict) -> None:
         check(same(got, want) and torch.equal(cnt, pcnt), f"{what}: fused "
               f"rastrigin d=8 n=1023 (blocks of 341) x3 == plain, counts too")
         errs["fused_bf16"] = max(errs["fused_bf16"], max_err(got, want))
+        got = pso_step.queue_step(*[x.clone() for x in state], spec, **kw)
+        want = pso_step.queue_plain(*state, spec, **kw)
+        torch.cuda.synchronize()
+        check(same(got, want), f"{what}: queue step rastrigin d=8 n=1023 "
+              f"(blocks of 341) == plain, aux_fit and aux_idx too")
+        errs["queue_step_bf16"] = max(errs["queue_step_bf16"],
+                                      max_err(got, want))
         st, cnt = with_locals(state, 3), new_counts()
         pso_step.fused_async(*st, spec, iters=4, sync_every=2, counts=cnt,
                              **kw)
@@ -6524,45 +6548,89 @@ def bf16_lane_shapes(errs: dict) -> None:
              for w in LANE_ROWS}
     check(all(lanes.values()), f"15a lane path: launches of every row "
           f"({lanes})")
-    bf16_lbest_small_blocks()
-    print(f"  15a lane path by shape, every rule: fused rastrigin d=8 "
-          f"n=1023 (blocks of 341) == plain with counts, async by the "
-          f"invariants; cubic d=37 n=341 (C=2) async star/ring == fused; "
-          f"S=4 n=341 fused and async batches == plain; lane launches "
-          f"{lanes}; lbest in blocks of fewer than 4 pairs on the lane "
-          f"path by the invariants, von Neumann in blocks of 2 refused")
+    print(f"  15a lane path by shape, every rule: queue step and fused "
+          f"rastrigin d=8 n=1023 (blocks of 341) == plain (fused with "
+          f"counts), async by the invariants; cubic d=37 n=341 (C=2) async "
+          f"star/ring == fused; S=4 n=341 fused and async batches == plain; "
+          f"lane launches {lanes}")
+    bf16_lbest_small_blocks(errs)
 
 
-def bf16_lbest_small_blocks() -> None:
-    """15a: blocks of fewer than four pairs (``pso_step.kernel_lanes``:
-    an lbest fold reads a neighbour a thread) take the lane path: the
-    async kernel under ring in blocks of 2 and von Neumann in blocks of 4
-    (rastrigin d=3 n=48, 8 iterations at sync_every=2) ends, every slot
-    non-decreasing and at least its neighbourhood's best at launch, held
-    to ``bf16_invariants``; von Neumann in blocks of 2 (two threads, four
-    neighbours) raises ValueError before a launch."""
-    for topo, bn in (("ring", 2), ("vonneumann", 4)):
-        what = f"bf16 async {topo} in blocks of {bn}"
-        _, spec, state, seed = bf16_state("rastrigin", 3, 48)
-        check(pso_step.kernel_lanes(*state[:4], n=48, block_n=bn) == 1,
-              f"{what}: the lane path")
-        st = list(with_locals(state, 48 // bn))
-        lf0 = st[7].clone()
-        _, hood = topology.block_neighbor_best(lf0, st[6].T, topo)
-        pso_step.fused_async(*st, spec, seed=seed, iteration=0, iters=8,
-                             sync_every=2, block_n=bn, topology=topo)
-        torch.cuda.synchronize()
-        check(bool((st[7] >= lf0).all()) and bool((st[7] >= hood).all()),
-              f"{what}: every slot non-decreasing, >= its neighbourhood")
-        bf16_invariants(spec, st, float(state[5][0]), 1, what)
-    try:
-        pso_step.fused_async(*with_locals(state, 24), spec, seed=seed,
-                             iteration=0, iters=8, sync_every=2, block_n=2,
-                             topology="vonneumann")
-        refused = False
-    except ValueError:
-        refused = True
-    check(refused, "bf16 async vonneumann in blocks of 2: refused")
+#: 15a's lbest blocks below and just above a thread a neighbour (ring 2,
+#: von Neumann 4): the chunk-entry fold reads its neighbours strided over
+#: the CTA's threads.
+LBEST_SMALL = (("ring", 1), ("ring", 2), ("vonneumann", 1),
+               ("vonneumann", 2), ("vonneumann", 3), ("vonneumann", 4),
+               ("vonneumann", 6))
+
+
+def bf16_lbest_small_blocks(errs: dict) -> None:
+    """15a: the async kernel under ring in blocks of 1 and 2 and von
+    Neumann in blocks of 1-4 and 6 (``LBEST_SMALL``; rastrigin d=3 n=48, 8
+    iterations at sync_every=2), in float32 and in bfloat16 on the lane
+    path and, for even blocks, the pair path: it ends, every slot is
+    non-decreasing and at least its neighbourhood's best at launch, every
+    slot evaluates to its fitness (``whole_slots``), and the state holds
+    ``bf16_invariants``. One block of each size: the star's kernel bit for
+    bit, and the plain version bit for bit in bfloat16 (in float32 at the
+    phase-3 tolerances: the plain version sums the objective in torch's
+    order)."""
+    runs = 0
+    for dtype in ("float32", "bfloat16"):
+        for topo, bn in LBEST_SMALL:
+            cfg = pso.PSOConfig(dim=3, particle_cnt=48, fitness="rastrigin",
+                                dtype=dtype).resolved()
+            s = pso.init_swarm(cfg, 0, device="cuda")
+            spec, state = ops.kernel_spec(cfg), ops.state_to_kernel(s)
+            lanes = pso_step.kernel_lanes(*state[:4], n=48, block_n=bn)
+            paths = [(lanes, lambda st: [x.clone() for x in st])]
+            if lanes == pso_step.PAIR:
+                paths.append((1, lane_copy))
+            one = ([x[:, :bn] for x in state[:3]] + [state[3][:bn]]
+                   + list(state[4:]))
+            one = tuple(x.contiguous().clone() for x in one)
+            for path, copy in paths:
+                what = (f"{dtype} async {topo} in blocks of {bn}, "
+                        f"{'pair' if path == 2 else 'lane'} path")
+                st = copy(with_locals(state, 48 // bn))
+                lf0 = st[7].clone()
+                _, hood = topology.block_neighbor_best(lf0, st[6].T, topo)
+                pso_step.fused_async(*st, spec, seed=s.seed, iteration=0,
+                                     iters=8, sync_every=2, block_n=bn,
+                                     topology=topo)
+                torch.cuda.synchronize()
+                check(bool((st[7] >= lf0).all()) and
+                      bool((st[7] >= hood).all()),
+                      f"{what}: every slot non-decreasing, >= its "
+                      f"neighbourhood")
+                whole_slots(what, spec, st[6], st[7], st[4], st[5], 1)
+                bf16_invariants(spec, st, float(state[5][0]), 1, what)
+                kw = dict(seed=s.seed, iteration=0, iters=6, sync_every=2,
+                          block_n=bn)
+                got = pso_step.fused_async(*copy(with_locals(one, 1)), spec,
+                                           topology=topo, **kw)
+                star = pso_step.fused_async(*copy(with_locals(one, 1)),
+                                            spec, **kw)
+                want = pso_step.fused_async_plain(*with_locals(one, 1), spec,
+                                                  topology=topo, **kw)
+                torch.cuda.synchronize()
+                check(same(got, star), f"{what}: one block == the star's "
+                      f"kernel bit for bit")
+                key = "fused_async" + ("_bf16" if dtype == "bfloat16"
+                                       else "")
+                if dtype == "bfloat16":
+                    check(same(got, want), f"{what}: one block == plain "
+                          f"bit for bit")
+                    errs[key] = max(errs[key], max_err(got, want))
+                else:
+                    errs[key] = max(errs[key], compare(
+                        got, want, ASYNC_FIELDS, what + ", one block"))
+                runs += 1
+    blocks = ", ".join(f"{t} {b}" for t, b in LBEST_SMALL)
+    print(f"  15a lbest in small blocks ({blocks}), float32 and bfloat16, "
+          f"{runs} (block, dtype, path) cases: the slots, the torn-read "
+          f"check and the invariants hold; one block == the star's kernel, "
+          f"and == plain (bit for bit in bfloat16)")
 
 
 def refusals(phase: str, problem, hetero) -> None:
@@ -6687,7 +6755,7 @@ def bf16_main_path(card: str) -> dict:
     print(f"  15b launches on the lane path (the rest on the pair path): "
           f"{lanes}")
     check(all(got[w] > lanes[w] for w in LANE_ROWS) and lanes["fused"]
-          and lanes["fused_async"], "rows 2 and 5 on both paths, rows 3 "
+          and lanes["fused_async"], "rows 2 and 5 on both paths, rows 1, 3 "
           "and 6 on the pair path")
     main = {}
     for row, what, call, (b_ms, _) in calls:
@@ -6721,8 +6789,16 @@ def bf16_times(card: str, times: dict, bounds: dict) -> None:
     d, n, bn = 120, 32768, 512
     _, spec, state, seed = bf16_state("cubic", d, n)
     qkw = dict(seed=seed, iteration=0, block_n=bn)
-    kernel_us, _, improved = queue_kernel_time(state, spec, qkw)
-    times["queue_step_bf16"] = kernel_us / 1e6
+    turns = {"pair": [], "lane": []}     # the queue kernel's two paths
+    for kind in ("pair", "lane", "lane", "pair"):
+        kernel_us, _, improved = queue_kernel_time(
+            state, spec, qkw, copy=lane_copy if kind == "lane" else None)
+        turns[kind].append(kernel_us)
+    print(f"  queue_step_bf16 cubic d={d} n={n} (clusters of "
+          f"{bf16_cluster(n, d, bn)}), us a launch from a CUDA graph in "
+          f"turns: " + "; ".join(f"{k} path {', '.join(f'{u:.2f}' for u in v)}"
+                                  for k, v in turns.items()) + f" [{card}]")
+    times["queue_step_bf16"] = sum(turns["pair"]) / 2 / 1e6
     times["queue_step_bf16_plain"] = sync_time(
         lambda: pso_step.queue_plain(*state, spec, **qkw), 3)
     bounds["queue_step_bf16"] = queue_bound(d, n, n // bn, improved, esize=2)

@@ -48,10 +48,11 @@
 // arrays (below, "Storage types"): float, or __nv_bfloat16 in the library
 // built from this source with -DPSO_T_BF16. One library holds one type's
 // kernels; kernels/pso_step.py loads the one a swarm's dtype needs. The
-// bfloat16 library has no heterogeneous kernels, and its fused and async
-// kernels come twice: a particle a thread (the lane path), and two a
-// thread in packed bfloat16 arithmetic (fused_pair_kernel,
-// async_pair_kernel; below, "the bfloat16 pair path").
+// bfloat16 library has no heterogeneous kernels, and its queue, fused and
+// async kernels come twice: a particle a thread (the lane path), and two a
+// thread in packed bfloat16 arithmetic (queue_pair_kernel,
+// fused_pair_kernel, async_pair_kernel; below, "the bfloat16 pair
+// path").
 //
 // Heterogeneous batches: bounds are a table [members, 4, D] and fids[S]
 // picks a swarm's member (a homogeneous batch is a table of one, read at
@@ -668,9 +669,9 @@ __device__ __forceinline__ unsigned long long step_any_cluster(
 // A cluster's partials still meet in rank order, so the pair path computes
 // the lane path's results bit for bit (chip_smoke.py 15a; check_bf16_ops
 // proves the packed instructions). Pairs need an even block (so an even
-// swarm and even columns) of at least kMaxNeighbors pairs (an lbest fold
-// reads a neighbour a thread) and operands on 4 bytes: elsewhere the
-// wrapper takes the lane path (kernels/pso_step.py kernel_lanes).
+// swarm and even columns) and operands on 4 bytes: elsewhere the wrapper
+// takes the lane path (kernels/pso_step.py kernel_lanes). The queue
+// kernel takes the same pair bodies (queue_pair_kernel).
 #include "bf16x2.cuh"
 
 using Bf = __nv_bfloat16;
@@ -1399,10 +1400,11 @@ __device__ __forceinline__ float boundary_cluster(const Params<T>& p,
 // grows), at a boundary after a chunk.
 //
 // The fold reads all neighbours' sequences and fitnesses together, one
-// thread a neighbour (2 for the ring, 4 for von Neumann): a loop of 2-4
-// dependent L2 round trips would add microseconds to every boundary, while
-// a chunk of 8 iterations at d=1 takes about 8 us. The winner is the first
-// maximum in kernel_neighbor_ids order with the block itself first and a
+// thread a neighbour (2 for the ring, 4 for von Neumann), strided over the
+// CTA's threads where it has fewer: a loop of 2-4 dependent L2 round trips
+// would add microseconds to every boundary, while a chunk of 8 iterations
+// at d=1 takes about 8 us. The winner is the first maximum in
+// kernel_neighbor_ids order with the block itself first and a
 // strict >, which is the sequential running max of every engine. Only the
 // winner's D floats are copied, into the shared attractor; then its
 // sequence is read again and the fold retried if it moved. A reader spins
@@ -1500,13 +1502,15 @@ __device__ __forceinline__ float fold_neighbors(const Params<T>& p,
     if constexpr (CL) cg::this_cluster().sync(); else __syncthreads();
   };
   for (;;) {
-    if (c.rank == 0 && tid < nbrs) {        // every neighbour at once
-      const size_t slot = neighbor_slot(p, c, tid);
-      unsigned s1;
-      while ((s1 = __ldcg(p.slot_seq + slot)) & 1u) __nanosleep(32);
-      __threadfence();
-      s_nf[tid] = ldcg(p.lf + slot);
-      s_ns[tid] = s1;
+    if (c.rank == 0) {                      // every neighbour at once
+      for (int k = tid; k < nbrs; k += nt) {
+        const size_t slot = neighbor_slot(p, c, k);
+        unsigned s1;
+        while ((s1 = __ldcg(p.slot_seq + slot)) & 1u) __nanosleep(32);
+        __threadfence();
+        s_nf[k] = ldcg(p.lf + slot);
+        s_ns[k] = s1;
+      }
     }
     sync();
     if (lead) {                             // self first, strict >
@@ -1713,9 +1717,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 // gives). No grid sync, no candidate columns, no lock: kernel 2 of the
 // paper, the cross-block argmax and gather, is the caller's epilogue.
 // ---------------------------------------------------------------------------
-template <typename T, int F, int R, bool CL>
-__global__ void __launch_bounds__(kMaxThreads, 2)
-    queue_kernel(Params<T> p) {
+// The queue kernel's CTA, P particles a thread (step_any).
+template <typename T, int F, int R, bool CL, int P>
+__device__ __forceinline__ void queue_entry(const Params<T>& p) {
   extern __shared__ float sm[];
   __shared__ unsigned long long s_key;
   const Cta c = cta_of<CL>(p);
@@ -1723,15 +1727,20 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   if (threadIdx.x == 0) s_key = 0ull;
   unsigned long long mine;
   if constexpr (CL) {       // the queue kernel has no counters: T = false
-    float pbf = widen(p.pbf[c.col + c.b * p.bn + threadIdx.x]);
+    Pbf<P> pbf;
+    if constexpr (P == 2)
+      pbf = load_pbf<2>(p, c);
+    else    // the lane kernels' own index form: their float32 SASS is
+            // held still (tools/kernel_trees.py)
+      pbf = widen(p.pbf[c.col + c.b * p.bn + threadIdx.x]);
     __syncthreads();
-    mine = step_cluster<T, F, R, false>(p, c, c.it0 + 1u, sm,
-                                        widen(p.gf[c.s]), partials(c, sm),
-                                        pbf, nullptr);
+    mine = step_any_cluster<T, F, R, false, P>(p, c, c.it0 + 1u, sm,
+                                               widen(p.gf[c.s]),
+                                               partials(c, sm), pbf, nullptr);
   } else {
     __syncthreads();
-    mine = step_block<T, F, R, false>(p, c, c.it0 + 1u, sm,
-                                      widen(p.gf[c.s]), nullptr);
+    mine = step_any<T, F, R, false, P>(p, c, c.it0 + 1u, sm,
+                                       widen(p.gf[c.s]), nullptr);
   }
   if (mine) atomicMax(&s_key, mine);
   __syncthreads();
@@ -1742,6 +1751,21 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     p.aux_idx[c.b] = bk ? key_index(bk) : c.b * p.bn;
   }
   if constexpr (CL) cg::this_cluster().sync();   // partials read remotely
+}
+
+template <typename T, int F, int R, bool CL>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    queue_kernel(Params<T> p) {
+  queue_entry<T, F, R, CL, 1>(p);
+}
+
+// The bfloat16 pair path's queue kernel (bn / 2 threads a cluster CTA):
+// the keys of a pair meet in the same atomicMax, so aux_fit and aux_idx
+// (first lane on ties) are the lane path's.
+template <typename T, int F, int R, bool CL>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    queue_pair_kernel(Params<T> p) {
+  queue_entry<T, F, R, CL, 2>(p);
 }
 
 // The neighbour ids of every block, as the lbest folds compute them, into
@@ -1807,6 +1831,9 @@ const Kernel kAsyncPair[2][kTableFits][kRuleCount] = {
 const Kernel kAsyncPairLbest[2][kTableFits][kRuleCount] = {
     PSO_TABLE(async_pair_kernel, , false, true),
     PSO_TABLE(async_pair_kernel, , true, true)};
+const Kernel kQueuePair[2][kFitnessCount][kRuleCount] = {
+    {PSO_BUILTINS(queue_pair_kernel, , false)},
+    {PSO_BUILTINS(queue_pair_kernel, , true)}};
 #endif
 
 Kernel pick(const Kernel (*table)[kRuleCount], int fit, int rule,
@@ -1833,15 +1860,22 @@ const Kernel (*async_table(bool lbest, bool cl, int lanes))[kRuleCount] {
   return lanes == 1 ? (lbest ? kAsyncLbest : kAsync)[cl] : nullptr;
 }
 
+// A queue launch's table, as fused_table.
+const Kernel (*queue_table(bool cl, int lanes))[kRuleCount] {
+#ifdef PSO_T_BF16
+  if (lanes == 2) return kQueuePair[cl];
+#endif
+  return lanes == 1 ? kQueue[cl] : nullptr;
+}
+
 // The pair path takes an even block (so an even swarm, whose columns start
-// even) of at least kMaxNeighbors pairs (fold_neighbors reads neighbour k
-// on thread k) and pos, vel, pbest_pos and pbest_fit on 4 bytes.
+// even) and pos, vel, pbest_pos and pbest_fit on 4 bytes.
 bool bad_pairs(int lanes, int n, int bn, const void* pos, const void* vel,
                const void* pbp, const void* pbf) {
   if (lanes != 2) return false;
   const uintptr_t a = (uintptr_t)pos | (uintptr_t)vel | (uintptr_t)pbp |
                       (uintptr_t)pbf;
-  return n % 2 || bn % 2 || bn / 2 < kMaxNeighbors || (a & 3u);
+  return n % 2 || bn % 2 || (a & 3u);
 }
 
 // att and the four bound rows of the CTA's slice; with a cluster, the
@@ -2049,8 +2083,7 @@ int pso_fused_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
 // non-null counts [s_cnt,3] gets each swarm's events added. topo 0 is the
 // star (slot_seq null); 1 (ring) and 2 (von Neumann, on a grid_r x grid_c
 // torus of the n/bn blocks) fold neighbours, with slot_seq [s_cnt*n/bn]
-// even (zeroed) sequence counters, and a CTA needs a thread a neighbour.
-// lanes as in pso_fused_launch.
+// even (zeroed) sequence counters. lanes as in pso_fused_launch.
 int pso_async_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
                      Store* gp, Store* gf, const float* bounds,
                      const int* member_fit, const int* fids,
@@ -2068,8 +2101,6 @@ int pso_async_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
       (topo != 0) != (slot_seq != nullptr) ||
       (topo == kVonNeumann &&
        (grid_r < 1 || grid_c < 1 || grid_r * grid_c != n / bn)) ||
-      (topo != 0 &&
-       threads_for(bn, lanes) < (topo == kRing ? 2 : kMaxNeighbors)) ||
       bad_pairs(lanes, n, bn, pos, vel, pbp, pbf))
     return (int)cudaErrorInvalidValue;
   const Kernel k = pick(async_table(topo != 0, csize > 1, lanes), fit, rule);
@@ -2101,15 +2132,18 @@ int pso_async_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
 // One queue-algorithm iteration (it00 + 1) of one swarm, each particle
 // block on a cluster of csize CTAs (1: one CTA): a normal launch of
 // (n/bn)*csize CTAs that updates pos/vel/pbp/pbf in place and writes
-// aux_fit[n/bn], aux_idx[n/bn]; gp [D] and gf [1] are only read.
+// aux_fit[n/bn], aux_idx[n/bn]; gp [D] and gf [1] are only read. lanes as
+// in pso_fused_launch.
 int pso_queue_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
                      const Store* gp, const Store* gf, const float* bounds,
                      Store* aux_fit, int* aux_idx, int n, int d, int bn,
                      int csize, unsigned seed0, unsigned it00, int fit,
                      int rule, float w, float c1, float c2, float k0,
-                     float k1, float k2, void* stream) {
-  const Kernel k = pick(kQueue[csize > 1], fit, rule, kFitnessCount);
-  if (!k || bad_shape(n, d, bn, 1) || bad_cluster(csize, d, bn))
+                     float k1, float k2, int lanes, void* stream) {
+  const Kernel k =
+      pick(queue_table(csize > 1, lanes), fit, rule, kFitnessCount);
+  if (!k || bad_shape(n, d, bn, 1) || bad_cluster(csize, d, bn) ||
+      bad_pairs(lanes, n, bn, pos, vel, pbp, pbf))
     return (int)cudaErrorInvalidValue;
   Params<Store> p = make_params(
       pos, vel, pbp, pbf, const_cast<Store*>(gp), const_cast<Store*>(gf),
@@ -2121,7 +2155,7 @@ int pso_queue_launch(Store* pos, Store* vel, Store* pbp, Store* pbf,
   const size_t smem = smem_bytes(d, csize, bn);
   cudaError_t err = prepare(k, smem);
   if (err == cudaSuccess)
-    err = launch(k, (unsigned)(p.nb * csize), threads_for(bn), smem,
+    err = launch(k, (unsigned)(p.nb * csize), threads_for(bn, lanes), smem,
                  (cudaStream_t)stream, csize, false, &p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

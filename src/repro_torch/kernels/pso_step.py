@@ -482,7 +482,7 @@ def _lib(dtype: torch.dtype = torch.float32):
                                      + [f] * 6 + [i, p])
     lib.pso_neighbor_ids.argtypes = [i] * 4 + [p, p]
     lib.pso_queue_launch.argtypes = ([p] * 9 + [i] * 4 + [u, u, i, i]
-                                     + [f] * 6 + [p])
+                                     + [f] * 6 + [i, p])
     for fn in (lib.pso_fused_resident, lib.pso_cluster_capacity,
                lib.pso_fused_launch, lib.pso_async_launch,
                lib.pso_queue_launch, lib.pso_neighbor_ids):
@@ -795,8 +795,8 @@ def _check_counts(counts, s_cnt: int, dev) -> None:
 
 def count(wrapper, dtype: torch.dtype, launches: int, lanes=None) -> None:
     """Adds ``launches`` of ``dtype``'s kernel to ``wrapper.launches``, a
-    bfloat16 kernel's also to ``wrapper.bf16_launches`` and, on the fused
-    and async kernels' lane path (``lanes`` 1, ``kernel_lanes``), to
+    bfloat16 kernel's also to ``wrapper.bf16_launches`` and, on the queue,
+    fused and async kernels' lane path (``lanes`` 1, ``kernel_lanes``), to
     ``wrapper.bf16_lane_launches``."""
     wrapper.launches += launches
     if dtype == torch.bfloat16:
@@ -805,45 +805,24 @@ def count(wrapper, dtype: torch.dtype, launches: int, lanes=None) -> None:
             wrapper.bf16_lane_launches += launches
 
 
-#: Particles a thread of the bfloat16 fused and async kernels' pair path.
+#: Particles a thread of the bfloat16 queue, fused and async kernels'
+#: pair path.
 PAIR = 2
-#: The most neighbours an lbest block folds (von Neumann's four; the
-#: ring's two): the async kernels' chunk-entry fold reads neighbour k on
-#: thread k of the CTA, so a CTA needs at least that many threads.
-MAX_NEIGHBORS = 4
 
 
 def kernel_lanes(pos, vel, pbp, pbf, *, n: int, block_n: int) -> int:
-    """The particles a thread the fused and async kernels take for these
-    operands: ``PAIR`` (the bfloat16 library's pair path,
-    ``fused_pair_kernel``/``async_pair_kernel``) where the state is
-    bfloat16, ``block_n`` and the swarm size ``n`` are even (no pair
-    straddles two blocks or two swarms, and every swarm's columns start
-    even), a block's pairs are at least ``MAX_NEIGHBORS`` threads and pos,
-    vel, pbest_pos and pbest_fit start on 4 bytes; else 1 (float32's
-    kernels; in bfloat16 the lane path, ``fused_kernel``/
-    ``async_kernel``)."""
+    """The particles a thread the queue, fused and async kernels take for
+    these operands: ``PAIR`` (the bfloat16 library's pair path,
+    ``queue_pair_kernel``/``fused_pair_kernel``/``async_pair_kernel``)
+    where the state is bfloat16, ``block_n`` and the swarm size ``n`` are
+    even (no pair straddles two blocks or two swarms, and every swarm's
+    columns start even) and pos, vel, pbest_pos and pbest_fit start on 4
+    bytes; else 1 (float32's kernels; in bfloat16 the lane path,
+    ``queue_kernel``/``fused_kernel``/``async_kernel``)."""
     if (pos.dtype != torch.bfloat16 or block_n % PAIR or n % PAIR
-            or block_n // PAIR < MAX_NEIGHBORS
             or any(t.data_ptr() % 4 for t in (pos, vel, pbp, pbf))):
         return 1
     return PAIR
-
-
-def check_lbest_threads(topology: str, block_n: int, lanes: int) -> None:
-    """Refuses an lbest ``topology`` whose CTAs would hold fewer threads
-    (``block_n // lanes``) than a block has neighbours (ring 2, von
-    Neumann 4): the kernels' chunk-entry fold reads neighbour k on thread
-    k. Only the lane path's blocks of 1 (ring) or 1-3 (von Neumann)
-    particles meet it; ``kernel_lanes`` keeps the pair path above it."""
-    if topology == "gbest":
-        return
-    need = 2 if topology == "ring" else MAX_NEIGHBORS
-    if block_n // lanes < need:
-        raise ValueError(
-            f"the {topology} topology's kernels need blocks of at least "
-            f"{need * lanes} particles here (a thread a neighbour); got "
-            f"block_n={block_n}")
 
 
 def _copy_into(state, out):
@@ -860,7 +839,9 @@ def queue_step(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
     (pos, vel, pbp, pbf, aux_fit [nb], aux_idx [nb] int32). On CUDA
     tensors ONE normal launch of ``n // block_n`` clusters of
     ``cluster_size`` CTAs (the fused kernel's, so the two agree bit for
-    bit), on CPU tensors the plain version."""
+    bit; in bfloat16 on the path ``kernel_lanes`` picks, a lane-path
+    launch also counted in ``queue_step.bf16_lane_launches``), on CPU
+    tensors the plain version."""
     state = (pos, vel, pbp, pbf)
     kw = dict(seed=seed, iteration=iteration, block_n=block_n)
     if pos.device.type == "cpu":
@@ -879,6 +860,7 @@ def _queue_launch(state, gp, gf, spec: KernelSpec, *, seed: int,
         (pos, vel, pbp, pbf, gp[:, None], gf), [seed], [iteration], (spec,),
         None, block_n)
     nb = n // block_n
+    lanes = kernel_lanes(pos, vel, pbp, pbf, n=n, block_n=block_n)
     aux_fit = torch.empty(nb, dtype=pos.dtype, device=pos.device)
     aux_idx = torch.empty(nb, dtype=torch.int32, device=pos.device)
     with torch.cuda.device(pos.device):
@@ -886,13 +868,14 @@ def _queue_launch(state, gp, gf, spec: KernelSpec, *, seed: int,
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         _check(_lib(pos.dtype).pso_queue_launch(
             *_ptrs([pos, vel, pbp, pbf, gp, gf, extra[0], aux_fit, aux_idx]),
-            n, d, block_n, c, *scalars, fit_id, rule_id, *coef, stream),
-            "queue kernel launch")
-    count(queue_step, pos.dtype, 1)
+            n, d, block_n, c, *scalars, fit_id, rule_id, *coef, lanes,
+            stream), "queue kernel launch")
+    count(queue_step, pos.dtype, 1, lanes)
     return aux_fit, aux_idx
 
 
 queue_step.launches = queue_step.bf16_launches = 0
+queue_step.bf16_lane_launches = 0
 
 
 def fused(pos, vel, pbp, pbf, gp, gf, spec: KernelSpec, *, seed: int,
@@ -1106,7 +1089,6 @@ def _async_launcher(state, seeds, its, specs, fids, *, block_n: int,
         extra[3:5] = [counters[0], counters[1]]
     topo = _topology_operands(topology, n // block_n)
     lanes = kernel_lanes(*state[:4], n=n, block_n=block_n)
-    check_lbest_threads(topology, block_n, lanes)
     lib = _lib(pos.dtype)
     with torch.cuda.device(dev):
         c, _ = async_plan(n, d, block_n, s_cnt,

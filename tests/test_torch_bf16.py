@@ -558,10 +558,10 @@ def _operands(n, s_cnt=1, d=3, dtype=BF, shift=()):
     (1024, 512, 1, 2),          # even blocks: pairs
     (1024, 1024, 1, 2),         # one block of more than 512
     (1024, 512, 4, 2),          # a batch of even swarms
-    (128, 8, 1, 2),             # the smallest pair block: 4 pairs
-    (128, 2, 1, 1),             # fewer pairs than an lbest fold's
-    (128, 4, 1, 1),             # neighbours (a thread each): one
-    (128, 6, 1, 1),             # particle a thread
+    (128, 8, 1, 2),             # even blocks below four pairs: pairs,
+    (128, 2, 1, 2),             # which an lbest fold takes too (it reads
+    (128, 4, 1, 2),             # its neighbours strided over the CTA's
+    (128, 6, 1, 2),             # threads)
     (1023, 341, 1, 1),          # odd block_n (and n)
     (1023, 1023, 1, 1),         # one odd block
     (341, 341, 4, 1),           # S > 1 with an odd n: odd columns
@@ -580,25 +580,6 @@ def test_kernel_lanes_by_alignment(shifted):
     assert ops_[["pos", "vel", "pbp", "pbf"].index(shifted)].data_ptr() % 4
     assert pso_step.kernel_lanes(*ops_, n=1024, block_n=512) == 1
     assert pso_step.kernel_lanes(*_operands(1024), n=1024, block_n=512) == 2
-
-
-@pytest.mark.parametrize("topology,block_n,lanes,ok", [
-    ("gbest", 1, 1, True),
-    ("ring", 1, 1, False),          # one thread, two neighbours
-    ("ring", 2, 1, True),
-    ("vonneumann", 3, 1, False),    # three threads, four neighbours
-    ("vonneumann", 4, 1, True),
-    ("vonneumann", 6, 2, False),    # three pairs: kernel_lanes avoids it
-    ("vonneumann", 8, 2, True),
-])
-def test_check_lbest_threads(topology, block_n, lanes, ok):
-    """The async kernels' lbest fold reads a neighbour a thread, so a CTA
-    with fewer threads than neighbours is refused before the launch."""
-    if ok:
-        pso_step.check_lbest_threads(topology, block_n, lanes)
-    else:
-        with pytest.raises(ValueError, match="at least"):
-            pso_step.check_lbest_threads(topology, block_n, lanes)
 
 
 def test_kernel_lanes_float32_is_one_lane():
@@ -634,6 +615,31 @@ def test_plain_versions_ignore_the_path(shift):
     kw = dict(seed=s.seed, iteration=2, iters=3, block_n=128)
     want = pso_step.fused(*[x.clone() for x in state], spec, **kw)
     got = pso_step.fused(*moved, spec, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shift", [(), ("vel",), ("pbf",)])
+def test_queue_step_plain_ignores_the_path(shift):
+    """The queue step routes by ``kernel_lanes`` on the card only: on the
+    CPU it runs the plain version whatever the path, counts no launch,
+    and operands off 4 bytes give the aligned ones' bits."""
+    cfg = pso.PSOConfig(dim=3, particle_cnt=256, fitness="ackley",
+                        dtype="bfloat16").resolved()
+    s = pso.init_swarm(cfg, 6, device=CPU)
+    spec, state = ops.kernel_spec(cfg), ops.state_to_kernel(s)
+    odd = _operands(256, shift=shift)
+    for dst, src in zip(odd, state[:4]):
+        dst.copy_(src)
+    want_lanes = 1 if shift else pso_step.PAIR
+    assert pso_step.kernel_lanes(*odd, n=256, block_n=64) == want_lanes
+    kw = dict(seed=s.seed, iteration=5, block_n=64)
+    before = (pso_step.queue_step.launches,
+              pso_step.queue_step.bf16_lane_launches)
+    got = pso_step.queue_step(*odd, state[4], state[5], spec, **kw)
+    want = pso_step.queue_plain(*state, spec, **kw)
+    assert (pso_step.queue_step.launches,
+            pso_step.queue_step.bf16_lane_launches) == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -706,6 +712,66 @@ def test_bf16_pair_and_lane_paths_agree_on_card(cuda, fit, rule, d, n, bn):
                 assert torch.equal(a, b)
 
 
+def _queue_on(state, spec, kw):
+    """One queue step of ``state`` (its pos/vel/pbp/pbf updated in place)
+    against its gbest: the step's six outputs."""
+    return pso_step.queue_step(*state[:4], state[4], state[5], spec, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("fit", FITS + ("griewank",))
+@pytest.mark.parametrize("d,n,bn", [(8, 1024, 512), (37, 1024, 512)])
+def test_bf16_queue_pair_and_lane_paths_agree_on_card(cuda, fit, rule, d, n,
+                                                      bn):
+    """The queue kernel's pair path (``queue_pair_kernel``) against its
+    lane path (``lane_copy``) bit for bit, aux_fit and aux_idx (first lane
+    on ties) too: one CTA a block (d=8, also the plain version's bits) and
+    clusters of 2 (d=37)."""
+    spec, state, seed = _card_state(cuda, fit, rule, d, n)
+    kw = dict(seed=seed, iteration=4, block_n=bn)
+    assert pso_step.kernel_lanes(*state[:4], n=n, block_n=bn) == 2
+    lanes = pso_step.queue_step.bf16_lane_launches
+    bf16 = pso_step.queue_step.bf16_launches
+    pair = _queue_on([x.clone() for x in state], spec, kw)
+    torch.cuda.synchronize()
+    assert pso_step.queue_step.bf16_lane_launches == lanes
+    lane = _queue_on(_lane_copy(state), spec, kw)
+    torch.cuda.synchronize()
+    assert pso_step.queue_step.bf16_lane_launches == lanes + 1
+    assert pso_step.queue_step.bf16_launches == bf16 + 2
+    for a, b in zip(pair, lane):
+        assert torch.equal(a, b)
+    if pso_step._cluster(n, d, bn, cuda, dtype=BF) == 1:
+        want = pso_step.queue_plain(*state, spec, **kw)
+        for a, b in zip(pair, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", RULES)
+def test_bf16_queue_lane_path_by_shape_on_card(cuda, rule):
+    """Odd blocks (n=1023 in blocks of 341) and misaligned operands take
+    the queue kernel's lane path, bit for bit the plain version."""
+    spec, state, seed = _card_state(cuda, "rastrigin", rule, 8, 1023)
+    kw = dict(seed=seed, iteration=2, block_n=341)
+    assert pso_step.kernel_lanes(*state[:4], n=1023, block_n=341) == 1
+    lanes = pso_step.queue_step.bf16_lane_launches
+    got = _queue_on([x.clone() for x in state], spec, kw)
+    want = pso_step.queue_plain(*state, spec, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    spec, state, seed = _card_state(cuda, "sphere", rule, 8, 1024)
+    kw = dict(seed=seed, iteration=2, block_n=512)
+    got = _queue_on(_lane_copy(state), spec, kw)
+    want = pso_step.queue_plain(*state, spec, **kw)
+    torch.cuda.synchronize()
+    assert pso_step.queue_step.bf16_lane_launches == lanes + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rule", RULES)
 def test_bf16_lane_path_by_shape_on_card(cuda, rule):
@@ -752,37 +818,67 @@ def test_bf16_lane_path_by_shape_on_card(cuda, rule):
         assert torch.equal(a, w)
 
 
+#: Blocks below and just above a thread a neighbour (ring 2, von Neumann
+#: 4): on the lane path (the first) they are 1-6 threads, on the pair path
+#: (the second, even blocks) 1-3.
+SMALL_BLOCKS = [("ring", 1), ("ring", 2), ("vonneumann", 1),
+                ("vonneumann", 2), ("vonneumann", 3), ("vonneumann", 4),
+                ("vonneumann", 6)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("topology,bn", [("ring", 2), ("ring", 4),
-                                         ("ring", 6), ("vonneumann", 4),
-                                         ("vonneumann", 6)])
-def test_bf16_lbest_small_blocks_on_card(cuda, topology, bn):
-    """Blocks of fewer than four pairs take the lane path, whose CTAs hold
-    a thread a neighbour: the async kernel over n/bn such blocks (rastrigin
-    d=3 n=48, 8 iterations at sync_every=2) ends, every local-best slot is
-    non-decreasing and at least its neighbourhood's best at launch, and
-    gbest is max(pbest). Below a thread a neighbour (von Neumann in blocks
-    of 2) the launch is refused."""
-    spec, state, seed = _card_state(cuda, "rastrigin", "pso", 3, 48)
-    assert pso_step.kernel_lanes(*state[:4], n=48, block_n=bn) == 1
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("topology,bn", SMALL_BLOCKS)
+def test_bf16_lbest_small_blocks_on_card(cuda, dtype, topology, bn):
+    """The async kernel's lbest fold reads the neighbours strided over the
+    CTA's threads, so blocks of fewer threads than neighbours run: n/bn
+    blocks (rastrigin d=3 n=48, 8 iterations at sync_every=2) end, every
+    local-best slot is non-decreasing and at least its neighbourhood's best
+    at launch, and gbest is max(pbest), on the lane path and (bfloat16,
+    even blocks) the pair path. One block of bn: the star's kernel bit for
+    bit on each path, and the plain version bit for bit in bfloat16 (in
+    float32 within the topology tests' 1e-5: the plain version sums the
+    objective in torch's order)."""
+    cfg = pso.PSOConfig(dim=3, particle_cnt=48, fitness="rastrigin",
+                        dtype=dtype).resolved()
+    s = pso.init_swarm(cfg, 3, device=cuda)
+    spec, state = ops.kernel_spec(cfg), list(ops.state_to_kernel(s))
+    paths = [lambda st: [x.clone() for x in st]]
+    if dtype == "bfloat16":
+        paths.append(_lane_copy)
+        assert pso_step.kernel_lanes(*state[:4], n=48, block_n=bn) == (
+            2 if bn % 2 == 0 else 1)
     nb = 48 // bn
     lp = state[4][:, None].repeat(1, nb).contiguous()
     lf = state[5].repeat(nb)
     lf[torch.arange(nb, device=cuda) % 3 == 1] -= 1.0   # distinct slots
-    st = [x.clone() for x in state] + [lp, lf]
-    lf0, lp0 = lf.clone(), lp.clone()
-    _, hood = block_neighbor_best(lf0, lp0.T, topology)
-    kw = dict(seed=seed, iteration=0, iters=8, sync_every=2, block_n=bn,
+    kw = dict(seed=s.seed, iteration=0, iters=8, sync_every=2, block_n=bn,
               topology=topology)
-    pso_step.fused_async(*st, spec, **kw)
-    torch.cuda.synchronize()
-    pbf, gf, lf = st[3], st[5], st[7]
-    assert bool((lf >= lf0).all())
-    assert bool((lf >= hood).all())
-    assert float(gf[0]) >= float(state[5][0])
-    assert float(gf[0]) == float(pbf.max())
-    if topology == "vonneumann":
-        st = [x.clone() for x in state] + [
-            state[4][:, None].repeat(1, 24).contiguous(), state[5].repeat(24)]
-        with pytest.raises(ValueError, match="at least"):
-            pso_step.fused_async(*st, spec, **dict(kw, block_n=2))
+    _, hood = block_neighbor_best(lf.clone(), lp.clone().T, topology)
+    for copy in paths:
+        st = copy(state) + [lp.clone(), lf.clone()]
+        pso_step.fused_async(*st, spec, **kw)
+        torch.cuda.synchronize()
+        pbf, gf, got_lf = st[3], st[5], st[7]
+        assert bool((got_lf >= lf).all())
+        assert bool((got_lf >= hood).all())
+        assert float(gf[0]) >= float(state[5][0])
+        assert float(gf[0]) == float(pbf.max())
+        one = [x[:, :bn].contiguous() if x.dim() == 2 and k < 3
+               else x[:bn].clone() if k == 3 else x.clone()
+               for k, x in enumerate(state)]
+        loc = [one[4][:, None].clone(), one[5].clone()]
+        one_kw = dict(kw, iters=6)
+        got = pso_step.fused_async(*copy(one), *[x.clone() for x in loc],
+                                   spec, **one_kw)
+        star = pso_step.fused_async(*copy(one), *[x.clone() for x in loc],
+                                    spec, **dict(one_kw, topology="gbest"))
+        want = pso_step.fused_async_plain(*one, *[x.clone() for x in loc],
+                                          spec, **one_kw)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, star):
+            assert torch.equal(a, c)
+            if dtype == "bfloat16":
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -395,21 +395,11 @@ def test_gla_stage_kernels_match_plain_on_card(cuda, case, chunk):
         y, gla.gla_chunk_output_plain(q, k, v, ld, li, want_h, length), **TOL)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case,chunk,ones", [
-    ((1, 256, 4, 16, 128), 128, False), ((2, 96, 1, 8, 24), 32, False),
-    ((1, 200, 2, 256, 256), 128, True), ((1, 64, 3, 40, 70), 64, False),
-    ((2, 2048, 4, 16, 64), 16, False)])
-def test_gla_bf16_kernel_matches_plain_on_card(cuda, case, chunk, ones):
-    """The bfloat16 kernel path and its stages against their plain versions
-    within the bf16 bound (P = 257 with the ones column: rows of bfloat16
-    that are 2-byte aligned only)."""
-    x = list(_inputs(case, seed=4))
-    if ones:
-        x[2] = np.concatenate([x[2], np.ones(x[2].shape[:3] + (1,),
-                                             np.float32)], -1)
-    t = [torch.from_numpy(a).to(cuda) for a in x]
-    t = [a.bfloat16() for a in t[:3]] + t[3:]
+def _bf16_card_check(t, chunk):
+    """The bfloat16 kernel path on ``t`` (bfloat16 q, k, v and float32
+    gates on the card) and its stages against their plain versions: y
+    within the bf16 bound, the chunk states within ``TOL`` of the plain
+    stage, y from the plain H_in within the bf16 bound."""
     want = gla.gla_forward_plain(*t, chunk=chunk)
     before = (gla.gla_forward.launches, gla.gla_forward.bf16_launches)
     got = gla.gla_forward(*t, chunk=chunk)
@@ -417,16 +407,57 @@ def test_gla_bf16_kernel_matches_plain_on_card(cuda, case, chunk, ones):
     assert (gla.gla_forward.launches, gla.gla_forward.bf16_launches) == (
         before[0] + 1, before[1] + 1)
     assert got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
     _bf16_close(got.float().cpu().numpy(), want.float().cpu().numpy())
-    length = min(chunk, case[1])
+    length = min(chunk, t[0].shape[1])
     folded = [a.transpose(1, 2).reshape(-1, a.shape[1], *a.shape[3:])
               .contiguous() for a in gla._pad(*t, length)]
     q, k, v, ld, li = folded
     want_states, want_tot = gla.gla_chunk_states_plain(k, v, ld, li, length)
     want_h = gla.gla_state_pass_plain(want_states, want_tot)
-    states, _ = gla.chunk_states(k, v, ld, li, length)
+    states, tot = gla.chunk_states(k, v, ld, li, length)
     y = gla.chunk_output(q, k, v, ld, li, want_h, length)
     torch.cuda.synchronize()
     torch.testing.assert_close(states[:, :-1], want_states[:, :-1], **TOL)
+    torch.testing.assert_close(tot[:, :-1], want_tot[:, :-1], **TOL)
     _bf16_close(y.float().cpu().numpy(), gla.gla_chunk_output_plain(
         q, k, v, ld, li, want_h, length).float().cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,chunk,ones", [
+    ((1, 256, 4, 16, 128), 128, False), ((2, 96, 1, 8, 24), 32, False),
+    ((1, 200, 2, 256, 256), 128, True), ((1, 64, 3, 40, 70), 64, False),
+    ((2, 2048, 4, 16, 64), 16, False),
+    ((2, 512, 2, 16, 128), 128, False),     # hymba's head, narrow
+    ((2, 512, 2, 16, 128), 64, False),      # chunks of 64
+    ((1, 1000, 2, 16, 128), 128, False),    # S padded to 1024
+    ((1, 256, 2, 256, 256), 64, True),      # N=256, P=257, chunks of 64
+    ((1, 100, 2, 12, 10), 32, False)])      # rows of 4-byte copies
+def test_gla_bf16_kernel_matches_plain_on_card(cuda, case, chunk, ones):
+    """The bfloat16 kernel path and its stages against their plain versions
+    within the bf16 bound (P = 257 with the ones column: rows of bfloat16
+    that are 2-byte aligned only, plain loads; N = 12: 4-byte copies)."""
+    x = list(_inputs(case, seed=4))
+    if ones:
+        x[2] = np.concatenate([x[2], np.ones(x[2].shape[:3] + (1,),
+                                             np.float32)], -1)
+    t = [torch.from_numpy(a).to(cuda) for a in x]
+    _bf16_card_check([a.bfloat16() for a in t[:3]] + t[3:], chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["model", "spike", 0.0, -50.0])
+@pytest.mark.parametrize("case", [(1, 256, 2, 16, 64), (1, 256, 2, 40, 70)])
+def test_gla_bf16_gate_regimes_on_card(cuda, case, regime):
+    """The float32 card tests' clipped-gate regimes in bfloat16: hymba's
+    model gates and the spike (``_regime``), log_decay 0 (no clip) and -50
+    (every weight in the clips; the narrow kernel then takes each entry's
+    own clipped exp), the whole path and its stages within the bounds."""
+    if isinstance(regime, str):
+        x = _regime(case, regime, 128, seed=8)
+    else:
+        x = list(_inputs(case, seed=6))
+        x[3] = np.full_like(x[3], regime)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in x]
+    _bf16_card_check([a.bfloat16() for a in t[:3]] + t[3:], 128)

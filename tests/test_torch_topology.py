@@ -40,8 +40,9 @@ try:
     from repro.core import topology as jtop
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
+    import repro as jpso_api
 except ModuleNotFoundError:     # a CUDA host may have no JAX installed
-    jnp = jms = jpso = jtop = jops = jref = None
+    jnp = jms = jpso = jtop = jops = jref = jpso_api = None
 
 torch.set_num_threads(1)
 
@@ -442,6 +443,37 @@ def test_lbest_end_to_end_facade(backend, topo):
                             w=0.7, method=m, device="cpu")
     assert con.config.topology == topo
     assert float((con.state.pos.sum(-1) - 1).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("topo,bn", [
+    ("gbest", 1), ("ring", 1), ("ring", 2), ("vonneumann", 3),
+    ("vonneumann", 4), ("vonneumann", 6), ("vonneumann", 8)])
+def test_lbest_small_blocks_kernel_backend(topo, bn, reference):
+    """Blocks with fewer particles than neighbours (ring in blocks of 1,
+    von Neumann in blocks of 1-3) and just above: ``solve`` on the kernel
+    backend (the async kernels' plain versions here) against the
+    reference's kernel backend (Pallas, interpret mode), rastrigin d=3,
+    one block and four, 8 iterations at sync_every=2, at the plain
+    versions' tolerances. On the card the same blocks run on the kernels
+    (``test_bf16_lbest_small_blocks_on_card`` in tests/test_torch_bf16.py)."""
+    for n in (bn, 4 * bn):
+        kw = dict(dim=3, particles=n, iters=8, seed=3)
+        want = jpso_api.solve("rastrigin", method=jpso_api.Method(
+            variant="async", backend="kernel", topology=topo, block_n=bn,
+            sync_every=2), **kw)
+        got = repro_torch.solve("rastrigin", method=api.Method(
+            variant="async", backend="kernel", topology=topo, block_n=bn,
+            sync_every=2), device="cpu", **kw)
+        assert got.config.topology == topo
+        st, ref = got.state, _np(want.state)
+        tol = _pos_tol(ops.kernel_spec(got.config))
+        np.testing.assert_allclose(st.pos.numpy(), ref["pos"], **tol)
+        np.testing.assert_allclose(st.pbest_pos.numpy(), ref["pbest_pos"],
+                                   **tol)
+        np.testing.assert_allclose(st.pbest_fit.numpy(), ref["pbest_fit"],
+                                   **_fit_tol(ref["pbest_fit"]))
+        np.testing.assert_allclose(got.gbest_fit, float(want.gbest_fit),
+                                   **_fit_tol(ref["gbest_fit"]))
 
 
 # --- on the card -------------------------------------------------------------

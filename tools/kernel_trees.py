@@ -5,6 +5,7 @@ on one card, in turns.
     python3 tools/kernel_trees.py OLD/src src src OLD/src
     python3 tools/kernel_trees.py --source pso_split OLD/src src src OLD/src
     python3 tools/kernel_trees.py --source gla OLD/src src src OLD/src
+    python3 tools/kernel_trees.py --may-move 'lbest|queue_pair' OLD/src src
 
 Each argument is a checkout's ``src/``, run in a process of its own (a
 package is imported once a process) in the order given, so ``P C C P``
@@ -17,8 +18,9 @@ and async kernels alone at the main path's two solve cells (cubic d=1
 n=131072 x1000, cubic d=120 n=32768 x200; async at sync_every=8), counters
 off, each run from a copy of the initial swarm, in float32 and in
 bfloat16: device us an iteration (CUDA events), the median of five after a
-warm run; and the fused kernel's x32 call from the fresh swarm at d=1 in
-both dtypes (``fresh_turns``). Last, the kernels whose
+warm run; the float32 async kernel under each topology at the same cells
+(``lbest_turns``); and the fused kernel's x32 call from the fresh swarm at
+d=1 in both dtypes (``fresh_turns``). Last, the kernels whose
 ``-Xptxas -v`` line or SASS differs between the first two distinct trees,
 side by side, with the spill totals; the float32 ones counted apart (this
 checkout's parser keys a tree's float32 kernels alike whether or not its
@@ -49,9 +51,18 @@ us/iter).
 With ``--source gla`` each tree builds its ``gla.cu`` and runs this
 checkout's ``chip_smoke.gla_times`` (phase 5's float32 GLA kernel path at
 hymba-1.5B's SSD width, both kinds of gates, and the xLSTM-350M head shape:
-ms and each kernel's device us); this checkout's parser keys the float32
-kernels alike in trees with and without the bfloat16 instantiations.
-Needs one CUDA card, ``nvcc`` and ``nvidia-smi``.
+ms and each kernel's device us), then its bfloat16 kernel path at phase
+11a's two shapes (``gla_bf16_turn``: each kernel's device us with the L2
+flushed by reading before every call); this checkout's parser keys the
+float32 kernels alike in trees with and without the bfloat16
+instantiations, and the bfloat16 ones alike whether bfloat16 is their
+template argument or their own kernel.
+
+``--may-move PATTERN`` (a regular expression, searched in each kernel's
+key) states which functions a change may move: the comparison ends with
+the moved functions outside it, and the tool exits 1 if there are any.
+Without it no function may move. Needs one CUDA card, ``nvcc`` and
+``nvidia-smi``.
 """
 import concurrent.futures
 import functools
@@ -94,6 +105,7 @@ def one_tree(src: str, source: str, sass_out: str) -> None:
     if source == "gla":
         torch.backends.cuda.matmul.allow_tf32 = False
         cs.gla_times(card)
+        gla_bf16_turn(cs, card)
         print(json.dumps({"ptxas": lines, "sass": digests}))
         return
     if source == "pso_split":
@@ -128,8 +140,58 @@ def one_tree(src: str, source: str, sass_out: str) -> None:
                       f"(clusters of {cs.cluster_of(n, d)}), device us/iter, "
                       f"median {us[2]:.3f} "
                       f"({', '.join(f'{u:.3f}' for u in us)}) [{card}]")
+    lbest_turns(cs, card)
     fresh_turns(cs, card)
     print(json.dumps({"ptxas": lines, "sass": digests}))
+
+
+def gla_bf16_turn(cs, card: str) -> None:
+    """The tree's bfloat16 GLA kernel path on folded operands at phase
+    11a's shapes (hymba-1.5B's SSD width with the model's gates, the
+    xLSTM-350M head shape), with ``cs``'s (chip_smoke's) inputs: each
+    kernel's device us (torch.profiler, the mean of 5 calls, the L2
+    flushed by reading before each, ``gla_cold_us``) and the call's ms in
+    CUDA events, flushed alike (``cold_ms``)."""
+    from repro_torch.kernels import gla
+    chunk = 128
+    for name, b, s, shape, ones, model in (
+            ("hymba-1.5B B=4 S=4096, the model's gates", 4, 4096, cs.HYMBA,
+             False, True),
+            ("xLSTM-350M B=1 S=1024 P=257", 1, 1024, cs.XLSTM, True,
+             False)):
+        x = cs.gla_inputs(b, s, **shape, ones=ones, model_gates=model)
+        folded = cs.gla_folded([a.bfloat16() for a in x[:3]] + x[3:], chunk)
+        per = cs.gla_cold_us(folded, chunk)
+        call = cs.cold_ms(lambda st: gla._launch(*st, chunk), folded)
+        print(f"  gla bfloat16 {name}: " + ", ".join(
+            f"{k} {us:.1f} us" for k, us in per.items()) + f"; the call "
+            f"{call:.4f} ms, L2 flushed [{card}]")
+
+
+def lbest_turns(cs, card: str) -> None:
+    """The float32 async kernel alone under each topology (the star, the
+    ring, von Neumann) at the two solve cells, from one state: device us an
+    iteration in CUDA events, the median of five rounds in turns (the
+    order reversed every other round), as chip_smoke's phase 7 times it."""
+    from repro_torch.kernels import ops, pso_step
+    for d, n, iters in cs.SOLVE_CELLS:
+        bn = ops._resolve_block(n, None)
+        _, spec, state, seed = cs.kernel_state("cubic", d, n)
+        state = cs.with_locals(state, n // bn)
+        kw = dict(seed=seed, iteration=0, iters=iters, block_n=bn,
+                  sync_every=cs.pso.ASYNC_SYNC_EVERY)
+        us = {t: [] for t in ("gbest", "ring", "vonneumann")}
+        for k in range(6):
+            for topo in (list(us) if k % 2 else list(us)[::-1]):
+                t = cs.device_us(lambda st, topo=topo: pso_step.fused_async(
+                    *st, spec, topology=topo, **kw), state)
+                if k:
+                    us[topo].append(t / iters)
+        print(f"  cubic d={d} n={n} x{iters} async float32 (clusters of "
+              f"{cs.cluster_of(n, d)}) by topology, device us/iter, median "
+              f"of 5 in turns: " + ", ".join(
+                  f"{t} {sorted(v)[2]:.3f}" for t, v in us.items())
+              + f" [{card}]")
 
 
 def fresh_turns(cs, card: str) -> None:
@@ -447,9 +509,11 @@ def spills(info: str) -> int:
 
 def main() -> int:
     args = sys.argv[1:]
-    source = "pso_step"
+    source, may_move = "pso_step", None
     if args[:1] == ["--source"]:
         source, args = args[1], args[2:]
+    if args[:1] == ["--may-move"]:
+        may_move, args = re.compile(args[1]), args[2:]
     if source not in ("pso_step", "pso_split", "gla"):
         raise SystemExit(f"kernel_trees: --source pso_step, pso_split or "
                          f"gla, not {source}")
@@ -460,13 +524,16 @@ def main() -> int:
     if not trees:
         raise SystemExit(__doc__)
     with tempfile.TemporaryDirectory() as tmp:
-        return compare_trees(trees, source, Path(tmp))
+        return compare_trees(trees, source, Path(tmp), may_move)
 
 
-def compare_trees(trees, source: str, tmp: Path) -> int:
+def compare_trees(trees, source: str, tmp: Path, may_move=None) -> int:
     """Runs each tree in a process of its own (``one_tree``), then prints
-    what moved between the first two distinct trees."""
+    what moved between the first two distinct trees; returns 1 if a
+    function outside ``may_move`` (a compiled pattern, or None: none may)
+    moved, by its ``-Xptxas -v`` line or its SASS."""
     ptxas, sass, bodies = {}, {}, {}
+    unexpected = set()
     for i, src in enumerate(trees):
         out_file = tmp / f"sass{i}.pickle"
         out = subprocess.run([sys.executable, __file__, "--source", source,
@@ -494,6 +561,7 @@ def compare_trees(trees, source: str, tmp: Path) -> int:
               f"{sum(map(spills, pb.values()))} B in all")
         for k in moved:
             print(f"  {k}: {pa.get(k)} -> {pb.get(k)}")
+        unexpected.update(moved)
         sa, sb = sass[a], sass[b]
         keys = list(sa) + [k for k in sb if k not in sa]
         moved = [k for k in keys if sa.get(k) != sb.get(k)]
@@ -508,7 +576,13 @@ def compare_trees(trees, source: str, tmp: Path) -> int:
         both.sort(key=lambda k: k not in f32)
         for k in both[:SHOWN_DIFFERENCES]:
             print(f"  {k}: {first_difference(bodies[a][k], bodies[b][k])}")
-    return 0
+        unexpected.update(moved)
+    unexpected = sorted(k for k in unexpected
+                        if not (may_move and may_move.search(k)))
+    print(f"moved outside --may-move "
+          f"{may_move.pattern if may_move else '(none may move)'}: "
+          f"{len(unexpected)}" + "".join(f"\n  {k}" for k in unexpected))
+    return 1 if unexpected else 0
 
 
 if __name__ == "__main__":
