@@ -68,6 +68,7 @@ from .core.pso import (ASYNC_SYNC_EVERY, VARIANTS, PSOConfig, SwarmState,
 from .core.update_rules import (TOPOLOGIES, kernel_carries, kernel_rule_id,
                                  resolve_rule)
 from .telemetry import KernelCounters
+from .telemetry import trace as _trace
 
 _KERNEL_VARIANTS = ("queue_lock", "async")
 _BACKENDS = ("auto", "eager", "kernel")
@@ -252,7 +253,10 @@ class Result:
     ``history`` holds the gbest trajectory when the solve ran with
     ``Method(record_history=True)``, ``telemetry`` the kernels' contention
     counters (``repro_torch.telemetry.KernelCounters``) with
-    ``Method(telemetry=True)``."""
+    ``Method(telemetry=True)``. ``solve_id`` is the id of the ``api.solve``
+    span that made it (``telemetry.trace``; None where no span recorded):
+    the ``api.read`` spans of ``best_fit``, ``best_pos`` and ``gbest_fit``
+    carry it."""
 
     problem: Problem
     config: PSOConfig
@@ -261,21 +265,34 @@ class Result:
     state: SwarmState
     history: Optional[History] = None
     telemetry: Optional[KernelCounters] = None
+    solve_id: Optional[int] = None
 
     @property
     def best_fit(self) -> float:
-        return float(self.problem.user_value(self.state.gbest_fit))
+        tok = _trace.begin("api.read", solve=self.solve_id)
+        try:
+            return float(self.problem.user_value(self.state.gbest_fit))
+        finally:
+            _trace.end(tok)
 
     @property
     def best_pos(self) -> np.ndarray:
         """gbest's position on the host (float32 for a bfloat16 swarm:
         numpy has no bfloat16)."""
-        return _device.host(self.state.gbest_pos)
+        tok = _trace.begin("api.read", solve=self.solve_id)
+        try:
+            return _device.host(self.state.gbest_pos)
+        finally:
+            _trace.end(tok)
 
     @property
     def gbest_fit(self) -> float:
         """Canonical (maximized) fitness, as the engine tracks it."""
-        return float(self.state.gbest_fit)
+        tok = _trace.begin("api.read", solve=self.solve_id)
+        try:
+            return float(self.state.gbest_fit)
+        finally:
+            _trace.end(tok)
 
     @property
     def violation(self) -> float:
@@ -343,23 +360,28 @@ def solve(problem: Union[str, Problem], *,
     ``method=Method(...)`` or the loose ``variant=``/``backend=``/...
     kwargs, not both. ``dim`` defaults to the problem's per-dimension bound
     length (else 1)."""
-    dev = _device.resolve(device)
-    prob = resolve_problem(problem)
-    m = _make_method(method, variant=variant, backend=backend,
-                     sync_every=sync_every, block_n=block_n,
-                     record_history=record_history, schedule=schedule,
-                     rule=rule, topology=topology, telemetry=telemetry)
-    cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
-                       max_pos, max_v, m)
-    m = _effective_method(m, prob, cfg, iters, dev)
-    if m.islands:
-        state = _run_islands(prob, cfg, seed, iters, m, dev)
-        hist = tel = None
-    else:
-        state = init_swarm(cfg, seed, device=dev)
-        state, hist, tel = _run_segmented(prob, cfg, state, iters, m)
-    return Result(problem=prob, config=cfg, method=m, iters=iters,
-                  state=state, history=hist, telemetry=tel)
+    tok = _trace.begin("api.solve", opens_solve=True)
+    try:
+        dev = _device.resolve(device)
+        prob = resolve_problem(problem)
+        m = _make_method(method, variant=variant, backend=backend,
+                         sync_every=sync_every, block_n=block_n,
+                         record_history=record_history, schedule=schedule,
+                         rule=rule, topology=topology, telemetry=telemetry)
+        cfg = _make_config(prob, dim, particles, w, c1, c2, dtype, min_pos,
+                           max_pos, max_v, m)
+        m = _effective_method(m, prob, cfg, iters, dev)
+        if m.islands:
+            state = _run_islands(prob, cfg, seed, iters, m, dev)
+            hist = tel = None
+        else:
+            state = init_swarm(cfg, seed, device=dev)
+            state, hist, tel = _run_segmented(prob, cfg, state, iters, m)
+        return Result(problem=prob, config=cfg, method=m, iters=iters,
+                      state=state, history=hist, telemetry=tel,
+                      solve_id=None if tok is None else tok.id)
+    finally:
+        _trace.end(tok)
 
 
 def _ramp_segments(iters: int, cset):

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import _device
+from ..telemetry import trace as _trace
 from . import rng
 from .blocking import default_block_count
 from .constraints import deb_improved, repair_init_positions
@@ -258,45 +259,50 @@ def init_swarm(cfg: PSOConfig, seed, n: Optional[int] = None,
     the same streams but takes the box from the row's bound columns and
     the objective from the table (``multi_swarm``'s heterogeneous
     batches)."""
-    dev = _device.resolve(device)
-    cfg = cfg.resolved()
-    n = cfg.particle_cnt if n is None else n
-    d = cfg.dim
-    dt = cfg.torch_dtype
-    idx = _particle_index(n, d, dev, index_offset)
-    sd = _per_row(seed, 2)
-    u_pos = rng.uniform(sd, 0, STREAM_INIT_POS, idx, dtype=dt)
-    u_vel = rng.uniform(sd, 0, STREAM_INIT_VEL, idx, dtype=dt)
-    if hetero is None:
-        lo = _bound_operand(cfg.min_pos, dt, dev)
-        hi = _bound_operand(cfg.max_pos, dt, dev)
-        mv = _bound_operand(cfg.max_v, dt, dev)
-    else:
-        lo, hi, mv = (x.unsqueeze(-2) for x in hetero[1][1:])
-    # scalar bounds are weak-typed constants (fitness.weak) in the
-    # reference: its span is the Python difference, rounded to the dtype
-    span = weak(hi - lo, dt)
-    pos = weak(lo, dt) + span * u_pos
-    vel = weak(-mv, dt) + weak(2.0 * mv, dt) * u_vel
-    prob = cfg.problem
-    if hetero is None and prob.projection_fn is not None:
-        pos = prob.projection_fn(pos)          # start feasible
-    elif hetero is None and prob.constrained \
-            and prob.constraints.mode == "repair":
-        pos = repair_init_positions(prob.constraints, prob.violation_fn, pos,
-                                    lo, span, sd, STREAM_INIT_POS, idx, dt)
-    fit = (cfg.fitness_fn(pos) if hetero is None
-           else _hetero_fitness(hetero[0], hetero[1].fid, pos))
-    gbest_fit, gbest_pos = _pick(fit, pos, torch.argmax(fit, -1, True))
-    if isinstance(seed, Tensor):
-        seed = seed.to(torch.int64) & 0xFFFFFFFF
-        iteration = torch.zeros_like(seed)
-    else:
-        seed, iteration = int(seed) & 0xFFFFFFFF, 0
-    return SwarmState(
-        pos=pos, vel=vel, fit=fit, pbest_pos=pos, pbest_fit=fit,
-        gbest_pos=gbest_pos, gbest_fit=gbest_fit,
-        iteration=iteration, seed=seed)
+    tok = _trace.begin("pso.init_swarm")
+    try:
+        dev = _device.resolve(device)
+        cfg = cfg.resolved()
+        n = cfg.particle_cnt if n is None else n
+        d = cfg.dim
+        dt = cfg.torch_dtype
+        idx = _particle_index(n, d, dev, index_offset)
+        sd = _per_row(seed, 2)
+        u_pos = rng.uniform(sd, 0, STREAM_INIT_POS, idx, dtype=dt)
+        u_vel = rng.uniform(sd, 0, STREAM_INIT_VEL, idx, dtype=dt)
+        if hetero is None:
+            lo = _bound_operand(cfg.min_pos, dt, dev)
+            hi = _bound_operand(cfg.max_pos, dt, dev)
+            mv = _bound_operand(cfg.max_v, dt, dev)
+        else:
+            lo, hi, mv = (x.unsqueeze(-2) for x in hetero[1][1:])
+        # scalar bounds are weak-typed constants (fitness.weak) in the
+        # reference: its span is the Python difference, rounded to the dtype
+        span = weak(hi - lo, dt)
+        pos = weak(lo, dt) + span * u_pos
+        vel = weak(-mv, dt) + weak(2.0 * mv, dt) * u_vel
+        prob = cfg.problem
+        if hetero is None and prob.projection_fn is not None:
+            pos = prob.projection_fn(pos)          # start feasible
+        elif hetero is None and prob.constrained \
+                and prob.constraints.mode == "repair":
+            pos = repair_init_positions(prob.constraints, prob.violation_fn,
+                                        pos, lo, span, sd, STREAM_INIT_POS,
+                                        idx, dt)
+        fit = (cfg.fitness_fn(pos) if hetero is None
+               else _hetero_fitness(hetero[0], hetero[1].fid, pos))
+        gbest_fit, gbest_pos = _pick(fit, pos, torch.argmax(fit, -1, True))
+        if isinstance(seed, Tensor):
+            seed = seed.to(torch.int64) & 0xFFFFFFFF
+            iteration = torch.zeros_like(seed)
+        else:
+            seed, iteration = int(seed) & 0xFFFFFFFF, 0
+        return SwarmState(
+            pos=pos, vel=vel, fit=fit, pbest_pos=pos, pbest_fit=fit,
+            gbest_pos=gbest_pos, gbest_fit=gbest_fit,
+            iteration=iteration, seed=seed)
+    finally:
+        _trace.end(tok)
 
 
 def _advance(cfg: PSOConfig, s: SwarmState, index_offset: int = 0,

@@ -46,6 +46,7 @@ from ..core.multi_swarm import ProblemRows, SwarmBatch
 from ..core.problem import Problem
 from ..core.pso import (ASYNC_SYNC_EVERY, PSOConfig, SwarmState,
                         hetero_member_config)
+from ..telemetry import trace as _trace
 from ..telemetry import zero_counts
 from . import pso_split, pso_step
 from .pso_step import KernelSpec
@@ -192,17 +193,44 @@ def _split_step(cfg, state, seeds, its, specs, table, fids, n: int,
     return run
 
 
+def _kernel_name(split: bool, sync_every: Optional[int]) -> str:
+    """The kernel a launch runs, as its ``ops.launch`` span names it: the
+    split path's kernels are ``split``."""
+    if split:
+        return "split"
+    return "fused_kernel" if sync_every is None else "async_kernel"
+
+
+def _launch(step, kernel: str, off: int, k: int,
+            sync_every: Optional[int]) -> None:
+    """``step(off, k)``, one call of ``kernel``'s wrapper, in an
+    ``ops.launch`` span whose ``args`` give the kernel, its iterations and
+    the ``sync_every`` that phases an async run's launches (a remainder is
+    a second launch in the same call: ``async_spans``)."""
+    tok = _trace.begin("ops.launch")
+    if tok is not None:
+        tok.args = (("kernel", kernel), ("iters", k),
+                    ("sync_every", sync_every))
+    try:
+        step(off, k)
+    finally:
+        _trace.end(tok)
+
+
 def _chunked(step, iters: int, stride: Optional[int], start: int, gf,
-             gp=None):
-    """Run ``step(offset, k)`` over ``iters`` iterations: in one call of
-    all of them (``stride`` None), or in chunks of ``stride`` (the last
+             gp=None, kernel: str = "fused_kernel",
+             sync_every: Optional[int] = None):
+    """Run ``step(offset, k)`` over ``iters`` iterations (``_launch``: a
+    call of ``kernel``'s wrapper, ``sync_every`` its phases): in one call
+    of all of them (``stride`` None), or in chunks of ``stride`` (the last
     shorter), copying the gbest fitness ``gf`` (and, given ``gp``, the
     gbest position) after each chunk into a tensor allocated once on its
     device, so sampling adds no host round trip. Returns (the absolute
-    iteration after each chunk, from ``start``, the [K, *gf.shape] samples,
-    the [K, *gp.shape] samples or None), or (None, None, None)."""
+    iteration after each chunk, from ``start``, the [K, *gf.shape]
+    samples, the [K, *gp.shape] samples or None), or (None, None,
+    None)."""
     if stride is None:
-        step(0, iters)
+        _launch(step, kernel, 0, iters, sync_every)
         return None, None, None
     offs = range(0, iters, stride)
     fits = torch.empty((len(offs),) + tuple(gf.shape), dtype=gf.dtype,
@@ -211,7 +239,7 @@ def _chunked(step, iters: int, stride: Optional[int], start: int, gf,
     its = []
     for j, off in enumerate(offs):
         k = min(stride, iters - off)
-        step(off, k)
+        _launch(step, kernel, off, k, sync_every)
         fits[j].copy_(gf)
         if gps is not None:
             gps[j].copy_(gp)
@@ -232,16 +260,21 @@ def _run_single(cfg: PSOConfig, s: SwarmState, iters: int,
     n, _ = s.pos.shape
     bn = _resolve_block(n, block_n)
     spec = kernel_spec(cfg)
-    ops = state_to_kernel(s)
     cnt = zero_counts(1, s.pos.device) if telemetry else None
-    lp = lf = None
-    if sync_every is not None:
-        nb = n // bn
-        if s.lbest_fit is not None and tuple(s.lbest_fit.shape) == (nb,):
-            lp, lf = pack_dmajor(s.lbest_pos), s.lbest_fit.clone()
-        else:                           # local bests seeded from gbest
-            lp, lf = ops[4][:, None].repeat(1, nb), ops[5].repeat(nb)
-    if spec.fitness == CONVERTED:
+    tok = _trace.begin("ops.pack")
+    try:
+        ops = state_to_kernel(s)
+        lp = lf = None
+        if sync_every is not None:
+            nb = n // bn
+            if s.lbest_fit is not None and tuple(s.lbest_fit.shape) == (nb,):
+                lp, lf = pack_dmajor(s.lbest_pos), s.lbest_fit.clone()
+            else:                       # local bests seeded from gbest
+                lp, lf = ops[4][:, None].repeat(1, nb), ops[5].repeat(nb)
+    finally:
+        _trace.end(tok)
+    split = spec.fitness == CONVERTED
+    if split:
         seeds, its = _seed_rows(s)
         state = ops[:4] + (ops[4][:, None], ops[5]) + (
             () if lp is None else (lp, lf))
@@ -259,10 +292,15 @@ def _run_single(cfg: PSOConfig, s: SwarmState, iters: int,
                                  sync_every=sync_every, block_n=bn,
                                  counts=cnt, topology=cfg.topology)
     its, fits, gps = _chunked(step, iters, stride, s.iteration, ops[5],
-                              ops[4] if positions else None)
-    out = kernel_to_state(s, *ops, iters)
-    if sync_every is not None:
-        out = out._replace(lbest_pos=unpack_dmajor(lp), lbest_fit=lf)
+                              ops[4] if positions else None,
+                              _kernel_name(split, sync_every), sync_every)
+    tok = _trace.begin("ops.unpack")
+    try:
+        out = kernel_to_state(s, *ops, iters)
+        if sync_every is not None:
+            out = out._replace(lbest_pos=unpack_dmajor(lp), lbest_fit=lf)
+    finally:
+        _trace.end(tok)
     return out, (its, None if fits is None else fits[:, 0], gps), cnt
 
 
@@ -366,19 +404,24 @@ def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
     cfg = cfg.resolved()
     s_cnt, n, _ = batch.pos.shape
     bn = _resolve_block(n, block_n)
-    ops, specs = _batch_to_kernel(cfg, batch, fids, table)
     cnt = zero_counts(s_cnt, batch.pos.device) if telemetry else None
-    lp = lf = None
-    if sync_every is not None:
-        nb = n // bn
-        if batch.lbest_fit is not None \
-                and tuple(batch.lbest_fit.shape) == (s_cnt, nb):
-            lp = pack_dmajor_batch(batch.lbest_pos)
-            lf = batch.lbest_fit.reshape(-1).clone()
-        else:                         # local bests seeded from each gbest
-            lp = ops[4].repeat_interleave(nb, dim=1)
-            lf = ops[5].repeat_interleave(nb)
-    if any(m.fitness == CONVERTED for m in specs):
+    tok = _trace.begin("ops.pack")
+    try:
+        ops, specs = _batch_to_kernel(cfg, batch, fids, table)
+        lp = lf = None
+        if sync_every is not None:
+            nb = n // bn
+            if batch.lbest_fit is not None \
+                    and tuple(batch.lbest_fit.shape) == (s_cnt, nb):
+                lp = pack_dmajor_batch(batch.lbest_pos)
+                lf = batch.lbest_fit.reshape(-1).clone()
+            else:                     # local bests seeded from each gbest
+                lp = ops[4].repeat_interleave(nb, dim=1)
+                lf = ops[5].repeat_interleave(nb)
+    finally:
+        _trace.end(tok)
+    split = any(m.fitness == CONVERTED for m in specs)
+    if split:
         step = _split_step(cfg, ops + (() if lp is None else (lp, lf)),
                            batch.seed, batch.iteration, specs,
                            (cfg.problem,) if fids is None else table, fids,
@@ -397,11 +440,16 @@ def _run_batch(cfg: PSOConfig, batch: SwarmBatch, iters: int,
                                        topology=cfg.topology)
     start = int(batch.iteration[0]) if stride is not None else 0
     its, fits, gps = _chunked(step, iters, stride, start, ops[5],
-                              ops[4] if positions else None)
-    out = _kernel_to_batch(batch, *ops, iters)
-    if sync_every is not None:
-        out = out._replace(lbest_pos=unpack_dmajor_batch(lp, s_cnt),
-                           lbest_fit=lf.reshape(s_cnt, nb))
+                              ops[4] if positions else None,
+                              _kernel_name(split, sync_every), sync_every)
+    tok = _trace.begin("ops.unpack")
+    try:
+        out = _kernel_to_batch(batch, *ops, iters)
+        if sync_every is not None:
+            out = out._replace(lbest_pos=unpack_dmajor_batch(lp, s_cnt),
+                               lbest_fit=lf.reshape(s_cnt, nb))
+    finally:
+        _trace.end(tok)
     return out, (its, fits, None if gps is None
                  else gps.transpose(1, 2).contiguous()), (
         None if cnt is None else cnt.reshape(s_cnt, 3))

@@ -24,9 +24,12 @@ constraints (``"sum(x)<=1"``-style expressions, repeatable, or the preset
 ``--penalty-weight``, repair, or projection), and the run then reports
 ``violation=``/``feasible=``. ``--telemetry`` sums the kernels' contention
 counters over the chunks; ``--trace-out`` and ``--metrics-out`` write a
-trace.json and a Prometheus exposition of the chunks; ``--profile-dir``
-brackets the run with ``telemetry.profiler_session``. With ``--kernel``
-the last line before the result counts the kernels' launches.
+trace.json and a Prometheus exposition of the chunks, the trace.json with
+the program's spans (``telemetry.trace``) beside the chunks, on one
+clock; ``--profile-dir`` brackets the run with
+``telemetry.profiler_session``, whose ``torch_trace.json`` holds the spans
+above the device's kernels. With ``--kernel`` the last line before the
+result counts the kernels' launches.
 """
 from __future__ import annotations
 
@@ -149,10 +152,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.telemetry and args.islands:
         ap.error("--telemetry is single-island; drop --islands")
     from ..kernels import ops, pso_step
+    from ..telemetry import trace as tracing
     trace = metrics = tel = None
     if args.trace_out:
-        from ..telemetry import TraceWriter
-        trace = TraceWriter()
+        trace = tracing.TraceWriter()
     if args.metrics_out:
         from ..serving import ServingMetrics
         metrics = ServingMetrics()
@@ -165,7 +168,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             torch.cuda.synchronize(dev)
         dur_us = (time.perf_counter() - t_start) * 1e6
         if trace is not None:
-            trace.complete(f"chunk @{done}", t_start * 1e6, dur_us,
+            trace.complete(f"chunk @{done}", tracing.wall_us(t_start * 1e6),
+                           dur_us,
                            process="solver", thread="chunks", cat="solve",
                            args={"iters": n, "variant": args.variant})
         if metrics is not None:
@@ -173,6 +177,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             metrics.inc("chunks")
 
     prof = contextlib.ExitStack()
+    if trace is not None:           # the program's spans beside the chunks
+        prof.enter_context(tracing.recording(trace))
     if args.profile_dir:
         from ..telemetry import profiler_session
         prof.enter_context(profiler_session(args.profile_dir))

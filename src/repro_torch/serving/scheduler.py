@@ -73,10 +73,13 @@ from ..api import History
 from ..launch.serve import (_HETERO, _HETERO_CANONICAL_FITNESS, BACKENDS,
                             SolveRequest, SolveResult, request_error,
                             resolve_backend)
+from ..telemetry.trace import now_us, wall_us
 from .compile_cache import CompileCache
 from .metrics import ServingMetrics
 
 def _now_us() -> float:
+    """The monotonic clock the metrics' durations are taken on; a trace
+    event's stamp is placed on the trace's clock (``wall_us``)."""
     return time.perf_counter() * 1e6
 
 
@@ -408,8 +411,9 @@ class ContinuousScheduler:
             a.history = []
         if self.trace is not None:
             self.trace.instant(
-                f"admit t{a.ticket}", a.admitted_us, process="serving",
-                thread=f"lane {lane.uid}", cat="admission",
+                f"admit t{a.ticket}", wall_us(a.admitted_us),
+                process="serving", thread=f"lane {lane.uid}",
+                cat="admission",
                 args={"slot": slot, "fitness": str(r.fitness),
                       "iters": r.iters})
         lane.slots[slot] = a
@@ -426,7 +430,7 @@ class ContinuousScheduler:
                     device=self.device)
         if self.trace is not None:
             self.trace.complete(
-                f"standalone t{a.ticket}", t0, _now_us() - t0,
+                f"standalone t{a.ticket}", wall_us(t0), _now_us() - t0,
                 process="serving", thread="standalone", cat="solve",
                 args={"fitness": str(r.fitness), "variant": r.variant,
                       "iters": r.iters})
@@ -457,7 +461,7 @@ class ContinuousScheduler:
             a.history.append((r.iters, gf))
         if self.trace is not None:
             self.trace.instant(
-                f"eject t{a.ticket}", _now_us(), process="serving",
+                f"eject t{a.ticket}", now_us(), process="serving",
                 thread=f"lane {lane.uid}", cat="admission",
                 args={"slot": slot, "remainder": rem})
         self._finish(a, gf, _device.host(st.gbest_pos),
@@ -476,7 +480,7 @@ class ContinuousScheduler:
                            gbest_fit=np.asarray(fits), violation=None)
         if self.trace is not None:
             self.trace.complete(
-                f"request t{a.ticket}", a.submitted_us,
+                f"request t{a.ticket}", wall_us(a.submitted_us),
                 now - a.submitted_us, process="requests",
                 thread=f"ticket {a.ticket}", cat="request",
                 args={"fitness": str(a.request.fitness),
@@ -526,13 +530,14 @@ class ContinuousScheduler:
         self.metrics.inc("lane_slots", lane.width)
         self.metrics.inc("lane_active_slots", lane.active_count)
         if self.trace is not None:
+            ts = wall_us(t0)
             self.trace.complete(
-                f"chunk {lane.chunks_dispatched}", t0, dur,
+                f"chunk {lane.chunks_dispatched}", ts, dur,
                 process="serving", thread=f"lane {lane.uid}",
                 cat="dispatch",
                 args={"active": lane.active_count, "width": lane.width,
                       "sync_every": lane.sync_every})
-            self.trace.counter(f"lane {lane.uid} fill", t0,
+            self.trace.counter(f"lane {lane.uid} fill", ts,
                                {"active": lane.active_count,
                                 "idle": lane.width - lane.active_count})
         fits = lane.program.gbest()[0] if self.record_history else None

@@ -12,11 +12,16 @@
 3. **Exporters** (``trace``, ``prometheus``): a Chrome/Perfetto
    ``trace.json`` writer and a Prometheus text-exposition renderer, the
    reference's, plus ``profiler_session`` on ``torch.profiler``.
+4. **Program spans** (``trace.begin``/``end``): ``api.solve``,
+   ``pso.init_swarm``, ``ops.pack``/``launch``/``unpack`` and ``api.read``,
+   stamped on the profiler's clock, recorded under a ``torch.profiler``
+   session or into a writer installed with ``recording``; ``spans()``
+   returns them.
 """
 from .counters import (COUNTER_NAMES, SLOTS_PER_SWARM, KernelCounters,
                        zero_counts)
 from .prometheus import prometheus_text
-from .trace import TraceWriter, profiler_session
+from .trace import TraceWriter, profiler_session, recording, spans
 
 __all__ = [
     "COUNTER_NAMES",
@@ -26,4 +31,6 @@ __all__ = [
     "prometheus_text",
     "TraceWriter",
     "profiler_session",
+    "recording",
+    "spans",
 ]
